@@ -1,0 +1,309 @@
+"""Transformer LM of the PyTorch port (counterpart of
+``mxnet_tpu/models/transformer.py``): the dense model and its KV-cached
+serving twin.
+
+Parameters come from the JAX package's param tree
+(``{"embed", "l{i}": {ln1, ln2, wq, wk, wv, wo, w1, w2}, "ln_f"}``) through
+:func:`params_from_jax`, which stores projection weights as ``nn.Linear``
+does ([out, in], the transpose of the tree's [in, out]) and keeps the
+embedding in f32, because the LM head multiplies against the f32 table.
+``transformer_lm(...)[0]`` makes that tree with the same numpy
+``RandomState`` draws as the JAX package, so ``init_fn(0)`` is bit-identical
+in both.
+
+Rounding sits where the JAX package puts it: rmsnorm in f32 and cast back;
+embedding and positional table each cast to the compute dtype before the
+add; logits as ``x.float() @ embed.T`` against the f32 table.
+
+Serving: the JAX version donates the cache to a jitted step. Here the
+cache tensors are preallocated once and prefill/decode write into them in
+place (advanced-index assignment), returning the same dict. A prefill
+whose slot vector is padded with the engine's scratch row writes that row
+several times; which write lands is undefined on CUDA, but only the
+scratch row is affected, and a live slot never repeats.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..context import resolve_device
+from ..ops import kernels as _kernels
+
+_NEG_INF = -1e30
+
+
+def _torch_dtype(dtype):
+    if dtype is None:
+        return torch.bfloat16
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[str(dtype)]
+
+
+def _host_array(a):
+    """A tree leaf as a numpy array torch can take (bf16 leaves widen to
+    f32 exactly)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        a = a.astype(np.float32)
+    return a
+
+
+def _param(a, device, dtype, transpose=False):
+    a = _host_array(a)
+    if transpose:
+        a = np.ascontiguousarray(a.T)
+    t = torch.from_numpy(np.array(a, copy=True)).to(device=device, dtype=dtype)
+    return nn.Parameter(t, requires_grad=False)
+
+
+class TransformerLayer(nn.Module):
+    """One pre-norm block's weights: rmsnorm gains ``ln1``/``ln2`` and the
+    projections ``wq wk wv wo w1 w2`` stored [out, in]."""
+
+    def __init__(self, tree, device, dtype):
+        super().__init__()
+        self.ln1 = _param(tree["ln1"], device, dtype)
+        self.ln2 = _param(tree["ln2"], device, dtype)
+        for name in ("wq", "wk", "wv", "wo", "w1", "w2"):
+            setattr(self, name, _param(tree[name], device, dtype, transpose=True))
+
+
+class TransformerParams(nn.Module):
+    """The port's parameters: f32 ``embed`` [vocab, d_model], ``layers``,
+    and the final rmsnorm gain ``ln_f``."""
+
+    def __init__(self, tree, device, dtype):
+        super().__init__()
+        n_layers = sum(1 for key in tree if key.startswith("l") and key[1:].isdigit())
+        for i in range(n_layers):
+            if "moe" in tree["l%d" % i]:
+                raise NotImplementedError(
+                    "MoE layers are not ported to PyTorch yet (parallel/moe.py)")
+        self.embed = _param(tree["embed"], device, torch.float32)
+        self.layers = nn.ModuleList(
+            TransformerLayer(tree["l%d" % i], device, dtype) for i in range(n_layers))
+        self.ln_f = _param(tree["ln_f"], device, dtype)
+
+    @property
+    def device(self):
+        return self.embed.device
+
+
+def params_from_jax(tree, device=None, dtype=None):
+    """The JAX param tree (numpy or ``np.asarray``-able leaves) as the
+    port's :class:`TransformerParams` on ``device`` (default: the CUDA
+    card), projections and gains in ``dtype`` (default bf16), the
+    embedding in f32."""
+    return TransformerParams(tree, resolve_device(device), _torch_dtype(dtype))
+
+
+def _sinusoid_pe(n_rows, d_model):
+    pos = np.arange(n_rows)[:, None] / (
+        10000 ** (np.arange(0, d_model, 2) / d_model)
+    )
+    return np.concatenate([np.sin(pos), np.cos(pos)], axis=-1)
+
+
+def _rmsnorm(x, g):
+    x32 = x.float()
+    n = x32 * torch.rsqrt(x32.square().mean(-1, keepdim=True) + 1e-6)
+    return (n * g).to(x.dtype)
+
+
+def _gelu(x):
+    return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
+
+
+def _ffn(x, layer, dtype):
+    h = _rmsnorm(x, layer.ln2.to(dtype))
+    h = _gelu(F.linear(h, layer.w1.to(dtype)))
+    return x + F.linear(h, layer.w2.to(dtype))
+
+
+def _qkv(h, layer, dtype, shape):
+    return tuple(F.linear(h, w.to(dtype)).reshape(shape)
+                 for w in (layer.wq, layer.wk, layer.wv))
+
+
+class _PETable:
+    """The sinusoid table, built on the host once and kept per device."""
+
+    def __init__(self, n_rows, d_model):
+        self.host = torch.from_numpy(_sinusoid_pe(n_rows, d_model))
+        self._on = {}
+
+    def get(self, device, dtype):
+        key = (str(device), dtype)
+        t = self._on.get(key)
+        if t is None:
+            t = self._on[key] = self.host.to(device=device, dtype=dtype)
+        return t
+
+
+def _init_fn_for(vocab, d_model, n_heads, n_layers, d_ff):
+    head_dim = d_model // n_heads
+
+    def init_fn(seed=0):
+        """The JAX package's numpy param tree, draw for draw."""
+        rng = np.random.RandomState(seed)
+
+        def w(*shape, scale=None):
+            scale = scale or (1.0 / np.sqrt(shape[0]))
+            return (rng.randn(*shape) * scale).astype(np.float32)
+
+        params = {"embed": w(vocab, d_model, scale=0.02)}
+        for i in range(n_layers):
+            params["l%d" % i] = {
+                "ln1": np.ones((d_model,), np.float32),
+                "ln2": np.ones((d_model,), np.float32),
+                "wq": w(d_model, n_heads * head_dim),
+                "wk": w(d_model, n_heads * head_dim),
+                "wv": w(d_model, n_heads * head_dim),
+                "wo": w(n_heads * head_dim, d_model),
+                "w1": w(d_model, d_ff),
+                "w2": w(d_ff, d_model),
+            }
+        params["ln_f"] = np.ones((d_model,), np.float32)
+        return params
+
+    return init_fn
+
+
+def transformer_lm(vocab=32000, d_model=512, n_heads=8, n_layers=4,
+                   d_ff=2048, dtype=None, moe_experts=0, moe_every=2):
+    """Returns ``(init_fn(seed) -> numpy param tree,
+    apply_fn(params, tokens, mesh=None) -> f32 logits [B, T, vocab])``;
+    ``params`` is ``params_from_jax(init_fn(seed), device, dtype)``.
+    Dense layers only: ``moe_experts > 0`` raises NotImplementedError."""
+    if moe_experts > 0:
+        raise NotImplementedError(
+            "MoE layers are not ported to PyTorch yet (parallel/moe.py)")
+    dtype = _torch_dtype(dtype)
+    head_dim = d_model // n_heads
+
+    @torch.inference_mode()
+    def apply_fn(params, tokens, mesh=None):
+        tokens = torch.as_tensor(tokens, device=params.device).long()
+        B, T = tokens.shape
+        pe = torch.from_numpy(_sinusoid_pe(T, d_model)).to(params.device, dtype)
+        x = params.embed[tokens].to(dtype) + pe[None]
+        for layer in params.layers:
+            h = _rmsnorm(x, layer.ln1.to(dtype))
+            q, k, v = _qkv(h, layer, dtype, (B, T, n_heads, head_dim))
+            o = _kernels.attention(q, k, v, causal=True, mesh=mesh)
+            x = x + F.linear(o.reshape(B, T, d_model), layer.wo.to(dtype))
+            x = _ffn(x, layer, dtype)
+        x = _rmsnorm(x, params.ln_f.to(dtype))
+        return x.float() @ params.embed.T
+
+    return _init_fn_for(vocab, d_model, n_heads, n_layers, d_ff), apply_fn
+
+
+def transformer_lm_serving(vocab=32000, d_model=512, n_heads=8, n_layers=4,
+                           d_ff=2048, dtype=None, max_len=256):
+    """KV-cached serving twin of :func:`transformer_lm`, on the same
+    parameters. Returns ``(init_cache, prefill, decode_step)``:
+
+    - ``init_cache(slots, device=None)`` → cache dict: ``k``/``v``
+      ``[L, slots, max_len, H, Dh]`` rings, ``pos_map`` (absolute position
+      per ring cell, -1 = empty) and ``length`` per slot, int32.
+    - ``prefill(params, cache, tokens[n, T], slots[n], lengths[n],
+      mesh=None)`` → ``(cache, last_logits[n, vocab])``: a causal forward
+      through :func:`ops.kernels.attention` whose per-layer K/V are written
+      into the cache rows of ``slots``.
+    - ``decode_step(params, cache, tokens[slots])`` →
+      ``(cache, logits[slots, vocab])``: one token for every slot against
+      the cache (inactive slots compute garbage the caller ignores).
+
+    The cache is updated in place; the returned dict is the one passed in.
+    """
+    dtype = _torch_dtype(dtype)
+    head_dim = d_model // n_heads
+    scale = 1.0 / math.sqrt(head_dim)
+    # absolute positions live past the ring window; size the PE table for
+    # the longest total sequence the engine may reach
+    pe_rows = max(4 * max_len, 1024)
+    pe_table = _PETable(pe_rows, d_model)
+
+    def init_cache(slots, device=None):
+        device = resolve_device(device)
+        shape = (n_layers, slots, max_len, n_heads, head_dim)
+        return {
+            "k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos_map": torch.full((slots, max_len), -1, dtype=torch.int32, device=device),
+            "length": torch.zeros((slots,), dtype=torch.int32, device=device),
+        }
+
+    @torch.inference_mode()
+    def prefill(params, cache, tokens, slots, lengths, mesh=None):
+        dev = params.device
+        tokens = torch.as_tensor(tokens, device=dev).long()
+        slots = torch.as_tensor(slots, device=dev).long()
+        lengths = torch.as_tensor(lengths, device=dev).long()
+        n, T = tokens.shape
+        if T > max_len:
+            raise ValueError("prefill bucket %d exceeds KV window %d" % (T, max_len))
+        pe = pe_table.get(dev, dtype)[:T]
+        x = params.embed[tokens].to(dtype) + pe[None]
+        ck, cv = cache["k"], cache["v"]
+        for i, layer in enumerate(params.layers):
+            h = _rmsnorm(x, layer.ln1.to(dtype))
+            q, k, v = _qkv(h, layer, dtype, (n, T, n_heads, head_dim))
+            o = _kernels.attention(q, k, v, causal=True, mesh=mesh)
+            x = x + F.linear(o.reshape(n, T, d_model), layer.wo.to(dtype))
+            x = _ffn(x, layer, dtype)
+            ck[i, slots, :T] = k
+            cv[i, slots, :T] = v
+        # reset the WHOLE ring row of each admitted slot: cells past the
+        # prompt stay -1 (empty), so a previous occupant's stale K/V can
+        # never leak into the new sequence's attention
+        cell = torch.arange(max_len, device=dev)[None, :]
+        row = torch.where(cell < lengths[:, None], cell, -1)
+        cache["pos_map"][slots] = row.to(torch.int32)
+        cache["length"][slots] = lengths.to(torch.int32)
+        # rmsnorm and the LM head are per row: take the last prompt row of
+        # each sequence first instead of computing [n, T, vocab] logits
+        last = x[torch.arange(n, device=dev), lengths - 1]
+        xf = _rmsnorm(last, params.ln_f.to(dtype))
+        return cache, xf.float() @ params.embed.T
+
+    @torch.inference_mode()
+    def decode_step(params, cache, tokens):
+        dev = params.device
+        tokens = torch.as_tensor(tokens, device=dev).long()
+        S = tokens.shape[0]
+        pos = cache["length"].long()  # [S] absolute position of the new token
+        idx = pos % max_len  # ring cell it lands in
+        rows = torch.arange(S, device=dev)
+        # same rounding as prefill: embed and PE each cast to the compute
+        # dtype BEFORE the add
+        pe = pe_table.get(dev, dtype)
+        x = params.embed[tokens].to(dtype) + pe[pos.clamp(0, pe_rows - 1)]
+        pos_map = cache["pos_map"]
+        pos_map[rows, idx] = pos.to(torch.int32)
+        mask = (pos_map >= 0) & (pos_map <= pos[:, None])  # [S, M]
+        ck, cv = cache["k"], cache["v"]
+        for i, layer in enumerate(params.layers):
+            h = _rmsnorm(x, layer.ln1.to(dtype))
+            q, k, v = _qkv(h, layer, dtype, (S, n_heads, head_dim))
+            ck[i, rows, idx] = k
+            cv[i, rows, idx] = v
+            # same numerics as reference_attention: f32 scores and softmax
+            s = torch.einsum("shd,smhd->shm", q, ck[i]).float() * scale
+            s = s.masked_fill(~mask[:, None, :], _NEG_INF)
+            prob = torch.softmax(s, dim=-1)
+            o = torch.einsum("shm,smhd->shd", prob, cv[i].float()).to(dtype)
+            x = x + F.linear(o.reshape(S, d_model), layer.wo.to(dtype))
+            x = _ffn(x, layer, dtype)
+        xf = _rmsnorm(x, params.ln_f.to(dtype))
+        cache["length"].add_(1)
+        return cache, xf.float() @ params.embed.T
+
+    return init_cache, prefill, decode_step

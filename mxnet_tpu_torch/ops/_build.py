@@ -1,0 +1,115 @@
+"""Builds the port's CUDA kernels at first use and loads them with ctypes.
+
+Each source under ``mxnet_tpu_torch/csrc/`` is compiled by ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface, named after
+the hash of its source and flags, in ``build/kernels/`` at the root of
+the checkout (listed in ``.gitignore``). A library already built for the
+same hash is reused; otherwise the first call that needs a kernel builds
+it, so a fresh checkout needs nothing but ``nvcc``. ``build()`` starts
+one ``nvcc`` per source, all together. A failed build raises
+:class:`KernelBuildError` with the compiler's output — there is no
+fallback.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+from ..base import MXNetError
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+# kernel name -> (source file, C entry point, ctypes argtypes)
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+KERNELS = {
+    "flash_attn_fwd": (
+        "flash_attn_fwd.cu", "mxtt_flash_attn_fwd",
+        [_P] * 5 + [_I] * 4 + [_L] * 9 + [_F, _I, _I, _P]),
+}
+
+_lock = threading.Lock()
+_loaded = {}
+
+
+class KernelBuildError(MXNetError):
+    """nvcc is missing or refused a kernel source."""
+
+
+def nvcc_path():
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    raise KernelBuildError(
+        "nvcc not found on PATH or under CUDA_HOME; the port's CUDA kernels "
+        "are built from source at first use")
+
+
+def library_path(name):
+    """Where the library for kernel ``name`` lives: keyed on the hash of
+    its source and the compiler flags."""
+    src = CSRC / KERNELS[name][0]
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / ("%s-%s.so" % (name, digest.hexdigest()[:16]))
+
+
+def build(names=None):
+    """Build every named kernel (default: all) that has no library for its
+    current hash, one ``nvcc`` each, all started together. Returns
+    ``{name: compiler log}`` for the kernels built by this call."""
+    names = list(KERNELS) if names is None else list(names)
+    todo = {n: library_path(n) for n in names if not library_path(n).is_file()}
+    if not todo:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = {}
+    for name, lib in todo.items():
+        tmp = lib.with_name("%s.tmp%d" % (lib.name, os.getpid()))
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / KERNELS[name][0])]
+        procs[name] = (tmp, lib, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs, failed = {}, []
+    for name, (tmp, lib, proc) in procs.items():
+        out, _ = proc.communicate()
+        logs[name] = out
+        if proc.returncode != 0:
+            failed.append("%s (nvcc exit %d):\n%s" % (name, proc.returncode, out))
+            continue
+        os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing
+        lib.with_suffix(".log").write_text(out)
+    if failed:
+        raise KernelBuildError("kernel build failed: " + "\n".join(failed))
+    return logs
+
+
+def load(name):
+    """The ctypes entry point of kernel ``name``, built first if needed."""
+    fn = _loaded.get(name)
+    if fn is not None:
+        return fn
+    with _lock:
+        if name not in _loaded:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            _, entry, argtypes = KERNELS[name]
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _loaded[name] = fn
+        return _loaded[name]

@@ -42,6 +42,10 @@ def pytest_configure(config):
         "SIGKILL-chain tests excluded from the tier-1 budget "
         "(-m 'not slow'); the full suite runs them nightly — see "
         "tests/README.md")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA device (the PyTorch port's hand-written "
+        "kernels); skips without one")
 
 
 @pytest.hookimpl(wrapper=True)
