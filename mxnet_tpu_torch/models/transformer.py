@@ -9,7 +9,13 @@ does ([out, in], the transpose of the tree's [in, out]) and keeps the
 embedding in f32, because the LM head multiplies against the f32 table.
 ``transformer_lm(...)[0]`` makes that tree with the same numpy
 ``RandomState`` draws as the JAX package, so ``init_fn(0)`` is bit-identical
-in both.
+in both. :func:`params_to_jax` and :func:`grads_to_jax` carry parameters and
+their gradients back into that tree's layout.
+
+Training: ``apply_fn`` is differentiable. Parameters made with
+``dtype=torch.float32`` and ``.requires_grad_()`` are f32 masters; each use
+casts to the compute dtype, as ``p["wq"].astype(dtype)`` does in JAX, so
+the gradients reach the masters in f32.
 
 Rounding sits where the JAX package puts it: rmsnorm in f32 and cast back;
 embedding and positional table each cast to the compute dtype before the
@@ -103,6 +109,38 @@ def params_from_jax(tree, device=None, dtype=None):
     return TransformerParams(tree, resolve_device(device), _torch_dtype(dtype))
 
 
+def _tree(params, leaf):
+    """The JAX param tree of ``params`` with ``leaf(tensor)`` at each leaf
+    (numpy f32); projections transposed back to [in, out]."""
+    def host(x, transpose=False):
+        a = leaf(x).detach().float().cpu().numpy()
+        return np.ascontiguousarray(a.T) if transpose else a
+
+    tree = {"embed": host(params.embed), "ln_f": host(params.ln_f)}
+    for i, layer in enumerate(params.layers):
+        tree["l%d" % i] = {"ln1": host(layer.ln1), "ln2": host(layer.ln2)}
+        for name in ("wq", "wk", "wv", "wo", "w1", "w2"):
+            tree["l%d" % i][name] = host(getattr(layer, name), transpose=True)
+    return tree
+
+
+def params_to_jax(params):
+    """The inverse of :func:`params_from_jax`: the parameters as the JAX
+    package's numpy param tree (f32 leaves, projections [in, out])."""
+    return _tree(params, lambda p: p)
+
+
+def grads_to_jax(params):
+    """The parameters' ``.grad`` as a tree in the JAX layout of
+    :func:`params_to_jax`; raises if a parameter has no gradient."""
+    def grad(p):
+        if p.grad is None:
+            raise ValueError("a parameter has no gradient; run backward first")
+        return p.grad
+
+    return _tree(params, grad)
+
+
 def _sinusoid_pe(n_rows, d_model):
     pos = np.arange(n_rows)[:, None] / (
         10000 ** (np.arange(0, d_model, 2) / d_model)
@@ -179,19 +217,24 @@ def transformer_lm(vocab=32000, d_model=512, n_heads=8, n_layers=4,
                    d_ff=2048, dtype=None, moe_experts=0, moe_every=2):
     """Returns ``(init_fn(seed) -> numpy param tree,
     apply_fn(params, tokens, mesh=None) -> f32 logits [B, T, vocab])``;
-    ``params`` is ``params_from_jax(init_fn(seed), device, dtype)``.
+    ``params`` is ``params_from_jax(init_fn(seed), device, dtype)``, or,
+    to train, ``params_from_jax(init_fn(seed), device,
+    torch.float32).requires_grad_()`` with ``dtype`` the compute dtype.
     Dense layers only: ``moe_experts > 0`` raises NotImplementedError."""
     if moe_experts > 0:
         raise NotImplementedError(
             "MoE layers are not ported to PyTorch yet (parallel/moe.py)")
     dtype = _torch_dtype(dtype)
     head_dim = d_model // n_heads
+    pe_tables = {}  # T -> _PETable of T rows
 
-    @torch.inference_mode()
     def apply_fn(params, tokens, mesh=None):
+        """f32 logits [B, T, vocab]; differentiable in ``params``."""
         tokens = torch.as_tensor(tokens, device=params.device).long()
         B, T = tokens.shape
-        pe = torch.from_numpy(_sinusoid_pe(T, d_model)).to(params.device, dtype)
+        if T not in pe_tables:
+            pe_tables[T] = _PETable(T, d_model)
+        pe = pe_tables[T].get(params.device, dtype)
         x = params.embed[tokens].to(dtype) + pe[None]
         for layer in params.layers:
             h = _rmsnorm(x, layer.ln1.to(dtype))

@@ -2,11 +2,12 @@
 
 Each source under ``mxnet_tpu_torch/csrc/`` is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, named after
-the hash of its source and flags, in ``build/kernels/`` at the root of
-the checkout (listed in ``.gitignore``). A library already built for the
-same hash is reused; otherwise the first call that needs a kernel builds
-it, so a fresh checkout needs nothing but ``nvcc``. ``build()`` starts
-one ``nvcc`` per source, all together. A failed build raises
+the source and the hash of its text and flags, in ``build/kernels/`` at
+the root of the checkout (listed in ``.gitignore``). One source may hold
+several kernels' entry points. A library already built for the same hash
+is reused; otherwise the first call that needs a kernel builds it, so a
+fresh checkout needs nothing but ``nvcc``. ``build()`` starts one
+``nvcc`` per source, all together. A failed build raises
 :class:`KernelBuildError` with the compiler's output — there is no
 fallback.
 """
@@ -37,6 +38,12 @@ KERNELS = {
     "flash_attn_fwd": (
         "flash_attn_fwd.cu", "mxtt_flash_attn_fwd",
         [_P] * 5 + [_I] * 4 + [_L] * 9 + [_F, _I, _I, _P]),
+    "flash_attn_bwd_dq": (
+        "flash_attn_bwd.cu", "mxtt_flash_attn_bwd_dq",
+        [_P] * 7 + [_I] * 4 + [_L] * 12 + [_F, _I, _I, _P]),
+    "flash_attn_bwd_dkv": (
+        "flash_attn_bwd.cu", "mxtt_flash_attn_bwd_dkv",
+        [_P] * 8 + [_I] * 4 + [_L] * 12 + [_F, _I, _I, _P]),
 }
 
 _lock = threading.Lock()
@@ -61,28 +68,33 @@ def nvcc_path():
 
 
 def library_path(name):
-    """Where the library for kernel ``name`` lives: keyed on the hash of
-    its source and the compiler flags."""
+    """Where the library holding kernel ``name`` lives: named after its
+    source, keyed on the hash of the source and the compiler flags."""
     src = CSRC / KERNELS[name][0]
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / ("%s-%s.so" % (name, digest.hexdigest()[:16]))
+    return BUILD_DIR / ("%s-%s.so" % (src.stem, digest.hexdigest()[:16]))
 
 
 def build(names=None):
-    """Build every named kernel (default: all) that has no library for its
-    current hash, one ``nvcc`` each, all started together. Returns
-    ``{name: compiler log}`` for the kernels built by this call."""
+    """Build the sources of every named kernel (default: all) that have no
+    library for their current hash, one ``nvcc`` per source, all started
+    together. Returns ``{source stem: compiler log}`` for the sources built
+    by this call."""
     names = list(KERNELS) if names is None else list(names)
-    todo = {n: library_path(n) for n in names if not library_path(n).is_file()}
+    todo = {}
+    for n in names:
+        lib = library_path(n)
+        if not lib.is_file():
+            todo[CSRC / KERNELS[n][0]] = lib
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     procs = {}
-    for name, lib in todo.items():
+    for src, lib in todo.items():
         tmp = lib.with_name("%s.tmp%d" % (lib.name, os.getpid()))
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / KERNELS[name][0])]
-        procs[name] = (tmp, lib, subprocess.Popen(
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        procs[src.stem] = (tmp, lib, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     logs, failed = {}, []
     for name, (tmp, lib, proc) in procs.items():

@@ -44,21 +44,30 @@ def _labelled(name, fn):
     return call
 
 
-def summarize(events):
-    """Charge every device event to the model call that started last
-    before it; see the module docstring."""
+def card_line():
+    """The card's name and power limit, as ``nvidia-smi`` reports them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def summarize(events, ranges=_RANGES):
+    """Charge every device event to the labelled host range (one of
+    ``ranges``) that started last before it; see the module docstring.
+    The caller makes sure the ranges' device work does not overlap."""
     cuda = torch.autograd.DeviceType.CUDA
     calls = sorted((e.time_range.start, e.name) for e in events
-                   if e.name in _RANGES and e.device_type != cuda)
+                   if e.name in ranges and e.device_type != cuda)
     if not calls:
-        raise RuntimeError("the trace holds no prefill or decode call")
+        raise RuntimeError("the trace holds none of the ranges %s" % (ranges,))
     starts = [c[0] for c in calls]
     # the profiler mirrors each labelled range onto the device timeline;
     # those copies are not device work
-    device = [e for e in events if e.device_type == cuda and e.name not in _RANGES]
+    device = [e for e in events if e.device_type == cuda and e.name not in ranges]
     if not device:
         raise RuntimeError("the trace holds no device activity")
-    per = {name: {"calls": 0, "device_us": 0.0, "kernels": 0} for name in _RANGES}
+    per = {name: {"calls": 0, "device_us": 0.0, "kernels": 0} for name in ranges}
     for _, name in calls:
         per[name]["calls"] += 1
     by_kernel = collections.defaultdict(lambda: [0.0, 0])
@@ -101,9 +110,7 @@ def main(argv=None):
     from ..serving import GenerationEngine
 
     dev = torch.device("cuda", 0)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    card = card_line()
     init_fn, _ = tfm.transformer_lm(dtype=torch.bfloat16, **FULL)
     params = tfm.params_from_jax(init_fn(0), device=dev, dtype=torch.bfloat16)
     init_cache, prefill, decode_step = tfm.transformer_lm_serving(

@@ -309,6 +309,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import sys\n"
         "import mxnet_tpu_torch, mxnet_tpu_torch.serving.decode\n"
         "import mxnet_tpu_torch.models.transformer, mxnet_tpu_torch.ops.kernels\n"
+        "import mxnet_tpu_torch.examples.train_transformer_lm\n"
+        "import mxnet_tpu_torch.tools.transformer_bench, mxnet_tpu_torch.tools.trace_serving\n"
         "bad = [m for m in ('jax', 'jaxlib', 'mxnet_tpu') if m in sys.modules]\n"
         "built = [m for m in sys.modules if m.startswith('triton')]\n"
         "print(bad, built)\n"
@@ -332,7 +334,7 @@ def test_port_sources_name_no_jax_import():
                     src = fh.read()
                 assert not pat.search(src), os.path.join(root, f)
                 scanned += 1
-    assert scanned >= 10
+    assert scanned >= 14
 
 
 @pytest.mark.parametrize("cap,base", [(1, 1), (6, 1), (8, 1), (2048, 8), (16, 8)])
