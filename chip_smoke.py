@@ -36,13 +36,41 @@ Phases, each fatal on failure:
    batch of its corpus: every loss finite, the last below the first, and
    the forward, dq and dk/dv kernels each launched exactly n_layers times
    per step (counts zeroed just before); step ms, tokens/s, peak memory.
-8. the kernels line: per kernel its launches on the main paths, error
-   against the plain version, time (CUDA events, median, L2 flushed
-   before each launch), the plain version's time, the least time the
-   card could take (bytes at 3.35 TB/s or operations at 989 TFLOP/s,
+8. attention kernel times: per flash kernel its launches on the main
+   paths, error against the plain version, time (CUDA events, median, L2
+   flushed before each launch), the plain version's time, the least time
+   the card could take (bytes at 3.35 TB/s or operations at 989 TFLOP/s,
    H100 SXM data sheet) and one PyTorch call computing the same function
    as a yardstick the port never calls (scaled_dot_product_attention, and
    its backward for dq, dk and dv together).
+9. conv-backward kernels vs plain: K2 (conv_bwd_filter) and K3
+   (conv_bwd_input) against their plain versions on every distinct
+   in-envelope convolution shape of ResNet-50 at batch 32 (from
+   ``infer_shape``) and on ragged small shapes (N 1 and 3, H x W 7 x 7 and
+   9 x 11, k 1/3/5, pad 0-2), f32 and bf16: the f32 outputs before any
+   cast within 1e-4 of max|plain| (both sum the same f32 products in
+   another order), and a second launch gives the same bits.
+10. ResNet-50 gradients, f32: full width and depth, batch 2, 224 x 224,
+    weights from ``init_params``: every parameter gradient and new aux
+    state through K2/K3 against the same through their plain versions, at
+    rtol = atol = 1e-3 of each tensor's max|.|; each kernel ran 46 times.
+    A tensor that two runs of the plain path do not reproduce to 1e-3 of
+    its max (bn0_gamma: a cancelling sum, moved by ops outside K2/K3 that
+    are not bitwise repeatable) is held to three times that spread.
+11. ResNet-50 training (main path 3): ``tools/resnet_bench.py``'s step
+    (bench.py's SGD-momentum step) at batch 32, one warm-up and 5 steps on
+    one fixed random batch, in f32 (TF32 off) and in bf16: every loss
+    (the cross-entropy of the softmax output) finite, the last below the
+    first, K2 and K3 each launched exactly 46 times a step (counts zeroed
+    just before); step ms, img/s, model TFLOP/s, peak memory.
+12. conv kernel times: K2, K3, their plain versions and the library calls
+    (``torch.nn.grad.conv2d_weight`` / ``conv2d_input``, which the port
+    never calls) at every distinct in-envelope ResNet-50 shape at batch
+    32, bf16 and f32; the launch-weighted total a step; the kernels-line
+    entry at the shape where the kernel spends the most of a bf16 step,
+    with bound = max(bytes / 3.35 TB/s, 2·N·OH·OW·O·C·kh·kw / 989 TFLOP/s).
+
+Then the kernels line: the five kernels, K4f, K4dq, K4dkv, K2 and K3.
 
 The last line of output is {"ok": true, "device": {...}}. Without a CUDA
 device, or without the package beside this script, it exits non-zero and
@@ -70,6 +98,18 @@ MAX_NEW = 32
 TRAIN = dict(batch_size=8, seq_len=2047, steps=10, lr=3e-2)  # T = 2047
 BWD_CHECK_T = (7, 100, 128, 512, 1000, 2048)
 BWD_TIME_SHAPE = (8, 2047, 16, 64)  # n, T, H, D of the training path's attention
+RESNET_BATCH = 32
+RESNET_STEPS = 5
+RESNET_CONVS = 46  # in-envelope convolutions of ResNet-50: K2 and K3 launches a step
+# ragged (data, weight, pad) shapes: N 1 and 3, H x W 7 x 7 and 9 x 11, k 1/3/5, pad 0-2
+CONV_RAGGED = [
+    ((1, 8, 7, 7), (16, 8, 3, 3), (1, 1)),
+    ((3, 16, 9, 11), (8, 16, 1, 1), (0, 0)),
+    ((3, 24, 9, 11), (40, 24, 5, 5), (2, 2)),
+    ((1, 64, 7, 7), (72, 64, 3, 3), (0, 0)),
+    ((3, 8, 9, 11), (8, 8, 5, 5), (1, 1)),
+    ((1, 72, 9, 11), (64, 72, 1, 1), (0, 0)),
+]
 
 
 def log(*args):
@@ -245,8 +285,14 @@ def phase_serving_f32(tfm, kernels, dev):
 
 
 def zero_counts(kernels):
-    for fn in (kernels.flash_attention, kernels.flash_attention_dq, kernels.flash_attention_dkv):
+    for fn in (kernels.flash_attention, kernels.flash_attention_dq, kernels.flash_attention_dkv,
+               kernels.conv_bwd_filter, kernels.conv_bwd_input):
         fn.launches = 0
+
+
+def conv_counts(kernels):
+    return {"conv_bwd_filter": kernels.conv_bwd_filter.launches,
+            "conv_bwd_input": kernels.conv_bwd_input.launches}
 
 
 def read_counts(kernels):
@@ -511,6 +557,260 @@ def phase_bwd_times(kernels, dev, launches):
     return entries
 
 
+def resnet_conv_shapes(resnet, kernels, batch):
+    """{(data, weight, pad): convolutions of that shape} over ResNet-50's
+    in-envelope convolutions at ``batch``, 3 x 224 x 224, from infer_shape."""
+    shapes = {}
+    for layer in resnet.conv_layers(resnet.get_symbol(), (batch, 3, 224, 224)):
+        if kernels.conv_bwd_plan(layer["data"], layer["weight"], layer["stride"], layer["pad"],
+                                 layer["dilate"], "float32"):
+            key = (layer["data"], layer["weight"], layer["pad"])
+            shapes[key] = shapes.get(key, 0) + 1
+    assert sum(shapes.values()) == RESNET_CONVS, shapes
+    return shapes
+
+
+def conv_inputs(dshape, wshape, pad, dtype, dev, rng):
+    """x, w and an output gradient g of one convolution shape."""
+    import torch
+
+    n, _, h, w = dshape
+    o, _, kh, kw = wshape
+    oshape = (n, o, h + 2 * pad[0] - kh + 1, w + 2 * pad[1] - kw + 1)
+    x = _randn(dshape, dtype, dev, rng)
+    wt = (0.1 * _randn(wshape, torch.float32, dev, rng)).to(dtype)
+    g = _randn(oshape, dtype, dev, rng)
+    return x, wt, g
+
+
+def conv_errors(kernels, x, w, g, dshape, wshape, pad):
+    """Per conv kernel: max |kernel - plain| / max |plain| of the f32
+    output, the max abs error, and whether a second launch gave the same
+    bits."""
+    import torch
+
+    got = {"conv_bwd_filter": kernels.conv_bwd_filter(x, g, wshape, pad),
+           "conv_bwd_input": kernels.conv_bwd_input(g, w, dshape, pad)}
+    torch.cuda.synchronize()
+    again = {"conv_bwd_filter": kernels.conv_bwd_filter(x, g, wshape, pad),
+             "conv_bwd_input": kernels.conv_bwd_input(g, w, dshape, pad)}
+    torch.cuda.synchronize()
+    want = {"conv_bwd_filter": kernels.conv_bwd_filter_reference(x, g, wshape, pad),
+            "conv_bwd_input": kernels.conv_bwd_input_reference(g, w, dshape, pad)}
+    out = {}
+    for name in got:
+        a, b = got[name], want[name]
+        assert a.dtype == torch.float32 and a.shape == b.shape, (name, a.dtype, a.shape)
+        if not (bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all())):
+            raise AssertionError("%s or its plain version is not finite" % name)
+        diff = (a - b).abs().max().item()
+        out[name] = {"rel_err": diff / max(b.abs().max().item(), 1e-30), "max_abs_err": diff,
+                     "bitwise_repeat": torch.equal(a, again[name])}
+    return out
+
+
+def phase_conv_checks(kernels, resnet, dev):
+    import torch
+
+    rng = np.random.default_rng(7)
+    cases = list(resnet_conv_shapes(resnet, kernels, RESNET_BATCH)) + CONV_RAGGED
+    worst, errs = {}, {}
+    for dshape, wshape, pad in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            key = str(dtype).split(".")[-1]
+            args = conv_inputs(dshape, wshape, pad, dtype, dev, rng)
+            for name, e in conv_errors(kernels, *args, dshape, wshape, pad).items():
+                log("  %s data=%s weight=%s pad=%s %s: rel_err %.3g (tol 1e-4) max_abs_err "
+                    "%.3g, bitwise repeat %s" % (name, dshape, wshape, pad, key, e["rel_err"],
+                                                 e["max_abs_err"], e["bitwise_repeat"]))
+                if not e["rel_err"] <= 1e-4:
+                    raise AssertionError("%s disagrees with the plain version" % name)
+                if not e["bitwise_repeat"]:
+                    raise AssertionError("%s is not bitwise repeatable" % name)
+                worst[name + " " + key] = max(worst.get(name + " " + key, 0.0), e["rel_err"])
+                errs[(name, dshape, wshape, pad, key)] = e
+    log("phase 9: conv-backward kernels vs plain ok over %d shapes, worst rel_err %s"
+        % (len(cases), json.dumps(worst)))
+    return worst, errs
+
+
+def phase_resnet_grads_f32(resnet_bench, kernels, dev):
+    import torch
+
+    from mxnet_tpu_torch.executor import _GraphProgram
+
+    _, (params, _, aux), data, label, symbol = resnet_bench.build_step(2, False, dev)
+    program = _GraphProgram(symbol)
+
+    def grads():
+        outs, new_aux = program({**params, "data": data, "softmax_label": label}, aux, None,
+                                True)
+        got = torch.autograd.grad(outs[0].sum(), list(params.values()), allow_unused=True)
+        torch.cuda.synchronize()
+        out = {n: torch.zeros_like(p) if g is None else g
+               for (n, p), g in zip(params.items(), got)}
+        out.update({"aux " + n: v.detach() for n, v in new_aux.items()})
+        return out
+
+    zero_counts(kernels)
+    got = grads()
+    counts = conv_counts(kernels)
+    swapped = (kernels.conv_bwd_filter, kernels.conv_bwd_input)
+    kernels.conv_bwd_filter = kernels.conv_bwd_filter_reference
+    kernels.conv_bwd_input = kernels.conv_bwd_input_reference
+    try:
+        want, again = grads(), grads()
+    finally:
+        kernels.conv_bwd_filter, kernels.conv_bwd_input = swapped
+    assert counts == dict.fromkeys(counts, RESNET_CONVS), counts
+    worst, noisy = 0.0, {}
+    for name, w in want.items():
+        g = got[name]
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError("%s is not finite" % name)
+        m = w.abs().max().clamp_min(1e-30)
+        err = ((g - w).abs().max() / m).item()
+        # the plain path run twice: ops outside K2/K3 are not bitwise
+        # repeatable, which shows in gradients that are tiny cancelling
+        # sums (bn0_gamma); there the bound is that spread
+        spread = ((again[name] - w).abs().max() / m).item()
+        if spread > 1e-3:
+            noisy[name] = {"err": err, "plain_run_to_run": spread}
+            if not err <= 3 * spread:
+                raise AssertionError("%s: kernel vs plain %.3g of max, plain vs plain %.3g"
+                                     % (name, err, spread))
+            continue
+        torch.testing.assert_close(g / m, w / m, rtol=1e-3, atol=1e-3, msg=name)
+        worst = max(worst, err)
+    log("phase 10: f32 ResNet-50 (batch 2, 224x224) gradients and aux, K2/K3 vs plain: worst "
+        "err %.3g of max (rtol = atol = 1e-3) over %d tensors; not repeatable between two plain "
+        "runs (held to 3x that spread): %s; launches %s"
+        % (worst, len(want) - len(noisy), json.dumps(noisy), json.dumps(counts)))
+    return {"worst_rel_err": worst, "tensors": len(want), "noisy": noisy, "launches": counts}
+
+
+def phase_resnet_train(resnet_bench, kernels, dev, dtype):
+    import torch
+
+    bf16 = dtype == "bfloat16"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    step, (params, moms, aux), data, label, symbol = resnet_bench.build_step(
+        RESNET_BATCH, bf16, dev)
+    flops = 3.0 * resnet_bench.model_flops(symbol, tuple(data.shape))
+    setup_s = time.perf_counter() - t0
+    zero_counts(kernels)  # counts from here are this path's
+    losses, stamps, per_step = [], [time.perf_counter()], []
+    for _ in range(1 + RESNET_STEPS):
+        aux, prob = step(params, moms, aux, data, label)
+        losses.append(float(resnet_bench.cross_entropy(prob, label)))  # synchronises
+        stamps.append(time.perf_counter())
+        per_step.append(conv_counts(kernels))
+    flash = read_counts(kernels)
+    prev = dict.fromkeys(per_step[0], 0)
+    for i, c in enumerate(per_step):
+        for name, n in c.items():
+            assert n - prev[name] == RESNET_CONVS, (dtype, i, name, n - prev[name])
+        prev = c
+    assert flash == dict.fromkeys(flash, 0), flash
+    assert all(np.isfinite(losses)), losses
+    assert losses[-1] < losses[0], losses
+    step_s = [b - a for a, b in zip(stamps[1:], stamps[2:])]  # after the warm-up step
+    med = statistics.median(step_s)
+    res = {
+        "dtype": dtype, "batch": RESNET_BATCH, "steps": RESNET_STEPS, "warmup": 1,
+        "losses": losses, "setup_s": setup_s,
+        "first_step_ms_with_build": 1e3 * (stamps[1] - stamps[0]),
+        "step_ms_median": 1e3 * med, "step_ms_mean": 1e3 * statistics.mean(step_s),
+        "img_per_s": RESNET_BATCH / med, "tflops_per_step": flops / 1e12,
+        "tflops_per_s": flops / med / 1e12,
+        "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+        "launches": per_step[-1], "tf32": False,
+    }
+    log("phase 11: ResNet-50 %s batch %d, 1 + %d steps of resnet_bench's step: %s"
+        % (dtype, RESNET_BATCH, RESNET_STEPS, json.dumps(res)))
+    return res
+
+
+def conv_work(name, dshape, wshape, pad, esize):
+    """(flops, bytes) of one kernel call: 2·N·OH·OW·O·C·kh·kw; each input
+    read once, the f32 output written once."""
+    n, c, h, w = dshape
+    o, _, kh, kw = wshape
+    oh, ow = h + 2 * pad[0] - kh + 1, w + 2 * pad[1] - kw + 1
+    flops = 2.0 * n * oh * ow * o * c * kh * kw
+    x, g, wt = n * c * h * w, n * o * oh * ow, o * c * kh * kw
+    if name == "conv_bwd_filter":
+        return flops, (x + g) * esize + 4 * wt
+    return flops, (g + wt) * esize + 4 * x
+
+
+def phase_conv_times(kernels, resnet, dev, launches, errs):
+    """Kernels-line entries of K2 and K3; see the module docstring."""
+    import torch
+    from torch.nn.grad import conv2d_input, conv2d_weight
+
+    rng = np.random.default_rng(8)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    shapes = resnet_conv_shapes(resnet, kernels, RESNET_BATCH)
+    rows = {"conv_bwd_filter": [], "conv_bwd_input": []}
+    for dtype in (torch.bfloat16, torch.float32):
+        key = str(dtype).split(".")[-1]
+        for (dshape, wshape, pad), count in shapes.items():
+            x, w, g = conv_inputs(dshape, wshape, pad, dtype, dev, rng)
+            calls = {
+                "conv_bwd_filter": (
+                    lambda: kernels.conv_bwd_filter(x, g, wshape, pad),
+                    lambda: kernels.conv_bwd_filter_reference(x, g, wshape, pad),
+                    lambda: conv2d_weight(x, wshape, g, padding=pad)),
+                "conv_bwd_input": (
+                    lambda: kernels.conv_bwd_input(g, w, dshape, pad),
+                    lambda: kernels.conv_bwd_input_reference(g, w, dshape, pad),
+                    lambda: conv2d_input(dshape, w, g, padding=pad)),
+            }
+            for name, (kern, plain, lib) in calls.items():
+                flops, nbytes = conv_work(name, dshape, wshape, pad, x.element_size())
+                t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+                row = {
+                    "dtype": key, "data": dshape, "weight": wshape, "pad": pad,
+                    "convs_per_step": count, "ms": time_ms(kern, 10, 2, flush),
+                    "plain_ms": time_ms(plain, 3, 1, flush), "library_ms": time_ms(lib, 10, 2, flush),
+                    "bound_ms": max(t_ops, t_bytes),
+                    "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                    "flops": flops, "bytes": nbytes,
+                    "max_abs_err": errs[(name, dshape, wshape, pad, key)]["max_abs_err"],
+                    "rel_err": errs[(name, dshape, wshape, pad, key)]["rel_err"],
+                }
+                rows[name].append(row)
+                log("  %s %s" % (name, json.dumps(row)))
+    entries = []
+    for name, shape_rows in rows.items():
+        per_step = {}
+        for key in ("bfloat16", "float32"):
+            mine = [r for r in shape_rows if r["dtype"] == key]
+            per_step[key] = {f: sum(r[f] * r["convs_per_step"] for r in mine)
+                             for f in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        head = max((r for r in shape_rows if r["dtype"] == "bfloat16"),
+                   key=lambda r: r["ms"] * r["convs_per_step"])
+        entries.append({
+            "name": name, "route": "cuda", "source": "mxnet_tpu_torch/csrc/conv_bwd.cu",
+            "replaces": "mxnet_tpu/ops/pallas_kernels.py:%d" % (
+                745 if name == "conv_bwd_filter" else 804),
+            "launches": launches[name],
+            **{f: head[f] for f in ("max_abs_err", "rel_err", "ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms", "dtype", "data", "weight", "pad",
+                                    "convs_per_step", "flops", "bytes")},
+            "kernel_ms": head["ms"],
+            "library_computes": "torch.nn.grad.%s" % (
+                "conv2d_weight" if name == "conv_bwd_filter" else "conv2d_input"),
+            "launch_weighted_ms_per_step": per_step, "shapes": shape_rows,
+        })
+        log("  %s per step %s, headline shape %s %s" % (
+            name, json.dumps(per_step), head["data"], head["weight"]))
+    return entries
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every phase's numbers to this JSON file")
@@ -524,9 +824,11 @@ def main(argv=None):
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from mxnet_tpu_torch import telemetry
     from mxnet_tpu_torch.examples import train_transformer_lm as trainer
+    from mxnet_tpu_torch.models import resnet
     from mxnet_tpu_torch.models import transformer as tfm
     from mxnet_tpu_torch.ops import _build, kernels
     from mxnet_tpu_torch.serving import GenerationEngine
+    from mxnet_tpu_torch.tools import resnet_bench
 
     # f32 products stay f32 (no TF32) in the plain versions and the f32 model
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -544,12 +846,19 @@ def main(argv=None):
     results["serving_bf16"] = phase_serving_bf16(tfm, kernels, telemetry, GenerationEngine, dev)
     results["training_bf16"] = phase_train_bf16(trainer, kernels, dev)
     train_launches = results["training_bf16"]["launches"]
+    results["conv_checks"], conv_errs = phase_conv_checks(kernels, resnet, dev)
+    results["resnet_grads_f32"] = phase_resnet_grads_f32(resnet_bench, kernels, dev)
+    results["resnet_train"] = [phase_resnet_train(resnet_bench, kernels, dev, dtype)
+                               for dtype in ("float32", "bfloat16")]
+    conv_launches = {name: sum(r["launches"][name] for r in results["resnet_train"])
+                     for name in ("conv_bwd_filter", "conv_bwd_input")}
     fwd = phase_kernel_times(kernels, dev, results["serving_bf16"]["flash_launches"])
     # the forward kernel runs on both main paths
     fwd[0]["launches_by_path"] = {"serving": fwd[0]["launches"],
                                   "training": train_launches["flash_attn_fwd"]}
     fwd[0]["launches"] += train_launches["flash_attn_fwd"]
-    kernel_line = {"kernels": fwd + phase_bwd_times(kernels, dev, train_launches),
+    kernel_line = {"kernels": fwd + phase_bwd_times(kernels, dev, train_launches)
+                   + phase_conv_times(kernels, resnet, dev, conv_launches, conv_errs),
                    "card": card}
     results.update(kernel_line)
     if args.out:

@@ -1,9 +1,113 @@
 """Core shared definitions of the PyTorch port (counterpart of
-``mxnet_tpu/base.py``): the framework's error type and version."""
+``mxnet_tpu/base.py``): the framework's error type and version, the dtype
+registry and the string form of operator attributes used by symbols and
+their graph JSON."""
 from __future__ import annotations
+
+import ast
+
+import numpy as np
+import torch
 
 __version__ = "0.9.5"
 
 
 class MXNetError(RuntimeError):
     """Error raised by the framework (parity: reference ``base.py:MXNetError``)."""
+
+
+# ---------------------------------------------------------------------------
+# dtype registry: the integer codes of mshadow's TypeFlag, as in the JAX
+# package, so serialized params and graph JSON agree.
+# ---------------------------------------------------------------------------
+_DTYPE_NP_TO_MX = {
+    np.float32: 0,
+    np.float64: 1,
+    np.float16: 2,
+    np.uint8: 3,
+    np.int32: 4,
+    np.int8: 5,
+    np.int64: 6,
+}
+try:  # numpy has no bfloat16 of its own; ml_dtypes provides one where installed
+    import ml_dtypes
+
+    _DTYPE_NP_TO_MX[ml_dtypes.bfloat16] = 12
+    bfloat16 = ml_dtypes.bfloat16
+except ImportError:  # pragma: no cover
+    bfloat16 = None
+
+_DTYPE_MX_TO_NP = {v: k for k, v in _DTYPE_NP_TO_MX.items()}
+
+_DTYPE_NAMES = {
+    "float32": np.float32,
+    "float64": np.float64,
+    "float16": np.float16,
+    "uint8": np.uint8,
+    "int32": np.int32,
+    "int8": np.int8,
+    "int64": np.int64,
+}
+if bfloat16 is not None:
+    _DTYPE_NAMES["bfloat16"] = bfloat16
+
+
+def np_dtype(dtype):
+    """Normalize any dtype spec (np dtype, type, string, mx code) to a numpy type."""
+    if dtype is None:
+        return np.float32
+    if isinstance(dtype, (int, np.integer)) and not isinstance(dtype, bool):
+        return _DTYPE_MX_TO_NP[int(dtype)]
+    if isinstance(dtype, str):
+        if dtype not in _DTYPE_NAMES:
+            raise MXNetError("unknown dtype name %s" % dtype)
+        return _DTYPE_NAMES[dtype]
+    d = np.dtype(dtype)
+    for k in _DTYPE_NP_TO_MX:
+        if np.dtype(k) == d:
+            return k
+    raise MXNetError("unsupported dtype %s" % dtype)
+
+
+def dtype_name(dtype) -> str:
+    """The dtype's name; also takes a torch dtype, and "bfloat16" where
+    numpy has no bfloat16."""
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).split(".")[-1]
+    if isinstance(dtype, str) and dtype == "bfloat16":
+        return dtype
+    return np.dtype(np_dtype(dtype)).name
+
+
+# ---------------------------------------------------------------------------
+# attribute strings: Symbol attrs and graph JSON keep every parameter as a
+# string (the reference's dmlc::Parameter wire format).
+# ---------------------------------------------------------------------------
+def parse_attr_value(value):
+    """Parse a string attr ('(2,2)', 'True', '0.9', 'relu') into a Python value."""
+    if not isinstance(value, str):
+        return value
+    s = value.strip()
+    if s in ("True", "true"):
+        return True
+    if s in ("False", "false"):
+        return False
+    if s in ("None", "null"):
+        return None
+    try:
+        return ast.literal_eval(s)
+    except (ValueError, SyntaxError):
+        return s
+
+
+def attr_repr(value) -> str:
+    """Inverse of :func:`parse_attr_value` — stringify for graph JSON."""
+    if isinstance(value, bool):
+        return "True" if value else "False"
+    if value is None:
+        return "None"
+    if isinstance(value, (list, tuple)):
+        if len(value) == 1:  # "(100,)" — "(100)" would parse back as int
+            return "(" + attr_repr(value[0]) + ",)"
+        return "(" + ", ".join(attr_repr(v) for v in value) + ")"
+    return str(value)

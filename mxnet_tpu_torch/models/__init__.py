@@ -1,2 +1,2 @@
 """Models of the PyTorch port. ``transformer``: the dense transformer LM
-and its KV-cached serving twin."""
+and its KV-cached serving twin. ``resnet``: ResNet v2 as a Symbol graph."""

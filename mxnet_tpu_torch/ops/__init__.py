@@ -1,3 +1,5 @@
-"""Operators of the PyTorch port. ``kernels`` holds the hand-written CUDA
-kernels' wrappers and their plain versions; ``_build`` compiles the CUDA
-sources at first use (importing this package builds nothing)."""
+"""Operators of the PyTorch port. ``registry`` holds the ``OpDef`` table;
+``elemwise``, ``matrix`` and ``nn`` register the ported operators (importing
+``symbol`` imports them). ``kernels`` holds the hand-written CUDA kernels'
+wrappers and their plain versions; ``_build`` compiles the CUDA sources at
+first use (importing this package builds nothing)."""

@@ -44,6 +44,10 @@ KERNELS = {
     "flash_attn_bwd_dkv": (
         "flash_attn_bwd.cu", "mxtt_flash_attn_bwd_dkv",
         [_P] * 8 + [_I] * 4 + [_L] * 12 + [_F, _I, _I, _P]),
+    "conv_bwd_filter": (
+        "conv_bwd.cu", "mxtt_conv_bwd_filter", [_P] * 4 + [_I] * 14 + [_P]),
+    "conv_bwd_input": (
+        "conv_bwd.cu", "mxtt_conv_bwd_input", [_P] * 3 + [_I] * 12 + [_P]),
 }
 
 _lock = threading.Lock()

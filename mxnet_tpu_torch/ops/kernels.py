@@ -1,5 +1,6 @@
-"""Attention kernels of the PyTorch port (counterpart of the flash part of
-``mxnet_tpu/ops/pallas_kernels.py``).
+"""Kernels of the PyTorch port (counterpart of
+``mxnet_tpu/ops/pallas_kernels.py``): flash attention and the
+conv-backward pair.
 
 ``flash_attention`` is the wrapper of the hand-written CUDA kernel
 ``csrc/flash_attn_fwd.cu``: blockwise online-softmax attention that saves
@@ -13,15 +14,23 @@ CPU; for a CUDA tensor it launches its kernel or raises. ``attention`` is
 the dispatch every model calls.
 
 Layout convention as in the JAX package: [B, T, H, D].
+
+``conv_bwd_filter`` (K2) and ``conv_bwd_input`` (K3) wrap the kernels of
+``csrc/conv_bwd.cu``, the filter and data gradients of a stride-1 2-D
+convolution inside ``conv_bwd_plan``'s envelope; ``conv_bwd_*_reference``
+are their plain versions, and ``conv2d_kernel_bwd`` is the convolution
+whose autograd backward runs them. Layout NCHW / OIHW, as in JAX.
 """
 from __future__ import annotations
 
+import functools
 import math
 from collections.abc import Mapping
 
 import torch
+import torch.nn.functional as F
 
-from ..base import MXNetError
+from ..base import MXNetError, dtype_name
 from . import _build
 
 _NEG_INF = -1e30
@@ -265,3 +274,213 @@ def attention(q, k, v, causal=False, scale=None, mesh=None):
         raise NotImplementedError(
             "sequence-parallel (ring) attention is not ported to PyTorch yet")
     return flash_attention(q, k, v, causal=causal, scale=scale)
+
+
+# ---------------------------------------------------------------------------
+# Conv-backward pair (counterpart of the conv part of pallas_kernels.py):
+# K2 ``conv_bwd_filter`` and K3 ``conv_bwd_input``, hand-written CUDA in
+# ``csrc/conv_bwd.cu``, for 2-D convolutions with stride 1, dilation 1 and
+# one group. Public layout NCHW / OIHW; outputs f32.
+# ---------------------------------------------------------------------------
+CONV_DTYPES = (torch.float32, torch.bfloat16)
+# The JAX package's per-block VMEM bound (pallas_kernels.py:680-690), kept
+# so both packages accept the same shapes; the CUDA kernels themselves have
+# no such limit (their tiles are fixed), and every in-envelope ResNet-50
+# body convolution is far below it.
+CONV_VMEM_BUDGET = 12 * 1024 * 1024
+_WGRAD_CHUNK = 16  # the kernels' reduction chunk (kK in conv_bwd.cu)
+_WGRAD_TILE = 64  # their output tile (kTile)
+
+
+@functools.lru_cache(maxsize=1024)
+def _conv_bwd_plan(dshape, wshape, stride, pad, dilate, dtype):
+    n, c, h, w = dshape
+    o, cg, kh, kw = wshape
+    if dtype not in ("float32", "bfloat16"):
+        return False
+    if tuple(stride) != (1, 1) or tuple(dilate) != (1, 1) or cg != c:
+        return False
+    # dgrad-as-flipped-conv needs the kernel to cover its padding
+    if kh - 1 - pad[0] < 0 or kw - 1 - pad[1] < 0:
+        return False
+    oh = h + 2 * pad[0] - kh + 1
+    ow = w + 2 * pad[1] - kw + 1
+    if oh < 1 or ow < 1:
+        return False
+    if c % 8 or o % 8:
+        return False
+    esz = 2 if dtype == "bfloat16" else 4
+    x_blk = (h + 2 * pad[0]) * (w + 2 * pad[1]) * c * esz
+    g_blk = max(oh * ow * o, (h + kh - 1) * (w + kw - 1) * o) * esz
+    acc = max(kh * kw * o * c * 4, h * w * c * 4)
+    return x_blk + g_blk + acc <= CONV_VMEM_BUDGET
+
+
+def conv_bwd_plan(dshape, wshape, stride, pad, dilate, dtype):
+    """Whether K2 and K3 take the gradient of this 2-D convolution: the
+    shape rules of ``_conv_bwd_plan_uncached`` (``pallas_kernels.py:662``):
+    f32 or bf16, stride 1, dilation 1, one group, a kernel that covers its
+    padding (k > p), a non-empty output, C and O multiples of 8, and the
+    JAX package's VMEM term (see ``CONV_VMEM_BUDGET``)."""
+    as_ints = lambda v: tuple(int(x) for x in v)  # noqa: E731
+    return _conv_bwd_plan(as_ints(dshape), as_ints(wshape), as_ints(stride), as_ints(pad),
+                          as_ints(dilate), dtype_name(dtype))
+
+
+def conv_bwd_filter_reference(data, grad, wshape, pad):
+    """Plain version of K2: the filter gradient (O, C, kh, kw) in f32 of a
+    stride-1 conv, one product per tap over the zero-padded data, as
+    ``_conv_wgrad_kernel`` computes it: loads upcast to f32, f32 sums."""
+    o, c, kh, kw = wshape
+    oh, ow = grad.shape[2], grad.shape[3]
+    x = F.pad(data.float(), (pad[1], pad[1], pad[0], pad[0]))
+    g = grad.float()
+    taps = [torch.einsum("nohw,nchw->oc", g, x[:, :, i:i + oh, j:j + ow])
+            for i in range(kh) for j in range(kw)]
+    return torch.stack(taps, dim=-1).reshape(o, c, kh, kw)
+
+
+def conv_bwd_input_reference(grad, weight, dshape, pad):
+    """Plain version of K3: the data gradient (N, C, H, W) in f32 of a
+    stride-1 conv, as ``_conv_dgrad_kernel`` computes it: the correlation
+    of the (k-1-p)-padded grad with the 180°-rotated filter, tap by tap,
+    loads upcast to f32, f32 sums."""
+    _, _, h, w = dshape
+    _, _, kh, kw = weight.shape
+    ph, pw = kh - 1 - pad[0], kw - 1 - pad[1]
+    g = F.pad(grad.float(), (pw, pw, ph, ph))
+    w_rot = weight.float().flip(2, 3)
+    acc = None
+    for i in range(kh):
+        for j in range(kw):
+            term = torch.einsum("nohw,oc->nchw", g[:, :, i:i + h, j:j + w], w_rot[:, :, i, j])
+            acc = term if acc is None else acc + term
+    return acc
+
+
+def _check_conv_args(name, a, b, dshape, wshape, pad):
+    if a.dtype != b.dtype or a.dtype not in CONV_DTYPES:
+        raise MXNetError("%s takes float32 or bfloat16 tensors of one dtype, got %s and %s"
+                         % (name, a.dtype, b.dtype))
+    if a.device.type != "cuda" or b.device != a.device:
+        raise MXNetError("%s wants its tensors on one CUDA device, got %s and %s"
+                         % (name, a.device, b.device))
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise MXNetError("%s wants contiguous NCHW / OIHW tensors" % name)
+    if not conv_bwd_plan(dshape, wshape, (1, 1), pad, (1, 1), a.dtype):
+        raise MXNetError("%s: data %s, weight %s, pad %s is outside the kernels' "
+                         "envelope (conv_bwd_plan)" % (name, dshape, wshape, tuple(pad)))
+
+
+def _conv_geometry(dshape, wshape, pad):
+    n, c, h, w = (int(v) for v in dshape)
+    o, _, kh, kw = (int(v) for v in wshape)
+    ph, pw = int(pad[0]), int(pad[1])
+    return n, c, h, w, o, kh, kw, ph, pw, h + 2 * ph - kh + 1, w + 2 * pw - kw + 1
+
+
+def wgrad_splits(o, c, taps, m, sm_count):
+    """K2's split of the reduction M = N·OH·OW: ``(splits, chunks per
+    split)``. Enough (tile, tap, split) blocks for about four per SM, each
+    split at least 8 chunks of 16; a function of the shape and the SM
+    count only, so a repeat sums in the same order."""
+    tiles = -(-o // _WGRAD_TILE) * -(-c // _WGRAD_TILE) * taps
+    chunks = -(-m // _WGRAD_CHUNK)
+    splits = max(1, min(-(-4 * sm_count // tiles), chunks // 8))
+    per = -(-chunks // splits)
+    return -(-chunks // per), per
+
+
+def conv_bwd_filter(data, grad, wshape, pad):
+    """K2, the filter gradient of a stride-1 2-D conv: data (N, C, H, W) and
+    grad (N, O, OH, OW) -> f32 (O, C, kh, kw). On CUDA tensors the kernels of
+    ``csrc/conv_bwd.cu`` (no fallback; ``conv_bwd_filter.launches`` counts
+    the calls that launch them); on CPU tensors the plain version."""
+    if data.device.type == "cpu":
+        return conv_bwd_filter_reference(data, grad, wshape, pad)
+    _check_conv_args("conv_bwd_filter", data, grad, tuple(data.shape), tuple(wshape), pad)
+    geo = _conv_geometry(data.shape, wshape, pad)
+    n, c, _, _, o, kh, kw, _, _, oh, ow = geo
+    if tuple(grad.shape) != (n, o, oh, ow):
+        raise MXNetError("conv_bwd_filter: grad %s does not match data %s and weight %s"
+                         % (tuple(grad.shape), tuple(data.shape), tuple(wshape)))
+    sms = torch.cuda.get_device_properties(data.device).multi_processor_count
+    splits, per = wgrad_splits(o, c, kh * kw, n * oh * ow, sms)
+    ws = torch.empty((splits, kh * kw, o, c), dtype=torch.float32, device=data.device)
+    gw = torch.empty(tuple(wshape), dtype=torch.float32, device=data.device)
+    fn = _build.load("conv_bwd_filter")
+    with torch.cuda.device(data.device):
+        stream = torch.cuda.current_stream(data.device).cuda_stream
+        rc = fn(data.data_ptr(), grad.data_ptr(), ws.data_ptr(), gw.data_ptr(), *geo,
+                splits, per, int(data.dtype == torch.bfloat16), stream)
+    if rc != 0:
+        raise MXNetError("conv_bwd_filter kernel launch failed: CUDA error %d" % rc)
+    conv_bwd_filter.launches += 1
+    return gw
+
+
+def conv_bwd_input(grad, weight, dshape, pad):
+    """K3, the data gradient of a stride-1 2-D conv: grad (N, O, OH, OW) and
+    weight (O, C, kh, kw) -> f32 (N, C, H, W). On CUDA tensors the kernel of
+    ``csrc/conv_bwd.cu`` (no fallback; ``conv_bwd_input.launches`` counts
+    its launches); on CPU tensors the plain version."""
+    if grad.device.type == "cpu":
+        return conv_bwd_input_reference(grad, weight, dshape, pad)
+    _check_conv_args("conv_bwd_input", grad, weight, tuple(dshape), tuple(weight.shape), pad)
+    geo = _conv_geometry(dshape, weight.shape, pad)
+    n, c, h, w, o, _, _, _, _, oh, ow = geo
+    if tuple(grad.shape) != (n, o, oh, ow):
+        raise MXNetError("conv_bwd_input: grad %s does not match data %s and weight %s"
+                         % (tuple(grad.shape), tuple(dshape), tuple(weight.shape)))
+    dx = torch.empty((n, c, h, w), dtype=torch.float32, device=grad.device)
+    fn = _build.load("conv_bwd_input")
+    with torch.cuda.device(grad.device):
+        stream = torch.cuda.current_stream(grad.device).cuda_stream
+        rc = fn(grad.data_ptr(), weight.data_ptr(), dx.data_ptr(), *geo,
+                int(grad.dtype == torch.bfloat16), stream)
+    if rc != 0:
+        raise MXNetError("conv_bwd_input kernel launch failed: CUDA error %d" % rc)
+    conv_bwd_input.launches += 1
+    return dx
+
+
+conv_bwd_filter.launches = 0
+conv_bwd_input.launches = 0
+
+
+class _Conv2dKernelBwd(torch.autograd.Function):
+    """Counterpart of the ``jax.custom_vjp`` of ``_conv2d_pallas_bwd``
+    (``ops/nn.py:451-465``): the forward is ``F.conv2d``; the backward runs
+    K3 for the data gradient and K2 for the filter gradient (their plain
+    versions for CPU tensors) and casts each f32 result to its input's
+    dtype. Both are looked up in this module at call time."""
+
+    @staticmethod
+    def forward(ctx, data, weight, pad):
+        ctx.save_for_backward(data, weight)
+        ctx.pad = pad
+        return F.conv2d(data, weight, padding=pad)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        data, weight = ctx.saved_tensors
+        g = g.to(data.dtype).contiguous()
+        gd = gw = None
+        if ctx.needs_input_grad[0]:
+            gd = conv_bwd_input(g, weight.contiguous(), tuple(data.shape), ctx.pad)
+            gd = gd.to(data.dtype)
+        if ctx.needs_input_grad[1]:
+            gw = conv_bwd_filter(data.contiguous(), g, tuple(weight.shape), ctx.pad)
+            gw = gw.to(weight.dtype)
+        return gd, gw, None
+
+
+def conv2d_kernel_bwd(data, weight, pad):
+    """Stride-1, dilation-1, one-group 2-D conv (NCHW / OIHW, symmetric
+    ``pad``) whose gradient runs K2 and K3 when autograd records it. Meant
+    for shapes inside :func:`conv_bwd_plan`."""
+    pad = (int(pad[0]), int(pad[1]))
+    if torch.is_grad_enabled() and (data.requires_grad or weight.requires_grad):
+        return _Conv2dKernelBwd.apply(data, weight, pad)
+    return F.conv2d(data, weight, padding=pad)

@@ -1,0 +1,252 @@
+"""Operator registry of the PyTorch port (counterpart of
+``mxnet_tpu/ops/registry.py``, same ``OpDef`` surface).
+
+An op's ``fcompute(attrs, inputs, is_train)`` maps torch tensors to a list
+of torch tensors; autograd records it. Ops with auxiliary state (BatchNorm's
+moving stats) take the aux tensors as trailing inputs and return their
+updated values as trailing outputs, which the graph program writes back.
+
+Only the operators a ported model needs are registered. Asking for any
+other name raises :class:`MXNetError` naming where the JAX package defines
+it, so a graph that needs an unported op fails when it is built or loaded.
+"""
+from __future__ import annotations
+
+from ..base import MXNetError, parse_attr_value
+
+_REGISTRY: dict[str, "OpDef"] = {}
+
+# where the JAX package defines the ops the Symbol class itself creates
+# (arithmetic operators); every other op lives somewhere under mxnet_tpu/ops/
+_JAX_HOME = {
+    name: "mxnet_tpu/ops/elemwise.py"
+    for name in ("elemwise_sub", "elemwise_mul", "elemwise_div", "_power", "negative",
+                 "_plus_scalar", "_minus_scalar", "_rminus_scalar", "_mul_scalar",
+                 "_div_scalar", "_rdiv_scalar", "_power_scalar", "_rpower_scalar")
+}
+
+
+class OpDef:
+    """Metadata + compute for one operator."""
+
+    def __init__(
+        self,
+        name,
+        fcompute,
+        arguments=("data",),
+        outputs=("output",),
+        aux=(),
+        defaults=None,
+        infer_shape=None,
+        infer_type=None,
+        backward_infer_shape=None,
+        key_var_num_args=None,
+        aliases=(),
+        need_top_grad=True,
+        visible=True,
+        needs_rng=False,
+        mutate_inputs=(),
+        open_attrs=False,
+    ):
+        self.name = name
+        self.fcompute = fcompute
+        self._arguments = list(arguments)
+        self._outputs = list(outputs)
+        self._aux = list(aux)
+        self.defaults = dict(defaults or {})
+        self._infer_shape = infer_shape
+        self._infer_type = infer_type
+        # optional reverse inference: (attrs, in_shapes, out_shapes) ->
+        # refined in_shapes (consumers refine producers)
+        self.backward_infer_shape = backward_infer_shape
+        # attr holding the variable input count (Concat's num_args)
+        self.key_var_num_args = key_var_num_args
+        self.aliases = list(aliases)
+        # False for loss/output ops whose backward ignores the head gradient
+        self.need_top_grad = need_top_grad
+        self.visible = visible
+        # ops needing randomness; the port's graph program has no rng yet
+        # and refuses them
+        self.needs_rng = needs_rng
+        self.mutate_inputs = tuple(mutate_inputs)
+        self.open_attrs = open_attrs
+
+    # -- attr handling ------------------------------------------------------
+    def canon_attrs(self, raw_attrs):
+        """Parse string attrs and fill defaults (dmlc::Parameter equivalent)."""
+        attrs = dict(self.defaults)
+        for k, v in (raw_attrs or {}).items():
+            if k.startswith("__"):  # __ctx_group__ etc. — graph-level attrs
+                continue
+            attrs[k] = parse_attr_value(v)
+        return attrs
+
+    # graph/scope attrs every op silently carries; never operator parameters
+    _GENERIC_ATTRS = frozenset({"ctx_group", "lr_mult", "wd_mult",
+                                "force_mirroring"})
+
+    def known_attrs(self):
+        """Over-approximate set of parameter names this op accepts:
+        declared defaults ∪ every attrs.get("x")/attrs["x"] key in the
+        fcompute/infer sources and the same-module helpers they hand
+        ``attrs`` to. Used to flag typo'd kwargs. Returns None (cached)
+        when any source is uninspectable."""
+        cached = getattr(self, "_known_attrs", "unset")
+        if cached != "unset":
+            return cached or None  # False sentinel -> None
+        import inspect
+        import re
+
+        keys = set(self.defaults) | self._GENERIC_ATTRS
+        if self.key_var_num_args:
+            keys.add(self.key_var_num_args)
+        seen = set()
+        queue = [fn for fn in (self.fcompute, self._infer_shape,
+                               self._infer_type, self.backward_infer_shape)
+                 if fn is not None]
+        depth = 0
+        while queue and depth < 64:
+            fn = queue.pop()
+            if id(fn) in seen:
+                continue
+            seen.add(id(fn))
+            depth += 1
+            try:
+                src = inspect.getsource(fn)
+            except (OSError, TypeError):
+                self._known_attrs = False
+                return None
+            keys.update(re.findall(
+                r"""attrs\s*(?:\.get\(\s*|\[\s*)["']([A-Za-z_][\w]*)""",
+                src))
+            for callee in re.findall(r"(\w+)\s*\([^()]*\battrs\b", src):
+                target = getattr(fn, "__globals__", {}).get(callee)
+                if inspect.isfunction(target):
+                    queue.append(target)
+        self._known_attrs = frozenset(keys)
+        return self._known_attrs
+
+    def check_call_attrs(self, attrs):
+        """Warn on kwargs the op cannot possibly read (a typo net)."""
+        if self.open_attrs:
+            return
+        known = self.known_attrs()
+        if known is None:
+            return
+        unknown = [k for k in attrs
+                   if not k.startswith("__") and k not in known]
+        if unknown:
+            import warnings
+
+            suggest = sorted(k for k in known
+                             if not k.startswith("__")
+                             and k not in self._GENERIC_ATTRS)
+            warnings.warn(
+                "%s: parameter(s) %s not recognized by this operator "
+                "(typo?) — accepted: %s"
+                % (self.name, sorted(unknown), suggest),
+                stacklevel=4)
+
+    def docstring(self):
+        """Generated operator doc for the symbol factory functions."""
+        lines = ["%s(%s, **params)" % (
+            self.name, ", ".join(self._arguments)), ""]
+        if self.defaults:
+            lines.append("Parameters (with defaults):")
+            for k in sorted(self.defaults):
+                lines.append("    %s = %r" % (k, self.defaults[k]))
+        if self._aux:
+            lines.append("Auxiliary states: %s" % ", ".join(self._aux))
+        if self.aliases:
+            lines.append("Aliases: %s" % ", ".join(self.aliases))
+        lines.append("")
+        lines.append("Auto-generated from the operator registry "
+                     "(see mxnet_tpu_torch/ops).")
+        return "\n".join(lines)
+
+    # -- arity --------------------------------------------------------------
+    def num_inputs(self, attrs):
+        if self.key_var_num_args is not None:
+            n = attrs.get(self.key_var_num_args)
+            if n is None:
+                raise MXNetError(
+                    "%s requires attr %s" % (self.name, self.key_var_num_args)
+                )
+            return int(n)
+        return len(self._arguments)
+
+    def list_arguments(self, attrs=None):
+        if self.key_var_num_args is not None and attrs is not None:
+            n = int(attrs.get(self.key_var_num_args, 1))
+            return ["arg%d" % i for i in range(n)]
+        return list(self._arguments)
+
+    def list_outputs(self, attrs=None):
+        return list(self._outputs)
+
+    def num_visible_outputs(self, attrs=None):
+        """Outputs visible to Symbol composition (BatchNorm exposes 1 of 3)."""
+        if getattr(self, "_num_visible_outputs", None) is not None:
+            return self._num_visible_outputs
+        return len(self.list_outputs(attrs))
+
+    def list_auxiliary_states(self, attrs=None):
+        return list(self._aux)
+
+    # -- inference ----------------------------------------------------------
+    def infer_shape(self, attrs, in_shapes):
+        """(in_shapes with Nones) -> (completed in, out, aux shapes)."""
+        if self._infer_shape is not None:
+            return self._infer_shape(attrs, in_shapes)
+        from .utils import merge_shapes
+
+        merged = None
+        for s in in_shapes:
+            merged = merge_shapes(merged, s, self.name)
+        if merged is None:
+            raise MXNetError("%s: cannot infer shape, no known inputs" % self.name)
+        return (
+            [merged] * len(in_shapes),
+            [merged] * len(self._outputs),
+            [],
+        )
+
+    def infer_type(self, attrs, in_types):
+        import numpy as np
+
+        if self._infer_type is not None:
+            return self._infer_type(attrs, in_types)
+        known = [t for t in in_types if t is not None]
+        if not known:
+            raise MXNetError("%s: cannot infer type" % self.name)
+        t = known[0]
+        completed = [t if x is None else x for x in in_types]
+        return completed, [t] * len(self._outputs), [np.float32] * len(self._aux)
+
+    def __repr__(self):
+        return "OpDef(%s)" % self.name
+
+
+def register(opdef: OpDef):
+    for name in [opdef.name] + opdef.aliases:
+        if name in _REGISTRY:
+            raise MXNetError("op %s already registered" % name)
+        _REGISTRY[name] = opdef
+    return opdef
+
+
+def get(name) -> OpDef:
+    op = _REGISTRY.get(name)
+    if op is None:
+        raise MXNetError(
+            "operator %s is not ported to PyTorch yet: the JAX package defines "
+            "it in %s" % (name, _JAX_HOME.get(name, "mxnet_tpu/ops/")))
+    return op
+
+
+def exists(name) -> bool:
+    return name in _REGISTRY
+
+
+def list_ops():
+    return sorted(_REGISTRY)

@@ -1,0 +1,652 @@
+"""Symbol: the declarative graph API of the PyTorch port (counterpart of
+``mxnet_tpu/symbol.py``).
+
+The graph is a plain Python node list, as in the JAX package: composition,
+listing, shape and type inference, and the reference's graph-JSON schema
+(nodes / arg_nodes / heads) for ``tojson`` / ``load_json``, so a graph
+written by either package loads in the other. Evaluation is
+``executor._GraphProgram``, which runs each node's operator on torch
+tensors; gradients come from ``torch.autograd``. ``bind``,
+``simple_bind`` and ``eval`` need ``executor.Executor``, which is not
+ported yet. Only the operators a ported model needs exist (see
+``ops/``); creating or loading any other raises.
+"""
+from __future__ import annotations
+
+import json
+import sys
+
+import numpy as np
+
+from .attribute import AttrScope
+from .base import MXNetError, attr_repr, dtype_name, np_dtype, parse_attr_value
+from .name import NameManager
+from .ops.utils import merge_shapes
+from .ops import elemwise, matrix, nn  # noqa: F401  (registers the ported operators)
+from .ops import registry as _registry
+
+__all__ = ["Symbol", "Variable", "Group", "load", "load_json", "var"]
+
+_NO_EXECUTOR = ("executor.Executor (bind / simple_bind / eval) is not ported to "
+                "PyTorch yet: it is the next slice; run a symbol through "
+                "executor._GraphProgram")
+
+
+class _Node:
+    """One graph node: a variable (op is None) or an op instance."""
+
+    __slots__ = ("op", "name", "attrs", "inputs", "_extra")
+
+    def __init__(self, op, name, attrs=None, inputs=None):
+        self.op = op  # OpDef or None for variables
+        self.name = name
+        self.attrs = dict(attrs or {})  # string-valued (graph JSON parity)
+        self.inputs = list(inputs or [])  # list[(Node, int)]
+        self._extra = {}
+
+    @property
+    def is_variable(self):
+        return self.op is None
+
+    def canon_attrs(self):
+        return self.op.canon_attrs(self.attrs) if self.op else {}
+
+    def output_names(self):
+        if self.is_variable:
+            return [self.name]
+        attrs = self.canon_attrs()
+        outs = self.op.list_outputs(attrs)
+        n_visible = self.op.num_visible_outputs(attrs)
+        if len(outs) == 1:
+            return ["%s_%s" % (self.name, outs[0])]
+        return ["%s_%s" % (self.name, o) for o in outs[:n_visible]] + [
+            "%s_%s" % (self.name, o) for o in outs[n_visible:]
+        ]
+
+    def num_outputs(self):
+        if self.is_variable:
+            return 1
+        return len(self.op.list_outputs(self.canon_attrs()))
+
+    def num_visible_outputs(self):
+        if self.is_variable:
+            return 1
+        return self.op.num_visible_outputs(self.canon_attrs())
+
+
+def _topo_order(head_nodes):
+    """Post-order DFS — matches nnvm's DFSVisit ordering, which defines
+    list_arguments order in the reference."""
+    visited = set()
+    order = []
+
+    def visit(node):
+        if id(node) in visited:
+            return
+        visited.add(id(node))
+        for (child, _) in node.inputs:
+            visit(child)
+        order.append(node)
+
+    for n in head_nodes:
+        visit(n)
+    return order
+
+
+class Symbol:
+    """A handle to one or more output entries of a graph."""
+
+    __slots__ = ("_outputs",)
+
+    def __init__(self, outputs):
+        self._outputs = list(outputs)  # list[(Node, int)]
+
+    # ------------------------------------------------------------------
+    # composition
+    # ------------------------------------------------------------------
+    @property
+    def name(self):
+        if len(self._outputs) == 1:
+            return self._outputs[0][0].name
+        return None
+
+    def __iter__(self):
+        return (self[i] for i in range(len(self.list_outputs())))
+
+    def __getitem__(self, index):
+        if isinstance(index, str):
+            names = self.list_outputs()
+            if index not in names:
+                raise MXNetError("output %s not found in %s" % (index, names))
+            index = names.index(index)
+        return Symbol([self._visible_outputs()[index]])
+
+    def _visible_outputs(self):
+        out = []
+        for node, idx in self._outputs:
+            out.append((node, idx))
+        return out
+
+    def __len__(self):
+        return len(self.list_outputs())
+
+    def get_internals(self):
+        """All intermediate outputs as a grouped symbol (reference
+        symbol.py get_internals — used for feature extraction / shared
+        layers)."""
+        nodes = _topo_order([n for n, _ in self._outputs])
+        outs = []
+        for n in nodes:
+            for i in range(n.num_visible_outputs()):
+                outs.append((n, i))
+        return Symbol(outs)
+
+    # ------------------------------------------------------------------
+    # arguments / outputs / aux
+    # ------------------------------------------------------------------
+    def _nodes(self):
+        return _topo_order([n for n, _ in self._outputs])
+
+    def list_arguments(self):
+        args = []
+        for n in self._nodes():
+            if n.is_variable and not n._extra.get("is_aux"):
+                args.append(n.name)
+        return args
+
+    def list_outputs(self):
+        names = []
+        for node, idx in self._outputs:
+            names.append(node.output_names()[idx])
+        return names
+
+    def list_auxiliary_states(self):
+        aux = []
+        for n in self._nodes():
+            if n.is_variable and n._extra.get("is_aux"):
+                aux.append(n.name)
+        return aux
+
+    def list_attr(self, recursive=False):
+        if recursive:
+            out = {}
+            for n in self._nodes():
+                for k, v in n.attrs.items():
+                    out["%s_%s" % (n.name, k)] = v
+            return out
+        return dict(self._outputs[0][0].attrs)
+
+    def attr(self, key):
+        return self._outputs[0][0].attrs.get(key)
+
+    def attr_dict(self):
+        out = {}
+        for n in self._nodes():
+            if n.attrs:
+                out[n.name] = dict(n.attrs)
+        return out
+
+    def _set_attr(self, **kwargs):
+        for k, v in kwargs.items():
+            self._outputs[0][0].attrs[k] = v
+
+    # ------------------------------------------------------------------
+    # arithmetic composition
+    # ------------------------------------------------------------------
+    def _binop(self, other, op, scalar_op, reverse=False):
+        if isinstance(other, Symbol):
+            a, b = (other, self) if reverse else (self, other)
+            return _create_symbol(op, [a, b], {})
+        if np.isscalar(other):
+            name = scalar_op
+            if reverse and op in ("elemwise_sub", "elemwise_div", "_power", "_mod"):
+                name = "_r" + scalar_op[1:]
+            return _create_symbol(name, [self], {"scalar": other})
+        return NotImplemented
+
+    def __add__(self, o):
+        return self._binop(o, "elemwise_add", "_plus_scalar")
+
+    __radd__ = __add__
+
+    def __sub__(self, o):
+        return self._binop(o, "elemwise_sub", "_minus_scalar")
+
+    def __rsub__(self, o):
+        return self._binop(o, "elemwise_sub", "_minus_scalar", reverse=True)
+
+    def __mul__(self, o):
+        return self._binop(o, "elemwise_mul", "_mul_scalar")
+
+    __rmul__ = __mul__
+
+    def __div__(self, o):
+        return self._binop(o, "elemwise_div", "_div_scalar")
+
+    __truediv__ = __div__
+
+    def __rdiv__(self, o):
+        return self._binop(o, "elemwise_div", "_div_scalar", reverse=True)
+
+    __rtruediv__ = __rdiv__
+
+    def __pow__(self, o):
+        return self._binop(o, "_power", "_power_scalar")
+
+    def __neg__(self):
+        return _create_symbol("negative", [self], {})
+
+    def __copy__(self):
+        return Symbol(list(self._outputs))
+
+    def __call__(self, *args, **kwargs):
+        """Compose: replace this symbol's free variables (reference
+        symbol.py:321 __call__/Compose)."""
+        s = self.__copy__()
+        s._compose(*args, **kwargs)
+        return s
+
+    def _compose(self, *args, **kwargs):
+        name = kwargs.pop("name", None)
+        if args and kwargs:
+            raise MXNetError("compose only accepts all-positional or all-keyword")
+        arg_names = self.list_arguments()
+        mapping = {}
+        if args:
+            for n, s in zip(arg_names, args):
+                mapping[n] = s
+        else:
+            for k, v in kwargs.items():
+                if not isinstance(v, Symbol):
+                    raise MXNetError("compose expects Symbols")
+                mapping[k] = v
+        # rebuild graph with substituted variables
+        memo = {}
+
+        def rebuild(node):
+            if id(node) in memo:
+                return memo[id(node)]
+            if node.is_variable and node.name in mapping:
+                sub = mapping[node.name]._outputs[0][0]
+                memo[id(node)] = sub
+                return sub
+            new = _Node(node.op, node.name, node.attrs, [])
+            memo[id(node)] = new
+            new._extra = dict(node._extra)
+            new.inputs = [(rebuild(c), i) for (c, i) in node.inputs]
+            return new
+
+        self._outputs = [(rebuild(n), i) for (n, i) in self._outputs]
+        if name is not None and len(self._outputs) == 1:
+            self._outputs[0][0].name = name
+
+    # ------------------------------------------------------------------
+    # shape / type inference (fixpoint over per-op inference fns)
+    # ------------------------------------------------------------------
+    def infer_shape(self, *args, **kwargs):
+        return self._infer_shape_impl(False, *args, **kwargs)[:3]
+
+    def infer_shape_partial(self, *args, **kwargs):
+        return self._infer_shape_impl(True, *args, **kwargs)[:3]
+
+    def _infer_shape_impl(self, partial, *args, **kwargs):
+        nodes = self._nodes()
+        known = {}  # (id(node), out_idx) -> shape
+        arg_names = self.list_arguments()
+        if args:
+            for n, s in zip(arg_names, args):
+                if s is not None:
+                    kwargs[n] = s
+        name2var = {n.name: n for n in nodes if n.is_variable}
+        for k, v in kwargs.items():
+            if k in name2var:
+                known[(id(name2var[k]), 0)] = tuple(v)
+        # variables may carry shape attrs (__shape__)
+        for n in nodes:
+            if n.is_variable and "__shape__" in n.attrs:
+                known.setdefault((id(n), 0), tuple(parse_attr_value(n.attrs["__shape__"])))
+
+        def assign(key, s, where):
+            if s is None:
+                return False
+            prev = known.get(key)
+            merged = merge_shapes(prev, s, where)
+            if merged != prev:
+                known[key] = merged
+                return True
+            return False
+
+        for _ in range(4):  # forward+backward fixpoint (nnvm InferShape)
+            changed = False
+            for node in nodes:
+                if node.is_variable:
+                    continue
+                attrs = node.canon_attrs()
+                in_shapes = [known.get((id(c), i)) for (c, i) in node.inputs]
+                n_args = node._extra.get("n_args", len(node.inputs))
+                try:
+                    arg_sh, out_sh, aux_sh = node.op.infer_shape(
+                        attrs, in_shapes[:n_args]
+                    )
+                except (MXNetError, TypeError, IndexError):
+                    continue
+                completed = list(arg_sh) + list(aux_sh)
+                for (c, i), s in zip(node.inputs, completed):
+                    changed |= assign((id(c), i), s, c.name)
+                for i, s in enumerate(out_sh):
+                    changed |= assign((id(node), i), s, node.name)
+            # reverse sweep: consumers refine producers
+            for node in reversed(nodes):
+                if node.is_variable or node.op.backward_infer_shape is None:
+                    continue
+                attrs = node.canon_attrs()
+                in_shapes = [known.get((id(c), i)) for (c, i) in node.inputs]
+                out_shapes = [
+                    known.get((id(node), i)) for i in range(node.num_outputs())
+                ]
+                try:
+                    refined = node.op.backward_infer_shape(
+                        attrs, in_shapes, out_shapes
+                    )
+                except (MXNetError, TypeError, IndexError):
+                    continue
+                for (c, i), s in zip(node.inputs, refined):
+                    changed |= assign((id(c), i), s, c.name)
+            if not changed:
+                break
+
+        def finalize(s):
+            if s is not None and 0 in s:
+                return None if not partial else s
+            return s
+
+        arg_shapes = [finalize(known.get((id(name2var[n]), 0))) for n in arg_names]
+        out_shapes = [finalize(known.get((id(n), i))) for (n, i) in self._outputs]
+        aux_shapes = [
+            finalize(known.get((id(name2var[n]), 0)))
+            for n in self.list_auxiliary_states()
+        ]
+        if not partial and any(s is None for s in arg_shapes + out_shapes):
+            missing = [n for n, s in zip(arg_names, arg_shapes) if s is None]
+            raise MXNetError(
+                "infer_shape: cannot fully infer shapes; unresolved args: %s"
+                % missing
+            )
+        return arg_shapes, out_shapes, aux_shapes, known
+
+    def infer_type(self, *args, **kwargs):
+        nodes = self._nodes()
+        known = {}
+        arg_names = self.list_arguments()
+        if args:
+            for n, t in zip(arg_names, args):
+                if t is not None:
+                    kwargs[n] = t
+        name2var = {n.name: n for n in nodes if n.is_variable}
+        for k, v in kwargs.items():
+            if k in name2var:
+                known[(id(name2var[k]), 0)] = np_dtype(v)
+        for n in nodes:
+            if n.is_variable and "__dtype__" in n.attrs:
+                known.setdefault((id(n), 0), np_dtype(n.attrs["__dtype__"]))
+        for _ in range(3):
+            changed = False
+            for node in nodes:
+                if node.is_variable:
+                    continue
+                attrs = node.canon_attrs()
+                in_types = [known.get((id(c), i)) for (c, i) in node.inputs]
+                n_args = node._extra.get("n_args", len(node.inputs))
+                try:
+                    arg_t, out_t, aux_t = node.op.infer_type(attrs, in_types[:n_args])
+                except MXNetError:
+                    continue
+                completed = list(arg_t) + list(aux_t)
+                for (c, i), t in zip(node.inputs, completed):
+                    if t is not None and known.get((id(c), i)) is None:
+                        known[(id(c), i)] = t
+                        changed = True
+                for i, t in enumerate(out_t):
+                    if known.get((id(node), i)) is None:
+                        known[(id(node), i)] = t
+                        changed = True
+            if not changed:
+                break
+        arg_types = [known.get((id(name2var[n]), 0), np.float32) for n in arg_names]
+        out_types = [known.get((id(n), i), np.float32) for (n, i) in self._outputs]
+        aux_types = [
+            known.get((id(name2var[n]), 0), np.float32)
+            for n in self.list_auxiliary_states()
+        ]
+        return arg_types, out_types, aux_types
+
+    # ------------------------------------------------------------------
+    # JSON serialization — reference graph-JSON schema
+    # ------------------------------------------------------------------
+    def tojson(self):
+        nodes = self._nodes()
+        node_ids = {id(n): i for i, n in enumerate(nodes)}
+        jnodes = []
+        for n in nodes:
+            jnodes.append(
+                {
+                    "op": "null" if n.is_variable else n.op.name,
+                    "name": n.name,
+                    "attr": {k: str(v) for k, v in n.attrs.items()},
+                    "inputs": [[node_ids[id(c)], i, 0] for (c, i) in n.inputs],
+                }
+            )
+        arg_nodes = [i for i, n in enumerate(nodes) if n.is_variable]
+        heads = [[node_ids[id(n)], i, 0] for (n, i) in self._outputs]
+        return json.dumps(
+            {
+                "nodes": jnodes,
+                "arg_nodes": arg_nodes,
+                "node_row_ptr": list(range(len(nodes) + 1)),
+                "heads": heads,
+                "attrs": {"mxnet_version": ["int", 905]},
+            },
+            indent=2,
+        )
+
+    def save(self, fname):
+        with open(fname, "w") as f:
+            f.write(self.tojson())
+
+    # ------------------------------------------------------------------
+    # binding: executor.Executor is the next slice of the port
+    # ------------------------------------------------------------------
+    def simple_bind(self, ctx, grad_req="write", type_dict=None, group2ctx=None,
+                    shared_exec=None, **kwargs):
+        raise NotImplementedError(_NO_EXECUTOR)
+
+    def bind(self, ctx, args, args_grad=None, grad_req="write", aux_states=None,
+             group2ctx=None, shared_exec=None):
+        raise NotImplementedError(_NO_EXECUTOR)
+
+    def eval(self, ctx=None, **kwargs):
+        raise NotImplementedError(_NO_EXECUTOR)
+
+    def grad(self, wrt):
+        raise MXNetError(
+            "Symbol.grad: use bind(args_grad=...) + backward; gradients come "
+            "from torch.autograd when the graph program runs"
+        )
+
+    # debug
+    def debug_str(self):
+        lines = []
+        for n in self._nodes():
+            kind = "Variable" if n.is_variable else n.op.name
+            lines.append(
+                "%s %s inputs=%s" % (kind, n.name, [c.name for c, _ in n.inputs])
+            )
+        return "\n".join(lines)
+
+    def __repr__(self):
+        return "<Symbol %s>" % (self.name or self.list_outputs())
+
+
+# --------------------------------------------------------------------------
+# constructors
+# --------------------------------------------------------------------------
+def Variable(name, attr=None, shape=None, lr_mult=None, wd_mult=None,
+             dtype=None, init=None):
+    if not isinstance(name, str):
+        raise MXNetError("Variable name must be a string")
+    attr = AttrScope.current().get(attr or {})
+    node = _Node(None, name, attr)
+    if shape is not None:
+        node.attrs["__shape__"] = str(tuple(shape))
+    if dtype is not None:
+        node.attrs["__dtype__"] = dtype_name(dtype)
+    if lr_mult is not None:
+        node.attrs["__lr_mult__"] = str(lr_mult)
+    if wd_mult is not None:
+        node.attrs["__wd_mult__"] = str(wd_mult)
+    if init is not None:
+        node.attrs["__init__"] = init if isinstance(init, str) else init.dumps()
+    return Symbol([(node, 0)])
+
+
+var = Variable
+
+
+def Group(symbols):
+    outputs = []
+    for s in symbols:
+        outputs.extend(s._visible_outputs())
+    return Symbol(outputs)
+
+
+def load_json(json_str):
+    data = json.loads(json_str)
+    nodes = []
+    for jn in data["nodes"]:
+        if jn["op"] == "null":
+            node = _Node(None, jn["name"], jn.get("attr") or jn.get("attrs") or {})
+        else:
+            opdef = _registry.get(jn["op"])
+            node = _Node(opdef, jn["name"], jn.get("attr") or jn.get("attrs") or {})
+        nodes.append(node)
+    for jn, node in zip(data["nodes"], nodes):
+        node.inputs = [(nodes[i[0]], i[1]) for i in jn["inputs"]]
+        if node.op is not None:
+            attrs = node.canon_attrs()
+            n_args = len(node.op.list_arguments(attrs))
+            # NOTE: generated op fns shadow some builtins at module scope
+            # (min/max/sum) — use a conditional, not builtin min().
+            node._extra["n_args"] = (
+                n_args if n_args < len(node.inputs) else len(node.inputs)
+            )
+            # mark aux variable inputs
+            for (c, _), _n in zip(
+                node.inputs[node._extra["n_args"]:],
+                node.op.list_auxiliary_states(attrs),
+            ):
+                c._extra["is_aux"] = True
+    heads = [(nodes[h[0]], h[1]) for h in data["heads"]]
+    return Symbol(heads)
+
+
+def load(fname):
+    with open(fname) as f:
+        return load_json(f.read())
+
+
+# --------------------------------------------------------------------------
+# op → symbol-creation functions (reference symbol.py:1585 _init_symbol_module)
+# --------------------------------------------------------------------------
+def _create_symbol(op_name, sym_inputs, attrs, name=None, attr=None):
+    opdef = _registry.get(op_name)
+    opdef.check_call_attrs(attrs)  # typo net (dmlc::Parameter analog)
+    canon = opdef.canon_attrs(attrs)
+    hint = opdef.name.lower().lstrip("_")
+    name = NameManager.current().get(name, hint)
+    node_attrs = {
+        k: (v if isinstance(v, str) else attr_repr(v))
+        for k, v in attrs.items()
+        if v is not None
+    }
+    node_attrs.update(AttrScope.current().get(attr or {}))
+    node = _Node(opdef, name, node_attrs)
+
+    arg_names = opdef.list_arguments(canon)
+    inputs = []
+    provided = {i: s for i, s in enumerate(sym_inputs)}
+    if opdef.key_var_num_args and opdef.key_var_num_args not in attrs:
+        node.attrs[opdef.key_var_num_args] = str(len(sym_inputs))
+        arg_names = ["arg%d" % i for i in range(len(sym_inputs))]
+    for i, aname in enumerate(arg_names):
+        if i in provided and provided[i] is not None:
+            s = provided[i]
+            if not isinstance(s, Symbol):
+                raise MXNetError(
+                    "%s: input %s must be a Symbol, got %r" % (op_name, aname, s)
+                )
+            inputs.append(s._outputs[0])
+        else:
+            vnode = _Node(None, "%s_%s" % (name, aname), AttrScope.current().get({}))
+            inputs.append((vnode, 0))
+    n_args = len(inputs)
+    for aux_name in opdef.list_auxiliary_states(canon):
+        vnode = _Node(None, "%s_%s" % (name, aux_name), {})
+        vnode._extra["is_aux"] = True
+        inputs.append((vnode, 0))
+    node.inputs = inputs
+    node._extra["n_args"] = n_args
+    n_visible = opdef.num_visible_outputs(canon)
+    if n_visible == 1:
+        return Symbol([(node, 0)])
+    return Symbol([(node, i) for i in range(n_visible)])
+
+
+def _make_symbol_function(opdef):
+    def fn(*args, **kwargs):
+        name = kwargs.pop("name", None)
+        attr = kwargs.pop("attr", None)
+        sym_kwargs = {}
+        attrs = {}
+        for k, v in kwargs.items():
+            if isinstance(v, Symbol):
+                sym_kwargs[k] = v
+            else:
+                attrs[k] = v
+        sym_inputs = list(args)
+        if sym_kwargs:
+            canon = opdef.canon_attrs(attrs)
+            if opdef.key_var_num_args and opdef.key_var_num_args not in attrs:
+                # named-kwarg composition not meaningful for varargs ops
+                raise MXNetError(
+                    "%s: pass variable-arity inputs positionally" % opdef.name
+                )
+            arg_names = opdef.list_arguments(canon)
+            merged = [None] * len(arg_names)
+            for i, s in enumerate(sym_inputs):
+                merged[i] = s
+            for k, v in sym_kwargs.items():
+                if k not in arg_names:
+                    raise MXNetError("%s: unknown input %s" % (opdef.name, k))
+                merged[arg_names.index(k)] = v
+            sym_inputs = merged
+        return _create_symbol(opdef.name, sym_inputs, attrs, name=name, attr=attr)
+
+    fn.__name__ = opdef.name
+    fn.__doc__ = opdef.docstring()
+    return fn
+
+
+def _init_symbol_module():
+    module = sys.modules[__name__]
+    for name, opdef in list(_registry._REGISTRY.items()):
+        if not hasattr(module, name):
+            setattr(module, name, _make_symbol_function(opdef))
+
+
+_init_symbol_module()
+
+
+def __getattr__(name):
+    raise AttributeError(
+        "mxnet_tpu_torch.symbol has no attribute %r: an operator not ported to "
+        "PyTorch yet is defined under mxnet_tpu/ops/ in the JAX package" % name)

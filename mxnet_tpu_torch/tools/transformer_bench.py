@@ -134,7 +134,7 @@ def trace_steps(apply_fn, params, tokens, targets, dev, steps=2):
         if e.device_type == cuda and e.name not in PHASES:
             f = fams.setdefault(family(e.name), {"device_ms": 0.0, "count": 0})
             f["device_ms"] += (e.time_range.end - e.time_range.start) / 1e3 / steps
-            f["count"] += 1
+            f["count"] += 1 / steps
     summary["families_per_step"] = fams
     summary["steps"] = steps
     return summary

@@ -89,3 +89,73 @@ def test_cuda_attention_gradient_runs_the_kernels():
         grads.append([x.grad for x in leaves])
     for got, want in zip(*grads):
         assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+# ragged shapes around ResNet-50's: N 1 and 3, odd and non-square spatial,
+# 1x1 / 3x3 / 5x5 at every pad the envelope takes, C and O off the 64 tile
+CONV_CASES = [
+    ((1, 8, 7, 7), (16, 8, 3, 3), (1, 1)),
+    ((3, 16, 9, 11), (8, 16, 1, 1), (0, 0)),
+    ((3, 24, 9, 11), (40, 24, 5, 5), (2, 2)),
+    ((1, 64, 7, 9), (72, 64, 3, 3), (0, 0)),
+    ((2, 8, 11, 9), (8, 8, 5, 5), (1, 1)),
+]
+
+
+@pytest.mark.cuda
+def test_cuda_conv_bwd_kernels_match_plain_version():
+    """On the card: K2 (conv_bwd_filter) and K3 (conv_bwd_input) against
+    their plain versions on the same inputs, f32 outputs before any cast,
+    error at most 1e-4 of max|plain| in f32 and bf16 (both sum the same
+    f32 products, in another order); a second launch gives the same bits
+    (fixed split of M and fixed reduction order, no atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator().manual_seed(3)
+    for dshape, wshape, pad in CONV_CASES:
+        n, _, h, w = dshape
+        o, _, kh, kw = wshape
+        oshape = (n, o, h + 2 * pad[0] - kh + 1, w + 2 * pad[1] - kw + 1)
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn(dshape, generator=g).to("cuda", dt)
+            wt = (0.1 * torch.randn(wshape, generator=g)).to("cuda", dt)
+            gr = torch.randn(oshape, generator=g).to("cuda", dt)
+            before = (kernels.conv_bwd_filter.launches, kernels.conv_bwd_input.launches)
+            gw = kernels.conv_bwd_filter(x, gr, wshape, pad)
+            gx = kernels.conv_bwd_input(gr, wt, dshape, pad)
+            torch.cuda.synchronize()
+            assert (kernels.conv_bwd_filter.launches, kernels.conv_bwd_input.launches) == (
+                before[0] + 1, before[1] + 1)
+            for got, want in ((gw, kernels.conv_bwd_filter_reference(x, gr, wshape, pad)),
+                              (gx, kernels.conv_bwd_input_reference(gr, wt, dshape, pad))):
+                assert got.dtype == torch.float32 and got.shape == want.shape
+                scale = want.abs().max().item()
+                assert (got - want).abs().max().item() <= 1e-4 * scale
+            assert torch.equal(gw, kernels.conv_bwd_filter(x, gr, wshape, pad))
+            assert torch.equal(gx, kernels.conv_bwd_input(gr, wt, dshape, pad))
+
+
+@pytest.mark.cuda
+def test_cuda_convolution_gradient_runs_the_conv_kernels():
+    """On the card: autograd through an in-envelope Convolution launches K2
+    and K3 once each and agrees with autograd through F.conv2d (cuDNN,
+    TF32 off) at 1e-4 of max|.|."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator().manual_seed(4)
+    x, w, cot = (torch.randn(s, generator=g).cuda()
+                 for s in ((2, 16, 12, 12), (32, 16, 3, 3), (2, 32, 12, 12)))
+    grads = []
+    for fn in (lambda a, b: kernels.conv2d_kernel_bwd(a, b, (1, 1)),
+               lambda a, b: torch.nn.functional.conv2d(a, b, padding=1)):
+        leaves = [t.clone().requires_grad_() for t in (x, w)]
+        counts = (kernels.conv_bwd_filter.launches, kernels.conv_bwd_input.launches)
+        (fn(*leaves) * cot).sum().backward()
+        torch.cuda.synchronize()
+        grads.append([t.grad for t in leaves])
+        if not grads[1:]:
+            assert (kernels.conv_bwd_filter.launches, kernels.conv_bwd_input.launches) == (
+                counts[0] + 1, counts[1] + 1)
+    for got, want in zip(*grads):
+        assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
