@@ -70,7 +70,38 @@ Phases, each fatal on failure:
     entry at the shape where the kernel spends the most of a bf16 step,
     with bound = max(bytes / 3.35 TB/s, 2·N·OH·OW·O·C·kh·kw / 989 TFLOP/s).
 
-Then the kernels line: the five kernels, K4f, K4dq, K4dkv, K2 and K3.
+13. Rtc (kernel K5, CUDA C through NVRTC): the kernel bodies of
+    ``rtc_kernels`` — (a) y = 2x + 1, (b) a·b + a, (c) exp(5x) through
+    shared memory with ``block_dims=(n, 1, 1)`` — at tests/test_rtc.py's
+    sizes (8 x 128, 4 x 128) and at 32 x 64 x 112 x 112, f32 and bf16,
+    against their plain versions: f32 within rtol 1e-6 (FMA contraction),
+    bf16 within one bf16 ulp; a second push gives the same bits. The cache
+    holds 1, then 1, then 2 entries; a bad source and a wrong array count
+    each raise MXNetError.
+14. Executor at full width: ResNet-50 (1000 classes) bound with
+    ``simple_bind(mx.gpu(0), data=(32, 3, 224, 224))`` in f32, TF32 off,
+    with phase 11's weights and batch; ``forward(is_train=True)`` and
+    ``backward()`` against ``resnet_bench.make_train_step``'s step on the
+    same program: every gradient (as the step's first momentum, −lr·(g/32 +
+    wd·p)) and new aux state within 1e-6 of its max; 46 launches of K2 and
+    of K3 in the backward. Phases 14 and 15 run cuDNN deterministic: its
+    default backward of the 7 strided convolutions sums in a run-dependent
+    order, which moves cancelling sums such as bn_data_beta's gradient by
+    ~2e-5 of their max between two runs.
+15. Training through Executor and Rtc (main path 4): six steps of
+    forward / backward, then kernel (d) (``rtc_kernels.sgd_mom_source``,
+    bench.py's lr 0.1, momentum 0.9, wd 1e-4, rescale 1/32) pushed on
+    every parameter NDArray; the same six steps on a second executor with
+    ``mx.nd.sgd_mom_update``. Parameters agree within 1e-5 of each tensor's
+    max, the loss falls, K5 ran once per parameter array a step, K2 and K3
+    46 times a step (counts zeroed just before), and NVRTC compiled once
+    per distinct parameter shape, none after step 1. Then the times of a
+    step's kernel (d) launches and of the plain updates (CUDA events, L2
+    flushed before each step), the bound (20 bytes an element at 3.35
+    TB/s) and NVRTC ms per compile; one launch on the largest parameter
+    array against its bound; phase 14's forward + backward ms.
+
+Then the kernels line: the six kernels, K4f, K4dq, K4dkv, K2, K3 and K5.
 
 The last line of output is {"ok": true, "device": {...}}. Without a CUDA
 device, or without the package beside this script, it exits non-zero and
@@ -101,6 +132,9 @@ BWD_TIME_SHAPE = (8, 2047, 16, 64)  # n, T, H, D of the training path's attentio
 RESNET_BATCH = 32
 RESNET_STEPS = 5
 RESNET_CONVS = 46  # in-envelope convolutions of ResNet-50: K2 and K3 launches a step
+RTC_STEPS = 6
+RTC_BIG = (32, 64, 112, 112)
+SGD = dict(lr=0.1, momentum=0.9, wd=1e-4)  # bench.py's step; rescale_grad = 1 / batch
 # ragged (data, weight, pad) shapes: N 1 and 3, H x W 7 x 7 and 9 x 11, k 1/3/5, pad 0-2
 CONV_RAGGED = [
     ((1, 8, 7, 7), (16, 8, 3, 3), (1, 1)),
@@ -811,6 +845,272 @@ def phase_conv_times(kernels, resnet, dev, launches, errs):
     return entries
 
 
+def _rtc_errors(out, want, dtype):
+    """Worst error of an Rtc kernel against its plain version, and whether
+    it is inside the tolerance: rtol 1e-6 in f32, one bf16 ulp of the
+    larger magnitude in bf16."""
+    import torch
+
+    got, want = out.float(), want.float()
+    err = (got - want).abs()
+    if dtype == torch.float32:
+        ok = bool((err <= 1e-6 * want.abs()).all())
+    else:
+        mag = torch.maximum(got.abs(), want.abs()).clamp_min(1e-30)
+        ok = bool((err <= 2.0 ** (torch.floor(torch.log2(mag)) - 7)).all())
+    return err.max().item(), ok
+
+
+def phase_rtc(mx, rk, dev):
+    import torch
+
+    rng = np.random.default_rng(9)
+    worst, cases = {}, 0
+    small = {"axpb": (8, 128), "madd": (4, 128), "exp5": (8, 128)}
+    for spec, plain in ((rk.AXPB, rk.axpb_plain), (rk.MADD, rk.madd_plain),
+                        (rk.EXP5, rk.exp5_plain)):
+        for shape in (small[spec[0]], RTC_BIG):
+            for dtype in (torch.float32, torch.bfloat16):
+                # madd on [0, 1) as test_rtc.py draws it: a·b + a then has no
+                # cancellation, so a relative tolerance applies
+                ins = [mx.nd.NDArray((torch.from_numpy(rng.random(shape, np.float32)).to(dev)
+                                      if spec[0] == "madd" else
+                                      0.5 * _randn(shape, torch.float32, dev, rng)).to(dtype))
+                       for _ in spec[1]]
+                out = mx.nd.zeros(shape, ctx=mx.gpu(0), dtype=dtype)
+                size = int(np.prod(shape))
+                if spec[0] == "exp5":
+                    n = min(size, 1024)
+                    dims = ((size // n, 1, 1), (n, 1, 1))
+                elif shape == RTC_BIG:
+                    dims = rk.grid_stride_dims(size)
+                else:  # test_rtc.py's launches: one block of one thread
+                    dims = ((1, 1, 1), (1, 1, 1))
+                k = rk.make(spec, ins, [out])
+                k.push(ins, [out], *dims)
+                torch.cuda.synchronize()
+                first = out._data.clone()
+                k.push(ins, [out], *dims)
+                torch.cuda.synchronize()
+                err, ok = _rtc_errors(out._data, plain(*[a._data for a in ins]), dtype)
+                key = "%s %s" % (spec[0], str(dtype).split(".")[-1])
+                log("  rtc %s %s grid %s block %s: max_abs_err %.3g, within tolerance %s, "
+                    "bitwise repeat %s" % (key, shape, dims[0], dims[1], err, ok,
+                                           torch.equal(first, out._data)))
+                if not ok:
+                    raise AssertionError("rtc %s disagrees with its plain version" % key)
+                if not torch.equal(first, out._data):
+                    raise AssertionError("rtc %s is not bitwise repeatable" % key)
+                worst[key] = max(worst.get(key, 0.0), err)
+                cases += 1
+    a, b = (mx.nd.NDArray(torch.rand(4, 128, device=dev)) for _ in range(2))
+    out = mx.nd.zeros((4, 128), ctx=mx.gpu(0))
+    k = rk.make(rk.MADD, [a, b], [out])
+    counts = [len(k._cache)]
+    k.push([a, b], [out])
+    counts.append(len(k._cache))
+    a2, o2 = mx.nd.ones((2, 128), ctx=mx.gpu(0)), mx.nd.zeros((2, 128), ctx=mx.gpu(0))
+    k.push([a2, a2], [o2])
+    counts.append(len(k._cache))
+    torch.cuda.synchronize()
+    assert counts == [1, 1, 2] and bool((o2._data == 2.0).all()), counts
+    raised = {}
+    for what, call in (
+            ("bad source", lambda: mx.rtc.Rtc("bad", [("x", a)], [("y", out)], "y[0] = = x[0];")),
+            ("wrong array count", lambda: k.push([a], [out]))):
+        try:
+            call()
+        except mx.MXNetError as e:
+            raised[what] = str(e).splitlines()[0][:120]
+        else:
+            raise AssertionError("rtc: %s did not raise" % what)
+    log("phase 13: Rtc kernels (a)-(c) vs plain ok over %d cases, worst %s; cache counts %s; "
+        "raised %s" % (cases, json.dumps(worst), counts, json.dumps(raised)))
+    return {"worst": worst, "cache_counts": counts, "raised": raised}
+
+
+def _resnet_executor(mx, resnet, symbol, state, data, label):
+    """ResNet-50 bound by simple_bind on gpu(0) at ``data``'s shape, grad_req
+    null for data and label, arrays holding ``state``'s params and aux."""
+    params, aux = state
+    req = {n: ("null" if n in ("data", "softmax_label") else "write")
+           for n in symbol.list_arguments()}
+    exe = symbol.simple_bind(mx.gpu(0), grad_req=req, data=tuple(data.shape),
+                             softmax_label=tuple(label.shape))
+    with_data = dict(params, data=data, softmax_label=label)
+    for n, arr in exe.arg_dict.items():
+        arr._data.copy_(with_data[n].detach())
+    for n, arr in exe.aux_dict.items():
+        arr._data.copy_(aux[n])
+    return exe
+
+
+def phase_executor(mx, resnet, resnet_bench, kernels, dev):
+    import torch
+
+    step, (params, moms, aux), data, label, symbol = resnet_bench.build_step(
+        RESNET_BATCH, False, dev)
+    exe = _resnet_executor(mx, resnet, symbol, (params, aux), data, label)
+    zero_counts(kernels)
+    exe.forward(is_train=True)
+    exe.backward()
+    torch.cuda.synchronize()
+    counts = conv_counts(kernels)
+    new_aux, prob = step(params, moms, aux, data, label)
+    torch.cuda.synchronize()
+    assert counts == dict.fromkeys(counts, RESNET_CONVS), counts
+    lr, wd, rescale = SGD["lr"], SGD["wd"], 1.0 / RESNET_BATCH
+    worst, bitwise = 0.0, 0
+    with torch.no_grad():
+        pairs = [("output", exe.outputs[0]._data, prob)]
+        for n, g in exe.grad_dict.items():
+            if g is not None:
+                p0 = exe.arg_dict[n]._data
+                mom = torch.zeros_like(p0).mul_(SGD["momentum"]).sub_(lr * (g._data * rescale
+                                                                            + wd * p0))
+                pairs.append(("grad " + n, mom, moms[n]))
+        pairs += [("aux " + n, a._data, new_aux[n]) for n, a in exe.aux_dict.items()]
+        for name, got, want in pairs:
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError("executor %s is not finite" % name)
+            err = ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+            if not err <= 1e-6:
+                raise AssertionError("executor %s: %.3g of max from make_train_step" % (name, err))
+            worst = max(worst, err)
+            bitwise += bool(torch.equal(got, want))
+    stamps = []
+    for _ in range(1 + 5):  # one warm-up, then five timed forward + backward
+        exe.forward(is_train=True)
+        exe.backward()
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+    res = {"tensors": len(pairs), "bitwise_equal": bitwise, "worst_rel_err": worst,
+           "launches": counts,
+           "fwd_bwd_ms_median": 1e3 * statistics.median(
+               b - a for a, b in zip(stamps, stamps[1:]))}
+    log("phase 14: ResNet-50 Executor (simple_bind, batch 32, f32) vs make_train_step: %s"
+        % json.dumps(res))
+    return res
+
+
+def _update_all(exe, update):
+    for n, g in exe.grad_dict.items():
+        if g is not None:
+            update(n, exe.arg_dict[n], g)
+
+
+def phase_rtc_training(mx, rk, resnet, resnet_bench, kernels, dev):
+    import torch
+
+    _, (params, _, aux), data, label, symbol = resnet_bench.build_step(RESNET_BATCH, False, dev)
+    rescale = 1.0 / RESNET_BATCH
+    runs = {}
+    for how in ("rtc", "nd"):
+        exe = _resnet_executor(mx, resnet, symbol, (params, aux), data, label)
+        moms = {n: mx.nd.zeros(g.shape, ctx=mx.gpu(0)) for n, g in exe.grad_dict.items()
+                if g is not None}
+        compiles0 = mx.rtc.Rtc.compiles
+        if how == "rtc":
+            spec = rk.sgd_mom_source(rescale_grad=rescale, **SGD)
+            first = next(iter(moms))
+            kernel = rk.make(spec, [exe.grad_dict[first]], [exe.arg_dict[first], moms[first]])
+
+            def update(n, w, g):
+                kernel.push([g], [w, moms[n]], *rk.grid_stride_dims(w.size))
+        else:
+            def update(n, w, g):
+                mx.nd.sgd_mom_update(w, g, moms[n], out=w, rescale_grad=rescale, **SGD)
+        zero_counts(kernels)
+        mx.rtc.Rtc.launches = 0  # counts from here are this path's
+        losses, per_step, compiles = [], [], []
+        t0 = time.perf_counter()
+        for _ in range(RTC_STEPS):
+            exe.forward(is_train=True)
+            exe.backward()
+            _update_all(exe, update)
+            losses.append(float(resnet_bench.cross_entropy(exe.outputs[0]._data, label)))
+            per_step.append(dict(conv_counts(kernels), rtc=mx.rtc.Rtc.launches))
+            compiles.append(mx.rtc.Rtc.compiles - compiles0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[how] = {"exe": exe, "moms": moms, "losses": losses, "per_step": per_step,
+                     "compiles": compiles, "wall_s": wall}
+        if how == "rtc":
+            runs[how]["kernel"] = kernel
+    n_params = len(runs["rtc"]["moms"])
+    shapes = {tuple(m.shape) for m in runs["rtc"]["moms"].values()}
+    for how, r in runs.items():
+        prev = {"conv_bwd_filter": 0, "conv_bwd_input": 0, "rtc": 0}
+        for i, c in enumerate(r["per_step"]):
+            want = {"conv_bwd_filter": RESNET_CONVS, "conv_bwd_input": RESNET_CONVS,
+                    "rtc": n_params if how == "rtc" else 0}
+            assert {k: c[k] - prev[k] for k in c} == want, (how, i, c, prev)
+            prev = c
+        assert all(np.isfinite(r["losses"])) and r["losses"][-1] < r["losses"][0], r["losses"]
+    compiles = runs["rtc"]["compiles"]
+    assert compiles == [len(shapes)] * RTC_STEPS, (compiles, len(shapes))
+    worst, err = 0.0, 0.0
+    with torch.no_grad():
+        a, b = runs["rtc"]["exe"], runs["nd"]["exe"]
+        for n in runs["rtc"]["moms"]:
+            for got, want in ((a.arg_dict[n]._data, b.arg_dict[n]._data),
+                              (runs["rtc"]["moms"][n]._data, runs["nd"]["moms"][n]._data)):
+                diff = (got - want).abs().max().item()
+                rel = diff / max(want.abs().max().item(), 1e-30)
+                if not rel <= 1e-5:
+                    raise AssertionError("%s: Rtc vs sgd_mom_update %.3g of max" % (n, rel))
+                worst, err = max(worst, rel), max(err, diff)
+    res = {"steps": RTC_STEPS, "params": n_params, "distinct_shapes": len(shapes),
+           "losses_rtc": runs["rtc"]["losses"], "losses_nd": runs["nd"]["losses"],
+           "worst_rel_err": worst, "max_abs_err": err,
+           "launches": runs["rtc"]["per_step"][-1], "nvrtc_compiles_by_step": compiles,
+           "wall_s": {h: r["wall_s"] for h, r in runs.items()}}
+    log("phase 15: ResNet-50 training through Executor + Rtc sgd_mom (kernel d) vs "
+        "nd.sgd_mom_update, %d steps: %s" % (RTC_STEPS, json.dumps(res)))
+    return res, runs
+
+
+def phase_rtc_times(mx, rk, runs, res, dev):
+    """Kernels-line entry of K5: kernel (d)'s launches of one step against
+    the plain updates of one step."""
+    import torch
+
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    r, p = runs["rtc"], runs["nd"]
+    kernel, rescale = r["kernel"], 1.0 / RESNET_BATCH
+    steps = {
+        "rtc": lambda: _update_all(r["exe"], lambda n, w, g: kernel.push(
+            [g], [w, r["moms"][n]], *rk.grid_stride_dims(w.size))),
+        "nd": lambda: _update_all(p["exe"], lambda n, w, g: mx.nd.sgd_mom_update(
+            w, g, p["moms"][n], out=w, rescale_grad=rescale, **SGD)),
+    }
+    ms = {how: time_ms(fn, 10, 2, flush) for how, fn in steps.items()}
+    # one launch on the largest parameter array: the kernel's own device time
+    big = max(r["moms"], key=lambda n: r["moms"][n].size)
+    w, g, m = r["exe"].arg_dict[big], r["exe"].grad_dict[big], r["moms"][big]
+    one_ms = time_ms(lambda: kernel.push([g], [w, m], *rk.grid_stride_dims(w.size)), 20, 3,
+                     flush)
+    elems = sum(m.size for m in r["moms"].values())
+    nbytes = 20.0 * elems  # w, g, mom read; w, mom written; f32
+    entry = {
+        "name": "rtc_sgd_mom", "route": "cuda", "source": "mxnet_tpu_torch/rtc_kernels.py",
+        "replaces": "mxnet_tpu/rtc.py:71", "launches": res["launches"]["rtc"],
+        "max_abs_err": res["max_abs_err"], "rel_err": res["worst_rel_err"],
+        "ms": ms["rtc"], "kernel_ms": ms["rtc"], "plain_ms": ms["nd"],
+        "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes", "library_ms": None,
+        "library_note": "none: no single PyTorch call computes MXNet's sgd_mom_update",
+        "per": "one step: %d launches over %d parameter arrays, %d elements, f32"
+               % (res["params"], res["params"], elems),
+        "bytes": nbytes, "largest_array": {
+            "name": big, "elements": w.size, "ms": one_ms,
+            "bound_ms": 20.0 * w.size / PEAK_BYTES * 1e3},
+        "nvrtc_compiles": mx.rtc.Rtc.compiles,
+        "nvrtc_ms_per_compile": 1e3 * mx.rtc.Rtc.compile_seconds / mx.rtc.Rtc.compiles,
+    }
+    log("  rtc_sgd_mom %s" % json.dumps(entry))
+    return [entry]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every phase's numbers to this JSON file")
@@ -822,6 +1122,8 @@ def main(argv=None):
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import rtc_kernels as rk
     from mxnet_tpu_torch import telemetry
     from mxnet_tpu_torch.examples import train_transformer_lm as trainer
     from mxnet_tpu_torch.models import resnet
@@ -852,13 +1154,25 @@ def main(argv=None):
                                for dtype in ("float32", "bfloat16")]
     conv_launches = {name: sum(r["launches"][name] for r in results["resnet_train"])
                      for name in ("conv_bwd_filter", "conv_bwd_input")}
+    results["rtc"] = phase_rtc(mx, rk, dev)
+    # cuDNN's default backward algorithms for the strided convolutions sum
+    # in an order that changes from run to run; phases 14 and 15 compare two
+    # runs of one computation, so they take its deterministic algorithms
+    torch.backends.cudnn.deterministic = True
+    results["executor"] = phase_executor(mx, resnet, resnet_bench, kernels, dev)
+    results["rtc_training"], rtc_runs = phase_rtc_training(mx, rk, resnet, resnet_bench, kernels,
+                                                          dev)
+    torch.backends.cudnn.deterministic = False
+    conv_launches = {name: conv_launches[name] + results["rtc_training"]["launches"][name]
+                     for name in conv_launches}
     fwd = phase_kernel_times(kernels, dev, results["serving_bf16"]["flash_launches"])
     # the forward kernel runs on both main paths
     fwd[0]["launches_by_path"] = {"serving": fwd[0]["launches"],
                                   "training": train_launches["flash_attn_fwd"]}
     fwd[0]["launches"] += train_launches["flash_attn_fwd"]
     kernel_line = {"kernels": fwd + phase_bwd_times(kernels, dev, train_launches)
-                   + phase_conv_times(kernels, resnet, dev, conv_launches, conv_errs),
+                   + phase_conv_times(kernels, resnet, dev, conv_launches, conv_errs)
+                   + phase_rtc_times(mx, rk, rtc_runs, results["rtc_training"], dev),
                    "card": card}
     results.update(kernel_line)
     if args.out:

@@ -4,20 +4,45 @@ The JAX package ``mxnet_tpu`` stays the reference; this package imports
 ``torch`` and nothing of JAX or of ``mxnet_tpu``. Ported so far: the
 KV-cached transformer LM served through ``serving.GenerationEngine``, and
 its training (``examples.train_transformer_lm``); the Symbol layer
-(``symbol``, ``name``, ``attribute``, ``ops.registry``), the graph program
-``executor._GraphProgram``, the operators ResNet needs and
-``models.resnet``, trained by ``tools.resnet_bench`` (bench.py's ResNet-50
-step). Attention runs the hand-written CUDA flash-attention forward
+(``symbol``, ``name``, ``attribute``, ``ops.registry``), ``models.resnet``
+and ``tools.resnet_bench`` (bench.py's ResNet-50 step); the imperative API
+(``nd``, ``random``, ``autograd``) over the operator modules
+(``ops.elemwise``, ``broadcast_reduce``, ``matrix``, ``init_ops``,
+``indexing``, ``sample``, ``optimizer_ops``, part of ``nn``); the bound
+``Executor`` (``bind`` / ``simple_bind`` / forward / backward); and
+``rtc``, CUDA C kernels compiled at run time by NVRTC.
+
+Attention runs the hand-written CUDA flash-attention forward
 (``csrc/flash_attn_fwd.cu``) and its gradient the dq and dk/dv kernels
 (``csrc/flash_attn_bwd.cu``); convolution gradients inside the envelope
 run the filter- and data-gradient kernels (``csrc/conv_bwd.cu``). All are
 built with ``nvcc`` at first use — never at import.
 
-Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
-with no CUDA device and no explicit device they raise.
+With no context entered, arrays and entry points are on ``gpu(0)``; enter
+``with mx.cpu():`` or pass ``device="cpu"`` for the host. With no CUDA
+device and no explicit CPU context they raise.
+
+Usage mirrors ``import mxnet as mx``::
+
+    import mxnet_tpu_torch as mx
+    a = mx.nd.ones((2, 3), ctx=mx.gpu())
+    net = mx.sym.FullyConnected(mx.sym.Variable('data'), num_hidden=10)
+    exe = net.simple_bind(mx.gpu(), data=(4, 3))
 """
 from __future__ import annotations
 
 from . import context, telemetry  # noqa: F401
 from .base import MXNetError, __version__  # noqa: F401
-from .context import cpu, default_device, gpu  # noqa: F401
+from .context import Context, cpu, current_context, default_device, gpu, num_devices  # noqa: F401
+from . import ndarray  # noqa: F401
+from . import ndarray as nd  # noqa: F401
+from . import random  # noqa: F401
+from . import random as rnd  # noqa: F401
+from . import autograd  # noqa: F401
+from . import symbol  # noqa: F401
+from . import symbol as sym  # noqa: F401
+from . import executor  # noqa: F401
+from .executor import Executor  # noqa: F401
+from .attribute import AttrScope  # noqa: F401
+from .name import NameManager, Prefix  # noqa: F401
+from . import rtc  # noqa: F401

@@ -76,7 +76,38 @@ def dtype_name(dtype) -> str:
         return str(dtype).split(".")[-1]
     if isinstance(dtype, str) and dtype == "bfloat16":
         return dtype
+    if isinstance(dtype, (int, np.integer)) and int(dtype) == 12:
+        return "bfloat16"
     return np.dtype(np_dtype(dtype)).name
+
+
+_TORCH_DTYPES = {
+    "float32": torch.float32, "float64": torch.float64, "float16": torch.float16,
+    "bfloat16": torch.bfloat16, "uint8": torch.uint8, "int8": torch.int8,
+    "int32": torch.int32, "int64": torch.int64, "bool": torch.bool,
+}
+
+
+def torch_dtype(dtype):
+    """Any dtype spec (numpy type, name, mshadow code, torch dtype) as a torch
+    dtype; ``None`` means float32."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    if isinstance(dtype, str) and dtype == "bool":
+        return torch.bool
+    if dtype is not None and not isinstance(dtype, (int, np.integer, str)) \
+            and np.dtype(dtype) == np.bool_:
+        return torch.bool
+    return _TORCH_DTYPES[dtype_name(dtype)]
+
+
+def mx_dtype_code(dtype) -> int:
+    """The mshadow TypeFlag of a dtype (12 for bfloat16, the TPU-era
+    extension code the JAX package writes)."""
+    name = dtype_name(dtype)
+    if name == "bfloat16":
+        return 12
+    return _DTYPE_NP_TO_MX[np_dtype(name)]
 
 
 # ---------------------------------------------------------------------------

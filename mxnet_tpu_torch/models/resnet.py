@@ -70,21 +70,36 @@ def residual_unit(data, num_filter, stride, dim_match, name,
 def resnet(units, num_stages, filter_list, num_classes, image_shape,
            bottle_neck=True, bn_mom=0.9, dtype="float32",
            stem_s2d=False):
-    if dtype != "float32" or stem_s2d:
-        # both need Cast / Reshape / transpose / Pad, not ported yet
-        raise NotImplementedError(
-            "resnet: dtype=%r and stem_s2d=%r need operators not ported to PyTorch "
-            "yet (Cast, Reshape, transpose, Pad: mxnet_tpu/models/resnet.py); train "
-            "in bf16 by casting the parameters and data instead, as "
-            "tools/resnet_bench.py does" % (dtype, stem_s2d))
     data = sym.Variable("data")
     (nchannel, height, width) = image_shape
     data = sym.BatchNorm(data, fix_gamma=True, eps=2e-5, momentum=bn_mom,
                          name="bn_data")
+    if dtype != "float32":
+        # cast after the input BN, back before the loss head: infer_type
+        # makes every weight in between reduced-precision
+        data = sym.Cast(data, dtype=dtype, name="cast_in")
     if height <= 32:  # cifar
         body = sym.Convolution(data, num_filter=filter_list[0],
                                kernel=(3, 3), stride=(1, 1), pad=(1, 1),
                                no_bias=True, name="conv0")
+    elif stem_s2d:
+        # 2x2 space-to-depth turns the 7x7/s2 stem into the exactly
+        # equivalent 4x4/s1 conv on 4C channels (asymmetric (2, 1) pad)
+        body = sym.Reshape(data, shape=(0, nchannel, height // 2, 2,
+                                        width // 2, 2))
+        body = sym.transpose(body, axes=(0, 1, 3, 5, 2, 4))
+        body = sym.Reshape(body, shape=(0, nchannel * 4, height // 2,
+                                        width // 2))
+        body = sym.Pad(body, pad_width=(0, 0, 0, 0, 2, 1, 2, 1),
+                       mode="constant")
+        body = sym.Convolution(body, num_filter=filter_list[0],
+                               kernel=(4, 4), stride=(1, 1), pad=(0, 0),
+                               no_bias=True, name="conv0")
+        body = sym.BatchNorm(body, fix_gamma=False, eps=2e-5, momentum=bn_mom,
+                             name="bn0")
+        body = sym.Activation(body, act_type="relu", name="relu0")
+        body = sym.Pooling(body, kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                           pool_type="max")
     else:  # imagenet
         body = sym.Convolution(data, num_filter=filter_list[0],
                                kernel=(7, 7), stride=(2, 2), pad=(3, 3),
@@ -110,6 +125,8 @@ def resnet(units, num_stages, filter_list, num_classes, image_shape,
                         pool_type="avg", name="pool1")
     flat = sym.Flatten(pool1)
     fc1 = sym.FullyConnected(flat, num_hidden=num_classes, name="fc1")
+    if dtype != "float32":
+        fc1 = sym.Cast(fc1, dtype="float32", name="cast_out")
     return sym.SoftmaxOutput(fc1, name="softmax")
 
 

@@ -6,25 +6,18 @@ of torch tensors; autograd records it. Ops with auxiliary state (BatchNorm's
 moving stats) take the aux tensors as trailing inputs and return their
 updated values as trailing outputs, which the graph program writes back.
 
-Only the operators a ported model needs are registered. Asking for any
-other name raises :class:`MXNetError` naming where the JAX package defines
-it, so a graph that needs an unported op fails when it is built or loaded.
+The ported operator modules register under the JAX names, aliases and
+defaults: ``elemwise``, ``broadcast_reduce``, ``matrix``, ``init_ops``,
+``indexing``, ``sample``, ``optimizer_ops`` and the part of ``nn`` a ported
+model needs. Asking for any other name raises :class:`MXNetError` naming
+where the JAX package defines it, so a graph that needs an unported op
+fails when it is built or loaded.
 """
 from __future__ import annotations
 
 from ..base import MXNetError, parse_attr_value
 
 _REGISTRY: dict[str, "OpDef"] = {}
-
-# where the JAX package defines the ops the Symbol class itself creates
-# (arithmetic operators); every other op lives somewhere under mxnet_tpu/ops/
-_JAX_HOME = {
-    name: "mxnet_tpu/ops/elemwise.py"
-    for name in ("elemwise_sub", "elemwise_mul", "elemwise_div", "_power", "negative",
-                 "_plus_scalar", "_minus_scalar", "_rminus_scalar", "_mul_scalar",
-                 "_div_scalar", "_rdiv_scalar", "_power_scalar", "_rpower_scalar")
-}
-
 
 class OpDef:
     """Metadata + compute for one operator."""
@@ -65,8 +58,8 @@ class OpDef:
         # False for loss/output ops whose backward ignores the head gradient
         self.need_top_grad = need_top_grad
         self.visible = visible
-        # ops needing randomness; the port's graph program has no rng yet
-        # and refuses them
+        # ops drawing random numbers take a torch.Generator as
+        # attrs["__rng__"]
         self.needs_rng = needs_rng
         self.mutate_inputs = tuple(mutate_inputs)
         self.open_attrs = open_attrs
@@ -240,7 +233,7 @@ def get(name) -> OpDef:
     if op is None:
         raise MXNetError(
             "operator %s is not ported to PyTorch yet: the JAX package defines "
-            "it in %s" % (name, _JAX_HOME.get(name, "mxnet_tpu/ops/")))
+            "it under mxnet_tpu/ops/" % name)
     return op
 
 
@@ -250,3 +243,13 @@ def exists(name) -> bool:
 
 def list_ops():
     return sorted(_REGISTRY)
+
+
+def primary_ops():
+    """Unique OpDefs (no alias duplicates)."""
+    seen, out = set(), []
+    for op in _REGISTRY.values():
+        if id(op) not in seen:
+            seen.add(id(op))
+            out.append(op)
+    return out

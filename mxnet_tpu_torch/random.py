@@ -1,0 +1,76 @@
+"""Global random seed of the PyTorch port (counterpart of
+``mxnet_tpu/random.py``).
+
+One explicit ``torch.Generator`` per device, seeded by :func:`seed`; the
+sampling operators draw from the generator of the device they run on.
+Streams cannot match the JAX package's threefry keys, so samplers are held
+to it by their moments, and a run is reproducible after ``seed()``.
+``get_state`` / ``set_state`` snapshot and restore one device's stream.
+"""
+from __future__ import annotations
+
+import threading
+
+import numpy as _np
+import torch
+
+_state = threading.local()
+
+
+def _st():
+    if not hasattr(_state, "generators"):
+        _state.generators = {}
+        _state.seed = None
+    return _state
+
+
+def _key(device):
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def generator(device="cpu"):
+    """The generator of ``device``, made (and seeded from the last
+    :func:`seed`, or from numpy's global stream) on first use."""
+    st = _st()
+    device = _key(device)
+    gen = st.generators.get(device)
+    if gen is None:
+        if st.seed is None:
+            st.seed = int(_np.random.randint(0, 2**31 - 1))
+        gen = torch.Generator(device=device)
+        gen.manual_seed(st.seed)
+        st.generators[device] = gen
+    return gen
+
+
+def seed(seed_state: int):
+    """Seed every device's sampler stream (parity: mx.random.seed)."""
+    st = _st()
+    st.seed = int(seed_state)
+    for gen in st.generators.values():
+        gen.manual_seed(st.seed)
+
+
+def get_state(device="cpu"):
+    """Snapshot ``device``'s stream as a host uint8 array."""
+    return generator(device).get_state().numpy().copy()
+
+
+def set_state(state, device="cpu"):
+    """Restore a stream captured by :func:`get_state`."""
+    generator(device).set_state(torch.from_numpy(_np.asarray(state, _np.uint8)))
+
+
+def fork(gen):
+    """A new generator on ``gen``'s device in ``gen``'s current state, so a
+    recorded draw can be replayed without moving ``gen``."""
+    twin = torch.Generator(device=gen.device)
+    twin.set_state(gen.get_state())
+    return twin
+
+
+# sampler front-ends (uniform/normal/...) are generated onto this module by
+# mxnet_tpu_torch.ndarray at import; see _init_random_module there.

@@ -7,9 +7,9 @@ listing, shape and type inference, and the reference's graph-JSON schema
 written by either package loads in the other. Evaluation is
 ``executor._GraphProgram``, which runs each node's operator on torch
 tensors; gradients come from ``torch.autograd``. ``bind``,
-``simple_bind`` and ``eval`` need ``executor.Executor``, which is not
-ported yet. Only the operators a ported model needs exist (see
-``ops/``); creating or loading any other raises.
+``simple_bind`` and ``eval`` make an ``executor.Executor``. Only the
+ported operators exist (see ``ops/``); creating or loading any other
+raises.
 """
 from __future__ import annotations
 
@@ -22,15 +22,11 @@ from .attribute import AttrScope
 from .base import MXNetError, attr_repr, dtype_name, np_dtype, parse_attr_value
 from .name import NameManager
 from .ops.utils import merge_shapes
-from .ops import elemwise, matrix, nn  # noqa: F401  (registers the ported operators)
+from .ops import (broadcast_reduce, elemwise, indexing, init_ops, matrix, nn,  # noqa: F401
+                  optimizer_ops, sample)  # (registers the ported operators)
 from .ops import registry as _registry
 
 __all__ = ["Symbol", "Variable", "Group", "load", "load_json", "var"]
-
-_NO_EXECUTOR = ("executor.Executor (bind / simple_bind / eval) is not ported to "
-                "PyTorch yet: it is the next slice; run a symbol through "
-                "executor._GraphProgram")
-
 
 class _Node:
     """One graph node: a variable (op is None) or an op instance."""
@@ -454,18 +450,32 @@ class Symbol:
             f.write(self.tojson())
 
     # ------------------------------------------------------------------
-    # binding: executor.Executor is the next slice of the port
+    # binding (executor construction) — see executor.py
     # ------------------------------------------------------------------
     def simple_bind(self, ctx, grad_req="write", type_dict=None, group2ctx=None,
                     shared_exec=None, **kwargs):
-        raise NotImplementedError(_NO_EXECUTOR)
+        from .executor import Executor
+
+        return Executor.simple_bind(
+            self, ctx, grad_req=grad_req, type_dict=type_dict,
+            group2ctx=group2ctx, shared_exec=shared_exec, **kwargs
+        )
 
     def bind(self, ctx, args, args_grad=None, grad_req="write", aux_states=None,
              group2ctx=None, shared_exec=None):
-        raise NotImplementedError(_NO_EXECUTOR)
+        from .executor import Executor
+
+        return Executor.bind(
+            self, ctx, args, args_grad=args_grad, grad_req=grad_req,
+            aux_states=aux_states, group2ctx=group2ctx, shared_exec=shared_exec
+        )
 
     def eval(self, ctx=None, **kwargs):
-        raise NotImplementedError(_NO_EXECUTOR)
+        from .context import current_context
+
+        ctx = ctx or current_context()
+        ex = self.bind(ctx, kwargs)
+        return ex.forward()
 
     def grad(self, wrt):
         raise MXNetError(

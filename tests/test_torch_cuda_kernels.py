@@ -159,3 +159,92 @@ def test_cuda_convolution_gradient_runs_the_conv_kernels():
                 counts[0] + 1, counts[1] + 1)
     for got, want in zip(*grads):
         assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_rtc_reproduces_test_rtc():
+    """On the card: tests/test_rtc.py's cases through the port's NVRTC Rtc —
+    its expected values (rtol 1e-6), its cache counts (1, then 1, then 2)
+    and the MXNetError, with NVRTC's log, for a bad source."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import rtc_kernels as rk
+
+    with mx.gpu(0):
+        x = mx.nd.array(np.arange(8 * 128, dtype=np.float32).reshape(8, 128))
+        y = mx.nd.zeros((8, 128))
+        rk.make(rk.AXPB, [x], [y]).push([x], [y], (1, 1, 1), (1, 1, 1))
+        np.testing.assert_allclose(y.asnumpy(), x.asnumpy() * 2.0 + 1.0, rtol=1e-6)
+        a = mx.nd.array(np.random.RandomState(0).rand(4, 128).astype(np.float32))
+        b = mx.nd.array(np.random.RandomState(1).rand(4, 128).astype(np.float32))
+        out = mx.nd.zeros((4, 128))
+        k = rk.make(rk.MADD, [a, b], [out])
+        launches = mx.rtc.Rtc.launches
+        k.push([a, b], [out])
+        np.testing.assert_allclose(out.asnumpy(), a.asnumpy() * b.asnumpy() + a.asnumpy(),
+                                   rtol=1e-6)
+        assert len(k._cache) == 1
+        k.push([a, b], [out])
+        assert len(k._cache) == 1
+        a2, o2 = mx.nd.ones((2, 128)), mx.nd.zeros((2, 128))
+        k.push([a2, a2], [o2])
+        assert len(k._cache) == 2 and mx.rtc.Rtc.launches == launches + 3
+        np.testing.assert_allclose(o2.asnumpy(), np.full((2, 128), 2.0))
+        with pytest.raises(mx.MXNetError, match="error"):
+            mx.rtc.Rtc("bad", [("x", mx.nd.ones((2, 2)))], [("y", mx.nd.ones((2, 2)))],
+                       "y[0] = = x[0];")
+        with pytest.raises(mx.MXNetError, match="wrong number"):
+            k.push([a], [out])
+        with pytest.raises(mx.MXNetError, match="1024"):
+            k.push([a, b], [out], (1, 1, 1), (2048, 1, 1))
+
+
+@pytest.mark.cuda
+def test_cuda_rtc_kernels_match_plain_versions():
+    """On the card: kernels (a)-(c) of rtc_kernels against their plain
+    versions, f32 at rtol 1e-6 and bf16 within one bf16 ulp, a repeat
+    bitwise; kernel (d) against sgd_mom_update over three steps within 1e-6
+    of max."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import rtc_kernels as rk
+
+    g = torch.Generator().manual_seed(5)
+    with mx.gpu(0):
+        for dt in (torch.float32, torch.bfloat16):
+            x = mx.nd.NDArray((0.5 * torch.randn(3, 1000, generator=g)).to("cuda", dt))
+            b = mx.nd.NDArray(torch.rand(3, 1000, generator=g).to("cuda", dt))
+            for spec, ins, plain, dims in (
+                    (rk.AXPB, [x], rk.axpb_plain, rk.grid_stride_dims(x.size)),
+                    (rk.MADD, [x, b], rk.madd_plain, ((2, 1, 1), (64, 1, 1))),
+                    (rk.EXP5, [x], rk.exp5_plain, ((3, 1, 1), (1000, 1, 1)))):
+                out = mx.nd.zeros(x.shape, dtype=dt)
+                k = rk.make(spec, ins, [out])
+                k.push(ins, [out], *dims)
+                first = out._data.clone()
+                k.push(ins, [out], *dims)
+                want = plain(*[a._data for a in ins]).float()
+                err = (out._data.float() - want).abs()
+                if dt == torch.float32:
+                    assert (err <= 1e-6 * want.abs()).all(), spec[0]
+                else:
+                    mag = torch.maximum(want.abs(), out._data.float().abs())
+                    assert (err <= 2.0 ** (torch.floor(torch.log2(mag)) - 7)).all(), spec[0]
+                assert torch.equal(first, out._data), spec[0]
+        w0, gr = (torch.randn(4097, generator=g).cuda() for _ in range(2))
+        weight, mom = mx.nd.NDArray(w0.clone()), mx.nd.zeros((4097,))
+        weight2, mom2 = mx.nd.NDArray(w0.clone()), mx.nd.zeros((4097,))
+        grad = mx.nd.NDArray(gr)
+        k = rk.make(rk.sgd_mom_source(0.1, 0.9, 1e-4, 0.5), [grad], [weight, mom])
+        for _ in range(3):
+            k.push([grad], [weight, mom], *rk.grid_stride_dims(weight.size))
+            mx.nd.sgd_mom_update(weight2, grad, mom2, out=weight2, lr=0.1, momentum=0.9,
+                                 wd=1e-4, rescale_grad=0.5)
+        for got, want in ((weight, weight2), (mom, mom2)):
+            scale = want._data.abs().max().item()
+            assert (got._data - want._data).abs().max().item() <= 1e-6 * scale
+        assert len(k._cache) == 1
