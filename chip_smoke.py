@@ -101,7 +101,40 @@ Phases, each fatal on failure:
     TB/s) and NVRTC ms per compile; one launch on the largest parameter
     array against its bound; phase 14's forward + backward ms.
 
-Then the kernels line: the six kernels, K4f, K4dq, K4dkv, K2, K3 and K5.
+16. Optimizer-slab kernel K1 (``fused_slab_update``) against its plain
+    version: sgd, sgd_mom and adam, bf16 and f32 gradients, clipping on and
+    off, a finite and a skipped step, at S = 131, 1024, 5000, 2,359,296 and
+    every bucket size of ResNet-50's AMP plan at dp 4: master, states and
+    the bf16 copy bit for bit (the kernel rounds each operation once, as
+    each PyTorch op of the plain version does), a skipped step returns its
+    inputs bit for bit, a repeat gives the same bits; one launch under
+    ``torch.cuda.set_sync_debug_mode("error")`` shows the wrapper never
+    waits for the device. Then the time of one step's K1 launches over
+    ResNet-50's buckets (sgd_mom, bf16 gradient; CUDA events, L2 flushed
+    before each launch), the plain version's, and the bound: 20 bytes an
+    element at 3.35 TB/s.
+17. ResNet-50 through ``Module.fit`` with bf16 AMP (main path 5): the
+    imagenet ResNet-50 at batch 32, ``Module(context=mx.gpu(0),
+    mesh=make_mesh(dp=4, devices=[mx.gpu(0)] * 4))``, ``kvstore="device"``,
+    SGD (lr 0.1, momentum 0.9, wd 1e-4), Xavier, ``MXTPU_AMP=bf16``, over an
+    NDArrayIter of 8 seeded batches: AMP on and the flat update in shard
+    mode; K1 launched once per bucket a step, K2 and K3 46 times a step
+    (counts zeroed just before ``fit``); every working param bf16 and equal
+    to bf16(master), ``get_params`` f32 and equal to the masters; every
+    loss finite, the loss scale unchanged and the good count 8. Then a
+    batch poisoned with inf leaves params, masters and states bit for bit,
+    halves the scale and zeroes the count, and a clean step after it
+    updates. Step ms (median of steps 3-8), img/s, peak memory; then two
+    more steps under torch.profiler: wall and device-busy ms a step, the
+    idle share, kernels a step and device ms per kernel family.
+18. Convergence on the card (the verify skill's drive 1): 10 seeded
+    gaussian blobs in 784 dimensions, ``models/mlp.py``, 3 epochs; (a) on
+    ``gpu(0)`` with ``kvstore="local"`` (the executor-group path), (b) on
+    the dp 4 mesh with AMP and Adam (K1's adam variant): validation
+    accuracy at least 0.97 in both.
+
+Then the kernels line: the seven kernels, K4f, K4dq, K4dkv, K2, K3, K5 and
+K1.
 
 The last line of output is {"ok": true, "device": {...}}. Without a CUDA
 device, or without the package beside this script, it exits non-zero and
@@ -320,7 +353,7 @@ def phase_serving_f32(tfm, kernels, dev):
 
 def zero_counts(kernels):
     for fn in (kernels.flash_attention, kernels.flash_attention_dq, kernels.flash_attention_dkv,
-               kernels.conv_bwd_filter, kernels.conv_bwd_input):
+               kernels.conv_bwd_filter, kernels.conv_bwd_input, kernels.fused_slab_update):
         fn.launches = 0
 
 
@@ -1111,6 +1144,351 @@ def phase_rtc_times(mx, rk, runs, res, dev):
     return [entry]
 
 
+SLAB_SIZES = (131, 1024, 5000, 2359296)
+SLAB_KW = dict(wd=1e-4, rescale_grad=1.0 / RESNET_BATCH, momentum=0.9, beta1=0.9,
+               beta2=0.999, epsilon=1e-8)
+FIT_BATCHES = 8
+BLOBS = dict(classes=10, dim=784, train=2000, val=500, batch=100, epochs=3)
+
+
+def resnet50_amp_plan(mx, resnet):
+    """The flat plan the AMP fused path builds for ResNet-50 at dp 4 (SGD,
+    the Module's optimizer and multipliers): ``_FlatUpdatePlan`` itself."""
+    from mxnet_tpu_torch.parallel.train_step import _FlatUpdatePlan
+
+    symbol = resnet.get_symbol()
+    shapes = dict(zip(symbol.list_arguments(), symbol.infer_shape(
+        data=(RESNET_BATCH, 3, 224, 224), softmax_label=(RESNET_BATCH,))[0]))
+    names = [n for n in symbol.list_arguments() if n not in ("data", "softmax_label")]
+    opt = mx.optimizer.create("sgd", momentum=SGD["momentum"], sym=symbol,
+                              param_idx2name=dict(enumerate(names)))
+    return _FlatUpdatePlan(names, {n: tuple(shapes[n]) for n in names},
+                           dict.fromkeys(names, "float32"), opt, 4, 4 * 1024 * 1024,
+                           comm_itemsize=2)
+
+
+def slab_case(kernels, kind, size, g_dtype, dev, rng):
+    """Master, gradient and states of one K1 case (Adam's second moment,
+    the last state, non-negative as it always is)."""
+    import torch
+
+    w = _randn((size,), torch.float32, dev, rng)
+    g = (4.0 * _randn((size,), torch.float32, dev, rng)).to(g_dtype)
+    states = [0.1 * _randn((size,), torch.float32, dev, rng)
+              for _ in range(kernels.SLAB_STATE_SLOTS[kind])]
+    if kind == "adam":
+        states[1] = states[1].abs()
+    return w, g, tuple(states)
+
+
+def device_ms(fn, reps, warmup, flush):
+    """Median device ms of ``fn``'s launches, L2 flushed before each rep:
+    a ~0.5 ms sleep kernel is queued before the start event, so the host
+    enqueues the launches while the card sleeps and the events time the
+    launches back to back, not the host's enqueue gaps."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda._sleep(1_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def phase_slab_checks(kernels, dev, plan):
+    import torch
+
+    rng = np.random.default_rng(10)
+    sizes = sorted(set(SLAB_SIZES) | {b.padded for b in plan.buckets})
+    cases, worst = 0, 0.0
+    for size in sizes:
+        for kind in ("sgd", "sgd_mom", "adam"):
+            for g_dtype in (torch.bfloat16, torch.float32):
+                w, g, states = slab_case(kernels, kind, size, g_dtype, dev, rng)
+                for finite in (1.0, 0.0):
+                    for clip in (None, 0.05):
+                        args = (kind, w, g, states, 0.05, 1.0 / 128, finite)
+                        got = kernels.fused_slab_update(*args, clip_gradient=clip, **SLAB_KW)
+                        again = kernels.fused_slab_update(*args, clip_gradient=clip, **SLAB_KW)
+                        want = kernels.slab_update_reference(*args, clip_gradient=clip,
+                                                             **SLAB_KW)
+                        torch.cuda.synchronize()
+                        outs = list(zip((got[0], *got[1], got[2]), (want[0], *want[1], want[2]),
+                                        (again[0], *again[1], again[2])))
+                        for a, b, c in outs:
+                            err = (a.float() - b.float()).abs().max().item()
+                            worst = max(worst, err)
+                            if not torch.equal(a, b):
+                                raise AssertionError(
+                                    "slab_update %s S=%d g %s finite %s clip %s: %.3g from the "
+                                    "plain version" % (kind, size, g_dtype, finite, clip, err))
+                            if not torch.equal(a, c):
+                                raise AssertionError("slab_update is not bitwise repeatable")
+                        if finite == 0.0 and not (
+                                torch.equal(got[0], w)
+                                and all(torch.equal(a, s) for a, s in zip(got[1], states))
+                                and torch.equal(got[2], w.to(torch.bfloat16))):
+                            raise AssertionError("slab_update changed a skipped step's bits")
+                        cases += 1
+    # one launch that must never wait for the device
+    w, g, states = slab_case(kernels, "sgd_mom", 5000, torch.bfloat16, dev, rng)
+    inv, fin = torch.full((), 1.0 / 128, device=dev), torch.ones((), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kernels.fused_slab_update("sgd_mom", w, g, states, 0.05, inv, fin, clip_gradient=None,
+                                  out=(w, states, torch.empty(5000, dtype=torch.bfloat16,
+                                                              device=dev)), **SLAB_KW)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log("phase 16: slab_update (K1) vs plain bit for bit over %d cases, %d sizes (%d buckets of "
+        "ResNet-50's AMP plan), max_abs_err %.3g; a launch under sync debug mode 'error' ran"
+        % (cases, len(sizes), len(plan.buckets), worst))
+    return {"cases": cases, "sizes": sizes, "max_abs_err": worst}
+
+
+def phase_slab_times(kernels, dev, plan, launches, checks):
+    """Kernels-line entry of K1: one step's launches over ResNet-50's AMP
+    buckets (sgd_mom, bf16 gradient), kernel and plain."""
+    import torch
+
+    rng = np.random.default_rng(11)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    ms = {"kernel": 0.0, "plain": 0.0}
+    rows, calls = [], []
+    for b in plan.buckets:
+        w, g, states = slab_case(kernels, "sgd_mom", b.padded, torch.bfloat16, dev, rng)
+        w16 = torch.empty(b.padded, dtype=torch.bfloat16, device=dev)
+        args = ("sgd_mom", w, g, states, 0.1, 1.0 / 32768, 1.0)
+        kern = (lambda args=args, states=states, w16=w16: kernels.fused_slab_update(
+            *args, clip_gradient=None, out=(args[1], states, w16), **SLAB_KW))
+        k = device_ms(kern, 20, 3, flush)
+        p = device_ms(lambda args=args: kernels.slab_update_reference(
+            *args, clip_gradient=None, **SLAB_KW), 10, 2, flush)
+        ms["kernel"] += k
+        ms["plain"] += p
+        calls.append(kern)
+        rows.append({"padded": b.padded, "ms": k, "plain_ms": p,
+                     "bound_ms": 20.0 * b.padded / PEAK_BYTES * 1e3})
+    # the host's side of a step's launches: enqueue wall time, no sync
+    host = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for kern in calls:
+            kern()
+        host.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    elems = sum(b.padded for b in plan.buckets)
+    nbytes = 20.0 * elems  # read w 4, g 2, mom 4; write w 4, mom 4, w16 2
+    entry = {
+        "name": "slab_update", "route": "cuda", "source": "mxnet_tpu_torch/csrc/slab_update.cu",
+        "replaces": "mxnet_tpu/ops/pallas_kernels.py:582", "launches": launches,
+        "max_abs_err": checks["max_abs_err"], "ms": ms["kernel"], "kernel_ms": ms["kernel"],
+        "plain_ms": ms["plain"], "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
+        "library_ms": None,
+        "library_note": "none: no single PyTorch call computes this update (torch's fused "
+                        "optimizers use other formulas and write no bf16 copy)",
+        "per": "one step: %d launches (sgd_mom, bf16 gradient) over ResNet-50's %d AMP buckets "
+               "at dp 4, %d elements" % (len(plan.buckets), len(plan.buckets), elems),
+        "bytes": nbytes, "host_ms_per_step": 1e3 * statistics.median(host), "buckets": rows,
+    }
+    log("  slab_update %s" % json.dumps(entry))
+    return [entry]
+
+
+def _amp_env(on):
+    if on:
+        os.environ["MXTPU_AMP"] = "bf16"
+    else:
+        os.environ.pop("MXTPU_AMP", None)
+
+
+def phase_fit_resnet_amp(mx, kernels, dev, plan):
+    import torch
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(12)
+    n = FIT_BATCHES * RESNET_BATCH
+    X = rng.rand(n, 3, 224, 224).astype(np.float32)
+    y = rng.randint(0, 1000, n).astype(np.float32)
+    it = mx.io.NDArrayIter(X, y, batch_size=RESNET_BATCH)
+    from mxnet_tpu_torch.models import resnet
+
+    np.random.seed(0)
+    mod = mx.mod.Module(resnet.get_symbol(), context=mx.gpu(0),
+                        mesh=mx.parallel.make_mesh(dp=4, devices=[mx.gpu(0)] * 4))
+    losses, stamps = [], []
+    from mxnet_tpu_torch.tools import resnet_bench
+
+    def on_batch(param):
+        prob = mod.get_outputs()[0]._data
+        label = param.locals["data_batch"].label[0]._data
+        losses.append(float(resnet_bench.cross_entropy(prob, label)))  # synchronises
+        stamps.append(time.perf_counter())
+
+    _amp_env(True)
+    try:
+        zero_counts(kernels)
+        kernels.fused_slab_update.launches = 0  # counts from here are this path's
+        t_fit = time.perf_counter()
+        mod.fit(it, kvstore="device", optimizer="sgd",
+                optimizer_params={"learning_rate": SGD["lr"], "momentum": SGD["momentum"],
+                                  "wd": SGD["wd"]},
+                initializer=mx.init.Xavier(), num_epoch=1, batch_end_callback=on_batch)
+        counts = dict(conv_counts(kernels), slab_update=kernels.fused_slab_update.launches)
+    finally:
+        _amp_env(False)
+    tr = mod._fused_trainer
+    owner = mod._fused_owner
+    buckets = len(tr._flat_plan.buckets)
+    assert tr.amp and tr.flat_mode == "shard", (tr.amp, tr.flat_mode)
+    assert [b.padded for b in tr._flat_plan.buckets] == [b.padded for b in plan.buckets]
+    want = {"conv_bwd_filter": RESNET_CONVS * FIT_BATCHES,
+            "conv_bwd_input": RESNET_CONVS * FIT_BATCHES, "slab_update": buckets * FIT_BATCHES}
+    assert counts == want, (counts, want)
+    assert len(losses) == FIT_BATCHES and all(np.isfinite(losses)), losses
+    masters = tr.master_params_named(owner._fused_opt)
+    for name, p in owner._fused_params.items():
+        assert p.dtype == torch.bfloat16, name
+        assert torch.equal(p, masters[name].to(torch.bfloat16)), "%s != bf16(master)" % name
+    arg, _ = mod.get_params()
+    for name, v in arg.items():
+        assert v._data.dtype == torch.float32 and torch.equal(v._data, masters[name].cpu()), name
+    scale, good = (float(owner._fused_opt[k]) for k in (tr.AMP_SCALE_KEY, tr.AMP_GOOD_KEY))
+    assert scale == tr.amp_scale_init and good == FIT_BATCHES, (scale, good)
+    step_s = [b - a for a, b in zip(stamps[1:], stamps[2:])]  # steps 3-8
+    med = statistics.median(step_s)
+    res = {"batch": RESNET_BATCH, "steps": FIT_BATCHES, "dp": 4, "buckets": buckets,
+           "padded": [b.padded for b in tr._flat_plan.buckets], "losses": losses,
+           "launches": counts, "loss_scale": scale, "good_steps": good,
+           "setup_and_fit_s": time.perf_counter() - t0, "fit_s": time.perf_counter() - t_fit,
+           "step_ms_median_steps_3_8": 1e3 * med, "img_per_s": RESNET_BATCH / med,
+           "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+
+    # a poisoned batch: skipped bit for bit, scale halved; then a clean step
+    snap = {"params": {k: v.clone() for k, v in owner._fused_params.items()},
+            "opt": {k: v.clone() for k, v in owner._fused_opt.items() if torch.is_tensor(v)}}
+    it.reset()
+    batch = next(iter(it))
+    bad = mx.io.DataBatch([batch.data[0].copy()], batch.label)
+    bad.data[0]._data[0, 0, 0, 0] = float("inf")
+    mod.forward_backward(bad)
+    mod.update()
+    torch.cuda.synchronize()
+    for k, v in owner._fused_params.items():
+        assert torch.equal(v, snap["params"][k]), "param %s changed on a skipped step" % k
+    for k, v in owner._fused_opt.items():
+        if k not in (tr.AMP_SCALE_KEY, tr.AMP_GOOD_KEY):
+            assert torch.equal(v, snap["opt"][k]), "state %s changed on a skipped step" % k
+    assert float(owner._fused_opt[tr.AMP_SCALE_KEY]) == scale / 2
+    assert float(owner._fused_opt[tr.AMP_GOOD_KEY]) == 0.0
+    mod.forward_backward(batch)
+    mod.update()
+    changed = sum(not torch.equal(v, snap["params"][k]) for k, v in owner._fused_params.items())
+    assert changed > 0, "the clean step after the skipped one did not update"
+    assert float(owner._fused_opt[tr.AMP_GOOD_KEY]) == 1.0
+    res["poisoned_step"] = {"skipped_bitwise": True, "scale_after": scale / 2,
+                            "params_changed_by_next_clean_step": changed}
+    res["profile"] = profile_fit_steps(mod, batch)
+    log("phase 17: ResNet-50 Module.fit, bf16 AMP, dp 4 mesh on gpu(0): %s" % json.dumps(res))
+    return res
+
+
+def profile_fit_steps(mod, batch, steps=2):
+    """Where a fused step's time goes: ``steps`` more steps under
+    torch.profiler (each ending in a synchronise): wall ms and device-busy
+    ms a step, the idle share, kernels a step, and device ms a step per
+    kernel family (resnet_bench's families, K1 apart)."""
+    import torch
+
+    from mxnet_tpu_torch.tools import resnet_bench
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            mod.forward_backward(batch)
+            mod.update()
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / steps
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.events() if e.device_type == cuda]
+    fams = {}
+    for e in events:
+        fam = "slab_update" if "slab_update" in e.name else resnet_bench.family(e.name)
+        f = fams.setdefault(fam, {"device_ms": 0.0, "count": 0})
+        f["device_ms"] += (e.time_range.end - e.time_range.start) / 1e3 / steps
+        f["count"] += 1 / steps
+    busy = sum(f["device_ms"] for f in fams.values())
+    return {"steps": steps, "wall_ms": 1e3 * wall, "device_busy_ms": busy,
+            "idle_share": max(0.0, 1.0 - busy / (1e3 * wall)),
+            "kernels_per_step": len(events) / steps, "families_per_step": fams}
+
+
+def phase_convergence(mx, kernels, dev):
+    from mxnet_tpu_torch.models import mlp
+
+    rng = np.random.RandomState(13)
+    c, d = BLOBS["classes"], BLOBS["dim"]
+    centers = rng.randn(c, d).astype(np.float32)
+    n = BLOBS["train"] + BLOBS["val"]
+    labels = rng.randint(0, c, n)
+    X = (centers[labels] + rng.randn(n, d).astype(np.float32)).astype(np.float32)
+    y = labels.astype(np.float32)
+    tr_, va = slice(0, BLOBS["train"]), slice(BLOBS["train"], n)
+    res = {}
+    for leg in ("a", "b"):
+        np.random.seed(0)
+        train = mx.io.NDArrayIter(X[tr_], y[tr_], batch_size=BLOBS["batch"], shuffle=True)
+        val = mx.io.NDArrayIter(X[va], y[va], batch_size=BLOBS["batch"])
+        if leg == "a":
+            mod = mx.mod.Module(mlp.get_symbol(), context=mx.gpu(0))
+            kw = dict(kvstore="local", optimizer="sgd",
+                      optimizer_params={"learning_rate": 0.1, "momentum": 0.9})
+        else:
+            mod = mx.mod.Module(mlp.get_symbol(), context=mx.gpu(0),
+                                mesh=mx.parallel.make_mesh(dp=4, devices=[mx.gpu(0)] * 4))
+            kw = dict(kvstore="device", optimizer="adam",
+                      optimizer_params={"learning_rate": 0.001})
+        _amp_env(leg == "b")
+        try:
+            kernels.fused_slab_update.launches = 0  # counts from here are this leg's
+            t0 = time.perf_counter()
+            mod.fit(train, eval_data=val, initializer=mx.init.Xavier(),
+                    num_epoch=BLOBS["epochs"], **kw)
+            wall = time.perf_counter() - t0
+        finally:
+            _amp_env(False)
+        acc = dict(mod.score(val, "acc"))["accuracy"]
+        tr = mod._fused_trainer
+        res[leg] = {"val_acc": acc, "fit_s": wall, "fused": tr is not None,
+                    "amp": bool(tr is not None and tr.amp),
+                    "slab_update_launches": kernels.fused_slab_update.launches}
+        if leg == "b":
+            steps = BLOBS["epochs"] * BLOBS["train"] // BLOBS["batch"]
+            assert tr.amp and tr.flat_mode == "shard" and tr._slab_kind() == "adam"
+            assert res[leg]["slab_update_launches"] == len(tr._flat_plan.buckets) * steps, res
+        else:
+            assert tr is None
+        assert acc >= 0.97, (leg, acc)
+    log("phase 18: 10-blob MLP convergence on the card: %s" % json.dumps(res))
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every phase's numbers to this JSON file")
@@ -1165,6 +1543,14 @@ def main(argv=None):
     torch.backends.cudnn.deterministic = False
     conv_launches = {name: conv_launches[name] + results["rtc_training"]["launches"][name]
                      for name in conv_launches}
+    plan = resnet50_amp_plan(mx, resnet)
+    results["slab_checks"] = phase_slab_checks(kernels, dev, plan)
+    results["fit_resnet_amp"] = phase_fit_resnet_amp(mx, kernels, dev, plan)
+    conv_launches = {name: conv_launches[name] + results["fit_resnet_amp"]["launches"][name]
+                     for name in conv_launches}
+    results["convergence"] = phase_convergence(mx, kernels, dev)
+    slab_launches = (results["fit_resnet_amp"]["launches"]["slab_update"]
+                     + results["convergence"]["b"]["slab_update_launches"])
     fwd = phase_kernel_times(kernels, dev, results["serving_bf16"]["flash_launches"])
     # the forward kernel runs on both main paths
     fwd[0]["launches_by_path"] = {"serving": fwd[0]["launches"],
@@ -1172,8 +1558,14 @@ def main(argv=None):
     fwd[0]["launches"] += train_launches["flash_attn_fwd"]
     kernel_line = {"kernels": fwd + phase_bwd_times(kernels, dev, train_launches)
                    + phase_conv_times(kernels, resnet, dev, conv_launches, conv_errs)
-                   + phase_rtc_times(mx, rk, rtc_runs, results["rtc_training"], dev),
+                   + phase_rtc_times(mx, rk, rtc_runs, results["rtc_training"], dev)
+                   + phase_slab_times(kernels, dev, plan, slab_launches,
+                                      results["slab_checks"]),
                    "card": card}
+    k1 = kernel_line["kernels"][-1]
+    k1["launches_by_path"] = {"fit_resnet_amp": results["fit_resnet_amp"]["launches"][
+        "slab_update"], "convergence_adam": results["convergence"]["b"]["slab_update_launches"]}
+    k1["share_of_phase17_step"] = k1["ms"] / results["fit_resnet_amp"]["step_ms_median_steps_3_8"]
     results.update(kernel_line)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -9,14 +9,20 @@ and ``tools.resnet_bench`` (bench.py's ResNet-50 step); the imperative API
 (``nd``, ``random``, ``autograd``) over the operator modules
 (``ops.elemwise``, ``broadcast_reduce``, ``matrix``, ``init_ops``,
 ``indexing``, ``sample``, ``optimizer_ops``, part of ``nn``); the bound
-``Executor`` (``bind`` / ``simple_bind`` / forward / backward); and
-``rtc``, CUDA C kernels compiled at run time by NVRTC.
+``Executor`` (``bind`` / ``simple_bind`` / forward / backward);
+``rtc``, CUDA C kernels compiled at run time by NVRTC; and the training
+stack: ``init``, ``optimizer``, ``lr_scheduler``, ``metric``, ``callback``,
+``io``, ``kv``, ``model`` and ``mod.Module`` with its ``fit`` loop, whose
+fused data-parallel path runs over a ``parallel.make_mesh`` of logical
+ranks on one device (``parallel.ShardedTrainStep``).
 
 Attention runs the hand-written CUDA flash-attention forward
 (``csrc/flash_attn_fwd.cu``) and its gradient the dq and dk/dv kernels
 (``csrc/flash_attn_bwd.cu``); convolution gradients inside the envelope
-run the filter- and data-gradient kernels (``csrc/conv_bwd.cu``). All are
-built with ``nvcc`` at first use — never at import.
+run the filter- and data-gradient kernels (``csrc/conv_bwd.cu``); the
+bf16 AMP flat update of the fused trainer runs the optimizer-slab kernel
+(``csrc/slab_update.cu``). All are built with ``nvcc`` at first use —
+never at import.
 
 With no context entered, arrays and entry points are on ``gpu(0)``; enter
 ``with mx.cpu():`` or pass ``device="cpu"`` for the host. With no CUDA
@@ -46,3 +52,13 @@ from .executor import Executor  # noqa: F401
 from .attribute import AttrScope  # noqa: F401
 from .name import NameManager, Prefix  # noqa: F401
 from . import rtc  # noqa: F401
+from . import initializer  # noqa: F401
+from . import initializer as init  # noqa: F401
+from . import lr_scheduler, metric, optimizer  # noqa: F401
+from . import io  # noqa: F401
+from . import kvstore  # noqa: F401
+from . import kvstore as kv  # noqa: F401
+from . import callback, model  # noqa: F401
+from . import parallel  # noqa: F401
+from . import module  # noqa: F401
+from . import module as mod  # noqa: F401

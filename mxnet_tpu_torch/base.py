@@ -5,6 +5,7 @@ their graph JSON."""
 from __future__ import annotations
 
 import ast
+import os
 
 import numpy as np
 import torch
@@ -14,6 +15,23 @@ __version__ = "0.9.5"
 
 class MXNetError(RuntimeError):
     """Error raised by the framework (parity: reference ``base.py:MXNetError``)."""
+
+
+_DEFAULT_BUCKET_BYTES = 4 * 1024 * 1024
+
+
+def bucket_bytes_env():
+    """MXTPU_BUCKET_BYTES: the size cap of one flat update bucket, as the
+    JAX package reads it (``mxnet_tpu/base.py:144``). Missing, empty or
+    garbage: 4 MiB; negative clamps to 0 (0 turns the flat update off and
+    the per-parameter update on)."""
+    raw = os.environ.get("MXTPU_BUCKET_BYTES")
+    if raw is None or raw == "":
+        return _DEFAULT_BUCKET_BYTES
+    try:
+        return max(0, int(raw))
+    except ValueError:
+        return _DEFAULT_BUCKET_BYTES
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,280 @@
+"""Weight initializers of the PyTorch port (counterpart of
+``mxnet_tpu/initializer.py``): name-pattern dispatch over ``InitDesc`` and
+the Uniform / Normal / Orthogonal / Xavier / MSRAPrelu / Bilinear /
+LSTMBias / Load / Mixed / Zero / One / Constant initializers.
+
+Random initializers draw from numpy's global generator exactly as the JAX
+package's do, so one ``np.random.seed`` gives the same initial weights in
+both packages. ``FusedRNN`` waits for the RNN cells (``mxnet_tpu/rnn``).
+"""
+from __future__ import annotations
+
+import json
+import re
+
+import numpy as np
+
+from .base import MXNetError
+from .ndarray import NDArray
+
+
+class InitDesc(str):
+    """Name + attrs describing how to initialize a variable."""
+
+    def __new__(cls, name, attrs=None, global_init=None):
+        ret = super().__new__(cls, name)
+        ret.attrs = attrs or {}
+        ret.global_init = global_init
+        return ret
+
+
+_INIT_REGISTRY = {}
+
+
+def register(klass):
+    _INIT_REGISTRY[klass.__name__.lower()] = klass
+    return klass
+
+
+class Initializer:
+    """Base: dispatch by the variable's name pattern, or by its
+    ``__init__`` attribute (a dumped initializer)."""
+
+    def __init__(self, **kwargs):
+        self._kwargs = kwargs
+
+    def dumps(self):
+        return json.dumps([self.__class__.__name__.lower(), self._kwargs])
+
+    def __call__(self, desc, arr):
+        if not isinstance(desc, str):
+            raise TypeError("desc must be str or InitDesc")
+        if isinstance(desc, InitDesc) and desc.global_init is None:
+            desc.global_init = self
+        init = getattr(desc, "attrs", {}).get("__init__", "")
+        if init:
+            klass, kwargs = json.loads(init)
+            _INIT_REGISTRY[klass.lower()](**kwargs)._init_weight(desc, arr)
+            return
+        name = desc.lower()
+        if name.endswith("upsampling"):
+            self._init_bilinear(desc, arr)
+        elif name.endswith("bias"):
+            self._init_bias(desc, arr)
+        elif name.endswith("gamma"):
+            self._init_gamma(desc, arr)
+        elif name.endswith("beta"):
+            self._init_beta(desc, arr)
+        elif name.endswith("weight"):
+            self._init_weight(desc, arr)
+        elif name.endswith(("moving_mean", "running_mean", "moving_inv_var", "moving_avg")):
+            self._init_zero(desc, arr)
+        elif name.endswith(("moving_var", "running_var")):
+            self._init_one(desc, arr)
+        else:
+            self._init_default(desc, arr)
+
+    def _init_bilinear(self, _, arr):
+        weight = np.zeros(arr.size, dtype=np.float32)
+        shape = arr.shape
+        f = np.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        for i in range(arr.size):
+            x = i % shape[3]
+            y = (i // shape[3]) % shape[2]
+            weight[i] = (1 - abs(x / f - c)) * (1 - abs(y / f - c))
+        arr[:] = weight.reshape(shape)
+
+    def _init_zero(self, _, arr):
+        arr[:] = 0.0
+
+    def _init_one(self, _, arr):
+        arr[:] = 1.0
+
+    def _init_bias(self, _, arr):
+        arr[:] = 0.0
+
+    def _init_gamma(self, _, arr):
+        arr[:] = 1.0
+
+    def _init_beta(self, _, arr):
+        arr[:] = 0.0
+
+    def _init_weight(self, name, arr):
+        raise NotImplementedError("must override _init_weight")
+
+    def _init_default(self, name, _):
+        raise ValueError(
+            "Unknown initialization pattern for %s. Default init supports "
+            "weight/bias/gamma/beta; use mx.sym.Variable(init=...) otherwise" % name)
+
+
+@register
+class Load:
+    """Init from a dict of arrays; names may carry ``arg:`` / ``aux:``."""
+
+    def __init__(self, param, default_init=None, verbose=False):
+        self.param = {(k[4:] if k.startswith(("arg:", "aux:")) else k): v
+                      for k, v in param.items()}
+        self.default_init = default_init
+        self.verbose = verbose
+
+    def __call__(self, name, arr):
+        if name in self.param:
+            src = self.param[name]
+            if tuple(src.shape) != tuple(arr.shape):
+                raise MXNetError("shape mismatch loading %s" % name)
+            if isinstance(src, NDArray):
+                src.copyto(arr)
+            else:
+                arr[:] = src
+        else:
+            if self.default_init is None:
+                raise MXNetError("no initializer for %s" % name)
+            self.default_init(name, arr)
+
+
+@register
+class Mixed:
+    """The first initializer whose regex pattern matches the name."""
+
+    def __init__(self, patterns, initializers):
+        if len(patterns) != len(initializers):
+            raise MXNetError("patterns and initializers mismatched")
+        self.map = list(zip([re.compile(p) for p in patterns], initializers))
+
+    def __call__(self, name, arr):
+        for prog, init in self.map:
+            if prog.match(name):
+                init(name, arr)
+                return
+        raise MXNetError("no matching pattern for %s" % name)
+
+
+@register
+class Zero(Initializer):
+    def _init_weight(self, _, arr):
+        arr[:] = 0.0
+
+    _init_default = _init_weight
+
+
+@register
+class One(Initializer):
+    def _init_weight(self, _, arr):
+        arr[:] = 1.0
+
+    _init_default = _init_weight
+
+
+@register
+class Constant(Initializer):
+    def __init__(self, value=0.0):
+        super().__init__(value=value)
+        self.value = value
+
+    def _init_weight(self, _, arr):
+        arr[:] = self.value
+
+    _init_default = _init_weight
+
+
+@register
+class Uniform(Initializer):
+    def __init__(self, scale=0.07):
+        super().__init__(scale=scale)
+        self.scale = scale
+
+    def _init_weight(self, _, arr):
+        arr[:] = np.random.uniform(-self.scale, self.scale, arr.shape).astype(np.float32)
+
+
+@register
+class Normal(Initializer):
+    def __init__(self, sigma=0.01):
+        super().__init__(sigma=sigma)
+        self.sigma = sigma
+
+    def _init_weight(self, _, arr):
+        arr[:] = np.random.normal(0, self.sigma, arr.shape).astype(np.float32)
+
+
+@register
+class Orthogonal(Initializer):
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        super().__init__(scale=scale, rand_type=rand_type)
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, _, arr):
+        nout = arr.shape[0]
+        nin = int(np.prod(arr.shape[1:]))
+        if self.rand_type == "uniform":
+            tmp = np.random.uniform(-1.0, 1.0, (nout, nin))
+        else:
+            tmp = np.random.normal(0.0, 1.0, (nout, nin))
+        u, _, v = np.linalg.svd(tmp, full_matrices=False)
+        q = u if u.shape == tmp.shape else v
+        arr[:] = (self.scale * q).reshape(arr.shape).astype(np.float32)
+
+
+@register
+class Xavier(Initializer):
+    def __init__(self, rnd_type="uniform", factor_type="avg", magnitude=3):
+        super().__init__(rnd_type=rnd_type, factor_type=factor_type, magnitude=magnitude)
+        self.rnd_type = rnd_type
+        self.factor_type = factor_type
+        self.magnitude = float(magnitude)
+
+    def _init_weight(self, _, arr):
+        shape = arr.shape
+        hw_scale = 1.0
+        if len(shape) > 2:
+            hw_scale = np.prod(shape[2:])
+        fan_in, fan_out = shape[1] * hw_scale, shape[0] * hw_scale
+        factor = {"avg": (fan_in + fan_out) / 2.0, "in": fan_in, "out": fan_out}[
+            self.factor_type]
+        scale = np.sqrt(self.magnitude / factor)
+        if self.rnd_type == "uniform":
+            arr[:] = np.random.uniform(-scale, scale, shape).astype(np.float32)
+        else:
+            arr[:] = np.random.normal(0, scale, shape).astype(np.float32)
+
+
+@register
+class MSRAPrelu(Xavier):
+    def __init__(self, factor_type="avg", slope=0.25):
+        magnitude = 2.0 / (1 + slope ** 2)
+        super().__init__("gaussian", factor_type, magnitude)
+        self._kwargs = {"factor_type": factor_type, "slope": slope}
+
+
+@register
+class Bilinear(Initializer):
+    def _init_weight(self, name, arr):
+        self._init_bilinear(name, arr)
+
+
+@register
+class LSTMBias(Initializer):
+    """Forget-gate bias (gate order i, f, g, o)."""
+
+    def __init__(self, forget_bias=1.0):
+        super().__init__(forget_bias=forget_bias)
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, name, arr):
+        b = np.zeros(arr.shape, dtype=np.float32)
+        num_hidden = int(arr.shape[0] / 4)
+        b[num_hidden:2 * num_hidden] = self.forget_bias
+        arr[:] = b
+
+
+@register
+class FusedRNN(Initializer):
+    """Not ported: it unpacks a fused RNN blob through the RNN cells."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "FusedRNN initializer is not ported to PyTorch yet: it needs the RNN "
+            "cells of mxnet_tpu/rnn/rnn_cell.py (mxnet_tpu/initializer.py:282)")

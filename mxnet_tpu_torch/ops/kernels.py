@@ -1,6 +1,6 @@
 """Kernels of the PyTorch port (counterpart of
-``mxnet_tpu/ops/pallas_kernels.py``): flash attention and the
-conv-backward pair.
+``mxnet_tpu/ops/pallas_kernels.py``): flash attention, the conv-backward
+pair and the optimizer-slab update.
 
 ``flash_attention`` is the wrapper of the hand-written CUDA kernel
 ``csrc/flash_attn_fwd.cu``: blockwise online-softmax attention that saves
@@ -20,6 +20,10 @@ Layout convention as in the JAX package: [B, T, H, D].
 convolution inside ``conv_bwd_plan``'s envelope; ``conv_bwd_*_reference``
 are their plain versions, and ``conv2d_kernel_bwd`` is the convolution
 whose autograd backward runs them. Layout NCHW / OIHW, as in JAX.
+
+``fused_slab_update`` (K1) wraps ``csrc/slab_update.cu``: one bf16-AMP
+optimizer step (sgd, sgd_mom, adam) over a flat slab with a finite select
+and a bf16 weight copy; ``slab_update_reference`` is its plain version.
 """
 from __future__ import annotations
 
@@ -484,3 +488,145 @@ def conv2d_kernel_bwd(data, weight, pad):
     if torch.is_grad_enabled() and (data.requires_grad or weight.requires_grad):
         return _Conv2dKernelBwd.apply(data, weight, pad)
     return F.conv2d(data, weight, padding=pad)
+
+
+# ---------------------------------------------------------------------------
+# K1 ``fused_slab_update`` (counterpart of ``pallas_kernels.py:451-597``):
+# one AMP optimizer step over a flat 1-D slab, hand-written CUDA in
+# ``csrc/slab_update.cu``; ``slab_update_reference`` is its plain version.
+# ---------------------------------------------------------------------------
+SLAB_STATE_SLOTS = {"sgd": 0, "sgd_mom": 1, "adam": 2}
+_SLAB_KIND_CODE = {"sgd": 0, "sgd_mom": 1, "adam": 2}
+_SLAB_THREADS = 256
+
+
+def _as_f32(x, device):
+    """A Python number or a one-element tensor as a 0-d f32 tensor on
+    ``device``; a number goes through a fill kernel, never a host copy."""
+    if torch.is_tensor(x):
+        return x.reshape(()).to(device=device, dtype=torch.float32)
+    return torch.full((), float(x), dtype=torch.float32, device=device)
+
+
+def slab_update_reference(kind, w, g, states, lr, inv_scale, finite, *, wd, rescale_grad,
+                          clip_gradient, momentum=0.0, beta1=0.9, beta2=0.999, epsilon=1e-8):
+    """Plain version of K1, ``_slab_update_math`` op for op: the gradient
+    unscaled by ``inv_scale`` (then rescaled, clipped, weight-decayed when
+    those are set), the sgd / sgd_mom / adam update in f32, a finite select
+    (``finite > 0.5`` keeps the new values, else the old bits) and the bf16
+    copy of the new weight. ``lr`` / ``inv_scale`` / ``finite`` are numbers
+    or one-element tensors. Returns ``(new_w, new_states, w16)``."""
+    dev = w.device
+    lr, inv_scale, finite = (_as_f32(x, dev) for x in (lr, inv_scale, finite))
+    w = w.float()
+    g = g.float() * inv_scale
+    if rescale_grad != 1.0:
+        g = g * float(rescale_grad)
+    if clip_gradient is not None and clip_gradient > 0:
+        g = torch.clamp(g, -float(clip_gradient), float(clip_gradient))
+    if wd != 0.0:
+        g = g + float(wd) * w
+    if kind == "sgd":
+        new_w = w - lr * g
+        new_states = ()
+    elif kind == "sgd_mom":
+        new_mom = float(momentum) * states[0].float() - lr * g
+        new_w = w + new_mom
+        new_states = (new_mom,)
+    elif kind == "adam":
+        mean, var = states[0].float(), states[1].float()
+        new_mean = float(beta1) * mean + (1.0 - beta1) * g
+        new_var = float(beta2) * var + (1.0 - beta2) * torch.square(g)
+        new_w = w - lr * new_mean / (torch.sqrt(new_var) + float(epsilon))
+        new_states = (new_mean, new_var)
+    else:
+        raise ValueError("unknown slab kind %r" % (kind,))
+    keep = finite > 0.5
+    new_w = torch.where(keep, new_w, w)
+    new_states = tuple(torch.where(keep, ns, os_.float()) for ns, os_ in zip(new_states, states))
+    return new_w, new_states, new_w.to(torch.bfloat16)
+
+
+def _check_slab_args(kind, w, g, states, out):
+    if kind not in SLAB_STATE_SLOTS:
+        raise MXNetError("fused_slab_update: unknown kind %r (sgd, sgd_mom, adam)" % (kind,))
+    if len(states) != SLAB_STATE_SLOTS[kind]:
+        raise MXNetError("fused_slab_update: %s takes %d state slabs, got %d"
+                         % (kind, SLAB_STATE_SLOTS[kind], len(states)))
+    tensors = [("w", w, (torch.float32,)), ("g", g, (torch.bfloat16, torch.float32))]
+    tensors += [("state %d" % i, s, (torch.float32,)) for i, s in enumerate(states)]
+    if out is not None:
+        tensors += [("out w", out[0], (torch.float32,)), ("out w16", out[2], (torch.bfloat16,))]
+        tensors += [("out state %d" % i, s, (torch.float32,)) for i, s in enumerate(out[1])]
+    for name, x, dtypes in tensors:
+        if x.device.type != "cuda" or x.device != w.device:
+            raise MXNetError("fused_slab_update wants every slab on one CUDA device; %s is on "
+                             "%s, w on %s" % (name, x.device, w.device))
+        if x.dtype not in dtypes or x.dim() != 1 or not x.is_contiguous() \
+                or x.shape[0] != w.shape[0]:
+            raise MXNetError("fused_slab_update wants %s as a contiguous 1-D %s slab of %d "
+                             "elements, got %s %s" % (name, "/".join(map(str, dtypes)),
+                                                      w.shape[0], x.dtype, tuple(x.shape)))
+
+
+def fused_slab_update(kind, w, g, states, lr, inv_scale, finite, *, wd, rescale_grad,
+                      clip_gradient, momentum=0.0, beta1=0.9, beta2=0.999, epsilon=1e-8,
+                      out=None):
+    """K1: one AMP optimizer step over a flat slab (the JAX signature).
+
+    ``w`` (S,) f32 master; ``g`` (S,) bf16 (under AMP) or f32 gradient;
+    ``states`` 0, 1 or 2 (S,) f32 slabs for ``kind`` sgd / sgd_mom / adam;
+    ``lr`` / ``inv_scale`` / ``finite`` numbers or one-element tensors
+    (``finite`` 1 applies the step, 0 leaves every output equal to its
+    input bit for bit). Returns ``(new_w, new_states, w16)``; with ``out =
+    (w_out, states_out, w16_out)`` the results are written there (they may
+    be ``w`` and ``states`` themselves) and those tensors returned.
+
+    On CUDA tensors: the kernel of ``csrc/slab_update.cu``, no fallback
+    (``fused_slab_update.launches`` counts its launches); the three scalars
+    go to the kernel in a device buffer, so the call never waits for the
+    device. On CPU tensors: :func:`slab_update_reference`."""
+    states = tuple(states)
+    kw = dict(wd=wd, rescale_grad=rescale_grad, clip_gradient=clip_gradient,
+              momentum=momentum, beta1=beta1, beta2=beta2, epsilon=epsilon)
+    if w.device.type == "cpu":
+        new_w, new_states, w16 = slab_update_reference(kind, w, g, states, lr, inv_scale,
+                                                       finite, **kw)
+        if out is None:
+            return new_w, new_states, w16
+        out[0].copy_(new_w)
+        for o, s in zip(out[1], new_states):
+            o.copy_(s)
+        out[2].copy_(w16)
+        return out[0], tuple(out[1]), out[2]
+    _check_slab_args(kind, w, g, states, out)
+    dev = w.device
+    n = w.shape[0]
+    if out is None:
+        out = (torch.empty_like(w), tuple(torch.empty_like(s) for s in states),
+               torch.empty(n, dtype=torch.bfloat16, device=dev))
+    new_w, new_states, w16 = out[0], tuple(out[1]), out[2]
+    scalars = torch.stack([_as_f32(x, dev) for x in (lr, inv_scale, finite)])
+    pad = (None, None)
+    s_in = tuple(states) + pad[len(states):]
+    s_out = tuple(new_states) + pad[len(new_states):]
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    clip = float(clip_gradient) if clip_gradient else -1.0
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = max(1, min(-(-n // _SLAB_THREADS), 8 * sms))
+    fn = _build.load("slab_update")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(_SLAB_KIND_CODE[kind], int(g.dtype == torch.bfloat16), w.data_ptr(),
+                g.data_ptr(), ptr(s_in[0]), ptr(s_in[1]), new_w.data_ptr(), ptr(s_out[0]),
+                ptr(s_out[1]), w16.data_ptr(), scalars.data_ptr(), n, float(wd),
+                float(rescale_grad), clip, float(momentum), float(beta1), float(beta2),
+                1.0 - beta1, 1.0 - beta2, float(epsilon), int(rescale_grad != 1.0),
+                int(clip > 0), int(wd != 0.0), blocks, stream)
+    if rc != 0:
+        raise MXNetError("slab_update kernel launch failed: CUDA error %d" % rc)
+    fused_slab_update.launches += 1
+    return new_w, new_states, w16
+
+
+fused_slab_update.launches = 0

@@ -1,0 +1,659 @@
+"""The fused training step of the PyTorch port (counterpart of
+``mxnet_tpu/parallel/train_step.py``): forward, backward and optimizer
+update of a Symbol over a data-parallel :class:`~.mesh.Mesh` whose ranks
+share one device.
+
+The JAX step is one GSPMD program over a dp-sharded batch with replicated
+parameters, so its batch statistics and gradient sums span the global
+batch. On one device the port runs that global batch through one
+``_GraphProgram`` pass, and the gradients of every parameter come from
+``torch.autograd.grad`` of the summed outputs (the loss heads carry their
+own backward). The update then takes one of three paths, as in JAX:
+
+- per parameter (``_apply_optimizer``): dp = 1, a zero bucket cap, or an
+  optimizer that is not elementwise; ``Optimizer.update`` on NDArrays;
+- flat, f32 (``_apply_optimizer_flat``): ``_FlatUpdatePlan`` packs the
+  parameters into size-capped buckets, padded to a dp multiple; each
+  bucket's update runs on the flat slab of its weights and gradients;
+- flat, bf16 AMP (``_apply_optimizer_flat_amp``, ``MXTPU_AMP=bf16``):
+  bf16 working parameters and data, f32 master slabs and state slabs, a
+  dynamic loss scale, one global finite flag that skips the whole step
+  bit for bit, and kernel K1 (``ops/kernels.fused_slab_update``) for SGD
+  and Adam.
+
+The dp shards of a slab are its dp contiguous chunks, so the masters and
+state slabs have the JAX layout. In "shard" mode (``MXTPU_SHARD_UPDATE``,
+the default) the ranks, sharing one device, share one update over the
+whole slab: one K1 launch per bucket. "replicated" mode runs the update
+chunk by chunk, as JAX's scan does; elementwise updates give the same bits
+either way. The step's ``lr`` and update count ``t`` are host numbers
+passed each call; ``Optimizer._index_update_count`` and ``num_update``
+end as the JAX package leaves them. Not ported: ``compile_multi`` (the
+K-step scan), ``zero1``, ``param_specs`` / tensor parallelism and the
+guardrail gate; each raises.
+"""
+from __future__ import annotations
+
+import contextlib
+import logging
+import os
+
+import numpy as np
+import torch
+
+from .. import random as _random
+from ..base import bucket_bytes_env
+from ..executor import _GraphProgram, resolve_creation_shapes
+from ..ndarray import NDArray
+from ..ops import kernels
+
+_LOG = logging.getLogger(__name__)
+
+
+class _FlatBucket:
+    """One size-capped flat slab of the parameter space: contiguous
+    per-key views of one padded 1-D buffer, all sharing one (dtype,
+    lr_mult, wd_mult) signature, so one set of optimizer scalars serves
+    the whole slab."""
+
+    __slots__ = ("rep_index", "dtype", "views", "size", "padded")
+
+    def __init__(self, rep_index, dtype, views, dp):
+        self.rep_index = rep_index  # the index whose _fused_kwargs apply
+        self.dtype = dtype
+        self.views = views  # [(index, name, offset, size, shape)]
+        self.size = sum(v[3] for v in views)
+        self.padded = -(-self.size // dp) * dp  # splits evenly into dp shards
+
+
+class _FlatUpdatePlan:
+    """The JAX package's bucket layout: parameters grouped by (dtype,
+    lr_mult, wd_mult), each group walked in reverse key order and packed
+    into buckets of at most ``bucket_bytes`` (counted at
+    ``comm_itemsize`` bytes an element under AMP: the bf16 gradient)."""
+
+    def __init__(self, param_names, shapes, dtypes, optimizer, dp, bucket_bytes,
+                 comm_itemsize=None):
+        groups, order = {}, []
+        for i, name in enumerate(param_names):
+            key = (dtypes[name], optimizer._mult_for(i, optimizer.lr_mult),
+                   optimizer._mult_for(i, optimizer.wd_mult))
+            if key not in groups:
+                groups[key] = []
+                order.append(key)
+            groups[key].append((i, name))
+        self.buckets = []
+        for key in order:
+            dtype = key[0]
+            itemsize = comm_itemsize or np.dtype(dtype).itemsize
+            cap = max(1, bucket_bytes // itemsize)
+            pending, pending_elems = [], 0
+            for i, name in reversed(groups[key]):
+                size = int(np.prod(shapes[name])) if shapes[name] else 1
+                if pending and pending_elems + size > cap:
+                    self._close(pending, dtype, dp)
+                    pending, pending_elems = [], 0
+                pending.append((i, name, size, shapes[name]))
+                pending_elems += size
+            if pending:
+                self._close(pending, dtype, dp)
+        self.by_name = {}
+        for bi, b in enumerate(self.buckets):
+            for (i, name, off, size, shape) in b.views:
+                self.by_name[name] = (bi, off, size, shape)
+
+    def _close(self, pending, dtype, dp):
+        views, off = [], 0
+        for (i, name, size, shape) in pending:
+            views.append((i, name, off, size, shape))
+            off += size
+        self.buckets.append(_FlatBucket(pending[0][0], dtype, views, dp))
+
+
+class _EveryKeyCount(dict):
+    """Stands in for ``Optimizer._index_update_count`` during the update:
+    every parameter reads the step's count ``t`` (the fused step updates
+    each parameter once a step), and nothing is recorded."""
+
+    def __init__(self, t):
+        super().__init__()
+        self._t = t
+
+    def __getitem__(self, key):
+        return self._t
+
+    def __setitem__(self, key, value):
+        pass
+
+    def __contains__(self, key):
+        return True
+
+
+def _map_state(fn, state):
+    if state is None:
+        return None
+    if isinstance(state, tuple):
+        return tuple(_map_state(fn, s) for s in state)
+    return fn(state)
+
+
+def _wrap_state(state):
+    return _map_state(NDArray, state)
+
+
+def _unwrap_state(state):
+    return _map_state(lambda s: s._data, state)
+
+
+def host_state(tree):
+    """A state tree (None, tensor, or nested tuples of them) as numpy
+    arrays: the named-layout snapshot format the JAX package checkpoints,
+    which either package's ``named_state_to_flat`` takes back."""
+    return _map_state(lambda s: s.detach().float().cpu().numpy()
+                      if s.dtype == torch.bfloat16 else s.detach().cpu().numpy(), tree)
+
+
+def _tensor(v, device, dtype=None):
+    """An NDArray, numpy array or tensor as a tensor on ``device``."""
+    if isinstance(v, NDArray):
+        v = v._data
+    if not torch.is_tensor(v):
+        v = torch.from_numpy(np.ascontiguousarray(np.asarray(v)))
+    return v.detach().to(device=device, dtype=dtype or v.dtype, copy=True)
+
+
+def _not_ported(what, where):
+    return NotImplementedError("%s is not ported to PyTorch yet (%s)" % (what, where))
+
+
+class ShardedTrainStep:
+    """A Symbol's training step over a Mesh whose ranks share one device;
+    see the module docstring."""
+
+    AMP_SCALE_KEY = "__amp_scale__"
+    AMP_GOOD_KEY = "__amp_good__"
+
+    def __init__(self, symbol, mesh, optimizer=None, param_specs=None, data_names=("data",),
+                 label_names=("softmax_label",), dtype=None, zero1=False, flat_update=None):
+        if param_specs:
+            raise _not_ported("param_specs (tensor-parallel parameter sharding)",
+                              "mxnet_tpu/parallel/train_step.py:197")
+        if zero1:
+            raise _not_ported("zero1 (dp-sharded per-parameter state)",
+                              "mxnet_tpu/parallel/train_step.py:194")
+        non_dp = 1
+        for ax, n in mesh.shape.items():
+            if ax != "dp":
+                non_dp *= n
+        if non_dp != 1:
+            raise _not_ported("a mesh with tp/pp/sp/ep > 1 in the fused step",
+                              "mxnet_tpu/parallel/train_step.py:219")
+        self.symbol = symbol
+        self.mesh = mesh
+        self.device = mesh.device
+        self.optimizer = optimizer
+        self.program = _GraphProgram(symbol)
+        self.arg_names = symbol.list_arguments()
+        self.aux_names = symbol.list_auxiliary_states()
+        self.data_names = list(data_names)
+        self.label_names = list(label_names)
+        self.param_names = [n for n in self.arg_names
+                            if n not in self.data_names + self.label_names]
+        self._needs_rng = self.program.needs_rng
+        self._shape_sig = None
+        self.flat_bucket_bytes = bucket_bytes_env()
+        dp = mesh.shape.get("dp", 1)
+        eligible = (optimizer is not None and getattr(optimizer, "elementwise_update", False)
+                    and dp > 1 and self.flat_bucket_bytes > 0)
+        if flat_update is False or not eligible:
+            self.flat_mode = None
+        else:
+            self.flat_mode = ("shard" if os.environ.get("MXTPU_SHARD_UPDATE", "1") != "0"
+                              else "replicated")
+            _LOG.info("fused update path: flat bucketed (%s, dp=%d, MXTPU_BUCKET_BYTES=%d)",
+                      self.flat_mode, dp, self.flat_bucket_bytes)
+        self._flat_plan = None
+        amp_req = os.environ.get("MXTPU_AMP", "").lower()
+        self.amp = False
+        if amp_req in ("bf16", "bfloat16"):
+            if self.flat_mode is not None:
+                self.amp = True
+                _LOG.info("AMP: bf16 compute + fp32 master slabs (%s mode)", self.flat_mode)
+            else:
+                _LOG.warning("MXTPU_AMP=bf16 ignored: requires the flat fused-update path "
+                             "(elementwise optimizer, dp>1, MXTPU_BUCKET_BYTES>0, no tp/zero1)")
+        elif amp_req not in ("", "0", "off", "none", "fp32", "f32", "float32"):
+            _LOG.warning("MXTPU_AMP=%s not understood (only bf16); running fp32", amp_req)
+        self.amp_cast_data = os.environ.get("MXTPU_AMP_CAST_DATA", "1") != "0"
+        self.amp_scale_init = float(os.environ.get("MXTPU_LOSS_SCALE", str(2.0 ** 15)))
+        self.amp_scale_window = int(os.environ.get("MXTPU_LOSS_SCALE_WINDOW", "2000"))
+        self.amp_scale_max = 2.0 ** 24
+
+    # -- flat layout -----------------------------------------------------
+    @staticmethod
+    def _flat_key(bucket_index):
+        """Optimizer-state key of one bucket's state slab."""
+        return "__flat__%d" % bucket_index
+
+    @staticmethod
+    def _master_key(bucket_index):
+        """Optimizer-state key of one bucket's f32 master slab (AMP)."""
+        return "__master__%d" % bucket_index
+
+    def _ensure_flat_plan(self, params):
+        if self._flat_plan is None:
+            shapes = {n: tuple(params[n].shape) for n in self.param_names}
+            dtypes = {n: str(params[n].dtype).split(".")[-1] for n in self.param_names}
+            comm_itemsize = None
+            if self.amp:
+                # the plan describes the f32 masters whether it is built
+                # from them or from their bf16 working copies; the cap
+                # counts bf16 gradient bytes
+                dtypes = {n: ("float32" if d == "bfloat16" else d) for n, d in dtypes.items()}
+                comm_itemsize = 2
+            self._flat_plan = _FlatUpdatePlan(
+                self.param_names, shapes, dtypes, self.optimizer, self.mesh.shape["dp"],
+                self.flat_bucket_bytes, comm_itemsize=comm_itemsize)
+        return self._flat_plan
+
+    def _pack(self, parts, padded, dtype):
+        """One flat slab of ``padded`` elements from the flattened
+        ``parts``, zero-padded at the end."""
+        flats = [p.reshape(-1).to(dtype) for p in parts]
+        size = sum(f.numel() for f in flats)
+        if padded > size:
+            flats.append(torch.zeros(padded - size, dtype=dtype, device=self.device))
+        return torch.cat(flats)
+
+    # -- placement and state ---------------------------------------------
+    def place_params(self, arg_arrays_by_name, aux_arrays_by_name):
+        """Copies of the parameters and aux states (NDArrays, numpy arrays
+        or tensors) on the mesh's device, name -> tensor."""
+        params = {n: _tensor(arg_arrays_by_name[n], self.device) for n in self.param_names}
+        aux = {n: _tensor(aux_arrays_by_name[n], self.device) for n in self.aux_names}
+        return params, aux
+
+    def make_state(self, params):
+        """Optimizer state from the optimizer's own create_state (flat slabs
+        on the flat path, plus the AMP masters and loss scaler)."""
+        from ..context import Context
+
+        if self.optimizer is None:
+            return {}
+        ctx = Context(self.device)
+        state = {}
+        if self.flat_mode is not None:
+            plan = self._ensure_flat_plan(params)
+            for bi, b in enumerate(plan.buckets):
+                st = self.optimizer.create_state_flat(b.rep_index, b.padded, dtype=b.dtype,
+                                                      ctx=ctx)
+                if st is not None:
+                    state[self._flat_key(bi)] = _unwrap_state(st)
+            if self.amp:
+                # params are the f32 truth here; they become the masters
+                state.update(self.build_amp_master_state(params))
+            return state
+        from .. import ndarray as nd
+
+        for i, name in enumerate(self.param_names):
+            p = params[name]
+            st = self.optimizer.create_state(i, nd.zeros(tuple(p.shape), ctx=ctx,
+                                                         dtype=p.dtype))
+            state[name] = _unwrap_state(st)
+        return state
+
+    def init(self, arg_shapes_by_name, initializer, seed=0):
+        """Parameters from ``initializer`` (on host arrays, numpy's global
+        generator as in JAX), aux states (ones for *var, zeros else) and
+        optimizer state, on the mesh's device."""
+
+        class _Arr:
+            def __init__(self, a):
+                self._a = a
+                self.shape = a.shape
+                self.size = a.size
+                self.dtype = a.dtype
+
+            def __setitem__(self, k, v):
+                self._a[k] = v
+
+            def asnumpy(self):
+                return self._a
+
+        host_params = {}
+        for name in self.param_names:
+            host = np.zeros(arg_shapes_by_name[name], np.float32)
+            initializer(name, _Arr(host))
+            host_params[name] = host
+        _, _, aux_shapes = self.symbol.infer_shape(**arg_shapes_by_name)
+        host_aux = {n: (np.ones(s, np.float32) if n.endswith("var") else np.zeros(s, np.float32))
+                    for n, s in zip(self.aux_names, aux_shapes)}
+        params, aux = self.place_params(host_params, host_aux)
+        opt_state = self.make_state(params)
+        if self.amp:
+            params = self.amp_cast_params(params)
+        return params, aux, opt_state
+
+    def amp_cast_params(self, params):
+        """bf16 working copies of f32 params; other entries pass through."""
+        if not self.amp:
+            return params
+        return {n: (p.to(torch.bfloat16) if p.dtype == torch.float32 else p)
+                for n, p in params.items()}
+
+    def build_amp_master_state(self, params_by_name, scale=None, good=0.0):
+        """Master slabs packed from f32 params (host or device) and the two
+        scaler scalars (a fresh scale unless ``scale`` is given)."""
+        plan = self._flat_plan
+        assert plan is not None, "flat plan not built yet"
+        state = {}
+        for bi, b in enumerate(plan.buckets):
+            parts = [_tensor(params_by_name[name], self.device, torch.float32)
+                     for (_i, name, _o, _s, _sh) in b.views]
+            state[self._master_key(bi)] = self._pack(parts, b.padded, torch.float32)
+        state[self.AMP_SCALE_KEY] = torch.full(
+            (), self.amp_scale_init if scale is None else float(scale), dtype=torch.float32,
+            device=self.device)
+        state[self.AMP_GOOD_KEY] = torch.full((), float(good), dtype=torch.float32,
+                                              device=self.device)
+        return state
+
+    def master_params_named(self, opt_state):
+        """The f32 masters as per-parameter views (the weights' truth)."""
+        plan = self._flat_plan
+        assert plan is not None, "flat plan not built yet"
+        out = {}
+        for bi, b in enumerate(plan.buckets):
+            m = opt_state[self._master_key(bi)]
+            for (_i, name, off, size, shape) in b.views:
+                out[name] = m[off:off + size].view(shape)
+        return out
+
+    def master_params_placed(self, opt_state):
+        """Copies of the masters, what a demoted (non-flat, f32) run
+        continues from."""
+        return {n: v.clone() for n, v in self.master_params_named(opt_state).items()}
+
+    def amp_state_blob(self, opt_state):
+        """Host values of the scaler for checkpoints."""
+        return {"scale": float(opt_state[self.AMP_SCALE_KEY]),
+                "good": float(opt_state[self.AMP_GOOD_KEY])}
+
+    def flat_state_to_named(self, opt_state):
+        """The flat state slabs carved back into per-parameter trees (views):
+        the layout checkpoints store, whatever the bucketing."""
+        plan = self._flat_plan
+        assert plan is not None, "flat plan not built yet"
+        named = {}
+        for bi, b in enumerate(plan.buckets):
+            st = opt_state.get(self._flat_key(bi))
+            for (_i, name, off, size, shape) in b.views:
+                named[name] = _map_state(lambda s, o=off, n=size, sh=shape: s[o:o + n].view(sh),
+                                         st)
+        return named
+
+    def named_state_to_flat(self, named):
+        """Inverse of :meth:`flat_state_to_named`: per-parameter trees
+        (numpy arrays or tensors) packed into this plan's slabs, pads
+        zero."""
+        plan = self._flat_plan
+        assert plan is not None, "flat plan not built yet"
+
+        def pack(parts, padded):
+            if all(p is None for p in parts):
+                return None
+            if isinstance(parts[0], tuple):
+                return tuple(pack([p[j] for p in parts], padded) for j in range(len(parts[0])))
+            ts = [_tensor(p, self.device) for p in parts]
+            return self._pack(ts, padded, ts[0].dtype)
+
+        state = {}
+        for bi, b in enumerate(plan.buckets):
+            try:
+                parts = [named[name] for (_i, name, _o, _s, _sh) in b.views]
+            except KeyError as exc:
+                raise KeyError("optimizer state for param %s missing from the named snapshot: "
+                               "it does not match this symbol's parameters" % (exc,))
+            st = pack(parts, b.padded)
+            if st is not None:
+                state[self._flat_key(bi)] = st
+        return state
+
+    def disable_flat_update(self, opt_state):
+        """Demote to the per-parameter update (a borrowing module shares a
+        subset of the parameters, which flat slabs cannot express); returns
+        the state in the per-parameter layout. Under AMP, callers first take
+        the masters (``master_params_placed``) as the new f32 params."""
+        if self.flat_mode is None:
+            return opt_state
+        named = self.flat_state_to_named(opt_state)
+        placed = {n: _map_state(lambda s: s.clone(), s) for n, s in named.items()}
+        self.flat_mode = None
+        self.amp = False
+        return placed
+
+    # -- the update --------------------------------------------------------
+    @contextlib.contextmanager
+    def _patched_optimizer(self, lr, t):
+        """The step's lr (host-scheduled) and update count ``t`` for every
+        parameter, for the duration of one update; the optimizer's own
+        counters are restored after, as the JAX trace leaves them. Both are
+        numpy f32 scalars: the JAX step traces them as f32, so Adam's bias
+        correction (``1 - beta2 ** t`` cancels most of its digits) and the
+        lr multipliers round in f32 there, and here alike."""
+        opt = self.optimizer
+        saved = (opt.lr, opt.lr_scheduler, opt._index_update_count, opt.num_update)
+        opt.lr = np.float32(lr)
+        opt.lr_scheduler = None
+        opt._index_update_count = _EveryKeyCount(np.float32(t))
+        opt._update_count = lambda index: None  # instance shadow
+        try:
+            yield opt
+        finally:
+            del opt.__dict__["_update_count"]
+            opt.lr, opt.lr_scheduler, opt._index_update_count, opt.num_update = saved
+
+    def _apply_optimizer(self, params, grads, opt_state, lr, t):
+        """Optimizer.update for every parameter, in place (the per-key
+        layout)."""
+        opt = self.optimizer
+        if opt is None:
+            for name in self.param_names:
+                params[name].sub_(lr * grads[name])
+            return params, opt_state
+        with self._patched_optimizer(lr, t):
+            for i, name in enumerate(self.param_names):
+                st = _wrap_state(opt_state.get(name))
+                opt.update(i, NDArray(params[name]), NDArray(grads[name]), st)
+        return params, opt_state
+
+    def _flat_body(self, bucket, w_c, g_c, st_c):
+        """One optimizer step on a chunk of a flat f32 bucket, in place."""
+        self.optimizer.update(bucket.rep_index, NDArray(w_c), NDArray(g_c), _wrap_state(st_c))
+
+    def _chunks(self, bucket):
+        """The slices of a bucket's update: the whole slab in "shard" mode
+        (the ranks share the device, so they share one update), the dp
+        chunks one by one in "replicated" mode."""
+        if self.flat_mode == "shard":
+            return [slice(0, bucket.padded)]
+        dp = self.mesh.shape["dp"]
+        s = bucket.padded // dp
+        return [slice(c * s, (c + 1) * s) for c in range(dp)]
+
+    def _apply_optimizer_flat(self, params, grads, opt_state, lr, t):
+        """The f32 flat update: per bucket, the optimizer on the flat slab of
+        weights and gradients, then per-parameter views of the new slab."""
+        if self.optimizer is None or self.flat_mode is None:
+            return self._apply_optimizer(params, grads, opt_state, lr, t)
+        plan = self._ensure_flat_plan(params)
+        new_params = dict(params)
+        with self._patched_optimizer(lr, t):
+            for bi, b in enumerate(plan.buckets):
+                names = [v[1] for v in b.views]
+                dtype = params[names[0]].dtype
+                flat_w = self._pack([params[n] for n in names], b.padded, dtype)
+                flat_g = self._pack([grads[n] for n in names], b.padded, dtype)
+                st = opt_state.get(self._flat_key(bi))
+                for c in self._chunks(b):
+                    self._flat_body(b, flat_w[c], flat_g[c],
+                                    _map_state(lambda s, c=c: s[c], st))
+                for (_i, name, off, size, shape) in b.views:
+                    new_params[name] = flat_w[off:off + size].view(shape)
+        return new_params, opt_state
+
+    def _slab_kind(self):
+        opt = self.optimizer
+        kind = getattr(opt, "fused_slab_kernel", None)
+        if kind == "sgd" and getattr(opt, "momentum", 0.0):
+            kind = "sgd_mom"
+        return kind
+
+    def _flat_body_amp(self, bucket, m_c, g_c, st_c, inv_scale, finite, w16_c):
+        """One AMP step on a chunk: bf16 grad in, the f32 master and state
+        chunks updated in place, the bf16 weight chunk written to ``w16_c``;
+        a non-finite step keeps every old bit. Optimizers with a
+        ``fused_slab_kernel`` run K1 (its plain version on the CPU); other
+        elementwise optimizers run their own update on the unscaled f32
+        gradient, then the same select and cast."""
+        opt = self.optimizer
+        kind = self._slab_kind()
+        states = () if st_c is None else (st_c if isinstance(st_c, tuple) else (st_c,))
+        if kind is not None:
+            kwargs = opt._fused_kwargs(bucket.rep_index)
+            lr_eff = kwargs["lr"]
+            if kind == "adam":
+                lr_eff = lr_eff * opt.bias_fix(opt._index_update_count[bucket.rep_index])
+            kernels.fused_slab_update(
+                kind, m_c, g_c, states, lr_eff, inv_scale, finite, wd=kwargs["wd"],
+                rescale_grad=kwargs["rescale_grad"], clip_gradient=kwargs["clip_gradient"],
+                momentum=getattr(opt, "momentum", 0.0), beta1=getattr(opt, "beta1", 0.9),
+                beta2=getattr(opt, "beta2", 0.999), epsilon=getattr(opt, "epsilon", 1e-8),
+                out=(m_c, states, w16_c))
+            return
+        w = NDArray(m_c.clone())
+        new_states = tuple(s.clone() for s in states)
+        st = None if st_c is None else _wrap_state(
+            new_states if isinstance(st_c, tuple) else new_states[0])
+        opt.update(bucket.rep_index, w, NDArray(g_c.float() * inv_scale), st)
+        keep = finite > 0.5
+        m_c.copy_(torch.where(keep, w._data, m_c))
+        for old, new in zip(states, new_states):
+            old.copy_(torch.where(keep, new, old))
+        w16_c.copy_(m_c.to(torch.bfloat16))
+
+    def _apply_optimizer_flat_amp(self, params, grads, opt_state, lr, t):
+        """The AMP flat update: per bucket the bf16 gradient slab; one
+        finite flag over every slab gates every bucket alike; masters and
+        states updated in place, new bf16 working params as views of each
+        bucket's new bf16 slab; then the loss scaler, ×2 after
+        ``amp_scale_window`` finite steps in a row and ×0.5 (at least 1)
+        on a non-finite one, all on the device (no host sync)."""
+        plan = self._ensure_flat_plan(params)
+        scale = opt_state[self.AMP_SCALE_KEY]
+        good = opt_state[self.AMP_GOOD_KEY]
+        flat_gs = []
+        finite = torch.ones((), dtype=torch.bool, device=self.device)
+        for b in plan.buckets:
+            names = [v[1] for v in b.views]
+            flat_g = self._pack([grads[n] for n in names], b.padded, grads[names[0]].dtype)
+            finite = finite & torch.isfinite(flat_g).all()
+            flat_gs.append(flat_g)
+        finite_f = finite.to(torch.float32)
+        inv_scale = torch.reciprocal(scale)
+        new_params = dict(params)
+        with self._patched_optimizer(lr, t):
+            for bi, b in enumerate(plan.buckets):
+                master = opt_state[self._master_key(bi)]
+                st = opt_state.get(self._flat_key(bi))
+                w16 = torch.empty(b.padded, dtype=torch.bfloat16, device=self.device)
+                for c in self._chunks(b):
+                    self._flat_body_amp(b, master[c], flat_gs[bi][c],
+                                        _map_state(lambda s, c=c: s[c], st), inv_scale,
+                                        finite_f, w16[c])
+                for (_i, name, off, size, shape) in b.views:
+                    new_params[name] = w16[off:off + size].view(shape)
+        grown = (good + 1.0) >= float(self.amp_scale_window)
+        zero = torch.zeros_like(good)
+        opt_state[self.AMP_SCALE_KEY] = torch.where(
+            finite, torch.where(grown, torch.clamp_max(scale * 2.0, self.amp_scale_max), scale),
+            torch.clamp_min(scale * 0.5, 1.0))
+        opt_state[self.AMP_GOOD_KEY] = torch.where(
+            finite, torch.where(grown, zero, good + 1.0), zero)
+        return new_params, opt_state
+
+    # -- the step ----------------------------------------------------------
+    def _step(self, params, aux, opt_state, batch, rng, lr, t):
+        amp = self.amp
+        if amp and self.amp_cast_data:
+            # bf16 activations from the first op: floating DATA feeds only
+            # (loss heads compare labels exactly)
+            batch = {n: (v.to(torch.bfloat16) if n in self.data_names and v.is_floating_point()
+                         else v) for n, v in batch.items()}
+        leaves = {n: params[n].detach().requires_grad_(params[n].is_floating_point())
+                  for n in self.param_names}
+        with torch.enable_grad():
+            outs, new_aux = self.program({**leaves, **batch}, aux, rng, True)
+            loss = sum((o.float() if amp else o).sum() for o in outs)
+            diff = [n for n in self.param_names if leaves[n].requires_grad]
+            got = torch.autograd.grad(loss, [leaves[n] for n in diff], allow_unused=True)
+        grads = {n: (torch.zeros_like(leaves[n]) if g is None else g)
+                 for n, g in zip(diff, got)}
+        outs = [o.detach() for o in outs]
+        if amp:
+            # the loss scale rides the gradient stream: every loss head
+            # ignores its incoming gradient, so scaling the loss would not
+            # reach them; the scaler's powers of two multiply exactly
+            scale = opt_state[self.AMP_SCALE_KEY]
+            grads = {k: g * scale.to(g.dtype) for k, g in grads.items()}
+            outs = [o.float() for o in outs]
+        if amp:
+            apply = self._apply_optimizer_flat_amp
+        elif self.flat_mode is not None:
+            apply = self._apply_optimizer_flat
+        else:
+            apply = self._apply_optimizer
+        with torch.no_grad():
+            new_params, new_opt = apply(params, grads, opt_state, lr, t)
+        new_aux = {**aux, **{k: v.detach() for k, v in new_aux.items()}}
+        if amp:  # BN moving stats keep their f32 dtype
+            new_aux = {k: (v.to(aux[k].dtype) if k in aux and v.dtype != aux[k].dtype else v)
+                       for k, v in new_aux.items()}
+        return new_params, new_aux, new_opt, outs
+
+    def compile(self, data_shapes_by_name=None):
+        """Kept for the JAX surface: eager PyTorch has nothing to compile."""
+        return self
+
+    def arm_guard(self):
+        raise _not_ported("the guardrail gate (fit(guardrails=...))",
+                          "mxnet_tpu/parallel/train_step.py:1213, mxnet_tpu/resilience/"
+                          "guardrail.py")
+
+    def compile_multi(self, k):
+        raise _not_ported("compile_multi (the K-step scan, MXNET_FIT_MULTISTEP)",
+                          "mxnet_tpu/parallel/train_step.py:1225")
+
+    call_multi = compile_multi
+
+    def __call__(self, params, aux, opt_state, batch, rng=None, lr=None, t=1):
+        """One step: ``params`` / ``aux`` / ``opt_state`` as made by
+        :meth:`init` (or place_params / make_state), ``batch`` name ->
+        tensor of the global batch. Returns (params, aux, opt_state,
+        outputs); master and state slabs are updated in place."""
+        sig = tuple((n, tuple(v.shape)) for n, v in batch.items())
+        if sig != self._shape_sig:
+            shapes = {n: tuple(v.shape) for n, v in params.items()}
+            shapes.update(dict(sig))
+            self.program.shape_overrides = resolve_creation_shapes(self.symbol, shapes)
+            self._shape_sig = sig
+        if lr is None:
+            opt = self.optimizer
+            if opt is not None and opt.lr_scheduler is not None:
+                lr = float(opt.lr_scheduler(opt.num_update))
+            else:
+                lr = float(getattr(opt, "lr", 0.01))
+        if rng is None and self._needs_rng:
+            rng = _random.generator(self.device)
+        batch = {n: v.to(self.device) for n, v in batch.items()}
+        return self._step(params, aux, opt_state, batch, rng, lr, t)

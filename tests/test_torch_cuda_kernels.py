@@ -8,6 +8,7 @@ Without a CUDA device they skip."""
 import pytest
 import torch
 
+from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import kernels
 
 
@@ -248,3 +249,78 @@ def test_cuda_rtc_kernels_match_plain_versions():
             scale = want._data.abs().max().item()
             assert (got._data - want._data).abs().max().item() <= 1e-6 * scale
         assert len(k._cache) == 1
+
+
+def _slab_case(kind, size, g_dtype, g):
+    w = torch.randn(size, generator=g).cuda()
+    grad = (torch.randn(size, generator=g) * 4).to("cuda", g_dtype)
+    states = [(torch.randn(size, generator=g) * 0.1).cuda()
+              for _ in range(kernels.SLAB_STATE_SLOTS[kind])]
+    if kind == "adam":  # the second moment is never negative
+        states[1] = states[1].abs()
+    return w, grad, tuple(states)
+
+
+SLAB_KW = dict(wd=1e-4, rescale_grad=1.0 / 32, momentum=0.9, beta1=0.9, beta2=0.999,
+               epsilon=1e-8)
+
+
+@pytest.mark.cuda
+def test_cuda_slab_update_kernel_matches_plain_version_bitwise():
+    """On the card: K1 against its plain version, every output bit for bit
+    (the kernel rounds each product, sum, root and quotient once, as each
+    PyTorch op does); a skipped step returns its inputs bit for bit; a
+    repeat gives the same bits; in place through out= as well."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator().manual_seed(5)
+    for kind in ("sgd", "sgd_mom", "adam"):
+        for size in (1, 131, 1024, 5000, 70001):
+            for g_dtype in (torch.bfloat16, torch.float32):
+                w, grad, states = _slab_case(kind, size, g_dtype, g)
+                for finite in (1.0, 0.0):
+                    for clip in (None, 0.05):
+                        args = (kind, w, grad, states, 0.05, 1.0 / 128, finite)
+                        before = kernels.fused_slab_update.launches
+                        got = kernels.fused_slab_update(*args, clip_gradient=clip, **SLAB_KW)
+                        again = kernels.fused_slab_update(*args, clip_gradient=clip, **SLAB_KW)
+                        assert kernels.fused_slab_update.launches == before + 2
+                        want = kernels.slab_update_reference(*args, clip_gradient=clip,
+                                                             **SLAB_KW)
+                        for a, b, c in zip((got[0], *got[1], got[2]), (want[0], *want[1], want[2]),
+                                           (again[0], *again[1], again[2])):
+                            assert torch.equal(a, b) and torch.equal(a, c), (kind, size, finite)
+                        if finite == 0.0:
+                            assert torch.equal(got[0], w)
+                            assert all(torch.equal(a, s) for a, s in zip(got[1], states))
+                mw, ms = w.clone(), tuple(s.clone() for s in states)
+                w16 = torch.empty(size, dtype=torch.bfloat16, device="cuda")
+                kernels.fused_slab_update(kind, mw, grad, ms, 0.05, 1.0 / 128, 1.0,
+                                          clip_gradient=None, out=(mw, ms, w16), **SLAB_KW)
+                want = kernels.slab_update_reference(kind, w, grad, states, 0.05, 1.0 / 128,
+                                                     1.0, clip_gradient=None, **SLAB_KW)
+                assert torch.equal(mw, want[0]) and torch.equal(w16, want[2])
+                assert all(torch.equal(a, b) for a, b in zip(ms, want[1]))
+
+
+@pytest.mark.cuda
+def test_cuda_slab_update_wrapper_raises_on_bad_arguments():
+    """A CUDA call launches the kernel or raises: a CPU tensor among CUDA
+    ones, a wrong state count, a wrong dtype or an unknown kind."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    w = torch.zeros(64, device="cuda")
+    g16 = torch.zeros(64, dtype=torch.bfloat16, device="cuda")
+    mom = torch.zeros(64, device="cuda")
+    bad = [
+        ("sgd_mom", w, g16.cpu(), (mom,)),
+        ("sgd_mom", w, g16, (mom.cpu(),)),
+        ("sgd_mom", w, g16, ()),
+        ("adam", w, g16, (mom,)),
+        ("sgd", w.half(), g16, ()),
+        ("nag", w, g16, ()),
+    ]
+    for kind, a, b, states in bad:
+        with pytest.raises(MXNetError):
+            kernels.fused_slab_update(kind, a, b, states, 0.1, 1.0, 1.0, clip_gradient=None,
+                                      **SLAB_KW)
