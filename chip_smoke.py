@@ -7,17 +7,25 @@ Phases, each fatal on failure:
 
 1. device: the card's name and power limit; build every CUDA kernel from
    the sources in this checkout (nvcc, sm_90a, one process per source, all
-   started together) and time the build.
-2. forward kernel vs plain: the flash-attention forward kernel against its
-   plain PyTorch version on the card, f32 to 1e-4 and bf16 to 2e-2 (the
-   plain version rounds its scores to bf16, the kernel keeps them in f32).
+   started together) and time the build; ptxas's registers and spills of
+   each kernel. Then ``cuobjdump -sass`` (beside nvcc) of the two flash
+   libraries: every bf16 forward and dq kernel (flash_fwd_sm90,
+   flash_dq_sm90) holds HGMMA (wgmma) and UTMALDG (TMA load) instructions,
+   and no bf16 instantiation of the SIMT forward or dq kernel is left.
+2. forward kernel vs plain: the flash-attention forward kernels against
+   their plain PyTorch version on the card, f32 to 1e-4 and bf16 to 2e-2
+   (the plain version rounds its scores to bf16; the bf16 kernel keeps them
+   in f32 and rounds P to bf16 before P·V), D 16 to 128, T 7 to 2048,
+   contiguous operands and transposed views of [B, H, T, D] tensors (which
+   TMA reads in place); a second launch gives the same bits.
 3. backward kernels vs plain: dq and dk/dv kernels against
    ``reference_attention_bwd`` on the same q, k, v, dO, lse and delta, for
-   T in 7..2048, D 64 and 128, causal or not, f32 and bf16; error relative
+   T in 7..2048, D 16 to 128, causal or not, f32 and bf16, contiguous
+   and as [B, H, T, D] views; error relative
    to max|plain| at most 1e-4 in f32 (summation order only) and 2e-2 in
-   bf16 (both sides compute in f32 from the same bf16 loads, so the
-   outputs differ by about one bf16 rounding, 2^-8 relative); and a second
-   launch on the same inputs gives the same bits.
+   bf16 (the outputs differ by about one bf16 rounding, 2^-8 relative, and
+   the bf16 dq kernel rounds dS to bf16 before dS·K); and a second launch
+   on the same inputs gives the same bits.
 4. serving, f32: the full-width transformer LM at depth 2; prefill
    last-token logits through the kernel agree with the same forward
    through the plain attention at rtol = atol = 1e-3.
@@ -37,12 +45,17 @@ Phases, each fatal on failure:
    the forward, dq and dk/dv kernels each launched exactly n_layers times
    per step (counts zeroed just before); step ms, tokens/s, peak memory.
 8. attention kernel times: per flash kernel its launches on the main
-   paths, error against the plain version, time (CUDA events, median, L2
-   flushed before each launch), the plain version's time, the least time
+   paths, error against the plain version, time (``ms``: CUDA events
+   around one call, median, L2 flushed before each, so the host's enqueue
+   of the call shows where the card would wait for it), the plain
+   version's time, the least time
    the card could take (bytes at 3.35 TB/s or operations at 989 TFLOP/s,
    H100 SXM data sheet) and one PyTorch call computing the same function
    as a yardstick the port never calls (scaled_dot_product_attention, and
-   its backward for dq, dk and dv together).
+   its backward for dq, dk and dv together). Beside them, for the kernel
+   and for that call: ``device_ms``, the same span with a ~0.5 ms sleep
+   kernel queued first, so the events time the card alone, and
+   ``host_ms``, the host's time to enqueue one call.
 9. conv-backward kernels vs plain: K2 (conv_bwd_filter) and K3
    (conv_bwd_input) against their plain versions on every distinct
    in-envelope convolution shape of ResNet-50 at batch 32 (from
@@ -145,10 +158,12 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -161,6 +176,9 @@ PROMPT_LENGTHS = (5, 60, 128, 300, 700, 1000, 1500, 2000)
 MAX_NEW = 32
 TRAIN = dict(batch_size=8, seq_len=2047, steps=10, lr=3e-2)  # T = 2047
 BWD_CHECK_T = (7, 100, 128, 512, 1000, 2048)
+BWD_CHECK_EXTRA = [(2047, 64), (2047, 128), (7, 16), (100, 16), (2047, 16), (7, 32), (100, 32),
+                   (2047, 32), (300, 64, "bhtd"), (2047, 128, "bhtd")]
+# (T, D[, "bhtd": transposed [B, H, T, D] views]) beside BWD_CHECK_T x (64, 128)
 BWD_TIME_SHAPE = (8, 2047, 16, 64)  # n, T, H, D of the training path's attention
 RESNET_BATCH = 32
 RESNET_STEPS = 5
@@ -190,16 +208,71 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
+def kernel_label(mangled):
+    """``flash_fwd_sm90<64>`` from a mangled kernel name."""
+    m = re.search(r"\d+((?:flash|conv|slab)_[a-z0-9_]+?)I", mangled)
+    if not m:
+        return mangled[:80]
+    args = re.findall(r"13__nv_bfloat16|L[a-z]\d+E|f",
+                      mangled[m.end():mangled.find("EEv", m.end()) + 1])
+    names = ["bf16" if a[0] == "1" else "float" if a == "f" else a[2:-1] for a in args]
+    return "%s<%s>" % (m.group(1), ",".join(names))
+
+
+def ptxas_lines(log_text):
+    """{kernel label: "Used N registers, ...; N bytes stack frame, ..."} from
+    nvcc's -Xptxas -v output."""
+    out, func = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([^' ]+)'?", line)
+        if m:
+            func = kernel_label(m.group(1))
+        elif func and ("registers" in line or "spill" in line):
+            out.setdefault(func, []).append(line.split(":", 1)[-1].strip())
+    return {k: "; ".join(v) for k, v in out.items()}
+
+
+def sass_counts(_build, name):
+    """{kernel label: {"HGMMA": n, "UTMALDG": n}} over the SASS of kernel
+    ``name``'s library, from cuobjdump beside nvcc."""
+    cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.library_path(name))],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    counts, func = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            func = kernel_label(m.group(1))
+            counts[func] = {"HGMMA": 0, "UTMALDG": 0}
+        elif func:
+            for op in counts[func]:
+                counts[func][op] += op in line
+    return counts
+
+
 def phase_build(_build):
     t0 = time.perf_counter()
     logs = _build.build()
     secs = time.perf_counter() - t0
     for name, text in sorted(logs.items()):
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log("  %s: %s" % (name, line.strip()))
+        for func, line in sorted(ptxas_lines(text).items()):
+            log("  %s %s: %s" % (name, func, line))
     log("phase 1: built %s in %.2f s" % (sorted(logs) or "nothing new", secs))
-    return secs
+    sass = {}
+    for name, prefix in (("flash_attn_fwd", "flash_fwd"), ("flash_attn_bwd_dq", "flash_dq")):
+        counts = sass_counts(_build, name)
+        tma = {f: c for f, c in counts.items() if f.startswith(prefix + "_sm90<")}
+        simt_bf16 = [f for f in counts if f.startswith(prefix + "_kernel<bf16")]
+        log("  sass %s: %s" % (name, json.dumps(tma)))
+        if len(tma) != 4 or not all(c["HGMMA"] > 0 and c["UTMALDG"] > 0 for c in tma.values()):
+            raise AssertionError("%s: the bf16 kernels want wgmma and TMA in their SASS, got %s"
+                                 % (name, tma))
+        if simt_bf16:
+            raise AssertionError("%s: bf16 SIMT kernels left: %s" % (name, simt_bf16))
+        sass.update(tma)
+    log("phase 1: HGMMA and UTMALDG in every bf16 forward and dq kernel, no bf16 SIMT "
+        "forward or dq kernel")
+    return secs, sass
 
 
 def _randn(shape, dtype, device, rng):
@@ -208,15 +281,32 @@ def _randn(shape, dtype, device, rng):
     return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device, dtype)
 
 
-def max_err(kernels, q, k, v, causal):
+def _operand(kernels, n, t, h, d, dtype, dev, rng, layout=()):
+    """A [B, T, H, D] operand: contiguous, or with ``layout`` == ["bhtd"]
+    the transposed view of a contiguous [B, H, T, D] tensor, which
+    ``tma_compatible`` accepts, so the bf16 kernels read it in place."""
+    if not layout:
+        return _randn((n, t, h, d), dtype, dev, rng)
+    x = _randn((n, h, t, d), dtype, dev, rng).transpose(1, 2)
+    assert x.stride(1) < x.stride(2) and kernels.tma_compatible(x), x.stride()
+    return x
+
+
+def max_err(kernels, q, k, v, causal, repeat=False):
+    """max |kernel - plain| of the forward; with ``repeat``, also whether a
+    second launch gave the same bits (output and lse)."""
     import torch
 
-    out = kernels.flash_attention(q, k, v, causal=causal)
+    out, lse = kernels.flash_attention(q, k, v, causal=causal, return_lse=True)
     torch.cuda.synchronize()
     ref = kernels.reference_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert out.shape == ref.shape and out.dtype == q.dtype
-    return (out.float() - ref.float()).abs().max().item()
+    err = (out.float() - ref.float()).abs().max().item()
+    if not repeat:
+        return err
+    out2, lse2 = kernels.flash_attention(q, k, v, causal=causal, return_lse=True)
+    return err, torch.equal(out, out2) and torch.equal(lse, lse2)
 
 
 def phase_kernel_checks(kernels, dev):
@@ -224,28 +314,39 @@ def phase_kernel_checks(kernels, dev):
 
     rng = np.random.default_rng(0)
     cases = [(n, t, 16, 64, True) for n in (1, 4) for t in (7, 100, 128, 512, 1000, 2048)]
-    cases += [(2, 300, 16, 64, False), (2, 500, 8, 128, True)]
+    cases += [(2, 300, 16, 64, False), (2, 500, 8, 128, True), (1, 2047, 16, 64, True),
+              (1, 2047, 8, 128, False)]
+    cases += [(2, t, 8, d, causal) for d in (16, 32) for t, causal in
+              ((7, True), (100, False), (300, True), (2047, True), (2047, False))]
+    # [B, H, T, D] tensors read as [B, T, H, D] views: TMA-aligned strides in another order
+    cases += [(2, 300, 8, 64, True, "bhtd"), (1, 2047, 16, 64, False, "bhtd"),
+              (2, 100, 8, 128, True, "bhtd")]
     worst = {}
-    for (n, t, h, d, causal) in cases:
+    for (n, t, h, d, causal, *layout) in cases:
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-            q, k, v = (_randn((n, t, h, d), dtype, dev, rng) for _ in range(3))
-            err = max_err(kernels, q, k, v, causal)
-            log("  flash_attn_fwd n=%d T=%d H=%d D=%d causal=%s %s: max_abs_err %.3g (tol %g)"
-                % (n, t, h, d, causal, str(dtype).split(".")[-1], err, tol))
+            q, k, v = (_operand(kernels, n, t, h, d, dtype, dev, rng, layout) for _ in range(3))
+            err, same = max_err(kernels, q, k, v, causal, repeat=True)
+            log("  flash_attn_fwd n=%d T=%d H=%d D=%d causal=%s %s%s: max_abs_err %.3g (tol %g), "
+                "bitwise repeat %s" % (n, t, h, d, causal, str(dtype).split(".")[-1],
+                                       " bhtd view" if layout else "", err, tol, same))
             if not err <= tol:
                 raise AssertionError("flash_attn_fwd disagrees with the plain version")
+            if not same:
+                raise AssertionError("flash_attn_fwd is not bitwise repeatable")
             key = str(dtype).split(".")[-1]
             worst[key] = max(worst.get(key, 0.0), err)
-    log("phase 2: forward kernel vs plain ok, worst %s" % json.dumps(worst))
+    log("phase 2: forward kernels vs plain ok over %d cases, worst %s"
+        % (len(cases), json.dumps(worst)))
     return worst
 
 
-def bwd_inputs(kernels, n, t, h, d, dtype, causal, dev, rng):
-    """q, k, v, dO, and the lse and delta a training backward would hand the
-    kernels: lse from the forward kernel, delta = sum_D dO * O in f32."""
+def bwd_inputs(kernels, n, t, h, d, dtype, causal, dev, rng, layout=()):
+    """q, k, v, dO (laid out as :func:`_operand`), and the lse and delta a
+    training backward would hand the kernels: lse from the forward kernel,
+    delta = sum_D dO * O in f32."""
     import torch
 
-    q, k, v, do = (_randn((n, t, h, d), dtype, dev, rng) for _ in range(4))
+    q, k, v, do = (_operand(kernels, n, t, h, d, dtype, dev, rng, layout) for _ in range(4))
     with torch.no_grad():
         out, lse = kernels.flash_attention(q, k, v, causal=causal, return_lse=True)
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
@@ -288,23 +389,23 @@ def phase_bwd_checks(kernels, dev):
     rng = np.random.default_rng(4)
     worst = {}
     n, h = 2, 8
-    for t in BWD_CHECK_T:
-        for d in (64, 128):
-            for causal in (True, False):
-                for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-                    args = bwd_inputs(kernels, n, t, h, d, dtype, causal, dev, rng)
-                    key = str(dtype).split(".")[-1]
-                    for name, e in bwd_errors(kernels, args, causal).items():
-                        log("  %s n=%d T=%d H=%d D=%d causal=%s %s: rel_err %.3g (tol %g) "
-                            "max_abs_err %.3g, bitwise repeat %s"
-                            % (name, n, t, h, d, causal, key, e["rel_err"], tol,
-                               e["max_abs_err"], e["bitwise_repeat"]))
-                        if not e["rel_err"] <= tol:
-                            raise AssertionError("%s disagrees with the plain version" % name)
-                        if not e["bitwise_repeat"]:
-                            raise AssertionError("%s is not bitwise repeatable" % name)
-                        worst[name + " " + key] = max(worst.get(name + " " + key, 0.0),
-                                                      e["rel_err"])
+    shapes = [(t, d) for t in BWD_CHECK_T for d in (64, 128)] + BWD_CHECK_EXTRA
+    for t, d, *layout in shapes:
+        for causal in (True, False):
+            for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+                args = bwd_inputs(kernels, n, t, h, d, dtype, causal, dev, rng, layout)
+                key = str(dtype).split(".")[-1]
+                for name, e in bwd_errors(kernels, args, causal).items():
+                    log("  %s n=%d T=%d H=%d D=%d causal=%s %s%s: rel_err %.3g (tol %g) "
+                        "max_abs_err %.3g, bitwise repeat %s"
+                        % (name, n, t, h, d, causal, key, " bhtd view" if layout else "",
+                           e["rel_err"], tol, e["max_abs_err"], e["bitwise_repeat"]))
+                    if not e["rel_err"] <= tol:
+                        raise AssertionError("%s disagrees with the plain version" % name)
+                    if not e["bitwise_repeat"]:
+                        raise AssertionError("%s is not bitwise repeatable" % name)
+                    worst[name + " " + key] = max(worst.get(name + " " + key, 0.0),
+                                                  e["rel_err"])
     log("phase 3: backward kernels vs plain ok, worst rel_err %s" % json.dumps(worst))
     return worst
 
@@ -543,11 +644,17 @@ def phase_kernel_times(kernels, dev, launches):
     for t in (1024, 2048):
         q, k, v = (_randn((n, t, h, d), torch.bfloat16, dev, rng) for _ in range(3))
         err = max_err(kernels, q, k, v, True)
-        kernel_ms = time_ms(lambda: kernels.flash_attention(q, k, v, causal=True), 30, 5, flush)
-        plain_ms = time_ms(lambda: kernels.reference_attention(q, k, v, causal=True), 10, 2, flush)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        library_ms = time_ms(
-            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), 30, 5, flush)
+
+        def kern():
+            return kernels.flash_attention(q, k, v, causal=True)
+
+        def lib():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+        kernel_ms = time_ms(kern, 30, 5, flush)
+        plain_ms = time_ms(lambda: kernels.reference_attention(q, k, v, causal=True), 10, 2, flush)
+        library_ms = time_ms(lib, 30, 5, flush)
         # causal: t(t+1)/2 live (q, k) pairs, 2*d flops each for q.k and for p.v
         flops = 2.0 * n * h * d * t * (t + 1)
         nbytes = 4 * n * t * h * d * q.element_size() + 4 * n * h * t  # q k v o + f32 lse
@@ -556,6 +663,9 @@ def phase_kernel_times(kernels, dev, launches):
             "n": n, "T": t, "H": h, "D": d, "dtype": "bfloat16", "causal": True,
             "max_abs_err": err, "ms": kernel_ms, "kernel_ms": kernel_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
+            "device_ms": device_ms(kern, 30, 5, flush), "host_ms": host_ms(kern, 30, 5),
+            "library_device_ms": device_ms(lib, 30, 5, flush),
+            "library_host_ms": host_ms(lib, 30, 5),
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "flops": flops, "bytes": nbytes,
@@ -565,10 +675,12 @@ def phase_kernel_times(kernels, dev, launches):
     entry = {
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
+        "design": "tma+wgmma (bf16); f32 SIMT (f32)",
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:263",
         "launches": launches,
         **{key: head[key] for key in ("max_abs_err", "ms", "kernel_ms", "plain_ms",
-                                      "bound_ms", "bound_by", "library_ms")},
+                                      "bound_ms", "bound_by", "library_ms", "device_ms",
+                                      "host_ms", "library_device_ms", "library_host_ms")},
         "shapes": shapes,
     }
     return [entry]
@@ -585,18 +697,22 @@ def phase_bwd_times(kernels, dev, launches):
     n, t, h, d = BWD_TIME_SHAPE
     args = bwd_inputs(kernels, n, t, h, d, torch.bfloat16, True, dev, rng)
     errs = bwd_errors(kernels, args, True)
-    ms = {"flash_attn_bwd_dq": time_ms(
-              lambda: kernels.flash_attention_dq(*args, causal=True), 20, 3, flush),
-          "flash_attn_bwd_dkv": time_ms(
-              lambda: kernels.flash_attention_dkv(*args, causal=True), 20, 3, flush)}
+    kern = {"flash_attn_bwd_dq": lambda: kernels.flash_attention_dq(*args, causal=True),
+            "flash_attn_bwd_dkv": lambda: kernels.flash_attention_dkv(*args, causal=True)}
+    ms = {name: time_ms(fn, 20, 3, flush) for name, fn in kern.items()}
     # the plain version computes dq, dk and dv together
     plain_ms = time_ms(lambda: kernels.reference_attention_bwd(*args, causal=True), 5, 1, flush)
     q, k, v, do = args[:4]
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
     out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
     dot = do.transpose(1, 2)
-    library_ms = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True),
-                         20, 3, flush)
+
+    def lib():
+        return torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+
+    library = {"library_ms": time_ms(lib, 20, 3, flush),
+               "library_device_ms": device_ms(lib, 20, 3, flush),
+               "library_host_ms": host_ms(lib, 20, 3)}
     pairs = t * (t + 1)  # twice the live (q, k) pairs under the causal mask
     esize = q.element_size()
     work = {  # flops, bytes: each input read once, each output written once
@@ -608,14 +724,18 @@ def phase_bwd_times(kernels, dev, launches):
         t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
         entries.append({
             "name": name, "route": "cuda", "source": "mxnet_tpu_torch/csrc/flash_attn_bwd.cu",
+            "design": ("tma+wgmma (bf16); f32 SIMT (f32)" if name.endswith("dq")
+                       else "f32 SIMT (bf16 and f32)"),
             "replaces": "mxnet_tpu/ops/pallas_kernels.py:%d" % (
                 295 if name.endswith("dq") else 316),
             "launches": launches[name], "max_abs_err": errs[name]["max_abs_err"],
             "rel_err": errs[name]["rel_err"], "ms": ms[name], "kernel_ms": ms[name],
+            "device_ms": device_ms(kern[name], 20, 3, flush),
+            "host_ms": host_ms(kern[name], 20, 3),
             "plain_ms": plain_ms, "plain_computes": "dq, dk, dv",
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": library_ms,
+            **library,
             "library_computes": "scaled_dot_product_attention backward: dq, dk, dv",
             "n": n, "T": t, "H": h, "D": d, "dtype": "bfloat16", "causal": True,
             "flops": flops, "bytes": nbytes,
@@ -1181,6 +1301,25 @@ def slab_case(kernels, kind, size, g_dtype, dev, rng):
     return w, g, tuple(states)
 
 
+def host_ms(fn, reps, warmup):
+    """Median host ms to enqueue one call of ``fn`` (checks, allocations,
+    the launch itself): a ~0.5 ms sleep kernel is queued first, so the call
+    never waits for the card."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1_000_000)
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def device_ms(fn, reps, warmup, flush):
     """Median device ms of ``fn``'s launches, L2 flushed before each rep:
     a ~0.5 ms sleep kernel is queued before the start event, so the host
@@ -1518,7 +1657,8 @@ def main(argv=None):
     kind = torch.cuda.get_device_name(0)
     log("card: %s | torch %s, CUDA %s" % (card, torch.__version__, torch.version.cuda))
 
-    results = {"card": card, "build_s": phase_build(_build)}
+    results = {"card": card}
+    results["build_s"], results["sass"] = phase_build(_build)
     results["kernel_checks"] = phase_kernel_checks(kernels, dev)
     results["bwd_kernel_checks"] = phase_bwd_checks(kernels, dev)
     results["serving_f32_err"] = phase_serving_f32(tfm, kernels, dev)

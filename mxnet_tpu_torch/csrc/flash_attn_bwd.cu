@@ -2,13 +2,14 @@
 //
 // Replace the TPU kernels of mxnet_tpu/ops/pallas_kernels.py launched by
 // `_bwd_call` (the jax.custom_vjp backward of `_flash`):
-//   * flash_dq_kernel  <- `_bwd_dq_kernel`:  dq = scale * sum_k dS K
-//   * flash_dkv_kernel <- `_bwd_dkv_kernel`: dv = sum_q P^T dO,
-//                                            dk = scale * sum_q dS^T Q
-// with, exactly as the Pallas kernels compute it, from bf16 or f32 loads
-// upcast to f32: s = scale * q.k^T; the keep-mask of `_masked_scores`
-// (k < T, and q >= k when causal; here also q < T, since T is not padded);
-// P = exp(s - lse) where kept, else 0; dP = dO V^T; dS = P * (dP - delta).
+//   * dq  <- `_bwd_dq_kernel`:  dq = scale * sum_k dS K
+//            (bf16: flash_dq_sm90, TMA and wgmma; f32: flash_dq_kernel)
+//   * dkv <- `_bwd_dkv_kernel`: dv = sum_q P^T dO, dk = scale * sum_q dS^T Q
+//            (flash_dkv_kernel, f32 and bf16)
+// with, as the Pallas kernels compute it, from bf16 or f32 loads: s =
+// scale * q.k^T in f32; the keep-mask of `_masked_scores` (k < T, and
+// q >= k when causal; here also q < T, since T is not padded); P =
+// exp(s - lse) where kept, else 0; dP = dO V^T; dS = P * (dP - delta).
 // lse is the forward's f32 logsumexp and delta = sum_D dO * O, both
 // [B, H, T] f32, computed by the caller. Outputs are cast to q's dtype
 // after the scale, as `:198` and `:245-246` do.
@@ -17,29 +18,45 @@
 // (s, dP, dS K) and dk/dv 8*D (s, dP, P^T dO, dS^T Q) against ~10-12*D
 // bytes per row, so at T >= 128 both need far more operations per byte
 // than the card's balance point: the bound is the tensor cores' bf16 rate.
-// This first version multiplies with f32 FMAs on the CUDA cores, like the
-// forward kernel, so it stays an order of magnitude or more above that
-// bound; wgmma and TMA are the next step. What the design does:
+// What the designs do:
 //   * One owner per output, no atomics. The TPU design splits the backward
 //     into a dq pass and a dk/dv pass so each output tile has one writer;
 //     the split is kept, so a repeated launch gives the same bits.
-//   * dq: one block per (batch*head, 64-row q tile); the k tiles are a loop
-//     inside the block up to the causal diagonal (the forward's bound), the
-//     f32 dq accumulator stays in registers. The heaviest q tiles start
-//     first so the causal triangle balances across SMs.
-//   * dk/dv: one block per (batch*head, 64-row k tile); the q tiles are a
-//     loop from the tile holding the block's first key (earlier q tiles see
-//     only masked keys) to the end; dk and dv stay in registers.
-//   * Each 64 x 64 score tile is recomputed (s and dP) from tiles staged in
-//     shared memory as f32, padded by one column so neither the row-wise
-//     nor the column-wise reads conflict on banks. 128 threads; each owns a
-//     4 x 8 micro-tile of the scores and a 4 x D/8 micro-tile of the
-//     accumulators, as in flash_attn_fwd.cu.
-//   * The ragged edge of T is masked in the kernel and loads past T are
+//   * dq, bf16 (flash_dq_sm90, flash_sm90.cuh): one CTA of one warpgroup
+//     per (batch*head, 64-row q tile), the heaviest causal q tiles first.
+//     Q and dO arrive by TMA once; lse and delta sit in registers in the
+//     accumulator fragment's row layout; K and V tiles come by TMA through
+//     a ring of shared-memory stages guarded by mbarriers, up to the causal
+//     diagonal. Per k tile: S = Q K^T and dP = dO V^T by two wgmmas with
+//     all operands K-major in shared memory; P (one ex2 instruction a
+//     score, the mask evaluated only on tiles that straddle the causal
+//     diagonal or T) and dS = P (dP - delta) in f32 registers; dS rounded
+//     to bf16 in registers is the A operand of dq += dS K, whose B is the
+//     same K tile read MN-major (transpose bit), so no transposed copy is
+//     made. Four CTAs fit an SM at D = 64 (128 registers, 49 KB), and
+//     they hide each other's latency: each runs its products and the
+//     elementwise work in turn. Numerics: dS is rounded to bf16 before the
+//     product, as FlashAttention-2/3 do (the JAX kernel multiplies it in
+//     f32); the result stays inside the bf16 limit, 2e-2 of max|plain|
+//     against reference_attention_bwd.
+//   * dq, f32 (flash_dq_kernel): f32 FMAs on the CUDA cores; the f32 limit
+//     (1e-4) rules out TF32 tensor cores. One block per (batch*head, 64-row
+//     q tile); the k tiles are a loop inside the block up to the causal
+//     diagonal; the f32 dq accumulator stays in registers.
+//   * dk/dv (flash_dkv_kernel, f32 FMAs for both dtypes): one block per
+//     (batch*head, 64-row k tile); the q tiles are a loop from the tile
+//     holding the block's first key (earlier q tiles see only masked keys)
+//     to the end; dk and dv stay in registers.
+//   * In the SIMT kernels each 64 x 64 score tile is recomputed (s and dP)
+//     from tiles staged in shared memory as f32, padded by one column so
+//     neither the row-wise nor the column-wise reads conflict on banks. 128
+//     threads; each owns a 4 x 8 micro-tile of the scores and a 4 x D/8
+//     micro-tile of the accumulators, as in flash_attn_fwd.cu. Dynamic
+//     shared memory is 83-100 KB at D=64 and 149-166 KB at D=128, above
+//     the 48 KB default, so the launch sets the opt-in attribute.
+//   * The ragged edge of T is masked in the kernels and loads past T are
 //     zero-filled (no padding of T); q, k, v, dO are read as [B, T, H, D]
 //     through their strides, so the wrapper makes no transposed copies.
-//   * Dynamic shared memory is 83-100 KB at D=64 and 149-166 KB at D=128,
-//     above the 48 KB default, so the launch sets the opt-in attribute.
 //
 // Entry points: mxtt_flash_attn_bwd_dq and mxtt_flash_attn_bwd_dkv (plain C,
 // loaded with ctypes). Each returns the cudaError_t of its launch (0 on
@@ -47,6 +64,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "flash_sm90.cuh"
 
 namespace {
 
@@ -139,12 +158,12 @@ constexpr size_t dkv_smem_bytes() {
   return sizeof(float) * (4 * kBlock * (D + 1) + 2 * kBlock * kPP + 2 * kBlock);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+    flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
+                    const float* __restrict__ delta, float* __restrict__ dq,
                     int heads, int seq, Strides sq, Strides sk, Strides sv,
                     Strides sdo, float scale, int causal) {
   constexpr int DP = D + 1;
@@ -162,11 +181,11 @@ __global__ void __launch_bounds__(kThreads)
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlock;  // heavy tiles first
   const int lane = threadIdx.x % kLanes;
   const int group = threadIdx.x / kLanes;
-  const T* kb = k + b * sk.b + h * sk.h;
-  const T* vb = v + b * sv.b + h * sv.h;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
 
-  load_tile<T, D>(qs, q + b * sq.b + h * sq.h, sq.t, q0, seq);
-  load_tile<T, D>(dos, dout + b * sdo.b + h * sdo.h, sdo.t, q0, seq);
+  load_tile<float, D>(qs, q + b * sq.b + h * sq.h, sq.t, q0, seq);
+  load_tile<float, D>(dos, dout + b * sdo.b + h * sdo.h, sdo.t, q0, seq);
   const float* lse_row = lse + static_cast<long long>(bh) * seq;
   const float* delta_row = delta + static_cast<long long>(bh) * seq;
   float lse_r[kRows], delta_r[kRows], acc[kRows][kAcc];
@@ -182,8 +201,8 @@ __global__ void __launch_bounds__(kThreads)
   const int kv_end = causal ? min(seq, q0 + kBlock) : seq;
   for (int k0 = 0; k0 < kv_end; k0 += kBlock) {
     __syncthreads();  // the previous tile's readers are done
-    load_tile<T, D>(ks, kb, sk.t, k0, seq);
-    load_tile<T, D>(vs, vb, sv.t, k0, seq);
+    load_tile<float, D>(ks, kb, sk.t, k0, seq);
+    load_tile<float, D>(vs, vb, sv.t, k0, seq);
     __syncthreads();
 
     float s[kRows][kCols], dp[kRows][kCols];
@@ -210,9 +229,9 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < kRows; ++i) {
     const int t = q0 + group * kRows + i;
     if (t >= seq) continue;
-    T* row = dq + ((static_cast<long long>(b) * seq + t) * heads + h) * D;
+    float* row = dq + ((static_cast<long long>(b) * seq + t) * heads + h) * D;
 #pragma unroll
-    for (int j = 0; j < kAcc; ++j) store_as(row + lane + kLanes * j, scale * acc[i][j]);
+    for (int j = 0; j < kAcc; ++j) row[lane + kLanes * j] = scale * acc[i][j];
   }
 }
 
@@ -329,18 +348,18 @@ cudaError_t prepare(Kern kern, size_t smem) {
                               static_cast<int>(smem));
 }
 
-template <typename T, int D>
-cudaError_t launch_dq(const Args& a, void* dq) {
-  auto kern = flash_dq_kernel<T, D>;
+template <int D>
+cudaError_t launch_dq_f32(const Args& a, void* dq) {
+  auto kern = flash_dq_kernel<D>;
   const size_t smem = dq_smem_bytes<D>();
   cudaError_t err = prepare(kern, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.batch * a.heads, (a.seq + kBlock - 1) / kBlock);
   kern<<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<T*>(dq), a.heads, a.seq, a.sq, a.sk, a.sv, a.sdo, a.scale,
+      static_cast<float*>(dq), a.heads, a.seq, a.sq, a.sk, a.sv, a.sdo, a.scale,
       a.causal);
   return cudaGetLastError();
 }
@@ -359,17 +378,6 @@ cudaError_t launch_dkv(const Args& a, void* dk, void* dv) {
       static_cast<T*>(dk), static_cast<T*>(dv), a.heads, a.seq, a.sq, a.sk,
       a.sv, a.sdo, a.scale, a.causal);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_dq(int d, const Args& a, void* dq) {
-  switch (d) {
-    case 16: return launch_dq<T, 16>(a, dq);
-    case 32: return launch_dq<T, 32>(a, dq);
-    case 64: return launch_dq<T, 64>(a, dq);
-    case 128: return launch_dq<T, 128>(a, dq);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 template <typename T>
@@ -395,11 +403,182 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
+// ------------------------------------------------------------------ bf16 dq
+// In namespace sm90, so the header's names (kRows = 64 rows a tile,
+// load_tile by TMA) are found before the SIMT kernels'.
+namespace sm90 {
+namespace {
+
+constexpr int kStages = 2;  // K/V ring depth
+
+template <int D>
+using DqRing = Ring<D, 2, kStages>;  // lead tiles: Q, dO
+
+// dS = P (dP - delta) of one 64 x 64 tile on the accumulator fragment, into
+// sc: P = 2^(scale_log2 s - lse2) where kept (k < T, and q >= k when
+// causal; only when kMask), else 0.
+template <bool kMask>
+__device__ __forceinline__ void ds_tile(float (&sc)[32], const float (&dp)[32],
+                                        const float (&lse2)[2], const float (&dlt)[2],
+                                        int row0, int col0, int k0, int seq, int causal,
+                                        float scale_log2) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + 8 * half;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = k0 + 8 * j + col0 + e;
+        const bool keep = !kMask || (col < seq && (!causal || row >= col));
+        const int x = 4 * j + 2 * half + e;
+        const float p = keep ? ex2(sc[x] * scale_log2 - lse2[half]) : 0.f;
+        sc[x] = p * (dp[x] - dlt[half]);
+      }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_dq_sm90(const __grid_constant__ CUtensorMap qmap,
+                  const __grid_constant__ CUtensorMap kmap,
+                  const __grid_constant__ CUtensorMap vmap,
+                  const __grid_constant__ CUtensorMap domap, const float* __restrict__ lse,
+                  const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int heads,
+                  int seq, float scale, float scale_log2, int causal) {
+  extern __shared__ uint8_t smem_raw[];
+  const DqRing<D> ring{aligned_smem_base(smem_raw)};
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int bh = blockIdx.x;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;  // heavy tiles first
+  const int kv_end = causal ? min(seq, q0 + kRows) : seq;
+  const int n_tiles = (kv_end + kRows - 1) / kRows;
+
+  if (tid == 0) ring.init();
+  __syncthreads();
+  if (tid == 0) {
+    const CUtensorMap* lead[2] = {&qmap, &domap};
+    ring.load_lead(lead, q0, h, b);
+    for (int s = 0; s < kStages && s < n_tiles; ++s)
+      ring.load_kv(s, &kmap, &vmap, s * kRows, h, b);
+  }
+  __syncwarp();
+
+  const int row0 = q0 + 16 * warp + lane / 4;  // this thread's rows: row0, row0 + 8
+  const int col0 = 2 * (lane % 4);             // and columns 8j + col0 + {0, 1}
+  // lse in log2 units and delta of the two rows; rows past T take 0 (their
+  // q and dO rows are zeros, so their dS is 0, and they are not stored)
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + 8 * half;
+    const long long at = static_cast<long long>(bh) * seq + row;
+    lse2[half] = row < seq ? lse[at] * kLog2e : 0.f;
+    dlt[half] = row < seq ? delta[at] : 0.f;
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  mbar_wait(ring.lead_bar(), 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % kStages;
+    mbar_wait(ring.full(s), (i / kStages) & 1);
+
+    // S = Q K^T and dP = dO V^T, all four operands K-major in shared memory
+    float sc[32], dp[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) sc[j] = dp[j] = 0.f;
+    fence_regs(sc);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_m64n64k16(sc, desc_kmajor<D>(ring.lead(0), kk),
+                         desc_kmajor<D>(ring.k_tile(s), kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_m64n64k16(dp, desc_kmajor<D>(ring.lead(1), kk),
+                         desc_kmajor<D>(ring.v_tile(s), kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    // P = exp(scale s - lse) where kept, else 0; dS = P (dP - delta); only
+    // the tiles that straddle the causal diagonal or T evaluate the mask
+    const int k0 = i * kRows;
+    if (k0 + kRows > seq || (causal && k0 + kRows - 1 > q0))
+      ds_tile<true>(sc, dp, lse2, dlt, row0, col0, k0, seq, causal, scale_log2);
+    else
+      ds_tile<false>(sc, dp, lse2, dlt, row0, col0, k0, seq, causal, scale_log2);
+
+    // dq += dS K: dS rounded to bf16 as the register A operand, K MN-major
+    uint32_t da[4][4];
+    to_a_operand(sc, da);
+    fence_regs(da);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(acc, da[kk], desc_mnmajor<D>(ring.k_tile(s), kk));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    fence_regs(da);
+
+    ring.release(i, n_tiles, &kmap, &vmap, h, b);
+  }
+
+  // dq = scale * acc in bf16; rows past T not stored
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + 8 * half;
+    if (row >= seq) continue;
+    __nv_bfloat16* out = dq + ((static_cast<long long>(b) * seq + row) * heads + h) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * j + col0) = __floats2bfloat162_rn(
+          scale * acc[4 * j + 2 * half], scale * acc[4 * j + 2 * half + 1]);
+  }
+}
+
+template <int D>
+cudaError_t launch_dq_bf16(const Args& a, void* dq) {
+  CUtensorMap maps[4];
+  const void* ptrs[4] = {a.q, a.k, a.v, a.dout};
+  const Strides st[4] = {a.sq, a.sk, a.sv, a.sdo};
+  for (int i = 0; i < 4; ++i) {
+    const cudaError_t err = encode_operand(&maps[i], ptrs[i], a.batch, a.seq, a.heads, D,
+                                           st[i].b, st[i].t, st[i].h);
+    if (err != cudaSuccess) return err;
+  }
+  auto kern = flash_dq_sm90<D>;
+  const size_t smem = DqRing<D>::kSmemBytes;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.batch * a.heads, (a.seq + kRows - 1) / kRows);
+  kern<<<grid, kThreads, smem, a.stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<__nv_bfloat16*>(dq), a.heads, a.seq,
+      a.scale, a.scale * kLog2e, a.causal);
+  return cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace sm90
+
 // q, k, v, dout: [batch, seq, heads, d] of one dtype with unit stride along
 // d and the given element strides for (batch, seq, heads); lse, delta:
 // contiguous f32 [batch, heads, seq]; dq (and dk, dv): contiguous [batch,
 // seq, heads, d] of q's dtype. is_bf16 selects __nv_bfloat16 (1) or float
-// (0); d is 16, 32, 64 or 128.
+// (0); d is 16, 32, 64 or 128. The bf16 dq kernel reads q, k, v, dout by
+// TMA, which also wants 16 B aligned bases and strides that are multiples
+// of 8 elements.
 extern "C" int mxtt_flash_attn_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int batch, int seq,
@@ -412,8 +591,14 @@ extern "C" int mxtt_flash_attn_bwd_dq(
                             v_sb, v_st, v_sh, do_sb, do_st, do_sh};
   const Args a = make_args(q, k, v, dout, lse, delta, batch, seq, heads, st,
                            scale, causal, stream);
-  const cudaError_t err = is_bf16 ? dispatch_dq<__nv_bfloat16>(d, a, dq)
-                                  : dispatch_dq<float>(d, a, dq);
+  cudaError_t err;
+  switch (d) {
+    case 16: err = is_bf16 ? sm90::launch_dq_bf16<16>(a, dq) : launch_dq_f32<16>(a, dq); break;
+    case 32: err = is_bf16 ? sm90::launch_dq_bf16<32>(a, dq) : launch_dq_f32<32>(a, dq); break;
+    case 64: err = is_bf16 ? sm90::launch_dq_bf16<64>(a, dq) : launch_dq_f32<64>(a, dq); break;
+    case 128: err = is_bf16 ? sm90::launch_dq_bf16<128>(a, dq) : launch_dq_f32<128>(a, dq); break;
+    default: err = cudaErrorInvalidValue;
+  }
   return static_cast<int>(err);
 }
 

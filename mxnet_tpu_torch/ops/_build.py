@@ -2,7 +2,8 @@
 
 Each source under ``mxnet_tpu_torch/csrc/`` is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, named after
-the source and the hash of its text and flags, in ``build/kernels/`` at
+the source and the hash of its text, of every header beside it
+(``csrc/*.cuh``) and of the flags, in ``build/kernels/`` at
 the root of the checkout (listed in ``.gitignore``). One source may hold
 several kernels' entry points. A library already built for the same hash
 is reused; otherwise the first call that needs a kernel builds it, so a
@@ -74,25 +75,35 @@ def nvcc_path():
         "are built from source at first use")
 
 
-def library_path(name):
+def library_path(name, csrc=None):
     """Where the library holding kernel ``name`` lives: named after its
-    source, keyed on the hash of the source and the compiler flags."""
-    src = CSRC / KERNELS[name][0]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    source, keyed on the hash of the source, of every header beside it
+    (name and text; a source may include any of them) and of the compiler
+    flags, so an edited header never reuses a stale library. ``csrc`` is
+    the directory of the sources, ``CSRC`` by default; another one holds
+    an edited copy of them (an A/B variant), whose libraries get other
+    hashes in the same ``BUILD_DIR``."""
+    csrc = CSRC if csrc is None else Path(csrc)
+    src = csrc / KERNELS[name][0]
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / ("%s-%s.so" % (src.stem, digest.hexdigest()[:16]))
 
 
-def build(names=None):
+def build(names=None, csrc=None):
     """Build the sources of every named kernel (default: all) that have no
     library for their current hash, one ``nvcc`` per source, all started
-    together. Returns ``{source stem: compiler log}`` for the sources built
-    by this call."""
+    together; ``csrc`` as in :func:`library_path`. Returns ``{source stem:
+    compiler log}`` for the sources built by this call."""
+    csrc = CSRC if csrc is None else Path(csrc)
     names = list(KERNELS) if names is None else list(names)
     todo = {}
     for n in names:
-        lib = library_path(n)
+        lib = library_path(n, csrc)
         if not lib.is_file():
-            todo[CSRC / KERNELS[n][0]] = lib
+            todo[csrc / KERNELS[n][0]] = lib
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -117,18 +128,20 @@ def build(names=None):
     return logs
 
 
-def load(name):
-    """The ctypes entry point of kernel ``name``, built first if needed."""
-    fn = _loaded.get(name)
+def load(name, csrc=None):
+    """The ctypes entry point of kernel ``name``, built first if needed;
+    ``csrc`` as in :func:`library_path`."""
+    key = name if csrc is None else (name, str(csrc))
+    fn = _loaded.get(key)
     if fn is not None:
         return fn
     with _lock:
-        if name not in _loaded:
-            build([name])
-            lib = ctypes.CDLL(str(library_path(name)))
+        if key not in _loaded:
+            build([name], csrc)
+            lib = ctypes.CDLL(str(library_path(name, csrc)))
             _, entry, argtypes = KERNELS[name]
             fn = getattr(lib, entry)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _loaded[name] = fn
-        return _loaded[name]
+            _loaded[key] = fn
+        return _loaded[key]

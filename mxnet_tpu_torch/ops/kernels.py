@@ -4,7 +4,8 @@ pair and the optimizer-slab update.
 
 ``flash_attention`` is the wrapper of the hand-written CUDA kernel
 ``csrc/flash_attn_fwd.cu``: blockwise online-softmax attention that saves
-the f32 logsumexp. ``reference_attention`` is its plain PyTorch version,
+the f32 logsumexp (bf16 through TMA and ``wgmma``, f32 on the CUDA
+cores). ``reference_attention`` is its plain PyTorch version,
 the same function with the scores materialised. Its gradient is a
 ``torch.autograd.Function`` whose backward runs the two kernels of
 ``csrc/flash_attn_bwd.cu``, wrapped by ``flash_attention_dq`` and
@@ -93,11 +94,30 @@ def reference_attention_bwd(q, k, v, do, lse, delta, causal=False, scale=None):
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
-def check_kernel_args(q, k, v, do=None):
+def tma_compatible(x):
+    """Whether the Tensor Memory Accelerator can read the [B, T, H, D] tensor
+    ``x`` where it lies: a 16-byte-aligned base, unit stride along D, and
+    byte strides along B, T and H that are positive multiples of 16 (the
+    stride of a dimension of size 1 is never stepped, so it does not
+    count)."""
+    if x.data_ptr() % 16 or x.stride(-1) != 1:
+        return False
+    esize = x.element_size()
+    return all(n == 1 or (st > 0 and st * esize % 16 == 0)
+               for n, st in zip(x.shape[:3], x.stride()[:3]))
+
+
+def check_kernel_args(q, k, v, do=None, tma=True):
     """Raise unless the CUDA kernels take these tensors: q, k, v (and the
     output gradient ``do`` for the backward) of one [B, T, H, D] shape,
     dtype and CUDA device, D in KERNEL_HEAD_DIMS, f32 or bf16, and unit
-    stride along D (other strides are read as given)."""
+    stride along D (other strides are read as given).
+
+    Returns the operands as the kernels read them. The bf16 forward and dq
+    kernels load their tiles by TMA (``tma=True``): a bf16 operand that
+    fails :func:`tma_compatible` (an odd stride, a base off 16 bytes) is
+    copied into a fresh contiguous tensor first. That is a layout repair,
+    not a fallback: the kernel still runs."""
     ops = (("q", q), ("k", k), ("v", v)) + ((("do", do),) if do is not None else ())
     shapes = [tuple(x.shape) for _, x in ops]
     if q.dim() != 4 or any(s != shapes[0] for s in shapes):
@@ -123,6 +143,10 @@ def check_kernel_args(q, k, v, do=None):
         raise MXNetError(
             "flash_attention kernels want %s on one CUDA device, got %s"
             % ("/".join(n for n, _ in ops), " ".join(map(str, devices))))
+    if not tma or q.dtype != torch.bfloat16:
+        return tuple(x for _, x in ops)
+    return tuple(x if tma_compatible(x) else x.clone(memory_format=torch.contiguous_format)
+                 for _, x in ops)
 
 
 def _check_row_stats(q, lse, delta):
@@ -137,7 +161,14 @@ def _check_row_stats(q, lse, delta):
 
 
 def _strides(*xs):
-    return [s for x in xs for s in x.stride()[:3]]
+    """Element strides along B, T, H of each tensor; a dimension of size 1
+    gets its contiguous stride (never stepped, and always TMA-aligned)."""
+    out = []
+    for x in xs:
+        b, t, h, d = x.shape
+        for n, st, packed in zip((b, t, h), x.stride()[:3], (t * h * d, h * d, d)):
+            out.append(st if n > 1 else packed)
+    return out
 
 
 def _run(name, q, pointers, strides, scale, causal):
@@ -154,7 +185,7 @@ def _run(name, q, pointers, strides, scale, causal):
 
 
 def _launch(q, k, v, causal, scale):
-    check_kernel_args(q, k, v)
+    q, k, v = check_kernel_args(q, k, v)
     b, t, h, d = q.shape
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
@@ -172,14 +203,16 @@ def _forward(q, k, v, causal, scale, need_lse):
 
 
 def flash_attention_dq(q, k, v, do, lse, delta, causal=False, scale=None):
-    """dq of flash attention: the kernel ``flash_dq_kernel`` of
-    ``csrc/flash_attn_bwd.cu`` on CUDA tensors (no fallback;
+    """dq of flash attention: the kernel of ``csrc/flash_attn_bwd.cu``
+    (``flash_dq_sm90`` for bf16, ``flash_dq_kernel`` for f32) on CUDA
+    tensors (no fallback; a bf16 operand TMA cannot read where it lies is
+    copied first, see :func:`check_kernel_args`;
     ``flash_attention_dq.launches`` counts its launches), the plain
     version on CPU tensors. Arguments as :func:`reference_attention_bwd`."""
     scale = _default_scale(q, scale)
     if q.device.type == "cpu":
         return reference_attention_bwd(q, k, v, do, lse, delta, causal, scale)[0]
-    check_kernel_args(q, k, v, do)
+    q, k, v, do = check_kernel_args(q, k, v, do)
     _check_row_stats(q, lse, delta)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _run("flash_attn_bwd_dq", q, (q, k, v, do, lse, delta, dq),
@@ -196,7 +229,7 @@ def flash_attention_dkv(q, k, v, do, lse, delta, causal=False, scale=None):
     scale = _default_scale(q, scale)
     if q.device.type == "cpu":
         return reference_attention_bwd(q, k, v, do, lse, delta, causal, scale)[1:]
-    check_kernel_args(q, k, v, do)
+    check_kernel_args(q, k, v, do, tma=False)  # the dk/dv kernel reads by strides
     _check_row_stats(q, lse, delta)
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -242,9 +275,10 @@ def flash_attention(q, k, v, causal=False, scale=None, return_lse=False):
     """Blockwise (flash) attention. q/k/v: [B, T, H, D] -> [B, T, H, D].
 
     On CUDA tensors: the kernel of ``csrc/flash_attn_fwd.cu``, with no
-    fallback; ``flash_attention.launches`` counts its launches. On CPU
-    tensors: the plain version. When q, k or v requires a gradient, the
-    call is recorded for autograd, whose backward runs
+    fallback (a bf16 operand TMA cannot read where it lies is copied first,
+    see :func:`check_kernel_args`); ``flash_attention.launches`` counts its
+    launches. On CPU tensors: the plain version. When q, k or v requires a
+    gradient, the call is recorded for autograd, whose backward runs
     :func:`flash_attention_dq` and :func:`flash_attention_dkv`.
     ``return_lse=True`` also returns the f32 logsumexp [B, H, T] a backward
     pass needs."""

@@ -5,7 +5,8 @@ One explicit ``torch.Generator`` per device, seeded by :func:`seed`; the
 sampling operators draw from the generator of the device they run on.
 Streams cannot match the JAX package's threefry keys, so samplers are held
 to it by their moments, and a run is reproducible after ``seed()``.
-``get_state`` / ``set_state`` snapshot and restore one device's stream.
+``get_state`` / ``set_state`` snapshot and restore one device's stream, by
+default the current context's: the one the samplers draw from.
 """
 from __future__ import annotations
 
@@ -13,6 +14,8 @@ import threading
 
 import numpy as _np
 import torch
+
+from .context import resolve_device
 
 _state = threading.local()
 
@@ -24,18 +27,13 @@ def _st():
     return _state
 
 
-def _key(device):
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    return device
-
-
-def generator(device="cpu"):
-    """The generator of ``device``, made (and seeded from the last
-    :func:`seed`, or from numpy's global stream) on first use."""
+def generator(device=None):
+    """The generator of ``device`` (default: the current context's device,
+    through :func:`~mxnet_tpu_torch.context.resolve_device`), made (and
+    seeded from the last :func:`seed`, or from numpy's global stream) on
+    first use."""
     st = _st()
-    device = _key(device)
+    device = resolve_device(device)
     gen = st.generators.get(device)
     if gen is None:
         if st.seed is None:
@@ -54,13 +52,16 @@ def seed(seed_state: int):
         gen.manual_seed(st.seed)
 
 
-def get_state(device="cpu"):
-    """Snapshot ``device``'s stream as a host uint8 array."""
+def get_state(device=None):
+    """Snapshot ``device``'s stream (default: the current context's, which
+    the samplers draw from; ``gpu(0)`` when no context is entered, raising
+    :class:`MXNetError` without a card) as a host uint8 array."""
     return generator(device).get_state().numpy().copy()
 
 
-def set_state(state, device="cpu"):
-    """Restore a stream captured by :func:`get_state`."""
+def set_state(state, device=None):
+    """Restore a stream captured by :func:`get_state` (default device as
+    there)."""
     generator(device).set_state(torch.from_numpy(_np.asarray(state, _np.uint8)))
 
 

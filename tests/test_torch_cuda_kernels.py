@@ -32,8 +32,13 @@ def test_cuda_kernel_matches_plain_version():
             assert (out.float() - ref.float()).abs().max().item() <= tol
 
 
-def _bwd_case(b, t, h, d, dt, causal, g):
-    q, k, v, do = (torch.randn(b, t, h, d, generator=g).to("cuda", dt) for _ in range(4))
+def _bwd_case(b, t, h, d, dt, causal, g, bhtd=False):
+    """q, k, v, dO, lse, delta on the card; with ``bhtd``, q, k, v and dO
+    are transposed views of [B, H, T, D] tensors."""
+    shape = (b, h, t, d) if bhtd else (b, t, h, d)
+    q, k, v, do = (torch.randn(shape, generator=g).to("cuda", dt) for _ in range(4))
+    if bhtd:
+        q, k, v, do = (x.transpose(1, 2) for x in (q, k, v, do))
     out, lse = kernels.flash_attention(q, k, v, causal=causal, return_lse=True)
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     return q, k, v, do, lse, delta
@@ -90,6 +95,62 @@ def test_cuda_attention_gradient_runs_the_kernels():
         grads.append([x.grad for x in leaves])
     for got, want in zip(*grads):
         assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_tma_kernels_match_plain_version():
+    """On the card: the bf16 forward and dq kernels (TMA and wgmma) against
+    the plain versions at T 5, 64 and 2047, D 16, 64 and 128, causal and
+    not, and on transposed views of [B, H, T, D] tensors (strides TMA
+    reads in place, in another order): forward within 2e-2 absolute, dq
+    within 2e-2 of max|plain|; a repeat gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator().manual_seed(6)
+    cases = [(t, d, causal, False) for t in (5, 64, 2047) for d in (16, 64, 128)
+             for causal in (True, False)]
+    cases += [(300, 64, True, True), (2047, 128, False, True)]
+    for t, d, causal, bhtd in cases:
+        args = _bwd_case(1, t, 3, d, torch.bfloat16, causal, g, bhtd)
+        assert all(kernels.tma_compatible(x) for x in args[:4])  # read in place, not copied
+        q, k, v = args[:3]
+        out, lse = kernels.flash_attention(q, k, v, causal=causal, return_lse=True)
+        dq = kernels.flash_attention_dq(*args, causal=causal)
+        ref = kernels.reference_attention(q, k, v, causal=causal)
+        assert (out.float() - ref.float()).abs().max().item() <= 2e-2, (t, d, causal)
+        want = kernels.reference_attention_bwd(*args, causal=causal)[0].float()
+        err = (dq.float() - want).abs().max().item()
+        assert err <= 2e-2 * want.abs().max().item(), (t, d, causal)
+        again = kernels.flash_attention(q, k, v, causal=causal, return_lse=True)
+        assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+        assert torch.equal(dq, kernels.flash_attention_dq(*args, causal=causal))
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_views_tma_cannot_read_are_copied():
+    """On the card: bf16 operands with odd strides or an unaligned base are
+    copied before the TMA kernels launch, and the results still match the
+    plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator().manual_seed(7)
+    wide = torch.randn(2, 130, 3, 65, generator=g).to("cuda", torch.bfloat16)
+    flat = torch.randn(2 * 130 * 3 * 64 + 8, generator=g).to("cuda", torch.bfloat16)
+    views = [wide[..., :64], flat[1:1 + 2 * 130 * 3 * 64].view(2, 130, 3, 64)]
+    assert not any(kernels.tma_compatible(x) for x in views)
+    for causal in (True, False):
+        q, k = views
+        v = torch.randn(2, 130, 3, 64, generator=g).to("cuda", torch.bfloat16)
+        before = kernels.flash_attention.launches
+        out, lse = kernels.flash_attention(q, k, v, causal=causal, return_lse=True)
+        ref = kernels.reference_attention(q, k, v, causal=causal)
+        assert kernels.flash_attention.launches == before + 1
+        assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+        do = views[0]
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        dq = kernels.flash_attention_dq(q, k, v, do, lse, delta, causal=causal)
+        want = kernels.reference_attention_bwd(q, k, v, do, lse, delta, causal=causal)[0].float()
+        assert (dq.float() - want).abs().max().item() <= 2e-2 * want.abs().max().item()
 
 
 # ragged shapes around ResNet-50's: N 1 and 3, odd and non-square spatial,

@@ -88,12 +88,19 @@ def test_attention_raises_on_sequence_parallel_mesh():
         kernels.attention(q, q, q, mesh={"dp": 1, "sp": 2})
 
 
-@pytest.mark.parametrize("case", ["shape", "dtype", "head_dim", "device", "stride"])
+@pytest.mark.parametrize("case", ["shape", "dtype", "head_dim", "device", "stride",
+                                  "bf16_device", "bf16_odd_strides_on_cpu"])
 def test_kernel_argument_checks(case):
-    """What the CUDA wrapper refuses, checked before any launch."""
+    """What the CUDA wrapper refuses, checked before any launch: as before
+    the TMA kernels, and for bf16 views TMA could not read (those are
+    copied only once every check has passed)."""
     q = torch.zeros(1, 8, 2, 64)
     k = v = q
-    if case == "shape":
+    if case == "bf16_device":
+        q = k = v = q.bfloat16()
+    elif case == "bf16_odd_strides_on_cpu":
+        q = k = v = torch.zeros(1, 8, 2, 65, dtype=torch.bfloat16)[..., :64]
+    elif case == "shape":
         k = torch.zeros(1, 9, 2, 64)
     elif case == "dtype":
         q = k = v = q.half()
@@ -103,6 +110,107 @@ def test_kernel_argument_checks(case):
         q = torch.zeros(1, 8, 2, 128)[..., ::2]
     with pytest.raises(MXNetError):
         kernels.check_kernel_args(q, k, v)
+
+
+def test_tma_compatible():
+    """TMA reads a bf16 [B, T, H, D] operand where it lies only from a
+    16-byte-aligned base with byte strides that are multiples of 16."""
+    x = torch.zeros(2, 8, 3, 64, dtype=torch.bfloat16)
+    assert kernels.tma_compatible(x)
+    assert kernels.tma_compatible(torch.zeros(2, 8, 3, 128, dtype=torch.bfloat16)[..., 64:])
+    assert kernels.tma_compatible(x.transpose(1, 2).contiguous().transpose(1, 2))
+    assert kernels.tma_compatible(torch.zeros(1, 8, 1, 16, dtype=torch.bfloat16))
+    # odd strides: a row of D + 1 elements, and H stepped by 65 * 2 bytes
+    assert not kernels.tma_compatible(torch.zeros(2, 8, 3, 65, dtype=torch.bfloat16)[..., :64])
+    # a base 2 bytes off the allocation's 16-byte boundary
+    flat = torch.zeros(2 * 8 * 3 * 64 + 8, dtype=torch.bfloat16)
+    assert not kernels.tma_compatible(flat[1:1 + 2 * 8 * 3 * 64].view(2, 8, 3, 64))
+    assert kernels.tma_compatible(flat[8:8 + 2 * 8 * 3 * 64].view(2, 8, 3, 64))
+    # stride 0 along a dimension of size > 1 (a broadcast) is not read by TMA
+    assert not kernels.tma_compatible(torch.zeros(1, 8, 1, 64, dtype=torch.bfloat16)
+                                      .expand(2, 8, 3, 64))
+    # the strides handed to the kernels: a size-1 dimension gets its packed one
+    odd = torch.zeros(1, 8, 5, 64, dtype=torch.bfloat16).as_strided((1, 8, 1, 64),
+                                                                    (7, 320, 3, 1))
+    assert kernels._strides(odd) == [8 * 64, 320, 64]
+
+
+def _emulate_forward_bf16(q, k, v, causal, block=64):
+    """The bf16 forward kernel's arithmetic on the CPU: f32 scores of the
+    bf16 inputs, the online softmax over 64-key tiles with l summing the
+    f32 p, and P rounded to bf16 before the value product."""
+    b, t, h, d = q.shape
+    scale = 1.0 / np.sqrt(d)
+    qf, kf, vf = (x.float().transpose(1, 2) for x in (q, k, v))  # [B, H, T, D]
+    rows, cols = torch.arange(t)[:, None], torch.arange(t)[None, :]
+    keep = (rows >= cols) if causal else torch.ones(t, t, dtype=torch.bool)
+    s_all = torch.where(keep, (qf @ kf.transpose(-1, -2)) * scale, torch.tensor(-1e30))
+    m = torch.full((b, h, t, 1), -1e30)
+    l = torch.zeros((b, h, t, 1))
+    acc = torch.zeros((b, h, t, d))
+    for k0 in range(0, t, block):
+        s, kp = s_all[..., k0:k0 + block], keep[:, k0:k0 + block]
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(kp, torch.exp(s - m_new), torch.tensor(0.0))
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.bfloat16().float() @ vf[..., k0:k0 + block, :]
+        m = m_new
+    return (acc / torch.where(l > 0, l, torch.ones_like(l))).transpose(1, 2).bfloat16()
+
+
+@pytest.mark.timeout(120)
+@pytest.mark.parametrize("t,causal", [(100, False), (256, True)])
+def test_bf16_p_rounding_fits_the_card_limit(t, causal):
+    """The bf16 kernel rounds P to bf16 before P·V (the JAX kernel keeps it
+    f32). Emulated on the CPU, that output stays within the card's bf16
+    limit, 2e-2 absolute, of the JAX package's Pallas forward (interpret
+    mode) and of the port's plain version on the same bf16 inputs."""
+    q, k, v = _inputs(1, t, 2, 32, seed=11)
+    tq, tk, tv = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
+    got = _emulate_forward_bf16(tq, tk, tv, causal).float().numpy()
+    jax_out = jpk.flash_attention(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+                                  causal=causal, block_q=64, block_k=64)
+    plain = kernels.reference_attention(tq, tk, tv, causal=causal).float().numpy()
+    for want in (np.asarray(jax_out, np.float32), plain):
+        assert np.abs(got - want).max() <= 2e-2
+
+
+def test_library_key_covers_headers(monkeypatch, tmp_path):
+    """Editing a header under csrc/ gives every kernel a new library."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for src in {v[0] for v in _build.KERNELS.values()}:
+        (csrc / src).write_text('#include "flash_sm90.cuh"\n')
+    (csrc / "flash_sm90.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    before = {n: _build.library_path(n) for n in _build.KERNELS}
+    assert all(p.parent == tmp_path / "kernels" for p in before.values())
+    assert _build.library_path("flash_attn_fwd") == before["flash_attn_fwd"]
+    (csrc / "flash_sm90.cuh").write_text("// v2\n")
+    after = {n: _build.library_path(n) for n in _build.KERNELS}
+    assert all(after[n] != before[n] for n in _build.KERNELS)
+    assert after["flash_attn_fwd"].name.startswith("flash_attn_fwd-")
+
+
+def test_library_key_of_another_source_dir(monkeypatch, tmp_path):
+    """``csrc=`` keys a library on that directory's sources: a copy of the
+    package's sources maps to the package's library, an edited copy to a
+    new one beside it."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "kernels")
+    copy = tmp_path / "variant"
+    copy.mkdir()
+    for src in _build.CSRC.iterdir():
+        if src.suffix in (".cu", ".cuh"):
+            (copy / src.name).write_bytes(src.read_bytes())
+    for name in _build.KERNELS:
+        assert _build.library_path(name, copy) == _build.library_path(name)
+    fwd = copy / "flash_attn_fwd.cu"
+    fwd.write_text(fwd.read_text() + "// edited\n")
+    assert _build.library_path("flash_attn_fwd", copy) != _build.library_path("flash_attn_fwd")
+    assert _build.library_path("flash_attn_fwd", copy).parent == tmp_path / "kernels"
+    assert _build.library_path("conv_bwd_filter", copy) == _build.library_path("conv_bwd_filter")
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -104,6 +104,41 @@ def test_flash_attention_grads_bf16_within_one_ulp_of_jax():
         np.testing.assert_allclose(g.float().numpy(), w, rtol=0, atol=ulp, err_msg=name)
 
 
+def _emulate_dq_bf16(q, k, v, do, lse, delta, causal):
+    """The bf16 dq kernel's arithmetic on the CPU: f32 S and dP of the bf16
+    inputs, P = exp(scale S - lse) where kept, dS = P (dP - delta) in f32,
+    then dS rounded to bf16 before dq = scale dS K."""
+    t, d = q.shape[1], q.shape[-1]
+    scale = 1.0 / np.sqrt(d)
+    qf, kf, vf, dof = (x.float().transpose(1, 2) for x in (q, k, v, do))
+    p = torch.exp((qf @ kf.transpose(-1, -2)) * scale - lse[..., None])
+    if causal:
+        p = p.masked_fill(~torch.ones(t, t, dtype=torch.bool).tril(), 0.0)
+    ds = p * (dof @ vf.transpose(-1, -2) - delta[..., None])
+    return ((ds.bfloat16().float() @ kf) * scale).transpose(1, 2).bfloat16()
+
+
+@pytest.mark.timeout(120)
+@pytest.mark.parametrize("t,causal", [(100, True), (256, False)])
+def test_bf16_ds_rounding_fits_the_card_limit(t, causal):
+    """The bf16 dq kernel rounds dS to bf16 before dS·K (the JAX kernel
+    keeps it f32). Emulated on the CPU from the backward's own lse, delta
+    and bf16 dO, that dq stays within the card's bf16 limit, 2e-2 of
+    max|want|, of jax.grad through the Pallas kernels (interpret mode) and
+    of the port's plain backward on the same inputs."""
+    arrays = _inputs(1, t, 2, 32, seed=12)
+    q, k, v, w = (torch.from_numpy(a).bfloat16() for a in arrays)
+    out, lse = kernels.flash_attention(q, k, v, causal=causal, return_lse=True)
+    g = torch.from_numpy(arrays[3])  # the cotangent of sum(out * w)
+    delta = (g * out.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, g.bfloat16(), lse, delta)
+    got = _emulate_dq_bf16(*args, causal).float().numpy()
+    jax_dq = np.asarray(_jax_grads(arrays, jnp.bfloat16, causal)[0], np.float32)
+    plain = kernels.reference_attention_bwd(*args, causal=causal)[0].float().numpy()
+    for want in (jax_dq, plain):
+        assert np.abs(got - want).max() <= 2e-2 * np.abs(want).max()
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_grads_match_plain_autograd(causal):
     """The Function's backward against autograd through the plain

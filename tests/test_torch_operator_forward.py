@@ -302,6 +302,36 @@ def test_shape_inference_matches_jax(cid):
                                                                          shapes)
 
 
+@pytest.mark.parametrize("attrs,shape", [
+    ({"pool_type": "avg", "global_pool": True, "kernel": (1, 1)}, (2, 3, 7, 7)),
+    ({"pool_type": "avg", "kernel": (3, 3), "pad": (1, 1)}, (2, 3, 14, 14)),
+], ids=["global_avg_7x7", "avg_3x3_pad1"])
+def test_pooling_bf16_sums_in_f32(attrs, shape):
+    """A deliberate difference (ROADMAP): bf16 avg Pooling. JAX sums each
+    window in bf16 (XLA's order); the port sums in f32. The port is held to
+    the exact mean of the bf16 inputs rounded to bf16, within one bf16 ulp;
+    JAX sits up to 7.1e-3 from the exact mean here, and the port is held to
+    JAX within 8e-3."""
+    import torch
+    import torch.nn.functional as F
+
+    x = np.random.RandomState(0).randn(*shape).astype(np.float32)
+    xb = torch.from_numpy(x).bfloat16().double()
+    if attrs.get("global_pool"):
+        exact = xb.mean(dim=(2, 3), keepdim=True)
+    else:
+        exact = F.avg_pool2d(xb, 3, stride=1, padding=1, count_include_pad=True)
+    exact = exact.numpy()
+    rounded = torch.from_numpy(exact).bfloat16().double().numpy()
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(rounded))) - 7)
+    got, want = (np.asarray(pkg.nd.Pooling(pkg.nd.array(x, dtype="bfloat16"), **attrs).asnumpy(),
+                            np.float64) for pkg in (tmx, jmx))
+    assert got.shape == want.shape == exact.shape
+    assert (np.abs(got - rounded) <= ulp).all()
+    assert np.abs(want - exact).max() <= 8e-3
+    assert np.abs(got - want).max() <= 8e-3
+
+
 def test_numpy_closed_forms():
     """A few of tests/test_operator_forward.py's numpy assertions."""
     x = tmx.nd.array(X)

@@ -5,6 +5,7 @@ tests/test_random.py's seed determinism, ``out=``, and sampling inside a
 bound graph."""
 import numpy as np
 import pytest
+import torch
 
 import mxnet_tpu as jmx
 import mxnet_tpu_torch as tmx
@@ -57,6 +58,33 @@ def test_seed_determinism_and_state():
     np.testing.assert_array_equal(tmx.random.uniform(0, 1, shape=(10,)).asnumpy(), c)
     d = tmx.nd.uniform(low=0, high=1, shape=(3,), dtype="float64")
     assert d.dtype == np.float64
+
+
+def test_state_round_trip_follows_the_context():
+    """Under ``with mx.cpu():`` get_state/set_state with no device restore
+    the stream mx.nd.uniform draws from (the host's)."""
+    tmx.random.seed(3)
+    tmx.nd.uniform(low=0, high=1, shape=(4,))
+    state = tmx.random.get_state()
+    want = tmx.nd.uniform(low=0, high=1, shape=(6,)).asnumpy()
+    assert not np.array_equal(want, tmx.nd.uniform(low=0, high=1, shape=(6,)).asnumpy())
+    tmx.random.set_state(state)
+    np.testing.assert_array_equal(tmx.nd.uniform(low=0, high=1, shape=(6,)).asnumpy(), want)
+    np.testing.assert_array_equal(tmx.random.get_state(), tmx.random.get_state(tmx.cpu()))
+
+
+def test_state_without_context_is_the_cards(monkeypatch):
+    """With no context entered the default device is gpu(0): get_state()
+    snapshots the card's stream, and raises MXNetError without a card."""
+    monkeypatch.setattr(tmx.context.Context._default_ctx, "value", None)
+    if torch.cuda.is_available():
+        state = tmx.random.get_state()
+        np.testing.assert_array_equal(state, tmx.random.get_state(tmx.gpu(0)))
+    else:
+        with pytest.raises(tmx.MXNetError):
+            tmx.random.get_state()
+        with pytest.raises(tmx.MXNetError):
+            tmx.random.set_state(np.zeros(8, np.uint8))
 
 
 def test_out_kwarg_shape():
