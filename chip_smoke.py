@@ -8,10 +8,13 @@ Phases, each fatal on failure:
 1. device: the card's name and power limit; build every CUDA kernel from
    the sources in this checkout (nvcc, sm_90a, one process per source, all
    started together) and time the build; ptxas's registers and spills of
-   each kernel. Then ``cuobjdump -sass`` (beside nvcc) of the two flash
-   libraries: every bf16 forward and dq kernel (flash_fwd_sm90,
-   flash_dq_sm90) holds HGMMA (wgmma) and UTMALDG (TMA load) instructions,
-   and no bf16 instantiation of the SIMT forward or dq kernel is left.
+   each kernel. Then ``cuobjdump -sass`` (beside nvcc) of the flash and
+   conv libraries, read by function: every bf16 forward, dq, dk/dv and K3
+   kernel (flash_fwd_sm90,
+   flash_dq_sm90, flash_dkv_sm90 at D 16-128; conv_dgrad_sm90 at 64 and
+   128 channels a tile) holds HGMMA (wgmma) and UTMALDG (TMA load)
+   instructions, and no bf16 instantiation of the SIMT forward, dq, dk/dv
+   or data-gradient kernel is left.
 2. forward kernel vs plain: the flash-attention forward kernels against
    their plain PyTorch version on the card, f32 to 1e-4 and bf16 to 2e-2
    (the plain version rounds its scores to bf16; the bf16 kernel keeps them
@@ -24,8 +27,9 @@ Phases, each fatal on failure:
    and as [B, H, T, D] views; error relative
    to max|plain| at most 1e-4 in f32 (summation order only) and 2e-2 in
    bf16 (the outputs differ by about one bf16 rounding, 2^-8 relative, and
-   the bf16 dq kernel rounds dS to bf16 before dS·K); and a second launch
-   on the same inputs gives the same bits.
+   the bf16 kernels round dS to bf16 before dS·K, and P^T and dS^T before
+   P^T·dO and dS^T·Q); and a second launch on the same inputs gives the
+   same bits.
 4. serving, f32: the full-width transformer LM at depth 2; prefill
    last-token logits through the kernel agree with the same forward
    through the plain attention at rtol = atol = 1e-3.
@@ -60,9 +64,10 @@ Phases, each fatal on failure:
    (conv_bwd_input) against their plain versions on every distinct
    in-envelope convolution shape of ResNet-50 at batch 32 (from
    ``infer_shape``) and on ragged small shapes (N 1 and 3, H x W 7 x 7 and
-   9 x 11, k 1/3/5, pad 0-2), f32 and bf16: the f32 outputs before any
-   cast within 1e-4 of max|plain| (both sum the same f32 products in
-   another order), and a second launch gives the same bits.
+   9 x 11, k 1/3/5, pad 0-2, C and O 8-72), f32 and bf16: the f32
+   outputs before any cast within 1e-4 of max|plain| (both sum the same
+   f32 products in another order; bf16 products are exact in f32), and a
+   second launch gives the same bits.
 10. ResNet-50 gradients, f32: full width and depth, batch 2, 224 x 224,
     weights from ``init_params``: every parameter gradient and new aux
     state through K2/K3 against the same through their plain versions, at
@@ -79,9 +84,12 @@ Phases, each fatal on failure:
 12. conv kernel times: K2, K3, their plain versions and the library calls
     (``torch.nn.grad.conv2d_weight`` / ``conv2d_input``, which the port
     never calls) at every distinct in-envelope ResNet-50 shape at batch
-    32, bf16 and f32; the launch-weighted total a step; the kernels-line
-    entry at the shape where the kernel spends the most of a bf16 step,
-    with bound = max(bytes / 3.35 TB/s, 2·N·OH·OW·O·C·kh·kw / 989 TFLOP/s).
+    32, bf16 and f32, each kernel and library call also as ``device_ms``
+    (after a sleep kernel: the card alone) and the kernel's ``host_ms``
+    (the host's enqueue of one call); the launch-weighted total a step;
+    the kernels-line entry at the shape where the kernel spends the most
+    of a bf16 step, with bound = max(bytes / 3.35 TB/s, 2·N·OH·OW·O·C·kh·kw
+    / 989 TFLOP/s).
 
 13. Rtc (kernel K5, CUDA C through NVRTC): the kernel bodies of
     ``rtc_kernels`` — (a) y = 2x + 1, (b) a·b + a, (c) exp(5x) through
@@ -250,6 +258,16 @@ def sass_counts(_build, name):
     return counts
 
 
+# (kernel whose library to read, Hopper kernel prefix, its instantiations,
+# the bf16 SIMT kernel that must be gone)
+SASS_CHECKS = (
+    ("flash_attn_fwd", "flash_fwd_sm90", 4, "flash_fwd_kernel<bf16"),
+    ("flash_attn_bwd_dq", "flash_dq_sm90", 4, "flash_dq_kernel<bf16"),
+    ("flash_attn_bwd_dkv", "flash_dkv_sm90", 4, "flash_dkv_kernel<bf16"),
+    ("conv_bwd_input", "conv_dgrad_sm90", 2, "conv_dgrad_kernel<bf16"),
+)
+
+
 def phase_build(_build):
     t0 = time.perf_counter()
     logs = _build.build()
@@ -258,20 +276,24 @@ def phase_build(_build):
         for func, line in sorted(ptxas_lines(text).items()):
             log("  %s %s: %s" % (name, func, line))
     log("phase 1: built %s in %.2f s" % (sorted(logs) or "nothing new", secs))
-    sass = {}
-    for name, prefix in (("flash_attn_fwd", "flash_fwd"), ("flash_attn_bwd_dq", "flash_dq")):
-        counts = sass_counts(_build, name)
-        tma = {f: c for f, c in counts.items() if f.startswith(prefix + "_sm90<")}
-        simt_bf16 = [f for f in counts if f.startswith(prefix + "_kernel<bf16")]
+    sass, by_lib = {}, {}
+    for name, prefix, count, simt in SASS_CHECKS:
+        lib = _build.library_path(name)
+        if lib not in by_lib:  # dq and dk/dv share one library, K2 and K3 another
+            by_lib[lib] = sass_counts(_build, name)
+        counts = by_lib[lib]
+        tma = {f: c for f, c in counts.items() if f.startswith(prefix + "<")}
+        simt_bf16 = [f for f in counts if f.startswith(simt)]
         log("  sass %s: %s" % (name, json.dumps(tma)))
-        if len(tma) != 4 or not all(c["HGMMA"] > 0 and c["UTMALDG"] > 0 for c in tma.values()):
+        if len(tma) != count or not all(c["HGMMA"] > 0 and c["UTMALDG"] > 0
+                                        for c in tma.values()):
             raise AssertionError("%s: the bf16 kernels want wgmma and TMA in their SASS, got %s"
                                  % (name, tma))
         if simt_bf16:
             raise AssertionError("%s: bf16 SIMT kernels left: %s" % (name, simt_bf16))
         sass.update(tma)
-    log("phase 1: HGMMA and UTMALDG in every bf16 forward and dq kernel, no bf16 SIMT "
-        "forward or dq kernel")
+    log("phase 1: HGMMA and UTMALDG in every bf16 forward, dq, dk/dv and K3 kernel, no bf16 "
+        "SIMT forward, dq, dk/dv or K3 kernel")
     return secs, sass
 
 
@@ -724,8 +746,7 @@ def phase_bwd_times(kernels, dev, launches):
         t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
         entries.append({
             "name": name, "route": "cuda", "source": "mxnet_tpu_torch/csrc/flash_attn_bwd.cu",
-            "design": ("tma+wgmma (bf16); f32 SIMT (f32)" if name.endswith("dq")
-                       else "f32 SIMT (bf16 and f32)"),
+            "design": "tma+wgmma (bf16); f32 SIMT (f32)",
             "replaces": "mxnet_tpu/ops/pallas_kernels.py:%d" % (
                 295 if name.endswith("dq") else 316),
             "launches": launches[name], "max_abs_err": errs[name]["max_abs_err"],
@@ -962,7 +983,9 @@ def phase_conv_times(kernels, resnet, dev, launches, errs):
                 row = {
                     "dtype": key, "data": dshape, "weight": wshape, "pad": pad,
                     "convs_per_step": count, "ms": time_ms(kern, 10, 2, flush),
+                    "device_ms": device_ms(kern, 10, 2, flush), "host_ms": host_ms(kern, 10, 2),
                     "plain_ms": time_ms(plain, 3, 1, flush), "library_ms": time_ms(lib, 10, 2, flush),
+                    "library_device_ms": device_ms(lib, 10, 2, flush),
                     "bound_ms": max(t_ops, t_bytes),
                     "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                     "flops": flops, "bytes": nbytes,
@@ -977,16 +1000,20 @@ def phase_conv_times(kernels, resnet, dev, launches, errs):
         for key in ("bfloat16", "float32"):
             mine = [r for r in shape_rows if r["dtype"] == key]
             per_step[key] = {f: sum(r[f] * r["convs_per_step"] for r in mine)
-                             for f in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                             for f in ("ms", "device_ms", "plain_ms", "library_ms",
+                                       "library_device_ms", "bound_ms")}
         head = max((r for r in shape_rows if r["dtype"] == "bfloat16"),
                    key=lambda r: r["ms"] * r["convs_per_step"])
         entries.append({
             "name": name, "route": "cuda", "source": "mxnet_tpu_torch/csrc/conv_bwd.cu",
+            "design": ("f32 SIMT (bf16 and f32)" if name == "conv_bwd_filter" else
+                       "tma+wgmma implicit GEMM on channels-last copies (bf16); f32 SIMT (f32)"),
             "replaces": "mxnet_tpu/ops/pallas_kernels.py:%d" % (
                 745 if name == "conv_bwd_filter" else 804),
             "launches": launches[name],
-            **{f: head[f] for f in ("max_abs_err", "rel_err", "ms", "plain_ms", "bound_ms",
-                                    "bound_by", "library_ms", "dtype", "data", "weight", "pad",
+            **{f: head[f] for f in ("max_abs_err", "rel_err", "ms", "device_ms", "host_ms",
+                                    "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                    "library_device_ms", "dtype", "data", "weight", "pad",
                                     "convs_per_step", "flops", "bytes")},
             "kernel_ms": head["ms"],
             "library_computes": "torch.nn.grad.%s" % (

@@ -5,10 +5,11 @@
 //   * K2 conv_wgrad_kernel (+ conv_wgrad_reduce_kernel) <- `_conv_wgrad_kernel`
 //     (launched by `conv_bwd_filter`):
 //       gw[o, c, i, j] = sum_{n, y, x} g[n, o, y, x] * xpad[n, c, y + i, x + j]
-//   * K3 conv_dgrad_kernel <- `_conv_dgrad_kernel` (launched by
-//     `conv_bwd_input`): the stride-1 correlation of the (k-1-p)-padded grad
-//     with the 180-degree-rotated, O<->C-swapped filter, i.e.
+//   * K3 <- `_conv_dgrad_kernel` (launched by `conv_bwd_input`): the
+//     stride-1 correlation of the (k-1-p)-padded grad with the
+//     180-degree-rotated, O<->C-swapped filter, i.e.
 //       dx[n, c, h, w] = sum_{o, i, j} g[n, o, h + p - i, w + p - j] * w[o, c, i, j]
+//     (bf16: conv_dgrad_sm90, TMA and wgmma; f32: conv_dgrad_kernel)
 // Loads are f32 or bf16 (x, g and w of one type), every product and sum is
 // f32, and both outputs are f32, as `preferred_element_type` makes them in
 // the Pallas kernels; the caller casts.
@@ -17,15 +18,37 @@
 // O x C product reduced over M = N*OH*OW, and K3 an (N*H*W) x C product
 // reduced over O * taps. At ResNet-50's shapes that is 2*M*O*C*taps flops
 // against a few bytes per input element, hundreds of operations per byte:
-// the bound is the tensor cores' rate. This first version multiplies with
-// f32 FMAs on the CUDA cores from 64 x 64 tiles staged in shared memory
-// (256 threads, a 4 x 4 micro-tile each, a reduction chunk of 16), so it
-// stays well above that bound; wgmma, TMA and cp.async pipelines are the
-// next step. What the design does:
-//   * No im2col. The tap's shifted window of x (K2) or of g (K3) is read in
-//     place from NCHW through its index arithmetic; the halo of the padding
-//     comes from masked loads that read zero, so the wrapper pads nothing
-//     and makes no channels-last copy.
+// the bound is the tensor cores' rate. What the designs do:
+//   * K3, bf16 (conv_dgrad_sm90, flash_sm90.cuh's TMA, mbarrier and wgmma
+//     pieces): M = an 8 x 8 patch of one image's positions, N = 64 (C <=
+//     64) or 128 channels, K = taps * O in steps of 64 o. TMA wants byte
+//     strides that are multiples of 16, which a row of NCHW g (OW * 2 B: 14,
+//     28, 56 B at OW 7, 14, 28) is not, so transpose_bf16 first writes g
+//     channels-last (N, OH, OW, O) and w as (C, kh, kw, O) into workspaces
+//     the wrapper allocates (O % 8 == 0 in the envelope; the JAX wrapper
+//     transposes outside its kernel too): two batched 2-D transposes
+//     through shared memory, coalesced both ways, ~1/3 of K3's bytes. A
+//     step's A tile is one 4-D box (o 64, x 8, y 8, n 1) of g at the tap's
+//     shift: 64 rows of 128 B with the 128 B swizzle, Tile<64>'s layout,
+//     read K-major; TMA fills coordinates outside OH x OW (negative ones
+//     too) and past O with zeros, which covers the halo and the ragged
+//     edges without a padded copy. Its B tile is one 3-D box (o 64, tap 1,
+//     c N) of the permuted weight, K-major. The steps stream through a
+//     4-stage ring in one fixed order (tap major, o chunk minor) into SS
+//     wgmma m64nNk16, one group left in flight while the stage before is
+//     refilled. An 8 x 8 patch tiles 56 x 56 exactly; at 28, 14 and 7
+//     about 23% of the tiled positions fall outside the image and are
+//     computed but not stored. Stores are f32 NCHW, x fastest across the
+//     lanes of a quad group.
+//   * K2, and K3 in f32, multiply with f32 FMAs on the CUDA cores from
+//     64 x 64 tiles staged in shared memory (256 threads, a 4 x 4
+//     micro-tile each, a reduction chunk of 16); the f32 limit (1e-4)
+//     rules out TF32 tensor cores for K3 in f32, and K2 waits for its own
+//     redesign. No im2col: the tap's shifted window of x (K2) or of g (K3)
+//     is read in place from NCHW through its index arithmetic; the halo of
+//     the padding comes from masked loads that read zero. Loads walk the
+//     reduction's contiguous axis (the spatial index) across neighbouring
+//     threads, so global reads coalesce along W.
 //   * K2 fills the card by splitting M. At ResNet-50's stage-1 shapes
 //     M = 32*56*56 = 100,352 while O x C is 64 x 64: one block per output
 //     tile would leave most of the 132 SMs idle. The grid is therefore
@@ -34,11 +57,9 @@
 //     allocates, and conv_wgrad_reduce_kernel sums the partials over s in
 //     a fixed order while laying the result out as (O, C, kh, kw). No
 //     atomics: a repeated launch gives the same bits.
-//   * K3 has one owner per output tile of (N*H*W) x C; the reduction over
-//     the taps and O runs inside the block in a fixed order, so it is
-//     bitwise-repeatable too.
-//   * Loads walk the reduction's contiguous axis (the spatial index) across
-//     neighbouring threads, so global reads coalesce along W.
+//   * K3 has one owner per output tile of (N*H*W) x C in both kernels; the
+//     reduction over the taps and O runs inside the block in a fixed
+//     order, so it is bitwise-repeatable too.
 //
 // Entry points: mxtt_conv_bwd_filter and mxtt_conv_bwd_input (plain C, loaded
 // with ctypes). Each returns the cudaError_t of its launches (0 on success)
@@ -46,6 +67,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "flash_sm90.cuh"
 
 namespace {
 
@@ -260,6 +283,208 @@ cudaError_t launch_dgrad(const void* g, const void* wt, void* dx, const Geo& q,
 
 }  // namespace
 
+// ------------------------------------------------------------------ bf16 K3
+// In namespace sm90, so the header's names (kRows, kThreads = one
+// warpgroup) are found before the SIMT kernels'.
+namespace sm90 {
+namespace {
+
+constexpr int kConvStages = 4;  // ring depth over (tap, o chunk) steps
+constexpr int kPatch = 8;       // an M tile is an 8 x 8 patch of one image's positions
+constexpr int kChunk = 64;      // o of one k step: 128 B rows, the 128 B swizzle
+
+// Shared-memory map of one CTA: kConvStages stages of (A: 64 positions x
+// 64 o, B: kN channels x 64 o), both 128 B rows with the 128 B swizzle,
+// i.e. Tile<64>'s layout, read K-major; then kConvStages "full" and
+// kConvStages "empty" barriers.
+template <int kN>
+struct ConvRing {
+  static constexpr int kABytes = kRows * 2 * kChunk;
+  static constexpr int kBBytes = kN * 2 * kChunk;
+  static constexpr int kStage = kABytes + kBBytes;  // a multiple of 1024
+  static constexpr int kBarOffset = kConvStages * kStage;
+  static constexpr size_t kSmemBytes = 1024 + kBarOffset + 8 * 2 * kConvStages;
+
+  uint32_t base;
+  __device__ __forceinline__ uint32_t a_tile(int s) const { return base + s * kStage; }
+  __device__ __forceinline__ uint32_t b_tile(int s) const { return a_tile(s) + kABytes; }
+  __device__ __forceinline__ uint32_t full(int s) const { return base + kBarOffset + 8 * s; }
+  __device__ __forceinline__ uint32_t empty(int s) const {
+    return base + kBarOffset + 8 * (kConvStages + s);
+  }
+};
+
+// thread 0: k step kt (tap kt / chunks, o chunk kt % chunks) into its stage:
+// the tap's window of g, a box (o 64, x 8, y 8, n 1) at (o0, x0 + pw - j,
+// y0 + ph - i, n), whose coordinates outside OH x OW (negative ones too)
+// and past O read as zeros; and the box (o 64, tap 1, c kN) of the weight
+template <int kN>
+__device__ __forceinline__ void conv_load(const ConvRing<kN>& ring, const CUtensorMap* gmap,
+                                          const CUtensorMap* wmap, Geo q, int kt,
+                                          int chunks, int n, int y0, int x0, int c0) {
+  const int s = kt % kConvStages;
+  const int tap = kt / chunks;
+  const int o0 = (kt - tap * chunks) * kChunk;
+  const int i = tap / q.kw, j = tap - i * q.kw;
+  mbar_expect_tx(ring.full(s), ConvRing<kN>::kStage);
+  tma_load_4d(ring.a_tile(s), gmap, ring.full(s), o0, x0 + q.pw - j, y0 + q.ph - i, n);
+  tma_load_3d(ring.b_tile(s), wmap, ring.full(s), o0, tap, c0);
+}
+
+// K3, bf16: an implicit GEMM, dx (positions x channels) = sum over (tap,
+// o) of g's shifted window (positions x o) times the tap of w (o x
+// channels). One CTA (one warpgroup) per (8 x 8 patch of one image, kN
+// channels); the (tap, o chunk) steps stream through a ring of TMA stages
+// in one fixed order, each 4 SS wgmma m64nkNk16, with one group left in
+// flight while the previous step's stage is refilled. One owner per output
+// tile, so a repeat gives the same bits.
+template <int kN>
+__global__ void __launch_bounds__(kThreads)
+    conv_dgrad_sm90(const __grid_constant__ CUtensorMap gmap,
+                    const __grid_constant__ CUtensorMap wmap, float* __restrict__ dx, Geo q,
+                    int tiles_y, int tiles_x) {
+  extern __shared__ uint8_t smem_raw[];
+  const ConvRing<kN> ring{aligned_smem_base(smem_raw)};
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  int m = blockIdx.x;
+  const int x0 = (m % tiles_x) * kPatch;
+  m /= tiles_x;
+  const int y0 = (m % tiles_y) * kPatch;
+  const int n = m / tiles_y;
+  const int c0 = blockIdx.y * kN;
+  const int chunks = (q.o + kChunk - 1) / kChunk;
+  const int n_k = q.kh * q.kw * chunks;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kConvStages; ++s) {
+      mbar_init(ring.full(s), 1);
+      mbar_init(ring.empty(s), kThreads);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int kt = 0; kt < kConvStages && kt < n_k; ++kt)
+      conv_load(ring, &gmap, &wmap, q, kt, chunks, n, y0, x0, c0);
+  __syncwarp();
+
+  float acc[kN / 2];
+#pragma unroll
+  for (int i = 0; i < kN / 2; ++i) acc[i] = 0.f;
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int s = kt % kConvStages;
+    mbar_wait(ring.full(s), (kt / kConvStages) & 1);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kChunk / 16; ++kk)
+      wgmma_ss_acc(acc, desc_kmajor<64>(ring.a_tile(s), kk), desc_kmajor<64>(ring.b_tile(s), kk));
+    wgmma_commit();
+    wgmma_wait<1>();  // step kt - 1 is done: release its stage for step kt - 1 + kConvStages
+    fence_regs(acc);
+    if (kt > 0) {
+      const int done = kt - 1, sd = done % kConvStages;
+      mbar_arrive(ring.empty(sd));
+      if (tid == 0 && done + kConvStages < n_k) {
+        mbar_wait(ring.empty(sd), (done / kConvStages) & 1);
+        conv_load(ring, &gmap, &wmap, q, done + kConvStages, chunks, n, y0, x0, c0);
+      }
+      __syncwarp();
+    }
+  }
+  wgmma_wait_all();
+  fence_regs(acc);
+
+  // row 16w + lane/4 + 8·half of the tile is position (y0 + 2w + half,
+  // x0 + lane/4); store only y < H, x < W and c < C, as f32 NCHW
+  const long long hw = static_cast<long long>(q.h) * q.w;
+  const int x = x0 + lane / 4;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int y = y0 + 2 * warp + half;
+    if (y >= q.h || x >= q.w) continue;
+    float* out = dx + static_cast<long long>(n) * q.c * hw + static_cast<long long>(y) * q.w + x;
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = c0 + 8 * j + 2 * (lane % 4) + e;
+        if (c < q.c) out[c * hw] = acc[4 * j + 2 * half + e];
+      }
+  }
+}
+
+constexpr int kT = 32;  // the layout transposes' tile
+
+// out[b][c][r] = in[b][r][c] of 16-bit [batch][rows][cols] (bf16 moved as
+// raw bits), through a shared 32 x 32 tile (padded so the column-wise
+// reads do not conflict on banks)
+__global__ void __launch_bounds__(kT * 8)
+    transpose_bf16(const uint16_t* __restrict__ in, uint16_t* __restrict__ out, int rows,
+                   int cols) {
+  __shared__ uint16_t tile[kT][kT + 2];
+  const long long base = static_cast<long long>(blockIdx.z) * rows * cols;
+  const int c0 = blockIdx.x * kT, r0 = blockIdx.y * kT;
+  for (int j = threadIdx.y; j < kT; j += 8) {
+    const int r = r0 + j, c = c0 + threadIdx.x;
+    if (r < rows && c < cols) tile[j][threadIdx.x] = in[base + static_cast<long long>(r) * cols + c];
+  }
+  __syncthreads();
+  for (int j = threadIdx.y; j < kT; j += 8) {
+    const int c = c0 + j, r = r0 + threadIdx.x;
+    if (r < rows && c < cols) out[base + static_cast<long long>(c) * rows + r] = tile[threadIdx.x][j];
+  }
+}
+
+cudaError_t transpose(const void* in, void* out, int batch, int rows, int cols,
+                      cudaStream_t stream) {
+  const dim3 grid((cols + kT - 1) / kT, (rows + kT - 1) / kT, batch);
+  transpose_bf16<<<grid, dim3(kT, 8), 0, stream>>>(static_cast<const uint16_t*>(in),
+                                                   static_cast<uint16_t*>(out), rows, cols);
+  return cudaGetLastError();
+}
+
+// g (N, O, OH, OW) and w (O, C, kh, kw), contiguous bf16, are first
+// transposed into the layouts TMA reads (byte strides multiples of 16, as
+// O % 8 == 0): g_cl channels-last (N, OH, OW, O) and w_t (C, kh, kw, O)
+template <int kN>
+cudaError_t launch_dgrad_bf16(const void* g, const void* wt, void* g_cl, void* w_t, void* dx,
+                              const Geo& q, cudaStream_t stream) {
+  const int taps = q.kh * q.kw;
+  cudaError_t err = transpose(g, g_cl, q.n, q.o, q.oh * q.ow, stream);
+  if (err != cudaSuccess) return err;
+  err = transpose(wt, w_t, 1, q.o, q.c * taps, stream);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t o = q.o, c = q.c;
+  const cuuint64_t gdims[4] = {o, static_cast<cuuint64_t>(q.ow), static_cast<cuuint64_t>(q.oh),
+                               static_cast<cuuint64_t>(q.n)};
+  const cuuint64_t gstrides[3] = {2 * o, 2 * o * q.ow, 2 * o * q.ow * q.oh};
+  const cuuint32_t gbox[4] = {kChunk, kPatch, kPatch, 1};
+  const cuuint64_t wdims[3] = {o, static_cast<cuuint64_t>(taps), c};
+  const cuuint64_t wstrides[2] = {2 * o, 2 * o * taps};
+  const cuuint32_t wbox[3] = {kChunk, 1, kN};
+  CUtensorMap gmap, wmap;
+  err = encode_bf16(&gmap, g_cl, 4, gdims, gstrides, gbox, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return err;
+  err = encode_bf16(&wmap, w_t, 3, wdims, wstrides, wbox, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return err;
+  auto kern = conv_dgrad_sm90<kN>;
+  const size_t smem = ConvRing<kN>::kSmemBytes;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int tiles_y = (q.h + kPatch - 1) / kPatch, tiles_x = (q.w + kPatch - 1) / kPatch;
+  const dim3 grid(q.n * tiles_y * tiles_x, (q.c + kN - 1) / kN);
+  kern<<<grid, kThreads, smem, stream>>>(gmap, wmap, static_cast<float*>(dx), q, tiles_y,
+                                         tiles_x);
+  return cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace sm90
+
 // gw (O, C, kh, kw) f32 from x (N, C, H, W) and g (N, O, OH, OW), both f32 or
 // both bf16, contiguous; ws holds splits * kh * kw * O * C floats.
 extern "C" int mxtt_conv_bwd_filter(const void* x, const void* g, void* ws, void* gw, int n,
@@ -276,14 +501,21 @@ extern "C" int mxtt_conv_bwd_filter(const void* x, const void* g, void* ws, void
 }
 
 // dx (N, C, H, W) f32 from g (N, O, OH, OW) and w (O, C, kh, kw), both f32 or
-// both bf16, contiguous.
-extern "C" int mxtt_conv_bwd_input(const void* g, const void* wt, void* dx, int n, int c, int h,
-                                   int w, int o, int kh, int kw, int ph, int pw, int oh, int ow,
-                                   int is_bf16, void* stream) {
+// both bf16, contiguous. bf16 also takes g_cl and w_t, room for N*O*OH*OW
+// and O*C*kh*kw bf16 values (the transposed copies TMA reads; O % 8 == 0);
+// f32 ignores them.
+extern "C" int mxtt_conv_bwd_input(const void* g, const void* wt, void* g_cl, void* w_t, void* dx,
+                                   int n, int c, int h, int w, int o, int kh, int kw, int ph,
+                                   int pw, int oh, int ow, int is_bf16, void* stream) {
   if (n <= 0 || c <= 0 || h <= 0 || w <= 0) return 0;
   const Geo q = make_geo(n, c, h, w, o, kh, kw, ph, pw, oh, ow);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = is_bf16 ? launch_dgrad<__nv_bfloat16>(g, wt, dx, q, s)
-                                  : launch_dgrad<float>(g, wt, dx, q, s);
+  cudaError_t err;
+  if (!is_bf16)
+    err = launch_dgrad<float>(g, wt, dx, q, s);
+  else if (c <= 64)
+    err = sm90::launch_dgrad_bf16<64>(g, wt, g_cl, w_t, dx, q, s);
+  else
+    err = sm90::launch_dgrad_bf16<128>(g, wt, g_cl, w_t, dx, q, s);
   return static_cast<int>(err);
 }

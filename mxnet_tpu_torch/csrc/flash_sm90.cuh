@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks of the bf16 flash-attention kernels in
-// flash_attn_fwd.cu (K4f) and flash_attn_bwd.cu (K4dq): a TMA tensor map
-// over one [B, T, H, D] bf16 operand, an mbarrier ring, the shared-memory
+// Hopper (sm_90a) building blocks of the bf16 kernels in flash_attn_fwd.cu
+// (K4f), flash_attn_bwd.cu (K4dq, K4dkv) and conv_bwd.cu (K3): a TMA tensor
+// map over one [B, T, H, D] bf16 operand (and over any bf16 array whose
+// byte strides are multiples of 16), an mbarrier ring, the shared-memory
 // descriptors of wgmma, and thin inline-PTX wrappers of
 // wgmma.mma_async m64nNk16 (f32 += bf16 x bf16).
 //
@@ -11,14 +12,18 @@
 // 64 columns, each a [64][64] block with the 128 B swizzle, the second
 // 8 KB after the first. Every tile starts on a 1024 B boundary, the period
 // of the largest swizzle, so the pattern TMA writes is the one wgmma reads.
+// Any other box whose rows are 128 B (64 bf16) with the 128 B swizzle, and
+// whose row count is a multiple of 8, has Tile<64>'s layout row for row
+// (conv_bwd.cu's tiles: 64 positions, or 64 or 128 channels, by 64 o).
 //
 // The same tile is read by wgmma two ways:
 //   * K-major (the reduction runs along D, e.g. Q and K in S = Q·Kᵀ): one
 //     k16 step is 32 bytes of every row; step kk starts 32·kk bytes into
 //     its box, the next 8-row group is 8 rows further (SBO).
 //   * MN-major (the reduction runs along the 64 rows, e.g. V in O += P·V,
-//     K in dq += dS·K): one k16 step is 16 rows; the transpose bit of B is
-//     set; SBO steps 8 rows, LBO steps from one 64-column box to the next.
+//     K in dq += dS·K, Q in dk += dSᵀ·Q): one k16 step is 16 rows; the
+//     transpose bit of B is set; SBO steps 8 rows, LBO steps from one
+//     64-column box to the next.
 // So no transposed copy of any tile is made.
 //
 // The accumulator of m64nN.f32 (and the register A operand made from it):
@@ -81,6 +86,22 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
+// A tiled tensor map over a bf16 array of `rank` dimensions, innermost
+// first: dims, byte strides of dims 1.. (multiples of 16), box and swizzle.
+// Coordinates out of range, negative ones too, read as zeros.
+inline cudaError_t encode_bf16(CUtensorMap* map, const void* ptr, int rank,
+                               const cuuint64_t* dims, const cuuint64_t* strides,
+                               const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr),
+                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // The tensor map of one [batch, seq, heads, d] bf16 operand with unit stride
 // along d and element strides (sb, st, sh): dims (d, heads, seq, batch),
 // byte strides (h, t, b), box (min(d, 64), 1, 64, 1) with the swizzle of
@@ -88,8 +109,6 @@ inline EncodeTiled encoder() {
 // each byte stride a multiple of 16 (the wrapper's tma_compatible).
 inline cudaError_t encode_operand(CUtensorMap* map, const void* ptr, int batch, int seq,
                                   int heads, int d, long long sb, long long st, long long sh) {
-  const EncodeTiled encode = encoder();
-  if (encode == nullptr) return cudaErrorNotSupported;
   const int box_cols = d < 64 ? d : 64;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(seq), static_cast<cuuint64_t>(batch)};
@@ -97,15 +116,10 @@ inline cudaError_t encode_operand(CUtensorMap* map, const void* ptr, int batch, 
                                  static_cast<cuuint64_t>(st) * 2,
                                  static_cast<cuuint64_t>(sb) * 2};
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_cols), 1, kRows, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUtensorMapSwizzle swizzle = box_cols == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
                                      : box_cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
                                                       : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return encode_bf16(map, ptr, 4, dims, strides, box, swizzle);
 }
 
 // -------------------------------------------------------------- device side
@@ -167,6 +181,15 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // rows t0 .. t0+63 of head h, batch b into the tile at `dst` (one or two
 // boxes); completes on `bar` with Tile<D>::kBytes bytes
 template <int D>
@@ -212,6 +235,12 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// wait until at most N committed groups are still running (they complete
+// in the order they were committed)
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // keep the compiler from moving reads or writes of registers that an
@@ -279,6 +308,39 @@ __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t desc
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d += A B over one k16 step, A (64 x 16) and B (16 x 128) both K-major in
+// shared memory
+__device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64], uint64_t desc_a,
+                                                    uint64_t desc_b) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, 1, 1, 1, 0, 0;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b));
+}
+
+// d += A B over one k16 step, both K-major in shared memory, N = 64 or 128
+// by the accumulator's size
+__device__ __forceinline__ void wgmma_ss_acc(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
+  wgmma_ss_m64n64k16(d, desc_a, desc_b, 1);
+}
+__device__ __forceinline__ void wgmma_ss_acc(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
+  wgmma_ss_m64n128k16(d, desc_a, desc_b);
 }
 
 // d += A B over one k16 step, A (64 x 16 bf16) in registers, B (16 x N)
@@ -352,8 +414,10 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a
 
 // --- the K/V ring
 
-// Shared-memory map of one CTA: `lead` resident tiles (Q, or Q and dO),
-// then kStages stages of (K tile, V tile), then the barriers: one for the
+// Shared-memory map of one CTA: `lead` resident tiles (Q, or Q and dO; K
+// and V in the dk/dv kernel), then kStages stages of two streamed tiles
+// (K and V; Q and dO in the dk/dv kernel, which calls them k_tile and
+// v_tile too), then the barriers: one for the
 // resident tiles, kStages "full" (TMA landed) and kStages "empty" (all 128
 // threads are done with the stage).
 template <int D, int kLead, int kStages>
@@ -402,14 +466,17 @@ struct Ring {
   }
 
   // every thread, after its last wgmma on stage s (tile i) has completed:
-  // release the stage; thread 0 then refills it with tile i + kStages
+  // release the stage; thread 0 then refills it with tile i + kStages, the
+  // one at rows t_first + (i + kStages)·64 (the ring's tile 0 starts at
+  // row t_first)
   __device__ __forceinline__ void release(int i, int n_tiles, const CUtensorMap* kmap,
-                                          const CUtensorMap* vmap, int h, int b) const {
+                                          const CUtensorMap* vmap, int h, int b,
+                                          int t_first = 0) const {
     const int s = i % kStages;
     mbar_arrive(empty(s));
     if (threadIdx.x == 0 && i + kStages < n_tiles) {
       mbar_wait(empty(s), (i / kStages) & 1);
-      load_kv(s, kmap, vmap, (i + kStages) * kRows, h, b);
+      load_kv(s, kmap, vmap, t_first + (i + kStages) * kRows, h, b);
     }
     __syncwarp();
   }

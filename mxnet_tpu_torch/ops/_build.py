@@ -48,7 +48,7 @@ KERNELS = {
     "conv_bwd_filter": (
         "conv_bwd.cu", "mxtt_conv_bwd_filter", [_P] * 4 + [_I] * 14 + [_P]),
     "conv_bwd_input": (
-        "conv_bwd.cu", "mxtt_conv_bwd_input", [_P] * 3 + [_I] * 12 + [_P]),
+        "conv_bwd.cu", "mxtt_conv_bwd_input", [_P] * 5 + [_I] * 12 + [_P]),
     "slab_update": (
         "slab_update.cu", "mxtt_slab_update",
         [_I, _I] + [_P] * 9 + [_L] + [_F] * 9 + [_I] * 4 + [_P]),

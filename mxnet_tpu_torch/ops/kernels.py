@@ -9,7 +9,8 @@ cores). ``reference_attention`` is its plain PyTorch version,
 the same function with the scores materialised. Its gradient is a
 ``torch.autograd.Function`` whose backward runs the two kernels of
 ``csrc/flash_attn_bwd.cu``, wrapped by ``flash_attention_dq`` and
-``flash_attention_dkv``; ``reference_attention_bwd`` is their plain
+``flash_attention_dkv`` (bf16 through TMA and ``wgmma`` as the forward,
+f32 on the CUDA cores); ``reference_attention_bwd`` is their plain
 version. Each wrapper takes the plain version only for tensors on the
 CPU; for a CUDA tensor it launches its kernel or raises. ``attention`` is
 the dispatch every model calls.
@@ -20,7 +21,9 @@ Layout convention as in the JAX package: [B, T, H, D].
 ``csrc/conv_bwd.cu``, the filter and data gradients of a stride-1 2-D
 convolution inside ``conv_bwd_plan``'s envelope; ``conv_bwd_*_reference``
 are their plain versions, and ``conv2d_kernel_bwd`` is the convolution
-whose autograd backward runs them. Layout NCHW / OIHW, as in JAX.
+whose autograd backward runs them. Layout NCHW / OIHW, as in JAX; the bf16
+K3 kernel (an implicit GEMM through TMA and ``wgmma``) reads transposed
+copies whose plain version is ``conv_dgrad_layout``.
 
 ``fused_slab_update`` (K1) wraps ``csrc/slab_update.cu``: one bf16-AMP
 optimizer step (sgd, sgd_mom, adam) over a flat slab with a finite select
@@ -107,14 +110,14 @@ def tma_compatible(x):
                for n, st in zip(x.shape[:3], x.stride()[:3]))
 
 
-def check_kernel_args(q, k, v, do=None, tma=True):
+def check_kernel_args(q, k, v, do=None):
     """Raise unless the CUDA kernels take these tensors: q, k, v (and the
     output gradient ``do`` for the backward) of one [B, T, H, D] shape,
     dtype and CUDA device, D in KERNEL_HEAD_DIMS, f32 or bf16, and unit
     stride along D (other strides are read as given).
 
-    Returns the operands as the kernels read them. The bf16 forward and dq
-    kernels load their tiles by TMA (``tma=True``): a bf16 operand that
+    Returns the operands as the kernels read them. The bf16 forward, dq and
+    dk/dv kernels load their tiles by TMA: a bf16 operand that
     fails :func:`tma_compatible` (an odd stride, a base off 16 bytes) is
     copied into a fresh contiguous tensor first. That is a layout repair,
     not a fallback: the kernel still runs."""
@@ -143,7 +146,7 @@ def check_kernel_args(q, k, v, do=None, tma=True):
         raise MXNetError(
             "flash_attention kernels want %s on one CUDA device, got %s"
             % ("/".join(n for n, _ in ops), " ".join(map(str, devices))))
-    if not tma or q.dtype != torch.bfloat16:
+    if q.dtype != torch.bfloat16:
         return tuple(x for _, x in ops)
     return tuple(x if tma_compatible(x) else x.clone(memory_format=torch.contiguous_format)
                  for _, x in ops)
@@ -222,14 +225,16 @@ def flash_attention_dq(q, k, v, do, lse, delta, causal=False, scale=None):
 
 
 def flash_attention_dkv(q, k, v, do, lse, delta, causal=False, scale=None):
-    """(dk, dv) of flash attention: the kernel ``flash_dkv_kernel`` of
-    ``csrc/flash_attn_bwd.cu`` on CUDA tensors (no fallback;
+    """(dk, dv) of flash attention: the kernel of ``csrc/flash_attn_bwd.cu``
+    (``flash_dkv_sm90`` for bf16, ``flash_dkv_kernel`` for f32) on CUDA
+    tensors (no fallback; a bf16 operand TMA cannot read where it lies is
+    copied first, see :func:`check_kernel_args`;
     ``flash_attention_dkv.launches`` counts its launches), the plain
     version on CPU tensors. Arguments as :func:`reference_attention_bwd`."""
     scale = _default_scale(q, scale)
     if q.device.type == "cpu":
         return reference_attention_bwd(q, k, v, do, lse, delta, causal, scale)[1:]
-    check_kernel_args(q, k, v, do, tma=False)  # the dk/dv kernel reads by strides
+    q, k, v, do = check_kernel_args(q, k, v, do)
     _check_row_stats(q, lse, delta)
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -457,11 +462,28 @@ def conv_bwd_filter(data, grad, wshape, pad):
     return gw
 
 
+def conv_dgrad_layout(grad, weight):
+    """The operands of the bf16 K3 kernel in the layouts TMA reads: grad
+    (N, O, OH, OW) as a contiguous channels-last (N, OH, OW, O) tensor and
+    weight (O, C, kh, kw) as a contiguous (C, kh, kw, O) tensor. TMA wants
+    byte strides that are multiples of 16, which a row of NCHW (OW·2 bytes)
+    is not at OW = 7, 14 or 28; O·2 is, since ``conv_bwd_plan`` takes
+    O % 8 == 0. The plain version of the two transposes the kernel's entry
+    point runs first (``transpose_bf16`` in ``csrc/conv_bwd.cu``), into
+    workspaces :func:`conv_bwd_input` allocates: a layout repair, as
+    :func:`check_kernel_args`'s copy is."""
+    return (grad.permute(0, 2, 3, 1).contiguous(),
+            weight.permute(1, 2, 3, 0).contiguous())
+
+
 def conv_bwd_input(grad, weight, dshape, pad):
     """K3, the data gradient of a stride-1 2-D conv: grad (N, O, OH, OW) and
     weight (O, C, kh, kw) -> f32 (N, C, H, W). On CUDA tensors the kernel of
-    ``csrc/conv_bwd.cu`` (no fallback; ``conv_bwd_input.launches`` counts
-    its launches); on CPU tensors the plain version."""
+    ``csrc/conv_bwd.cu`` (for bf16, ``conv_dgrad_sm90``, TMA and ``wgmma``,
+    on the transposed copies :func:`conv_dgrad_layout` describes, in two
+    workspaces allocated here; ``conv_dgrad_kernel`` for f32; no fallback;
+    ``conv_bwd_input.launches`` counts the calls that launch them); on CPU
+    tensors the plain version."""
     if grad.device.type == "cpu":
         return conv_bwd_input_reference(grad, weight, dshape, pad)
     _check_conv_args("conv_bwd_input", grad, weight, tuple(dshape), tuple(weight.shape), pad)
@@ -470,12 +492,16 @@ def conv_bwd_input(grad, weight, dshape, pad):
     if tuple(grad.shape) != (n, o, oh, ow):
         raise MXNetError("conv_bwd_input: grad %s does not match data %s and weight %s"
                          % (tuple(grad.shape), tuple(dshape), tuple(weight.shape)))
+    bf16 = grad.dtype == torch.bfloat16
+    # room for the bf16 kernel's transposed copies of grad and weight
+    g_cl = torch.empty(grad.shape if bf16 else 0, dtype=grad.dtype, device=grad.device)
+    w_t = torch.empty(weight.shape if bf16 else 0, dtype=grad.dtype, device=grad.device)
     dx = torch.empty((n, c, h, w), dtype=torch.float32, device=grad.device)
     fn = _build.load("conv_bwd_input")
     with torch.cuda.device(grad.device):
         stream = torch.cuda.current_stream(grad.device).cuda_stream
-        rc = fn(grad.data_ptr(), weight.data_ptr(), dx.data_ptr(), *geo,
-                int(grad.dtype == torch.bfloat16), stream)
+        rc = fn(grad.data_ptr(), weight.data_ptr(), g_cl.data_ptr(), w_t.data_ptr(),
+                dx.data_ptr(), *geo, int(bf16), stream)
     if rc != 0:
         raise MXNetError("conv_bwd_input kernel launch failed: CUDA error %d" % rc)
     conv_bwd_input.launches += 1

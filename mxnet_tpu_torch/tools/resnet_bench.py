@@ -59,7 +59,8 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PHASES = ("rn.forward", "rn.backward", "rn.update")
 KERNEL_FAMILIES = (
     ("conv_bwd_filter", ("conv_wgrad_kernel", "conv_wgrad_reduce_kernel")),
-    ("conv_bwd_input", ("conv_dgrad_kernel",)),
+    # conv_dgrad_kernel (f32), conv_dgrad_sm90 and its layout transposes (bf16)
+    ("conv_bwd_input", ("conv_dgrad_", "transpose_bf16")),
     ("cudnn_conv_bwd", ("dgrad", "wgrad")),
     ("cudnn_conv_fwd", ("fprop", "conv", "implicit", "cudnn")),
     ("gemm", ("nvjet", "gemm", "xmma", "cutlass")),

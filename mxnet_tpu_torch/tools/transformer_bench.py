@@ -50,9 +50,10 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 LR = 1e-4
 PHASES = ("tlm.forward", "tlm.loss", "tlm.backward", "tlm.sgd")
 KERNEL_FAMILIES = (
-    ("flash_attn_fwd", ("flash_fwd_kernel",)),
-    ("flash_attn_bwd_dq", ("flash_dq_kernel",)),
-    ("flash_attn_bwd_dkv", ("flash_dkv_kernel",)),
+    # the SIMT kernels (flash_*_kernel) and the bf16 Hopper ones (flash_*_sm90)
+    ("flash_attn_fwd", ("flash_fwd_",)),
+    ("flash_attn_bwd_dq", ("flash_dq_",)),
+    ("flash_attn_bwd_dkv", ("flash_dkv_",)),
     # the LM head's f32 GEMMs (TF32 off) run on cuBLAS's SIMT/FFMA kernels
     ("gemm_f32", ("sgemm", "f32f32")),
     ("gemm", ("nvjet", "gemm", "xmma", "cutlass")),

@@ -157,6 +157,64 @@ def test_autograd_function_matches_pallas_custom_vjp(dshape, wshape, pad):
     np.testing.assert_allclose(tw.grad.numpy(), np.asarray(want_w), rtol=1e-5, atol=1e-5)
 
 
+def _emulate_dgrad_sm90(grad, weight, dshape, pad):
+    """What the bf16 K3 kernel computes, in plain torch on the copies
+    ``conv_dgrad_layout`` makes: an output tile is an 8 x 8 patch of one
+    image's positions by 64 (C <= 64) or 128 channels; its k steps run tap
+    by tap (i major, j minor), 64 o a step; each step's A is the box (y 8,
+    x 8, o 64) of channels-last g at (y0 + ph - i, x0 + pw - j, o0), zero
+    outside OH x OW and past O, and its B the box (c kN, o 64) of the
+    (C, kh, kw, O) weight at (c0, i, j, o0), zero past C and O; the f32 sum
+    lands on the positions inside H x W and the channels below C."""
+    g_cl, w_t = kernels.conv_dgrad_layout(grad, weight)
+    n, c, h, w = dshape
+    _, kh, kw, o = w_t.shape
+    oh, ow = g_cl.shape[1:3]
+    kn = 64 if c <= 64 else 128
+    chunks = -(-o // 64)
+    # zeros around OH x OW and up to a whole number of o chunks and c tiles
+    m = 8 + max(kh, kw)
+    gp = torch.zeros(n, oh + 2 * m, ow + 2 * m, 64 * chunks)
+    gp[:, m:m + oh, m:m + ow, :o] = g_cl.float()
+    wp = torch.zeros(kn * -(-c // kn), kh, kw, 64 * chunks)
+    wp[:c, :, :, :o] = w_t.float()
+    dx = torch.full((n, c, h, w), float("nan"))
+    for img in range(n):
+        for y0 in range(0, h, 8):
+            for x0 in range(0, w, 8):
+                for c0 in range(0, c, kn):
+                    acc = torch.zeros(64, kn)
+                    for tap in range(kh * kw):
+                        i, j = divmod(tap, kw)
+                        ys, xs = m + y0 + pad[0] - i, m + x0 + pad[1] - j
+                        for o0 in range(0, o, 64):
+                            a = gp[img, ys:ys + 8, xs:xs + 8, o0:o0 + 64].reshape(64, 64)
+                            acc += a @ wp[c0:c0 + kn, i, j, o0:o0 + 64].T
+                    acc = acc.reshape(8, 8, kn).permute(2, 0, 1)
+                    ye, xe, ce = min(8, h - y0), min(8, w - x0), min(kn, c - c0)
+                    dx[img, c0:c0 + ce, y0:y0 + ye, x0:x0 + xe] = acc[:ce, :ye, :xe]
+    return dx
+
+
+@pytest.mark.parametrize("dshape,wshape,pad", CASES + [
+    ((2, 16, 7, 7), (40, 16, 3, 3), (1, 1)),
+    ((1, 136, 7, 7), (72, 136, 3, 3), (1, 1)),  # the 128-channel tile, two o chunks
+])
+def test_dgrad_tiling_matches_plain_and_pallas(dshape, wshape, pad):
+    """The bf16 K3 kernel's tiling and layouts, emulated on the CPU on
+    bf16-valued inputs: within 1e-5 of max against the plain version and
+    against JAX's conv_bwd_input (Pallas, interpret mode). Index errors of
+    the card's kernel show here first."""
+    _, w, g = _inputs(dshape, wshape, pad, seed=3)
+    tw, tg = (torch.from_numpy(a).bfloat16() for a in (w, g))
+    got = _emulate_dgrad_sm90(tg, tw, dshape, pad)
+    plain = kernels.conv_bwd_input_reference(tg, tw, dshape, pad)
+    jax_dx = np.asarray(pk.conv_bwd_input(jnp.asarray(tg.float().numpy()),
+                                          jnp.asarray(tw.float().numpy()), dshape, pad))
+    for want in (plain.numpy(), jax_dx):
+        assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     """Outside the envelope, or on the CPU asked for a kernel launch, the
     wrappers raise rather than fall back (checked before any launch)."""

@@ -99,11 +99,12 @@ def test_cuda_attention_gradient_runs_the_kernels():
 
 @pytest.mark.cuda
 def test_cuda_bf16_tma_kernels_match_plain_version():
-    """On the card: the bf16 forward and dq kernels (TMA and wgmma) against
-    the plain versions at T 5, 64 and 2047, D 16, 64 and 128, causal and
-    not, and on transposed views of [B, H, T, D] tensors (strides TMA
-    reads in place, in another order): forward within 2e-2 absolute, dq
-    within 2e-2 of max|plain|; a repeat gives the same bits."""
+    """On the card: the bf16 forward, dq and dk/dv kernels (TMA and wgmma)
+    against the plain versions at T 5, 64 and 2047, D 16, 64 and 128,
+    causal and not, and on transposed views of [B, H, T, D] tensors
+    (strides TMA reads in place, in another order): forward within 2e-2
+    absolute, dq, dk and dv within 2e-2 of max|plain|; a repeat gives the
+    same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     g = torch.Generator().manual_seed(6)
@@ -116,14 +117,17 @@ def test_cuda_bf16_tma_kernels_match_plain_version():
         q, k, v = args[:3]
         out, lse = kernels.flash_attention(q, k, v, causal=causal, return_lse=True)
         dq = kernels.flash_attention_dq(*args, causal=causal)
+        dk, dv = kernels.flash_attention_dkv(*args, causal=causal)
         ref = kernels.reference_attention(q, k, v, causal=causal)
         assert (out.float() - ref.float()).abs().max().item() <= 2e-2, (t, d, causal)
-        want = kernels.reference_attention_bwd(*args, causal=causal)[0].float()
-        err = (dq.float() - want).abs().max().item()
-        assert err <= 2e-2 * want.abs().max().item(), (t, d, causal)
+        for got, want in zip((dq, dk, dv), kernels.reference_attention_bwd(*args, causal=causal)):
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= 2e-2 * want.float().abs().max().item(), (t, d, causal)
         again = kernels.flash_attention(q, k, v, causal=causal, return_lse=True)
         assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
         assert torch.equal(dq, kernels.flash_attention_dq(*args, causal=causal))
+        assert all(torch.equal(a, b) for a, b in zip(
+            (dk, dv), kernels.flash_attention_dkv(*args, causal=causal)))
 
 
 @pytest.mark.cuda
@@ -148,9 +152,12 @@ def test_cuda_bf16_views_tma_cannot_read_are_copied():
         assert (out.float() - ref.float()).abs().max().item() <= 2e-2
         do = views[0]
         delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-        dq = kernels.flash_attention_dq(q, k, v, do, lse, delta, causal=causal)
-        want = kernels.reference_attention_bwd(q, k, v, do, lse, delta, causal=causal)[0].float()
-        assert (dq.float() - want).abs().max().item() <= 2e-2 * want.abs().max().item()
+        args = (q, k, v, do, lse, delta)
+        grads = (kernels.flash_attention_dq(*args, causal=causal),
+                 *kernels.flash_attention_dkv(*args, causal=causal))
+        for got, want in zip(grads, kernels.reference_attention_bwd(*args, causal=causal)):
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= 2e-2 * want.float().abs().max().item()
 
 
 # ragged shapes around ResNet-50's: N 1 and 3, odd and non-square spatial,
@@ -161,16 +168,20 @@ CONV_CASES = [
     ((3, 24, 9, 11), (40, 24, 5, 5), (2, 2)),
     ((1, 64, 7, 9), (72, 64, 3, 3), (0, 0)),
     ((2, 8, 11, 9), (8, 8, 5, 5), (1, 1)),
+    # the bf16 kernel's 128-channel tile, ragged C and several o chunks
+    ((2, 136, 7, 7), (72, 136, 3, 3), (1, 1)),
+    ((1, 256, 9, 11), (136, 256, 1, 1), (0, 0)),
 ]
 
 
 @pytest.mark.cuda
 def test_cuda_conv_bwd_kernels_match_plain_version():
-    """On the card: K2 (conv_bwd_filter) and K3 (conv_bwd_input) against
-    their plain versions on the same inputs, f32 outputs before any cast,
-    error at most 1e-4 of max|plain| in f32 and bf16 (both sum the same
-    f32 products, in another order); a second launch gives the same bits
-    (fixed split of M and fixed reduction order, no atomics)."""
+    """On the card: K2 (conv_bwd_filter) and K3 (conv_bwd_input; bf16 by
+    TMA and wgmma) against their plain versions on the same inputs, f32
+    outputs before any cast, error at most 1e-4 of max|plain| in f32 and
+    bf16 (both sum the same f32 products, in another order; bf16 products
+    are exact in f32); a second launch gives the same bits (fixed split of
+    M and fixed reduction order, no atomics)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     g = torch.Generator().manual_seed(3)

@@ -139,6 +139,45 @@ def test_bf16_ds_rounding_fits_the_card_limit(t, causal):
         assert np.abs(got - want).max() <= 2e-2 * np.abs(want).max()
 
 
+def _emulate_dkv_bf16(q, k, v, do, lse, delta, causal):
+    """The bf16 dk/dv kernel's arithmetic on the CPU: f32 S^T and dP^T of
+    the bf16 inputs, P^T = exp(scale S^T - lse[col]) where kept and dS^T =
+    P^T (dP^T - delta[col]) in f32, then P^T and dS^T rounded to bf16
+    before dv = P^T dO and dk = scale dS^T Q."""
+    t, d = q.shape[1], q.shape[-1]
+    scale = 1.0 / np.sqrt(d)
+    qf, kf, vf, dof = (x.float().transpose(1, 2) for x in (q, k, v, do))
+    pt = torch.exp((kf @ qf.transpose(-1, -2)) * scale - lse[:, :, None, :])
+    if causal:  # rows are keys, columns queries: keep q >= k
+        pt = pt.masked_fill(~torch.ones(t, t, dtype=torch.bool).triu(), 0.0)
+    dst = pt * (vf @ dof.transpose(-1, -2) - delta[:, :, None, :])
+    dv = pt.bfloat16().float() @ dof
+    dk = (dst.bfloat16().float() @ qf) * scale
+    return tuple(x.transpose(1, 2).bfloat16() for x in (dk, dv))
+
+
+@pytest.mark.timeout(120)
+@pytest.mark.parametrize("t,causal", [(100, True), (256, False)])
+def test_bf16_dkv_rounding_fits_the_card_limit(t, causal):
+    """The bf16 dk/dv kernel rounds P^T and dS^T to bf16 before P^T·dO and
+    dS^T·Q (the JAX kernel keeps them f32). Emulated on the CPU from the
+    backward's own lse, delta and bf16 dO, dk and dv stay within the card's
+    bf16 limit, 2e-2 of max|want|, of jax.grad through the Pallas kernels
+    (interpret mode) and of the port's plain backward on the same inputs."""
+    arrays = _inputs(1, t, 2, 32, seed=13)
+    q, k, v, w = (torch.from_numpy(a).bfloat16() for a in arrays)
+    out, lse = kernels.flash_attention(q, k, v, causal=causal, return_lse=True)
+    g = torch.from_numpy(arrays[3])  # the cotangent of sum(out * w)
+    delta = (g * out.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, g.bfloat16(), lse, delta)
+    got = [x.float().numpy() for x in _emulate_dkv_bf16(*args, causal)]
+    jax_dkv = [np.asarray(x, np.float32) for x in _jax_grads(arrays, jnp.bfloat16, causal)[1:]]
+    plain = [x.float().numpy() for x in kernels.reference_attention_bwd(*args, causal=causal)[1:]]
+    for name, a, want_jax, want_plain in zip(("dk", "dv"), got, jax_dkv, plain):
+        for want in (want_jax, want_plain):
+            assert np.abs(a - want).max() <= 2e-2 * np.abs(want).max(), name
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_grads_match_plain_autograd(causal):
     """The Function's backward against autograd through the plain

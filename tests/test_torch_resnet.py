@@ -325,3 +325,18 @@ def test_bench_forward_bf16_matches_jax_within_two_ulps():
     want = np.asarray(JProgram(js)(jargs, {n: jnp.asarray(v.numpy()) for n, v in aux.items()},
                                    None, True)[0][0], np.float32)
     assert np.abs(got - want).max() <= 2 * _ulp(want), (np.abs(got - want).max(), _ulp(want))
+
+
+@pytest.mark.parametrize("name,fam", [
+    ("void (anonymous namespace)::conv_wgrad_kernel<__nv_bfloat16>(...)", "conv_bwd_filter"),
+    ("void (anonymous namespace)::conv_dgrad_kernel<float>(...)", "conv_bwd_input"),
+    ("void sm90::(anonymous namespace)::conv_dgrad_sm90<128>(CUtensorMap_st, ...)",
+     "conv_bwd_input"),
+    ("sm90::(anonymous namespace)::transpose_bf16(unsigned short const*, ...)", "conv_bwd_input"),
+    ("void cudnn::engines_precompiled::nchwToNhwcKernel<__nv_bfloat16, ...>", "cudnn_conv_fwd"),
+    ("sm90_xmma_dgrad_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc", "cudnn_conv_bwd"),
+])
+def test_bench_kernel_families(name, fam):
+    """The ResNet trace's kernel families, on kernel names an H100 run
+    reports: K3's Hopper kernel and its layout transposes count as K3."""
+    assert resnet_bench.family(name) == fam

@@ -199,6 +199,11 @@ def test_bench_smoke_on_cpu(monkeypatch, capsys, tmp_path):
     ("void (anonymous namespace)::flash_dkv_kernel<__nv_bfloat16, 64>(...)", "flash_attn_bwd_dkv"),
     ("void (anonymous namespace)::flash_dq_kernel<__nv_bfloat16, 64>(...)", "flash_attn_bwd_dq"),
     ("void (anonymous namespace)::flash_fwd_kernel<__nv_bfloat16, 64>(...)", "flash_attn_fwd"),
+    ("void sm90::(anonymous namespace)::flash_fwd_sm90<64>(CUtensorMap_st, ...)", "flash_attn_fwd"),
+    ("void sm90::(anonymous namespace)::flash_dq_sm90<64>(CUtensorMap_st, ...)",
+     "flash_attn_bwd_dq"),
+    ("void sm90::(anonymous namespace)::flash_dkv_sm90<64>(CUtensorMap_st, ...)",
+     "flash_attn_bwd_dkv"),
     ("void cutlass::Kernel2<cutlass_80_simt_sgemm_256x128_8x4_nn_align1>(...)", "gemm_f32"),
     ("sm80_xmma_gemm_f32f32_f32f32_f32_tn_n_tilesize128x128x8_stage3", "gemm_f32"),
     ("nvjet_tst_256x128_64x4_1x2_h_bz_coopA_NNT", "gemm"),
