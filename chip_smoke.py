@@ -9,12 +9,14 @@ Phases, each fatal on failure:
    the sources in this checkout (nvcc, sm_90a, one process per source, all
    started together) and time the build; ptxas's registers and spills of
    each kernel. Then ``cuobjdump -sass`` (beside nvcc) of the flash and
-   conv libraries, read by function: every bf16 forward, dq, dk/dv and K3
-   kernel (flash_fwd_sm90,
-   flash_dq_sm90, flash_dkv_sm90 at D 16-128; conv_dgrad_sm90 at 64 and
-   128 channels a tile) holds HGMMA (wgmma) and UTMALDG (TMA load)
-   instructions, and no bf16 instantiation of the SIMT forward, dq, dk/dv
-   or data-gradient kernel is left.
+   conv libraries, read by function: every bf16 forward, dq, dk/dv, K2 and
+   K3 kernel (flash_fwd_sm90, flash_dq_sm90, flash_dkv_sm90 at D 16-128;
+   conv_wgrad_sm90 and conv_dgrad_sm90 at 64 and 128 channels a tile, K2
+   in CTAs of one and two warpgroups, reading channels-last copies or NCHW
+   in place) holds HGMMA (wgmma) and
+   UTMALDG (TMA load) instructions, and no bf16
+   instantiation of the SIMT forward, dq, dk/dv, filter- or data-gradient
+   kernel is left.
 2. forward kernel vs plain: the flash-attention forward kernels against
    their plain PyTorch version on the card, f32 to 1e-4 and bf16 to 2e-2
    (the plain version rounds its scores to bf16; the bf16 kernel keeps them
@@ -67,7 +69,9 @@ Phases, each fatal on failure:
    9 x 11, k 1/3/5, pad 0-2, C and O 8-72), f32 and bf16: the f32
    outputs before any cast within 1e-4 of max|plain| (both sum the same
    f32 products in another order; bf16 products are exact in f32), and a
-   second launch gives the same bits.
+   second launch gives the same bits. In bf16, grad's channels-last copy
+   made once and handed to both kernels (``g_cl``), and the autograd
+   Function's backward that does so, give the standalone wrappers' bits.
 10. ResNet-50 gradients, f32: full width and depth, batch 2, 224 x 224,
     weights from ``init_params``: every parameter gradient and new aux
     state through K2/K3 against the same through their plain versions, at
@@ -264,6 +268,7 @@ SASS_CHECKS = (
     ("flash_attn_fwd", "flash_fwd_sm90", 4, "flash_fwd_kernel<bf16"),
     ("flash_attn_bwd_dq", "flash_dq_sm90", 4, "flash_dq_kernel<bf16"),
     ("flash_attn_bwd_dkv", "flash_dkv_sm90", 4, "flash_dkv_kernel<bf16"),
+    ("conv_bwd_filter", "conv_wgrad_sm90", 8, "conv_wgrad_kernel<bf16"),
     ("conv_bwd_input", "conv_dgrad_sm90", 2, "conv_dgrad_kernel<bf16"),
 )
 
@@ -292,8 +297,8 @@ def phase_build(_build):
         if simt_bf16:
             raise AssertionError("%s: bf16 SIMT kernels left: %s" % (name, simt_bf16))
         sass.update(tma)
-    log("phase 1: HGMMA and UTMALDG in every bf16 forward, dq, dk/dv and K3 kernel, no bf16 "
-        "SIMT forward, dq, dk/dv or K3 kernel")
+    log("phase 1: HGMMA and UTMALDG in every bf16 forward, dq, dk/dv, K2 and K3 kernel, no "
+        "bf16 SIMT forward, dq, dk/dv, K2 or K3 kernel")
     return secs, sass
 
 
@@ -814,7 +819,29 @@ def conv_errors(kernels, x, w, g, dshape, wshape, pad):
         diff = (a - b).abs().max().item()
         out[name] = {"rel_err": diff / max(b.abs().max().item(), 1e-30), "max_abs_err": diff,
                      "bitwise_repeat": torch.equal(a, again[name])}
+    if x.dtype == torch.bfloat16:
+        for name, same in shared_grad_bits(kernels, x, w, g, dshape, wshape, pad, got).items():
+            out[name]["shared_g_cl_bitwise"] = same
     return out
+
+
+def shared_grad_bits(kernels, x, w, g, dshape, wshape, pad, got):
+    """Per bf16 conv kernel: whether grad's channels-last copy made once and
+    handed to it (``g_cl``), and the autograd Function's backward that does
+    so for both, give the bits of its standalone call ``got``."""
+    import torch
+
+    g_cl = kernels.conv_grad_channels_last(g)
+    shared = {"conv_bwd_filter": kernels.conv_bwd_filter(x, g, wshape, pad, g_cl=g_cl),
+              "conv_bwd_input": kernels.conv_bwd_input(g, w, dshape, pad, g_cl=g_cl)}
+    leaves = [x.detach().clone().requires_grad_(), w.detach().clone().requires_grad_()]
+    kernels.conv2d_kernel_bwd(*leaves, pad).backward(g)
+    torch.cuda.synchronize()
+    autograd = {"conv_bwd_filter": (leaves[1].grad, w.dtype),
+                "conv_bwd_input": (leaves[0].grad, x.dtype)}
+    return {name: torch.equal(shared[name], got[name])
+            and torch.equal(autograd[name][0], got[name].to(autograd[name][1]))
+            for name in got}
 
 
 def phase_conv_checks(kernels, resnet, dev):
@@ -829,12 +856,16 @@ def phase_conv_checks(kernels, resnet, dev):
             args = conv_inputs(dshape, wshape, pad, dtype, dev, rng)
             for name, e in conv_errors(kernels, *args, dshape, wshape, pad).items():
                 log("  %s data=%s weight=%s pad=%s %s: rel_err %.3g (tol 1e-4) max_abs_err "
-                    "%.3g, bitwise repeat %s" % (name, dshape, wshape, pad, key, e["rel_err"],
-                                                 e["max_abs_err"], e["bitwise_repeat"]))
+                    "%.3g, bitwise repeat %s, shared g_cl bitwise %s"
+                    % (name, dshape, wshape, pad, key, e["rel_err"], e["max_abs_err"],
+                       e["bitwise_repeat"], e.get("shared_g_cl_bitwise", "-")))
                 if not e["rel_err"] <= 1e-4:
                     raise AssertionError("%s disagrees with the plain version" % name)
                 if not e["bitwise_repeat"]:
                     raise AssertionError("%s is not bitwise repeatable" % name)
+                if not e.get("shared_g_cl_bitwise", True):
+                    raise AssertionError("%s with the shared channels-last grad differs from "
+                                         "its standalone call" % name)
                 worst[name + " " + key] = max(worst.get(name + " " + key, 0.0), e["rel_err"])
                 errs[(name, dshape, wshape, pad, key)] = e
     log("phase 9: conv-backward kernels vs plain ok over %d shapes, worst rel_err %s"
@@ -1006,8 +1037,13 @@ def phase_conv_times(kernels, resnet, dev, launches, errs):
                    key=lambda r: r["ms"] * r["convs_per_step"])
         entries.append({
             "name": name, "route": "cuda", "source": "mxnet_tpu_torch/csrc/conv_bwd.cu",
-            "design": ("f32 SIMT (bf16 and f32)" if name == "conv_bwd_filter" else
+            "design": ("tma+wgmma implicit GEMM on channels-last copies (both operands "
+                       "MN-major) or on NCHW in place (1x1), CTAs of two warpgroups (128 o) "
+                       "where O > 64, one-wave split of M + ordered reduce (bf16); f32 SIMT "
+                       "(f32)"
+                       if name == "conv_bwd_filter" else
                        "tma+wgmma implicit GEMM on channels-last copies (bf16); f32 SIMT (f32)"),
+            "timed_with": "the wrapper's own layout transposes inside each timed call",
             "replaces": "mxnet_tpu/ops/pallas_kernels.py:%d" % (
                 745 if name == "conv_bwd_filter" else 804),
             "launches": launches[name],

@@ -5,9 +5,9 @@ variants of their own sources, in one process on one CUDA card.
 
 Each variant is a copy of ``mxnet_tpu_torch/csrc/flash_sm90.cuh``,
 ``flash_attn_fwd.cu`` and ``flash_attn_bwd.cu`` with some text replaced
-(``VARIANTS``), written to ``build/flash_ab/<name>/`` and built by the
-package's own ``_build`` from there (``csrc=``: same flags, one ``nvcc``
-per distinct library, all started together):
+(``VARIANTS``), written to ``build/flash_ab/<name>/`` and built from there
+by ``mxnet_tpu_torch.tools.source_ab`` (the package's own ``_build``, one
+``nvcc`` per distinct library, all started together):
 
 - ``as_built``: the sources as they are;
 - ``mask_every_tile``: the keep-mask evaluated on every tile, not only on
@@ -21,7 +21,7 @@ per distinct library, all started together):
 
 A replacement whose text is no longer in the sources stops the run before
 anything is built. The variants' entry points are called directly on
-contiguous operands; the package's wrappers are not touched.
+contiguous operands.
 
 Every variant is first held to the plain versions at D 16 to 128, T 5 to
 2047, causal and not (forward 2e-2 absolute, dq, dk and dv 2e-2 of
@@ -40,10 +40,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import shutil
-import statistics
 import sys
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 SOURCES = ("flash_sm90.cuh", "flash_attn_fwd.cu", "flash_attn_bwd.cu")
@@ -67,26 +64,6 @@ VARIANTS = {
 }
 CHECK_D = (16, 32, 64, 128)
 CHECK_T = (5, 100, 2047)
-
-
-def write_variants(csrc, root):
-    """Write every variant's sources under ``root``; {name: directory}.
-    Replacements apply to the kernels' code, below the first
-    ``namespace sm90 {`` of each file."""
-    shutil.rmtree(root, ignore_errors=True)
-    dirs = {}
-    for name, edits in VARIANTS.items():
-        texts = {f: (csrc / f).read_text() for f in SOURCES}
-        for f, old, new in edits:
-            head, sep, body = texts[f].partition("namespace sm90 {")
-            if old not in body:
-                raise SystemExit("variant %s: %r not found in %s" % (name, old, f))
-            texts[f] = head + sep + body.replace(old, new)
-        dirs[name] = root / name
-        dirs[name].mkdir(parents=True)
-        for f, text in texts.items():
-            (dirs[name] / f).write_text(text)
-    return dirs
 
 
 def launch(fn, q, k, v, *rest, causal, grads=1):
@@ -129,25 +106,16 @@ def main(argv=None):
         return 1
     import chip_smoke
     from mxnet_tpu_torch.ops import _build, kernels
+    from mxnet_tpu_torch.tools import source_ab
 
     card = chip_smoke.card_line()
     print("card: %s | torch %s, CUDA %s" % (card, torch.__version__, torch.version.cuda))
-    dirs = write_variants(_build.CSRC, _build.BUILD_DIR.parent / "flash_ab")
-    # one build per distinct library: variants that leave a source as it is share its library
-    jobs = {}
-    for d in dirs.values():
-        for k in KERNELS:
-            jobs.setdefault(_build.library_path(k, d), (k, d))
-    with ThreadPoolExecutor(len(jobs)) as pool:
-        list(pool.map(lambda job: _build.build([job[0]], job[1]), jobs.values()))
-    regs = {name: {label: line for k in KERNELS for label, line in chip_smoke.ptxas_lines(
-                       _build.library_path(k, d).with_suffix(".log").read_text()).items()
-                   if "_sm90<" in label}
-            for name, d in dirs.items()}
+    dirs = source_ab.write_variants(_build.BUILD_DIR.parent / "flash_ab", SOURCES, VARIANTS)
+    fns = source_ab.build_variants(dirs, KERNELS)
+    regs = source_ab.registers(dirs, KERNELS, chip_smoke.ptxas_lines)
     for name, lines in regs.items():
         for label, line in sorted(lines.items()):
             print("  %s %s: %s" % (name, label, line))
-    fns = {name: [_build.load(k, d) for k in KERNELS] for name, d in dirs.items()}
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
@@ -186,24 +154,21 @@ def main(argv=None):
     out8, lse8 = launch(fns["as_built"][0], *f8[:3], causal=True)
     delta8 = (f8[3].float() * out8.float()).sum(-1).transpose(1, 2).contiguous()
     bwd8 = (*f8, lse8, delta8)
-    ms = {name: {"fwd_n4_T2048": [], "fwd_n8_T2047": [], "dq_n8_T2047": [], "dkv_n8_T2047": []}
-          for name in fns}
-    order = list(fns)
-    for _ in range(args.rounds):
-        for name in order + order[::-1]:
-            fwd, dq_fn, dkv_fn = fns[name]
-            for key, fn in (("fwd_n4_T2048", lambda: launch(fwd, *f4, causal=True)),
-                            ("fwd_n8_T2047", lambda: launch(fwd, *f8[:3], causal=True)),
-                            ("dq_n8_T2047", lambda: launch(dq_fn, *bwd8, causal=True)),
-                            ("dkv_n8_T2047",
-                             lambda: launch(dkv_fn, *bwd8, causal=True, grads=2))):
-                ms[name][key].append(chip_smoke.device_ms(fn, 20, 3, flush))
+
+    def time_variant(name):
+        fwd, dq_fn, dkv_fn = fns[name]
+        return {key: chip_smoke.device_ms(fn, 20, 3, flush) for key, fn in (
+            ("fwd_n4_T2048", lambda: launch(fwd, *f4, causal=True)),
+            ("fwd_n8_T2047", lambda: launch(fwd, *f8[:3], causal=True)),
+            ("dq_n8_T2047", lambda: launch(dq_fn, *bwd8, causal=True)),
+            ("dkv_n8_T2047", lambda: launch(dkv_fn, *bwd8, causal=True, grads=2)))}
+
+    ms, median = source_ab.in_turns(list(fns), args.rounds, time_variant)
     qt = [x.transpose(1, 2) for x in f4]
     sdpa = chip_smoke.device_ms(lambda: F.scaled_dot_product_attention(*qt, is_causal=True),
                                 20, 3, flush)
     result = {"card": card, "sdpa_fwd_n4_T2048_ms": sdpa, "registers": regs,
-              "ms": ms, "median_ms": {name: {key: statistics.median(v) for key, v in r.items()}
-                                      for name, r in ms.items()}}
+              "ms": ms, "median_ms": median}
     for name, r in result["median_ms"].items():
         print("time %s: %s" % (name, json.dumps({k: round(v, 5) for k, v in r.items()})))
     print("time scaled_dot_product_attention fwd_n4_T2048: %.5f" % sdpa)

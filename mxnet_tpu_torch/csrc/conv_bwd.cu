@@ -2,9 +2,10 @@
 // convolution with stride 1, dilation 1 and one group, NCHW / OIHW.
 //
 // Replace the TPU kernels of mxnet_tpu/ops/pallas_kernels.py:
-//   * K2 conv_wgrad_kernel (+ conv_wgrad_reduce_kernel) <- `_conv_wgrad_kernel`
-//     (launched by `conv_bwd_filter`):
+//   * K2 <- `_conv_wgrad_kernel` (launched by `conv_bwd_filter`):
 //       gw[o, c, i, j] = sum_{n, y, x} g[n, o, y, x] * xpad[n, c, y + i, x + j]
+//     (bf16: conv_wgrad_sm90, TMA and wgmma; f32: conv_wgrad_kernel; both
+//     then conv_wgrad_reduce_kernel)
 //   * K3 <- `_conv_dgrad_kernel` (launched by `conv_bwd_input`): the
 //     stride-1 correlation of the (k-1-p)-padded grad with the
 //     180-degree-rotated, O<->C-swapped filter, i.e.
@@ -16,57 +17,76 @@
 //
 // What bounds them on the H100. Each is an implicit GEMM: per tap, K2 is an
 // O x C product reduced over M = N*OH*OW, and K3 an (N*H*W) x C product
-// reduced over O * taps. At ResNet-50's shapes that is 2*M*O*C*taps flops
-// against a few bytes per input element, hundreds of operations per byte:
-// the bound is the tensor cores' rate. What the designs do:
-//   * K3, bf16 (conv_dgrad_sm90, flash_sm90.cuh's TMA, mbarrier and wgmma
-//     pieces): M = an 8 x 8 patch of one image's positions, N = 64 (C <=
-//     64) or 128 channels, K = taps * O in steps of 64 o. TMA wants byte
-//     strides that are multiples of 16, which a row of NCHW g (OW * 2 B: 14,
-//     28, 56 B at OW 7, 14, 28) is not, so transpose_bf16 first writes g
-//     channels-last (N, OH, OW, O) and w as (C, kh, kw, O) into workspaces
-//     the wrapper allocates (O % 8 == 0 in the envelope; the JAX wrapper
-//     transposes outside its kernel too): two batched 2-D transposes
-//     through shared memory, coalesced both ways, ~1/3 of K3's bytes. A
-//     step's A tile is one 4-D box (o 64, x 8, y 8, n 1) of g at the tap's
-//     shift: 64 rows of 128 B with the 128 B swizzle, Tile<64>'s layout,
-//     read K-major; TMA fills coordinates outside OH x OW (negative ones
-//     too) and past O with zeros, which covers the halo and the ragged
-//     edges without a padded copy. Its B tile is one 3-D box (o 64, tap 1,
-//     c N) of the permuted weight, K-major. The steps stream through a
-//     4-stage ring in one fixed order (tap major, o chunk minor) into SS
-//     wgmma m64nNk16, one group left in flight while the stage before is
-//     refilled. An 8 x 8 patch tiles 56 x 56 exactly; at 28, 14 and 7
-//     about 23% of the tiled positions fall outside the image and are
-//     computed but not stored. Stores are f32 NCHW, x fastest across the
-//     lanes of a quad group.
-//   * K2, and K3 in f32, multiply with f32 FMAs on the CUDA cores from
-//     64 x 64 tiles staged in shared memory (256 threads, a 4 x 4
-//     micro-tile each, a reduction chunk of 16); the f32 limit (1e-4)
-//     rules out TF32 tensor cores for K3 in f32, and K2 waits for its own
-//     redesign. No im2col: the tap's shifted window of x (K2) or of g (K3)
-//     is read in place from NCHW through its index arithmetic; the halo of
-//     the padding comes from masked loads that read zero. Loads walk the
-//     reduction's contiguous axis (the spatial index) across neighbouring
-//     threads, so global reads coalesce along W.
-//   * K2 fills the card by splitting M. At ResNet-50's stage-1 shapes
-//     M = 32*56*56 = 100,352 while O x C is 64 x 64: one block per output
-//     tile would leave most of the 132 SMs idle. The grid is therefore
-//     (C tiles, O tiles, taps * splits); block s sums its fixed range of M
-//     chunks and writes an f32 partial to a workspace the wrapper
-//     allocates, and conv_wgrad_reduce_kernel sums the partials over s in
-//     a fixed order while laying the result out as (O, C, kh, kw). No
-//     atomics: a repeated launch gives the same bits.
-//   * K3 has one owner per output tile of (N*H*W) x C in both kernels; the
-//     reduction over the taps and O runs inside the block in a fixed
-//     order, so it is bitwise-repeatable too.
+// reduced over O * taps. The 3 x 3 convolutions of ResNet-50 do hundreds
+// of operations per byte of input: the tensor cores' rate bounds them. Its
+// 1 x 1 ones do 2 * O * C / (2 * (O + C)) = O * C / (O + C), 32 to 410,
+// against the card's 295 a byte, so most are bound by bytes (32x64x56x56
+// -> 256 reads 64 MB for 3.3 GFLOP: 19 us of HBM against 3 us of math),
+// and there a layout copy of an operand costs as much as the product. What the designs do:
+//   * K2, bf16 (conv_wgrad_sm90, flash_sm90.cuh's TMA, mbarrier and wgmma
+//     pieces): per tap D[O x C] += A[O x K] * B[K x C] with K running over
+//     positions, 64 a step. Both operands come channels-last, so along K
+//     both are MN-major: a step's A is a box (o 64, x 8, y 8, n 1) of
+//     channels-last g and its B one or two boxes (c 64, x 8, y 8, n 1) of
+//     channels-last x at the tap's shift (x0 + j - pw, y0 + i - ph), each
+//     64 rows of 128 B with the 128 B swizzle (Tile<64>'s layout, a
+//     128-channel B two boxes 8 KB apart, LBO), read by SS wgmma
+//     m64nNk16 with both transpose bits; TMA fills coordinates outside
+//     H x W (negative ones too), positions past OH x OW and channels past
+//     O or C with zeros, so the halo and the ragged edges need no padded
+//     copy. The layout copies are transpose_bf16's (below): x_cl by this
+//     entry point, g_cl by it too or, in a backward that wants both
+//     gradients, once for K2 and K3 together (mxtt_conv_channels_last).
+//     The 1 x 1 convolutions with no padding (33 of ResNet-50's 46) skip
+//     the patches, which waste 23% of the positions at 28, 14 and 7: a
+//     step is 64 consecutive positions. Where an NCHW row (H * W * 2
+//     bytes) is a multiple of 16 (56 x 56, 28 x 28) and g and x start on a
+//     16-byte boundary, TMA reads them in place as boxes (position 64, o or
+//     c 64, n 1), K-major, and no copy is made, which is what bounds those
+//     shapes; else the N*OH*OW rows of the channels-last copies. A CTA is
+//     two warpgroups of 64 o each where O > 64, sharing each stage's x
+//     tile (half the shared-memory bytes a product of one), else one; a
+//     4-stage ring, one wgmma group left in flight. M is split so the CTAs
+//     fill one wave of the CTAs that fit the card by their shared memory
+//     and no more (kernels.wgrad_splits_sm90): a second, short wave doubled
+//     the time of the 3 x 3 shapes. Block s
+//     writes an f32 partial to a workspace and conv_wgrad_reduce_kernel
+//     sums the partials over s in a fixed order while laying the result
+//     out as (O, C, kh, kw). No atomics: a repeat gives the same bits.
+//   * K3, bf16 (conv_dgrad_sm90, the same pieces): M = an 8 x 8 patch of
+//     one image's positions, N = 64 (C <= 64) or 128 channels, K = taps *
+//     O in steps of 64 o. TMA wants byte strides that are multiples of 16,
+//     which a row of NCHW g (OW * 2 B: 14, 28, 56 B at OW 7, 14, 28) is
+//     not, so it reads g channels-last (N, OH, OW, O) and w as
+//     (C, kh, kw, O) (O % 8 == 0 in the envelope; the JAX wrapper
+//     transposes outside its kernel too). A step's A tile is one 4-D box
+//     (o 64, x 8, y 8, n 1) of g at the tap's shift, read K-major; its B
+//     tile one 3-D box (o 64, tap 1, c N) of the permuted weight, K-major.
+//     The steps stream through a 4-stage ring in one fixed order (tap
+//     major, o chunk minor) into SS wgmma m64nNk16, one group left in
+//     flight while the stage before is refilled. Stores are f32 NCHW, x
+//     fastest across the lanes of a quad group. One owner per output tile:
+//     bitwise-repeatable.
+//   * The layout copies (transpose_bf16, transpose_bf16_pairs): batched
+//     2-D transposes through shared memory, coalesced both ways; where rows
+//     and columns are even and both arrays start on a 4-byte boundary,
+//     64 x 64 tiles moved two values a thread per 4-byte access.
+//   * f32 K2 and K3 multiply with f32 FMAs on the CUDA cores from 64 x 64
+//     tiles staged in shared memory (256 threads, a 4 x 4 micro-tile each,
+//     a reduction chunk of 16); the f32 limit (1e-4) rules out TF32 tensor
+//     cores. No im2col: the tap's shifted window of x (K2) or of g (K3) is
+//     read in place from NCHW through its index arithmetic; the halo of
+//     the padding comes from masked loads that read zero. f32 K2 splits M
+//     as above (kernels.wgrad_splits: about four blocks an SM).
 //
-// Entry points: mxtt_conv_bwd_filter and mxtt_conv_bwd_input (plain C, loaded
-// with ctypes). Each returns the cudaError_t of its launches (0 on success)
-// and never synchronises.
+// Entry points: mxtt_conv_bwd_filter, mxtt_conv_bwd_input and
+// mxtt_conv_channels_last (plain C, loaded with ctypes). Each returns the
+// cudaError_t of its launches (0 on success) and never synchronises.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "flash_sm90.cuh"
 
@@ -78,7 +98,6 @@ constexpr int kThreads = 256;       // 16 x 16 threads, 4 x 4 outputs each
 constexpr int kPitch = kTile + 4;   // shared row pitch: keeps float4 alignment
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 struct Geo {
   int n, c, h, w, o, kh, kw, ph, pw, oh, ow;
@@ -249,6 +268,19 @@ Geo make_geo(int n, int c, int h, int w, int o, int kh, int kw, int ph, int pw, 
   return q;
 }
 
+// K2's second pass over the partials of either first pass
+cudaError_t launch_wgrad_reduce(const void* ws, void* gw, const Geo& q, int splits,
+                                cudaStream_t stream) {
+  const int taps = q.kh * q.kw;
+  const long long oc = static_cast<long long>(q.o) * q.c;
+  const long long total = oc * taps;
+  const long long want = (total + 255) / 256;
+  const int blocks = static_cast<int>(want < 4096 ? want : 4096);
+  conv_wgrad_reduce_kernel<<<blocks, 256, 0, stream>>>(static_cast<const float*>(ws),
+                                                       static_cast<float*>(gw), splits, taps, oc);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_wgrad(const void* x, const void* g, void* ws, void* gw, const Geo& q,
                          int splits, int per_split, cudaStream_t stream) {
@@ -260,15 +292,9 @@ cudaError_t launch_wgrad(const void* x, const void* g, void* ws, void* gw, const
   conv_wgrad_kernel<T><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(g), static_cast<float*>(ws), q, m_total,
       splits, per_split);
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const long long oc = static_cast<long long>(q.o) * q.c;
-  const long long total = oc * taps;
-  const long long want = (total + 255) / 256;
-  const int blocks = static_cast<int>(want < 4096 ? want : 4096);
-  conv_wgrad_reduce_kernel<<<blocks, 256, 0, stream>>>(static_cast<const float*>(ws),
-                                                       static_cast<float*>(gw), splits, taps, oc);
-  return cudaGetLastError();
+  return launch_wgrad_reduce(ws, gw, q, splits, stream);
 }
 
 template <typename T>
@@ -293,14 +319,19 @@ constexpr int kConvStages = 4;  // ring depth over (tap, o chunk) steps
 constexpr int kPatch = 8;       // an M tile is an 8 x 8 patch of one image's positions
 constexpr int kChunk = 64;      // o of one k step: 128 B rows, the 128 B swizzle
 
-// Shared-memory map of one CTA: kConvStages stages of (A: 64 positions x
-// 64 o, B: kN channels x 64 o), both 128 B rows with the 128 B swizzle,
-// i.e. Tile<64>'s layout, read K-major; then kConvStages "full" and
-// kConvStages "empty" barriers.
-template <int kN>
+constexpr int kBox = kRows * 2 * kChunk;  // one 64 x 64 bf16 box: 64 rows of 128 B
+
+// Shared-memory map of one CTA: kConvStages stages of (A: kA boxes, B:
+// kN / 64 boxes), each box 64 rows of 128 B with the 128 B swizzle, i.e.
+// Tile<64>'s layout; then kConvStages "full" and kConvStages "empty"
+// barriers. K3: A is 64 positions x 64 o, B kN channels x 64 o, both read
+// K-major. K2: A is kA boxes of 64 positions x 64 o (one a warpgroup), B
+// kN / 64 boxes of 64 positions x 64 channels, both read MN-major.
+// kernels.wgrad_ctas_per_sm90 counts K2's CTAs an SM from kSmemBytes.
+template <int kN, int kA = 1>
 struct ConvRing {
-  static constexpr int kABytes = kRows * 2 * kChunk;
-  static constexpr int kBBytes = kN * 2 * kChunk;
+  static constexpr int kABytes = kA * kBox;
+  static constexpr int kBBytes = kN / kChunk * kBox;
   static constexpr int kStage = kABytes + kBBytes;  // a multiple of 1024
   static constexpr int kBarOffset = kConvStages * kStage;
   static constexpr size_t kSmemBytes = 1024 + kBarOffset + 8 * 2 * kConvStages;
@@ -438,22 +469,58 @@ __global__ void __launch_bounds__(kT * 8)
   }
 }
 
+constexpr int kTP = 64;  // the paired transposes' tile
+
+// transpose_bf16 where rows and cols are even: a 64 x 64 tile, each
+// thread moving two values in each 4-byte load and store, so a warp reads
+// and writes 128 B runs and keeps four times the bytes in flight
+__global__ void __launch_bounds__(kT * 8)
+    transpose_bf16_pairs(const uint16_t* __restrict__ in, uint16_t* __restrict__ out, int rows,
+                         int cols) {
+  __shared__ __align__(4) uint16_t tile[kTP][kTP + 2];
+  const long long base = static_cast<long long>(blockIdx.z) * rows * cols;
+  const int c0 = blockIdx.x * kTP, r0 = blockIdx.y * kTP;
+  const int two = 2 * threadIdx.x;
+  for (int j = threadIdx.y; j < kTP; j += 8) {
+    const int r = r0 + j, c = c0 + two;
+    if (r < rows && c < cols)
+      *reinterpret_cast<uint32_t*>(&tile[j][two]) =
+          *reinterpret_cast<const uint32_t*>(in + base + static_cast<long long>(r) * cols + c);
+  }
+  __syncthreads();
+  for (int j = threadIdx.y; j < kTP; j += 8) {
+    const int c = c0 + j, r = r0 + two;
+    if (r < rows && c < cols)
+      *reinterpret_cast<uint32_t*>(out + base + static_cast<long long>(c) * rows + r) =
+          tile[two][j] | static_cast<uint32_t>(tile[two + 1][j]) << 16;
+  }
+}
+
 cudaError_t transpose(const void* in, void* out, int batch, int rows, int cols,
                       cudaStream_t stream) {
-  const dim3 grid((cols + kT - 1) / kT, (rows + kT - 1) / kT, batch);
-  transpose_bf16<<<grid, dim3(kT, 8), 0, stream>>>(static_cast<const uint16_t*>(in),
-                                                   static_cast<uint16_t*>(out), rows, cols);
+  const auto src = static_cast<const uint16_t*>(in);
+  const auto dst = static_cast<uint16_t*>(out);
+  const bool words = reinterpret_cast<uintptr_t>(in) % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(out) % 4 == 0;
+  if (words && rows % 2 == 0 && cols % 2 == 0) {
+    const dim3 grid((cols + kTP - 1) / kTP, (rows + kTP - 1) / kTP, batch);
+    transpose_bf16_pairs<<<grid, dim3(kT, 8), 0, stream>>>(src, dst, rows, cols);
+  } else {
+    const dim3 grid((cols + kT - 1) / kT, (rows + kT - 1) / kT, batch);
+    transpose_bf16<<<grid, dim3(kT, 8), 0, stream>>>(src, dst, rows, cols);
+  }
   return cudaGetLastError();
 }
 
 // g (N, O, OH, OW) and w (O, C, kh, kw), contiguous bf16, are first
 // transposed into the layouts TMA reads (byte strides multiples of 16, as
-// O % 8 == 0): g_cl channels-last (N, OH, OW, O) and w_t (C, kh, kw, O)
+// O % 8 == 0): g_cl channels-last (N, OH, OW, O), unless the caller made
+// it already (g_ready), and w_t (C, kh, kw, O)
 template <int kN>
 cudaError_t launch_dgrad_bf16(const void* g, const void* wt, void* g_cl, void* w_t, void* dx,
-                              const Geo& q, cudaStream_t stream) {
+                              const Geo& q, bool g_ready, cudaStream_t stream) {
   const int taps = q.kh * q.kw;
-  cudaError_t err = transpose(g, g_cl, q.n, q.o, q.oh * q.ow, stream);
+  cudaError_t err = g_ready ? cudaSuccess : transpose(g, g_cl, q.n, q.o, q.oh * q.ow, stream);
   if (err != cudaSuccess) return err;
   err = transpose(wt, w_t, 1, q.o, q.c * taps, stream);
   if (err != cudaSuccess) return err;
@@ -482,31 +549,281 @@ cudaError_t launch_dgrad_bf16(const void* g, const void* wt, void* g_cl, void* w
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------------ bf16 K2
+
+// K2's k steps. Step s is 64 positions: the box (x box_x, y box_y) at
+// (x0, y0) of image n, with x0 = (s % tiles_x) * box_x, y0 = (s / tiles_x %
+// tiles_y) * box_y and n = s / (tiles_x * tiles_y). That is an 8 x 8 patch
+// of one image (patch); or, for a 1 x 1 kernel with no padding, 64
+// consecutive positions of one image's H * W row of NCHW g and x, read in
+// place where its byte stride H * W * 2 is a multiple of 16 and both start on
+// a 16-byte boundary (nchw), else of
+// the N * OH * OW rows of g_cl and x_cl, read as one image 64 x 1 wide
+// (flat).
+struct WgradSteps {
+  int images, tiles_y, tiles_x, box_y, box_x;
+  int splits, per_split;  // split s takes steps [s * per_split, (s + 1) * per_split)
+};
+
+// thread 0: k step kt of the CTA (step `step` of the tap's GEMM) into its
+// stage: kA boxes (o 64, x, y, n) of g_cl at (o0 + 64 b, x0, y0, n) and
+// kN / 64 boxes (c 64, x, y, n) of x_cl at the tap's shift (c0 + 64 b,
+// x0 + j - pw, y0 + i - ph, n); coordinates outside H x W (negative ones
+// too), positions past OH x OW or M, and o or c past O or C read as zeros.
+// kNchw: the boxes (position 64, o 64, n 1) of g and (position 64, c 64,
+// n 1) of x at (x0, o0 + 64 b, n) and (x0, c0 + 64 b, n) instead, zero past
+// H * W, O and C.
+template <int kN, int kA, bool kNchw>
+__device__ __forceinline__ void wgrad_load(const ConvRing<kN, kA>& ring, const CUtensorMap* gmap,
+                                           const CUtensorMap* xmap, const WgradSteps& p, int kt,
+                                           int step, int o0, int c0, int dy, int dx) {
+  const int s = kt % kConvStages;
+  const int rest = step / p.tiles_x;
+  const int x0 = (step - rest * p.tiles_x) * p.box_x;
+  const int y0 = (rest % p.tiles_y) * p.box_y, n = rest / p.tiles_y;
+  mbar_expect_tx(ring.full(s), ConvRing<kN, kA>::kStage);
+#pragma unroll
+  for (int b = 0; b < kA; ++b) {
+    if constexpr (kNchw)
+      tma_load_3d(ring.a_tile(s) + b * kBox, gmap, ring.full(s), x0, o0 + b * kChunk, n);
+    else
+      tma_load_4d(ring.a_tile(s) + b * kBox, gmap, ring.full(s), o0 + b * kChunk, x0, y0, n);
+  }
+#pragma unroll
+  for (int b = 0; b < kN / kChunk; ++b) {
+    if constexpr (kNchw)
+      tma_load_3d(ring.b_tile(s) + b * kBox, xmap, ring.full(s), x0, c0 + b * kChunk, n);
+    else
+      tma_load_4d(ring.b_tile(s) + b * kBox, xmap, ring.full(s), c0 + b * kChunk, x0 + dx,
+                  y0 + dy, n);
+  }
+}
+
+// K2, bf16, first pass: an implicit GEMM per tap, gw_tap (o x c) = sum over
+// positions of g_cl's box (positions x o) transposed times x_cl's shifted
+// box (positions x c). CTA (c tile, o tile, tap * splits + split), kW
+// warpgroups of 64 o each (A box wg) sharing the stage's x tile, sums the
+// steps of its split in one fixed order
+// through a ring of TMA stages, four SS wgmma m64nkNk16 a step with both
+// operands MN-major (kNchw: the NCHW boxes, o x positions and c x
+// positions, both K-major), one group left in flight while the previous
+// step's stage is refilled, and writes its f32 partial to
+// ws[split][tap][o][c].
+template <int kN, int kW, bool kNchw>
+__global__ void __launch_bounds__(kThreads * kW)
+    conv_wgrad_sm90(const __grid_constant__ CUtensorMap gmap,
+                    const __grid_constant__ CUtensorMap xmap, float* __restrict__ ws, Geo q,
+                    WgradSteps p) {
+  extern __shared__ uint8_t smem_raw[];
+  const ConvRing<kN, kW> ring{aligned_smem_base(smem_raw)};
+  const int tid = threadIdx.x;
+  const int wg = tid / kThreads, warp = tid % kThreads / 32, lane = tid % 32;
+  const int c0 = blockIdx.x * kN, o0 = blockIdx.y * kRows * kW;
+  const int tap = blockIdx.z / p.splits, split = blockIdx.z - tap * p.splits;
+  const int i = tap / q.kw, j = tap - i * q.kw;
+  const int first = split * p.per_split;
+  const int left = p.images * p.tiles_y * p.tiles_x - first;
+  const int n_k = left < p.per_split ? (left > 0 ? left : 0) : p.per_split;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kConvStages; ++s) {
+      mbar_init(ring.full(s), 1);
+      mbar_init(ring.empty(s), kThreads * kW);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int kt = 0; kt < kConvStages && kt < n_k; ++kt)
+      wgrad_load<kN, kW, kNchw>(ring, &gmap, &xmap, p, kt, first + kt, o0, c0, i - q.ph,
+                                j - q.pw);
+  __syncwarp();
+
+  float acc[kN / 2];
+#pragma unroll
+  for (int e = 0; e < kN / 2; ++e) acc[e] = 0.f;
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int s = kt % kConvStages;
+    mbar_wait(ring.full(s), (kt / kConvStages) & 1);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kChunk / 16; ++kk) {
+      if constexpr (kNchw)
+        wgmma_ss_acc(acc, desc_kmajor<64>(ring.a_tile(s) + wg * kBox, kk),
+                     desc_kmajor<64>(ring.b_tile(s), kk));
+      else
+        wgmma_ss_mn(acc, desc_mnmajor<64>(ring.a_tile(s) + wg * kBox, kk),
+                    desc_mnmajor<kN>(ring.b_tile(s), kk));
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // step kt - 1 is done: release its stage for step kt - 1 + kConvStages
+    fence_regs(acc);
+    if (kt > 0) {
+      const int done = kt - 1, sd = done % kConvStages;
+      mbar_arrive(ring.empty(sd));
+      if (tid == 0 && done + kConvStages < n_k) {
+        mbar_wait(ring.empty(sd), (done / kConvStages) & 1);
+        wgrad_load<kN, kW, kNchw>(ring, &gmap, &xmap, p, done + kConvStages,
+                                  first + done + kConvStages, o0, c0, i - q.ph, j - q.pw);
+      }
+      __syncwarp();
+    }
+  }
+  wgmma_wait_all();
+  fence_regs(acc);
+
+  // row 16w + lane/4 + 8·half of the warpgroup's tile is o, column
+  // 8j + 2·(lane % 4) + e is c: float2 stores of o < O, c < C (C % 8 == 0)
+  float* out = ws + static_cast<long long>(split * q.kh * q.kw + tap) * q.o * q.c;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int o = o0 + kRows * wg + 16 * warp + lane / 4 + 8 * half;
+    if (o >= q.o) continue;
+    float* row = out + static_cast<long long>(o) * q.c;
+#pragma unroll
+    for (int jj = 0; jj < kN / 8; ++jj) {
+      const int c = c0 + 8 * jj + 2 * (lane % 4);
+      if (c < q.c)
+        *reinterpret_cast<float2*>(row + c) =
+            make_float2(acc[4 * jj + 2 * half], acc[4 * jj + 2 * half + 1]);
+    }
+  }
+}
+
+template <int kN, int kW, bool kNchw>
+cudaError_t launch_wgrad_tiles(const CUtensorMap& gmap, const CUtensorMap& xmap, void* ws,
+                               const Geo& q, const WgradSteps& p, cudaStream_t stream) {
+  const long long z = static_cast<long long>(q.kh) * q.kw * p.splits;
+  if (z > 65535) return cudaErrorInvalidConfiguration;
+  auto kern = conv_wgrad_sm90<kN, kW, kNchw>;
+  const size_t smem = ConvRing<kN, kW>::kSmemBytes;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((q.c + kN - 1) / kN, (q.o + kRows * kW - 1) / (kRows * kW),
+                  static_cast<unsigned>(z));
+  kern<<<grid, kThreads * kW, smem, stream>>>(gmap, xmap, static_cast<float*>(ws), q, p);
+  return cudaGetLastError();
+}
+
+// CTAs of two warpgroups (128 o) where O > 64, else of one
+template <int kN, bool kNchw>
+cudaError_t launch_wgrad_warpgroups(const CUtensorMap& gmap, const CUtensorMap& xmap, void* ws,
+                                    const Geo& q, const WgradSteps& p, cudaStream_t stream) {
+  return q.o > kRows ? launch_wgrad_tiles<kN, 2, kNchw>(gmap, xmap, ws, q, p, stream)
+                     : launch_wgrad_tiles<kN, 1, kNchw>(gmap, xmap, ws, q, p, stream);
+}
+
+// in_place: a 1 x 1 kernel with no padding whose NCHW rows of H * W * 2
+// bytes are multiples of 16, and whose g and x start on a 16-byte
+// boundary, reads g and x in place (nchw). Otherwise x (N, C, H, W)
+// and g (N, O, OH, OW), contiguous bf16, are first transposed into the
+// channels-last copies TMA reads (byte strides C * 2 and O * 2, multiples
+// of 16): x_cl (N, H, W, C) and, unless the caller made it already
+// (g_ready), g_cl (N, OH, OW, O). Then the first pass into ws and the
+// ordered reduce into gw.
+template <int kN>
+cudaError_t launch_wgrad_bf16(const void* x, const void* g, void* x_cl, void* g_cl, void* ws,
+                              void* gw, const Geo& q, int splits, int per_split, bool g_ready,
+                              bool in_place, cudaStream_t stream) {
+  const bool flat = q.kh == 1 && q.kw == 1 && q.ph == 0 && q.pw == 0;
+  const cuuint64_t o = q.o, c = q.c, n = q.n;
+  const cuuint64_t hw = static_cast<cuuint64_t>(q.oh) * q.ow;  // = H * W when flat
+  WgradSteps p;
+  p.splits = splits;
+  p.per_split = per_split;
+  cudaError_t err;
+  if (in_place) {
+    if (!flat || hw % 8 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(g) % 16 != 0)
+      return cudaErrorInvalidValue;
+    p.images = q.n; p.tiles_y = 1; p.box_y = 1; p.box_x = kRows;
+    p.tiles_x = static_cast<int>((hw + kRows - 1) / kRows);
+    const cuuint64_t gdims[3] = {hw, o, n}, xdims[3] = {hw, c, n};
+    const cuuint64_t gstrides[2] = {2 * hw, 2 * hw * o}, xstrides[2] = {2 * hw, 2 * hw * c};
+    const cuuint32_t box[3] = {kRows, kChunk, 1};
+    CUtensorMap gmap, xmap;
+    err = encode_bf16(&gmap, g, 3, gdims, gstrides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err != cudaSuccess) return err;
+    err = encode_bf16(&xmap, x, 3, xdims, xstrides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+    if (err != cudaSuccess) return err;
+    err = launch_wgrad_warpgroups<kN, true>(gmap, xmap, ws, q, p, stream);
+    if (err != cudaSuccess) return err;
+    return launch_wgrad_reduce(ws, gw, q, splits, stream);
+  }
+  err = g_ready ? cudaSuccess : transpose(g, g_cl, q.n, q.o, q.oh * q.ow, stream);
+  if (err != cudaSuccess) return err;
+  err = transpose(x, x_cl, q.n, q.c, q.h * q.w, stream);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t m = n * hw;
+  cuuint64_t gdims[4], xdims[4];
+  if (flat) {
+    p.images = 1; p.tiles_y = 1; p.box_y = 1; p.box_x = kRows;
+    p.tiles_x = static_cast<int>((m + kRows - 1) / kRows);
+    const cuuint64_t gd[4] = {o, m, 1, 1}, xd[4] = {c, m, 1, 1};
+    for (int d = 0; d < 4; ++d) { gdims[d] = gd[d]; xdims[d] = xd[d]; }
+  } else {
+    p.images = q.n; p.box_y = kPatch; p.box_x = kPatch;
+    p.tiles_y = (q.oh + kPatch - 1) / kPatch;
+    p.tiles_x = (q.ow + kPatch - 1) / kPatch;
+    const cuuint64_t gd[4] = {o, static_cast<cuuint64_t>(q.ow), static_cast<cuuint64_t>(q.oh), n};
+    const cuuint64_t xd[4] = {c, static_cast<cuuint64_t>(q.w), static_cast<cuuint64_t>(q.h), n};
+    for (int d = 0; d < 4; ++d) { gdims[d] = gd[d]; xdims[d] = xd[d]; }
+  }
+  const cuuint64_t gstrides[3] = {2 * o, 2 * o * gdims[1], 2 * o * gdims[1] * gdims[2]};
+  const cuuint64_t xstrides[3] = {2 * c, 2 * c * xdims[1], 2 * c * xdims[1] * xdims[2]};
+  const cuuint32_t box[4] = {kChunk, static_cast<cuuint32_t>(p.box_x),
+                             static_cast<cuuint32_t>(p.box_y), 1};
+  CUtensorMap gmap, xmap;
+  err = encode_bf16(&gmap, g_cl, 4, gdims, gstrides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return err;
+  err = encode_bf16(&xmap, x_cl, 4, xdims, xstrides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != cudaSuccess) return err;
+  err = launch_wgrad_warpgroups<kN, false>(gmap, xmap, ws, q, p, stream);
+  if (err != cudaSuccess) return err;
+  return launch_wgrad_reduce(ws, gw, q, splits, stream);
+}
+
 }  // namespace
 }  // namespace sm90
 
 // gw (O, C, kh, kw) f32 from x (N, C, H, W) and g (N, O, OH, OW), both f32 or
-// both bf16, contiguous; ws holds splits * kh * kw * O * C floats.
-extern "C" int mxtt_conv_bwd_filter(const void* x, const void* g, void* ws, void* gw, int n,
-                                    int c, int h, int w, int o, int kh, int kw, int ph, int pw,
-                                    int oh, int ow, int splits, int per_split, int is_bf16,
+// both bf16, contiguous; ws holds splits * kh * kw * O * C floats. bf16 also
+// takes x_cl and g_cl, room for N*C*H*W and N*O*OH*OW bf16 values (the
+// channels-last copies TMA reads); with g_ready, g_cl already holds g's
+// (mxtt_conv_channels_last); with in_place, g and x are read in place
+// (kernels.wgrad_mode_sm90's "nchw") and x_cl and g_cl are unused. f32
+// ignores all four.
+extern "C" int mxtt_conv_bwd_filter(const void* x, const void* g, void* x_cl, void* g_cl,
+                                    void* ws, void* gw, int n, int c, int h, int w, int o, int kh,
+                                    int kw, int ph, int pw, int oh, int ow, int splits,
+                                    int per_split, int is_bf16, int g_ready, int in_place,
                                     void* stream) {
   if (n <= 0 || c <= 0 || o <= 0 || oh <= 0 || ow <= 0) return 0;
   const Geo q = make_geo(n, c, h, w, o, kh, kw, ph, pw, oh, ow);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = is_bf16
-      ? launch_wgrad<__nv_bfloat16>(x, g, ws, gw, q, splits, per_split, s)
-      : launch_wgrad<float>(x, g, ws, gw, q, splits, per_split, s);
+  cudaError_t err;
+  if (!is_bf16)
+    err = launch_wgrad<float>(x, g, ws, gw, q, splits, per_split, s);
+  else if (c <= 64)
+    err = sm90::launch_wgrad_bf16<64>(x, g, x_cl, g_cl, ws, gw, q, splits, per_split, g_ready,
+                                      in_place, s);
+  else
+    err = sm90::launch_wgrad_bf16<128>(x, g, x_cl, g_cl, ws, gw, q, splits, per_split, g_ready,
+                                       in_place, s);
   return static_cast<int>(err);
 }
 
 // dx (N, C, H, W) f32 from g (N, O, OH, OW) and w (O, C, kh, kw), both f32 or
 // both bf16, contiguous. bf16 also takes g_cl and w_t, room for N*O*OH*OW
 // and O*C*kh*kw bf16 values (the transposed copies TMA reads; O % 8 == 0);
-// f32 ignores them.
+// with g_ready, g_cl already holds g's. f32 ignores them.
 extern "C" int mxtt_conv_bwd_input(const void* g, const void* wt, void* g_cl, void* w_t, void* dx,
                                    int n, int c, int h, int w, int o, int kh, int kw, int ph,
-                                   int pw, int oh, int ow, int is_bf16, void* stream) {
+                                   int pw, int oh, int ow, int is_bf16, int g_ready,
+                                   void* stream) {
   if (n <= 0 || c <= 0 || h <= 0 || w <= 0) return 0;
   const Geo q = make_geo(n, c, h, w, o, kh, kw, ph, pw, oh, ow);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -514,8 +831,18 @@ extern "C" int mxtt_conv_bwd_input(const void* g, const void* wt, void* g_cl, vo
   if (!is_bf16)
     err = launch_dgrad<float>(g, wt, dx, q, s);
   else if (c <= 64)
-    err = sm90::launch_dgrad_bf16<64>(g, wt, g_cl, w_t, dx, q, s);
+    err = sm90::launch_dgrad_bf16<64>(g, wt, g_cl, w_t, dx, q, g_ready, s);
   else
-    err = sm90::launch_dgrad_bf16<128>(g, wt, g_cl, w_t, dx, q, s);
+    err = sm90::launch_dgrad_bf16<128>(g, wt, g_cl, w_t, dx, q, g_ready, s);
   return static_cast<int>(err);
+}
+
+// out (batch, cols, rows) from in (batch, rows, cols), 16-bit values: the
+// channels-last copy of a bf16 conv gradient, (N, O, OH * OW) ->
+// (N, OH * OW, O), made once and handed to both K2 and K3 (g_ready)
+extern "C" int mxtt_conv_channels_last(const void* in, void* out, int batch, int rows, int cols,
+                                       void* stream) {
+  if (batch <= 0 || rows <= 0 || cols <= 0) return 0;
+  return static_cast<int>(
+      sm90::transpose(in, out, batch, rows, cols, static_cast<cudaStream_t>(stream)));
 }

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks of the bf16 kernels in flash_attn_fwd.cu
-// (K4f), flash_attn_bwd.cu (K4dq, K4dkv) and conv_bwd.cu (K3): a TMA tensor
+// (K4f), flash_attn_bwd.cu (K4dq, K4dkv) and conv_bwd.cu (K2, K3): a TMA tensor
 // map over one [B, T, H, D] bf16 operand (and over any bf16 array whose
 // byte strides are multiples of 16), an mbarrier ring, the shared-memory
 // descriptors of wgmma, and thin inline-PTX wrappers of
@@ -14,16 +14,17 @@
 // of the largest swizzle, so the pattern TMA writes is the one wgmma reads.
 // Any other box whose rows are 128 B (64 bf16) with the 128 B swizzle, and
 // whose row count is a multiple of 8, has Tile<64>'s layout row for row
-// (conv_bwd.cu's tiles: 64 positions, or 64 or 128 channels, by 64 o).
+// (conv_bwd.cu's tiles: 64 positions by 64 o, 64 or 128 channels, or 64 o).
 //
 // The same tile is read by wgmma two ways:
 //   * K-major (the reduction runs along D, e.g. Q and K in S = Q·Kᵀ): one
 //     k16 step is 32 bytes of every row; step kk starts 32·kk bytes into
 //     its box, the next 8-row group is 8 rows further (SBO).
 //   * MN-major (the reduction runs along the 64 rows, e.g. V in O += P·V,
-//     K in dq += dS·K, Q in dk += dSᵀ·Q): one k16 step is 16 rows; the
-//     transpose bit of B is set; SBO steps 8 rows, LBO steps from one
-//     64-column box to the next.
+//     K in dq += dS·K, Q in dk += dSᵀ·Q, and both operands of K2's
+//     gw += gᵀ·x): one k16 step is 16 rows; the operand's transpose bit
+//     is set; SBO steps 8 rows, LBO steps from one 64-column box to the
+//     next.
 // So no transposed copy of any tile is made.
 //
 // The accumulator of m64nN.f32 (and the register A operand made from it):
@@ -341,6 +342,44 @@ __device__ __forceinline__ void wgmma_ss_acc(float (&d)[32], uint64_t desc_a, ui
 }
 __device__ __forceinline__ void wgmma_ss_acc(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
   wgmma_ss_m64n128k16(d, desc_a, desc_b);
+}
+
+// d += A B over one k16 step, A (64 x 16) and B (16 x N) both MN-major in
+// shared memory (both transpose bits set): the reduction runs along the
+// tiles' rows for both operands, as in conv_bwd.cu's filter gradient;
+// N = 64 or 128 by the accumulator's size
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, 1, 1, 1, 1, "
+      "1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b));
+}
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, 1, 1, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b));
 }
 
 // d += A B over one k16 step, A (64 x 16 bf16) in registers, B (16 x N)

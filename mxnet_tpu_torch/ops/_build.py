@@ -46,9 +46,11 @@ KERNELS = {
         "flash_attn_bwd.cu", "mxtt_flash_attn_bwd_dkv",
         [_P] * 8 + [_I] * 4 + [_L] * 12 + [_F, _I, _I, _P]),
     "conv_bwd_filter": (
-        "conv_bwd.cu", "mxtt_conv_bwd_filter", [_P] * 4 + [_I] * 14 + [_P]),
+        "conv_bwd.cu", "mxtt_conv_bwd_filter", [_P] * 6 + [_I] * 16 + [_P]),
     "conv_bwd_input": (
-        "conv_bwd.cu", "mxtt_conv_bwd_input", [_P] * 5 + [_I] * 12 + [_P]),
+        "conv_bwd.cu", "mxtt_conv_bwd_input", [_P] * 5 + [_I] * 13 + [_P]),
+    "conv_channels_last": (
+        "conv_bwd.cu", "mxtt_conv_channels_last", [_P, _P, _I, _I, _I, _P]),
     "slab_update": (
         "slab_update.cu", "mxtt_slab_update",
         [_I, _I] + [_P] * 9 + [_L] + [_F] * 9 + [_I] * 4 + [_P]),

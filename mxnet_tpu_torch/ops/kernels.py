@@ -22,8 +22,10 @@ Layout convention as in the JAX package: [B, T, H, D].
 convolution inside ``conv_bwd_plan``'s envelope; ``conv_bwd_*_reference``
 are their plain versions, and ``conv2d_kernel_bwd`` is the convolution
 whose autograd backward runs them. Layout NCHW / OIHW, as in JAX; the bf16
-K3 kernel (an implicit GEMM through TMA and ``wgmma``) reads transposed
-copies whose plain version is ``conv_dgrad_layout``.
+kernels (implicit GEMMs through TMA and ``wgmma``) read transposed copies
+whose plain versions are ``conv_dgrad_layout`` (K3) and
+``conv_wgrad_layout`` (K2); the backward makes grad's channels-last copy
+once (``conv_grad_channels_last``) and hands it to both.
 
 ``fused_slab_update`` (K1) wraps ``csrc/slab_update.cu``: one bf16-AMP
 optimizer step (sgd, sgd_mom, adam) over a flat slab with a finite select
@@ -331,8 +333,12 @@ CONV_DTYPES = (torch.float32, torch.bfloat16)
 # no such limit (their tiles are fixed), and every in-envelope ResNet-50
 # body convolution is far below it.
 CONV_VMEM_BUDGET = 12 * 1024 * 1024
-_WGRAD_CHUNK = 16  # the kernels' reduction chunk (kK in conv_bwd.cu)
+_WGRAD_CHUNK = 16  # the f32 kernels' reduction chunk (kK in conv_bwd.cu)
 _WGRAD_TILE = 64  # their output tile (kTile)
+_SM90_STEP = 64  # bf16 K2's k step, in positions (kRows), and a warpgroup's o tile
+_SM90_PATCH = 8  # the side of its patch of positions (kPatch)
+_SM90_STAGES = 4  # the depth of its ring of TMA stages (kConvStages)
+_SM90_SMEM = 228 * 1024  # shared memory of an H100 SM, of which 1 KB a CTA is reserved
 
 
 @functools.lru_cache(maxsize=1024)
@@ -434,28 +440,157 @@ def wgrad_splits(o, c, taps, m, sm_count):
     return -(-chunks // per), per
 
 
-def conv_bwd_filter(data, grad, wshape, pad):
+def wgrad_mode_sm90(oh, ow, kh, kw, ph, pw, aligned=True):
+    """How bf16 K2 (``conv_wgrad_sm90``) reads its operands: ``"nchw"`` (a
+    1 x 1 kernel with no padding whose NCHW rows, OH·OW·2 bytes, TMA can
+    step, on x and grad that start on a 16-byte boundary, ``aligned``, as
+    TMA wants a tensor's base: both read in place), ``"flat"`` (another
+    1 x 1 with no padding: the channels-last copies as N·OH·OW rows) or
+    ``"patch"`` (the channels-last copies in 8 x 8 patches of each
+    image)."""
+    if kh == kw == 1 and ph == pw == 0:
+        return "nchw" if oh * ow % 8 == 0 and aligned else "flat"
+    return "patch"
+
+
+def wgrad_steps_sm90(mode, n, oh, ow):
+    """The k steps of bf16 K2, 64 positions each, in ``mode``
+    (:func:`wgrad_mode_sm90`): runs of 64 over each image's OH·OW (nchw)
+    or over all N·OH·OW positions (flat), or the 8 x 8 patches of every
+    image's OH x OW (patch)."""
+    if mode == "nchw":
+        return n * -(-oh * ow // _SM90_STEP)
+    if mode == "flat":
+        return -(-n * oh * ow // _SM90_STEP)
+    return n * -(-oh // _SM90_PATCH) * -(-ow // _SM90_PATCH)
+
+
+def wgrad_ctas_per_sm90(o_tile, c_tile, stages=_SM90_STAGES):
+    """How many bf16 K2 CTAs of ``o_tile`` o (64 a warpgroup) and ``c_tile``
+    channels fit an SM by shared memory: a ring of ``stages`` stages of
+    (o_tile + c_tile) / 64 boxes of 8 KB, 1 KB for the 1024-byte alignment,
+    16 B of barriers a stage, and the 1 KB the card reserves a CTA."""
+    smem = 1024 + stages * (o_tile + c_tile) // _SM90_STEP * 8192 + 16 * stages
+    return _SM90_SMEM // (smem + 1024)
+
+
+def wgrad_splits_sm90(o, c, taps, steps, sm_count, o_tile=None, stages=_SM90_STAGES):
+    """bf16 K2's split of its k steps: ``(splits, steps per split)``. A CTA
+    takes 128 o (two warpgroups) where O > 64, else 64 (``o_tile`` sets
+    it), and 64 channels where C <= 64, else 128; as many splits as keep
+    the (o tile, c tile, tap, split) CTAs within one wave of the card, of
+    :func:`wgrad_ctas_per_sm90` CTAs an SM, each split at least 8 steps;
+    one split where the tiles alone fill a wave or more. A function of the
+    shape and the SM count only, so a repeat sums in the same order."""
+    if o_tile is None:
+        o_tile = 2 * _SM90_STEP if o > _SM90_STEP else _SM90_STEP
+    c_tile = 2 * _SM90_STEP if c > _SM90_STEP else _SM90_STEP
+    tiles = -(-o // o_tile) * -(-c // c_tile) * taps
+    slots = sm_count * wgrad_ctas_per_sm90(o_tile, c_tile, stages)
+    splits = max(1, min(slots // tiles, steps // 8))
+    per = -(-steps // splits)
+    return -(-steps // per), per
+
+
+def wgrad_plan_sm90(data, grad, wshape, pad, sm_count):
+    """bf16 K2's plan for these tensors: ``(mode, splits, steps per
+    split)`` by :func:`wgrad_mode_sm90`, :func:`wgrad_steps_sm90` and
+    :func:`wgrad_splits_sm90`; "nchw" only where data and grad start on a
+    16-byte boundary."""
+    n, c, _, _, o, kh, kw, ph, pw, oh, ow = _conv_geometry(data.shape, wshape, pad)
+    aligned = data.data_ptr() % 16 == 0 and grad.data_ptr() % 16 == 0
+    mode = wgrad_mode_sm90(oh, ow, kh, kw, ph, pw, aligned)
+    return (mode, *wgrad_splits_sm90(o, c, kh * kw, wgrad_steps_sm90(mode, n, oh, ow),
+                                     sm_count))
+
+
+def conv_wgrad_layout(data, grad):
+    """The operands of the bf16 K2 kernel in the layouts TMA reads: data
+    (N, C, H, W) and grad (N, O, OH, OW) as contiguous channels-last
+    (N, H, W, C) and (N, OH, OW, O) tensors (rows of C·2 and O·2 bytes,
+    multiples of 16 inside ``conv_bwd_plan``). The plain version of the
+    transposes the kernel's entry point runs first (``transpose_bf16``)."""
+    return data.permute(0, 2, 3, 1).contiguous(), grad.permute(0, 2, 3, 1).contiguous()
+
+
+def conv_grad_channels_last(grad):
+    """grad (N, O, OH, OW) as the contiguous channels-last (N, OH, OW, O)
+    copy both bf16 kernels read: made once by a backward that wants both
+    gradients and handed to K2 and K3 as ``g_cl``. On a bf16 CUDA tensor
+    the layout transpose of ``csrc/conv_bwd.cu`` (``transpose_bf16``), on a
+    CPU tensor its plain version."""
+    if grad.device.type == "cpu":
+        return grad.permute(0, 2, 3, 1).contiguous()
+    if grad.dtype != torch.bfloat16 or grad.dim() != 4 or not grad.is_contiguous():
+        raise MXNetError("conv_grad_channels_last wants a contiguous 4-D bf16 tensor, got %s %s"
+                         % (grad.dtype, tuple(grad.shape)))
+    n, o, oh, ow = grad.shape
+    out = torch.empty((n, oh, ow, o), dtype=grad.dtype, device=grad.device)
+    fn = _build.load("conv_channels_last")
+    with torch.cuda.device(grad.device):
+        rc = fn(grad.data_ptr(), out.data_ptr(), n, o, oh * ow,
+                torch.cuda.current_stream(grad.device).cuda_stream)
+    if rc != 0:
+        raise MXNetError("conv_channels_last kernel launch failed: CUDA error %d" % rc)
+    return out
+
+
+def _grad_cl(name, grad, g_cl):
+    """(g_cl tensor, g_ready) for a bf16 kernel: the caller's channels-last
+    copy of grad, checked, or room for the entry point to make its own."""
+    if g_cl is None:
+        return torch.empty(grad.shape, dtype=grad.dtype, device=grad.device), 0
+    n, o, oh, ow = grad.shape
+    if (g_cl.dtype != grad.dtype or g_cl.device != grad.device or not g_cl.is_contiguous()
+            or tuple(g_cl.shape) != (n, oh, ow, o)):
+        raise MXNetError("%s: g_cl must be grad's contiguous channels-last copy %s %s, got %s %s"
+                         % (name, grad.dtype, (n, oh, ow, o), g_cl.dtype, tuple(g_cl.shape)))
+    if g_cl.data_ptr() % 16:
+        raise MXNetError("%s: g_cl must start on a 16-byte boundary (TMA reads it)" % name)
+    return g_cl, 1
+
+
+def conv_bwd_filter(data, grad, wshape, pad, *, g_cl=None):
     """K2, the filter gradient of a stride-1 2-D conv: data (N, C, H, W) and
     grad (N, O, OH, OW) -> f32 (O, C, kh, kw). On CUDA tensors the kernels of
-    ``csrc/conv_bwd.cu`` (no fallback; ``conv_bwd_filter.launches`` counts
-    the calls that launch them); on CPU tensors the plain version."""
+    ``csrc/conv_bwd.cu``: for bf16, ``conv_wgrad_sm90`` (TMA and ``wgmma``)
+    on data and grad in place (:func:`wgrad_plan_sm90` "nchw") or on the
+    channels-last copies :func:`conv_wgrad_layout` describes, which its
+    entry point makes in workspaces allocated here, unless ``g_cl``
+    (:func:`conv_grad_channels_last` of grad) is given; ``conv_wgrad_kernel``
+    for f32; both then ``conv_wgrad_reduce_kernel``. No fallback;
+    ``conv_bwd_filter.launches`` counts the calls that launch them. On CPU
+    tensors the plain version."""
     if data.device.type == "cpu":
         return conv_bwd_filter_reference(data, grad, wshape, pad)
     _check_conv_args("conv_bwd_filter", data, grad, tuple(data.shape), tuple(wshape), pad)
     geo = _conv_geometry(data.shape, wshape, pad)
-    n, c, _, _, o, kh, kw, _, _, oh, ow = geo
+    n, c, h, w, o, kh, kw, _, _, oh, ow = geo
     if tuple(grad.shape) != (n, o, oh, ow):
         raise MXNetError("conv_bwd_filter: grad %s does not match data %s and weight %s"
                          % (tuple(grad.shape), tuple(data.shape), tuple(wshape)))
-    sms = torch.cuda.get_device_properties(data.device).multi_processor_count
-    splits, per = wgrad_splits(o, c, kh * kw, n * oh * ow, sms)
-    ws = torch.empty((splits, kh * kw, o, c), dtype=torch.float32, device=data.device)
-    gw = torch.empty(tuple(wshape), dtype=torch.float32, device=data.device)
+    dev = data.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    bf16 = data.dtype == torch.bfloat16
+    mode = None
+    if bf16:
+        mode, splits, per = wgrad_plan_sm90(data, grad, wshape, pad, sms)
+    else:
+        splits, per = wgrad_splits(o, c, kh * kw, n * oh * ow, sms)
+    if bf16 and mode != "nchw":
+        x_cl = torch.empty((n, h, w, c), dtype=data.dtype, device=dev)
+        g_cl, g_ready = _grad_cl("conv_bwd_filter", grad, g_cl)
+    else:
+        x_cl = g_cl = torch.empty(0, dtype=data.dtype, device=dev)
+        g_ready = 0
+    ws = torch.empty((splits, kh * kw, o, c), dtype=torch.float32, device=dev)
+    gw = torch.empty(tuple(wshape), dtype=torch.float32, device=dev)
     fn = _build.load("conv_bwd_filter")
-    with torch.cuda.device(data.device):
-        stream = torch.cuda.current_stream(data.device).cuda_stream
-        rc = fn(data.data_ptr(), grad.data_ptr(), ws.data_ptr(), gw.data_ptr(), *geo,
-                splits, per, int(data.dtype == torch.bfloat16), stream)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(data.data_ptr(), grad.data_ptr(), x_cl.data_ptr(), g_cl.data_ptr(), ws.data_ptr(),
+                gw.data_ptr(), *geo, splits, per, int(bf16), g_ready, int(mode == "nchw"),
+                stream)
     if rc != 0:
         raise MXNetError("conv_bwd_filter kernel launch failed: CUDA error %d" % rc)
     conv_bwd_filter.launches += 1
@@ -476,14 +611,15 @@ def conv_dgrad_layout(grad, weight):
             weight.permute(1, 2, 3, 0).contiguous())
 
 
-def conv_bwd_input(grad, weight, dshape, pad):
+def conv_bwd_input(grad, weight, dshape, pad, *, g_cl=None):
     """K3, the data gradient of a stride-1 2-D conv: grad (N, O, OH, OW) and
     weight (O, C, kh, kw) -> f32 (N, C, H, W). On CUDA tensors the kernel of
     ``csrc/conv_bwd.cu`` (for bf16, ``conv_dgrad_sm90``, TMA and ``wgmma``,
-    on the transposed copies :func:`conv_dgrad_layout` describes, in two
-    workspaces allocated here; ``conv_dgrad_kernel`` for f32; no fallback;
-    ``conv_bwd_input.launches`` counts the calls that launch them); on CPU
-    tensors the plain version."""
+    on the transposed copies :func:`conv_dgrad_layout` describes, in
+    workspaces allocated here, grad's unless ``g_cl``
+    (:func:`conv_grad_channels_last` of grad) is given; ``conv_dgrad_kernel``
+    for f32; no fallback; ``conv_bwd_input.launches`` counts the calls that
+    launch them); on CPU tensors the plain version."""
     if grad.device.type == "cpu":
         return conv_bwd_input_reference(grad, weight, dshape, pad)
     _check_conv_args("conv_bwd_input", grad, weight, tuple(dshape), tuple(weight.shape), pad)
@@ -494,14 +630,17 @@ def conv_bwd_input(grad, weight, dshape, pad):
                          % (tuple(grad.shape), tuple(dshape), tuple(weight.shape)))
     bf16 = grad.dtype == torch.bfloat16
     # room for the bf16 kernel's transposed copies of grad and weight
-    g_cl = torch.empty(grad.shape if bf16 else 0, dtype=grad.dtype, device=grad.device)
+    if bf16:
+        g_cl, g_ready = _grad_cl("conv_bwd_input", grad, g_cl)
+    else:
+        g_cl, g_ready = torch.empty(0, dtype=grad.dtype, device=grad.device), 0
     w_t = torch.empty(weight.shape if bf16 else 0, dtype=grad.dtype, device=grad.device)
     dx = torch.empty((n, c, h, w), dtype=torch.float32, device=grad.device)
     fn = _build.load("conv_bwd_input")
     with torch.cuda.device(grad.device):
         stream = torch.cuda.current_stream(grad.device).cuda_stream
         rc = fn(grad.data_ptr(), weight.data_ptr(), g_cl.data_ptr(), w_t.data_ptr(),
-                dx.data_ptr(), *geo, int(bf16), stream)
+                dx.data_ptr(), *geo, int(bf16), g_ready, stream)
     if rc != 0:
         raise MXNetError("conv_bwd_input kernel launch failed: CUDA error %d" % rc)
     conv_bwd_input.launches += 1
@@ -517,7 +656,9 @@ class _Conv2dKernelBwd(torch.autograd.Function):
     (``ops/nn.py:451-465``): the forward is ``F.conv2d``; the backward runs
     K3 for the data gradient and K2 for the filter gradient (their plain
     versions for CPU tensors) and casts each f32 result to its input's
-    dtype. Both are looked up in this module at call time."""
+    dtype. Both are looked up in this module at call time. When both run
+    on bf16 CUDA tensors, grad's channels-last copy is made once and handed
+    to both (``g_cl``)."""
 
     @staticmethod
     def forward(ctx, data, weight, pad):
@@ -530,12 +671,15 @@ class _Conv2dKernelBwd(torch.autograd.Function):
     def backward(ctx, g):
         data, weight = ctx.saved_tensors
         g = g.to(data.dtype).contiguous()
+        shared = {}
+        if g.is_cuda and g.dtype == torch.bfloat16 and all(ctx.needs_input_grad[:2]):
+            shared["g_cl"] = conv_grad_channels_last(g)
         gd = gw = None
         if ctx.needs_input_grad[0]:
-            gd = conv_bwd_input(g, weight.contiguous(), tuple(data.shape), ctx.pad)
+            gd = conv_bwd_input(g, weight.contiguous(), tuple(data.shape), ctx.pad, **shared)
             gd = gd.to(data.dtype)
         if ctx.needs_input_grad[1]:
-            gw = conv_bwd_filter(data.contiguous(), g, tuple(weight.shape), ctx.pad)
+            gw = conv_bwd_filter(data.contiguous(), g, tuple(weight.shape), ctx.pad, **shared)
             gw = gw.to(weight.dtype)
         return gd, gw, None
 

@@ -34,9 +34,10 @@ compile-cache machinery has no counterpart here.
 ``--trace`` profiles two more steps of each row with ``torch.profiler``,
 the phases (``rn.forward``, ``rn.backward``, ``rn.update``) each followed
 by a synchronise, and writes the device time per phase and per kernel
-family (K2, K3, cuDNN convolutions, GEMMs, reductions, elementwise, the
-rest) and the idle share. ``--cpu --smoke`` runs a cifar ResNet-8 on the
-host to check the control flow; it measures nothing of the card.
+family (K2, K3, their bf16 layout transposes, cuDNN convolutions, GEMMs,
+reductions, elementwise, the rest) and the idle share. ``--cpu --smoke``
+runs a cifar ResNet-8 on the host to check the control flow; it measures
+nothing of the card.
 """
 from __future__ import annotations
 
@@ -58,9 +59,13 @@ LR, MOMENTUM, WD = 0.1, 0.9, 1e-4
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PHASES = ("rn.forward", "rn.backward", "rn.update")
 KERNEL_FAMILIES = (
-    ("conv_bwd_filter", ("conv_wgrad_kernel", "conv_wgrad_reduce_kernel")),
-    # conv_dgrad_kernel (f32), conv_dgrad_sm90 and its layout transposes (bf16)
-    ("conv_bwd_input", ("conv_dgrad_", "transpose_bf16")),
+    # conv_wgrad_kernel (f32), conv_wgrad_sm90 (bf16), conv_wgrad_reduce_kernel
+    ("conv_bwd_filter", ("conv_wgrad_",)),
+    # conv_dgrad_kernel (f32), conv_dgrad_sm90 (bf16)
+    ("conv_bwd_input", ("conv_dgrad_",)),
+    # the bf16 kernels' channels-last copies of x (K2), w (K3) and the
+    # gradient both read
+    ("conv_layout", ("transpose_bf16",)),
     ("cudnn_conv_bwd", ("dgrad", "wgrad")),
     ("cudnn_conv_fwd", ("fprop", "conv", "implicit", "cudnn")),
     ("gemm", ("nvjet", "gemm", "xmma", "cutlass")),

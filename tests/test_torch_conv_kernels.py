@@ -215,6 +215,177 @@ def test_dgrad_tiling_matches_plain_and_pallas(dshape, wshape, pad):
         assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
 
 
+def _emulate_wgrad_sm90(data, grad, wshape, pad, sm_count=132):
+    """What the bf16 K2 kernel computes, in plain torch on the copies
+    ``conv_wgrad_layout`` makes: per tap (i major, j minor) an (o x c)
+    GEMM over k steps of 64 positions, cut into CTA tiles of 128 o (two
+    warpgroups, each its own 64 o: A box 0 or 1) where O > 64, else 64,
+    by kN channels (kN = 64 when C <= 64, else 128: two 64-channel boxes),
+    in the mode ``wgrad_plan_sm90`` picks for these tensors. A step is an 8 x
+    8 patch of one image (image major, then y, then x): A the box (y 8, x 8,
+    o 64) of channels-last g at (y0, x0, o0), zero past OH x OW and O, B
+    the box (y 8, x 8, c kN) of channels-last x at (y0 + i - ph, x0 + j -
+    pw, c0), zero outside H x W and past C; for a 1 x 1 kernel with no
+    padding, 64 consecutive positions of one image's OH·OW in NCHW where
+    OH·OW·2 bytes is a multiple of 16 (zero past each image's end), else of
+    the N·OH·OW rows (zero past the end). ``wgrad_plan_sm90`` cuts the
+    steps into splits; each writes its f32 partial of the tiles' o < O,
+    c < C, and the partials are summed over the splits in order into
+    (O, C, kh, kw)."""
+    x_cl, g_cl = kernels.conv_wgrad_layout(data, grad)
+    n, h, w, c = x_cl.shape
+    _, oh, ow, o = g_cl.shape
+    _, _, kh, kw = wshape
+    ph, pw = pad
+    kn = 64 if c <= 64 else 128
+    o_tile = 128 if o > 64 else 64
+    mode, splits, per = kernels.wgrad_plan_sm90(data, grad, wshape, pad, sm_count)
+    steps = kernels.wgrad_steps_sm90(mode, n, oh, ow)
+    co, cc = o_tile * -(-o // o_tile), kn * -(-c // kn)
+    if mode == "nchw":
+        runs = -(-oh * ow // 64)
+        gp = torch.zeros(n, co, 64 * runs)
+        gp[:, :o, :oh * ow] = grad.float().reshape(n, o, -1)
+        xp = torch.zeros(n, cc, 64 * runs)
+        xp[:, :c, :h * w] = data.float().reshape(n, c, -1)
+
+        def boxes(step, i, j):
+            img, r = divmod(step, runs)
+            return (gp[img, :, 64 * r:64 * r + 64].T, xp[img, :, 64 * r:64 * r + 64].T)
+    elif mode == "flat":
+        gp = torch.zeros(64 * steps, co)
+        gp[:n * oh * ow, :o] = g_cl.float().reshape(-1, o)
+        xp = torch.zeros(64 * steps, cc)
+        xp[:n * h * w, :c] = x_cl.float().reshape(-1, c)
+
+        def boxes(step, i, j):
+            return gp[64 * step:64 * step + 64], xp[64 * step:64 * step + 64]
+    else:
+        ty, tx = -(-oh // 8), -(-ow // 8)
+        gp = torch.zeros(n, 8 * ty, 8 * tx, co)
+        gp[:, :oh, :ow, :o] = g_cl.float()
+        m = 8 + max(kh, kw)
+        xp = torch.zeros(n, h + 2 * m, w + 2 * m, cc)
+        xp[:, m:m + h, m:m + w, :c] = x_cl.float()
+
+        def boxes(step, i, j):
+            img, r = divmod(step, ty * tx)
+            y0, x0 = 8 * (r // tx), 8 * (r % tx)
+            ys, xs = m + y0 + i - ph, m + x0 + j - pw
+            return (gp[img, y0:y0 + 8, x0:x0 + 8].reshape(64, co),
+                    xp[img, ys:ys + 8, xs:xs + 8].reshape(64, cc))
+    ws = torch.full((splits, kh * kw, o, c), float("nan"))
+    for tap in range(kh * kw):
+        i, j = divmod(tap, kw)
+        for split in range(splits):
+            for o0 in range(0, o, o_tile):
+                for c0 in range(0, c, kn):
+                    for wg in range(o_tile // 64):
+                        ow0 = o0 + 64 * wg
+                        acc = torch.zeros(64, kn)
+                        for step in range(split * per, min(split * per + per, steps)):
+                            a, b = boxes(step, i, j)
+                            acc += a[:, ow0:ow0 + 64].T @ b[:, c0:c0 + kn]
+                        oe, ce = min(64, o - ow0), min(kn, c - c0)
+                        if oe > 0:
+                            ws[split, tap, ow0:ow0 + oe, c0:c0 + ce] = acc[:oe, :ce]
+    total = ws[0]
+    for split in range(1, splits):
+        total = total + ws[split]
+    return total.permute(1, 2, 0).reshape(o, c, kh, kw)
+
+
+@pytest.mark.parametrize("dshape,wshape,pad", CASES + [
+    ((1, 136, 7, 7), (16, 136, 3, 3), (1, 1)),  # two c boxes, a partial 128-channel tile
+    ((2, 16, 7, 7), (72, 16, 3, 3), (1, 1)),  # a partial o tile: 8 o of the second warpgroup
+    ((2, 16, 7, 7), (136, 16, 3, 3), (1, 1)),  # two CTAs of 128 o, one warpgroup empty
+    ((2, 16, 9, 11), (72, 16, 1, 1), (0, 0)),  # the same on the flat 1x1 path
+    ((3, 24, 9, 11), (40, 24, 5, 5), (2, 2)),  # the ragged 5x5 pad-2 case of chip_smoke
+    ((8, 8, 16, 16), (8, 8, 3, 3), (1, 1)),  # four splits of 8 patches
+    ((8, 16, 9, 15), (8, 16, 1, 1), (0, 0)),  # two splits of flat steps
+    ((4, 16, 16, 16), (8, 16, 1, 1), (0, 0)),  # NCHW in place, two splits of 8 steps
+    ((6, 16, 12, 12), (24, 16, 1, 1), (0, 0)),  # NCHW in place, a partial last run an image
+])
+def test_wgrad_tiling_matches_plain_and_pallas(dshape, wshape, pad):
+    """The bf16 K2 kernel's tiling, layouts and split, emulated on the CPU
+    on bf16-valued inputs: within 1e-5 of max against the plain version and
+    against JAX's conv_bwd_filter (Pallas, interpret mode). Index errors of
+    the card's kernel show here first."""
+    x, _, g = _inputs(dshape, wshape, pad, seed=4)
+    tx, tg = (torch.from_numpy(a).bfloat16() for a in (x, g))
+    got = _emulate_wgrad_sm90(tx, tg, wshape, pad)
+    plain = kernels.conv_bwd_filter_reference(tx, tg, wshape, pad)
+    jax_gw = np.asarray(pk.conv_bwd_filter(jnp.asarray(tx.float().numpy()),
+                                           jnp.asarray(tg.float().numpy()), wshape, pad))
+    for want in (plain.numpy(), jax_gw):
+        assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def test_wgrad_splits_sm90_cover_every_step_once():
+    """bf16 K2's split depends only on the shape and the SM count, leaves no
+    split empty and covers every k step exactly once; more than one split
+    keeps the (o, c, tap, split) CTAs within one wave of the card (by
+    shared memory three an SM of 64 o and 64 channels, two of 128 o or 128
+    channels, one of both; with a 3-stage ring three and two), each at
+    least 8 steps."""
+    per_sm = {(64, 64): 3, (64, 128): 2, (128, 64): 2, (128, 128): 1}
+    for (o_tile, c_tile), fit in per_sm.items():
+        assert kernels.wgrad_ctas_per_sm90(o_tile, c_tile) == fit
+    assert kernels.wgrad_ctas_per_sm90(128, 64, stages=3) == 3
+    assert kernels.wgrad_ctas_per_sm90(128, 128, stages=3) == 2
+    n_shapes = 0
+    for o, c, taps, steps, sms in itertools.product((8, 64, 72, 512), (8, 64, 136, 2048),
+                                                   (1, 9, 25), (1, 3, 25, 128, 1568), (8, 132)):
+        splits, per = kernels.wgrad_splits_sm90(o, c, taps, steps, sms)
+        assert (splits, per) == kernels.wgrad_splits_sm90(o, c, taps, steps, sms)
+        covered = [s for split in range(splits) for s in range(split * per,
+                                                                 min(split * per + per, steps))]
+        assert covered == list(range(steps)) and (splits - 1) * per < steps
+        o_tile, c_tile = (64 if o <= 64 else 128), (64 if c <= 64 else 128)
+        tiles = -(-o // o_tile) * -(-c // c_tile) * taps
+        assert splits == 1 or (tiles * splits <= sms * per_sm[o_tile, c_tile] and per >= 8)
+        n_shapes += 1
+    assert n_shapes == 480
+    # ResNet-50 at batch 32 on 132 SMs: 32x256x14x14 3x3, 32x64x56x56 1x1 -> 256
+    assert kernels.wgrad_steps_sm90("patch", 32, 14, 14) == 128
+    assert kernels.wgrad_splits_sm90(256, 256, 9, 128, 132) == (3, 43)
+    assert kernels.wgrad_steps_sm90("nchw", 32, 56, 56) == 1568  # 49 an image
+    assert kernels.wgrad_steps_sm90("flat", 32, 14, 14) == 98
+    assert kernels.wgrad_steps_sm90("nchw", 3, 12, 12) == 9  # 3 an image
+    assert kernels.wgrad_splits_sm90(256, 64, 1, 1568, 132) == (131, 12)
+    assert kernels.wgrad_splits_sm90(256, 64, 1, 1568, 132, o_tile=64) == (98, 16)
+    assert kernels.wgrad_splits_sm90(64, 256, 1, 1568, 132) == (131, 12)
+    assert kernels.wgrad_splits_sm90(512, 512, 9, 32, 132) == (1, 32)
+
+
+@pytest.mark.parametrize("offset", [(0, 0), (1, 0), (0, 1), (4, 0), (0, 8)])
+def test_wgrad_plan_sm90_reads_in_place_only_from_aligned_tensors(offset):
+    """bf16 K2 reads a 1 x 1 conv's NCHW data and grad in place only where
+    both start on a 16-byte boundary, as TMA wants a tensor's base; a
+    contiguous view at another storage offset goes the channels-last
+    (flat) route, whose copies the wrapper allocates, and the emulated
+    kernel on those views still matches the plain version."""
+    dshape, wshape, pad = (4, 16, 16, 16), (8, 16, 1, 1), (0, 0)
+    x, _, g = _inputs(dshape, wshape, pad, seed=6)
+
+    def at(a, skip):  # a's values in a contiguous bf16 view `skip` elements into its storage
+        flat = torch.zeros(a.size + 8, dtype=torch.bfloat16)
+        view = flat[skip:skip + a.size].view(a.shape)
+        view.copy_(torch.from_numpy(a))
+        return view
+
+    tx, tg = at(x, offset[0]), at(g, offset[1])
+    assert tx.is_contiguous() and tg.is_contiguous()
+    mode, splits, per = kernels.wgrad_plan_sm90(tx, tg, wshape, pad, 132)
+    aligned = all(k * 2 % 16 == 0 for k in offset)
+    assert mode == ("nchw" if aligned else "flat")
+    assert (splits, per) == kernels.wgrad_splits_sm90(
+        8, 16, 1, kernels.wgrad_steps_sm90(mode, 4, 16, 16), 132)
+    got = _emulate_wgrad_sm90(tx, tg, wshape, pad)
+    want = kernels.conv_bwd_filter_reference(tx, tg, wshape, pad)
+    assert torch.abs(got - want).max() <= 1e-5 * torch.abs(want).max()
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     """Outside the envelope, or on the CPU asked for a kernel launch, the
     wrappers raise rather than fall back (checked before any launch)."""
@@ -227,5 +398,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(MXNetError):  # f16 is outside the envelope
         kernels._check_conv_args("conv_bwd_input", g.half(), x.half(), (2, 8, 9, 9),
                                  (8, 8, 3, 3), (1, 1))
+    with pytest.raises(MXNetError):  # the layout kernel takes bf16 only
+        kernels.conv_grad_channels_last(g.to(meta))
+    with pytest.raises(MXNetError):  # a g_cl that is not grad's channels-last copy
+        kernels._grad_cl("conv_bwd_filter", g.bfloat16(), torch.zeros(2, 9, 8, 9).bfloat16())
+    with pytest.raises(MXNetError):  # grad's channels-last copy off a 16-byte boundary
+        kernels._grad_cl("conv_bwd_filter", g.bfloat16(),
+                         torch.zeros(2 * 9 * 9 * 8 + 1).bfloat16()[1:].view(2, 9, 9, 8))
+    np.testing.assert_array_equal(kernels.conv_grad_channels_last(g).numpy(),
+                                  g.permute(0, 2, 3, 1).numpy())
     assert kernels.wgrad_splits(64, 64, 1, 32 * 56 * 56, 132) == (523, 12)
     assert kernels.wgrad_splits(512, 512, 9, 32 * 7 * 7, 132) == (1, 98)

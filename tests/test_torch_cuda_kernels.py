@@ -209,6 +209,81 @@ def test_cuda_conv_bwd_kernels_match_plain_version():
 
 
 @pytest.mark.cuda
+def test_cuda_conv_bwd_kernels_take_views_off_a_16_byte_boundary():
+    """On the card, bf16: contiguous views that start 2 or 8 bytes past a
+    16-byte boundary, which TMA cannot take as a tensor's base and the
+    paired layout transposes cannot read a word at a time, go the routes
+    that can (K2's channels-last copies, the scalar transposes) and agree
+    with the plain versions to 1e-4 of max|plain|, as aligned inputs do."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator().manual_seed(7)
+
+    def at(shape, skip, scale=1.0):
+        size = 1
+        for d in shape:
+            size *= d
+        flat = torch.zeros(size + 8, dtype=torch.bfloat16, device="cuda")
+        view = flat[skip:skip + size].view(shape)
+        view.copy_(scale * torch.randn(shape, generator=g))
+        return view
+
+    for dshape, wshape, pad in [((4, 16, 16, 16), (8, 16, 1, 1), (0, 0)),
+                                ((2, 8, 10, 10), (16, 8, 3, 3), (1, 1)),
+                                ((2, 136, 8, 8), (72, 136, 1, 1), (0, 0))]:
+        n, _, h, w = dshape
+        o, _, kh, kw = wshape
+        oshape = (n, o, h + 2 * pad[0] - kh + 1, w + 2 * pad[1] - kw + 1)
+        for skip in (1, 4):
+            x, wt, gr = at(dshape, skip), at(wshape, skip, 0.1), at(oshape, skip)
+            assert x.data_ptr() % 16 and gr.data_ptr() % 16
+            mode = kernels.wgrad_plan_sm90(x, gr, wshape, pad, 132)[0]
+            assert mode != "nchw"
+            for got, want in ((kernels.conv_bwd_filter(x, gr, wshape, pad),
+                               kernels.conv_bwd_filter_reference(x, gr, wshape, pad)),
+                              (kernels.conv_bwd_input(gr, wt, dshape, pad),
+                               kernels.conv_bwd_input_reference(gr, wt, dshape, pad)),
+                              (kernels.conv_grad_channels_last(gr).float(),
+                               gr.permute(0, 2, 3, 1).float())):
+                torch.cuda.synchronize()
+                scale = want.abs().max().item()
+                assert (got - want).abs().max().item() <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_cuda_shared_channels_last_grad_gives_the_standalone_bits():
+    """On the card, bf16: grad's channels-last copy made once
+    (conv_grad_channels_last) and handed to K2 and K3, and the autograd
+    Function's backward that does so, give the bits of the two standalone
+    wrappers, each of which transposes grad itself; one launch of each
+    kernel per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator().manual_seed(5)
+    for dshape, wshape, pad in CONV_CASES:
+        n, _, h, w = dshape
+        o, _, kh, kw = wshape
+        oshape = (n, o, h + 2 * pad[0] - kh + 1, w + 2 * pad[1] - kw + 1)
+        x, wt, gr = (t.to("cuda", torch.bfloat16) for t in (
+            torch.randn(dshape, generator=g), 0.1 * torch.randn(wshape, generator=g),
+            torch.randn(oshape, generator=g)))
+        gw = kernels.conv_bwd_filter(x, gr, wshape, pad)
+        gx = kernels.conv_bwd_input(gr, wt, dshape, pad)
+        g_cl = kernels.conv_grad_channels_last(gr)
+        assert torch.equal(g_cl, gr.permute(0, 2, 3, 1).contiguous())
+        assert torch.equal(gw, kernels.conv_bwd_filter(x, gr, wshape, pad, g_cl=g_cl))
+        assert torch.equal(gx, kernels.conv_bwd_input(gr, wt, dshape, pad, g_cl=g_cl))
+        leaves = [x.clone().requires_grad_(), wt.clone().requires_grad_()]
+        counts = (kernels.conv_bwd_filter.launches, kernels.conv_bwd_input.launches)
+        kernels.conv2d_kernel_bwd(*leaves, pad).backward(gr)
+        torch.cuda.synchronize()
+        assert (kernels.conv_bwd_filter.launches, kernels.conv_bwd_input.launches) == (
+            counts[0] + 1, counts[1] + 1)
+        assert torch.equal(leaves[0].grad, gx.bfloat16())
+        assert torch.equal(leaves[1].grad, gw.bfloat16())
+
+
+@pytest.mark.cuda
 def test_cuda_convolution_gradient_runs_the_conv_kernels():
     """On the card: autograd through an in-envelope Convolution launches K2
     and K3 once each and agrees with autograd through F.conv2d (cuDNN,

@@ -332,11 +332,18 @@ def test_bench_forward_bf16_matches_jax_within_two_ulps():
     ("void (anonymous namespace)::conv_dgrad_kernel<float>(...)", "conv_bwd_input"),
     ("void sm90::(anonymous namespace)::conv_dgrad_sm90<128>(CUtensorMap_st, ...)",
      "conv_bwd_input"),
-    ("sm90::(anonymous namespace)::transpose_bf16(unsigned short const*, ...)", "conv_bwd_input"),
+    ("sm90::(anonymous namespace)::transpose_bf16(unsigned short const*, ...)", "conv_layout"),
     ("void cudnn::engines_precompiled::nchwToNhwcKernel<__nv_bfloat16, ...>", "cudnn_conv_fwd"),
     ("sm90_xmma_dgrad_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc", "cudnn_conv_bwd"),
+    ("void sm90::(anonymous namespace)::conv_wgrad_sm90<128, 1>(CUtensorMap_st, ...)",
+     "conv_bwd_filter"),
+    ("(anonymous namespace)::conv_wgrad_reduce_kernel(float const*, float*, int, int, long long)",
+     "conv_bwd_filter"),
+    ("sm90_xmma_wgrad_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc", "cudnn_conv_bwd"),
 ])
 def test_bench_kernel_families(name, fam):
     """The ResNet trace's kernel families, on kernel names an H100 run
-    reports: K3's Hopper kernel and its layout transposes count as K3."""
+    reports: the Hopper kernels of K2 and K3 count as K2 and K3, their
+    layout transposes (shared since the backward hands one channels-last
+    gradient to both) as a family of their own, cuDNN's as cuDNN's."""
     assert resnet_bench.family(name) == fam
