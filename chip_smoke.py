@@ -9,14 +9,15 @@ Phases, each fatal on failure:
    the sources in this checkout (nvcc, sm_90a, one process per source, all
    started together) and time the build; ptxas's registers and spills of
    each kernel. Then ``cuobjdump -sass`` (beside nvcc) of the flash and
-   conv libraries, read by function: every bf16 forward, dq, dk/dv, K2 and
-   K3 kernel (flash_fwd_sm90, flash_dq_sm90, flash_dkv_sm90 at D 16-128;
-   conv_wgrad_sm90 and conv_dgrad_sm90 at 64 and 128 channels a tile, K2
-   in CTAs of one and two warpgroups, reading channels-last copies or NCHW
-   in place) holds HGMMA (wgmma) and
-   UTMALDG (TMA load) instructions, and no bf16
-   instantiation of the SIMT forward, dq, dk/dv, filter- or data-gradient
-   kernel is left.
+   conv libraries, read by function: every bf16 forward, dq, dk/dv kernel
+   and every bf16 and f32 K2 and K3 kernel (flash_fwd_sm90, flash_dq_sm90,
+   flash_dkv_sm90 at D 16-128; conv_wgrad_sm90 and conv_dgrad_sm90 at 64
+   and 128 channels a tile, on one bf16 plane or the hi and lo planes of
+   split f32, K2 in CTAs of one and two warpgroups, reading channels-last
+   copies or, bf16 only, NCHW in place) holds HGMMA (wgmma) and UTMALDG
+   (TMA load) instructions; no bf16 instantiation of the SIMT forward, dq
+   or dk/dv kernel and no SIMT filter- or data-gradient kernel of any
+   type is left.
 2. forward kernel vs plain: the flash-attention forward kernels against
    their plain PyTorch version on the card, f32 to 1e-4 and bf16 to 2e-2
    (the plain version rounds its scores to bf16; the bf16 kernel keeps them
@@ -61,17 +62,24 @@ Phases, each fatal on failure:
    its backward for dq, dk and dv together). Beside them, for the kernel
    and for that call: ``device_ms``, the same span with a ~0.5 ms sleep
    kernel queued first, so the events time the card alone, and
-   ``host_ms``, the host's time to enqueue one call.
+   ``host_ms``, the host's time to enqueue one call. The same for the f32
+   kernels (CUDA-core designs) at T 2048 and at the training path's
+   shape, against f32 scaled_dot_product_attention (TF32 off), under
+   each entry's ``f32`` key, their bound counted as for f32 K2 and K3
+   (phase 12).
 9. conv-backward kernels vs plain: K2 (conv_bwd_filter) and K3
    (conv_bwd_input) against their plain versions on every distinct
    in-envelope convolution shape of ResNet-50 at batch 32 (from
    ``infer_shape``) and on ragged small shapes (N 1 and 3, H x W 7 x 7 and
-   9 x 11, k 1/3/5, pad 0-2, C and O 8-72), f32 and bf16: the f32
-   outputs before any cast within 1e-4 of max|plain| (both sum the same
-   f32 products in another order; bf16 products are exact in f32), and a
-   second launch gives the same bits. In bf16, grad's channels-last copy
-   made once and handed to both kernels (``g_cl``), and the autograd
-   Function's backward that does so, give the standalone wrappers' bits.
+   9 x 11, k 1/3/5, pad 0-2, C and O 8-72), f32 and bf16, and in f32 on
+   the batch-256 shapes whose sums are the longest (``CONV_DEEP``): the f32
+   outputs before any cast within 1e-4 of max|plain| (bf16 products are
+   exact in f32 and summed in another order; an f32 product is taken as
+   three bf16 products of its hi and lo planes, about 5e-6 of max), and a
+   second launch gives the same bits. grad's channels-last copy (f32: its
+   two planes) made once and handed to both kernels (``g_cl``), and the
+   autograd Function's backward that does so, give the standalone
+   wrappers' bits.
 10. ResNet-50 gradients, f32: full width and depth, batch 2, 224 x 224,
     weights from ``init_params``: every parameter gradient and new aux
     state through K2/K3 against the same through their plain versions, at
@@ -93,7 +101,9 @@ Phases, each fatal on failure:
     (the host's enqueue of one call); the launch-weighted total a step;
     the kernels-line entry at the shape where the kernel spends the most
     of a bf16 step, with bound = max(bytes / 3.35 TB/s, 2·N·OH·OW·O·C·kh·kw
-    / 989 TFLOP/s).
+    / 989 TFLOP/s); in f32, the bytes of f32 inputs and three times the
+    operations at the bf16 rate (each f32 product is three bf16 ones,
+    ``bound_counts``).
 
 13. Rtc (kernel K5, CUDA C through NVRTC): the kernel bodies of
     ``rtc_kernels`` — (a) y = 2x + 1, (b) a·b + a, (c) exp(5x) through
@@ -207,6 +217,15 @@ CONV_RAGGED = [
     ((3, 8, 9, 11), (8, 8, 5, 5), (1, 1)),
     ((1, 72, 9, 11), (64, 72, 1, 1), (0, 0)),
 ]
+# f32 shapes of ResNet-50 at batch 256 whose sums are the longest: K2's
+# 56 x 56 ones (the most k steps a split) and K3's 512-channel 3 x 3
+CONV_DEEP = [
+    ((256, 64, 56, 56), (64, 64, 3, 3), (1, 1)),
+    ((256, 64, 56, 56), (64, 64, 1, 1), (0, 0)),
+    ((256, 64, 56, 56), (256, 64, 1, 1), (0, 0)),
+    ((256, 256, 56, 56), (64, 256, 1, 1), (0, 0)),
+    ((256, 512, 7, 7), (512, 512, 3, 3), (1, 1)),
+]
 
 
 def log(*args):
@@ -268,8 +287,10 @@ SASS_CHECKS = (
     ("flash_attn_fwd", "flash_fwd_sm90", 4, "flash_fwd_kernel<bf16"),
     ("flash_attn_bwd_dq", "flash_dq_sm90", 4, "flash_dq_kernel<bf16"),
     ("flash_attn_bwd_dkv", "flash_dkv_sm90", 4, "flash_dkv_kernel<bf16"),
-    ("conv_bwd_filter", "conv_wgrad_sm90", 8, "conv_wgrad_kernel<bf16"),
-    ("conv_bwd_input", "conv_dgrad_sm90", 2, "conv_dgrad_kernel<bf16"),
+    # <c tile, warpgroups, NCHW in place, planes>: 8 bf16, 4 f32
+    ("conv_bwd_filter", "conv_wgrad_sm90", 12, "conv_wgrad_kernel<"),
+    # <c tile, planes>
+    ("conv_bwd_input", "conv_dgrad_sm90", 4, "conv_dgrad_kernel<"),
 )
 
 
@@ -288,17 +309,17 @@ def phase_build(_build):
             by_lib[lib] = sass_counts(_build, name)
         counts = by_lib[lib]
         tma = {f: c for f, c in counts.items() if f.startswith(prefix + "<")}
-        simt_bf16 = [f for f in counts if f.startswith(simt)]
+        left = [f for f in counts if f.startswith(simt)]
         log("  sass %s: %s" % (name, json.dumps(tma)))
         if len(tma) != count or not all(c["HGMMA"] > 0 and c["UTMALDG"] > 0
                                         for c in tma.values()):
-            raise AssertionError("%s: the bf16 kernels want wgmma and TMA in their SASS, got %s"
+            raise AssertionError("%s: the Hopper kernels want wgmma and TMA in their SASS, got %s"
                                  % (name, tma))
-        if simt_bf16:
-            raise AssertionError("%s: bf16 SIMT kernels left: %s" % (name, simt_bf16))
+        if left:
+            raise AssertionError("%s: SIMT kernels left: %s" % (name, left))
         sass.update(tma)
-    log("phase 1: HGMMA and UTMALDG in every bf16 forward, dq, dk/dv, K2 and K3 kernel, no "
-        "bf16 SIMT forward, dq, dk/dv, K2 or K3 kernel")
+    log("phase 1: HGMMA and UTMALDG in every bf16 forward, dq, dk/dv kernel and every bf16 and "
+        "f32 K2 and K3 kernel; no bf16 SIMT forward, dq or dk/dv kernel, no SIMT K2 or K3")
     return secs, sass
 
 
@@ -459,9 +480,9 @@ def phase_serving_f32(tfm, kernels, dev):
         torch.cuda.synchronize()
         return last
 
-    before = kernels.flash_attention.launches
+    zero_counts(kernels)
     got = run()
-    launched = kernels.flash_attention.launches - before
+    launched = kernels.flash_attention.launches
     # the same forward with the plain attention in the kernel's place
     dispatch = kernels.attention
     kernels.attention = lambda q, k, v, causal=False, scale=None, mesh=None: (
@@ -476,7 +497,7 @@ def phase_serving_f32(tfm, kernels, dev):
     torch.testing.assert_close(got, ref, rtol=1e-3, atol=1e-3)
     log("phase 4: f32 depth-2 prefill logits, kernel vs plain attention: "
         "max_abs_err %.3g (rtol = atol = 1e-3)" % err)
-    return err
+    return {"err": err, "launches": launched}
 
 
 def zero_counts(kernels):
@@ -660,44 +681,56 @@ def time_ms(fn, reps, warmup, flush):
     return statistics.median(times)
 
 
-def phase_kernel_times(kernels, dev, launches):
+def flash_fwd_row(kernels, n, t, h, d, dtype, dev, rng, flush, reps):
+    """Phase 8's numbers of the forward kernel at one causal shape."""
     import torch
     import torch.nn.functional as F
+
+    q, k, v = (_randn((n, t, h, d), dtype, dev, rng) for _ in range(3))
+    err = max_err(kernels, q, k, v, True)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def kern():
+        return kernels.flash_attention(q, k, v, causal=True)
+
+    def lib():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    kernel_ms = time_ms(kern, reps, 5, flush)
+    # causal: t(t+1)/2 live (q, k) pairs, 2*d flops each for q.k and for p.v
+    flops = 2.0 * n * h * d * t * (t + 1)
+    nbytes = 4 * n * t * h * d * q.element_size() + 4 * n * h * t  # q k v o + f32 lse
+    t_ops = split_products(dtype) * flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    key = str(dtype).split(".")[-1]
+    return {
+        "n": n, "T": t, "H": h, "D": d, "dtype": key, "causal": True,
+        "max_abs_err": err, "ms": kernel_ms, "kernel_ms": kernel_ms,
+        "plain_ms": time_ms(lambda: kernels.reference_attention(q, k, v, causal=True), 10, 2,
+                            flush),
+        "library_ms": time_ms(lib, reps, 5, flush),
+        "device_ms": device_ms(kern, reps, 5, flush), "host_ms": host_ms(kern, reps, 5),
+        "library_device_ms": device_ms(lib, reps, 5, flush),
+        "library_host_ms": host_ms(lib, reps, 5),
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_counts": BOUND_COUNTS[key], "flops": flops, "bytes": nbytes,
+    }
+
+
+def phase_kernel_times(kernels, dev, launches, f32_launches):
+    import torch
 
     rng = np.random.default_rng(3)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
     n, h, d = 4, 16, 64
     shapes = []
     for t in (1024, 2048):
-        q, k, v = (_randn((n, t, h, d), torch.bfloat16, dev, rng) for _ in range(3))
-        err = max_err(kernels, q, k, v, True)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-
-        def kern():
-            return kernels.flash_attention(q, k, v, causal=True)
-
-        def lib():
-            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-
-        kernel_ms = time_ms(kern, 30, 5, flush)
-        plain_ms = time_ms(lambda: kernels.reference_attention(q, k, v, causal=True), 10, 2, flush)
-        library_ms = time_ms(lib, 30, 5, flush)
-        # causal: t(t+1)/2 live (q, k) pairs, 2*d flops each for q.k and for p.v
-        flops = 2.0 * n * h * d * t * (t + 1)
-        nbytes = 4 * n * t * h * d * q.element_size() + 4 * n * h * t  # q k v o + f32 lse
-        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-        shapes.append({
-            "n": n, "T": t, "H": h, "D": d, "dtype": "bfloat16", "causal": True,
-            "max_abs_err": err, "ms": kernel_ms, "kernel_ms": kernel_ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "device_ms": device_ms(kern, 30, 5, flush), "host_ms": host_ms(kern, 30, 5),
-            "library_device_ms": device_ms(lib, 30, 5, flush),
-            "library_host_ms": host_ms(lib, 30, 5),
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "flops": flops, "bytes": nbytes,
-        })
+        shapes.append(flash_fwd_row(kernels, n, t, h, d, torch.bfloat16, dev, rng, flush, 30))
         log("  flash_attn_fwd %s" % json.dumps(shapes[-1]))
+    f32 = flash_fwd_row(kernels, n, 2048, h, d, torch.float32, dev, rng, flush, 10)
+    f32["launches"] = f32_launches
+    log("  flash_attn_fwd %s" % json.dumps(f32))
     head = shapes[-1]
     entry = {
         "name": "flash_attn_fwd", "route": "cuda",
@@ -708,25 +741,22 @@ def phase_kernel_times(kernels, dev, launches):
         **{key: head[key] for key in ("max_abs_err", "ms", "kernel_ms", "plain_ms",
                                       "bound_ms", "bound_by", "library_ms", "device_ms",
                                       "host_ms", "library_device_ms", "library_host_ms")},
-        "shapes": shapes,
+        "shapes": shapes, "f32": f32,
     }
     return [entry]
 
 
-def phase_bwd_times(kernels, dev, launches):
-    """Kernels-line entries of the two backward kernels at the training
-    path's attention shape: n=8, T=2047, H=16, D=64, bf16, causal."""
+def flash_bwd_rows(kernels, dtype, dev, rng, flush, reps):
+    """Phase 8's numbers of the two backward kernels at the training path's
+    attention shape, causal: {name: row}."""
     import torch
     import torch.nn.functional as F
 
-    rng = np.random.default_rng(6)
-    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
     n, t, h, d = BWD_TIME_SHAPE
-    args = bwd_inputs(kernels, n, t, h, d, torch.bfloat16, True, dev, rng)
+    args = bwd_inputs(kernels, n, t, h, d, dtype, True, dev, rng)
     errs = bwd_errors(kernels, args, True)
     kern = {"flash_attn_bwd_dq": lambda: kernels.flash_attention_dq(*args, causal=True),
             "flash_attn_bwd_dkv": lambda: kernels.flash_attention_dkv(*args, causal=True)}
-    ms = {name: time_ms(fn, 20, 3, flush) for name, fn in kern.items()}
     # the plain version computes dq, dk and dv together
     plain_ms = time_ms(lambda: kernels.reference_attention_bwd(*args, causal=True), 5, 1, flush)
     q, k, v, do = args[:4]
@@ -737,34 +767,55 @@ def phase_bwd_times(kernels, dev, launches):
     def lib():
         return torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
 
-    library = {"library_ms": time_ms(lib, 20, 3, flush),
-               "library_device_ms": device_ms(lib, 20, 3, flush),
-               "library_host_ms": host_ms(lib, 20, 3)}
+    library = {"library_ms": time_ms(lib, reps, 3, flush),
+               "library_device_ms": device_ms(lib, reps, 3, flush),
+               "library_host_ms": host_ms(lib, reps, 3)}
     pairs = t * (t + 1)  # twice the live (q, k) pairs under the causal mask
     esize = q.element_size()
     work = {  # flops, bytes: each input read once, each output written once
         "flash_attn_bwd_dq": (3.0 * n * h * d * pairs, 5 * n * t * h * d * esize + 8 * n * h * t),
         "flash_attn_bwd_dkv": (4.0 * n * h * d * pairs, 6 * n * t * h * d * esize + 8 * n * h * t),
     }
-    entries = []
+    key = str(dtype).split(".")[-1]
+    rows = {}
     for name, (flops, nbytes) in work.items():
-        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        t_ops = split_products(dtype) * flops / PEAK_BF16_FLOPS * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        ms = time_ms(kern[name], reps, 3, flush)
+        rows[name] = {
+            "max_abs_err": errs[name]["max_abs_err"], "rel_err": errs[name]["rel_err"],
+            "ms": ms, "kernel_ms": ms, "device_ms": device_ms(kern[name], reps, 3, flush),
+            "host_ms": host_ms(kern[name], reps, 3),
+            "plain_ms": plain_ms, "plain_computes": "dq, dk, dv",
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_counts": BOUND_COUNTS[key], **library,
+            "library_computes": "scaled_dot_product_attention backward: dq, dk, dv",
+            "n": n, "T": t, "H": h, "D": d, "dtype": key, "causal": True,
+            "flops": flops, "bytes": nbytes,
+        }
+    return rows
+
+
+def phase_bwd_times(kernels, dev, launches, f32_launches):
+    """Kernels-line entries of the two backward kernels at the training
+    path's attention shape: n=8, T=2047, H=16, D=64, causal; bf16, and
+    f32 under ``f32``."""
+    import torch
+
+    rng = np.random.default_rng(6)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    rows = flash_bwd_rows(kernels, torch.bfloat16, dev, rng, flush, 20)
+    f32 = flash_bwd_rows(kernels, torch.float32, dev, rng, flush, 5)
+    entries = []
+    for name, row in rows.items():
+        f32[name]["launches"] = f32_launches[name]
         entries.append({
             "name": name, "route": "cuda", "source": "mxnet_tpu_torch/csrc/flash_attn_bwd.cu",
             "design": "tma+wgmma (bf16); f32 SIMT (f32)",
             "replaces": "mxnet_tpu/ops/pallas_kernels.py:%d" % (
                 295 if name.endswith("dq") else 316),
-            "launches": launches[name], "max_abs_err": errs[name]["max_abs_err"],
-            "rel_err": errs[name]["rel_err"], "ms": ms[name], "kernel_ms": ms[name],
-            "device_ms": device_ms(kern[name], 20, 3, flush),
-            "host_ms": host_ms(kern[name], 20, 3),
-            "plain_ms": plain_ms, "plain_computes": "dq, dk, dv",
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            **library,
-            "library_computes": "scaled_dot_product_attention backward: dq, dk, dv",
-            "n": n, "T": t, "H": h, "D": d, "dtype": "bfloat16", "causal": True,
-            "flops": flops, "bytes": nbytes,
+            "launches": launches[name], **row, "f32": f32[name],
         })
         log("  %s %s" % (name, json.dumps(entries[-1])))
     return entries
@@ -819,16 +870,16 @@ def conv_errors(kernels, x, w, g, dshape, wshape, pad):
         diff = (a - b).abs().max().item()
         out[name] = {"rel_err": diff / max(b.abs().max().item(), 1e-30), "max_abs_err": diff,
                      "bitwise_repeat": torch.equal(a, again[name])}
-    if x.dtype == torch.bfloat16:
-        for name, same in shared_grad_bits(kernels, x, w, g, dshape, wshape, pad, got).items():
-            out[name]["shared_g_cl_bitwise"] = same
+    for name, same in shared_grad_bits(kernels, x, w, g, dshape, wshape, pad, got).items():
+        out[name]["shared_g_cl_bitwise"] = same
     return out
 
 
 def shared_grad_bits(kernels, x, w, g, dshape, wshape, pad, got):
-    """Per bf16 conv kernel: whether grad's channels-last copy made once and
-    handed to it (``g_cl``), and the autograd Function's backward that does
-    so for both, give the bits of its standalone call ``got``."""
+    """Per conv kernel: whether grad's channels-last copy (f32: its hi and
+    lo planes) made once and handed to it (``g_cl``), and the autograd
+    Function's backward that does so for both, give the bits of its
+    standalone call ``got``."""
     import torch
 
     g_cl = kernels.conv_grad_channels_last(g)
@@ -848,22 +899,24 @@ def phase_conv_checks(kernels, resnet, dev):
     import torch
 
     rng = np.random.default_rng(7)
-    cases = list(resnet_conv_shapes(resnet, kernels, RESNET_BATCH)) + CONV_RAGGED
+    cases = [(key, (torch.float32, torch.bfloat16)) for key in
+             list(resnet_conv_shapes(resnet, kernels, RESNET_BATCH)) + CONV_RAGGED]
+    cases += [(key, (torch.float32,)) for key in CONV_DEEP]
     worst, errs = {}, {}
-    for dshape, wshape, pad in cases:
-        for dtype in (torch.float32, torch.bfloat16):
+    for (dshape, wshape, pad), dtypes in cases:
+        for dtype in dtypes:
             key = str(dtype).split(".")[-1]
             args = conv_inputs(dshape, wshape, pad, dtype, dev, rng)
             for name, e in conv_errors(kernels, *args, dshape, wshape, pad).items():
                 log("  %s data=%s weight=%s pad=%s %s: rel_err %.3g (tol 1e-4) max_abs_err "
                     "%.3g, bitwise repeat %s, shared g_cl bitwise %s"
                     % (name, dshape, wshape, pad, key, e["rel_err"], e["max_abs_err"],
-                       e["bitwise_repeat"], e.get("shared_g_cl_bitwise", "-")))
+                       e["bitwise_repeat"], e["shared_g_cl_bitwise"]))
                 if not e["rel_err"] <= 1e-4:
                     raise AssertionError("%s disagrees with the plain version" % name)
                 if not e["bitwise_repeat"]:
                     raise AssertionError("%s is not bitwise repeatable" % name)
-                if not e.get("shared_g_cl_bitwise", True):
+                if not e["shared_g_cl_bitwise"]:
                     raise AssertionError("%s with the shared channels-last grad differs from "
                                          "its standalone call" % name)
                 worst[name + " " + key] = max(worst.get(name + " " + key, 0.0), e["rel_err"])
@@ -895,8 +948,9 @@ def phase_resnet_grads_f32(resnet_bench, kernels, dev):
     got = grads()
     counts = conv_counts(kernels)
     swapped = (kernels.conv_bwd_filter, kernels.conv_bwd_input)
-    kernels.conv_bwd_filter = kernels.conv_bwd_filter_reference
-    kernels.conv_bwd_input = kernels.conv_bwd_input_reference
+    # the plain versions in the wrappers' place; they need no g_cl
+    kernels.conv_bwd_filter = lambda *args, g_cl=None: kernels.conv_bwd_filter_reference(*args)
+    kernels.conv_bwd_input = lambda *args, g_cl=None: kernels.conv_bwd_input_reference(*args)
     try:
         want, again = grads(), grads()
     finally:
@@ -972,6 +1026,20 @@ def phase_resnet_train(resnet_bench, kernels, dev, dtype):
     return res
 
 
+# how a bound counts operations: an f32 product keeps the f32 limit as three
+# bf16 products of its hi and lo planes (the f32 conv kernels' design)
+BOUND_COUNTS = {
+    "bfloat16": "operations at 989 TFLOP/s (bf16 tensor cores), f32 output bytes",
+    "float32": "3 bf16 products per f32 product at 989 TFLOP/s, f32 input and output bytes",
+}
+
+
+def split_products(dtype):
+    import torch
+
+    return 3 if dtype == torch.float32 else 1
+
+
 def conv_work(name, dshape, wshape, pad, esize):
     """(flops, bytes) of one kernel call: 2·N·OH·OW·O·C·kh·kw; each input
     read once, the f32 output written once."""
@@ -1010,7 +1078,8 @@ def phase_conv_times(kernels, resnet, dev, launches, errs):
             }
             for name, (kern, plain, lib) in calls.items():
                 flops, nbytes = conv_work(name, dshape, wshape, pad, x.element_size())
-                t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+                t_ops, t_bytes = split_products(dtype) * flops / PEAK_BF16_FLOPS * 1e3, \
+                    nbytes / PEAK_BYTES * 1e3
                 row = {
                     "dtype": key, "data": dshape, "weight": wshape, "pad": pad,
                     "convs_per_step": count, "ms": time_ms(kern, 10, 2, flush),
@@ -1019,6 +1088,7 @@ def phase_conv_times(kernels, resnet, dev, launches, errs):
                     "library_device_ms": device_ms(lib, 10, 2, flush),
                     "bound_ms": max(t_ops, t_bytes),
                     "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                    "bound_counts": BOUND_COUNTS[key],
                     "flops": flops, "bytes": nbytes,
                     "max_abs_err": errs[(name, dshape, wshape, pad, key)]["max_abs_err"],
                     "rel_err": errs[(name, dshape, wshape, pad, key)]["rel_err"],
@@ -1033,16 +1103,19 @@ def phase_conv_times(kernels, resnet, dev, launches, errs):
             per_step[key] = {f: sum(r[f] * r["convs_per_step"] for r in mine)
                              for f in ("ms", "device_ms", "plain_ms", "library_ms",
                                        "library_device_ms", "bound_ms")}
-        head = max((r for r in shape_rows if r["dtype"] == "bfloat16"),
-                   key=lambda r: r["ms"] * r["convs_per_step"])
+        head, f32_head = (max((r for r in shape_rows if r["dtype"] == key),
+                              key=lambda r: r["ms"] * r["convs_per_step"])
+                          for key in ("bfloat16", "float32"))
+        f32_design = ("f32: the same kernel on the split-bf16 hi and lo planes of channels-last "
+                      "copies, three wgmma products (hi·lo, lo·hi, hi·hi) a k16 step into an f32 "
+                      "accumulator added into a second on the CUDA cores every 8 k steps")
         entries.append({
             "name": name, "route": "cuda", "source": "mxnet_tpu_torch/csrc/conv_bwd.cu",
             "design": ("tma+wgmma implicit GEMM on channels-last copies (both operands "
                        "MN-major) or on NCHW in place (1x1), CTAs of two warpgroups (128 o) "
-                       "where O > 64, one-wave split of M + ordered reduce (bf16); f32 SIMT "
-                       "(f32)"
+                       "where O > 64, one-wave split of M + ordered reduce (bf16); " + f32_design
                        if name == "conv_bwd_filter" else
-                       "tma+wgmma implicit GEMM on channels-last copies (bf16); f32 SIMT (f32)"),
+                       "tma+wgmma implicit GEMM on channels-last copies (bf16); " + f32_design),
             "timed_with": "the wrapper's own layout transposes inside each timed call",
             "replaces": "mxnet_tpu/ops/pallas_kernels.py:%d" % (
                 745 if name == "conv_bwd_filter" else 804),
@@ -1054,7 +1127,12 @@ def phase_conv_times(kernels, resnet, dev, launches, errs):
             "kernel_ms": head["ms"],
             "library_computes": "torch.nn.grad.%s" % (
                 "conv2d_weight" if name == "conv_bwd_filter" else "conv2d_input"),
-            "launch_weighted_ms_per_step": per_step, "shapes": shape_rows,
+            "launch_weighted_ms_per_step": per_step,
+            "f32": {f: f32_head[f] for f in ("data", "weight", "pad", "convs_per_step", "ms",
+                                               "device_ms", "host_ms", "plain_ms", "library_ms",
+                                               "library_device_ms", "bound_ms", "bound_by",
+                                               "bound_counts", "max_abs_err", "rel_err")},
+            "shapes": shape_rows,
         })
         log("  %s per step %s, headline shape %s %s" % (
             name, json.dumps(per_step), head["data"], head["weight"]))
@@ -1724,7 +1802,7 @@ def main(argv=None):
     results["build_s"], results["sass"] = phase_build(_build)
     results["kernel_checks"] = phase_kernel_checks(kernels, dev)
     results["bwd_kernel_checks"] = phase_bwd_checks(kernels, dev)
-    results["serving_f32_err"] = phase_serving_f32(tfm, kernels, dev)
+    results["serving_f32"] = phase_serving_f32(tfm, kernels, dev)
     results["training_f32"] = phase_train_f32(tfm, trainer, kernels, dev)
     results["serving_bf16"] = phase_serving_bf16(tfm, kernels, telemetry, GenerationEngine, dev)
     results["training_bf16"] = phase_train_bf16(trainer, kernels, dev)
@@ -1754,12 +1832,16 @@ def main(argv=None):
     results["convergence"] = phase_convergence(mx, kernels, dev)
     slab_launches = (results["fit_resnet_amp"]["launches"]["slab_update"]
                      + results["convergence"]["b"]["slab_update_launches"])
-    fwd = phase_kernel_times(kernels, dev, results["serving_bf16"]["flash_launches"])
+    # the f32 kernels' launches in phases 4 and 5
+    f32_launches = dict(results["training_f32"]["launches"])
+    f32_launches["flash_attn_fwd"] += results["serving_f32"]["launches"]
+    fwd = phase_kernel_times(kernels, dev, results["serving_bf16"]["flash_launches"],
+                             f32_launches["flash_attn_fwd"])
     # the forward kernel runs on both main paths
     fwd[0]["launches_by_path"] = {"serving": fwd[0]["launches"],
                                   "training": train_launches["flash_attn_fwd"]}
     fwd[0]["launches"] += train_launches["flash_attn_fwd"]
-    kernel_line = {"kernels": fwd + phase_bwd_times(kernels, dev, train_launches)
+    kernel_line = {"kernels": fwd + phase_bwd_times(kernels, dev, train_launches, f32_launches)
                    + phase_conv_times(kernels, resnet, dev, conv_launches, conv_errs)
                    + phase_rtc_times(mx, rk, rtc_runs, results["rtc_training"], dev)
                    + phase_slab_times(kernels, dev, plan, slab_launches,

@@ -50,7 +50,7 @@ KERNELS = {
     "conv_bwd_input": (
         "conv_bwd.cu", "mxtt_conv_bwd_input", [_P] * 5 + [_I] * 13 + [_P]),
     "conv_channels_last": (
-        "conv_bwd.cu", "mxtt_conv_channels_last", [_P, _P, _I, _I, _I, _P]),
+        "conv_bwd.cu", "mxtt_conv_channels_last", [_P, _P] + [_I] * 4 + [_P]),
     "slab_update": (
         "slab_update.cu", "mxtt_slab_update",
         [_I, _I] + [_P] * 9 + [_L] + [_F] * 9 + [_I] * 4 + [_P]),

@@ -21,11 +21,13 @@ Layout convention as in the JAX package: [B, T, H, D].
 ``csrc/conv_bwd.cu``, the filter and data gradients of a stride-1 2-D
 convolution inside ``conv_bwd_plan``'s envelope; ``conv_bwd_*_reference``
 are their plain versions, and ``conv2d_kernel_bwd`` is the convolution
-whose autograd backward runs them. Layout NCHW / OIHW, as in JAX; the bf16
-kernels (implicit GEMMs through TMA and ``wgmma``) read transposed copies
-whose plain versions are ``conv_dgrad_layout`` (K3) and
-``conv_wgrad_layout`` (K2); the backward makes grad's channels-last copy
-once (``conv_grad_channels_last``) and hands it to both.
+whose autograd backward runs them. Layout NCHW / OIHW, as in JAX; the
+kernels (implicit GEMMs through TMA and ``wgmma``) read transposed bf16
+copies, for f32 inputs the hi and lo planes of ``split_bf16`` multiplied
+as three bf16 products, whose plain versions are ``conv_dgrad_layout``
+(K3) and ``conv_wgrad_layout`` (K2); the backward makes grad's
+channels-last copy once (``conv_grad_channels_last``) and hands it to
+both.
 
 ``fused_slab_update`` (K1) wraps ``csrc/slab_update.cu``: one bf16-AMP
 optimizer step (sgd, sgd_mom, adam) over a flat slab with a finite select
@@ -333,11 +335,10 @@ CONV_DTYPES = (torch.float32, torch.bfloat16)
 # no such limit (their tiles are fixed), and every in-envelope ResNet-50
 # body convolution is far below it.
 CONV_VMEM_BUDGET = 12 * 1024 * 1024
-_WGRAD_CHUNK = 16  # the f32 kernels' reduction chunk (kK in conv_bwd.cu)
-_WGRAD_TILE = 64  # their output tile (kTile)
-_SM90_STEP = 64  # bf16 K2's k step, in positions (kRows), and a warpgroup's o tile
+_SM90_STEP = 64  # K2's k step, in positions (kRows), and a warpgroup's o tile
 _SM90_PATCH = 8  # the side of its patch of positions (kPatch)
-_SM90_STAGES = 4  # the depth of its ring of TMA stages (kConvStages)
+_SM90_STAGES = 4  # the most stages of its ring of TMA stages (kConvStages)
+_SM90_CTA_SMEM = 232448  # shared memory a CTA can use on an H100 (kCtaSmem)
 _SM90_SMEM = 228 * 1024  # shared memory of an H100 SM, of which 1 KB a CTA is reserved
 
 
@@ -407,6 +408,24 @@ def conv_bwd_input_reference(grad, weight, dshape, pad):
     return acc
 
 
+def split_bf16(x):
+    """The two bf16 planes the f32 kernels multiply in place of f32 ``x``,
+    stacked as (2, *x.shape): hi = bf16(x) and lo = bf16(x - hi), both
+    rounded to nearest even (``__float2bfloat16_rn`` in
+    ``csrc/conv_bwd.cu``; x - hi is exact in f32). hi + lo is x to within
+    2^-16 of |x| wherever |x| >= 2^-118 (lo a normal bf16), and to within
+    2^-134 below; a product a·b is taken as a_hi·b_lo + a_lo·b_hi +
+    a_hi·b_hi, three bf16 products summed in f32."""
+    hi = x.to(torch.bfloat16)
+    return torch.stack((hi, (x - hi.float()).to(torch.bfloat16)))
+
+
+def _planes(x):
+    """x as the kernels read it: bf16 as it is, f32 as its split_bf16
+    planes."""
+    return x if x.dtype == torch.bfloat16 else split_bf16(x)
+
+
 def _check_conv_args(name, a, b, dshape, wshape, pad):
     if a.dtype != b.dtype or a.dtype not in CONV_DTYPES:
         raise MXNetError("%s takes float32 or bfloat16 tensors of one dtype, got %s and %s"
@@ -428,23 +447,11 @@ def _conv_geometry(dshape, wshape, pad):
     return n, c, h, w, o, kh, kw, ph, pw, h + 2 * ph - kh + 1, w + 2 * pw - kw + 1
 
 
-def wgrad_splits(o, c, taps, m, sm_count):
-    """K2's split of the reduction M = N·OH·OW: ``(splits, chunks per
-    split)``. Enough (tile, tap, split) blocks for about four per SM, each
-    split at least 8 chunks of 16; a function of the shape and the SM
-    count only, so a repeat sums in the same order."""
-    tiles = -(-o // _WGRAD_TILE) * -(-c // _WGRAD_TILE) * taps
-    chunks = -(-m // _WGRAD_CHUNK)
-    splits = max(1, min(-(-4 * sm_count // tiles), chunks // 8))
-    per = -(-chunks // splits)
-    return -(-chunks // per), per
-
-
 def wgrad_mode_sm90(oh, ow, kh, kw, ph, pw, aligned=True):
-    """How bf16 K2 (``conv_wgrad_sm90``) reads its operands: ``"nchw"`` (a
+    """How K2 (``conv_wgrad_sm90``) reads its operands: ``"nchw"`` (a
     1 x 1 kernel with no padding whose NCHW rows, OH·OW·2 bytes, TMA can
-    step, on x and grad that start on a 16-byte boundary, ``aligned``, as
-    TMA wants a tensor's base: both read in place), ``"flat"`` (another
+    step, on bf16 x and grad that start on a 16-byte boundary, ``aligned``,
+    as TMA wants a tensor's base: both read in place), ``"flat"`` (another
     1 x 1 with no padding: the channels-last copies as N·OH·OW rows) or
     ``"patch"`` (the channels-last copies in 8 x 8 patches of each
     image)."""
@@ -454,7 +461,7 @@ def wgrad_mode_sm90(oh, ow, kh, kw, ph, pw, aligned=True):
 
 
 def wgrad_steps_sm90(mode, n, oh, ow):
-    """The k steps of bf16 K2, 64 positions each, in ``mode``
+    """The k steps of K2, 64 positions each, in ``mode``
     (:func:`wgrad_mode_sm90`): runs of 64 over each image's OH·OW (nchw)
     or over all N·OH·OW positions (flat), or the 8 x 8 patches of every
     image's OH x OW (patch)."""
@@ -465,70 +472,97 @@ def wgrad_steps_sm90(mode, n, oh, ow):
     return n * -(-oh // _SM90_PATCH) * -(-ow // _SM90_PATCH)
 
 
-def wgrad_ctas_per_sm90(o_tile, c_tile, stages=_SM90_STAGES):
-    """How many bf16 K2 CTAs of ``o_tile`` o (64 a warpgroup) and ``c_tile``
-    channels fit an SM by shared memory: a ring of ``stages`` stages of
-    (o_tile + c_tile) / 64 boxes of 8 KB, 1 KB for the 1024-byte alignment,
-    16 B of barriers a stage, and the 1 KB the card reserves a CTA."""
-    smem = 1024 + stages * (o_tile + c_tile) // _SM90_STEP * 8192 + 16 * stages
+def sm90_stages(stage_bytes):
+    """The depth of a conv kernel's ring whose stage holds ``stage_bytes``:
+    ``_SM90_STAGES``, or as many as fit a CTA's shared memory with 1 KB of
+    alignment and the barriers (``ConvRing::kStages``)."""
+    return min(_SM90_STAGES, (_SM90_CTA_SMEM - 1024 - 16 * _SM90_STAGES) // stage_bytes)
+
+
+def wgrad_ctas_per_sm90(o_tile, c_tile, stages=None, planes=1):
+    """How many K2 CTAs of ``o_tile`` o (64 a warpgroup) and ``c_tile``
+    channels fit an SM by shared memory: a ring of ``stages`` stages (by
+    default :func:`sm90_stages`) of ``planes`` (1 for bf16, 2 for the hi
+    and lo planes of f32) times (o_tile + c_tile) / 64 boxes of 8 KB, 1 KB
+    for the 1024-byte alignment, 16 B of barriers a stage, and the 1 KB the
+    card reserves a CTA."""
+    stage = planes * (o_tile + c_tile) // _SM90_STEP * 8192
+    if stages is None:
+        stages = sm90_stages(stage)
+    smem = 1024 + stages * stage + 16 * stages
     return _SM90_SMEM // (smem + 1024)
 
 
-def wgrad_splits_sm90(o, c, taps, steps, sm_count, o_tile=None, stages=_SM90_STAGES):
-    """bf16 K2's split of its k steps: ``(splits, steps per split)``. A CTA
+def wgrad_splits_sm90(o, c, taps, steps, sm_count, o_tile=None, stages=None, planes=1):
+    """K2's split of its k steps: ``(splits, steps per split)``. A CTA
     takes 128 o (two warpgroups) where O > 64, else 64 (``o_tile`` sets
     it), and 64 channels where C <= 64, else 128; as many splits as keep
     the (o tile, c tile, tap, split) CTAs within one wave of the card, of
-    :func:`wgrad_ctas_per_sm90` CTAs an SM, each split at least 8 steps;
-    one split where the tiles alone fill a wave or more. A function of the
-    shape and the SM count only, so a repeat sums in the same order."""
+    :func:`wgrad_ctas_per_sm90` CTAs an SM (``stages``, ``planes``), each
+    split at least 8 steps; one split where the tiles alone fill a wave or
+    more. A function of the shape and the SM count only, so a repeat sums
+    in the same order."""
     if o_tile is None:
         o_tile = 2 * _SM90_STEP if o > _SM90_STEP else _SM90_STEP
     c_tile = 2 * _SM90_STEP if c > _SM90_STEP else _SM90_STEP
     tiles = -(-o // o_tile) * -(-c // c_tile) * taps
-    slots = sm_count * wgrad_ctas_per_sm90(o_tile, c_tile, stages)
+    slots = sm_count * wgrad_ctas_per_sm90(o_tile, c_tile, stages, planes)
     splits = max(1, min(slots // tiles, steps // 8))
     per = -(-steps // splits)
     return -(-steps // per), per
 
 
 def wgrad_plan_sm90(data, grad, wshape, pad, sm_count):
-    """bf16 K2's plan for these tensors: ``(mode, splits, steps per
-    split)`` by :func:`wgrad_mode_sm90`, :func:`wgrad_steps_sm90` and
-    :func:`wgrad_splits_sm90`; "nchw" only where data and grad start on a
-    16-byte boundary."""
+    """K2's plan for these tensors: ``(mode, splits, steps per split)`` by
+    :func:`wgrad_mode_sm90`, :func:`wgrad_steps_sm90` and
+    :func:`wgrad_splits_sm90`; "nchw" only where bf16 data and grad start
+    on a 16-byte boundary (f32 is split into its planes first, so never),
+    and the f32 ring's stage holds two planes."""
     n, c, _, _, o, kh, kw, ph, pw, oh, ow = _conv_geometry(data.shape, wshape, pad)
-    aligned = data.data_ptr() % 16 == 0 and grad.data_ptr() % 16 == 0
+    bf16 = data.dtype == torch.bfloat16
+    aligned = bf16 and data.data_ptr() % 16 == 0 and grad.data_ptr() % 16 == 0
     mode = wgrad_mode_sm90(oh, ow, kh, kw, ph, pw, aligned)
     return (mode, *wgrad_splits_sm90(o, c, kh * kw, wgrad_steps_sm90(mode, n, oh, ow),
-                                     sm_count))
+                                     sm_count, planes=1 if bf16 else 2))
 
 
 def conv_wgrad_layout(data, grad):
-    """The operands of the bf16 K2 kernel in the layouts TMA reads: data
+    """The operands of the K2 kernel in the layouts TMA reads: data
     (N, C, H, W) and grad (N, O, OH, OW) as contiguous channels-last
     (N, H, W, C) and (N, OH, OW, O) tensors (rows of C·2 and O·2 bytes,
-    multiples of 16 inside ``conv_bwd_plan``). The plain version of the
-    transposes the kernel's entry point runs first (``transpose_bf16``)."""
-    return data.permute(0, 2, 3, 1).contiguous(), grad.permute(0, 2, 3, 1).contiguous()
+    multiples of 16 inside ``conv_bwd_plan``), bf16 as they are and f32 as
+    their :func:`split_bf16` planes, (2, N, H, W, C) and (2, N, OH, OW, O).
+    The plain version of the layout pass the kernel's entry point runs
+    first (``transpose_bf16``, ``transpose_bf16_split``)."""
+    return (_planes(data.permute(0, 2, 3, 1).contiguous()),
+            _planes(grad.permute(0, 2, 3, 1).contiguous()))
+
+
+def _grad_cl_shape(grad):
+    """The shape of grad's channels-last copy as the kernels read it: bf16
+    (N, OH, OW, O), f32 its two planes (2, N, OH, OW, O)."""
+    n, o, oh, ow = grad.shape
+    return (n, oh, ow, o) if grad.dtype == torch.bfloat16 else (2, n, oh, ow, o)
 
 
 def conv_grad_channels_last(grad):
-    """grad (N, O, OH, OW) as the contiguous channels-last (N, OH, OW, O)
-    copy both bf16 kernels read: made once by a backward that wants both
-    gradients and handed to K2 and K3 as ``g_cl``. On a bf16 CUDA tensor
-    the layout transpose of ``csrc/conv_bwd.cu`` (``transpose_bf16``), on a
-    CPU tensor its plain version."""
+    """grad (N, O, OH, OW) as the contiguous channels-last bf16 copy both
+    kernels read, (N, OH, OW, O) for bf16 and its :func:`split_bf16`
+    planes (2, N, OH, OW, O) for f32: made once by a backward that wants
+    both gradients and handed to K2 and K3 as ``g_cl``. On a CUDA tensor
+    the layout pass of ``csrc/conv_bwd.cu`` (``transpose_bf16``,
+    ``transpose_bf16_split``), on a CPU tensor its plain version."""
     if grad.device.type == "cpu":
-        return grad.permute(0, 2, 3, 1).contiguous()
-    if grad.dtype != torch.bfloat16 or grad.dim() != 4 or not grad.is_contiguous():
-        raise MXNetError("conv_grad_channels_last wants a contiguous 4-D bf16 tensor, got %s %s"
-                         % (grad.dtype, tuple(grad.shape)))
+        return _planes(grad.permute(0, 2, 3, 1).contiguous())
+    if grad.dtype not in CONV_DTYPES or grad.dim() != 4 or not grad.is_contiguous():
+        raise MXNetError("conv_grad_channels_last wants a contiguous 4-D f32 or bf16 tensor, "
+                         "got %s %s" % (grad.dtype, tuple(grad.shape)))
     n, o, oh, ow = grad.shape
-    out = torch.empty((n, oh, ow, o), dtype=grad.dtype, device=grad.device)
+    out = torch.empty(_grad_cl_shape(grad), dtype=torch.bfloat16, device=grad.device)
     fn = _build.load("conv_channels_last")
     with torch.cuda.device(grad.device):
         rc = fn(grad.data_ptr(), out.data_ptr(), n, o, oh * ow,
+                int(grad.dtype == torch.bfloat16),
                 torch.cuda.current_stream(grad.device).cuda_stream)
     if rc != 0:
         raise MXNetError("conv_channels_last kernel launch failed: CUDA error %d" % rc)
@@ -536,29 +570,39 @@ def conv_grad_channels_last(grad):
 
 
 def _grad_cl(name, grad, g_cl):
-    """(g_cl tensor, g_ready) for a bf16 kernel: the caller's channels-last
-    copy of grad, checked, or room for the entry point to make its own."""
+    """(g_cl tensor, g_ready) for a kernel: the caller's channels-last copy
+    of grad (:func:`conv_grad_channels_last`), checked, or room for the
+    entry point to make its own."""
+    shape = _grad_cl_shape(grad)
     if g_cl is None:
-        return torch.empty(grad.shape, dtype=grad.dtype, device=grad.device), 0
-    n, o, oh, ow = grad.shape
-    if (g_cl.dtype != grad.dtype or g_cl.device != grad.device or not g_cl.is_contiguous()
-            or tuple(g_cl.shape) != (n, oh, ow, o)):
-        raise MXNetError("%s: g_cl must be grad's contiguous channels-last copy %s %s, got %s %s"
-                         % (name, grad.dtype, (n, oh, ow, o), g_cl.dtype, tuple(g_cl.shape)))
+        return torch.empty(shape, dtype=torch.bfloat16, device=grad.device), 0
+    if (g_cl.dtype != torch.bfloat16 or g_cl.device != grad.device or not g_cl.is_contiguous()
+            or tuple(g_cl.shape) != shape):
+        raise MXNetError("%s: g_cl must be %s grad's contiguous channels-last bf16 copy %s, got "
+                         "%s %s" % (name, grad.dtype, shape, g_cl.dtype, tuple(g_cl.shape)))
     if g_cl.data_ptr() % 16:
         raise MXNetError("%s: g_cl must start on a 16-byte boundary (TMA reads it)" % name)
     return g_cl, 1
 
 
+def _workspace(shape, dtype, device):
+    """A bf16 layout workspace (one plane for bf16, two for f32) that TMA
+    reads: fresh from the allocator, so on a 16-byte boundary, as every
+    plane is (each holds a multiple of 8 values inside the envelope)."""
+    planes = () if dtype == torch.bfloat16 else (2,)
+    return torch.empty(planes + tuple(shape), dtype=torch.bfloat16, device=device)
+
+
 def conv_bwd_filter(data, grad, wshape, pad, *, g_cl=None):
     """K2, the filter gradient of a stride-1 2-D conv: data (N, C, H, W) and
     grad (N, O, OH, OW) -> f32 (O, C, kh, kw). On CUDA tensors the kernels of
-    ``csrc/conv_bwd.cu``: for bf16, ``conv_wgrad_sm90`` (TMA and ``wgmma``)
-    on data and grad in place (:func:`wgrad_plan_sm90` "nchw") or on the
-    channels-last copies :func:`conv_wgrad_layout` describes, which its
+    ``csrc/conv_bwd.cu``: ``conv_wgrad_sm90`` (TMA and ``wgmma``) on bf16
+    data and grad in place (:func:`wgrad_plan_sm90` "nchw") or on the
+    channels-last copies :func:`conv_wgrad_layout` describes (for f32, the
+    hi and lo planes, three bf16 products for each f32 one), which its
     entry point makes in workspaces allocated here, unless ``g_cl``
-    (:func:`conv_grad_channels_last` of grad) is given; ``conv_wgrad_kernel``
-    for f32; both then ``conv_wgrad_reduce_kernel``. No fallback;
+    (:func:`conv_grad_channels_last` of grad) is given; then
+    ``conv_wgrad_reduce_kernel``. No fallback;
     ``conv_bwd_filter.launches`` counts the calls that launch them. On CPU
     tensors the plain version."""
     if data.device.type == "cpu":
@@ -572,13 +616,9 @@ def conv_bwd_filter(data, grad, wshape, pad, *, g_cl=None):
     dev = data.device
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     bf16 = data.dtype == torch.bfloat16
-    mode = None
-    if bf16:
-        mode, splits, per = wgrad_plan_sm90(data, grad, wshape, pad, sms)
-    else:
-        splits, per = wgrad_splits(o, c, kh * kw, n * oh * ow, sms)
-    if bf16 and mode != "nchw":
-        x_cl = torch.empty((n, h, w, c), dtype=data.dtype, device=dev)
+    mode, splits, per = wgrad_plan_sm90(data, grad, wshape, pad, sms)
+    if mode != "nchw":
+        x_cl = _workspace((n, h, w, c), data.dtype, dev)
         g_cl, g_ready = _grad_cl("conv_bwd_filter", grad, g_cl)
     else:
         x_cl = g_cl = torch.empty(0, dtype=data.dtype, device=dev)
@@ -598,49 +638,46 @@ def conv_bwd_filter(data, grad, wshape, pad, *, g_cl=None):
 
 
 def conv_dgrad_layout(grad, weight):
-    """The operands of the bf16 K3 kernel in the layouts TMA reads: grad
+    """The operands of the K3 kernel in the layouts TMA reads: grad
     (N, O, OH, OW) as a contiguous channels-last (N, OH, OW, O) tensor and
-    weight (O, C, kh, kw) as a contiguous (C, kh, kw, O) tensor. TMA wants
-    byte strides that are multiples of 16, which a row of NCHW (OW·2 bytes)
-    is not at OW = 7, 14 or 28; O·2 is, since ``conv_bwd_plan`` takes
-    O % 8 == 0. The plain version of the two transposes the kernel's entry
-    point runs first (``transpose_bf16`` in ``csrc/conv_bwd.cu``), into
-    workspaces :func:`conv_bwd_input` allocates: a layout repair, as
+    weight (O, C, kh, kw) as a contiguous (C, kh, kw, O) tensor, bf16 as
+    they are and f32 as their :func:`split_bf16` planes (a leading 2).
+    TMA wants byte strides that are multiples of 16, which a row of NCHW
+    (OW·2 bytes) is not at OW = 7, 14 or 28; O·2 is, since
+    ``conv_bwd_plan`` takes O % 8 == 0. The plain version of the layout
+    pass the kernel's entry point runs first (``transpose_bf16``,
+    ``transpose_bf16_split`` in ``csrc/conv_bwd.cu``), into workspaces
+    :func:`conv_bwd_input` allocates: a layout repair, as
     :func:`check_kernel_args`'s copy is."""
-    return (grad.permute(0, 2, 3, 1).contiguous(),
-            weight.permute(1, 2, 3, 0).contiguous())
+    return (_planes(grad.permute(0, 2, 3, 1).contiguous()),
+            _planes(weight.permute(1, 2, 3, 0).contiguous()))
 
 
 def conv_bwd_input(grad, weight, dshape, pad, *, g_cl=None):
     """K3, the data gradient of a stride-1 2-D conv: grad (N, O, OH, OW) and
     weight (O, C, kh, kw) -> f32 (N, C, H, W). On CUDA tensors the kernel of
-    ``csrc/conv_bwd.cu`` (for bf16, ``conv_dgrad_sm90``, TMA and ``wgmma``,
-    on the transposed copies :func:`conv_dgrad_layout` describes, in
-    workspaces allocated here, grad's unless ``g_cl``
-    (:func:`conv_grad_channels_last` of grad) is given; ``conv_dgrad_kernel``
-    for f32; no fallback; ``conv_bwd_input.launches`` counts the calls that
-    launch them); on CPU tensors the plain version."""
+    ``csrc/conv_bwd.cu``, ``conv_dgrad_sm90`` (TMA and ``wgmma``), on the
+    transposed copies :func:`conv_dgrad_layout` describes (for f32, the hi
+    and lo planes, three bf16 products for each f32 one), in workspaces
+    allocated here, grad's unless ``g_cl`` (:func:`conv_grad_channels_last`
+    of grad) is given; no fallback; ``conv_bwd_input.launches`` counts the
+    calls that launch it. On CPU tensors the plain version."""
     if grad.device.type == "cpu":
         return conv_bwd_input_reference(grad, weight, dshape, pad)
     _check_conv_args("conv_bwd_input", grad, weight, tuple(dshape), tuple(weight.shape), pad)
     geo = _conv_geometry(dshape, weight.shape, pad)
-    n, c, h, w, o, _, _, _, _, oh, ow = geo
+    n, c, h, w, o, kh, kw, _, _, oh, ow = geo
     if tuple(grad.shape) != (n, o, oh, ow):
         raise MXNetError("conv_bwd_input: grad %s does not match data %s and weight %s"
                          % (tuple(grad.shape), tuple(dshape), tuple(weight.shape)))
-    bf16 = grad.dtype == torch.bfloat16
-    # room for the bf16 kernel's transposed copies of grad and weight
-    if bf16:
-        g_cl, g_ready = _grad_cl("conv_bwd_input", grad, g_cl)
-    else:
-        g_cl, g_ready = torch.empty(0, dtype=grad.dtype, device=grad.device), 0
-    w_t = torch.empty(weight.shape if bf16 else 0, dtype=grad.dtype, device=grad.device)
+    g_cl, g_ready = _grad_cl("conv_bwd_input", grad, g_cl)
+    w_t = _workspace((c, kh, kw, o), grad.dtype, grad.device)
     dx = torch.empty((n, c, h, w), dtype=torch.float32, device=grad.device)
     fn = _build.load("conv_bwd_input")
     with torch.cuda.device(grad.device):
         stream = torch.cuda.current_stream(grad.device).cuda_stream
         rc = fn(grad.data_ptr(), weight.data_ptr(), g_cl.data_ptr(), w_t.data_ptr(),
-                dx.data_ptr(), *geo, int(bf16), g_ready, stream)
+                dx.data_ptr(), *geo, int(grad.dtype == torch.bfloat16), g_ready, stream)
     if rc != 0:
         raise MXNetError("conv_bwd_input kernel launch failed: CUDA error %d" % rc)
     conv_bwd_input.launches += 1
@@ -657,8 +694,8 @@ class _Conv2dKernelBwd(torch.autograd.Function):
     K3 for the data gradient and K2 for the filter gradient (their plain
     versions for CPU tensors) and casts each f32 result to its input's
     dtype. Both are looked up in this module at call time. When both run
-    on bf16 CUDA tensors, grad's channels-last copy is made once and handed
-    to both (``g_cl``)."""
+    on CUDA tensors, grad's channels-last copy (for f32, its hi and lo
+    planes) is made once and handed to both (``g_cl``)."""
 
     @staticmethod
     def forward(ctx, data, weight, pad):
@@ -672,7 +709,7 @@ class _Conv2dKernelBwd(torch.autograd.Function):
         data, weight = ctx.saved_tensors
         g = g.to(data.dtype).contiguous()
         shared = {}
-        if g.is_cuda and g.dtype == torch.bfloat16 and all(ctx.needs_input_grad[:2]):
+        if g.is_cuda and all(ctx.needs_input_grad[:2]):
             shared["g_cl"] = conv_grad_channels_last(g)
         gd = gw = None
         if ctx.needs_input_grad[0]:

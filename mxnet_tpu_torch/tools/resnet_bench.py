@@ -59,12 +59,13 @@ LR, MOMENTUM, WD = 0.1, 0.9, 1e-4
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PHASES = ("rn.forward", "rn.backward", "rn.update")
 KERNEL_FAMILIES = (
-    # conv_wgrad_kernel (f32), conv_wgrad_sm90 (bf16), conv_wgrad_reduce_kernel
+    # conv_wgrad_sm90 (bf16 and f32), conv_wgrad_reduce_kernel; in older
+    # builds the f32 conv_wgrad_kernel
     ("conv_bwd_filter", ("conv_wgrad_",)),
-    # conv_dgrad_kernel (f32), conv_dgrad_sm90 (bf16)
+    # conv_dgrad_sm90 (bf16 and f32); in older builds the f32 conv_dgrad_kernel
     ("conv_bwd_input", ("conv_dgrad_",)),
-    # the bf16 kernels' channels-last copies of x (K2), w (K3) and the
-    # gradient both read
+    # the kernels' channels-last copies of x (K2), w (K3) and the gradient
+    # both read: transpose_bf16* (bf16), transpose_bf16_split (f32 planes)
     ("conv_layout", ("transpose_bf16",)),
     ("cudnn_conv_bwd", ("dgrad", "wgrad")),
     ("cudnn_conv_fwd", ("fprop", "conv", "implicit", "cudnn")),

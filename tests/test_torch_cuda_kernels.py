@@ -5,6 +5,8 @@ installed; the repo's conftest imports JAX, so on such a machine run
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 
 Without a CUDA device they skip."""
+import itertools
+
 import pytest
 import torch
 
@@ -176,12 +178,13 @@ CONV_CASES = [
 
 @pytest.mark.cuda
 def test_cuda_conv_bwd_kernels_match_plain_version():
-    """On the card: K2 (conv_bwd_filter) and K3 (conv_bwd_input; bf16 by
-    TMA and wgmma) against their plain versions on the same inputs, f32
-    outputs before any cast, error at most 1e-4 of max|plain| in f32 and
-    bf16 (both sum the same f32 products, in another order; bf16 products
-    are exact in f32); a second launch gives the same bits (fixed split of
-    M and fixed reduction order, no atomics)."""
+    """On the card: K2 (conv_bwd_filter) and K3 (conv_bwd_input; TMA and
+    wgmma) against their plain versions on the same inputs, f32 outputs
+    before any cast, error at most 1e-4 of max|plain| in f32 and bf16
+    (bf16 products are exact in f32 and summed in another order; an f32
+    product is three bf16 products of its hi and lo planes); a second
+    launch gives the same bits (fixed split of M, fixed order of the
+    products and of the reduction, no atomics)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     g = torch.Generator().manual_seed(3)
@@ -210,11 +213,14 @@ def test_cuda_conv_bwd_kernels_match_plain_version():
 
 @pytest.mark.cuda
 def test_cuda_conv_bwd_kernels_take_views_off_a_16_byte_boundary():
-    """On the card, bf16: contiguous views that start 2 or 8 bytes past a
-    16-byte boundary, which TMA cannot take as a tensor's base and the
+    """On the card: contiguous views that start off a 16-byte boundary, bf16
+    2 or 8 bytes past it, which TMA cannot take as a tensor's base and the
     paired layout transposes cannot read a word at a time, go the routes
-    that can (K2's channels-last copies, the scalar transposes) and agree
-    with the plain versions to 1e-4 of max|plain|, as aligned inputs do."""
+    that can (K2's channels-last copies, the scalar transposes), and f32
+    4 or 8 bytes past it (read by the split layout pass, whose planes
+    TMA reads from the wrapper's workspaces), and agree with the plain
+    versions to 1e-4 of max|plain|, as aligned inputs do; the
+    channels-last copy of grad is its plain version's bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     g = torch.Generator().manual_seed(7)
@@ -223,7 +229,7 @@ def test_cuda_conv_bwd_kernels_take_views_off_a_16_byte_boundary():
         size = 1
         for d in shape:
             size *= d
-        flat = torch.zeros(size + 8, dtype=torch.bfloat16, device="cuda")
+        flat = torch.zeros(size + 8, dtype=dt, device="cuda")
         view = flat[skip:skip + size].view(shape)
         view.copy_(scale * torch.randn(shape, generator=g))
         return view
@@ -234,7 +240,8 @@ def test_cuda_conv_bwd_kernels_take_views_off_a_16_byte_boundary():
         n, _, h, w = dshape
         o, _, kh, kw = wshape
         oshape = (n, o, h + 2 * pad[0] - kh + 1, w + 2 * pad[1] - kw + 1)
-        for skip in (1, 4):
+        for dt, skip in ((torch.bfloat16, 1), (torch.bfloat16, 4), (torch.float32, 1),
+                         (torch.float32, 2)):
             x, wt, gr = at(dshape, skip), at(wshape, skip, 0.1), at(oshape, skip)
             assert x.data_ptr() % 16 and gr.data_ptr() % 16
             mode = kernels.wgrad_plan_sm90(x, gr, wshape, pad, 132)[0]
@@ -242,35 +249,36 @@ def test_cuda_conv_bwd_kernels_take_views_off_a_16_byte_boundary():
             for got, want in ((kernels.conv_bwd_filter(x, gr, wshape, pad),
                                kernels.conv_bwd_filter_reference(x, gr, wshape, pad)),
                               (kernels.conv_bwd_input(gr, wt, dshape, pad),
-                               kernels.conv_bwd_input_reference(gr, wt, dshape, pad)),
-                              (kernels.conv_grad_channels_last(gr).float(),
-                               gr.permute(0, 2, 3, 1).float())):
+                               kernels.conv_bwd_input_reference(gr, wt, dshape, pad))):
                 torch.cuda.synchronize()
                 scale = want.abs().max().item()
                 assert (got - want).abs().max().item() <= 1e-4 * scale
+            assert torch.equal(kernels.conv_grad_channels_last(gr).cpu(),
+                               kernels.conv_grad_channels_last(gr.cpu()))
 
 
 @pytest.mark.cuda
 def test_cuda_shared_channels_last_grad_gives_the_standalone_bits():
-    """On the card, bf16: grad's channels-last copy made once
-    (conv_grad_channels_last) and handed to K2 and K3, and the autograd
-    Function's backward that does so, give the bits of the two standalone
-    wrappers, each of which transposes grad itself; one launch of each
-    kernel per call."""
+    """On the card, bf16 and f32: grad's channels-last copy (f32: its hi and
+    lo planes, the bits of split_bf16) made once (conv_grad_channels_last)
+    and handed to K2 and K3, and the autograd Function's backward that does
+    so, give the bits of the two standalone wrappers, each of which
+    transposes grad itself; one launch of each kernel per call."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     g = torch.Generator().manual_seed(5)
-    for dshape, wshape, pad in CONV_CASES:
+    for (dshape, wshape, pad), dt in itertools.product(CONV_CASES,
+                                                       (torch.bfloat16, torch.float32)):
         n, _, h, w = dshape
         o, _, kh, kw = wshape
         oshape = (n, o, h + 2 * pad[0] - kh + 1, w + 2 * pad[1] - kw + 1)
-        x, wt, gr = (t.to("cuda", torch.bfloat16) for t in (
+        x, wt, gr = (t.to("cuda", dt) for t in (
             torch.randn(dshape, generator=g), 0.1 * torch.randn(wshape, generator=g),
             torch.randn(oshape, generator=g)))
         gw = kernels.conv_bwd_filter(x, gr, wshape, pad)
         gx = kernels.conv_bwd_input(gr, wt, dshape, pad)
         g_cl = kernels.conv_grad_channels_last(gr)
-        assert torch.equal(g_cl, gr.permute(0, 2, 3, 1).contiguous())
+        assert torch.equal(g_cl.cpu(), kernels.conv_grad_channels_last(gr.cpu()))
         assert torch.equal(gw, kernels.conv_bwd_filter(x, gr, wshape, pad, g_cl=g_cl))
         assert torch.equal(gx, kernels.conv_bwd_input(gr, wt, dshape, pad, g_cl=g_cl))
         leaves = [x.clone().requires_grad_(), wt.clone().requires_grad_()]
@@ -279,8 +287,8 @@ def test_cuda_shared_channels_last_grad_gives_the_standalone_bits():
         torch.cuda.synchronize()
         assert (kernels.conv_bwd_filter.launches, kernels.conv_bwd_input.launches) == (
             counts[0] + 1, counts[1] + 1)
-        assert torch.equal(leaves[0].grad, gx.bfloat16())
-        assert torch.equal(leaves[1].grad, gw.bfloat16())
+        assert torch.equal(leaves[0].grad, gx.to(dt))
+        assert torch.equal(leaves[1].grad, gw.to(dt))
 
 
 @pytest.mark.cuda

@@ -340,6 +340,12 @@ def test_bench_forward_bf16_matches_jax_within_two_ulps():
     ("(anonymous namespace)::conv_wgrad_reduce_kernel(float const*, float*, int, int, long long)",
      "conv_bwd_filter"),
     ("sm90_xmma_wgrad_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc", "cudnn_conv_bwd"),
+    # the f32 kernels: K2 and K3 on split planes, the layout pass that splits
+    ("void sm90::(anonymous namespace)::conv_wgrad_sm90<128, 2, false, 2>(...)",
+     "conv_bwd_filter"),
+    ("void sm90::(anonymous namespace)::conv_dgrad_sm90<64, 2>(...)", "conv_bwd_input"),
+    ("void sm90::(anonymous namespace)::transpose_bf16_split<true>(float const*, ...)",
+     "conv_layout"),
 ])
 def test_bench_kernel_families(name, fam):
     """The ResNet trace's kernel families, on kernel names an H100 run
