@@ -2,6 +2,8 @@
 """Smoke run of the PyTorch port (mxnet_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py [--out results.json]
+    python3 chip_smoke.py --only f32_lm --package DIR  # phase 19 and 8 on another tree
+
 
 Phases, each fatal on failure:
 
@@ -9,26 +11,34 @@ Phases, each fatal on failure:
    the sources in this checkout (nvcc, sm_90a, one process per source, all
    started together) and time the build; ptxas's registers and spills of
    each kernel. Then ``cuobjdump -sass`` (beside nvcc) of the flash and
-   conv libraries, read by function: every bf16 forward, dq, dk/dv kernel
-   and every bf16 and f32 K2 and K3 kernel (flash_fwd_sm90, flash_dq_sm90,
-   flash_dkv_sm90 at D 16-128; conv_wgrad_sm90 and conv_dgrad_sm90 at 64
+   conv libraries, read by function: every forward and dk/dv kernel, bf16
+   and split f32, every bf16 dq kernel and every bf16 and f32 K2 and K3
+   kernel (flash_fwd_sm90, flash_fwd_split_sm90, flash_dq_sm90 at D
+   16-128, flash_dkv_sm90 at D 16-128 on one bf16 plane or the hi and lo
+   planes of split f32; conv_wgrad_sm90 and conv_dgrad_sm90 at 64
    and 128 channels a tile, on one bf16 plane or the hi and lo planes of
    split f32, K2 in CTAs of one and two warpgroups, reading channels-last
    copies or, bf16 only, NCHW in place) holds HGMMA (wgmma) and UTMALDG
-   (TMA load) instructions; no bf16 instantiation of the SIMT forward, dq
-   or dk/dv kernel and no SIMT filter- or data-gradient kernel of any
-   type is left.
+   (TMA load) instructions; no SIMT forward or dk/dv kernel and no SIMT
+   filter- or data-gradient kernel of any type is left, and the one SIMT
+   flash kernel is f32 dq (flash_dq_kernel<D>).
 2. forward kernel vs plain: the flash-attention forward kernels against
    their plain PyTorch version on the card, f32 to 1e-4 and bf16 to 2e-2
    (the plain version rounds its scores to bf16; the bf16 kernel keeps them
    in f32 and rounds P to bf16 before P·V), D 16 to 128, T 7 to 2048,
    contiguous operands and transposed views of [B, H, T, D] tensors (which
-   TMA reads in place); a second launch gives the same bits.
+   TMA reads in place), and in f32 at FLASH_DEEP (T 4096 and 8192, D 64
+   and 128, causal and not, n·H 1-2); a second launch gives the same bits.
+   The split pass of the f32 kernels (``split_planes``) is bit for bit
+   ``split_bf16`` on the training path's four operands and on a
+   [B, H, T, D] view, and repeatable.
 3. backward kernels vs plain: dq and dk/dv kernels against
    ``reference_attention_bwd`` on the same q, k, v, dO, lse and delta, for
    T in 7..2048, D 16 to 128, causal or not, f32 and bf16, contiguous
-   and as [B, H, T, D] views; error relative
-   to max|plain| at most 1e-4 in f32 (summation order only) and 2e-2 in
+   and as [B, H, T, D] views, and in f32 at FLASH_DEEP; error relative
+   to max|plain| at most 1e-4 in f32 (the split f32 dk/dv kernel takes
+   three bf16 products for each f32 one, promoted every q tile; f32 dq
+   differs in summation order only) and 2e-2 in
    bf16 (the outputs differ by about one bf16 rounding, 2^-8 relative, and
    the bf16 kernels round dS to bf16 before dS·K, and P^T and dS^T before
    P^T·dO and dS^T·Q); and a second launch on the same inputs gives the
@@ -51,6 +61,7 @@ Phases, each fatal on failure:
    batch of its corpus: every loss finite, the last below the first, and
    the forward, dq and dk/dv kernels each launched exactly n_layers times
    per step (counts zeroed just before); step ms, tokens/s, peak memory.
+   Phase 19 (main path 6) is the same in f32, the trainer's default.
 8. attention kernel times: per flash kernel its launches on the main
    paths, error against the plain version, time (``ms``: CUDA events
    around one call, median, L2 flushed before each, so the host's enqueue
@@ -63,10 +74,12 @@ Phases, each fatal on failure:
    and for that call: ``device_ms``, the same span with a ~0.5 ms sleep
    kernel queued first, so the events time the card alone, and
    ``host_ms``, the host's time to enqueue one call. The same for the f32
-   kernels (CUDA-core designs) at T 2048 and at the training path's
-   shape, against f32 scaled_dot_product_attention (TF32 off), under
-   each entry's ``f32`` key, their bound counted as for f32 K2 and K3
-   (phase 12).
+   kernels (forward and dk/dv: three bf16 products of split planes, the
+   split pass inside the call and its own ``split_device_ms`` beside; dq:
+   the CUDA-core design) at T 2048 and at the training path's shape,
+   against f32 scaled_dot_product_attention (TF32 off), under each
+   entry's ``f32`` (and ``f32_shapes``) key, their bound counted as for
+   f32 K2 and K3 (phase 12).
 9. conv-backward kernels vs plain: K2 (conv_bwd_filter) and K3
    (conv_bwd_input) against their plain versions on every distinct
    in-envelope convolution shape of ResNet-50 at batch 32 (from
@@ -168,6 +181,13 @@ Phases, each fatal on failure:
     the dp 4 mesh with AMP and Adam (K1's adam variant): validation
     accuracy at least 0.97 in both.
 
+19. training, f32 (main path 6; run after phase 7): phase 7 with the
+    trainer's default dtype, f32 (the same full model, batch 8, T 2047,
+    10 SGD steps on one batch): every loss finite, the last below the
+    first, the forward, dq and dk/dv kernels each launched exactly
+    n_layers times a step and the split pass twice as often (one for each
+    forward and dk/dv launch); step ms, tokens/s, peak memory.
+
 Then the kernels line: the seven kernels, K4f, K4dq, K4dkv, K2, K3, K5 and
 K1.
 
@@ -202,6 +222,9 @@ BWD_CHECK_EXTRA = [(2047, 64), (2047, 128), (7, 16), (100, 16), (2047, 16), (7, 
                    (2047, 32), (300, 64, "bhtd"), (2047, 128, "bhtd")]
 # (T, D[, "bhtd": transposed [B, H, T, D] views]) beside BWD_CHECK_T x (64, 128)
 BWD_TIME_SHAPE = (8, 2047, 16, 64)  # n, T, H, D of the training path's attention
+# f32 (n, T, H, D) where the sums of the split f32 kernels are longest, small
+# n·H so the plain version's [T, T] scores fit; causal and not
+FLASH_DEEP = [(1, 4096, 2, 64), (1, 4096, 2, 128), (1, 8192, 2, 64), (1, 8192, 1, 128)]
 RESNET_BATCH = 32
 RESNET_STEPS = 5
 RESNET_CONVS = 46  # in-envelope convolutions of ResNet-50: K2 and K3 launches a step
@@ -282,16 +305,20 @@ def sass_counts(_build, name):
 
 
 # (kernel whose library to read, Hopper kernel prefix, its instantiations,
-# the bf16 SIMT kernel that must be gone)
+# the SIMT kernels that must be gone)
 SASS_CHECKS = (
-    ("flash_attn_fwd", "flash_fwd_sm90", 4, "flash_fwd_kernel<bf16"),
-    ("flash_attn_bwd_dq", "flash_dq_sm90", 4, "flash_dq_kernel<bf16"),
-    ("flash_attn_bwd_dkv", "flash_dkv_sm90", 4, "flash_dkv_kernel<bf16"),
+    ("flash_attn_fwd", "flash_fwd_sm90", 4, ("flash_fwd_kernel<",)),  # bf16, D 16-128
+    ("flash_attn_fwd", "flash_fwd_split_sm90", 4, ("flash_fwd_kernel<",)),  # split f32
+    ("flash_attn_bwd_dq", "flash_dq_sm90", 4, ("flash_dq_kernel<bf16",)),
+    # <D, planes>: bf16 and split f32
+    ("flash_attn_bwd_dkv", "flash_dkv_sm90", 8, ("flash_dkv_kernel<",)),
     # <c tile, warpgroups, NCHW in place, planes>: 8 bf16, 4 f32
-    ("conv_bwd_filter", "conv_wgrad_sm90", 12, "conv_wgrad_kernel<"),
+    ("conv_bwd_filter", "conv_wgrad_sm90", 12, ("conv_wgrad_kernel<",)),
     # <c tile, planes>
-    ("conv_bwd_input", "conv_dgrad_sm90", 4, "conv_dgrad_kernel<"),
+    ("conv_bwd_input", "conv_dgrad_sm90", 4, ("conv_dgrad_kernel<",)),
 )
+# the one SIMT flash kernel left: f32 dq (flash_dq_kernel<D>, D 16-128)
+SIMT_LEFT = "flash_dq_kernel<"
 
 
 def phase_build(_build):
@@ -318,8 +345,14 @@ def phase_build(_build):
         if left:
             raise AssertionError("%s: SIMT kernels left: %s" % (name, left))
         sass.update(tma)
-    log("phase 1: HGMMA and UTMALDG in every bf16 forward, dq, dk/dv kernel and every bf16 and "
-        "f32 K2 and K3 kernel; no bf16 SIMT forward, dq or dk/dv kernel, no SIMT K2 or K3")
+    flash = [f for lib, counts in by_lib.items() for f in counts if f.startswith("flash_")]
+    simt = [f for f in flash if "_sm90" not in f and not f.startswith("flash_split_kernel")]
+    if len(simt) != 4 or not all(f.startswith(SIMT_LEFT) and "bf16" not in f for f in simt):
+        raise AssertionError("the flash libraries want f32 flash_dq_kernel<D> as their one SIMT "
+                             "kernel, got %s" % simt)
+    log("phase 1: HGMMA and UTMALDG in every forward and dk/dv kernel (bf16 and split f32), every "
+        "bf16 dq kernel and every bf16 and f32 K2 and K3 kernel; the one SIMT flash kernel left "
+        "is f32 dq; no SIMT K2 or K3")
     return secs, sass
 
 
@@ -369,9 +402,13 @@ def phase_kernel_checks(kernels, dev):
     # [B, H, T, D] tensors read as [B, T, H, D] views: TMA-aligned strides in another order
     cases += [(2, 300, 8, 64, True, "bhtd"), (1, 2047, 16, 64, False, "bhtd"),
               (2, 100, 8, 128, True, "bhtd")]
+    split = split_checks(kernels, dev, rng)
     worst = {}
-    for (n, t, h, d, causal, *layout) in cases:
-        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+    f32_only = ((torch.float32, 1e-4),)
+    cases = [c + (None,) for c in cases] + [(n, t, h, d, causal, f32_only)
+                                            for n, t, h, d in FLASH_DEEP for causal in (True, False)]
+    for (n, t, h, d, causal, *layout, dtypes) in cases:
+        for dtype, tol in dtypes or ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
             q, k, v = (_operand(kernels, n, t, h, d, dtype, dev, rng, layout) for _ in range(3))
             err, same = max_err(kernels, q, k, v, causal, repeat=True)
             log("  flash_attn_fwd n=%d T=%d H=%d D=%d causal=%s %s%s: max_abs_err %.3g (tol %g), "
@@ -383,9 +420,38 @@ def phase_kernel_checks(kernels, dev):
                 raise AssertionError("flash_attn_fwd is not bitwise repeatable")
             key = str(dtype).split(".")[-1]
             worst[key] = max(worst.get(key, 0.0), err)
-    log("phase 2: forward kernels vs plain ok over %d cases, worst %s"
-        % (len(cases), json.dumps(worst)))
+    log("phase 2: forward kernels vs plain ok over %d cases (%d FLASH_DEEP, f32), worst %s; "
+        "split pass bitwise equal to split_bf16: %s"
+        % (len(cases), 2 * len(FLASH_DEEP), json.dumps(worst), json.dumps(split)))
+    worst["split"] = split
     return worst
+
+
+def split_checks(kernels, dev, rng):
+    """The split pass (``split_planes``) bit for bit against its plain
+    version ``split_bf16``: the four operands of the training path's dk/dv
+    (n=8, T=2047, H=16, D=64) contiguous, and a [B, H, T, D] view next to a
+    contiguous tensor; a second launch gives the same bits."""
+    import torch
+
+    n, t, h, d = BWD_TIME_SHAPE
+    out = {}
+    for name, xs in (
+            ("contiguous x4", [_randn((n, t, h, d), torch.float32, dev, rng) for _ in range(4)]),
+            ("bhtd view + contiguous", [_operand(kernels, 2, 300, 8, 64, torch.float32, dev, rng,
+                                                 ["bhtd"]),
+                                        _randn((2, 300, 8, 64), torch.float32, dev, rng)])):
+        got = kernels.split_planes(*xs)
+        again = kernels.split_planes(*xs)
+        want = torch.stack([kernels.split_bf16(x) for x in xs])
+        bits = lambda a: a.view(torch.int16)  # noqa: E731
+        same = torch.equal(bits(got), bits(want)) and torch.equal(bits(got), bits(again))
+        log("  split_planes %s %s: bitwise equal to split_bf16 and repeatable %s"
+            % (name, tuple(xs[0].shape), same))
+        if not same:
+            raise AssertionError("split_planes differs from split_bf16 (%s)" % name)
+        out[name] = same
+    return out
 
 
 def bwd_inputs(kernels, n, t, h, d, dtype, causal, dev, rng, layout=()):
@@ -437,10 +503,13 @@ def phase_bwd_checks(kernels, dev):
     rng = np.random.default_rng(4)
     worst = {}
     n, h = 2, 8
-    shapes = [(t, d) for t in BWD_CHECK_T for d in (64, 128)] + BWD_CHECK_EXTRA
-    for t, d, *layout in shapes:
+    both = ((torch.float32, 1e-4), (torch.bfloat16, 2e-2))
+    shapes = [(n, h, t, d, both) for t in BWD_CHECK_T for d in (64, 128)]
+    shapes += [(n, h, *extra, both) for extra in BWD_CHECK_EXTRA]
+    shapes += [(dn, dh, t, d, ((torch.float32, 1e-4),)) for dn, t, dh, d in FLASH_DEEP]
+    for n, h, t, d, *layout, dtypes in shapes:
         for causal in (True, False):
-            for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            for dtype, tol in dtypes:
                 args = bwd_inputs(kernels, n, t, h, d, dtype, causal, dev, rng, layout)
                 key = str(dtype).split(".")[-1]
                 for name, e in bwd_errors(kernels, args, causal).items():
@@ -502,8 +571,10 @@ def phase_serving_f32(tfm, kernels, dev):
 
 def zero_counts(kernels):
     for fn in (kernels.flash_attention, kernels.flash_attention_dq, kernels.flash_attention_dkv,
-               kernels.conv_bwd_filter, kernels.conv_bwd_input, kernels.fused_slab_update):
-        fn.launches = 0
+               kernels.conv_bwd_filter, kernels.conv_bwd_input, kernels.fused_slab_update,
+               getattr(kernels, "split_planes", None)):  # absent from older trees
+        if fn is not None:
+            fn.launches = 0
 
 
 def conv_counts(kernels):
@@ -561,7 +632,9 @@ def phase_train_f32(tfm, trainer, kernels, dev):
             "launches": counts}
 
 
-def phase_train_bf16(trainer, kernels, dev):
+def phase_train_lm(trainer, kernels, dev, dtype):
+    """Phase 7 (bf16) or 19 (f32): TRAIN's SGD steps of the example
+    trainer on the full model; see the module docstring."""
     import torch
 
     per_step, stamps = [], []
@@ -571,13 +644,16 @@ def phase_train_bf16(trainer, kernels, dev):
         stamps.append(time.perf_counter())
         per_step.append(read_counts(kernels))
 
+    f32 = dtype == "float32"
     torch.cuda.reset_peak_memory_stats(dev)
     zero_counts(kernels)  # counts from here are the training path's
     t0 = time.perf_counter()
-    losses = trainer.train(dtype="bfloat16", device=dev, on_step=on_step,
+    losses = trainer.train(dtype=dtype, device=dev, on_step=on_step,
                            log=lambda *a: log("  train:", *a), **FULL, **TRAIN)
     wall = time.perf_counter() - t0
     counts = read_counts(kernels)
+    split = getattr(kernels, "split_planes", None)
+    split_launches = split.launches if split is not None else None
     steps, layers = TRAIN["steps"], FULL["n_layers"]
     prev = dict.fromkeys(counts, 0)
     for i, c in enumerate(per_step):
@@ -585,18 +661,24 @@ def phase_train_bf16(trainer, kernels, dev):
             assert n - prev[name] == layers, (i, name, n - prev[name])
         prev = c
     assert counts == dict.fromkeys(counts, steps * layers), counts
+    # f32: one split pass a forward and one a dk/dv launch; bf16: none
+    if split_launches is not None:
+        assert split_launches == (2 * steps * layers if f32 else 0), split_launches
     assert len(losses) == steps and all(np.isfinite(losses)), losses
     assert losses[-1] < losses[0], losses
     step_s = [b - a for a, b in zip(stamps, stamps[1:])]
     t = TRAIN["seq_len"]
     res = {
-        "losses": losses, "wall_s": wall, "step_ms_median": 1e3 * statistics.median(step_s),
+        "dtype": dtype, "losses": losses, "wall_s": wall,
+        "step_ms_median": 1e3 * statistics.median(step_s),
         "first_step_ms_with_setup": 1e3 * (stamps[0] - t0),
         "tokens_per_s": TRAIN["batch_size"] * t / statistics.median(step_s),
         "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
-        "launches": counts, "batch": TRAIN["batch_size"], "T": t,
+        "launches": counts, "split_launches": split_launches, "batch": TRAIN["batch_size"],
+        "T": t,
     }
-    log("phase 7: bf16 full model, %d SGD steps of train(): %s" % (steps, json.dumps(res)))
+    log("phase %d: %s full model, %d SGD steps of train(): %s"
+        % (19 if f32 else 7, "f32" if f32 else "bf16", steps, json.dumps(res)))
     return res
 
 
@@ -715,7 +797,24 @@ def flash_fwd_row(kernels, n, t, h, d, dtype, dev, rng, flush, reps):
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "bound_counts": BOUND_COUNTS[key], "flops": flops, "bytes": nbytes,
+        **split_row(kernels, (q, k, v), flush, reps),
     }
+
+
+def split_row(kernels, xs, flush, reps):
+    """For f32 operands: the device ms of the split pass the wrapper runs
+    first (``split_planes`` of ``xs``; inside the kernel's ``ms``), and its
+    bound, 4 bytes read and 4 written a value."""
+    import torch
+
+    if xs[0].dtype != torch.float32 or not hasattr(kernels, "split_planes"):
+        return {}
+    nbytes = 8 * len(xs) * xs[0].numel()
+    return {"split_device_ms": device_ms(lambda: kernels.split_planes(*xs), reps, 3, flush),
+            "split_bound_ms": nbytes / PEAK_BYTES * 1e3, "split_bytes": nbytes}
+
+
+F32_DESIGN = "tma+wgmma, 3 bf16 products of split hi/lo planes (f32)"
 
 
 def phase_kernel_times(kernels, dev, launches, f32_launches):
@@ -728,31 +827,35 @@ def phase_kernel_times(kernels, dev, launches, f32_launches):
     for t in (1024, 2048):
         shapes.append(flash_fwd_row(kernels, n, t, h, d, torch.bfloat16, dev, rng, flush, 30))
         log("  flash_attn_fwd %s" % json.dumps(shapes[-1]))
-    f32 = flash_fwd_row(kernels, n, 2048, h, d, torch.float32, dev, rng, flush, 10)
-    f32["launches"] = f32_launches
-    log("  flash_attn_fwd %s" % json.dumps(f32))
+    f32_rows = [flash_fwd_row(kernels, fn, ft, h, d, torch.float32, dev, rng, flush, 10)
+                for fn, ft in ((n, 2048), BWD_TIME_SHAPE[:2])]
+    for row in f32_rows:
+        row["launches"] = f32_launches
+        log("  flash_attn_fwd %s" % json.dumps(row))
+    f32 = f32_rows[0]
     head = shapes[-1]
     entry = {
         "name": "flash_attn_fwd", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/flash_attn_fwd.cu",
-        "design": "tma+wgmma (bf16); f32 SIMT (f32)",
+        "design": "tma+wgmma (bf16); " + F32_DESIGN,
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:263",
         "launches": launches,
         **{key: head[key] for key in ("max_abs_err", "ms", "kernel_ms", "plain_ms",
                                       "bound_ms", "bound_by", "library_ms", "device_ms",
                                       "host_ms", "library_device_ms", "library_host_ms")},
-        "shapes": shapes, "f32": f32,
+        "shapes": shapes, "f32": f32, "f32_shapes": f32_rows,
     }
     return [entry]
 
 
-def flash_bwd_rows(kernels, dtype, dev, rng, flush, reps):
-    """Phase 8's numbers of the two backward kernels at the training path's
-    attention shape, causal: {name: row}."""
+def flash_bwd_rows(kernels, dtype, dev, rng, flush, reps, shape=BWD_TIME_SHAPE):
+    """Phase 8's numbers of the two backward kernels at ``shape`` (n, T, H,
+    D; by default the training path's attention shape), causal: {name:
+    row}."""
     import torch
     import torch.nn.functional as F
 
-    n, t, h, d = BWD_TIME_SHAPE
+    n, t, h, d = shape
     args = bwd_inputs(kernels, n, t, h, d, dtype, True, dev, rng)
     errs = bwd_errors(kernels, args, True)
     kern = {"flash_attn_bwd_dq": lambda: kernels.flash_attention_dq(*args, causal=True),
@@ -794,6 +897,7 @@ def flash_bwd_rows(kernels, dtype, dev, rng, flush, reps):
             "n": n, "T": t, "H": h, "D": d, "dtype": key, "causal": True,
             "flops": flops, "bytes": nbytes,
         }
+    rows["flash_attn_bwd_dkv"].update(split_row(kernels, args[:4], flush, reps))
     return rows
 
 
@@ -807,15 +911,19 @@ def phase_bwd_times(kernels, dev, launches, f32_launches):
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
     rows = flash_bwd_rows(kernels, torch.bfloat16, dev, rng, flush, 20)
     f32 = flash_bwd_rows(kernels, torch.float32, dev, rng, flush, 5)
+    f32_t2048 = flash_bwd_rows(kernels, torch.float32, dev, rng, flush, 5, (4, 2048, 16, 64))
     entries = []
     for name, row in rows.items():
-        f32[name]["launches"] = f32_launches[name]
+        for r in (f32, f32_t2048):
+            r[name]["launches"] = f32_launches[name]
         entries.append({
             "name": name, "route": "cuda", "source": "mxnet_tpu_torch/csrc/flash_attn_bwd.cu",
-            "design": "tma+wgmma (bf16); f32 SIMT (f32)",
+            "design": "tma+wgmma (bf16); " + (
+                "f32 SIMT (f32)" if name.endswith("dq") else F32_DESIGN),
             "replaces": "mxnet_tpu/ops/pallas_kernels.py:%d" % (
                 295 if name.endswith("dq") else 316),
             "launches": launches[name], **row, "f32": f32[name],
+            "f32_shapes": [f32[name], f32_t2048[name]],
         })
         log("  %s %s" % (name, json.dumps(entries[-1])))
     return entries
@@ -1772,6 +1880,10 @@ def phase_convergence(mx, kernels, dev):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every phase's numbers to this JSON file")
+    ap.add_argument("--package", help="import mxnet_tpu_torch from this checkout instead of the "
+                    "one beside this script (to run this script's phases on another tree)")
+    ap.add_argument("--only", choices=("f32_lm",),
+                    help="f32_lm: build, phase 19 and phase 8's attention kernel times only")
     args = ap.parse_args(argv)
 
     import torch
@@ -1779,7 +1891,7 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, os.path.abspath(args.package or os.path.dirname(os.path.abspath(__file__))))
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import rtc_kernels as rk
     from mxnet_tpu_torch import telemetry
@@ -1798,15 +1910,32 @@ def main(argv=None):
     kind = torch.cuda.get_device_name(0)
     log("card: %s | torch %s, CUDA %s" % (card, torch.__version__, torch.version.cuda))
 
-    results = {"card": card}
+    results = {"card": card, "package": os.path.dirname(os.path.abspath(mx.__file__))}
+    if args.only == "f32_lm":
+        t0 = time.perf_counter()
+        _build.build()
+        results["build_s"] = time.perf_counter() - t0
+        results["training_f32_full"] = phase_train_lm(trainer, kernels, dev, "float32")
+        f32_launches = dict(results["training_f32_full"]["launches"])
+        bf16_launches = dict.fromkeys(f32_launches, 0)
+        results["kernels"] = (
+            phase_kernel_times(kernels, dev, 0, f32_launches["flash_attn_fwd"])
+            + phase_bwd_times(kernels, dev, bf16_launches, f32_launches))
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+            with open(args.out, "w") as fh:
+                json.dump(results, fh, indent=1)
+        print(card)
+        return 0
     results["build_s"], results["sass"] = phase_build(_build)
     results["kernel_checks"] = phase_kernel_checks(kernels, dev)
     results["bwd_kernel_checks"] = phase_bwd_checks(kernels, dev)
     results["serving_f32"] = phase_serving_f32(tfm, kernels, dev)
     results["training_f32"] = phase_train_f32(tfm, trainer, kernels, dev)
     results["serving_bf16"] = phase_serving_bf16(tfm, kernels, telemetry, GenerationEngine, dev)
-    results["training_bf16"] = phase_train_bf16(trainer, kernels, dev)
+    results["training_bf16"] = phase_train_lm(trainer, kernels, dev, "bfloat16")
     train_launches = results["training_bf16"]["launches"]
+    results["training_f32_full"] = phase_train_lm(trainer, kernels, dev, "float32")
     results["conv_checks"], conv_errs = phase_conv_checks(kernels, resnet, dev)
     results["resnet_grads_f32"] = phase_resnet_grads_f32(resnet_bench, kernels, dev)
     results["resnet_train"] = [phase_resnet_train(resnet_bench, kernels, dev, dtype)
@@ -1832,8 +1961,9 @@ def main(argv=None):
     results["convergence"] = phase_convergence(mx, kernels, dev)
     slab_launches = (results["fit_resnet_amp"]["launches"]["slab_update"]
                      + results["convergence"]["b"]["slab_update_launches"])
-    # the f32 kernels' launches in phases 4 and 5
-    f32_launches = dict(results["training_f32"]["launches"])
+    # the f32 kernels' launches in phases 4, 5 and 19
+    f32_launches = {name: n + results["training_f32_full"]["launches"][name]
+                    for name, n in results["training_f32"]["launches"].items()}
     f32_launches["flash_attn_fwd"] += results["serving_f32"]["launches"]
     fwd = phase_kernel_times(kernels, dev, results["serving_bf16"]["flash_launches"],
                              f32_launches["flash_attn_fwd"])

@@ -197,18 +197,6 @@ struct ConvMaps {
   CUtensorMap a[kP], b[kP];
 };
 
-// The products of one k16 step into one accumulator, mma(plane of A, plane
-// of B): bf16 (kP = 1) a * b; split f32 (kP = 2) a_hi * b_lo, a_lo * b_hi,
-// then a_hi * b_hi, always in this order, so a repeat gives the same bits
-template <int kP, typename Mma>
-__device__ __forceinline__ void split_products(Mma&& mma) {
-  if constexpr (kP == 2) {
-    mma(0, 1);
-    mma(1, 0);
-  }
-  mma(0, 0);
-}
-
 // split f32 (kP = 2): the k steps whose products part sums before it is
 // added into acc
 constexpr int kPromoteSteps = 8;
@@ -306,7 +294,7 @@ __global__ void __launch_bounds__(kThreads)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kChunk / 16; ++kk)
-      split_products<kP>([&](int pa, int pb) {
+      plane_products<kP>([&](int pa, int pb) {
         wgmma_ss_acc(sum, desc_kmajor<64>(ring.a_tile(s, pa), kk),
                      desc_kmajor<64>(ring.b_tile(s, pb), kk));
       });
@@ -431,11 +419,10 @@ __global__ void __launch_bounds__(kT * 8)
     if constexpr (kPairs) {
       const int r = r0 + 2 * threadIdx.x;
       if (r >= rows) continue;
-      uint32_t h0, l0, h1, l1;
-      split_bf16(tile[2 * threadIdx.x][j], h0, l0);
-      split_bf16(tile[2 * threadIdx.x + 1][j], h1, l1);
-      *reinterpret_cast<uint32_t*>(hi + row + r) = h0 | h1 << 16;
-      *reinterpret_cast<uint32_t*>(lo + row + r) = l0 | l1 << 16;
+      uint32_t h2, l2;
+      split_pair(tile[2 * threadIdx.x][j], tile[2 * threadIdx.x + 1][j], h2, l2);
+      *reinterpret_cast<uint32_t*>(hi + row + r) = h2;
+      *reinterpret_cast<uint32_t*>(lo + row + r) = l2;
     } else {
 #pragma unroll
       for (int h = 0; h < kTP; h += kT) {
@@ -649,7 +636,7 @@ __global__ void __launch_bounds__(kThreads * kW)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kChunk / 16; ++kk)
-      split_products<kP>([&](int pa, int pb) {
+      plane_products<kP>([&](int pa, int pb) {
         if constexpr (kNchw)
           wgmma_ss_acc(sum, desc_kmajor<64>(ring.a_tile(s, pa) + wg * kBox, kk),
                        desc_kmajor<64>(ring.b_tile(s, pb), kk));

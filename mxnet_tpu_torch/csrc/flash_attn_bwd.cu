@@ -5,7 +5,8 @@
 //   * dq  <- `_bwd_dq_kernel`:  dq = scale * sum_k dS K
 //            (bf16: flash_dq_sm90, TMA and wgmma; f32: flash_dq_kernel)
 //   * dkv <- `_bwd_dkv_kernel`: dv = sum_q P^T dO, dk = scale * sum_q dS^T Q
-//            (bf16: flash_dkv_sm90, TMA and wgmma; f32: flash_dkv_kernel)
+//            (flash_dkv_sm90<D, kP>, TMA and wgmma: bf16 kP = 1; f32 kP =
+//            2, on the split planes of flash_attn_fwd.cu's split pass)
 // with, as the Pallas kernels compute it, from bf16 or f32 loads: s =
 // scale * q.k^T in f32; the keep-mask of `_masked_scores` (k < T, and
 // q >= k when causal; here also q < T, since T is not padded); P =
@@ -56,22 +57,47 @@
 //     dP^T 32 each. Numerics: P^T and dS^T are rounded to bf16 before the
 //     products (FlashAttention-2/3 do the same), inside the same 2e-2
 //     limit.
-//   * dq and dk/dv, f32 (flash_dq_kernel, flash_dkv_kernel): f32 FMAs on
-//     the CUDA cores; the f32 limit (1e-4) rules out TF32 tensor cores.
-//     One block per (batch*head, 64-row q or k tile); the other tiles are
-//     a loop inside the block (dq: up to the causal diagonal; dk/dv: from
-//     the tile holding the block's first key to the end); the accumulators
-//     stay in registers. Each 64 x 64 score tile is recomputed (s and dP)
-//     from tiles staged in shared memory as f32, padded by one column so
-//     neither the row-wise nor the column-wise reads conflict on banks. 128
-//     threads; each owns a 4 x 8 micro-tile of the scores and a 4 x D/8
-//     micro-tile of the accumulators, as in flash_attn_fwd.cu. Dynamic
-//     shared memory is 83-100 KB at D=64 and 149-166 KB at D=128, above
-//     the 48 KB default, so the launch sets the opt-in attribute.
+//   * dk/dv, f32 (flash_dkv_sm90<D, 2>): the same kernel on two bf16
+//     planes of each operand, hi = bf16(v) and lo = bf16(v - hi), made by
+//     the wrapper's split pass (mxtt_flash_split); each f32 product is
+//     three bf16 ones, hi*lo + lo*hi + hi*hi, so the bound is three times
+//     the bf16 operations (the f32 limit, 1e-4 of max|plain|, rules out
+//     one bf16 or TF32 product, and the CUDA cores' f32 FMAs reach 67
+//     TFLOP/s at most: the CUDA-core kernel this replaced ran 6.4 ms at
+//     n=8 T=2047, 2.1x f32 SDPA's dq+dk+dv). K and V are resident as hi
+//     and lo tiles, Q and dO stream as hi and lo tiles (96 KB of shared
+//     memory at D = 64, 193 KB at D = 128: one or two CTAs an SM); S^T
+//     and dP^T take three products a k16 step. P^T and dS^T are split in
+//     registers into hi and lo A operands. dk and dv each sum 4 k16 steps
+//     a q tile over all the q tiles (128 at T = 2047, 512 at 8192), and
+//     the tensor cores' f32 accumulation rounds every wgmma's sum with a
+//     bias, so one accumulator's error would grow with T (conv_bwd.cu's
+//     kPromoteSteps): each q tile's products go into a partial that starts
+//     at zero and is added into dk or dv on the CUDA cores
+//     (add_split_product), a promotion every 4 k16 steps. Where the sums
+//     live: dk and dv in registers, D/2 each, and one partial reused for
+//     both products, 32 columns of it a thread at most (64 columns at a
+//     time at D = 128); dS^T is made before the products, so S^T's
+//     registers are free by then (no overlap of the dv product with it,
+//     as in bf16): about S^T 32 + dS^T 32 + the A planes 32 + partial 32
+//     + dk and dv D live at once. Keeping the promoted sums in shared
+//     memory instead would not fit beside the D = 128 ring (32 KB each).
+//     dk = scale * acc and dv are written in f32.
+//   * dq, f32 (flash_dq_kernel): f32 FMAs on the CUDA cores, not yet
+//     redesigned. One block per (batch*head, 64-row q tile); the k tiles
+//     up to the causal diagonal are a loop inside the block; the
+//     accumulator stays in registers. Each 64 x 64 score tile is
+//     recomputed (s and dP) from tiles staged in shared memory as f32,
+//     padded by one column so neither the row-wise nor the column-wise
+//     reads conflict on banks. 128 threads; each owns a 4 x 8 micro-tile
+//     of the scores and a 4 x D/8 micro-tile of the accumulator. Dynamic
+//     shared memory is 83 KB at D=64 and 149 KB at D=128, above the 48 KB
+//     default, so the launch sets the opt-in attribute.
 //   * The ragged edge of T is masked in the kernels and loads past T are
-//     zero-filled (no padding of T). The f32 kernels read q, k, v, dO as
-//     [B, T, H, D] through their strides; the bf16 ones through tensor maps
-//     of the same strides (the wrapper copies an operand TMA cannot read).
+//     zero-filled (no padding of T). The f32 dq kernel reads q, k, v, dO
+//     as [B, T, H, D] through their strides; the others through tensor
+//     maps of the same strides (the wrapper copies a bf16 operand TMA
+//     cannot read; f32 operands are split into contiguous planes first).
 //
 // Entry points: mxtt_flash_attn_bwd_dq and mxtt_flash_attn_bwd_dkv (plain C,
 // loaded with ctypes). Each returns the cudaError_t of its launch (0 on
@@ -160,11 +186,6 @@ constexpr size_t dq_smem_bytes() {
 }
 
 template <int D>
-constexpr size_t dkv_smem_bytes() {
-  return sizeof(float) * (4 * kBlock * (D + 1) + 2 * kBlock * kPP + 2 * kBlock);
-}
-
-template <int D>
 __global__ void __launch_bounds__(kThreads)
     flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ dout,
@@ -241,103 +262,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, float* __restrict__ dk,
-                     float* __restrict__ dv, int heads, int seq, Strides sq,
-                     Strides sk, Strides sv, Strides sdo, float scale,
-                     int causal) {
-  constexpr int DP = D + 1;
-  constexpr int kAcc = D / kLanes;
-  extern __shared__ float smem[];
-  float* ks = smem;                // [kBlock][DP]
-  float* vs = ks + kBlock * DP;    // [kBlock][DP]
-  float* qs = vs + kBlock * DP;    // [kBlock][DP]
-  float* dos = qs + kBlock * DP;   // [kBlock][DP]
-  float* ps = dos + kBlock * DP;   // [kBlock][kPP] P^T of the current q tile
-  float* dss = ps + kBlock * kPP;  // [kBlock][kPP] dS^T
-  float* lse_s = dss + kBlock * kPP;  // [kBlock]
-  float* delta_s = lse_s + kBlock;    // [kBlock]
-
-  const int bh = blockIdx.x;
-  const int b = bh / heads;
-  const int h = bh - b * heads;
-  const int k0 = blockIdx.y * kBlock;  // low k tiles carry the most q tiles
-  const int lane = threadIdx.x % kLanes;
-  const int group = threadIdx.x / kLanes;
-  const float* qb = q + b * sq.b + h * sq.h;
-  const float* dob = dout + b * sdo.b + h * sdo.h;
-  const float* lse_row = lse + static_cast<long long>(bh) * seq;
-  const float* delta_row = delta + static_cast<long long>(bh) * seq;
-
-  load_tile<D>(ks, k + b * sk.b + h * sk.h, sk.t, k0, seq);
-  load_tile<D>(vs, v + b * sv.b + h * sv.h, sv.t, k0, seq);
-  float dk_acc[kRows][kAcc], dv_acc[kRows][kAcc];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int j = 0; j < kAcc; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
-
-  // q tiles are kBlock-aligned like k tiles: under the causal mask the
-  // tile holding key k0 is the one that starts at k0
-  for (int q0 = causal ? k0 : 0; q0 < seq; q0 += kBlock) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<D>(qs, qb, sq.t, q0, seq);
-    load_tile<D>(dos, dob, sdo.t, q0, seq);
-    for (int i = threadIdx.x; i < kBlock; i += kThreads) {
-      const int t = q0 + i;
-      lse_s[i] = t < seq ? lse_row[t] : 0.f;
-      delta_s[i] = t < seq ? delta_row[t] : 0.f;
-    }
-    __syncthreads();
-
-    // scores transposed: rows are this block's keys, columns the q tile
-    float st[kRows][kCols];
-    tile_dot<D>(ks, qs, st, group, lane);
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int row = group * kRows + i;
-      const int kpos = k0 + row;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int col = lane + kLanes * j;
-        const int qpos = q0 + col;
-        const bool keep = kpos < seq && qpos < seq && (!causal || qpos >= kpos);
-        ps[row * kPP + col] = keep ? expf(scale * st[i][j] - lse_s[col]) : 0.f;
-      }
-    }
-    tile_dot<D>(vs, dos, st, group, lane);  // dP^T, reusing the registers
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int row = group * kRows + i;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int col = lane + kLanes * j;
-        // each thread reads back only the P^T entries it wrote itself
-        dss[row * kPP + col] = ps[row * kPP + col] * (st[i][j] - delta_s[col]);
-      }
-    }
-    __syncthreads();
-    tile_accumulate<D>(ps, dos, dv_acc, group, lane);
-    tile_accumulate<D>(dss, qs, dk_acc, group, lane);
-  }
-
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int t = k0 + group * kRows + i;
-    if (t >= seq) continue;
-    const long long off = ((static_cast<long long>(b) * seq + t) * heads + h) * D;
-#pragma unroll
-    for (int j = 0; j < kAcc; ++j) {
-      dk[off + lane + kLanes * j] = scale * dk_acc[i][j];
-      dv[off + lane + kLanes * j] = dv_acc[i][j];
-    }
-  }
-}
-
 // arguments shared by both entry points
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta;
@@ -367,22 +291,6 @@ cudaError_t launch_dq_f32(const Args& a, void* dq) {
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
       static_cast<float*>(dq), a.heads, a.seq, a.sq, a.sk, a.sv, a.sdo, a.scale,
       a.causal);
-  return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t launch_dkv_f32(const Args& a, void* dk, void* dv) {
-  auto kern = flash_dkv_kernel<D>;
-  const size_t smem = dkv_smem_bytes<D>();
-  cudaError_t err = prepare(kern, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(a.batch * a.heads, (a.seq + kBlock - 1) / kBlock);
-  kern<<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<float*>(dk), static_cast<float*>(dv), a.heads, a.seq, a.sq, a.sk,
-      a.sv, a.sdo, a.scale, a.causal);
   return cudaGetLastError();
 }
 
@@ -571,10 +479,10 @@ cudaError_t launch_dq_bf16(const Args& a, void* dq) {
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------------------- bf16 dk/dv
+// ------------------------------------------------------------------- dk/dv
 
-template <int D>
-using DkvRing = Ring<D, 2, kStages>;  // lead tiles: K, V; the stages stream Q and dO
+template <int D, int kP>
+using DkvRing = Ring<D, 2, kStages, kP>;  // lead tiles: K, V; the stages stream Q and dO
 
 // P^T of one 64 x 64 tile on the accumulator fragment, in place: rows are
 // the CTA's keys, columns the q tile; P^T = 2^(scale_log2 s - lse2[col])
@@ -616,28 +524,35 @@ __device__ __forceinline__ void dst_tile(float (&dp)[32], const float (&pt)[32],
 }
 
 // One CTA (one warpgroup) per (batch*head, 64-row k tile), low k tiles
-// (the most q tiles under the causal mask) first. K and V are resident;
-// Q and dO tiles stream through the ring from the q tile holding key k0
+// (the most q tiles under the causal mask) first, on kP planes of each
+// operand (bf16: one; split f32: hi and lo). K and V are resident; Q and
+// dO tiles stream through the ring from the q tile holding key k0
 // (causal; earlier q tiles see only masked keys) or 0 to the end. Per q
-// tile: S^T = K Q^T and dP^T = V dO^T by SS wgmma (all K-major); P^T in
-// f32 registers, rounded to bf16 as the A operand of dv += P^T dO (dO
-// MN-major), which runs while dS^T = P^T (dP^T - delta) is computed; dS^T
-// rounded to bf16 is the A operand of dk += dS^T Q (Q MN-major). lse and
-// delta are per column: the threads bring the next tile's 64 + 64 values
-// into one of two shared buffers while this tile's products run.
-template <int D>
+// tile: S^T = K Q^T and dP^T = V dO^T by SS wgmma (all K-major, plane by
+// plane); P^T in f32 registers. bf16: P^T rounded to bf16 is the A
+// operand of dv += P^T dO (dO MN-major), which runs while dS^T = P^T (dP^T
+// - delta) is computed; dS^T rounded to bf16 is the A operand of dk +=
+// dS^T Q (Q MN-major). Split f32: dS^T is computed first, then P^T's and
+// dS^T's hi and lo planes are the A operands of the two products, each
+// summed for the q tile in a partial accumulator and then added into dv or
+// dk on the CUDA cores (add_split_product). lse and delta are per column:
+// the threads bring the next tile's 64 + 64 values into one of two shared
+// buffers while this tile's products run. maps holds q's, k's, v's and
+// dO's maps, kP each.
+template <int D, int kP>
 __global__ void __launch_bounds__(kThreads)
-    flash_dkv_sm90(const __grid_constant__ CUtensorMap qmap,
-                   const __grid_constant__ CUtensorMap kmap,
-                   const __grid_constant__ CUtensorMap vmap,
-                   const __grid_constant__ CUtensorMap domap, const float* __restrict__ lse,
-                   const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
-                   __nv_bfloat16* __restrict__ dv, int heads, int seq, float scale,
+    flash_dkv_sm90(const __grid_constant__ Maps<4 * kP> maps, const float* __restrict__ lse,
+                   const float* __restrict__ delta, typename PlaneOut<kP>::T* __restrict__ dk,
+                   typename PlaneOut<kP>::T* __restrict__ dv, int heads, int seq, float scale,
                    float scale_log2, int causal) {
   extern __shared__ uint8_t smem_raw[];
   // [buffer][lse in log2 units, delta][column of the q tile]
   __shared__ __align__(16) float stats[2][2][kRows];
-  const DkvRing<D> ring{aligned_smem_base(smem_raw)};
+  const DkvRing<D, kP> ring{aligned_smem_base(smem_raw)};
+  const CUtensorMap* qmap = &maps.m[0];
+  const CUtensorMap* kmap = &maps.m[kP];
+  const CUtensorMap* vmap = &maps.m[2 * kP];
+  const CUtensorMap* domap = &maps.m[3 * kP];
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
@@ -659,10 +574,10 @@ __global__ void __launch_bounds__(kThreads)
   if (tid == 0) ring.init();
   __syncthreads();
   if (tid == 0) {
-    const CUtensorMap* lead[2] = {&kmap, &vmap};
+    const CUtensorMap* lead[2] = {kmap, vmap};
     ring.load_lead(lead, k0, h, b);
     for (int s = 0; s < kStages && s < n_tiles; ++s)
-      ring.load_kv(s, &qmap, &domap, q_first + s * kRows, h, b);
+      ring.load_kv(s, qmap, domap, q_first + s * kRows, h, b);
   }
   __syncwarp();
 
@@ -680,7 +595,7 @@ __global__ void __launch_bounds__(kThreads)
     const float next_stat = i + 1 < n_tiles && next < seq ? stat_row[next] * stat_mul : 0.f;
     mbar_wait(ring.full(s), (i / kStages) & 1);
 
-    // S^T = K Q^T and dP^T = V dO^T, all four operands K-major
+    // S^T = K Q^T and dP^T = V dO^T, all operands K-major, plane by plane
     float sc[32], dp[32];
 #pragma unroll
     for (int j = 0; j < 32; ++j) sc[j] = dp[j] = 0.f;
@@ -689,13 +604,17 @@ __global__ void __launch_bounds__(kThreads)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_m64n64k16(sc, desc_kmajor<D>(ring.lead(0), kk),
-                         desc_kmajor<D>(ring.k_tile(s), kk), kk > 0);
+      plane_products<kP>([&](int pa, int pb) {
+        wgmma_ss_m64n64k16(sc, desc_kmajor<D>(ring.lead(0, pa), kk),
+                           desc_kmajor<D>(ring.k_tile(s, pb), kk), 1);
+      });
     wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_m64n64k16(dp, desc_kmajor<D>(ring.lead(1), kk),
-                         desc_kmajor<D>(ring.v_tile(s), kk), kk > 0);
+      plane_products<kP>([&](int pa, int pb) {
+        wgmma_ss_m64n64k16(dp, desc_kmajor<D>(ring.lead(1, pa), kk),
+                           desc_kmajor<D>(ring.v_tile(s, pb), kk), 1);
+      });
     wgmma_commit();
     wgmma_wait<1>();  // S^T is done; dP^T may still run
     fence_regs(sc);
@@ -710,43 +629,60 @@ __global__ void __launch_bounds__(kThreads)
     else
       pt_tile<false>(sc, lse2, row0, col0, q0, seq, causal, scale_log2);
 
-    // dv += P^T dO: P^T rounded to bf16 as the register A operand, dO MN-major
-    uint32_t pa[4][4];
-    to_a_operand(sc, pa);
-    fence_regs(pa);
-    fence_regs(dv_acc);
-    wgmma_fence();
+    if constexpr (kP == 1) {
+      // dv += P^T dO: P^T rounded to bf16 as the register A operand, dO MN-major
+      uint32_t pa[4][4];
+      to_a_operand(sc, pa);
+      fence_regs(pa);
+      fence_regs(dv_acc);
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs<D>(dv_acc, pa[kk], desc_mnmajor<D>(ring.v_tile(s), kk));
-    wgmma_commit();
-    wgmma_wait<1>();  // dP^T is done; P^T dO may still run
-    fence_regs(dp);
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<D>(dv_acc, pa[kk], desc_mnmajor<D>(ring.v_tile(s), kk));
+      wgmma_commit();
+      wgmma_wait<1>();  // dP^T is done; P^T dO may still run
+      fence_regs(dp);
 
-    // dk += dS^T Q: dS^T rounded to bf16 as the register A operand, Q MN-major
-    dst_tile(dp, sc, dlt, col0);
-    uint32_t da[4][4];
-    to_a_operand(dp, da);
-    fence_regs(da);
-    fence_regs(dk_acc);
-    wgmma_fence();
+      // dk += dS^T Q: dS^T rounded to bf16 as the register A operand, Q MN-major
+      dst_tile(dp, sc, dlt, col0);
+      uint32_t da[4][4];
+      to_a_operand(dp, da);
+      fence_regs(da);
+      fence_regs(dk_acc);
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs<D>(dk_acc, da[kk], desc_mnmajor<D>(ring.k_tile(s), kk));
-    wgmma_commit();
-    // the other buffer was last read in tile i - 1, before the barrier below
-    stats[(i + 1) & 1][stat_kind][stat_col] = next_stat;
-    wgmma_wait_all();
-    fence_regs(dv_acc);
-    fence_regs(dk_acc);
-    fence_regs(pa);
-    fence_regs(da);
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<D>(dk_acc, da[kk], desc_mnmajor<D>(ring.k_tile(s), kk));
+      wgmma_commit();
+      // the other buffer was last read in tile i - 1, before the barrier below
+      stats[(i + 1) & 1][stat_kind][stat_col] = next_stat;
+      wgmma_wait_all();
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      fence_regs(pa);
+      fence_regs(da);
+    } else {
+      // dS^T = P^T (dP^T - delta) first, so S^T's registers are free
+      // before the products; then dv += P^T dO and dk += dS^T Q, each with
+      // its A operand's hi and lo planes in registers and B's MN-major
+      wgmma_wait_all();
+      fence_regs(dp);
+      dst_tile(dp, sc, dlt, col0);
+      uint32_t pa[2][4][4];
+      to_a_operand<2>(sc, pa);
+      add_split_product<D>(dv_acc, pa, ring.v_tile(s, 0), ring.v_tile(s, 1));
+      uint32_t da[2][4][4];
+      to_a_operand<2>(dp, da);
+      add_split_product<D>(dk_acc, da, ring.k_tile(s, 0), ring.k_tile(s, 1));
+      // the other buffer was last read in tile i - 1, before the barrier below
+      stats[(i + 1) & 1][stat_kind][stat_col] = next_stat;
+    }
     __syncthreads();  // the next tile's statistics are in place
 
-    ring.release(i, n_tiles, &qmap, &domap, h, b, q_first);
+    ring.release(i, n_tiles, qmap, domap, h, b, q_first);
   }
 
-  // dk = scale * acc and dv in bf16; keys past T not stored
+  // dk = scale * acc and dv in the outputs' type; keys past T not stored
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = row0 + 8 * half;
@@ -755,30 +691,47 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const int x = 4 * j + 2 * half;
-      *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * j + col0) =
-          __floats2bfloat162_rn(scale * dk_acc[x], scale * dk_acc[x + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * j + col0) =
-          __floats2bfloat162_rn(dv_acc[x], dv_acc[x + 1]);
+      store2(dk + off + 8 * j + col0, scale * dk_acc[x], scale * dk_acc[x + 1]);
+      store2(dv + off + 8 * j + col0, dv_acc[x], dv_acc[x + 1]);
     }
   }
 }
 
-template <int D>
-cudaError_t launch_dkv_bf16(const Args& a, void* dk, void* dv) {
-  CUtensorMap maps[4];
-  cudaError_t err = encode_operands(a, D, maps);
+// kP = 1: bf16 q, k, v, dout, dk and dv; kP = 2: each of q, k, v, dout is
+// the hi plane of a split f32 operand whose lo plane follows it, one
+// [B, T, H, D] on, and dk, dv are f32
+template <int D, int kP>
+cudaError_t launch_dkv(const Args& a, void* dk, void* dv) {
+  const long long plane = static_cast<long long>(a.batch) * a.seq * a.heads * D;
+  const void* ptrs[4] = {a.q, a.k, a.v, a.dout};
+  const Strides st[4] = {a.sq, a.sk, a.sv, a.sdo};
+  Maps<4 * kP> maps;
+  for (int i = 0; i < 4; ++i)
+    for (int p = 0; p < kP; ++p) {
+      const cudaError_t err = encode_operand(
+          &maps.m[i * kP + p], static_cast<const __nv_bfloat16*>(ptrs[i]) + p * plane, a.batch,
+          a.seq, a.heads, D, st[i].b, st[i].t, st[i].h);
+      if (err != cudaSuccess) return err;
+    }
+  auto kern = flash_dkv_sm90<D, kP>;
+  const size_t smem = DkvRing<D, kP>::kSmemBytes;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  auto kern = flash_dkv_sm90<D>;
-  const size_t smem = DkvRing<D>::kSmemBytes;
-  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
+  using Out = typename PlaneOut<kP>::T;
   const dim3 grid(a.batch * a.heads, (a.seq + kRows - 1) / kRows);
   kern<<<grid, kThreads, smem, a.stream>>>(
-      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(a.lse),
-      static_cast<const float*>(a.delta), static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), a.heads, a.seq, a.scale, a.scale * kLog2e, a.causal);
+      maps, static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<Out*>(dk), static_cast<Out*>(dv), a.heads, a.seq, a.scale, a.scale * kLog2e,
+      a.causal);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv(int planes, const Args& a, void* dk, void* dv) {
+  if (planes == 1) return launch_dkv<D, 1>(a, dk, dv);
+  if (planes == 2) return launch_dkv<D, 2>(a, dk, dv);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -786,11 +739,11 @@ cudaError_t launch_dkv_bf16(const Args& a, void* dk, void* dv) {
 
 // q, k, v, dout: [batch, seq, heads, d] of one dtype with unit stride along
 // d and the given element strides for (batch, seq, heads); lse, delta:
-// contiguous f32 [batch, heads, seq]; dq (and dk, dv): contiguous [batch,
-// seq, heads, d] of q's dtype. is_bf16 selects __nv_bfloat16 (1) or float
-// (0); d is 16, 32, 64 or 128. The bf16 dq kernel reads q, k, v, dout by
-// TMA, which also wants 16 B aligned bases and strides that are multiples
-// of 8 elements.
+// contiguous f32 [batch, heads, seq]; dq: contiguous [batch, seq, heads, d]
+// of q's dtype. is_bf16 selects __nv_bfloat16 (1, flash_dq_sm90) or float
+// (0, flash_dq_kernel); d is 16, 32, 64 or 128. The bf16 kernel reads q,
+// k, v, dout by TMA, which also wants 16 B aligned bases and strides that
+// are multiples of 8 elements.
 extern "C" int mxtt_flash_attn_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int batch, int seq,
@@ -814,13 +767,17 @@ extern "C" int mxtt_flash_attn_bwd_dq(
   return static_cast<int>(err);
 }
 
+// q, k, v, dout as for dq, read by TMA; dk, dv: contiguous [batch, seq,
+// heads, d]. planes 1: bf16 operands and outputs; planes 2: each of q, k,
+// v, dout points at the hi plane of a split f32 operand whose lo plane
+// follows it, batch * seq * heads * d values on, and dk, dv are f32.
 extern "C" int mxtt_flash_attn_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, int batch,
     int seq, int heads, int d, long long q_sb, long long q_st, long long q_sh,
     long long k_sb, long long k_st, long long k_sh, long long v_sb,
     long long v_st, long long v_sh, long long do_sb, long long do_st,
-    long long do_sh, float scale, int causal, int is_bf16, void* stream) {
+    long long do_sh, float scale, int causal, int planes, void* stream) {
   if (batch <= 0 || seq <= 0 || heads <= 0) return 0;
   const long long st[12] = {q_sb, q_st, q_sh, k_sb, k_st, k_sh,
                             v_sb, v_st, v_sh, do_sb, do_st, do_sh};
@@ -828,10 +785,10 @@ extern "C" int mxtt_flash_attn_bwd_dkv(
                            scale, causal, stream);
   cudaError_t err;
   switch (d) {
-    case 16: err = is_bf16 ? sm90::launch_dkv_bf16<16>(a, dk, dv) : launch_dkv_f32<16>(a, dk, dv); break;
-    case 32: err = is_bf16 ? sm90::launch_dkv_bf16<32>(a, dk, dv) : launch_dkv_f32<32>(a, dk, dv); break;
-    case 64: err = is_bf16 ? sm90::launch_dkv_bf16<64>(a, dk, dv) : launch_dkv_f32<64>(a, dk, dv); break;
-    case 128: err = is_bf16 ? sm90::launch_dkv_bf16<128>(a, dk, dv) : launch_dkv_f32<128>(a, dk, dv); break;
+    case 16: err = sm90::launch_dkv<16>(planes, a, dk, dv); break;
+    case 32: err = sm90::launch_dkv<32>(planes, a, dk, dv); break;
+    case 64: err = sm90::launch_dkv<64>(planes, a, dk, dv); break;
+    case 128: err = sm90::launch_dkv<128>(planes, a, dk, dv); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

@@ -15,19 +15,21 @@
 // about 4*D flops per (q, k) pair against 8*D bytes per row of q, k, v, o,
 // so at T >= 128 it needs far more operations per byte than the card's
 // balance point: the bound is the tensor cores' bf16 rate (989 TFLOP/s).
-// Two kernels, chosen by dtype:
-//
-// bf16: flash_fwd_sm90, TMA and wgmma (flash_sm90.cuh).
+// One design, TMA and wgmma (flash_sm90.cuh), on kP bf16 planes of each
+// operand: bf16 operands as they are (kP = 1, flash_fwd_sm90), f32 ones as
+// the hi and lo planes of flash_split_kernel below (kP = 2,
+// flash_fwd_split_sm90; both kernels run fwd_cta<D, kP>).
 //   * One CTA of one warpgroup (128 threads) per (batch*head, 64-row q
 //     tile); the heaviest causal q tiles are scheduled first so the causal
 //     triangle balances across SMs. The TPU's sequential k grid axis with
 //     VMEM scratch becomes the loop over k tiles inside the CTA, up to the
 //     causal diagonal.
-//   * The Q tile arrives by TMA once; K and V tiles (64 x D bf16) come by
-//     TMA through a ring of kStages shared-memory stages guarded by
-//     mbarriers, so the next tiles are in flight while one is multiplied.
-//     Rows past T arrive as zeros; the mask, not the fill, decides what
-//     counts. q, k, v are read as [B, T, H, D] through their strides.
+//   * The Q tile arrives by TMA once; K and V tiles (64 x D bf16, each
+//     plane) come by TMA through a ring of kStages shared-memory stages
+//     guarded by mbarriers, so the next tiles are in flight while one is
+//     multiplied. Rows past T arrive as zeros; the mask, not the fill,
+//     decides what counts. Operands are read as [B, T, H, D] through their
+//     strides.
 //   * S = Q K^T by wgmma with both operands in shared memory (K-major), f32
 //     in registers; scale, mask and the online softmax run on the
 //     accumulator fragment (one ex2 instruction a score, log2(e) folded
@@ -40,223 +42,65 @@
 //     kept busy only by several resident CTAs. The mask is evaluated only
 //     on the tiles that straddle the causal diagonal or T, each score
 //     takes one ex2 instruction, and registers are capped so that five
-//     CTAs fit an SM at D <= 64 (96 registers, 42 KB at D = 64, no
+//     bf16 CTAs fit an SM at D <= 64 (96 registers, 42 KB at D = 64, no
 //     spills); measured, each of the three counts. Two warpgroups sharing
 //     each K/V tile over a 128-row q tile ran the forward 1-4% faster but
 //     dq 19% slower, with fewer CTAs an SM, so one warpgroup was kept
 //     (PERF.md).
-//   * Numerics: P is rounded to bf16 before the second product, as
+//   * Numerics, bf16: P is rounded to bf16 before the second product, as
 //     FlashAttention-2/3 do; the JAX kernel multiplies it in f32. The
 //     difference stays inside the bf16 limit (2e-2 absolute against
 //     reference_attention). One owner per output, no atomics: a repeated
 //     launch gives the same bits.
+//   * f32 (kP = 2). The f32 limit (1e-4) rules out one bf16 or TF32
+//     product, and f32 FMAs on the CUDA cores reach 67 TFLOP/s at most
+//     (the CUDA-core kernel this design replaced ran 2.2x f32 SDPA). So, as
+//     the f32 conv kernels do, each f32 value v is two bf16 planes, hi =
+//     bf16(v) and lo = bf16(v - hi), and each f32 product is three bf16
+//     ones, hi*lo + lo*hi + hi*hi (plane_products): the bound becomes three
+//     times the bf16 operations. S takes the three products of each of its
+//     D/16 k16 steps (24 at most) into one accumulator. P is split in
+//     registers into hi and lo A operands (to_a_operand<2>); the products
+//     of a K/V tile (3 x 4 k16 steps) go into a partial that starts at zero
+//     and is then added into O on the CUDA cores (add_split_product), after
+//     the online rescale of O: the tensor cores' f32 sums round with a
+//     bias, so a whole sequence summed in one accumulator would lose bits
+//     with its length (conv_bwd.cu's kPromoteSteps; here the period is one
+//     K/V tile). O and lse are f32. A stage holds the hi and lo tiles of K
+//     and V, twice a bf16 stage: 80 KB of ring at D = 64 (two CTAs an SM),
+//     160 KB at D = 128 (one). Registers: S 32, O D/2, the partial D/2 (64
+//     columns at a time at D = 128), P's planes 32, so the f32 kernel has
+//     its own bounds, two CTAs an SM below D = 128 and one at 128.
+//     Q's planes come from the same pass as K's and V's, not from an f32
+//     tile split in the CTA: the pass costs 4 bytes read and 4 written a
+//     value of q (a third of the pass, which is small beside the kernel),
+//     and keeps one TMA path and one set of bits for every operand.
+//   * The split pass (flash_split_kernel): a grid-stride loop over runs of
+//     8 values along D of up to four strided f32 [B, T, H, D] operands,
+//     writing each run's hi and lo planes with one 16-byte store each into
+//     a contiguous bf16 (ops, 2, B, T, H, D) workspace; 16-byte loads where
+//     the operands' base and strides allow. It reads 4 bytes and writes 4
+//     a value, bound by the card's memory rate, and rounds as
+//     kernels.split_bf16 does, bit for bit.
 //
-// f32: flash_fwd_kernel, f32 FMAs on the CUDA cores from shared-memory
-// tiles. The f32 limit (1e-4) rules out TF32 tensor cores. Each block owns
-// one (batch*head, 64-row q tile); Q, K and V tiles are staged through
-// shared memory as f32 and reused by all 128 threads; each thread owns a
-// 4 x 8 micro-tile of the scores and a 4 x D/8 micro-tile of the
-// accumulator; row max and sum go through warp shuffles among the 8 lanes
-// that share a row group; the ragged edge is masked in the kernel.
-//
-// Entry point: mxtt_flash_attn_fwd (plain C, loaded with ctypes). It returns
-// the cudaError_t of the launch (0 on success) and never synchronises.
+// Entry points: mxtt_flash_attn_fwd and mxtt_flash_split (plain C, loaded
+// with ctypes). Each returns the cudaError_t of its launch (0 on success)
+// and never synchronises.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 #include "flash_sm90.cuh"
 
-namespace {
-
-constexpr int kBlockQ = 64;    // q rows per block
-constexpr int kBlockK = 64;    // k rows per shared-memory tile
-constexpr int kThreads = 128;  // 16 row groups x 8 lanes
-constexpr int kLanes = 8;      // lanes sharing one row group
-constexpr int kRows = kBlockQ / (kThreads / kLanes);  // q rows per thread: 4
-constexpr int kCols = kBlockK / kLanes;               // score cols per thread: 8
-constexpr float kNegInf = -1e30f;  // the Pallas kernel's _NEG_INF
-
-// max / sum over the 8 lanes of a row group; the xor butterfly leaves the
-// same bits in every lane, so all 8 keep identical running statistics
-__device__ __forceinline__ float group_max(float x) {
-#pragma unroll
-  for (int off = 1; off < kLanes; off <<= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-__device__ __forceinline__ float group_sum(float x) {
-#pragma unroll
-  for (int off = 1; off < kLanes; off <<= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (kBlockQ * (D + 1) + kBlockK * (D + 1) + kBlockK * D +
-                          kBlockQ * (kBlockK + 1));
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o,
-                     float* __restrict__ lse, int heads, int seq,
-                     long long q_sb, long long q_st, long long q_sh,
-                     long long k_sb, long long k_st, long long k_sh,
-                     long long v_sb, long long v_st, long long v_sh,
-                     float scale, int causal) {
-  constexpr int DP = D + 1;        // padded rows: no bank conflicts
-  constexpr int PP = kBlockK + 1;
-  constexpr int kAcc = D / kLanes;  // accumulator cols per thread
-  extern __shared__ float smem[];
-  float* qs = smem;                 // [kBlockQ][DP]
-  float* ks = qs + kBlockQ * DP;    // [kBlockK][DP]
-  float* vs = ks + kBlockK * DP;    // [kBlockK][D]
-  float* ps = vs + kBlockK * D;     // [kBlockQ][PP]
-
-  const int bh = blockIdx.x;
-  const int b = bh / heads;
-  const int h = bh - b * heads;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlockQ;  // heavy tiles first
-  const int tid = threadIdx.x;
-  const int lane = tid % kLanes;   // column lane inside the row group
-  const int group = tid / kLanes;  // row group: rows group*kRows + i
-  const float* qb = q + b * q_sb + h * q_sh;
-  const float* kb = k + b * k_sb + h * k_sh;
-  const float* vb = v + b * v_sb + h * v_sh;
-
-  for (int i = tid; i < kBlockQ * D; i += kThreads) {
-    const int r = i / D, c = i % D, t = q0 + r;
-    qs[r * DP + c] = t < seq ? qb[t * q_st + c] : 0.f;
-  }
-
-  float m[kRows], l[kRows], acc[kRows][kAcc];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kAcc; ++j) acc[i][j] = 0.f;
-  }
-
-  const int kv_end = causal ? min(seq, q0 + kBlockQ) : seq;
-  for (int k0 = 0; k0 < kv_end; k0 += kBlockK) {
-    __syncthreads();  // the previous tile's readers are done
-    for (int i = tid; i < kBlockK * D; i += kThreads) {
-      const int r = i / D, c = i % D, t = k0 + r;
-      const bool in = t < seq;  // zero rows past T: 0 * p never makes NaN
-      ks[r * DP + c] = in ? kb[t * k_st + c] : 0.f;
-      vs[r * D + c] = in ? vb[t * v_st + c] : 0.f;
-    }
-    __syncthreads();
-
-    float s[kRows][kCols];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float a[kRows], bk[kCols];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) a[i] = qs[(group * kRows + i) * DP + d];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) bk[j] = ks[(lane + kLanes * j) * DP + d];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) s[i][j] = fmaf(a[i], bk[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int row = group * kRows + i;
-      const int qpos = q0 + row;
-      bool keep[kCols];
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int kpos = k0 + lane + kLanes * j;
-        keep[j] = kpos < seq && (!causal || qpos >= kpos);
-        s[i][j] = keep[j] ? scale * s[i][j] : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], group_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float p = keep[j] ? expf(s[i][j] - m_new) : 0.f;
-        ps[row * PP + lane + kLanes * j] = p;
-        rs += p;
-      }
-      l[i] = l[i] * alpha + group_sum(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < kAcc; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < kBlockK; ++kk) {
-      float p[kRows], vv[kAcc];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) p[i] = ps[(group * kRows + i) * PP + kk];
-#pragma unroll
-      for (int j = 0; j < kAcc; ++j) vv[j] = vs[kk * D + lane + kLanes * j];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kAcc; ++j) acc[i][j] = fmaf(p[i], vv[j], acc[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int t = q0 + group * kRows + i;
-    if (t >= seq) continue;
-    const float safe_l = l[i] > 0.f ? l[i] : 1.f;
-    float* orow = o + ((static_cast<long long>(b) * seq + t) * heads + h) * D;
-#pragma unroll
-    for (int j = 0; j < kAcc; ++j)
-      orow[lane + kLanes * j] = acc[i][j] / safe_l;
-    if (lane == 0)
-      lse[static_cast<long long>(bh) * seq + t] = m[i] + logf(safe_l);
-  }
-}
-
-template <int D>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, void* lse,
-                       int batch, int seq, int heads, const long long* st, float scale,
-                       int causal, cudaStream_t stream) {
-  auto kern = flash_fwd_kernel<D>;
-  const size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid(batch * heads, (seq + kBlockQ - 1) / kBlockQ);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), static_cast<float*>(lse),
-      heads, seq, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
-      st[8], scale, causal);
-  return cudaGetLastError();
-}
-
-}  // namespace
-
-// ------------------------------------------------------------------ bf16
-// In namespace sm90, so the header's names (kRows = 64 rows a tile) are
-// found before the SIMT kernel's.
 namespace sm90 {
 namespace {
 
 constexpr int kStages = 2;  // K/V ring depth
 
-template <int D>
-using FwdRing = Ring<D, 1, kStages>;  // lead tile: Q
+template <int D, int kP>
+using FwdRing = Ring<D, 1, kStages, kP>;  // lead tile: Q
 
 // Scale, keep-mask (k < T, and q >= k when causal; only when kMask) and
 // online softmax of one 64 x 64 score tile on the accumulator fragment, in
@@ -303,16 +147,18 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[32], float (&m)[2], flo
   }
 }
 
-// At least five CTAs an SM at D <= 64 (registers capped at 102 a thread;
-// 42 KB of shared memory a CTA at D = 64), three at D = 128.
-template <int D>
-__global__ void __launch_bounds__(kThreads, D == 128 ? 3 : 5)
-    flash_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
-                   const __grid_constant__ CUtensorMap kmap,
-                   const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
-                   float* __restrict__ lse, int heads, int seq, float scale_log2, int causal) {
+// One CTA of the forward on kP planes of each operand; maps holds q's,
+// k's and v's maps, kP each.
+template <int D, int kP>
+__device__ __forceinline__ void fwd_cta(const Maps<3 * kP>& maps,
+                                        typename PlaneOut<kP>::T* __restrict__ o,
+                                        float* __restrict__ lse, int heads, int seq,
+                                        float scale_log2, int causal) {
   extern __shared__ uint8_t smem_raw[];
-  const FwdRing<D> ring{aligned_smem_base(smem_raw)};
+  const FwdRing<D, kP> ring{aligned_smem_base(smem_raw)};
+  const CUtensorMap* qmap = &maps.m[0];
+  const CUtensorMap* kmap = &maps.m[kP];
+  const CUtensorMap* vmap = &maps.m[2 * kP];
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
@@ -326,10 +172,9 @@ __global__ void __launch_bounds__(kThreads, D == 128 ? 3 : 5)
   if (tid == 0) ring.init();
   __syncthreads();
   if (tid == 0) {
-    const CUtensorMap* lead[1] = {&qmap};
+    const CUtensorMap* lead[1] = {qmap};
     ring.load_lead(lead, q0, h, b);
-    for (int s = 0; s < kStages && s < n_tiles; ++s)
-      ring.load_kv(s, &kmap, &vmap, s * kRows, h, b);
+    for (int s = 0; s < kStages && s < n_tiles; ++s) ring.load_kv(s, kmap, vmap, s * kRows, h, b);
   }
   __syncwarp();
 
@@ -345,7 +190,7 @@ __global__ void __launch_bounds__(kThreads, D == 128 ? 3 : 5)
     const int s = i % kStages;
     mbar_wait(ring.full(s), (i / kStages) & 1);
 
-    // S = Q K^T, both K-major in shared memory
+    // S = Q K^T, both K-major in shared memory, plane by plane
     float sc[32];
 #pragma unroll
     for (int j = 0; j < 32; ++j) sc[j] = 0.f;
@@ -353,8 +198,10 @@ __global__ void __launch_bounds__(kThreads, D == 128 ? 3 : 5)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_m64n64k16(sc, desc_kmajor<D>(ring.lead(0), kk),
-                         desc_kmajor<D>(ring.k_tile(s), kk), kk > 0);
+      plane_products<kP>([&](int pa, int pb) {
+        wgmma_ss_m64n64k16(sc, desc_kmajor<D>(ring.lead(0, pa), kk),
+                           desc_kmajor<D>(ring.k_tile(s, pb), kk), 1);
+      });
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(sc);
@@ -367,101 +214,223 @@ __global__ void __launch_bounds__(kThreads, D == 128 ? 3 : 5)
     else
       softmax_tile<false, D>(sc, m, l, acc, row0, col0, k0, seq, causal, scale_log2);
 
-    // O += P V: P rounded to bf16 as the register A operand, V MN-major
-    uint32_t pa[4][4];
-    to_a_operand(sc, pa);
-    fence_regs(pa);
-    fence_regs(acc);
-    wgmma_fence();
+    // O += P V: P as the register A operand (bf16: rounded; f32: its hi and
+    // lo planes), V MN-major
+    uint32_t pa[kP][4][4];
+    to_a_operand<kP>(sc, pa);
+    if constexpr (kP == 1) {
+      fence_regs(pa);
+      fence_regs(acc);
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(acc, pa[kk], desc_mnmajor<D>(ring.v_tile(s), kk));
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(acc);
-    fence_regs(pa);
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<D>(acc, pa[0][kk], desc_mnmajor<D>(ring.v_tile(s), kk));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      fence_regs(pa);
+    } else {
+      add_split_product<D>(acc, pa, ring.v_tile(s, 0), ring.v_tile(s, 1));
+    }
 
-    ring.release(i, n_tiles, &kmap, &vmap, h, b);
+    ring.release(i, n_tiles, kmap, vmap, h, b);
   }
 
-  // o = acc / safe_l in bf16, lse = m + log(safe_l); rows past T not stored
+  // o = acc / safe_l in o's type, lse = m + log(safe_l); rows past T not stored
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = row0 + 8 * half;
     if (row >= seq) continue;
     const float safe_l = l[half] > 0.f ? l[half] : 1.f;
-    __nv_bfloat16* orow = o + ((static_cast<long long>(b) * seq + row) * heads + h) * D;
+    auto* orow = o + ((static_cast<long long>(b) * seq + row) * heads + h) * D;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const __nv_bfloat162 v2 = __floats2bfloat162_rn(acc[4 * j + 2 * half] / safe_l,
-                                                      acc[4 * j + 2 * half + 1] / safe_l);
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + col0) = v2;
-    }
+    for (int j = 0; j < D / 8; ++j)
+      store2(orow + 8 * j + col0, acc[4 * j + 2 * half] / safe_l,
+             acc[4 * j + 2 * half + 1] / safe_l);
     if (lane % 4 == 0)
       lse[static_cast<long long>(bh) * seq + row] = m[half] * kLn2 + logf(safe_l);
   }
 }
 
+// bf16: at least five CTAs an SM at D <= 64 (registers capped at 102 a
+// thread; 42 KB of shared memory a CTA at D = 64), three at D = 128.
 template <int D>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
-                        int batch, int seq, int heads, const long long* st, float scale,
-                        int causal, cudaStream_t stream) {
-  CUtensorMap maps[3];
-  const void* ptrs[3] = {q, k, v};
-  for (int i = 0; i < 3; ++i) {
-    const cudaError_t err = encode_operand(&maps[i], ptrs[i], batch, seq, heads, D,
-                                           st[3 * i], st[3 * i + 1], st[3 * i + 2]);
-    if (err != cudaSuccess) return err;
-  }
-  auto kern = flash_fwd_sm90<D>;
-  const size_t smem = FwdRing<D>::kSmemBytes;
+__global__ void __launch_bounds__(kThreads, D == 128 ? 3 : 5)
+    flash_fwd_sm90(const __grid_constant__ Maps<3> maps, __nv_bfloat16* __restrict__ o,
+                   float* __restrict__ lse, int heads, int seq, float scale_log2, int causal) {
+  fwd_cta<D, 1>(maps, o, lse, heads, seq, scale_log2, causal);
+}
+
+// split f32: two CTAs an SM below D = 128 (81 KB of shared memory at
+// D = 64), one at 128 (161 KB); registers up to 255 a thread.
+template <int D>
+__global__ void __launch_bounds__(kThreads, D == 128 ? 1 : 2)
+    flash_fwd_split_sm90(const __grid_constant__ Maps<6> maps, float* __restrict__ o,
+                         float* __restrict__ lse, int heads, int seq, float scale_log2,
+                         int causal) {
+  fwd_cta<D, 2>(maps, o, lse, heads, seq, scale_log2, causal);
+}
+
+template <int D, int kP, typename Kern>
+cudaError_t launch_planes(Kern kern, const void* const (&ptrs)[3], void* o, void* lse,
+                          int batch, int seq, int heads, const long long* st, float scale,
+                          int causal, cudaStream_t stream) {
+  // an operand's lo plane follows its hi plane, one [B, T, H, D] apart
+  const long long plane = static_cast<long long>(batch) * seq * heads * D;
+  Maps<3 * kP> maps;
+  for (int i = 0; i < 3; ++i)
+    for (int p = 0; p < kP; ++p) {
+      const cudaError_t err =
+          encode_operand(&maps.m[i * kP + p], static_cast<const __nv_bfloat16*>(ptrs[i]) + p * plane,
+                         batch, seq, heads, D, st[3 * i], st[3 * i + 1], st[3 * i + 2]);
+      if (err != cudaSuccess) return err;
+    }
+  const size_t smem = FwdRing<D, kP>::kSmemBytes;
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(batch * heads, (seq + kRows - 1) / kRows);
-  kern<<<grid, kThreads, smem, stream>>>(
-      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
-      heads, seq, scale * kLog2e, causal);
+  kern<<<grid, kThreads, smem, stream>>>(maps, static_cast<typename PlaneOut<kP>::T*>(o),
+                                         static_cast<float*>(lse), heads, seq, scale * kLog2e,
+                                         causal);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch(int planes, const void* q, const void* k, const void* v, void* o, void* lse,
+                   int batch, int seq, int heads, const long long* st, float scale, int causal,
+                   cudaStream_t stream) {
+  const void* const ptrs[3] = {q, k, v};
+  if (planes == 1)
+    return launch_planes<D, 1>(flash_fwd_sm90<D>, ptrs, o, lse, batch, seq, heads, st, scale,
+                               causal, stream);
+  if (planes == 2)
+    return launch_planes<D, 2>(flash_fwd_split_sm90<D>, ptrs, o, lse, batch, seq, heads, st,
+                               scale, causal, stream);
+  return cudaErrorInvalidValue;
+}
+
+// ------------------------------------------------------------- split pass
+
+constexpr int kSplitThreads = 256;
+
+// up to four strided f32 [B, T, H, D] operands: base and element strides
+struct SplitSrc {
+  const float* ptr[4];
+  long long sb[4], st[4], sh[4];
+};
+
+// out (uint4 units, 8 bf16): plane p of operand op at [(2 op + p) groups +
+// r] for the r-th run of 8 values, [B, T, H, D] order; kVec: 16-byte loads
+template <bool kVec>
+__global__ void __launch_bounds__(kSplitThreads)
+    flash_split_kernel(SplitSrc src, uint4* __restrict__ out, int n_ops, int seq, int heads,
+                       int d, long long groups) {
+  const long long total = groups * n_ops;
+  for (long long g = blockIdx.x * static_cast<long long>(kSplitThreads) + threadIdx.x; g < total;
+       g += static_cast<long long>(gridDim.x) * kSplitThreads) {
+    const int op = static_cast<int>(g / groups);
+    const long long r = g - op * groups;
+    const long long e = r * 8;
+    const int c = static_cast<int>(e % d);
+    long long row = e / d;
+    const int h = static_cast<int>(row % heads);
+    row /= heads;
+    const int t = static_cast<int>(row % seq);
+    const long long b = row / seq;
+    const float* x = nullptr;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)  // constant indices: the parameter is not copied to the stack
+      if (i == op) x = src.ptr[i] + b * src.sb[i] + t * src.st[i] + h * src.sh[i] + c;
+    float v[8];
+    if constexpr (kVec) {
+      const float4 u = reinterpret_cast<const float4*>(x)[0];
+      const float4 w = reinterpret_cast<const float4*>(x)[1];
+      v[0] = u.x; v[1] = u.y; v[2] = u.z; v[3] = u.w;
+      v[4] = w.x; v[5] = w.y; v[6] = w.z; v[7] = w.w;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] = x[i];
+    }
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_pair(v[2 * i], v[2 * i + 1], hi[i], lo[i]);
+    out[2 * op * groups + r] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    out[(2 * op + 1) * groups + r] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+  }
+}
+
+cudaError_t split_planes(int n_ops, const void* const (&ptrs)[4], const long long* st, void* out,
+                         int batch, int seq, int heads, int d, cudaStream_t stream) {
+  SplitSrc src = {};
+  bool vec = true;
+  for (int i = 0; i < n_ops; ++i) {
+    src.ptr[i] = static_cast<const float*>(ptrs[i]);
+    src.sb[i] = st[3 * i];
+    src.st[i] = st[3 * i + 1];
+    src.sh[i] = st[3 * i + 2];
+    vec = vec && reinterpret_cast<uintptr_t>(ptrs[i]) % 16 == 0 && src.sb[i] % 4 == 0 &&
+          src.st[i] % 4 == 0 && src.sh[i] % 4 == 0;
+  }
+  const long long groups = static_cast<long long>(batch) * seq * heads * d / 8;
+  const long long blocks = (groups * n_ops + kSplitThreads - 1) / kSplitThreads;
+  const int grid = static_cast<int>(blocks < 132 * 16 ? blocks : 132 * 16);
+  uint4* dst = static_cast<uint4*>(out);
+  if (vec)
+    flash_split_kernel<true><<<grid, kSplitThreads, 0, stream>>>(src, dst, n_ops, seq, heads, d,
+                                                                  groups);
+  else
+    flash_split_kernel<false><<<grid, kSplitThreads, 0, stream>>>(src, dst, n_ops, seq, heads, d,
+                                                                   groups);
   return cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace sm90
 
-namespace {
-
-template <int D>
-cudaError_t launch(int is_bf16, const void* q, const void* k, const void* v, void* o,
-                   void* lse, int batch, int seq, int heads, const long long* st, float scale,
-                   int causal, cudaStream_t stream) {
-  return is_bf16 ? sm90::launch_bf16<D>(q, k, v, o, lse, batch, seq, heads, st, scale, causal, stream)
-                 : launch_f32<D>(q, k, v, o, lse, batch, seq, heads, st, scale, causal, stream);
-}
-
-}  // namespace
-
 // q, k, v: [batch, seq, heads, d] with unit stride along d and the given
-// element strides for (batch, seq, heads); o: contiguous [batch, seq, heads,
-// d] of the same dtype; lse: contiguous f32 [batch, heads, seq].
-// is_bf16 selects __nv_bfloat16 (1: the TMA/wgmma kernel, which also wants
-// 16 B aligned bases and strides that are multiples of 8 elements) or float
-// (0: the SIMT kernel); d is 16, 32, 64 or 128.
+// element strides for (batch, seq, heads), read by TMA (16 B aligned bases,
+// strides that are multiples of 8 elements); o: contiguous [batch, seq,
+// heads, d]; lse: contiguous f32 [batch, heads, seq]. planes 1: bf16
+// operands and o (flash_fwd_sm90); planes 2: each of q, k, v points at the
+// hi plane of a split f32 operand whose lo plane follows it, batch * seq *
+// heads * d values on, and o is f32 (flash_fwd_split_sm90). d is 16, 32,
+// 64 or 128.
 extern "C" int mxtt_flash_attn_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
     int batch, int seq, int heads, int d,
     long long q_sb, long long q_st, long long q_sh,
     long long k_sb, long long k_st, long long k_sh,
     long long v_sb, long long v_st, long long v_sh,
-    float scale, int causal, int is_bf16, void* stream) {
+    float scale, int causal, int planes, void* stream) {
   if (batch <= 0 || seq <= 0 || heads <= 0) return 0;
   const long long st[9] = {q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (d) {
-    case 16: err = launch<16>(is_bf16, q, k, v, o, lse, batch, seq, heads, st, scale, causal, s); break;
-    case 32: err = launch<32>(is_bf16, q, k, v, o, lse, batch, seq, heads, st, scale, causal, s); break;
-    case 64: err = launch<64>(is_bf16, q, k, v, o, lse, batch, seq, heads, st, scale, causal, s); break;
-    case 128: err = launch<128>(is_bf16, q, k, v, o, lse, batch, seq, heads, st, scale, causal, s); break;
+    case 16: err = sm90::launch<16>(planes, q, k, v, o, lse, batch, seq, heads, st, scale, causal, s); break;
+    case 32: err = sm90::launch<32>(planes, q, k, v, o, lse, batch, seq, heads, st, scale, causal, s); break;
+    case 64: err = sm90::launch<64>(planes, q, k, v, o, lse, batch, seq, heads, st, scale, causal, s); break;
+    case 128: err = sm90::launch<128>(planes, q, k, v, o, lse, batch, seq, heads, st, scale, causal, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
+}
+
+// The hi and lo bf16 planes of n_ops (1 to 4) f32 [batch, seq, heads, d]
+// operands x0.. (unit stride along d, the given element strides for
+// (batch, seq, heads)) into out, contiguous bf16 (n_ops, 2, batch, seq,
+// heads, d), 16 B aligned; d a multiple of 8.
+extern "C" int mxtt_flash_split(
+    int n_ops, const void* x0, const void* x1, const void* x2, const void* x3,
+    long long sb0, long long st0, long long sh0, long long sb1, long long st1, long long sh1,
+    long long sb2, long long st2, long long sh2, long long sb3, long long st3, long long sh3,
+    void* out, int batch, int seq, int heads, int d, void* stream) {
+  if (n_ops < 1 || n_ops > 4 || d % 8 || reinterpret_cast<uintptr_t>(out) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (batch <= 0 || seq <= 0 || heads <= 0) return 0;
+  const void* const ptrs[4] = {x0, x1, x2, x3};
+  const long long st[12] = {sb0, st0, sh0, sb1, st1, sh1, sb2, st2, sh2, sb3, st3, sh3};
+  return static_cast<int>(sm90::split_planes(n_ops, ptrs, st, out, batch, seq, heads, d,
+                                             static_cast<cudaStream_t>(stream)));
 }

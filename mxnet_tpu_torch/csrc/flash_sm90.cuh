@@ -1,9 +1,12 @@
-// Hopper (sm_90a) building blocks of the bf16 kernels in flash_attn_fwd.cu
+// Hopper (sm_90a) building blocks of the kernels in flash_attn_fwd.cu
 // (K4f), flash_attn_bwd.cu (K4dq, K4dkv) and conv_bwd.cu (K2, K3): a TMA tensor
 // map over one [B, T, H, D] bf16 operand (and over any bf16 array whose
 // byte strides are multiples of 16), an mbarrier ring, the shared-memory
 // descriptors of wgmma, and thin inline-PTX wrappers of
-// wgmma.mma_async m64nNk16 (f32 += bf16 x bf16).
+// wgmma.mma_async m64nNk16 (f32 += bf16 x bf16). The f32 flash kernels run
+// on two bf16 planes of each operand (hi and lo, three products for each
+// f32 one: plane_products, to_a_operand<2>, add_split_product), and the
+// ring holds both planes of every tile.
 //
 // Tiles. A tile is 64 rows (positions t) of one (batch, head) slice, all D
 // columns, bf16, in shared memory. TMA writes it with the swizzle that
@@ -258,6 +261,11 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
+template <int P, int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[P][N][4]) {
+#pragma unroll
+  for (int p = 0; p < P; ++p) fence_regs(r[p]);
+}
 
 // --- the accumulator fragment
 
@@ -290,6 +298,63 @@ __device__ __forceinline__ void to_a_operand(const float (&d)[32], uint32_t (&a)
   for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
     for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
+}
+
+// the bits of two bf16 hi values, bf16_rn(x) and bf16_rn(y) (x in the low
+// half), and of their lo values, bf16_rn(x - hi) and bf16_rn(y - hi); the
+// differences are exact in f32 and are not contracted into anything
+__device__ __forceinline__ void split_pair(float x, float y, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(__fsub_rn(x, __low2float(h)), __fsub_rn(y, __high2float(h)));
+}
+
+// the same operand as kP bf16 planes: kP = 1 one rounding, a[0] as above;
+// kP = 2 the split of each f32 value, a[0] = hi = bf16(d) and a[1] = lo =
+// bf16(d - hi) (d - hi is exact in f32), as kernels.split_bf16 rounds
+template <int kP>
+__device__ __forceinline__ void to_a_operand(const float (&d)[32], uint32_t (&a)[kP][4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      if constexpr (kP == 2)
+        split_pair(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1], a[0][kk][r], a[1][kk][r]);
+      else
+        a[0][kk][r] = pack_bf16(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
+    }
+}
+
+// two neighbouring values of an output row, as bf16 or f32
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+
+// the output type of a kernel on kP planes: bf16 for bf16 operands, f32
+// for split f32 ones
+template <int kP>
+struct PlaneOut {
+  using T = __nv_bfloat16;
+};
+template <>
+struct PlaneOut<2> {
+  using T = float;
+};
+
+// The products of one k16 step into one accumulator, mma(plane of A, plane
+// of B): bf16 (kP = 1) a * b; split f32 (kP = 2) a_hi * b_lo, a_lo * b_hi,
+// then a_hi * b_hi (a_lo * b_lo, about 2^-16 of a product, is left out),
+// always in this order, so a repeat gives the same bits
+template <int kP, typename Mma>
+__device__ __forceinline__ void plane_products(Mma&& mma) {
+  if constexpr (kP == 2) {
+    mma(0, 1);
+    mma(1, 0);
+  }
+  mma(0, 0);
 }
 
 // --- wgmma.mma_async (inline PTX)
@@ -451,6 +516,49 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b));
 }
 
+// acc += A B over one 64-row tile of the reduction (four k16 steps), split
+// f32: A's hi and lo planes in registers (to_a_operand<2>), B's at b_hi
+// and b_lo ([64, D] tiles read MN-major). The twelve products go into a
+// partial accumulator that starts at zero, which is then added into acc
+// on the CUDA cores (an f32 add, rounded to nearest): the tensor cores'
+// f32 accumulation rounds every wgmma's sum with a bias, so an
+// accumulator that summed a whole sequence would lose bits in proportion
+// to its length (conv_bwd.cu's kPromoteSteps). The partial covers 64
+// columns at a time (two rounds at D = 128), to spare registers.
+template <int D>
+__device__ __forceinline__ void add_split_product(float (&acc)[D / 2], uint32_t (&a)[2][4][4],
+                                                  uint32_t b_hi, uint32_t b_lo) {
+  constexpr int kC = D < 64 ? D : 64;  // columns of one partial
+#pragma unroll
+  for (int c = 0; c < D / kC; ++c) {
+    float part[kC / 2];
+#pragma unroll
+    for (int e = 0; e < kC / 2; ++e) part[e] = 0.f;
+    fence_regs(part);
+    fence_regs(a);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      plane_products<2>([&](int pa, int pb) {
+        wgmma_rs<kC>(part, a[pa][kk],
+                     desc_mnmajor<kC>((pb ? b_lo : b_hi) + c * Tile<D>::kBoxBytes, kk));
+      });
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(part);
+    fence_regs(a);
+#pragma unroll
+    for (int e = 0; e < kC / 2; ++e) acc[c * kC / 2 + e] += part[e];
+  }
+}
+
+// the tensor maps of a kernel's operands, kP after each other for each
+// operand (its planes), passed as one __grid_constant__ parameter
+template <int N>
+struct Maps {
+  CUtensorMap m[N];
+};
+
 // --- the K/V ring
 
 // Shared-memory map of one CTA: `lead` resident tiles (Q, or Q and dO; K
@@ -458,19 +566,25 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a
 // (K and V; Q and dO in the dk/dv kernel, which calls them k_tile and
 // v_tile too), then the barriers: one for the
 // resident tiles, kStages "full" (TMA landed) and kStages "empty" (all 128
-// threads are done with the stage).
-template <int D, int kLead, int kStages>
+// threads are done with the stage). Each tile is kP planes, one after the
+// other: one bf16 plane, or the hi and lo planes of split f32 (plane p of
+// an operand comes through the tensor map after its first, map + p).
+template <int D, int kLead, int kStages, int kP = 1>
 struct Ring {
   static constexpr int kTile = Tile<D>::kBytes;
-  static constexpr int kBarOffset = (kLead + 2 * kStages) * kTile;
+  static constexpr int kBarOffset = (kLead + 2 * kStages) * kP * kTile;
   static constexpr size_t kSmemBytes = 1024 + kBarOffset + 8 * (1 + 2 * kStages);
 
   uint32_t base;
-  __device__ __forceinline__ uint32_t lead(int i) const { return base + i * kTile; }
-  __device__ __forceinline__ uint32_t k_tile(int s) const {
-    return base + (kLead + 2 * s) * kTile;
+  __device__ __forceinline__ uint32_t lead(int i, int p = 0) const {
+    return base + (i * kP + p) * kTile;
   }
-  __device__ __forceinline__ uint32_t v_tile(int s) const { return k_tile(s) + kTile; }
+  __device__ __forceinline__ uint32_t k_tile(int s, int p = 0) const {
+    return base + ((kLead + 2 * s) * kP + p) * kTile;
+  }
+  __device__ __forceinline__ uint32_t v_tile(int s, int p = 0) const {
+    return k_tile(s, kP + p);
+  }
   __device__ __forceinline__ uint32_t lead_bar() const { return base + kBarOffset; }
   __device__ __forceinline__ uint32_t full(int s) const { return base + kBarOffset + 8 * (1 + s); }
   __device__ __forceinline__ uint32_t empty(int s) const {
@@ -488,20 +602,26 @@ struct Ring {
     fence_barrier_init();
   }
 
-  // thread 0: the resident tiles, one tensor map each, at rows t0..
+  // thread 0: the resident tiles, one tensor map each (kP maps, one a
+  // plane), at rows t0..
   __device__ __forceinline__ void load_lead(const CUtensorMap* const (&maps)[kLead], int t0,
                                             int h, int b) const {
-    mbar_expect_tx(lead_bar(), kLead * kTile);
+    mbar_expect_tx(lead_bar(), kLead * kP * kTile);
 #pragma unroll
-    for (int i = 0; i < kLead; ++i) load_tile<D>(lead(i), maps[i], lead_bar(), t0, h, b);
+    for (int i = 0; i < kLead; ++i)
+#pragma unroll
+      for (int p = 0; p < kP; ++p) load_tile<D>(lead(i, p), maps[i] + p, lead_bar(), t0, h, b);
   }
 
   // thread 0: the K and V tiles at rows t0.. into stage s
   __device__ __forceinline__ void load_kv(int s, const CUtensorMap* kmap, const CUtensorMap* vmap,
                                           int t0, int h, int b) const {
-    mbar_expect_tx(full(s), 2 * kTile);
-    load_tile<D>(k_tile(s), kmap, full(s), t0, h, b);
-    load_tile<D>(v_tile(s), vmap, full(s), t0, h, b);
+    mbar_expect_tx(full(s), 2 * kP * kTile);
+#pragma unroll
+    for (int p = 0; p < kP; ++p) {
+      load_tile<D>(k_tile(s, p), kmap + p, full(s), t0, h, b);
+      load_tile<D>(v_tile(s, p), vmap + p, full(s), t0, h, b);
+    }
   }
 
   // every thread, after its last wgmma on stage s (tile i) has completed:

@@ -39,6 +39,9 @@ KERNELS = {
     "flash_attn_fwd": (
         "flash_attn_fwd.cu", "mxtt_flash_attn_fwd",
         [_P] * 5 + [_I] * 4 + [_L] * 9 + [_F, _I, _I, _P]),
+    "flash_split": (
+        "flash_attn_fwd.cu", "mxtt_flash_split",
+        [_I] + [_P] * 4 + [_L] * 12 + [_P] + [_I] * 4 + [_P]),
     "flash_attn_bwd_dq": (
         "flash_attn_bwd.cu", "mxtt_flash_attn_bwd_dq",
         [_P] * 7 + [_I] * 4 + [_L] * 12 + [_F, _I, _I, _P]),

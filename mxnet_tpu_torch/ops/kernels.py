@@ -4,13 +4,14 @@ pair and the optimizer-slab update.
 
 ``flash_attention`` is the wrapper of the hand-written CUDA kernel
 ``csrc/flash_attn_fwd.cu``: blockwise online-softmax attention that saves
-the f32 logsumexp (bf16 through TMA and ``wgmma``, f32 on the CUDA
-cores). ``reference_attention`` is its plain PyTorch version,
+the f32 logsumexp, through TMA and ``wgmma`` (f32 operands as the hi and lo
+bf16 planes of one ``split_planes`` pass, three bf16 products for each f32
+one). ``reference_attention`` is its plain PyTorch version,
 the same function with the scores materialised. Its gradient is a
 ``torch.autograd.Function`` whose backward runs the two kernels of
 ``csrc/flash_attn_bwd.cu``, wrapped by ``flash_attention_dq`` and
-``flash_attention_dkv`` (bf16 through TMA and ``wgmma`` as the forward,
-f32 on the CUDA cores); ``reference_attention_bwd`` is their plain
+``flash_attention_dkv`` (through TMA and ``wgmma`` as the forward, but f32
+dq on the CUDA cores); ``reference_attention_bwd`` is their plain
 version. Each wrapper takes the plain version only for tensors on the
 CPU; for a CUDA tensor it launches its kernel or raises. ``attention`` is
 the dispatch every model calls.
@@ -178,17 +179,69 @@ def _strides(*xs):
     return out
 
 
-def _run(name, q, pointers, strides, scale, causal):
-    """Launch kernel ``name`` on q's device and current stream; raise if
-    the launch is refused."""
+def _run(name, q, pointers, strides, scale, causal, mode):
+    """Launch kernel ``name`` on q's device and current stream; ``mode`` is
+    the entry point's last integer (the dq kernel's is_bf16, the forward's
+    and dk/dv's plane count); raise if the launch is refused."""
     fn = _build.load(name)
     b, t, h, d = q.shape
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(*(x.data_ptr() for x in pointers), b, t, h, d, *strides,
-                scale, int(bool(causal)), int(q.dtype == torch.bfloat16), stream)
+                scale, int(bool(causal)), mode, stream)
     if rc != 0:
         raise MXNetError("%s kernel launch failed: CUDA error %d" % (name, rc))
+
+
+def split_planes(*xs):
+    """The :func:`split_bf16` planes of one to four f32 [B, T, H, D]
+    operands of one shape, as one contiguous bf16 tensor
+    (len(xs), 2, B, T, H, D): plane 0 hi = bf16(x), plane 1 lo =
+    bf16(x - hi). On CUDA tensors the split pass of
+    ``csrc/flash_attn_fwd.cu`` (``flash_split_kernel``, one launch for
+    all the operands; any strides along B, T and H, unit stride along D),
+    bit for bit the plain version; ``split_planes.launches`` counts its
+    launches. On CPU tensors the plain version, :func:`split_bf16` of each.
+    The f32 forward and dk/dv kernels read these planes."""
+    if not 1 <= len(xs) <= 4:
+        raise MXNetError("split_planes takes one to four operands, got %d" % len(xs))
+    if xs[0].device.type == "cpu":
+        return torch.stack([split_bf16(x) for x in xs])
+    shape = tuple(xs[0].shape)
+    for x in xs:
+        if (x.dtype != torch.float32 or tuple(x.shape) != shape or x.dim() != 4
+                or x.device != xs[0].device or x.device.type != "cuda" or x.stride(-1) != 1
+                or shape[-1] % 8):
+            raise MXNetError(
+                "split_planes wants f32 [B, T, H, D] CUDA tensors of one shape and device, "
+                "unit stride along D, D a multiple of 8; got %s %s %s strides %s"
+                % (x.dtype, tuple(x.shape), x.device, x.stride()))
+    b, t, h, d = shape
+    out = torch.empty((len(xs), 2) + shape, dtype=torch.bfloat16, device=xs[0].device)
+    ptrs = [x.data_ptr() for x in xs] + [None] * (4 - len(xs))
+    strides = _strides(*xs) + [0] * 3 * (4 - len(xs))
+    fn = _build.load("flash_split")
+    with torch.cuda.device(out.device):
+        rc = fn(len(xs), *ptrs, *strides, out.data_ptr(), b, t, h, d,
+                torch.cuda.current_stream(out.device).cuda_stream)
+    if rc != 0:
+        raise MXNetError("flash_split kernel launch failed: CUDA error %d" % rc)
+    split_planes.launches += 1
+    return out
+
+
+split_planes.launches = 0
+
+
+def _kernel_operands(*xs):
+    """(operands, planes) as the forward and dk/dv kernels read them: bf16
+    tensors as they are, one plane; f32 tensors through one
+    :func:`split_planes` pass, each as the view of its hi plane, whose lo
+    plane follows it in memory, two planes."""
+    if xs[0].dtype == torch.bfloat16:
+        return xs, 1
+    planes = split_planes(*xs)
+    return tuple(planes[i, 0] for i in range(len(xs))), 2
 
 
 def _launch(q, k, v, causal, scale):
@@ -196,7 +249,8 @@ def _launch(q, k, v, causal, scale):
     b, t, h, d = q.shape
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-    _run("flash_attn_fwd", q, (q, k, v, out, lse), _strides(q, k, v), scale, causal)
+    ops, planes = _kernel_operands(q, k, v)
+    _run("flash_attn_fwd", q, (*ops, out, lse), _strides(*ops), scale, causal, planes)
     flash_attention.launches += 1
     return out, lse
 
@@ -223,16 +277,17 @@ def flash_attention_dq(q, k, v, do, lse, delta, causal=False, scale=None):
     _check_row_stats(q, lse, delta)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _run("flash_attn_bwd_dq", q, (q, k, v, do, lse, delta, dq),
-         _strides(q, k, v, do), scale, causal)
+         _strides(q, k, v, do), scale, causal, int(q.dtype == torch.bfloat16))
     flash_attention_dq.launches += 1
     return dq
 
 
 def flash_attention_dkv(q, k, v, do, lse, delta, causal=False, scale=None):
     """(dk, dv) of flash attention: the kernel of ``csrc/flash_attn_bwd.cu``
-    (``flash_dkv_sm90`` for bf16, ``flash_dkv_kernel`` for f32) on CUDA
-    tensors (no fallback; a bf16 operand TMA cannot read where it lies is
-    copied first, see :func:`check_kernel_args`;
+    (``flash_dkv_sm90``; f32 q, k, v, dO first split into their hi and lo
+    planes by one :func:`split_planes` pass) on CUDA tensors (no fallback;
+    a bf16 operand TMA cannot read where it lies is copied first, see
+    :func:`check_kernel_args`;
     ``flash_attention_dkv.launches`` counts its launches), the plain
     version on CPU tensors. Arguments as :func:`reference_attention_bwd`."""
     scale = _default_scale(q, scale)
@@ -242,8 +297,9 @@ def flash_attention_dkv(q, k, v, do, lse, delta, causal=False, scale=None):
     _check_row_stats(q, lse, delta)
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _run("flash_attn_bwd_dkv", q, (q, k, v, do, lse, delta, dk, dv),
-         _strides(q, k, v, do), scale, causal)
+    ops, planes = _kernel_operands(q, k, v, do)
+    _run("flash_attn_bwd_dkv", q, (*ops, lse, delta, dk, dv), _strides(*ops), scale, causal,
+         planes)
     flash_attention_dkv.launches += 1
     return dk, dv
 
@@ -285,7 +341,9 @@ def flash_attention(q, k, v, causal=False, scale=None, return_lse=False):
 
     On CUDA tensors: the kernel of ``csrc/flash_attn_fwd.cu``, with no
     fallback (a bf16 operand TMA cannot read where it lies is copied first,
-    see :func:`check_kernel_args`); ``flash_attention.launches`` counts its
+    see :func:`check_kernel_args`; f32 q, k, v are first split into their
+    hi and lo planes by one :func:`split_planes` pass, any strides);
+    ``flash_attention.launches`` counts its
     launches. On CPU tensors: the plain version. When q, k or v requires a
     gradient, the call is recorded for autograd, whose backward runs
     :func:`flash_attention_dq` and :func:`flash_attention_dkv`.

@@ -50,7 +50,7 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 LR = 1e-4
 PHASES = ("tlm.forward", "tlm.loss", "tlm.backward", "tlm.sgd")
 KERNEL_FAMILIES = (
-    # the SIMT kernels (flash_*_kernel) and the bf16 Hopper ones (flash_*_sm90)
+    # the SIMT kernel (flash_dq_kernel, f32) and the Hopper ones (flash_*_sm90)
     ("flash_attn_fwd", ("flash_fwd_",)),
     ("flash_attn_bwd_dq", ("flash_dq_",)),
     ("flash_attn_bwd_dkv", ("flash_dkv_",)),

@@ -34,6 +34,29 @@ def test_cuda_kernel_matches_plain_version():
             assert (out.float() - ref.float()).abs().max().item() <= tol
 
 
+@pytest.mark.cuda
+def test_cuda_split_pass_matches_split_bf16():
+    """On the card: the split pass of the f32 flash kernels equals its
+    plain version, split_bf16 of each operand, bit for bit, for one to
+    four operands, contiguous or [B, H, T, D] views (4-byte loads) next to
+    contiguous ones (16-byte loads); refused for bf16 or D % 8."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator().manual_seed(5)
+    x = [torch.randn(2, 100, 3, 32, generator=g).cuda() for _ in range(4)]
+    view = torch.randn(2, 3, 100, 32, generator=g).cuda().transpose(1, 2)
+    for ops in (x[:1], x[:3], x, [view, x[0]]):
+        before = kernels.split_planes.launches
+        got = kernels.split_planes(*ops)
+        assert kernels.split_planes.launches == before + 1
+        want = torch.stack([kernels.split_bf16(t) for t in ops])
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    with pytest.raises(MXNetError):
+        kernels.split_planes(x[0].bfloat16())
+    with pytest.raises(MXNetError):
+        kernels.split_planes(torch.randn(1, 4, 1, 12).cuda())
+
+
 def _bwd_case(b, t, h, d, dt, causal, g, bhtd=False):
     """q, k, v, dO, lse, delta on the card; with ``bhtd``, q, k, v and dO
     are transposed views of [B, H, T, D] tensors."""

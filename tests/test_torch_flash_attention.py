@@ -176,6 +176,90 @@ def test_bf16_p_rounding_fits_the_card_limit(t, causal):
         assert np.abs(got - want).max() <= 2e-2
 
 
+F32_LIMIT = 1e-4  # the card's f32 limit for the forward, absolute
+
+
+def _split_product(a, b):
+    """a @ b as the split f32 kernels take it: the hi and lo bf16 planes of
+    both (``split_bf16``), three products hi·lo + lo·hi + hi·hi, in the
+    kernels' order, each and their sum in f32."""
+    (a_hi, a_lo), (b_hi, b_lo) = (p.float() for p in kernels.split_bf16(a)), \
+        (p.float() for p in kernels.split_bf16(b))
+    return a_hi @ b_lo + a_lo @ b_hi + a_hi @ b_hi
+
+
+def _emulate_forward_f32_split(q, k, v, causal, block=64):
+    """The f32 forward kernel (``flash_fwd_split_sm90``) on the CPU: S =
+    Q·Kᵀ as three bf16 products of the split planes; the online softmax
+    over 64-key tiles with l summing the f32 p; P split into its hi and lo
+    planes in registers, and each K/V tile's three products P·V summed in
+    a partial that starts at zero and is added into O after O's rescale
+    (the promotion, one K/V tile a period); o = O / l and lse in f32."""
+    b, t, h, d = q.shape
+    scale = 1.0 / np.sqrt(d)
+    qf, kf, vf = (x.transpose(1, 2) for x in (q, k, v))  # [B, H, T, D]
+    rows, cols = torch.arange(t)[:, None], torch.arange(t)[None, :]
+    keep = (rows >= cols) if causal else torch.ones(t, t, dtype=torch.bool)
+    m = torch.full((b, h, t, 1), -1e30)
+    l = torch.zeros((b, h, t, 1))
+    acc = torch.zeros((b, h, t, d))
+    for k0 in range(0, t, block):
+        kp = keep[:, k0:k0 + block]
+        s = torch.where(kp, _split_product(qf, kf[..., k0:k0 + block, :].transpose(-1, -2))
+                        * scale, torch.tensor(-1e30))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(kp, torch.exp(s - m_new), torch.tensor(0.0))
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + _split_product(p, vf[..., k0:k0 + block, :])
+        m = m_new
+    safe_l = torch.where(l > 0, l, torch.ones_like(l))
+    return (acc / safe_l).transpose(1, 2), (m + torch.log(safe_l))[..., 0]
+
+
+@pytest.mark.timeout(120)
+@pytest.mark.parametrize("t", [100, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_f32_split_forward_fits_the_card_limit(t, causal):
+    """The f32 forward kernel takes each f32 product as three bf16 products
+    of hi and lo planes (hi·lo + lo·hi + hi·hi), splits P in registers and
+    adds each K/V tile's P·V into O after a partial. Emulated on the CPU,
+    its output stays within 2e-5 absolute (a fifth of the card's f32
+    limit, 1e-4) of the JAX package's Pallas forward (interpret mode) and
+    of the port's plain version, and its lse within 2e-5 of the plain
+    one's, on the same f32 inputs (worst found: 1.5e-5 and 1.1e-5)."""
+    q, k, v = _inputs(1, t, 2, 64, seed=21)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    got, lse = _emulate_forward_f32_split(tq, tk, tv, causal)
+    jax_out = np.asarray(jpk.flash_attention(*(jnp.asarray(a) for a in (q, k, v)),
+                                             causal=causal, block_q=64, block_k=64))
+    plain = kernels.reference_attention(tq, tk, tv, causal=causal).numpy()
+    for want in (jax_out, plain):
+        assert np.abs(got.numpy() - want).max() <= 2e-5 <= F32_LIMIT
+    want_lse = kernels.reference_lse(tq, tk, causal=causal)
+    assert (lse - want_lse).abs().max().item() <= 2e-5
+
+
+def test_split_bf16_of_a_view_equals_its_contiguous_copy():
+    """The split pass reads f32 operands through their strides: the planes
+    of a [B, T, H, D] view of a [B, H, T, D] tensor equal those of its
+    contiguous copy bit for bit, and ``split_planes`` (its plain version on
+    the CPU) stacks them in operand order."""
+    rng = np.random.RandomState(22)
+    x = torch.from_numpy(rng.randn(2, 3, 50, 32).astype(np.float32)).transpose(1, 2)
+    y = torch.from_numpy(rng.randn(2, 50, 3, 32).astype(np.float32))
+    assert not x.is_contiguous()
+    view, copy = kernels.split_bf16(x), kernels.split_bf16(x.contiguous())
+    assert view.shape == (2, 2, 50, 3, 32) and view.dtype == torch.bfloat16
+    assert torch.equal(view.view(torch.int16), copy.view(torch.int16))
+    planes = kernels.split_planes(x, y)
+    assert planes.shape == (2, 2, 2, 50, 3, 32) and planes.is_contiguous()
+    assert torch.equal(planes[0].view(torch.int16), copy.view(torch.int16))
+    assert torch.equal(planes[1].view(torch.int16), kernels.split_bf16(y).view(torch.int16))
+    with pytest.raises(MXNetError):
+        kernels.split_planes(*[y] * 5)
+
+
 def test_library_key_covers_headers(monkeypatch, tmp_path):
     """Editing a header under csrc/ gives every kernel a new library."""
     csrc = tmp_path / "csrc"

@@ -14,7 +14,8 @@ import torch
 from mxnet_tpu.ops import pallas_kernels as jpk
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import kernels
-from test_torch_flash_attention import CASES
+from test_torch_conv_kernels import _truncating_sum
+from test_torch_flash_attention import CASES, F32_LIMIT, _split_product
 
 
 def _inputs(b, t, h, d, seed):
@@ -176,6 +177,74 @@ def test_bf16_dkv_rounding_fits_the_card_limit(t, causal):
     for name, a, want_jax, want_plain in zip(("dk", "dv"), got, jax_dkv, plain):
         for want in (want_jax, want_plain):
             assert np.abs(a - want).max() <= 2e-2 * np.abs(want).max(), name
+
+
+def _emulate_dkv_f32_split(q, k, v, do, lse, delta, causal, block=64):
+    """The f32 dk/dv kernel (``flash_dkv_sm90<D, 2>``) on the CPU: per
+    64-row q tile, Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ as three bf16 products of the
+    split planes (``_split_product``); Pᵀ = exp(scale Sᵀ - lse[col]) where
+    kept and dSᵀ = Pᵀ (dPᵀ - delta[col]) in f32; then Pᵀ and dSᵀ split into
+    hi and lo planes for dv += Pᵀ·dO and dk += dSᵀ·Q, each tile's three
+    products summed in a partial that is then added into dv or dk (the
+    promotion, one q tile a period); dk = scale·dk."""
+    t, d = q.shape[1], q.shape[-1]
+    scale = 1.0 / np.sqrt(d)
+    qf, kf, vf, dof = (x.transpose(1, 2) for x in (q, k, v, do))  # [B, H, T, D]
+    keep = torch.ones(t, t, dtype=torch.bool).triu() if causal else torch.ones(t, t,
+                                                                                dtype=torch.bool)
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for q0 in range(0, t, block):
+        qt, dot = qf[..., q0:q0 + block, :], dof[..., q0:q0 + block, :]
+        kp = keep[:, q0:q0 + block]  # rows are keys, columns this tile's queries
+        st = _split_product(kf, qt.transpose(-1, -2)) * scale
+        pt = torch.where(kp, torch.exp(st - lse[:, :, None, q0:q0 + block]), torch.tensor(0.0))
+        dpt = _split_product(vf, dot.transpose(-1, -2))
+        dst = pt * (dpt - delta[:, :, None, q0:q0 + block])
+        dv = dv + _split_product(pt, dot)
+        dk = dk + _split_product(dst, qt)
+    return (dk * scale).transpose(1, 2), dv.transpose(1, 2)
+
+
+@pytest.mark.timeout(120)
+@pytest.mark.parametrize("t", [100, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_f32_split_dkv_fits_the_card_limit(t, causal):
+    """The f32 dk/dv kernel takes each f32 product as three bf16 products
+    of hi and lo planes, splits Pᵀ and dSᵀ in registers and adds each q
+    tile's products into dk and dv after a partial. Emulated on the CPU
+    from the forward's lse and delta, dk and dv stay within 2e-5 of
+    max|want| (a fifth of the card's f32 limit, 1e-4) of JAX's Pallas
+    backward (interpret mode) and of the port's plain backward on the same
+    f32 inputs (worst found: 1.5e-5, dk at T = 100 without the mask)."""
+    q, k, v, do = _inputs(1, t, 2, 64, seed=23)
+    (_, jdk, jdv), lse, delta = _pallas_bwd(q, k, v, do, causal)
+    args = [torch.from_numpy(a) for a in (q, k, v, do, lse, delta)]
+    got = _emulate_dkv_f32_split(*args, causal)
+    plain = kernels.reference_attention_bwd(*args, causal=causal)[1:]
+    for name, g, want_jax, want_plain in zip(("dk", "dv"), got, (jdk, jdv), plain):
+        for want in (want_jax, want_plain.numpy()):
+            err = np.abs(g.numpy() - want).max() / np.abs(want).max()
+            assert err <= 2e-5 <= F32_LIMIT, (name, err)
+
+
+def test_dkv_promotion_bounds_a_truncating_accumulator():
+    """dk and dv sum 4 k16 steps a q tile over every q tile: 512 at T =
+    8192 and 2048 at T = 32768. Under the model of the tensor cores that
+    rounds each wgmma's f32 sum toward zero (``_truncating_sum``), one
+    accumulator's error grows with T: 4.3e-5 of max|exact| at T = 8192 and
+    1.4e-4, over the f32 limit, at T = 32768. Adding a partial into the
+    sum after every q tile, as the kernel does, holds 1e-5 at both (4.5e-6
+    and 4.6e-6 found)."""
+    rng = np.random.default_rng(12)
+    err = {}
+    for t in (8192, 32768):
+        a, b = (rng.standard_normal((t, 8)).astype(np.float32) for _ in range(2))
+        exact = a.astype(np.float64).T @ b.astype(np.float64)
+        for every in (None, 1):  # one accumulator; a promotion every q tile
+            got = _truncating_sum(a, b, every)
+            err[t, every] = np.abs(got - exact).max() / np.abs(exact).max()
+    assert err[8192, 1] <= 1e-5 and err[32768, 1] <= 1e-5, err
+    assert err[8192, 1] < err[8192, None] < F32_LIMIT < err[32768, None], err
 
 
 @pytest.mark.parametrize("causal", [True, False])
