@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py [--out results.json]
     python3 chip_smoke.py --only f32_lm --package DIR  # phase 19 and 8 on another tree
+    python3 chip_smoke.py --only rtc --package DIR     # K5's push path on another tree
 
 
 Phases, each fatal on failure:
@@ -11,17 +12,16 @@ Phases, each fatal on failure:
    the sources in this checkout (nvcc, sm_90a, one process per source, all
    started together) and time the build; ptxas's registers and spills of
    each kernel. Then ``cuobjdump -sass`` (beside nvcc) of the flash and
-   conv libraries, read by function: every forward and dk/dv kernel, bf16
-   and split f32, every bf16 dq kernel and every bf16 and f32 K2 and K3
-   kernel (flash_fwd_sm90, flash_fwd_split_sm90, flash_dq_sm90 at D
-   16-128, flash_dkv_sm90 at D 16-128 on one bf16 plane or the hi and lo
-   planes of split f32; conv_wgrad_sm90 and conv_dgrad_sm90 at 64
+   conv libraries, read by function: every flash kernel, bf16 and split
+   f32, and every bf16 and f32 K2 and K3 kernel (flash_fwd_sm90,
+   flash_fwd_split_sm90 at D 16-128, flash_dq_sm90 and flash_dkv_sm90 at
+   D 16-128 on one bf16 plane or the hi and lo planes of split f32;
+   conv_wgrad_sm90 and conv_dgrad_sm90 at 64
    and 128 channels a tile, on one bf16 plane or the hi and lo planes of
    split f32, K2 in CTAs of one and two warpgroups, reading channels-last
    copies or, bf16 only, NCHW in place) holds HGMMA (wgmma) and UTMALDG
-   (TMA load) instructions; no SIMT forward or dk/dv kernel and no SIMT
-   filter- or data-gradient kernel of any type is left, and the one SIMT
-   flash kernel is f32 dq (flash_dq_kernel<D>).
+   (TMA load) instructions; no SIMT flash kernel and no SIMT filter- or
+   data-gradient kernel of any type is left.
 2. forward kernel vs plain: the flash-attention forward kernels against
    their plain PyTorch version on the card, f32 to 1e-4 and bf16 to 2e-2
    (the plain version rounds its scores to bf16; the bf16 kernel keeps them
@@ -36,9 +36,11 @@ Phases, each fatal on failure:
    ``reference_attention_bwd`` on the same q, k, v, dO, lse and delta, for
    T in 7..2048, D 16 to 128, causal or not, f32 and bf16, contiguous
    and as [B, H, T, D] views, and in f32 at FLASH_DEEP; error relative
-   to max|plain| at most 1e-4 in f32 (the split f32 dk/dv kernel takes
-   three bf16 products for each f32 one, promoted every q tile; f32 dq
-   differs in summation order only) and 2e-2 in
+   to max|plain| at most 1e-4 in f32 (the split f32 dq and dk/dv kernels
+   take three bf16 products of hi and lo planes for each f32 one, split
+   dS, Pᵀ and dSᵀ into hi and lo planes in registers, and add each K/V
+   tile's (dq) or q tile's (dk, dv) products into the sum after a zeroed
+   partial, so the error does not grow with T) and 2e-2 in
    bf16 (the outputs differ by about one bf16 rounding, 2^-8 relative, and
    the bf16 kernels round dS to bf16 before dS·K, and P^T and dS^T before
    P^T·dO and dS^T·Q); and a second launch on the same inputs gives the
@@ -74,12 +76,14 @@ Phases, each fatal on failure:
    and for that call: ``device_ms``, the same span with a ~0.5 ms sleep
    kernel queued first, so the events time the card alone, and
    ``host_ms``, the host's time to enqueue one call. The same for the f32
-   kernels (forward and dk/dv: three bf16 products of split planes, the
-   split pass inside the call and its own ``split_device_ms`` beside; dq:
-   the CUDA-core design) at T 2048 and at the training path's shape,
-   against f32 scaled_dot_product_attention (TF32 off), under each
-   entry's ``f32`` (and ``f32_shapes``) key, their bound counted as for
-   f32 K2 and K3 (phase 12).
+   kernels (three bf16 products of split planes, the split pass inside
+   each standalone call and its own ``split_device_ms`` beside) at T 2048
+   and at the training path's shape, against f32
+   scaled_dot_product_attention (TF32 off), under each entry's ``f32``
+   (and ``f32_shapes``) key, their bound counted as for f32 K2 and K3
+   (phase 12); beside the backward's, ``pair``: dq and dk/dv as the
+   autograd backward runs them, on the planes of one split pass, against
+   f32 SDPA's backward.
 9. conv-backward kernels vs plain: K2 (conv_bwd_filter) and K3
    (conv_bwd_input) against their plain versions on every distinct
    in-envelope convolution shape of ResNet-50 at batch 32 (from
@@ -146,7 +150,10 @@ Phases, each fatal on failure:
     per distinct parameter shape, none after step 1. Then the times of a
     step's kernel (d) launches and of the plain updates (CUDA events, L2
     flushed before each step), the bound (20 bytes an element at 3.35
-    TB/s) and NVRTC ms per compile; one launch on the largest parameter
+    TB/s) and NVRTC ms per compile; ``host_ms``, the host's enqueue of one
+    push and (``host_ms_step``) of the step's pushes, and ``device_ms``,
+    the card's time for the step's launches (a sleep kernel queued first,
+    long enough to cover the enqueue); one launch on the largest parameter
     array against its bound; phase 14's forward + backward ms.
 
 16. Optimizer-slab kernel K1 (``fused_slab_update``) against its plain
@@ -186,7 +193,12 @@ Phases, each fatal on failure:
     10 SGD steps on one batch): every loss finite, the last below the
     first, the forward, dq and dk/dv kernels each launched exactly
     n_layers times a step and the split pass twice as often (one for each
-    forward and dk/dv launch); step ms, tokens/s, peak memory.
+    forward and one for each backward, whose dq and dk/dv kernels share
+    it); step ms (median of the steps before the last two), tokens/s, peak
+    memory; the last two steps run under torch.profiler: wall and
+    device-busy ms a step, the idle share, and device ms a step per kernel
+    family (the split pass, the three flash kernels, f32 GEMMs, reductions,
+    elementwise).
 
 Then the kernels line: the seven kernels, K4f, K4dq, K4dkv, K2, K3, K5 and
 K1.
@@ -198,6 +210,7 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import re
@@ -309,16 +322,14 @@ def sass_counts(_build, name):
 SASS_CHECKS = (
     ("flash_attn_fwd", "flash_fwd_sm90", 4, ("flash_fwd_kernel<",)),  # bf16, D 16-128
     ("flash_attn_fwd", "flash_fwd_split_sm90", 4, ("flash_fwd_kernel<",)),  # split f32
-    ("flash_attn_bwd_dq", "flash_dq_sm90", 4, ("flash_dq_kernel<bf16",)),
     # <D, planes>: bf16 and split f32
+    ("flash_attn_bwd_dq", "flash_dq_sm90", 8, ("flash_dq_kernel<",)),
     ("flash_attn_bwd_dkv", "flash_dkv_sm90", 8, ("flash_dkv_kernel<",)),
     # <c tile, warpgroups, NCHW in place, planes>: 8 bf16, 4 f32
     ("conv_bwd_filter", "conv_wgrad_sm90", 12, ("conv_wgrad_kernel<",)),
     # <c tile, planes>
     ("conv_bwd_input", "conv_dgrad_sm90", 4, ("conv_dgrad_kernel<",)),
 )
-# the one SIMT flash kernel left: f32 dq (flash_dq_kernel<D>, D 16-128)
-SIMT_LEFT = "flash_dq_kernel<"
 
 
 def phase_build(_build):
@@ -347,12 +358,10 @@ def phase_build(_build):
         sass.update(tma)
     flash = [f for lib, counts in by_lib.items() for f in counts if f.startswith("flash_")]
     simt = [f for f in flash if "_sm90" not in f and not f.startswith("flash_split_kernel")]
-    if len(simt) != 4 or not all(f.startswith(SIMT_LEFT) and "bf16" not in f for f in simt):
-        raise AssertionError("the flash libraries want f32 flash_dq_kernel<D> as their one SIMT "
-                             "kernel, got %s" % simt)
-    log("phase 1: HGMMA and UTMALDG in every forward and dk/dv kernel (bf16 and split f32), every "
-        "bf16 dq kernel and every bf16 and f32 K2 and K3 kernel; the one SIMT flash kernel left "
-        "is f32 dq; no SIMT K2 or K3")
+    if simt:
+        raise AssertionError("the flash libraries want no SIMT kernel, got %s" % simt)
+    log("phase 1: HGMMA and UTMALDG in every flash kernel (bf16 and split f32) and every bf16 "
+        "and f32 K2 and K3 kernel; no SIMT flash, K2 or K3 kernel")
     return secs, sass
 
 
@@ -632,17 +641,48 @@ def phase_train_f32(tfm, trainer, kernels, dev):
             "launches": counts}
 
 
-def phase_train_lm(trainer, kernels, dev, dtype):
+# kernel families of the LM step's profile (phase 19), first match wins:
+# the f32 split pass, the flash kernels (bf16 and split f32), cuBLAS's f32
+# GEMMs (TF32 off) and other GEMMs, reductions and softmax, elementwise
+LM_FAMILIES = (
+    ("flash_split", ("flash_split",)),
+    ("flash_attn_fwd", ("flash_fwd_",)),
+    ("flash_attn_bwd_dq", ("flash_dq_",)),
+    ("flash_attn_bwd_dkv", ("flash_dkv_",)),
+    ("gemm_f32", ("sgemm", "f32f32")),
+    ("gemm", ("nvjet", "gemm", "xmma", "cutlass")),
+    ("reduce", ("reduce", "SoftMax", "softmax")),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def lm_family(name):
+    return next((fam for fam, keys in LM_FAMILIES if any(k in name for k in keys)), "other")
+
+
+def phase_train_lm(trainer, kernels, dev, dtype, family=None):
     """Phase 7 (bf16) or 19 (f32): TRAIN's SGD steps of the example
-    trainer on the full model; see the module docstring."""
+    trainer on the full model; see the module docstring. With ``family``
+    (a kernel name's family), the last two steps run under torch.profiler
+    and the step time is the median of the steps before them."""
     import torch
 
-    per_step, stamps = [], []
+    steps, layers = TRAIN["steps"], FULL["n_layers"]
+    profiled = 2 if family is not None else 0
+    per_step, stamps, prof = [], [], {}
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
 
     def on_step(i, loss, params):
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
         per_step.append(read_counts(kernels))
+        if profiled and i == steps - 1 - profiled:
+            prof["p"] = torch.profiler.profile(activities=acts)
+            prof["p"].__enter__()
+            prof["t0"] = time.perf_counter()
+        elif profiled and i == steps - 1:
+            prof["wall"] = time.perf_counter() - prof["t0"]
+            prof["p"].__exit__(None, None, None)
 
     f32 = dtype == "float32"
     torch.cuda.reset_peak_memory_stats(dev)
@@ -654,29 +694,31 @@ def phase_train_lm(trainer, kernels, dev, dtype):
     counts = read_counts(kernels)
     split = getattr(kernels, "split_planes", None)
     split_launches = split.launches if split is not None else None
-    steps, layers = TRAIN["steps"], FULL["n_layers"]
     prev = dict.fromkeys(counts, 0)
     for i, c in enumerate(per_step):
         for name, n in c.items():
             assert n - prev[name] == layers, (i, name, n - prev[name])
         prev = c
     assert counts == dict.fromkeys(counts, steps * layers), counts
-    # f32: one split pass a forward and one a dk/dv launch; bf16: none
+    # f32: one split pass a forward and one a backward (dq and dk/dv share
+    # it); bf16: none
     if split_launches is not None:
         assert split_launches == (2 * steps * layers if f32 else 0), split_launches
     assert len(losses) == steps and all(np.isfinite(losses)), losses
     assert losses[-1] < losses[0], losses
-    step_s = [b - a for a, b in zip(stamps, stamps[1:])]
+    step_s = [b - a for a, b in zip(stamps, stamps[1:])][:len(stamps) - 1 - profiled]
     t = TRAIN["seq_len"]
     res = {
         "dtype": dtype, "losses": losses, "wall_s": wall,
-        "step_ms_median": 1e3 * statistics.median(step_s),
+        "step_ms_median": 1e3 * statistics.median(step_s), "steps_in_median": len(step_s),
         "first_step_ms_with_setup": 1e3 * (stamps[0] - t0),
         "tokens_per_s": TRAIN["batch_size"] * t / statistics.median(step_s),
         "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
         "launches": counts, "split_launches": split_launches, "batch": TRAIN["batch_size"],
         "T": t,
     }
+    if profiled:
+        res["profile"] = profile_summary(prof["p"], profiled, prof["wall"], family)
     log("phase %d: %s full model, %d SGD steps of train(): %s"
         % (19 if f32 else 7, "f32" if f32 else "bf16", steps, json.dumps(res)))
     return res
@@ -897,8 +939,40 @@ def flash_bwd_rows(kernels, dtype, dev, rng, flush, reps, shape=BWD_TIME_SHAPE):
             "n": n, "T": t, "H": h, "D": d, "dtype": key, "causal": True,
             "flops": flops, "bytes": nbytes,
         }
-    rows["flash_attn_bwd_dkv"].update(split_row(kernels, args[:4], flush, reps))
+    split = split_row(kernels, args[:4], flush, reps)
+    rows["flash_attn_bwd_dkv"].update(split)
+    if takes_planes(kernels):  # f32 dq splits its operands too (older trees: not)
+        rows["flash_attn_bwd_dq"].update(split)
+    if dtype == torch.float32:
+        pair = backward_pair(kernels, args)
+        summary = {"ms": time_ms(pair, reps, 3, flush),
+                   "device_ms": device_ms(pair, reps, 3, flush),
+                   "host_ms": host_ms(pair, reps, 3), "computes": "dq, dk, dv",
+                   "shared_split": pair.shared}
+        for row in rows.values():
+            row["pair"] = summary
     return rows
+
+
+def takes_planes(kernels):
+    """Whether the backward wrappers take a split made once for both."""
+    return "planes" in inspect.signature(kernels.flash_attention_dq).parameters
+
+
+def backward_pair(kernels, args):
+    """dq and dk/dv of ``args`` (q, k, v, dO, lse, delta; causal) as the
+    autograd backward runs them: on the planes of one split pass where the
+    wrappers take ``planes`` (``pair.shared``), else each wrapper with its
+    own split (older trees)."""
+    shared = takes_planes(kernels)
+
+    def pair():
+        kw = {"planes": kernels.split_planes(*args[:4])} if shared else {}
+        kernels.flash_attention_dq(*args, causal=True, **kw)
+        kernels.flash_attention_dkv(*args, causal=True, **kw)
+
+    pair.shared = shared
+    return pair
 
 
 def phase_bwd_times(kernels, dev, launches, f32_launches):
@@ -918,8 +992,7 @@ def phase_bwd_times(kernels, dev, launches, f32_launches):
             r[name]["launches"] = f32_launches[name]
         entries.append({
             "name": name, "route": "cuda", "source": "mxnet_tpu_torch/csrc/flash_attn_bwd.cu",
-            "design": "tma+wgmma (bf16); " + (
-                "f32 SIMT (f32)" if name.endswith("dq") else F32_DESIGN),
+            "design": "tma+wgmma (bf16); " + F32_DESIGN,
             "replaces": "mxnet_tpu/ops/pallas_kernels.py:%d" % (
                 295 if name.endswith("dq") else 316),
             "launches": launches[name], **row, "f32": f32[name],
@@ -1396,9 +1469,10 @@ def phase_executor(mx, resnet, resnet_bench, kernels, dev):
 
 
 def _update_all(exe, update):
+    args = exe.arg_dict  # a property that builds its dict: once a step
     for n, g in exe.grad_dict.items():
         if g is not None:
-            update(n, exe.arg_dict[n], g)
+            update(n, args[n], g)
 
 
 def phase_rtc_training(mx, rk, resnet, resnet_bench, kernels, dev):
@@ -1487,11 +1561,19 @@ def phase_rtc_times(mx, rk, runs, res, dev):
             w, g, p["moms"][n], out=w, rescale_grad=rescale, **SGD)),
     }
     ms = {how: time_ms(fn, 10, 2, flush) for how, fn in steps.items()}
+    # the card alone: a sleep of ~50 ms (100 M clocks) covers the host's
+    # enqueue of a step
+    dev_ms = {how: device_ms(fn, 10, 2, flush, sleep_cycles=100_000_000)
+              for how, fn in steps.items()}
+    step_host_ms = {how: host_ms(fn, 10, 2) for how, fn in steps.items()}
     # one launch on the largest parameter array: the kernel's own device time
     big = max(r["moms"], key=lambda n: r["moms"][n].size)
     w, g, m = r["exe"].arg_dict[big], r["exe"].grad_dict[big], r["moms"][big]
-    one_ms = time_ms(lambda: kernel.push([g], [w, m], *rk.grid_stride_dims(w.size)), 20, 3,
-                     flush)
+
+    def push_big():
+        kernel.push([g], [w, m], *rk.grid_stride_dims(w.size))
+
+    one_ms = time_ms(push_big, 20, 3, flush)
     elems = sum(m.size for m in r["moms"].values())
     nbytes = 20.0 * elems  # w, g, mom read; w, mom written; f32
     entry = {
@@ -1499,6 +1581,10 @@ def phase_rtc_times(mx, rk, runs, res, dev):
         "replaces": "mxnet_tpu/rtc.py:71", "launches": res["launches"]["rtc"],
         "max_abs_err": res["max_abs_err"], "rel_err": res["worst_rel_err"],
         "ms": ms["rtc"], "kernel_ms": ms["rtc"], "plain_ms": ms["nd"],
+        "host_ms": host_ms(push_big, 50, 5), "host_ms_step": step_host_ms["rtc"],
+        "device_ms": dev_ms["rtc"], "plain_host_ms_step": step_host_ms["nd"],
+        "plain_device_ms": dev_ms["nd"],
+        "host_note": "host_ms: one push (the largest array); host_ms_step: the step's pushes",
         "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes", "library_ms": None,
         "library_note": "none: no single PyTorch call computes MXNet's sgd_mom_update",
         "per": "one step: %d launches over %d parameter arrays, %d elements, f32"
@@ -1511,6 +1597,61 @@ def phase_rtc_times(mx, rk, runs, res, dev):
     }
     log("  rtc_sgd_mom %s" % json.dumps(entry))
     return [entry]
+
+
+def phase_rtc_push(mx, rk, resnet, dev):
+    """K5's push path alone (``--only rtc``, on any tree's package): kernel
+    (d) pushed once on each of ResNet-50's 157 f32 parameter arrays (random
+    values, no executor), as one step: ``ms`` (events around the step),
+    ``host_ms_step`` and ``host_ms`` (the host's enqueue of the step and of
+    one push on the largest array), ``device_ms`` (the card alone, after a
+    ~50 ms sleep kernel) and, where the package keeps launch records, the
+    host µs a call of the push's parts: the launch (``_nvrtc.launch``), the
+    CUDA driver call alone (``cuLaunchKernel``) and the stream lookup."""
+    import ctypes
+
+    import torch
+
+    symbol = resnet.get_symbol()
+    shapes = dict(zip(symbol.list_arguments(), symbol.infer_shape(
+        data=(RESNET_BATCH, 3, 224, 224), softmax_label=(RESNET_BATCH,))[0]))
+    names = [n for n in symbol.list_arguments() if n not in ("data", "softmax_label")]
+    rng = np.random.default_rng(14)
+    arrays = {n: [mx.nd.array(rng.standard_normal(shapes[n]).astype(np.float32), ctx=mx.gpu(0))
+                  for _ in range(3)] for n in names}
+    kernel = rk.make(rk.sgd_mom_source(rescale_grad=1.0 / RESNET_BATCH, **SGD),
+                     [arrays[names[0]][1]], [arrays[names[0]][0], arrays[names[0]][2]])
+
+    def step():
+        for n in names:
+            w, g, m = arrays[n]
+            kernel.push([g], [w, m], *rk.grid_stride_dims(w.size))
+
+    big = max(names, key=lambda n: arrays[n][0].size)
+    w, g, m = arrays[big]
+    dims = rk.grid_stride_dims(w.size)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    res = {"params": len(names), "ms": time_ms(step, 10, 2, flush),
+           "host_ms_step": host_ms(step, 10, 2),
+           "device_ms": device_ms(step, 10, 2, flush, sleep_cycles=100_000_000),
+           "host_ms": host_ms(lambda: kernel.push([g], [w, m], *dims), 200, 10)}
+    records = getattr(kernel, "_records", None)
+    if records:
+        from mxnet_tpu_torch import _nvrtc
+
+        record = next(r for key, r in records.items()
+                      if key[0][0] == g._data.shape and r.grid == dims[0])
+        ptrs = [x._data.data_ptr() for x in (g, w, m)]
+        lib = _nvrtc._lib("cuda")
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        parts = {"launch": lambda: _nvrtc.launch(record, ptrs),
+                 "cuLaunchKernel": lambda: lib.cuLaunchKernel(
+                     *record.head, ctypes.c_void_p(stream), record.params, None),
+                 "stream": lambda: _nvrtc._raw_stream(dev.index)}
+        res["host_us_a_call"] = {k: 1e3 * host_ms(lambda: [fn() for _ in range(200)], 10, 1)
+                                 / 200 for k, fn in parts.items()}
+    log("rtc push: %s" % json.dumps(res))
+    return res
 
 
 SLAB_SIZES = (131, 1024, 5000, 2359296)
@@ -1569,11 +1710,13 @@ def host_ms(fn, reps, warmup):
     return statistics.median(times)
 
 
-def device_ms(fn, reps, warmup, flush):
+def device_ms(fn, reps, warmup, flush, sleep_cycles=1_000_000):
     """Median device ms of ``fn``'s launches, L2 flushed before each rep:
-    a ~0.5 ms sleep kernel is queued before the start event, so the host
-    enqueues the launches while the card sleeps and the events time the
-    launches back to back, not the host's enqueue gaps."""
+    a sleep kernel (``sleep_cycles`` clocks, ~0.5 ms by default) is queued
+    before the start event, so the host enqueues the launches while the
+    card sleeps and the events time the launches back to back, not the
+    host's enqueue gaps, as long as the enqueue is shorter than the
+    sleep."""
     import torch
 
     for _ in range(warmup):
@@ -1581,7 +1724,7 @@ def device_ms(fn, reps, warmup, flush):
     times = []
     for _ in range(reps):
         flush.zero_()
-        torch.cuda._sleep(1_000_000)
+        torch.cuda._sleep(sleep_cycles)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1797,9 +1940,8 @@ def phase_fit_resnet_amp(mx, kernels, dev, plan):
 
 def profile_fit_steps(mod, batch, steps=2):
     """Where a fused step's time goes: ``steps`` more steps under
-    torch.profiler (each ending in a synchronise): wall ms and device-busy
-    ms a step, the idle share, kernels a step, and device ms a step per
-    kernel family (resnet_bench's families, K1 apart)."""
+    torch.profiler (each ending in a synchronise); see
+    :func:`profile_summary` (resnet_bench's families, K1 apart)."""
     import torch
 
     from mxnet_tpu_torch.tools import resnet_bench
@@ -1812,18 +1954,28 @@ def profile_fit_steps(mod, batch, steps=2):
             mod.forward_backward(batch)
             mod.update()
             torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / steps
+        wall = time.perf_counter() - t0
+    return profile_summary(prof, steps, wall, lambda name: (
+        "slab_update" if "slab_update" in name else resnet_bench.family(name)))
+
+
+def profile_summary(prof, steps, wall_s, family):
+    """Of ``steps`` steps profiled in ``wall_s`` seconds: wall ms and
+    device-busy ms a step, the idle share, kernels a step, and device ms a
+    step per kernel family (``family(name)``)."""
+    import torch
+
     cuda = torch.autograd.DeviceType.CUDA
     events = [e for e in prof.events() if e.device_type == cuda]
     fams = {}
     for e in events:
-        fam = "slab_update" if "slab_update" in e.name else resnet_bench.family(e.name)
-        f = fams.setdefault(fam, {"device_ms": 0.0, "count": 0})
+        f = fams.setdefault(family(e.name), {"device_ms": 0.0, "count": 0})
         f["device_ms"] += (e.time_range.end - e.time_range.start) / 1e3 / steps
         f["count"] += 1 / steps
     busy = sum(f["device_ms"] for f in fams.values())
-    return {"steps": steps, "wall_ms": 1e3 * wall, "device_busy_ms": busy,
-            "idle_share": max(0.0, 1.0 - busy / (1e3 * wall)),
+    wall = 1e3 * wall_s / steps
+    return {"steps": steps, "wall_ms": wall, "device_busy_ms": busy,
+            "idle_share": max(0.0, 1.0 - busy / wall),
             "kernels_per_step": len(events) / steps, "families_per_step": fams}
 
 
@@ -1882,8 +2034,9 @@ def main(argv=None):
     ap.add_argument("--out", help="also write every phase's numbers to this JSON file")
     ap.add_argument("--package", help="import mxnet_tpu_torch from this checkout instead of the "
                     "one beside this script (to run this script's phases on another tree)")
-    ap.add_argument("--only", choices=("f32_lm",),
-                    help="f32_lm: build, phase 19 and phase 8's attention kernel times only")
+    ap.add_argument("--only", choices=("f32_lm", "rtc"),
+                    help="f32_lm: build, phase 19 and phase 8's attention kernel times only; "
+                    "rtc: K5's push path on ResNet-50's parameter arrays only")
     args = ap.parse_args(argv)
 
     import torch
@@ -1911,16 +2064,20 @@ def main(argv=None):
     log("card: %s | torch %s, CUDA %s" % (card, torch.__version__, torch.version.cuda))
 
     results = {"card": card, "package": os.path.dirname(os.path.abspath(mx.__file__))}
+    if args.only == "rtc":
+        results["rtc_push"] = phase_rtc_push(mx, rk, resnet, dev)
     if args.only == "f32_lm":
         t0 = time.perf_counter()
         _build.build()
         results["build_s"] = time.perf_counter() - t0
-        results["training_f32_full"] = phase_train_lm(trainer, kernels, dev, "float32")
+        results["training_f32_full"] = phase_train_lm(trainer, kernels, dev, "float32",
+                                                      lm_family)
         f32_launches = dict(results["training_f32_full"]["launches"])
         bf16_launches = dict.fromkeys(f32_launches, 0)
         results["kernels"] = (
             phase_kernel_times(kernels, dev, 0, f32_launches["flash_attn_fwd"])
             + phase_bwd_times(kernels, dev, bf16_launches, f32_launches))
+    if args.only:
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
             with open(args.out, "w") as fh:
@@ -1935,7 +2092,8 @@ def main(argv=None):
     results["serving_bf16"] = phase_serving_bf16(tfm, kernels, telemetry, GenerationEngine, dev)
     results["training_bf16"] = phase_train_lm(trainer, kernels, dev, "bfloat16")
     train_launches = results["training_bf16"]["launches"]
-    results["training_f32_full"] = phase_train_lm(trainer, kernels, dev, "float32")
+    results["training_f32_full"] = phase_train_lm(trainer, kernels, dev, "float32",
+                                                  lm_family)
     results["conv_checks"], conv_errs = phase_conv_checks(kernels, resnet, dev)
     results["resnet_grads_f32"] = phase_resnet_grads_f32(resnet_bench, kernels, dev)
     results["resnet_train"] = [phase_resnet_train(resnet_bench, kernels, dev, dtype)

@@ -3,16 +3,21 @@
 NVRTC compiles a CUDA C source at run time to CUBIN for ``sm_90a``; the
 driver API loads it into torch's primary context (``cuModuleLoadData``,
 ``cuModuleGetFunction``) and launches it on a torch stream
-(``cuLaunchKernel``). ``libnvrtc.so.12`` or ``libnvrtc.so`` is looked for
-on the loader path, then under ``$CUDA_HOME/lib64`` (default
-``/usr/local/cuda``); ``libcuda.so.1`` on the loader path. Nothing is
-loaded when this module is imported.
+(``cuLaunchKernel``) through a :class:`LaunchRecord`, which keeps the
+function, its checked grid and block and the argument array it hands the
+CUDA driver, so a launch only writes the data pointers into that array.
+``libnvrtc.so.12`` or ``libnvrtc.so`` is looked for on the loader path,
+then under ``$CUDA_HOME/lib64`` (default ``/usr/local/cuda``);
+``libcuda.so.1`` on the loader path. Nothing is loaded when this module
+is imported.
 """
 from __future__ import annotations
 
 import ctypes
 import os
 import threading
+
+import torch
 
 from .base import MXNetError
 
@@ -36,6 +41,7 @@ _CUDA_SIGNATURES = {
     "cuDeviceGet": [ctypes.POINTER(_I), _I],
     "cuDevicePrimaryCtxRetain": [ctypes.POINTER(_P), _I],
     "cuCtxSetCurrent": [_P],
+    "cuCtxGetCurrent": [ctypes.POINTER(_P)],
     "cuModuleLoadData": [ctypes.POINTER(_P), ctypes.c_char_p],
     "cuModuleGetFunction": [ctypes.POINTER(_P), _P, ctypes.c_char_p],
     "cuLaunchKernel": [_P, _U, _U, _U, _U, _U, _U, _U, _P, ctypes.POINTER(_P), _P],
@@ -131,15 +137,12 @@ def compile_cubin(source, filename):
         lib.nvrtcDestroyProgram(ctypes.byref(prog))
 
 
-def _make_current(index):
-    """Make torch's primary context of CUDA device ``index`` current on this
-    thread (the driver API needs it; torch's runtime calls share it)."""
-    import torch
-
-    torch.cuda.init()
-    lib = _lib("cuda")
+def _primary_context(index):
+    """torch's primary context of CUDA device ``index``, retained once."""
     ctx = _contexts.get(index)
     if ctx is None:
+        torch.cuda.init()
+        lib = _lib("cuda")
         with _lock:
             if index not in _contexts:
                 _cu_check(lib.cuInit(0), "cuInit")
@@ -149,26 +152,89 @@ def _make_current(index):
                           "cuDevicePrimaryCtxRetain")
                 _contexts[index] = handle
             ctx = _contexts[index]
-    _cu_check(lib.cuCtxSetCurrent(ctx), "cuCtxSetCurrent")
+    return ctx
 
 
 def load_function(cubin, name, index):
-    """The CUfunction ``name`` of ``cubin`` loaded on CUDA device ``index``."""
-    _make_current(index)
+    """The CUfunction ``name`` of ``cubin`` loaded on CUDA device ``index``
+    (in its primary context, made current on this thread for the load and
+    the previous one restored after it)."""
+    ctx = _primary_context(index)
     lib = _lib("cuda")
-    module, fn = _P(), _P()
-    _cu_check(lib.cuModuleLoadData(ctypes.byref(module), cubin), "cuModuleLoadData")
-    _cu_check(lib.cuModuleGetFunction(ctypes.byref(fn), module, name.encode()),
-              "cuModuleGetFunction(%s)" % name)
+    prev = _P()
+    _cu_check(lib.cuCtxGetCurrent(ctypes.byref(prev)), "cuCtxGetCurrent")
+    _cu_check(lib.cuCtxSetCurrent(ctx), "cuCtxSetCurrent")
+    try:
+        module, fn = _P(), _P()
+        _cu_check(lib.cuModuleLoadData(ctypes.byref(module), cubin), "cuModuleLoadData")
+        _cu_check(lib.cuModuleGetFunction(ctypes.byref(fn), module, name.encode()),
+                  "cuModuleGetFunction(%s)" % name)
+    finally:
+        _cu_check(lib.cuCtxSetCurrent(prev), "cuCtxSetCurrent")
     return fn
 
 
-def launch(fn, index, grid, block, stream, pointers):
-    """Launch ``fn`` on device ``index`` and ``stream`` with one pointer
-    argument per entry of ``pointers``; ``cuLaunchKernel`` takes an array of
-    pointers to the arguments."""
-    _make_current(index)
-    args = [_P(p) for p in pointers]
-    params = (_P * len(args))(*[ctypes.addressof(a) for a in args])
-    _cu_check(_lib("cuda").cuLaunchKernel(fn, *grid, *block, 0, _P(stream), params, None),
-              "cuLaunchKernel")
+class LaunchRecord:
+    """One launch configuration of a CUfunction: device ``index``, the
+    checked ``grid`` and ``block`` 3-tuples, and ``n_args`` pointer
+    arguments. ``slots`` are the arguments' ``c_void_p`` values and
+    ``params`` the ``void**`` array that points at them, which
+    ``cuLaunchKernel`` reads when it is called; ``head`` holds its first
+    eight arguments; ``lock`` keeps two threads from filling the slots of
+    one record at once."""
+
+    __slots__ = ("fn", "index", "grid", "block", "slots", "params", "head", "ctx", "lock")
+
+    def __init__(self, fn, index, grid, block, n_args):
+        self.fn, self.index = fn, index
+        self.grid, self.block = tuple(grid), tuple(block)
+        self.slots = [_P() for _ in range(n_args)]
+        self.params = (_P * n_args)(*[ctypes.addressof(a) for a in self.slots])
+        self.head = (fn, *self.grid, *self.block, 0)  # function, dims, no dynamic smem
+        self.ctx = None  # the primary context, looked up at the first launch
+        self.lock = threading.Lock()
+
+
+_current = threading.local()  # this thread's out slot for cuCtxGetCurrent
+
+
+def _raw_stream(index):
+    """The cudaStream_t of device ``index``'s current torch stream, as an
+    int: ``torch.cuda.current_stream(index).cuda_stream`` without building
+    a Stream object (about a tenth of its host time)."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def launch(record, pointers):
+    """Launch ``record``'s function with the data pointers ``pointers`` (one
+    per argument, in order) on the current torch stream of its device.
+    The launch goes to the context current on this thread: when that is
+    not the device's primary context (another device's, or none on a new
+    thread), the primary one is made current for the launch and the
+    previous one restored after it, so torch's current device is left as
+    it was."""
+    lib = _lib("cuda")
+    ctx = record.ctx
+    if ctx is None:
+        ctx = record.ctx = _primary_context(record.index)
+    stream = _raw_stream(record.index)
+    cur = getattr(_current, "ctx", None)
+    if cur is None:
+        cur = _current.ctx = _P()
+    rc = lib.cuCtxGetCurrent(ctypes.byref(cur))
+    if rc:
+        _cu_check(rc, "cuCtxGetCurrent")
+    prev = cur.value
+    switch = prev != ctx.value
+    if switch:
+        _cu_check(lib.cuCtxSetCurrent(ctx), "cuCtxSetCurrent")
+    try:
+        with record.lock:
+            for slot, ptr in zip(record.slots, pointers):
+                slot.value = ptr
+            rc = lib.cuLaunchKernel(*record.head, stream, record.params, None)
+    finally:
+        if switch:
+            _cu_check(lib.cuCtxSetCurrent(prev), "cuCtxSetCurrent")
+    if rc:
+        _cu_check(rc, "cuLaunchKernel")

@@ -3,10 +3,11 @@
 // Replace the TPU kernels of mxnet_tpu/ops/pallas_kernels.py launched by
 // `_bwd_call` (the jax.custom_vjp backward of `_flash`):
 //   * dq  <- `_bwd_dq_kernel`:  dq = scale * sum_k dS K
-//            (bf16: flash_dq_sm90, TMA and wgmma; f32: flash_dq_kernel)
+//            (flash_dq_sm90<D, kP>)
 //   * dkv <- `_bwd_dkv_kernel`: dv = sum_q P^T dO, dk = scale * sum_q dS^T Q
-//            (flash_dkv_sm90<D, kP>, TMA and wgmma: bf16 kP = 1; f32 kP =
-//            2, on the split planes of flash_attn_fwd.cu's split pass)
+//            (flash_dkv_sm90<D, kP>)
+// both TMA and wgmma (bf16 kP = 1; f32 kP = 2, on the split planes of
+// flash_attn_fwd.cu's split pass, which the wrapper runs once for both),
 // with, as the Pallas kernels compute it, from bf16 or f32 loads: s =
 // scale * q.k^T in f32; the keep-mask of `_masked_scores` (k < T, and
 // q >= k when causal; here also q < T, since T is not padded); P =
@@ -57,47 +58,42 @@
 //     dP^T 32 each. Numerics: P^T and dS^T are rounded to bf16 before the
 //     products (FlashAttention-2/3 do the same), inside the same 2e-2
 //     limit.
-//   * dk/dv, f32 (flash_dkv_sm90<D, 2>): the same kernel on two bf16
-//     planes of each operand, hi = bf16(v) and lo = bf16(v - hi), made by
-//     the wrapper's split pass (mxtt_flash_split); each f32 product is
+//   * f32 (flash_dq_sm90<D, 2>, flash_dkv_sm90<D, 2>): the same kernels on
+//     two bf16 planes of each operand, hi = bf16(v) and lo = bf16(v - hi),
+//     made by the wrapper's split pass (mxtt_flash_split; one pass over q,
+//     k, v and dO serves both kernels of a backward); each f32 product is
 //     three bf16 ones, hi*lo + lo*hi + hi*hi, so the bound is three times
-//     the bf16 operations (the f32 limit, 1e-4 of max|plain|, rules out
-//     one bf16 or TF32 product, and the CUDA cores' f32 FMAs reach 67
-//     TFLOP/s at most: the CUDA-core kernel this replaced ran 6.4 ms at
-//     n=8 T=2047, 2.1x f32 SDPA's dq+dk+dv). K and V are resident as hi
-//     and lo tiles, Q and dO stream as hi and lo tiles (96 KB of shared
-//     memory at D = 64, 193 KB at D = 128: one or two CTAs an SM); S^T
-//     and dP^T take three products a k16 step. P^T and dS^T are split in
-//     registers into hi and lo A operands. dk and dv each sum 4 k16 steps
-//     a q tile over all the q tiles (128 at T = 2047, 512 at 8192), and
-//     the tensor cores' f32 accumulation rounds every wgmma's sum with a
-//     bias, so one accumulator's error would grow with T (conv_bwd.cu's
-//     kPromoteSteps): each q tile's products go into a partial that starts
-//     at zero and is added into dk or dv on the CUDA cores
+//     the bf16 operations (the f32 limit, 1e-4 of max|plain|, rules out one
+//     bf16 or TF32 product, and the CUDA cores' f32 FMAs reach 67 TFLOP/s
+//     at most: the CUDA-core kernels these replaced ran dq in 5.1 ms and
+//     dk/dv in 6.4 ms at n=8 T=2047, 2.1x f32 SDPA's dq+dk+dv). The
+//     resident tiles (Q and dO for dq, K and V for dk/dv) and the streamed
+//     ones are hi and lo tiles (96 KB of shared memory at D = 64, 193 KB at
+//     D = 128: two CTAs an SM or one); S (S^T) and dP (dP^T) take three
+//     products a k16 step. dS (and P^T, dS^T) are split in registers into
+//     hi and lo A operands (to_a_operand<2>). Each output sums 4 k16 steps
+//     a streamed tile over all the tiles (128 at T = 2047, 512 at 8192),
+//     and the tensor cores' f32 accumulation rounds every wgmma's sum with
+//     a bias, so one accumulator's error would grow with T (conv_bwd.cu's
+//     kPromoteSteps): each tile's products go into a partial that starts
+//     at zero and is added into dq, dk or dv on the CUDA cores
 //     (add_split_product), a promotion every 4 k16 steps. Where the sums
-//     live: dk and dv in registers, D/2 each, and one partial reused for
-//     both products, 32 columns of it a thread at most (64 columns at a
-//     time at D = 128); dS^T is made before the products, so S^T's
-//     registers are free by then (no overlap of the dv product with it,
-//     as in bf16): about S^T 32 + dS^T 32 + the A planes 32 + partial 32
-//     + dk and dv D live at once. Keeping the promoted sums in shared
-//     memory instead would not fit beside the D = 128 ring (32 KB each).
-//     dk = scale * acc and dv are written in f32.
-//   * dq, f32 (flash_dq_kernel): f32 FMAs on the CUDA cores, not yet
-//     redesigned. One block per (batch*head, 64-row q tile); the k tiles
-//     up to the causal diagonal are a loop inside the block; the
-//     accumulator stays in registers. Each 64 x 64 score tile is
-//     recomputed (s and dP) from tiles staged in shared memory as f32,
-//     padded by one column so neither the row-wise nor the column-wise
-//     reads conflict on banks. 128 threads; each owns a 4 x 8 micro-tile
-//     of the scores and a 4 x D/8 micro-tile of the accumulator. Dynamic
-//     shared memory is 83 KB at D=64 and 149 KB at D=128, above the 48 KB
-//     default, so the launch sets the opt-in attribute.
+//     live: dq (dk and dv) in registers, D/2 each, and one partial (reused
+//     for dk/dv's two products), 32 columns of it a thread at most (64
+//     columns at a time at D = 128). In dq, dS is made in S's registers and
+//     dP's are free once it is, so S 32 + dP 32 + dq D/2 are live during
+//     the first products and dS's planes 32 + partial 32 + dq D/2 during
+//     the last. In dk/dv, dS^T is made before the products, so S^T's
+//     registers are free by then (no overlap of the dv product with it, as
+//     in bf16): about S^T 32 + dS^T 32 + the A planes 32 + partial 32 + dk
+//     and dv D live at once. Keeping the promoted sums in shared memory
+//     instead would not fit beside the D = 128 ring (32 KB each). dq, dk =
+//     scale * acc and dv are written in f32.
 //   * The ragged edge of T is masked in the kernels and loads past T are
-//     zero-filled (no padding of T). The f32 dq kernel reads q, k, v, dO
-//     as [B, T, H, D] through their strides; the others through tensor
-//     maps of the same strides (the wrapper copies a bf16 operand TMA
-//     cannot read; f32 operands are split into contiguous planes first).
+//     zero-filled (no padding of T). The kernels read q, k, v, dO through
+//     tensor maps of their [B, T, H, D] strides (the wrapper copies a bf16
+//     operand TMA cannot read; f32 operands are split into contiguous
+//     planes first).
 //
 // Entry points: mxtt_flash_attn_bwd_dq and mxtt_flash_attn_bwd_dkv (plain C,
 // loaded with ctypes). Each returns the cudaError_t of its launch (0 on
@@ -108,159 +104,15 @@
 
 #include "flash_sm90.cuh"
 
+namespace sm90 {
 namespace {
 
-constexpr int kBlock = 64;     // rows of a q tile and of a k tile
-constexpr int kThreads = 128;  // 16 row groups x 8 lanes
-constexpr int kLanes = 8;      // lanes sharing one row group
-constexpr int kRows = kBlock / (kThreads / kLanes);  // tile rows per thread: 4
-constexpr int kCols = kBlock / kLanes;               // score cols per thread: 8
-constexpr int kPP = kBlock + 1;                      // padded score-tile row
+constexpr int kStages = 2;  // ring depth of the streamed tiles
 
 // element strides of one [B, T, H, D] operand (unit stride along D)
 struct Strides {
   long long b, t, h;
 };
-
-// rows t0 .. t0+kBlock of one (batch, head) slice into dst [kBlock][D+1];
-// rows past seq are zero, so 0 * p can never make a NaN
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          long long st, int t0, int seq) {
-  for (int i = threadIdx.x; i < kBlock * D; i += kThreads) {
-    const int r = i / D, c = i % D, t = t0 + r;
-    dst[r * (D + 1) + c] = t < seq ? src[t * st + c] : 0.f;
-  }
-}
-
-// acc[i][j] = a[row_i] . b[col_j] over D, rows group*kRows + i of a and
-// rows lane + kLanes*j of b, both [kBlock][D+1] in shared memory
-template <int D>
-__device__ __forceinline__ void tile_dot(const float* a, const float* b,
-                                         float (&acc)[kRows][kCols], int group,
-                                         int lane) {
-  constexpr int DP = D + 1;
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float x[kRows], y[kCols];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) x[i] = a[(group * kRows + i) * DP + d];
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) y[j] = b[(lane + kLanes * j) * DP + d];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) acc[i][j] = fmaf(x[i], y[j], acc[i][j]);
-  }
-}
-
-// acc[i][j] += sum_kk w[row_i][kk] * m[kk][lane + kLanes*j]: w is a
-// [kBlock][kPP] score tile, m a [kBlock][D+1] operand tile
-template <int D>
-__device__ __forceinline__ void tile_accumulate(
-    const float* w, const float* m, float (&acc)[kRows][D / kLanes], int group,
-    int lane) {
-  constexpr int DP = D + 1;
-  constexpr int kAcc = D / kLanes;
-#pragma unroll 4
-  for (int kk = 0; kk < kBlock; ++kk) {
-    float x[kRows], y[kAcc];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) x[i] = w[(group * kRows + i) * kPP + kk];
-#pragma unroll
-    for (int j = 0; j < kAcc; ++j) y[j] = m[kk * DP + lane + kLanes * j];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kAcc; ++j) acc[i][j] = fmaf(x[i], y[j], acc[i][j]);
-  }
-}
-
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  return sizeof(float) * (4 * kBlock * (D + 1) + kBlock * kPP);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, float* __restrict__ dq,
-                    int heads, int seq, Strides sq, Strides sk, Strides sv,
-                    Strides sdo, float scale, int causal) {
-  constexpr int DP = D + 1;
-  constexpr int kAcc = D / kLanes;
-  extern __shared__ float smem[];
-  float* qs = smem;               // [kBlock][DP]
-  float* dos = qs + kBlock * DP;  // [kBlock][DP]
-  float* ks = dos + kBlock * DP;  // [kBlock][DP]
-  float* vs = ks + kBlock * DP;   // [kBlock][DP]
-  float* dss = vs + kBlock * DP;  // [kBlock][kPP] dS of the current k tile
-
-  const int bh = blockIdx.x;
-  const int b = bh / heads;
-  const int h = bh - b * heads;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBlock;  // heavy tiles first
-  const int lane = threadIdx.x % kLanes;
-  const int group = threadIdx.x / kLanes;
-  const float* kb = k + b * sk.b + h * sk.h;
-  const float* vb = v + b * sv.b + h * sv.h;
-
-  load_tile<D>(qs, q + b * sq.b + h * sq.h, sq.t, q0, seq);
-  load_tile<D>(dos, dout + b * sdo.b + h * sdo.h, sdo.t, q0, seq);
-  const float* lse_row = lse + static_cast<long long>(bh) * seq;
-  const float* delta_row = delta + static_cast<long long>(bh) * seq;
-  float lse_r[kRows], delta_r[kRows], acc[kRows][kAcc];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int t = q0 + group * kRows + i;
-    lse_r[i] = t < seq ? lse_row[t] : 0.f;
-    delta_r[i] = t < seq ? delta_row[t] : 0.f;
-#pragma unroll
-    for (int j = 0; j < kAcc; ++j) acc[i][j] = 0.f;
-  }
-
-  const int kv_end = causal ? min(seq, q0 + kBlock) : seq;
-  for (int k0 = 0; k0 < kv_end; k0 += kBlock) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<D>(ks, kb, sk.t, k0, seq);
-    load_tile<D>(vs, vb, sv.t, k0, seq);
-    __syncthreads();
-
-    float s[kRows][kCols], dp[kRows][kCols];
-    tile_dot<D>(qs, ks, s, group, lane);
-    tile_dot<D>(dos, vs, dp, group, lane);
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int row = group * kRows + i;
-      const int qpos = q0 + row;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int col = lane + kLanes * j;
-        const int kpos = k0 + col;
-        const bool keep = qpos < seq && kpos < seq && (!causal || qpos >= kpos);
-        const float p = keep ? expf(scale * s[i][j] - lse_r[i]) : 0.f;
-        dss[row * kPP + col] = p * (dp[i][j] - delta_r[i]);
-      }
-    }
-    __syncthreads();
-    tile_accumulate<D>(dss, ks, acc, group, lane);
-  }
-
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int t = q0 + group * kRows + i;
-    if (t >= seq) continue;
-    float* row = dq + ((static_cast<long long>(b) * seq + t) * heads + h) * D;
-#pragma unroll
-    for (int j = 0; j < kAcc; ++j) row[lane + kLanes * j] = scale * acc[i][j];
-  }
-}
 
 // arguments shared by both entry points
 struct Args {
@@ -272,28 +124,6 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename Kern>
-cudaError_t prepare(Kern kern, size_t smem) {
-  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
-}
-
-template <int D>
-cudaError_t launch_dq_f32(const Args& a, void* dq) {
-  auto kern = flash_dq_kernel<D>;
-  const size_t smem = dq_smem_bytes<D>();
-  cudaError_t err = prepare(kern, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(a.batch * a.heads, (a.seq + kBlock - 1) / kBlock);
-  kern<<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<float*>(dq), a.heads, a.seq, a.sq, a.sk, a.sv, a.sdo, a.scale,
-      a.causal);
-  return cudaGetLastError();
-}
-
 Args make_args(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, int batch, int seq,
                int heads, const long long* st, float scale, int causal,
@@ -304,18 +134,28 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
               scale, causal, static_cast<cudaStream_t>(stream)};
 }
 
-}  // namespace
+// The tensor maps of q, k, v and dout, kP each: kP = 1 the bf16 operands;
+// kP = 2 each pointer is the hi plane of a split f32 operand whose lo plane
+// follows it, one [B, T, H, D] on
+template <int D, int kP>
+cudaError_t encode_planes(const Args& a, Maps<4 * kP>& maps) {
+  const long long plane = static_cast<long long>(a.batch) * a.seq * a.heads * D;
+  const void* ptrs[4] = {a.q, a.k, a.v, a.dout};
+  const Strides st[4] = {a.sq, a.sk, a.sv, a.sdo};
+  for (int i = 0; i < 4; ++i)
+    for (int p = 0; p < kP; ++p) {
+      const cudaError_t err = encode_operand(
+          &maps.m[i * kP + p], static_cast<const __nv_bfloat16*>(ptrs[i]) + p * plane, a.batch,
+          a.seq, a.heads, D, st[i].b, st[i].t, st[i].h);
+      if (err != cudaSuccess) return err;
+    }
+  return cudaSuccess;
+}
 
-// ------------------------------------------------------------------ bf16 dq
-// In namespace sm90, so the header's names (kRows = 64 rows a tile,
-// load_tile by TMA) are found before the SIMT kernels'.
-namespace sm90 {
-namespace {
+// ---------------------------------------------------------------------- dq
 
-constexpr int kStages = 2;  // K/V ring depth
-
-template <int D>
-using DqRing = Ring<D, 2, kStages>;  // lead tiles: Q, dO
+template <int D, int kP>
+using DqRing = Ring<D, 2, kStages, kP>;  // lead tiles: Q, dO; the stages stream K and V
 
 // dS = P (dP - delta) of one 64 x 64 tile on the accumulator fragment, into
 // sc: P = 2^(scale_log2 s - lse2) where kept (k < T, and q >= k when
@@ -341,16 +181,26 @@ __device__ __forceinline__ void ds_tile(float (&sc)[32], const float (&dp)[32],
   }
 }
 
-template <int D>
+// One CTA (one warpgroup) per (batch*head, 64-row q tile), the heaviest
+// causal q tiles first, on kP planes of each operand (bf16: one; split
+// f32: hi and lo). Q and dO are resident; K and V tiles stream through the
+// ring up to the causal diagonal. Per K/V tile: S = Q K^T and dP = dO V^T
+// by SS wgmma (all K-major, plane by plane); dS = P (dP - delta) in f32
+// registers; dq += dS K with dS as the register A operand (bf16: rounded;
+// split f32: its hi and lo planes, the tile's twelve products summed in a
+// zeroed partial that is then added into dq, add_split_product) and K
+// read MN-major. maps holds q's, k's, v's and dO's maps, kP each.
+template <int D, int kP>
 __global__ void __launch_bounds__(kThreads)
-    flash_dq_sm90(const __grid_constant__ CUtensorMap qmap,
-                  const __grid_constant__ CUtensorMap kmap,
-                  const __grid_constant__ CUtensorMap vmap,
-                  const __grid_constant__ CUtensorMap domap, const float* __restrict__ lse,
-                  const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int heads,
-                  int seq, float scale, float scale_log2, int causal) {
+    flash_dq_sm90(const __grid_constant__ Maps<4 * kP> maps, const float* __restrict__ lse,
+                  const float* __restrict__ delta, typename PlaneOut<kP>::T* __restrict__ dq,
+                  int heads, int seq, float scale, float scale_log2, int causal) {
   extern __shared__ uint8_t smem_raw[];
-  const DqRing<D> ring{aligned_smem_base(smem_raw)};
+  const DqRing<D, kP> ring{aligned_smem_base(smem_raw)};
+  const CUtensorMap* qmap = &maps.m[0];
+  const CUtensorMap* kmap = &maps.m[kP];
+  const CUtensorMap* vmap = &maps.m[2 * kP];
+  const CUtensorMap* domap = &maps.m[3 * kP];
 
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
@@ -364,10 +214,10 @@ __global__ void __launch_bounds__(kThreads)
   if (tid == 0) ring.init();
   __syncthreads();
   if (tid == 0) {
-    const CUtensorMap* lead[2] = {&qmap, &domap};
+    const CUtensorMap* lead[2] = {qmap, domap};
     ring.load_lead(lead, q0, h, b);
     for (int s = 0; s < kStages && s < n_tiles; ++s)
-      ring.load_kv(s, &kmap, &vmap, s * kRows, h, b);
+      ring.load_kv(s, kmap, vmap, s * kRows, h, b);
   }
   __syncwarp();
 
@@ -392,7 +242,8 @@ __global__ void __launch_bounds__(kThreads)
     const int s = i % kStages;
     mbar_wait(ring.full(s), (i / kStages) & 1);
 
-    // S = Q K^T and dP = dO V^T, all four operands K-major in shared memory
+    // S = Q K^T and dP = dO V^T, all four operands K-major in shared
+    // memory, plane by plane
     float sc[32], dp[32];
 #pragma unroll
     for (int j = 0; j < 32; ++j) sc[j] = dp[j] = 0.f;
@@ -401,12 +252,16 @@ __global__ void __launch_bounds__(kThreads)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_m64n64k16(sc, desc_kmajor<D>(ring.lead(0), kk),
-                         desc_kmajor<D>(ring.k_tile(s), kk), kk > 0);
+      plane_products<kP>([&](int pa, int pb) {
+        wgmma_ss_m64n64k16(sc, desc_kmajor<D>(ring.lead(0, pa), kk),
+                           desc_kmajor<D>(ring.k_tile(s, pb), kk), 1);
+      });
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_m64n64k16(dp, desc_kmajor<D>(ring.lead(1), kk),
-                         desc_kmajor<D>(ring.v_tile(s), kk), kk > 0);
+      plane_products<kP>([&](int pa, int pb) {
+        wgmma_ss_m64n64k16(dp, desc_kmajor<D>(ring.lead(1, pa), kk),
+                           desc_kmajor<D>(ring.v_tile(s, pb), kk), 1);
+      });
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(sc);
@@ -420,63 +275,67 @@ __global__ void __launch_bounds__(kThreads)
     else
       ds_tile<false>(sc, dp, lse2, dlt, row0, col0, k0, seq, causal, scale_log2);
 
-    // dq += dS K: dS rounded to bf16 as the register A operand, K MN-major
-    uint32_t da[4][4];
-    to_a_operand(sc, da);
-    fence_regs(da);
-    fence_regs(acc);
-    wgmma_fence();
+    // dq += dS K: dS as the register A operand (bf16: rounded; split f32:
+    // its hi and lo planes), K MN-major
+    uint32_t da[kP][4][4];
+    to_a_operand<kP>(sc, da);
+    if constexpr (kP == 1) {
+      fence_regs(da);
+      fence_regs(acc);
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(acc, da[kk], desc_mnmajor<D>(ring.k_tile(s), kk));
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(acc);
-    fence_regs(da);
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs<D>(acc, da[0][kk], desc_mnmajor<D>(ring.k_tile(s), kk));
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      fence_regs(da);
+    } else {
+      add_split_product<D>(acc, da, ring.k_tile(s, 0), ring.k_tile(s, 1));
+    }
 
-    ring.release(i, n_tiles, &kmap, &vmap, h, b);
+    ring.release(i, n_tiles, kmap, vmap, h, b);
   }
 
-  // dq = scale * acc in bf16; rows past T not stored
+  // dq = scale * acc in dq's type; rows past T not stored
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = row0 + 8 * half;
     if (row >= seq) continue;
-    __nv_bfloat16* out = dq + ((static_cast<long long>(b) * seq + row) * heads + h) * D;
+    auto* out = dq + ((static_cast<long long>(b) * seq + row) * heads + h) * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(out + 8 * j + col0) = __floats2bfloat162_rn(
-          scale * acc[4 * j + 2 * half], scale * acc[4 * j + 2 * half + 1]);
+      store2(out + 8 * j + col0, scale * acc[4 * j + 2 * half],
+             scale * acc[4 * j + 2 * half + 1]);
   }
 }
 
-// the tensor maps of q, k, v and dout
-inline cudaError_t encode_operands(const Args& a, int d, CUtensorMap (&maps)[4]) {
-  const void* ptrs[4] = {a.q, a.k, a.v, a.dout};
-  const Strides st[4] = {a.sq, a.sk, a.sv, a.sdo};
-  for (int i = 0; i < 4; ++i) {
-    const cudaError_t err = encode_operand(&maps[i], ptrs[i], a.batch, a.seq, a.heads, d,
-                                           st[i].b, st[i].t, st[i].h);
-    if (err != cudaSuccess) return err;
-  }
-  return cudaSuccess;
-}
-
-template <int D>
-cudaError_t launch_dq_bf16(const Args& a, void* dq) {
-  CUtensorMap maps[4];
-  cudaError_t err = encode_operands(a, D, maps);
+// kP = 1: bf16 q, k, v, dout and dq; kP = 2: each of q, k, v, dout is the
+// hi plane of a split f32 operand whose lo plane follows it, one
+// [B, T, H, D] on, and dq is f32
+template <int D, int kP>
+cudaError_t launch_dq(const Args& a, void* dq) {
+  Maps<4 * kP> maps;
+  cudaError_t err = encode_planes<D, kP>(a, maps);
   if (err != cudaSuccess) return err;
-  auto kern = flash_dq_sm90<D>;
-  const size_t smem = DqRing<D>::kSmemBytes;
+  auto kern = flash_dq_sm90<D, kP>;
+  const size_t smem = DqRing<D, kP>::kSmemBytes;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
+  using Out = typename PlaneOut<kP>::T;
   const dim3 grid(a.batch * a.heads, (a.seq + kRows - 1) / kRows);
   kern<<<grid, kThreads, smem, a.stream>>>(
-      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(a.lse),
-      static_cast<const float*>(a.delta), static_cast<__nv_bfloat16*>(dq), a.heads, a.seq,
-      a.scale, a.scale * kLog2e, a.causal);
+      maps, static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<Out*>(dq), a.heads, a.seq, a.scale, a.scale * kLog2e, a.causal);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dq(int planes, const Args& a, void* dq) {
+  if (planes == 1) return launch_dq<D, 1>(a, dq);
+  if (planes == 2) return launch_dq<D, 2>(a, dq);
+  return cudaErrorInvalidValue;
 }
 
 // ------------------------------------------------------------------- dk/dv
@@ -702,21 +561,13 @@ __global__ void __launch_bounds__(kThreads)
 // [B, T, H, D] on, and dk, dv are f32
 template <int D, int kP>
 cudaError_t launch_dkv(const Args& a, void* dk, void* dv) {
-  const long long plane = static_cast<long long>(a.batch) * a.seq * a.heads * D;
-  const void* ptrs[4] = {a.q, a.k, a.v, a.dout};
-  const Strides st[4] = {a.sq, a.sk, a.sv, a.sdo};
   Maps<4 * kP> maps;
-  for (int i = 0; i < 4; ++i)
-    for (int p = 0; p < kP; ++p) {
-      const cudaError_t err = encode_operand(
-          &maps.m[i * kP + p], static_cast<const __nv_bfloat16*>(ptrs[i]) + p * plane, a.batch,
-          a.seq, a.heads, D, st[i].b, st[i].t, st[i].h);
-      if (err != cudaSuccess) return err;
-    }
+  cudaError_t err = encode_planes<D, kP>(a, maps);
+  if (err != cudaSuccess) return err;
   auto kern = flash_dkv_sm90<D, kP>;
   const size_t smem = DkvRing<D, kP>::kSmemBytes;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   using Out = typename PlaneOut<kP>::T;
   const dim3 grid(a.batch * a.heads, (a.seq + kRows - 1) / kRows);
@@ -737,31 +588,31 @@ cudaError_t launch_dkv(int planes, const Args& a, void* dk, void* dv) {
 }  // namespace
 }  // namespace sm90
 
-// q, k, v, dout: [batch, seq, heads, d] of one dtype with unit stride along
-// d and the given element strides for (batch, seq, heads); lse, delta:
-// contiguous f32 [batch, heads, seq]; dq: contiguous [batch, seq, heads, d]
-// of q's dtype. is_bf16 selects __nv_bfloat16 (1, flash_dq_sm90) or float
-// (0, flash_dq_kernel); d is 16, 32, 64 or 128. The bf16 kernel reads q,
-// k, v, dout by TMA, which also wants 16 B aligned bases and strides that
-// are multiples of 8 elements.
+// q, k, v, dout: [batch, seq, heads, d] with unit stride along d and the
+// given element strides for (batch, seq, heads), read by TMA (16 B aligned
+// bases, strides that are multiples of 8 elements); lse, delta: contiguous
+// f32 [batch, heads, seq]; dq: contiguous [batch, seq, heads, d]. planes 1:
+// bf16 operands and dq; planes 2: each of q, k, v, dout points at the hi
+// plane of a split f32 operand whose lo plane follows it, batch * seq *
+// heads * d values on, and dq is f32. d is 16, 32, 64 or 128.
 extern "C" int mxtt_flash_attn_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int batch, int seq,
     int heads, int d, long long q_sb, long long q_st, long long q_sh,
     long long k_sb, long long k_st, long long k_sh, long long v_sb,
     long long v_st, long long v_sh, long long do_sb, long long do_st,
-    long long do_sh, float scale, int causal, int is_bf16, void* stream) {
+    long long do_sh, float scale, int causal, int planes, void* stream) {
   if (batch <= 0 || seq <= 0 || heads <= 0) return 0;
   const long long st[12] = {q_sb, q_st, q_sh, k_sb, k_st, k_sh,
                             v_sb, v_st, v_sh, do_sb, do_st, do_sh};
-  const Args a = make_args(q, k, v, dout, lse, delta, batch, seq, heads, st,
-                           scale, causal, stream);
+  const sm90::Args a = sm90::make_args(q, k, v, dout, lse, delta, batch, seq, heads, st,
+                                       scale, causal, stream);
   cudaError_t err;
   switch (d) {
-    case 16: err = is_bf16 ? sm90::launch_dq_bf16<16>(a, dq) : launch_dq_f32<16>(a, dq); break;
-    case 32: err = is_bf16 ? sm90::launch_dq_bf16<32>(a, dq) : launch_dq_f32<32>(a, dq); break;
-    case 64: err = is_bf16 ? sm90::launch_dq_bf16<64>(a, dq) : launch_dq_f32<64>(a, dq); break;
-    case 128: err = is_bf16 ? sm90::launch_dq_bf16<128>(a, dq) : launch_dq_f32<128>(a, dq); break;
+    case 16: err = sm90::launch_dq<16>(planes, a, dq); break;
+    case 32: err = sm90::launch_dq<32>(planes, a, dq); break;
+    case 64: err = sm90::launch_dq<64>(planes, a, dq); break;
+    case 128: err = sm90::launch_dq<128>(planes, a, dq); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
@@ -781,8 +632,8 @@ extern "C" int mxtt_flash_attn_bwd_dkv(
   if (batch <= 0 || seq <= 0 || heads <= 0) return 0;
   const long long st[12] = {q_sb, q_st, q_sh, k_sb, k_st, k_sh,
                             v_sb, v_st, v_sh, do_sb, do_st, do_sh};
-  const Args a = make_args(q, k, v, dout, lse, delta, batch, seq, heads, st,
-                           scale, causal, stream);
+  const sm90::Args a = sm90::make_args(q, k, v, dout, lse, delta, batch, seq, heads, st,
+                                       scale, causal, stream);
   cudaError_t err;
   switch (d) {
     case 16: err = sm90::launch_dkv<16>(planes, a, dk, dv); break;

@@ -162,7 +162,7 @@ class NDArray:
 
     @property
     def size(self):
-        return int(np.prod(self.shape)) if self.shape else 1
+        return self._data.numel()
 
     @property
     def ndim(self):

@@ -10,10 +10,10 @@ one). ``reference_attention`` is its plain PyTorch version,
 the same function with the scores materialised. Its gradient is a
 ``torch.autograd.Function`` whose backward runs the two kernels of
 ``csrc/flash_attn_bwd.cu``, wrapped by ``flash_attention_dq`` and
-``flash_attention_dkv`` (through TMA and ``wgmma`` as the forward, but f32
-dq on the CUDA cores); ``reference_attention_bwd`` is their plain
-version. Each wrapper takes the plain version only for tensors on the
-CPU; for a CUDA tensor it launches its kernel or raises. ``attention`` is
+``flash_attention_dkv`` (through TMA and ``wgmma`` as the forward, f32 as
+the planes of one split pass for both); ``reference_attention_bwd`` is
+their plain version. Each wrapper takes the plain version only for
+tensors on the CPU; for a CUDA tensor it launches its kernel or raises. ``attention`` is
 the dispatch every model calls.
 
 Layout convention as in the JAX package: [B, T, H, D].
@@ -179,16 +179,16 @@ def _strides(*xs):
     return out
 
 
-def _run(name, q, pointers, strides, scale, causal, mode):
-    """Launch kernel ``name`` on q's device and current stream; ``mode`` is
-    the entry point's last integer (the dq kernel's is_bf16, the forward's
-    and dk/dv's plane count); raise if the launch is refused."""
+def _run(name, q, pointers, strides, scale, causal, planes):
+    """Launch kernel ``name`` on q's device and current stream; ``planes``
+    is the entry point's last integer, the operands' plane count (1 bf16,
+    2 split f32); raise if the launch is refused."""
     fn = _build.load(name)
     b, t, h, d = q.shape
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(*(x.data_ptr() for x in pointers), b, t, h, d, *strides,
-                scale, int(bool(causal)), mode, stream)
+                scale, int(bool(causal)), planes, stream)
     if rc != 0:
         raise MXNetError("%s kernel launch failed: CUDA error %d" % (name, rc))
 
@@ -202,7 +202,7 @@ def split_planes(*xs):
     all the operands; any strides along B, T and H, unit stride along D),
     bit for bit the plain version; ``split_planes.launches`` counts its
     launches. On CPU tensors the plain version, :func:`split_bf16` of each.
-    The f32 forward and dk/dv kernels read these planes."""
+    The f32 forward, dq and dk/dv kernels read these planes."""
     if not 1 <= len(xs) <= 4:
         raise MXNetError("split_planes takes one to four operands, got %d" % len(xs))
     if xs[0].device.type == "cpu":
@@ -233,14 +233,24 @@ def split_planes(*xs):
 split_planes.launches = 0
 
 
-def _kernel_operands(*xs):
-    """(operands, planes) as the forward and dk/dv kernels read them: bf16
-    tensors as they are, one plane; f32 tensors through one
-    :func:`split_planes` pass, each as the view of its hi plane, whose lo
-    plane follows it in memory, two planes."""
+def _kernel_operands(*xs, planes=None):
+    """(operands, plane count) as the kernels read them: bf16 tensors as
+    they are, one plane; f32 tensors as the views of their hi planes, whose
+    lo planes follow them in memory, two planes. The f32 planes are
+    ``planes``, the (len(xs), 2, B, T, H, D) bf16 tensor of one
+    :func:`split_planes` pass over ``xs`` already made (a backward makes
+    one for both of its kernels), or else those of a pass run here."""
     if xs[0].dtype == torch.bfloat16:
         return xs, 1
-    planes = split_planes(*xs)
+    shape = (len(xs), 2) + tuple(xs[0].shape)
+    if planes is None:
+        planes = split_planes(*xs)
+    elif (planes.dtype != torch.bfloat16 or tuple(planes.shape) != shape
+          or planes.device != xs[0].device or not planes.is_contiguous()):
+        raise MXNetError(
+            "flash_attention kernels want planes as a contiguous bfloat16 %s tensor on %s, "
+            "got %s %s %s" % (shape, xs[0].device, planes.dtype, tuple(planes.shape),
+                              planes.device))
     return tuple(planes[i, 0] for i in range(len(xs))), 2
 
 
@@ -263,31 +273,33 @@ def _forward(q, k, v, causal, scale, need_lse):
     return _launch(q, k, v, causal, scale)
 
 
-def flash_attention_dq(q, k, v, do, lse, delta, causal=False, scale=None):
+def flash_attention_dq(q, k, v, do, lse, delta, causal=False, scale=None, planes=None):
     """dq of flash attention: the kernel of ``csrc/flash_attn_bwd.cu``
-    (``flash_dq_sm90`` for bf16, ``flash_dq_kernel`` for f32) on CUDA
-    tensors (no fallback; a bf16 operand TMA cannot read where it lies is
-    copied first, see :func:`check_kernel_args`;
-    ``flash_attention_dq.launches`` counts its launches), the plain
-    version on CPU tensors. Arguments as :func:`reference_attention_bwd`."""
+    (``flash_dq_sm90``; f32 q, k, v, dO as their hi and lo planes, from
+    ``planes``, one :func:`split_planes` pass over (q, k, v, do) already
+    made, or else from a pass run here) on CUDA tensors (no fallback; a
+    bf16 operand TMA cannot read where it lies is copied first, see
+    :func:`check_kernel_args`; ``flash_attention_dq.launches`` counts its
+    launches), the plain version on CPU tensors. Arguments as
+    :func:`reference_attention_bwd`."""
     scale = _default_scale(q, scale)
     if q.device.type == "cpu":
         return reference_attention_bwd(q, k, v, do, lse, delta, causal, scale)[0]
     q, k, v, do = check_kernel_args(q, k, v, do)
     _check_row_stats(q, lse, delta)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _run("flash_attn_bwd_dq", q, (q, k, v, do, lse, delta, dq),
-         _strides(q, k, v, do), scale, causal, int(q.dtype == torch.bfloat16))
+    ops, n_planes = _kernel_operands(q, k, v, do, planes=planes)
+    _run("flash_attn_bwd_dq", q, (*ops, lse, delta, dq), _strides(*ops), scale, causal,
+         n_planes)
     flash_attention_dq.launches += 1
     return dq
 
 
-def flash_attention_dkv(q, k, v, do, lse, delta, causal=False, scale=None):
+def flash_attention_dkv(q, k, v, do, lse, delta, causal=False, scale=None, planes=None):
     """(dk, dv) of flash attention: the kernel of ``csrc/flash_attn_bwd.cu``
-    (``flash_dkv_sm90``; f32 q, k, v, dO first split into their hi and lo
-    planes by one :func:`split_planes` pass) on CUDA tensors (no fallback;
-    a bf16 operand TMA cannot read where it lies is copied first, see
-    :func:`check_kernel_args`;
+    (``flash_dkv_sm90``; f32 operands as for :func:`flash_attention_dq`,
+    ``planes`` too) on CUDA tensors (no fallback; a bf16 operand TMA cannot
+    read where it lies is copied first, see :func:`check_kernel_args`;
     ``flash_attention_dkv.launches`` counts its launches), the plain
     version on CPU tensors. Arguments as :func:`reference_attention_bwd`."""
     scale = _default_scale(q, scale)
@@ -297,9 +309,9 @@ def flash_attention_dkv(q, k, v, do, lse, delta, causal=False, scale=None):
     _check_row_stats(q, lse, delta)
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    ops, planes = _kernel_operands(q, k, v, do)
+    ops, n_planes = _kernel_operands(q, k, v, do, planes=planes)
     _run("flash_attn_bwd_dkv", q, (*ops, lse, delta, dk, dv), _strides(*ops), scale, causal,
-         planes)
+         n_planes)
     flash_attention_dkv.launches += 1
     return dk, dv
 
@@ -313,7 +325,8 @@ class _FlashAttention(torch.autograd.Function):
     q, k, v, out and the f32 lse; the backward computes
     ``delta = Σ_D g·out`` in f32 from the incoming gradient, casts that
     gradient to q's dtype (``_flash_bwd``), then runs the dq and dk/dv
-    wrappers (the kernels on CUDA, their plain version on the CPU)."""
+    wrappers (the kernels on CUDA, their plain version on the CPU); in f32
+    on CUDA both kernels read the planes of one split pass."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
@@ -331,8 +344,12 @@ class _FlashAttention(torch.autograd.Function):
         do = g.to(q.dtype)
         if do.stride(-1) != 1:  # e.g. the expanded gradient of a sum
             do = do.contiguous()
-        dq = flash_attention_dq(q, k, v, do, lse, delta, ctx.causal, ctx.scale)
-        dk, dv = flash_attention_dkv(q, k, v, do, lse, delta, ctx.causal, ctx.scale)
+        planes = None
+        if q.device.type == "cuda" and q.dtype == torch.float32:
+            # one split pass of q, k, v and dO for both kernels
+            planes = split_planes(*check_kernel_args(q, k, v, do))
+        dq = flash_attention_dq(q, k, v, do, lse, delta, ctx.causal, ctx.scale, planes)
+        dk, dv = flash_attention_dkv(q, k, v, do, lse, delta, ctx.causal, ctx.scale, planes)
         return dq, dk, dv, None, None
 
 

@@ -20,7 +20,14 @@ body is the TPU's redesign of that contract; the port returns to CUDA C.
 - **Launch.** ``cuLaunchKernel`` on ``torch.cuda.current_stream()`` with
   both ``grid_dims`` and ``block_dims`` honoured (the JAX package ignores
   ``block_dims``: Mosaic owns the tiling there); ``block_dims`` None means
-  one thread. Results are written straight into ``outs``.
+  one thread. Results are written straight into ``outs``. Each Rtc keeps
+  a launch record (``_nvrtc.LaunchRecord``) for each (shapes, dtypes,
+  devices, grid, block) it was pushed with: the compiled function, the
+  checked grid and block, and the argument array handed to the CUDA driver.
+  A push checks its arrays in one pass (count, NDArray, dtype,
+  contiguity; the device and the launch dimensions are part of the key,
+  checked when a record is made, so a key that fails never gets one and
+  raises on every push) and writes their data pointers into the record.
 - **CPU.** CUDA C cannot run on the host: an Rtc whose arrays are on the
   CPU raises :class:`MXNetError`, as the reference's rtc was GPU-only.
 
@@ -151,6 +158,7 @@ class Rtc:
         self.out_names = [n for n, _ in outputs]
         self.kernel_source = kernel
         self._cache = {}
+        self._records = {}
         ins = check_arrays(name, self.in_names, [a for _, a in inputs], "inputs")
         outs = check_arrays(name, self.out_names, [a for _, a in outputs], "outputs")
         device = device_of(name, [a for _, a in list(inputs) + list(outputs)])
@@ -180,17 +188,44 @@ class Rtc:
         """Run the kernel on ``ins`` / ``outs`` (NDArray lists matching the
         templates' names), ``grid_dims`` blocks of ``block_dims`` threads;
         results are written into ``outs``."""
-        in_specs = check_arrays(self.name, self.in_names, ins, "inputs")
-        out_specs = check_arrays(self.name, self.out_names, outs, "outputs")
-        grid, block = launch_dims(grid_dims, block_dims)
-        device = device_of(self.name, list(ins) + list(outs))
-        fn = self._function(in_specs, out_specs, device)
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            _nvrtc.launch(fn, device.index, grid, block, stream,
-                          [a._data.data_ptr() for a in list(ins) + list(outs)])
+        arrays_in, arrays_out = list(ins), list(outs)
+        sig, ptrs = [], []
+        for kind, names, arrays in (("inputs", self.in_names, arrays_in),
+                                    ("outputs", self.out_names, arrays_out)):
+            if len(arrays) != len(names):
+                check_arrays(self.name, names, arrays, kind)  # raises
+            for n, a in zip(names, arrays):
+                if not isinstance(a, NDArray):
+                    raise MXNetError("Rtc %s: %s %s is not an NDArray" % (self.name, kind, n))
+                t = a._data
+                if t.dtype not in CTYPES:
+                    ctype_of(t.dtype)  # raises
+                if not t.is_contiguous():
+                    raise MXNetError("Rtc %s: %s %s is not contiguous" % (self.name, kind, n))
+                sig += (t.shape, t.dtype, t.get_device())
+                ptrs.append(t.data_ptr())
+        key = (tuple(sig), _dims_key(grid_dims), _dims_key(block_dims))
+        record = self._records.get(key)
+        if record is None:
+            record = self._records[key] = self._record(arrays_in, arrays_out, grid_dims,
+                                                       block_dims)
+        _nvrtc.launch(record, ptrs)
         Rtc.launches += 1
         return outs
+
+    def _record(self, ins, outs, grid_dims, block_dims):
+        """The launch record of arrays that passed ``push``'s checks: the
+        launch dimensions and the device are checked here."""
+        grid, block = launch_dims(grid_dims, block_dims)
+        device = device_of(self.name, ins + outs)
+        fn = self._function(check_arrays(self.name, self.in_names, ins, "inputs"),
+                            check_arrays(self.name, self.out_names, outs, "outputs"), device)
+        return _nvrtc.LaunchRecord(fn, device.index, grid, block, len(ins) + len(outs))
+
+
+def _dims_key(dims):
+    """``grid_dims`` or ``block_dims`` as a dictionary key."""
+    return dims if dims is None or isinstance(dims, tuple) else tuple(dims)
 
 
 def rtc(name, inputs, outputs, kernel):

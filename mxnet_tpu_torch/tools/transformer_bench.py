@@ -27,8 +27,8 @@ rate, 989 TFLOP/s, printed beside the card's name and power limit.
 phase (``tlm.forward``, ``tlm.loss``, ``tlm.backward``, ``tlm.sgd``) in a
 ``record_function`` range and followed by a synchronise so phases do not
 overlap on the device, and writes where the device time goes: per phase,
-per kernel family (the three flash kernels, f32 GEMMs, other GEMMs, the
-rest) and the idle share. The synchronises add idle time that the
+per kernel family (the f32 split pass, the three flash kernels, f32
+GEMMs, other GEMMs, the rest) and the idle share. The synchronises add idle time that the
 unprofiled steps do not have.
 """
 from __future__ import annotations
@@ -50,7 +50,8 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 LR = 1e-4
 PHASES = ("tlm.forward", "tlm.loss", "tlm.backward", "tlm.sgd")
 KERNEL_FAMILIES = (
-    # the SIMT kernel (flash_dq_kernel, f32) and the Hopper ones (flash_*_sm90)
+    # the Hopper kernels (flash_*_sm90, bf16 and split f32) and the f32 split pass
+    ("flash_split", ("flash_split",)),
     ("flash_attn_fwd", ("flash_fwd_",)),
     ("flash_attn_bwd_dq", ("flash_dq_",)),
     ("flash_attn_bwd_dkv", ("flash_dkv_",)),

@@ -99,6 +99,37 @@ def test_cuda_backward_kernels_match_plain_version():
 
 
 @pytest.mark.cuda
+def test_cuda_f32_backward_shares_one_split():
+    """On the card: an f32 backward through the autograd Function runs one
+    split pass for its dq and dk/dv kernels together; given one split, the
+    kernels give the bits of the wrappers that split for themselves; f32
+    dq within 1e-4 of max|plain| and bitwise on repeat, up to T 4096."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator().manual_seed(7)
+    q, k, v, w = (torch.randn(2, 300, 4, 64, generator=g).cuda() for _ in range(4))
+    leaves = [x.requires_grad_() for x in (q, k, v)]
+    out = kernels.flash_attention(*leaves, causal=True)
+    before = (kernels.split_planes.launches, kernels.flash_attention_dq.launches)
+    (out * w).sum().backward()
+    torch.cuda.synchronize()
+    assert (kernels.split_planes.launches,
+            kernels.flash_attention_dq.launches) == (before[0] + 1, before[1] + 1)
+    for (b, t, h, d, causal) in [(2, 300, 4, 64, True), (1, 4096, 2, 128, False)]:
+        args = _bwd_case(b, t, h, d, torch.float32, causal, g)
+        planes = kernels.split_planes(*args[:4])
+        dq = kernels.flash_attention_dq(*args, causal=causal, planes=planes)
+        dk, dv = kernels.flash_attention_dkv(*args, causal=causal, planes=planes)
+        torch.cuda.synchronize()
+        assert torch.equal(dq, kernels.flash_attention_dq(*args, causal=causal))
+        assert torch.equal(dq, kernels.flash_attention_dq(*args, causal=causal, planes=planes))
+        assert all(torch.equal(a, b_) for a, b_ in zip(
+            (dk, dv), kernels.flash_attention_dkv(*args, causal=causal)))
+        want = kernels.reference_attention_bwd(*args, causal=causal)[0]
+        assert (dq - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+@pytest.mark.cuda
 def test_cuda_attention_gradient_runs_the_kernels():
     """On the card: autograd through flash_attention launches the forward,
     dq and dk/dv kernels once each and agrees with autograd through the

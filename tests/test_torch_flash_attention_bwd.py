@@ -227,24 +227,103 @@ def test_f32_split_dkv_fits_the_card_limit(t, causal):
             assert err <= 2e-5 <= F32_LIMIT, (name, err)
 
 
-def test_dkv_promotion_bounds_a_truncating_accumulator():
-    """dk and dv sum 4 k16 steps a q tile over every q tile: 512 at T =
-    8192 and 2048 at T = 32768. Under the model of the tensor cores that
-    rounds each wgmma's f32 sum toward zero (``_truncating_sum``), one
-    accumulator's error grows with T: 4.3e-5 of max|exact| at T = 8192 and
-    1.4e-4, over the f32 limit, at T = 32768. Adding a partial into the
-    sum after every q tile, as the kernel does, holds 1e-5 at both (4.5e-6
-    and 4.6e-6 found)."""
-    rng = np.random.default_rng(12)
+def _emulate_dq_f32_split(q, k, v, do, lse, delta, causal, block=64):
+    """The f32 dq kernel (``flash_dq_sm90<D, 2>``) on the CPU: per 64-key
+    tile, S = Q·Kᵀ and dP = dO·Vᵀ as three bf16 products of the split
+    planes (``_split_product``); P = exp(scale S - lse) where kept and dS =
+    P (dP - delta) in f32; then dS split into hi and lo planes for dq +=
+    dS·K, each tile's three products summed in a partial that is then
+    added into dq (the promotion, one K/V tile a period); dq = scale·dq."""
+    t, d = q.shape[1], q.shape[-1]
+    scale = 1.0 / np.sqrt(d)
+    qf, kf, vf, dof = (x.transpose(1, 2) for x in (q, k, v, do))  # [B, H, T, D]
+    keep = torch.ones(t, t, dtype=torch.bool)
+    if causal:
+        keep = keep.tril()
+    dq = torch.zeros_like(qf)
+    for k0 in range(0, t, block):
+        kt, vt = kf[..., k0:k0 + block, :], vf[..., k0:k0 + block, :]
+        kp = keep[:, k0:k0 + block]  # rows are queries, columns this tile's keys
+        s = _split_product(qf, kt.transpose(-1, -2)) * scale
+        p = torch.where(kp, torch.exp(s - lse[..., None]), torch.tensor(0.0))
+        ds = p * (_split_product(dof, vt.transpose(-1, -2)) - delta[..., None])
+        dq = dq + _split_product(ds, kt)
+    return (dq * scale).transpose(1, 2)
+
+
+@pytest.mark.timeout(120)
+@pytest.mark.parametrize("t", [100, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_f32_split_dq_fits_the_card_limit(t, causal):
+    """The f32 dq kernel takes each f32 product as three bf16 products of
+    hi and lo planes, splits dS in registers and adds each K/V tile's dS·K
+    into dq after a partial. Emulated on the CPU from the forward's lse
+    and delta, dq stays within 2e-5 of max|want| (a fifth of the card's
+    f32 limit, 1e-4) of JAX's Pallas backward (interpret mode) and of the
+    port's plain backward on the same f32 inputs (worst found: 1.7e-5, at
+    T = 256 without the mask)."""
+    q, k, v, do = _inputs(1, t, 2, 64, seed=24)
+    (jdq, _, _), lse, delta = _pallas_bwd(q, k, v, do, causal)
+    args = [torch.from_numpy(a) for a in (q, k, v, do, lse, delta)]
+    got = _emulate_dq_f32_split(*args, causal).numpy()
+    plain = kernels.reference_attention_bwd(*args, causal=causal)[0].numpy()
+    for want in (jdq, plain):
+        err = np.abs(got - want).max() / np.abs(want).max()
+        assert err <= 2e-5 <= F32_LIMIT, err
+
+
+def _promotion_operands(kernel, rng, t):
+    """The two (t, 8) f32 operands of one backward sum over t rows: dk/dv's
+    dSᵀ or Pᵀ against Q or dO, modelled as standard normals; dq's dS
+    against K, dS as P (dP - delta) with P in [0, 1)."""
+    a, b = (rng.standard_normal((t, 8)).astype(np.float32) for _ in range(2))
+    if kernel == "dq":
+        a *= rng.random((t, 8)).astype(np.float32)
+    return a, b
+
+
+@pytest.mark.parametrize("kernel", ["dkv", "dq"])
+def test_dkv_promotion_bounds_a_truncating_accumulator(kernel):
+    """dk and dv sum 4 k16 steps a q tile over every q tile, and dq 4 a
+    K/V tile over every K/V tile: 512 at T = 8192 and 2048 at T = 32768.
+    Under the model of the tensor cores that rounds each wgmma's f32 sum
+    toward zero (``_truncating_sum``), one accumulator's error grows with
+    T: dk/dv 4.3e-5 of max|exact| at T = 8192 and 1.4e-4, over the f32
+    limit, at T = 32768 (dq: 4.5e-5 and 1.3e-4). Adding a partial into the sum after
+    every tile, as the kernels do, holds 1e-5 at both (dk/dv 4.5e-6 and
+    4.6e-6 found, dq 4.9e-6 and 4.6e-6)."""
+    rng = np.random.default_rng(12 if kernel == "dkv" else 13)
     err = {}
     for t in (8192, 32768):
-        a, b = (rng.standard_normal((t, 8)).astype(np.float32) for _ in range(2))
+        a, b = _promotion_operands(kernel, rng, t)
         exact = a.astype(np.float64).T @ b.astype(np.float64)
-        for every in (None, 1):  # one accumulator; a promotion every q tile
+        for every in (None, 1):  # one accumulator; a promotion every tile
             got = _truncating_sum(a, b, every)
             err[t, every] = np.abs(got - exact).max() / np.abs(exact).max()
     assert err[8192, 1] <= 1e-5 and err[32768, 1] <= 1e-5, err
     assert err[8192, 1] < err[8192, None] < F32_LIMIT < err[32768, None], err
+
+
+def test_kernel_operands_take_a_given_split():
+    """A backward's two kernels read the planes of one split pass: given
+    ``planes``, the f32 operands are views of their hi planes in it (each
+    lo plane one [B, T, H, D] on); planes of another count, dtype or layout
+    raise; bf16 operands are read as they are, one plane."""
+    x = [torch.from_numpy(a) for a in _inputs(1, 9, 2, 16, seed=25)]
+    planes = kernels.split_planes(*x)
+    ops, n = kernels._kernel_operands(*x, planes=planes)
+    assert n == 2
+    for op, xi, pl in zip(ops, x, planes):
+        assert op.data_ptr() == pl[0].data_ptr() and op.shape == xi.shape
+        assert op.data_ptr() + 2 * xi.numel() == pl[1].data_ptr()
+        assert torch.equal(op.view(torch.int16), kernels.split_bf16(xi)[0].view(torch.int16))
+    strided = torch.empty((2, 4) + tuple(x[0].shape), dtype=torch.bfloat16).transpose(0, 1)
+    for bad in (planes[:3], planes.float(), strided):
+        with pytest.raises(MXNetError, match="planes"):
+            kernels._kernel_operands(*x, planes=bad)
+    b16 = [a.bfloat16() for a in x]
+    ops, n = kernels._kernel_operands(*b16, planes=planes)
+    assert n == 1 and all(o is a for o, a in zip(ops, b16))
 
 
 @pytest.mark.parametrize("causal", [True, False])
