@@ -4,6 +4,7 @@
     python3 chip_smoke.py [--out results.json]
     python3 chip_smoke.py --only f32_lm --package DIR  # phase 19 and 8 on another tree
     python3 chip_smoke.py --only rtc --package DIR     # K5's push path on another tree
+    python3 chip_smoke.py --only slab --package DIR    # phases 16-18 and K1's times there
 
 
 Phases, each fatal on failure:
@@ -156,37 +157,54 @@ Phases, each fatal on failure:
     long enough to cover the enqueue); one launch on the largest parameter
     array against its bound; phase 14's forward + backward ms.
 
-16. Optimizer-slab kernel K1 (``fused_slab_update``) against its plain
-    version: sgd, sgd_mom and adam, bf16 and f32 gradients, clipping on and
-    off, a finite and a skipped step, at S = 131, 1024, 5000, 2,359,296 and
-    every bucket size of ResNet-50's AMP plan at dp 4: master, states and
-    the bf16 copy bit for bit (the kernel rounds each operation once, as
-    each PyTorch op of the plain version does), a skipped step returns its
-    inputs bit for bit, a repeat gives the same bits; one launch under
-    ``torch.cuda.set_sync_debug_mode("error")`` shows the wrapper never
-    waits for the device. Then the time of one step's K1 launches over
-    ResNet-50's buckets (sgd_mom, bf16 gradient; CUDA events, L2 flushed
-    before each launch), the plain version's, and the bound: 20 bytes an
-    element at 3.35 TB/s.
+16. Optimizer-slab kernel K1 against its plain version: one slab
+    (``fused_slab_update``, a table of one) for sgd, sgd_mom and adam, bf16
+    and f32 gradients, clipping on and off, a finite and a skipped step, at
+    S = 131, 1024, 5000, 2,359,296 and every bucket size of ResNet-50's AMP
+    plan at dp 4; then tables in one call (``fused_slab_update_multi``):
+    ResNet-50's 16 buckets and seven slabs of 1-7 elements at offsets 1-3
+    off the 16-byte boundary, each with its own lr (one a device tensor)
+    and wd, for each kind and gradient type, finite and skipped, with and
+    without clipping, and replicated mode's 64 dp chunks of the buckets with
+    the small slabs (71 slabs, three launches): master, states and the bf16
+    copy bit for bit (the kernel rounds each operation once, as each
+    PyTorch op of the plain version does), a skipped step returns its
+    inputs bit for bit, a repeat gives the same bits, a call takes one
+    launch a table of up to 32 slabs; one launch
+    of each wrapper under ``torch.cuda.set_sync_debug_mode("error")`` (the
+    table's in place, with host lrs, as the trainer makes it) shows neither
+    waits for the device. Then K1's kernels-line entry: one step's update
+    over ResNet-50's 16 buckets as the trainer hands it over (sgd_mom, bf16
+    gradient, in place): ``ms`` (CUDA events, L2 flushed), ``device_ms``
+    (after a sleep kernel), ``host_ms`` (the enqueue), the plain version's
+    device ms, the bound (20 bytes an element at 3.35 TB/s) in total and a
+    bucket beside each bucket's one-slab call, the card time of K1 in phase
+    17's profile, and the trainer's whole AMP update
+    (``_apply_optimizer_flat_amp`` on phase 17's plan: gradient slabs,
+    finite flag, K1, loss scaler) timed the same way. ``--only slab`` runs
+    the build of K1, phases 16-18 and this entry on any tree's package
+    (``--package``; a tree without the table wrapper takes one call a
+    bucket), so that a parent and a change are timed in one call.
 17. ResNet-50 through ``Module.fit`` with bf16 AMP (main path 5): the
     imagenet ResNet-50 at batch 32, ``Module(context=mx.gpu(0),
     mesh=make_mesh(dp=4, devices=[mx.gpu(0)] * 4))``, ``kvstore="device"``,
     SGD (lr 0.1, momentum 0.9, wd 1e-4), Xavier, ``MXTPU_AMP=bf16``, over an
     NDArrayIter of 8 seeded batches: AMP on and the flat update in shard
-    mode; K1 launched once per bucket a step, K2 and K3 46 times a step
-    (counts zeroed just before ``fit``); every working param bf16 and equal
-    to bf16(master), ``get_params`` f32 and equal to the masters; every
-    loss finite, the loss scale unchanged and the good count 8. Then a
-    batch poisoned with inf leaves params, masters and states bit for bit,
-    halves the scale and zeroes the count, and a clean step after it
-    updates. Step ms (median of steps 3-8), img/s, peak memory; then two
-    more steps under torch.profiler: wall and device-busy ms a step, the
-    idle share, kernels a step and device ms per kernel family.
+    mode; K1 launched once a step over the 16 buckets, K2 and K3 46 times a
+    step (counts zeroed just before ``fit``); every working param bf16 and
+    equal to bf16(master), ``get_params`` f32 and equal to the masters;
+    every loss finite, the loss scale unchanged and the good count 8. Then a
+    batch poisoned with inf (one K1 launch) leaves params, masters and
+    states bit for bit, halves the scale and zeroes the count, and a clean
+    step after it updates. Step ms (median of steps 3-8), img/s, peak
+    memory; then two more steps under torch.profiler: wall and device-busy
+    ms a step, the idle share, kernels a step and device ms per kernel
+    family.
 18. Convergence on the card (the verify skill's drive 1): 10 seeded
     gaussian blobs in 784 dimensions, ``models/mlp.py``, 3 epochs; (a) on
     ``gpu(0)`` with ``kvstore="local"`` (the executor-group path), (b) on
-    the dp 4 mesh with AMP and Adam (K1's adam variant): validation
-    accuracy at least 0.97 in both.
+    the dp 4 mesh with AMP and Adam (K1's adam variant, one launch a step):
+    validation accuracy at least 0.97 in both.
 
 19. training, f32 (main path 6; run after phase 7): phase 7 with the
     trainer's default dtype, f32 (the same full model, batch 8, T 2047,
@@ -1657,6 +1675,7 @@ def phase_rtc_push(mx, rk, resnet, dev):
 SLAB_SIZES = (131, 1024, 5000, 2359296)
 SLAB_KW = dict(wd=1e-4, rescale_grad=1.0 / RESNET_BATCH, momentum=0.9, beta1=0.9,
                beta2=0.999, epsilon=1e-8)
+SLAB_STATICS = {k: v for k, v in SLAB_KW.items() if k != "wd"}  # a table's wd is per slab
 FIT_BATCHES = 8
 BLOBS = dict(classes=10, dim=784, train=2000, val=500, batch=100, epochs=3)
 
@@ -1735,6 +1754,130 @@ def device_ms(fn, reps, warmup, flush, sleep_cycles=1_000_000):
     return statistics.median(times)
 
 
+def slab_launches_a_step(kernels, slabs):
+    """K1's launches for one update over ``slabs`` slabs: one for every
+    table of ``SLAB_TABLE_CAP`` where the package has the table wrapper,
+    else one a slab (older trees, run through ``--package``)."""
+    cap = getattr(kernels, "SLAB_TABLE_CAP", None)
+    return -(-slabs // cap) if cap else slabs
+
+
+def slab_table(kernels, kind, g_dtype, plan, dev, gen, chunks=1):
+    """One step's table for phase 16: ResNet-50's AMP buckets (each whole,
+    or as its ``chunks`` dp chunks, which begin at multiples of padded /
+    chunks: replicated mode's entries) and seven entries of 1-7 elements
+    at offsets 1-3 off the 16-byte boundary, each with its own lr (one a
+    device tensor) and wd; random masters, states and gradients from the
+    device generator ``gen`` (Adam's second moment non-negative)."""
+    import torch
+
+    def rand(n, scale=1.0, dtype=torch.float32, offset=0):
+        buf = torch.randn(n + offset, generator=gen, device=dev) * scale
+        return buf.to(dtype)[offset:]
+
+    slots = kernels.SLAB_STATE_SLOTS[kind]
+    slabs = []
+    for b in plan.buckets:
+        w, g = rand(b.padded), rand(b.padded, 4.0, g_dtype)
+        states = [rand(b.padded, 0.1) for _ in range(slots)]
+        s = b.padded // chunks
+        slabs += [(w[c * s:(c + 1) * s], g[c * s:(c + 1) * s],
+                   [x[c * s:(c + 1) * s] for x in states]) for c in range(chunks)]
+    for n in range(1, 8):
+        off = 1 + n % 3
+        slabs.append((rand(n, offset=off), rand(n, 4.0, g_dtype, off),
+                      [rand(n, 0.1, offset=off) for _ in range(slots)]))
+    entries = []
+    for i, (w, g, states) in enumerate(slabs):
+        if kind == "adam":
+            states[1] = states[1].abs()
+        lr = torch.full((), 0.07, device=dev) if i == 1 else 0.1 * (1 + i % 3) / 2
+        entries.append(kernels.SlabEntry(w, g, tuple(states), lr, (0.0, 1e-4, 5e-4)[i % 3]))
+    return entries
+
+
+def slab_outputs(result):
+    new_w, new_states, w16 = result
+    return (new_w, *new_states, w16)
+
+
+def phase_slab_table_checks(kernels, dev, plan):
+    """Phase 16's table cases: K1 over ``slab_table`` in one call, against
+    the plain version of the table, bit for bit; a repeat; a skipped step;
+    the launches a call; replicated mode's 64 chunks with the small slabs
+    (71 slabs, three launches); one call in place under sync debug mode
+    'error'."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    cases, worst, shapes = 0, 0.0, {}
+    tables = [(kind, g_dtype, 1) for kind in ("sgd", "sgd_mom", "adam")
+              for g_dtype in (torch.bfloat16, torch.float32)] + [("sgd_mom", torch.bfloat16, 4)]
+    for kind, g_dtype, chunks in tables:
+        entries = slab_table(kernels, kind, g_dtype, plan, dev, gen, chunks)
+        shapes[len(entries)] = slab_launches_a_step(kernels, len(entries))
+        for finite in (1.0, 0.0):
+            for clip in (None, 0.05):
+                args = (kind, entries, torch.full((), 1.0 / 128, device=dev),
+                        torch.full((), finite, device=dev))
+                before = kernels.fused_slab_update.launches
+                got = kernels.fused_slab_update_multi(*args, clip_gradient=clip, **SLAB_STATICS)
+                again = kernels.fused_slab_update_multi(*args, clip_gradient=clip,
+                                                        **SLAB_STATICS)
+                launched = kernels.fused_slab_update.launches - before
+                want = kernels.slab_update_multi_reference(*args, clip_gradient=clip,
+                                                           **SLAB_STATICS)
+                torch.cuda.synchronize()
+                if launched != 2 * slab_launches_a_step(kernels, len(entries)):
+                    raise AssertionError("slab_update_multi: %d launches for two calls over %d "
+                                         "slabs" % (launched, len(entries)))
+                for e, r, w_, a in zip(entries, got, want, again):
+                    for x, y, z in zip(slab_outputs(r), slab_outputs(w_), slab_outputs(a)):
+                        err = (x.float() - y.float()).abs().max().item()
+                        worst = max(worst, err)
+                        if not torch.equal(x, y):
+                            raise AssertionError(
+                                "slab_update_multi %s g %s S=%d finite %s clip %s: %.3g from "
+                                "the plain version" % (kind, g_dtype, e.w.shape[0], finite, clip,
+                                                       err))
+                        if not torch.equal(x, z):
+                            raise AssertionError("slab_update_multi is not bitwise repeatable")
+                    if finite == 0.0 and not (
+                            torch.equal(r[0], e.w)
+                            and all(torch.equal(x, y) for x, y in zip(r[1], e.states))
+                            and torch.equal(r[2], e.w.to(torch.bfloat16))):
+                        raise AssertionError("slab_update_multi changed a skipped step's bits")
+                cases += 1
+        del entries, got, again, want
+    # one step's call as the trainer makes it (in place, host lrs, device
+    # inv_scale and finite), which must never wait for the device
+    entries = [kernels.SlabEntry(e.w, e.g, e.states, float(0.05 * (1 + i % 2)), e.wd,
+                                 (e.w, e.states, torch.empty_like(e.w, dtype=torch.bfloat16)))
+               for i, e in enumerate(slab_table(kernels, "sgd_mom", torch.bfloat16, plan, dev,
+                                                gen))]
+    copy = [kernels.SlabEntry(e.w.clone(), e.g, tuple(x.clone() for x in e.states), e.lr, e.wd)
+            for e in entries]
+    inv, fin = torch.full((), 1.0 / 128, device=dev), torch.ones((), device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kernels.fused_slab_update_multi("sgd_mom", entries, inv, fin, clip_gradient=None,
+                                        **SLAB_STATICS)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = kernels.slab_update_multi_reference("sgd_mom", copy, inv, fin, clip_gradient=None,
+                                               **SLAB_STATICS)
+    torch.cuda.synchronize()
+    for e, w_ in zip(entries, want):
+        if not all(torch.equal(x, y) for x, y in zip((e.w, *e.states, e.out[2]),
+                                                      slab_outputs(w_))):
+            raise AssertionError("slab_update_multi in place differs from the plain version")
+    log("phase 16: slab_update_multi (K1 over a table) vs plain bit for bit over %d cases "
+        "(slabs: launches a call %s), max_abs_err %.3g; a call in place under sync debug mode "
+        "'error' ran" % (cases, json.dumps(shapes), worst))
+    return {"table_cases": cases, "launches_a_call": shapes, "table_max_abs_err": worst}
+
+
 def phase_slab_checks(kernels, dev, plan):
     import torch
 
@@ -1785,57 +1928,133 @@ def phase_slab_checks(kernels, dev, plan):
     log("phase 16: slab_update (K1) vs plain bit for bit over %d cases, %d sizes (%d buckets of "
         "ResNet-50's AMP plan), max_abs_err %.3g; a launch under sync debug mode 'error' ran"
         % (cases, len(sizes), len(plan.buckets), worst))
-    return {"cases": cases, "sizes": sizes, "max_abs_err": worst}
+    res = {"cases": cases, "sizes": sizes, "max_abs_err": worst}
+    if hasattr(kernels, "fused_slab_update_multi"):
+        res.update(phase_slab_table_checks(kernels, dev, plan))
+        res["max_abs_err"] = max(worst, res["table_max_abs_err"])
+    return res
 
 
-def phase_slab_times(kernels, dev, plan, launches, checks):
-    """Kernels-line entry of K1: one step's launches over ResNet-50's AMP
-    buckets (sgd_mom, bf16 gradient), kernel and plain."""
+def k1_step(kernels, plan, dev, rng):
+    """One step's K1 work on ResNet-50's AMP plan as the trainer hands it
+    over (sgd_mom, bf16 gradient, in place, each bucket's lr and wd host
+    numbers, inv_scale and finite device scalars): one table call where the
+    package has the table wrapper, else one call a bucket. Returns the
+    callable, its plain version (one ``slab_update_reference`` a bucket)
+    and each bucket's one-slab call."""
+    import torch
+
+    inv, fin = torch.full((), 1.0 / 32768, device=dev), torch.ones((), device=dev)
+    slabs = []
+    for b in plan.buckets:
+        w, g, states = slab_case(kernels, "sgd_mom", b.padded, torch.bfloat16, dev, rng)
+        slabs.append((w, g, states, torch.empty(b.padded, dtype=torch.bfloat16, device=dev)))
+    singles = [lambda s=s: kernels.fused_slab_update(
+        "sgd_mom", s[0], s[1], s[2], 0.1, inv, fin, clip_gradient=None, out=(s[0], s[2], s[3]),
+        **SLAB_KW) for s in slabs]
+    plain = [lambda s=s: kernels.slab_update_reference(
+        "sgd_mom", s[0], s[1], s[2], 0.1, inv, fin, clip_gradient=None, **SLAB_KW)
+        for s in slabs]
+    if hasattr(kernels, "fused_slab_update_multi"):
+        entries = [kernels.SlabEntry(w, g, states, 0.1, SLAB_KW["wd"], (w, states, w16))
+                   for w, g, states, w16 in slabs]
+
+        def step():
+            kernels.fused_slab_update_multi("sgd_mom", entries, inv, fin, clip_gradient=None,
+                                            **SLAB_STATICS)
+    else:
+        def step():
+            for fn in singles:
+                fn()
+    return step, (lambda: [fn() for fn in plain]), singles
+
+
+def phase_slab_times(kernels, dev, plan, launches, checks, fit):
+    """Kernels-line entry of K1: one step's update over ResNet-50's 16 AMP
+    buckets (``k1_step``): ``ms`` (events around the call, L2 flushed),
+    ``device_ms`` (after a ~5 ms sleep kernel: the card alone),
+    ``host_ms`` (the enqueue), the plain version's device ms, the bound in
+    total and a bucket (with each bucket's one-slab call), the in-step card
+    time from phase 17's profile and the trainer's whole update beside it."""
     import torch
 
     rng = np.random.default_rng(11)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
-    ms = {"kernel": 0.0, "plain": 0.0}
-    rows, calls = [], []
-    for b in plan.buckets:
-        w, g, states = slab_case(kernels, "sgd_mom", b.padded, torch.bfloat16, dev, rng)
-        w16 = torch.empty(b.padded, dtype=torch.bfloat16, device=dev)
-        args = ("sgd_mom", w, g, states, 0.1, 1.0 / 32768, 1.0)
-        kern = (lambda args=args, states=states, w16=w16: kernels.fused_slab_update(
-            *args, clip_gradient=None, out=(args[1], states, w16), **SLAB_KW))
-        k = device_ms(kern, 20, 3, flush)
-        p = device_ms(lambda args=args: kernels.slab_update_reference(
-            *args, clip_gradient=None, **SLAB_KW), 10, 2, flush)
-        ms["kernel"] += k
-        ms["plain"] += p
-        calls.append(kern)
-        rows.append({"padded": b.padded, "ms": k, "plain_ms": p,
-                     "bound_ms": 20.0 * b.padded / PEAK_BYTES * 1e3})
-    # the host's side of a step's launches: enqueue wall time, no sync
-    host = []
-    for _ in range(10):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for kern in calls:
-            kern()
-        host.append(time.perf_counter() - t0)
-    torch.cuda.synchronize()
+    step, plain, singles = k1_step(kernels, plan, dev, rng)
+    before = kernels.fused_slab_update.launches
+    step()
+    step_launches = kernels.fused_slab_update.launches - before
+    ms = time_ms(step, 20, 3, flush)
+    dev_ms = device_ms(step, 20, 3, flush, sleep_cycles=10_000_000)
+    host = host_ms(step, 20, 3)
+    plain_ms = device_ms(plain, 10, 2, flush, sleep_cycles=10_000_000)
+    rows = [{"padded": b.padded, "one_slab_device_ms": device_ms(fn, 10, 2, flush),
+             "bound_ms": 20.0 * b.padded / PEAK_BYTES * 1e3}
+            for b, fn in zip(plan.buckets, singles)]
     elems = sum(b.padded for b in plan.buckets)
     nbytes = 20.0 * elems  # read w 4, g 2, mom 4; write w 4, mom 4, w16 2
+    bound = nbytes / PEAK_BYTES * 1e3
+    in_step = fit["profile"]["families_per_step"].get("slab_update", {})
     entry = {
         "name": "slab_update", "route": "cuda", "source": "mxnet_tpu_torch/csrc/slab_update.cu",
         "replaces": "mxnet_tpu/ops/pallas_kernels.py:582", "launches": launches,
-        "max_abs_err": checks["max_abs_err"], "ms": ms["kernel"], "kernel_ms": ms["kernel"],
-        "plain_ms": ms["plain"], "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
-        "library_ms": None,
+        "max_abs_err": checks["max_abs_err"], "ms": ms, "device_ms": dev_ms, "host_ms": host,
+        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
         "library_note": "none: no single PyTorch call computes this update (torch's fused "
                         "optimizers use other formulas and write no bf16 copy)",
-        "per": "one step: %d launches (sgd_mom, bf16 gradient) over ResNet-50's %d AMP buckets "
-               "at dp 4, %d elements" % (len(plan.buckets), len(plan.buckets), elems),
-        "bytes": nbytes, "host_ms_per_step": 1e3 * statistics.median(host), "buckets": rows,
+        "per": "one step: %d launch(es) (sgd_mom, bf16 gradient, in place) over ResNet-50's %d "
+               "AMP buckets at dp 4, %d elements" % (step_launches, len(plan.buckets), elems),
+        "launches_a_step": step_launches, "bytes": nbytes,
+        "share_of_bound": bound / dev_ms, "in_step_device_ms": in_step.get("device_ms"),
+        "in_step_launches": in_step.get("count"), "trainer_update": fit["update_times"],
+        "buckets": rows,
     }
     log("  slab_update %s" % json.dumps(entry))
     return [entry]
+
+
+def phase_trainer_update_times(mod, kernels, dev):
+    """The trainer's whole AMP update (``_apply_optimizer_flat_amp``: the
+    gradient slabs, the finite flag, K1, the loss scaler) on phase 17's
+    plan, on copies of its state, with random bf16 gradients (finite at its
+    loss scale): ``ms`` (events, L2 flushed), ``device_ms`` (after a ~10 ms
+    sleep kernel), ``host_ms`` (the enqueue) and K1's launches a call."""
+    import torch
+
+    tr, owner = mod._fused_trainer, mod._fused_owner
+    params = dict(owner._fused_params)
+    opt = {k: (tuple(x.clone() for x in v) if isinstance(v, tuple) else
+               v.clone() if torch.is_tensor(v) else v) for k, v in owner._fused_opt.items()}
+    gen = torch.Generator(device=dev).manual_seed(17)
+    grads = {n: torch.randn(p.shape, generator=gen, device=dev).to(torch.bfloat16)
+             for n, p in params.items()}
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+
+    def update():
+        with torch.no_grad():
+            tr._apply_optimizer_flat_amp(params, grads, opt, SGD["lr"], 10)
+
+    before = kernels.fused_slab_update.launches
+    update()
+    launched = kernels.fused_slab_update.launches - before
+    return {"ms": time_ms(update, 10, 2, flush),
+            "device_ms": device_ms(update, 10, 2, flush, sleep_cycles=20_000_000),
+            "host_ms": host_ms(update, 10, 2), "k1_launches_a_call": launched}
+
+
+def phase_slab_path(mx, resnet, kernels, dev, results):
+    """Phases 16-18 and K1's kernels-line entry (``results["k1_entry"]``),
+    as the full run and ``--only slab`` run them."""
+    plan = resnet50_amp_plan(mx, resnet)
+    results["slab_checks"] = phase_slab_checks(kernels, dev, plan)
+    results["fit_resnet_amp"] = fit = phase_fit_resnet_amp(mx, kernels, dev, plan)
+    results["convergence"] = conv = phase_convergence(mx, kernels, dev)
+    by_path = {"fit_resnet_amp": fit["launches"]["slab_update"],
+               "convergence_adam": conv["b"]["slab_update_launches"]}
+    k1 = phase_slab_times(kernels, dev, plan, sum(by_path.values()), results["slab_checks"], fit)[0]
+    k1["launches_by_path"] = by_path
+    k1["share_of_phase17_step"] = k1["ms"] / fit["step_ms_median_steps_3_8"]
+    results["k1_entry"] = k1
 
 
 def _amp_env(on):
@@ -1887,8 +2106,10 @@ def phase_fit_resnet_amp(mx, kernels, dev, plan):
     buckets = len(tr._flat_plan.buckets)
     assert tr.amp and tr.flat_mode == "shard", (tr.amp, tr.flat_mode)
     assert [b.padded for b in tr._flat_plan.buckets] == [b.padded for b in plan.buckets]
+    # K1: one launch a step over every bucket (older trees: one a bucket)
     want = {"conv_bwd_filter": RESNET_CONVS * FIT_BATCHES,
-            "conv_bwd_input": RESNET_CONVS * FIT_BATCHES, "slab_update": buckets * FIT_BATCHES}
+            "conv_bwd_input": RESNET_CONVS * FIT_BATCHES,
+            "slab_update": slab_launches_a_step(kernels, buckets) * FIT_BATCHES}
     assert counts == want, (counts, want)
     assert len(losses) == FIT_BATCHES and all(np.isfinite(losses)), losses
     masters = tr.master_params_named(owner._fused_opt)
@@ -1916,9 +2137,11 @@ def phase_fit_resnet_amp(mx, kernels, dev, plan):
     batch = next(iter(it))
     bad = mx.io.DataBatch([batch.data[0].copy()], batch.label)
     bad.data[0]._data[0, 0, 0, 0] = float("inf")
+    before = kernels.fused_slab_update.launches
     mod.forward_backward(bad)
     mod.update()
     torch.cuda.synchronize()
+    assert kernels.fused_slab_update.launches - before == slab_launches_a_step(kernels, buckets)
     for k, v in owner._fused_params.items():
         assert torch.equal(v, snap["params"][k]), "param %s changed on a skipped step" % k
     for k, v in owner._fused_opt.items():
@@ -1934,6 +2157,7 @@ def phase_fit_resnet_amp(mx, kernels, dev, plan):
     res["poisoned_step"] = {"skipped_bitwise": True, "scale_after": scale / 2,
                             "params_changed_by_next_clean_step": changed}
     res["profile"] = profile_fit_steps(mod, batch)
+    res["update_times"] = phase_trainer_update_times(mod, kernels, dev)
     log("phase 17: ResNet-50 Module.fit, bf16 AMP, dp 4 mesh on gpu(0): %s" % json.dumps(res))
     return res
 
@@ -2021,7 +2245,8 @@ def phase_convergence(mx, kernels, dev):
         if leg == "b":
             steps = BLOBS["epochs"] * BLOBS["train"] // BLOBS["batch"]
             assert tr.amp and tr.flat_mode == "shard" and tr._slab_kind() == "adam"
-            assert res[leg]["slab_update_launches"] == len(tr._flat_plan.buckets) * steps, res
+            assert res[leg]["slab_update_launches"] == steps * slab_launches_a_step(
+                kernels, len(tr._flat_plan.buckets)), res
         else:
             assert tr is None
         assert acc >= 0.97, (leg, acc)
@@ -2034,9 +2259,10 @@ def main(argv=None):
     ap.add_argument("--out", help="also write every phase's numbers to this JSON file")
     ap.add_argument("--package", help="import mxnet_tpu_torch from this checkout instead of the "
                     "one beside this script (to run this script's phases on another tree)")
-    ap.add_argument("--only", choices=("f32_lm", "rtc"),
+    ap.add_argument("--only", choices=("f32_lm", "rtc", "slab"),
                     help="f32_lm: build, phase 19 and phase 8's attention kernel times only; "
-                    "rtc: K5's push path on ResNet-50's parameter arrays only")
+                    "rtc: K5's push path on ResNet-50's parameter arrays only; slab: K1's "
+                    "build, phases 16-18 and K1's times only")
     args = ap.parse_args(argv)
 
     import torch
@@ -2077,6 +2303,12 @@ def main(argv=None):
         results["kernels"] = (
             phase_kernel_times(kernels, dev, 0, f32_launches["flash_attn_fwd"])
             + phase_bwd_times(kernels, dev, bf16_launches, f32_launches))
+    if args.only == "slab":
+        t0 = time.perf_counter()
+        _build.build(["slab_update"])
+        results["build_s"] = time.perf_counter() - t0
+        phase_slab_path(mx, resnet, kernels, dev, results)
+        results["kernels"] = [results.pop("k1_entry")]
     if args.only:
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -2111,14 +2343,9 @@ def main(argv=None):
     torch.backends.cudnn.deterministic = False
     conv_launches = {name: conv_launches[name] + results["rtc_training"]["launches"][name]
                      for name in conv_launches}
-    plan = resnet50_amp_plan(mx, resnet)
-    results["slab_checks"] = phase_slab_checks(kernels, dev, plan)
-    results["fit_resnet_amp"] = phase_fit_resnet_amp(mx, kernels, dev, plan)
+    phase_slab_path(mx, resnet, kernels, dev, results)
     conv_launches = {name: conv_launches[name] + results["fit_resnet_amp"]["launches"][name]
                      for name in conv_launches}
-    results["convergence"] = phase_convergence(mx, kernels, dev)
-    slab_launches = (results["fit_resnet_amp"]["launches"]["slab_update"]
-                     + results["convergence"]["b"]["slab_update_launches"])
     # the f32 kernels' launches in phases 4, 5 and 19
     f32_launches = {name: n + results["training_f32_full"]["launches"][name]
                     for name, n in results["training_f32"]["launches"].items()}
@@ -2132,13 +2359,8 @@ def main(argv=None):
     kernel_line = {"kernels": fwd + phase_bwd_times(kernels, dev, train_launches, f32_launches)
                    + phase_conv_times(kernels, resnet, dev, conv_launches, conv_errs)
                    + phase_rtc_times(mx, rk, rtc_runs, results["rtc_training"], dev)
-                   + phase_slab_times(kernels, dev, plan, slab_launches,
-                                      results["slab_checks"]),
+                   + [results.pop("k1_entry")],
                    "card": card}
-    k1 = kernel_line["kernels"][-1]
-    k1["launches_by_path"] = {"fit_resnet_amp": results["fit_resnet_amp"]["launches"][
-        "slab_update"], "convergence_adam": results["convergence"]["b"]["slab_update_launches"]}
-    k1["share_of_phase17_step"] = k1["ms"] / results["fit_resnet_amp"]["step_ms_median_steps_3_8"]
     results.update(kernel_line)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -55,8 +55,7 @@ KERNELS = {
     "conv_channels_last": (
         "conv_bwd.cu", "mxtt_conv_channels_last", [_P, _P] + [_I] * 4 + [_P]),
     "slab_update": (
-        "slab_update.cu", "mxtt_slab_update",
-        [_I, _I] + [_P] * 9 + [_L] + [_F] * 9 + [_I] * 4 + [_P]),
+        "slab_update.cu", "mxtt_slab_update", [_I, _I, _P, _P, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

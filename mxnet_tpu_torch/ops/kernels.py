@@ -30,14 +30,20 @@ as three bf16 products, whose plain versions are ``conv_dgrad_layout``
 channels-last copy once (``conv_grad_channels_last``) and hands it to
 both.
 
-``fused_slab_update`` (K1) wraps ``csrc/slab_update.cu``: one bf16-AMP
-optimizer step (sgd, sgd_mom, adam) over a flat slab with a finite select
-and a bf16 weight copy; ``slab_update_reference`` is its plain version.
+``fused_slab_update_multi`` (K1) wraps ``csrc/slab_update.cu``: one
+bf16-AMP optimizer step (sgd, sgd_mom, adam) over a table of flat slabs in
+one launch, with a finite select and a bf16 weight copy;
+``fused_slab_update`` is the same on one slab (the JAX signature), and
+``slab_update_reference`` / ``slab_update_multi_reference`` are their plain
+versions.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import functools
 import math
+import struct
 from collections.abc import Mapping
 
 import torch
@@ -808,17 +814,36 @@ def conv2d_kernel_bwd(data, weight, pad):
 
 # ---------------------------------------------------------------------------
 # K1 ``fused_slab_update`` (counterpart of ``pallas_kernels.py:451-597``):
-# one AMP optimizer step over a flat 1-D slab, hand-written CUDA in
-# ``csrc/slab_update.cu``; ``slab_update_reference`` is its plain version.
+# one AMP optimizer step over flat 1-D slabs, hand-written CUDA in
+# ``csrc/slab_update.cu``: one launch for a table of up to
+# ``SLAB_TABLE_CAP`` slabs (``fused_slab_update_multi``; a standalone slab
+# is a table of one). ``slab_update_reference`` is its plain version, and
+# ``slab_update_multi_reference`` that of a table.
 # ---------------------------------------------------------------------------
 SLAB_STATE_SLOTS = {"sgd": 0, "sgd_mom": 1, "adam": 2}
+SLAB_TABLE_CAP = 32  # slabs a launch (kMaxEntries): the table rides in the parameter block
 _SLAB_KIND_CODE = {"sgd": 0, "sgd_mom": 1, "adam": 2}
-_SLAB_THREADS = 256
+_SLAB_TILE = 2048  # elements a CTA tile (kTile): 256 threads, two 4-element vectors each
+_SLAB_CTAS_PER_SM = 4
+# the rows of csrc/slab_update.cu: SlabEntry (8 slab pointers, the lr pointer,
+# n, tile0, head, lr value, wd, has_wd, pad) and SlabShared (the inv_scale and
+# finite pointers, their values, the eight hyperparameters, has_rescale,
+# has_clip, n_entries, n_tiles)
+_SLAB_ENTRY = struct.Struct("<9Qq2i2f2i")
+_SLAB_SHARED = struct.Struct("<2Q10f4i")
+_SM_COUNT = {}
+
+SlabEntry = collections.namedtuple("SlabEntry", "w g states lr wd out", defaults=(None,))
+SlabEntry.__doc__ = """One slab of :func:`fused_slab_update_multi`: master ``w``
+(S,) f32, gradient ``g`` (S,) bf16 or f32, ``states`` as the kind takes them,
+the step's ``lr`` (a number or a one-element f32 tensor) and ``wd`` (a
+number); ``out = (w_out, states_out, w16_out)`` receives the results (they may
+be ``w`` and ``states`` themselves), else they are allocated."""
 
 
 def _as_f32(x, device):
     """A Python number or a one-element tensor as a 0-d f32 tensor on
-    ``device``; a number goes through a fill kernel, never a host copy."""
+    ``device`` (the plain version's scalars)."""
     if torch.is_tensor(x):
         return x.reshape(()).to(device=device, dtype=torch.float32)
     return torch.full((), float(x), dtype=torch.float32, device=device)
@@ -863,26 +888,223 @@ def slab_update_reference(kind, w, g, states, lr, inv_scale, finite, *, wd, resc
     return new_w, new_states, new_w.to(torch.bfloat16)
 
 
-def _check_slab_args(kind, w, g, states, out):
+def _write_out(out, result):
+    out[0].copy_(result[0])
+    for o, s in zip(out[1], result[1]):
+        o.copy_(s)
+    out[2].copy_(result[2])
+    return out[0], tuple(out[1]), out[2]
+
+
+def slab_update_multi_reference(kind, entries, inv_scale, finite, **statics):
+    """Plain version of a table of slabs: :func:`slab_update_reference` on
+    each :class:`SlabEntry` in order, with its own ``lr`` and ``wd`` and the
+    shared ``statics`` (``rescale_grad``, ``clip_gradient``, ``momentum``,
+    ``beta1``, ``beta2``, ``epsilon``), written to its ``out`` where given.
+    Returns one ``(new_w, new_states, w16)`` an entry."""
+    results = []
+    for e in entries:
+        res = slab_update_reference(kind, e.w, e.g, tuple(e.states), e.lr, inv_scale, finite,
+                                    wd=e.wd, **statics)
+        results.append(res if e.out is None else _write_out(e.out, res))
+    return results
+
+
+def _slab_bad(i, kind, entry, out, dev, g_dtype):
+    """The error for slab ``i`` of a table, naming its first bad tensor."""
+    f32 = torch.float32
+    named = [("w", entry.w, f32), ("g", entry.g, g_dtype), ("out w", out[0], f32),
+             ("out w16", out[2], torch.bfloat16)]
+    named += [("state %d" % j, s, f32) for j, s in enumerate(entry.states)]
+    named += [("out state %d" % j, s, f32) for j, s in enumerate(out[1])]
+    n = entry.w.shape[0] if entry.w.dim() == 1 else -1
+    for name, x, dtype in named:
+        if not (x.get_device() == dev and x.dtype is dtype and x.dim() == 1
+                and x.shape[0] == n and x.is_contiguous()):
+            break
+    return MXNetError("fused_slab_update: slab %d's %s must be a 1-D %s tensor of %d elements "
+                      "with stride 1 on cuda:%d (%s; one gradient dtype a table), got %s %s "
+                      "with strides %s on %s" % (i, name, dtype, n, dev, kind, x.dtype,
+                                                 tuple(x.shape), x.stride(), x.device))
+
+
+def _slab_scalar(x, dev, name):
+    """``(pointer, value)`` of a per-step scalar in the table: a one-element
+    f32 tensor on the slabs' device is read through its pointer, a number
+    (or a CPU tensor) goes into the launch as its value."""
+    if not torch.is_tensor(x):
+        return 0, float(x)
+    if x.device.type == "cpu":
+        return 0, float(x)
+    if x.get_device() != dev or x.dtype is not torch.float32 or x.numel() != 1:
+        raise MXNetError("fused_slab_update: %s must be a number or a one-element float32 "
+                         "tensor on cuda:%d, got %s %s on %s"
+                         % (name, dev, x.dtype, tuple(x.shape), x.device))
+    return x.data_ptr(), 0.0
+
+
+def _slab_table(kind, entries):
+    """One pass over a table of :class:`SlabEntry`: checks every slab (one
+    CUDA device, dtypes, length, stride 1; one gradient dtype for the
+    table), allocates the outputs an entry lacks, and lays each non-empty
+    slab out as the kernel's row. Returns ``(device index, gradient is bf16,
+    results, rows)``: ``results`` one ``(new_w, new_states, w16)`` an entry,
+    ``rows`` one ``[pointers (8), n, head, tiles, lr, wd]`` a non-empty slab
+    (``head``: elements before the first 16-byte boundary, -1 where the
+    operands are misaligned against each other; ``lr`` the entry's own, a
+    number or a tensor)."""
     if kind not in SLAB_STATE_SLOTS:
         raise MXNetError("fused_slab_update: unknown kind %r (sgd, sgd_mom, adam)" % (kind,))
-    if len(states) != SLAB_STATE_SLOTS[kind]:
-        raise MXNetError("fused_slab_update: %s takes %d state slabs, got %d"
-                         % (kind, SLAB_STATE_SLOTS[kind], len(states)))
-    tensors = [("w", w, (torch.float32,)), ("g", g, (torch.bfloat16, torch.float32))]
-    tensors += [("state %d" % i, s, (torch.float32,)) for i, s in enumerate(states)]
-    if out is not None:
-        tensors += [("out w", out[0], (torch.float32,)), ("out w16", out[2], (torch.bfloat16,))]
-        tensors += [("out state %d" % i, s, (torch.float32,)) for i, s in enumerate(out[1])]
-    for name, x, dtypes in tensors:
-        if x.device.type != "cuda" or x.device != w.device:
-            raise MXNetError("fused_slab_update wants every slab on one CUDA device; %s is on "
-                             "%s, w on %s" % (name, x.device, w.device))
-        if x.dtype not in dtypes or x.dim() != 1 or not x.is_contiguous() \
-                or x.shape[0] != w.shape[0]:
-            raise MXNetError("fused_slab_update wants %s as a contiguous 1-D %s slab of %d "
-                             "elements, got %s %s" % (name, "/".join(map(str, dtypes)),
-                                                      w.shape[0], x.dtype, tuple(x.shape)))
+    slots = SLAB_STATE_SLOTS[kind]
+    f32, bf16 = torch.float32, torch.bfloat16
+    dev = entries[0].w.get_device()
+    g_dtype = entries[0].g.dtype
+    if dev < 0 or g_dtype not in (bf16, f32):
+        raise MXNetError("fused_slab_update wants CUDA slabs and a bf16 or f32 gradient, got w "
+                         "on %s and a %s gradient" % (entries[0].w.device, g_dtype))
+    results, rows = [], []
+    for i, e in enumerate(entries):
+        w, g, states, lr, wd, out = e
+        states = tuple(states)
+        if len(states) != slots:
+            raise MXNetError("fused_slab_update: %s takes %d state slabs, slab %d has %d"
+                             % (kind, slots, i, len(states)))
+        shape = w.shape
+        n = shape[0] if len(shape) == 1 else -1
+        if out is None:
+            out = (torch.empty_like(w), tuple(torch.empty_like(s) for s in states),
+                   torch.empty(max(n, 0), dtype=bf16, device=w.device))
+        ow, ostates, w16 = out[0], tuple(out[1]), out[2]
+        if len(ostates) != slots:
+            raise MXNetError("fused_slab_update: slab %d's out holds %d state slabs, %s takes %d"
+                             % (i, len(ostates), kind, slots))
+        # one pass: every tensor of the slab on the device, of its dtype,
+        # of w's shape and stride 1 (an output that is its input once)
+        checks = [(w, f32), (g, g_dtype), (w16, bf16)]
+        checks += [(s, f32) for s in states]
+        checks += [(o, f32) for o, x in zip((ow, *ostates), (w, *states)) if o is not x]
+        for x, dtype in checks:
+            if (n < 0 or x.get_device() != dev or x.dtype is not dtype or x.shape != shape
+                    or not x.is_contiguous()):
+                raise _slab_bad(i, kind, e, (ow, ostates, w16), dev, g_dtype)
+        results.append((ow, ostates, w16))
+        if n == 0:
+            continue
+        sp = [s.data_ptr() for s in states] + [0, 0]
+        op = [o.data_ptr() for o in ostates] + [0, 0]
+        ptrs = (w.data_ptr(), g.data_ptr(), sp[0], sp[1], ow.data_ptr(), op[0], op[1],
+                w16.data_ptr())
+        rows.append([ptrs, n, *_slab_head_tiles(ptrs, n, g_dtype is bf16), lr, wd])
+    return dev, g_dtype is bf16, results, rows
+
+
+def _slab_head_tiles(ptrs, n, g_bf16):
+    """``(head, tiles)`` of a slab of ``n`` > 0 elements whose eight
+    pointers (w, g, s0, s1, out w, out s0, out s1, w16; 0 for a state the
+    kind lacks) are ``ptrs``: the elements before the first 16-byte
+    boundary of its f32 operands, where every operand reaches its vector
+    boundary (16 bytes of f32, 8 of bf16: 4 elements) at the same element,
+    else -1 (scalar throughout); and its tiles of ``_SLAB_TILE``."""
+    w, g, s0, s1, ow, os0, os1, w16 = ptrs
+    m = (w >> 2) & 3
+    if (((g >> (1 if g_bf16 else 2)) & 3) != m or ((w16 >> 1) & 3) != m
+            or (ow >> 2) & 3 != m
+            or (s0 and ((s0 >> 2) & 3 != m or (os0 >> 2) & 3 != m))
+            or (s1 and ((s1 >> 2) & 3 != m or (os1 >> 2) & 3 != m))):
+        return -1, -(-n // _SLAB_TILE)
+    head = min((4 - m) & 3, n)
+    return head, max(1, -(-(n - head) // _SLAB_TILE))
+
+
+def _slab_pack(rows, lr_ptrs, statics):
+    """The launches of a table: ``(shared, entries, count, tiles)`` for
+    every ``SLAB_TABLE_CAP`` rows, ``shared`` and ``entries`` the bytes of
+    the kernel's SlabShared and SlabEntry rows (each row's ``tile0`` the
+    tiles of the rows before it in its launch); ``statics`` the shared
+    row's fields up to ``n_entries``."""
+    launches = []
+    for lo in range(0, len(rows), SLAB_TABLE_CAP):
+        packed, tiles = [], 0
+        for (ptrs, n, head, row_tiles, lr, wd), lr_ptr in zip(
+                rows[lo:lo + SLAB_TABLE_CAP], lr_ptrs[lo:lo + SLAB_TABLE_CAP]):
+            packed.append(_SLAB_ENTRY.pack(*ptrs, lr_ptr, n, tiles, head,
+                                           0.0 if lr_ptr else float(lr), float(wd),
+                                           int(wd != 0.0), 0))
+            tiles += row_tiles
+        launches.append((_SLAB_SHARED.pack(*statics, len(packed), tiles), b"".join(packed),
+                         len(packed), tiles))
+    return launches
+
+
+def _slab_launch(kind, g_bf16, dev, rows, lr_ptrs, inv_scale, finite, *, rescale_grad,
+                 clip_gradient, momentum, beta1, beta2, epsilon):
+    """K1's launches over ``rows`` (from :func:`_slab_table`), at most
+    ``SLAB_TABLE_CAP`` a launch; ``lr_ptrs`` the device pointer of each
+    row's lr, 0 where its number goes into the launch."""
+    inv_ptr, inv_val = _slab_scalar(inv_scale, dev, "inv_scale")
+    fin_ptr, fin_val = _slab_scalar(finite, dev, "finite")
+    clip = float(clip_gradient) if clip_gradient else -1.0
+    statics = (inv_ptr, fin_ptr, inv_val, fin_val, float(rescale_grad), clip, float(momentum),
+               float(beta1), float(beta2), 1.0 - beta1, 1.0 - beta2, float(epsilon),
+               int(rescale_grad != 1.0), int(clip > 0))
+    sms = _SM_COUNT.get(dev)
+    if sms is None:
+        sms = _SM_COUNT[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    fn = _build.load("slab_update")
+    switch = torch.cuda.current_device() != dev
+    with (torch.cuda.device(dev) if switch else contextlib.nullcontext()):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for shared, packed, count, tiles in _slab_pack(rows, lr_ptrs, statics):
+            rc = fn(_SLAB_KIND_CODE[kind], int(g_bf16), shared, packed, count,
+                    min(tiles, _SLAB_CTAS_PER_SM * sms), stream)
+            if rc != 0:
+                raise MXNetError("slab_update kernel launch failed: CUDA error %d" % rc)
+            fused_slab_update.launches += 1
+
+
+def fused_slab_update_multi(kind, entries, inv_scale, finite, *, rescale_grad, clip_gradient,
+                            momentum=0.0, beta1=0.9, beta2=0.999, epsilon=1e-8):
+    """K1 over a table: one AMP optimizer step over every
+    :class:`SlabEntry` of ``entries``, each with its own ``lr`` and ``wd``,
+    sharing ``inv_scale`` / ``finite`` (numbers or one-element f32 tensors)
+    and the static hyperparameters. The slabs must not overlap one another
+    (a slab's ``out`` may be its own inputs). Returns one ``(new_w,
+    new_states, w16)`` an entry.
+
+    On CUDA tensors: one kernel launch for every ``SLAB_TABLE_CAP`` slabs
+    (``fused_slab_update.launches`` counts K1's launches), the checks in one
+    pass over the table, the entries' host-number lrs copied to the device
+    in one non-blocking copy from pinned memory (so a replay of a captured
+    step would read new ones), tensors read through their pointers; nothing
+    else is launched and nothing waits for the device. On CPU tensors:
+    :func:`slab_update_multi_reference`."""
+    statics = dict(rescale_grad=rescale_grad, clip_gradient=clip_gradient, momentum=momentum,
+                   beta1=beta1, beta2=beta2, epsilon=epsilon)
+    entries = list(entries)
+    if not entries:
+        return []
+    if entries[0].w.device.type == "cpu":
+        if any(e.w.device.type != "cpu" for e in entries):
+            raise MXNetError("fused_slab_update_multi wants every slab on one device")
+        return slab_update_multi_reference(kind, entries, inv_scale, finite, **statics)
+    dev, g_bf16, results, rows = _slab_table(kind, entries)
+    lr_ptrs, host = [], []
+    for j, row in enumerate(rows):
+        lr = row[4]
+        if torch.is_tensor(lr) and lr.device.type != "cpu":
+            lr_ptrs.append(_slab_scalar(lr, dev, "lr")[0])
+        else:
+            lr_ptrs.append(0)
+            host.append(j)
+    if host:
+        lrs = torch.tensor([float(rows[j][4]) for j in host], dtype=torch.float32,
+                           pin_memory=True).to(torch.device("cuda", dev), non_blocking=True)
+        base = lrs.data_ptr()
+        for k, j in enumerate(host):
+            lr_ptrs[j] = base + 4 * k
+    if rows:
+        _slab_launch(kind, g_bf16, dev, rows, lr_ptrs, inv_scale, finite, **statics)
+    return results
 
 
 def fused_slab_update(kind, w, g, states, lr, inv_scale, finite, *, wd, rescale_grad,
@@ -898,51 +1120,24 @@ def fused_slab_update(kind, w, g, states, lr, inv_scale, finite, *, wd, rescale_
     (w_out, states_out, w16_out)`` the results are written there (they may
     be ``w`` and ``states`` themselves) and those tensors returned.
 
-    On CUDA tensors: the kernel of ``csrc/slab_update.cu``, no fallback
-    (``fused_slab_update.launches`` counts its launches); the three scalars
-    go to the kernel in a device buffer, so the call never waits for the
-    device. On CPU tensors: :func:`slab_update_reference`."""
+    On CUDA tensors: one launch of the kernel of ``csrc/slab_update.cu`` on
+    a table of one slab, no fallback (``fused_slab_update.launches`` counts
+    its launches); a number goes into the launch as its value, a one-element
+    f32 tensor on the slab's device is read through its pointer, so the call
+    launches nothing else and never waits for the device. On CPU tensors:
+    :func:`slab_update_reference`."""
+    statics = dict(rescale_grad=rescale_grad, clip_gradient=clip_gradient, momentum=momentum,
+                   beta1=beta1, beta2=beta2, epsilon=epsilon)
     states = tuple(states)
-    kw = dict(wd=wd, rescale_grad=rescale_grad, clip_gradient=clip_gradient,
-              momentum=momentum, beta1=beta1, beta2=beta2, epsilon=epsilon)
     if w.device.type == "cpu":
-        new_w, new_states, w16 = slab_update_reference(kind, w, g, states, lr, inv_scale,
-                                                       finite, **kw)
-        if out is None:
-            return new_w, new_states, w16
-        out[0].copy_(new_w)
-        for o, s in zip(out[1], new_states):
-            o.copy_(s)
-        out[2].copy_(w16)
-        return out[0], tuple(out[1]), out[2]
-    _check_slab_args(kind, w, g, states, out)
-    dev = w.device
-    n = w.shape[0]
-    if out is None:
-        out = (torch.empty_like(w), tuple(torch.empty_like(s) for s in states),
-               torch.empty(n, dtype=torch.bfloat16, device=dev))
-    new_w, new_states, w16 = out[0], tuple(out[1]), out[2]
-    scalars = torch.stack([_as_f32(x, dev) for x in (lr, inv_scale, finite)])
-    pad = (None, None)
-    s_in = tuple(states) + pad[len(states):]
-    s_out = tuple(new_states) + pad[len(new_states):]
-    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
-    clip = float(clip_gradient) if clip_gradient else -1.0
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    blocks = max(1, min(-(-n // _SLAB_THREADS), 8 * sms))
-    fn = _build.load("slab_update")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(_SLAB_KIND_CODE[kind], int(g.dtype == torch.bfloat16), w.data_ptr(),
-                g.data_ptr(), ptr(s_in[0]), ptr(s_in[1]), new_w.data_ptr(), ptr(s_out[0]),
-                ptr(s_out[1]), w16.data_ptr(), scalars.data_ptr(), n, float(wd),
-                float(rescale_grad), clip, float(momentum), float(beta1), float(beta2),
-                1.0 - beta1, 1.0 - beta2, float(epsilon), int(rescale_grad != 1.0),
-                int(clip > 0), int(wd != 0.0), blocks, stream)
-    if rc != 0:
-        raise MXNetError("slab_update kernel launch failed: CUDA error %d" % rc)
-    fused_slab_update.launches += 1
-    return new_w, new_states, w16
+        res = slab_update_reference(kind, w, g, states, lr, inv_scale, finite, wd=wd, **statics)
+        return res if out is None else _write_out(out, res)
+    dev, g_bf16, results, rows = _slab_table(kind, [SlabEntry(w, g, states, lr, wd, out)])
+    if rows:
+        lr_ptr, lr_val = _slab_scalar(lr, dev, "lr")
+        rows[0][4] = lr_val
+        _slab_launch(kind, g_bf16, dev, rows, [lr_ptr], inv_scale, finite, **statics)
+    return results[0]
 
 
-fused_slab_update.launches = 0
+fused_slab_update.launches = 0  # K1's launches, from either wrapper

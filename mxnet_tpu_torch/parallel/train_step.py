@@ -18,17 +18,18 @@ own backward). The update then takes one of three paths, as in JAX:
 - flat, bf16 AMP (``_apply_optimizer_flat_amp``, ``MXTPU_AMP=bf16``):
   bf16 working parameters and data, f32 master slabs and state slabs, a
   dynamic loss scale, one global finite flag that skips the whole step
-  bit for bit, and kernel K1 (``ops/kernels.fused_slab_update``) for SGD
-  and Adam.
+  bit for bit, and kernel K1 (``ops/kernels.fused_slab_update_multi``)
+  for SGD and Adam, one launch a step over every bucket.
 
 The dp shards of a slab are its dp contiguous chunks, so the masters and
 state slabs have the JAX layout. In "shard" mode (``MXTPU_SHARD_UPDATE``,
 the default) the ranks, sharing one device, share one update over the
-whole slab: one K1 launch per bucket. "replicated" mode runs the update
-chunk by chunk, as JAX's scan does; elementwise updates give the same bits
-either way. The step's ``lr`` and update count ``t`` are host numbers
-passed each call; ``Optimizer._index_update_count`` and ``num_update``
-end as the JAX package leaves them. Not ported: ``compile_multi`` (the
+whole slab: one K1 table entry per bucket. "replicated" mode runs the
+update chunk by chunk, as JAX's scan does (one entry per chunk);
+elementwise updates give the same bits either way. The step's ``lr`` and
+update count ``t`` are host numbers passed each call;
+``Optimizer._index_update_count`` and ``num_update`` end as the JAX
+package leaves them. Not ported: ``compile_multi`` (the
 K-step scan), ``zero1``, ``param_specs`` / tensor parallelism and the
 guardrail gate; each raises.
 """
@@ -509,28 +510,32 @@ class ShardedTrainStep:
             kind = "sgd_mom"
         return kind
 
-    def _flat_body_amp(self, bucket, m_c, g_c, st_c, inv_scale, finite, w16_c):
-        """One AMP step on a chunk: bf16 grad in, the f32 master and state
-        chunks updated in place, the bf16 weight chunk written to ``w16_c``;
-        a non-finite step keeps every old bit. Optimizers with a
-        ``fused_slab_kernel`` run K1 (its plain version on the CPU); other
-        elementwise optimizers run their own update on the unscaled f32
-        gradient, then the same select and cast."""
+    def _slab_entry(self, kind, bucket, m_c, g_c, st_c, w16_c):
+        """K1's table entry for one chunk of an AMP bucket: the bucket's
+        ``lr`` (Adam's times its bias correction) and ``wd`` as the
+        optimizer gives them (numpy f32 under ``_patched_optimizer``), the
+        f32 master and state chunks updated in place, the bf16 weight chunk
+        written to ``w16_c``; and the static hyperparameters, the same for
+        every bucket."""
         opt = self.optimizer
-        kind = self._slab_kind()
         states = () if st_c is None else (st_c if isinstance(st_c, tuple) else (st_c,))
-        if kind is not None:
-            kwargs = opt._fused_kwargs(bucket.rep_index)
-            lr_eff = kwargs["lr"]
-            if kind == "adam":
-                lr_eff = lr_eff * opt.bias_fix(opt._index_update_count[bucket.rep_index])
-            kernels.fused_slab_update(
-                kind, m_c, g_c, states, lr_eff, inv_scale, finite, wd=kwargs["wd"],
-                rescale_grad=kwargs["rescale_grad"], clip_gradient=kwargs["clip_gradient"],
-                momentum=getattr(opt, "momentum", 0.0), beta1=getattr(opt, "beta1", 0.9),
-                beta2=getattr(opt, "beta2", 0.999), epsilon=getattr(opt, "epsilon", 1e-8),
-                out=(m_c, states, w16_c))
-            return
+        kwargs = opt._fused_kwargs(bucket.rep_index)
+        lr_eff = kwargs["lr"]
+        if kind == "adam":
+            lr_eff = lr_eff * opt.bias_fix(opt._index_update_count[bucket.rep_index])
+        statics = dict(rescale_grad=kwargs["rescale_grad"], clip_gradient=kwargs["clip_gradient"],
+                       momentum=getattr(opt, "momentum", 0.0), beta1=getattr(opt, "beta1", 0.9),
+                       beta2=getattr(opt, "beta2", 0.999), epsilon=getattr(opt, "epsilon", 1e-8))
+        entry = kernels.SlabEntry(m_c, g_c, states, lr_eff, kwargs["wd"], (m_c, states, w16_c))
+        return entry, statics
+
+    def _flat_body_amp(self, bucket, m_c, g_c, st_c, inv_scale, finite, w16_c):
+        """One AMP step on a chunk for an elementwise optimizer without a
+        ``fused_slab_kernel``: its own update on the unscaled f32 gradient,
+        then the finite select (a non-finite step keeps every old bit) and
+        the bf16 copy into ``w16_c``."""
+        opt = self.optimizer
+        states = () if st_c is None else (st_c if isinstance(st_c, tuple) else (st_c,))
         w = NDArray(m_c.clone())
         new_states = tuple(s.clone() for s in states)
         st = None if st_c is None else _wrap_state(
@@ -548,7 +553,12 @@ class ShardedTrainStep:
         states updated in place, new bf16 working params as views of each
         bucket's new bf16 slab; then the loss scaler, ×2 after
         ``amp_scale_window`` finite steps in a row and ×0.5 (at least 1)
-        on a non-finite one, all on the device (no host sync)."""
+        on a non-finite one, all on the device (no host sync). Optimizers
+        with a ``fused_slab_kernel`` update every (bucket, chunk) in one
+        K1 call (``kernels.fused_slab_update_multi``, its plain version on
+        the CPU): one launch a step for up to ``SLAB_TABLE_CAP`` chunks,
+        after the finite flag is known. Other elementwise optimizers take
+        ``_flat_body_amp`` chunk by chunk."""
         plan = self._ensure_flat_plan(params)
         scale = opt_state[self.AMP_SCALE_KEY]
         good = opt_state[self.AMP_GOOD_KEY]
@@ -562,17 +572,26 @@ class ShardedTrainStep:
         finite_f = finite.to(torch.float32)
         inv_scale = torch.reciprocal(scale)
         new_params = dict(params)
+        kind = self._slab_kind()
+        entries, statics = [], None
         with self._patched_optimizer(lr, t):
             for bi, b in enumerate(plan.buckets):
                 master = opt_state[self._master_key(bi)]
                 st = opt_state.get(self._flat_key(bi))
                 w16 = torch.empty(b.padded, dtype=torch.bfloat16, device=self.device)
                 for c in self._chunks(b):
-                    self._flat_body_amp(b, master[c], flat_gs[bi][c],
-                                        _map_state(lambda s, c=c: s[c], st), inv_scale,
-                                        finite_f, w16[c])
+                    st_c = _map_state(lambda s, c=c: s[c], st)
+                    if kind is None:
+                        self._flat_body_amp(b, master[c], flat_gs[bi][c], st_c, inv_scale,
+                                            finite_f, w16[c])
+                    else:
+                        entry, statics = self._slab_entry(kind, b, master[c], flat_gs[bi][c],
+                                                          st_c, w16[c])
+                        entries.append(entry)
                 for (_i, name, off, size, shape) in b.views:
                     new_params[name] = w16[off:off + size].view(shape)
+            if entries:
+                kernels.fused_slab_update_multi(kind, entries, inv_scale, finite_f, **statics)
         grown = (good + 1.0) >= float(self.amp_scale_window)
         zero = torch.zeros_like(good)
         opt_state[self.AMP_SCALE_KEY] = torch.where(

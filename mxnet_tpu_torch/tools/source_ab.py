@@ -3,9 +3,9 @@
 their own CUDA sources, in one process on one card.
 
 A variant is a copy of some sources of ``mxnet_tpu_torch/csrc/`` with text
-replaced below the first ``namespace sm90 {`` of a file (the kernels'
-code, not the note above it); a replacement whose text is not there stops
-the run before anything is built. The copies are written to
+replaced below the first ``namespace sm90 {`` of a file, or another anchor
+(the kernels' code, not the note above it); a replacement whose text is
+not there stops the run before anything is built. The copies are written to
 ``build/<tool>/<variant>/`` and built by the package's own ``_build`` from
 there (``csrc=``: the same flags, one ``nvcc`` per distinct library, all
 started together); the package's wrappers are not touched. The variants
@@ -21,17 +21,17 @@ from concurrent.futures import ThreadPoolExecutor
 from ..ops import _build
 
 
-def write_variants(root, sources, variants):
+def write_variants(root, sources, variants, anchor="namespace sm90 {"):
     """Write every variant's copy of ``sources`` (file names in
     ``_build.CSRC``) under ``root``, emptied first; ``variants`` maps a name
-    to its edits, ``[(file, old text, new text)]``. Returns {name:
-    directory}."""
+    to its edits, ``[(file, old text, new text)]``, each applied below the
+    first ``anchor`` of its file. Returns {name: directory}."""
     shutil.rmtree(root, ignore_errors=True)
     dirs = {}
     for name, edits in variants.items():
         texts = {f: (_build.CSRC / f).read_text() for f in sources}
         for f, old, new in edits:
-            head, sep, body = texts[f].partition("namespace sm90 {")
+            head, sep, body = texts[f].partition(anchor)
             if old not in body:
                 raise SystemExit("variant %s: %r not found in %s" % (name, old, f))
             texts[f] = head + sep + body.replace(old, new)

@@ -472,6 +472,7 @@ def _slab_case(kind, size, g_dtype, g):
 
 SLAB_KW = dict(wd=1e-4, rescale_grad=1.0 / 32, momentum=0.9, beta1=0.9, beta2=0.999,
                epsilon=1e-8)
+SLAB_KW_MULTI = {k: v for k, v in SLAB_KW.items() if k != "wd"}  # wd is per slab
 
 
 @pytest.mark.cuda
@@ -533,3 +534,105 @@ def test_cuda_slab_update_wrapper_raises_on_bad_arguments():
         with pytest.raises(MXNetError):
             kernels.fused_slab_update(kind, a, b, states, 0.1, 1.0, 1.0, clip_gradient=None,
                                       **SLAB_KW)
+
+
+def _slab_view(size, offset, dtype, g, scale=1.0):
+    """A slab of ``size`` random values ``offset`` elements into a larger
+    buffer: a view off the 16-byte boundary when ``offset`` % 4 != 0."""
+    buf = (torch.randn(size + 8, generator=g) * scale).to("cuda", dtype)
+    return buf[offset:offset + size]
+
+
+def _slab_table_case(kind, g_dtype, g, out=False):
+    """Ragged slabs at offsets 0-3 (one with its gradient misaligned against
+    its master, which the kernel runs scalar), each with its own lr (one a
+    device tensor) and wd; ``out``: in place, with a bf16 copy at the
+    master's offset."""
+    entries = []
+    specs = [(1, 0, 0), (7, 3, 3), (131, 1, 1), (1024, 2, 2), (5000, 1, 3), (70001, 0, 0),
+             (2359296, 2, 2)]
+    for i, (size, off, g_off) in enumerate(specs):
+        w = _slab_view(size, off, torch.float32, g)
+        grad = _slab_view(size, g_off, g_dtype, g, 4.0)
+        states = [_slab_view(size, off, torch.float32, g, 0.1)
+                  for _ in range(kernels.SLAB_STATE_SLOTS[kind])]
+        if kind == "adam":  # the second moment is never negative
+            states[1] = states[1].abs()
+        lr = torch.full((), 0.03, device="cuda") if i == 2 else 0.01 * (i + 1)
+        o = None
+        if out:
+            o = (w, tuple(states), _slab_view(size, off, torch.bfloat16, g))
+        entries.append(kernels.SlabEntry(w, grad, tuple(states), lr, (0.0, 1e-4, 5e-4)[i % 3], o))
+    return entries
+
+
+@pytest.mark.cuda
+def test_cuda_slab_update_multi_matches_plain_version_bitwise():
+    """On the card: K1 over a table of ragged slabs at odd offsets in one
+    launch, each slab with its own lr and wd, against the plain version of
+    the table: every output bit for bit, a skipped step returns its inputs
+    bit for bit, a repeat gives the same bits, in place as well."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator().manual_seed(6)
+    for kind, g_dtype in itertools.product(("sgd", "sgd_mom", "adam"),
+                                           (torch.bfloat16, torch.float32)):
+        entries = _slab_table_case(kind, g_dtype, g)
+        for finite, clip in itertools.product((1.0, 0.0), (None, 0.05)):
+            args = (kind, entries, torch.full((), 1.0 / 128, device="cuda"),
+                    torch.full((), finite, device="cuda"))
+            before = kernels.fused_slab_update.launches
+            got = kernels.fused_slab_update_multi(*args, clip_gradient=clip, **SLAB_KW_MULTI)
+            again = kernels.fused_slab_update_multi(*args, clip_gradient=clip, **SLAB_KW_MULTI)
+            assert kernels.fused_slab_update.launches == before + 2
+            want = kernels.slab_update_multi_reference(*args, clip_gradient=clip,
+                                                       **SLAB_KW_MULTI)
+            for e, r, s, a in zip(entries, got, want, again):
+                for x, y, z in zip((r[0], *r[1], r[2]), (s[0], *s[1], s[2]),
+                                   (a[0], *a[1], a[2])):
+                    assert torch.equal(x, y) and torch.equal(x, z), (kind, e.w.shape, finite)
+                if finite == 0.0:
+                    assert torch.equal(r[0], e.w)
+                    assert all(torch.equal(x, y) for x, y in zip(r[1], e.states))
+        ins = _slab_table_case(kind, g_dtype, torch.Generator().manual_seed(7), out=True)
+        copy = [kernels.SlabEntry(e.w.clone(), e.g, tuple(s.clone() for s in e.states), e.lr,
+                                  e.wd) for e in ins]
+        kernels.fused_slab_update_multi(kind, ins, 1.0 / 128, 1.0, clip_gradient=None,
+                                        **SLAB_KW_MULTI)
+        want = kernels.slab_update_multi_reference(kind, copy, 1.0 / 128, 1.0, clip_gradient=None,
+                                                   **SLAB_KW_MULTI)
+        for e, s in zip(ins, want):
+            assert torch.equal(e.w, s[0]) and torch.equal(e.out[2], s[2])
+            assert all(torch.equal(x, y) for x, y in zip(e.states, s[1]))
+
+
+@pytest.mark.cuda
+def test_cuda_slab_update_multi_raises_on_bad_arguments():
+    """A table call launches the kernel or raises: a wrong dtype, a CPU
+    slab among CUDA ones, a length mismatch, two gradient dtypes in one
+    table, a per-step scalar of the wrong type; nothing is launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    w = torch.zeros(64, device="cuda")
+    g16 = torch.zeros(64, dtype=torch.bfloat16, device="cuda")
+    mom = torch.zeros(64, device="cuda")
+    good = kernels.SlabEntry(w, g16, (mom,), 0.1, 0.0)
+    bad = [
+        [good, kernels.SlabEntry(w.double(), g16, (mom,), 0.1, 0.0)],
+        [good, kernels.SlabEntry(w, g16, (mom.cpu(),), 0.1, 0.0)],
+        [good, kernels.SlabEntry(w, g16[:63], (mom,), 0.1, 0.0)],
+        [good, kernels.SlabEntry(w, g16.float(), (mom,), 0.1, 0.0)],
+        [good, kernels.SlabEntry(w, g16, (mom,), torch.zeros((), dtype=torch.float64,
+                                                             device="cuda"), 0.0)],
+        [good, kernels.SlabEntry(w[::2], g16[::2], (mom[::2],), 0.1, 0.0)],
+    ]
+    before = kernels.fused_slab_update.launches
+    for entries in bad:
+        with pytest.raises(MXNetError):
+            kernels.fused_slab_update_multi("sgd_mom", entries, 1.0, 1.0, clip_gradient=None,
+                                            **SLAB_KW_MULTI)
+    with pytest.raises(MXNetError):
+        kernels.fused_slab_update_multi("sgd_mom", [good], torch.ones(2, device="cuda"), 1.0,
+                                        clip_gradient=None, **SLAB_KW_MULTI)
+    assert kernels.fused_slab_update.launches == before
+

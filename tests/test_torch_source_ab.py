@@ -1,7 +1,7 @@
 """The A/B scripts at the root of the checkout (``flash_ab.py``,
-``conv_ab.py``) on the CPU: every variant's edits still apply to the
-kernel sources as they are, and the shared timer takes the variants in
-turns, forward and back. Building and timing the variants needs the card."""
+``conv_ab.py``, ``slab_ab.py``) on the CPU: every variant's edits still
+apply to the kernel sources as they are, and the shared timer takes the
+variants in turns, forward and back. Building and timing the variants needs the card."""
 import importlib.util
 from pathlib import Path
 
@@ -20,12 +20,14 @@ def _tool(name):
     return mod
 
 
-@pytest.mark.parametrize("tool", ["flash_ab", "conv_ab"])
+@pytest.mark.parametrize("tool", ["flash_ab", "conv_ab", "slab_ab"])
 def test_every_variant_edits_the_sources_as_they_are(tool, tmp_path):
     """Each variant's copy differs from the sources exactly where its edits
-    say, below ``namespace sm90 {``; as_built is the sources unchanged."""
+    say, below the tool's anchor (``namespace sm90 {`` unless it names
+    another); as_built is the sources unchanged."""
     mod = _tool(tool)
-    dirs = source_ab.write_variants(tmp_path, mod.SOURCES, mod.VARIANTS)
+    anchor = getattr(mod, "ANCHOR", "namespace sm90 {")
+    dirs = source_ab.write_variants(tmp_path, mod.SOURCES, mod.VARIANTS, anchor)
     assert set(dirs) == set(mod.VARIANTS)
     for name, edits in mod.VARIANTS.items():
         for f in mod.SOURCES:
@@ -33,7 +35,7 @@ def test_every_variant_edits_the_sources_as_they_are(tool, tmp_path):
             mine = [(old, new) for src, old, new in edits if src == f]
             assert (text == orig) == (not mine), (name, f)
             for old, new in mine:
-                assert new in text.partition("namespace sm90 {")[2], (name, old)
+                assert new in text.partition(anchor)[2], (name, old)
 
 
 def test_a_missing_edit_stops_the_run(tmp_path):

@@ -155,9 +155,10 @@ def test_zero_bucket_cap_takes_the_per_param_path(monkeypatch):
 # the AMP update alone
 # ---------------------------------------------------------------------------
 
-def _trainers(optname, dp=4, batch=16):
+def _trainers(optname, dp=4, batch=16, lr_mult=None):
     """Both packages' trainers on the MLP over a dp mesh, from the same
-    initial params (one np.random seed), with AMP on."""
+    initial params (one np.random seed), with AMP on; ``lr_mult`` per
+    parameter name where given."""
     from jax.sharding import Mesh
 
     out = {}
@@ -173,6 +174,8 @@ def _trainers(optname, dp=4, batch=16):
                                  param_idx2name=dict(enumerate(
                                      ["fc1_weight", "fc1_bias", "fc2_weight", "fc2_bias"])),
                                  **kw)
+        if lr_mult:
+            o.set_lr_mult(lr_mult)
         trainer = pkg.parallel.ShardedTrainStep(net, mesh, optimizer=o).compile()
         shapes = {"data": (batch, 8), "softmax_label": (batch,)}
         arg_shapes, _, _ = net.infer_shape(**shapes)
@@ -197,13 +200,12 @@ def _flat(state):
     return out
 
 
-@pytest.mark.parametrize("optname", ["sgd", "adam", "rmsprop"])
-def test_amp_update_matches_jax(monkeypatch, optname):
-    monkeypatch.setenv("MXTPU_AMP", "bf16")
-    monkeypatch.setenv("MXTPU_FUSED_UPDATE_KERNEL", "1")  # JAX: its Pallas K1, interpreted
-    both = _trainers(optname)
+def _check_amp_updates(both):
+    """Four AMP updates (``_apply_optimizer_flat_amp``) in both packages on
+    the same bf16 gradients, the third one non-finite: masters and states
+    within rtol 1e-6, the bf16 working params and the loss scaler equal, the
+    skipped step bit for bit."""
     (jt, jparams, _, jopt), (tt, tparams, _, topt) = both[jmx], both[tmx]
-    assert jt.amp and tt.amp and tt.flat_mode == jt.flat_mode == "shard"
     jupdate = jax.jit(jt._apply_optimizer_flat_amp)
     rng = np.random.RandomState(9)
     for t in (1, 2, 3, 4):
@@ -231,6 +233,50 @@ def test_amp_update_matches_jax(monkeypatch, optname):
             (0.0 if t == 3 else (t if t < 3 else t - 3))
         assert float(topt[tt.AMP_SCALE_KEY]) == float(jopt[jt.AMP_SCALE_KEY]) == \
             2.0 ** 15 / (2 if t >= 3 else 1)
+    return tparams, topt
+
+
+@pytest.mark.parametrize("optname", ["sgd", "adam", "rmsprop"])
+def test_amp_update_matches_jax(monkeypatch, optname):
+    monkeypatch.setenv("MXTPU_AMP", "bf16")
+    monkeypatch.setenv("MXTPU_FUSED_UPDATE_KERNEL", "1")  # JAX: its Pallas K1, interpreted
+    both = _trainers(optname)
+    jt, tt = both[jmx][0], both[tmx][0]
+    assert jt.amp and tt.amp and tt.flat_mode == jt.flat_mode == "shard"
+    _check_amp_updates(both)
+
+
+@pytest.mark.parametrize("shard", ["1", "0"])
+def test_amp_update_makes_one_k1_call_a_step_over_every_bucket(monkeypatch, shard):
+    """A plan of several buckets (a small bucket cap; lr_mult on fc1 and the
+    biases' zero wd_mult make four (lr_mult, wd_mult) groups) under Adam:
+    one ``fused_slab_update_multi`` call a step holding every (bucket,
+    chunk) — a bucket in "shard" mode, its dp chunks in "replicated" mode
+    — each with its bucket's lr and wd, matching JAX's update."""
+    monkeypatch.setenv("MXTPU_AMP", "bf16")
+    monkeypatch.setenv("MXTPU_FUSED_UPDATE_KERNEL", "1")
+    monkeypatch.setenv("MXTPU_SHARD_UPDATE", shard)
+    monkeypatch.setenv("MXTPU_BUCKET_BYTES", "512")
+    calls = []
+    multi = tts.kernels.fused_slab_update_multi
+
+    def counted(kind, entries, *args, **kw):
+        calls.append((kind, [(e.w.shape[0], float(e.lr), float(e.wd)) for e in entries]))
+        return multi(kind, entries, *args, **kw)
+
+    monkeypatch.setattr(tts.kernels, "fused_slab_update_multi", counted)
+    both = _trainers("adam", lr_mult={"fc1_weight": 0.5, "fc1_bias": 0.5})
+    jt, tt = both[jmx][0], both[tmx][0]
+    assert tt.flat_mode == jt.flat_mode == ("shard" if shard == "1" else "replicated")
+    _check_amp_updates(both)
+    plan = tt._flat_plan
+    assert len(plan.buckets) >= 3
+    chunks = 1 if shard == "1" else 4
+    sizes = [b.padded // chunks for b in plan.buckets for _ in range(chunks)]
+    assert [k for k, _ in calls] == ["adam"] * 4
+    for _, entries in calls:
+        assert [n for n, _, _ in entries] == sizes
+        assert len({lr for _, lr, _ in entries}) >= 2 and len({wd for _, _, wd in entries}) >= 2
 
 
 def _masters(mod):
