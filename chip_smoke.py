@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only f32_lm --package DIR  # phase 19 and 8 on another tree
     python3 chip_smoke.py --only rtc --package DIR     # K5's push path on another tree
     python3 chip_smoke.py --only slab --package DIR    # phases 16-18 and K1's times there
+    python3 chip_smoke.py --only zoo                   # K2/K3's build and phase 20
 
 
 Phases, each fatal on failure:
@@ -88,9 +89,10 @@ Phases, each fatal on failure:
 9. conv-backward kernels vs plain: K2 (conv_bwd_filter) and K3
    (conv_bwd_input) against their plain versions on every distinct
    in-envelope convolution shape of ResNet-50 at batch 32 (from
-   ``infer_shape``) and on ragged small shapes (N 1 and 3, H x W 7 x 7 and
-   9 x 11, k 1/3/5, pad 0-2, C and O 8-72), f32 and bf16, and in f32 on
-   the batch-256 shapes whose sums are the longest (``CONV_DEEP``): the f32
+   ``infer_shape``) and on ragged small shapes (N 1 to 3, H x W 7 x 7 to
+   17 x 17, k 1/3/5, 1 x 7 and 3 x 1, pad 0-3, C and O 8-512, 24 in and
+   out), f32 and bf16, and in f32 on the shapes whose sums are the longest
+   (``CONV_DEEP``: ResNet-50's at batch 256, AlexNet's conv2 at 512): the f32
    outputs before any cast within 1e-4 of max|plain| (bf16 products are
    exact in f32 and summed in another order; an f32 product is taken as
    three bf16 products of its hi and lo planes, about 5e-6 of max), and a
@@ -218,8 +220,31 @@ Phases, each fatal on failure:
     family (the split pass, the three flash kernels, f32 GEMMs, reductions,
     elementwise).
 
+20. the image-classification zoo (main path 7): (a) K2 and K3 against their
+    plain versions, as in phase 9, on every distinct in-envelope convolution
+    shape of alexnet (batch 512), vgg-16, googlenet, inception-bn,
+    inception-v3, inception-resnet-v2 and resnext-50 (batch 32) at their
+    published image sides, f32 and bf16 (non-square 1 x 7 / 7 x 1 / 1 x 3 /
+    3 x 1 kernels, sides 147 to 8 that are not multiples of K2/K3's 8 x 8
+    patch, 1 x 1 convolutions whose OH·OW is not a multiple of 8, 24
+    channels); (b) f32 gradients of inception-v3 and alexnet at full width,
+    batch 8, through K2/K3 against their plain versions, as phase 10 holds
+    ResNet-50's; (c) the model sweep's step (``tools/model_sweep.py``, one
+    warm-up and 3 timed steps) on inception-bn, inception-v3 and alexnet in
+    f32 and bf16, and on vgg-16, googlenet, resnext-50 and
+    inception-resnet-v2 in f32, each at its published batch and side
+    (vgg-16 and googlenet, which have no BatchNorm, at lr 0.001: at the
+    sweep's 0.1 their losses reach NaN within four steps from the sweep's
+    init, in the JAX package as in the port): the
+    losses finite and K2 and K3 each launched once a step for each of the
+    model's in-envelope convolutions (counts zeroed before each row); img/s,
+    step ms, model TFLOP/s, peak memory; (d) K2 and K3 at every distinct f32
+    shape of an inception-v3 step at batch 32 against the library calls, as
+    phase 12 times them, summed over the step's 89 launches.
+
 Then the kernels line: the seven kernels, K4f, K4dq, K4dkv, K2, K3, K5 and
-K1.
+K1; K2's and K3's launches count phase 20's training rows, and their
+entries carry phase 20's launches and inception-v3 step under ``zoo``.
 
 The last line of output is {"ok": true, "device": {...}}. Without a CUDA
 device, or without the package beside this script, it exits non-zero and
@@ -262,7 +287,9 @@ RESNET_CONVS = 46  # in-envelope convolutions of ResNet-50: K2 and K3 launches a
 RTC_STEPS = 6
 RTC_BIG = (32, 64, 112, 112)
 SGD = dict(lr=0.1, momentum=0.9, wd=1e-4)  # bench.py's step; rescale_grad = 1 / batch
-# ragged (data, weight, pad) shapes: N 1 and 3, H x W 7 x 7 and 9 x 11, k 1/3/5, pad 0-2
+# ragged (data, weight, pad) shapes: N 1 and 3, H x W 7 x 7 and 9 x 11, k 1/3/5, pad 0-2;
+# non-square kernels (1 x 7 pad (0, 3) on 17 x 17, 3 x 1 pad (1, 0) on 8 x 8) and 24
+# channels in and out (googlenet's 5 x 5 and its 512 -> 24 reduce)
 CONV_RAGGED = [
     ((1, 8, 7, 7), (16, 8, 3, 3), (1, 1)),
     ((3, 16, 9, 11), (8, 16, 1, 1), (0, 0)),
@@ -270,6 +297,10 @@ CONV_RAGGED = [
     ((1, 64, 7, 7), (72, 64, 3, 3), (0, 0)),
     ((3, 8, 9, 11), (8, 8, 5, 5), (1, 1)),
     ((1, 72, 9, 11), (64, 72, 1, 1), (0, 0)),
+    ((3, 16, 17, 17), (24, 16, 1, 7), (0, 3)),
+    ((2, 24, 8, 8), (16, 24, 3, 1), (1, 0)),
+    ((2, 24, 14, 14), (64, 24, 5, 5), (2, 2)),
+    ((2, 512, 14, 14), (24, 512, 1, 1), (0, 0)),
 ]
 # f32 shapes of ResNet-50 at batch 256 whose sums are the longest: K2's
 # 56 x 56 ones (the most k steps a split) and K3's 512-channel 3 x 3
@@ -279,7 +310,28 @@ CONV_DEEP = [
     ((256, 64, 56, 56), (256, 64, 1, 1), (0, 0)),
     ((256, 256, 56, 56), (64, 256, 1, 1), (0, 0)),
     ((256, 512, 7, 7), (512, 512, 3, 3), (1, 1)),
+    # AlexNet's conv2 at batch 512 and 224 x 224 images (26 x 26, 5 x 5 pad 2):
+    # the longest K2 sum of any path
+    ((512, 96, 26, 26), (256, 96, 5, 5), (2, 2)),
 ]
+# phase 20: the image-classification zoo at its published batch and image
+# side. The model sweep's rows other than ResNet, trained in f32 and bf16,
+# and the rest of the zoo, trained in f32 at batch 32: name -> ((model
+# module, get_symbol kwargs), side, batch, K80 img/s or None)
+ZOO_SWEEP = ("inception-bn", "inception-v3", "alexnet")
+ZOO_EXTRA = {
+    "vgg-16": (("vgg", {"num_layers": 16}), 224, 32, None),
+    "googlenet": (("googlenet", {}), 224, 32, None),
+    "resnext-50": (("resnext", {"num_layers": 50}), 224, 32, None),
+    "inception-resnet-v2": (("inception_resnet_v2", {}), 299, 32, None),
+}
+# the sweep's step at lr 0.1 takes the two models without BatchNorm to NaN
+# losses within four steps from the sweep's init, in the JAX package as in
+# the port: they train at this lr
+ZOO_LR = {"vgg-16": 1e-3, "googlenet": 1e-3}
+ZOO_STEPS = 3  # timed steps of a phase 20 training row, after one warm-up
+ZOO_GRAD_BATCH = 8  # phase 20 (b): the plain path's runs fit beside the kernel's
+ZOO_GRAD_MODELS = ("inception-v3", "alexnet")
 
 
 def log(*args):
@@ -1094,13 +1146,11 @@ def shared_grad_bits(kernels, x, w, g, dshape, wshape, pad, got):
             for name in got}
 
 
-def phase_conv_checks(kernels, resnet, dev):
-    import torch
-
-    rng = np.random.default_rng(7)
-    cases = [(key, (torch.float32, torch.bfloat16)) for key in
-             list(resnet_conv_shapes(resnet, kernels, RESNET_BATCH)) + CONV_RAGGED]
-    cases += [(key, (torch.float32,)) for key in CONV_DEEP]
+def conv_checks(kernels, cases, dev, rng):
+    """K2 and K3 against their plain versions on ``cases`` [((data, weight,
+    pad), dtypes)]: each within 1e-4 of max|plain|, a repeat bitwise, the
+    shared channels-last grad bitwise. Returns (worst error by kernel and
+    dtype, every case's errors)."""
     worst, errs = {}, {}
     for (dshape, wshape, pad), dtypes in cases:
         for dtype in dtypes:
@@ -1120,22 +1170,40 @@ def phase_conv_checks(kernels, resnet, dev):
                                          "its standalone call" % name)
                 worst[name + " " + key] = max(worst.get(name + " " + key, 0.0), e["rel_err"])
                 errs[(name, dshape, wshape, pad, key)] = e
+    return worst, errs
+
+
+def phase_conv_checks(kernels, resnet, dev):
+    import torch
+
+    cases = [(key, (torch.float32, torch.bfloat16)) for key in
+             list(resnet_conv_shapes(resnet, kernels, RESNET_BATCH)) + CONV_RAGGED]
+    cases += [(key, (torch.float32,)) for key in CONV_DEEP]
+    worst, errs = conv_checks(kernels, cases, dev, np.random.default_rng(7))
     log("phase 9: conv-backward kernels vs plain ok over %d shapes, worst rel_err %s"
         % (len(cases), json.dumps(worst)))
     return worst, errs
 
 
-def phase_resnet_grads_f32(resnet_bench, kernels, dev):
+def grads_kernel_vs_plain(kernels, symbol, params, aux, data, label, seed=0):
+    """Every parameter gradient and new aux state of ``symbol`` in training
+    mode through K2/K3 against the same through their plain versions, at
+    rtol = atol = 1e-3 of each tensor's max|.|. Dropout draws the same
+    masks in each run (a generator seeded with ``seed``). A tensor that two
+    runs of the plain path do not reproduce to 1e-3 of its max (a
+    cancelling sum, moved by ops outside K2/K3 that are not bitwise
+    repeatable) is held to three times that spread. Returns (worst error,
+    tensors held to 1e-3, the noisy ones, K2/K3 launches of the kernel
+    run)."""
     import torch
 
     from mxnet_tpu_torch.executor import _GraphProgram
 
-    _, (params, _, aux), data, label, symbol = resnet_bench.build_step(2, False, dev)
     program = _GraphProgram(symbol)
 
     def grads():
-        outs, new_aux = program({**params, "data": data, "softmax_label": label}, aux, None,
-                                True)
+        gen = torch.Generator(device=data.device).manual_seed(seed)
+        outs, new_aux = program({**params, "data": data, "softmax_label": label}, aux, gen, True)
         got = torch.autograd.grad(outs[0].sum(), list(params.values()), allow_unused=True)
         torch.cuda.synchronize()
         out = {n: torch.zeros_like(p) if g is None else g
@@ -1154,7 +1222,6 @@ def phase_resnet_grads_f32(resnet_bench, kernels, dev):
         want, again = grads(), grads()
     finally:
         kernels.conv_bwd_filter, kernels.conv_bwd_input = swapped
-    assert counts == dict.fromkeys(counts, RESNET_CONVS), counts
     worst, noisy = 0.0, {}
     for name, w in want.items():
         g = got[name]
@@ -1174,11 +1241,19 @@ def phase_resnet_grads_f32(resnet_bench, kernels, dev):
             continue
         torch.testing.assert_close(g / m, w / m, rtol=1e-3, atol=1e-3, msg=name)
         worst = max(worst, err)
+    return worst, len(want) - len(noisy), noisy, counts
+
+
+def phase_resnet_grads_f32(resnet_bench, kernels, dev):
+    _, (params, _, aux), data, label, symbol = resnet_bench.build_step(2, False, dev)
+    worst, held, noisy, counts = grads_kernel_vs_plain(kernels, symbol, params, aux, data, label)
+    assert counts == dict.fromkeys(counts, RESNET_CONVS), counts
     log("phase 10: f32 ResNet-50 (batch 2, 224x224) gradients and aux, K2/K3 vs plain: worst "
         "err %.3g of max (rtol = atol = 1e-3) over %d tensors; not repeatable between two plain "
         "runs (held to 3x that spread): %s; launches %s"
-        % (worst, len(want) - len(noisy), json.dumps(noisy), json.dumps(counts)))
-    return {"worst_rel_err": worst, "tensors": len(want), "noisy": noisy, "launches": counts}
+        % (worst, held, json.dumps(noisy), json.dumps(counts)))
+    return {"worst_rel_err": worst, "tensors": held + len(noisy), "noisy": noisy,
+            "launches": counts}
 
 
 def phase_resnet_train(resnet_bench, kernels, dev, dtype):
@@ -1252,16 +1327,18 @@ def conv_work(name, dshape, wshape, pad, esize):
     return flops, (g + wt) * esize + 4 * x
 
 
-def phase_conv_times(kernels, resnet, dev, launches, errs):
-    """Kernels-line entries of K2 and K3; see the module docstring."""
+def conv_time_rows(kernels, shapes, dtypes, dev, errs, rng):
+    """Phase 12's numbers of K2 and K3 at each of ``shapes`` ({(data, weight,
+    pad): convolutions of that shape a step}) in each of ``dtypes``: the
+    kernel's ``ms``, ``device_ms`` and ``host_ms``, the plain version's ms,
+    the library call's ms and device ms, the bound and ``errs``' error.
+    Returns {kernel name: [row, ...]}."""
     import torch
     from torch.nn.grad import conv2d_input, conv2d_weight
 
-    rng = np.random.default_rng(8)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
-    shapes = resnet_conv_shapes(resnet, kernels, RESNET_BATCH)
     rows = {"conv_bwd_filter": [], "conv_bwd_input": []}
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes:
         key = str(dtype).split(".")[-1]
         for (dshape, wshape, pad), count in shapes.items():
             x, w, g = conv_inputs(dshape, wshape, pad, dtype, dev, rng)
@@ -1294,14 +1371,27 @@ def phase_conv_times(kernels, resnet, dev, launches, errs):
                 }
                 rows[name].append(row)
                 log("  %s %s" % (name, json.dumps(row)))
+    return rows
+
+
+STEP_FIELDS = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms")
+
+
+def per_step(rows, key):
+    """The launch-weighted sums of a step over ``rows`` of dtype ``key``."""
+    mine = [r for r in rows if r["dtype"] == key]
+    return {f: sum(r[f] * r["convs_per_step"] for r in mine) for f in STEP_FIELDS}
+
+
+def phase_conv_times(kernels, resnet, dev, launches, errs):
+    """Kernels-line entries of K2 and K3; see the module docstring."""
+    import torch
+
+    rows = conv_time_rows(kernels, resnet_conv_shapes(resnet, kernels, RESNET_BATCH),
+                          (torch.bfloat16, torch.float32), dev, errs, np.random.default_rng(8))
     entries = []
     for name, shape_rows in rows.items():
-        per_step = {}
-        for key in ("bfloat16", "float32"):
-            mine = [r for r in shape_rows if r["dtype"] == key]
-            per_step[key] = {f: sum(r[f] * r["convs_per_step"] for r in mine)
-                             for f in ("ms", "device_ms", "plain_ms", "library_ms",
-                                       "library_device_ms", "bound_ms")}
+        step = {key: per_step(shape_rows, key) for key in ("bfloat16", "float32")}
         head, f32_head = (max((r for r in shape_rows if r["dtype"] == key),
                               key=lambda r: r["ms"] * r["convs_per_step"])
                           for key in ("bfloat16", "float32"))
@@ -1326,7 +1416,7 @@ def phase_conv_times(kernels, resnet, dev, launches, errs):
             "kernel_ms": head["ms"],
             "library_computes": "torch.nn.grad.%s" % (
                 "conv2d_weight" if name == "conv_bwd_filter" else "conv2d_input"),
-            "launch_weighted_ms_per_step": per_step,
+            "launch_weighted_ms_per_step": step,
             "f32": {f: f32_head[f] for f in ("data", "weight", "pad", "convs_per_step", "ms",
                                                "device_ms", "host_ms", "plain_ms", "library_ms",
                                                "library_device_ms", "bound_ms", "bound_by",
@@ -1334,8 +1424,110 @@ def phase_conv_times(kernels, resnet, dev, launches, errs):
             "shapes": shape_rows,
         })
         log("  %s per step %s, headline shape %s %s" % (
-            name, json.dumps(per_step), head["data"], head["weight"]))
+            name, json.dumps(step), head["data"], head["weight"]))
     return entries
+
+
+def zoo_models(model_sweep):
+    """Phase 20's models: {name: (((module, kwargs), side, batch, k80), dtypes
+    trained)}."""
+    zoo = {name: (model_sweep.MODELS[name], ("float32", "bfloat16")) for name in ZOO_SWEEP}
+    zoo.update({name: (spec, ("float32",)) for name, spec in ZOO_EXTRA.items()})
+    return zoo
+
+
+def zoo_conv_shapes(model_sweep, kernels, spec, dtype):
+    """{(data, weight, pad): convolutions of that shape} over the in-envelope
+    convolutions of one zoo model (``spec`` as in ``zoo_models``) in
+    ``dtype``, at its published batch and side."""
+    (module, kwargs), side, batch, _ = spec
+    shape = (batch, 3, side, side)
+    symbol = model_sweep.build_symbol(module, kwargs, side)
+    shapes = {}
+    for layer in model_sweep.conv_layers(symbol, shape):
+        if kernels.conv_bwd_plan(layer["data"], layer["weight"], layer["stride"], layer["pad"],
+                                 layer["dilate"], dtype):
+            key = (layer["data"], layer["weight"], layer["pad"])
+            shapes[key] = shapes.get(key, 0) + 1
+    return shapes
+
+
+def phase_zoo(model_sweep, kernels, dev):
+    """Phase 20 (see the module docstring). Returns (results, K2/K3
+    launches of its training rows)."""
+    import torch
+
+    zoo = zoo_models(model_sweep)
+    res = {"counts": {}}
+    # (a) every distinct in-envelope convolution shape, f32 and bf16
+    dtypes_of = {}
+    for name, (spec, _) in zoo.items():
+        res["counts"][name] = {}
+        for dtype in ("float32", "bfloat16"):
+            shapes = zoo_conv_shapes(model_sweep, kernels, spec, dtype)
+            res["counts"][name][dtype] = {"convs": sum(shapes.values()),
+                                          "distinct": len(shapes)}
+            for key in shapes:
+                dtypes_of.setdefault(key, []).append(getattr(torch, dtype))
+    cases = [(key, tuple(dict.fromkeys(dts))) for key, dts in dtypes_of.items()]
+    t0 = time.perf_counter()
+    worst, errs = conv_checks(kernels, cases, dev, np.random.default_rng(20))
+    res["conv_checks"] = {"shapes": len(cases), "cases": sum(len(d) for _, d in cases),
+                          "worst_rel_err": worst, "s": time.perf_counter() - t0}
+    log("phase 20 (a): K2/K3 vs plain ok over the zoo's %d distinct in-envelope shapes (%d "
+        "shape-dtype cases; in-envelope convolutions by model and dtype %s), worst rel_err %s"
+        % (len(cases), res["conv_checks"]["cases"], json.dumps(res["counts"]),
+           json.dumps(worst)))
+    # (b) full-width f32 gradients, kernel against plain
+    res["grads_f32"] = {}
+    for name in ZOO_GRAD_MODELS:
+        (module, kwargs), side, _, _ = zoo[name][0]
+        _, (params, _, aux), data, label, symbol = model_sweep.build_step(
+            module, kwargs, side, ZOO_GRAD_BATCH, False, dev)
+        convs = model_sweep.in_envelope_convs(symbol, tuple(data.shape), "float32")
+        worst_g, held, noisy, counts = grads_kernel_vs_plain(kernels, symbol, params, aux,
+                                                             data, label)
+        assert counts == dict.fromkeys(counts, convs), (name, counts, convs)
+        res["grads_f32"][name] = {"batch": ZOO_GRAD_BATCH, "side": side,
+                                  "worst_rel_err": worst_g, "tensors": held + len(noisy),
+                                  "noisy": noisy, "launches": counts}
+        log("phase 20 (b): f32 %s (batch %d, %dx%d) gradients and aux, K2/K3 vs plain: worst "
+            "err %.3g of max (rtol = atol = 1e-3) over %d tensors; held to 3x the plain "
+            "run-to-run spread: %s; launches %s" % (name, ZOO_GRAD_BATCH, side, side, worst_g,
+                                                   held, json.dumps(noisy), json.dumps(counts)))
+        del params, aux, data, label
+        torch.cuda.empty_cache()
+    # (c) training at the published batch and side (main path 7)
+    res["train"], launches = [], dict.fromkeys(("conv_bwd_filter", "conv_bwd_input"), 0)
+    for name, (spec, dtypes) in zoo.items():
+        for dtype in dtypes:
+            zero_counts(kernels)  # counts from here are this row's
+            row = model_sweep.run_row(name, dtype, ZOO_STEPS, dev, model=spec,
+                                      lr=ZOO_LR.get(name, model_sweep.resnet_bench.LR))
+            counts = conv_counts(kernels)
+            want = (1 + ZOO_STEPS) * row["in_envelope_convs"]
+            assert counts == dict.fromkeys(counts, want), (name, dtype, counts, want)
+            row["launches"] = counts
+            for k in launches:
+                launches[k] += counts[k]
+            res["train"].append(row)
+            log("phase 20 (c): %s %s batch %d: %s" % (name, dtype, row["batch"],
+                                                      json.dumps(row)))
+    # (d) inception-v3's conv gradients in one f32 step against cuDNN
+    shapes = zoo_conv_shapes(model_sweep, kernels, zoo["inception-v3"][0], "float32")
+    rows = conv_time_rows(kernels, shapes, (torch.float32,), dev, errs,
+                          np.random.default_rng(21))
+    res["inception_v3_f32_step"] = {
+        name: {"launches_per_step": sum(shapes.values()), "distinct_shapes": len(shapes),
+               "launch_weighted_ms_per_step": per_step(shape_rows, "float32"),
+               "library_computes": "torch.nn.grad.%s" % (
+                   "conv2d_weight" if name == "conv_bwd_filter" else "conv2d_input"),
+               "shapes": shape_rows}
+        for name, shape_rows in rows.items()}
+    log("phase 20 (d): inception-v3 f32 batch 32, K2/K3 against cuDNN (TF32 off), a step: %s"
+        % json.dumps({n: {k: v for k, v in r.items() if k != "shapes"}
+                      for n, r in res["inception_v3_f32_step"].items()}))
+    return res, launches
 
 
 def _rtc_errors(out, want, dtype):
@@ -2081,7 +2273,7 @@ def phase_fit_resnet_amp(mx, kernels, dev, plan):
     mod = mx.mod.Module(resnet.get_symbol(), context=mx.gpu(0),
                         mesh=mx.parallel.make_mesh(dp=4, devices=[mx.gpu(0)] * 4))
     losses, stamps = [], []
-    from mxnet_tpu_torch.tools import resnet_bench
+    from mxnet_tpu_torch.tools import model_sweep, resnet_bench
 
     def on_batch(param):
         prob = mod.get_outputs()[0]._data
@@ -2168,7 +2360,7 @@ def profile_fit_steps(mod, batch, steps=2):
     :func:`profile_summary` (resnet_bench's families, K1 apart)."""
     import torch
 
-    from mxnet_tpu_torch.tools import resnet_bench
+    from mxnet_tpu_torch.tools import model_sweep, resnet_bench
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -2259,10 +2451,11 @@ def main(argv=None):
     ap.add_argument("--out", help="also write every phase's numbers to this JSON file")
     ap.add_argument("--package", help="import mxnet_tpu_torch from this checkout instead of the "
                     "one beside this script (to run this script's phases on another tree)")
-    ap.add_argument("--only", choices=("f32_lm", "rtc", "slab"),
+    ap.add_argument("--only", choices=("f32_lm", "rtc", "slab", "zoo"),
                     help="f32_lm: build, phase 19 and phase 8's attention kernel times only; "
                     "rtc: K5's push path on ResNet-50's parameter arrays only; slab: K1's "
-                    "build, phases 16-18 and K1's times only")
+                    "build, phases 16-18 and K1's times only; zoo: K2/K3's build and "
+                    "phase 20 only")
     args = ap.parse_args(argv)
 
     import torch
@@ -2279,7 +2472,7 @@ def main(argv=None):
     from mxnet_tpu_torch.models import transformer as tfm
     from mxnet_tpu_torch.ops import _build, kernels
     from mxnet_tpu_torch.serving import GenerationEngine
-    from mxnet_tpu_torch.tools import resnet_bench
+    from mxnet_tpu_torch.tools import model_sweep, resnet_bench
 
     # f32 products stay f32 (no TF32) in the plain versions and the f32 model
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2309,6 +2502,11 @@ def main(argv=None):
         results["build_s"] = time.perf_counter() - t0
         phase_slab_path(mx, resnet, kernels, dev, results)
         results["kernels"] = [results.pop("k1_entry")]
+    if args.only == "zoo":
+        t0 = time.perf_counter()
+        _build.build(["conv_bwd_filter"])
+        results["build_s"] = time.perf_counter() - t0
+        results["zoo"], results["zoo_launches"] = phase_zoo(model_sweep, kernels, dev)
     if args.only:
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -2346,6 +2544,8 @@ def main(argv=None):
     phase_slab_path(mx, resnet, kernels, dev, results)
     conv_launches = {name: conv_launches[name] + results["fit_resnet_amp"]["launches"][name]
                      for name in conv_launches}
+    results["zoo"], zoo_launches = phase_zoo(model_sweep, kernels, dev)
+    conv_launches = {name: conv_launches[name] + zoo_launches[name] for name in conv_launches}
     # the f32 kernels' launches in phases 4, 5 and 19
     f32_launches = {name: n + results["training_f32_full"]["launches"][name]
                     for name, n in results["training_f32"]["launches"].items()}
@@ -2356,8 +2556,15 @@ def main(argv=None):
     fwd[0]["launches_by_path"] = {"serving": fwd[0]["launches"],
                                   "training": train_launches["flash_attn_fwd"]}
     fwd[0]["launches"] += train_launches["flash_attn_fwd"]
+    conv_entries = phase_conv_times(kernels, resnet, dev, conv_launches, conv_errs)
+    for entry in conv_entries:
+        # phase 20: the zoo's training launches and inception-v3's f32 step
+        step = results["zoo"]["inception_v3_f32_step"][entry["name"]]
+        entry["zoo"] = {"launches": zoo_launches[entry["name"]],
+                        "inception_v3_f32_step": {k: v for k, v in step.items()
+                                                  if k != "shapes"}}
     kernel_line = {"kernels": fwd + phase_bwd_times(kernels, dev, train_launches, f32_launches)
-                   + phase_conv_times(kernels, resnet, dev, conv_launches, conv_errs)
+                   + conv_entries
                    + phase_rtc_times(mx, rk, rtc_runs, results["rtc_training"], dev)
                    + [results.pop("k1_entry")],
                    "card": card}

@@ -1,6 +1,6 @@
-"""A/B of the conv-gradient kernels (K2 ``conv_wgrad_sm90``, and in f32 K3
-``conv_dgrad_sm90`` too) against variants of their own source, in one
-process on one CUDA card.
+"""A/B of the conv-gradient kernels (K2 ``conv_wgrad_sm90`` and K3
+``conv_dgrad_sm90``) against variants of their own source, in one process
+on one CUDA card.
 
     python3 conv_ab.py [--out r.json] [--rounds 2] [--profile] [--deep]
                        [--dtypes bfloat16,float32]
@@ -13,21 +13,19 @@ by ``mxnet_tpu_torch.tools.source_ab`` (the package's own ``_build``, one
 ``kernels.wgrad_splits_sm90`` told the variant's CTA (``RULES``):
 
 - ``as_built``: the sources as they are (CTAs of two warpgroups, 128 o,
-  where O > 64; f32: a ring of 4 stages where they fit, 3 at 128 o x
-  128 c, the products of 8 k steps summed in a second accumulator and
-  then added into the first on the CUDA cores);
+  where O > 64; the products of 8 k steps summed in a second accumulator
+  and then added into the first on the CUDA cores; f32: a ring of 4
+  stages where they fit, 3 at 128 o x 128 c);
 - ``one_warpgroup``: CTAs of one warpgroup, 64 o, at every O (bf16);
 - ``three_stages``: a ring of 3 stages, not 4, so more CTAs fit an SM
-  (bf16 K2; f32 K2 and K3, where two f32 CTAs of 64 o x 64 c then fit an
-  SM);
+  (bf16; f32, where two f32 CTAs of 64 o x 64 c then fit an SM);
 - ``scalar_transpose``: every layout transpose through the 32 x 32 tile
   of 2-byte loads and stores, not the 64 x 64 one of 4-byte pairs (bf16);
-- ``promote_4``, ``promote_16`` (f32): the products of 4 (16) k steps,
-  not 8, summed in the second accumulator before it is added into the
-  first;
-- ``no_promotion`` (f32): every k step of a CTA in the second
-  accumulator, added into the first once, after the last (the tensor
-  cores' sum alone, as before the promotion).
+- ``promote_4``, ``promote_16``: the products of 4 (16) k steps, not 8,
+  summed in the second accumulator before it is added into the first;
+- ``no_promotion``: every k step of a CTA in the second accumulator,
+  added into the first once, after the last (the tensor cores' sum alone,
+  the way the kernels summed before they promoted).
 
 The entry points ``mxtt_conv_bwd_filter`` (and ``mxtt_conv_bwd_input``)
 are called directly with the wrappers' allocations (where g and x are not
@@ -47,8 +45,9 @@ launch-weighted ms of a batch-32 step. ``--profile`` then traces five
 calls a shape of ``as_built`` and of cuDNN with ``torch.profiler`` (L2
 flushed before each) and prints the device ms of one call per kernel: the
 layout passes, the first pass and the reduce apart. ``--deep`` then runs
-every f32 variant at ``chip_smoke.CONV_DEEP`` (batch 256, the longest
-sums) and prints each kernel's error against the plain version and its
+every f32 variant at ``chip_smoke.CONV_DEEP`` (the longest sums:
+ResNet-50's at batch 256, AlexNet's conv2 at 512) and prints each
+kernel's error against the plain version and its
 device ms, K2 also at fewer k steps a split (``DEEP_PER``), the bf16
 kernels' error there, and the plain version's own error against f64.
 """
@@ -79,11 +78,11 @@ VARIANTS = {
     # every k step of a CTA into part, added into acc once, after the last
     "no_promotion": [("conv_bwd.cu", _PROMOTE, _PROMOTE.replace("8", "1 << 30"))],
 }
-# name: the dtypes its kernels are checked and timed in (bf16: K2; f32: K2
-# and K3)
+# name: the dtypes its kernels (K2 and K3) are checked and timed in
 DTYPES = {"as_built": ("bfloat16", "float32"), "one_warpgroup": ("bfloat16",),
           "three_stages": ("bfloat16", "float32"), "scalar_transpose": ("bfloat16",),
-          "promote_4": ("float32",), "promote_16": ("float32",), "no_promotion": ("float32",)}
+          "promote_4": ("float32",), "promote_16": ("float32",),
+          "no_promotion": ("bfloat16", "float32")}
 # --deep: the k steps a split K2 is also run at (those below its plan)
 DEEP_PER = (448, 224, 112, 56)
 # name: the arguments of kernels.wgrad_splits_sm90 that describe its CTA
@@ -175,7 +174,7 @@ def deep_sweep(fns, names, kernels, dev, sms, flush):
                 row.setdefault(name, {})[tag] = {"rel_err": err, "ms": ms}
                 print("deep %s %s %s: rel_err %.3g, %.4f ms" % (name, key, tag, err, ms),
                       flush=True)
-        # bf16 as built (one accumulator: its products are exact in f32)
+        # bf16 as built (promoted every kPromoteSteps k steps, as f32 is)
         xb, wb, gb = (t.bfloat16() for t in (x, w, g))
         filt, inp = fns["as_built"]
         for tag, got, want in (
@@ -258,10 +257,8 @@ def main(argv=None):
     def calls(name, dtype, x, w, g, dshape, wshape, pad):
         """{kernel: a call of the variant's kernel} timed in dtype."""
         filt, inp = fns[name]
-        out = {"K2": lambda: launch(filt, kernels, x, g, wshape, pad, RULES.get(name, {}), sms)}
-        if dtype == "float32":
-            out["K3"] = lambda: launch_input(inp, kernels, g, w, dshape, pad)
-        return out
+        return {"K2": lambda: launch(filt, kernels, x, g, wshape, pad, RULES.get(name, {}), sms),
+                "K3": lambda: launch_input(inp, kernels, g, w, dshape, pad)}
 
     def plain(kernel, x, w, g, dshape, wshape, pad):
         if kernel == "K2":
@@ -307,9 +304,8 @@ def main(argv=None):
             dshape, wshape, pad = key
             cudnn["K2 %s" % (key,)] = chip_smoke.device_ms(
                 lambda: conv2d_weight(x, wshape, g, padding=pad), 10, 2, flush)
-            if dtype == "float32":
-                cudnn["K3 %s" % (key,)] = chip_smoke.device_ms(
-                    lambda: conv2d_input(dshape, w, g, padding=pad), 10, 2, flush)
+            cudnn["K3 %s" % (key,)] = chip_smoke.device_ms(
+                lambda: conv2d_input(dshape, w, g, padding=pad), 10, 2, flush)
         kinds = sorted({k.split(" ")[0] for k in cudnn})
         per_step = {"%s %s" % (kernel, name): sum(median[name]["%s %s" % (kernel, key)] * count
                                                   for key, count in shapes.items())
@@ -332,8 +328,7 @@ def main(argv=None):
                 sides = {"as_built %s" % k: c for k, c in
                          calls("as_built", dtype, x, w, g, *key).items()}
                 sides["cudnn K2"] = lambda: conv2d_weight(x, wshape, g, padding=pad)
-                if dtype == "float32":
-                    sides["cudnn K3"] = lambda: conv2d_input(dshape, w, g, padding=pad)
+                sides["cudnn K3"] = lambda: conv2d_input(dshape, w, g, padding=pad)
                 profile[str(key)] = {side: kernel_ms(fn, flush) for side, fn in sides.items()}
                 print("profile %s %s x%d: %s" % (dtype, key, count, json.dumps(
                     {side: {k: round(v, 5) for k, v in r.items()}

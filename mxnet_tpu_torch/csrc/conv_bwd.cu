@@ -82,7 +82,11 @@
 //     hi * hi alone in it. So the products of kPromoteSteps k steps go into
 //     that accumulator, which is then added into a second on the CUDA
 //     cores (an f32 add, rounded to nearest) and zeroed: 4-8e-6 of max at
-//     every depth measured, for under 1% of the time. The layout pass
+//     every depth measured, for under 1% of the time. bf16 (kP = 1) sums
+//     the same way: one accumulator over the 4096 k steps a split of K2
+//     at AlexNet's conv2 (512 x 96 x 26 x 26 5 x 5) reached 2.3e-4 of
+//     max, and 1.9-2.7e-5 at inception-v3's 147 x 147 and 73 x 73 3 x 3
+//     at batch 32 (chip_smoke.py phase 20). The layout pass
 //     (transpose_bf16_split) reads each f32 value once and writes its two
 //     2-byte planes, as many bytes as an f32 channels-last copy. A stage
 //     of the ring holds A_hi, A_lo, B_hi and B_lo, twice a bf16 stage's
@@ -197,18 +201,18 @@ struct ConvMaps {
   CUtensorMap a[kP], b[kP];
 };
 
-// split f32 (kP = 2): the k steps whose products part sums before it is
-// added into acc
+// the k steps whose products part sums before it is added into acc (bf16
+// and split f32 alike)
 constexpr int kPromoteSteps = 8;
 
-// After k step kt's wgmma group is committed: for split f32, every
-// kPromoteSteps steps and after the last, wait for every group, add part
-// into acc in f32 (rounded to nearest) and zero it; else wait until only
-// step kt's group is in flight (step kt - 1 is done). Every CTA takes the
-// same steps, so a repeat gives the same bits.
-template <int kP, int N>
+// After k step kt's wgmma group is committed: every kPromoteSteps steps
+// and after the last, wait for every group, add part into acc in f32
+// (rounded to nearest) and zero it; else wait until only step kt's group
+// is in flight (step kt - 1 is done). Every CTA takes the same steps, so a
+// repeat gives the same bits.
+template <int N>
 __device__ __forceinline__ void retire_step(float (&acc)[N], float (&part)[N], int kt, int n_k) {
-  if (kP == 2 && ((kt + 1) % kPromoteSteps == 0 || kt + 1 == n_k)) {
+  if ((kt + 1) % kPromoteSteps == 0 || kt + 1 == n_k) {
     wgmma_wait<0>();
     fence_regs(part);
 #pragma unroll
@@ -282,25 +286,24 @@ __global__ void __launch_bounds__(kThreads)
       conv_load(ring, maps, q, kt, chunks, n, y0, x0, c0);
   __syncwarp();
 
-  // the wgmma accumulate into sum: acc (bf16) or part (split f32)
+  // the wgmma accumulate into part, which retire_step adds into acc
   float acc[kN / 2], part[kN / 2];
 #pragma unroll
   for (int i = 0; i < kN / 2; ++i) acc[i] = part[i] = 0.f;
-  float (&sum)[kN / 2] = kP == 2 ? part : acc;
   for (int kt = 0; kt < n_k; ++kt) {
     const int s = kt % Ring::kStages;
     mbar_wait(ring.full(s), (kt / Ring::kStages) & 1);
-    fence_regs(sum);
+    fence_regs(part);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kChunk / 16; ++kk)
       plane_products<kP>([&](int pa, int pb) {
-        wgmma_ss_acc(sum, desc_kmajor<64>(ring.a_tile(s, pa), kk),
+        wgmma_ss_acc(part, desc_kmajor<64>(ring.a_tile(s, pa), kk),
                      desc_kmajor<64>(ring.b_tile(s, pb), kk));
       });
     wgmma_commit();
-    retire_step<kP>(acc, part, kt, n_k);  // step kt - 1 is done: release its stage
-    fence_regs(sum);
+    retire_step(acc, part, kt, n_k);  // step kt - 1 is done: release its stage
+    fence_regs(part);
     if (kt > 0) {
       const int done = kt - 1, sd = done % Ring::kStages;
       mbar_arrive(ring.empty(sd));
@@ -624,29 +627,28 @@ __global__ void __launch_bounds__(kThreads * kW)
       wgrad_load<kN, kW, kNchw, kP>(ring, maps, p, kt, first + kt, o0, c0, i - q.ph, j - q.pw);
   __syncwarp();
 
-  // the wgmma accumulate into sum: acc (bf16) or part (split f32)
+  // the wgmma accumulate into part, which retire_step adds into acc
   float acc[kN / 2], part[kN / 2];
 #pragma unroll
   for (int e = 0; e < kN / 2; ++e) acc[e] = part[e] = 0.f;
-  float (&sum)[kN / 2] = kP == 2 ? part : acc;
   for (int kt = 0; kt < n_k; ++kt) {
     const int s = kt % Ring::kStages;
     mbar_wait(ring.full(s), (kt / Ring::kStages) & 1);
-    fence_regs(sum);
+    fence_regs(part);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kChunk / 16; ++kk)
       plane_products<kP>([&](int pa, int pb) {
         if constexpr (kNchw)
-          wgmma_ss_acc(sum, desc_kmajor<64>(ring.a_tile(s, pa) + wg * kBox, kk),
+          wgmma_ss_acc(part, desc_kmajor<64>(ring.a_tile(s, pa) + wg * kBox, kk),
                        desc_kmajor<64>(ring.b_tile(s, pb), kk));
         else
-          wgmma_ss_mn(sum, desc_mnmajor<64>(ring.a_tile(s, pa) + wg * kBox, kk),
+          wgmma_ss_mn(part, desc_mnmajor<64>(ring.a_tile(s, pa) + wg * kBox, kk),
                       desc_mnmajor<kN>(ring.b_tile(s, pb), kk));
       });
     wgmma_commit();
-    retire_step<kP>(acc, part, kt, n_k);  // step kt - 1 is done: release its stage
-    fence_regs(sum);
+    retire_step(acc, part, kt, n_k);  // step kt - 1 is done: release its stage
+    fence_regs(part);
     if (kt > 0) {
       const int done = kt - 1, sd = done % Ring::kStages;
       mbar_arrive(ring.empty(sd));

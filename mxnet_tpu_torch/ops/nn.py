@@ -1,7 +1,10 @@
-"""Neural-network layer operators of the PyTorch port (the part of
-``mxnet_tpu/ops/nn.py`` ResNet needs): Activation, FullyConnected,
-Convolution, Pooling, BatchNorm and SoftmaxOutput, under the JAX
-package's names, arguments and defaults.
+"""Neural-network layer operators of the PyTorch port (counterpart of
+``mxnet_tpu/ops/nn.py``): Activation, LeakyReLU, FullyConnected,
+Convolution, Deconvolution, Pooling, BatchNorm, InstanceNorm,
+L2Normalization, LRN, Dropout, softmax, log_softmax, SoftmaxActivation,
+the loss heads (SoftmaxOutput, the regression outputs, SVMOutput,
+MakeLoss, softmax_cross_entropy), UpSampling, SequenceLast/Mask/Reverse
+and Crop, under the JAX package's names, arguments and defaults.
 
 - Convolution's forward is ``F.conv2d``, as the JAX package leaves its
   forward to XLA. Its gradient, for 2-D shapes inside
@@ -11,13 +14,20 @@ package's names, arguments and defaults.
   takes its Pallas pair only under ``MXTPU_CONV_KERNEL=pallas``. Other
   shapes use autograd's own conv backward. The XLA layout levers
   ``MXNET_CONV_S2D`` / ``MXNET_CONV_BWD_LAYOUT`` / ``MXNET_CONV_WGRAD`` are
-  not read: the port takes the default path.
+  not read: the port takes the default path. Deconvolution is
+  ``F.conv_transpose*`` on the reference's (C_in, C_out/g, *K) weight, as
+  the JAX package lowers it through XLA.
 - BatchNorm keeps the JAX semantics, not ``F.batch_norm``'s: one-pass f32
   stats with the biased variance E[x²] − mean² clamped at 0, the closed-form
   backward of ``_bn_train_core``, and moving stats
   new = m·old + (1−m)·batch returned as trailing aux outputs.
-- SoftmaxOutput's backward ignores the incoming gradient, as the reference
-  contract wants: softmax − onehot(label), scaled and normalized.
+- The loss heads' backward ignores the incoming gradient, as the reference
+  contract wants: SoftmaxOutput's is softmax − onehot(label), scaled and
+  normalized; the others' are the reference's closed forms.
+- Dropout and rrelu draw from the ``torch.Generator`` the graph program
+  hands to ``needs_rng`` nodes, so their masks and slopes cannot match
+  JAX's threefry bits (ROADMAP, Queue 3); the keep rate, the 1/keep
+  scaling and the slope range are JAX's, and one seed gives one mask.
 """
 from __future__ import annotations
 
@@ -29,7 +39,7 @@ from ..base import MXNetError
 from . import kernels
 from .elemwise import elemwise_backward_infer
 from .registry import OpDef, register
-from .utils import as_tuple, same_shape_infer
+from .utils import as_tuple, same_shape_infer, scalar_like
 
 _ACT = {
     "relu": torch.relu,
@@ -49,6 +59,50 @@ register(
         backward_infer_shape=elemwise_backward_infer,
     )
 )
+
+
+def _leaky_relu(attrs, ins, is_train):
+    act = attrs.get("act_type", "leaky")
+    slope = float(attrs.get("slope", 0.25))
+    x = ins[0]
+    if act == "leaky":
+        return [torch.where(x > 0, x, slope * x)]
+    if act == "elu":
+        return [torch.where(x > 0, x, slope * (torch.exp(x) - 1.0))]
+    if act == "prelu":
+        gamma = ins[1].reshape((1, -1) + (1,) * (x.dim() - 2))
+        return [torch.where(x > 0, x, gamma * x)]
+    if act == "rrelu":
+        lo = float(attrs.get("lower_bound", 0.125))
+        up = float(attrs.get("upper_bound", 0.334))
+        if is_train:
+            # an f32 slope an element in [lo, up), as jax.random.uniform draws it
+            gen = attrs["__rng__"]
+            slope_r = lo + (up - lo) * torch.rand(x.shape, generator=gen, device=gen.device)
+            return [torch.where(x > 0, x, slope_r * x)]
+        return [torch.where(x > 0, x, ((lo + up) / 2.0) * x)]
+    raise MXNetError("LeakyReLU: unknown act_type %s" % act)
+
+
+def _leaky_relu_infer(attrs, in_shapes):
+    d = tuple(in_shapes[0])
+    if attrs.get("act_type", "leaky") == "prelu":
+        return [d, (d[1],)], [d], []
+    return [d], [d], []
+
+
+_lrelu = OpDef(
+    "LeakyReLU",
+    _leaky_relu,
+    arguments=("data",),
+    defaults={"act_type": "leaky", "slope": 0.25, "lower_bound": 0.125, "upper_bound": 0.334},
+    infer_shape=_leaky_relu_infer,
+    needs_rng=True,
+)
+_lrelu.list_arguments = lambda attrs=None: (
+    ["data", "gamma"] if (attrs or {}).get("act_type") == "prelu" else ["data"]
+)
+register(_lrelu)
 
 
 # --------------------------------------------------------------------------
@@ -197,7 +251,67 @@ register(_conv)
 
 
 # --------------------------------------------------------------------------
-# Pooling (2-D)
+# Deconvolution: the transpose of a strided convolution, weight
+# (C_in, C_out/g, *K) as in the reference
+# --------------------------------------------------------------------------
+_CONV_T_FN = {1: F.conv_transpose1d, 2: F.conv_transpose2d, 3: F.conv_transpose3d}
+
+
+def _deconvolution(attrs, ins, is_train):
+    kernel, stride, dilate, pad = _conv_dims(attrs)
+    nd = len(kernel)
+    groups = int(attrs.get("num_group", 1))
+    adj = as_tuple(attrs.get("adj") or (0,) * nd, nd, "adj")
+    out = _CONV_T_FN[nd](ins[0], ins[1], None, stride, pad, adj, groups, dilate)
+    if not bool(attrs.get("no_bias", True)):
+        out = out + ins[2].reshape((1, -1) + (1,) * nd)
+    return [out]
+
+
+def _deconv_infer(attrs, in_shapes):
+    kernel, stride, dilate, pad = _conv_dims(attrs)
+    nd = len(kernel)
+    nf = int(attrs["num_filter"])
+    groups = int(attrs.get("num_group", 1))
+    no_bias = bool(attrs.get("no_bias", True))
+    adj = as_tuple(attrs.get("adj") or (0,) * nd, nd, "adj")
+    dshape = in_shapes[0]
+    wshape = (dshape[1], nf // groups) + kernel
+    out_sp = tuple(
+        stride[i] * (dshape[2 + i] - 1) + (dilate[i] * (kernel[i] - 1) + 1) - 2 * pad[i] + adj[i]
+        for i in range(nd)
+    )
+    oshape = (dshape[0], nf) + out_sp
+    shapes = [tuple(dshape), wshape] + ([] if no_bias else [(nf,)])
+    return shapes, [oshape], []
+
+
+_deconv = OpDef(
+    "Deconvolution",
+    _deconvolution,
+    arguments=("data", "weight", "bias"),
+    defaults={
+        "kernel": (1, 1),
+        "stride": None,
+        "dilate": None,
+        "pad": None,
+        "adj": None,
+        "target_shape": None,
+        "num_filter": 1,
+        "num_group": 1,
+        "no_bias": True,
+        "workspace": 512,
+    },
+    infer_shape=_deconv_infer,
+)
+_deconv.list_arguments = lambda attrs=None: (
+    ["data", "weight"] if (attrs or {}).get("no_bias", True) else ["data", "weight", "bias"]
+)
+register(_deconv)
+
+
+# --------------------------------------------------------------------------
+# Pooling over 1, 2 or 3 spatial dims
 # --------------------------------------------------------------------------
 def _pool_out_dim(x, k, s, p, convention):
     if convention == "full":
@@ -205,13 +319,24 @@ def _pool_out_dim(x, k, s, p, convention):
     return (x + 2 * p - k) // s + 1
 
 
+_MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+
+
+def _sum_pool(x, kernel, stride):
+    """Window sums of ``x`` (N, C, *spatial) with no padding, summed in
+    f32 for bf16 (``avg_pool``'s accumulator); 1-D through the 2-D pool."""
+    if x.dim() == 3:
+        return F.avg_pool2d(x[:, :, None], (1,) + kernel, (1,) + stride,
+                            divisor_override=1)[:, :, 0]
+    pool = F.avg_pool2d if x.dim() == 4 else F.avg_pool3d
+    return pool(x, kernel, stride, divisor_override=1)
+
+
 def _pooling(attrs, ins, is_train):
     data = ins[0]
     nd = data.dim() - 2
-    if nd != 2:
-        raise NotImplementedError(
-            "Pooling over %d spatial dims is not ported to PyTorch yet "
-            "(mxnet_tpu/ops/nn.py:747 handles any rank)" % nd)
+    if nd not in _MAX_POOL:
+        raise MXNetError("Pooling: data must be 3-D to 5-D, got %dD" % data.dim())
     global_pool = bool(attrs.get("global_pool", False))
     if global_pool:
         kernel = tuple(data.shape[2:])
@@ -231,19 +356,20 @@ def _pooling(attrs, ins, is_train):
             max(0, (_pool_out_dim(data.shape[2 + i], kernel[i], stride[i], pad[i], "full") - 1)
                 * stride[i] + kernel[i] - (data.shape[2 + i] + 2 * pad[i]))
             for i in range(nd))
-    widths = (pad[1], pad[1] + hi_extra[1], pad[0], pad[0] + hi_extra[0])
+    # F.pad's widths run from the last dim back
+    widths = tuple(w for i in reversed(range(nd)) for w in (pad[i], pad[i] + hi_extra[i]))
     if ptype == "max":
         xpad = F.pad(data, widths, value=-float("inf"))
-        return [F.max_pool2d(xpad, kernel, stride)]
+        return [_MAX_POOL[nd](xpad, kernel, stride)]
     if ptype in ("avg", "sum"):
-        out = F.avg_pool2d(F.pad(data, widths), kernel, stride, divisor_override=1)
+        out = _sum_pool(F.pad(data, widths), kernel, stride)
         if ptype == "avg":
             # divisor = window area clipped to the PADDED extent (padding
             # counts toward the average, the "full" extension does not)
             ones = torch.ones((1, 1) + tuple(data.shape[2 + i] + 2 * pad[i] for i in range(nd)),
                               dtype=torch.float32, device=data.device)
-            counts = F.avg_pool2d(F.pad(ones, (0, hi_extra[1], 0, hi_extra[0])), kernel, stride,
-                                  divisor_override=1)
+            extra = tuple(w for i in reversed(range(nd)) for w in (0, hi_extra[i]))
+            counts = _sum_pool(F.pad(ones, extra), kernel, stride)
             out = (out / counts).to(data.dtype)
         return [out]
     raise MXNetError("Pooling: unknown pool_type %s" % ptype)
@@ -398,6 +524,160 @@ register(_bn)
 
 
 # --------------------------------------------------------------------------
+# InstanceNorm / L2Normalization / LRN
+# --------------------------------------------------------------------------
+def _instance_norm(attrs, ins, is_train):
+    data, gamma, beta = ins
+    eps = float(attrs.get("eps", 1e-3))
+    ax = tuple(range(2, data.dim()))
+    mean = data.mean(dim=ax, keepdim=True)
+    var = torch.square(data - mean).mean(dim=ax, keepdim=True)
+    bshape = (1, -1) + (1,) * (data.dim() - 2)
+    return [(data - mean) * torch.rsqrt(var + eps) * gamma.reshape(bshape)
+            + beta.reshape(bshape)]
+
+
+register(
+    OpDef(
+        "InstanceNorm",
+        _instance_norm,
+        arguments=("data", "gamma", "beta"),
+        defaults={"eps": 1e-3},
+        infer_shape=lambda attrs, in_shapes: (
+            [tuple(in_shapes[0]), (in_shapes[0][1],), (in_shapes[0][1],)],
+            [tuple(in_shapes[0])],
+            [],
+        ),
+    )
+)
+
+
+def _l2_normalization(attrs, ins, is_train):
+    data = ins[0]
+    eps = float(attrs.get("eps", 1e-10))
+    mode = attrs.get("mode", "instance")
+    if mode == "instance":
+        ax = tuple(range(1, data.dim()))
+    elif mode == "channel":
+        ax = (1,)
+    elif mode == "spatial":
+        ax = tuple(range(2, data.dim()))
+    else:
+        raise MXNetError("L2Normalization: unknown mode %s" % mode)
+    norm = torch.sqrt(torch.square(data).sum(dim=ax, keepdim=True) + eps)
+    return [data / norm]
+
+
+register(
+    OpDef(
+        "L2Normalization",
+        _l2_normalization,
+        arguments=("data",),
+        defaults={"eps": 1e-10, "mode": "instance"},
+        infer_shape=same_shape_infer(1),
+    )
+)
+
+
+def _lrn(attrs, ins, is_train):
+    """x·(knorm + alpha/nsize·Σ window x²)^−beta over a zero-padded window
+    of nsize channels, in the input's dtype, as the JAX package computes
+    it."""
+    x = ins[0]
+    nsize = int(attrs.get("nsize", 5))
+    alpha = float(attrs.get("alpha", 1e-4))
+    beta = float(attrs.get("beta", 0.75))
+    knorm = float(attrs.get("knorm", 2.0))
+    half = nsize // 2
+    # F.pad's widths run from the last dim back to the channel dim
+    sq_pad = F.pad(torch.square(x), (0, 0) * (x.dim() - 2) + (half, half))
+    window = torch.stack([sq_pad[:, i:i + x.shape[1]] for i in range(nsize)]).sum(dim=0)
+    # the constants in x's dtype, as JAX's weakly typed scalars are
+    base = scalar_like(knorm, x) + scalar_like(alpha / nsize, x) * window
+    return [x * torch.pow(base, scalar_like(-beta, x))]
+
+
+register(
+    OpDef(
+        "LRN",
+        _lrn,
+        arguments=("data",),
+        defaults={"nsize": 5, "alpha": 1e-4, "beta": 0.75, "knorm": 2.0},
+        infer_shape=same_shape_infer(1),
+    )
+)
+
+
+# --------------------------------------------------------------------------
+# Dropout: scale at train time, identity at inference
+# --------------------------------------------------------------------------
+def _dropout(attrs, ins, is_train):
+    p = float(attrs.get("p", 0.5))
+    x = ins[0]
+    if not is_train or p <= 0.0:
+        return [x]
+    gen = attrs["__rng__"]
+    keep = 1.0 - p
+    mask = torch.rand(x.shape, generator=gen, device=gen.device) < keep
+    # JAX divides by keep in x's dtype (bf16: keep rounded to bf16 first)
+    return [torch.where(mask, x / scalar_like(keep, x), torch.zeros_like(x))]
+
+
+register(
+    OpDef(
+        "Dropout",
+        _dropout,
+        arguments=("data",),
+        defaults={"p": 0.5, "mode": "training"},
+        infer_shape=same_shape_infer(1),
+        needs_rng=True,
+    )
+)
+
+
+# --------------------------------------------------------------------------
+# softmax / log_softmax / SoftmaxActivation
+# --------------------------------------------------------------------------
+register(
+    OpDef(
+        "softmax",
+        lambda attrs, ins, is_train: [torch.softmax(ins[0], dim=int(attrs.get("axis", -1)))],
+        arguments=("data",),
+        defaults={"axis": -1, "temperature": None},
+        infer_shape=same_shape_infer(1),
+    )
+)
+register(
+    OpDef(
+        "log_softmax",
+        lambda attrs, ins, is_train: [
+            torch.log_softmax(ins[0], dim=int(attrs.get("axis", -1)))],
+        arguments=("data",),
+        defaults={"axis": -1, "temperature": None},
+        infer_shape=same_shape_infer(1),
+    )
+)
+
+
+def _softmax_activation(attrs, ins, is_train):
+    x = ins[0]
+    if attrs.get("mode", "instance") == "channel":
+        return [torch.softmax(x, dim=1)]
+    return [torch.softmax(x.reshape(x.shape[0], -1), dim=-1).reshape(x.shape)]
+
+
+register(
+    OpDef(
+        "SoftmaxActivation",
+        _softmax_activation,
+        arguments=("data",),
+        defaults={"mode": "instance"},
+        infer_shape=same_shape_infer(1),
+    )
+)
+
+
+# --------------------------------------------------------------------------
 # SoftmaxOutput — a loss head whose backward ignores the head gradient
 # --------------------------------------------------------------------------
 def _normalize_grad(grad, label, attrs, valid_mask=None):
@@ -486,5 +766,331 @@ register(
         infer_shape=_softmax_output_infer,
         need_top_grad=False,
         aliases=("Softmax",),
+    )
+)
+
+
+# --------------------------------------------------------------------------
+# The other loss heads: forward as given, a backward that ignores the head
+# gradient (reference regression_output-inl.h, svm_output-inl.h,
+# make_loss-inl.h)
+# --------------------------------------------------------------------------
+def _onehot(label, depth, like):
+    """onehot(int(label)) in ``like``'s dtype, all zeros for an
+    out-of-range label, as ``jax.nn.one_hot`` makes it."""
+    lbl = label.to(torch.int32).long()
+    return (lbl.unsqueeze(-1) == torch.arange(depth, device=like.device)).to(like.dtype)
+
+
+class _LossHead(torch.autograd.Function):
+    """A loss head, as the JAX package's ``custom_vjp`` cores make one: the
+    forward is ``act(data)``; the backward ignores the head gradient and
+    hands data ``grad_fn(out, label)`` and label (when given) zeros."""
+
+    @staticmethod
+    def forward(ctx, data, label, act, grad_fn):
+        out = act(data)
+        ctx.grad_fn = grad_fn
+        ctx.save_for_backward(out, label)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        out, label = ctx.saved_tensors
+        dlabel = torch.zeros_like(label) if ctx.needs_input_grad[1] else None
+        return ctx.grad_fn(out, label).to(out.dtype), dlabel, None, None
+
+
+def _identity(x):
+    return x
+
+
+_REGRESSION = {
+    # name: (forward activation, backward from (out, label))
+    "LinearRegressionOutput": (_identity, lambda o, l: o - l),
+    "LogisticRegressionOutput": (torch.sigmoid, lambda o, l: o - l),
+    "MAERegressionOutput": (_identity, lambda o, l: torch.sign(o - l)),
+}
+
+
+def _make_output_op(name):
+    act, bwd_fn = _REGRESSION[name]
+
+    def fcompute(attrs, ins, is_train):
+        grad_scale = float(attrs.get("grad_scale", 1.0))
+
+        def grad_fn(out, label):
+            n = float(np.prod(out.shape[1:])) if out.dim() > 1 else 1.0
+            return bwd_fn(out, label.reshape(out.shape)) * (grad_scale / n)
+
+        return [_LossHead.apply(ins[0], ins[1], act, grad_fn)]
+
+    register(
+        OpDef(
+            name,
+            fcompute,
+            arguments=("data", "label"),
+            defaults={"grad_scale": 1.0},
+            infer_shape=lambda attrs, in_shapes: (
+                [tuple(in_shapes[0]), tuple(in_shapes[0])],
+                [tuple(in_shapes[0])],
+                [],
+            ),
+            need_top_grad=False,
+        )
+    )
+
+
+for _name in _REGRESSION:
+    _make_output_op(_name)
+
+
+def _svm_output(attrs, ins, is_train):
+    """Identity forward; the hinge loss's gradient: where the margin is
+    violated, −sign·reg (L1, ``use_linear``) or −2·(margin − sign·x)·sign·reg
+    (L2), with sign +1 at the label's class and −1 elsewhere."""
+    margin = float(attrs.get("margin", 1.0))
+    reg = float(attrs.get("regularization_coefficient", 1.0))
+    use_linear = bool(attrs.get("use_linear", False))
+
+    def grad_fn(data, label):
+        sign = 2.0 * _onehot(label, data.shape[-1], data) - 1.0
+        viol = (margin - sign * data) > 0
+        step = -sign * reg if use_linear else -2.0 * (margin - sign * data) * sign * reg
+        return torch.where(viol, step, torch.zeros_like(data))
+
+    return [_LossHead.apply(ins[0], ins[1], _identity, grad_fn)]
+
+
+register(
+    OpDef(
+        "SVMOutput",
+        _svm_output,
+        arguments=("data", "label"),
+        defaults={"margin": 1.0, "regularization_coefficient": 1.0, "use_linear": False},
+        infer_shape=lambda attrs, in_shapes: (
+            [tuple(in_shapes[0]), (in_shapes[0][0],)],
+            [tuple(in_shapes[0])],
+            [],
+        ),
+        need_top_grad=False,
+    )
+)
+
+
+def _make_loss(attrs, ins, is_train):
+    """Identity forward; the gradient grad_scale everywhere, over the batch
+    under ``normalization="batch"``."""
+    scale = float(attrs.get("grad_scale", 1.0))
+    if attrs.get("normalization", "null") == "batch":
+        scale = scale / ins[0].shape[0]
+    return [_LossHead.apply(ins[0], None, _identity,
+                            lambda out, _: torch.full_like(out, scale))]
+
+
+register(
+    OpDef(
+        "MakeLoss",
+        _make_loss,
+        arguments=("data",),
+        defaults={"grad_scale": 1.0, "valid_thresh": 0.0, "normalization": "null"},
+        infer_shape=same_shape_infer(1),
+        need_top_grad=False,
+    )
+)
+
+
+def _softmax_cross_entropy(attrs, ins, is_train):
+    data, label = ins
+    logp = torch.log_softmax(data, dim=-1)
+    picked = logp.gather(-1, label.to(torch.int32).long()[:, None])
+    return [-picked.sum().reshape(1)]
+
+
+register(
+    OpDef(
+        "softmax_cross_entropy",
+        _softmax_cross_entropy,
+        arguments=("data", "label"),
+        infer_shape=lambda attrs, in_shapes: (
+            [tuple(in_shapes[0]), (in_shapes[0][0],)],
+            [(1,)],
+            [],
+        ),
+    )
+)
+
+
+# --------------------------------------------------------------------------
+# UpSampling (reference upsampling-inl.h): nearest; bilinear as a resize
+# --------------------------------------------------------------------------
+def _upsampling(attrs, ins, is_train):
+    scale = int(attrs["scale"])
+    if attrs.get("sample_type", "nearest") == "nearest":
+        outs = []
+        target = None
+        for x in ins:
+            h, w = x.shape[2], x.shape[3]
+            if target is None:
+                target = (h * scale, w * scale)
+            s = target[0] // h
+            outs.append(x.repeat_interleave(s, dim=2).repeat_interleave(s, dim=3))
+        return [torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]]
+    # bilinear: half-pixel centres, edge samples clamped, as
+    # jax.image.resize samples an upscale; the weight input is not read
+    x = ins[0]
+    return [F.interpolate(x, size=(x.shape[2] * scale, x.shape[3] * scale), mode="bilinear",
+                          align_corners=False)]
+
+
+def _upsampling_infer(attrs, in_shapes):
+    scale = int(attrs["scale"])
+    d0 = in_shapes[0]
+    if attrs.get("sample_type", "nearest") == "bilinear":
+        kernel = 2 * scale - scale % 2
+        wshape = (d0[1], 1, kernel, kernel)
+        return [tuple(d0), wshape], [(d0[0], d0[1], d0[2] * scale, d0[3] * scale)], []
+    c = sum(s[1] for s in in_shapes)
+    return [tuple(s) for s in in_shapes], [(d0[0], c, d0[2] * scale, d0[3] * scale)], []
+
+
+register(
+    OpDef(
+        "UpSampling",
+        _upsampling,
+        arguments=("data",),
+        key_var_num_args="num_args",
+        defaults={
+            "scale": 1,
+            "num_filter": 0,
+            "sample_type": "nearest",
+            "multi_input_mode": "concat",
+            "num_args": 1,
+            "workspace": 512,
+        },
+        infer_shape=_upsampling_infer,
+    )
+)
+
+
+# --------------------------------------------------------------------------
+# Sequence ops (reference sequence_last/mask/reverse-inl.h), TNC layout:
+# (seq_len, batch, ...)
+# --------------------------------------------------------------------------
+def _seq_lengths(attrs, ins, maxlen, batch, device):
+    if bool(attrs.get("use_sequence_length", False)) and len(ins) > 1:
+        return ins[1].to(torch.int32).long()
+    return torch.full((batch,), maxlen, dtype=torch.long, device=device)
+
+
+def _take_steps(data, idx):
+    """data[idx[t, b], b, ...] for an index of shape (T', batch)."""
+    idx = idx.reshape(idx.shape + (1,) * (data.dim() - 2))
+    return data.gather(0, idx.expand(idx.shape[:2] + data.shape[2:]))
+
+
+def _sequence_last(attrs, ins, is_train):
+    data = ins[0]
+    lengths = _seq_lengths(attrs, ins, data.shape[0], data.shape[1], data.device)
+    return [_take_steps(data, torch.clamp_min(lengths - 1, 0)[None])[0]]
+
+
+def _seq_list_arguments(attrs=None):
+    return (["data", "sequence_length"] if (attrs or {}).get("use_sequence_length")
+            else ["data"])
+
+
+def _seq_infer(out_shape):
+    return lambda attrs, in_shapes: (
+        [tuple(s) for s in in_shapes if s is not None], [out_shape(in_shapes[0])], [])
+
+
+_seq_last = OpDef(
+    "SequenceLast",
+    _sequence_last,
+    arguments=("data", "sequence_length"),
+    defaults={"use_sequence_length": False},
+    infer_shape=_seq_infer(lambda d: tuple(d[1:])),
+)
+_seq_last.list_arguments = _seq_list_arguments
+register(_seq_last)
+
+
+def _sequence_mask(attrs, ins, is_train):
+    data = ins[0]
+    value = float(attrs.get("value", 0.0))
+    lengths = _seq_lengths(attrs, ins, data.shape[0], data.shape[1], data.device)
+    t = torch.arange(data.shape[0], device=data.device)[:, None]
+    mask = (t < lengths[None, :]).reshape((data.shape[0], data.shape[1])
+                                          + (1,) * (data.dim() - 2))
+    return [torch.where(mask, data, torch.tensor(value, dtype=data.dtype, device=data.device))]
+
+
+_seq_mask = OpDef(
+    "SequenceMask",
+    _sequence_mask,
+    arguments=("data", "sequence_length"),
+    defaults={"use_sequence_length": False, "value": 0.0},
+    infer_shape=_seq_infer(tuple),
+)
+_seq_mask.list_arguments = _seq_list_arguments
+register(_seq_mask)
+
+
+def _sequence_reverse(attrs, ins, is_train):
+    data = ins[0]
+    lengths = _seq_lengths(attrs, ins, data.shape[0], data.shape[1], data.device)
+    t = torch.arange(data.shape[0], device=data.device)[:, None]
+    src = torch.where(t < lengths[None, :], lengths[None, :] - 1 - t, t)
+    return [_take_steps(data, src)]
+
+
+_seq_rev = OpDef(
+    "SequenceReverse",
+    _sequence_reverse,
+    arguments=("data", "sequence_length"),
+    defaults={"use_sequence_length": False},
+    infer_shape=_seq_infer(tuple),
+)
+_seq_rev.list_arguments = _seq_list_arguments
+register(_seq_rev)
+
+
+# --------------------------------------------------------------------------
+# Crop (reference crop-inl.h): the first input cut to the second's (or
+# h_w's) spatial size, at an offset or centred
+# --------------------------------------------------------------------------
+def _crop(attrs, ins, is_train):
+    x = ins[0]
+    if len(ins) > 1:
+        th, tw = ins[1].shape[2], ins[1].shape[3]
+    else:
+        th, tw = as_tuple(attrs["h_w"], 2, "h_w")
+    if bool(attrs.get("center_crop", False)):
+        oy = (x.shape[2] - th) // 2
+        ox = (x.shape[3] - tw) // 2
+    else:
+        oy, ox = as_tuple(attrs.get("offset", (0, 0)), 2, "offset")
+    return [x[:, :, oy:oy + th, ox:ox + tw]]
+
+
+def _crop_infer(attrs, in_shapes):
+    d0 = in_shapes[0]
+    if int(attrs.get("num_args", 1)) > 1 and len(in_shapes) > 1 and in_shapes[1]:
+        th, tw = in_shapes[1][2], in_shapes[1][3]
+    else:
+        th, tw = as_tuple(attrs["h_w"], 2, "h_w")
+    return [tuple(s) for s in in_shapes], [(d0[0], d0[1], th, tw)], []
+
+
+register(
+    OpDef(
+        "Crop",
+        _crop,
+        arguments=("data",),
+        key_var_num_args="num_args",
+        defaults={"num_args": 1, "offset": (0, 0), "h_w": (0, 0), "center_crop": False},
+        infer_shape=_crop_infer,
     )
 )

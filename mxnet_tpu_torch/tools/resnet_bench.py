@@ -117,9 +117,11 @@ def build_step(batch, bf16, device, num_layers=50, num_classes=1000,
     return step, (params, moms, aux), data, label, symbol
 
 
-def make_train_step(program, batch, bf16):
+def make_train_step(program, batch, bf16, rng=None, lr=LR):
     """The training step of ``bench.py:836-857`` over ``program``; see the
-    module docstring."""
+    module docstring. ``rng``, a ``torch.Generator`` on the step's device,
+    feeds the program's sampling operators (Dropout), where it has any;
+    ``lr`` is the step's learning rate."""
     rescale = 1.0 / batch
 
     def step(params, moms, aux, data, label, span=None):
@@ -129,7 +131,7 @@ def make_train_step(program, batch, bf16):
             args = {n: (p.to(torch.bfloat16) if bf16 else p) for n, p in params.items()}
             args["data"] = data.to(torch.bfloat16) if bf16 else data
             args["softmax_label"] = label
-            outs, new_aux = program(args, aux, None, True)
+            outs, new_aux = program(args, aux, rng, True)
             loss = outs[0].float().sum()
         with span(PHASES[1]):
             grads = torch.autograd.grad(loss, [params[n] for n in names], allow_unused=True)
@@ -139,7 +141,7 @@ def make_train_step(program, batch, bf16):
                 if g is None:  # a fix_gamma gamma: its gradient is zero
                     g = torch.zeros_like(p)
                 g = g * rescale + WD * p
-                moms[n].mul_(MOMENTUM).sub_(LR * g)
+                moms[n].mul_(MOMENTUM).sub_(lr * g)
                 p.add_(moms[n])
         return {n: v.detach() for n, v in new_aux.items()}, outs[0].detach()
 
@@ -184,16 +186,24 @@ def trace_steps(step, state, data, label, dev, steps=2):
     return summary, (params, moms, aux)
 
 
-def run_row(dtype, batch, steps, dev, model, trace=False):
-    """One row: warm-up, ``steps`` timed steps, optionally a trace."""
-    cuda = dev.type == "cuda"
-    sync = (lambda: torch.cuda.synchronize(dev)) if cuda else (lambda: None)
-    bf16 = dtype == "bfloat16"
-    if cuda:
+def reset_peak_memory(dev):
+    """Start a row's peak-memory count (before its weights are made)."""
+    if dev.type == "cuda":
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
-    step, (params, moms, aux), data, label, symbol = build_step(batch, bf16, dev, **model)
-    flops = 3.0 * model_flops(symbol, data.shape)
+
+
+def measure(step, state, data, label, symbol, steps, dev, trace=False):
+    """One warm-up step (it builds the kernels), then ``steps`` steps timed
+    on the host clock and ending in a synchronise: step ms, img/s, model
+    TFLOP/s (3 × ``model_flops``) and its share of the card's bf16 peak,
+    peak memory, the first and last cross-entropy and K2/K3 launches a
+    step; with ``trace``, two more steps profiled (``trace_steps``)."""
+    cuda = dev.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(dev)) if cuda else (lambda: None)
+    params, moms, aux = state
+    batch = data.shape[0]
+    flops = 3.0 * model_flops(symbol, tuple(data.shape))
     aux, prob = step(params, moms, aux, data, label)  # builds the kernels
     first = float(cross_entropy(prob, label))
     counts = (kernels.conv_bwd_filter.launches, kernels.conv_bwd_input.launches)
@@ -207,8 +217,6 @@ def run_row(dtype, batch, steps, dev, model, trace=False):
                 kernels.conv_bwd_input.launches - counts[1])
     step_ms = 1e3 * dt / steps
     out = {
-        "row": "%s-%d" % (dtype, batch), "dtype": dtype, "batch": batch,
-        "image_shape": list(data.shape[1:]), "num_layers": model["num_layers"],
         "steps": steps, "warmup": 1,
         "step_ms": step_ms, "img_per_sec": batch / (step_ms / 1e3),
         "tflops_per_step": flops / 1e12,
@@ -224,6 +232,16 @@ def run_row(dtype, batch, steps, dev, model, trace=False):
     if trace:
         summary, _ = trace_steps(step, (params, moms, aux), data, label, dev)
         out["trace"] = summary
+    return out
+
+
+def run_row(dtype, batch, steps, dev, model, trace=False):
+    """One row: ``measure`` of the ResNet step at ``batch`` in ``dtype``."""
+    reset_peak_memory(dev)
+    step, state, data, label, symbol = build_step(batch, dtype == "bfloat16", dev, **model)
+    out = {"row": "%s-%d" % (dtype, batch), "dtype": dtype, "batch": batch,
+           "image_shape": list(data.shape[1:]), "num_layers": model["num_layers"]}
+    out.update(measure(step, state, data, label, symbol, steps, dev, trace))
     return out
 
 

@@ -167,10 +167,23 @@ HEADLINE = [
     ((2, 256, 14, 14), (256, 256, 3, 3), (1, 1)),
     ((2, 64, 56, 56), (256, 64, 1, 1), (0, 0)),
 ]
+# the image-classification zoo's new ground (inception-v3, googlenet): 1 x 7
+# with pad (0, 3) and 7 x 1 with pad (3, 0) on 17 x 17, 1 x 3 and 3 x 1 on
+# 8 x 8, 24 channels under a 5 x 5 kernel and 24 o from a 1 x 1, and a 1 x 1
+# at 17 x 17 (OH·OW not a multiple of 8: K2's flat mode in bf16 too)
+ZOO_CASES = [
+    ((1, 8, 17, 17), (16, 8, 1, 7), (0, 3)),
+    ((1, 8, 17, 17), (16, 8, 7, 1), (3, 0)),
+    ((2, 16, 8, 8), (8, 16, 1, 3), (0, 1)),
+    ((2, 16, 8, 8), (8, 16, 3, 1), (1, 0)),
+    ((1, 24, 9, 9), (64, 24, 5, 5), (2, 2)),
+    ((2, 72, 7, 7), (24, 72, 1, 1), (0, 0)),
+    ((2, 16, 17, 17), (24, 16, 1, 1), (0, 0)),
+]
 # the f32 limit of the emulated split against the plain version and JAX's,
 # as a share of max|plain|, the card's limit for f32 K2 and K3
 F32_LIMIT = 1e-4
-# split f32: the k steps whose products the kernels sum in a second
+# bf16 and split f32: the k steps whose products the kernels sum in a second
 # accumulator before adding it into the first (conv_bwd.cu's kPromoteSteps)
 PROMOTE_STEPS = int(re.search(r"constexpr int kPromoteSteps = (\d+);",
                               (_build.CSRC / "conv_bwd.cu").read_text()).group(1))
@@ -178,20 +191,18 @@ PROMOTE_STEPS = int(re.search(r"constexpr int kPromoteSteps = (\d+);",
 
 class _Accumulator:
     """A kernel's sums of one output tile: the products of a k step go into
-    ``part``, which for split f32 is added into ``acc`` after every
-    ``PROMOTE_STEPS`` steps and after the last (bf16: after the last only,
-    which is the one accumulator's sum)."""
+    ``part``, which is added into ``acc`` after every ``PROMOTE_STEPS``
+    steps and after the last (bf16 and split f32 alike)."""
 
-    def __init__(self, shape, dtype):
+    def __init__(self, shape):
         self.acc, self.part = torch.zeros(shape), torch.zeros(shape)
-        self.every = PROMOTE_STEPS if dtype == torch.float32 else None
         self.steps = 0
 
     def step(self, products):
         for prod in products:
             self.part += prod
         self.steps += 1
-        if self.every and self.steps % self.every == 0:
+        if self.steps % PROMOTE_STEPS == 0:
             self.total()
 
     def total(self):
@@ -235,7 +246,7 @@ def _emulate_dgrad_sm90(grad, weight, dshape, pad):
         for y0 in range(0, h, 8):
             for x0 in range(0, w, 8):
                 for c0 in range(0, c, kn):
-                    sums = _Accumulator((64, kn), grad.dtype)
+                    sums = _Accumulator((64, kn))
                     for tap in range(kh * kw):
                         i, j = divmod(tap, kw)
                         ys, xs = m + y0 + pad[0] - i, m + x0 + pad[1] - j
@@ -264,7 +275,7 @@ def _hold(got, plain, jax_out, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("dshape,wshape,pad", CASES + HEADLINE + [
+@pytest.mark.parametrize("dshape,wshape,pad", CASES + HEADLINE + ZOO_CASES + [
     ((2, 16, 7, 7), (40, 16, 3, 3), (1, 1)),
     ((1, 136, 7, 7), (72, 136, 3, 3), (1, 1)),  # the 128-channel tile, two o chunks
 ])
@@ -355,7 +366,7 @@ def _emulate_wgrad_sm90(data, grad, wshape, pad, sm_count=132):
                 for c0 in range(0, c, kn):
                     for wg in range(o_tile // 64):
                         ow0 = o0 + 64 * wg
-                        sums = _Accumulator((64, kn), data.dtype)
+                        sums = _Accumulator((64, kn))
                         for step in range(split * per, min(split * per + per, steps)):
                             a, b = boxes(step, i, j)
                             sums.step(a[pa, :, ow0:ow0 + 64].T @ b[pb, :, c0:c0 + kn]
@@ -371,7 +382,7 @@ def _emulate_wgrad_sm90(data, grad, wshape, pad, sm_count=132):
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("dshape,wshape,pad", CASES + HEADLINE + [
+@pytest.mark.parametrize("dshape,wshape,pad", CASES + HEADLINE + ZOO_CASES + [
     ((1, 136, 7, 7), (16, 136, 3, 3), (1, 1)),  # two c boxes, a partial 128-channel tile
     ((2, 16, 7, 7), (72, 16, 3, 3), (1, 1)),  # a partial o tile: 8 o of the second warpgroup
     ((2, 16, 7, 7), (136, 16, 3, 3), (1, 1)),  # two CTAs of 128 o, one warpgroup empty

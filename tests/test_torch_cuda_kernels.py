@@ -265,6 +265,54 @@ def test_cuda_conv_bwd_kernels_match_plain_version():
             assert torch.equal(gx, kernels.conv_bwd_input(gr, wt, dshape, pad))
 
 
+# the image-classification zoo's shapes outside ResNet: inception-v3's 1 x 7 /
+# 7 x 1 on 17 x 17 and 1 x 3 / 3 x 1 on 8 x 8, its 1 x 1 on 17 x 17 and 35 x
+# 35 (OH·OW not a multiple of 8), googlenet's 24-channel 5 x 5 and its
+# 512 -> 24 reduce, at the models' channel counts and batch 2
+CONV_ZOO_CASES = [
+    ((2, 128, 17, 17), (128, 128, 1, 7), (0, 3)),
+    ((2, 128, 17, 17), (192, 128, 7, 1), (3, 0)),
+    ((2, 384, 8, 8), (384, 384, 1, 3), (0, 1)),
+    ((2, 384, 8, 8), (384, 384, 3, 1), (1, 0)),
+    ((2, 768, 17, 17), (192, 768, 1, 1), (0, 0)),
+    ((2, 288, 35, 35), (64, 288, 1, 1), (0, 0)),
+    ((2, 24, 14, 14), (64, 24, 5, 5), (2, 2)),
+    ((2, 512, 14, 14), (24, 512, 1, 1), (0, 0)),
+]
+
+
+@pytest.mark.cuda
+def test_cuda_conv_bwd_kernels_on_the_zoo_shapes():
+    """On the card: K2 and K3 against their plain versions on the
+    non-square and 24-channel shapes of the zoo, f32 and bf16, within 1e-4
+    of max|plain|, one launch each, and a repeat gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator().manual_seed(13)
+    for (dshape, wshape, pad), dt in itertools.product(CONV_ZOO_CASES,
+                                                       (torch.float32, torch.bfloat16)):
+        assert kernels.conv_bwd_plan(dshape, wshape, (1, 1), pad, (1, 1), dt)
+        n, _, h, w = dshape
+        o, _, kh, kw = wshape
+        oshape = (n, o, h + 2 * pad[0] - kh + 1, w + 2 * pad[1] - kw + 1)
+        x = torch.randn(dshape, generator=g).to("cuda", dt)
+        wt = (0.1 * torch.randn(wshape, generator=g)).to("cuda", dt)
+        gr = torch.randn(oshape, generator=g).to("cuda", dt)
+        before = (kernels.conv_bwd_filter.launches, kernels.conv_bwd_input.launches)
+        gw = kernels.conv_bwd_filter(x, gr, wshape, pad)
+        gx = kernels.conv_bwd_input(gr, wt, dshape, pad)
+        torch.cuda.synchronize()
+        assert (kernels.conv_bwd_filter.launches, kernels.conv_bwd_input.launches) == (
+            before[0] + 1, before[1] + 1)
+        for got, want in ((gw, kernels.conv_bwd_filter_reference(x, gr, wshape, pad)),
+                          (gx, kernels.conv_bwd_input_reference(gr, wt, dshape, pad))):
+            assert got.dtype == torch.float32 and got.shape == want.shape
+            err = (got - want).abs().max().item() / want.abs().max().item()
+            assert err <= 1e-4, (dshape, wshape, pad, dt, err)
+        assert torch.equal(gw, kernels.conv_bwd_filter(x, gr, wshape, pad))
+        assert torch.equal(gx, kernels.conv_bwd_input(gr, wt, dshape, pad))
+
+
 @pytest.mark.cuda
 def test_cuda_conv_bwd_kernels_take_views_off_a_16_byte_boundary():
     """On the card: contiguous views that start off a 16-byte boundary, bf16

@@ -137,9 +137,9 @@ def test_composition_and_arithmetic():
 def test_what_is_not_ported_raises(monkeypatch):
     a = tsym.Variable("a")
     with pytest.raises(tbase.MXNetError, match="not ported"):
-        tsym.load_json(jsym.LeakyReLU(jsym.Variable("a")).tojson())
+        tsym.load_json(jsym.BilinearSampler(jsym.Variable("a"), jsym.Variable("g")).tojson())
     with pytest.raises(AttributeError, match="mxnet_tpu/ops/"):
-        tsym.LeakyReLU  # noqa: B018
+        tsym.BilinearSampler  # noqa: B018
     net = (a * 2).__copy__()
     net._set_attr(ctx_group="dev1")
     with pytest.raises(NotImplementedError, match="_PlacedProgram"):
