@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only rtc --package DIR     # K5's push path on another tree
     python3 chip_smoke.py --only slab --package DIR    # phases 16-18 and K1's times there
     python3 chip_smoke.py --only zoo                   # K2/K3's build and phase 20
+    python3 chip_smoke.py --only multistep [--package DIR]  # K1-K3's build and phase 21
 
 
 Phases, each fatal on failure:
@@ -242,9 +243,47 @@ Phases, each fatal on failure:
     shape of an inception-v3 step at batch 32 against the library calls, as
     phase 12 times them, summed over the step's 89 launches.
 
+21. K fused steps as one captured CUDA graph (main path 8,
+    ``MXNET_FIT_MULTISTEP``), cuDNN deterministic and its autotuner off:
+    (a) phase 17's ResNet-50 ``Module.fit`` (bf16 AMP, dp 4 on gpu(0),
+    batch 32, SGD-momentum, Xavier) over 32 seeded batches, two epochs,
+    batch 29 of each poisoned with inf, eagerly and with
+    ``MXNET_FIT_MULTISTEP=4`` and ``=8``, each K fitted twice (timed, and
+    under torch.profiler to count launches): every working param, aux
+    state, master, momentum slab, the loss scale and the good count, every
+    loss and the final metric equal to the eager fit's bit for bit (the
+    poisoned step, inside a replayed group, halves the scale and keeps
+    every bit), and so is the whole state after batch 23 of the first
+    epoch, before the poisoned batch puts NaN into the BatchNorm moving
+    statistics: there every aux tensor is finite, so the replays' aux
+    write-back is held as finite bits. In the profiled fits, the device
+    kernels counted by name over the whole fit (the warm-up group's and
+    every replay's) are K2 and K3 46 times and K1 once a step; the
+    wrappers, which count where they launch (a replay calls none), count
+    the warm-up group's launches and the capture's. Step ms (median
+    interval between the ends of replayed groups ÷ K, eager: between
+    steps, leaving out the interval in which the state is copied), img/s,
+    the capture's ms, the graph pool's bytes, peak memory; wall and busy ms
+    a step, the idle share and kernels a step (K2, K3 and K1 by name) of
+    two replayed groups beside two eager steps. (b) the same in f32 without
+    AMP (the f32 flat path), 24 batches, one epoch, K = 4, no snapshot.
+    (c) phase 18 (b)'s MLP (AMP, Adam) with a FactorScheduler
+    at K = 4: bit for bit against its eager fit, validation accuracy at
+    least 0.97. (d) a Dropout MLP's trainer at K = 2 run three times from
+    one state: the two replays draw different masks; without Dropout every
+    replay gives the warm-up's bits. The warm-up group's micro-steps after
+    the first run under ``torch.cuda.set_sync_debug_mode("error")``: a
+    host read there raises. ``--only multistep --package DIR`` on a tree
+    without ``Module.update_multi`` runs the eager fits of (a) and (b)
+    alone and prints their state digests (the parent's eager bits).
+
 Then the kernels line: the seven kernels, K4f, K4dq, K4dkv, K2, K3, K5 and
 K1; K2's and K3's launches count phase 20's training rows, and their
-entries carry phase 20's launches and inception-v3 step under ``zoo``.
+entries carry phase 20's launches and inception-v3 step under ``zoo``;
+K1's, K2's and K3's count phase 21's launches run in its eager fits (the
+wrappers' counts) and its profiled grouped fits (the profiler's by name),
+under ``launches_by_path`` for K1; the timed grouped fits' replays are
+not counted.
 
 The last line of output is {"ok": true, "device": {...}}. Without a CUDA
 device, or without the package beside this script, it exits non-zero and
@@ -253,6 +292,7 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import inspect
 import json
 import os
@@ -2446,16 +2486,422 @@ def phase_convergence(mx, kernels, dev):
     return res
 
 
+# phase 21 (a), bf16 AMP: the state after batch `snap` of epoch 0 (the end
+# of a group at every K) compared before batch `poison` makes aux NaN
+MULTI = dict(batches=32, epochs=2, poison=29, snap=23, ks=(4, 8))
+MULTI_F32 = dict(batches=24, epochs=1, poison=None, snap=None, ks=(4,))  # phase 21 (b)
+MULTI_MLP_K = 4  # phase 21 (c)
+MULTI_DROPOUT_K = 2  # phase 21 (d)
+# device kernel names of K2, K3 and K1 (counted per micro-step in a profile)
+MULTI_KERNEL_NAMES = {"conv_bwd_filter": "conv_wgrad_sm90", "conv_bwd_input": "conv_dgrad_sm90",
+                      "slab_update": "slab_update_kernel"}
+
+
+def _multistep_env(k):
+    if k > 1:
+        os.environ["MXNET_FIT_MULTISTEP"] = str(k)
+    else:
+        os.environ.pop("MXNET_FIT_MULTISTEP", None)
+
+
+def fused_state(mod):
+    """Clones of every state tensor of a fused module: working params, aux
+    and optimizer state (masters, momentum slabs, loss scale, good count),
+    ``kind:name.slot`` -> tensor."""
+    owner = mod._fused_owner
+    out = {}
+    for kind, tree in (("param", owner._fused_params), ("aux", owner._fused_aux),
+                       ("opt", owner._fused_opt)):
+        for name, v in tree.items():
+            for j, t in enumerate(v if isinstance(v, tuple) else (v,)):
+                if t is not None:
+                    out["%s:%s.%d" % (kind, name, j)] = t.detach().clone()
+    return out
+
+
+def state_digest(state):
+    """sha256 of a :func:`fused_state`'s bytes in key order (bf16 as its
+    bits), to compare the state of two trees' runs."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for name in sorted(state):
+        t = state[name]
+        t = t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+        h.update(name.encode())
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def state_diff(got, want):
+    """The names of the tensors of two :func:`fused_state` dicts that are
+    not equal bit for bit (compared as integers: a poisoned step leaves
+    NaN in the BatchNorm moving statistics, and NaN equals no float)."""
+    import torch
+
+    ints = {4: torch.int32, 2: torch.int16, 8: torch.int64}
+
+    def bits(t):
+        return t.view(ints[t.element_size()]) if t.is_floating_point() else t
+
+    assert sorted(got) == sorted(want), (sorted(set(got) ^ set(want)))
+    return [n for n in sorted(want) if not torch.equal(bits(got[n]), bits(want[n]))]
+
+
+def multistep_leg(mx, kernels, dev, X, y, k, amp, epochs, snap=None, profile=False):
+    """One ``Module.fit`` of phase 21 (a)/(b): ResNet-50 on the dp 4 mesh of
+    gpu(0), phase 17's recipe, ``MXNET_FIT_MULTISTEP=k`` (unset for 1).
+    Returns ``(module, numbers, fused_state, snapshot)``, the snapshot the
+    :func:`fused_state` after batch ``snap`` of epoch 0 (None without
+    ``snap``). Step ms is the median interval between batch-end callbacks
+    (eager: steps 3 on, within an epoch) or between the ends of replayed
+    groups ÷ k (groups 3 on, within an epoch), leaving out the interval in
+    which the snapshot is taken. With ``profile`` the fit runs under
+    torch.profiler and ``launches_run`` holds K2's, K3's and K1's device
+    kernels over the whole fit, counted by name."""
+    import gc
+
+    import torch
+
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.tools import resnet_bench
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    it = mx.io.NDArrayIter(X, y, batch_size=RESNET_BATCH)
+    np.random.seed(0)
+    mod = mx.mod.Module(resnet.get_symbol(), context=mx.gpu(0),
+                        mesh=mx.parallel.make_mesh(dp=4, devices=[mx.gpu(0)] * 4))
+    losses, stamps, snapshot = [], [], {}
+
+    def on_batch(param):
+        prob = mod.get_outputs()[0]._data
+        label = param.locals["data_batch"].label[0]._data
+        losses.append(float(resnet_bench.cross_entropy(prob, label)))  # synchronises
+        snapped = param.epoch == 0 and param.nbatch == snap
+        stamps.append((param.epoch, param.nbatch, time.perf_counter(), snapped))
+        if snapped:
+            snapshot.update(fused_state(mod))
+
+    metric = mx.metric.create("acc")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    _amp_env(amp)
+    _multistep_env(k)
+    try:
+        zero_counts(kernels)
+        with (torch.profiler.profile(activities=acts) if profile
+              else contextlib.nullcontext()) as prof:
+            t0 = time.perf_counter()
+            mod.fit(it, eval_metric=metric, kvstore="device", optimizer="sgd",
+                    optimizer_params={"learning_rate": SGD["lr"], "momentum": SGD["momentum"],
+                                      "wd": SGD["wd"]},
+                    initializer=mx.init.Xavier(), num_epoch=epochs, batch_end_callback=on_batch)
+            torch.cuda.synchronize(dev)
+            fit_s = time.perf_counter() - t0
+        counts = dict(conv_counts(kernels), slab_update=kernels.fused_slab_update.launches)
+    finally:
+        _amp_env(False)
+        _multistep_env(1)
+    tr = mod._fused_trainer
+    assert tr.amp == amp and tr.flat_mode == "shard", (tr.amp, tr.flat_mode)
+    assert (snap is None) == (not snapshot), (snap, len(snapshot))
+    # the end of each step (eager) or group: the interval before end i + 1
+    # times step or group i + 1, counted from 2 (eager: past the first
+    # steps; grouped: past the warm-up and the capture) within an epoch
+    ends = [(e, t, snapped) for (e, n, t, snapped) in stamps if (n + 1) % k == 0]
+    gaps = [(b[1] - a[1]) / k for i, (a, b) in enumerate(zip(ends, ends[1:]))
+            if a[0] == b[0] and i + 1 >= 2 and not a[2]]
+    med = statistics.median(gaps)
+    steps = len(stamps)
+    res = {"k": k, "amp": amp, "steps": steps, "losses": losses, "metric": metric.get()[1],
+           "launches": counts, "fit_s": fit_s, "under_profiler": profile,
+           "step_ms_median": 1e3 * med, "step_ms_samples": len(gaps),
+           "step_ms_range": [1e3 * min(gaps), 1e3 * max(gaps)], "img_per_s": RESNET_BATCH / med,
+           "loss_scale": float(mod._fused_owner._fused_opt[tr.AMP_SCALE_KEY]) if amp else None,
+           "good_steps": float(mod._fused_owner._fused_opt[tr.AMP_GOOD_KEY]) if amp else None,
+           "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+           "peak_reserved_gib": torch.cuda.max_memory_reserved(dev) / 2**30}
+    buckets = len(tr._flat_plan.buckets)
+    a_step = {"conv_bwd_filter": RESNET_CONVS, "conv_bwd_input": RESNET_CONVS,
+              "slab_update": slab_launches_a_step(kernels, buckets) if amp else 0}
+    if k == 1:
+        assert counts == {n: c * steps for n, c in a_step.items()}, (counts, a_step)
+    else:
+        # the wrappers count where they launch: in the warm-up group and
+        # once while the graph is captured; a replay calls no wrapper
+        (g,) = tr.group_stats()
+        assert g["k"] == k and g["warmup_groups"] == 1 and g["captures"] == 1, g
+        assert g["groups"] == steps // k and g["replays"] == g["groups"] - 1, g
+        by_wrapper = {("fused_" + n if n == "slab_update" else n): c * k
+                      for n, c in a_step.items() if c}
+        assert g["captured_launches"] == by_wrapper, (g["captured_launches"], by_wrapper)
+        assert counts == {n: 2 * c * k for n, c in a_step.items()}, (counts, a_step)
+        res["group"] = g
+    if profile:
+        # what ran on the device: the warm-up group's launches and every
+        # replay's, by kernel name
+        run = kernel_counts(prof)
+        assert run == {n: c * steps for n, c in a_step.items()}, (run, a_step, steps)
+        res.update(launches_run=run,
+                   launches_counted_as="torch.profiler: device kernels by name, whole fit")
+    log("phase 21 leg (k %d, %s%s): %s" % (
+        k, "bf16 AMP" if amp else "f32", ", profiled" if profile else "",
+        json.dumps({n: v for n, v in res.items() if n != "losses"})))
+    return mod, res, fused_state(mod), snapshot or None
+
+
+def kernel_counts(prof):
+    """K2's, K3's and K1's device kernels in a torch.profiler profile, by
+    name (``MULTI_KERNEL_NAMES``)."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    names = [e.name for e in prof.events() if e.device_type == cuda]
+    return {n: sum(key in name for name in names) for n, key in MULTI_KERNEL_NAMES.items()}
+
+
+def profile_groups(mod, batches, k, groups=2):
+    """``groups`` replayed groups of ``k`` steps (``Module.update_multi``,
+    each ending in a synchronise) under torch.profiler; see
+    :func:`profile_summary`, plus the device launches a micro-step of K2,
+    K3 and K1 by kernel name."""
+    import torch
+
+    from mxnet_tpu_torch.tools import resnet_bench
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(groups):
+            mod.update_multi(batches)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out = profile_summary(prof, groups * k, wall, lambda name: (
+        "slab_update" if "slab_update" in name else resnet_bench.family(name)))
+    out["launches_per_step"] = {n: c / (groups * k) for n, c in kernel_counts(prof).items()}
+    return out
+
+
+def multistep_resnet(mx, kernels, dev, amp, batches, epochs, poison, snap, ks, grouped):
+    """Phase 21 (a) (bf16 AMP) or (b) (f32): an eager fit and, for each K in
+    ``ks``, a timed and a profiled one; every state tensor (at the end and
+    after batch ``snap`` of epoch 0), the losses and the metric equal bit
+    for bit; K2 and K3 46 times and K1 once a step on the device."""
+    import torch
+
+    rng = np.random.RandomState(21)
+    n = batches * RESNET_BATCH
+    X = rng.rand(n, 3, 224, 224).astype(np.float32)
+    y = rng.randint(0, 1000, n).astype(np.float32)
+    if poison is not None:
+        X[poison * RESNET_BATCH, 0, 0, 0] = np.inf
+    mod, eager, want, want_snap = multistep_leg(mx, kernels, dev, X, y, 1, amp, epochs, snap)
+    it = mx.io.NDArrayIter(X, y, batch_size=RESNET_BATCH)
+    if amp:
+        eager["profile"] = profile_fit_steps(mod, next(iter(it)))
+    out = {"batches": batches, "epochs": epochs, "poisoned_batch": poison, "snapshot_batch": snap,
+           "eager": eager, "digest": state_digest(want)}
+    del mod
+    if snap is not None:
+        # before the poisoned batch: every aux tensor (BatchNorm moving
+        # statistics) finite, so the grouped fits' aux is held as finite bits
+        bad = [name for name, t in want_snap.items()
+               if t.is_floating_point() and not bool(torch.isfinite(t).all())]
+        assert not bad, bad[:5]
+        out["snapshot_tensors"] = len(want_snap)
+    if not grouped:
+        return out
+    if poison is not None:
+        # each epoch's poisoned step skipped (scale halved, count zeroed)
+        assert eager["loss_scale"] == 2.0 ** 15 / 2 ** epochs, eager["loss_scale"]
+        assert eager["good_steps"] == batches - poison - 1, eager["good_steps"]
+    for k in ks:
+        for profile in (False, True):
+            mod, leg, got, got_snap = multistep_leg(mx, kernels, dev, X, y, k, amp, epochs, snap,
+                                                    profile)
+            diff = state_diff(got, want)
+            assert not diff, "k %d: %d tensors differ from the eager fit's, first %s" % (
+                k, len(diff), diff[:5])
+            if snap is not None:
+                diff = state_diff(got_snap, want_snap)
+                assert not diff, "k %d: %d tensors differ after batch %d, first %s" % (
+                    k, len(diff), snap, diff[:5])
+            assert leg["metric"] == eager["metric"], (leg["metric"], eager["metric"])
+            assert np.array_equal(leg["losses"], eager["losses"], equal_nan=True)
+            leg["bitwise_equal_to_eager"] = {"tensors": len(want), "metric": True,
+                                             "losses": True,
+                                             "snapshot_tensors": len(want_snap or ())}
+            if amp and k == max(ks) and not profile:
+                it.reset()
+                group = [b for _, b in zip(range(k), it)]
+                leg["profile"] = prof = profile_groups(mod, group, k)
+                assert prof["launches_per_step"] == {
+                    "conv_bwd_filter": RESNET_CONVS, "conv_bwd_input": RESNET_CONVS,
+                    "slab_update": 1}, prof["launches_per_step"]
+            out["k%d%s" % (k, "_profiled" if profile else "")] = leg
+            del mod
+            torch.cuda.empty_cache()
+    return out
+
+
+def _blob_data():
+    rng = np.random.RandomState(13)
+    c, d = BLOBS["classes"], BLOBS["dim"]
+    centers = rng.randn(c, d).astype(np.float32)
+    n = BLOBS["train"] + BLOBS["val"]
+    labels = rng.randint(0, c, n)
+    X = (centers[labels] + rng.randn(n, d).astype(np.float32)).astype(np.float32)
+    return X, labels.astype(np.float32), slice(0, BLOBS["train"]), slice(BLOBS["train"], n)
+
+
+def multistep_mlp(mx, kernels, dev):
+    """Phase 21 (c): phase 18 (b)'s MLP (AMP, Adam) with a FactorScheduler,
+    eagerly and at K = MULTI_MLP_K: bit for bit, validation accuracy at
+    least 0.97, K1 once a micro-step."""
+    from mxnet_tpu_torch.models import mlp
+
+    X, y, tr_, va = _blob_data()
+    legs, states = {}, {}
+    for k in (1, MULTI_MLP_K):
+        np.random.seed(0)
+        train = mx.io.NDArrayIter(X[tr_], y[tr_], batch_size=BLOBS["batch"], shuffle=True)
+        val = mx.io.NDArrayIter(X[va], y[va], batch_size=BLOBS["batch"])
+        mod = mx.mod.Module(mlp.get_symbol(), context=mx.gpu(0),
+                            mesh=mx.parallel.make_mesh(dp=4, devices=[mx.gpu(0)] * 4))
+        metric = mx.metric.create("acc")
+        _amp_env(True)
+        _multistep_env(k)
+        try:
+            kernels.fused_slab_update.launches = 0
+            t0 = time.perf_counter()
+            mod.fit(train, eval_data=val, eval_metric=metric, initializer=mx.init.Xavier(),
+                    num_epoch=BLOBS["epochs"], kvstore="device", optimizer="adam",
+                    optimizer_params={"learning_rate": 0.001, "lr_scheduler":
+                                      mx.lr_scheduler.FactorScheduler(step=20, factor=0.9)})
+            wall = time.perf_counter() - t0
+        finally:
+            _amp_env(False)
+            _multistep_env(1)
+        tr = mod._fused_trainer
+        assert tr.amp and tr._slab_kind() == "adam"
+        legs[k] = {"val_acc": dict(mod.score(val, "acc"))["accuracy"], "fit_s": wall,
+                   "train_metric": metric.get()[1],
+                   "slab_update_launches": kernels.fused_slab_update.launches,
+                   "lr_at_end": mod._optimizer.lr_scheduler(mod._optimizer.num_update)}
+        if k > 1:
+            (g,) = tr.group_stats()
+            assert g["captured_launches"] == {"fused_slab_update": k}, g
+            legs[k]["group"] = g
+        states[k] = fused_state(mod)
+        assert legs[k]["val_acc"] >= 0.97, legs[k]
+    diff = state_diff(states[MULTI_MLP_K], states[1])
+    assert not diff, diff[:5]
+    assert legs[MULTI_MLP_K]["train_metric"] == legs[1]["train_metric"]
+    assert legs[MULTI_MLP_K]["val_acc"] == legs[1]["val_acc"]
+    return {"eager": legs[1], "k%d" % MULTI_MLP_K: legs[MULTI_MLP_K],
+            "bitwise_equal_to_eager": len(states[1])}
+
+
+def multistep_dropout(mx, dev):
+    """Phase 21 (d): a Dropout MLP's trainer at K = MULTI_DROPOUT_K run three
+    times from one state on one pair of batches (warm-up, capture + replay,
+    replay): the two replays' outputs differ (fresh masks: the generator is
+    registered with the graph); the same net without Dropout gives the
+    warm-up's bits on every replay."""
+    import torch
+
+    k = MULTI_DROPOUT_K
+    rng = np.random.RandomState(5)
+    batches = {"data": [torch.from_numpy(rng.randn(32, 100).astype(np.float32)).to(dev)
+                        for _ in range(k)],
+               "softmax_label": [torch.from_numpy(rng.randint(0, 10, 32).astype(np.float32))
+                                 .to(dev) for _ in range(k)]}
+    out = {}
+    for p in (0.3, None):
+        net = mx.sym.FullyConnected(mx.sym.Variable("data"), num_hidden=64, name="fc1")
+        net = mx.sym.Activation(net, act_type="relu")
+        if p:
+            net = mx.sym.Dropout(net, p=p)
+        net = mx.sym.FullyConnected(net, num_hidden=10, name="fc2")
+        net = mx.sym.SoftmaxOutput(net, name="softmax")
+        opt = mx.optimizer.create("sgd", learning_rate=0.1, momentum=0.9, rescale_grad=1 / 32)
+        tr = mx.parallel.ShardedTrainStep(
+            net, mx.parallel.make_mesh(dp=4, devices=[mx.gpu(0)] * 4), optimizer=opt).compile()
+        arg_shapes, _, _ = net.infer_shape(data=(32, 100), softmax_label=(32,))
+        np.random.seed(0)
+        state = tr.init(dict(zip(net.list_arguments(), arg_shapes)), mx.init.Xavier())
+        runs = []
+        for _ in range(3):
+            copy = [{n: tuple(x.clone() for x in v) if isinstance(v, tuple) else
+                     (None if v is None else v.clone()) for n, v in d.items()} for d in state]
+            outs = tr.call_multi(*copy, batches, [0.1] * k, list(range(1, k + 1)))[3]
+            runs.append([o.clone() for o in outs])
+        torch.cuda.synchronize(dev)
+        (g,) = tr.group_stats()
+        assert (g["warmup_groups"], g["captures"], g["replays"]) == (1, 1, 2), g
+        same = [all(torch.equal(a, b) for a, b in zip(runs[i], runs[j]))
+                for i, j in ((0, 1), (1, 2))]
+        if p:
+            assert not same[1], "two replays drew the same Dropout masks"
+        else:
+            assert same == [True, True], same
+        out["dropout" if p else "control"] = {"warmup_eq_replay1": same[0],
+                                              "replay1_eq_replay2": same[1], "group": g}
+    return out
+
+
+def multistep_launches(res):
+    """K1's, K2's and K3's launches run in phase 21's ResNet-50 fits: the
+    eager fits' wrapper counts and the profiled grouped fits' device
+    kernels by name (the timed grouped fits' replays are not counted)."""
+    total = dict.fromkeys(MULTI_KERNEL_NAMES, 0)
+    for part in (res["a"], res["b"]):
+        for name, leg in part.items():
+            if name == "eager" or name.endswith("_profiled"):
+                for n, c in leg.get("launches_run", leg["launches"]).items():
+                    total[n] += c
+    return total
+
+
+def phase_multistep(mx, kernels, dev):
+    """Phase 21: K fused steps as one captured CUDA graph; see the module
+    docstring. On a tree without ``Module.update_multi`` (``--package``)
+    only the eager fits of (a) and (b) run, for their state digests."""
+    import torch
+
+    grouped = hasattr(mx.mod.Module, "update_multi")
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    t0 = time.perf_counter()
+    try:
+        res = {"grouped": grouped,
+               "a": multistep_resnet(mx, kernels, dev, True, grouped=grouped, **MULTI),
+               "b": multistep_resnet(mx, kernels, dev, False, grouped=grouped, **MULTI_F32)}
+        if grouped:
+            res["c"] = multistep_mlp(mx, kernels, dev)
+            res["d"] = multistep_dropout(mx, dev)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    res["phase_s"] = time.perf_counter() - t0
+    log("phase 21: K fused steps as one CUDA graph: %s" % json.dumps(
+        res, default=lambda o: None))
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every phase's numbers to this JSON file")
     ap.add_argument("--package", help="import mxnet_tpu_torch from this checkout instead of the "
                     "one beside this script (to run this script's phases on another tree)")
-    ap.add_argument("--only", choices=("f32_lm", "rtc", "slab", "zoo"),
+    ap.add_argument("--only", choices=("f32_lm", "rtc", "slab", "zoo", "multistep"),
                     help="f32_lm: build, phase 19 and phase 8's attention kernel times only; "
                     "rtc: K5's push path on ResNet-50's parameter arrays only; slab: K1's "
                     "build, phases 16-18 and K1's times only; zoo: K2/K3's build and "
-                    "phase 20 only")
+                    "phase 20 only; multistep: K1-K3's build and phase 21 only")
     args = ap.parse_args(argv)
 
     import torch
@@ -2507,6 +2953,11 @@ def main(argv=None):
         _build.build(["conv_bwd_filter"])
         results["build_s"] = time.perf_counter() - t0
         results["zoo"], results["zoo_launches"] = phase_zoo(model_sweep, kernels, dev)
+    if args.only == "multistep":
+        t0 = time.perf_counter()
+        _build.build(["conv_bwd_filter", "slab_update"])
+        results["build_s"] = time.perf_counter() - t0
+        results["multistep"] = phase_multistep(mx, kernels, dev)
     if args.only:
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -2546,6 +2997,12 @@ def main(argv=None):
                      for name in conv_launches}
     results["zoo"], zoo_launches = phase_zoo(model_sweep, kernels, dev)
     conv_launches = {name: conv_launches[name] + zoo_launches[name] for name in conv_launches}
+    results["multistep"] = multi = phase_multistep(mx, kernels, dev)
+    multi_launches = multistep_launches(multi)
+    conv_launches = {name: conv_launches[name] + multi_launches[name] for name in conv_launches}
+    k1 = results["k1_entry"]
+    k1["launches_by_path"]["multistep"] = multi_launches["slab_update"]
+    k1["launches"] += multi_launches["slab_update"]
     # the f32 kernels' launches in phases 4, 5 and 19
     f32_launches = {name: n + results["training_f32_full"]["launches"][name]
                     for name, n in results["training_f32"]["launches"].items()}

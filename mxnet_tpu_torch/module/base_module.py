@@ -10,13 +10,23 @@ callbacks with the synced params and the validation score, then reset the
 data. Not ported yet, and raising when asked for: ``checkpoint_dir`` /
 ``resume`` (``mxnet_tpu/resilience/checkpoint.py``), ``guardrails``
 (``mxnet_tpu/resilience/guardrail.py``) and ``monitor``
-(``mxnet_tpu/monitor.py``). The throughput knobs ``MXNET_FIT_MULTISTEP``,
-``MXTPU_DEVICE_FEED`` and ``MXTPU_METRIC_INTERVAL`` change no result in
-the JAX package and are not read.
+(``mxnet_tpu/monitor.py``).
+
+``MXNET_FIT_MULTISTEP=K`` (K > 1) on the fused path groups K batches into
+one ``Module.update_multi`` (on the card one replay of a CUDA graph of K
+steps), which gives the bits of K single steps; the metric and
+``batch_end_callback`` still see every batch, with its own ``nbatch`` and
+the normal ``locals`` keys, after its group. A trailing partial group, or a
+batch whose shape breaks the group, takes the single-step path. Without a
+fused trainer the knob changes nothing. ``MXNET_FIT_MULTISTEP=auto`` (the
+JAX package's tuner, steered by telemetry the port does not record)
+raises. ``MXTPU_DEVICE_FEED`` and ``MXTPU_METRIC_INTERVAL`` change no
+result in the JAX package and are not read.
 """
 from __future__ import annotations
 
 import logging
+import os
 import time
 
 from .. import metric as metric_mod
@@ -38,6 +48,20 @@ def _fire(callbacks, epoch, nbatch, eval_metric, local_vars):
                            locals=local_vars)
     for cb in _as_list(callbacks):
         cb(params)
+
+
+def _fit_multistep():
+    """K of ``MXNET_FIT_MULTISTEP`` (1 when unset or not a number)."""
+    raw = os.environ.get("MXNET_FIT_MULTISTEP", "1").strip()
+    if raw.lower() == "auto":
+        raise NotImplementedError(
+            "MXNET_FIT_MULTISTEP=auto is not ported to PyTorch yet: its tuner "
+            "(mxnet_tpu/module/base_module.py:95) steers by telemetry the port does not "
+            "record (ROADMAP.md, Queue 1 step 10); set a number")
+    try:
+        return int(raw)
+    except ValueError:
+        return 1
 
 
 def _check_input_names(symbol, names, typename, throw):
@@ -139,19 +163,62 @@ class BaseModule:
                   for_training=True, force_rebind=force_rebind)
         self.init_params(initializer=initializer, arg_params=arg_params, aux_params=aux_params,
                          allow_missing=allow_missing, force_init=force_init)
+        fit_k = _fit_multistep()
         self.init_optimizer(kvstore=kvstore, optimizer=optimizer,
                             optimizer_params=optimizer_params)
         eval_metric = metric_mod.create(eval_metric)
         if validation_metric is None:
             validation_metric = eval_metric
+        use_multi = (fit_k > 1 and monitor is None
+                     and getattr(self, "_fused_trainer", None) is not None
+                     and hasattr(self, "update_multi"))
+        if use_multi:
+            self._fused_trainer.compile_multi(fit_k)  # raises for an ungrouped optimizer
+
+        def _single(epoch, nbatch, data_batch, local_vars):
+            self.forward_backward(data_batch)
+            self.update()
+            self.update_metric(eval_metric, data_batch.label)
+            _fire(batch_end_callback, epoch, nbatch, eval_metric, local_vars)
+
+        def _flush_group(pending, epoch):
+            def _cb_locals(nbatch, data_batch):
+                # the single-step path's locals keys, for callbacks that
+                # read locals["self"] or locals["data_batch"]
+                return dict(self=self, train_data=train_data, data_batch=data_batch,
+                            epoch=epoch, nbatch=nbatch, eval_metric=eval_metric,
+                            monitor=monitor)
+
+            if len(pending) < fit_k:
+                # a partial trailing group: the single-step path
+                for nbatch, db in pending:
+                    _single(epoch, nbatch, db, _cb_locals(nbatch, db))
+                return
+            steps = self.update_multi([db for _, db in pending])
+            for (nbatch, db), outs in zip(pending, steps):
+                self._install_step_outputs(outs)
+                self.update_metric(eval_metric, db.label)
+                _fire(batch_end_callback, epoch, nbatch, eval_metric, _cb_locals(nbatch, db))
+
         for epoch in range(begin_epoch, num_epoch):
             tic = time.time()
             eval_metric.reset()
+            pending = []  # (nbatch, data_batch) awaiting a K-group flush
             for nbatch, data_batch in enumerate(train_data):
-                self.forward_backward(data_batch)
-                self.update()
-                self.update_metric(eval_metric, data_batch.label)
-                _fire(batch_end_callback, epoch, nbatch, eval_metric, locals())
+                if not use_multi:
+                    _single(epoch, nbatch, data_batch, locals())
+                    continue
+                if pending and any(tuple(p.shape) != tuple(d.shape)
+                                   for p, d in zip(pending[0][1].data, data_batch.data)):
+                    # a shape break: flush what is pending first
+                    _flush_group(pending, epoch)
+                    pending = []
+                pending.append((nbatch, data_batch))
+                if len(pending) == fit_k:
+                    _flush_group(pending, epoch)
+                    pending = []
+            if pending:
+                _flush_group(pending, epoch)
             for name, val in eval_metric.get_name_value():
                 self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
             self.logger.info("Epoch[%d] Time cost=%.3f", epoch, time.time() - tic)

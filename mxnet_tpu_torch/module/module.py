@@ -9,7 +9,10 @@ mesh of logical dp ranks on one device, with the flat bucketed update and,
 under ``MXTPU_AMP=bf16``, bf16 compute over f32 masters and kernel K1.
 Otherwise ``update`` pushes and pulls through the KVStore and the
 Updater. Evaluation and prediction always run the executor group, whose
-weights are refreshed from the fused state first.
+weights are refreshed from the fused state first. On the fused path
+``update_multi`` runs K batches as one group of K steps
+(``ShardedTrainStep.call_multi``: on the card one CUDA graph replay), as
+``fit`` does under ``MXNET_FIT_MULTISTEP=K``.
 
 On the card the fused entry point is
 ``Module(sym, context=mx.gpu(0), mesh=mx.parallel.make_mesh(dp=4,
@@ -414,20 +417,11 @@ class Module(BaseModule):
         if self._fused_trainer is not None:
             assert self._fused_batch is not None, "forward() before update()"
             owner = self._fused_owner
-            optm = self._optimizer
-            owner._fused_t += 1
-            optm.num_update = max(owner._fused_t, optm.num_update)
-            # one scheduled lr a step for every parameter, at the
-            # post-increment count
-            lr = optm.lr_scheduler(optm.num_update) if optm.lr_scheduler is not None \
-                else optm.lr
-            if self is not owner and self._fused_params is None:
-                self._fused_params = owner._fused_params
-                self._fused_aux = owner._fused_aux
-                self._fused_opt = owner._fused_opt
+            lr, t = self._next_step_schedule()
+            self._bind_owner_state()
             p, a, s, outs = self._fused_trainer(
                 owner._fused_params, owner._fused_aux, owner._fused_opt,
-                self._make_fused_batch(self._fused_batch), lr=lr, t=owner._fused_t)
+                self._make_fused_batch(self._fused_batch), lr=lr, t=t)
             owner._fused_params, owner._fused_aux, owner._fused_opt = p, a, s
             self._fused_outputs = [nd.NDArray(o) for o in outs]
             self._fused_batch = None
@@ -441,6 +435,62 @@ class Module(BaseModule):
             _update_params(self._exec_group.param_arrays, self._exec_group.grad_arrays,
                            updater=self._updater, num_device=len(self._context),
                            kvstore=self._kvstore)
+
+    def _next_step_schedule(self):
+        """Advance the fused update count and ``num_update`` by one step;
+        returns the step's (scheduled lr for every parameter, at the
+        post-increment count, and update count)."""
+        owner = self._fused_owner
+        optm = self._optimizer
+        owner._fused_t += 1
+        optm.num_update = max(owner._fused_t, optm.num_update)
+        lr = optm.lr_scheduler(optm.num_update) if optm.lr_scheduler is not None else optm.lr
+        return lr, owner._fused_t
+
+    def _bind_owner_state(self):
+        """A module borrowing the owner's fused trainer reads the owner's
+        state from its first step on."""
+        owner = self._fused_owner
+        if self is not owner and self._fused_params is None:
+            self._fused_params = owner._fused_params
+            self._fused_aux = owner._fused_aux
+            self._fused_opt = owner._fused_opt
+
+    def update_multi(self, data_batches):
+        """len(data_batches) fused training steps as one group
+        (``ShardedTrainStep.call_multi``; on the card one replay of a CUDA
+        graph of K steps). The per-step arithmetic, the lr schedule,
+        ``num_update`` and the update count advance as K ``update()`` calls
+        would. Returns K lists of that step's outputs (copies, not graph
+        memory); the last step's stay readable through ``get_outputs``.
+        Needs the fused path and batches of one shape."""
+        assert self._fused_trainer is not None, "fused path required"
+        assert self._fused_batch is None, "pending forward(); use update() for it first"
+        owner = self._fused_owner
+        k = len(data_batches)
+        self._params_dirty = True
+        batches = {name: [b.data[i]._data for b in data_batches]
+                   for i, name in enumerate(self._data_names)}
+        if self._label_names and data_batches[0].label:
+            batches.update({name: [b.label[i]._data for b in data_batches]
+                            for i, name in enumerate(self._label_names)})
+        # advance the schedule exactly as K update() calls would
+        lrs, ts = zip(*[self._next_step_schedule() for _ in range(k)])
+        self._bind_owner_state()
+        p, a, s, outs = self._fused_trainer.call_multi(
+            owner._fused_params, owner._fused_aux, owner._fused_opt, batches, lrs, ts)
+        owner._fused_params, owner._fused_aux, owner._fused_opt = p, a, s
+        owner._fused_exec_stale = True
+        self._fused_exec_stale = True
+        steps = [[o[i] for o in outs] for i in range(k)]
+        self._install_step_outputs(steps[-1])
+        return steps
+
+    def _install_step_outputs(self, outs_raw):
+        """Publish one micro-step's outputs as the current fused outputs
+        (``fit``'s group flush does so step by step, so that
+        ``update_metric`` and ``get_outputs`` serve that step's results)."""
+        self._fused_outputs = [nd.NDArray(o) for o in outs_raw]
 
     def get_outputs(self, merge_multi_context=True):
         assert self.binded and self.params_initialized

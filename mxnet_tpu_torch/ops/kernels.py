@@ -1074,9 +1074,13 @@ def fused_slab_update_multi(kind, entries, inv_scale, finite, *, rescale_grad, c
     On CUDA tensors: one kernel launch for every ``SLAB_TABLE_CAP`` slabs
     (``fused_slab_update.launches`` counts K1's launches), the checks in one
     pass over the table, the entries' host-number lrs copied to the device
-    in one non-blocking copy from pinned memory (so a replay of a captured
-    step would read new ones), tensors read through their pointers; nothing
-    else is launched and nothing waits for the device. On CPU tensors:
+    in one non-blocking copy from a pinned block made for the call, tensors
+    read through their pointers; nothing else is launched and nothing waits
+    for the device. A captured copy would read that block at every replay
+    after it is freed, so while the current stream is being captured into
+    a CUDA graph every lr must be a one-element f32 tensor on the slabs'
+    device (memory the host writes before each replay), and a host number
+    raises :class:`MXNetError`. On CPU tensors:
     :func:`slab_update_multi_reference`."""
     statics = dict(rescale_grad=rescale_grad, clip_gradient=clip_gradient, momentum=momentum,
                    beta1=beta1, beta2=beta2, epsilon=epsilon)
@@ -1096,6 +1100,11 @@ def fused_slab_update_multi(kind, entries, inv_scale, finite, *, rescale_grad, c
         else:
             lr_ptrs.append(0)
             host.append(j)
+    if host and torch.cuda.is_current_stream_capturing():
+        raise MXNetError("fused_slab_update_multi: slab %d's lr is a host number while the "
+                         "stream is captured into a CUDA graph, where its copy would be read "
+                         "from a freed block at each replay; pass a one-element float32 tensor "
+                         "on cuda:%d" % (host[0], dev))
     if host:
         lrs = torch.tensor([float(rows[j][4]) for j in host], dtype=torch.float32,
                            pin_memory=True).to(torch.device("cuda", dev), non_blocking=True)

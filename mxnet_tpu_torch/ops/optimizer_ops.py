@@ -7,6 +7,13 @@ The update math and its order are the JAX package's (reference
   rescaled = clip(rescale_grad * grad, clip_gradient) + wd * weight
 The updated states come back as trailing outputs under ``mutate_inputs``;
 the imperative layer writes them into the state arrays in place.
+
+``lr`` of sgd_update, sgd_mom_update and adam_update is a number or a 0-d
+f32 tensor on the weight's device, read where it lies: a grouped step
+(``ShardedTrainStep.call_multi``) captured into a CUDA graph takes each
+micro-step's lr from memory the host writes before each replay, since a
+number would be baked into the capture. ``f32(lr)`` as a tensor gives the
+bits of ``lr`` as a number.
 """
 from __future__ import annotations
 
@@ -23,13 +30,19 @@ def _prep_grad(weight, grad, attrs):
     return g + float(attrs.get("wd", 0.0)) * weight
 
 
+def _lr(attrs):
+    """The step's lr: a 0-d tensor as it is (no host read), else a number."""
+    lr = attrs["lr"]
+    return lr if torch.is_tensor(lr) else float(lr)
+
+
 _COMMON = {"lr": 0.01, "wd": 0.0, "rescale_grad": 1.0, "clip_gradient": -1.0}
 
 
 def _sgd_update(attrs, ins, is_train):
     weight, grad = ins
     g = _prep_grad(weight, grad, attrs)
-    return [weight - float(attrs["lr"]) * g]
+    return [weight - _lr(attrs) * g]
 
 
 register(
@@ -45,7 +58,7 @@ register(
 def _sgd_mom_update(attrs, ins, is_train):
     weight, grad, mom = ins
     g = _prep_grad(weight, grad, attrs)
-    new_mom = float(attrs.get("momentum", 0.0)) * mom - float(attrs["lr"]) * g
+    new_mom = float(attrs.get("momentum", 0.0)) * mom - _lr(attrs) * g
     return [weight + new_mom, new_mom]
 
 
@@ -68,7 +81,7 @@ def _adam_update(attrs, ins, is_train):
     g = _prep_grad(weight, grad, attrs)
     new_mean = beta1 * mean + (1.0 - beta1) * g
     new_var = beta2 * var + (1.0 - beta2) * torch.square(g)
-    new_w = weight - float(attrs["lr"]) * new_mean / (torch.sqrt(new_var) + eps)
+    new_w = weight - _lr(attrs) * new_mean / (torch.sqrt(new_var) + eps)
     return [new_w, new_mean, new_var]
 
 

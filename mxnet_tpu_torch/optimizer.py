@@ -120,6 +120,20 @@ class Optimizer:
         return {"lr": lr, "wd": wd, "rescale_grad": self.rescale_grad,
                 "clip_gradient": self.clip_gradient or -1.0}
 
+    def fused_lr(self, index, lr):
+        """The lr the fused update operator takes at ``index``, from the
+        scheduled ``lr`` of :meth:`_fused_kwargs` (Adam folds its bias
+        correction in)."""
+        return lr
+
+    def _op_lr(self, index, lr):
+        """The lr the update operator reads: ``fused_lr``. A grouped step
+        (``ShardedTrainStep.call_multi``) shadows it for one micro-step
+        with a device view of that step's ``fused_lr``, which the host
+        wrote before the step ran (a captured step reads it at each
+        replay)."""
+        return self.fused_lr(index, lr)
+
     # True when update() is a pure elementwise function of (weight, grad,
     # state) given the scalar hyperparameters: such an optimizer runs on
     # any flat re-layout of the parameters, which the flat update of the
@@ -128,7 +142,8 @@ class Optimizer:
 
     # The K1 variant (ops/kernels.fused_slab_update) the AMP flat update
     # runs for this optimizer: "sgd" (momentum picks sgd_mom), "adam", or
-    # None for the generic path through update().
+    # None for the generic path through update(). The optimizers that set
+    # it read their lr through _op_lr, which is what a grouped step needs.
     fused_slab_kernel = None
 
     def create_state(self, index, weight):
@@ -172,6 +187,7 @@ class SGD(Optimizer):
 
     def update(self, index, weight, grad, state):
         kwargs = self._fused_kwargs(index)
+        kwargs["lr"] = self._op_lr(index, kwargs["lr"])
         if state is None:
             nd.sgd_update(weight, grad, out=weight, **kwargs)
         else:
@@ -258,9 +274,12 @@ class Adam(Optimizer):
         """The factor Adam's lr takes at update count ``t``."""
         return (1.0 - self.beta2 ** t) ** 0.5 / (1.0 - self.beta1 ** t)
 
+    def fused_lr(self, index, lr):
+        return lr * self.bias_fix(self._index_update_count[index])
+
     def update(self, index, weight, grad, state):
         kwargs = self._fused_kwargs(index)
-        kwargs["lr"] = kwargs["lr"] * self.bias_fix(self._index_update_count[index])
+        kwargs["lr"] = self._op_lr(index, kwargs["lr"])
         mean, var = state
         nd.adam_update(weight, grad, mean, var, out=weight, beta1=self.beta1,
                        beta2=self.beta2, epsilon=self.epsilon, **kwargs)

@@ -29,21 +29,40 @@ update chunk by chunk, as JAX's scan does (one entry per chunk);
 elementwise updates give the same bits either way. The step's ``lr`` and
 update count ``t`` are host numbers passed each call;
 ``Optimizer._index_update_count`` and ``num_update`` end as the JAX
-package leaves them. Not ported: ``compile_multi`` (the
-K-step scan), ``zero1``, ``param_specs`` / tensor parallelism and the
-guardrail gate; each raises.
+package leaves them.
+
+``call_multi`` runs K steps at once, the port of JAX's ``lax.scan`` of the
+step (``compile_multi``). Each micro-step is the step above on static
+buffers, one set a (K, batch signature): the state (params, aux,
+optimizer state) is copied in when it is not already those buffers, the K
+batches are staged into (K, ...) inputs, and each micro-step's lr for every
+parameter (``Optimizer.fused_lr`` under its lr and ``t``, worked out on the
+host as an eager step does) goes into one (K, n) f32 table whose row the
+micro-step reads through device views (``_patched_optimizer``'s
+``row``; K1's ``lr`` pointers); each micro-step's new state is copied back into the
+buffers. On a CUDA device the first group of a signature runs so, eagerly
+(its results stand; it does the lazy set-up, and its micro-steps after the
+first run under ``torch.cuda.set_sync_debug_mode("error")``, so a host read
+raises); the second is captured into one ``torch.cuda.CUDAGraph`` (the
+sampler generator registered with it) and replayed, and every later group
+is one replay. A failed capture raises :class:`MXNetError`. On the CPU the
+same body runs uncaptured. Only optimizers with a fused update (SGD,
+SGD-momentum, Adam: ``fused_slab_kernel``) or none are grouped. Not ported:
+``zero1``, ``param_specs`` / tensor parallelism and the guardrail gate;
+each raises.
 """
 from __future__ import annotations
 
 import contextlib
 import logging
 import os
+import time
 
 import numpy as np
 import torch
 
 from .. import random as _random
-from ..base import bucket_bytes_env
+from ..base import MXNetError, bucket_bytes_env
 from ..executor import _GraphProgram, resolve_creation_shapes
 from ..ndarray import NDArray
 from ..ops import kernels
@@ -167,6 +186,68 @@ def _not_ported(what, where):
     return NotImplementedError("%s is not ported to PyTorch yet (%s)" % (what, where))
 
 
+def _store(dst, src):
+    """Write the state dict ``src`` into the buffers of ``dst`` (same keys;
+    tensors, tuples of them or None), skipping entries that already are
+    those buffers."""
+    for key, d in dst.items():
+        _store_one(d, src[key])
+
+
+def _store_one(d, s):
+    if isinstance(d, tuple):
+        for a, b in zip(d, s):
+            _store_one(a, b)
+    elif d is not None and d is not s:
+        d.copy_(s)
+
+
+def _same_layout(a, b):
+    """Two state trees of the same structure, shapes and dtypes."""
+    if isinstance(a, tuple) or isinstance(b, tuple):
+        return (isinstance(a, tuple) and isinstance(b, tuple) and len(a) == len(b)
+                and all(_same_layout(x, y) for x, y in zip(a, b)))
+    if a is None or b is None:
+        return a is b
+    return a is b or (a.shape == b.shape and a.dtype == b.dtype and a.device == b.device)
+
+
+def _kernel_launches():
+    """Every kernel wrapper's launch count, name -> count."""
+    return {name: fn.launches for name, fn in vars(kernels).items()
+            if callable(fn) and hasattr(fn, "launches")}
+
+
+class _StepGroup:
+    """The static buffers of K fused steps on one batch signature, and on a
+    CUDA device their graph (see :meth:`ShardedTrainStep.call_multi`)."""
+
+    def __init__(self, k, params, aux, opt_state, batch_shapes, n_lrs, device):
+        clone = lambda t: _map_state(lambda x: x.detach().clone(), t)  # noqa: E731
+        self.k = k
+        self.params = {n: clone(v) for n, v in params.items()}
+        self.aux = {n: clone(v) for n, v in aux.items()}
+        self.opt = {n: clone(v) for n, v in opt_state.items()}
+        self.batches = {n: torch.empty((k,) + shape, dtype=dtype, device=device)
+                        for n, (shape, dtype) in batch_shapes.items()}
+        cuda = device.type == "cuda"
+        self.lrs = torch.zeros((k, n_lrs), dtype=torch.float32, device=device)
+        self.lrs_host = torch.zeros((k, n_lrs), dtype=torch.float32, pin_memory=cuda)
+        self.pinned = {}  # name -> pinned (K, ...) staging of host batches
+        self.staged = None  # event after the last copies out of pinned memory
+        self.graph = None
+        self.outs = None  # the captured micro-steps' outputs (graph memory)
+        self.stats = {"k": k, "groups": 0, "warmup_groups": 0, "captures": 0, "replays": 0,
+                      "capture_ms": None, "pool_bytes": None, "captured_launches": None}
+
+    def fits(self, params, aux, opt_state):
+        """The state trees have this group's layout."""
+        return all(mine.keys() == theirs.keys()
+                   and all(_same_layout(mine[n], theirs[n]) for n in mine)
+                   for mine, theirs in ((self.params, params), (self.aux, aux),
+                                        (self.opt, opt_state)))
+
+
 class ShardedTrainStep:
     """A Symbol's training step over a Mesh whose ranks share one device;
     see the module docstring."""
@@ -214,6 +295,7 @@ class ShardedTrainStep:
             _LOG.info("fused update path: flat bucketed (%s, dp=%d, MXTPU_BUCKET_BYTES=%d)",
                       self.flat_mode, dp, self.flat_bucket_bytes)
         self._flat_plan = None
+        self._groups = {}  # (K, batch signature) -> _StepGroup
         amp_req = os.environ.get("MXTPU_AMP", "").lower()
         self.amp = False
         if amp_req in ("bf16", "bfloat16"):
@@ -431,30 +513,37 @@ class ShardedTrainStep:
         placed = {n: _map_state(lambda s: s.clone(), s) for n, s in named.items()}
         self.flat_mode = None
         self.amp = False
+        self._groups.clear()
         return placed
 
     # -- the update --------------------------------------------------------
     @contextlib.contextmanager
-    def _patched_optimizer(self, lr, t):
+    def _patched_optimizer(self, lr, t, row=None):
         """The step's lr (host-scheduled) and update count ``t`` for every
         parameter, for the duration of one update; the optimizer's own
         counters are restored after, as the JAX trace leaves them. Both are
         numpy f32 scalars: the JAX step traces them as f32, so Adam's bias
         correction (``1 - beta2 ** t`` cancels most of its digits) and the
-        lr multipliers round in f32 there, and here alike."""
+        lr multipliers round in f32 there, and here alike. Under a grouped
+        micro-step, ``row`` is its row of the device lr table: the update
+        operators then read ``row[index]`` (``Optimizer._op_lr``), which
+        the host wrote before the step ran."""
         opt = self.optimizer
         saved = (opt.lr, opt.lr_scheduler, opt._index_update_count, opt.num_update)
         opt.lr = np.float32(lr)
         opt.lr_scheduler = None
         opt._index_update_count = _EveryKeyCount(np.float32(t))
-        opt._update_count = lambda index: None  # instance shadow
+        opt._update_count = lambda index: None  # instance shadows
+        if row is not None:
+            opt._op_lr = lambda index, lr: row[index]
         try:
             yield opt
         finally:
             del opt.__dict__["_update_count"]
+            opt.__dict__.pop("_op_lr", None)
             opt.lr, opt.lr_scheduler, opt._index_update_count, opt.num_update = saved
 
-    def _apply_optimizer(self, params, grads, opt_state, lr, t):
+    def _apply_optimizer(self, params, grads, opt_state, lr, t, row=None):
         """Optimizer.update for every parameter, in place (the per-key
         layout)."""
         opt = self.optimizer
@@ -462,7 +551,7 @@ class ShardedTrainStep:
             for name in self.param_names:
                 params[name].sub_(lr * grads[name])
             return params, opt_state
-        with self._patched_optimizer(lr, t):
+        with self._patched_optimizer(lr, t, row):
             for i, name in enumerate(self.param_names):
                 st = _wrap_state(opt_state.get(name))
                 opt.update(i, NDArray(params[name]), NDArray(grads[name]), st)
@@ -482,14 +571,14 @@ class ShardedTrainStep:
         s = bucket.padded // dp
         return [slice(c * s, (c + 1) * s) for c in range(dp)]
 
-    def _apply_optimizer_flat(self, params, grads, opt_state, lr, t):
+    def _apply_optimizer_flat(self, params, grads, opt_state, lr, t, row=None):
         """The f32 flat update: per bucket, the optimizer on the flat slab of
         weights and gradients, then per-parameter views of the new slab."""
         if self.optimizer is None or self.flat_mode is None:
-            return self._apply_optimizer(params, grads, opt_state, lr, t)
+            return self._apply_optimizer(params, grads, opt_state, lr, t, row)
         plan = self._ensure_flat_plan(params)
         new_params = dict(params)
-        with self._patched_optimizer(lr, t):
+        with self._patched_optimizer(lr, t, row):
             for bi, b in enumerate(plan.buckets):
                 names = [v[1] for v in b.views]
                 dtype = params[names[0]].dtype
@@ -520,9 +609,7 @@ class ShardedTrainStep:
         opt = self.optimizer
         states = () if st_c is None else (st_c if isinstance(st_c, tuple) else (st_c,))
         kwargs = opt._fused_kwargs(bucket.rep_index)
-        lr_eff = kwargs["lr"]
-        if kind == "adam":
-            lr_eff = lr_eff * opt.bias_fix(opt._index_update_count[bucket.rep_index])
+        lr_eff = opt._op_lr(bucket.rep_index, kwargs["lr"])
         statics = dict(rescale_grad=kwargs["rescale_grad"], clip_gradient=kwargs["clip_gradient"],
                        momentum=getattr(opt, "momentum", 0.0), beta1=getattr(opt, "beta1", 0.9),
                        beta2=getattr(opt, "beta2", 0.999), epsilon=getattr(opt, "epsilon", 1e-8))
@@ -547,7 +634,7 @@ class ShardedTrainStep:
             old.copy_(torch.where(keep, new, old))
         w16_c.copy_(m_c.to(torch.bfloat16))
 
-    def _apply_optimizer_flat_amp(self, params, grads, opt_state, lr, t):
+    def _apply_optimizer_flat_amp(self, params, grads, opt_state, lr, t, row=None):
         """The AMP flat update: per bucket the bf16 gradient slab; one
         finite flag over every slab gates every bucket alike; masters and
         states updated in place, new bf16 working params as views of each
@@ -574,7 +661,7 @@ class ShardedTrainStep:
         new_params = dict(params)
         kind = self._slab_kind()
         entries, statics = [], None
-        with self._patched_optimizer(lr, t):
+        with self._patched_optimizer(lr, t, row):
             for bi, b in enumerate(plan.buckets):
                 master = opt_state[self._master_key(bi)]
                 st = opt_state.get(self._flat_key(bi))
@@ -602,7 +689,7 @@ class ShardedTrainStep:
         return new_params, opt_state
 
     # -- the step ----------------------------------------------------------
-    def _step(self, params, aux, opt_state, batch, rng, lr, t):
+    def _step(self, params, aux, opt_state, batch, rng, lr, t, row=None):
         amp = self.amp
         if amp and self.amp_cast_data:
             # bf16 activations from the first op: floating DATA feeds only
@@ -633,7 +720,7 @@ class ShardedTrainStep:
         else:
             apply = self._apply_optimizer
         with torch.no_grad():
-            new_params, new_opt = apply(params, grads, opt_state, lr, t)
+            new_params, new_opt = apply(params, grads, opt_state, lr, t, row)
         new_aux = {**aux, **{k: v.detach() for k, v in new_aux.items()}}
         if amp:  # BN moving stats keep their f32 dtype
             new_aux = {k: (v.to(aux[k].dtype) if k in aux and v.dtype != aux[k].dtype else v)
@@ -649,23 +736,204 @@ class ShardedTrainStep:
                           "mxnet_tpu/parallel/train_step.py:1213, mxnet_tpu/resilience/"
                           "guardrail.py")
 
-    def compile_multi(self, k):
-        raise _not_ported("compile_multi (the K-step scan, MXNET_FIT_MULTISTEP)",
-                          "mxnet_tpu/parallel/train_step.py:1225")
+    def _set_shapes(self, params, sig):
+        """Creation-op shapes for one step's batch signature ``sig`` ((name,
+        shape) pairs), resolved when it changes."""
+        if sig != self._shape_sig:
+            shapes = {n: tuple(v.shape) for n, v in params.items()}
+            shapes.update(dict(sig))
+            self.program.shape_overrides = resolve_creation_shapes(self.symbol, shapes)
+            self._shape_sig = sig
 
-    call_multi = compile_multi
+    # -- K steps at once ---------------------------------------------------
+    def compile_multi(self, k):
+        """The K-step function ``(params, aux, opt_state, batches, lrs, ts)
+        -> (params, aux, opt_state, outs)`` (see :meth:`call_multi`; its
+        buffers and graph are kept per K and batch signature). Raises
+        NotImplementedError for an optimizer whose update does not read its
+        lr through ``Optimizer._op_lr``."""
+        opt = self.optimizer
+        if opt is not None and getattr(opt, "fused_slab_kernel", None) is None:
+            raise NotImplementedError(
+                "MXNET_FIT_MULTISTEP > 1 groups SGD, SGD-momentum and Adam steps; %s is not "
+                "grouped yet (ROADMAP.md, Queue 1 step 2)" % type(opt).__name__)
+        if k < 1:
+            raise MXNetError("compile_multi: K must be at least 1, got %r" % (k,))
+        return lambda *args: self._run_multi(k, *args)
+
+    def call_multi(self, params, aux, opt_state, batches, lrs, ts):
+        """K = ``len(lrs)`` fused steps at once, each the arithmetic of one
+        :meth:`__call__`: ``batches`` name -> a (K, batch, ...) tensor or K
+        tensors of the global batch, ``lrs`` / ``ts`` the K micro-steps'
+        host-scheduled lrs and update counts. Returns (params, aux,
+        opt_state, outs), the state dicts holding the group's static
+        buffers (the next group reads them in place, or copies in what
+        differs) and ``outs`` one (K, ...) tensor an output, a copy. See
+        the module docstring for the CUDA graph."""
+        return self.compile_multi(len(lrs))(params, aux, opt_state, batches, lrs, ts)
+
+    def group_stats(self):
+        """Per (K, batch signature): the groups run, those run eagerly on
+        the card (the warm-up), captures, replays, the capture's ms, the
+        graph pool's bytes and the launches each kernel wrapper counted
+        while the graph was captured (its launches a replay)."""
+        return [dict(g.stats) for g in self._groups.values()]
+
+    def _lr_rows(self, lrs, ts):
+        """The (K, n) table of each micro-step's lr for each parameter index
+        (one column when there is no optimizer), in the f32 arithmetic of an
+        eager step: ``Optimizer.fused_lr`` under ``_patched_optimizer``."""
+        opt = self.optimizer
+        rows = np.zeros((len(lrs), max(1, len(self.param_names))), np.float32)
+        if self.flat_mode is not None:
+            cols = sorted({b.rep_index for b in self._flat_plan.buckets})
+        else:
+            cols = range(len(self.param_names))
+        for k, (lr, t) in enumerate(zip(lrs, ts)):
+            if opt is None:
+                rows[k] = lr
+                continue
+            with self._patched_optimizer(lr, t):
+                for i in cols:
+                    rows[k, i] = opt.fused_lr(i, opt._fused_kwargs(i)["lr"])
+        return rows
+
+    def _stage(self, group, batches):
+        """The K batches into the group's (K, ...) inputs: host tensors
+        through one pinned buffer a name (non-blocking), device ones
+        directly."""
+        k = group.k
+        for name, src in batches.items():
+            dst = group.batches[name]
+            parts = [src[i] for i in range(k)]
+            if dst.device.type == "cuda" and parts[0].device.type == "cpu":
+                pinned = group.pinned.get(name)
+                if pinned is None:
+                    pinned = group.pinned[name] = torch.empty(dst.shape, dtype=dst.dtype,
+                                                              pin_memory=True)
+                torch.stack([p.to(dst.dtype) for p in parts], out=pinned)
+                dst.copy_(pinned, non_blocking=True)
+            else:
+                for i, p in enumerate(parts):
+                    dst[i].copy_(p)
+
+    def _micro_step(self, group, i, rng, lr, t):
+        """Micro-step ``i`` of a group on its buffers: the eager step with
+        every lr read from row ``i`` of the device table, its new state
+        written back into the buffers. Returns its outputs."""
+        row = group.lrs[i]
+        batch = {n: v[i] for n, v in group.batches.items()}
+        if self.optimizer is None:
+            lr, row = row[0], None
+        p, a, s, outs = self._step(group.params, group.aux, dict(group.opt), batch, rng, lr, t,
+                                   row)
+        _store(group.params, p)
+        _store(group.aux, a)
+        _store(group.opt, s)
+        return outs
+
+    def _warmup(self, group, lrs, ts, rng):
+        """A group run eagerly on a CUDA device: micro-step 0 does the lazy
+        set-up, the rest run under sync debug mode "error"."""
+        outs = [self._micro_step(group, 0, rng, lrs[0], ts[0])]
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            outs += [self._micro_step(group, i, rng, lrs[i], ts[i])
+                     for i in range(1, group.k)]
+        except RuntimeError as exc:
+            # sync debug mode's own error ("called a synchronizing CUDA
+            # operation"); any other error goes on as it is
+            if "synchronizing CUDA operation" not in str(exc):
+                raise
+            raise MXNetError("a grouped step waited for the device (a host read), which a "
+                             "CUDA graph cannot capture: %s" % exc) from exc
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        group.stats["warmup_groups"] += 1
+        return outs
+
+    def _capture(self, group, lrs, ts, rng):
+        """Capture the group's K micro-steps into one CUDA graph (nothing
+        runs); its pool's bytes, the capture ms and the launches each
+        wrapper counted go into ``group.stats``."""
+        dev = self.device
+        graph = torch.cuda.CUDAGraph()
+        if rng is not None:
+            graph.register_generator_state(rng)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved, before = torch.cuda.memory_reserved(dev), _kernel_launches()
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(graph):
+                outs = [self._micro_step(group, i, rng, lrs[i], ts[i]) for i in range(group.k)]
+        except Exception as exc:
+            raise MXNetError("capturing %d fused steps into a CUDA graph failed: %s"
+                             % (group.k, exc)) from exc
+        torch.cuda.synchronize(dev)
+        after = _kernel_launches()
+        group.stats.update(
+            captures=group.stats["captures"] + 1, capture_ms=1e3 * (time.perf_counter() - t0),
+            pool_bytes=torch.cuda.memory_reserved(dev) - reserved,
+            captured_launches={n: after[n] - before[n] for n in after if after[n] != before[n]})
+        group.graph, group.outs = graph, outs
+
+    def _run_multi(self, k, params, aux, opt_state, batches, lrs, ts):
+        dev = self.device
+        if len(lrs) != k or len(ts) != k:
+            raise MXNetError("a %d-step group takes %d lrs and ts, got %d and %d"
+                             % (k, k, len(lrs), len(ts)))
+        batches = {n: (v if torch.is_tensor(v) else list(v)) for n, v in batches.items()}
+        step_shapes = {n: (tuple(v[0].shape), v[0].dtype) for n, v in batches.items()}
+        for n, v in batches.items():
+            if len(v) != k or any(tuple(v[i].shape) != step_shapes[n][0] for i in range(k)):
+                raise MXNetError("a %d-step group takes %d batches of one shape for %s"
+                                 % (k, k, n))
+        sig = tuple((n, shape) for n, (shape, _) in step_shapes.items())
+        self._set_shapes(params, sig)
+        if self.flat_mode is not None:
+            self._ensure_flat_plan(params)
+        key = (k, tuple((n, shape, str(dtype)) for n, (shape, dtype) in step_shapes.items()))
+        group = self._groups.get(key)
+        if group is not None and not group.fits(params, aux, opt_state):
+            group = None  # the state's layout changed: new buffers, a new graph
+        if group is None:
+            group = self._groups[key] = _StepGroup(
+                k, params, aux, opt_state, step_shapes, max(1, len(self.param_names)), dev)
+        else:
+            _store(group.params, params)
+            _store(group.aux, aux)
+            _store(group.opt, opt_state)
+        if group.staged is not None:
+            group.staged.synchronize()  # the last group's copies out of pinned memory
+        self._stage(group, batches)
+        group.lrs_host.copy_(torch.from_numpy(self._lr_rows(lrs, ts)))
+        group.lrs.copy_(group.lrs_host, non_blocking=True)
+        if dev.type == "cuda":
+            group.staged = torch.cuda.Event()
+            group.staged.record()
+        rng = _random.generator(dev) if self._needs_rng else None
+        group.stats["groups"] += 1
+        if dev.type != "cuda":
+            outs = [self._micro_step(group, i, rng, lrs[i], ts[i]) for i in range(k)]
+        elif group.graph is None and not group.stats["warmup_groups"]:
+            outs = self._warmup(group, lrs, ts, rng)
+        else:
+            if group.graph is None:
+                self._capture(group, lrs, ts, rng)
+            group.graph.replay()
+            group.stats["replays"] += 1
+            outs = group.outs
+        stacked = [torch.stack([o[j] for o in outs]) for j in range(len(outs[0]))]
+        return dict(group.params), dict(group.aux), dict(group.opt), stacked
 
     def __call__(self, params, aux, opt_state, batch, rng=None, lr=None, t=1):
         """One step: ``params`` / ``aux`` / ``opt_state`` as made by
         :meth:`init` (or place_params / make_state), ``batch`` name ->
         tensor of the global batch. Returns (params, aux, opt_state,
         outputs); master and state slabs are updated in place."""
-        sig = tuple((n, tuple(v.shape)) for n, v in batch.items())
-        if sig != self._shape_sig:
-            shapes = {n: tuple(v.shape) for n, v in params.items()}
-            shapes.update(dict(sig))
-            self.program.shape_overrides = resolve_creation_shapes(self.symbol, shapes)
-            self._shape_sig = sig
+        self._set_shapes(params, tuple((n, tuple(v.shape)) for n, v in batch.items()))
         if lr is None:
             opt = self.optimizer
             if opt is not None and opt.lr_scheduler is not None:

@@ -684,3 +684,122 @@ def test_cuda_slab_update_multi_raises_on_bad_arguments():
                                         clip_gradient=None, **SLAB_KW_MULTI)
     assert kernels.fused_slab_update.launches == before
 
+
+
+@pytest.mark.cuda
+def test_cuda_slab_update_multi_refuses_host_lrs_under_capture():
+    """While the stream is captured into a CUDA graph, K1's table wrapper
+    refuses a host-number lr (its pinned copy would be read from a freed
+    block at each replay) and takes a device one, which each replay reads
+    anew: two replays at two lrs give the plain version's bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator().manual_seed(8)
+    w0 = torch.randn(5000, generator=g).cuda()
+    grad = torch.randn(5000, generator=g).cuda().bfloat16()
+    mom0 = torch.randn(5000, generator=g).cuda()
+    w, mom, w16 = w0.clone(), mom0.clone(), torch.empty(5000, dtype=torch.bfloat16, device="cuda")
+    lr = torch.full((), 0.1, device="cuda")
+    one = torch.ones((), device="cuda")
+
+    def table(lr_value):
+        return [kernels.SlabEntry(w, grad, (mom,), lr_value, 1e-4, (w, (mom,), w16))]
+
+    kernels.fused_slab_update_multi("sgd_mom", table(lr), one, one, clip_gradient=None,
+                                    **SLAB_KW_MULTI)  # built and loaded before the capture
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        with pytest.raises(MXNetError, match="captured into a CUDA graph"):
+            kernels.fused_slab_update_multi("sgd_mom", table(0.1), one, one, clip_gradient=None,
+                                            **SLAB_KW_MULTI)
+        kernels.fused_slab_update_multi("sgd_mom", table(lr), one, one, clip_gradient=None,
+                                        **SLAB_KW_MULTI)
+    for value in (0.1, 0.25):
+        w.copy_(w0)
+        mom.copy_(mom0)
+        lr.fill_(value)
+        graph.replay()
+        want = kernels.slab_update_reference("sgd_mom", w0, grad, (mom0,), value, 1.0, 1.0,
+                                             wd=1e-4, clip_gradient=None, **SLAB_KW_MULTI)
+        torch.cuda.synchronize()
+        assert torch.equal(w, want[0]) and torch.equal(mom, want[1][0])
+        assert torch.equal(w16, want[2])
+
+
+def _mlp_trainer(mx, dropout, amp, monkeypatch):
+    if amp:
+        monkeypatch.setenv("MXTPU_AMP", "bf16")
+    else:
+        monkeypatch.delenv("MXTPU_AMP", raising=False)
+    net = mx.sym.FullyConnected(mx.sym.Variable("data"), num_hidden=64, name="fc1")
+    net = mx.sym.Activation(net, act_type="relu")
+    if dropout:
+        net = mx.sym.Dropout(net, p=0.3)
+    net = mx.sym.FullyConnected(net, num_hidden=10, name="fc2")
+    net = mx.sym.SoftmaxOutput(net, name="softmax")
+    opt = mx.optimizer.create("sgd", learning_rate=0.1, momentum=0.9, rescale_grad=1 / 32)
+    mesh = mx.parallel.make_mesh(dp=4, devices=[mx.gpu(0)] * 4)
+    tr = mx.parallel.ShardedTrainStep(net, mesh, optimizer=opt).compile()
+    assert tr.amp == amp
+    shapes, _, _ = net.infer_shape(data=(32, 100), softmax_label=(32,))
+    state = tr.init(dict(zip(net.list_arguments(), shapes)), mx.init.Xavier())
+    g = torch.Generator().manual_seed(9)
+    batches = [{"data": torch.randn(32, 100, generator=g).cuda(),
+                "softmax_label": torch.randint(0, 10, (32,), generator=g).float().cuda()}
+               for _ in range(2)]
+    return tr, state, batches
+
+
+def _clone_state(state):
+    return [{n: tuple(x.clone() for x in v) if isinstance(v, tuple) else
+             (None if v is None else v.clone()) for n, v in d.items()} for d in state]
+
+
+def _state_equal(a, b):
+    flat = lambda d: [x for v in d.values() for x in (v if isinstance(v, tuple) else (v,))  # noqa
+                      if x is not None]
+    return all(torch.equal(x, y) for da, db in zip(a, b) for x, y in zip(flat(da), flat(db)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("amp", [False, True])
+def test_cuda_captured_group_equals_eager_steps(amp, monkeypatch):
+    """A 2-layer MLP's group of 2 fused steps (f32 flat update, or bf16 AMP
+    with K1) gives the bits of two eager steps: run eagerly (the warm-up),
+    captured and replayed, and replayed again, each from the same state;
+    the capture counted K1 once a micro-step under AMP. The AMP case hands
+    the group host batches (staged through pinned memory)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import mxnet_tpu_torch as mx
+
+    tr, state, batches = _mlp_trainer(mx, False, amp, monkeypatch)
+    p, a, s = _clone_state(state)
+    outs = []
+    for t, batch in enumerate(batches, 1):
+        p, a, s, o = tr(p, a, s, batch, lr=0.1, t=t)
+        outs.append(o)
+    stacked = {n: [b[n].cpu() if amp else b[n] for b in batches] for n in batches[0]}
+    for _ in range(3):
+        got = tr.call_multi(*_clone_state(state), stacked, [0.1, 0.1], [1, 2])
+        torch.cuda.synchronize()
+        assert _state_equal(got[:3], (p, a, s))
+        assert all(torch.equal(got[3][0][i], o[0]) for i, o in enumerate(outs))
+    (stats,) = tr.group_stats()
+    assert (stats["warmup_groups"], stats["captures"], stats["replays"]) == (1, 1, 2), stats
+    assert stats["captured_launches"] == ({"fused_slab_update": 2} if amp else {}), stats
+
+
+@pytest.mark.cuda
+def test_cuda_replays_draw_fresh_dropout_masks(monkeypatch):
+    """The sampler generator is registered with the graph: two replays of a
+    Dropout MLP's group from one state give different outputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import mxnet_tpu_torch as mx
+
+    tr, state, batches = _mlp_trainer(mx, True, False, monkeypatch)
+    stacked = {n: [b[n] for b in batches] for n in batches[0]}
+    runs = [tr.call_multi(*_clone_state(state), stacked, [0.1, 0.1], [1, 2])[3][0].clone()
+            for _ in range(3)]
+    assert not torch.equal(runs[1], runs[2])

@@ -223,10 +223,14 @@ def test_unported_surface_raises():
         tmx.mod.Module(_mlp(tmx), context=tmx.cpu(), param_specs={"fc1_weight": ("tp",)})
     mesh = tmx.parallel.make_mesh(dp=2, devices=[tmx.cpu()] * 2)
     step = tmx.parallel.ShardedTrainStep(_mlp(tmx), mesh)
-    for call in (lambda: step.compile_multi(4), step.arm_guard,
+    for call in (step.arm_guard,
                  lambda: tmx.parallel.ShardedTrainStep(_mlp(tmx), mesh, zero1=True)):
         with pytest.raises(NotImplementedError, match="mxnet_tpu/"):
             call()
+    # K-step groups are ported for SGD and Adam; other optimizers still raise
+    rmsprop = tmx.optimizer.create("rmsprop")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 step 2"):
+        tmx.parallel.ShardedTrainStep(_mlp(tmx), mesh, optimizer=rmsprop).compile_multi(4)
 
 
 def test_unported_fit_options_raise():
