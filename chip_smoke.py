@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only slab --package DIR    # phases 16-18 and K1's times there
     python3 chip_smoke.py --only zoo                   # K2/K3's build and phase 20
     python3 chip_smoke.py --only multistep [--package DIR]  # K1-K3's build and phase 21
+    python3 chip_smoke.py --only serving [--package DIR]  # K4f's build and phase 22
 
 
 Phases, each fatal on failure:
@@ -58,7 +59,8 @@ Phases, each fatal on failure:
    not bitwise stable); each kernel ran twice.
 6. serving, bf16 (main path 1): the full model (vocab 32000, d_model 1024,
    16 heads, 12 layers, d_ff 4096, KV window 2048, 4 slots) behind a
-   GenerationEngine on the card; 8 requests of 32 new tokens each. The
+   GenerationEngine on the card (its decode step one captured CUDA
+   graph); 8 requests of 32 new tokens each. The
    kernel launch counts are zeroed just before and read just after: the
    flash kernel must have run n_layers times per prefill dispatch.
 7. training, bf16 (main path 2): 10 SGD steps of the example trainer
@@ -277,13 +279,43 @@ Phases, each fatal on failure:
     without ``Module.update_multi`` runs the eager fits of (a) and (b)
     alone and prints their state digests (the parent's eager bits).
 
+22. the serving surface (main path 9), cuDNN deterministic for (a)-(c):
+    (a) ``predict.Predictor`` on bench.py's ResNet-50 symbol (f32, 1000
+    classes, 3 x 224 x 224, ``init_params``'s weights, moving means 0 and
+    variances 1) on gpu(0): batch buckets 1, 2, 4, 8, 16 and 32 compiled,
+    each one captured CUDA graph; each bucket's replayed ``predict_batch``
+    equal to the eager ``predict()`` of the same rows bit for bit; capture
+    ms and pool bytes a bucket, replayed and eager ms a call and img/s, the
+    idle share of replayed and eager calls at batch 1 and 32 under
+    torch.profiler, peak memory. (b) ``serving.ServingEngine`` over (a):
+    five requests coalesced into one batch (bucket 8) give each row of solo
+    dispatch in that bucket bit for bit; closed loop of 512 per-example
+    requests at max_batch 1 and 32 (img/s, the speedup, at least 3); an open
+    loop of Poisson arrivals at 0.4x the batched rate (client p50 and p99
+    ms); no plan miss (capture) and no recompile after warm-up. (c)
+    ``tools/serving_bench.py`` on the card (its 128-d MLP's int8 top-1
+    agreement at least 0.99, no recompile and no plan miss), and ResNet-50
+    int8 against f32 at batch 32 (agreement and img/s). (d) phase 6's mix
+    (8 prompts of 5 to 2000 tokens x 32 new, 4 slots, KV 2048) on the full
+    bf16 LM behind a ``GenerationEngine`` whose decode step is captured in
+    ``compile()``: K4f launched n_layers times a prefill dispatch, no capture
+    and no recompile after ``compile()``, decode-step p50 / p99, tokens/s,
+    the continuations' sha256 digest, and the idle share of 16 decode steps
+    under torch.profiler (four slots busy, stepped from the main thread).
+    ``--only serving --package DIR`` on a tree without ``predict`` runs (d)
+    alone with that tree's eager engine: equal digests show the captured
+    decode gives the eager engine's continuations token for token. Phase 6
+    runs captured too: its non-finite check is a flag on the card that the
+    captured step ORs into.
+
 Then the kernels line: the seven kernels, K4f, K4dq, K4dkv, K2, K3, K5 and
 K1; K2's and K3's launches count phase 20's training rows, and their
 entries carry phase 20's launches and inception-v3 step under ``zoo``;
 K1's, K2's and K3's count phase 21's launches run in its eager fits (the
 wrappers' counts) and its profiled grouped fits (the profiler's by name),
 under ``launches_by_path`` for K1; the timed grouped fits' replays are
-not counted.
+not counted. K4f's ``launches_by_path["serving"]`` counts phase 6's and
+phase 22 (d)'s prefills.
 
 The last line of output is {"ok": true, "device": {...}}. Without a CUDA
 device, or without the package beside this script, it exits non-zero and
@@ -842,12 +874,14 @@ def phase_serving_bf16(tfm, kernels, telemetry, GenerationEngine, dev):
     params = tfm.params_from_jax(init_fn(0), device=dev, dtype=torch.bfloat16)
     init_cache, prefill, decode_step = tfm.transformer_lm_serving(
         max_len=MAX_LEN, dtype=torch.bfloat16, **FULL)
-    nonfinite = []
+    # a flag on the card that every prefill and decode ORs into in place, so
+    # the check is captured with the decode step and runs in every replay
+    nonfinite = torch.zeros((), dtype=torch.bool, device=dev)
 
     def checked(fn):
         def call(*args, **kwargs):
             cache, logits = fn(*args, **kwargs)
-            nonfinite.append(~torch.isfinite(logits).all())
+            nonfinite.logical_or_(~torch.isfinite(logits).all())
             return cache, logits
         return call
 
@@ -860,7 +894,7 @@ def phase_serving_bf16(tfm, kernels, telemetry, GenerationEngine, dev):
 
     telemetry.enable()
     telemetry.reset()
-    nonfinite.clear()
+    nonfinite.zero_()
     kernels.flash_attention.launches = 0  # counts from here are the main path's
     t0 = time.perf_counter()
     gen.start(precompile=False)
@@ -878,7 +912,7 @@ def phase_serving_bf16(tfm, kernels, telemetry, GenerationEngine, dev):
     dispatches = h_prefill.count()
     for out in outs:
         assert len(out) == MAX_NEW and all(0 <= t < FULL["vocab"] for t in out), out
-    assert not bool(torch.stack(nonfinite).any()), "non-finite logits"
+    assert not bool(nonfinite), "non-finite logits"
     assert launches == dispatches * FULL["n_layers"], (launches, dispatches)
     res = {
         "setup_s": setup_s, "wall_s": wall, "requests": len(outs),
@@ -2892,16 +2926,297 @@ def phase_multistep(mx, kernels, dev):
     return res
 
 
+SERVE_BUCKETS = (1, 2, 4, 8, 16, 32)  # phase 22 (a): the Predictor's batch buckets
+SERVE_SHAPE = (3, 224, 224)
+SERVE_REQUESTS = 512  # phase 22 (b): requests of each closed and the open loop
+SERVE_MAX_BATCH = 32
+SERVE_REPS = 10  # timed calls a bucket
+DECODE_PROFILE_STEPS = 16  # phase 22 (d): decode steps under torch.profiler
+
+
+def _bits_equal(a, b):
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    return a.shape == b.shape and a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+
+def _median_ms(fn, reps):
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def _profiled(fn, reps, family=lambda name: "kernel"):
+    """``fn`` ``reps`` times under torch.profiler (each call ends on the
+    host, synchronised): :func:`profile_summary` of them."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        wall = time.perf_counter() - t0
+    out = profile_summary(prof, reps, wall, family)
+    out.pop("families_per_step")
+    return out
+
+
+def serving_predictor(mx, resnet, params, quant=""):
+    """bench.py's ResNet-50 (f32, 1000 classes, 3x224x224) behind a Predictor
+    on gpu(0), from ``params`` ({"arg:...", "aux:..."} host NDArrays)."""
+    from mxnet_tpu_torch import predict
+
+    symbol = resnet.get_symbol(num_classes=1000, num_layers=50,
+                               image_shape=",".join(str(d) for d in SERVE_SHAPE))
+    return predict.Predictor(symbol.tojson(), params, {"data": (1,) + SERVE_SHAPE},
+                             ctx=mx.gpu(0), quant=quant)
+
+
+def serving_params(mx, resnet):
+    """``init_params``'s ResNet-50 weights, moving means 0 and variances 1,
+    as the host NDArrays a Predictor takes."""
+    from mxnet_tpu_torch.models.common import init_params
+
+    symbol = resnet.get_symbol(num_classes=1000, num_layers=50,
+                               image_shape=",".join(str(d) for d in SERVE_SHAPE))
+    arg_np, aux_np = init_params(symbol, (1,) + SERVE_SHAPE, 0)
+    with mx.cpu():
+        params = {"arg:" + n: mx.nd.array(v) for n, v in arg_np.items()}
+        params.update({"aux:" + n: mx.nd.array(v) for n, v in aux_np.items()})
+    return params
+
+
+def _plan_misses(telemetry):
+    return telemetry.REGISTRY.get("executor.dispatch_plan_misses").value()
+
+
+def serve_buckets(pred, dev, rng):
+    """Phase 22 (a): every bucket compiled and captured; each replay equal
+    to the eager ``predict()`` of the same rows bit for bit; capture ms, pool
+    bytes, replayed and eager ms a call, img/s."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    pred.compile([{"data": (b,) + SERVE_SHAPE} for b in SERVE_BUCKETS])
+    compile_s = time.perf_counter() - t0
+    rows = []
+    for b in SERVE_BUCKETS:
+        fn = pred._serve_cache[(("data", (b,) + SERVE_SHAPE),)]
+        assert fn._graph is not None, "bucket %d has no graph" % b
+        x = rng.standard_normal((b,) + SERVE_SHAPE, dtype=np.float32)
+        got = pred.predict_batch(data=x)[0]
+        pred.reshape({"data": x.shape})
+        want = pred.predict(data=x)[0]
+        assert got.shape == (b, 1000) and np.isfinite(got).all(), (b, got.shape)
+        if not _bits_equal(got, want):
+            raise AssertionError("bucket %d: replay differs from eager predict() by %.3g"
+                                 % (b, float(np.abs(got - want).max())))
+        replay_ms = _median_ms(lambda: pred.predict_batch(data=x), SERVE_REPS)
+        eager_ms = _median_ms(lambda: pred.predict(data=x), SERVE_REPS)
+        rows.append({"bucket": b, "bitwise_equal_to_eager": True,
+                     "capture_ms": fn.stats["capture_ms"], "pool_bytes": fn.stats["pool_bytes"],
+                     "replay_ms": replay_ms, "eager_ms": eager_ms,
+                     "replay_img_per_s": b / replay_ms * 1e3,
+                     "eager_img_per_s": b / eager_ms * 1e3})
+    x1 = rng.standard_normal((1,) + SERVE_SHAPE, dtype=np.float32)
+    x32 = rng.standard_normal((32,) + SERVE_SHAPE, dtype=np.float32)
+    pred.reshape({"data": x1.shape})
+    profiles = {"replay_1": _profiled(lambda: pred.predict_batch(data=x1), 5),
+                "eager_1": _profiled(lambda: pred.predict(data=x1), 5)}
+    pred.reshape({"data": x32.shape})
+    profiles.update(replay_32=_profiled(lambda: pred.predict_batch(data=x32), 5),
+                    eager_32=_profiled(lambda: pred.predict(data=x32), 5))
+    return {"compile_s": compile_s, "buckets": rows, "profiles": profiles,
+            "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+            "pool_bytes_total": sum(r["pool_bytes"] for r in rows)}
+
+
+def serve_engine(pred, telemetry, rng):
+    """Phase 22 (b): coalesced rows equal to solo dispatch in the same bucket
+    bit for bit; closed loop at max_batch 1 and 32, the open loop; no capture
+    and no recompile after warm-up."""
+    from mxnet_tpu_torch.serving import engine as se
+    from mxnet_tpu_torch.tools import serving_bench
+
+    xs = rng.standard_normal((64,) + SERVE_SHAPE, dtype=np.float32)
+    r0, m0 = telemetry.anatomy._C_RECOMPILES.value(), _plan_misses(telemetry)
+    eng = se.ServingEngine(pred, max_batch=SERVE_MAX_BATCH, batch_timeout_ms=200.0).start()
+    b0 = se._C_BATCHES.value()
+    outs = [f.result(60) for f in [eng.submit(data=xs[i]) for i in range(5)]]
+    eng.drain()
+    assert se._C_BATCHES.value() - b0 == 1, "five requests were not one batch"
+    for i, out in enumerate(outs):
+        solo = np.zeros((8,) + SERVE_SHAPE, np.float32)
+        solo[i] = xs[i]
+        if not _bits_equal(out[0], pred.predict_batch(data=solo)[0][i]):
+            raise AssertionError("request %d's row differs from solo dispatch" % i)
+    rps = {}
+    for mb in (1, SERVE_MAX_BATCH):
+        eng = se.ServingEngine(pred, max_batch=mb, batch_timeout_ms=2.0).start()
+        serving_bench._saturate(eng, xs, 64)  # warm the dispatch loop
+        rps[mb] = serving_bench._saturate(eng, xs, SERVE_REQUESTS)
+        eng.drain()
+    speedup = rps[SERVE_MAX_BATCH] / rps[1]
+    eng = se.ServingEngine(pred, max_batch=SERVE_MAX_BATCH, batch_timeout_ms=2.0).start()
+    open_loop = serving_bench._open_loop(eng, xs, SERVE_REQUESTS, 0.4 * rps[SERVE_MAX_BATCH],
+                                         np.random.RandomState(2))
+    eng.drain()
+    res = {"rows_bitwise_equal_to_solo": len(outs),
+           "closed_img_per_s": {"max_batch_1": rps[1], "max_batch_32": rps[SERVE_MAX_BATCH]},
+           "speedup": speedup, "open_loop": open_loop,
+           "recompiles": telemetry.anatomy._C_RECOMPILES.value() - r0,
+           "plan_misses": _plan_misses(telemetry) - m0}
+    assert res["recompiles"] == 0 and res["plan_misses"] == 0, res
+    assert speedup >= 3.0, "closed-loop speedup %.3g < 3" % speedup
+    return res
+
+
+def serve_int8(mx, resnet, params, pred, telemetry, rng):
+    """Phase 22 (c): the serving bench on the card (the 128-d MLP's int8
+    top-1 agreement at least 0.99, its gate) and ResNet-50 int8 against f32
+    at batch 32."""
+    from mxnet_tpu_torch.serving import quant
+    from mxnet_tpu_torch.tools import serving_bench
+
+    bench = serving_bench.run_serving_bench()
+    bench["gates"] = serving_bench.gates(bench, True)
+    for gate in ("steady_state_recompiles", "steady_state_plan_misses", "top1_agreement"):
+        assert bench["gates"][gate], (gate, bench)
+    q = serving_predictor(mx, resnet, params, quant="int8")
+    q.compile([{"data": (32,) + SERVE_SHAPE}])
+    x = rng.standard_normal((32,) + SERVE_SHAPE, dtype=np.float32)
+    a, b = pred.predict_batch(data=x)[0], q.predict_batch(data=x)[0]
+    assert np.isfinite(b).all()
+    f32_ms = _median_ms(lambda: pred.predict_batch(data=x), SERVE_REPS)
+    i8_ms = _median_ms(lambda: q.predict_batch(data=x), SERVE_REPS)
+    return {"bench": bench,
+            "resnet50": {"top1_agreement": quant.top1_agreement(a, b),
+                         "f32_img_per_s": 32 / f32_ms * 1e3, "int8_img_per_s": 32 / i8_ms * 1e3,
+                         "int8_vs_f32_img_per_s": f32_ms / i8_ms}}
+
+
+def serve_decode(tfm, kernels, telemetry, GenerationEngine, dev):
+    """Phase 22 (d): phase 6's mix on the full bf16 LM behind a
+    GenerationEngine (captured decode step where the package has one):
+    K4f n_layers times a prefill dispatch, no capture after compile(),
+    decode-step p50/p99, tokens/s, the continuations' digest, and the idle
+    share of decode steps under torch.profiler."""
+    import hashlib
+
+    import torch
+
+    t0 = time.perf_counter()
+    init_fn, _ = tfm.transformer_lm(dtype=torch.bfloat16, **FULL)
+    params = tfm.params_from_jax(init_fn(0), device=dev, dtype=torch.bfloat16)
+    model = tfm.transformer_lm_serving(max_len=MAX_LEN, dtype=torch.bfloat16, **FULL)
+    gen = GenerationEngine(params, model, slots=SLOTS, max_len=MAX_LEN, device=dev)
+    gen.compile()
+    setup_s = time.perf_counter() - t0
+    captured = getattr(gen, "_decode_graph", None) is not None
+    capture = dict(getattr(gen, "decode_stats", {}))
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, FULL["vocab"], n) for n in PROMPT_LENGTHS]
+
+    # decode steps under the profiler: four prompts admitted, then the
+    # engine stepped from this thread (each step ends in the argmax's copy)
+    reqs = [gen.submit(p, max_new=DECODE_PROFILE_STEPS + 4) for p in prompts[:SLOTS]]
+    gen.step()
+    profile = _profiled(gen.step, DECODE_PROFILE_STEPS)
+    while not all(r.done.is_set() for r in reqs):
+        gen.step()
+
+    anatomy = getattr(telemetry, "anatomy", None)
+    telemetry.enable()
+    telemetry.reset()
+    seen0 = len(getattr(gen, "_seen_sigs", ()))
+    r0 = anatomy._C_RECOMPILES.value() if anatomy else 0
+    kernels.flash_attention.launches = 0  # counts from here are the main path's
+    t0 = time.perf_counter()
+    gen.start(precompile=False)
+    try:
+        outs = [r.result(timeout=300) for r in [gen.submit(p, max_new=MAX_NEW) for p in prompts]]
+    finally:
+        gen.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.flash_attention.launches
+    h_prefill = telemetry.REGISTRY.get("serve.prefill_seconds")
+    h_decode = telemetry.REGISTRY.get("serve.decode_step_seconds")
+    dispatches = h_prefill.count()
+    for out in outs:
+        assert len(out) == MAX_NEW and all(0 <= t < FULL["vocab"] for t in out), out
+    assert launches == dispatches * FULL["n_layers"], (launches, dispatches)
+    misses = len(getattr(gen, "_seen_sigs", ())) - seen0
+    recompiles = (anatomy._C_RECOMPILES.value() - r0) if anatomy else 0
+    if captured:
+        assert gen.decode_stats["captures"] == capture["captures"] == 1, gen.decode_stats
+        assert misses == 0 and recompiles == 0, (misses, recompiles)
+    res = {"captured": captured, "capture": capture, "setup_s": setup_s, "wall_s": wall,
+           "requests": len(outs), "new_tokens": sum(len(o) for o in outs),
+           "tokens_per_s": sum(len(o) for o in outs) / wall,
+           "prefill_dispatches": dispatches, "decode_steps": h_decode.count(),
+           "flash_launches": launches, "misses_after_compile": misses,
+           "recompiles": recompiles,
+           "decode_step_p50_s": h_decode.percentile(50),
+           "decode_step_p99_s": h_decode.percentile(99),
+           "decode_step_mean_s": h_decode.sum() / h_decode.count(),
+           "decode_profile": profile,
+           "digest": hashlib.sha256(json.dumps(outs).encode()).hexdigest(),
+           "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+    return res
+
+
+def phase_serving(mx, resnet, tfm, kernels, telemetry, GenerationEngine, dev):
+    """Phase 22: the serving surface on the card; (a)-(c) only where the
+    package has ``predict``, (d) always."""
+    import importlib.util
+
+    import torch
+
+    t0 = time.perf_counter()
+    res = {}
+    if importlib.util.find_spec("mxnet_tpu_torch.predict") is not None:
+        telemetry.enable()
+        rng = np.random.default_rng(22)
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True  # replay vs eager, bit for bit
+        try:
+            params = serving_params(mx, resnet)
+            pred = serving_predictor(mx, resnet, params)
+            res["a"] = serve_buckets(pred, dev, rng)
+            log("phase 22 (a): Predictor buckets: %s" % json.dumps(res["a"]))
+            res["b"] = serve_engine(pred, telemetry, rng)
+            log("phase 22 (b): ServingEngine: %s" % json.dumps(res["b"]))
+            res["c"] = serve_int8(mx, resnet, params, pred, telemetry, rng)
+            log("phase 22 (c): int8: %s" % json.dumps(res["c"]))
+            del pred, params
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        torch.cuda.empty_cache()
+    res["d"] = serve_decode(tfm, kernels, telemetry, GenerationEngine, dev)
+    log("phase 22 (d): GenerationEngine: %s" % json.dumps(res["d"]))
+    res["phase_s"] = time.perf_counter() - t0
+    log("phase 22: %.1f s" % res["phase_s"])
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every phase's numbers to this JSON file")
     ap.add_argument("--package", help="import mxnet_tpu_torch from this checkout instead of the "
                     "one beside this script (to run this script's phases on another tree)")
-    ap.add_argument("--only", choices=("f32_lm", "rtc", "slab", "zoo", "multistep"),
+    ap.add_argument("--only", choices=("f32_lm", "rtc", "slab", "zoo", "multistep", "serving"),
                     help="f32_lm: build, phase 19 and phase 8's attention kernel times only; "
                     "rtc: K5's push path on ResNet-50's parameter arrays only; slab: K1's "
                     "build, phases 16-18 and K1's times only; zoo: K2/K3's build and "
-                    "phase 20 only; multistep: K1-K3's build and phase 21 only")
+                    "phase 20 only; multistep: K1-K3's build and phase 21 only; serving: "
+                    "the flash forward's build and phase 22 only (on a package without "
+                    "predict, only (d) and its continuations' digest)")
     args = ap.parse_args(argv)
 
     import torch
@@ -2958,6 +3273,13 @@ def main(argv=None):
         _build.build(["conv_bwd_filter", "slab_update"])
         results["build_s"] = time.perf_counter() - t0
         results["multistep"] = phase_multistep(mx, kernels, dev)
+    if args.only == "serving":
+        t0 = time.perf_counter()
+        _build.build(["flash_attn_fwd"])
+        results["build_s"] = time.perf_counter() - t0
+        results["serving"] = phase_serving(mx, resnet, tfm, kernels, telemetry,
+                                           GenerationEngine, dev)
+        log("phase 22 (d) digest: %s" % results["serving"]["d"]["digest"])
     if args.only:
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -2998,6 +3320,7 @@ def main(argv=None):
     results["zoo"], zoo_launches = phase_zoo(model_sweep, kernels, dev)
     conv_launches = {name: conv_launches[name] + zoo_launches[name] for name in conv_launches}
     results["multistep"] = multi = phase_multistep(mx, kernels, dev)
+    results["serving"] = phase_serving(mx, resnet, tfm, kernels, telemetry, GenerationEngine, dev)
     multi_launches = multistep_launches(multi)
     conv_launches = {name: conv_launches[name] + multi_launches[name] for name in conv_launches}
     k1 = results["k1_entry"]
@@ -3010,9 +3333,12 @@ def main(argv=None):
     fwd = phase_kernel_times(kernels, dev, results["serving_bf16"]["flash_launches"],
                              f32_launches["flash_attn_fwd"])
     # the forward kernel runs on both main paths
-    fwd[0]["launches_by_path"] = {"serving": fwd[0]["launches"],
+    # the forward kernel runs on both main paths; serving counts phase 6's and
+    # phase 22's prefills
+    serve_launches = fwd[0]["launches"] + results["serving"]["d"]["flash_launches"]
+    fwd[0]["launches_by_path"] = {"serving": serve_launches,
                                   "training": train_launches["flash_attn_fwd"]}
-    fwd[0]["launches"] += train_launches["flash_attn_fwd"]
+    fwd[0]["launches"] = serve_launches + train_launches["flash_attn_fwd"]
     conv_entries = phase_conv_times(kernels, resnet, dev, conv_launches, conv_errs)
     for entry in conv_entries:
         # phase 20: the zoo's training launches and inception-v3's f32 step

@@ -2,8 +2,8 @@
 
 The JAX package ``mxnet_tpu`` stays the reference; this package imports
 ``torch`` and nothing of JAX or of ``mxnet_tpu``. Ported so far: the
-KV-cached transformer LM served through ``serving.GenerationEngine``, and
-its training (``examples.train_transformer_lm``); the Symbol layer
+KV-cached transformer LM served through ``serving.GenerationEngine``
+(its decode step one captured CUDA graph on the card), and its training (``examples.train_transformer_lm``); the Symbol layer
 (``symbol``, ``name``, ``attribute``, ``ops.registry``), ``models.resnet``
 and ``tools.resnet_bench`` (bench.py's ResNet-50 step); the imperative API
 (``nd``, ``random``, ``autograd``) over the operator modules
@@ -14,7 +14,10 @@ and ``tools.resnet_bench`` (bench.py's ResNet-50 step); the imperative API
 stack: ``init``, ``optimizer``, ``lr_scheduler``, ``metric``, ``callback``,
 ``io``, ``kv``, ``model`` and ``mod.Module`` with its ``fit`` loop, whose
 fused data-parallel path runs over a ``parallel.make_mesh`` of logical
-ranks on one device (``parallel.ShardedTrainStep``).
+ranks on one device (``parallel.ShardedTrainStep``); and the serving
+surface: ``predict.Predictor`` (one captured CUDA graph a batch bucket on
+the card), bundles, ``serving.ServingEngine``, int8 ``serving.quant`` and
+``tools.serve``.
 
 Attention runs the hand-written CUDA flash-attention forward
 (``csrc/flash_attn_fwd.cu``) and its gradient the dq and dk/dv kernels
@@ -62,3 +65,5 @@ from . import callback, model  # noqa: F401
 from . import parallel  # noqa: F401
 from . import module  # noqa: F401
 from . import module as mod  # noqa: F401
+from . import predict  # noqa: F401
+from . import serving  # noqa: F401

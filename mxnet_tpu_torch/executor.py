@@ -21,12 +21,14 @@ mirroring (``_mirror_policy``, ``:132``); both raise.
 """
 from __future__ import annotations
 
+import itertools
 import os
 
 import torch
 
 from . import ndarray as nd
 from . import random as _random
+from . import telemetry as _tm
 from .base import MXNetError
 from .context import as_context
 from .ndarray import NDArray, _own
@@ -34,9 +36,19 @@ from .symbol import Symbol, _topo_order
 
 __all__ = ["Executor"]
 
+_M_PLAN_HITS = _tm.counter(
+    "executor.dispatch_plan_hits",
+    "Dispatches whose input signature the program has seen before")
+_M_PLAN_MISSES = _tm.counter(
+    "executor.dispatch_plan_misses",
+    "Dispatch-plan cache misses: a new input signature (on the card, a "
+    "new CUDA-graph capture)")
+
 
 class _GraphProgram:
     """A symbol as a function of (args, aux, rng, is_train) on torch tensors."""
+
+    _uid_counter = itertools.count()
 
     def __init__(self, symbol: Symbol, shape_overrides=None):
         self.symbol = symbol
@@ -49,6 +61,20 @@ class _GraphProgram:
         self.output_entries = list(symbol._outputs)
         self._var_nodes = {n.name: n for n in self.nodes if n.is_variable}
         self.needs_rng = any(not n.is_variable and n.op.needs_rng for n in self.nodes)
+        self._program_uid = next(_GraphProgram._uid_counter)
+        self._signatures = set()  # input signatures dispatched (note_signature)
+
+    def note_signature(self, sig):
+        """Count a dispatch of input signature ``sig`` (the JAX package's
+        ``dispatch_plan`` accounting): a hit, or a miss reported to the
+        anatomy recompile detector (the first per program is its warm-up,
+        each later one a recompile)."""
+        if sig in self._signatures:
+            _M_PLAN_HITS.inc()
+            return
+        self._signatures.add(sig)
+        _M_PLAN_MISSES.inc()
+        _tm.anatomy.note_plan_miss(self._program_uid, sig)
 
     def _device(self, values, rng):
         for v in values:

@@ -15,6 +15,21 @@ Works with any model exposing the
 lengths)``, ``decode_step(params, cache, tokens)``. The cache lives on the
 engine's device and the model updates it in place.
 
+On the card the decode step is one captured ``torch.cuda.CUDAGraph``, the
+port's counterpart of the JAX package's one jitted step with the cache
+donated: ``compile()`` runs the step eagerly (a second time under
+``torch.cuda.set_sync_debug_mode("error")``, so a host read is named) and
+captures it on a static ``[slots + 1]`` int32 token tensor; a decode copies
+the host tokens into that tensor and replays, and the logits are a static
+tensor read by an ``argmax`` on the device. The graph holds the addresses
+of the cache tensors, so nothing may rebind them: the engine checks after
+every prefill that they stay put. Without ``compile()`` the first decode
+runs eagerly on the loop thread and captures after it (a miss on the hot
+path). A capture that fails raises ``MXNetError``; there is no eager
+fallback on the card. Prefill stays eager. Every dispatch notes its
+signature with the anatomy recompile detector (``_note_dispatch``): each
+(engine, bucket)'s first sight is its warm-up.
+
 Env knobs: ``MXTPU_SERVE_SLOTS`` (decode batch, default 4),
 ``MXTPU_SERVE_MAX_LEN`` (KV window, model-side default).
 """
@@ -83,6 +98,9 @@ class _Slot(object):
         self.last_token = 0
 
 
+_ENGINE_IDS = iter(range(1 << 30))
+
+
 class GenerationEngine(object):
     """Continuous-batching decode loop over a KV-cache model.
 
@@ -130,26 +148,93 @@ class GenerationEngine(object):
         self._draining = False
         self._thread = None
         self._admitting = []  # popped from the queue, not yet in a slot
+        # recompile accounting: one anatomy program uid per (engine,
+        # bucket), so each bucket's first dispatch is warm-up-exempt
+        self._engine_id = next(_ENGINE_IDS)
+        self._seen_sigs = set()
+        # the captured decode step (cuda): graph, static tokens and logits,
+        # and the cache addresses it reads
+        self._decode_graph = None
+        self._static_tokens = self._tokens_pinned = self._decode_logits = None
+        self._cache_ptrs = None
+        self.decode_stats = {"captures": 0, "capture_ms": None, "pool_bytes": None}
+
+    # -- recompile detector hookup ------------------------------------
+    def _note_dispatch(self, kind, shape):
+        sig = ((kind, tuple(shape), "int32", "serve"),)
+        if sig not in self._seen_sigs:
+            self._seen_sigs.add(sig)
+            _tm.anatomy.note_plan_miss("serve:e%d:%s:%s" % (
+                self._engine_id, kind,
+                "x".join(str(d) for d in shape)), sig)
+
+    def _cache_addresses(self):
+        return {k: self._cache[k].data_ptr() for k in ("k", "v", "pos_map", "length")}
 
     def _prefill_call(self, toks, ids, lens):
+        self._note_dispatch("prefill", tuple(toks.shape))
         toks, ids, lens = (torch.from_numpy(a).to(self.device)
                            for a in (toks, ids, lens))
         self._cache, last = self._prefill(
             self.params, self._cache, toks, ids, lens, mesh=self.mesh)
+        if self._cache_ptrs is not None and self._cache_addresses() != self._cache_ptrs:
+            raise MXNetError(
+                "prefill moved the KV cache (%s, captured at %s): the captured decode "
+                "step would read freed memory" % (self._cache_addresses(), self._cache_ptrs))
         return last
 
     def _decode_call(self, toks):
-        self._cache, logits = self._decode(
-            self.params, self._cache, torch.from_numpy(toks).to(self.device))
-        return logits
+        self._note_dispatch("decode", tuple(toks.shape))
+        if self._decode_graph is None:
+            self._cache, logits = self._decode(
+                self.params, self._cache, torch.from_numpy(toks).to(self.device))
+            if self.device.type == "cuda":
+                # a miss on the hot path: this tick ran eagerly, the next replays
+                self._capture_decode()
+            return logits
+        self._tokens_pinned.copy_(torch.from_numpy(toks))
+        self._static_tokens.copy_(self._tokens_pinned, non_blocking=True)
+        self._decode_graph.replay()
+        return self._decode_logits
+
+    def _capture_decode(self):
+        """Capture ``decode_step`` on the static token tensor into one CUDA
+        graph (nothing runs). The step must have run eagerly before, so that
+        its lazy set-up (the PE table on the card, library handles) is done."""
+        dev = self.device
+        n = self.slots + 1
+        if self._static_tokens is None:
+            self._static_tokens = torch.zeros((n,), dtype=torch.int32, device=dev)
+            self._tokens_pinned = torch.zeros((n,), dtype=torch.int32, pin_memory=True)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()  # as the capture does first: the delta is the graph's
+        reserved = torch.cuda.memory_reserved(dev)
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(graph):
+                cache, logits = self._decode(self.params, self._cache, self._static_tokens)
+        except Exception as exc:
+            raise MXNetError("capturing the decode step (tokens [%d] int32) into a CUDA "
+                             "graph failed: %s" % (n, exc)) from exc
+        torch.cuda.synchronize(dev)
+        if cache is not self._cache:
+            raise MXNetError("the captured decode step returned another cache: it must "
+                             "update the cache in place")
+        self._decode_graph, self._decode_logits = graph, logits
+        self._cache_ptrs = self._cache_addresses()
+        self.decode_stats = {"captures": self.decode_stats["captures"] + 1,
+                             "capture_ms": 1e3 * (time.perf_counter() - t0),
+                             "pool_bytes": torch.cuda.memory_reserved(dev) - reserved}
 
     # -- warm-up -------------------------------------------------------
     def compile(self, prompt_lengths=None):
         """Run every (count-bucket × length-bucket) prefill and the decode
-        step once. Eager PyTorch traces nothing, but the first calls build
-        the CUDA kernels, let the matmul library settle its choices and
-        fill the allocator's cache, so the serving loop meets none of it.
-        Only the scratch row is written."""
+        step once, and on the card capture the decode step. The first calls
+        build the CUDA kernels, let the matmul library settle its choices
+        and fill the allocator's cache, so the serving loop meets none of
+        it. Prefill writes only the scratch row; the decode step advances
+        every row, which admission resets."""
         lengths = prompt_lengths or self.len_buckets
         len_set = sorted({
             _buckets.covering_value(self.len_buckets, int(l)) for l in lengths
@@ -160,7 +245,23 @@ class GenerationEngine(object):
                     np.zeros((nb, T), np.int32),
                     np.full((nb,), self._scratch, np.int32),
                     np.ones((nb,), np.int32))
-        self._decode_call(np.zeros((self.slots + 1,), np.int32))
+        if self._decode_graph is None:
+            zeros = torch.zeros((self.slots + 1,), dtype=torch.int32, device=self.device)
+            self._note_dispatch("decode", tuple(zeros.shape))
+            self._decode(self.params, self._cache, zeros)
+            if self.device.type == "cuda":
+                mode = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    self._decode(self.params, self._cache, zeros)
+                except RuntimeError as exc:
+                    if "synchronizing CUDA operation" not in str(exc):
+                        raise
+                    raise MXNetError("the decode step waited for the device (a host read), "
+                                     "which a CUDA graph cannot capture: %s" % exc) from exc
+                finally:
+                    torch.cuda.set_sync_debug_mode(mode)
+                self._capture_decode()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return self

@@ -1,11 +1,259 @@
-"""Serving-engine surface shared by the port's engines (counterpart of
-``mxnet_tpu/serving/engine.py``). Only :class:`ServeClosed` is ported so
-far; the continuous-batching ``ServingEngine`` over Symbol predictors
-waits for the Symbol layer."""
+"""Continuous/dynamic batching over the predict executor pool
+(counterpart of ``mxnet_tpu/serving/engine.py``).
+
+Requests arrive one at a time; the dispatcher coalesces whatever is in
+flight into the smallest covering batch bucket (serving/buckets.py — the
+same rule BucketSentenceIter applies to sentence lengths), pads,
+dispatches one call of the bucket's forward (on the card one CUDA-graph
+replay, ``predict._ServeFn``), and scatters rows back per request. The
+TensorFlow-Serving insight (arXiv:1605.08695): batching amortizes
+dispatch overhead and keeps the device busy without holding early
+requests hostage — a request waits at most
+``MXTPU_SERVE_BATCH_TIMEOUT_MS`` for co-riders. ``start()`` compiles, and
+on the card captures, every batch bucket before the dispatcher thread
+starts, so no capture runs beside it.
+
+Telemetry (the JAX package's names):
+
+    serve.queue_wait_seconds   histogram — enqueue → dispatch
+    serve.e2e_seconds          histogram — enqueue → result ready
+    serve.queue_depth          gauge     — requests waiting
+    serve.batch_occupancy      gauge     — filled rows / bucket rows
+    serve.requests             counter   — completed requests
+    serve.batches              counter   — dispatched device calls
+    serve.pad_rows             counter   — wasted padding rows
+"""
 from __future__ import annotations
 
+import collections
+import os
+import threading
+import time
+
+import numpy as np
+
+from .. import telemetry as _tm
 from ..base import MXNetError
+from . import buckets as _buckets
+
+_H_QUEUE_WAIT = _tm.histogram(
+    "serve.queue_wait_seconds", "request enqueue -> batch dispatch")
+_H_E2E = _tm.histogram(
+    "serve.e2e_seconds", "request enqueue -> result ready")
+_G_QUEUE_DEPTH = _tm.gauge("serve.queue_depth", "requests waiting")
+_G_OCCUPANCY = _tm.gauge(
+    "serve.batch_occupancy", "filled rows / bucket rows of last batch")
+_C_REQUESTS = _tm.counter("serve.requests", "completed requests")
+_C_BATCHES = _tm.counter("serve.batches", "dispatched device calls")
+_C_PAD_ROWS = _tm.counter("serve.pad_rows", "wasted padding rows")
 
 
 class ServeClosed(MXNetError):
     """Raised by submit() once the engine is draining or stopped."""
+
+
+class _Request(object):
+    __slots__ = ("inputs", "outputs", "error", "done", "t_enqueue",
+                 "t_dispatch", "sig")
+
+    def __init__(self, inputs, sig):
+        self.inputs = inputs
+        self.sig = sig
+        self.outputs = None
+        self.error = None
+        self.done = threading.Event()
+        self.t_enqueue = time.perf_counter()
+        self.t_dispatch = None
+
+    # future surface ---------------------------------------------------
+    def result(self, timeout=None):
+        if not self.done.wait(timeout):
+            raise TimeoutError("serving request timed out")
+        if self.error is not None:
+            raise self.error
+        return self.outputs
+
+
+def _env_int(name, default):
+    try:
+        return int(os.environ.get(name, str(default)))
+    except ValueError:
+        return default
+
+
+def _env_float(name, default):
+    try:
+        return float(os.environ.get(name, str(default)))
+    except ValueError:
+        return default
+
+
+class ServingEngine(object):
+    """Request queue + dispatcher thread over a Predictor.
+
+    Parameters
+    ----------
+    predictor : predict.Predictor — the model; ``compile()`` is called
+        for every batch bucket at start() so steady state never captures.
+    max_batch : int — batch cap (default MXTPU_SERVE_MAX_BATCH or 8).
+        The bucket ladder is powers of two up to the cap.
+    batch_timeout_ms : float — how long the head-of-line request waits
+        for co-riders (default MXTPU_SERVE_BATCH_TIMEOUT_MS or 2.0).
+
+    Requests are per-example (no batch axis); the engine owns the batch
+    axis. Only requests with identical per-example shape/dtype
+    signatures coalesce; mixed streams split into per-signature batches.
+    """
+
+    def __init__(self, predictor, max_batch=None, batch_timeout_ms=None):
+        self.predictor = predictor
+        self.max_batch = max_batch if max_batch is not None else _env_int(
+            "MXTPU_SERVE_MAX_BATCH", 8)
+        timeout_ms = (batch_timeout_ms if batch_timeout_ms is not None
+                      else _env_float("MXTPU_SERVE_BATCH_TIMEOUT_MS", 2.0))
+        self.batch_timeout = timeout_ms / 1000.0
+        self.batch_buckets = _buckets.bucket_ladder(self.max_batch)
+        self._queue = collections.deque()
+        self._lock = threading.Lock()
+        self._have_work = threading.Condition(self._lock)
+        self._draining = False
+        self._stopped = True
+        self._thread = None
+        self._input_names = sorted(predictor._input_shapes)
+
+    # -- lifecycle -----------------------------------------------------
+    def start(self, precompile=True):
+        """Spawn the dispatcher. ``precompile`` compiles (on the card:
+        captures) every batch bucket first so the request path never
+        captures."""
+        if self._thread is not None:
+            return self
+        if precompile:
+            feature_shapes = {
+                n: tuple(self.predictor._input_shapes[n][1:])
+                for n in self._input_names
+            }
+            self.precompile(feature_shapes)
+        self._stopped = False
+        self._draining = False
+        self._thread = threading.Thread(
+            target=self._run, name="mxtt-serve-dispatch", daemon=True)
+        self._thread.start()
+        return self
+
+    def precompile(self, feature_shapes):
+        """Compile the forward for every batch bucket × the given
+        per-example feature shapes ({input_name: shape-sans-batch})."""
+        self.predictor.compile([
+            {n: (b,) + tuple(s) for n, s in feature_shapes.items()}
+            for b in self.batch_buckets
+        ])
+
+    def drain(self, timeout=30.0):
+        """Graceful shutdown: reject new work, finish everything queued
+        and in flight, stop the dispatcher. Idempotent."""
+        with self._lock:
+            self._draining = True
+            self._have_work.notify_all()
+        t = self._thread
+        if t is not None:
+            t.join(timeout)
+            self._thread = None
+        self._stopped = True
+
+    # -- client surface ------------------------------------------------
+    def submit(self, **inputs):
+        """Enqueue one request ({input_name: per-example array}, no
+        batch axis). Returns a future with ``.result(timeout)`` →
+        list of per-request output arrays."""
+        arrays = {}
+        for name in self._input_names:
+            if name not in inputs:
+                raise MXNetError("request missing input %s" % name)
+            arrays[name] = np.asarray(inputs[name])
+        sig = tuple(
+            (n, arrays[n].shape, str(arrays[n].dtype))
+            for n in self._input_names)
+        req = _Request(arrays, sig)
+        with self._lock:
+            if self._draining or self._stopped:
+                raise ServeClosed(
+                    "serving engine is draining; not accepting new work")
+            self._queue.append(req)
+            _G_QUEUE_DEPTH.set(len(self._queue))
+            self._have_work.notify()
+        return req
+
+    def __call__(self, timeout=None, **inputs):
+        """Synchronous convenience: submit + wait."""
+        return self.submit(**inputs).result(timeout)
+
+    # -- dispatcher ----------------------------------------------------
+    def _take_batch(self):
+        """Under the lock: wait for work, then pop up to max_batch
+        same-signature requests (head-of-line's signature; preserving
+        order for the rest)."""
+        with self._lock:
+            while not self._queue:
+                if self._draining:
+                    return None
+                self._have_work.wait(0.1)
+            head = self._queue[0]
+            deadline = head.t_enqueue + self.batch_timeout
+            while (len(self._queue) < self.max_batch
+                   and not self._draining):
+                remaining = deadline - time.perf_counter()
+                if remaining <= 0:
+                    break
+                self._have_work.wait(remaining)
+            batch = []
+            rest = collections.deque()
+            while self._queue and len(batch) < self.max_batch:
+                req = self._queue.popleft()
+                if req.sig == head.sig:
+                    batch.append(req)
+                else:
+                    rest.append(req)
+            rest.extend(self._queue)
+            self._queue = rest
+            _G_QUEUE_DEPTH.set(len(self._queue))
+            return batch
+
+    def _dispatch(self, batch):
+        n = len(batch)
+        bucket = _buckets.covering_value(self.batch_buckets, n)
+        if bucket is None:  # n <= max_batch by construction
+            bucket = self.max_batch
+        now = time.perf_counter()
+        for req in batch:
+            req.t_dispatch = now
+            _H_QUEUE_WAIT.observe(now - req.t_enqueue)
+        feeds = {
+            name: _buckets.pad_batch(
+                [req.inputs[name] for req in batch], bucket)
+            for name in self._input_names
+        }
+        try:
+            outs = self.predictor.predict_batch(**feeds)
+        except Exception as e:  # surface per request, keep serving
+            for req in batch:
+                req.error = e
+                req.done.set()
+            return
+        per_req = _buckets.scatter_rows(outs, n)
+        _C_BATCHES.inc()
+        _C_PAD_ROWS.inc(bucket - n)
+        _G_OCCUPANCY.set(n / float(bucket))
+        done = time.perf_counter()
+        for req, rows in zip(batch, per_req):
+            req.outputs = rows
+            _H_E2E.observe(done - req.t_enqueue)
+            req.done.set()
+        _C_REQUESTS.inc(n)
+
+    def _run(self):
+        while True:
+            batch = self._take_batch()
+            if batch is None:
+                return  # draining and queue empty
+            self._dispatch(batch)

@@ -1,0 +1,97 @@
+"""int8 weight quantization for serving (a copy of
+``mxnet_tpu/serving/quant.py``; experimental).
+
+``MXTPU_SERVE_QUANT=int8`` (or ``Predictor(quant="int8")``) stores
+dense/conv weight matrices as int8 plus a per-output-channel float
+scale computed at load (symmetric, max-abs calibration), and
+dequantizes to bf16-rounded values at bind time — activations stay in
+the executor's compute dtype. Biases, norms, and 1-D/embedding params
+pass through untouched.
+
+This is a weight-memory optimization (4x smaller resident weights on
+the host side, bf16-equivalent numerics on the device); the parity gate
+lives in ``tools/serving_bench.py`` — top-1 agreement vs the
+unquantized model must be ≥ 99% on the bench model. ``quantize`` is
+numpy and gives the JAX package's ``q`` and ``scale`` bits; ``dequantize``
+rounds through ``torch.bfloat16`` (round to nearest even, as
+``jnp.bfloat16`` does).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_MIN_QUANT_ELEMS = 64  # skip tiny tensors: no memory win, pure noise
+
+
+class QuantizedTensor(object):
+    """int8 data + per-output-channel scales for one weight tensor.
+
+    Axis 0 is the output-channel axis for both FullyConnected weights
+    ``[out, in]`` and Convolution weights ``[out, in, kh, kw]``."""
+
+    __slots__ = ("q", "scale", "shape")
+
+    def __init__(self, q, scale, shape):
+        self.q = q
+        self.scale = scale
+        self.shape = shape
+
+    @classmethod
+    def quantize(cls, arr):
+        arr = np.asarray(arr, np.float32)
+        flat = arr.reshape(arr.shape[0], -1)
+        amax = np.max(np.abs(flat), axis=1)
+        scale = np.where(amax > 0, amax / 127.0, 1.0).astype(np.float32)
+        q = np.clip(np.rint(flat / scale[:, None]), -127, 127).astype(
+            np.int8)
+        return cls(q, scale, arr.shape)
+
+    def dequantize(self):
+        """int8 * scale, rounded through bf16 (the serving activation
+        dtype) so the dequantized weights are exactly representable on
+        the bf16 path."""
+        w = self.q.astype(np.float32) * self.scale[:, None]
+        w = torch.from_numpy(w).to(torch.bfloat16).float().numpy()
+        return w.reshape(self.shape)
+
+    @property
+    def nbytes(self):
+        return self.q.nbytes + self.scale.nbytes
+
+
+def _quantizable(name, arr):
+    shape = tuple(arr.shape)
+    if len(shape) not in (2, 4):  # FC [out,in] / conv [out,in,kh,kw]
+        return False
+    if int(np.prod(shape)) < _MIN_QUANT_ELEMS:
+        return False
+    return name.endswith("weight")
+
+
+def quantize_arg_params(arg_params):
+    """Map a {name: NDArray|ndarray} param dict to one where every
+    quantizable weight is a QuantizedTensor; everything else passes
+    through unchanged."""
+    out = {}
+    for name, arr in arg_params.items():
+        raw = arr.asnumpy() if hasattr(arr, "asnumpy") else np.asarray(arr)
+        if _quantizable(name, raw):
+            out[name] = QuantizedTensor.quantize(raw)
+        else:
+            out[name] = arr
+    return out
+
+
+def maybe_dequantize(arr):
+    """Numpy view of a param that may or may not be quantized."""
+    if isinstance(arr, QuantizedTensor):
+        return arr.dequantize()
+    return arr.asnumpy() if hasattr(arr, "asnumpy") else np.asarray(arr)
+
+
+def top1_agreement(logits_a, logits_b):
+    """Fraction of rows whose argmax agrees — the parity-gate metric."""
+    a = np.argmax(np.asarray(logits_a), axis=-1).reshape(-1)
+    b = np.argmax(np.asarray(logits_b), axis=-1).reshape(-1)
+    return float(np.mean(a == b))

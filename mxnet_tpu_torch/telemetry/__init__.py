@@ -1,6 +1,8 @@
 """Telemetry of the PyTorch port: the metrics registry the serving path
-instruments against (counterpart of ``mxnet_tpu/telemetry``; spans,
-exporters and the step-anatomy recompile detector are not ported).
+instruments against (counterpart of ``mxnet_tpu/telemetry``), and of the
+step anatomy only its recompile accounting (``anatomy``: a CUDA-graph
+capture on the serving hot path counts as JAX's recompile); spans,
+exporters and the rest of anatomy are not ported.
 
     from mxnet_tpu_torch import telemetry
     telemetry.enable()
@@ -8,6 +10,7 @@ exporters and the step-anatomy recompile detector are not ported).
 """
 from __future__ import annotations
 
+from . import anatomy  # noqa: F401
 from . import registry as _registry
 from .registry import (  # noqa: F401
     Counter, Gauge, Histogram, Registry, REGISTRY,
@@ -18,6 +21,11 @@ from .registry import (  # noqa: F401
 def enable():
     """Turn collection on."""
     _registry.set_enabled(True)
+
+
+def disable():
+    """Turn collection off."""
+    _registry.set_enabled(False)
 
 
 def reset():

@@ -803,3 +803,138 @@ def test_cuda_replays_draw_fresh_dropout_masks(monkeypatch):
     runs = [tr.call_multi(*_clone_state(state), stacked, [0.1, 0.1], [1, 2])[3][0].clone()
             for _ in range(3)]
     assert not torch.equal(runs[1], runs[2])
+
+
+def _mlp_serving_predictor(mx, ctx):
+    """A 16-d MLP behind a Predictor on ``ctx``, weights from a seed."""
+    import numpy as np
+
+    from mxnet_tpu_torch import predict
+    from mxnet_tpu_torch.models import mlp
+
+    sym = mlp.get_symbol(num_classes=10, hidden=(32,))
+    rng = np.random.RandomState(0)
+    arg_shapes, _, _ = sym.infer_shape(data=(1, 16))
+    with mx.cpu():
+        params = {"arg:" + n: mx.nd.array((rng.randn(*s) * 0.2).astype(np.float32))
+                  for n, s in zip(sym.list_arguments(), arg_shapes)
+                  if n not in ("data", "softmax_label")}
+    return predict.Predictor(sym.tojson(), params, {"data": (1, 16)}, ctx=ctx)
+
+
+@pytest.mark.cuda
+def test_cuda_predictor_bucket_replay_equals_eager():
+    """Each captured batch bucket's replay gives the eager predict() of the
+    same rows bit for bit, call after call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    import mxnet_tpu_torch as mx
+
+    p = _mlp_serving_predictor(mx, mx.gpu(0))
+    p.compile([{"data": (b, 16)} for b in (1, 2, 4)])
+    rng = np.random.RandomState(1)
+    for b in (1, 2, 4):
+        assert p._serve_cache[(("data", (b, 16)),)]._graph is not None
+        for _ in range(2):
+            x = rng.randn(b, 16).astype(np.float32)
+            got = p.predict_batch(data=x)[0]
+            p.reshape({"data": (b, 16)})
+            want = p.predict(data=x)[0]
+            assert got.tobytes() == want.tobytes()
+
+
+@pytest.mark.cuda
+def test_cuda_predictor_bucket_after_compile_counts_one_miss():
+    """A bucket first seen after compile() is captured on the spot: one
+    plan miss, no recompile (its program's first signature is its warm-up),
+    and its second call is a replay with no miss."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import telemetry
+
+    was = telemetry.enabled()
+    telemetry.enable()
+    try:
+        p = _mlp_serving_predictor(mx, mx.gpu(0))
+        p.compile([{"data": (1, 16)}])
+        misses = telemetry.REGISTRY.get("executor.dispatch_plan_misses")
+        m0, r0 = misses.value(), telemetry.anatomy._C_RECOMPILES.value()
+        x = np.random.RandomState(2).randn(2, 16).astype(np.float32)
+        first = p.predict_batch(data=x)[0]
+        assert misses.value() - m0 == 1
+        assert p._serve_cache[(("data", (2, 16)),)]._graph is not None
+        assert p.predict_batch(data=x)[0].tobytes() == first.tobytes()
+        assert misses.value() - m0 == 1
+        assert telemetry.anatomy._C_RECOMPILES.value() - r0 == 0
+    finally:
+        telemetry.registry.set_enabled(was)
+
+
+@pytest.mark.cuda
+def test_cuda_predictor_host_read_raises_at_capture(monkeypatch):
+    """A forward that reads a host value cannot be captured: compile()
+    raises MXNetError naming the bucket, and nothing falls back to eager."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import registry
+
+    op = registry.get("FullyConnected")
+    plain = op.fcompute
+
+    def reads_host(attrs, inputs, is_train):
+        float(inputs[0].sum())
+        return plain(attrs, inputs, is_train)
+
+    p = _mlp_serving_predictor(mx, mx.gpu(0))
+    monkeypatch.setattr(op, "fcompute", reads_host)
+    with pytest.raises(MXNetError, match="bucket"):
+        p.compile([{"data": (2, 16)}])
+
+
+@pytest.mark.cuda
+def test_cuda_captured_decode_step_equals_eager():
+    """16 replays of the captured decode step, with a prefill between
+    them, against decode_step run eagerly on a clone of the cache: logits
+    and the whole cache bit for bit; the cache tensors never move."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    from mxnet_tpu_torch.models import transformer as tfm
+    from mxnet_tpu_torch.serving.decode import GenerationEngine
+
+    dims = dict(vocab=256, d_model=64, n_heads=4, n_layers=2, d_ff=128)
+    init_fn, _ = tfm.transformer_lm(**dims)
+    for dtype in (torch.float32, torch.bfloat16):
+        params = tfm.params_from_jax(init_fn(0), device="cuda", dtype=dtype)
+        model = tfm.transformer_lm_serving(max_len=64, dtype=dtype, **dims)
+        decode_step = model[2]
+        gen = GenerationEngine(params, model, slots=4, max_len=64, device="cuda").compile()
+        assert gen.decode_stats["captures"] == 1
+        ptrs = gen._cache_addresses()
+        rng = np.random.RandomState(3)
+
+        def admit(slots, length):
+            toks = rng.randint(0, 256, (len(slots), 8)).astype(np.int32)
+            gen._prefill_call(toks, np.asarray(slots, np.int32),
+                              np.full((len(slots),), length, np.int32))
+
+        admit([0, 1], 5)
+        for step in range(16):
+            if step == 8:
+                admit([2], 7)
+            toks = rng.randint(0, 256, (5,)).astype(np.int32)
+            ref = {k: v.clone() for k, v in gen._cache.items()}
+            _, want = decode_step(params, ref, torch.from_numpy(toks).cuda())
+            got = gen._decode_call(toks)
+            assert torch.equal(got, want), step
+            for k in ref:
+                assert torch.equal(gen._cache[k], ref[k]), (step, k)
+        assert gen._cache_addresses() == ptrs
+        assert gen.decode_stats["captures"] == 1

@@ -172,6 +172,50 @@ def test_generation_engine_midflight_matches_jax():
 
 
 @pytest.mark.timeout(120)
+def test_note_dispatch_accounting_matches_jax():
+    """Both engines, warmed for one prompt length only, note the same
+    dispatch signatures over the same stream (a prefill bucket first seen
+    after compile() included), count the same recompiles (none: each
+    (engine, bucket) program's first signature is its warm-up), and give
+    the same continuations."""
+    from mxnet_tpu.telemetry import anatomy as janatomy
+    from mxnet_tpu_torch.telemetry import anatomy
+
+    tree = jtfm.transformer_lm(**DIMS)[0](0)
+    j_gen = JaxGenerationEngine(
+        tree, jtfm.transformer_lm_serving(max_len=16, dtype=jnp.float32, **DIMS),
+        slots=2, max_len=16)
+    t_gen = GenerationEngine(
+        ttfm.params_from_jax(tree, device="cpu", dtype=torch.float32),
+        ttfm.transformer_lm_serving(max_len=16, dtype=torch.float32, **DIMS),
+        slots=2, max_len=16, device="cpu")
+    was, j_was = telemetry.enabled(), jregistry.enabled()
+    telemetry.enable()
+    jregistry.set_enabled(True)
+    try:
+        results, seen, recompiles = [], [], []
+        for gen, counter in ((j_gen, janatomy._C_RECOMPILES), (t_gen, anatomy._C_RECOMPILES)):
+            gen.compile(prompt_lengths=[3])
+            after_compile = set(gen._seen_sigs)
+            r0 = counter.value()
+            reqs = [gen.submit(p, max_new=3) for p in ([1, 2, 3], list(range(1, 13)), [4, 5])]
+            for _ in range(40):
+                if all(r.done.is_set() for r in reqs):
+                    break
+                gen.step()
+            results.append([r.result(0) for r in reqs])
+            seen.append((after_compile, set(gen._seen_sigs)))
+            recompiles.append(counter.value() - r0)
+    finally:
+        telemetry.registry.set_enabled(was)
+        jregistry.set_enabled(j_was)
+    assert seen[1] == seen[0]
+    assert (("prefill", (2, 16), "int32", "serve"),) in seen[1][1] - seen[1][0]
+    assert recompiles == [0, 0]
+    assert results[1] == results[0]
+
+
+@pytest.mark.timeout(120)
 def test_generation_engine_thread_drain_and_prompt_cap():
     gen = GenerationEngine(
         _port_params(),
@@ -316,6 +360,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import mxnet_tpu_torch.ops.registry, mxnet_tpu_torch.ops.utils, mxnet_tpu_torch.ops.nn\n"
         "import mxnet_tpu_torch.ops.elemwise, mxnet_tpu_torch.ops.matrix\n"
         "import mxnet_tpu_torch.tools.resnet_bench\n"
+        "import mxnet_tpu_torch.predict, mxnet_tpu_torch.serving.engine\n"
+        "import mxnet_tpu_torch.serving.quant, mxnet_tpu_torch.telemetry.anatomy\n"
+        "import mxnet_tpu_torch.tools.serve, mxnet_tpu_torch.tools.serving_bench\n"
         "bad = [m for m in ('jax', 'jaxlib', 'mxnet_tpu') if m in sys.modules]\n"
         "built = [m for m in sys.modules if m.startswith('triton')]\n"
         "print(bad, built)\n"
@@ -339,7 +386,10 @@ def test_port_sources_name_no_jax_import():
                     src = fh.read()
                 assert not pat.search(src), os.path.join(root, f)
                 scanned += 1
-    assert scanned >= 33
+    assert scanned >= 38
+    for new in ("predict.py", "serving/engine.py", "serving/quant.py",
+                "telemetry/anatomy.py", "tools/serve.py", "tools/serving_bench.py"):
+        assert os.path.exists(os.path.join(PKG, new)), new
 
 
 @pytest.mark.parametrize("cap,base", [(1, 1), (6, 1), (8, 1), (2048, 8), (16, 8)])
