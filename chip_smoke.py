@@ -8,6 +8,7 @@
     python3 chip_smoke.py --only zoo                   # K2/K3's build and phase 20
     python3 chip_smoke.py --only multistep [--package DIR]  # K1-K3's build and phase 21
     python3 chip_smoke.py --only serving [--package DIR]  # K4f's build and phase 22
+    python3 chip_smoke.py --only resilience            # K1-K3's build and phase 23
 
 
 Phases, each fatal on failure:
@@ -308,13 +309,52 @@ Phases, each fatal on failure:
     runs captured too: its non-finite check is a flag on the card that the
     captured step ORs into.
 
+23. resilience (main path 10), ResNet-50 bf16 AMP at batch 32 through
+    ``Module.fit`` over ``make_mesh(dp=4, devices=[gpu(0)] * 4)``, SGD
+    momentum, two epochs of 8 seeded batches (16 steps),
+    ``MXTPU_CKPT_INTERVAL=4``. Each run is a process of its own (this
+    script with ``--resilience-worker``), cuDNN deterministic with
+    autotuning off in all of them; four chains run side by side: (a) at
+    ``MXNET_FIT_MULTISTEP`` 1 and 4, a reference fit, a fit with
+    ``kill_at_step=11`` (it must die of SIGKILL) and a ``resume="auto"``
+    fit from its checkpoints, whose final state (every master, momentum
+    slab, working param, BatchNorm statistic, the loss scale and the good
+    count, compared by per-tensor sha256) and metric equal the
+    reference's bit for bit, and whose K2, K3 and K1 device kernels,
+    counted by name under torch.profiler over the fit, are 46, 46 and 1 a
+    step it ran (one capture at K = 4); (b) ``preempt_at_step=6`` exits 75
+    after a final checkpoint at step 6, and the resume from it equals the
+    reference bit for bit; (c) ``guardrails="auto"`` with
+    ``nan_grad_at_step=6,loss_spike_at_step=12``: eagerly, the state after
+    step 6 equals that after step 5 bit for bit but for the loss scale
+    (halved) and the good count (zeroed); at K = 4 the final state equals
+    the eager run's bit for bit, with one capture; both finite. Whether
+    ResNet-50's spike trips is recorded (its ``bn_data`` BatchNorm
+    normalizes a scaled batch); a 2-layer MLP's spike at K = 4 inside the
+    first replayed group must be skipped by the gate (one capture, one
+    skip in the health stamp). The guard's gated K1 launch (its flag a
+    device scalar ``finite and gn2 <= threshold``) over ResNet-50's 16
+    buckets equals ``slab_update_multi_reference`` bit for bit, eagerly and
+    in a captured graph replayed with the threshold written between
+    replays. (a)'s numbers in this process: the reference's final
+    checkpoint's bytes, the ms of its restore (load and placement; the
+    restored state equals the reference run's bit for bit), of a
+    synchronous save, and the host ms ``save_async`` takes from the train
+    thread beside its total. (d) ``predict.params_from_checkpoint`` on
+    that checkpoint (the f32 masters), a ``Predictor`` on gpu(0) whose
+    batch-32 replay equals ``Module.predict`` bit for bit, and
+    ``tools/serve.py --checkpoint`` in a process of its own answering one
+    request with the bucket-1 row (within 1e-5 of its max), then draining
+    on SIGTERM with exit 0.
+
 Then the kernels line: the seven kernels, K4f, K4dq, K4dkv, K2, K3, K5 and
 K1; K2's and K3's launches count phase 20's training rows, and their
 entries carry phase 20's launches and inception-v3 step under ``zoo``;
 K1's, K2's and K3's count phase 21's launches run in its eager fits (the
 wrappers' counts) and its profiled grouped fits (the profiler's by name),
 under ``launches_by_path`` for K1; the timed grouped fits' replays are
-not counted. K4f's ``launches_by_path["serving"]`` counts phase 6's and
+not counted; and phase 23's resumed fits (the profiler's by name; for K1
+under ``launches_by_path["resilience"]``). K4f's ``launches_by_path["serving"]`` counts phase 6's and
 phase 22 (d)'s prefills.
 
 The last line of output is {"ok": true, "device": {...}}. Without a CUDA
@@ -3205,18 +3245,540 @@ def phase_serving(mx, resnet, tfm, kernels, telemetry, GenerationEngine, dev):
     return res
 
 
+# phase 23: resilience through Module.fit (ResNet-50, bf16 AMP, batch 32, dp 4 on gpu(0))
+RESIL = dict(batches=8, epochs=2, interval=4, kill=11, preempt=6, nan=6, spike=12, seed=23,
+             window=3, timeout=600)
+RESIL_MLP = dict(n=64, dim=8, classes=4, batch=8, epochs=2, k=4, spike=6)
+
+
+def _resil_data():
+    """Phase 23's batches from a seed: ``batches`` x 32 images, 1000 classes."""
+    rng = np.random.RandomState(RESIL["seed"])
+    n = RESIL["batches"] * RESNET_BATCH
+    return (rng.rand(n, 3, 224, 224).astype(np.float32),
+            rng.randint(0, 1000, n).astype(np.float32))
+
+
+def tensor_digests(state):
+    """sha256 of each :func:`fused_state` tensor's bytes (bf16 as its
+    bits): two runs' states compared bit for bit without moving them."""
+    import hashlib
+
+    import torch
+
+    out = {}
+    for name, t in state.items():
+        t = t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+        out[name] = hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+    return out
+
+
+def _digest_diff(got, want, skip=()):
+    assert sorted(got) == sorted(want), sorted(set(got) ^ set(want))
+    return [n for n in sorted(want) if n not in skip and got[n] != want[n]]
+
+
+def _resnet_fit_module(mx):
+    from mxnet_tpu_torch.models import resnet
+
+    return mx.mod.Module(resnet.get_symbol(), context=mx.gpu(0),
+                         mesh=mx.parallel.make_mesh(dp=4, devices=[mx.gpu(0)] * 4))
+
+
+def _resil_fit_kwargs(mx):
+    return dict(kvstore="device", optimizer="sgd",
+                optimizer_params={"learning_rate": SGD["lr"], "momentum": SGD["momentum"],
+                                  "wd": SGD["wd"]},
+                initializer=mx.init.Xavier(), num_epoch=RESIL["epochs"])
+
+
+def resilience_worker(spec):
+    """One ``Module.fit`` of phase 23 in a process of its own (``spec``, a
+    JSON dict: package, ckpt, out, k, resume, guard, fault, snap, profile):
+    ResNet-50, bf16 AMP, phase 17's recipe, ``MXTPU_CKPT_INTERVAL`` 4, two
+    epochs of 8 batches, cuDNN deterministic with autotuning off (the same
+    in every run, so each process picks the same algorithms). Writes the
+    final state's tensor digests, the metric, the steps it ran, the
+    wrappers' launch counts (zeroed before the fit), the groups, digests
+    and loss scaler at the ``snap`` steps, and with ``profile`` K1's, K2's
+    and K3's device kernels by name over the fit, as JSON to ``out``."""
+    import torch
+
+    os.environ.update(MXTPU_AMP="bf16", MXTPU_CKPT_INTERVAL=str(RESIL["interval"]),
+                      MXTPU_GUARD_WINDOW=str(RESIL["window"]))
+    if spec.get("k", 1) > 1:
+        os.environ["MXNET_FIT_MULTISTEP"] = str(spec["k"])
+    if spec.get("fault"):
+        os.environ["MXTPU_FAULT_INJECT"] = spec["fault"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    sys.path.insert(0, spec["package"])
+    import logging
+
+    logging.basicConfig(level=logging.INFO)
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import kernels
+
+    X, y = _resil_data()
+    it = mx.io.NDArrayIter(X, y, batch_size=RESNET_BATCH)
+    np.random.seed(0)
+    mx.random.seed(0)
+    mod = _resnet_fit_module(mx)
+    steps, snaps = [], {}
+
+    def on_batch(param):
+        step = param.epoch * RESIL["batches"] + param.nbatch + 1
+        steps.append(step)
+        if step in spec.get("snap", ()):
+            owner, tr = mod._fused_owner, mod._fused_trainer
+            snaps[str(step)] = {
+                "digests": tensor_digests(fused_state(mod)),
+                "scale": float(owner._fused_opt[tr.AMP_SCALE_KEY]),
+                "good": float(owner._fused_opt[tr.AMP_GOOD_KEY])}
+
+    metric = mx.metric.create("acc")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    zero_counts(kernels)
+    with (torch.profiler.profile(activities=acts) if spec.get("profile")
+          else contextlib.nullcontext()) as prof:
+        t0 = time.perf_counter()
+        mod.fit(it, eval_metric=metric, batch_end_callback=on_batch,
+                checkpoint_dir=spec["ckpt"], resume=spec.get("resume"),
+                guardrails=spec.get("guard"), **_resil_fit_kwargs(mx))
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    tr, owner = mod._fused_trainer, mod._fused_owner
+    assert tr.amp and tr.flat_mode == "shard" and tr.guard == bool(spec.get("guard"))
+    state = fused_state(mod)
+    out = {"digests": tensor_digests(state), "metric": metric.get()[1], "steps_run": len(steps),
+           "first_step": steps[0] if steps else None, "fit_s": fit_s,
+           "launches": dict(conv_counts(kernels), slab_update=kernels.fused_slab_update.launches),
+           "groups": tr.group_stats(), "snaps": snaps,
+           "finite": all(bool(torch.isfinite(t).all()) for t in state.values()
+                         if t.is_floating_point()),
+           "loss_scale": float(owner._fused_opt[tr.AMP_SCALE_KEY]),
+           "good": float(owner._fused_opt[tr.AMP_GOOD_KEY])}
+    if spec.get("profile"):
+        out["launches_run"] = kernel_counts(prof)
+    with open(spec["out"], "w") as fh:
+        json.dump(out, fh)
+    log("WORKER-DONE")
+    return 0
+
+
+def _resil_run(root, package, name, **spec):
+    """Run one worker; returns its exit code, wall seconds, the tail of its
+    log and the JSON it wrote (if it got that far)."""
+    spec.update(package=package, out=os.path.join(root, name + ".json"),
+                ckpt=os.path.join(root, spec.pop("dir")))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--resilience-worker",
+                           json.dumps(spec)], capture_output=True, text=True,
+                          timeout=RESIL["timeout"])
+    res = {"name": name, "rc": proc.returncode, "wall_s": time.perf_counter() - t0,
+           "log": proc.stdout[-2000:] + proc.stderr[-6000:]}
+    if os.path.exists(spec["out"]):
+        with open(spec["out"]) as fh:
+            res.update(json.load(fh))
+    return res
+
+
+def _expect(run, rc):
+    if run["rc"] != rc:
+        raise AssertionError("phase 23 %s: exit %s, expected %s\n%s"
+                             % (run["name"], run["rc"], rc, run["log"]))
+
+
+def resil_measure(mx, kernels, dev, ck, path, ref):
+    """Phase 23 (a)'s numbers on a fused module in this process: the
+    reference's final checkpoint restored (load, then placement; the state
+    equal to the reference run's bit for bit), a synchronous save of the
+    same state, and the host ms ``save_async`` takes from the train thread
+    (the device clones and the thread's start) beside its total."""
+    import shutil
+
+    import torch
+
+    mod = _resnet_fit_module(mx)
+    _amp_env(True)
+    try:
+        mod.bind(data_shapes=[("data", (RESNET_BATCH, 3, 224, 224))],
+                 label_shapes=[("softmax_label", (RESNET_BATCH,))])
+        mod.init_params(initializer=mx.init.Xavier())
+        kw = _resil_fit_kwargs(mx)
+        mod.init_optimizer(kvstore=kw["kvstore"], optimizer=kw["optimizer"],
+                           optimizer_params=kw["optimizer_params"])
+    finally:
+        _amp_env(False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = ck.load_state(path)
+    t1 = time.perf_counter()
+    mod._restore_train_state(state["module"])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    diff = _digest_diff(tensor_digests(fused_state(mod)), ref["digests"])
+    assert not diff, "restored state differs from the reference run's: %s" % diff[:5]
+    out_dir = os.path.join(os.path.dirname(os.path.dirname(path)), "measure")
+    mgr = ck.CheckpointManager(out_dir, keep=100)
+
+    def blob():
+        return {"module": mod._capture_train_state(), "epoch": RESIL["epochs"], "nbatch": 0,
+                "global_step": 16, "metric": None, "rng": {"numpy": np.random.get_state()}}
+
+    sync_ms, host_ms, async_ms = [], [], []
+    for rep in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        mgr.save(blob(), 100 + rep)
+        sync_ms.append(1e3 * (time.perf_counter() - t))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        mgr.save_async(blob(), 200 + rep)
+        host_ms.append(1e3 * (time.perf_counter() - t))
+        mgr.wait()
+        async_ms.append(1e3 * (time.perf_counter() - t))
+    assert mgr._last_error is None, mgr._last_error
+    ck.verify_checkpoint(ck.step_dir(out_dir, 202), deep=True)
+    files = os.listdir(path)
+    res = {"checkpoint_bytes": sum(os.path.getsize(os.path.join(path, f)) for f in files),
+           "members": {f: os.path.getsize(os.path.join(path, f)) for f in files},
+           "restore_ms": 1e3 * (t2 - t0), "restore_load_ms": 1e3 * (t1 - t0),
+           "restore_place_ms": 1e3 * (t2 - t1), "restored_state_bitwise_equal": True,
+           "save_sync_ms": sync_ms, "save_async_host_ms": host_ms,
+           "save_async_total_ms": async_ms}
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return mod, res
+
+
+def resil_serving(mx, dev, ck, path, mod_train):
+    """Phase 23 (d): ``predict.params_from_checkpoint`` on (a)'s final
+    checkpoint, a ``Predictor`` on gpu(0) (buckets 1 and 32, captured),
+    its batch-32 replay against ``Module.predict`` of an inference Module
+    with the same params bit for bit (cuDNN deterministic, as phase 22);
+    then ``tools/serve.py --checkpoint`` in a process of its own answers one
+    request with the bucket-1 row (within 1e-5 of its max)."""
+    import socket
+
+    import torch
+
+    from mxnet_tpu_torch import predict
+    from mxnet_tpu_torch.models import resnet
+
+    params = predict.params_from_checkpoint(path)
+    arg_m, aux_m = mod_train.get_params()  # the restored f32 masters and aux
+    for k, v in arg_m.items():
+        assert torch.equal(params["arg:" + k]._data, v._data), k
+    pred = serving_predictor(mx, resnet, params)
+    pred.compile([{"data": (b,) + SERVE_SHAPE} for b in (1, RESNET_BATCH)])
+    rng = np.random.default_rng(RESIL["seed"])
+    x = rng.standard_normal((RESNET_BATCH,) + SERVE_SHAPE, dtype=np.float32)
+    got = pred.predict_batch(data=x)[0]
+    symbol = resnet.get_symbol(num_classes=1000, num_layers=50,
+                               image_shape=",".join(str(d) for d in SERVE_SHAPE))
+    infer = mx.mod.Module(symbol, context=mx.gpu(0))
+    infer.bind(data_shapes=[("data", x.shape)], for_training=False)
+    infer.set_params({k: params["arg:" + k] for k in arg_m},
+                     {k: params["aux:" + k] for k in aux_m})
+    want = infer.predict(mx.io.NDArrayIter(x, None, batch_size=RESNET_BATCH)).asnumpy()
+    assert got.shape == (RESNET_BATCH, 1000) and np.isfinite(got).all()
+    if not _bits_equal(got, want):
+        raise AssertionError("phase 23 (d): the checkpoint's Predictor differs from "
+                             "Module.predict by %.3g" % float(np.abs(got - want).max()))
+    row = pred.predict_batch(data=x[:1])[0][0]
+    sym_file = os.path.join(os.path.dirname(os.path.dirname(path)), "resnet50.json")
+    symbol.save(sym_file)
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.dirname(
+        os.path.abspath(mx.__file__))))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "mxnet_tpu_torch.tools.serve", "--checkpoint", path,
+         "--symbol", sym_file, "--input", "data=%s" % "x".join(map(str, SERVE_SHAPE)),
+         "--port", "0", "--max-batch", "1"], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline()
+        if not line.startswith("serving on "):
+            proc.kill()
+            raise AssertionError("serve.py --checkpoint did not start: %r %s"
+                                 % (line, proc.stderr.read()[-3000:]))
+        ready_s = time.perf_counter() - t0
+        port = int(line.split()[2].split(":")[1])
+        with socket.create_connection(("127.0.0.1", port), 120) as s:
+            fh = s.makefile("rwb")
+            t = time.perf_counter()
+            fh.write((json.dumps({"inputs": {"data": x[0].tolist()}}) + "\n").encode())
+            fh.flush()
+            reply = json.loads(fh.readline().decode())
+            request_ms = 1e3 * (time.perf_counter() - t)
+        served = np.asarray(reply["outputs"][0], np.float32)
+        err = float(np.abs(served - row).max() / np.abs(row).max())
+        assert served.shape == row.shape and err <= 1e-5, (served.shape, err)
+        proc.send_signal(15)
+        rc = proc.wait(120)
+        assert rc == 0, (rc, proc.stderr.read()[-3000:])
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return {"predictor_vs_module_predict": "bitwise", "rows": RESNET_BATCH,
+            "serve": {"ready_s": ready_s, "request_ms": request_ms, "reply_err_rel": err,
+                      "server_latency_ms": reply.get("latency_ms"), "exit": rc}}
+
+
+def resil_gated_k1(kernels, dev, plan):
+    """Phase 23's K1 check: the guard's gated launch (its flag a device
+    scalar ``finite and gn2 <= threshold``) over ResNet-50's 16 buckets
+    against ``slab_update_multi_reference`` bit for bit: eagerly with the
+    flag 0 (outputs equal inputs), and one launch captured in a CUDA graph
+    replayed with the threshold written 0 then inf between replays (the
+    gated and the applied step), each replay from the same state."""
+    import torch
+
+    gen = torch.Generator().manual_seed(23)
+    sizes = [b.padded for b in plan.buckets]
+    w0 = [torch.randn(s, generator=gen).to(dev) for s in sizes]
+    m0 = [(torch.randn(s, generator=gen) * 0.1).to(dev) for s in sizes]
+    g = [(torch.randn(s, generator=gen) * 4).to(dev, torch.bfloat16) for s in sizes]
+    w = [t.clone() for t in w0]
+    m = [t.clone() for t in m0]
+    w16 = [torch.empty(s, dtype=torch.bfloat16, device=dev) for s in sizes]
+    lr = torch.full((), SGD["lr"], device=dev)
+    thr = torch.zeros((), device=dev)
+    inv = torch.full((), 1.0 / 1024, device=dev)
+    kw = dict(rescale_grad=1.0 / RESNET_BATCH, clip_gradient=None, momentum=SGD["momentum"])
+
+    def flag():
+        gn2 = torch.stack([torch.linalg.vector_norm(t, dtype=torch.float32).square()
+                           for t in g]).sum() * inv * inv
+        return (torch.isfinite(gn2) & (gn2 <= thr)).float()
+
+    def table(out):
+        return [kernels.SlabEntry(w[i], g[i], (m[i],), lr, SGD["wd"],
+                                  (w[i], (m[i],), w16[i]) if out else None)
+                for i in range(len(sizes))]
+
+    def reference(f):
+        ins = [kernels.SlabEntry(w0[i], g[i], (m0[i],), lr, SGD["wd"], None)
+               for i in range(len(sizes))]
+        return kernels.slab_update_multi_reference("sgd_mom", ins, inv, f, **kw)
+
+    def same(got, want):
+        return all(torch.equal(a[0], b[0]) and torch.equal(a[1][0], b[1][0])
+                   and torch.equal(a[2], b[2]) for a, b in zip(got, want))
+
+    got = kernels.fused_slab_update_multi("sgd_mom", table(False), inv, flag(), **kw)
+    torch.cuda.synchronize()
+    assert float(flag()) == 0.0
+    assert same(got, reference(torch.zeros((), device=dev))), "eager gated K1 != plain"
+    assert all(torch.equal(a[0], b) for a, b in zip(got, w0)), "gated K1 moved a master"
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        kernels.fused_slab_update_multi("sgd_mom", table(True), inv, flag(), **kw)
+    replays = {}
+    for value in (0.0, float("inf")):
+        for a, b in zip(w + m, w0 + m0):
+            a.copy_(b)
+        thr.fill_(value)
+        graph.replay()
+        torch.cuda.synchronize()
+        f = torch.full((), 0.0 if value == 0.0 else 1.0, device=dev)
+        got = [(w[i], (m[i],), w16[i]) for i in range(len(sizes))]
+        assert same(got, reference(f)), "replayed K1 (threshold %g) != plain" % value
+        replays["threshold_%g" % value] = ("gated: inputs kept" if value == 0.0
+                                           else "applied")
+    return {"buckets": len(sizes), "eager_gated_bitwise": True, "replays_bitwise": replays}
+
+
+def resil_mlp_spike(mx, dev, ck, root):
+    """Phase 23 (c)'s loss spike where it reaches the gradient: a 2-layer
+    MLP (no BatchNorm) under bf16 AMP at K = 4, ``loss_spike_at_step=6``
+    inside the first replayed group: the gate, its threshold from the
+    warmed detector written between groups, skips step 6 (the health stamp
+    counts one skip and one trip), one capture, the run finite."""
+    import logging
+
+    rng = np.random.RandomState(42)
+    c = RESIL_MLP
+    X = rng.randn(c["n"], c["dim"]).astype(np.float32)
+    y = rng.randint(0, c["classes"], c["n"]).astype(np.float32)
+    data = mx.sym.Variable("data")
+    net = mx.sym.FullyConnected(data, num_hidden=16, name="fc1")
+    net = mx.sym.Activation(net, act_type="relu")
+    net = mx.sym.FullyConnected(net, num_hidden=c["classes"], name="fc2")
+    net = mx.sym.SoftmaxOutput(net, name="softmax")
+    env = {"MXTPU_AMP": "bf16", "MXNET_FIT_MULTISTEP": str(c["k"]),
+           "MXTPU_GUARD_WINDOW": str(RESIL["window"]), "MXTPU_CKPT_INTERVAL": "4",
+           "MXTPU_FAULT_INJECT": "loss_spike_at_step=%d,mlp=1" % c["spike"]}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    records = []
+
+    class _Grab(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+
+    grab = _Grab(level=logging.WARNING)
+    logging.getLogger().addHandler(grab)
+    try:
+        np.random.seed(0)
+        mod = mx.mod.Module(net, context=mx.gpu(0),
+                            mesh=mx.parallel.make_mesh(dp=4, devices=[mx.gpu(0)] * 4))
+        ckpt = os.path.join(root, "mlp")
+        mod.fit(mx.io.NDArrayIter(X, y, batch_size=c["batch"]), kvstore="device",
+                optimizer="sgd", optimizer_params={"learning_rate": 0.1, "momentum": 0.9},
+                initializer=mx.init.Uniform(0.1), num_epoch=c["epochs"], checkpoint_dir=ckpt,
+                guardrails="auto")
+    finally:
+        logging.getLogger().removeHandler(grab)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    (g,) = mod._fused_trainer.group_stats()
+    health = ck.read_manifest(ck.step_dir(ckpt, ck.list_checkpoints(ckpt)[-1]))["health"]
+    skipped = [r for r in records if "skipped step %d" % c["spike"] in r]
+    assert skipped, records
+    assert g["captures"] == 1 and g["warmup_groups"] == 1, g
+    assert (health["skips"], health["trips"]) == (1, 1), health
+    arg, _ = mod.get_params()
+    assert all(np.isfinite(v.asnumpy()).all() for v in arg.values())
+    return {"k": c["k"], "spike_step": c["spike"], "log": skipped[0], "group": g,
+            "health": {k: health[k] for k in ("skips", "trips", "last_clean_step")}}
+
+
+def phase_resilience(mx, kernels, dev, package, plan):
+    """Phase 23; see the module docstring."""
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from mxnet_tpu_torch.resilience import checkpoint as ck
+
+    torch.backends.cudnn.deterministic = True
+    root = tempfile.mkdtemp(prefix="chip_smoke_resilience_")
+    fault_c = "nan_grad_at_step=%d,loss_spike_at_step=%d" % (RESIL["nan"], RESIL["spike"])
+    chains = {
+        "a1": [("ref1", dict(dir="ref1", k=1)),
+               ("kill1", dict(dir="kill1", k=1, fault="kill_at_step=%d" % RESIL["kill"])),
+               ("res1", dict(dir="kill1", k=1, resume="auto", profile=True))],
+        "a4": [("ref4", dict(dir="ref4", k=4)),
+               ("kill4", dict(dir="kill4", k=4, fault="kill_at_step=%d" % RESIL["kill"])),
+               ("res4", dict(dir="kill4", k=4, resume="auto", profile=True))],
+        "b": [("pre", dict(dir="pre", k=1, fault="preempt_at_step=%d" % RESIL["preempt"])),
+              ("preres", dict(dir="pre", k=1, resume="auto"))],
+        "c": [("nan1", dict(dir="nan1", k=1, guard="auto", fault=fault_c,
+                            snap=[RESIL["nan"] - 1, RESIL["nan"]])),
+              ("nan4", dict(dir="nan4", k=4, guard="auto", fault=fault_c))],
+    }
+    try:
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(chains)) as pool:
+            futures = {c: pool.submit(lambda runs: [_resil_run(root, package, n, **dict(s))
+                                                    for n, s in runs], runs)
+                       for c, runs in chains.items()}
+            runs = {r["name"]: r for f in futures.values() for r in f.result()}
+        workers_s = time.perf_counter() - t0
+        res = {"workers_s": workers_s, "concurrent_chains": len(chains),
+               "runs": {n: {k: r.get(k) for k in ("rc", "wall_s", "fit_s", "steps_run",
+                                                  "first_step", "launches", "launches_run",
+                                                  "metric", "loss_scale", "good", "finite")}
+                        for n, r in runs.items()}}
+        # (a) kill and resume, K = 1 and 4
+        launches = dict.fromkeys(MULTI_KERNEL_NAMES, 0)
+        for k in (1, 4):
+            ref, kill, again = runs["ref%d" % k], runs["kill%d" % k], runs["res%d" % k]
+            _expect(ref, 0)
+            _expect(kill, -9)
+            _expect(again, 0)
+            assert ref["finite"] and ref["steps_run"] == 16, ref["steps_run"]
+            assert "resume: restored step" in again["log"], again["log"]
+            diff = _digest_diff(again["digests"], ref["digests"])
+            assert not diff, "k %d: %d tensors differ after the resume, first %s" % (
+                k, len(diff), diff[:5])
+            assert again["metric"] == ref["metric"], (again["metric"], ref["metric"])
+            n = again["steps_run"]
+            a_step = {"conv_bwd_filter": RESNET_CONVS, "conv_bwd_input": RESNET_CONVS,
+                      "slab_update": 1}
+            assert again["launches_run"] == {m: c * n for m, c in a_step.items()}, (
+                again["launches_run"], n)
+            for m in launches:
+                launches[m] += again["launches_run"][m]
+            if k > 1:
+                (g,) = again["groups"]
+                assert g["captures"] == 1, g
+            res["a_k%d" % k] = {"bitwise_equal_to_reference": len(ref["digests"]),
+                                "resumed_at_step": again["first_step"] - 1, "steps_run": n,
+                                "launches_run": again["launches_run"],
+                                "metric_equal": True}
+        res["launches_resumed_runs"] = launches
+        # (b) SIGTERM: exit 75 after a final checkpoint at step 6, then the resume
+        pre, preres = runs["pre"], runs["preres"]
+        _expect(pre, 75)
+        _expect(preres, 0)
+        assert "preempted: checkpoint at step %d written" % RESIL["preempt"] in pre["log"]
+        assert "resume: restored step %d" % RESIL["preempt"] in preres["log"], preres["log"]
+        diff = _digest_diff(preres["digests"], runs["ref1"]["digests"])
+        assert not diff, "SIGTERM resume differs: %s" % diff[:5]
+        res["b"] = {"exit": pre["rc"], "checkpoint_step": RESIL["preempt"],
+                    "bitwise_equal_to_reference": len(preres["digests"])}
+        # (c) the guard: the NaN step keeps every bit of the step before
+        nan1, nan4 = runs["nan1"], runs["nan4"]
+        _expect(nan1, 0)
+        _expect(nan4, 0)
+        before, after = (nan1["snaps"][str(s)] for s in (RESIL["nan"] - 1, RESIL["nan"]))
+        scaler = ("opt:__amp_scale__.0", "opt:__amp_good__.0")
+        diff = _digest_diff(after["digests"], before["digests"], skip=scaler)
+        assert not diff, "the gated step changed %s" % diff[:5]
+        assert after["scale"] == before["scale"] / 2 and after["good"] == 0.0, (before, after)
+        assert nan1["finite"] and nan4["finite"]
+        diff = _digest_diff(nan4["digests"], nan1["digests"])
+        assert not diff, "guarded K = 4 differs from guarded eager: %s" % diff[:5]
+        (g,) = nan4["groups"]
+        assert g["captures"] == 1 and g["warmup_groups"] == 1, g
+        health = ck.read_manifest(ck.step_dir(os.path.join(root, "nan1"), 16))["health"]
+        spike_trip = "skipped step %d" % RESIL["spike"] in nan1["log"]
+        res["c"] = {"nan_step": RESIL["nan"], "state_after_equals_before_bitwise": True,
+                    "scale_before": before["scale"], "scale_after": after["scale"],
+                    "k4_bitwise_equal_to_eager": len(nan4["digests"]), "k4_group": g,
+                    "health_at_16": {k: health[k] for k in ("skips", "trips",
+                                                            "last_clean_step")},
+                    "resnet_spike_step": RESIL["spike"], "resnet_spike_skipped": spike_trip,
+                    "rewound": "guardrail: rewound" in nan1["log"]}
+        res["c"]["mlp_spike"] = resil_mlp_spike(mx, dev, ck, root)
+        res["gated_k1"] = resil_gated_k1(kernels, dev, plan)
+        # (a)'s numbers and (d) on the reference's final checkpoint
+        path = ck.step_dir(os.path.join(root, "ref1"), 16)
+        ck.verify_checkpoint(path, deep=True)
+        mod, res["a_numbers"] = resil_measure(mx, kernels, dev, ck, path, runs["ref1"])
+        res["d"] = resil_serving(mx, dev, ck, path, mod)
+    finally:
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(root, ignore_errors=True)
+    log("phase 23: resilience: %s" % json.dumps(res))
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every phase's numbers to this JSON file")
     ap.add_argument("--package", help="import mxnet_tpu_torch from this checkout instead of the "
                     "one beside this script (to run this script's phases on another tree)")
-    ap.add_argument("--only", choices=("f32_lm", "rtc", "slab", "zoo", "multistep", "serving"),
+    ap.add_argument("--only", choices=("f32_lm", "rtc", "slab", "zoo", "multistep", "serving",
+                                       "resilience"),
                     help="f32_lm: build, phase 19 and phase 8's attention kernel times only; "
                     "rtc: K5's push path on ResNet-50's parameter arrays only; slab: K1's "
                     "build, phases 16-18 and K1's times only; zoo: K2/K3's build and "
                     "phase 20 only; multistep: K1-K3's build and phase 21 only; serving: "
                     "the flash forward's build and phase 22 only (on a package without "
-                    "predict, only (d) and its continuations' digest)")
+                    "predict, only (d) and its continuations' digest); resilience: K1-K3's "
+                    "build and phase 23 only")
+    ap.add_argument("--resilience-worker", metavar="SPEC", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import torch
@@ -3224,7 +3786,10 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.abspath(args.package or os.path.dirname(os.path.abspath(__file__))))
+    package = os.path.abspath(args.package or os.path.dirname(os.path.abspath(__file__)))
+    if args.resilience_worker:
+        return resilience_worker(json.loads(args.resilience_worker))
+    sys.path.insert(0, package)
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import rtc_kernels as rk
     from mxnet_tpu_torch import telemetry
@@ -3280,6 +3845,12 @@ def main(argv=None):
         results["serving"] = phase_serving(mx, resnet, tfm, kernels, telemetry,
                                            GenerationEngine, dev)
         log("phase 22 (d) digest: %s" % results["serving"]["d"]["digest"])
+    if args.only == "resilience":
+        t0 = time.perf_counter()
+        _build.build(["conv_bwd_filter", "slab_update"])
+        results["build_s"] = time.perf_counter() - t0
+        results["resilience"] = phase_resilience(mx, kernels, dev, package,
+                                                 resnet50_amp_plan(mx, resnet))
     if args.only:
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -3321,11 +3892,16 @@ def main(argv=None):
     conv_launches = {name: conv_launches[name] + zoo_launches[name] for name in conv_launches}
     results["multistep"] = multi = phase_multistep(mx, kernels, dev)
     results["serving"] = phase_serving(mx, resnet, tfm, kernels, telemetry, GenerationEngine, dev)
+    results["resilience"] = resil = phase_resilience(mx, kernels, dev, package,
+                                                     resnet50_amp_plan(mx, resnet))
     multi_launches = multistep_launches(multi)
-    conv_launches = {name: conv_launches[name] + multi_launches[name] for name in conv_launches}
+    resil_launches = resil["launches_resumed_runs"]
+    conv_launches = {name: conv_launches[name] + multi_launches[name] + resil_launches[name]
+                     for name in conv_launches}
     k1 = results["k1_entry"]
     k1["launches_by_path"]["multistep"] = multi_launches["slab_update"]
-    k1["launches"] += multi_launches["slab_update"]
+    k1["launches_by_path"]["resilience"] = resil_launches["slab_update"]
+    k1["launches"] += multi_launches["slab_update"] + resil_launches["slab_update"]
     # the f32 kernels' launches in phases 4, 5 and 19
     f32_launches = {name: n + results["training_f32_full"]["launches"][name]
                     for name, n in results["training_f32"]["launches"].items()}

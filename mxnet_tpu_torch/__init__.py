@@ -17,7 +17,8 @@ fused data-parallel path runs over a ``parallel.make_mesh`` of logical
 ranks on one device (``parallel.ShardedTrainStep``); and the serving
 surface: ``predict.Predictor`` (one captured CUDA graph a batch bucket on
 the card), bundles, ``serving.ServingEngine``, int8 ``serving.quant`` and
-``tools.serve``.
+``tools.serve``; and ``resilience``: atomic checkpoints, preemption and
+crash resume, fault injection, retries and the guardrails of ``fit``.
 
 Attention runs the hand-written CUDA flash-attention forward
 (``csrc/flash_attn_fwd.cu``) and its gradient the dq and dk/dv kernels
@@ -67,3 +68,4 @@ from . import module  # noqa: F401
 from . import module as mod  # noqa: F401
 from . import predict  # noqa: F401
 from . import serving  # noqa: F401
+from . import resilience  # noqa: F401

@@ -1,7 +1,8 @@
 """Data iterators of the PyTorch port (counterpart of ``mxnet_tpu/io.py``):
 DataDesc, DataBatch (with ``pad``), DataIter, NDArrayIter (the three
 ``last_batch_handle`` modes, shuffle through ``np.random``), ResizeIter and
-PrefetchingIter. Batches are NDArrays on the current context, made from
+PrefetchingIter, each with ``skip`` for checkpoint resume. Batches are
+NDArrays on the current context, made from
 the host arrays as the JAX package makes them, so both packages see the
 same batches, pads and shuffle order from one ``np.random`` seed.
 
@@ -62,6 +63,17 @@ class DataIter:
 
     def iter_next(self):
         pass
+
+    def skip(self, num_batches):
+        """Advance past ``num_batches`` batches without using them (checkpoint
+        resume repositions a freshly reset iterator so). This generic form
+        consumes batches, and so serves ResizeIter and PrefetchingIter as in
+        the JAX package; NDArrayIter moves its cursor instead."""
+        for _ in range(int(num_batches)):
+            try:
+                self.next()
+            except StopIteration:
+                return
 
     def getdata(self):
         pass
@@ -280,6 +292,17 @@ class NDArrayIter(DataIter):
     def iter_next(self):
         self.cursor += self.batch_size
         return self.cursor < self.num_data
+
+    def skip(self, num_batches):
+        """Cursor math, no data touched. Clamped where sequential next()
+        calls stop (the increment of the first failing iter_next still
+        lands): roll_over's reset() derives the next epoch's wrap offset
+        from the cursor, so skip(k) leaves the value k next()s would."""
+        target = self.cursor + int(num_batches) * self.batch_size
+        if target >= self.num_data:
+            to_end = -(-(self.num_data - self.cursor) // self.batch_size)
+            target = min(target, self.cursor + max(1, to_end) * self.batch_size)
+        self.cursor = target
 
     def next(self):
         if self.iter_next():

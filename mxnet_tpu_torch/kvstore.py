@@ -8,6 +8,8 @@ reference's Comm::Reduce), then applies the updater or stores the sum;
 ``pull`` writes the stored value into every output array. The JAX package
 runs both as ordered ops on a communication engine; here they run in
 program order on the caller's thread, which orders them the same way.
+Both bodies are ``MXTPU_FAULT_INJECT`` points (``kv_push`` / ``kv_pull``)
+and run under ``resilience.retry.call``, as in the JAX package.
 The multi-process types (``dist_*``) and the gradient bucketer wait for
 the multi-card slice (NCCL across cards).
 """
@@ -15,6 +17,8 @@ from __future__ import annotations
 
 from . import optimizer as opt
 from .base import MXNetError
+from .resilience import fault as _fault
+from .resilience import retry as _retry
 from .ndarray import NDArray
 
 _LOCAL_TYPES = ("local", "local_allreduce_cpu", "local_allreduce_device", "device")
@@ -55,7 +59,14 @@ class KVStore:
             if k not in self._store:
                 raise MXNetError("key %s not initialized" % str(k))
             upd_key = k if isinstance(k, int) else self._str_key(k)
-            merged = self._reduce(vals)
+
+            def _reduce_body(vals=vals, k=k):
+                _fault.fire("kv_push", key=k)
+                return self._reduce(vals)
+
+            # the retry covers the reduce only (it reads the pushed values,
+            # so a re-run is exact); the updater runs once, after it
+            merged = _retry.call(_reduce_body, name="kv.push")
             if self._updater is not None:
                 self._updater(upd_key, merged, self._store[k])
             else:
@@ -67,9 +78,14 @@ class KVStore:
         for k, outs in _ctype_key_value(key, out):
             if k not in self._store:
                 raise MXNetError("key %s not initialized" % str(k))
-            stored = self._store[k]._data
-            for o in outs:
-                o._write(stored.to(o._data.device))
+
+            def _body(k=k, outs=outs):
+                _fault.fire("kv_pull", key=k)
+                stored = self._store[k]._data
+                for o in outs:
+                    o._write(stored.to(o._data.device))
+
+            _retry.call(_body, name="kv.pull")
 
     def _str_key(self, k):
         """Stable string key -> updater index (first-seen order)."""
@@ -100,9 +116,11 @@ class KVStore:
         return 1
 
     def save_optimizer_states(self, fname):
+        from .resilience.checkpoint import atomic_file
+
         if self._updater is None:
             raise MXNetError("Cannot save states: no updater on this store")
-        with open(fname, "wb") as fout:
+        with atomic_file(fname) as fout:
             fout.write(self._updater.get_states())
 
     def load_optimizer_states(self, fname):

@@ -3,7 +3,7 @@
 ``_initialize_kvstore``, ``_update_params_on_kvstore``, ``_update_params``
 (the update routing ``Module.init_optimizer`` / ``update`` rely on) and
 ``save_checkpoint`` / ``load_checkpoint`` (``prefix-symbol.json`` plus the
-dmlc ``.params`` bytes, readable by either package). ``FeedForward`` is
+dmlc ``.params`` bytes, readable by either package, written atomically). ``FeedForward`` is
 not ported yet."""
 from __future__ import annotations
 
@@ -80,13 +80,19 @@ def _update_params(param_arrays, grad_arrays, updater, num_device, kvstore=None)
 
 
 def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params):
-    """``prefix-symbol.json`` and ``prefix-%04d.params``."""
+    """``prefix-symbol.json`` and ``prefix-%04d.params``, each through the
+    atomic writer (temp + fsync + rename): a kill mid-save leaves the
+    previous file, never a truncated one."""
+    from .resilience.checkpoint import atomic_file
+
     if symbol is not None:
-        symbol.save("%s-symbol.json" % prefix)
+        with atomic_file("%s-symbol.json" % prefix, mode="w") as f:
+            f.write(symbol.tojson())
     save_dict = {("arg:%s" % k): v for k, v in arg_params.items()}
     save_dict.update({("aux:%s" % k): v for k, v in aux_params.items()})
     param_name = "%s-%04d.params" % (prefix, epoch)
-    nd.save(param_name, save_dict)
+    with atomic_file(param_name) as f:
+        nd._save_fileobj(f, save_dict)
     logging.info("Saved checkpoint to \"%s\"", param_name)
 
 

@@ -7,10 +7,20 @@ file codec.
 init_optimizer, then per epoch reset the metric, per batch forward /
 backward / update / update_metric and the batch callbacks, then the epoch
 callbacks with the synced params and the validation score, then reset the
-data. Not ported yet, and raising when asked for: ``checkpoint_dir`` /
-``resume`` (``mxnet_tpu/resilience/checkpoint.py``), ``guardrails``
-(``mxnet_tpu/resilience/guardrail.py``) and ``monitor``
-(``mxnet_tpu/monitor.py``).
+data. ``checkpoint_dir`` / ``resume`` / ``guardrails`` wire in
+``resilience`` as the JAX package does (``mxnet_tpu/module/base_module.py:
+413-820``): async snapshots every ``MXTPU_CKPT_INTERVAL`` steps and at each
+epoch end, a final checkpoint and ``EXIT_PREEMPTED`` on SIGTERM/SIGINT,
+resume with the iterator's ``skip``, the fault points of
+``MXTPU_FAULT_INJECT``, and the guard's skip / rewind / verdict ladder.
+Snapshots, fault points and the guard's observations fall on step-group
+boundaries. A checkpoint stores numpy's stream as ``rng.numpy`` and the
+torch generators as ``rng.torch``; ``rng.mx`` (the JAX package's key
+stream) is left None, so that package's resume skips it, and the port
+ignores it in a JAX checkpoint. Not ported yet, and raising when asked
+for: ``monitor`` (``mxnet_tpu/monitor.py``) and the elastic
+shrink-and-continue path (``MXTPU_ELASTIC=1``, Queue 1 step 8); the fleet
+heartbeat files under ``MXTPU_RUN_DIR`` are not written.
 
 ``MXNET_FIT_MULTISTEP=K`` (K > 1) on the fused path groups K batches into
 one ``Module.update_multi`` (on the card one replay of a CUDA graph of K
@@ -25,15 +35,23 @@ result in the JAX package and are not read.
 """
 from __future__ import annotations
 
+import copy
 import logging
 import os
+import pickle
+import signal
 import time
+
+import numpy as np
 
 from .. import metric as metric_mod
 from .. import ndarray as nd
+from .. import random as _rnd
 from ..initializer import Uniform
 from ..io import DataDesc  # noqa: F401  (re-exported for subclasses)
 from ..model import BatchEndParam
+from ..resilience import fault as _fault
+from ..resilience.checkpoint import restricted_loads as _ckpt_loads
 
 
 def _as_list(obj):
@@ -48,6 +66,17 @@ def _fire(callbacks, epoch, nbatch, eval_metric, local_vars):
                            locals=local_vars)
     for cb in _as_list(callbacks):
         cb(params)
+
+
+def _poison_batch(batch, mode):
+    """Fault injection (``nan_grad_at_step`` / ``loss_spike_at_step``): a
+    shallow copy of ``batch`` whose data is NaN or scaled by 1e4, labels
+    and metadata intact, on the data's own context."""
+    factor = float("nan") if mode == "nan" else 1.0e4
+    out = copy.copy(batch)
+    out.data = [nd.array(np.asarray(d.asnumpy(), dtype=np.float32) * factor, ctx=d.context)
+                for d in batch.data]
+    return out
 
 
 def _fit_multistep():
@@ -149,16 +178,29 @@ class BaseModule:
             aux_params=None, allow_missing=False, force_rebind=False, force_init=False,
             begin_epoch=0, num_epoch=None, validation_metric=None, monitor=None,
             checkpoint_dir=None, resume=None, guardrails=None):
-        """The training loop; see the module docstring."""
+        """The training loop; see the module docstring.
+
+        ``checkpoint_dir`` (a path or a ``resilience.CheckpointManager``)
+        turns on atomic full-state checkpoints: at every epoch end, every
+        ``MXTPU_CKPT_INTERVAL`` optimizer steps (both in the background),
+        and on SIGTERM/SIGINT (finish the step group in flight, write a
+        final checkpoint, exit ``resilience.EXIT_PREEMPTED``).
+        ``resume="auto"`` (or a step number) restores params, optimizer
+        state, RNG streams, the metric and the iterator's position from the
+        newest checkpoint that verifies; the run goes on bit for bit as one
+        never interrupted. ``guardrails="auto"`` (with ``checkpoint_dir``)
+        arms the fused step's skip gate, watches its (loss, grad-norm²,
+        gate_ok) stream with ``resilience.GuardrailMonitor``, stamps
+        checkpoints with their health, rewinds to the newest known-good
+        one on repeated anomalies and exits ``resilience.EXIT_GUARDRAIL``
+        with a verdict when ``MXTPU_GUARD_MAX_REWINDS`` is spent."""
+        from ..resilience import checkpoint as _ckpt
+        from ..resilience import guardrail as _guard
+
         assert num_epoch is not None, "please specify number of epochs"
-        for what, value, where in (
-                ("checkpoint_dir", checkpoint_dir, "mxnet_tpu/resilience/checkpoint.py"),
-                ("resume", resume, "mxnet_tpu/resilience/checkpoint.py"),
-                ("guardrails", guardrails, "mxnet_tpu/resilience/guardrail.py"),
-                ("monitor", monitor, "mxnet_tpu/monitor.py")):
-            if value is not None:
-                raise NotImplementedError(
-                    "fit(%s=...) is not ported to PyTorch yet (%s)" % (what, where))
+        if monitor is not None:
+            raise NotImplementedError(
+                "fit(monitor=...) is not ported to PyTorch yet (mxnet_tpu/monitor.py)")
         self.bind(data_shapes=train_data.provide_data, label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
         self.init_params(initializer=initializer, arg_params=arg_params, aux_params=aux_params,
@@ -169,17 +211,252 @@ class BaseModule:
         eval_metric = metric_mod.create(eval_metric)
         if validation_metric is None:
             validation_metric = eval_metric
-        use_multi = (fit_k > 1 and monitor is None
-                     and getattr(self, "_fused_trainer", None) is not None
-                     and hasattr(self, "update_multi"))
+        trainer = getattr(self, "_fused_trainer", None)
+
+        # -- checkpoints (resilience/checkpoint.py) ---------------------------
+        ckpt_mgr = None
+        if checkpoint_dir is not None:
+            ckpt_mgr = (checkpoint_dir if isinstance(checkpoint_dir, _ckpt.CheckpointManager)
+                        else _ckpt.CheckpointManager(checkpoint_dir))
+        elif resume is not None:
+            raise ValueError("fit(resume=...) requires checkpoint_dir")
+        try:
+            ckpt_interval = max(0, int(os.environ.get(_ckpt.ENV_INTERVAL, "0")))
+        except ValueError:
+            ckpt_interval = 0
+        if ckpt_mgr is not None and os.environ.get("MXTPU_ELASTIC") == "1":
+            raise NotImplementedError(
+                "MXTPU_ELASTIC=1 (the elastic shrink-and-continue path, "
+                "mxnet_tpu/module/base_module.py:543-600) is not ported to PyTorch yet "
+                "(ROADMAP.md, Queue 1 step 8)")
+
+        # -- guardrails (resilience/guardrail.py) -----------------------------
+        guard_mon = None
+        if guardrails is not None:
+            if guardrails != "auto":
+                raise ValueError('guardrails must be "auto" or None, got %r' % (guardrails,))
+            if ckpt_mgr is None:
+                raise ValueError("fit(guardrails=...) requires checkpoint_dir: rewind-to-last-"
+                                 "good needs somewhere to rewind to")
+            if trainer is None:
+                # the gate and the diag stream live in the fused step
+                self.logger.warning("guardrails: no fused trainer on this module; anomaly "
+                                    "detection disabled")
+            else:
+                trainer.arm_guard()
+                guard_mon = _guard.GuardrailMonitor(logger=self.logger)
+        use_multi = fit_k > 1 and trainer is not None and hasattr(self, "update_multi")
         if use_multi:
-            self._fused_trainer.compile_multi(fit_k)  # raises for an ungrouped optimizer
+            trainer.compile_multi(fit_k)  # raises for an ungrouped optimizer
+
+        def _restore_from_state(state):
+            """Module, optimizer and RNG from a checkpoint state dict (resume
+            and rewind); returns (epoch, skip, global step, metric blob)."""
+            self._restore_train_state(state["module"])
+            rng = state.get("rng") or {}
+            if rng.get("numpy") is not None:
+                np.random.set_state(rng["numpy"])
+            if rng.get("torch") is not None:
+                _rnd.set_states(rng["torch"])
+            elif rng.get("mx") is not None:
+                self.logger.info("resume: the checkpoint's JAX key stream (rng.mx) does not "
+                                 "apply to torch generators; left as seeded")
+            epoch = int(state.get("epoch", 0))
+            skip = int(state.get("nbatch", 0))
+            gs = int(state.get("global_step", 0))
+            # the cursor counts batches at the writer's global batch; at
+            # another global batch, keep the global sample position
+            topo, cur = state.get("topology"), self._topology()
+            if topo and cur:
+                wgb = int(topo.get("global_batch") or 0)
+                cgb = int(cur.get("global_batch") or 0)
+                if wgb and cgb and wgb != cgb:
+                    samples = skip * wgb
+                    skip, rem = divmod(samples, cgb)
+                    if rem:
+                        self.logger.warning(
+                            "resume: sample position %d is not a multiple of the new global "
+                            "batch %d; %d samples will be fed again", samples, cgb, rem)
+            ckpt_mgr.last_step = gs
+            return epoch, skip, gs, state.get("metric")
+
+        resume_skip, resume_metric, gs0 = 0, None, 0
+        if ckpt_mgr is not None and resume is not None:
+            if resume == "auto":
+                # under guardrails the newest HEALTHY snapshot: one stamped
+                # mid-anomaly would resume the divergence a rewind escaped
+                state = ckpt_mgr.load_last_good() if guard_mon is not None else ckpt_mgr.load()
+            elif isinstance(resume, int) and not isinstance(resume, bool):
+                state = ckpt_mgr.load(step=resume)
+            else:
+                raise ValueError('resume must be "auto" or a checkpoint step, got %r'
+                                 % (resume,))
+            if state is None:
+                self.logger.info("resume: no valid checkpoint under %s; starting fresh",
+                                 ckpt_mgr.directory)
+            else:
+                begin_epoch, resume_skip, gs0, resume_metric = _restore_from_state(state)
+                if guard_mon is not None:
+                    guard_mon.restore(state.get("health"))
+                    trainer.guard_threshold = guard_mon.gate_threshold()
+                self.logger.info("resume: restored step %d (epoch %d, batch %d)",
+                                 gs0, begin_epoch, resume_skip)
+
+        loop = {"gs": gs0, "done": resume_skip, "epoch": begin_epoch, "last_saved": gs0}
+        preempt = {"flag": False}
+
+        def _capture(epoch_next, nbatch_done):
+            try:
+                metric_blob = pickle.dumps(eval_metric, protocol=2)
+            except Exception:  # an unpicklable custom metric: resume restarts its epoch
+                metric_blob = None
+            topo = self._topology()
+            sample_pos = None
+            if topo and topo.get("global_batch"):
+                sample_pos = int(nbatch_done) * int(topo["global_batch"])
+            blob = {
+                "module": self._capture_train_state(),
+                "epoch": int(epoch_next),
+                "nbatch": int(nbatch_done),
+                "sample_position": sample_pos,
+                "global_step": int(loop["gs"]),
+                "metric": metric_blob,
+                # rng.mx stays None: it is the JAX package's key stream, which
+                # its resume restores whenever it is set
+                "rng": {"numpy": np.random.get_state(), "mx": None,
+                        "torch": _rnd.get_states()},
+                "topology": topo,
+            }
+            if guard_mon is not None:
+                blob["health"] = guard_mon.health_blob(loop["gs"])
+            return blob
+
+        def _after_steps(epoch, done, n_new):
+            """Bookkeeping after ``n_new`` batches trained (``done`` batches of
+            this epoch now trained): the fault points of each step, the guard's
+            diag, a pending preemption and the interval snapshots, always on a
+            group boundary, so a snapshot's state matches its cursor."""
+            if _fault.configured():
+                for step in range(loop["gs"] + 1, loop["gs"] + n_new + 1):
+                    _fault.fire("step", step=step)
+            loop["gs"] += n_new
+            loop["done"] = done
+            loop["epoch"] = epoch
+            if guard_mon is not None:
+                rewind = False
+                for t, diag in self._drain_guard_diag():
+                    verdict = guard_mon.observe(t, float(diag[0]), float(diag[1]),
+                                                float(diag[2]))
+                    rewind = rewind or verdict == "rewind"
+                # the warmed statistics back into the gate: a device scalar,
+                # so a captured group reads it without a recapture
+                trainer.guard_threshold = guard_mon.gate_threshold()
+                if rewind:
+                    raise _guard.GuardrailRewind(step=loop["gs"], epoch=epoch, nbatch=done,
+                                                 reason=guard_mon.last_reason)
+            if ckpt_mgr is None:
+                return
+            if preempt["flag"]:
+                ckpt_mgr.save(_capture(epoch, done), loop["gs"])
+                self.logger.info("preempted: checkpoint at step %d written, exiting %d",
+                                 loop["gs"], _ckpt.EXIT_PREEMPTED)
+                raise SystemExit(_ckpt.EXIT_PREEMPTED)
+            if ckpt_interval and loop["gs"] - loop["last_saved"] >= ckpt_interval:
+                loop["last_saved"] = loop["gs"]
+                ckpt_mgr.save_async(_capture(epoch, done), loop["gs"])
+
+        old_handlers = {}
+        if ckpt_mgr is not None:
+            def _on_preempt(signum, frame):
+                # a flag only: the loop checkpoints at the next group boundary,
+                # where the state and the iterator's position agree
+                preempt["flag"] = True
+
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                try:
+                    old_handlers[sig] = signal.signal(sig, _on_preempt)
+                except ValueError:
+                    pass  # not the main thread: periodic checkpoints still work
+
+        try:
+            while True:
+                try:
+                    self._fit_epochs(train_data, eval_data, eval_metric, validation_metric,
+                                     begin_epoch, num_epoch, batch_end_callback,
+                                     epoch_end_callback, eval_end_callback,
+                                     eval_batch_end_callback, fit_k if use_multi else 1,
+                                     _after_steps, ckpt_mgr, loop, _capture, resume_skip,
+                                     resume_metric)
+                    break
+                except _guard.GuardrailRewind as rw:
+                    # -- rewind to the last good checkpoint -------------------
+                    self._drain_guard_diag()
+                    ckpt_mgr.wait()  # an in-flight snapshot must land first
+                    state = (ckpt_mgr.load_last_good()
+                             if guard_mon.rewinds < guard_mon.max_rewinds else None)
+                    if state is None:
+                        # budget spent (or nothing good on disk): the verdict
+                        # where the watchdog looks, then stop
+                        paths = _guard.write_verdict({
+                            "action": "abort", "reason": rw.reason, "step": rw.step,
+                            "epoch": rw.epoch, "nbatch": rw.nbatch,
+                            "rewinds": guard_mon.rewinds, "budget": guard_mon.max_rewinds,
+                            "last_clean_step": guard_mon.last_clean_step,
+                        }, extra_dir=ckpt_mgr.directory)
+                        self.logger.error(
+                            "guardrail: unrecoverable anomaly at step %d (%s); rewind budget "
+                            "%d/%d spent, verdict at %s, exiting %d", rw.step, rw.reason,
+                            guard_mon.rewinds, guard_mon.max_rewinds, paths or "<nowhere>",
+                            _guard.EXIT_GUARDRAIL)
+                        raise SystemExit(_guard.EXIT_GUARDRAIL)
+                    _guard.count_rewind(guard_mon)
+                    if _fault.configured():
+                        # the target is chosen, nothing restored yet: a kill
+                        # here must leave a relaunch able to recover
+                        _fault.fire("rewind", step=rw.step)
+                    begin_epoch, resume_skip, gs0, resume_metric = _restore_from_state(state)
+                    guard_mon.restore(state.get("health"))
+                    trainer.guard_threshold = guard_mon.gate_threshold()
+                    if begin_epoch == rw.epoch:
+                        # skip past the batch that tripped the detector
+                        resume_skip = max(resume_skip, rw.nbatch)
+                    self.logger.warning(
+                        "guardrail: rewound to last-good step %d (epoch %d) after anomaly at "
+                        "step %d; re-entering at batch %d (%d/%d rewinds spent)", gs0,
+                        begin_epoch, rw.step, resume_skip, guard_mon.rewinds,
+                        guard_mon.max_rewinds)
+                    if hasattr(train_data, "seek_epoch"):
+                        train_data.seek_epoch(begin_epoch)
+                    else:
+                        train_data.reset()
+                    loop.update(gs=gs0, done=resume_skip, epoch=begin_epoch, last_saved=gs0)
+        finally:
+            for sig, handler in old_handlers.items():
+                try:
+                    signal.signal(sig, handler)
+                except ValueError:
+                    pass
+            if ckpt_mgr is not None:
+                ckpt_mgr.wait()
+
+    def _drain_guard_diag(self):
+        """Guard diag samples queued since the last drain (none on the
+        executor path; Module overrides it for the fused path)."""
+        return []
+
+    def _fit_epochs(self, train_data, eval_data, eval_metric, validation_metric, begin_epoch,
+                    num_epoch, batch_end_callback, epoch_end_callback, eval_end_callback,
+                    eval_batch_end_callback, fit_k, _after_steps, ckpt_mgr, loop, _capture,
+                    resume_skip, resume_metric):
+        """The epoch loop of :meth:`fit` (split out so that fit's signal
+        handlers and rewind loop stay readable)."""
 
         def _single(epoch, nbatch, data_batch, local_vars):
             self.forward_backward(data_batch)
             self.update()
             self.update_metric(eval_metric, data_batch.label)
             _fire(batch_end_callback, epoch, nbatch, eval_metric, local_vars)
+            _after_steps(epoch, nbatch + 1, 1)
 
         def _flush_group(pending, epoch):
             def _cb_locals(nbatch, data_batch):
@@ -187,7 +464,7 @@ class BaseModule:
                 # read locals["self"] or locals["data_batch"]
                 return dict(self=self, train_data=train_data, data_batch=data_batch,
                             epoch=epoch, nbatch=nbatch, eval_metric=eval_metric,
-                            monitor=monitor)
+                            monitor=None)
 
             if len(pending) < fit_k:
                 # a partial trailing group: the single-step path
@@ -199,13 +476,30 @@ class BaseModule:
                 self._install_step_outputs(outs)
                 self.update_metric(eval_metric, db.label)
                 _fire(batch_end_callback, epoch, nbatch, eval_metric, _cb_locals(nbatch, db))
+            # one group is one dispatch: its step bookkeeping, and any
+            # snapshot, lands on the group's boundary
+            _after_steps(epoch, pending[-1][0] + 1, len(pending))
 
         for epoch in range(begin_epoch, num_epoch):
             tic = time.time()
             eval_metric.reset()
+            skip = resume_skip if epoch == begin_epoch else 0
+            if skip and resume_metric is not None:
+                # resumed mid-epoch: the interrupted epoch's accumulation,
+                # through __dict__ so the validation_metric alias stays live
+                eval_metric.__dict__.update(
+                    _ckpt_loads(resume_metric, "train_state.pkl metric").__dict__)
+            if skip:
+                # trained batches are skipped, never fed again
+                train_data.skip(skip)
             pending = []  # (nbatch, data_batch) awaiting a K-group flush
-            for nbatch, data_batch in enumerate(train_data):
-                if not use_multi:
+            for nbatch, data_batch in enumerate(train_data, start=skip):
+                if _fault.configured():
+                    # poison injection: this batch feeds step gs + len(pending) + 1
+                    mode = _fault.batch_poison(loop["gs"] + len(pending) + 1)
+                    if mode:
+                        data_batch = _poison_batch(data_batch, mode)
+                if fit_k == 1:
                     _single(epoch, nbatch, data_batch, locals())
                     continue
                 if pending and any(tuple(p.shape) != tuple(d.shape)
@@ -234,6 +528,11 @@ class BaseModule:
                                  batch_end_callback=eval_batch_end_callback, epoch=epoch)
                 for name, val in res:
                     self.logger.info("Epoch[%d] Validation-%s=%f", epoch, name, val)
+            if ckpt_mgr is not None and loop["gs"] > loop["last_saved"]:
+                # the epoch-end snapshot: epoch + 1, batch 0, so a resume
+                # starts the next epoch cleanly; in the background
+                loop["last_saved"] = loop["gs"]
+                ckpt_mgr.save_async(_capture(epoch + 1, 0), loop["gs"])
             train_data.reset()
 
     # -- symbol and params -------------------------------------------------
@@ -253,11 +552,15 @@ class BaseModule:
                          allow_missing=allow_missing, force_init=force_init)
 
     def save_params(self, fname):
-        """``arg:`` / ``aux:`` arrays in the dmlc ``.params`` bytes."""
+        """``arg:`` / ``aux:`` arrays in the dmlc ``.params`` bytes, written
+        atomically (a crash mid-write leaves the previous file)."""
+        from ..resilience.checkpoint import atomic_file
+
         arg_params, aux_params = self.get_params()
         blob = {"arg:" + k: v for k, v in arg_params.items()}
         blob.update({"aux:" + k: v for k, v in aux_params.items()})
-        nd.save(fname, blob)
+        with atomic_file(fname) as f:
+            nd._save_fileobj(f, blob)
 
     def load_params(self, fname):
         split = {"arg": {}, "aux": {}}

@@ -33,9 +33,19 @@ def _split_input_slice(batch_size, work_load_list):
 
 
 def _load_general(data, targets):
+    """Write a batch into the executors' input arrays, in place. On one
+    device a batch of another size than the bound one (a smaller last
+    batch of ``predict`` or ``score``) rebinds the input array to a copy
+    of it instead, as the JAX package's ``copyto`` rebinds, so the
+    executor runs on its rows."""
     for d_src, d_targets in zip(data, targets):
         if isinstance(d_targets, nd.NDArray):
             d_src.copyto(d_targets)
+            continue
+        if len(d_targets) == 1 and tuple(d_src.shape) != tuple(d_targets[0][1].shape):
+            d_dst = d_targets[0][1]
+            d_dst._data = d_src._data.to(device=d_dst._data.device, dtype=d_dst._data.dtype,
+                                         copy=True)
             continue
         for slice_idx, d_dst in d_targets:
             if slice_idx.stop - slice_idx.start == d_src.shape[0]:

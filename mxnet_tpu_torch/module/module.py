@@ -25,6 +25,8 @@ from __future__ import annotations
 import logging
 import pickle
 
+import torch
+
 from .. import context as ctx_mod
 from .. import ndarray as nd
 from .. import optimizer as opt
@@ -101,6 +103,7 @@ class Module(BaseModule):
         self._fused_outputs = None
         self._fused_t = 0
         self._fused_exec_stale = False
+        self._guard_pending = []  # (t, diag) of guarded fused steps, for fit
 
     # -- checkpoints -------------------------------------------------------
     @staticmethod
@@ -120,8 +123,12 @@ class Module(BaseModule):
 
     def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
         """``prefix-symbol.json``, ``prefix-%04d.params`` (under AMP the f32
-        masters) and optionally ``prefix-%04d.states``."""
-        self._symbol.save("%s-symbol.json" % prefix)
+        masters) and optionally ``prefix-%04d.states``, each written
+        atomically."""
+        from ..resilience.checkpoint import atomic_file
+
+        with atomic_file("%s-symbol.json" % prefix, mode="w") as f:
+            f.write(self._symbol.tojson())
         param_name = "%s-%04d.params" % (prefix, epoch)
         self.save_params(param_name)
         logging.info("Saved checkpoint to \"%s\"", param_name)
@@ -423,6 +430,11 @@ class Module(BaseModule):
                 owner._fused_params, owner._fused_aux, owner._fused_opt,
                 self._make_fused_batch(self._fused_batch), lr=lr, t=t)
             owner._fused_params, owner._fused_aux, owner._fused_opt = p, a, s
+            outs = list(outs)
+            if self._fused_trainer.guard:
+                # the last head is the guard's diag (loss, gn2, gate_ok): queued
+                # for fit's monitor, kept out of the outputs and the metric
+                owner._guard_pending.append((t, outs.pop()))
             self._fused_outputs = [nd.NDArray(o) for o in outs]
             self._fused_batch = None
             owner._fused_exec_stale = True
@@ -483,8 +495,24 @@ class Module(BaseModule):
         owner._fused_exec_stale = True
         self._fused_exec_stale = True
         steps = [[o[i] for o in outs] for i in range(k)]
+        if self._fused_trainer.guard:
+            for i in range(k):
+                owner._guard_pending.append((ts[i], steps[i].pop()))
         self._install_step_outputs(steps[-1])
         return steps
+
+    def _drain_guard_diag(self):
+        """The queued (t, diag) samples of guarded steps, diag a numpy
+        (loss, grad-norm², gate_ok) row, and clears the queue: one host
+        transfer for all of them."""
+        owner = self._fused_owner or self
+        pending = owner._guard_pending
+        if not pending:
+            return []
+        rows = torch.stack([d.detach().float() for _, d in pending]).cpu().numpy()
+        out = [(int(t), row) for (t, _), row in zip(pending, rows)]
+        pending.clear()
+        return out
 
     def _install_step_outputs(self, outs_raw):
         """Publish one micro-step's outputs as the current fused outputs
@@ -514,6 +542,20 @@ class Module(BaseModule):
             return
         self._exec_group.update_metric(eval_metric, labels)
 
+    def _metric_snapshot(self):
+        """The fused path's outputs of the last step (fresh tensors each
+        step, so holding them keeps them valid while later steps run), for
+        an update of the metric later; None on the executor path, whose
+        output arrays are reused."""
+        if self._fused_trainer is not None and self._fused_outputs is not None:
+            return list(self._fused_outputs)
+        return None
+
+    def _apply_metric_snapshot(self, eval_metric, labels, snapshot):
+        """The metric update of one deferred step (its host read happens
+        here)."""
+        eval_metric.update(labels, snapshot)
+
     def _sync_params_from_devices(self):
         if self._fused_trainer is not None:
             owner = self._fused_owner
@@ -532,6 +574,131 @@ class Module(BaseModule):
             self._exec_group.get_params(self._arg_params, self._aux_params)
         self._params_dirty = False
 
+    # -- training state for checkpoints -----------------------------------
+    def _topology(self):
+        """The topology this module trains at, recorded in checkpoint
+        manifests: dp degree, mesh shape and batch geometry (informational;
+        the state itself is layout-independent)."""
+        if not self.binded:
+            return None
+        global_batch = self._exec_group.batch_size
+        mesh_shape = None
+        if self._fused_trainer is not None:
+            mesh = self._fused_owner._fused_trainer.mesh
+            mesh_shape = {k: int(v) for k, v in mesh.shape.items()}
+            dp = mesh_shape.get("dp", 1)
+        else:
+            dp = len(self._context)
+        dp = max(1, int(dp))
+        return {"dp": dp, "mesh": mesh_shape, "global_batch": int(global_batch),
+                "per_replica_batch": int(global_batch) // dp}
+
+    def _capture_train_state(self):
+        """A consistent snapshot of params and optimizer state for the
+        checkpointer (``resilience/checkpoint.py``).
+
+        Fused path: device-to-device clones, queued on the stream before
+        the next step (or graph replay), which overwrites the state in
+        place; the checkpoint writer thread pulls them to the host. Under
+        AMP the f32 masters are the ``arg`` payload and the loss scaler is
+        ``opt["amp"]``; flat slabs are carved back to per-parameter trees,
+        so the snapshot's layout never depends on ``MXTPU_SHARD_UPDATE`` or
+        ``MXTPU_BUCKET_BYTES``. Executor path: host copies and the
+        updater's pickled states."""
+        from ..parallel.train_step import _map_state
+
+        assert self.binded and self.params_initialized
+        if self._fused_trainer is not None:
+            def _clone(tree):
+                return {k: _map_state(lambda x: x.detach().clone(), v)
+                        for k, v in tree.items()}
+
+            owner = self._fused_owner
+            trainer = owner._fused_trainer
+            opt_state = _clone(owner._fused_opt)  # whole slabs, then views of the clones
+            arg_src = _clone(owner._fused_params)
+            amp_blob = None
+            if trainer.flat_mode is not None:
+                if trainer.amp:
+                    arg_src = trainer.master_params_named(opt_state)
+                    amp_blob = {"scale": opt_state[trainer.AMP_SCALE_KEY],
+                                "good": opt_state[trainer.AMP_GOOD_KEY]}
+                opt_state = trainer.flat_state_to_named(opt_state)
+            out = {"arg": arg_src, "aux": _clone(owner._fused_aux),
+                   "opt": {"kind": "fused", "t": owner._fused_t, "state": opt_state}}
+            if amp_blob is not None:
+                out["opt"]["amp"] = amp_blob
+            return out
+        arg, aux = self.get_params()
+        state = {"arg": {k: v.asnumpy().copy() for k, v in arg.items()},
+                 "aux": {k: v.asnumpy().copy() for k, v in aux.items()},
+                 "opt": {"kind": "none"}}
+        if not self.optimizer_initialized:
+            return state
+        updater = self._kvstore._updater if self._update_on_kvstore else self._updater
+        if updater is not None:
+            state["opt"] = {"kind": "updater", "bytes": updater.get_states()}
+        return state
+
+    def _restore_train_state(self, blob):
+        """Inverse of :meth:`_capture_train_state` over a host blob (numpy
+        trees from ``load_state``): params onto the devices, the optimizer
+        state re-placed, the executors marked stale. A blob written by the
+        JAX package's executor path (its updater pickles ``mxnet_tpu``
+        NDArrays) raises ``CheckpointError`` naming the class."""
+        from ..resilience.checkpoint import restricted_loads
+
+        assert self.binded and self.params_initialized
+        host = ctx_mod.cpu()
+        arg = {k: nd.array(v, ctx=host) for k, v in (blob.get("arg") or {}).items()}
+        aux = {k: nd.array(v, ctx=host) for k, v in (blob.get("aux") or {}).items()}
+        self.set_params(arg, aux)
+        if self._fused_trainer is not None:
+            owner = self._fused_owner
+            trainer = owner._fused_trainer
+            owner._fused_params, owner._fused_aux = trainer.place_params(self._arg_params,
+                                                                         self._aux_params)
+            if trainer.amp:
+                # the blob's arg is the f32 truth; the working params are its
+                # bf16 cast, the masters are rebuilt below
+                owner._fused_params = trainer.amp_cast_params(owner._fused_params)
+            if self is not owner:
+                self._fused_params = owner._fused_params
+                self._fused_aux = owner._fused_aux
+            owner._fused_exec_stale = True
+            self._fused_exec_stale = True
+            owner._guard_pending.clear()
+        opt_blob = blob.get("opt") or {"kind": "none"}
+        kind = opt_blob.get("kind", "none")
+        if kind == "fused":
+            if self._fused_trainer is None:
+                raise MXNetError(
+                    "checkpoint carries fused optimizer state but this module trains on the "
+                    "executor path: rebind with a device kvstore (or retrain) to resume it")
+            self._place_fused_opt_state(opt_blob["t"], opt_blob["state"],
+                                        amp_blob=opt_blob.get("amp"), sync_masters=False)
+        elif kind == "updater":
+            if self._fused_trainer is not None:
+                raise MXNetError(
+                    "checkpoint carries executor-path optimizer state but this module trains "
+                    "on the fused path: resume with the kvstore type it was saved under")
+            updater = self._kvstore._updater if self._update_on_kvstore else self._updater
+            if updater is None:
+                raise MXNetError("checkpoint carries optimizer state but no updater is "
+                                 "initialized: call init_optimizer before restoring")
+            updater.states = restricted_loads(opt_blob["bytes"], "optimizer.state")
+        elif self._fused_trainer is not None:
+            owner = self._fused_owner
+            trainer = owner._fused_trainer
+            if trainer.amp:
+                # a params-only blob: the masters are the weights' truth, so
+                # rebuild them from the restored params (scaler fresh)
+                state = dict(owner._fused_opt)
+                state.update(trainer.build_amp_master_state(self._arg_params))
+                owner._fused_opt = state
+                if self is not owner:
+                    self._fused_opt = owner._fused_opt
+
     # -- optimizer state files ---------------------------------------------
     def _fused_opt_host_state(self):
         """{"t", "state": name -> numpy trees (per parameter, whatever the
@@ -549,17 +716,19 @@ class Module(BaseModule):
                         if not k.startswith("__")}
         return out
 
-    def _place_fused_opt_state(self, t, state_tree, amp_blob=None):
+    def _place_fused_opt_state(self, t, state_tree, amp_blob=None, sync_masters=True):
         """A host optimizer-state tree back into the fused trainer's layout;
-        under AMP the masters are rebuilt from the current device masters
-        and the scaler from ``amp_blob`` (fresh when None)."""
+        under AMP the masters are rebuilt from ``self._arg_params`` (synced
+        first from the current device masters when ``sync_masters``; a
+        checkpoint resume has just restored them from its f32 ``arg``) and
+        the scaler from ``amp_blob`` (fresh when None)."""
         from ..parallel.train_step import _map_state, _tensor
 
         owner = self._fused_owner
         trainer = owner._fused_trainer
         owner._fused_t = int(t)
         if trainer.flat_mode is not None:
-            if trainer.amp:
+            if trainer.amp and sync_masters:
                 self._sync_params_from_devices()
             owner._fused_opt = trainer.named_state_to_flat(state_tree)
             if trainer.amp:
@@ -574,15 +743,18 @@ class Module(BaseModule):
             self._fused_opt = owner._fused_opt
 
     def save_optimizer_states(self, fname):
+        """The optimizer state file, written atomically."""
+        from ..resilience.checkpoint import atomic_file
+
         assert self.optimizer_initialized
         if self._fused_trainer is not None:
-            with open(fname, "wb") as fout:
+            with atomic_file(fname) as fout:
                 pickle.dump(self._fused_opt_host_state(), fout)
             return
         if self._update_on_kvstore:
             self._kvstore.save_optimizer_states(fname)
         else:
-            with open(fname, "wb") as fout:
+            with atomic_file(fname) as fout:
                 fout.write(self._updater.get_states())
 
     def load_optimizer_states(self, fname):

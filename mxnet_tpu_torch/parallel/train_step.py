@@ -48,8 +48,20 @@ sampler generator registered with it) and replayed, and every later group
 is one replay. A failed capture raises :class:`MXNetError`. On the CPU the
 same body runs uncaptured. Only optimizers with a fused update (SGD,
 SGD-momentum, Adam: ``fused_slab_kernel``) or none are grouped. Not ported:
-``zero1``, ``param_specs`` / tensor parallelism and the guardrail gate;
-each raises.
+``zero1`` and ``param_specs`` / tensor parallelism; each raises.
+
+The guardrail gate (``arm_guard``, JAX ``mxnet_tpu/parallel/train_step.py:
+276-288, 1094-1175``): an armed step computes the global grad-norm² from the
+gradients it holds (on the AMP path from the scaled bf16 slabs, unscaled by
+1/scale²), and ``ok = isfinite(gn2) and gn2 <= threshold`` selects every
+update: on the AMP path ``ok`` (and the finite flag) is the flag kernel K1
+reads from device memory, so a gated launch keeps every master, state and
+bf16 bit while the loss scaler's bookkeeping follows the finite flag alone,
+as in JAX; the f32 flat and per-parameter paths update copies and select
+them into the state; the aux states are selected too. The step appends a
+``(loss, grad_norm², gate_ok)`` diag output. The threshold is a device
+scalar (``guard_threshold`` writes it with ``fill_``), so a captured group
+reads the new value at its next replay: re-thresholding never recaptures.
 """
 from __future__ import annotations
 
@@ -66,6 +78,7 @@ from ..base import MXNetError, bucket_bytes_env
 from ..executor import _GraphProgram, resolve_creation_shapes
 from ..ndarray import NDArray
 from ..ops import kernels
+from ..resilience.checkpoint import DEVICE_PULL_LOCK
 
 _LOG = logging.getLogger(__name__)
 
@@ -202,6 +215,15 @@ def _store_one(d, s):
         d.copy_(s)
 
 
+def _select_into(ok, old, new):
+    """``old`` (a state tree) becomes ``where(ok, new, old)`` in place."""
+    if isinstance(old, tuple):
+        for a, b in zip(old, new):
+            _select_into(ok, a, b)
+    elif old is not None:
+        old.copy_(torch.where(ok, new, old))
+
+
 def _same_layout(a, b):
     """Two state trees of the same structure, shapes and dtypes."""
     if isinstance(a, tuple) or isinstance(b, tuple):
@@ -311,6 +333,10 @@ class ShardedTrainStep:
         self.amp_scale_init = float(os.environ.get("MXTPU_LOSS_SCALE", str(2.0 ** 15)))
         self.amp_scale_window = int(os.environ.get("MXTPU_LOSS_SCALE_WINDOW", "2000"))
         self.amp_scale_max = 2.0 ** 24
+        # -- the guardrail gate (armed by fit(guardrails="auto")) ----------
+        self.guard = False
+        self._guard_thr = None  # device f32 scalar, made by arm_guard
+        self._guard_thr_host = float("inf")
 
     # -- flat layout -----------------------------------------------------
     @staticmethod
@@ -543,18 +569,28 @@ class ShardedTrainStep:
             opt.__dict__.pop("_op_lr", None)
             opt.lr, opt.lr_scheduler, opt._index_update_count, opt.num_update = saved
 
-    def _apply_optimizer(self, params, grads, opt_state, lr, t, row=None):
+    def _apply_optimizer(self, params, grads, opt_state, lr, t, row=None, gate=None):
         """Optimizer.update for every parameter, in place (the per-key
-        layout)."""
+        layout). Under the guard (``gate``) each update runs on copies that
+        ``ok`` then selects into the parameter and its state."""
         opt = self.optimizer
+        ok = None if gate is None else self._gate(gate, [grads[n] for n in self.param_names])
         if opt is None:
             for name in self.param_names:
-                params[name].sub_(lr * grads[name])
+                new = params[name] - lr * grads[name]
+                params[name].copy_(new if ok is None else torch.where(ok, new, params[name]))
             return params, opt_state
         with self._patched_optimizer(lr, t, row):
             for i, name in enumerate(self.param_names):
-                st = _wrap_state(opt_state.get(name))
-                opt.update(i, NDArray(params[name]), NDArray(grads[name]), st)
+                if ok is None:
+                    st = _wrap_state(opt_state.get(name))
+                    opt.update(i, NDArray(params[name]), NDArray(grads[name]), st)
+                    continue
+                w = params[name].clone()
+                st = _map_state(torch.clone, opt_state.get(name))
+                opt.update(i, NDArray(w), NDArray(grads[name]), _wrap_state(st))
+                _select_into(ok, params[name], w)
+                _select_into(ok, opt_state.get(name), st)
         return params, opt_state
 
     def _flat_body(self, bucket, w_c, g_c, st_c):
@@ -571,23 +607,34 @@ class ShardedTrainStep:
         s = bucket.padded // dp
         return [slice(c * s, (c + 1) * s) for c in range(dp)]
 
-    def _apply_optimizer_flat(self, params, grads, opt_state, lr, t, row=None):
+    def _apply_optimizer_flat(self, params, grads, opt_state, lr, t, row=None, gate=None):
         """The f32 flat update: per bucket, the optimizer on the flat slab of
-        weights and gradients, then per-parameter views of the new slab."""
+        weights and gradients, then per-parameter views of the new slab.
+        Under the guard the state slabs update as copies, and ``ok`` selects
+        the new weight slab and those copies (the old weight slab is the
+        packed copy of the old params)."""
         if self.optimizer is None or self.flat_mode is None:
-            return self._apply_optimizer(params, grads, opt_state, lr, t, row)
+            return self._apply_optimizer(params, grads, opt_state, lr, t, row, gate)
         plan = self._ensure_flat_plan(params)
         new_params = dict(params)
+        flat_ws, flat_gs = [], []
+        for b in plan.buckets:
+            names = [v[1] for v in b.views]
+            dtype = params[names[0]].dtype
+            flat_ws.append(self._pack([params[n] for n in names], b.padded, dtype))
+            flat_gs.append(self._pack([grads[n] for n in names], b.padded, dtype))
+        ok = None if gate is None else self._gate(gate, flat_gs)
         with self._patched_optimizer(lr, t, row):
             for bi, b in enumerate(plan.buckets):
-                names = [v[1] for v in b.views]
-                dtype = params[names[0]].dtype
-                flat_w = self._pack([params[n] for n in names], b.padded, dtype)
-                flat_g = self._pack([grads[n] for n in names], b.padded, dtype)
-                st = opt_state.get(self._flat_key(bi))
+                flat_w, st = flat_ws[bi], opt_state.get(self._flat_key(bi))
+                if ok is not None:
+                    flat_w, st_old, st = flat_w.clone(), st, _map_state(torch.clone, st)
                 for c in self._chunks(b):
-                    self._flat_body(b, flat_w[c], flat_g[c],
+                    self._flat_body(b, flat_w[c], flat_gs[bi][c],
                                     _map_state(lambda s, c=c: s[c], st))
+                if ok is not None:
+                    flat_w = torch.where(ok, flat_w, flat_ws[bi])
+                    _select_into(ok, st_old, st)
                 for (_i, name, off, size, shape) in b.views:
                     new_params[name] = flat_w[off:off + size].view(shape)
         return new_params, opt_state
@@ -634,7 +681,7 @@ class ShardedTrainStep:
             old.copy_(torch.where(keep, new, old))
         w16_c.copy_(m_c.to(torch.bfloat16))
 
-    def _apply_optimizer_flat_amp(self, params, grads, opt_state, lr, t, row=None):
+    def _apply_optimizer_flat_amp(self, params, grads, opt_state, lr, t, row=None, gate=None):
         """The AMP flat update: per bucket the bf16 gradient slab; one
         finite flag over every slab gates every bucket alike; masters and
         states updated in place, new bf16 working params as views of each
@@ -645,7 +692,9 @@ class ShardedTrainStep:
         K1 call (``kernels.fused_slab_update_multi``, its plain version on
         the CPU): one launch a step for up to ``SLAB_TABLE_CAP`` chunks,
         after the finite flag is known. Other elementwise optimizers take
-        ``_flat_body_amp`` chunk by chunk."""
+        ``_flat_body_amp`` chunk by chunk. Under the guard the flag K1 (or
+        ``_flat_body_amp``) reads is ``finite and ok``; the scaler still
+        follows ``finite``."""
         plan = self._ensure_flat_plan(params)
         scale = opt_state[self.AMP_SCALE_KEY]
         good = opt_state[self.AMP_GOOD_KEY]
@@ -656,8 +705,9 @@ class ShardedTrainStep:
             flat_g = self._pack([grads[n] for n in names], b.padded, grads[names[0]].dtype)
             finite = finite & torch.isfinite(flat_g).all()
             flat_gs.append(flat_g)
-        finite_f = finite.to(torch.float32)
         inv_scale = torch.reciprocal(scale)
+        flag = finite if gate is None else finite & self._gate(gate, flat_gs, inv_scale)
+        finite_f = flag.to(torch.float32)
         new_params = dict(params)
         kind = self._slab_kind()
         entries, statics = [], None
@@ -719,12 +769,18 @@ class ShardedTrainStep:
             apply = self._apply_optimizer_flat
         else:
             apply = self._apply_optimizer
+        gate = {} if self.guard else None
         with torch.no_grad():
-            new_params, new_opt = apply(params, grads, opt_state, lr, t, row)
+            new_params, new_opt = apply(params, grads, opt_state, lr, t, row, gate)
         new_aux = {**aux, **{k: v.detach() for k, v in new_aux.items()}}
         if amp:  # BN moving stats keep their f32 dtype
             new_aux = {k: (v.to(aux[k].dtype) if k in aux and v.dtype != aux[k].dtype else v)
                        for k, v in new_aux.items()}
+        if gate is not None:
+            ok = gate["ok"]
+            new_aux = {k: (torch.where(ok, v, aux[k]) if k in aux else v)
+                       for k, v in new_aux.items()}
+            outs = outs + [torch.stack([loss.detach().float(), gate["gn2"], ok.float()])]
         return new_params, new_aux, new_opt, outs
 
     def compile(self, data_shapes_by_name=None):
@@ -732,9 +788,40 @@ class ShardedTrainStep:
         return self
 
     def arm_guard(self):
-        raise _not_ported("the guardrail gate (fit(guardrails=...))",
-                          "mxnet_tpu/parallel/train_step.py:1213, mxnet_tpu/resilience/"
-                          "guardrail.py")
+        """Turn the guardrail gate and diag head on (``fit(guardrails=...)``).
+        Groups built before are dropped, since their graphs hold the
+        unguarded step; idempotent."""
+        if not self.guard:
+            self.guard = True
+            self._guard_thr = torch.full((), self._guard_thr_host, dtype=torch.float32,
+                                         device=self.device)
+            self._groups.clear()
+        return self
+
+    @property
+    def guard_threshold(self):
+        """The gate's grad-norm² bound (``inf``: gate on non-finite only)."""
+        return self._guard_thr_host
+
+    @guard_threshold.setter
+    def guard_threshold(self, value):
+        # written into the device scalar in stream order: a replayed group
+        # reads it, no recapture
+        self._guard_thr_host = float(value)
+        if self._guard_thr is not None:
+            self._guard_thr.fill_(self._guard_thr_host)
+
+    def _gate(self, gate, grads, inv_scale=None):
+        """``ok`` of the guard from ``grads`` (tensors whose squares sum to
+        the global grad-norm², scaled by ``1/inv_scale`` under AMP); records
+        ``gn2`` and ``ok`` in ``gate``."""
+        gn2 = torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32).square()
+                           for g in grads]).sum()
+        if inv_scale is not None:
+            gn2 = gn2 * inv_scale * inv_scale
+        ok = torch.isfinite(gn2) & (gn2 <= self._guard_thr)
+        gate.update(gn2=gn2, ok=ok)
+        return ok
 
     def _set_shapes(self, params, sig):
         """Creation-op shapes for one step's batch signature ``sig`` ((name,
@@ -918,10 +1005,12 @@ class ShardedTrainStep:
         if dev.type != "cuda":
             outs = [self._micro_step(group, i, rng, lrs[i], ts[i]) for i in range(k)]
         elif group.graph is None and not group.stats["warmup_groups"]:
-            outs = self._warmup(group, lrs, ts, rng)
+            with DEVICE_PULL_LOCK:  # no checkpoint's host pull under sync debug mode
+                outs = self._warmup(group, lrs, ts, rng)
         else:
             if group.graph is None:
-                self._capture(group, lrs, ts, rng)
+                with DEVICE_PULL_LOCK:  # nor inside the capture
+                    self._capture(group, lrs, ts, rng)
             group.graph.replay()
             group.stats["replays"] += 1
             outs = group.outs

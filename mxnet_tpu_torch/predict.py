@@ -507,9 +507,19 @@ def load_bundle(fname, input_shapes, ctx=None, quant=None):
 
 
 def params_from_checkpoint(ckpt_dir):
-    """Load ``{arg:.../aux:...}`` params from a resilience checkpoint
-    directory. Not ported: it needs ``resilience/checkpoint.py``."""
-    raise NotImplementedError(
-        "predict.params_from_checkpoint(%r) needs resilience/checkpoint.py "
-        "(mxnet_tpu/resilience/checkpoint.py), not ported to PyTorch yet "
-        "(ROADMAP Queue 1 step 4)" % (ckpt_dir,))
+    """``{arg:.../aux:...}`` f32 NDArrays on the host from a resilience
+    checkpoint directory of either package, through its MANIFEST/CRC
+    verification (the deep per-tensor check): the f32-master (AMP) path
+    from training to serving. Corruption raises ``CheckpointError`` naming
+    the file and tensor."""
+    from .resilience import checkpoint as ckpt
+
+    ckpt.verify_checkpoint(ckpt_dir, deep=True)
+    state = ckpt.load_state(ckpt_dir, verify=False)
+    params = {}
+    host = cpu()
+    for name, arr in state["module"]["arg"].items():
+        params["arg:%s" % name] = nd.array(np.asarray(arr, np.float32), ctx=host)
+    for name, arr in state["module"]["aux"].items():
+        params["aux:%s" % name] = nd.array(np.asarray(arr, np.float32), ctx=host)
+    return params

@@ -6,7 +6,8 @@ sampling operators draw from the generator of the device they run on.
 Streams cannot match the JAX package's threefry keys, so samplers are held
 to it by their moments, and a run is reproducible after ``seed()``.
 ``get_state`` / ``set_state`` snapshot and restore one device's stream, by
-default the current context's: the one the samplers draw from.
+default the current context's: the one the samplers draw from;
+``get_states`` / ``set_states`` every stream and the seed, for checkpoints.
 """
 from __future__ import annotations
 
@@ -63,6 +64,24 @@ def set_state(state, device=None):
     """Restore a stream captured by :func:`get_state` (default device as
     there)."""
     generator(device).set_state(torch.from_numpy(_np.asarray(state, _np.uint8)))
+
+
+def get_states():
+    """The seed and every stream made so far on this thread, as host values
+    (what a training checkpoint keeps): {"seed": int or None, "streams":
+    {device string: uint8 array}}."""
+    st = _st()
+    return {"seed": st.seed,
+            "streams": {str(dev): gen.get_state().numpy().copy()
+                        for dev, gen in st.generators.items()}}
+
+
+def set_states(blob):
+    """Restore what :func:`get_states` took."""
+    st = _st()
+    st.seed = blob.get("seed")
+    for dev, state in (blob.get("streams") or {}).items():
+        generator(torch.device(dev)).set_state(torch.from_numpy(_np.asarray(state, _np.uint8)))
 
 
 def fork(gen):

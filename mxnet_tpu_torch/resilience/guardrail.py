@@ -1,0 +1,364 @@
+"""Training guardrails of the PyTorch port (counterpart of
+``mxnet_tpu/resilience/guardrail.py``: the same detector, thresholds, env
+knobs, health stamp and verdict bytes): anomaly detection and
+rewind-to-last-good.
+
+A policy ladder with three rungs:
+
+1. **Skip** — the fused step (``parallel/train_step.py``, armed by
+   ``ShardedTrainStep.arm_guard``) computes the global grad-norm² from the
+   gradients it already holds and applies the branchless select the AMP
+   loss scaler uses, generalized to f32, so a non-finite or
+   out-of-threshold gradient updates nothing, bit for bit. On the AMP path
+   the select is the finite flag kernel K1 reads from device memory. The
+   step also emits a ``(loss, grad_norm², gate_ok)`` diag head.
+2. **Rewind** — :class:`GuardrailMonitor` watches the diag stream with a
+   robust z-score (EMA of a windowed median and MAD, warmup-exempt). After
+   ``MXTPU_GUARD_REWIND_AFTER`` consecutive trips it votes ``"rewind"``;
+   ``fit(guardrails="auto")`` restores the newest known-good checkpoint
+   (MANIFEST ``health`` stamp; retention never evicts it), skips past the
+   batch that tripped, and re-enters the epoch loop.
+3. **Verdict** — after ``MXTPU_GUARD_MAX_REWINDS`` rewinds the run is
+   declared unrecoverable: a ``{"type": "guardrail"}`` verdict is published
+   atomically where the repo's ``tools/watchdog.py`` looks
+   (``MXTPU_RUN_DIR``) and the process exits :data:`EXIT_GUARDRAIL`.
+
+The detector only observes until it trips: a guarded run with no anomaly
+is bit for bit an unguarded one.
+"""
+from __future__ import annotations
+
+import json
+import logging
+import math
+import os
+import time
+from collections import deque
+
+try:
+    from .. import telemetry as _tm
+except ImportError:  # standalone import (tools by path)
+    _tm = None
+
+ENV_WINDOW = "MXTPU_GUARD_WINDOW"
+ENV_ZMAX = "MXTPU_GUARD_ZMAX"
+ENV_REWIND_AFTER = "MXTPU_GUARD_REWIND_AFTER"
+ENV_MAX_REWINDS = "MXTPU_GUARD_MAX_REWINDS"
+
+#: Exit code for "numerics diverged beyond the rewind budget" — the
+#: guardrail verdict. Distinct from EXIT_PREEMPTED (75, retry same
+#: size) and EXIT_RESHAPE (76, shrink): a supervisor must STOP, because
+#: replaying the same data through the same model diverges again.
+EXIT_GUARDRAIL = 78
+
+VERDICT_FILE = "guardrail_verdict.json"
+
+log = logging.getLogger(__name__)
+
+
+def _metric(kind, name, help_):
+    if _tm is None:
+        return None
+    return getattr(_tm, kind)(name, help_)
+
+
+_C_TRIPS = _metric("counter", "guard.trips",
+                   "Guardrail anomaly trips (in-graph skips + host-side "
+                   "z-score detections)")
+_C_SKIPS = _metric("counter", "guard.skips",
+                   "Optimizer steps the in-graph gate skipped bitwise "
+                   "(non-finite or out-of-threshold gradient)")
+_C_REWINDS = _metric("counter", "guard.rewinds",
+                     "Rewind-to-last-good recoveries performed by fit()")
+
+
+def _env_int(name, default):
+    try:
+        return int(os.environ.get(name, "") or default)
+    except ValueError:
+        return int(default)
+
+
+def _env_float(name, default):
+    try:
+        return float(os.environ.get(name, "") or default)
+    except ValueError:
+        return float(default)
+
+
+class GuardrailRewind(Exception):
+    """Raised at a group boundary when the monitor votes to rewind.
+
+    Carries where the anomaly run was detected so fit() can skip the
+    poison window after restoring the last-good checkpoint.
+    """
+
+    def __init__(self, step, epoch, nbatch, reason):
+        super().__init__(reason)
+        self.step = int(step)
+        self.epoch = int(epoch)
+        self.nbatch = int(nbatch)
+        self.reason = reason
+
+
+class _RobustStream:
+    """Sliding-window median+MAD location/scale estimate, EMA-smoothed.
+
+    Median+MAD instead of mean+std because the statistic must not be
+    dragged by the very outliers it exists to flag; the EMA (alpha =
+    2/(window+1)) smooths the windowed estimates so a single window
+    turnover cannot step the threshold. ``warm`` only after a full
+    window — the warmup trend of a fresh run is not an anomaly.
+    """
+
+    __slots__ = ("window", "buf", "med", "mad")
+
+    def __init__(self, window):
+        self.window = max(2, int(window))
+        self.buf = deque(maxlen=self.window)
+        self.med = None
+        self.mad = None
+
+    @property
+    def warm(self):
+        return len(self.buf) >= self.window and self.med is not None
+
+    def sigma(self):
+        """Robust std estimate with a relative floor: 1.4826·MAD is the
+        gaussian-consistent scale; the 5%-of-median floor keeps an
+        ultra-smooth stream (MAD ≈ 0) from flagging normal jitter."""
+        return (1.4826 * (self.mad or 0.0)
+                + 0.05 * abs(self.med or 0.0) + 1e-12)
+
+    def z(self, x):
+        """One-sided robust z of ``x`` (0.0 while warming up — the
+        warmup exemption; only positive excursions count, a dropping
+        loss is progress, not an anomaly)."""
+        if not self.warm or not math.isfinite(x):
+            return 0.0
+        return max(0.0, (float(x) - self.med) / self.sigma())
+
+    def update(self, x):
+        if not math.isfinite(x):
+            return
+        self.buf.append(float(x))
+        med = _median(self.buf)
+        mad = _median([abs(v - med) for v in self.buf])
+        alpha = 2.0 / (self.window + 1.0)
+        self.med = med if self.med is None \
+            else (1.0 - alpha) * self.med + alpha * med
+        self.mad = mad if self.mad is None \
+            else (1.0 - alpha) * self.mad + alpha * mad
+
+    def state(self):
+        return {"med": self.med, "mad": self.mad, "buf": list(self.buf)}
+
+    def restore(self, blob):
+        if not blob:
+            return
+        self.buf.clear()
+        for v in (blob.get("buf") or [])[-self.window:]:
+            self.buf.append(float(v))
+        self.med = blob.get("med")
+        self.mad = blob.get("mad")
+
+
+def _median(values):
+    vals = sorted(values)
+    n = len(vals)
+    if not n:
+        return 0.0
+    mid = n // 2
+    if n % 2:
+        return float(vals[mid])
+    return 0.5 * (vals[mid - 1] + vals[mid])
+
+
+class GuardrailMonitor:
+    """Streaming anomaly detector over the fused step's diag stream.
+
+    One :meth:`observe` call per optimizer step (fit drains them at
+    group boundaries — the detector never blocks the dispatch
+    frontier). Policy ladder: an anomalous step answers ``"skip"``
+    (the in-graph gate already protected the params);
+    ``rewind_after`` CONSECUTIVE anomalies answer ``"rewind"`` — a
+    transient glitch self-heals, a persistent divergence does not.
+
+    Statistics update only on clean steps, so a poison run can never
+    drag the baseline toward itself.
+    """
+
+    def __init__(self, window=None, zmax=None, rewind_after=None,
+                 max_rewinds=None, logger=None):
+        self.window = int(window if window is not None
+                          else _env_int(ENV_WINDOW, 64))
+        self.zmax = float(zmax if zmax is not None
+                          else _env_float(ENV_ZMAX, 10.0))
+        self.rewind_after = max(1, int(
+            rewind_after if rewind_after is not None
+            else _env_int(ENV_REWIND_AFTER, 3)))
+        self.max_rewinds = max(0, int(
+            max_rewinds if max_rewinds is not None
+            else _env_int(ENV_MAX_REWINDS, 2)))
+        self.log = logger or log
+        self.loss = _RobustStream(self.window)
+        self.gnorm = _RobustStream(self.window)
+        self.last_clean_step = 0
+        self.consecutive = 0
+        self.trips = 0
+        self.skips = 0
+        self.rewinds = 0
+        self.last_reason = None
+
+    # -- observation ---------------------------------------------------
+
+    def observe(self, step, loss, gnorm_sq, gate_ok):
+        """Fold one step's diag into the detector.
+
+        Returns ``"ok"`` | ``"skip"`` | ``"rewind"``. ``gate_ok`` is
+        the in-graph select's verdict (1.0 = the update was applied).
+        """
+        step = int(step)
+        loss = float(loss)
+        gnorm = (math.sqrt(gnorm_sq)
+                 if math.isfinite(gnorm_sq) and gnorm_sq >= 0.0
+                 else float("inf"))
+        reason = None
+        if gate_ok < 0.5:
+            self.skips += 1
+            if _C_SKIPS:
+                _C_SKIPS.inc()
+            reason = ("in-graph gate skipped step %d (non-finite or "
+                      "out-of-threshold gradient, grad_norm=%g)"
+                      % (step, gnorm))
+        elif not math.isfinite(loss) or not math.isfinite(gnorm):
+            reason = ("non-finite observable at step %d "
+                      "(loss=%r, grad_norm=%r)" % (step, loss, gnorm))
+        else:
+            z_loss = self.loss.z(loss)
+            z_gnorm = self.gnorm.z(gnorm)
+            if z_loss > self.zmax:
+                reason = ("loss anomaly at step %d: %g is %.1f robust "
+                          "sigmas above the windowed median %g"
+                          % (step, loss, z_loss, self.loss.med))
+            elif z_gnorm > self.zmax:
+                reason = ("grad-norm anomaly at step %d: %g is %.1f "
+                          "robust sigmas above the windowed median %g"
+                          % (step, gnorm, z_gnorm, self.gnorm.med))
+        if reason is None:
+            self.loss.update(loss)
+            self.gnorm.update(gnorm)
+            self.consecutive = 0
+            self.last_clean_step = step
+            return "ok"
+        self.trips += 1
+        self.consecutive += 1
+        self.last_reason = reason
+        if _C_TRIPS:
+            _C_TRIPS.inc()
+        self.log.warning("guardrail trip (%d consecutive): %s",
+                         self.consecutive, reason)
+        if self.consecutive >= self.rewind_after:
+            return "rewind"
+        return "skip"
+
+    def gate_threshold(self):
+        """grad-norm² bound for the in-graph branchless select: ``inf``
+        until the gnorm stream is warm (warmup-exempt — the gate then
+        trips on non-finite only), afterwards the z == zmax contour of
+        the robust statistics."""
+        s = self.gnorm
+        if not s.warm:
+            return float("inf")
+        bound = s.med + self.zmax * s.sigma()
+        return float(bound * bound)
+
+    # -- checkpoint stamp ----------------------------------------------
+
+    def health_blob(self, step):
+        """The ``health`` stamp a checkpoint carries: known-clean flag,
+        last clean step, and the full detector state so a rewind (or
+        resume) restarts the statistics exactly where the snapshot's
+        history left them."""
+        return {
+            "clean": self.consecutive == 0,
+            "step": int(step),
+            "last_clean_step": int(self.last_clean_step),
+            "trips": int(self.trips),
+            "skips": int(self.skips),
+            "window": int(self.window),
+            "loss": self.loss.state(),
+            "gnorm": self.gnorm.state(),
+        }
+
+    def restore(self, blob):
+        """Reinstate detector state from a checkpoint's health stamp.
+        The rewind budget (``rewinds``) intentionally survives: it
+        counts recoveries THIS process attempted, not the snapshot's
+        history."""
+        if not blob:
+            return
+        self.last_clean_step = int(blob.get("last_clean_step", 0))
+        self.trips = int(blob.get("trips", 0))
+        self.skips = int(blob.get("skips", 0))
+        self.consecutive = 0
+        self.last_reason = None
+        self.loss.restore(blob.get("loss"))
+        self.gnorm.restore(blob.get("gnorm"))
+
+
+def count_rewind(monitor):
+    """Record one rewind recovery (fit's handler): monitor bookkeeping
+    plus the ``guard.rewinds`` counter."""
+    monitor.rewinds += 1
+    if _C_REWINDS:
+        _C_REWINDS.inc()
+
+
+def write_verdict(verdict, extra_dir=None):
+    """Atomically publish a structured guardrail verdict.
+
+    Written to ``$MXTPU_RUN_DIR/guardrail_verdict.json`` (where
+    tools/watchdog.py looks after a nonzero exit) and, when given, to
+    ``extra_dir`` (the checkpoint directory — the post-mortem location
+    for runs without a run dir). Returns the list of paths written.
+    """
+    verdict = dict(verdict)
+    verdict.setdefault("type", "guardrail")
+    verdict.setdefault("t", time.time())
+    payload = (json.dumps(verdict, indent=1, sort_keys=True) + "\n").encode()
+    wrote = []
+    targets = []
+    run_dir = os.environ.get("MXTPU_RUN_DIR")
+    if run_dir:
+        targets.append(run_dir)
+    if extra_dir and extra_dir not in targets:
+        targets.append(extra_dir)
+    for directory in targets:
+        path = os.path.join(directory, VERDICT_FILE)
+        tmp = "%s.tmp-%d" % (path, os.getpid())
+        try:
+            os.makedirs(directory, exist_ok=True)
+            with open(tmp, "wb") as f:
+                f.write(payload)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, path)
+            wrote.append(path)
+        except OSError as exc:
+            log.warning("guardrail verdict not written to %s: %s",
+                        directory, exc)
+    return wrote
+
+
+def read_verdict(run_dir):
+    """The published verdict under ``run_dir``, or None (missing or
+    unreadable — a supervisor must not crash on a torn verdict)."""
+    if not run_dir:
+        return None
+    try:
+        with open(os.path.join(run_dir, VERDICT_FILE)) as f:
+            verdict = json.load(f)
+    except (OSError, ValueError):
+        return None
+    return verdict if isinstance(verdict, dict) else None

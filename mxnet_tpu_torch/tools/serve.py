@@ -1,8 +1,9 @@
 """Model server of the PyTorch port: continuous batching over a TCP
 JSON-lines API (counterpart of the repo's ``tools/serve.py``).
 
-Loads a predictor bundle (``predict.export_bundle`` of either package)
-and serves it through ``serving.ServingEngine``: requests coalesce into
+Loads a predictor bundle (``predict.export_bundle`` of either package) or
+a resilience checkpoint directory of either package (MANIFEST/CRC
+verified, f32 masters under AMP) with its symbol JSON, and serves it through ``serving.ServingEngine``: requests coalesce into
 the smallest covering batch bucket, dispatch through the executor pool
 (on the card one CUDA-graph replay a batch, every bucket captured before
 the first request), and scatter back per request. SIGTERM/SIGINT drain
@@ -18,15 +19,16 @@ Usage::
 
     python -m mxnet_tpu_torch.tools.serve --bundle model.pred --input data=1x28x28
     python -m mxnet_tpu_torch.tools.serve --bundle model.pred --input data=1x28x28 --cpu
+    python -m mxnet_tpu_torch.tools.serve --checkpoint runs/exp1/ckpts/ckpt-000000000100 \
+        --symbol model.json --input data=1x28x28 --port 9000
     python -m mxnet_tpu_torch.tools.serve --self-test [--cpu]
 
 The server runs on the card (``gpu(0)``) unless ``--cpu`` is given.
 Knobs: ``--max-batch`` / MXTPU_SERVE_MAX_BATCH, ``--timeout-ms`` /
 MXTPU_SERVE_BATCH_TIMEOUT_MS, MXTPU_SERVE_QUANT=int8,
-MXTPU_SERVE_EXEC_CACHE. Not ported: ``--checkpoint`` (needs
-``resilience/checkpoint.py``, ROADMAP Queue 1 step 4) and
-``--metrics-port`` / MXTPU_METRICS_PORT (needs ``telemetry.fleet``, step
-10); both raise.
+MXTPU_SERVE_EXEC_CACHE. Not ported: ``--metrics-port`` /
+MXTPU_METRICS_PORT (needs ``telemetry.fleet``, ROADMAP Queue 1 step 10);
+it raises.
 """
 from __future__ import annotations
 
@@ -63,11 +65,6 @@ def _context(use_cpu):
 
 
 def _refuse_unported(args):
-    if args.checkpoint:
-        raise NotImplementedError(
-            "serve --checkpoint needs resilience/checkpoint.py "
-            "(mxnet_tpu/resilience/checkpoint.py), not ported to PyTorch yet "
-            "(ROADMAP Queue 1 step 4); export a bundle instead")
     if args.metrics_port is not None or os.environ.get("MXTPU_METRICS_PORT"):
         raise NotImplementedError(
             "serve --metrics-port / MXTPU_METRICS_PORT needs telemetry.fleet "
@@ -81,7 +78,14 @@ def load_predictor(args, feature_shapes):
     input_shapes = {n: (1,) + s for n, s in feature_shapes.items()}
     if args.bundle:
         return predict.load_bundle(args.bundle, input_shapes, ctx=_context(args.cpu))
-    raise SystemExit("--bundle is required")
+    if args.checkpoint:
+        if not args.symbol:
+            raise SystemExit("--checkpoint needs --symbol <symbol.json>")
+        with open(args.symbol) as f:
+            symbol_json = f.read()
+        params = predict.params_from_checkpoint(args.checkpoint)
+        return predict.Predictor(symbol_json, params, input_shapes, ctx=_context(args.cpu))
+    raise SystemExit("one of --bundle / --checkpoint is required")
 
 
 class _Handler(socketserver.StreamRequestHandler):
@@ -273,7 +277,8 @@ def main(argv=None):
         description="continuous-batching model server")
     ap.add_argument("--bundle", help="predictor bundle file")
     ap.add_argument("--checkpoint",
-                    help="resilience checkpoint dir (not ported: raises)")
+                    help="resilience checkpoint dir (needs --symbol)")
+    ap.add_argument("--symbol", help="symbol JSON file for --checkpoint")
     ap.add_argument("--input", action="append", default=[],
                     metavar="name=DxDxD",
                     help="per-example input shape (repeatable)")

@@ -938,3 +938,73 @@ def test_cuda_captured_decode_step_equals_eager():
                 assert torch.equal(gen._cache[k], ref[k]), (step, k)
         assert gen._cache_addresses() == ptrs
         assert gen.decode_stats["captures"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["sgd", "sgd_mom", "adam"])
+def test_cuda_gated_slab_update_matches_plain_version_bitwise(kind):
+    """The guard's gated K1 launch: the flag is a device scalar ``finite and
+    gn2 <= thr`` (0 here, gn2 over the threshold), read by the kernel from
+    device memory; every output is its plain version's bit for bit, which is
+    its input (the bf16 copy that of the old master). With the threshold
+    raised the same launch applies the step, again bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator().manual_seed(11)
+    entries = _slab_table_case(kind, torch.bfloat16, g)
+    thr = torch.zeros((), device="cuda")
+    for threshold, applied in ((1.0, False), (float("inf"), True)):
+        thr.fill_(threshold)
+        gn2 = torch.stack([torch.linalg.vector_norm(e.g, dtype=torch.float32).square()
+                           for e in entries]).sum()
+        flag = (torch.isfinite(gn2) & (gn2 <= thr)).float()
+        args = (kind, entries, torch.tensor(1.0 / 128, device="cuda"), flag)
+        before = kernels.fused_slab_update.launches
+        got = kernels.fused_slab_update_multi(*args, clip_gradient=None, **SLAB_KW_MULTI)
+        assert kernels.fused_slab_update.launches == before + 1
+        want = kernels.slab_update_multi_reference(*args, clip_gradient=None, **SLAB_KW_MULTI)
+        for e, (gw, gs, g16), (ww, ws, w16) in zip(entries, got, want):
+            assert torch.equal(gw, ww) and torch.equal(g16, w16)
+            assert all(torch.equal(a, b) for a, b in zip(gs, ws))
+            if not applied:
+                assert torch.equal(gw, e.w) and torch.equal(g16, e.w.bfloat16())
+                assert all(torch.equal(a, b) for a, b in zip(gs, e.states))
+            else:
+                assert not torch.equal(gw, e.w)
+
+
+@pytest.mark.cuda
+def test_cuda_guarded_group_skips_bitwise_and_rethresholds_without_recapture(monkeypatch):
+    """An armed AMP trainer's group of 2 on the card: an inf batch as the
+    second micro-step leaves its state bit for bit as after the first (the
+    scaler backs off) in the eager warm-up, the capture's replay and a
+    second replay; a threshold of 0 written between replays gates both
+    micro-steps (the state stays bit for bit) with no new capture."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import mxnet_tpu_torch as mx
+
+    tr, state, batches = _mlp_trainer(mx, False, True, monkeypatch)
+    tr.arm_guard()
+    batches[1]["data"][0, 0] = float("inf")
+    p, a, s = _clone_state(state)
+    p, a, s, _ = tr(p, a, s, batches[0], lr=0.1, t=1)  # the eager first step
+    scaler = (tr.AMP_SCALE_KEY, tr.AMP_GOOD_KEY)
+    want_opt = {k: v for k, v in s.items() if k not in scaler}
+    stacked = {n: [b[n] for b in batches] for n in batches[0]}
+    for _ in range(3):
+        got = tr.call_multi(*_clone_state(state), stacked, [0.1, 0.1], [1, 2])
+        torch.cuda.synchronize()
+        assert _state_equal(got[:2], (p, a))
+        assert _state_equal([{k: v for k, v in got[2].items() if k not in scaler}], [want_opt])
+        assert float(got[2][tr.AMP_SCALE_KEY]) == float(s[tr.AMP_SCALE_KEY]) * 0.5
+        diag = got[3][-1]
+        assert diag[:, 2].tolist() == [1.0, 0.0]
+    tr.guard_threshold = 0.0
+    start = _clone_state(state)
+    got = tr.call_multi(*_clone_state(state), stacked, [0.1, 0.1], [1, 2])
+    torch.cuda.synchronize()
+    assert _state_equal(got[:2], start[:2])
+    assert got[3][-1][:, 2].tolist() == [0.0, 0.0]
+    (stats,) = tr.group_stats()
+    assert (stats["warmup_groups"], stats["captures"], stats["replays"]) == (1, 1, 3), stats

@@ -223,21 +223,24 @@ def test_unported_surface_raises():
         tmx.mod.Module(_mlp(tmx), context=tmx.cpu(), param_specs={"fc1_weight": ("tp",)})
     mesh = tmx.parallel.make_mesh(dp=2, devices=[tmx.cpu()] * 2)
     step = tmx.parallel.ShardedTrainStep(_mlp(tmx), mesh)
-    for call in (step.arm_guard,
-                 lambda: tmx.parallel.ShardedTrainStep(_mlp(tmx), mesh, zero1=True)):
-        with pytest.raises(NotImplementedError, match="mxnet_tpu/"):
-            call()
+    assert step.arm_guard() is step and step.guard  # the guard is ported (resilience)
+    with pytest.raises(NotImplementedError, match="mxnet_tpu/"):
+        tmx.parallel.ShardedTrainStep(_mlp(tmx), mesh, zero1=True)
     # K-step groups are ported for SGD and Adam; other optimizers still raise
     rmsprop = tmx.optimizer.create("rmsprop")
     with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 step 2"):
         tmx.parallel.ShardedTrainStep(_mlp(tmx), mesh, optimizer=rmsprop).compile_multi(4)
 
 
-def test_unported_fit_options_raise():
+def test_unported_fit_options_raise(tmp_path, monkeypatch):
+    """``monitor`` and the elastic shrink-and-continue path
+    (``MXTPU_ELASTIC=1`` with a checkpoint dir) raise; checkpoint_dir /
+    resume / guardrails are ported (tests/test_torch_resilience.py,
+    tests/test_torch_guardrail.py)."""
     mod = tmx.mod.Module(_mlp(tmx), context=tmx.cpu())
     it = tmx.io.NDArrayIter(*_data(False, 16), batch_size=16)
-    for kw, where in (({"checkpoint_dir": "x"}, "resilience/checkpoint.py"),
-                      ({"guardrails": "auto"}, "resilience/guardrail.py"),
-                      ({"monitor": object()}, "monitor.py")):
-        with pytest.raises(NotImplementedError, match=where):
-            mod.fit(it, num_epoch=1, **kw)
+    with pytest.raises(NotImplementedError, match="monitor.py"):
+        mod.fit(it, num_epoch=1, monitor=object())
+    monkeypatch.setenv("MXTPU_ELASTIC", "1")
+    with pytest.raises(NotImplementedError, match="Queue 1 step 8"):
+        mod.fit(it, num_epoch=1, checkpoint_dir=str(tmp_path))

@@ -206,7 +206,12 @@ def test_exec_cache_eviction_drops_the_bucket(monkeypatch):
 
 
 def test_params_from_checkpoint_raises():
-    with pytest.raises(NotImplementedError, match="Queue 1 step 4"):
+    """A directory that is no verified checkpoint raises the resilience
+    package's CheckpointError (the reading itself is held in
+    tests/test_torch_resilience.py)."""
+    from mxnet_tpu_torch.resilience import CheckpointError
+
+    with pytest.raises(CheckpointError, match="unreadable manifest"):
         tpredict.params_from_checkpoint("ckpt-1")
 
 
@@ -254,11 +259,33 @@ def _trained_net():
 
 
 def _module_predict(mod, X, n):
-    """The module's prediction of the first ``n`` rows, through its bound
-    batch of 20 (the port's Module.predict does not rebind to a smaller
-    batch, ROADMAP Queue 3; the MLP's rows are independent)."""
+    """The module's prediction of the first ``n`` rows, in one batch of
+    ``n`` (smaller than the bound 20)."""
     with tmx.cpu():
-        return mod.predict(tmx.io.NDArrayIter(X[:20], None, batch_size=20)).asnumpy()[:n]
+        return mod.predict(tmx.io.NDArrayIter(X[:n], None, batch_size=n)).asnumpy()
+
+
+@pytest.mark.parametrize("rows,batch", [(4, 4), (24, 8), (26, 20)])
+def test_module_predict_over_smaller_batches_matches_jax(rows, batch):
+    """Module bound at (20, 6), predicting over batches of other sizes
+    (smaller than the bound one, and a padded last batch): the JAX package
+    returns every row, and the port returns the same rows."""
+    net, arg_params, aux_params, mod, X = _trained_net()
+    jnet = jmx.sym.load_json(net.tojson())
+    jmod = jmx.mod.Module(jnet, context=jmx.cpu())
+    jmod.bind(data_shapes=[("data", (20, 6))], label_shapes=[("softmax_label", (20,))],
+              for_training=False)
+    jmod.set_params({k: jmx.nd.array(v.asnumpy()) for k, v in arg_params.items()},
+                    {k: jmx.nd.array(v.asnumpy()) for k, v in aux_params.items()})
+    want = jmod.predict(jmx.io.NDArrayIter(X[:rows], None, batch_size=batch)).asnumpy()
+    with tmx.cpu():
+        got = mod.predict(tmx.io.NDArrayIter(X[:rows], None, batch_size=batch)).asnumpy()
+        again = mod.predict(tmx.io.NDArrayIter(X[:20], None, batch_size=20)).asnumpy()
+    assert got.shape == np.asarray(want).shape == (rows, 2)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-6)
+    # the bound batch still runs after a smaller one rebound the inputs
+    np.testing.assert_allclose(again[:min(rows, 20)], got[:min(rows, 20)], rtol=1e-5,
+                               atol=1e-6)
 
 
 def test_predictor_matches_module(tmp_path):

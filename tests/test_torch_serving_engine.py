@@ -348,7 +348,8 @@ def test_toy_bundle_bytes_equal_the_jax_tool(tmp_path):
 def test_serve_refuses_unported_options(tmp_path):
     from mxnet_tpu_torch.tools import serve as serve_tool
 
-    with pytest.raises(NotImplementedError, match="Queue 1 step 4"):
+    # --checkpoint is ported (tests/test_torch_resilience.py); it needs --symbol
+    with pytest.raises(SystemExit, match="needs --symbol"):
         serve_tool.main(["--checkpoint", str(tmp_path), "--input", "data=4", "--cpu"])
     with pytest.raises(NotImplementedError, match="Queue 1 step 10"):
         serve_tool.main(["--bundle", "x.pred", "--metrics-port", "9100", "--input", "data=4",
