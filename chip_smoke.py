@@ -9,6 +9,7 @@
     python3 chip_smoke.py --only multistep [--package DIR]  # K1-K3's build and phase 21
     python3 chip_smoke.py --only serving [--package DIR]  # K4f's build and phase 22
     python3 chip_smoke.py --only resilience            # K1-K3's build and phase 23
+    python3 chip_smoke.py --only input                 # K1-K3's build and phase 24
 
 
 Phases, each fatal on failure:
@@ -347,6 +348,45 @@ Phases, each fatal on failure:
     request with the bucket-1 row (within 1e-5 of its max), then draining
     on SIGTERM with exit 0.
 
+24. the input path (``--only input``): (a) the native host library
+    (``native.build``: g++ into build/native/) builds and loads; 1024 PNG
+    records from seed 0 (smooth synthetic images, sides 256-400, labels
+    0-999, every row filter; written by this script's zlib PNG writer, so
+    the phase needs no PIL) go through the port's MXIndexedRecordIO,
+    ``NativeRecordReader`` reads every record back byte for byte and the
+    native PNG decoder gives the source pixels bit for bit; the loader's
+    libjpeg / libz, PIL and cv2 are printed; ``fail_recordio_read`` = 2 on
+    the sequential reader is retried and the batch is the clean run's. (b)
+    (``--only input`` only, as is the delayed-staging fit of (c)) ms an
+    image of the native PNG decoder and of PIL on one thread over every
+    record (equal pixels); img/s of ``ImageRecordIter`` on the host
+    (batch 32, 3x224x224, rand_crop, rand_mirror, the mean) over 192
+    batches (6 epochs of the file, each epoch's rate too) at
+    preprocess_threads 1, 4, 8, at 8 with PNG through PIL, and at
+    input_workers 4, 8, beside the rate a replayed ResNet-50 AMP fit step
+    consumes, and the CPU count. (c) phase 17's ResNet-50 AMP fit (dp 4 on
+    gpu(0)) over the 32 batches of that .rec through ``ImageRecordIter``
+    with a 4-process decode pool, eagerly and at ``MXNET_FIT_MULTISTEP=4``,
+    each with ``MXTPU_DEVICE_FEED`` 0 and 1, and eagerly with the feed at
+    depth 1 behind a sleep of 5e7 cycles on the staging stream before
+    every staged copy: with the feed the final state and
+    ``bn_data``'s moving statistics after every step bitwise equal to the
+    run without it; the tensors each step received (checksummed on its
+    stream before the step) and each batch after its step equal (exact
+    integer checksums) to the same stream decoded inline under ``cpu()``;
+    46 K2 / K3 and one K1 launch a step (the profiler's count by name over
+    the whole fit; eagerly the wrappers' too, at K = 4 the wrappers count
+    the warm-up group and the capture); step ms over steps 9-32 (and each
+    four steps') on the host's clock, and on the card's timeline of those
+    steps the idle share and how much of the host-to-device copy time ran
+    under kernels, under the profiler (the card's activity only). (d)
+    phase 23's worker harness on fits fed through the device feed by a
+    2-process pool from a 256-record .rec: a run SIGKILLed in epoch 2
+    once its step-12 checkpoint landed resumes there (the stream's epoch
+    and ``sample_position`` through ``seek_epoch`` / ``seek_sample``) and
+    ends bitwise equal to an uninterrupted run; ``bad_record`` = 2 on a
+    1-process pool gives two quarantine lines and the fit finishes.
+
 Then the kernels line: the seven kernels, K4f, K4dq, K4dkv, K2, K3, K5 and
 K1; K2's and K3's launches count phase 20's training rows, and their
 entries carry phase 20's launches and inception-v3 step under ``zoo``;
@@ -354,7 +394,10 @@ K1's, K2's and K3's count phase 21's launches run in its eager fits (the
 wrappers' counts) and its profiled grouped fits (the profiler's by name),
 under ``launches_by_path`` for K1; the timed grouped fits' replays are
 not counted; and phase 23's resumed fits (the profiler's by name; for K1
-under ``launches_by_path["resilience"]``). K4f's ``launches_by_path["serving"]`` counts phase 6's and
+under ``launches_by_path["resilience"]``); and phase 24's fits (the
+wrappers' counts eagerly, the profiler's by name over the whole grouped
+fits; the resumed run's wrapper counts; for K1 under
+``launches_by_path["input"]``). K4f's ``launches_by_path["serving"]`` counts phase 6's and
 phase 22 (d)'s prefills.
 
 The last line of output is {"ok": true, "device": {...}}. Without a CUDA
@@ -3310,6 +3353,8 @@ def resilience_worker(spec):
         os.environ["MXNET_FIT_MULTISTEP"] = str(spec["k"])
     if spec.get("fault"):
         os.environ["MXTPU_FAULT_INJECT"] = spec["fault"]
+    if spec.get("feed"):
+        os.environ["MXTPU_DEVICE_FEED"] = spec["feed"]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
@@ -3321,8 +3366,23 @@ def resilience_worker(spec):
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.ops import kernels
 
-    X, y = _resil_data()
-    it = mx.io.NDArrayIter(X, y, batch_size=RESNET_BATCH)
+    seeks = []
+    if spec.get("rec"):  # phase 24 (d): fed from a .rec by the streaming pipeline
+        from mxnet_tpu_torch import io_pipeline
+
+        if spec.get("quarantine"):
+            os.environ["MXTPU_QUARANTINE_FILE"] = spec["quarantine"]
+        seek = io_pipeline.StreamingImageRecordIter.seek_sample
+
+        def spy(self, pos):
+            seeks.append(int(pos))
+            return seek(self, pos)
+
+        io_pipeline.StreamingImageRecordIter.seek_sample = spy
+        it = _resil_rec_iter(mx, spec)
+    else:
+        X, y = _resil_data()
+        it = mx.io.NDArrayIter(X, y, batch_size=RESNET_BATCH)
     np.random.seed(0)
     mx.random.seed(0)
     mod = _resnet_fit_module(mx)
@@ -3331,6 +3391,8 @@ def resilience_worker(spec):
     def on_batch(param):
         step = param.epoch * RESIL["batches"] + param.nbatch + 1
         steps.append(step)
+        if spec.get("linger_after") and step > spec["linger_after"]:
+            time.sleep(INPUT["linger_s"])  # the parent kills this run mid-epoch
         if step in spec.get("snap", ()):
             owner, tr = mod._fused_owner, mod._fused_trainer
             snaps[str(step)] = {
@@ -3362,6 +3424,9 @@ def resilience_worker(spec):
            "good": float(owner._fused_opt[tr.AMP_GOOD_KEY])}
     if spec.get("profile"):
         out["launches_run"] = kernel_counts(prof)
+    if spec.get("rec"):
+        out["seek_sample"] = seeks
+        it.close()
     with open(spec["out"], "w") as fh:
         json.dump(out, fh)
     log("WORKER-DONE")
@@ -3764,20 +3829,633 @@ def phase_resilience(mx, kernels, dev, package, plan):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: the input path (RecordIO, native decode, ImageRecordIter, the
+# streaming decode pool, DeviceFeedIter) feeding Module.fit
+# ---------------------------------------------------------------------------
+
+INPUT = dict(records=1024, resil_records=256, side=(256, 400), seed=0,
+             shape=(3, 224, 224), mean=(123.68, 116.28, 103.53), threads=(1, 4, 8),
+             workers=(4, 8), bench_blocks=6, fit_workers=4, fit_k=4, window=(8, 32),
+             delay_cycles=50_000_000, bad=2, read_fail=2, kill_after_step=12, linger_s=1.0)
+#: phase 24 (c)'s fits: (K, MXTPU_DEVICE_FEED, MXTPU_FEED_DEPTH, a sleep of
+#: ``delay_cycles`` on the staging stream before each staged copy)
+INPUT_FITS = ((1, "0", None, False), (1, "1", None, False), (1, "1", "1", True),
+              (4, "0", None, False), (4, "1", None, False))
+#: the rate one replayed ResNet-50 AMP fit step consumes: 32 images in
+#: 37.41 ms (PERF.md section 5, phase 21 at K = 8)
+REPLAYED_FIT_IMG_S = RESNET_BATCH / 37.41e-3
+PNG_SIG = b"\x89PNG\r\n\x1a\n"
+
+
+def _png_chunk(kind, data):
+    import struct
+    import zlib
+
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+def png_bytes(img, level=1):
+    """An 8-bit RGB PNG of ``img`` (HxWx3 uint8), written with the standard
+    library's zlib (the card's machine has no PIL): row y uses filter type
+    y % 5, so every image holds all five filters."""
+    import struct
+    import zlib
+
+    h, w, c = img.shape
+    x = img.reshape(h, w * c).astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, c:] = x[:, :-c]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    ul = np.zeros_like(x)
+    ul[1:, c:] = x[:-1, :-c]
+    p = a + b - ul
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - ul)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, ul))
+    preds = (np.zeros_like(x), a, b, (a + b) // 2, paeth)
+    filt = np.arange(h) % 5
+    rows = np.empty((h, 1 + w * c), np.uint8)
+    rows[:, 0] = filt
+    for k, pred in enumerate(preds):
+        sel = filt == k
+        rows[sel, 1:] = ((x[sel] - pred[sel]) % 256).astype(np.uint8)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    return (PNG_SIG + _png_chunk(b"IHDR", ihdr)
+            + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), level))
+            + _png_chunk(b"IEND", b""))
+
+
+def smooth_image(params):
+    """A smooth synthetic RGB image from (h, w, per-channel frequencies and
+    phases): sums of two sinusoids a channel."""
+    h, w, freqs, phases = params
+    yy = np.linspace(0.0, 1.0, h, dtype=np.float32)[:, None]
+    xx = np.linspace(0.0, 1.0, w, dtype=np.float32)[None, :]
+    chans = [127.5 + 60 * np.sin(2 * np.pi * (f[0] * xx + f[1] * yy) + ph[0])
+             + 50 * np.cos(2 * np.pi * (f[2] * xx - f[3] * yy) + ph[1])
+             for f, ph in zip(freqs, phases)]
+    return np.clip(np.stack(chans, axis=-1), 0, 255).astype(np.uint8)
+
+
+def input_records(root, recordio):
+    """Phase 24 (a)'s data: ``records`` PNG records from seed 0 (sides 256-400,
+    labels 0-999) through the port's MXIndexedRecordIO (read by (b) and
+    (c)), and the file of its first 256 records for (d). Returns the
+    paths, the payloads, the first images and the seconds taken."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    rng = np.random.RandomState(INPUT["seed"])
+    lo, hi = INPUT["side"]
+    params, labels = [], []
+    for _ in range(INPUT["records"]):
+        h, w = rng.randint(lo, hi + 1, size=2)
+        params.append((int(h), int(w), rng.uniform(0.3, 3.0, (3, 4)),
+                       rng.uniform(0, 2 * np.pi, (3, 2))))
+        labels.append(float(rng.randint(0, 1000)))
+    t0 = time.perf_counter()
+
+    def make(p):
+        img = smooth_image(p)
+        return img, png_bytes(img)
+
+    with ThreadPoolExecutor(os.cpu_count() or 4) as pool:
+        made = list(pool.map(make, params))
+    encode_s = time.perf_counter() - t0
+    payloads = [recordio.pack(recordio.IRHeader(0, labels[i], i, 0), png)
+                for i, (_, png) in enumerate(made)]
+    paths = {}
+    t0 = time.perf_counter()
+    for name, n in (("input", INPUT["records"]), ("resil", INPUT["resil_records"])):
+        rec, idx = os.path.join(root, name + ".rec"), os.path.join(root, name + ".idx")
+        w = recordio.MXIndexedRecordIO(idx, rec, "w")
+        for i in range(n):
+            w.write_idx(i, payloads[i])
+        w.close()
+        paths[name] = rec
+    return (paths, payloads, [img for img, _ in made[:8]], labels, encode_s,
+            time.perf_counter() - t0)
+
+
+def decode_libraries():
+    """What the machine offers for image decode: the loader's libjpeg and
+    libz lines, and whether PIL and cv2 import."""
+    try:
+        out = subprocess.run(["ldconfig", "-p"], capture_output=True, text=True,
+                             timeout=30).stdout
+        lines = [l.strip() for l in out.splitlines() if re.search(r"libjpeg|libz\.", l)]
+    except (OSError, subprocess.SubprocessError) as exc:
+        lines = ["ldconfig failed: %s" % exc]
+    found = {"ldconfig": lines}
+    for mod in ("PIL", "cv2"):
+        try:
+            __import__(mod)
+            found[mod] = True
+        except ImportError:
+            found[mod] = False
+    return found
+
+
+def input_iter(mx, rec, threads=1, workers=0, **kw):
+    args = dict(path_imgrec=rec, data_shape=INPUT["shape"], batch_size=RESNET_BATCH,
+                rand_crop=True, rand_mirror=True, mean_r=INPUT["mean"][0],
+                mean_g=INPUT["mean"][1], mean_b=INPUT["mean"][2], preprocess_threads=threads,
+                input_workers=workers, shuffle=True, seed=0)
+    args.update(kw)
+    return mx.io.ImageRecordIter(**args)
+
+
+def input_rate(mx, rec, threads=1, workers=0, decoder="native"):
+    """Phase 24 (b): img/s of ImageRecordIter on the host (batches under
+    ``cpu()``) over ``bench_blocks`` blocks of 32 batches (an epoch of the
+    file each; the iterator resets at its end) after a first batch (which
+    starts a decode pool); the rate over all blocks and each block's.
+    ``decoder="pil"`` sends the PNG payloads to PIL (threads only: the
+    decode processes import the module afresh)."""
+    from mxnet_tpu_torch import native
+
+    block = INPUT["records"] // RESNET_BATCH
+    saved = native.imdecode_png
+    if decoder == "pil":
+        native.imdecode_png = lambda buf, gray=False: None  # falls through to PIL
+    try:
+        with mx.cpu():
+            it = input_iter(mx, rec, threads=threads, workers=workers)
+            t0 = time.perf_counter()
+            it.next()
+            first_s = time.perf_counter() - t0
+            stamps = [time.perf_counter()]
+            n = 0
+            while n < INPUT["bench_blocks"] * block:
+                try:
+                    b = it.next()
+                except StopIteration:
+                    it.reset()
+                    continue
+                n += 1
+                if n % block == 0:
+                    stamps.append(time.perf_counter())
+            assert tuple(b.data[0].shape) == (RESNET_BATCH,) + INPUT["shape"]
+            assert b.data[0]._data.device.type == "cpu"
+            if hasattr(it, "close"):
+                it.close()
+    finally:
+        native.imdecode_png = saved
+    blocks = [block * RESNET_BATCH / (b - a) for a, b in zip(stamps, stamps[1:])]
+    return {"threads": threads, "workers": workers, "decoder": decoder,
+            "first_batch_s": first_s, "batches": n,
+            "img_per_s": n * RESNET_BATCH / (stamps[-1] - stamps[0]),
+            "block_img_per_s": blocks}
+
+
+def decode_compare(payloads, recordio):
+    """Phase 24 (b): ms an image of the native PNG decoder and of PIL on one
+    thread over every payload (PIL as the port calls it: open, RGB, numpy),
+    each pass twice in turn; the pixels must agree."""
+    import io as _io
+
+    from PIL import Image
+
+    from mxnet_tpu_torch import native
+
+    pngs = [recordio.unpack(p)[1] for p in payloads]
+    decoders = {"native": native.imdecode_png,
+                "pil": lambda b: np.asarray(Image.open(_io.BytesIO(b)).convert("RGB"))}
+    ms = {n: [] for n in decoders}
+    for _ in range(2):
+        for name, fn in decoders.items():
+            t0 = time.perf_counter()
+            for b in pngs:
+                fn(b)
+            ms[name].append(1e3 * (time.perf_counter() - t0) / len(pngs))
+    for b in pngs[::97]:
+        assert np.array_equal(decoders["native"](b), decoders["pil"](b)), "native vs PIL"
+    return {"images": len(pngs), "ms_per_image": ms,
+            "native_over_pil": min(ms["native"]) / min(ms["pil"])}
+
+
+def batch_tensors(batch):
+    return [t._data for t in batch.data + batch.label]
+
+
+def batch_checksum(tensors):
+    """Two exact int64 sums of each float32 tensor's bits (plain, and weighted
+    by position mod 1021), stacked: queued on the tensors' device, read
+    later, so a fit is not synchronised for it."""
+    import torch
+
+    out = []
+    for t in tensors:
+        v = t.detach().reshape(-1).view(torch.int32).to(torch.int64)
+        w = torch.arange(v.numel(), device=v.device, dtype=torch.int64) % 1021
+        out += [v.sum(), (v * w).sum()]
+    return torch.stack(out)
+
+
+def _interval_overlap(spans, others):
+    """The part of ``spans`` (a list of (start, end)) covered by the union
+    of ``others``."""
+    merged = []
+    for s, e in sorted(others):
+        if merged and s <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], e)
+        else:
+            merged.append([s, e])
+    total = 0.0
+    for s, e in spans:
+        for ms, me in merged:
+            total += max(0.0, min(e, me) - max(s, ms))
+    return total
+
+
+def window_profile(prof, lo, hi):
+    """Over steps ``lo`` + 1 to ``hi`` on the card's timeline (from the end of
+    K1's ``lo``-th launch to the end of its ``hi``-th: one a step): wall ms,
+    busy ms of the card's kernels (the staging stream's sleeps left out),
+    the idle share, the host-to-device copies' ms and how much of it ran
+    while a kernel ran, and K1's, K2's and K3's kernels by name."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    dev = sorted((e for e in prof.events() if e.device_type == cuda),
+                 key=lambda e: e.time_range.start)
+    k1 = [e for e in dev if MULTI_KERNEL_NAMES["slab_update"] in e.name]
+    t0, t1 = k1[lo - 1].time_range.end, k1[hi - 1].time_range.end
+    dev = [e for e in dev if t0 <= e.time_range.start and e.time_range.end <= t1]
+    kern = [(e.time_range.start, e.time_range.end) for e in dev
+            if not any(w in e.name.lower() for w in ("memcpy", "memset", "spin_kernel"))]
+    htod = [(e.time_range.start, e.time_range.end) for e in dev
+            if "memcpy htod" in e.name.lower()]
+    busy = sum(e - s for s, e in kern)
+    copy = sum(e - s for s, e in htod)
+    names = [e.name for e in dev]
+    return {"wall_ms": (t1 - t0) / 1e3, "busy_ms": busy / 1e3,
+            "idle_share": max(0.0, 1.0 - busy / max(1e-9, t1 - t0)), "kernels": len(kern),
+            "htod_copies": len(htod), "htod_ms": copy / 1e3,
+            "htod_overlapped_ms": _interval_overlap(htod, kern) / 1e3,
+            "launches": {n: sum(key in name for name in names)
+                         for n, key in MULTI_KERNEL_NAMES.items()}}
+
+
+def input_fit(mx, kernels, rec, k, feed, depth=None, delay=False):
+    """Phase 24 (c): ResNet-50 bf16 AMP ``Module.fit`` (phase 17's recipe,
+    dp 4 on gpu(0)) over the 32 batches of ``rec`` through
+    ``ImageRecordIter`` with a 4-process decode pool, at K
+    (``MXNET_FIT_MULTISTEP``) with ``MXTPU_DEVICE_FEED`` = ``feed`` and
+    ``MXTPU_FEED_DEPTH`` = ``depth``, under torch.profiler (the card's
+    activity) with steps 9-32 as the window; with ``delay`` every staged
+    copy waits behind a
+    sleep on the staging stream. Returns the state digests, the checksums
+    of the tensors each step received (queued on the step's stream before
+    the step) and of each batch after its step, ``bn_data``'s moving
+    statistics after each step, the launch counts, step ms and the
+    window's profile."""
+    import torch
+
+    from mxnet_tpu_torch import io as mx_io
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.module.module import Module
+
+    lo, hi = INPUT["window"]
+    os.environ["MXTPU_DEVICE_FEED"] = feed
+    if depth is not None:
+        os.environ["MXTPU_FEED_DEPTH"] = depth
+    if k > 1:
+        os.environ["MXNET_FIT_MULTISTEP"] = str(k)
+    it = input_iter(mx, rec, workers=INPUT["fit_workers"])
+    np.random.seed(0)
+    mx.random.seed(0)
+    mod = mx.mod.Module(resnet.get_symbol(), context=mx.gpu(0),
+                        mesh=mx.parallel.make_mesh(dp=4, devices=[mx.gpu(0)] * 4))
+    received, seen, bn_data, stamps, marks = [], [], [], [], {}
+
+    def on_batch(param):
+        step = param.nbatch + 1
+        batch = param.locals["data_batch"]
+        # exact integer checksums, queued on the card, of every batch after its step
+        seen.append(batch_checksum(batch_tensors(batch)))
+        aux = mod._fused_owner._fused_aux
+        bn_data.append(torch.cat([t.detach().reshape(-1).float() for name in sorted(aux)
+                                  if name.startswith("bn_data_")
+                                  for t in (aux[name] if isinstance(aux[name], tuple)
+                                            else (aux[name],))]))
+        marks.setdefault("staged_device", str(getattr(batch, "staged_device", None)))
+        stamps.append(time.perf_counter())
+        if step in (lo, hi):
+            torch.cuda.synchronize()
+            marks[step] = time.perf_counter()
+
+    make, multi, place = Module._make_fused_batch, Module.update_multi, mx_io.DeviceFeedIter._place
+
+    def make_spy(self, data_batch):
+        batch = make(self, data_batch)
+        received.append(batch_checksum(list(batch.values())))  # before the step, on its stream
+        return batch
+
+    def multi_spy(self, data_batches):
+        received.extend(batch_checksum(batch_tensors(b)) for b in data_batches)
+        return multi(self, data_batches)
+
+    def delayed_place(self, arr, pinned):
+        if self._cuda:
+            with torch.cuda.stream(self._stream):
+                torch.cuda._sleep(INPUT["delay_cycles"])
+        return place(self, arr, pinned)
+
+    Module._make_fused_batch, Module.update_multi = make_spy, multi_spy
+    if delay:
+        mx_io.DeviceFeedIter._place = delayed_place
+    _amp_env(True)
+    zero_counts(kernels)
+    try:
+        # the card's activity only: the host's ops would cost tens of seconds to parse
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            mod.fit(it, kvstore="device", optimizer="sgd",
+                    optimizer_params={"learning_rate": SGD["lr"], "momentum": SGD["momentum"],
+                                      "wd": SGD["wd"]},
+                    initializer=mx.init.Xavier(), num_epoch=1, batch_end_callback=on_batch)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+    finally:
+        Module._make_fused_batch, Module.update_multi = make, multi
+        mx_io.DeviceFeedIter._place = place
+        _amp_env(False)
+        for name in ("MXTPU_DEVICE_FEED", "MXTPU_FEED_DEPTH", "MXNET_FIT_MULTISTEP"):
+            os.environ.pop(name, None)
+        it.close()
+    assert it.bad_records == 0, "%d records quarantined" % it.bad_records
+    tr = mod._fused_trainer
+    assert tr.amp and tr.flat_mode == "shard", (tr.amp, tr.flat_mode)
+    steps = INPUT["records"] // RESNET_BATCH
+    assert len(stamps) == steps and len(received) == steps, (len(stamps), len(received))
+    win = window_profile(prof, lo, hi)
+    a_step = {"conv_bwd_filter": RESNET_CONVS, "conv_bwd_input": RESNET_CONVS,
+              "slab_update": 1}
+    assert win["launches"] == {n: (hi - lo) * c for n, c in a_step.items()}, win["launches"]
+    # what ran on the device over the whole fit, by kernel name
+    run = kernel_counts(prof)
+    assert run == {n: steps * c for n, c in a_step.items()}, (run, steps)
+    wrappers = dict(conv_counts(kernels), slab_update=kernels.fused_slab_update.launches)
+    if k == 1:
+        assert wrappers == run, (wrappers, run)
+    else:
+        # the wrappers count in the warm-up group and once while the graph
+        # is captured; a replay calls no wrapper
+        (g,) = tr.group_stats()
+        assert g["captures"] == 1 and g["replays"] == steps // k - 1, g
+        assert wrappers == {n: 2 * k * c for n, c in a_step.items()}, wrappers
+    state = fused_state(mod)
+    # per-step host times over the window, four steps at a time (a K = 4
+    # group's callbacks come together)
+    quads = [1e3 * (stamps[i + 3] - stamps[i - 1]) / 4 for i in range(lo, hi, 4)]
+    res = {"k": k, "device_feed": feed, "feed_depth": depth or "2", "delayed_staging": delay,
+           "fit_s": fit_s, "steps": steps, "staged_device": marks["staged_device"],
+           "received": [[int(v) for v in c.cpu().tolist()] for c in received],
+           "batches": [[int(v) for v in c.cpu().tolist()] for c in seen],
+           "bn_data": [c.cpu().numpy().tobytes().hex() for c in bn_data],
+           "digests": tensor_digests(state),
+           "finite": all(bool(torch.isfinite(t).all()) for t in state.values()
+                         if t.is_floating_point()),
+           "launches": wrappers if k == 1 else run,
+           "launches_counted_by": ("wrappers (equal to the profiler's over the fit)" if k == 1
+                                   else "torch.profiler: device kernels by name, whole fit"),
+           "step_ms": 1e3 * (marks[hi] - marks[lo]) / (hi - lo),
+           "step_ms_by_4": quads, "window_steps": [lo + 1, hi], "window": win}
+    if k > 1:
+        res["groups"] = tr.group_stats()
+    return res
+
+
+def _resil_rec_iter(mx, spec):
+    """Phase 24 (d)'s iterator in a resilience worker."""
+    return input_iter(mx, spec["rec"], workers=spec.get("workers", 2))
+
+
+def input_resilience(package, paths, root):
+    """Phase 24 (d): phase 23's worker harness on fits fed from a .rec by
+    ``ImageRecordIter`` with a 2-process decode pool through the device
+    feed (``MXTPU_DEVICE_FEED=1``): an uninterrupted
+    reference, a run SIGKILLed mid-epoch 2 once its step-12 checkpoint
+    landed (the run lingers after step 12 so the kill falls mid-epoch),
+    the resume (at the checkpoint's ``sample_position``), and a run with
+    ``bad_record`` = 2 on a 1-process pool (two quarantine lines, the fit
+    finishes)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mxnet_tpu_torch.resilience import checkpoint as ck
+
+    rec = paths["resil"]
+    qfile = os.path.join(root, "quarantine.jsonl")
+    common = dict(k=1, rec=rec, workers=2, feed="1")
+
+    def killed():
+        spec = dict(common, dir="kill", linger_after=INPUT["kill_after_step"])
+        spec.update(package=package, out=os.path.join(root, "kill.json"),
+                    ckpt=os.path.join(root, "kill"))
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                 "--resilience-worker", json.dumps(spec)],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        target = INPUT["kill_after_step"]
+        deadline = time.monotonic() + RESIL["timeout"]
+        try:
+            while target not in ck.list_checkpoints(spec["ckpt"]):
+                assert proc.poll() is None, "the run ended before its step-%d checkpoint" % target
+                assert time.monotonic() < deadline, "no step-%d checkpoint" % target
+                time.sleep(0.05)
+            proc.kill()
+            log_text = proc.communicate(timeout=60)[0]
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        return {"name": "kill", "rc": proc.returncode, "wall_s": time.perf_counter() - t0,
+                "log": log_text[-6000:]}
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(3) as pool:
+        f_ref = pool.submit(_resil_run, root, package, "ref", dir="ref", **common)
+        f_kill = pool.submit(killed)
+        f_bad = pool.submit(_resil_run, root, package, "bad", dir="bad", k=1, rec=rec,
+                            workers=1, fault="bad_record=%d" % INPUT["bad"], quarantine=qfile)
+        ref, kill, bad = f_ref.result(), f_kill.result(), f_bad.result()
+    again = _resil_run(root, package, "res", dir="kill", resume="auto", **common)
+    workers_s = time.perf_counter() - t0
+    _expect(ref, 0)
+    _expect(kill, -9)
+    _expect(again, 0)
+    _expect(bad, 0)
+    assert ref["finite"] and ref["steps_run"] == 16, ref["steps_run"]
+    assert "resume: restored step" in again["log"], again["log"]
+    resumed = again["first_step"] - 1
+    state = ck.CheckpointManager(os.path.join(root, "kill")).load(step=resumed)
+    pos = (int(state["epoch"]), int(state["nbatch"]), state["sample_position"])
+    assert pos[1] > 0 and again["seek_sample"] == [pos[2]], (pos, again["seek_sample"])
+    diff = _digest_diff(again["digests"], ref["digests"])
+    assert not diff, "%d tensors differ after the resume, first %s" % (len(diff), diff[:5])
+    assert again["metric"] == ref["metric"], (again["metric"], ref["metric"])
+    with open(qfile) as fh:
+        lines = [json.loads(l) for l in fh]
+    assert len(lines) == INPUT["bad"] and all(l["type"] == "quarantine" for l in lines), lines
+    assert bad["steps_run"] == 16 and bad["finite"], bad["steps_run"]
+    return {"workers_s": workers_s, "resumed_from": {"epoch": pos[0], "nbatch": pos[1],
+                                                     "sample_position": pos[2]},
+            "resumed_at_step": resumed, "steps_run": again["steps_run"],
+            "bitwise_equal_to_reference": len(ref["digests"]), "metric_equal": True,
+            "seek_sample": again.get("seek_sample"),
+            "launches_resumed_run": again["launches"],
+            "bad_record": {"quarantine_lines": lines, "fit_finished": True,
+                           "steps_run": bad["steps_run"]},
+            "runs": {r["name"]: {k: r.get(k) for k in ("rc", "wall_s", "fit_s", "steps_run")}
+                     for r in (ref, kill, again, bad)}}
+
+
+def phase_input(mx, kernels, dev, package, measure=True):
+    """Phase 24; see the module docstring. Without ``measure`` (the full
+    script, to stay well inside its time limit) it leaves out (b) and the
+    delayed-staging fit, which ``--only input`` runs."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from mxnet_tpu_torch import native, recordio
+    from mxnet_tpu_torch.resilience import fault
+
+    res = {}
+    t0 = time.perf_counter()
+    lib = native.build()
+    res["native_build_s"] = time.perf_counter() - t0
+    assert native.available() and Path(native.get_lib()._name) == lib, "native library"
+    res["native_library"] = str(lib)
+    res["decode_libraries"] = decode_libraries()
+    res["cpu_count"] = os.cpu_count()
+    res["cpu_affinity"] = len(os.sched_getaffinity(0))
+    log("phase 24 (a): native library %s built in %.2f s; decode: %s; %d CPUs (%d usable)"
+        % (lib, res["native_build_s"], json.dumps(res["decode_libraries"]), res["cpu_count"],
+           res["cpu_affinity"]))
+    root = tempfile.mkdtemp(prefix="chip_smoke_input_")
+    torch.backends.cudnn.deterministic = True
+    try:
+        paths, payloads, imgs, labels, enc_s, write_s = input_records(root, recordio)
+        reader = native.NativeRecordReader(paths["input"])
+        assert len(reader) == len(payloads)
+        assert all(reader.read(i) == p for i, p in enumerate(payloads)), "native reader"
+        reader.close()
+        for i, img in enumerate(imgs):
+            _hdr, png = recordio.unpack(payloads[i])
+            got = native.imdecode_png(png)
+            assert got is not None and np.array_equal(got, img), "PNG %d decode" % i
+        res["a"] = {"records": len(payloads), "rec_bytes": os.path.getsize(paths["input"]),
+                    "encode_s": enc_s, "write_s": write_s, "read_back_bitwise": True,
+                    "png_decode_bitwise": len(imgs)}
+        # fail_recordio_read: the sequential reader retries its first read
+        plain = dict(shuffle=False, rand_crop=False, rand_mirror=False)
+        os.environ[fault.ENV] = "fail_recordio_read=%d,unit=phase24" % INPUT["read_fail"]
+        try:
+            with mx.cpu():
+                got = batch_checksum(batch_tensors(input_iter(mx, paths["input"], **plain).next()))
+            raw = os.environ[fault.ENV]
+            fired = fault._fired.get((raw, "fail_recordio_read"), 0)
+        finally:
+            os.environ.pop(fault.ENV)
+        with mx.cpu():
+            want = batch_checksum(batch_tensors(input_iter(mx, paths["input"], **plain).next()))
+        assert fired == INPUT["read_fail"] and torch.equal(got, want), (fired, got, want)
+        res["a"]["fail_recordio_read"] = {"injected": fired, "batch_equal": True}
+        log("phase 24 (a): %s" % json.dumps(res["a"]))
+
+        if measure:
+            res["b"] = {"decode": decode_compare(payloads, recordio)}
+            log("phase 24 (b): PNG decode on one thread: %s" % json.dumps(res["b"]["decode"]))
+            rates = [input_rate(mx, paths["input"], threads=t) for t in INPUT["threads"]]
+            rates.append(input_rate(mx, paths["input"], threads=max(INPUT["threads"]),
+                                    decoder="pil"))
+            rates += [input_rate(mx, paths["input"], workers=w) for w in INPUT["workers"]]
+            res["b"].update(rates=rates, replayed_fit_img_per_s=REPLAYED_FIT_IMG_S)
+            for r in rates:
+                log("phase 24 (b): ImageRecordIter threads %d workers %d (%s PNG): %.1f img/s "
+                    "over %d batches, blocks of 32 %s (first batch %.2f s); a replayed fit "
+                    "step consumes %.1f img/s"
+                    % (r["threads"], r["workers"], r["decoder"], r["img_per_s"], r["batches"],
+                       ["%.1f" % x for x in r["block_img_per_s"]], r["first_batch_s"],
+                       REPLAYED_FIT_IMG_S))
+
+        from mxnet_tpu_torch import io_pipeline
+
+        with mx.cpu():  # the fits' stream, decoded inline
+            it = io_pipeline.StreamingImageRecordIter(
+                RESNET_BATCH, INPUT["shape"], paths["input"], shuffle=True, seed=0, workers=0,
+                aug_recipe={"rand_crop": True, "rand_mirror": True, "scale": 1.0,
+                            "mean": np.array(INPUT["mean"])})
+            host = [[int(v) for v in batch_checksum(batch_tensors(b)).tolist()] for b in it]
+        fits, faults = {}, []  # every disagreement, reported together
+        for k, feed, depth, delay in INPUT_FITS if measure else [f for f in INPUT_FITS
+                                                                   if not f[3]]:
+            name = "k%d_feed%s%s%s" % (k, feed, "_depth" + depth if depth else "",
+                                       "_delayed" if delay else "")
+            fits[name] = run = input_fit(mx, kernels, paths["input"], k, feed, depth, delay)
+            log("phase 24 (c) %s: fit %.2f s, step %.2f ms (steps %d-%d; by 4 steps %s), idle "
+                "%.3f, HtoD %.3f ms of which %.3f under kernels, launches %s"
+                % (name, run["fit_s"], run["step_ms"], run["window_steps"][0],
+                   run["window_steps"][1], ["%.1f" % x for x in run["step_ms_by_4"]],
+                   run["window"]["idle_share"], run["window"]["htod_ms"],
+                   run["window"]["htod_overlapped_ms"], json.dumps(run["launches"])))
+            for what in ("received", "batches"):
+                bad = [i + 1 for i, (a, b) in enumerate(zip(run[what], host)) if a != b]
+                if bad or len(run[what]) != len(host):
+                    faults.append("%s: the %s of steps %s differ from the host's"
+                                  % (name, what, bad))
+            if (run["staged_device"] == "cuda:0") != (feed == "1"):
+                faults.append("%s staged on %s" % (name, run["staged_device"]))
+            if feed == "1":
+                off = fits["k%d_feed0" % k]
+                diff = _digest_diff(run["digests"], off["digests"])
+                if diff:
+                    faults.append("%s: the feed changes %d tensors, first %s"
+                                  % (name, len(diff), diff[:5]))
+                bn = [i + 1 for i, (a, b) in enumerate(zip(run["bn_data"], off["bn_data"]))
+                      if a != b]
+                if bn:
+                    faults.append("%s: bn_data's statistics differ after steps %s" % (name, bn))
+        assert not faults, "; ".join(faults)
+        res["c"] = {"fits": {n: {k: v for k, v in f.items()
+                                 if k not in ("digests", "received", "batches", "bn_data")}
+                             for n, f in fits.items()},
+                    "state_tensors_bitwise_equal_feed_on_off": len(fits["k1_feed0"]["digests"]),
+                    "steps_equal_host_run_before_and_after_the_step": len(host),
+                    "bn_data_equal_feed_on_off_every_step": True}
+        launches = dict.fromkeys(MULTI_KERNEL_NAMES, 0)
+        for f in fits.values():
+            for n in launches:
+                launches[n] += f["launches"][n]
+        res["d"] = input_resilience(package, paths, root)
+        for n in launches:
+            launches[n] += res["d"]["launches_resumed_run"][n]
+        res["launches"] = launches
+    finally:
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(root, ignore_errors=True)
+    log("phase 24: input path: %s" % json.dumps(res))
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every phase's numbers to this JSON file")
     ap.add_argument("--package", help="import mxnet_tpu_torch from this checkout instead of the "
                     "one beside this script (to run this script's phases on another tree)")
     ap.add_argument("--only", choices=("f32_lm", "rtc", "slab", "zoo", "multistep", "serving",
-                                       "resilience"),
+                                       "resilience", "input"),
                     help="f32_lm: build, phase 19 and phase 8's attention kernel times only; "
                     "rtc: K5's push path on ResNet-50's parameter arrays only; slab: K1's "
                     "build, phases 16-18 and K1's times only; zoo: K2/K3's build and "
                     "phase 20 only; multistep: K1-K3's build and phase 21 only; serving: "
                     "the flash forward's build and phase 22 only (on a package without "
                     "predict, only (d) and its continuations' digest); resilience: K1-K3's "
-                    "build and phase 23 only")
+                    "build and phase 23 only; input: K1-K3's build and phase 24 only")
     ap.add_argument("--resilience-worker", metavar="SPEC", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
@@ -3851,6 +4529,11 @@ def main(argv=None):
         results["build_s"] = time.perf_counter() - t0
         results["resilience"] = phase_resilience(mx, kernels, dev, package,
                                                  resnet50_amp_plan(mx, resnet))
+    if args.only == "input":
+        t0 = time.perf_counter()
+        _build.build(["conv_bwd_filter", "slab_update"])
+        results["build_s"] = time.perf_counter() - t0
+        results["input"] = phase_input(mx, kernels, dev, package)
     if args.only:
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -3894,14 +4577,18 @@ def main(argv=None):
     results["serving"] = phase_serving(mx, resnet, tfm, kernels, telemetry, GenerationEngine, dev)
     results["resilience"] = resil = phase_resilience(mx, kernels, dev, package,
                                                      resnet50_amp_plan(mx, resnet))
+    results["input"] = inp = phase_input(mx, kernels, dev, package, measure=False)
     multi_launches = multistep_launches(multi)
     resil_launches = resil["launches_resumed_runs"]
+    input_launches = inp["launches"]
     conv_launches = {name: conv_launches[name] + multi_launches[name] + resil_launches[name]
-                     for name in conv_launches}
+                     + input_launches[name] for name in conv_launches}
     k1 = results["k1_entry"]
     k1["launches_by_path"]["multistep"] = multi_launches["slab_update"]
     k1["launches_by_path"]["resilience"] = resil_launches["slab_update"]
-    k1["launches"] += multi_launches["slab_update"] + resil_launches["slab_update"]
+    k1["launches_by_path"]["input"] = input_launches["slab_update"]
+    k1["launches"] += (multi_launches["slab_update"] + resil_launches["slab_update"]
+                       + input_launches["slab_update"])
     # the f32 kernels' launches in phases 4, 5 and 19
     f32_launches = {name: n + results["training_f32_full"]["launches"][name]
                     for name, n in results["training_f32"]["launches"].items()}

@@ -69,3 +69,4 @@ from . import module as mod  # noqa: F401
 from . import predict  # noqa: F401
 from . import serving  # noqa: F401
 from . import resilience  # noqa: F401
+from . import engine, image, io_pipeline, native, recordio  # noqa: F401

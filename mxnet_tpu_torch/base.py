@@ -5,6 +5,8 @@ their graph JSON."""
 from __future__ import annotations
 
 import ast
+import contextlib
+import gc
 import os
 
 import numpy as np
@@ -15,6 +17,31 @@ __version__ = "0.9.5"
 
 class MXNetError(RuntimeError):
     """Error raised by the framework (parity: reference ``base.py:MXNetError``)."""
+
+
+def release_for_capture(device):
+    """Before a CUDA graph capture: finish the device's work, collect
+    Python's cyclic garbage (a fused Module refers to itself, so an older
+    graph can wait there) and empty the allocator's cache, as the capture
+    does first; the memory reserved next is the capture pool's baseline."""
+    torch.cuda.synchronize(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def graph_capture(graph, **kwargs):
+    """``torch.cuda.graph(graph, **kwargs)`` with Python's cyclic collector
+    held off: a collection inside a capture that destroys an older graph
+    makes a call the capture forbids and invalidates the capture."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, **kwargs):
+            yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 _DEFAULT_BUCKET_BYTES = 4 * 1024 * 1024

@@ -30,8 +30,21 @@ the normal ``locals`` keys, after its group. A trailing partial group, or a
 batch whose shape breaks the group, takes the single-step path. Without a
 fused trainer the knob changes nothing. ``MXNET_FIT_MULTISTEP=auto`` (the
 JAX package's tuner, steered by telemetry the port does not record)
-raises. ``MXTPU_DEVICE_FEED`` and ``MXTPU_METRIC_INTERVAL`` change no
-result in the JAX package and are not read.
+raises.
+
+With ``MXTPU_DEVICE_FEED=1`` ``fit`` wraps the training iterator in
+``io.DeviceFeedIter`` on the fused trainer's device: the next batches are
+staged through pinned host memory on a side stream while the current step
+runs, and the step takes them without a copy. The JAX package installs
+it by default; the port does not (its step time did not move with it,
+and one run on the card ended with other BatchNorm statistics than the
+same fit without it, cause not found). A resume positions an iterator
+that has ``seek_epoch`` / ``seek_sample`` (the streaming record iterator,
+and a DeviceFeedIter over one) at the checkpoint's epoch and
+``sample_position``, so a shuffled stream resumed in a later epoch replays
+that epoch's order; the guard's rewind uses ``seek_epoch`` where there is
+one. ``MXTPU_METRIC_INTERVAL`` changes no result in the JAX package and is
+not read.
 """
 from __future__ import annotations
 
@@ -245,6 +258,12 @@ class BaseModule:
             else:
                 trainer.arm_guard()
                 guard_mon = _guard.GuardrailMonitor(logger=self.logger)
+        fit_data = train_data
+        if trainer is not None and os.environ.get("MXTPU_DEVICE_FEED", "0") == "1":
+            from ..io import DeviceFeedIter
+
+            # the next batches' host-to-device copies overlap this step
+            fit_data = DeviceFeedIter(train_data, trainer.device)
         use_multi = fit_k > 1 and trainer is not None and hasattr(self, "update_multi")
         if use_multi:
             trainer.compile_multi(fit_k)  # raises for an ungrouped optimizer
@@ -267,10 +286,12 @@ class BaseModule:
             # the cursor counts batches at the writer's global batch; at
             # another global batch, keep the global sample position
             topo, cur = state.get("topology"), self._topology()
+            loop_seek["sample_position"] = state.get("sample_position")
             if topo and cur:
                 wgb = int(topo.get("global_batch") or 0)
                 cgb = int(cur.get("global_batch") or 0)
                 if wgb and cgb and wgb != cgb:
+                    loop_seek["sample_position"] = None  # the batch cursor translates
                     samples = skip * wgb
                     skip, rem = divmod(samples, cgb)
                     if rem:
@@ -281,6 +302,7 @@ class BaseModule:
             return epoch, skip, gs, state.get("metric")
 
         resume_skip, resume_metric, gs0 = 0, None, 0
+        loop_seek = {"sample_position": None}  # a resume's sample cursor, used once
         if ckpt_mgr is not None and resume is not None:
             if resume == "auto":
                 # under guardrails the newest HEALTHY snapshot: one stamped
@@ -296,6 +318,7 @@ class BaseModule:
                                  ckpt_mgr.directory)
             else:
                 begin_epoch, resume_skip, gs0, resume_metric = _restore_from_state(state)
+                loop_seek["resumed"] = True
                 if guard_mon is not None:
                     guard_mon.restore(state.get("health"))
                     trainer.guard_threshold = guard_mon.gate_threshold()
@@ -381,12 +404,12 @@ class BaseModule:
         try:
             while True:
                 try:
-                    self._fit_epochs(train_data, eval_data, eval_metric, validation_metric,
+                    self._fit_epochs(fit_data, eval_data, eval_metric, validation_metric,
                                      begin_epoch, num_epoch, batch_end_callback,
                                      epoch_end_callback, eval_end_callback,
                                      eval_batch_end_callback, fit_k if use_multi else 1,
                                      _after_steps, ckpt_mgr, loop, _capture, resume_skip,
-                                     resume_metric)
+                                     resume_metric, loop_seek)
                     break
                 except _guard.GuardrailRewind as rw:
                     # -- rewind to the last good checkpoint -------------------
@@ -415,6 +438,7 @@ class BaseModule:
                         # here must leave a relaunch able to recover
                         _fault.fire("rewind", step=rw.step)
                     begin_epoch, resume_skip, gs0, resume_metric = _restore_from_state(state)
+                    loop_seek["sample_position"] = None  # the rewind skips past the trip
                     guard_mon.restore(state.get("health"))
                     trainer.guard_threshold = guard_mon.gate_threshold()
                     if begin_epoch == rw.epoch:
@@ -425,10 +449,12 @@ class BaseModule:
                         "step %d; re-entering at batch %d (%d/%d rewinds spent)", gs0,
                         begin_epoch, rw.step, resume_skip, guard_mon.rewinds,
                         guard_mon.max_rewinds)
-                    if hasattr(train_data, "seek_epoch"):
-                        train_data.seek_epoch(begin_epoch)
+                    # seek_epoch keeps the epoch counter (and with it the
+                    # shuffle order); reset() for order-free sources
+                    if hasattr(fit_data, "seek_epoch"):
+                        fit_data.seek_epoch(begin_epoch)
                     else:
-                        train_data.reset()
+                        fit_data.reset()
                     loop.update(gs=gs0, done=resume_skip, epoch=begin_epoch, last_saved=gs0)
         finally:
             for sig, handler in old_handlers.items():
@@ -447,7 +473,7 @@ class BaseModule:
     def _fit_epochs(self, train_data, eval_data, eval_metric, validation_metric, begin_epoch,
                     num_epoch, batch_end_callback, epoch_end_callback, eval_end_callback,
                     eval_batch_end_callback, fit_k, _after_steps, ckpt_mgr, loop, _capture,
-                    resume_skip, resume_metric):
+                    resume_skip, resume_metric, loop_seek=None):
         """The epoch loop of :meth:`fit` (split out so that fit's signal
         handlers and rewind loop stay readable)."""
 
@@ -489,9 +515,20 @@ class BaseModule:
                 # through __dict__ so the validation_metric alias stays live
                 eval_metric.__dict__.update(
                     _ckpt_loads(resume_metric, "train_state.pkl metric").__dict__)
+            pos = loop_seek.pop("sample_position", None) if loop_seek else None
+            if loop_seek and loop_seek.pop("resumed", False) and hasattr(train_data,
+                                                                          "seek_epoch"):
+                # a resumed run's source replays this epoch's order (its
+                # shuffle), as the interrupted run's source did
+                train_data.seek_epoch(epoch)
             if skip:
-                # trained batches are skipped, never fed again
-                train_data.skip(skip)
+                # trained batches are skipped, never fed again: at the
+                # checkpoint's sample position where the source can seek
+                if pos is not None and hasattr(train_data, "seek_sample"):
+                    hosts = max(1, getattr(train_data, "num_hosts", 1))
+                    train_data.seek_sample(int(pos) // hosts)
+                else:
+                    train_data.skip(skip)
             pending = []  # (nbatch, data_batch) awaiting a K-group flush
             for nbatch, data_batch in enumerate(train_data, start=skip):
                 if _fault.configured():

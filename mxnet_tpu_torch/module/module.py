@@ -355,14 +355,34 @@ class Module(BaseModule):
         self._fused_t = 0
         self._fused_exec_stale = False
 
-    def _make_fused_batch(self, data_batch):
-        device = self._fused_trainer.device
-        batch = {name: arr._data.to(device) for name, arr in zip(self._data_names,
-                                                                  data_batch.data)}
+    def _fused_inputs(self, data_batch):
+        """name -> tensor of one batch's data and labels as they are."""
+        pairs = list(zip(self._data_names, data_batch.data))
         if self._label_names and data_batch.label:
-            batch.update({name: arr._data.to(device)
-                          for name, arr in zip(self._label_names, data_batch.label)})
-        return batch
+            pairs += list(zip(self._label_names, data_batch.label))
+        return {name: arr._data for name, arr in pairs}
+
+    def _check_staged(self, data_batch):
+        """A batch a DeviceFeedIter staged must already be on the trainer's
+        device: its tensors are taken without a copy."""
+        device = self._fused_trainer.device
+        staged = getattr(data_batch, "staged_device", None)
+        if staged is None:
+            return False
+        for name, t in self._fused_inputs(data_batch).items():
+            if t.device != device:
+                raise MXNetError("input %s was staged on %s but the fused trainer runs on %s"
+                                 % (name, t.device, device))
+        return True
+
+    def _make_fused_batch(self, data_batch):
+        """The step's inputs on the trainer's device: a staged batch as it
+        is, any other copied there."""
+        batch = self._fused_inputs(data_batch)
+        if self._check_staged(data_batch):
+            return batch
+        device = self._fused_trainer.device
+        return {name: t.to(device) for name, t in batch.items()}
 
     def _ensure_exec_params(self):
         """Refresh the executors' weights after fused updates."""
@@ -481,6 +501,8 @@ class Module(BaseModule):
         owner = self._fused_owner
         k = len(data_batches)
         self._params_dirty = True
+        for b in data_batches:
+            self._check_staged(b)  # staged micro-batches go device to device
         batches = {name: [b.data[i]._data for b in data_batches]
                    for i, name in enumerate(self._data_names)}
         if self._label_names and data_batches[0].label:

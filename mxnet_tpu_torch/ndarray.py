@@ -714,8 +714,27 @@ _init_random_module()
 
 
 def imdecode(buf, index=0, flag=1, mean=None, clip_rect=None, out=None, **kwargs):
-    """Not ported: image decoding lives in ``mxnet_tpu/ndarray.py imdecode``
-    and ``mxnet_tpu/image.py`` of the JAX package."""
-    raise NotImplementedError(
-        "imdecode is not ported to PyTorch yet: the JAX package decodes in "
-        "mxnet_tpu/ndarray.py imdecode over mxnet_tpu/image.py")
+    """Decode an encoded image buffer to an HWC float32 NDArray on the
+    current context (the reference's NDArray function, src/io/image_io.cc):
+    ``flag`` 0 for one gray channel, ``clip_rect`` (x0, y0, x1, y1) crops,
+    ``mean`` is subtracted, ``out`` receives the result. Decoding runs on
+    the host (``image.imdecode``); unknown options raise."""
+    if kwargs:
+        raise MXNetError("imdecode: unsupported option(s) %s" % sorted(kwargs))
+    from . import image as _image
+    from .context import cpu
+
+    with cpu():
+        img = _image.imdecode(buf, flag=flag)._data
+    if clip_rect is not None:
+        x0, y0, x1, y1 = (int(v) for v in clip_rect)
+        img = img[y0:y1, x0:x1]
+    if mean is not None:
+        mean_t = mean._data.cpu() if isinstance(mean, NDArray) else torch.as_tensor(
+            np.asarray(mean, np.float32))
+        img = img.to(torch.float32) - mean_t
+    res = NDArray(img.contiguous().to(Context.current_context().torch_device))
+    if out is not None:
+        out[:] = res
+        return out
+    return res

@@ -14,6 +14,7 @@ multi-card slice will bring; until then it raises.
 from __future__ import annotations
 
 import math
+import os
 from collections import namedtuple
 
 import torch
@@ -101,3 +102,37 @@ def dp_sharding(mesh):
 
 def replicated_sharding(mesh):
     return Sharding(mesh, ())
+
+
+def host_count(default=1):
+    """How many host processes share the input dataset: the divisor of the
+    streaming input pipeline's chunk shards (``io_pipeline``). In order:
+    ``MXTPU_NUM_HOSTS``, ``DMLC_NUM_WORKER``, the world size of an
+    initialized ``torch.distributed`` group."""
+    for name in ("MXTPU_NUM_HOSTS", "DMLC_NUM_WORKER"):
+        raw = os.environ.get(name)
+        if raw:
+            try:
+                return max(1, int(raw))
+            except ValueError:
+                pass
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return max(1, dist.get_world_size())
+    return max(1, int(default))
+
+
+def host_rank(default=0):
+    """This process's rank within :func:`host_count` (``MXTPU_HOST_RANK``,
+    ``DMLC_RANK``, then the ``torch.distributed`` rank)."""
+    for name in ("MXTPU_HOST_RANK", "DMLC_RANK"):
+        raw = os.environ.get(name)
+        if raw:
+            try:
+                return max(0, int(raw))
+            except ValueError:
+                pass
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return max(0, dist.get_rank())
+    return max(0, int(default))

@@ -74,7 +74,7 @@ import numpy as np
 import torch
 
 from .. import random as _random
-from ..base import MXNetError, bucket_bytes_env
+from ..base import MXNetError, bucket_bytes_env, graph_capture, release_for_capture
 from ..executor import _GraphProgram, resolve_creation_shapes
 from ..ndarray import NDArray
 from ..ops import kernels
@@ -948,12 +948,11 @@ class ShardedTrainStep:
         graph = torch.cuda.CUDAGraph()
         if rng is not None:
             graph.register_generator_state(rng)
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
+        release_for_capture(dev)
         reserved, before = torch.cuda.memory_reserved(dev), _kernel_launches()
         t0 = time.perf_counter()
         try:
-            with torch.cuda.graph(graph):
+            with graph_capture(graph):
                 outs = [self._micro_step(group, i, rng, lrs[i], ts[i]) for i in range(group.k)]
         except Exception as exc:
             raise MXNetError("capturing %d fused steps into a CUDA graph failed: %s"

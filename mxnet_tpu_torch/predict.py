@@ -52,7 +52,7 @@ import torch
 from . import ndarray as nd
 from . import symbol as sym_mod
 from . import telemetry as _tm
-from .base import MXNetError
+from .base import MXNetError, graph_capture, release_for_capture
 from .context import as_context, cpu, gpu
 
 _H_DISPATCH_SECONDS = _tm.histogram(
@@ -343,15 +343,14 @@ class _ServeFn(object):
                              "CUDA graph cannot capture: %s" % (what, exc)) from exc
         finally:
             torch.cuda.set_sync_debug_mode(mode)
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()  # as the capture does first: the delta is the graph's
+        release_for_capture(dev)  # the delta from here is the graph's
         reserved = torch.cuda.memory_reserved(dev)
         graph = torch.cuda.CUDAGraph()
         if self._rng is not None:
             graph.register_generator_state(self._rng)
         t0 = time.perf_counter()
         try:
-            with torch.cuda.graph(graph, pool=pool):
+            with graph_capture(graph, pool=pool):
                 outs = self._serve()
         except Exception as exc:
             raise MXNetError("capturing the forward of %s into a CUDA graph failed: %s"

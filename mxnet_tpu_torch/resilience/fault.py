@@ -70,12 +70,13 @@ Directives (value is always an integer):
 
 The port's call sites fire ``step``, ``rewind``, ``ckpt_write``,
 ``ckpt_done``, ``kv_push`` and ``kv_pull`` (``Module.fit``, the checkpoint
-writer, the kvstore) and read ``batch_poison``. The points of the input
-pipeline and the multi-process mesh (``collective``, ``recordio_read``,
-``record_decode``) come with those (ROADMAP Queue 1 steps 5 and 8), so
-``delay_collective_ms``, ``fail_recordio_read`` and ``bad_record`` parse and
-do nothing. ``replica_lost`` and ``heartbeat_stall`` parse and do nothing
-as well: the heartbeat files they mark belong to the multi-process mesh.
+writer, the kvstore), ``recordio_read`` (``MXRecordIO.read``, inside its
+retry) and ``record_decode`` (the streaming pipeline's decode, in the
+process that decodes: a decode worker has its own budget), and read
+``batch_poison``. The multi-process mesh's ``collective`` point comes with
+that mesh (ROADMAP Queue 1 step 8), so ``delay_collective_ms`` parses and
+does nothing; so do ``replica_lost`` and ``heartbeat_stall``, whose
+heartbeat files belong to the multi-process mesh.
 
 Values are integers except ``replica_lost``/``heartbeat_stall``, whose
 ``<rank>@<step>`` pairs parse to (rank, step) tuples; malformed values
@@ -147,9 +148,9 @@ def fire(point, **ctx):
 
     Points: ``step`` (ctx: step), ``ckpt_write`` (ctx: path),
     ``ckpt_done`` (ctx: path), ``rewind`` (ctx: step), ``kv_push`` /
-    ``kv_pull`` (ctx: key). The JAX package's ``collective``,
-    ``recordio_read`` and ``record_decode`` points come with their call
-    sites.
+    ``kv_pull`` (ctx: key), ``recordio_read`` (ctx: uri, offset),
+    ``record_decode`` (ctx: uri, ordinal). The JAX package's
+    ``collective`` point comes with the multi-process mesh.
     """
     raw, spec = _spec()
     if not spec:
@@ -180,6 +181,15 @@ def fire(point, **ctx):
     elif point == "rewind":
         if spec.get("kill_at_rewind", 0) and _take(raw, "kill_at_rewind", 1):
             os.kill(os.getpid(), signal.SIGKILL)
+    elif point == "record_decode":
+        n = spec.get("bad_record", 0)
+        if n and _take(raw, "bad_record", n):
+            raise ValueError("injected bad record: %s ordinal=%s"
+                             % (ctx.get("uri"), ctx.get("ordinal")))
+    elif point == "recordio_read":
+        n = spec.get("fail_recordio_read", 0)
+        if n and _take(raw, "fail_recordio_read", n):
+            raise _transient("recordio read %s@%s" % (ctx.get("uri"), ctx.get("offset")))
     elif point == "kv_push":
         n = spec.get("fail_kv_push", 0)
         if n and _take(raw, "fail_kv_push", n):

@@ -45,7 +45,7 @@ import numpy as np
 import torch
 
 from .. import telemetry as _tm
-from ..base import MXNetError
+from ..base import MXNetError, graph_capture, release_for_capture
 from ..context import resolve_device
 from . import buckets as _buckets
 from .engine import ServeClosed
@@ -206,13 +206,12 @@ class GenerationEngine(object):
         if self._static_tokens is None:
             self._static_tokens = torch.zeros((n,), dtype=torch.int32, device=dev)
             self._tokens_pinned = torch.zeros((n,), dtype=torch.int32, pin_memory=True)
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()  # as the capture does first: the delta is the graph's
+        release_for_capture(dev)  # the delta from here is the graph's
         reserved = torch.cuda.memory_reserved(dev)
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         try:
-            with torch.cuda.graph(graph):
+            with graph_capture(graph):
                 cache, logits = self._decode(self.params, self._cache, self._static_tokens)
         except Exception as exc:
             raise MXNetError("capturing the decode step (tokens [%d] int32) into a CUDA "

@@ -1008,3 +1008,47 @@ def test_cuda_guarded_group_skips_bitwise_and_rethresholds_without_recapture(mon
     assert got[3][-1][:, 2].tolist() == [0.0, 0.0]
     (stats,) = tr.group_stats()
     assert (stats["warmup_groups"], stats["captures"], stats["replays"]) == (1, 1, 3), stats
+
+
+@pytest.mark.cuda
+def test_cuda_device_feed_stages_pinned_copies_bitwise(monkeypatch):
+    """DeviceFeedIter on the card: every staged batch equals the host
+    batch bit for bit, lives on gpu(0) and carries ``staged_device``; the
+    staged batches dropped by a reset and a skip (copies in flight) leave
+    the next batches right, and pinned buffers are reused (at most one
+    pair a staged batch and one in hand, over 20 batches)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    import mxnet_tpu_torch as mx
+
+    pinned = []
+    empty = torch.empty
+
+    def counting_empty(*args, **kwargs):
+        if kwargs.get("pin_memory"):
+            pinned.append(args)
+        return empty(*args, **kwargs)
+
+    monkeypatch.setattr(torch, "empty", counting_empty)
+
+    x = np.random.RandomState(0).randn(64, 3, 32, 32).astype(np.float32)
+    y = np.arange(64, dtype=np.float32)
+    with mx.cpu():
+        want = [b.data[0].asnumpy() for b in mx.io.NDArrayIter(x, y, batch_size=8)]
+    feed = mx.io.DeviceFeedIter(mx.io.NDArrayIter(x, y, batch_size=8), mx.gpu(0), depth=3)
+    for _ in range(2):
+        got = []
+        for b in feed:
+            assert b.staged_device == torch.device("cuda", 0)
+            assert b.data[0]._data.is_cuda and b.label[0]._data.is_cuda
+            got.append(b.data[0].asnumpy())
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        feed.reset()
+    feed.next()
+    feed.skip(2)
+    np.testing.assert_array_equal(feed.next().data[0].asnumpy(), want[3])
+    assert 0 < len(pinned) <= 2 * (feed.depth + 1), len(pinned)

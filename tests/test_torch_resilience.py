@@ -10,9 +10,10 @@ retry cases; ``NDArrayIter.skip`` in the three ``last_batch_handle``
 modes; SIGTERM preemption with an exact resume and the async interval
 snapshots of a dp-4 fused MLP fit (four logical ranks on the host); and
 the SIGKILL crash-resume subprocess case at ``fit_k`` 1 and 2, bit for
-bit, with a torn newest checkpoint at ``fit_k`` 1. The recordio,
-DeviceFeedIter and heartbeat cases wait for the input path and the
-multi-process mesh (ROADMAP Queue 1 steps 5 and 8).
+bit, with a torn newest checkpoint at ``fit_k`` 1. The recordio and
+DeviceFeedIter cases live in ``tests/test_torch_recordio.py`` and
+``tests/test_torch_io_iters.py``; the heartbeat cases wait for the
+multi-process mesh (ROADMAP Queue 1 step 8).
 
 Across the packages: the same state written by both managers gives the
 same bytes in every member (the MANIFEST's ``time`` aside); a checkpoint
