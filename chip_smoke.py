@@ -10,6 +10,7 @@
     python3 chip_smoke.py --only serving [--package DIR]  # K4f's build and phase 22
     python3 chip_smoke.py --only resilience            # K1-K3's build and phase 23
     python3 chip_smoke.py --only input                 # K1-K3's build and phase 24
+    python3 chip_smoke.py --only rnn                   # the flash kernels' build and phase 25
 
 
 Phases, each fatal on failure:
@@ -387,6 +388,44 @@ Phases, each fatal on failure:
     ends bitwise equal to an uninterrupted run; ``bad_record`` = 2 on a
     1-process pool gives two quarantine lines and the fit finishes.
 
+25. the Module family and RNN (``--only rnn``): (a) the ``RNN`` operator
+    (cuDNN through ``torch._VF``) against its plain per-step loop
+    (``ops.rnn_op.rnn_reference``) at T 60, N 32, I = H = 200, 2 layers,
+    f32 with TF32 off, for lstm, gru, rnn_tanh, rnn_relu and a
+    bidirectional lstm: the output, the final states and the gradients of
+    the data, the blob and the states (one random cotangent) to 1e-4 of
+    max|plain|, the ms of each forward and backward, and any warning of
+    cuDNN's about the weights' layout. (b) ``BucketingModule.fit`` of the
+    PTB LSTM LM at the reference's width (2 x 200 LSTM, embed 200, vocab
+    10000, batch 32, buckets 10-60, Adam at 0.01, Xavier(in, 2.34),
+    Perplexity(ignore_label=0)) over ``BucketSentenceIter`` of a synthetic
+    corpus of 2048 sentences from seed 0, 2 epochs, on the fused route and
+    on the ``LSTMCell`` stack from the same initial parameters (the blob
+    unpacked and packed per layer): the two routes' first-batch losses
+    agree to 1e-4 relative, perplexity falls, buckets share the default
+    bucket's ``_arg_params``, a ``save_rnn_checkpoint`` /
+    ``load_rnn_checkpoint`` round trip gives every parameter bit for bit;
+    ms a batch per bucket (host clock, synchronised, each bucket's first
+    batch left out), the perplexity after each epoch and the peak memory;
+    then the fused route with ``kvstore="device"`` on 4 logical ranks of
+    gpu(0) (the owner demoted to the per-parameter update by the borrowing
+    buckets): its parameters after each epoch against the local run's
+    (recorded: its Adam rounds the bias correction in f32, the executor
+    path's in f64, and Adam carries the difference on), within 1e-5
+    relative after the first batch, and under SGD, whose update is the same
+    arithmetic on both paths, within 1e-5 after an epoch; the (a) cases
+    raise no cuDNN warning about the weights' layout. (c)
+    ``models.lstm.lstm_attention_lm`` at its published width (vocab 10000,
+    hidden and embed 256, 4 heads, D 64, f32) on 16 x 1024 tokens from seed
+    0: logits and a cross-entropy loss's gradients against the same model
+    with the plain attention (1e-4 of max), then 4 SGD steps (ms a step),
+    with one launch of K4f, K4dq and K4dkv a step. (d) ``FeedForward.create``
+    of an MLP over 8 batches, ``predict`` and ``score``; a
+    ``SequentialModule`` of a Module and a ``PythonLossModule`` (softmax
+    minus one-hot), 8 steps; a ``MutableModule`` over batches of 32, 16 and
+    8; each on gpu(0) against the same run with ``Module`` (with
+    ``reshape`` for the mutable one) to 1e-5 of each tensor's max.
+
 Then the kernels line: the seven kernels, K4f, K4dq, K4dkv, K2, K3, K5 and
 K1; K2's and K3's launches count phase 20's training rows, and their
 entries carry phase 20's launches and inception-v3 step under ``zoo``;
@@ -398,7 +437,8 @@ under ``launches_by_path["resilience"]``); and phase 24's fits (the
 wrappers' counts eagerly, the profiler's by name over the whole grouped
 fits; the resumed run's wrapper counts; for K1 under
 ``launches_by_path["input"]``). K4f's ``launches_by_path["serving"]`` counts phase 6's and
-phase 22 (d)'s prefills.
+phase 22 (d)'s prefills; K4f's, K4dq's and K4dkv's ``launches_by_path["rnn"]`` the f32
+launches of phase 25 (c)'s SGD steps, which their ``launches`` include.
 
 The last line of output is {"ok": true, "device": {...}}. Without a CUDA
 device, or without the package beside this script, it exits non-zero and
@@ -2704,7 +2744,9 @@ def multistep_leg(mx, kernels, dev, X, y, k, amp, epochs, snap=None, profile=Fal
             snapshot.update(fused_state(mod))
 
     metric = mx.metric.create("acc")
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    # the card's activity only: kernel_counts reads device kernels, and the
+    # host's ops made parsing a whole profiled fit take tens of seconds
+    acts = [torch.profiler.ProfilerActivity.CUDA]
     _amp_env(amp)
     _multistep_env(k)
     try:
@@ -3401,7 +3443,7 @@ def resilience_worker(spec):
                 "good": float(owner._fused_opt[tr.AMP_GOOD_KEY])}
 
     metric = mx.metric.create("acc")
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    acts = [torch.profiler.ProfilerActivity.CUDA]  # kernel_counts reads the card's kernels
     zero_counts(kernels)
     with (torch.profiler.profile(activities=acts) if spec.get("profile")
           else contextlib.nullcontext()) as prof:
@@ -4442,20 +4484,504 @@ def phase_input(mx, kernels, dev, package, measure=True):
     return res
 
 
+# phase 25: the Module family and RNN on the card
+RNN_OP = dict(T=60, N=32, I=200, H=200, layers=2, seed=25)
+RNN_OP_CASES = (("lstm", False), ("gru", False), ("rnn_tanh", False), ("rnn_relu", False),
+                ("lstm", True))
+PTB = dict(layers=2, hidden=200, embed=200, vocab=10000, batch=32,
+           buckets=(10, 20, 30, 40, 50, 60), lr=0.01, sentences=2048, seed=0, epochs=2, dp=4)
+ATTN_LM = dict(vocab=10000, hidden=256, embed=256, heads=4, batch=16, T=1024, steps=4, lr=0.1)
+FAMILY = dict(dim=64, classes=10, hidden=128, batch=32, batches=8, lr=0.1, sizes=(32, 16, 8),
+              seed=7)
+
+
+def _rel_err(got, want):
+    """max|got - want| over max|want| (1 where want is all zeros)."""
+    scale = max(float(want.abs().max()), 1e-30) if want.numel() else 1.0
+    return float((got - want).abs().max()) / scale if want.numel() else 0.0
+
+
+def rnn_op_case(mode, bidir, dev, cfg=RNN_OP):
+    """Phase 25 (a), one case: the RNN operator (cuDNN) against its plain
+    per-step loop: the output, the final states and the gradients of the
+    data, the blob and the initial states, each to 1e-4 of max|plain|."""
+    import warnings
+
+    import torch
+
+    from mxnet_tpu_torch.ops import registry, rnn_op
+
+    op = registry.get("RNN")
+    L, T, N, I, H = cfg["layers"], cfg["T"], cfg["N"], cfg["I"], cfg["H"]
+    attrs = op.canon_attrs({"mode": mode, "num_layers": L, "state_size": H,
+                            "bidirectional": bidir, "state_outputs": True})
+    dirs = 2 if bidir else 1
+    rng = np.random.default_rng(cfg["seed"])
+    psize = rnn_op._rnn_param_size(L, I, H, bidir, mode)
+    bound = 1.0 / np.sqrt(H)
+    host = [rng.standard_normal((T, N, I)), rng.uniform(-bound, bound, psize),
+            0.5 * rng.standard_normal((L * dirs, N, H))]
+    if mode == "lstm":
+        host.append(0.5 * rng.standard_normal((L * dirs, N, H)))
+    ins = [torch.tensor(a, dtype=torch.float32, device=dev, requires_grad=True) for a in host]
+
+    cot = []  # one random cotangent an output, the same for both runs
+
+    def run(fn):
+        outs = fn(attrs, ins, True)
+        if not cot:
+            cot.extend(torch.tensor(rng.standard_normal(o.shape), dtype=torch.float32,
+                                    device=dev) for o in outs)
+        return list(outs), list(torch.autograd.grad(outs, ins, cot))
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        got = run(op.fcompute)
+    want = run(rnn_op.rnn_reference)
+    names = (["output", "state", "state_cell"][:len(want[0])]
+             + ["d_data", "d_parameters", "d_state", "d_state_cell"][:len(ins)])
+    errs = {n: _rel_err(g, w) for n, g, w in zip(names, got[0] + got[1], want[0] + want[1])}
+    bad = {n: e for n, e in errs.items() if not e <= 1e-4}
+    assert not bad, ("RNN %s bidirectional=%s: kernel vs plain over 1e-4 of max" % (mode, bidir),
+                     bad)
+    # the weights are handed over in cuDNN's own layout: no compaction a call
+    assert not caught, [str(w.message) for w in caught]
+    return {"mode": mode, "bidirectional": bidir, "param_size": psize, "rel_err": errs,
+            "cudnn_weight_warnings": len(caught),
+            "ms": _median_ms(lambda: (run(op.fcompute), torch.cuda.synchronize()), 5),
+            "plain_ms": _median_ms(lambda: (run(rnn_op.rnn_reference), torch.cuda.synchronize()),
+                                   2)}
+
+
+def ptb_iter(mx, sentences, cfg):
+    """The LM's BucketSentenceIter, its batch order and row shuffles from
+    ``cfg["seed"]``. The port's generators are seeded too: a generator
+    made unseeded takes its seed from numpy's stream, which would move
+    the next epoch's shuffle."""
+    import random
+
+    random.seed(cfg["seed"])
+    np.random.seed(cfg["seed"])
+    mx.random.seed(cfg["seed"])
+    return mx.rnn.BucketSentenceIter(sentences, cfg["batch"], buckets=list(cfg["buckets"]))
+
+
+def ptb_module(mx, cfg, stack, ctx):
+    from mxnet_tpu_torch.examples import lstm_bucketing as lb
+
+    cell = lb.make_cell(mx, cfg["hidden"], cfg["layers"], stack)
+    sym_gen = lb.make_sym_gen(mx, cell, cfg["vocab"], cfg["embed"], cfg["hidden"])
+    return mx.mod.BucketingModule(sym_gen, default_bucket_key=max(cfg["buckets"]),
+                                  context=ctx), cell
+
+
+def ptb_fit(mx, dev, cfg, sentences, stack, arg_params, kvstore, ctx, optimizer="adam",
+            epochs=None):
+    """Phase 25 (b), one fit: BucketingModule over the corpus from
+    ``arg_params``; the first batch's loss before any update, ms a batch per
+    bucket (each bucket's first batch left out), the perplexity after each
+    epoch and the peak memory."""
+    import torch
+
+    it = ptb_iter(mx, sentences, cfg)
+    mod, cell = ptb_module(mx, cfg, stack, ctx)
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(initializer=None, arg_params=arg_params, aux_params={})
+    batch0 = it.next()
+    it.curr_idx = 0  # the fit starts from that batch
+    mod.forward(batch0, is_train=False)
+    prob = mod.get_outputs()[0]._data
+    lab = batch0.label[0]._data.reshape(-1).long()
+    keep = lab != 0
+    loss0 = float(-prob[keep.nonzero()[:, 0], lab[keep]].log().mean())
+    mod.switch_bucket(mod._default_bucket_key, None)  # the default bucket owns the optimizer
+    rec = {"t": None, "seen": set(), "ms": {}, "ppl": [], "last": None, "snapshots": []}
+
+    def on_batch(p):
+        torch.cuda.synchronize(dev)
+        now = time.perf_counter()
+        key = p.locals["data_batch"].bucket_key
+        if rec["t"] is not None and key in rec["seen"]:
+            rec["ms"].setdefault(key, []).append((now - rec["t"]) * 1e3)
+        rec["seen"].add(key)
+        rec["t"] = now
+        rec["last"] = p.eval_metric.get()[1]
+
+    def on_epoch(epoch, symbol, arg, aux):
+        rec["ppl"].append(rec["last"])
+        rec["snapshots"].append({k: v.asnumpy() for k, v in arg.items()})
+        rec["t"] = None  # the epoch's end is not a batch
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    epochs = epochs or cfg["epochs"]
+    mod.fit(it, eval_metric=mx.metric.Perplexity(ignore_label=0), kvstore=kvstore,
+            optimizer=optimizer, optimizer_params={"learning_rate": cfg["lr"]},
+            num_epoch=epochs, batch_end_callback=on_batch, epoch_end_callback=on_epoch)
+    torch.cuda.synchronize(dev)
+    fit_s = time.perf_counter() - t0
+    return mod, cell, {
+        "route": "stack" if stack else "fused", "kvstore": kvstore, "optimizer": optimizer,
+        "loss0": loss0, "perplexity": rec["ppl"], "fit_s": fit_s,
+        "batches": len(it.idx) * epochs,
+        "ms_by_bucket": {k: statistics.median(v) for k, v in sorted(rec["ms"].items())},
+        "timed_by_bucket": {k: len(v) for k, v in sorted(rec["ms"].items())},
+        "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+        "snapshots": rec["snapshots"]}
+
+
+def ptb_steps(mx, cfg, sentences, arg_params, kvstore, ctx, steps):
+    """The fused route's first ``steps`` Adam steps by hand (the fit's
+    batches and order); the parameters after them."""
+    it = ptb_iter(mx, sentences, cfg)
+    mod, _ = ptb_module(mx, cfg, False, ctx)
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(initializer=None, arg_params=arg_params, aux_params={})
+    mod.init_optimizer(kvstore=kvstore, optimizer="adam",
+                       optimizer_params={"learning_rate": cfg["lr"]})
+    for _, batch in zip(range(steps), it):
+        mod.forward(batch, is_train=True)
+        mod.backward()
+        mod.update()
+    return {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+
+
+def rnn_checkpoint_round_trip(mx, mod, cell, root, name):
+    """save_rnn_checkpoint then load_rnn_checkpoint: every parameter back
+    bit for bit."""
+    arg, aux = mod.get_params()
+    prefix = os.path.join(root, name)
+    mx.rnn.save_rnn_checkpoint(cell, prefix, 1, mod.symbol, arg, aux)
+    _, arg2, _ = mx.rnn.load_rnn_checkpoint(cell, prefix, 1)
+    assert sorted(arg2) == sorted(arg), (sorted(arg2), sorted(arg))
+    for k, v in arg.items():
+        assert np.array_equal(arg2[k].asnumpy(), v.asnumpy()), "checkpoint round trip: %s" % k
+    return len(arg)
+
+
+def phase_rnn_lm(mx, dev, cfg=PTB):
+    """Phase 25 (b); see the module docstring."""
+    import tempfile
+
+    from mxnet_tpu_torch.examples import lstm_bucketing as lb
+
+    sentences, _ = lb.synthetic_corpus(cfg["vocab"], cfg["sentences"], cfg["seed"])
+    it = ptb_iter(mx, sentences, cfg)
+    fused, fused_cell = ptb_module(mx, cfg, False, mx.gpu(0))
+    fused.bind(it.provide_data, it.provide_label)
+    np.random.seed(cfg["seed"])
+    fused.init_params(mx.init.Xavier(factor_type="in", magnitude=2.34))
+    init = {k: v.copy() for k, v in fused.get_params()[0].items()}
+    stack_cell = lb.make_cell(mx, cfg["hidden"], cfg["layers"], True)
+    # the same weights for the LSTMCell stack: the blob unpacked per gate,
+    # packed per layer
+    init_stack = stack_cell.pack_weights(fused_cell.unpack_weights(init))
+    res, mods = {}, {}
+    root = tempfile.mkdtemp(prefix="chip_smoke_rnn_")
+    for route, stack, args in (("fused", False, init), ("stack", True, init_stack)):
+        mod, cell, run = ptb_fit(mx, dev, cfg, sentences, stack, args, "local", mx.gpu(0))
+        mods[route] = run.pop("snapshots")
+        keys = sorted(mod._buckets)
+        default = mod._buckets[mod._default_bucket_key]
+        other = next(m for k, m in mod._buckets.items() if k != mod._default_bucket_key)
+        assert other._arg_params is default._arg_params, "buckets do not share their params"
+        run["bound_buckets"] = keys
+        run["checkpoint_params_bitwise"] = rnn_checkpoint_round_trip(mx, mod, cell, root, route)
+        assert run["perplexity"][-1] < run["perplexity"][0], (route, run["perplexity"])
+        res[route] = run
+        log("phase 25 (b) %s: loss0 %.6f, perplexity by epoch %s, fit %.2f s over %d batches, "
+            "ms a batch by bucket %s, peak %.2f GiB" % (
+                route, run["loss0"], ["%.3f" % p for p in run["perplexity"]], run["fit_s"],
+                run["batches"], json.dumps({k: round(v, 3)
+                                            for k, v in run["ms_by_bucket"].items()}),
+                run["peak_gib"]))
+    rel = abs(res["fused"]["loss0"] - res["stack"]["loss0"]) / abs(res["stack"]["loss0"])
+    assert rel <= 1e-4, ("first-batch loss, fused vs stack", res["fused"]["loss0"],
+                         res["stack"]["loss0"])
+    res["loss0_rel_diff"] = rel
+    # kvstore="device": each bucket on the fused path, the owner demoted to
+    # the per-parameter update once the other buckets borrow its state. Its
+    # Adam rounds the bias correction in f32, as the JAX package's traced
+    # step does, where the executor path's Updater rounds it in f64 (1 -
+    # 0.999 is 1.3e-5 off in f32), and Adam's normalised steps carry that
+    # on: the divergence from the local run is recorded after each epoch,
+    # and held to 1e-5 after the first batch. SGD's update is the same
+    # arithmetic on both paths: the same batches under SGD hold the demoted
+    # path to the local run at 1e-5 over an epoch.
+    def device_fit(optimizer, epochs):
+        mod, _, run = ptb_fit(mx, dev, cfg, sentences, False, init, "device",
+                              [mx.gpu(0)] * cfg["dp"], optimizer, epochs)
+        owner = mod._buckets[mod._default_bucket_key]
+        assert owner._fused_trainer is not None and owner._fused_trainer.flat_mode is None, \
+            "the device run's owner is not on the demoted fused path"
+        assert all(m._fused_owner is owner for k, m in mod._buckets.items()
+                   if k != mod._default_bucket_key)
+        return run
+
+    def rel_by_epoch(got, want):
+        return [_params_err(g, w) for g, w in zip(got, want)]
+
+    run = device_fit("adam", None)
+    run["rel_err_vs_local_by_epoch"] = rel_by_epoch(run.pop("snapshots"), mods["fused"])
+    run["rel_err_vs_local_first_batch"] = rel_by_epoch(
+        [ptb_steps(mx, cfg, sentences, init, "device", [mx.gpu(0)] * cfg["dp"], 1)],
+        [ptb_steps(mx, cfg, sentences, init, "local", mx.gpu(0), 1)])[0]
+    assert run["perplexity"][-1] < run["perplexity"][0], run["perplexity"]
+    res["device"] = run
+    _, _, sgd_local = ptb_fit(mx, dev, cfg, sentences, False, init, "local", mx.gpu(0), "sgd",
+                              1)
+    sgd = device_fit("sgd", 1)
+    sgd["rel_err_vs_local"] = rel_by_epoch(sgd.pop("snapshots"), sgd_local["snapshots"])[0]
+    res["device_sgd"] = sgd
+    log("phase 25 (b) fused, kvstore device (dp %d, owner demoted): Adam perplexity %s, params "
+        "after each epoch %s of the local run's, after the first batch %.3g; SGD, one epoch: "
+        "%.3g (limits 1e-5 relative)" % (
+            cfg["dp"], ["%.3f" % p for p in run["perplexity"]],
+            ["%.3g" % e for e in run["rel_err_vs_local_by_epoch"]],
+            run["rel_err_vs_local_first_batch"], sgd["rel_err_vs_local"]))
+    assert run["rel_err_vs_local_first_batch"] <= 1e-5, (
+        "device vs local params after one Adam step", run["rel_err_vs_local_first_batch"])
+    assert sgd["rel_err_vs_local"] <= 1e-5, ("device vs local params under SGD",
+                                             sgd["rel_err_vs_local"])
+    return res
+
+
+def phase_attention_lm(kernels, dev, cfg=ATTN_LM):
+    """Phase 25 (c): lstm_attention_lm at its published width, logits and
+    gradients against the same model with the plain attention, then SGD
+    steps with one launch of K4f, K4dq and K4dkv a step."""
+    import torch
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.models import common, lstm
+
+    init_fn, apply_fn = lstm.lstm_attention_lm(cfg["vocab"], cfg["hidden"], cfg["embed"],
+                                               cfg["heads"])
+    params, _ = common.params_from_numpy(init_fn(0), {}, device=dev)
+    for p in params.values():
+        p.requires_grad_()
+    names = sorted(params)
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg["vocab"], (cfg["batch"], cfg["T"] + 1))).to(dev)
+    inp, tgt = tokens[:, :-1], tokens[:, 1:]
+
+    def loss_grads():
+        logits = apply_fn(params, inp)
+        loss = F.cross_entropy(logits.reshape(-1, cfg["vocab"]), tgt.reshape(-1))
+        return logits.detach(), loss.detach(), torch.autograd.grad(loss, [params[n] for n in names])
+
+    logits, loss, grads = loss_grads()
+    dispatch = kernels.attention
+    kernels.attention = lambda q, k, v, causal=False, scale=None, mesh=None: (
+        kernels.reference_attention(q, k, v, causal=causal, scale=scale))
+    try:
+        ref_logits, ref_loss, ref_grads = loss_grads()
+    finally:
+        kernels.attention = dispatch
+    assert logits.shape == (cfg["batch"], cfg["T"], cfg["vocab"])
+    assert bool(torch.isfinite(logits).all())
+    errs = {"logits": _rel_err(logits, ref_logits)}
+    errs.update({"d_" + n: _rel_err(g, w) for n, g, w in zip(names, grads, ref_grads)})
+    bad = {n: e for n, e in errs.items() if not e <= 1e-4}
+    assert not bad, ("lstm_attention_lm kernel vs plain attention over 1e-4 of max", bad)
+    del logits, ref_logits, grads, ref_grads
+    zero_counts(kernels)
+    step_ms, losses = [], []
+    for _ in range(cfg["steps"]):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        _, step_loss, grads = loss_grads()
+        with torch.no_grad():
+            for n, g in zip(names, grads):
+                params[n] -= cfg["lr"] * g
+        torch.cuda.synchronize(dev)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(step_loss))
+    launches = read_counts(kernels)
+    assert launches == dict.fromkeys(launches, cfg["steps"]), launches
+    assert all(np.isfinite(losses)), losses
+    res = {"rel_err": errs, "loss": float(loss), "plain_loss": float(ref_loss),
+           "step_ms": step_ms, "step_losses": losses, "launches": launches,
+           "split_launches": kernels.split_planes.launches,
+           "launches_a_step": {k: v // cfg["steps"] for k, v in launches.items()},
+           "shape": {"B": cfg["batch"], "T": cfg["T"], "H": cfg["heads"],
+                     "D": cfg["hidden"] // cfg["heads"], "vocab": cfg["vocab"]}}
+    log("phase 25 (c) lstm_attention_lm f32 B %d T %d: logits and gradients kernel vs plain "
+        "within %.3g of max (limit 1e-4); SGD steps %s ms, losses %s, launches %s"
+        % (cfg["batch"], cfg["T"], max(errs.values()), ["%.2f" % t for t in step_ms],
+           ["%.4f" % x for x in losses], json.dumps(launches)))
+    return res
+
+
+def _family_data(cfg):
+    rng = np.random.RandomState(cfg["seed"])
+    n = cfg["batch"] * cfg["batches"]
+    centers = rng.randn(cfg["classes"], cfg["dim"]).astype(np.float32)
+    labels = rng.randint(0, cfg["classes"], n)
+    X = (centers[labels] + 0.5 * rng.randn(n, cfg["dim"])).astype(np.float32)
+    return X, labels.astype(np.float32)
+
+
+def _scores(mx, cfg):
+    net = mx.sym.FullyConnected(mx.sym.Variable("data"), num_hidden=cfg["hidden"], name="fc1")
+    net = mx.sym.Activation(net, act_type="relu")
+    return mx.sym.FullyConnected(net, num_hidden=cfg["classes"], name="fc2")
+
+
+def _params_err(got, want):
+    assert sorted(got) == sorted(want), (sorted(got), sorted(want))
+    return max(float(np.abs(got[k] - v).max() / max(np.abs(v).max(), 1e-30))
+               for k, v in want.items())
+
+
+def _host_params(mod):
+    return {k: v.asnumpy() for k, v in mod.get_params()[0].items()}
+
+
+def phase_module_family(mx, dev, cfg=FAMILY):
+    """Phase 25 (d): FeedForward, SequentialModule (with a PythonLossModule)
+    and MutableModule on gpu(0), each against the same run with Module, to
+    1e-5 of each tensor's max."""
+    X, y = _family_data(cfg)
+    res = {}
+    bs, lr = cfg["batch"], cfg["lr"]
+    net = mx.sym.SoftmaxOutput(_scores(mx, cfg), name="softmax")
+    # FeedForward.create, predict, score
+    np.random.seed(0)
+    ff = mx.model.FeedForward.create(net, X, y, ctx=mx.gpu(0), num_epoch=1, optimizer="sgd",
+                                     initializer=mx.init.Xavier(), numpy_batch_size=bs,
+                                     learning_rate=lr)
+    ff_pred = ff.predict(X)
+    ff_score = ff.score(mx.io.NDArrayIter(X, y, batch_size=bs))
+    np.random.seed(0)
+    train = mx.io.NDArrayIter(X, y, batch_size=bs, shuffle=True, last_batch_handle="roll_over")
+    mod = mx.mod.Module(net, context=mx.gpu(0))
+    mod.fit(train, optimizer="sgd", optimizer_params={"learning_rate": lr},
+            initializer=mx.init.Xavier(), num_epoch=1, kvstore="local")
+    pred = mod.predict(mx.io.NDArrayIter(X, y, batch_size=bs)).asnumpy()
+    score = dict(mod.score(mx.io.NDArrayIter(X, y, batch_size=bs), "acc"))["accuracy"]
+    want = _host_params(mod)
+    res["feedforward"] = {
+        "params_rel_err": _params_err({k: v.asnumpy() for k, v in ff.arg_params.items()}, want),
+        "predict_rel_err": float(np.abs(ff_pred - pred).max() / np.abs(pred).max()),
+        "score": ff_score[0], "module_score": score, "batches": cfg["batches"]}
+    assert ff_pred.shape == pred.shape == (len(X), cfg["classes"])
+    assert res["feedforward"]["params_rel_err"] <= 1e-5, res["feedforward"]
+    assert res["feedforward"]["predict_rel_err"] <= 1e-5 and ff_score[0] == score, \
+        res["feedforward"]
+    init = {k: mx.nd.array(v, ctx=mx.cpu()) for k, v in want.items()}
+    shapes = ([("data", (bs, cfg["dim"]))], [("softmax_label", (bs,))])
+
+    def batch(i, n=bs):
+        lo = (i * bs) % len(X)
+        return mx.io.DataBatch(data=[mx.nd.array(X[lo:lo + n])],
+                               label=[mx.nd.array(y[lo:lo + n])])
+
+    def train_steps(m, steps, sizes=(bs,), before=None):
+        for i in range(steps):
+            b = batch(i, sizes[i % len(sizes)])
+            if before is not None:
+                before(m, b)
+            m.forward(b, is_train=True)
+            m.backward()
+            m.update()
+        return m
+
+    def start(m, *bind_shapes):
+        m.bind(*(bind_shapes or shapes))
+        m.init_params(initializer=None, arg_params=init, aux_params={})
+        m.init_optimizer(optimizer="sgd", optimizer_params={"learning_rate": lr})
+        return m
+
+    # SequentialModule: the scores' Module, then a PythonLossModule whose
+    # gradient is SoftmaxOutput's (softmax - onehot)
+    def softmax_grad(scores, labels):
+        return mx.nd.softmax(scores) - mx.nd.one_hot(labels, depth=cfg["classes"])
+
+    seq = mx.mod.SequentialModule()
+    seq.add(mx.mod.Module(_scores(mx, cfg), label_names=[], context=mx.gpu(0)))
+    seq.add(mx.mod.PythonLossModule(grad_func=softmax_grad), take_labels=True,
+            auto_wiring=True)
+    train_steps(start(seq), cfg["batches"])
+    ref = train_steps(start(mx.mod.Module(net, context=mx.gpu(0))), cfg["batches"])
+    res["sequential"] = {"params_rel_err": _params_err(_host_params(seq), _host_params(ref)),
+                         "steps": cfg["batches"]}
+    assert res["sequential"]["params_rel_err"] <= 1e-5, res["sequential"]
+    # MutableModule over batches of changing size, against Module.reshape
+    sizes = cfg["sizes"]
+    mm = mx.mod.MutableModule(net, ["data"], ["softmax_label"], context=mx.gpu(0),
+                              max_data_shapes=shapes[0], max_label_shapes=shapes[1])
+    train_steps(start(mm), cfg["batches"], sizes)
+
+    def reshape(m, b):
+        m.reshape([("data", b.data[0].shape)], [("softmax_label", b.label[0].shape)])
+
+    ref = train_steps(start(mx.mod.Module(net, context=mx.gpu(0))), cfg["batches"], sizes,
+                      before=reshape)
+    res["mutable"] = {"params_rel_err": _params_err(_host_params(mm), _host_params(ref)),
+                      "shape_modules": len(mm._shape_modules), "batch_sizes": list(sizes),
+                      "steps": cfg["batches"]}
+    assert res["mutable"]["shape_modules"] == len(sizes), res["mutable"]
+    assert res["mutable"]["params_rel_err"] <= 1e-5, res["mutable"]
+    log("phase 25 (d) FeedForward / SequentialModule / MutableModule vs Module on gpu(0): %s"
+        % json.dumps(res))
+    return res
+
+
+def phase_rnn(mx, kernels, dev):
+    """Phase 25; see the module docstring. Every part runs; the phase fails
+    after them if any failed."""
+    import traceback
+
+    res = {"a": []}
+    faults = []
+
+    def part(name, fn, *args):
+        try:
+            return fn(*args)
+        except Exception as e:  # reported with the others at the end of the phase
+            faults.append("%s: %s: %s" % (name, type(e).__name__, e))
+            log("phase 25 (%s) FAILED:\n%s" % (name, traceback.format_exc()))
+            return None
+
+    t0 = time.perf_counter()
+    for mode, bidir in RNN_OP_CASES:
+        row = part("a", rnn_op_case, mode, bidir, dev)
+        if row is None:
+            continue
+        res["a"].append(row)
+        log("phase 25 (a) RNN %s%s T %d N %d I %d H %d x%d layers f32: op (cuDNN) vs plain "
+            "loop, worst %.3g of max (limit 1e-4); fwd+bwd %.3f ms (plain %.3f); cuDNN "
+            "weight warnings %d" % (
+                mode, " bidirectional" if bidir else "", RNN_OP["T"], RNN_OP["N"],
+                RNN_OP["I"], RNN_OP["H"], RNN_OP["layers"],
+                max(res["a"][-1]["rel_err"].values()), res["a"][-1]["ms"],
+                res["a"][-1]["plain_ms"], res["a"][-1]["cudnn_weight_warnings"]))
+    res["b"] = part("b", phase_rnn_lm, mx, dev)
+    res["c"] = part("c", phase_attention_lm, kernels, dev)
+    res["d"] = part("d", phase_module_family, mx, dev)
+    res["phase_s"] = time.perf_counter() - t0
+    log("phase 25: %.1f s" % res["phase_s"])
+    assert not faults, "phase 25: " + "; ".join(faults)
+    res["launches"] = res["c"]["launches"]
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every phase's numbers to this JSON file")
     ap.add_argument("--package", help="import mxnet_tpu_torch from this checkout instead of the "
                     "one beside this script (to run this script's phases on another tree)")
     ap.add_argument("--only", choices=("f32_lm", "rtc", "slab", "zoo", "multistep", "serving",
-                                       "resilience", "input"),
+                                       "resilience", "input", "rnn"),
                     help="f32_lm: build, phase 19 and phase 8's attention kernel times only; "
                     "rtc: K5's push path on ResNet-50's parameter arrays only; slab: K1's "
                     "build, phases 16-18 and K1's times only; zoo: K2/K3's build and "
                     "phase 20 only; multistep: K1-K3's build and phase 21 only; serving: "
                     "the flash forward's build and phase 22 only (on a package without "
                     "predict, only (d) and its continuations' digest); resilience: K1-K3's "
-                    "build and phase 23 only; input: K1-K3's build and phase 24 only")
+                    "build and phase 23 only; input: K1-K3's build and phase 24 only; rnn: the "
+                    "flash kernels' build and phase 25 only")
     ap.add_argument("--resilience-worker", metavar="SPEC", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
@@ -4534,6 +5060,11 @@ def main(argv=None):
         _build.build(["conv_bwd_filter", "slab_update"])
         results["build_s"] = time.perf_counter() - t0
         results["input"] = phase_input(mx, kernels, dev, package)
+    if args.only == "rnn":
+        t0 = time.perf_counter()
+        _build.build(["flash_attn_fwd", "flash_split", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"])
+        results["build_s"] = time.perf_counter() - t0
+        results["rnn"] = phase_rnn(mx, kernels, dev)
     if args.only:
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -4578,6 +5109,7 @@ def main(argv=None):
     results["resilience"] = resil = phase_resilience(mx, kernels, dev, package,
                                                      resnet50_amp_plan(mx, resnet))
     results["input"] = inp = phase_input(mx, kernels, dev, package, measure=False)
+    results["rnn"] = rnn = phase_rnn(mx, kernels, dev)
     multi_launches = multistep_launches(multi)
     resil_launches = resil["launches_resumed_runs"]
     input_launches = inp["launches"]
@@ -4595,13 +5127,20 @@ def main(argv=None):
     f32_launches["flash_attn_fwd"] += results["serving_f32"]["launches"]
     fwd = phase_kernel_times(kernels, dev, results["serving_bf16"]["flash_launches"],
                              f32_launches["flash_attn_fwd"])
-    # the forward kernel runs on both main paths
-    # the forward kernel runs on both main paths; serving counts phase 6's and
-    # phase 22's prefills
+    # the forward kernel runs on the serving, training and rnn paths; serving
+    # counts phase 6's and phase 22's prefills
     serve_launches = fwd[0]["launches"] + results["serving"]["d"]["flash_launches"]
+    rnn_launches = rnn["launches"]  # phase 25 (c): f32 kernels, on the rnn path
     fwd[0]["launches_by_path"] = {"serving": serve_launches,
-                                  "training": train_launches["flash_attn_fwd"]}
-    fwd[0]["launches"] = serve_launches + train_launches["flash_attn_fwd"]
+                                  "training": train_launches["flash_attn_fwd"],
+                                  "rnn": rnn_launches["flash_attn_fwd"]}
+    fwd[0]["launches"] = (serve_launches + train_launches["flash_attn_fwd"]
+                          + rnn_launches["flash_attn_fwd"])
+    bwd = phase_bwd_times(kernels, dev, train_launches, f32_launches)
+    for entry in bwd:
+        entry["launches_by_path"] = {"training": entry["launches"],
+                                     "rnn": rnn_launches[entry["name"]]}
+        entry["launches"] += rnn_launches[entry["name"]]
     conv_entries = phase_conv_times(kernels, resnet, dev, conv_launches, conv_errs)
     for entry in conv_entries:
         # phase 20: the zoo's training launches and inception-v3's f32 step
@@ -4609,8 +5148,7 @@ def main(argv=None):
         entry["zoo"] = {"launches": zoo_launches[entry["name"]],
                         "inception_v3_f32_step": {k: v for k, v in step.items()
                                                   if k != "shapes"}}
-    kernel_line = {"kernels": fwd + phase_bwd_times(kernels, dev, train_launches, f32_launches)
-                   + conv_entries
+    kernel_line = {"kernels": fwd + bwd + conv_entries
                    + phase_rtc_times(mx, rk, rtc_runs, results["rtc_training"], dev)
                    + [results.pop("k1_entry")],
                    "card": card}

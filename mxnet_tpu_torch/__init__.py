@@ -12,13 +12,18 @@ and ``tools.resnet_bench`` (bench.py's ResNet-50 step); the imperative API
 ``Executor`` (``bind`` / ``simple_bind`` / forward / backward);
 ``rtc``, CUDA C kernels compiled at run time by NVRTC; and the training
 stack: ``init``, ``optimizer``, ``lr_scheduler``, ``metric``, ``callback``,
-``io``, ``kv``, ``model`` and ``mod.Module`` with its ``fit`` loop, whose
+``io``, ``kv``, ``model`` (with the deprecated ``FeedForward``) and
+``mod.Module`` with its ``fit`` loop (and ``BucketingModule``,
+``SequentialModule``, ``PythonModule`` / ``PythonLossModule`` and
+``MutableModule`` over it; ``executor_manager``), whose
 fused data-parallel path runs over a ``parallel.make_mesh`` of logical
 ranks on one device (``parallel.ShardedTrainStep``); and the serving
 surface: ``predict.Predictor`` (one captured CUDA graph a batch bucket on
 the card), bundles, ``serving.ServingEngine``, int8 ``serving.quant`` and
 ``tools.serve``; and ``resilience``: atomic checkpoints, preemption and
-crash resume, fault injection, retries and the guardrails of ``fit``.
+crash resume, fault injection, retries and the guardrails of ``fit``; and
+``rnn``: the symbolic RNN cells over the fused ``RNN`` operator (cuDNN on
+the card), ``BucketSentenceIter`` and the RNN checkpoint helpers.
 
 Attention runs the hand-written CUDA flash-attention forward
 (``csrc/flash_attn_fwd.cu``) and its gradient the dq and dk/dv kernels
@@ -70,3 +75,5 @@ from . import predict  # noqa: F401
 from . import serving  # noqa: F401
 from . import resilience  # noqa: F401
 from . import engine, image, io_pipeline, native, recordio  # noqa: F401
+from . import rnn  # noqa: F401
+from . import executor_manager  # noqa: F401

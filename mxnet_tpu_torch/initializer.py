@@ -5,7 +5,8 @@ LSTMBias / Load / Mixed / Zero / One / Constant initializers.
 
 Random initializers draw from numpy's global generator exactly as the JAX
 package's do, so one ``np.random.seed`` gives the same initial weights in
-both packages. ``FusedRNN`` waits for the RNN cells (``mxnet_tpu/rnn``).
+both packages. ``FusedRNN`` initializes a fused RNN blob through the RNN
+cells (``rnn/rnn_cell.py``).
 """
 from __future__ import annotations
 
@@ -272,9 +273,39 @@ class LSTMBias(Initializer):
 
 @register
 class FusedRNN(Initializer):
-    """Not ported: it unpacks a fused RNN blob through the RNN cells."""
+    """A fused RNN blob: unpacked into its per-gate arrays, each
+    initialized by name with ``init`` (the global initializer when None),
+    and packed again."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "FusedRNN initializer is not ported to PyTorch yet: it needs the RNN "
-            "cells of mxnet_tpu/rnn/rnn_cell.py (mxnet_tpu/initializer.py:282)")
+    def __init__(self, init, num_hidden, num_layers, mode, bidirectional=False,
+                 forget_bias=1.0):
+        if isinstance(init, str):
+            klass, kwargs = json.loads(init)
+            init = _INIT_REGISTRY[klass.lower()](**kwargs)
+        super().__init__(init=init.dumps() if init is not None else None,
+                         num_hidden=num_hidden, num_layers=num_layers, mode=mode,
+                         bidirectional=bidirectional, forget_bias=forget_bias)
+        self._init = init
+        self._num_hidden = num_hidden
+        self._num_layers = num_layers
+        self._mode = mode
+        self._bidirectional = bidirectional
+        self._forget_bias = forget_bias
+
+    def _init_weight(self, desc, arr):
+        from .rnn.rnn_cell import FusedRNNCell
+
+        cell = FusedRNNCell(self._num_hidden, self._num_layers, self._mode,
+                            self._bidirectional, forget_bias=self._forget_bias)
+        args = cell.unpack_weights({cell._parameter.name: arr})
+        for name, a in args.items():
+            # the slices dispatch by their own names: without the blob's
+            # __init__ attr, or they would recurse into this initializer
+            attrs = dict(getattr(desc, "attrs", {}) or {})
+            attrs.pop("__init__", None)
+            desc2 = InitDesc(name, attrs)
+            if self._init is None:
+                (getattr(desc, "global_init", None) or Uniform())(desc2, a)
+            else:
+                self._init(desc2, a)
+        arr[:] = cell.pack_weights(args)[cell._parameter.name]

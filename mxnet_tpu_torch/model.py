@@ -3,8 +3,9 @@
 ``_initialize_kvstore``, ``_update_params_on_kvstore``, ``_update_params``
 (the update routing ``Module.init_optimizer`` / ``update`` rely on) and
 ``save_checkpoint`` / ``load_checkpoint`` (``prefix-symbol.json`` plus the
-dmlc ``.params`` bytes, readable by either package, written atomically). ``FeedForward`` is
-not ported yet."""
+dmlc ``.params`` bytes, readable by either package, written atomically) and
+the deprecated ``FeedForward`` trainer over ``Module`` (``model.py:142-288``
+there)."""
 from __future__ import annotations
 
 import logging
@@ -12,9 +13,14 @@ from collections import namedtuple
 
 import numpy as np
 
+from . import initializer as init
+from . import io as mxio
+from . import metric as metric_mod
 from . import ndarray as nd
 from . import symbol as sym
+from .context import Context, current_context
 from .kvstore import KVStore
+from .ndarray import NDArray
 
 BatchEndParam = namedtuple("BatchEndParams", ["epoch", "nbatch", "eval_metric", "locals"])
 
@@ -112,9 +118,127 @@ def load_checkpoint(prefix, epoch):
 
 
 class FeedForward:
-    """Not ported yet: the deprecated trainer over Module."""
+    """The deprecated high-level trainer, a thin veneer over ``Module``:
+    ``fit`` / ``predict`` / ``score`` on numpy arrays or a DataIter,
+    ``save`` / ``load`` through the checkpoint format and ``create``.
+    Keyword arguments it does not name are the optimizer's parameters."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "FeedForward is not ported to PyTorch yet (mxnet_tpu/model.py:142); "
-            "use mx.mod.Module")
+    def __init__(self, symbol, ctx=None, num_epoch=None, epoch_size=None, optimizer="sgd",
+                 initializer=init.Uniform(0.01), numpy_batch_size=128, arg_params=None,
+                 aux_params=None, allow_extra_params=False, begin_epoch=0, **kwargs):
+        self.symbol = symbol
+        if ctx is None:
+            ctx = [current_context()]
+        elif isinstance(ctx, Context):
+            ctx = [ctx]
+        self.ctx = ctx
+        self.num_epoch = num_epoch
+        self.epoch_size = epoch_size
+        self.kwargs = kwargs.copy()
+        self.optimizer = optimizer
+        self.initializer = initializer
+        self.numpy_batch_size = numpy_batch_size
+        self.arg_params = arg_params
+        self.aux_params = aux_params
+        self.allow_extra_params = allow_extra_params
+        self.begin_epoch = begin_epoch
+        self._module = None
+
+    def _make_module(self, data):
+        from .module import Module
+
+        data_names = [d[0] for d in data.provide_data]
+        label_names = [lab[0] for lab in data.provide_label] or ["softmax_label"]
+        self._module = Module(self.symbol, data_names=data_names, label_names=label_names,
+                              context=self.ctx)
+        return self._module
+
+    def fit(self, X, y=None, eval_data=None, eval_metric="acc", epoch_end_callback=None,
+            batch_end_callback=None, kvstore="local", logger=None, work_load_list=None,
+            monitor=None, eval_end_callback=None, eval_batch_end_callback=None):
+        data = self._init_iter(X, y, is_train=True)
+        mod = self._make_module(data)
+        mod.fit(data, eval_data=eval_data, eval_metric=eval_metric,
+                epoch_end_callback=epoch_end_callback, batch_end_callback=batch_end_callback,
+                kvstore=kvstore, optimizer=self.optimizer, optimizer_params=dict(self.kwargs),
+                initializer=self.initializer, arg_params=self.arg_params,
+                aux_params=self.aux_params, allow_missing=self.allow_extra_params,
+                begin_epoch=self.begin_epoch, num_epoch=self.num_epoch or 1, monitor=monitor)
+        self.arg_params, self.aux_params = mod.get_params()
+
+    def _bound_for_inference(self, data, label_shapes):
+        """The trained module, or a new one bound for inference with this
+        model's params (or fresh ones from its initializer)."""
+        if self._module is None or not self._module.binded:
+            mod = self._make_module(data)
+            mod.bind(data.provide_data, label_shapes, for_training=False)
+            if self.arg_params is not None:
+                mod.set_params(self.arg_params, self.aux_params or {}, allow_missing=False)
+            else:
+                mod.init_params(self.initializer)
+        return self._module
+
+    def predict(self, X, num_batch=None, return_data=False, reset=True):
+        """The first output over ``X``, as one numpy array (padding rows
+        dropped)."""
+        data = self._init_iter(X, None, is_train=False)
+        if reset:
+            data.reset()
+        mod = self._bound_for_inference(data, data.provide_label or None)
+        outputs = []
+        for nbatch, batch in enumerate(data):
+            if num_batch is not None and nbatch == num_batch:
+                break
+            mod.forward(batch, is_train=False)
+            out = mod.get_outputs()[0]
+            outputs.append(out.asnumpy()[:out.shape[0] - (batch.pad or 0)])
+        return np.concatenate(outputs)
+
+    def score(self, X, eval_metric="acc", num_batch=None, batch_end_callback=None, reset=True):
+        data = self._init_iter(X, None, is_train=False)
+        if reset:
+            data.reset()
+        mod = self._bound_for_inference(data, data.provide_label)
+        em = metric_mod.create(eval_metric)
+        res = mod.score(data, em, num_batch=num_batch)
+        return [v for _, v in res]
+
+    def _init_iter(self, X, y, is_train):
+        if isinstance(X, mxio.DataIter):
+            return X
+        if isinstance(X, (np.ndarray, NDArray)):
+            if y is None:
+                y = np.zeros(X.shape[0])
+            return mxio.NDArrayIter(
+                X if isinstance(X, np.ndarray) else X.asnumpy(),
+                y if isinstance(y, np.ndarray) else y.asnumpy(),
+                batch_size=self.numpy_batch_size, shuffle=is_train,
+                last_batch_handle="roll_over" if is_train else "pad")
+        raise TypeError("X must be DataIter or numpy/NDArray")
+
+    def save(self, prefix, epoch=None):
+        if epoch is None:
+            epoch = self.num_epoch
+        save_checkpoint(prefix, epoch, self.symbol, self.arg_params or {},
+                        self.aux_params or {})
+
+    @staticmethod
+    def load(prefix, epoch, ctx=None, **kwargs):
+        symbol, arg_params, aux_params = load_checkpoint(prefix, epoch)
+        return FeedForward(symbol, ctx=ctx, arg_params=arg_params, aux_params=aux_params,
+                           begin_epoch=epoch, **kwargs)
+
+    @staticmethod
+    def create(symbol, X, y=None, ctx=None, num_epoch=None, epoch_size=None, optimizer="sgd",
+               initializer=init.Uniform(0.01), eval_data=None, eval_metric="acc",
+               epoch_end_callback=None, batch_end_callback=None, kvstore="local", logger=None,
+               work_load_list=None, eval_end_callback=None, eval_batch_end_callback=None,
+               **kwargs):
+        model = FeedForward(symbol, ctx=ctx, num_epoch=num_epoch, epoch_size=epoch_size,
+                            optimizer=optimizer, initializer=initializer, **kwargs)
+        model.fit(X, y, eval_data=eval_data, eval_metric=eval_metric,
+                  epoch_end_callback=epoch_end_callback, batch_end_callback=batch_end_callback,
+                  kvstore=kvstore, logger=logger, work_load_list=work_load_list,
+                  eval_end_callback=eval_end_callback,
+                  eval_batch_end_callback=eval_batch_end_callback)
+        return model

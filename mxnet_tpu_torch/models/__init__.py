@@ -4,6 +4,9 @@ the JAX package's ``models/__init__.py`` does). ``transformer``: the dense
 transformer LM and its KV-cached serving twin. ``resnet``: ResNet v2. The
 image-classification zoo: ``alexnet``, ``vgg``, ``googlenet``,
 ``inception_bn``, ``inception_v3``, ``inception_resnet_v2``, ``resnext``.
-``mlp`` and ``lenet``: the MNIST symbols. ``common``: the parameter
+``mlp`` and ``lenet``: the MNIST symbols. ``lstm``: the PTB LSTM LMs
+(``lstm_unroll`` and ``BucketingLSTMModel`` are exported here, as the JAX
+package exports them, and ``lstm_attention_lm``). ``common``: the parameter
 initialisation, the numpy <-> torch carriage and the convolution list they
 share."""
+from .lstm import BucketingLSTMModel, lstm_unroll  # noqa: F401

@@ -1,0 +1,240 @@
+"""BucketingModule of the PyTorch port (counterpart of
+``mxnet_tpu/module/bucketing_module.py``): training over inputs of
+varying length through one Module a bucket key. The default bucket's
+module owns the parameters; every other bucket binds on first sight of
+its key with ``shared_module`` set to it (same parameter arrays) and
+borrows its optimizer (``Module.borrow_optimizer``; on the fused path the
+owner's trainer state, demoted to the per-parameter update). ``fit``
+groups no steps under ``MXNET_FIT_MULTISTEP`` here: a BucketingModule has
+no fused trainer of its own, as in the JAX package.
+"""
+from __future__ import annotations
+
+import logging
+
+from ..initializer import Uniform
+from ..serving import buckets as _buckets
+from .base_module import BaseModule
+from .module import Module
+
+
+class BucketingModule(BaseModule):
+    """Routes every call to the active bucket's Module; buckets bind
+    lazily on first sight of their key, sharing the default bucket's
+    parameters and optimizer."""
+
+    def __init__(self, sym_gen, default_bucket_key=None, logger=logging,
+                 context=None, work_load_list=None, fixed_param_names=None,
+                 bucket_keys=None):
+        super().__init__(logger=logger)
+        assert default_bucket_key is not None
+        self._sym_gen = sym_gen
+        self._default_bucket_key = default_bucket_key
+        # optional integer bucket ladder for covering_bucket_key();
+        # selection itself lives in serving/buckets.py, shared with the
+        # serving request queue and BucketSentenceIter
+        self._bucket_keys = sorted(bucket_keys) if bucket_keys else None
+        self._module_kwargs = dict(
+            logger=logger, context=context, work_load_list=work_load_list,
+            fixed_param_names=fixed_param_names)
+        self._reset_bind()
+        self._params_dirty = False
+
+    @property
+    def bucket_keys(self):
+        return list(self._bucket_keys) if self._bucket_keys else None
+
+    def covering_bucket_key(self, size):
+        """Smallest configured bucket key that covers ``size`` — the
+        rule a caller (data iterator or serving queue) uses to route a
+        variable-length batch to an already-bound bucket instead of
+        forcing a fresh bind per exact length."""
+        if self._bucket_keys is None:
+            raise ValueError(
+                "covering_bucket_key needs bucket_keys=[...] at "
+                "construction")
+        key = _buckets.covering_value(self._bucket_keys, size)
+        if key is None:
+            raise ValueError(
+                "size %d exceeds the largest bucket key %d"
+                % (size, self._bucket_keys[-1]))
+        return key
+
+    # -- plumbing -------------------------------------------------------
+    def _reset_bind(self):
+        self.binded = False
+        self._buckets = {}
+        self._curr_module = None
+        self._curr_bucket_key = None
+
+    def _call_sym_gen(self, bucket_key):
+        return self._sym_gen(bucket_key)
+
+    def _make_module(self, bucket_key):
+        symbol, data_names, label_names = self._call_sym_gen(bucket_key)
+        return Module(symbol, data_names, label_names,
+                      **self._module_kwargs)
+
+    def _active(self, need_params=True):
+        assert self.binded
+        if need_params:
+            assert self.params_initialized
+        return self._curr_module
+
+    # -- introspection --------------------------------------------------
+    @property
+    def data_names(self):
+        if self.binded:
+            return self._curr_module.data_names
+        return self._call_sym_gen(self._default_bucket_key)[1]
+
+    @property
+    def output_names(self):
+        if self.binded:
+            return self._curr_module.output_names
+        return self._call_sym_gen(self._default_bucket_key)[0].list_outputs()
+
+    @property
+    def data_shapes(self):
+        return self._active(False).data_shapes
+
+    @property
+    def label_shapes(self):
+        return self._active(False).label_shapes
+
+    @property
+    def output_shapes(self):
+        return self._active(False).output_shapes
+
+    @property
+    def symbol(self):
+        return self._active(False).symbol
+
+    # -- parameters -----------------------------------------------------
+    def get_params(self):
+        mod = self._active()
+        mod._params_dirty = self._params_dirty
+        self._params_dirty = False
+        return mod.get_params()
+
+    def set_params(self, arg_params, aux_params, allow_missing=False,
+                   force_init=True):
+        if not allow_missing:
+            self.init_params(initializer=None, arg_params=arg_params,
+                             aux_params=aux_params,
+                             allow_missing=allow_missing,
+                             force_init=force_init)
+            return
+        if self.params_initialized and not force_init:
+            self.logger.warning(
+                "Parameters already initialized and force_init=False. "
+                "set_params call ignored.")
+            return
+        self._curr_module.set_params(arg_params, aux_params,
+                                     allow_missing=allow_missing,
+                                     force_init=force_init)
+        self._params_dirty = False
+        self.params_initialized = True
+
+    def init_params(self, initializer=Uniform(0.01), arg_params=None,
+                    aux_params=None, allow_missing=False, force_init=False):
+        if self.params_initialized and not force_init:
+            return
+        assert self.binded, "call bind before initializing the parameters"
+        self._curr_module.init_params(
+            initializer=initializer, arg_params=arg_params,
+            aux_params=aux_params, allow_missing=allow_missing,
+            force_init=force_init)
+        self._params_dirty = False
+        self.params_initialized = True
+
+    def get_states(self, merge_multi_context=True):
+        self._active()
+        return []
+
+    # -- binding / bucket switching --------------------------------------
+    def bind(self, data_shapes, label_shapes=None, for_training=True,
+             inputs_need_grad=False, force_rebind=False, shared_module=None,
+             grad_req="write"):
+        """Bind the DEFAULT bucket; other buckets attach on demand."""
+        assert shared_module is None, (
+            "shared_module for BucketingModule is not supported")
+        if force_rebind:
+            self._reset_bind()
+        if self.binded:
+            self.logger.warning("Already binded, ignoring bind()")
+            return
+        self.for_training = for_training
+        self.inputs_need_grad = inputs_need_grad
+        self.binded = True
+
+        module = self._make_module(self._default_bucket_key)
+        module.bind(data_shapes, label_shapes, for_training,
+                    inputs_need_grad, force_rebind=False,
+                    shared_module=None, grad_req=grad_req)
+        self._buckets[self._default_bucket_key] = module
+        self._curr_module = module
+        self._curr_bucket_key = self._default_bucket_key
+
+    def switch_bucket(self, bucket_key, data_shapes, label_shapes=None):
+        """Make ``bucket_key`` active, binding it against the default
+        bucket's module (param sharing) the first time it appears."""
+        assert self.binded, "call bind before switching bucket"
+        if bucket_key not in self._buckets:
+            module = self._make_module(bucket_key)
+            module.bind(data_shapes, label_shapes,
+                        self._curr_module.for_training,
+                        self._curr_module.inputs_need_grad,
+                        force_rebind=False,
+                        shared_module=self._buckets[
+                            self._default_bucket_key])
+            self._buckets[bucket_key] = module
+        self._curr_module = self._buckets[bucket_key]
+        self._curr_bucket_key = bucket_key
+
+    # -- training loop surface -------------------------------------------
+    def init_optimizer(self, kvstore="local", optimizer="sgd",
+                       optimizer_params=(("learning_rate", 0.01),),
+                       force_init=False):
+        self._active()
+        if self.optimizer_initialized and not force_init:
+            self.logger.warning("optimizer already initialized, ignoring.")
+            return
+        self._curr_module.init_optimizer(kvstore, optimizer,
+                                         optimizer_params,
+                                         force_init=force_init)
+        for mod in self._buckets.values():
+            if mod is not self._curr_module:
+                mod.borrow_optimizer(self._curr_module)
+        self.optimizer_initialized = True
+
+    def forward(self, data_batch, is_train=None):
+        self._active()
+        self.switch_bucket(data_batch.bucket_key, data_batch.provide_data,
+                           data_batch.provide_label)
+        self._curr_module.forward(data_batch, is_train=is_train)
+
+    def backward(self, out_grads=None):
+        self._active().backward(out_grads=out_grads)
+
+    def update(self):
+        assert self.optimizer_initialized
+        self._params_dirty = True
+        self._active().update()
+
+    def get_outputs(self, merge_multi_context=True):
+        return self._active().get_outputs(
+            merge_multi_context=merge_multi_context)
+
+    def get_input_grads(self, merge_multi_context=True):
+        assert self.inputs_need_grad
+        return self._active().get_input_grads(
+            merge_multi_context=merge_multi_context)
+
+    def update_metric(self, eval_metric, labels):
+        self._active().update_metric(eval_metric, labels)
+
+    def install_monitor(self, mon):
+        assert self.binded
+        for mod in self._buckets.values():
+            mod.install_monitor(mon)

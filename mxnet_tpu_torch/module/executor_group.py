@@ -54,6 +54,14 @@ def _load_general(data, targets):
                 d_src[slice_idx].copyto(d_dst)
 
 
+def _load_data(batch, targets):
+    _load_general(batch.data, targets)
+
+
+def _load_label(batch, targets):
+    _load_general(batch.label, targets)
+
+
 def _merge_multi_context(outputs):
     """Per-device outputs concatenated along the batch on the first
     device."""

@@ -23,7 +23,7 @@ from .base import MXNetError, attr_repr, dtype_name, np_dtype, parse_attr_value
 from .name import NameManager
 from .ops.utils import merge_shapes
 from .ops import (broadcast_reduce, elemwise, indexing, init_ops, matrix, nn,  # noqa: F401
-                  optimizer_ops, sample)  # (registers the ported operators)
+                  optimizer_ops, rnn_op, sample)  # (registers the ported operators)
 from .ops import registry as _registry
 
 __all__ = ["Symbol", "Variable", "Group", "load", "load_json", "var"]
@@ -654,6 +654,12 @@ def _init_symbol_module():
 
 
 _init_symbol_module()
+
+
+def zeros(shape, dtype=None, name=None, **kwargs):
+    """A ``_zeros`` node; a 0 in ``shape`` is inferred at bind (an RNN
+    cell's begin state takes its batch size so)."""
+    return _create_symbol("_zeros", [], {"shape": shape, "dtype": dtype or "float32"}, name=name)
 
 
 def __getattr__(name):

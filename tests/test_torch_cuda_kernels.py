@@ -1052,3 +1052,44 @@ def test_cuda_device_feed_stages_pinned_copies_bitwise(monkeypatch):
     feed.skip(2)
     np.testing.assert_array_equal(feed.next().data[0].asnumpy(), want[3])
     assert 0 < len(pinned) <= 2 * (feed.depth + 1), len(pinned)
+
+
+@pytest.mark.cuda
+def test_cuda_rnn_op_reads_cudnn_layout_and_matches_plain_loop():
+    """On the card: the RNN operator hands cuDNN its weights at cuDNN's own
+    offsets (no compaction warning) and its outputs and gradients match
+    the plain per-step loop to 1e-4 of max, one and two directions."""
+    from mxnet_tpu_torch.ops import registry, rnn_op
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator().manual_seed(8)
+    op = registry.get("RNN")
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # f32 products, as the plain loop's
+    try:
+        _rnn_cases(op, rnn_op, g)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+def _rnn_cases(op, rnn_op, g):
+    import warnings
+
+    for mode, bidir in (("lstm", False), ("gru", True)):
+        attrs = op.canon_attrs({"mode": mode, "num_layers": 2, "state_size": 24,
+                                "bidirectional": bidir, "state_outputs": True})
+        dirs = 2 if bidir else 1
+        shapes = [(9, 4, 16), (rnn_op._rnn_param_size(2, 16, 24, bidir, mode),),
+                  (2 * dirs, 4, 24)] + ([(2 * dirs, 4, 24)] if mode == "lstm" else [])
+        ins = [(0.3 * torch.randn(s, generator=g)).cuda().requires_grad_() for s in shapes]
+        got, want = [], []
+        for fn, out in ((op.fcompute, got), (rnn_op.rnn_reference, want)):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                outs = fn(attrs, ins, True)
+                out.extend(list(outs) + list(torch.autograd.grad([o.sum() for o in outs], ins)))
+            if fn is op.fcompute:
+                assert not caught, [str(w.message) for w in caught]
+        for a, b in zip(got, want):
+            assert (a - b).abs().max().item() <= 1e-4 * max(b.abs().max().item(), 1e-30)

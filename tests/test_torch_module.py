@@ -217,8 +217,13 @@ def test_unported_surface_raises():
         tmx.kv.create("dist_sync")
     with pytest.raises(NotImplementedError, match="mxnet_tpu/kvstore.py"):
         tmx.kvstore.GradBucketer(1024)
-    with pytest.raises(NotImplementedError, match="mxnet_tpu/model.py"):
-        tmx.model.FeedForward(_mlp(tmx))
+    # FeedForward is ported (tests/test_torch_feedforward.py): it constructs
+    # and fits one batch
+    X, y = _data(False, n=16)
+    ff = tmx.model.FeedForward(_mlp(tmx), ctx=tmx.cpu(), num_epoch=1, numpy_batch_size=16,
+                               learning_rate=0.1)
+    ff.fit(X, y)
+    assert ff.arg_params["fc3_weight"].shape == (10, 16)
     with pytest.raises(NotImplementedError, match="module.py"):
         tmx.mod.Module(_mlp(tmx), context=tmx.cpu(), param_specs={"fc1_weight": ("tp",)})
     mesh = tmx.parallel.make_mesh(dp=2, devices=[tmx.cpu()] * 2)

@@ -20,14 +20,14 @@ from mxnet_tpu.ops import registry as jreg
 from mxnet_tpu_torch.ops import registry as treg
 
 # the JAX package's operators the port does not register yet (ROADMAP,
-# Queue 1): its ops/spatial.py, contrib/ops.py, Custom and RNN
+# Queue 1): its ops/spatial.py, contrib/ops.py and Custom
 STILL_MISSING = {
     "BilinearSampler", "Correlation", "GridGenerator", "SpatialTransformer",
     "IdentityAttachKLSparseReg",
     "CTCLoss", "ROIPooling", "_contrib_MultiBoxDetection", "_contrib_MultiBoxPrior",
     "_contrib_MultiBoxTarget", "_contrib_Proposal", "_contrib_SwitchMoE",
     "count_sketch", "fft", "ifft", "quantize", "dequantize",
-    "Custom", "RNN",
+    "Custom",
 }
 # the operators of this file, all from mxnet_tpu/ops/nn.py
 NN_OPS = (
@@ -227,7 +227,7 @@ def test_shape_inference_matches_jax(cid):
 
 def test_registry_is_jax_minus_the_operators_still_missing():
     """The port registers every primary operator of the JAX package but the
-    19 of spatial.py, contrib/ops.py, Custom and RNN, and the 20 of this
+    18 of spatial.py, contrib/ops.py and Custom, and the 20 of this
     file carry JAX's metadata."""
     jops = {op.name: op for op in jreg.primary_ops()}
     tops = {op.name: op for op in treg.primary_ops()}
