@@ -11,6 +11,7 @@
     python3 chip_smoke.py --only resilience            # K1-K3's build and phase 23
     python3 chip_smoke.py --only input                 # K1-K3's build and phase 24
     python3 chip_smoke.py --only rnn                   # the flash kernels' build and phase 25
+    python3 chip_smoke.py --only mirror                # K1-K3's build, phase 26 and its sweep
 
 
 Phases, each fatal on failure:
@@ -426,6 +427,34 @@ Phases, each fatal on failure:
     8; each on gpu(0) against the same run with ``Module`` (with
     ``reshape`` for the mutable one) to 1e-5 of each tensor's max.
 
+26. placement and memory mirroring in the Executor (``--only mirror``):
+    (a) ``examples/model_parallel_lstm.build`` at lstm_ptb.py's width (8
+    LSTM layers, hidden and embedding 400, seq 35, batch 128, vocab 10000)
+    on a cyclic corpus from seed 0, bound with ``group2ctx`` (layer 3 on
+    cpu(0), the rest on gpu(0): three segments, a copy each way at each
+    boundary) and on gpu(0) alone with the same Xavier parameters: one
+    step's loss and every gradient within 1e-4 of max|unplaced| (TF32
+    off), the host layer's arguments and gradients on the host, then 3
+    Adam steps on each (losses within 1e-4, ms a step). (b) inception-v3,
+    f32, batch 128, 299 x 299 (the reference's mirror row) through the
+    Executor with cuDNN deterministic, the mirror off and on
+    (``tools/mirror_inception``'s bind and step, no update): gradients bit
+    for bit when two plain steps are (else within 1e-5 of max|off|), peak
+    memory, what a step adds to it, step ms and img/s, and the same
+    forward convolutions (``aten::cudnn_convolution``) and K2/K3 kernels in
+    a profiled step (and its card-busy and wall ms), and the same wrapper
+    launches, with the mirror as without; ``__force_mirroring__`` on block mixed_4: its gradients the
+    same. (c) phase 21's ResNet-50 bf16 AMP fit on the dp 4 mesh (16
+    batches, one epoch) unmirrored and mirrored, eagerly and at
+    ``MXNET_FIT_MULTISTEP=4`` (profiled): every state tensor of each replayed
+    fit bit for bit its eager fit's, and the mirrored fits the unmirrored
+    ones'; peak memory and step ms of each (a replay's ms is the card's
+    cost of the mirror, without the host's); then a Dropout MLP's trainer, three groups
+    of two steps (warm-up, capture, replay), mirrored and not: bit for bit.
+    ``--only mirror`` adds ``tools/mirror_inception``'s rows: plain and
+    mirror at batch 32, 64 and 128, and at 128 the larger saved sets
+    (pooling; pooling and Concat).
+
 Then the kernels line: the seven kernels, K4f, K4dq, K4dkv, K2, K3, K5 and
 K1; K2's and K3's launches count phase 20's training rows, and their
 entries carry phase 20's launches and inception-v3 step under ``zoo``;
@@ -438,7 +467,10 @@ wrappers' counts eagerly, the profiler's by name over the whole grouped
 fits; the resumed run's wrapper counts; for K1 under
 ``launches_by_path["input"]``). K4f's ``launches_by_path["serving"]`` counts phase 6's and
 phase 22 (d)'s prefills; K4f's, K4dq's and K4dkv's ``launches_by_path["rnn"]`` the f32
-launches of phase 25 (c)'s SGD steps, which their ``launches`` include.
+launches of phase 25 (c)'s SGD steps, which their ``launches`` include;
+K1's, K2's and K3's ``launches_by_path["mirror"]`` phase 26's (b) (the
+wrappers' counts) and (c) (the wrappers' eagerly, the profiler's by name
+over the grouped fit), which their ``launches`` include.
 
 The last line of output is {"ok": true, "device": {...}}. Without a CUDA
 device, or without the package beside this script, it exits non-zero and
@@ -4967,13 +4999,414 @@ def phase_rnn(mx, kernels, dev):
     return res
 
 
+# phase 26: placement and memory mirroring in the Executor
+MIRROR_LSTM = dict(layers=8, hidden=400, seq=35, batch=128, vocab=10000, cpu_layers=(3,),
+                   adam_steps=3, lr=0.001, seed=0)  # (a): lstm_ptb.py's width
+MIRROR_INCEPTION = dict(batch=128, side=299, steps=3, force_block="mixed_4")  # (b)
+MIRROR_FIT = dict(batches=16, k=4)  # (c): ResNet-50 bf16 AMP, dp 4, one epoch
+MIRROR_CURVE = (32, 64, 128)  # --only mirror: batches of the memory / ms curve
+MIRROR_SAVES = ("mirror_pool", "mirror_pool_concat")  # --only mirror, at batch 128
+
+
+def _grads_of(exe):
+    return {n: g._data.detach().clone() for n, g in exe.grad_dict.items() if g is not None}
+
+
+def _rel_max(got, want):
+    """max|got - want| / max|want| of two tensors (on want's device)."""
+    got = got.to(want.device).float()
+    want = want.float()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def _ptb_batches(cfg, n):
+    """``n`` batches of a cyclic corpus from ``cfg["seed"]`` (the example's
+    recipe: each row counts up by 1 or 2 modulo the vocabulary)."""
+    rng = np.random.RandomState(cfg["seed"])
+    out = []
+    for _ in range(n):
+        seq = np.cumsum(rng.randint(1, 3, (cfg["batch"], cfg["seq"] + 1)), axis=1) % cfg["vocab"]
+        out.append((seq[:, :-1].astype(np.float32), seq[:, 1:].astype(np.float32)))
+    return out
+
+
+def _ptb_loss(exe, label):
+    import torch
+
+    prob = exe.outputs[0]._data.float()
+    lab = torch.as_tensor(label.reshape(-1), device=prob.device).long()
+    return float(-torch.log(prob[torch.arange(lab.numel(), device=prob.device), lab]
+                            + 1e-12).mean())
+
+
+def mirror_placement(mx, cfg=MIRROR_LSTM, ctx=None, host=None):
+    """Phase 26 (a): the model-parallel LSTM at lstm_ptb.py's width, layers
+    ``cpu_layers`` on the host and the rest on the card, against the same
+    model bound on the card alone: one step's loss and gradients, then
+    ``adam_steps`` Adam steps on each (ms a step)."""
+    import torch
+
+    from mxnet_tpu_torch.examples import model_parallel_lstm as mpl
+
+    ctx = ctx or mx.gpu(0)
+    host = host or mx.cpu(0)
+    net = mpl.build(cfg["seq"], cfg["vocab"], cfg["hidden"], cfg["layers"])
+    plan = {"embed": ctx, "decode": ctx}
+    for i in range(cfg["layers"]):
+        plan["layer%d" % i] = host if i in cfg["cpu_layers"] else ctx
+    shapes = dict(data=(cfg["batch"], cfg["seq"]), softmax_label=(cfg["batch"], cfg["seq"]))
+    placed = net.simple_bind(ctx, group2ctx=plan, **shapes)
+    plain = net.simple_bind(ctx, **shapes)
+    segs = [(str(c), len(nodes)) for c, nodes in placed._placed.segments]
+    assert [c for c, _ in segs] == [str(ctx), str(host), str(ctx)], segs
+    np.random.seed(cfg["seed"])
+    init = mx.init.Xavier()
+    for name, arr in plain.arg_dict.items():
+        if name not in ("data", "softmax_label"):
+            init(name, arr)
+            placed.arg_dict[name]._data.copy_(arr._data)
+    on_host = [n for n, c in placed._arg_contexts.items() if c == host]
+    assert on_host and all(placed.arg_dict[n]._data.device == host.torch_device
+                           for n in on_host), on_host
+    batches = _ptb_batches(cfg, 1 + cfg["adam_steps"])
+    res = {"config": dict(cfg, cpu_layers=list(cfg["cpu_layers"])), "segments": segs,
+           "args_on_host": len(on_host)}
+    for exe in (placed, plain):
+        exe.arg_dict["data"][:] = batches[0][0]
+        exe.arg_dict["softmax_label"][:] = batches[0][1]
+        exe.forward(is_train=True)
+        exe.backward()
+    res["boundary_copies"] = placed._placed.boundary_copies
+    assert res["boundary_copies"] >= 2, res["boundary_copies"]
+    assert all(placed.grad_dict[n]._data.device == host.torch_device for n in on_host)
+    loss = {"placed": _ptb_loss(placed, batches[0][1]), "unplaced": _ptb_loss(plain, batches[0][1])}
+    got, want = _grads_of(placed), _grads_of(plain)
+    errs = {n: _rel_max(got[n], want[n]) for n in want}
+    res.update(loss=loss, worst_grad=max(errs.items(), key=lambda kv: kv[1]),
+               loss_rel=abs(loss["placed"] - loss["unplaced"]) / abs(loss["unplaced"]))
+    assert res["loss_rel"] <= 1e-4 and res["worst_grad"][1] <= 1e-4, (loss, res["worst_grad"])
+    steps = {}
+    for tag, exe in (("placed", placed), ("unplaced", plain)):
+        opt = mx.optimizer.create("adam", learning_rate=cfg["lr"],
+                                  rescale_grad=1.0 / cfg["batch"])
+        updater = mx.optimizer.get_updater(opt)
+        names = [n for n in exe.arg_dict if n not in ("data", "softmax_label")]
+        ms, losses = [], []
+        for data, label in batches[1:]:
+            if ctx.device_type == "gpu":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            exe.arg_dict["data"][:] = data
+            exe.arg_dict["softmax_label"][:] = label
+            exe.forward(is_train=True)
+            exe.backward()
+            for i, name in enumerate(names):
+                updater(i, exe.grad_dict[name], exe.arg_dict[name])
+            losses.append(_ptb_loss(exe, label))  # synchronises
+            ms.append(1e3 * (time.perf_counter() - t0))
+        steps[tag] = {"ms": ms, "ms_median": statistics.median(ms), "losses": losses}
+    res["adam"] = steps
+    rel = [abs(a - b) / abs(b) for a, b in zip(steps["placed"]["losses"],
+                                               steps["unplaced"]["losses"])]
+    res["adam_loss_rel_max"] = max(rel)
+    assert max(rel) <= 1e-4, rel
+    return res
+
+
+def _profile_conv_counts(step):
+    """One ``step()`` under torch.profiler: forward convolutions
+    (``aten::cudnn_convolution`` host ops) and K2's and K3's device kernels
+    by name."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    out = {"forward_convolutions": sum(e.name == "aten::cudnn_convolution" for e in events
+                                       if e.device_type != cuda)}
+    kernels = [e for e in events if e.device_type == cuda]
+    # the card's busy ms (kernel durations summed) against the step's wall
+    # ms under the profiler: what the host's launches leave idle
+    out["device_busy_ms"] = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    out["wall_ms_profiled"] = 1e3 * wall
+    names = [e.name for e in kernels]
+    for n in ("conv_bwd_filter", "conv_bwd_input"):
+        out[n] = sum(MULTI_KERNEL_NAMES[n] in name for name in names)
+    return out
+
+
+def _inception_run(mx, kernels, cfg, variant, symbol=None, steps=None, profile=True):
+    """inception-v3 bound under ``variant`` (mirror_inception's), the same
+    parameters and batch each time: gradients of the first step, whether a
+    second is bit for bit the first, peak memory and ms of ``steps`` more
+    (no update), and a profiled step's convolution counts."""
+    import gc
+
+    import torch
+
+    from mxnet_tpu_torch.tools import mirror_inception as mi
+
+    steps = cfg["steps"] if steps is None else steps
+    mi.set_variant(variant)
+    try:
+        exe = mi.bind(mx, cfg["batch"], cfg["side"], symbol=symbol)
+        zero_counts(kernels)
+        mi.train_step(exe, update=False)
+        torch.cuda.synchronize()
+        first = _grads_of(exe)
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            mi.train_step(exe, update=False)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        res = {"variant": variant, "mirror": exe._mirror, "launches": conv_counts(kernels)}
+        if steps:
+            peak = torch.cuda.max_memory_allocated()
+            res.update(peak_gib=peak / 2**30, step_added_gib=(peak - held) / 2**30,
+                       held_gib=held / 2**30)
+            again = _grads_of(exe)
+            res["repeat_bitwise"] = all(torch.equal(again[n], first[n]) for n in first)
+            ms = 1e3 * statistics.median(times)
+            res.update(step_ms=ms, step_ms_all=[1e3 * t for t in times],
+                       img_per_s=cfg["batch"] / ms * 1e3)
+        if profile:
+            res["profiled"] = _profile_conv_counts(lambda: mi.train_step(exe, update=False))
+        return res, first
+    finally:
+        mi.set_variant("plain")
+        exe = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _force_mirrored_block(mx, block):
+    """inception-v3 with ``__force_mirroring__`` on every node of ``block``."""
+    from mxnet_tpu_torch.models import inception_v3
+
+    graph = json.loads(inception_v3.get_symbol(num_classes=1000).tojson())
+    marked = 0
+    for node in graph["nodes"]:
+        if node["op"] != "null" and re.search(r"(^|_)%s_" % block, node["name"]):
+            node.setdefault("attr", {})["__force_mirroring__"] = "True"
+            marked += 1
+    return mx.sym.load_json(json.dumps(graph)), marked
+
+
+def _compare_grads(got, want, bitwise):
+    import torch
+
+    if bitwise:
+        return [n for n in want if not torch.equal(got[n], want[n])], None
+    errs = {n: _rel_max(got[n], want[n]) for n in want}
+    worst = max(errs.items(), key=lambda kv: kv[1])
+    return [n for n, e in errs.items() if e > 1e-5], worst
+
+
+def mirror_inception_check(mx, kernels, cfg=MIRROR_INCEPTION):
+    """Phase 26 (b): inception-v3 f32 at batch 128 through the Executor,
+    the mirror off and on and ``__force_mirroring__`` on one block, cuDNN
+    deterministic: gradients bit for bit where two plain steps are (else
+    within 1e-5 of max|off|), peak memory, step ms, img/s, and the same
+    forward convolutions and K2/K3 launches with the mirror as without."""
+    import torch
+
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        off, want = _inception_run(mx, kernels, cfg, "plain")
+        on, got = _inception_run(mx, kernels, cfg, "mirror")
+        bitwise = off["repeat_bitwise"]
+        bad, worst = _compare_grads(got, want, bitwise)
+        on["grads_bitwise_equal_off"] = bitwise and not bad
+        on["worst_grad_vs_off"] = worst
+        assert not bad, ("mirror", bad[:5], worst)
+        del got
+        counts = ("forward_convolutions", "conv_bwd_filter", "conv_bwd_input")
+        assert all(on["profiled"][n] == off["profiled"][n] for n in counts), (
+            on["profiled"], off["profiled"])
+        assert on["launches"] == off["launches"], (on["launches"], off["launches"])
+        symbol, marked = _force_mirrored_block(mx, cfg["force_block"])
+        forced, fgot = _inception_run(mx, kernels, cfg, "plain", symbol=symbol, steps=0,
+                                      profile=False)
+        bad, worst = _compare_grads(fgot, want, bitwise)
+        forced.update(block=cfg["force_block"], nodes_marked=marked,
+                      grads_bitwise_equal_off=bitwise and not bad, worst_grad_vs_off=worst)
+        assert marked and not bad, ("force_mirroring", marked, bad[:5], worst)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    res = {"config": cfg, "off": off, "on": on, "forced": forced,
+           "peak_ratio": on["peak_gib"] / off["peak_gib"],
+           "step_added_ratio": on["step_added_gib"] / off["step_added_gib"],
+           "step_ms_ratio": on["step_ms"] / off["step_ms"]}
+    res["launches"] = {n: off["launches"][n] + on["launches"][n] + forced["launches"][n]
+                       for n in off["launches"]}
+    return res
+
+
+def mirror_dropout_groups(mx, dev):
+    """Phase 26 (c): a Dropout MLP's trainer, three groups of two steps from
+    one state (warm-up, capture + replay, replay), with the mirror and
+    without: the parameters after each group bit for bit."""
+    import torch
+
+    rng = np.random.RandomState(5)
+    batches = {"data": [torch.from_numpy(rng.randn(32, 100).astype(np.float32)).to(dev)
+                        for _ in range(2)],
+               "softmax_label": [torch.from_numpy(rng.randint(0, 10, 32).astype(np.float32))
+                                 .to(dev) for _ in range(2)]}
+    runs = {}
+    for mirror in (False, True):
+        _mirror_env(mirror)
+        try:
+            net = mx.sym.FullyConnected(mx.sym.Variable("data"), num_hidden=64, name="fc1")
+            net = mx.sym.Dropout(mx.sym.Activation(net, act_type="relu"), p=0.3)
+            net = mx.sym.SoftmaxOutput(mx.sym.FullyConnected(net, num_hidden=10, name="fc2"),
+                                       name="softmax")
+            opt = mx.optimizer.create("sgd", learning_rate=0.1, momentum=0.9,
+                                      rescale_grad=1 / 32)
+            tr = mx.parallel.ShardedTrainStep(
+                net, mx.parallel.make_mesh(dp=4, devices=[mx.gpu(0)] * 4),
+                optimizer=opt).compile()
+        finally:
+            _mirror_env(False)
+        assert tr.mirror == mirror
+        arg_shapes, _, _ = net.infer_shape(data=(32, 100), softmax_label=(32,))
+        np.random.seed(0)
+        state = tr.init(dict(zip(net.list_arguments(), arg_shapes)), mx.init.Xavier())
+        mx.random.seed(11)
+        outs = []
+        for _ in range(3):
+            state = tr.call_multi(*state, batches, [0.1, 0.1], [1, 2])[:3]
+            outs.append({n: v.clone() for n, v in state[0].items()})
+        torch.cuda.synchronize(dev)
+        (g,) = tr.group_stats()
+        assert (g["warmup_groups"], g["captures"], g["replays"]) == (1, 1, 2), g
+        runs[mirror] = outs
+    diff = [(i, n) for i, (a, b) in enumerate(zip(runs[False], runs[True]))
+            for n in a if not torch.equal(a[n], b[n])]
+    assert not diff, diff[:5]
+    return {"groups": 3, "tensors": len(runs[True][0]), "bitwise_equal_unmirrored": True}
+
+
+def _mirror_env(on):
+    if on:
+        os.environ["MXNET_BACKWARD_DO_MIRROR"] = "1"
+    else:
+        os.environ.pop("MXNET_BACKWARD_DO_MIRROR", None)
+
+
+def mirror_fit(mx, kernels, dev, cfg=MIRROR_FIT):
+    """Phase 26 (c): ResNet-50 bf16 AMP ``Module.fit`` on the dp 4 mesh
+    (phase 21's leg, one epoch of ``batches``) unmirrored and mirrored,
+    eagerly and at ``MXNET_FIT_MULTISTEP=k`` (profiled): every state tensor
+    of a replayed fit bit for bit its eager fit's, the mirrored fits the
+    unmirrored ones'; then the Dropout groups."""
+    import torch
+
+    rng = np.random.RandomState(26)
+    n = cfg["batches"] * RESNET_BATCH
+    X = rng.rand(n, 3, 224, 224).astype(np.float32)
+    y = rng.randint(0, 1000, n).astype(np.float32)
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    legs, states = {}, {}
+    try:
+        for tag, mirror, k in (("off", False, 1), ("on", True, 1),
+                               ("off_k%d" % cfg["k"], False, cfg["k"]),
+                               ("on_k%d" % cfg["k"], True, cfg["k"])):
+            _mirror_env(mirror)
+            try:
+                mod, leg, state, _ = multistep_leg(mx, kernels, dev, X, y, k, True, 1,
+                                                   profile=k > 1)
+            finally:
+                _mirror_env(False)
+            assert mod._fused_trainer.mirror == mirror
+            leg.pop("losses")
+            legs[tag], states[tag] = leg, state
+            del mod
+            torch.cuda.empty_cache()
+        grouped = "on_k%d" % cfg["k"]
+        diff = state_diff(states[grouped], states["on"])
+        assert not diff, ("replayed vs eager mirrored", len(diff), diff[:5])
+        diff = state_diff(states["on"], states["off"])
+        assert not diff, ("mirrored vs unmirrored", len(diff), diff[:5])
+        diff = state_diff(states["off_k%d" % cfg["k"]], states["off"])
+        assert not diff, ("replayed vs eager unmirrored", len(diff), diff[:5])
+        legs["dropout"] = mirror_dropout_groups(mx, dev)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    fits = [t for t in legs if t != "dropout"]
+    launches = dict.fromkeys(MULTI_KERNEL_NAMES, 0)
+    for tag in fits:
+        for name, c in legs[tag].get("launches_run", legs[tag]["launches"]).items():
+            launches[name] += c
+    return {"config": cfg, "legs": legs, "tensors_bitwise": len(states["on"]),
+            "peak_gib": {t: legs[t]["peak_mem_gib"] for t in fits},
+            "step_ms": {t: legs[t]["step_ms_median"] for t in fits}, "launches": launches}
+
+
+def mirror_sweep(mx):
+    """``--only mirror``: mirror_inception's rows, plain and mirror at each
+    batch of MIRROR_CURVE, and the larger saved sets at batch 128."""
+    from mxnet_tpu_torch.tools import mirror_inception as mi
+
+    rows = [mi.measure(mx, b, v) for b in MIRROR_CURVE for v in ("plain", "mirror")]
+    rows += [mi.measure(mx, MIRROR_INCEPTION["batch"], v) for v in MIRROR_SAVES]
+    for row in rows:
+        log("phase 26 sweep: %s" % json.dumps(row))
+    return rows
+
+
+def phase_mirror(mx, kernels, dev, sweep=False):
+    """Phase 26; see the module docstring. Every part runs; the phase fails
+    after them if any failed."""
+    import traceback
+
+    faults = []
+
+    def part(name, fn, *args):
+        try:
+            return fn(*args)
+        except Exception as e:  # reported with the others at the end of the phase
+            faults.append("%s: %s: %s" % (name, type(e).__name__, e))
+            log("phase 26 (%s) FAILED:\n%s" % (name, traceback.format_exc()))
+            return None
+
+    t0 = time.perf_counter()
+    res = {}
+    res["a"] = part("a", mirror_placement, mx)
+    res["a_s"] = time.perf_counter() - t0
+    res["b"] = part("b", mirror_inception_check, mx, kernels)
+    res["b_s"] = time.perf_counter() - t0 - res["a_s"]
+    res["c"] = part("c", mirror_fit, mx, kernels, dev)
+    res["phase_s"] = time.perf_counter() - t0
+    if sweep:
+        res["sweep"] = part("sweep", mirror_sweep, mx)
+    for key in ("a", "b", "c"):
+        log("phase 26 (%s): %s" % (key, json.dumps(res[key], default=str)))
+    log("phase 26: %.1f s (a %.1f, b %.1f)" % (res["phase_s"], res["a_s"], res["b_s"]))
+    assert not faults, "phase 26: " + "; ".join(faults)
+    res["launches"] = {n: res["b"]["launches"].get(n, 0) + res["c"]["launches"][n]
+                       for n in MULTI_KERNEL_NAMES}
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every phase's numbers to this JSON file")
     ap.add_argument("--package", help="import mxnet_tpu_torch from this checkout instead of the "
                     "one beside this script (to run this script's phases on another tree)")
     ap.add_argument("--only", choices=("f32_lm", "rtc", "slab", "zoo", "multistep", "serving",
-                                       "resilience", "input", "rnn"),
+                                       "resilience", "input", "rnn", "mirror"),
                     help="f32_lm: build, phase 19 and phase 8's attention kernel times only; "
                     "rtc: K5's push path on ResNet-50's parameter arrays only; slab: K1's "
                     "build, phases 16-18 and K1's times only; zoo: K2/K3's build and "
@@ -4981,7 +5414,8 @@ def main(argv=None):
                     "the flash forward's build and phase 22 only (on a package without "
                     "predict, only (d) and its continuations' digest); resilience: K1-K3's "
                     "build and phase 23 only; input: K1-K3's build and phase 24 only; rnn: the "
-                    "flash kernels' build and phase 25 only")
+                    "flash kernels' build and phase 25 only; mirror: K1-K3's build and phase "
+                    "26 with its memory / ms sweep")
     ap.add_argument("--resilience-worker", metavar="SPEC", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
@@ -5065,6 +5499,11 @@ def main(argv=None):
         _build.build(["flash_attn_fwd", "flash_split", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"])
         results["build_s"] = time.perf_counter() - t0
         results["rnn"] = phase_rnn(mx, kernels, dev)
+    if args.only == "mirror":
+        t0 = time.perf_counter()
+        _build.build(["conv_bwd_filter", "slab_update"])
+        results["build_s"] = time.perf_counter() - t0
+        results["mirror"] = phase_mirror(mx, kernels, dev, sweep=True)
     if args.only:
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -5110,17 +5549,20 @@ def main(argv=None):
                                                      resnet50_amp_plan(mx, resnet))
     results["input"] = inp = phase_input(mx, kernels, dev, package, measure=False)
     results["rnn"] = rnn = phase_rnn(mx, kernels, dev)
+    results["mirror"] = mirror = phase_mirror(mx, kernels, dev)
+    mirror_launches = mirror["launches"]
     multi_launches = multistep_launches(multi)
     resil_launches = resil["launches_resumed_runs"]
     input_launches = inp["launches"]
     conv_launches = {name: conv_launches[name] + multi_launches[name] + resil_launches[name]
-                     + input_launches[name] for name in conv_launches}
+                     + input_launches[name] + mirror_launches[name] for name in conv_launches}
     k1 = results["k1_entry"]
     k1["launches_by_path"]["multistep"] = multi_launches["slab_update"]
     k1["launches_by_path"]["resilience"] = resil_launches["slab_update"]
     k1["launches_by_path"]["input"] = input_launches["slab_update"]
+    k1["launches_by_path"]["mirror"] = mirror_launches["slab_update"]
     k1["launches"] += (multi_launches["slab_update"] + resil_launches["slab_update"]
-                       + input_launches["slab_update"])
+                       + input_launches["slab_update"] + mirror_launches["slab_update"])
     # the f32 kernels' launches in phases 4, 5 and 19
     f32_launches = {name: n + results["training_f32_full"]["launches"][name]
                     for name, n in results["training_f32"]["launches"].items()}
@@ -5148,6 +5590,8 @@ def main(argv=None):
         entry["zoo"] = {"launches": zoo_launches[entry["name"]],
                         "inception_v3_f32_step": {k: v for k, v in step.items()
                                                   if k != "shapes"}}
+        # phase 26: the mirror path's launches, in ``launches`` too
+        entry["launches_by_path"] = {"mirror": mirror_launches[entry["name"]]}
     kernel_line = {"kernels": fwd + bwd + conv_entries
                    + phase_rtc_times(mx, rk, rtc_runs, results["rtc_training"], dev)
                    + [results.pop("k1_entry")],

@@ -62,6 +62,12 @@ them into the state; the aux states are selected too. The step appends a
 ``(loss, grad_norm², gate_ok)`` diag output. The threshold is a device
 scalar (``guard_threshold`` writes it with ``fill_``), so a captured group
 reads the new value at its next replay: re-thresholding never recaptures.
+
+Memory mirroring (``MXNET_BACKWARD_DO_MIRROR=1`` when the step is built;
+JAX ``mxnet_tpu/parallel/train_step.py:1058-1092``): the step's forward and
+loss run as the executor's mirrored regions (``executor._mirrored``), on
+every update path and inside a captured group, where the policy keeps the
+random draws rather than setting the generator back.
 """
 from __future__ import annotations
 
@@ -75,7 +81,7 @@ import torch
 
 from .. import random as _random
 from ..base import MXNetError, bucket_bytes_env, graph_capture, release_for_capture
-from ..executor import _GraphProgram, resolve_creation_shapes
+from ..executor import _GraphProgram, _mirror_enabled, _mirror_ops, resolve_creation_shapes
 from ..ndarray import NDArray
 from ..ops import kernels
 from ..resilience.checkpoint import DEVICE_PULL_LOCK
@@ -304,6 +310,7 @@ class ShardedTrainStep:
         self.param_names = [n for n in self.arg_names
                             if n not in self.data_names + self.label_names]
         self._needs_rng = self.program.needs_rng
+        self.mirror = _mirror_enabled()
         self._shape_sig = None
         self.flat_bucket_bytes = bucket_bytes_env()
         dp = mesh.shape.get("dp", 1)
@@ -748,8 +755,11 @@ class ShardedTrainStep:
                          else v) for n, v in batch.items()}
         leaves = {n: params[n].detach().requires_grad_(params[n].is_floating_point())
                   for n in self.param_names}
+        # the mirror rematerialises the cheap ops in backward and keeps the
+        # dot/conv outputs (executor._GraphProgram._run_regions)
+        mirror = ([rng] if rng is not None else [], _mirror_ops()) if self.mirror else None
         with torch.enable_grad():
-            outs, new_aux = self.program({**leaves, **batch}, aux, rng, True)
+            outs, new_aux = self.program({**leaves, **batch}, aux, rng, True, mirror=mirror)
             loss = sum((o.float() if amp else o).sum() for o in outs)
             diff = [n for n in self.param_names if leaves[n].requires_grad]
             got = torch.autograd.grad(loss, [leaves[n] for n in diff], allow_unused=True)

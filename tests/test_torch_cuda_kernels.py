@@ -1093,3 +1093,126 @@ def _rnn_cases(op, rnn_op, g):
                 assert not caught, [str(w.message) for w in caught]
         for a, b in zip(got, want):
             assert (a - b).abs().max().item() <= 1e-4 * max(b.abs().max().item(), 1e-30)
+
+
+def _mirror_conv_step(mirror, monkeypatch, dropout=False):
+    """One training step of a small conv-BN-ReLU net (three in-envelope 3x3
+    convolutions) on gpu(0) through the Executor, the mirror on or off:
+    the gradients, the wrappers' K2/K3 launches and the forward
+    convolutions the dispatcher saw."""
+    import collections
+
+    import numpy as np
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    import mxnet_tpu_torch as mx
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = collections.Counter()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops[func.overloadpacket.__name__] += 1
+            return func(*args, **(kwargs or {}))
+
+    if mirror:
+        monkeypatch.setenv("MXNET_BACKWARD_DO_MIRROR", "1")
+    else:
+        monkeypatch.delenv("MXNET_BACKWARD_DO_MIRROR", raising=False)
+    with mx.name.NameManager():
+        net = mx.sym.Variable("data")
+        for i in range(3):
+            net = mx.sym.Convolution(net, kernel=(3, 3), pad=(1, 1), num_filter=16,
+                                     no_bias=True, name="conv%d" % i)
+            net = mx.sym.BatchNorm(net, name="bn%d" % i)
+            net = mx.sym.Activation(net, act_type="relu")
+        if dropout:
+            net = mx.sym.Dropout(net, p=0.5)
+        net = mx.sym.FullyConnected(mx.sym.Flatten(net), num_hidden=10, name="fc")
+        net = mx.sym.SoftmaxOutput(net, name="softmax")
+    exe = net.simple_bind(mx.gpu(0), data=(4, 16, 16, 16), softmax_label=(4,))
+    assert exe._mirror == mirror
+    rng = np.random.RandomState(0)
+    for name, arr in exe.arg_dict.items():
+        arr[:] = (rng.randint(0, 10, arr.shape) if name == "softmax_label"
+                  else rng.randn(*arr.shape) * 0.1)
+    mx.random.seed(3)
+    before = {k: getattr(kernels, k).launches for k in ("conv_bwd_filter", "conv_bwd_input")}
+    with Count() as count:
+        exe.forward(is_train=True)
+        exe.backward()
+    torch.cuda.synchronize()
+    launches = {k: getattr(kernels, k).launches - v for k, v in before.items()}
+    grads = {n: g._data.clone() for n, g in exe.grad_dict.items() if g is not None}
+    return grads, launches, count.ops
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [False, True])
+def test_cuda_mirror_keeps_conv_launches_and_gradients(monkeypatch, dropout):
+    """On the card, cuDNN deterministic: a mirrored step runs the same
+    forward convolutions and K2/K3 launches (three each) as the plain one,
+    recomputes the ReLUs, and gives its gradients bit for bit, Dropout
+    included (the generator set back for the recompute)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", False)
+    plain, plain_launches, plain_ops = _mirror_conv_step(False, monkeypatch, dropout)
+    got, launches, ops = _mirror_conv_step(True, monkeypatch, dropout)
+    assert launches == plain_launches == {"conv_bwd_filter": 3, "conv_bwd_input": 3}
+    assert ops["convolution"] == plain_ops["convolution"] == 3
+    assert ops["relu"] == 2 * plain_ops["relu"]
+    for name, g in plain.items():
+        assert torch.equal(got[name], g), name
+
+
+@pytest.mark.cuda
+def test_cuda_mirrored_dropout_group_replays_bitwise(monkeypatch):
+    """On the card: a Dropout MLP's trainer under the mirror, three groups
+    of two steps from one state (warm-up, capture + replay, replay), gives
+    the outputs of the same groups without the mirror bit for bit: eagerly
+    the generator is set back for the recompute, in the captured graph the
+    draws are kept."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    import mxnet_tpu_torch as mx
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(5)
+    batches = {"data": [torch.from_numpy(rng.randn(32, 100).astype(np.float32)).to(dev)
+                        for _ in range(2)],
+               "softmax_label": [torch.from_numpy(rng.randint(0, 10, 32).astype(np.float32))
+                                 .to(dev) for _ in range(2)]}
+    runs = {}
+    for mirror in (False, True):
+        if mirror:
+            monkeypatch.setenv("MXNET_BACKWARD_DO_MIRROR", "1")
+        else:
+            monkeypatch.delenv("MXNET_BACKWARD_DO_MIRROR", raising=False)
+        net = mx.sym.FullyConnected(mx.sym.Variable("data"), num_hidden=64, name="fc1")
+        net = mx.sym.Dropout(mx.sym.Activation(net, act_type="relu"), p=0.3)
+        net = mx.sym.SoftmaxOutput(mx.sym.FullyConnected(net, num_hidden=10, name="fc2"),
+                                   name="softmax")
+        opt = mx.optimizer.create("sgd", learning_rate=0.1, momentum=0.9, rescale_grad=1 / 32)
+        tr = mx.parallel.ShardedTrainStep(
+            net, mx.parallel.make_mesh(dp=4, devices=[mx.gpu(0)] * 4), optimizer=opt).compile()
+        assert tr.mirror == mirror
+        arg_shapes, _, _ = net.infer_shape(data=(32, 100), softmax_label=(32,))
+        np.random.seed(0)
+        state = tr.init(dict(zip(net.list_arguments(), arg_shapes)), mx.init.Xavier())
+        mx.random.seed(11)
+        outs = []
+        for _ in range(3):
+            state = tr.call_multi(*state, batches, [0.1, 0.1], [1, 2])[:3]
+            outs.append({n: v.clone() for n, v in state[0].items()})
+        torch.cuda.synchronize()
+        (g,) = tr.group_stats()
+        assert (g["warmup_groups"], g["captures"], g["replays"]) == (1, 1, 2), g
+        runs[mirror] = outs
+    for i, (a, b) in enumerate(zip(runs[False], runs[True])):
+        for name in a:
+            assert torch.equal(a[name], b[name]), (i, name)

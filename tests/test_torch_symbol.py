@@ -2,8 +2,9 @@
 listings, shape and type inference and graph JSON of ResNet-50 and a cifar
 ResNet-20 built by both packages, JSON carried across in both directions,
 automatic names, the attribute helpers and scopes, and the refusals of
-what is not ported yet (other operators, placement over several devices,
-mirroring)."""
+what is not ported yet (other operators, a gpu context past the visible
+cards); placement over contexts and mirroring, which raised here before
+they were ported, now bind and run."""
 import importlib
 import json
 
@@ -142,11 +143,23 @@ def test_what_is_not_ported_raises(monkeypatch):
         tsym.BilinearSampler  # noqa: B018
     net = (a * 2).__copy__()
     net._set_attr(ctx_group="dev1")
-    with pytest.raises(NotImplementedError, match="_PlacedProgram"):
-        net.bind(tcontext.cpu(), {"a": tndarray.ones((2,), ctx=tcontext.cpu())},
-                 group2ctx={"dev1": tcontext.gpu(1)})
+    ones = tndarray.ones((2,), ctx=tcontext.cpu())
+    with pytest.raises(tbase.MXNetError, match="no such CUDA device"):
+        net.bind(tcontext.cpu(), {"a": ones}, group2ctx={"dev1": tcontext.gpu(1)})
+    # the placed bind runs (``_PlacedProgram``), and so does the mirror
+    grad = tndarray.zeros((2,), ctx=tcontext.cpu())
+    exe = net.bind(tcontext.cpu(), {"a": ones}, args_grad={"a": grad},
+                   group2ctx={"dev1": tcontext.cpu(1)})
+    assert [(c, len(nodes)) for c, nodes in exe._placed.segments] == [(tcontext.cpu(1), 1)]
+    exe.forward(is_train=True)
+    exe.backward()
+    assert grad.asnumpy().tolist() == [2.0, 2.0]
     monkeypatch.setenv("MXNET_BACKWARD_DO_MIRROR", "1")
-    with pytest.raises(NotImplementedError, match="_mirror_policy"):
-        net.simple_bind(tcontext.cpu(), a=(2,))
+    exe = net.simple_bind(tcontext.cpu(), a=(2,))
+    assert exe._mirror and exe._placed is None
+    exe.arg_dict["a"][:] = 3.0
+    assert exe.forward(is_train=True)[0].asnumpy().tolist() == [6.0, 6.0]
+    exe.backward()
+    assert exe.grad_dict["a"].asnumpy().tolist() == [2.0, 2.0]
     with pytest.raises(tbase.MXNetError, match="missing input"):
         texecutor._GraphProgram(tsym.Activation(a))({}, {}, None, True)
