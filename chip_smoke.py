@@ -12,6 +12,7 @@
     python3 chip_smoke.py --only input                 # K1-K3's build and phase 24
     python3 chip_smoke.py --only rnn                   # the flash kernels' build and phase 25
     python3 chip_smoke.py --only mirror                # K1-K3's build, phase 26 and its sweep
+    python3 chip_smoke.py --only parallel              # the flash kernels' build and phase 27
 
 
 Phases, each fatal on failure:
@@ -382,6 +383,8 @@ Phases, each fatal on failure:
     four steps') on the host's clock, and on the card's timeline of those
     steps the idle share and how much of the host-to-device copy time ran
     under kernels, under the profiler (the card's activity only). (d)
+    (``--only input`` only: with it the full script took 1012–1094 s of
+    its 1200 s limit on an H100 80GB HBM3 at 700 W, its workers 78–85 s)
     phase 23's worker harness on fits fed through the device feed by a
     2-process pool from a 256-record .rec: a run SIGKILLed in epoch 2
     once its step-12 checkpoint landed resumes there (the stream's epoch
@@ -455,6 +458,46 @@ Phases, each fatal on failure:
     mirror at batch 32, 64 and 128, and at 128 the larger saved sets
     (pooling; pooling and Concat).
 
+27. ring attention, Switch-MoE and the GPipe pipeline on logical ranks of
+    one card (``--only parallel``): (a) ``parallel.ring_attention`` at B 4,
+    T 2048, H 16, D 64, causal and not, sp 2 and 4, in bf16 (and in f32
+    under ``--only parallel``): the output and dq, dk, dv (autograd, one
+    random cotangent) against the unsharded ``flash_attention``, each of
+    the sp blocks along T to 2e-2 (bf16) / 1e-4 (f32) of that block's own
+    max (a causal output's row 0 is v's, so the whole tensor's max would
+    hide a merge fault in the later, smaller blocks, which are the only
+    ones merged), and against the plain attention to the same limits of
+    max|plain|, as every K4 check here (per block the unsharded kernel
+    itself reads up to 2.2e-2 from the plain bf16 version, which rounds
+    the scores to bf16 as the JAX package's does; printed); K4f, K4dq and
+    K4dkv launched once a live block pair, sp (sp + 1) / 2 causal and sp²
+    not (a wrapper that fell back to its plain version fails here); the
+    TMA repair copies; ms (events) and device ms (a ~20 ms sleep queued
+    first) of forward + backward at sp 1 (the unsharded kernel), 2 and 4.
+    (b) the example trainer's Switch-MoE LM at full width (vocab 32000,
+    d 1024, 16 heads, 12 layers, d_ff 4096, 8 experts every second layer,
+    batch 4, T 2048, bf16, 10 SGD steps from ``init_fn(0)``) at sp 4 / ep 4
+    (the main path: 120 launches of each K4 kernel a step): finite losses,
+    step 9's below step 0's, ms a step (median of steps 1-9, host clock,
+    synchronised), tokens/s, peak memory; and one step at sp 1 / ep 1 (12
+    launches), whose loss, step 0's, is within 1e-4 relative of the sp 4
+    run's (the two share the weights and compute the loss in f32, so only
+    the ring's merge order differs; they read 1.5e-6 apart on the card).
+    ``--only parallel`` runs the sp 1 / ep 1 model for all 10 steps (its
+    losses fall too; ms a step, tokens/s, peak memory) and adds the dense
+    model's ms a step at the same batch (5 steps). (c) the full bf16 model's
+    prefill with ``mesh=make_mesh(sp=4, devices=[gpu(0)] * 4)`` against
+    ``mesh=None`` on phase 6's eight prompt lengths, each in its bucket:
+    the last logits within 2e-2 of max, 12 x 10 K4f launches a prefill;
+    then ``GenerationEngine`` (4 slots, ``max_len`` 2048) with each mesh,
+    its loop driven in order by ``step()``: the greedy continuations that
+    agree (printed, not held: bf16 logits a few ulps apart may break a
+    near tie) and K4f launches a prefill dispatch. (d) the ``SwitchMoE``
+    contrib operator's ``Module.fit`` (tests/test_moe_pipeline.py's net) on
+    gpu(0): accuracy > 0.9; ``pipelined_loss`` over 4 pp ranks, d 1024, 8
+    microbatches of 64, f32 (TF32 off), against the stages run one after
+    another: loss within 1e-5 relative, gradients within 1e-4 of max.
+
 Then the kernels line: the seven kernels, K4f, K4dq, K4dkv, K2, K3, K5 and
 K1; K2's and K3's launches count phase 20's training rows, and their
 entries carry phase 20's launches and inception-v3 step under ``zoo``;
@@ -464,13 +507,16 @@ under ``launches_by_path`` for K1; the timed grouped fits' replays are
 not counted; and phase 23's resumed fits (the profiler's by name; for K1
 under ``launches_by_path["resilience"]``); and phase 24's fits (the
 wrappers' counts eagerly, the profiler's by name over the whole grouped
-fits; the resumed run's wrapper counts; for K1 under
-``launches_by_path["input"]``). K4f's ``launches_by_path["serving"]`` counts phase 6's and
+fits; under ``--only input`` the resumed run's wrapper counts too; for K1
+under ``launches_by_path["input"]``). K4f's ``launches_by_path["serving"]`` counts phase 6's and
 phase 22 (d)'s prefills; K4f's, K4dq's and K4dkv's ``launches_by_path["rnn"]`` the f32
 launches of phase 25 (c)'s SGD steps, which their ``launches`` include;
 K1's, K2's and K3's ``launches_by_path["mirror"]`` phase 26's (b) (the
 wrappers' counts) and (c) (the wrappers' eagerly, the profiler's by name
-over the grouped fit), which their ``launches`` include.
+over the grouped fit), which their ``launches`` include. K4f's, K4dq's and
+K4dkv's ``launches_by_path["parallel"]`` count phase 27 (b)'s sp 4
+training run and, for K4f, (c)'s sp 4 engine run, which their
+``launches`` include.
 
 The last line of output is {"ok": true, "device": {...}}. Without a CUDA
 device, or without the package beside this script, it exits non-zero and
@@ -4388,8 +4434,8 @@ def input_resilience(package, paths, root):
 
 def phase_input(mx, kernels, dev, package, measure=True):
     """Phase 24; see the module docstring. Without ``measure`` (the full
-    script, to stay well inside its time limit) it leaves out (b) and the
-    delayed-staging fit, which ``--only input`` runs."""
+    script, to stay well inside its time limit) it leaves out (b), the
+    delayed-staging fit and (d), which ``--only input`` runs."""
     import shutil
     import tempfile
 
@@ -4505,9 +4551,10 @@ def phase_input(mx, kernels, dev, package, measure=True):
         for f in fits.values():
             for n in launches:
                 launches[n] += f["launches"][n]
-        res["d"] = input_resilience(package, paths, root)
-        for n in launches:
-            launches[n] += res["d"]["launches_resumed_run"][n]
+        if measure:
+            res["d"] = input_resilience(package, paths, root)
+            for n in launches:
+                launches[n] += res["d"]["launches_resumed_run"][n]
         res["launches"] = launches
     finally:
         torch.backends.cudnn.deterministic = False
@@ -5400,13 +5447,404 @@ def phase_mirror(mx, kernels, dev, sweep=False):
     return res
 
 
+# phase 27: ring attention, Switch-MoE and the GPipe pipeline on logical ranks of one card
+RING = dict(B=4, T=2048, H=16, D=64, sps=(2, 4), seed=27)
+RING_TOL = {"bfloat16": 2e-2, "float32": 1e-4}  # of max|reference|, the card's K4 limits
+RING_TIME_SLEEP = 40_000_000  # a ~20 ms sleep queued first: longer than a ring call's enqueue
+PAR_LM = dict(FULL, seq_len=2048, batch_size=4, steps=10, lr=3e-2, moe_experts=8)
+PAR_LM_DENSE_STEPS = 5  # the dense model's steps at the same batch, for its ms a step
+PAR_LOSS_RTOL = 1e-4  # step 0's loss, sp 4 against sp 1 (see the module docstring)
+PAR_SP, PAR_EP = 4, 4
+PIPE = dict(stages=4, d=1024, micro=8, mb=64, seed=27)
+
+
+_LM_TREES = {}  # phase 27: (configuration, seed) -> the numpy tree init_fn drew
+
+
+def memo_lm(transformer_lm):
+    """``transformer_lm`` whose ``init_fn`` keeps each tree it draws by
+    configuration and seed, so phase 27's runs of one configuration share
+    one draw: the JAX package's numpy draws of the full MoE model take ~20 s
+    of the card machine's host. ``params_from_jax`` copies the tree."""
+    def lm(**cfg):
+        init_fn, apply_fn = transformer_lm(**cfg)
+        key = tuple(cfg.get(k, d) for k, d in (("vocab", 32000), ("d_model", 512),
+                                                ("n_heads", 8), ("n_layers", 4),
+                                                ("d_ff", 2048), ("moe_experts", 0),
+                                                ("moe_every", 2)))
+
+        def init(seed=0):
+            if (key, seed) not in _LM_TREES:
+                _LM_TREES[key, seed] = init_fn(seed)
+            return _LM_TREES[key, seed]
+        return init, apply_fn
+    return lm
+
+
+def _block_rel_errs(got, want, blocks):
+    """For each of ``blocks`` equal blocks along T (dim 1), the block's
+    max|got - want| over its own max|want|."""
+    return [_rel_err(g, w) for g, w in zip(got.chunk(blocks, 1), want.chunk(blocks, 1))]
+
+
+def ring_pairs(sp, causal):
+    return sp * (sp + 1) // 2 if causal else sp * sp
+
+
+def _ring_inputs(dev, dtype, rng):
+    import torch
+
+    shape = (RING["B"], RING["T"], RING["H"], RING["D"])
+    q, k, v, cot = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+                    .to(dev, getattr(torch, dtype)) for _ in range(4))
+    return q.requires_grad_(), k.requires_grad_(), v.requires_grad_(), cot
+
+
+def ring_case(kernels, ring, dev, dtype, sp, causal, rng, flush):
+    """Phase 27 (a): one ring call at RING's shape against the unsharded
+    kernel and the plain attention, forward and gradients."""
+    import torch
+
+    q, k, v, cot = _ring_inputs(dev, dtype, rng)
+
+    def fwd_bwd(fn):
+        out = fn(q, k, v)
+        return [out.detach()] + list(torch.autograd.grad(out, (q, k, v), cot))
+
+    ring_fn = lambda q, k, v: ring.ring_attention(q, k, v, sp, causal=causal)  # noqa: E731
+    zero_counts(kernels)
+    kernels.check_kernel_args.clones = 0
+    got = fwd_bwd(ring_fn)
+    torch.cuda.synchronize()
+    counts, clones = read_counts(kernels), kernels.check_kernel_args.clones
+    split = kernels.split_planes.launches
+    pairs = ring_pairs(sp, causal)
+    assert counts == dict.fromkeys(counts, pairs), (
+        "a wrapper did not launch its kernel on every live pair", counts, pairs)
+    unsharded = fwd_bwd(lambda q, k, v: kernels.flash_attention(q, k, v, causal=causal))
+    plain = fwd_bwd(lambda q, k, v: kernels.reference_attention(q, k, v, causal=causal))
+    names = ("out", "dq", "dk", "dv")
+    by_block = {against: {n: _block_rel_errs(a.float(), b.float(), sp)
+                          for n, a, b in zip(names, x, y)}
+                for against, x, y in (("ring_vs_kernel", got, unsharded),
+                                      ("kernel_vs_plain", unsharded, plain))}
+    err_plain = {n: _rel_err(a.float(), b.float()) for n, a, b in zip(names, got, plain)}
+    abs_kernel = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, unsharded))
+    del got, unsharded, plain
+    row = {"dtype": dtype, "sp": sp, "causal": causal, "launches_a_call": counts,
+           "pairs": pairs, "tma_clones": clones, "split_launches": split,
+           "rel_err_by_block": by_block, "rel_err_vs_plain": err_plain,
+           "max_abs_err_vs_kernel": abs_kernel}
+    log("phase 27 (a) ring %s %s sp %d: errors by block %s, ring vs plain %s" % (
+        dtype, "causal" if causal else "full", sp, json.dumps(by_block), json.dumps(err_plain)))
+    tol = RING_TOL[dtype]
+    bad = {n: max(e) for n, e in by_block["ring_vs_kernel"].items() if not max(e) <= tol}
+    bad.update({"%s vs plain" % n: e for n, e in err_plain.items() if not e <= tol})
+    assert not bad, ("ring vs unsharded kernel over %g of a block's max, or vs plain of max"
+                     % tol, bad)
+    row["ms"] = time_ms(lambda: fwd_bwd(ring_fn), 5, 2, flush)
+    row["device_ms"] = device_ms(lambda: fwd_bwd(ring_fn), 5, 1, flush,
+                                 sleep_cycles=RING_TIME_SLEEP)
+    return row
+
+
+def ring_sp1_ms(kernels, dev, dtype, causal, rng, flush):
+    """fwd + bwd ms of the unsharded kernel (sp 1) at RING's shape."""
+    import torch
+
+    q, k, v, cot = _ring_inputs(dev, dtype, rng)
+
+    def fwd_bwd():
+        out = kernels.flash_attention(q, k, v, causal=causal)
+        return torch.autograd.grad(out, (q, k, v), cot)
+
+    return {"ms": time_ms(fwd_bwd, 5, 2, flush),
+            "device_ms": device_ms(fwd_bwd, 5, 1, flush, sleep_cycles=RING_TIME_SLEEP)}
+
+
+def parallel_ring(kernels, dev, dtypes):
+    import torch
+
+    import mxnet_tpu_torch.parallel  # noqa: F401
+
+    ring = sys.modules["mxnet_tpu_torch.parallel.ring_attention"]
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    rng = np.random.default_rng(RING["seed"])
+    rows = []
+    for dtype in dtypes:
+        for causal in (True, False):
+            rows.append({"dtype": dtype, "sp": 1, "causal": causal,
+                         **ring_sp1_ms(kernels, dev, dtype, causal, rng, flush)})
+            for sp in RING["sps"]:
+                rows.append(ring_case(kernels, ring, dev, dtype, sp, causal, rng, flush))
+            for r in rows[-3:]:
+                log("phase 27 (a) ring %s %s sp %d B %d T %d H %d D %d: %s" % (
+                    dtype, "causal" if causal else "full", r["sp"], RING["B"], RING["T"],
+                    RING["H"], RING["D"], json.dumps(r)))
+    return rows
+
+
+def parallel_lm_run(trainer, kernels, dev, sp, ep, moe_experts, steps):
+    """One trainer run of PAR_LM's shape: per-step launches, step ms (the
+    median of the steps after the first), tokens/s, peak memory."""
+    import torch
+
+    stamps, per_step = [], []
+
+    def on_step(i, loss, params):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        per_step.append(read_counts(kernels))
+
+    cfg = dict(PAR_LM, steps=steps, moe_experts=moe_experts)
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts(kernels)  # counts from here are this run's
+    t0 = time.perf_counter()
+    losses = trainer.train(dtype="bfloat16", device=dev, sp=sp, ep=ep, on_step=on_step,
+                           log=lambda *a: log("  train:", *a), **cfg)
+    wall = time.perf_counter() - t0
+    counts = read_counts(kernels)
+    a_step = FULL["n_layers"] * ring_pairs(sp, True)
+    prev = dict.fromkeys(counts, 0)
+    for i, c in enumerate(per_step):
+        for name, n in c.items():
+            assert n - prev[name] == a_step, (sp, i, name, n - prev[name], a_step)
+        prev = c
+    assert len(losses) == steps and all(np.isfinite(losses)), losses
+    res = {"sp": sp, "ep": ep, "moe_experts": moe_experts, "losses": losses, "wall_s": wall,
+           "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+           "launches": counts, "launches_a_step": a_step}
+    step_s = [b - a for a, b in zip(stamps, stamps[1:])]
+    if step_s:
+        med = statistics.median(step_s)
+        res.update(step_ms_median=1e3 * med, step_ms=[1e3 * s for s in step_s],
+                   tokens_per_s=cfg["batch_size"] * cfg["seq_len"] / med)
+    return res
+
+
+def parallel_lm(trainer, kernels, dev, full=False):
+    """Phase 27 (b): the MoE LM at full width, sp 4 / ep 4 (the main path)
+    against sp 1 / ep 1 (one step; all of them, and the dense model's steps
+    at the same batch, with ``full``)."""
+    lm = trainer.transformer_lm
+    trainer.transformer_lm = memo_lm(lm)
+    try:
+        runs = {"sp4": parallel_lm_run(trainer, kernels, dev, PAR_SP, PAR_EP,
+                                       PAR_LM["moe_experts"], PAR_LM["steps"])}
+        runs["sp1"] = parallel_lm_run(trainer, kernels, dev, 1, 1, PAR_LM["moe_experts"],
+                                      PAR_LM["steps"] if full else 1)
+        if full:
+            runs["dense_sp1"] = parallel_lm_run(trainer, kernels, dev, 1, 1, 0,
+                                                PAR_LM_DENSE_STEPS)
+    finally:
+        trainer.transformer_lm = lm
+    for key, r in runs.items():
+        log("phase 27 (b) %s LM bf16 B %d T %d%s: %s" % (
+            "MoE" if r["moe_experts"] else "dense", PAR_LM["batch_size"], PAR_LM["seq_len"],
+            " E %d sp %d ep %d" % (r["moe_experts"], r["sp"], r["ep"]) if r["moe_experts"]
+            else "", json.dumps({k: v for k, v in r.items() if k != "step_ms"})))
+    l4, l1 = runs["sp4"]["losses"][0], runs["sp1"]["losses"][0]
+    rel = abs(l4 - l1) / abs(l1)
+    log("phase 27 (b) step 0 loss sp 4 %.6f vs sp 1 %.6f: rel %.3g (limit %g)"
+        % (l4, l1, rel, PAR_LOSS_RTOL))
+    for key in ("sp4", "sp1"):
+        losses = runs[key]["losses"]
+        assert len(losses) == 1 or losses[-1] < losses[0], (key, losses)
+    assert rel <= PAR_LOSS_RTOL, ("step 0's loss, sp 4 vs sp 1", l4, l1, rel)
+    return {"runs": runs, "step0_rel_diff": rel, "launches": runs["sp4"]["launches"]}
+
+
+def parallel_prefill(mx, tfm, kernels, GenerationEngine, dev):
+    """Phase 27 (c): sp 4 prefill at full width against sp 1, directly and
+    through GenerationEngine."""
+    import torch
+
+    from mxnet_tpu_torch.serving import buckets
+
+    bf16 = torch.bfloat16
+    init_fn, _ = memo_lm(tfm.transformer_lm)(dtype=bf16, **FULL)
+    params = tfm.params_from_jax(init_fn(0), device=dev, dtype=bf16)
+    init_cache, prefill, decode_step = tfm.transformer_lm_serving(
+        max_len=MAX_LEN, dtype=bf16, **FULL)
+    mesh = mx.parallel.make_mesh(sp=PAR_SP, devices=[mx.gpu(0)] * PAR_SP)
+    ladder = buckets.bucket_ladder(MAX_LEN, base=8)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, FULL["vocab"], n) for n in PROMPT_LENGTHS]
+    a_dispatch = FULL["n_layers"] * ring_pairs(PAR_SP, True)
+    cache = init_cache(2, device=dev)
+    errs = {}
+    for p in prompts:
+        t = buckets.covering_value(ladder, len(p))
+        toks = np.zeros((1, t), np.int64)
+        toks[0, :len(p)] = p
+        args = (torch.from_numpy(toks), torch.tensor([0]), torch.tensor([len(p)]))
+        zero_counts(kernels)
+        _, ring_last = prefill(params, cache, *args, mesh=mesh)
+        n_ring = kernels.flash_attention.launches
+        _, last = prefill(params, cache, *args)
+        assert n_ring == a_dispatch, (len(p), n_ring, a_dispatch)
+        assert bool(torch.isfinite(ring_last).all())
+        errs[len(p)] = _rel_err(ring_last.float(), last.float())
+    worst = max(errs.values())
+    assert worst <= 2e-2, ("sp 4 prefill's last logits vs sp 1 over 2e-2 of max", errs)
+
+    dispatches = [0]
+
+    def counted(*args, **kwargs):
+        dispatches[0] += 1
+        return prefill(*args, **kwargs)
+
+    outs, engine = {}, {}
+    for key, m in (("sp4", mesh), ("sp1", None)):
+        gen = GenerationEngine(params, (init_cache, counted, decode_step), slots=SLOTS,
+                               max_len=MAX_LEN, mesh=m, device=dev)
+        gen.compile(prompt_lengths=PROMPT_LENGTHS)
+        zero_counts(kernels)  # counts from here are the engine's run
+        dispatches[0] = 0
+        t0 = time.perf_counter()
+        reqs = [gen.submit(p, max_new=MAX_NEW) for p in prompts]
+        for _ in range(len(prompts) * MAX_NEW + 8):  # the engine's loop, driven in order
+            if all(r.done.is_set() for r in reqs):
+                break
+            gen.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        outs[key] = [r.result(0) for r in reqs]
+        engine[key] = {"wall_s": wall, "prefill_dispatches": dispatches[0],
+                       "flash_launches": kernels.flash_attention.launches}
+        assert all(len(o) == MAX_NEW for o in outs[key])
+    n_disp = engine["sp4"]["prefill_dispatches"]
+    assert engine["sp4"]["flash_launches"] == n_disp * a_dispatch, engine
+    same = sum(a == b for o4, o1 in zip(outs["sp4"], outs["sp1"]) for a, b in zip(o4, o1))
+    whole = sum(o4 == o1 for o4, o1 in zip(outs["sp4"], outs["sp1"]))
+    res = {"rel_err_by_length": errs, "worst_rel_err": worst, "launches_a_dispatch": a_dispatch,
+           "engine": engine, "tokens_equal": same, "tokens": len(prompts) * MAX_NEW,
+           "requests_equal": whole, "requests": len(prompts),
+           "launches": engine["sp4"]["flash_launches"]}
+    log("phase 27 (c) sp %d prefill bf16 full width, %d prompts (lengths %s): last logits vs "
+        "sp 1 worst %.3g of max (limit 2e-2); engine: %s" % (
+            PAR_SP, len(prompts), list(PROMPT_LENGTHS), worst, json.dumps(
+                {k: v for k, v in res.items() if k != "rel_err_by_length"})))
+    return res
+
+
+def parallel_small(mx, dev):
+    """Phase 27 (d): SwitchMoE through Module.fit on the card, and the GPipe
+    pipeline against the sequential loop."""
+    import torch
+
+    from mxnet_tpu_torch.parallel.pipeline import pipelined_loss
+
+    E, D, H = 4, 16, 32
+    t0 = time.perf_counter()
+    with mx.gpu(0):
+        data = mx.sym.Variable("data")
+        moe = mx.contrib.symbol.SwitchMoE(
+            data, mx.sym.Variable("gate_weight"), mx.sym.Variable("up_weight"),
+            mx.sym.Variable("down_weight"), num_experts=E, num_hidden=H, capacity_factor=2.0,
+            name="moe")
+        fc = mx.sym.FullyConnected(moe[0], num_hidden=2, name="fc")
+        net = mx.sym.SoftmaxOutput(fc, name="softmax")
+        r = np.random.RandomState(0)
+        X = r.randn(128, D).astype(np.float32)
+        yl = (X[:, 0] > 0).astype(np.float32)
+        it = mx.io.NDArrayIter(X, yl, batch_size=32)
+        np.random.seed(0)
+        mod = mx.mod.Module(net, context=mx.gpu(0))
+        mod.fit(it, num_epoch=20, optimizer="sgd", initializer=mx.init.Uniform(0.3),
+                optimizer_params={"learning_rate": 0.5})
+        acc = dict(mod.score(it, mx.metric.Accuracy()))["accuracy"]
+        where = str(mod.get_outputs()[0].context)
+    fit_s = time.perf_counter() - t0
+    assert acc > 0.9, acc
+    assert where.startswith("gpu"), where
+
+    s, d = PIPE["stages"], PIPE["d"]
+    rng = np.random.RandomState(PIPE["seed"])
+    host = {"w": (rng.randn(s, d, d) / np.sqrt(d)).astype(np.float32),
+            "b": (rng.randn(s, d) * 0.1).astype(np.float32)}
+    x = torch.from_numpy(rng.randn(PIPE["micro"], PIPE["mb"], d).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.randn(PIPE["micro"], PIPE["mb"], d).astype(np.float32)).to(dev)
+
+    def stage_fn(p, act):
+        return torch.relu(act @ p["w"] + p["b"])
+
+    def loss_fn(outs, tgt):
+        return torch.mean((outs - tgt) ** 2)
+
+    def params():
+        return {k: torch.from_numpy(v).to(dev).requires_grad_() for k, v in host.items()}
+
+    pp = params()
+    t1 = time.perf_counter()
+    mesh = mx.parallel.make_mesh(dp=1, pp=s, devices=[mx.gpu(0)] * s)
+    loss = pipelined_loss(stage_fn, loss_fn, mesh)(pp, x, y)
+    loss.backward()
+    torch.cuda.synchronize()
+    pipe_ms = (time.perf_counter() - t1) * 1e3
+    sq = params()
+    act = x
+    for i in range(s):
+        act = stage_fn({"w": sq["w"][i], "b": sq["b"][i]}, act)
+    ref = loss_fn(act, y)
+    ref.backward()
+    loss_rel = abs(loss.item() - ref.item()) / abs(ref.item())
+    grad_err = {k: _rel_err(pp[k].grad, sq[k].grad) for k in host}
+    res = {"switch_moe_fit_accuracy": acc, "switch_moe_fit_s": fit_s, "switch_moe_ctx": where,
+           "pipeline_loss": loss.item(), "sequential_loss": ref.item(),
+           "pipeline_loss_rel_diff": loss_rel, "pipeline_grad_rel_err": grad_err,
+           "pipeline_fwd_bwd_ms_first_call": pipe_ms}
+    log("phase 27 (d): %s" % json.dumps(res))
+    assert loss_rel <= 1e-5, (loss.item(), ref.item())
+    assert all(e <= 1e-4 for e in grad_err.values()), grad_err
+    return res
+
+
+def phase_parallel(mx, tfm, trainer, kernels, GenerationEngine, dev, full=False):
+    """Phase 27; see the module docstring. Every part runs; the phase fails
+    after them if any failed. ``full`` (``--only parallel``) adds (a)'s f32
+    sweep and (b)'s whole sp 1 and dense runs."""
+    import traceback
+
+    faults = []
+
+    def part(name, fn, *args):
+        try:
+            return fn(*args)
+        except Exception as e:  # reported with the others at the end of the phase
+            faults.append("%s: %s: %s" % (name, type(e).__name__, e))
+            log("phase 27 (%s) FAILED:\n%s" % (name, traceback.format_exc()))
+            return None
+
+    t0 = time.perf_counter()
+    res, times = {}, {}
+    dtypes = ("bfloat16", "float32") if full else ("bfloat16",)
+    for key, fn, args in (("a", parallel_ring, (kernels, dev, dtypes)),
+                          ("b", parallel_lm, (trainer, kernels, dev, full)),
+                          ("c", parallel_prefill, (mx, tfm, kernels, GenerationEngine, dev)),
+                          ("d", parallel_small, (mx, dev))):
+        t = time.perf_counter()
+        res[key] = part(key, fn, *args)
+        times[key] = time.perf_counter() - t
+    _LM_TREES.clear()
+    res["phase_s"] = time.perf_counter() - t0
+    res["part_s"] = times
+    log("phase 27: %.1f s (%s)" % (res["phase_s"], ", ".join(
+        "%s %.1f" % kv for kv in times.items())))
+    assert not faults, "phase 27: " + "; ".join(faults)
+    launches = dict(res["b"]["launches"])
+    launches["flash_attn_fwd"] += res["c"]["launches"]
+    res["launches"] = launches
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every phase's numbers to this JSON file")
     ap.add_argument("--package", help="import mxnet_tpu_torch from this checkout instead of the "
                     "one beside this script (to run this script's phases on another tree)")
     ap.add_argument("--only", choices=("f32_lm", "rtc", "slab", "zoo", "multistep", "serving",
-                                       "resilience", "input", "rnn", "mirror"),
+                                       "resilience", "input", "rnn", "mirror", "parallel"),
                     help="f32_lm: build, phase 19 and phase 8's attention kernel times only; "
                     "rtc: K5's push path on ResNet-50's parameter arrays only; slab: K1's "
                     "build, phases 16-18 and K1's times only; zoo: K2/K3's build and "
@@ -5415,7 +5853,8 @@ def main(argv=None):
                     "predict, only (d) and its continuations' digest); resilience: K1-K3's "
                     "build and phase 23 only; input: K1-K3's build and phase 24 only; rnn: the "
                     "flash kernels' build and phase 25 only; mirror: K1-K3's build and phase "
-                    "26 with its memory / ms sweep")
+                    "26 with its memory / ms sweep; parallel: the flash kernels' build and "
+                    "phase 27 with (a)'s f32 sweep and (b)'s sp 1 and dense runs")
     ap.add_argument("--resilience-worker", metavar="SPEC", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
@@ -5504,6 +5943,12 @@ def main(argv=None):
         _build.build(["conv_bwd_filter", "slab_update"])
         results["build_s"] = time.perf_counter() - t0
         results["mirror"] = phase_mirror(mx, kernels, dev, sweep=True)
+    if args.only == "parallel":
+        t0 = time.perf_counter()
+        _build.build(["flash_attn_fwd", "flash_split", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"])
+        results["build_s"] = time.perf_counter() - t0
+        results["parallel"] = phase_parallel(mx, tfm, trainer, kernels, GenerationEngine, dev,
+                                             full=True)
     if args.only:
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -5550,6 +5995,8 @@ def main(argv=None):
     results["input"] = inp = phase_input(mx, kernels, dev, package, measure=False)
     results["rnn"] = rnn = phase_rnn(mx, kernels, dev)
     results["mirror"] = mirror = phase_mirror(mx, kernels, dev)
+    results["parallel"] = par = phase_parallel(mx, tfm, trainer, kernels, GenerationEngine, dev)
+    par_launches = par["launches"]  # phase 27 (b)'s sp 4 training and (c)'s sp 4 engine
     mirror_launches = mirror["launches"]
     multi_launches = multistep_launches(multi)
     resil_launches = resil["launches_resumed_runs"]
@@ -5575,14 +6022,15 @@ def main(argv=None):
     rnn_launches = rnn["launches"]  # phase 25 (c): f32 kernels, on the rnn path
     fwd[0]["launches_by_path"] = {"serving": serve_launches,
                                   "training": train_launches["flash_attn_fwd"],
-                                  "rnn": rnn_launches["flash_attn_fwd"]}
-    fwd[0]["launches"] = (serve_launches + train_launches["flash_attn_fwd"]
-                          + rnn_launches["flash_attn_fwd"])
+                                  "rnn": rnn_launches["flash_attn_fwd"],
+                                  "parallel": par_launches["flash_attn_fwd"]}
+    fwd[0]["launches"] = sum(fwd[0]["launches_by_path"].values())
     bwd = phase_bwd_times(kernels, dev, train_launches, f32_launches)
     for entry in bwd:
         entry["launches_by_path"] = {"training": entry["launches"],
-                                     "rnn": rnn_launches[entry["name"]]}
-        entry["launches"] += rnn_launches[entry["name"]]
+                                     "rnn": rnn_launches[entry["name"]],
+                                     "parallel": par_launches[entry["name"]]}
+        entry["launches"] = sum(entry["launches_by_path"].values())
     conv_entries = phase_conv_times(kernels, resnet, dev, conv_launches, conv_errs)
     for entry in conv_entries:
         # phase 20: the zoo's training launches and inception-v3's f32 step

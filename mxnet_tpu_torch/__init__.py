@@ -23,7 +23,10 @@ the card), bundles, ``serving.ServingEngine``, int8 ``serving.quant`` and
 ``tools.serve``; and ``resilience``: atomic checkpoints, preemption and
 crash resume, fault injection, retries and the guardrails of ``fit``; and
 ``rnn``: the symbolic RNN cells over the fused ``RNN`` operator (cuDNN on
-the card), ``BucketSentenceIter`` and the RNN checkpoint helpers.
+the card), ``BucketSentenceIter`` and the RNN checkpoint helpers; and, on
+meshes of logical ranks of one device, ``parallel``'s ring attention over
+the 'sp' axis, the Switch-MoE FFN (also the ``contrib`` operator
+``SwitchMoE``) and the GPipe pipeline over 'pp'.
 
 Attention runs the hand-written CUDA flash-attention forward
 (``csrc/flash_attn_fwd.cu``) and its gradient the dq and dk/dv kernels
@@ -77,3 +80,4 @@ from . import resilience  # noqa: F401
 from . import engine, image, io_pipeline, native, recordio  # noqa: F401
 from . import rnn  # noqa: F401
 from . import executor_manager  # noqa: F401
+from . import contrib  # noqa: F401

@@ -6,12 +6,15 @@
 Same flags, defaults, synthetic corpus, loss and printed lines as the JAX
 example. Each step is one forward through ``transformer_lm``'s
 ``apply_fn`` (attention through the CUDA flash kernels on the card), the
-mean next-token NLL in f32, ``loss.backward()`` (the flash-attention
-backward kernels), and plain SGD ``p -= lr * g`` on f32 master
-parameters; ``--dtype`` is the compute dtype. It runs on the CUDA card
-unless ``--cpu`` is given. The mesh flags (``--dp/--tp/--sp/--ep`` > 1) and
-``--moe-experts`` raise NotImplementedError: the modules they need are not
-ported yet.
+mean next-token NLL in f32 (plus 0.01 times the load-balance loss with
+``--moe-experts``), ``loss.backward()`` (the flash-attention backward
+kernels), and plain SGD ``p -= lr * g`` on f32 master parameters;
+``--dtype`` is the compute dtype. It runs on the CUDA card unless
+``--cpu`` is given. ``--moe-experts N`` swaps every second FFN for a
+Switch-MoE block; ``--sp`` and ``--ep`` build a mesh of sp x ep logical
+ranks on the one device: attention runs as ring attention over sp
+sequence blocks, and the experts must divide by ep. ``--dp`` and ``--tp``
+> 1 raise NotImplementedError: they need ranks on several cards.
 """
 from __future__ import annotations
 
@@ -23,12 +26,12 @@ import torch
 
 from ..context import resolve_device
 from ..models.transformer import _torch_dtype, params_from_jax, transformer_lm
+from ..parallel.mesh import make_mesh
 
 _NOT_PORTED = (
-    ("dp", "data parallelism over a device mesh (mxnet_tpu/parallel/mesh.py)"),
-    ("tp", "tensor parallelism over a device mesh (mxnet_tpu/parallel/mesh.py)"),
-    ("sp", "sequence parallelism, ring attention (mxnet_tpu/parallel/ring_attention.py)"),
-    ("ep", "expert parallelism (mxnet_tpu/parallel/moe.py)"),
+    ("dp", "data parallelism across cards (ROADMAP Queue 1 step 8; the fused dp trainer "
+           "of one card is parallel.ShardedTrainStep)"),
+    ("tp", "tensor parallelism across cards (ROADMAP Queue 1 step 8, param_specs)"),
 )
 
 
@@ -60,18 +63,21 @@ def sgd_step(params, lr):
             p.grad = None
 
 
-def check_supported(dp=None, tp=1, sp=1, ep=1, moe_experts=0):
-    """Raise NotImplementedError for what the port cannot run yet."""
-    sizes = {"dp": dp or 1, "tp": tp, "sp": sp, "ep": ep}
+def check_supported(dp=None, tp=1, sp=1, ep=1, moe_experts=0, seq_len=None):
+    """Raise for what the port cannot run: NotImplementedError for
+    ``--dp``/``--tp`` > 1, ValueError for a sequence that does not divide by
+    sp or experts that do not divide by ep."""
+    sizes = {"dp": dp or 1, "tp": tp}
     for axis, what in _NOT_PORTED:
         if sizes[axis] > 1:
             raise NotImplementedError(
                 "--%s %d needs %s, which is not ported to PyTorch yet"
                 % (axis, sizes[axis], what))
-    if moe_experts > 0:
-        raise NotImplementedError(
-            "--moe-experts needs Switch-MoE layers (mxnet_tpu/parallel/moe.py), "
-            "which are not ported to PyTorch yet")
+    if seq_len is not None and seq_len % sp:
+        raise ValueError("--seq-len %d does not divide into --sp %d sequence blocks"
+                         % (seq_len, sp))
+    if moe_experts > 0 and moe_experts % ep:
+        raise ValueError("--moe-experts %d do not shard over --ep %d" % (moe_experts, ep))
 
 
 def train(vocab=256, d_model=256, n_heads=8, n_layers=4, d_ff=1024, seq_len=256,
@@ -81,12 +87,16 @@ def train(vocab=256, d_model=256, n_heads=8, n_layers=4, d_ff=1024, seq_len=256,
     per-step losses (floats). ``device`` defaults to the CUDA card;
     ``on_step(i, loss, params)``, if given, is called after each step's
     update with the loss tensor (not synchronised) and the parameters."""
-    check_supported(dp, tp, sp, ep, moe_experts)
+    check_supported(dp, tp, sp, ep, moe_experts, seq_len)
     dev = resolve_device(device)
     init_fn, apply_fn = transformer_lm(
         vocab=vocab, d_model=d_model, n_heads=n_heads, n_layers=n_layers,
-        d_ff=d_ff, dtype=_torch_dtype(dtype))
+        d_ff=d_ff, dtype=_torch_dtype(dtype), moe_experts=moe_experts)
     log("device:", dev)
+    mesh = None
+    if sp * ep > 1:
+        mesh = make_mesh(sp=sp, ep=ep, devices=[dev] * (sp * ep))
+        log("mesh:", mesh.shape)
     seq = torch.from_numpy(corpus(vocab, batch_size, seq_len).astype(np.int64)).to(dev)
     tokens, targets = seq[:, :-1], seq[:, 1:]
     params = params_from_jax(init_fn(0), device=dev, dtype=torch.float32)
@@ -95,7 +105,9 @@ def train(vocab=256, d_model=256, n_heads=8, n_layers=4, d_ff=1024, seq_len=256,
     losses = []
     t0 = time.time()
     for i in range(steps):
-        loss = lm_loss(apply_fn(params, tokens), targets)
+        out = apply_fn(params, tokens, mesh=mesh if sp > 1 else None)
+        logits, aux = out if moe_experts else (out, 0.0)
+        loss = lm_loss(logits, targets) + 0.01 * aux
         loss.backward()
         sgd_step(params, lr)
         loss = loss.detach()

@@ -64,8 +64,9 @@ def lstm_attention_lm(vocab=10000, num_hidden=256, num_embed=256, n_heads=4, dty
     ``tokens`` an integer tensor [B, T]. One LSTM layer (gate order i, f,
     g, o) runs through ``torch._VF.lstm`` (cuDNN on the card); each
     position then attends causally over the whole hidden sequence, and the
-    logits read hs + attention. A mesh whose 'sp' axis is > 1 raises, as
-    the attention dispatcher does."""
+    logits read hs + attention. A mesh whose 'sp' axis is > 1 runs that
+    attention as ring attention over sp sequence blocks (T must divide by
+    sp), through the shared dispatch."""
     dtype = dtype or torch.float32
     assert num_hidden % n_heads == 0
     head_dim = num_hidden // n_heads

@@ -1,12 +1,15 @@
 """Transformer LM of the PyTorch port (counterpart of
-``mxnet_tpu/models/transformer.py``): the dense model and its KV-cached
-serving twin.
+``mxnet_tpu/models/transformer.py``): the dense model, its Switch-MoE
+variant, and the dense model's KV-cached serving twin.
 
 Parameters come from the JAX package's param tree
-(``{"embed", "l{i}": {ln1, ln2, wq, wk, wv, wo, w1, w2}, "ln_f"}``) through
+(``{"embed", "l{i}": {ln1, ln2, wq, wk, wv, wo, w1, w2}, "ln_f"}``; a MoE
+layer has ``moe: {gate_w, w_up, w_down}`` in place of ``w1``/``w2``) through
 :func:`params_from_jax`, which stores projection weights as ``nn.Linear``
-does ([out, in], the transpose of the tree's [in, out]) and keeps the
-embedding in f32, because the LM head multiplies against the f32 table.
+does ([out, in], the transpose of the tree's [in, out]), the MoE tensors in
+the tree's expert-major layout, and keeps the embedding and the router
+``gate_w`` in f32, because the LM head multiplies against the f32 table and
+the router computes in f32.
 ``transformer_lm(...)[0]`` makes that tree with the same numpy
 ``RandomState`` draws as the JAX package, so ``init_fn(0)`` is bit-identical
 in both. :func:`params_to_jax` and :func:`grads_to_jax` carry parameters and
@@ -39,6 +42,7 @@ from torch import nn
 
 from ..context import resolve_device
 from ..ops import kernels as _kernels
+from ..parallel.moe import init_moe_params, switch_moe
 
 _NEG_INF = -1e30
 
@@ -68,16 +72,29 @@ def _param(a, device, dtype, transpose=False):
     return nn.Parameter(t, requires_grad=False)
 
 
+_MOE_NAMES = ("gate_w", "w_up", "w_down")
+
+
 class TransformerLayer(nn.Module):
-    """One pre-norm block's weights: rmsnorm gains ``ln1``/``ln2`` and the
-    projections ``wq wk wv wo w1 w2`` stored [out, in]."""
+    """One pre-norm block's weights: rmsnorm gains ``ln1``/``ln2``, the
+    projections ``wq wk wv wo`` stored [out, in], and either the FFN's
+    ``w1 w2`` ([out, in]) or, in a MoE layer, ``moe``: a ParameterDict of
+    ``gate_w`` [d_model, E] (f32), ``w_up`` [E, d_model, d_ff] and
+    ``w_down`` [E, d_ff, d_model]."""
 
     def __init__(self, tree, device, dtype):
         super().__init__()
         self.ln1 = _param(tree["ln1"], device, dtype)
         self.ln2 = _param(tree["ln2"], device, dtype)
-        for name in ("wq", "wk", "wv", "wo", "w1", "w2"):
+        ffn = ("w1", "w2") if "moe" not in tree else ()
+        for name in ("wq", "wk", "wv", "wo") + ffn:
             setattr(self, name, _param(tree[name], device, dtype, transpose=True))
+        self.moe = None
+        if "moe" in tree:
+            self.moe = nn.ParameterDict({
+                name: _param(tree["moe"][name], device,
+                             torch.float32 if name == "gate_w" else dtype)
+                for name in _MOE_NAMES})
 
 
 class TransformerParams(nn.Module):
@@ -87,10 +104,6 @@ class TransformerParams(nn.Module):
     def __init__(self, tree, device, dtype):
         super().__init__()
         n_layers = sum(1 for key in tree if key.startswith("l") and key[1:].isdigit())
-        for i in range(n_layers):
-            if "moe" in tree["l%d" % i]:
-                raise NotImplementedError(
-                    "MoE layers are not ported to PyTorch yet (parallel/moe.py)")
         self.embed = _param(tree["embed"], device, torch.float32)
         self.layers = nn.ModuleList(
             TransformerLayer(tree["l%d" % i], device, dtype) for i in range(n_layers))
@@ -118,9 +131,12 @@ def _tree(params, leaf):
 
     tree = {"embed": host(params.embed), "ln_f": host(params.ln_f)}
     for i, layer in enumerate(params.layers):
-        tree["l%d" % i] = {"ln1": host(layer.ln1), "ln2": host(layer.ln2)}
-        for name in ("wq", "wk", "wv", "wo", "w1", "w2"):
-            tree["l%d" % i][name] = host(getattr(layer, name), transpose=True)
+        node = tree["l%d" % i] = {"ln1": host(layer.ln1), "ln2": host(layer.ln2)}
+        ffn = ("w1", "w2") if layer.moe is None else ()
+        for name in ("wq", "wk", "wv", "wo") + ffn:
+            node[name] = host(getattr(layer, name), transpose=True)
+        if layer.moe is not None:
+            node["moe"] = {name: host(layer.moe[name]) for name in _MOE_NAMES}
     return tree
 
 
@@ -184,7 +200,7 @@ class _PETable:
         return t
 
 
-def _init_fn_for(vocab, d_model, n_heads, n_layers, d_ff):
+def _init_fn_for(vocab, d_model, n_heads, n_layers, d_ff, moe_experts=0, moe_every=2):
     head_dim = d_model // n_heads
 
     def init_fn(seed=0):
@@ -197,20 +213,29 @@ def _init_fn_for(vocab, d_model, n_heads, n_layers, d_ff):
 
         params = {"embed": w(vocab, d_model, scale=0.02)}
         for i in range(n_layers):
-            params["l%d" % i] = {
+            layer = params["l%d" % i] = {
                 "ln1": np.ones((d_model,), np.float32),
                 "ln2": np.ones((d_model,), np.float32),
                 "wq": w(d_model, n_heads * head_dim),
                 "wk": w(d_model, n_heads * head_dim),
                 "wv": w(d_model, n_heads * head_dim),
                 "wo": w(n_heads * head_dim, d_model),
-                "w1": w(d_model, d_ff),
-                "w2": w(d_ff, d_model),
             }
+            if _is_moe_layer(i, moe_experts, moe_every):
+                moe = init_moe_params(rng.randint(1 << 30), d_model, d_ff, moe_experts,
+                                      device="cpu")
+                layer["moe"] = {k: v.numpy() for k, v in moe.items()}
+            else:
+                layer["w1"] = w(d_model, d_ff)
+                layer["w2"] = w(d_ff, d_model)
         params["ln_f"] = np.ones((d_model,), np.float32)
         return params
 
     return init_fn
+
+
+def _is_moe_layer(i, moe_experts, moe_every):
+    return moe_experts > 0 and i % moe_every == moe_every - 1
 
 
 def transformer_lm(vocab=32000, d_model=512, n_heads=8, n_layers=4,
@@ -220,32 +245,44 @@ def transformer_lm(vocab=32000, d_model=512, n_heads=8, n_layers=4,
     ``params`` is ``params_from_jax(init_fn(seed), device, dtype)``, or,
     to train, ``params_from_jax(init_fn(seed), device,
     torch.float32).requires_grad_()`` with ``dtype`` the compute dtype.
-    Dense layers only: ``moe_experts > 0`` raises NotImplementedError."""
-    if moe_experts > 0:
-        raise NotImplementedError(
-            "MoE layers are not ported to PyTorch yet (parallel/moe.py)")
+
+    ``moe_experts > 0`` replaces every ``moe_every``-th layer's FFN with a
+    Switch-MoE block (``parallel.moe.switch_moe``, d_ff hidden units an
+    expert); ``apply_fn`` then returns ``(logits, aux)``, the f32 sum of
+    the layers' load-balance losses. A ``mesh`` whose 'sp' axis is > 1 runs
+    each layer's attention as ring attention over sp sequence blocks."""
     dtype = _torch_dtype(dtype)
     head_dim = d_model // n_heads
     pe_tables = {}  # T -> _PETable of T rows
 
     def apply_fn(params, tokens, mesh=None):
-        """f32 logits [B, T, vocab]; differentiable in ``params``."""
+        """f32 logits [B, T, vocab] (and the f32 aux loss with MoE layers);
+        differentiable in ``params``."""
         tokens = torch.as_tensor(tokens, device=params.device).long()
         B, T = tokens.shape
         if T not in pe_tables:
             pe_tables[T] = _PETable(T, d_model)
         pe = pe_tables[T].get(params.device, dtype)
         x = params.embed[tokens].to(dtype) + pe[None]
-        for layer in params.layers:
+        aux_total = torch.zeros((), dtype=torch.float32, device=params.device)
+        for i, layer in enumerate(params.layers):
             h = _rmsnorm(x, layer.ln1.to(dtype))
             q, k, v = _qkv(h, layer, dtype, (B, T, n_heads, head_dim))
             o = _kernels.attention(q, k, v, causal=True, mesh=mesh)
             x = x + F.linear(o.reshape(B, T, d_model), layer.wo.to(dtype))
-            x = _ffn(x, layer, dtype)
+            if _is_moe_layer(i, moe_experts, moe_every):
+                h = _rmsnorm(x, layer.ln2.to(dtype))
+                y, aux = switch_moe(layer.moe, h.reshape(B * T, d_model))
+                x = x + y.reshape(B, T, d_model)
+                aux_total = aux_total + aux
+            else:
+                x = _ffn(x, layer, dtype)
         x = _rmsnorm(x, params.ln_f.to(dtype))
-        return x.float() @ params.embed.T
+        logits = x.float() @ params.embed.T
+        return (logits, aux_total) if moe_experts > 0 else logits
 
-    return _init_fn_for(vocab, d_model, n_heads, n_layers, d_ff), apply_fn
+    return (_init_fn_for(vocab, d_model, n_heads, n_layers, d_ff, moe_experts, moe_every),
+            apply_fn)
 
 
 def transformer_lm_serving(vocab=32000, d_model=512, n_heads=8, n_layers=4,
@@ -258,7 +295,8 @@ def transformer_lm_serving(vocab=32000, d_model=512, n_heads=8, n_layers=4,
       per ring cell, -1 = empty) and ``length`` per slot, int32.
     - ``prefill(params, cache, tokens[n, T], slots[n], lengths[n],
       mesh=None)`` → ``(cache, last_logits[n, vocab])``: a causal forward
-      through :func:`ops.kernels.attention` whose per-layer K/V are written
+      through :func:`ops.kernels.attention` (ring attention over sp blocks
+      when ``mesh``'s 'sp' axis is > 1) whose per-layer K/V are written
       into the cache rows of ``slots``.
     - ``decode_step(params, cache, tokens[slots])`` →
       ``(cache, logits[slots, vocab])``: one token for every slot against

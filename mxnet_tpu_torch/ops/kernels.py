@@ -44,7 +44,6 @@ import contextlib
 import functools
 import math
 import struct
-from collections.abc import Mapping
 
 import torch
 import torch.nn.functional as F
@@ -130,8 +129,9 @@ def check_kernel_args(q, k, v, do=None):
     Returns the operands as the kernels read them. The bf16 forward, dq and
     dk/dv kernels load their tiles by TMA: a bf16 operand that
     fails :func:`tma_compatible` (an odd stride, a base off 16 bytes) is
-    copied into a fresh contiguous tensor first. That is a layout repair,
-    not a fallback: the kernel still runs."""
+    copied into a fresh contiguous tensor first (``check_kernel_args.clones``
+    counts those copies). That is a layout repair, not a fallback: the
+    kernel still runs."""
     ops = (("q", q), ("k", k), ("v", v)) + ((("do", do),) if do is not None else ())
     shapes = [tuple(x.shape) for _, x in ops]
     if q.dim() != 4 or any(s != shapes[0] for s in shapes):
@@ -159,8 +159,16 @@ def check_kernel_args(q, k, v, do=None):
             % ("/".join(n for n, _ in ops), " ".join(map(str, devices))))
     if q.dtype != torch.bfloat16:
         return tuple(x for _, x in ops)
-    return tuple(x if tma_compatible(x) else x.clone(memory_format=torch.contiguous_format)
-                 for _, x in ops)
+    out = []
+    for _, x in ops:
+        if not tma_compatible(x):
+            x = x.clone(memory_format=torch.contiguous_format)
+            check_kernel_args.clones += 1
+        out.append(x)
+    return tuple(out)
+
+
+check_kernel_args.clones = 0
 
 
 def _check_row_stats(q, lse, delta):
@@ -243,40 +251,42 @@ def _kernel_operands(*xs, planes=None):
     """(operands, plane count) as the kernels read them: bf16 tensors as
     they are, one plane; f32 tensors as the views of their hi planes, whose
     lo planes follow them in memory, two planes. The f32 planes are
-    ``planes``, the (len(xs), 2, B, T, H, D) bf16 tensor of one
-    :func:`split_planes` pass over ``xs`` already made (a backward makes
-    one for both of its kernels), or else those of a pass run here."""
+    ``planes``, one contiguous (2, B, T, H, D) bf16 tensor an operand: the
+    (len(xs), 2, B, T, H, D) result of one :func:`split_planes` pass over
+    ``xs`` already made (a backward makes one for both of its kernels), a
+    sequence of views of passes made over other operand sets (the ring's
+    blocks pair one block's q with another's k and v), or else those of a
+    pass run here."""
     if xs[0].dtype == torch.bfloat16:
         return xs, 1
-    shape = (len(xs), 2) + tuple(xs[0].shape)
-    if planes is None:
-        planes = split_planes(*xs)
-    elif (planes.dtype != torch.bfloat16 or tuple(planes.shape) != shape
-          or planes.device != xs[0].device or not planes.is_contiguous()):
+    ps = tuple(split_planes(*xs) if planes is None else planes)
+    shape = (2,) + tuple(xs[0].shape)
+    if len(ps) != len(xs) or any(
+            p.dtype != torch.bfloat16 or tuple(p.shape) != shape
+            or p.device != xs[0].device or not p.is_contiguous() for p in ps):
         raise MXNetError(
-            "flash_attention kernels want planes as a contiguous bfloat16 %s tensor on %s, "
-            "got %s %s %s" % (shape, xs[0].device, planes.dtype, tuple(planes.shape),
-                              planes.device))
-    return tuple(planes[i, 0] for i in range(len(xs))), 2
+            "flash_attention kernels want %d contiguous bfloat16 %s planes on %s, got %s"
+            % (len(xs), shape, xs[0].device, [(p.dtype, tuple(p.shape), p.device) for p in ps]))
+    return tuple(p[0] for p in ps), 2
 
 
-def _launch(q, k, v, causal, scale):
+def _launch(q, k, v, causal, scale, planes=None):
     q, k, v = check_kernel_args(q, k, v)
     b, t, h, d = q.shape
     out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-    ops, planes = _kernel_operands(q, k, v)
-    _run("flash_attn_fwd", q, (*ops, out, lse), _strides(*ops), scale, causal, planes)
+    ops, n_planes = _kernel_operands(q, k, v, planes=planes)
+    _run("flash_attn_fwd", q, (*ops, out, lse), _strides(*ops), scale, causal, n_planes)
     flash_attention.launches += 1
     return out, lse
 
 
-def _forward(q, k, v, causal, scale, need_lse):
+def _forward(q, k, v, causal, scale, need_lse, planes=None):
     if q.device.type == "cpu":
         out = reference_attention(q, k, v, causal=causal, scale=scale)
         lse = reference_lse(q, k, causal=causal, scale=scale) if need_lse else None
         return out, lse
-    return _launch(q, k, v, causal, scale)
+    return _launch(q, k, v, causal, scale, planes)
 
 
 def flash_attention_dq(q, k, v, do, lse, delta, causal=False, scale=None, planes=None):
@@ -359,7 +369,7 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
-def flash_attention(q, k, v, causal=False, scale=None, return_lse=False):
+def flash_attention(q, k, v, causal=False, scale=None, return_lse=False, planes=None):
     """Blockwise (flash) attention. q/k/v: [B, T, H, D] -> [B, T, H, D].
 
     On CUDA tensors: the kernel of ``csrc/flash_attn_fwd.cu``, with no
@@ -371,36 +381,38 @@ def flash_attention(q, k, v, causal=False, scale=None, return_lse=False):
     gradient, the call is recorded for autograd, whose backward runs
     :func:`flash_attention_dq` and :func:`flash_attention_dkv`.
     ``return_lse=True`` also returns the f32 logsumexp [B, H, T] a backward
-    pass needs."""
+    pass needs. ``planes``: f32 q, k, v's split planes already made, as for
+    :func:`flash_attention_dq` (a call autograd records takes none)."""
     scale = _default_scale(q, scale)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if planes is not None:
+            raise MXNetError("flash_attention takes planes only in a call autograd "
+                             "does not record")
         out, lse = _FlashAttention.apply(q, k, v, bool(causal), scale)
     else:
-        out, lse = _forward(q, k, v, causal, scale, need_lse=return_lse)
+        out, lse = _forward(q, k, v, causal, scale, need_lse=return_lse, planes=planes)
     return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
 
 
-def _sp_size(mesh):
-    shape = getattr(mesh, "shape", mesh)
-    if not isinstance(shape, Mapping):
-        raise TypeError("mesh must map axis names to sizes, got %r" % (mesh,))
-    return int(shape.get("sp", 1))
-
-
 def attention(q, k, v, causal=False, scale=None, mesh=None):
     """Shared attention dispatch. q/k/v: [B, T, H, D] -> [B, T, H, D].
 
-    Every call goes through :func:`flash_attention`, whatever T: on CUDA
-    tensors that is the kernel, so the plain version serves nothing on the
-    card's main path (the JAX package's T >= 128 threshold for the Pallas
-    kernel was a TPU tuning choice). A mesh that shards the sequence axis
-    ('sp' > 1) would need ring attention, which is not ported yet."""
-    if mesh is not None and _sp_size(mesh) > 1:
-        raise NotImplementedError(
-            "sequence-parallel (ring) attention is not ported to PyTorch yet")
+    A mesh (or a mapping of axis sizes) whose 'sp' axis is > 1 routes to
+    ``parallel.ring_attention.sequence_parallel_attention``: the sequence
+    in sp blocks, each (q-block, kv-block) pair through the flash kernels.
+    Every other call goes through :func:`flash_attention`, whatever T: on
+    CUDA tensors that is the kernel, so the plain version serves nothing on
+    the card's main path (the JAX package's T >= 128 threshold for the
+    Pallas kernel was a TPU tuning choice)."""
+    from ..parallel.mesh import axis_size
+
+    if mesh is not None and axis_size(mesh, "sp") > 1:
+        from ..parallel.ring_attention import sequence_parallel_attention
+
+        return sequence_parallel_attention(q, k, v, mesh, causal=causal, scale=scale)
     return flash_attention(q, k, v, causal=causal, scale=scale)
 
 

@@ -16,6 +16,7 @@ from __future__ import annotations
 import math
 import os
 from collections import namedtuple
+from collections.abc import Mapping
 
 import torch
 
@@ -93,6 +94,15 @@ def make_mesh(dp=None, tp=1, pp=1, sp=1, ep=1, devices=None):
         raise MXNetError("mesh %dx%dx%dx%dx%d needs %d devices, have %d"
                          % (dp, tp, pp, sp, ep, need, n))
     return Mesh(devices[:need], dict(zip(AXES, (dp, tp, pp, sp, ep))))
+
+
+def axis_size(mesh, axis):
+    """The size of ``axis`` in a :class:`Mesh` or a mapping of axis sizes
+    (1 where the axis is absent)."""
+    shape = getattr(mesh, "shape", mesh)
+    if not isinstance(shape, Mapping):
+        raise TypeError("mesh must map axis names to sizes, got %r" % (mesh,))
+    return int(shape.get(axis, 1))
 
 
 def dp_sharding(mesh):

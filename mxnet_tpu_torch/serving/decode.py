@@ -111,7 +111,10 @@ class GenerationEngine(object):
         ``transformer_lm_serving`` (or anything with that contract)
     slots : decode batch size (default MXTPU_SERVE_SLOTS or 4)
     max_len : KV window — only used to derive prefill length buckets
-    mesh : passed to prefill; a mesh that shards 'sp' is not ported yet
+    mesh : passed to prefill; a mesh (or mapping of axis sizes) whose
+        'sp' axis is > 1 runs each prefill's attention as ring attention
+        over sp sequence blocks (every length bucket must divide by sp);
+        the decode step is the same either way
     device : where the cache lives and the model runs; default the CUDA
         card (raises without one), ``"cpu"`` to run on the host
     """

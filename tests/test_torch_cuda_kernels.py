@@ -1216,3 +1216,35 @@ def test_cuda_mirrored_dropout_group_replays_bitwise(monkeypatch):
     for i, (a, b) in enumerate(zip(runs[False], runs[True])):
         for name in a:
             assert torch.equal(a[name], b[name]), (i, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_ring_attention_matches_unsharded_kernel(dtype):
+    """On the card: ring attention over sp 4 (causal) and 2 (not) against
+    the unsharded flash kernel, output and dq, dk, dv to 1e-4 (f32) / 2e-2
+    (bf16) of max; each live block pair launches K4f, K4dq and K4dkv once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from mxnet_tpu_torch.parallel.ring_attention import ring_attention
+
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    g = torch.Generator().manual_seed(3)
+    for sp, causal in ((4, True), (2, False)):
+        q, k, v = (torch.randn(2, 256, 2, 64, generator=g).to("cuda", dtype).requires_grad_()
+                   for _ in range(3))
+        cot = torch.randn(2, 256, 2, 64, generator=g).to("cuda", dtype)
+        before = (kernels.flash_attention.launches, kernels.flash_attention_dq.launches,
+                  kernels.flash_attention_dkv.launches)
+        out = ring_attention(q, k, v, sp, causal=causal)
+        got = (out,) + torch.autograd.grad(out, (q, k, v), cot)
+        torch.cuda.synchronize()
+        pairs = sp * (sp + 1) // 2 if causal else sp * sp
+        after = (kernels.flash_attention.launches, kernels.flash_attention_dq.launches,
+                 kernels.flash_attention_dkv.launches)
+        assert [b - a for a, b in zip(before, after)] == [pairs] * 3
+        ref = kernels.flash_attention(q, k, v, causal=causal)
+        want = (ref,) + torch.autograd.grad(ref, (q, k, v), cot)
+        for name, x, y in zip(("out", "dq", "dk", "dv"), got, want):
+            scale = y.float().abs().max().item()
+            assert (x.float() - y.float()).abs().max().item() <= tol * scale, name

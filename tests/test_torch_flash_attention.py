@@ -82,10 +82,16 @@ def test_reference_attention_bf16_casts_like_jax():
 
 
 def test_attention_raises_on_sequence_parallel_mesh():
-    q = torch.zeros(1, 4, 1, 16)
-    assert kernels.attention(q, q, q, mesh={"dp": 2, "sp": 1}).shape == q.shape
-    with pytest.raises(NotImplementedError):
-        kernels.attention(q, q, q, mesh={"dp": 1, "sp": 2})
+    """An sp 1 mesh takes the unsharded path; sp 2 runs ring attention over
+    two blocks (the same numbers); an sp that does not divide T raises."""
+    q, k, v = (torch.from_numpy(np.random.RandomState(i).randn(1, 4, 1, 16).astype(np.float32))
+               for i in range(3))
+    assert kernels.attention(q, k, v, mesh={"dp": 2, "sp": 1}).shape == q.shape
+    torch.testing.assert_close(kernels.attention(q, k, v, causal=True, mesh={"dp": 1, "sp": 2}),
+                               kernels.reference_attention(q, k, v, causal=True),
+                               rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError):
+        kernels.attention(q, k, v, mesh={"dp": 1, "sp": 3})
 
 
 @pytest.mark.parametrize("case", ["shape", "dtype", "head_dim", "device", "stride",

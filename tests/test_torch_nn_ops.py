@@ -25,7 +25,7 @@ STILL_MISSING = {
     "BilinearSampler", "Correlation", "GridGenerator", "SpatialTransformer",
     "IdentityAttachKLSparseReg",
     "CTCLoss", "ROIPooling", "_contrib_MultiBoxDetection", "_contrib_MultiBoxPrior",
-    "_contrib_MultiBoxTarget", "_contrib_Proposal", "_contrib_SwitchMoE",
+    "_contrib_MultiBoxTarget", "_contrib_Proposal",
     "count_sketch", "fft", "ifft", "quantize", "dequantize",
     "Custom",
 }
@@ -227,7 +227,7 @@ def test_shape_inference_matches_jax(cid):
 
 def test_registry_is_jax_minus_the_operators_still_missing():
     """The port registers every primary operator of the JAX package but the
-    18 of spatial.py, contrib/ops.py and Custom, and the 20 of this
+    17 of spatial.py, contrib/ops.py and Custom, and the 20 of this
     file carry JAX's metadata."""
     jops = {op.name: op for op in jreg.primary_ops()}
     tops = {op.name: op for op in treg.primary_ops()}

@@ -445,8 +445,6 @@ def test_lstm_attention_lm_matches_jax():
     for n, g in zip(names, grads):
         np.testing.assert_allclose(g.numpy(), np.asarray(jgrads[n]), rtol=0, atol=1e-5,
                                    err_msg=n)
-    with pytest.raises(NotImplementedError, match="ring"):
-        tapply(params, torch.from_numpy(tokens), mesh={"sp": 2})
 
 
 def test_lstm_models_build_the_jax_symbols():

@@ -63,9 +63,33 @@ def test_params_from_jax_layout_and_dtypes():
         p.layers[1].w1.float().numpy(), np.asarray(tree["l1"]["w1"], np.float32).T)
 
 
-def test_moe_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        ttfm.transformer_lm(moe_experts=4, **DIMS)
+@pytest.mark.timeout(120)
+def test_generation_engine_sp_mesh_matches_jax():
+    """GenerationEngine(mesh=sp 2): its prefills run ring attention over two
+    sequence blocks, and its continuations equal the JAX engine's with
+    mesh=make_mesh(sp=2), f32 at small width."""
+    from mxnet_tpu.parallel.mesh import make_mesh as jmake_mesh
+    from mxnet_tpu_torch.parallel.mesh import make_mesh
+
+    tree = jtfm.transformer_lm(**DIMS)[0](0)
+    prompts = PROMPTS + [list(range(1, 12))]
+    j_gen = JaxGenerationEngine(
+        tree, jtfm.transformer_lm_serving(max_len=16, dtype=jnp.float32, **DIMS),
+        slots=2, max_len=16, mesh=jmake_mesh(sp=2))
+    t_gen = GenerationEngine(
+        ttfm.params_from_jax(tree, device="cpu", dtype=torch.float32),
+        ttfm.transformer_lm_serving(max_len=16, dtype=torch.float32, **DIMS),
+        slots=2, max_len=16, mesh=make_mesh(sp=2, devices=["cpu"] * 2), device="cpu")
+    results = []
+    for gen in (j_gen, t_gen):
+        reqs = [gen.submit(p, max_new=4) for p in prompts]
+        for _ in range(40):
+            if all(r.done.is_set() for r in reqs):
+                break
+            gen.step()
+        results.append([r.result(0) for r in reqs])
+    assert results[1] == results[0]
+    assert [len(r) for r in results[1]] == [4] * len(prompts)
 
 
 @pytest.mark.timeout(120)

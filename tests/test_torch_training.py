@@ -153,11 +153,32 @@ def test_trainer_refuses_cpu_unasked(monkeypatch):
     assert transformer_bench.main([]) == 1
 
 
-@pytest.mark.parametrize("flags", [["--sp", "2"], ["--moe-experts", "4"], ["--dp", "2"],
-                                   ["--tp", "2"], ["--ep", "2"]])
+@pytest.mark.parametrize("flags", [["--dp", "2"], ["--tp", "2"]])
 def test_trainer_raises_on_unported_parallelism(flags):
     with pytest.raises(NotImplementedError, match="not ported"):
         trainer.main(["--cpu", "--steps", "1"] + flags)
+
+
+@pytest.mark.parametrize("flags", [["--sp", "2"], ["--moe-experts", "4"],
+                                   ["--moe-experts", "4", "--ep", "2"],
+                                   ["--sp", "2", "--moe-experts", "4", "--ep", "2"]])
+def test_trainer_runs_sp_and_moe_on_cpu(flags, capsys):
+    """The mesh and MoE flags run on the host at small width: a mesh line
+    when sp or ep > 1, finite losses that fall; experts or a sequence that
+    do not divide by ep or sp raise."""
+    small = ["--cpu", "--steps", "6", "--vocab", "32", "--d-model", "16", "--n-heads", "2",
+             "--n-layers", "2", "--d-ff", "32", "--seq-len", "8", "--batch-size", "2"]
+    assert trainer.main(small + flags) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == "device: cpu"
+    sp = int(flags[flags.index("--sp") + 1]) if "--sp" in flags else 1
+    ep = int(flags[flags.index("--ep") + 1]) if "--ep" in flags else 1
+    if sp * ep > 1:
+        assert out[1] == "mesh: %s" % {"dp": 1, "tp": 1, "pp": 1, "sp": sp, "ep": ep}
+    losses = [float(line.split()[3]) for line in out if line.startswith("step")]
+    assert len(losses) == 2 and np.isfinite(losses).all() and losses[1] < losses[0], losses
+    with pytest.raises(ValueError):
+        trainer.main(small + flags + ["--seq-len", "7", "--sp", "2", "--moe-experts", "3"])
 
 
 def test_trainer_main_runs_on_cpu(capsys):
