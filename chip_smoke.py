@@ -13,6 +13,7 @@
     python3 chip_smoke.py --only rnn                   # the flash kernels' build and phase 25
     python3 chip_smoke.py --only mirror                # K1-K3's build, phase 26 and its sweep
     python3 chip_smoke.py --only parallel              # the flash kernels' build and phase 27
+    python3 chip_smoke.py --only telemetry             # K1-K3's build and all of phase 28
 
 
 Phases, each fatal on failure:
@@ -272,7 +273,9 @@ Phases, each fatal on failure:
     steps, leaving out the interval in which the state is copied), img/s,
     the capture's ms, the graph pool's bytes, peak memory; wall and busy ms
     a step, the idle share and kernels a step (K2, K3 and K1 by name) of
-    two replayed groups beside two eager steps. (b) the same in f32 without
+    two replayed groups beside two eager steps; a short count there (a
+    record the profiler dropped) profiles the two groups again, up to three
+    times, and a count above 46 / 46 / 1 fails. (b) the same in f32 without
     AMP (the f32 flat path), 24 batches, one epoch, K = 4, no snapshot.
     (c) phase 18 (b)'s MLP (AMP, Adam) with a FactorScheduler
     at K = 4: bit for bit against its eager fit, validation accuracy at
@@ -282,7 +285,9 @@ Phases, each fatal on failure:
     the first run under ``torch.cuda.set_sync_debug_mode("error")``: a
     host read there raises. ``--only multistep --package DIR`` on a tree
     without ``Module.update_multi`` runs the eager fits of (a) and (b)
-    alone and prints their state digests (the parent's eager bits).
+    alone and prints their state digests (the parent's eager bits). The
+    full script runs (a) at K = 8 only; ``--only multistep`` runs K = 4
+    too.
 
 22. the serving surface (main path 9), cuDNN deterministic for (a)-(c):
     (a) ``predict.Predictor`` on bench.py's ResNet-50 symbol (f32, 1000
@@ -497,6 +502,35 @@ Phases, each fatal on failure:
     gpu(0): accuracy > 0.9; ``pipelined_loss`` over 4 pp ranks, d 1024, 8
     microbatches of 64, f32 (TF32 off), against the stages run one after
     another: loss within 1e-5 relative, gradients within 1e-4 of max.
+28. telemetry and the tools (``--only telemetry`` runs all of it, the full
+    script (a), (b), (e) and (g)): phase 21's ResNet-50 bf16 AMP ``Module.fit``
+    on the dp 4 mesh of gpu(0), batch 32, 64 batches cycled from 8, with
+    ``telemetry.enable(jsonl=...)``. (a) ``MXNET_FIT_MULTISTEP=auto``,
+    ``MXTPU_ANATOMY_INTERVAL=8``, ``MXNET_FIT_MULTISTEP_MAX=8``: each
+    ``multistep_auto`` decision (K, dispatch share) and each anatomy
+    interval (step ms, phases, unattributed, MFU against the H100 peak
+    table, roofline) printed; phases + unattributed = wall to 1e-9, MFU in
+    (0, 1], the tuner settled, one group left (the deeper ones released)
+    with one warm-up, one capture and only replays after it, no recompile in
+    an interval after settling, and the captured launches a step K2 46, K3
+    46, K1 1. (b) two replays of the settled group under
+    ``profiler.profiler_set_state("run")``; ``profiler.attribute_trace`` on
+    the exported Kineto trace names K1, K2 and K3 with device ms, and their
+    launches by the profiler are printed beside the wrappers' count a
+    replay times the replays (equal unless the profiler drops records).
+    (c) ``fit(monitor=Monitor(interval=1))`` over two batches on
+    ``context=[gpu(0)] * 4`` with kvstore 'device': the fused path is
+    declined (the module without a monitor takes it) and every stat is
+    finite. (d) ``tools/serve.py --metrics-port 0`` on a ResNet-50 bundle
+    on the card (a subprocess): 8 requests, then ``/metrics`` reads
+    ``mxtpu_serve_requests 8`` and ``/healthz`` answers 200; SIGTERM drains
+    it to exit 0. (e) the port's ``perf_doctor`` and ``trace_summary``
+    (and ``--anatomy``), three processes side by side, on (a)'s JSONL exit
+    0, and perf_doctor names the largest phase. (f) ms a step with
+    telemetry on and off at the settled K (32 batches a fit, in turns on,
+    off, off, on). (g) a kvstore 'local' initialised on the host takes four
+    card gradients (SGD with momentum): the stored value and its momentum
+    end on the card, the pull within 1e-5 of w - lr * sum of the gradients.
 
 Then the kernels line: the seven kernels, K4f, K4dq, K4dkv, K2, K3, K5 and
 K1; K2's and K3's launches count phase 20's training rows, and their
@@ -516,7 +550,9 @@ wrappers' counts) and (c) (the wrappers' eagerly, the profiler's by name
 over the grouped fit), which their ``launches`` include. K4f's, K4dq's and
 K4dkv's ``launches_by_path["parallel"]`` count phase 27 (b)'s sp 4
 training run and, for K4f, (c)'s sp 4 engine run, which their
-``launches`` include.
+``launches`` include. K1's, K2's and K3's ``launches_by_path["telemetry"]``
+count phase 28 (a)'s wrappers (the warm-up groups and the captures) and
+(b)'s profiled replays by kernel name, which their ``launches`` include.
 
 The last line of output is {"ok": true, "device": {...}}. Without a CUDA
 device, or without the package beside this script, it exits non-zero and
@@ -2923,6 +2959,32 @@ def profile_groups(mod, batches, k, groups=2):
     return out
 
 
+PROFILE_TRIES = 3  # profiles of two replayed groups until one holds every record
+
+
+def profile_groups_counted(mod, it, k):
+    """:func:`profile_groups` of the first ``k`` batches, held to K2 and K3
+    46 times and K1 once a micro-step by kernel name. A replay launches
+    every node of its graph, so a count above that fails at once; a count
+    below it is a record the profiler dropped (seen twice for one kernel in
+    one window), and the window is profiled again, up to
+    ``PROFILE_TRIES`` times. Every short reading is printed and kept."""
+    want = {"conv_bwd_filter": RESNET_CONVS, "conv_bwd_input": RESNET_CONVS, "slab_update": 1}
+    short = []
+    for _ in range(PROFILE_TRIES):
+        it.reset()
+        prof = profile_groups(mod, [b for _, b in zip(range(k), it)], k)
+        got = prof["launches_per_step"]
+        if got == want:
+            prof["short_readings"] = short
+            return prof
+        assert set(got) == set(want) and all(got[n] <= want[n] for n in want), got
+        short.append(got)
+        log("phase 21: a profile of two K = %d replays counted %s a step against %s; "
+            "profiling again" % (k, got, want))
+    raise AssertionError("every profile short of %s: %s" % (want, short))
+
+
 def multistep_resnet(mx, kernels, dev, amp, batches, epochs, poison, snap, ks, grouped):
     """Phase 21 (a) (bf16 AMP) or (b) (f32): an eager fit and, for each K in
     ``ks``, a timed and a profiled one; every state tensor (at the end and
@@ -2973,12 +3035,7 @@ def multistep_resnet(mx, kernels, dev, amp, batches, epochs, poison, snap, ks, g
                                              "losses": True,
                                              "snapshot_tensors": len(want_snap or ())}
             if amp and k == max(ks) and not profile:
-                it.reset()
-                group = [b for _, b in zip(range(k), it)]
-                leg["profile"] = prof = profile_groups(mod, group, k)
-                assert prof["launches_per_step"] == {
-                    "conv_bwd_filter": RESNET_CONVS, "conv_bwd_input": RESNET_CONVS,
-                    "slab_update": 1}, prof["launches_per_step"]
+                leg["profile"] = profile_groups_counted(mod, it, k)
             out["k%d%s" % (k, "_profiled" if profile else "")] = leg
             del mod
             torch.cuda.empty_cache()
@@ -3104,10 +3161,11 @@ def multistep_launches(res):
     return total
 
 
-def phase_multistep(mx, kernels, dev):
+def phase_multistep(mx, kernels, dev, full=True):
     """Phase 21: K fused steps as one captured CUDA graph; see the module
     docstring. On a tree without ``Module.update_multi`` (``--package``)
-    only the eager fits of (a) and (b) run, for their state digests."""
+    only the eager fits of (a) and (b) run, for their state digests.
+    Without ``full`` (the full script's run) (a) groups at K = 8 only."""
     import torch
 
     grouped = hasattr(mx.mod.Module, "update_multi")
@@ -3116,7 +3174,8 @@ def phase_multistep(mx, kernels, dev):
     t0 = time.perf_counter()
     try:
         res = {"grouped": grouped,
-               "a": multistep_resnet(mx, kernels, dev, True, grouped=grouped, **MULTI),
+               "a": multistep_resnet(mx, kernels, dev, True, grouped=grouped,
+                                     **(MULTI if full else dict(MULTI, ks=MULTI["ks"][-1:]))),
                "b": multistep_resnet(mx, kernels, dev, False, grouped=grouped, **MULTI_F32)}
         if grouped:
             res["c"] = multistep_mlp(mx, kernels, dev)
@@ -5838,13 +5897,420 @@ def phase_parallel(mx, tfm, trainer, kernels, GenerationEngine, dev, full=False)
     return res
 
 
+# phase 28: telemetry, the step anatomy, the profiler, Monitor and the
+# perf tools over phase 21's ResNet-50 bf16 AMP fit on the dp 4 mesh
+TELE = dict(distinct=8, batches=64, interval=8, k_max=8, cost_batches=32, monitor_batches=2,
+            requests=8)
+TELE_KERNELS = {"conv_bwd_filter": "K2", "conv_bwd_input": "K3", "slab_update": "K1"}
+
+
+def _tele_env(**env):
+    """Set (value) or clear (None) environment variables; returns the old
+    values for :func:`_tele_env` to put back."""
+    old = {k: os.environ.get(k) for k in env}
+    for k, v in env.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = str(v)
+    return old
+
+
+def _tele_data(cfg=TELE):
+    """``cfg["batches"]`` ResNet-50 batches cycled from ``distinct`` random
+    ones (host numpy, as phase 21's)."""
+    rng = np.random.RandomState(28)
+    n = cfg["distinct"] * RESNET_BATCH
+    X = rng.rand(n, 3, 224, 224).astype(np.float32)
+    y = rng.randint(0, 1000, n).astype(np.float32)
+    reps = cfg["batches"] // cfg["distinct"]
+    return np.concatenate([X] * reps), np.concatenate([y] * reps)
+
+
+def _tele_module(mx):
+    from mxnet_tpu_torch.models import resnet
+
+    np.random.seed(0)
+    return mx.mod.Module(resnet.get_symbol(), context=mx.gpu(0),
+                         mesh=mx.parallel.make_mesh(dp=4, devices=[mx.gpu(0)] * 4))
+
+
+def _tele_fit(mx, mod, X, y, batch_end_callback=None, monitor=None, kvstore="device"):
+    it = mx.io.NDArrayIter(X, y, batch_size=RESNET_BATCH)
+    mod.fit(it, eval_metric="acc", kvstore=kvstore, optimizer="sgd",
+            optimizer_params={"learning_rate": SGD["lr"], "momentum": SGD["momentum"],
+                              "wd": SGD["wd"]},
+            initializer=mx.init.Xavier(), num_epoch=1, batch_end_callback=batch_end_callback,
+            monitor=monitor)
+    return it
+
+
+def _jsonl(path):
+    with open(path) as fh:
+        return [json.loads(line) for line in fh if line.strip()]
+
+
+def telemetry_auto(mx, kernels, dev, telemetry, root, X, y):
+    """(a): the fit under MXNET_FIT_MULTISTEP=auto with telemetry on; every
+    anatomy interval and tuner decision, the invariants, the kernels'
+    launches a step. Returns (numbers, module, JSONL path)."""
+    import torch
+
+    path = os.path.join(root, "telemetry.jsonl")
+    telemetry.reset()
+    telemetry.enable(jsonl=path)
+    old = _tele_env(MXTPU_AMP="bf16", MXNET_FIT_MULTISTEP="auto",
+                    MXTPU_ANATOMY_INTERVAL=TELE["interval"],
+                    MXNET_FIT_MULTISTEP_MAX=TELE["k_max"])
+    mod = _tele_module(mx)
+    zero_counts(kernels)
+    try:
+        t0 = time.perf_counter()
+        _tele_fit(mx, mod, X, y)
+        torch.cuda.synchronize(dev)
+        fit_s = time.perf_counter() - t0
+    finally:
+        _tele_env(**old)
+    telemetry.flush()
+    counts = dict(conv_counts(kernels), slab_update=kernels.fused_slab_update.launches)
+    recs = _jsonl(path)
+    decisions = [r for r in recs if r.get("type") == "multistep_auto"]
+    intervals = [r for r in recs if r.get("type") == "anatomy"]
+    for d in decisions:
+        log("phase 28 (a) multistep_auto: K %d, dispatch share %s, settled %s%s" % (
+            d["k"], d.get("dispatch_frac"), d["settled"],
+            " (%s)" % d["why"] if d.get("why") else ""))
+    for r in intervals:
+        log("phase 28 (a) anatomy interval %d: %d steps, step %.3f ms, phases %s, "
+            "unattributed %.6f s, MFU %s, roofline %s, K %s, recompiles %d" % (
+                r["interval"], r["steps"], r["step_ms"],
+                json.dumps({k: round(v, 6) for k, v in r["phases"].items()}),
+                r["unattributed_seconds"], r.get("mfu"), json.dumps(r.get("roofline")),
+                (r.get("multistep") or {}).get("k"), r["recompiles"]))
+    assert decisions and decisions[-1]["settled"], decisions
+    k = decisions[-1]["k"]
+    assert intervals, "no anatomy record"
+    for r in intervals:
+        total = sum(r["phases"].values()) + r["unattributed_seconds"]
+        assert abs(total - r["wall_seconds"]) <= 1e-9 * max(1.0, r["wall_seconds"]), r
+        assert "mfu" in r and 0.0 < r["mfu"] <= 1.0, r
+        assert r["device_kind"] == torch.cuda.get_device_name(0), r["device_kind"]
+    tr = mod._fused_trainer
+    (g,) = tr.group_stats()  # the settled depth's group: the others were released
+    assert g["k"] == k and g["warmup_groups"] == 1 and g["captures"] == 1, g
+    assert g["replays"] == g["groups"] - 1, g
+    per_step = {n: g["captured_launches"].get(("fused_" + n) if n == "slab_update" else n, 0) / k
+                for n in TELE_KERNELS}
+    assert per_step == {"conv_bwd_filter": RESNET_CONVS, "conv_bwd_input": RESNET_CONVS,
+                        "slab_update": 1}, per_step
+    settled_at = decisions[-1]["t"]
+    after = [r for r in intervals if r["t"] > settled_at]
+    assert all(r["recompiles"] == 0 for r in after), after
+    res = {"fit_s": fit_s, "k_settled": k, "why": decisions[-1].get("why"),
+           "decisions": decisions, "intervals": intervals, "group": g,
+           "launches": counts, "launches_a_step": per_step,
+           "captures_after_settling": 0,
+           "mfu_last": intervals[-1]["mfu"], "step_ms_last": intervals[-1]["step_ms"],
+           "steps": sum(r["steps"] for r in intervals)}
+    log("phase 28 (a): settled at K %d (%s), %d steps, %d intervals, launches a step %s, "
+        "wrapper launches %s, fit %.1f s" % (k, res["why"], res["steps"], len(intervals),
+                                              per_step, counts, fit_s))
+    return res, mod, path
+
+
+def telemetry_profiler(mx, kernels, mod, X, y, k, root):
+    """(b): two replayed groups under the port's profiler; attribute_trace
+    on the exported Kineto trace names K1, K2 and K3 with device ms."""
+    import torch
+
+    from mxnet_tpu_torch import profiler
+
+    it = mx.io.NDArrayIter(X, y, batch_size=RESNET_BATCH)
+    group = [b for _, b in zip(range(k), it)]
+    mod.update_multi(group)  # outside the window: a replay of the settled graph
+    torch.cuda.synchronize()
+    stats0 = mod._fused_trainer.group_stats()[0]
+    profiler.profiler_set_config(filename=os.path.join(root, "profile.json"))
+    profiler.profiler_set_state("run")
+    for _ in range(2):
+        mod.update_multi(group)
+        torch.cuda.synchronize()
+    profiler.profiler_set_state("stop")
+    stats1 = mod._fused_trainer.group_stats()[0]
+    replays = stats1["replays"] - stats0["replays"]
+    assert replays == 2 and stats1["captures"] == stats0["captures"], (stats0, stats1)
+    att = profiler.attribute_trace(profiler.kineto_path(), top=None)
+    by_label = {}
+    for row in att["kernels"]:
+        if row["label"]:
+            slot = by_label.setdefault(row["label"], {"ms": 0.0, "launches": 0, "kernels": []})
+            slot["ms"] += row["ms"]
+            slot["launches"] += row["launches"]
+            slot["kernels"].append(row["kernel"])
+    expected = {TELE_KERNELS[n]: c * k * replays for n, c in (
+        ("conv_bwd_filter", RESNET_CONVS), ("conv_bwd_input", RESNET_CONVS), ("slab_update", 1))}
+    for label in ("K1", "K2", "K3"):
+        assert label in by_label and by_label[label]["ms"] > 0, (label, sorted(by_label))
+    # K2's entry counts its reduce kernel too; the main kernel alone
+    main = {"K1": "slab_update_kernel", "K2": "conv_wgrad_sm90", "K3": "conv_dgrad_sm90"}
+    seen = {label: sum(r["launches"] for r in att["kernels"] if main[label] in r["kernel"])
+            for label in main}
+    res = {"replays": replays, "device_ms": att["device_ms"],
+           "unattributed_ms": att["unattributed_ms"],
+           "by_label": by_label, "profiler_launches": seen, "wrapper_equivalent": expected,
+           "counts_agree": seen == expected, "ops": att["ops"][:8],
+           "kernels_top": att["kernels"][:10]}
+    log("phase 28 (b): profiler over %d replays: %s; launches by the profiler %s against the "
+        "wrappers' count a replay x replays %s; ops %s" % (
+            replays, json.dumps({l: round(v["ms"], 4) for l, v in by_label.items()}), seen,
+            expected, json.dumps([(o["op"], round(o["ms"], 3)) for o in att["ops"][:5]])))
+    return res
+
+
+def telemetry_tools(package, path):
+    """(e): the port's perf_doctor and trace_summary on (a)'s JSONL, as a
+    user runs them (three processes side by side); each exits 0 and
+    perf_doctor names the largest phase."""
+    out = {}
+    env = dict(os.environ, PYTHONPATH=package)
+    procs = {}
+    try:
+        for name, args in (("perf_doctor", [path]), ("trace_summary", [path]),
+                           ("trace_summary_anatomy", [path, "--anatomy"])):
+            mod = "mxnet_tpu_torch.tools." + name.replace("_anatomy", "")
+            procs[name] = subprocess.Popen([sys.executable, "-m", mod] + args, cwd=package,
+                                           env=env, stdout=subprocess.PIPE,
+                                           stderr=subprocess.PIPE, text=True)
+        for name, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=300)
+            assert proc.returncode == 0, (name, stdout[-2000:], stderr[-2000:])
+            out[name] = stdout
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    diag = [l for l in out["perf_doctor"].splitlines() if l.startswith("diagnosis:")]
+    assert diag, out["perf_doctor"][-2000:]
+    m = re.match(r"diagnosis: largest cost is (\w+)", diag[0])
+    assert m and m.group(1) in ("input_wait", "stage_host", "dispatch_host", "device_sync",
+                                "collective", "unattributed"), diag
+    log("phase 28 (e): perf_doctor: %s" % diag[0])
+    log("phase 28 (e): perf_doctor report:\n%s" % out["perf_doctor"])
+    log("phase 28 (e): trace_summary --anatomy:\n%s" % out["trace_summary_anatomy"])
+    return {"largest_phase": m.group(1), "diagnosis": diag[0],
+            "trace_summary_lines": len(out["trace_summary"].splitlines())}
+
+
+def kvstore_on_card(mx, dev):
+    """(g): a 'local' store initialised on the host takes four card
+    gradients (SGD with momentum): the stored value and its momentum end on
+    the card, and the pull equals w - lr * (sum of the gradients)."""
+    import torch
+
+    rng = np.random.RandomState(7)
+    w = rng.randn(256, 128).astype(np.float32)
+    gs = [rng.randn(256, 128).astype(np.float32) for _ in range(4)]
+    kv = mx.kv.create("local")
+    with mx.cpu():
+        kv.init(0, mx.nd.array(w))
+    kv.set_optimizer(mx.optimizer.create("sgd", learning_rate=0.1, momentum=0.9,
+                                         rescale_grad=1.0))
+    kv.push(0, [mx.nd.array(g, ctx=mx.gpu(0)) for g in gs])
+    out = mx.nd.zeros(w.shape, ctx=mx.gpu(0))
+    kv.pull(0, out=out)
+    (state,) = kv._updater.states.values()
+    where = {"store": str(kv._store[0].context), "momentum": str(state.context)}
+    assert where == {"store": str(mx.gpu(0)), "momentum": str(mx.gpu(0))}, where
+    want = torch.from_numpy(w).to(dev) - 0.1 * sum(torch.from_numpy(g).to(dev) for g in gs)
+    err = float((out._data - want).abs().max())
+    assert err <= 1e-5, err
+    log("phase 28 (g): 'local' store on the host, card gradients pushed: %s, pull max abs "
+        "err %.3g (limit 1e-5)" % (json.dumps(where), err))
+    return dict(where, max_abs_err=err)
+
+
+def telemetry_monitor(mx, X, y):
+    """(c): fit(monitor=Monitor(interval=1)) over two batches on four
+    contexts of gpu(0) with kvstore 'device': the fused path is declined
+    (the same module without a monitor takes it), every stat finite."""
+    from mxnet_tpu_torch.models import resnet
+
+    n = TELE["monitor_batches"] * RESNET_BATCH
+    seen = []
+    mon = mx.monitor.Monitor(interval=1, pattern=".*")
+    toc = mon.toc
+
+    def capture():
+        rec = toc()
+        seen.extend(rec)
+        return rec
+
+    mon.toc = capture
+    np.random.seed(0)
+    mod = mx.mod.Module(resnet.get_symbol(), context=[mx.gpu(0)] * 4)
+    _tele_fit(mx, mod, X[:n], y[:n], monitor=mon)
+    assert mod._fused_trainer is None
+    vals = [float(v) for _, _, s in seen for v in s.split("\t") if v.strip()]
+    assert vals and all(np.isfinite(vals)), [r for r in seen if "nan" in r[2] or "inf" in r[2]][:5]
+    steps = sorted({s for s, _, _ in seen})
+    plain = mx.mod.Module(resnet.get_symbol(), context=[mx.gpu(0)] * 4)
+    plain.bind(data_shapes=[("data", (RESNET_BATCH, 3, 224, 224))],
+               label_shapes=[("softmax_label", (RESNET_BATCH,))])
+    plain.init_params(mx.init.Xavier())
+    plain.init_optimizer(kvstore="device", optimizer="sgd")
+    assert plain._fused_trainer is not None
+    res = {"records": len(seen), "steps": steps, "finite": True, "fused_declined": True,
+           "fused_without_monitor": True}
+    log("phase 28 (c): Monitor: %d records over steps %s, all finite; fused path declined" % (
+        len(seen), steps))
+    return res
+
+
+def telemetry_serve(mx, package, root):
+    """(d): tools/serve.py --metrics-port on a ResNet-50 Predictor bundle on
+    the card: requests, then /metrics (serve.requests = the number sent)
+    and /healthz (200)."""
+    import signal
+    import socket
+    import urllib.request
+
+    from mxnet_tpu_torch import predict
+    from mxnet_tpu_torch.models import resnet
+
+    bundle = os.path.join(root, "resnet50.pred")
+    with mx.cpu():
+        params = serving_params(mx, resnet)
+        symbol = resnet.get_symbol(num_classes=1000, num_layers=50,
+                                   image_shape=",".join(str(d) for d in SERVE_SHAPE))
+        predict.export_bundle(bundle, symbol, {k[4:]: v for k, v in params.items()
+                                               if k.startswith("arg:")},
+                              {k[4:]: v for k, v in params.items() if k.startswith("aux:")})
+    env = dict(os.environ, PYTHONPATH=package)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "mxnet_tpu_torch.tools.serve", "--bundle", bundle, "--input",
+         "data=" + "x".join(str(d) for d in SERVE_SHAPE), "--port", "0", "--metrics-port", "0",
+         "--max-batch", "4"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=package, env=env)
+    try:
+        ports = {}
+        lines = []
+        t0 = time.perf_counter()
+        while len(ports) < 2:
+            line = proc.stdout.readline()
+            assert line, "serve exited: %s" % "".join(lines[-20:])
+            lines.append(line)
+            m = re.match(r"(serving|metrics) on [\d.]+:(\d+)", line)
+            if m:
+                ports[m.group(1)] = int(m.group(2))
+            assert time.perf_counter() - t0 < 300, lines[-20:]
+        rng = np.random.RandomState(5)
+        lat = []
+        with socket.create_connection(("127.0.0.1", ports["serving"]), 120) as s:
+            f = s.makefile("rwb")
+            for _ in range(TELE["requests"]):
+                x = rng.rand(*SERVE_SHAPE).astype(np.float32)
+                f.write((json.dumps({"inputs": {"data": x.tolist()}}) + "\n").encode())
+                f.flush()
+                reply = json.loads(f.readline().decode())
+                assert "outputs" in reply and len(reply["outputs"][0]) == 1000, str(reply)[:300]
+                lat.append(reply["latency_ms"])
+        base = "http://127.0.0.1:%d" % ports["metrics"]
+        with urllib.request.urlopen(base + "/metrics", timeout=30) as r:
+            text = r.read().decode()
+        with urllib.request.urlopen(base + "/healthz", timeout=30) as r:
+            health_status = r.status
+            health = json.loads(r.read().decode())
+        m = re.search(r"^mxtpu_serve_requests (\S+)$", text, re.M)
+        assert m and float(m.group(1)) == TELE["requests"], text[:2000]
+        assert health_status == 200 and health["status"] == "ok", health
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        assert rc == 0, rc
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    res = {"requests": TELE["requests"], "serve_requests_metric": float(m.group(1)),
+           "healthz": health_status, "latency_ms": lat, "metrics_lines": len(text.splitlines())}
+    log("phase 28 (d): serve --metrics-port: %d requests, /metrics serve.requests %s, /healthz "
+        "%d, latency ms %s" % (TELE["requests"], m.group(1), health_status,
+                               [round(v, 2) for v in lat]))
+    return res
+
+
+def telemetry_cost(mx, telemetry, k, X, y):
+    """(f): ms a step of the same fit at K = ``k`` with telemetry on and off
+    (turns: on, off, off, on), the median interval between the ends of
+    replayed groups, groups 3 on."""
+    import torch
+
+    n = TELE["cost_batches"] * RESNET_BATCH
+    out = {"on": [], "off": []}
+    for on in (True, False, False, True):
+        telemetry.reset()
+        (telemetry.enable if on else telemetry.disable)()
+        stamps = []
+        old = _tele_env(MXTPU_AMP="bf16", MXNET_FIT_MULTISTEP=k)
+        try:
+            mod = _tele_module(mx)
+            _tele_fit(mx, mod, X[:n], y[:n], batch_end_callback=lambda p: stamps.append(
+                (p.nbatch, time.perf_counter())))
+            torch.cuda.synchronize()
+        finally:
+            _tele_env(**old)
+        ends = [t for nb, t in stamps if (nb + 1) % k == 0]
+        gaps = [(b - a) / k for a, b in zip(ends[2:], ends[3:])]
+        out["on" if on else "off"].append(1e3 * statistics.median(gaps))
+        del mod
+    telemetry.disable()
+    res = {"k": k, "step_ms_on": out["on"], "step_ms_off": out["off"],
+           "cost_ms": statistics.median(out["on"]) - statistics.median(out["off"])}
+    log("phase 28 (f): telemetry cost at K %d: step ms on %s, off %s" % (
+        k, out["on"], out["off"]))
+    return res
+
+
+def phase_telemetry(mx, kernels, dev, telemetry, package, full=False):
+    """Phase 28 (see the module docstring): (a), (b), (e) and (g); with ``full``
+    (``--only telemetry``) also (c), (d) and (f)."""
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    X, y = _tele_data()
+    root = tempfile.mkdtemp(prefix="chip_smoke_telemetry_")
+    res = {}
+    res["a"], mod, path = telemetry_auto(mx, kernels, dev, telemetry, root, X, y)
+    k = res["a"]["k_settled"]
+    res["b"] = telemetry_profiler(mx, kernels, mod, X, y, k, root)
+    del mod
+    telemetry.disable()
+    torch.cuda.empty_cache()
+    res["e"] = telemetry_tools(package, path)
+    res["g"] = kvstore_on_card(mx, dev)
+    if full:
+        res["c"] = telemetry_monitor(mx, X, y)
+        res["d"] = telemetry_serve(mx, package, root)
+        res["f"] = telemetry_cost(mx, telemetry, k, X, y)
+    res["launches"] = {n: res["a"]["launches"][n]
+                       + res["b"]["profiler_launches"][TELE_KERNELS[n]]
+                       for n in TELE_KERNELS}
+    res["phase_s"] = time.perf_counter() - t0
+    log("phase 28: telemetry and tools, %.1f s: %s" % (res["phase_s"], json.dumps(
+        {k: v for k, v in res.items() if k in ("launches", "phase_s")})))
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every phase's numbers to this JSON file")
     ap.add_argument("--package", help="import mxnet_tpu_torch from this checkout instead of the "
                     "one beside this script (to run this script's phases on another tree)")
     ap.add_argument("--only", choices=("f32_lm", "rtc", "slab", "zoo", "multistep", "serving",
-                                       "resilience", "input", "rnn", "mirror", "parallel"),
+                                       "resilience", "input", "rnn", "mirror", "parallel",
+                                       "telemetry"),
                     help="f32_lm: build, phase 19 and phase 8's attention kernel times only; "
                     "rtc: K5's push path on ResNet-50's parameter arrays only; slab: K1's "
                     "build, phases 16-18 and K1's times only; zoo: K2/K3's build and "
@@ -5854,7 +6320,8 @@ def main(argv=None):
                     "build and phase 23 only; input: K1-K3's build and phase 24 only; rnn: the "
                     "flash kernels' build and phase 25 only; mirror: K1-K3's build and phase "
                     "26 with its memory / ms sweep; parallel: the flash kernels' build and "
-                    "phase 27 with (a)'s f32 sweep and (b)'s sp 1 and dense runs")
+                    "phase 27 with (a)'s f32 sweep and (b)'s sp 1 and dense runs; telemetry: "
+                    "K1-K3's build and phase 28 with (c), (d) and (f)")
     ap.add_argument("--resilience-worker", metavar="SPEC", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
@@ -5949,6 +6416,11 @@ def main(argv=None):
         results["build_s"] = time.perf_counter() - t0
         results["parallel"] = phase_parallel(mx, tfm, trainer, kernels, GenerationEngine, dev,
                                              full=True)
+    if args.only == "telemetry":
+        t0 = time.perf_counter()
+        _build.build(["conv_bwd_filter", "slab_update"])
+        results["build_s"] = time.perf_counter() - t0
+        results["telemetry"] = phase_telemetry(mx, kernels, dev, telemetry, package, full=True)
     if args.only:
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -5988,7 +6460,7 @@ def main(argv=None):
                      for name in conv_launches}
     results["zoo"], zoo_launches = phase_zoo(model_sweep, kernels, dev)
     conv_launches = {name: conv_launches[name] + zoo_launches[name] for name in conv_launches}
-    results["multistep"] = multi = phase_multistep(mx, kernels, dev)
+    results["multistep"] = multi = phase_multistep(mx, kernels, dev, full=False)
     results["serving"] = phase_serving(mx, resnet, tfm, kernels, telemetry, GenerationEngine, dev)
     results["resilience"] = resil = phase_resilience(mx, kernels, dev, package,
                                                      resnet50_amp_plan(mx, resnet))
@@ -5996,20 +6468,25 @@ def main(argv=None):
     results["rnn"] = rnn = phase_rnn(mx, kernels, dev)
     results["mirror"] = mirror = phase_mirror(mx, kernels, dev)
     results["parallel"] = par = phase_parallel(mx, tfm, trainer, kernels, GenerationEngine, dev)
+    results["telemetry"] = tele = phase_telemetry(mx, kernels, dev, telemetry, package)
+    tele_launches = tele["launches"]  # phase 28 (a)'s wrapper counts and (b)'s profiled replays
     par_launches = par["launches"]  # phase 27 (b)'s sp 4 training and (c)'s sp 4 engine
     mirror_launches = mirror["launches"]
     multi_launches = multistep_launches(multi)
     resil_launches = resil["launches_resumed_runs"]
     input_launches = inp["launches"]
     conv_launches = {name: conv_launches[name] + multi_launches[name] + resil_launches[name]
-                     + input_launches[name] + mirror_launches[name] for name in conv_launches}
+                     + input_launches[name] + mirror_launches[name] + tele_launches[name]
+                     for name in conv_launches}
     k1 = results["k1_entry"]
     k1["launches_by_path"]["multistep"] = multi_launches["slab_update"]
     k1["launches_by_path"]["resilience"] = resil_launches["slab_update"]
     k1["launches_by_path"]["input"] = input_launches["slab_update"]
     k1["launches_by_path"]["mirror"] = mirror_launches["slab_update"]
+    k1["launches_by_path"]["telemetry"] = tele_launches["slab_update"]
     k1["launches"] += (multi_launches["slab_update"] + resil_launches["slab_update"]
-                       + input_launches["slab_update"] + mirror_launches["slab_update"])
+                       + input_launches["slab_update"] + mirror_launches["slab_update"]
+                       + tele_launches["slab_update"])
     # the f32 kernels' launches in phases 4, 5 and 19
     f32_launches = {name: n + results["training_f32_full"]["launches"][name]
                     for name, n in results["training_f32"]["launches"].items()}
@@ -6038,8 +6515,10 @@ def main(argv=None):
         entry["zoo"] = {"launches": zoo_launches[entry["name"]],
                         "inception_v3_f32_step": {k: v for k, v in step.items()
                                                   if k != "shapes"}}
-        # phase 26: the mirror path's launches, in ``launches`` too
-        entry["launches_by_path"] = {"mirror": mirror_launches[entry["name"]]}
+        # phases 26 and 28: the mirror and telemetry paths' launches, in
+        # ``launches`` too
+        entry["launches_by_path"] = {"mirror": mirror_launches[entry["name"]],
+                                     "telemetry": tele_launches[entry["name"]]}
     kernel_line = {"kernels": fwd + bwd + conv_entries
                    + phase_rtc_times(mx, rk, rtc_runs, results["rtc_training"], dev)
                    + [results.pop("k1_entry")],

@@ -26,7 +26,11 @@ crash resume, fault injection, retries and the guardrails of ``fit``; and
 the card), ``BucketSentenceIter`` and the RNN checkpoint helpers; and, on
 meshes of logical ranks of one device, ``parallel``'s ring attention over
 the 'sp' axis, the Switch-MoE FFN (also the ``contrib`` operator
-``SwitchMoE``) and the GPipe pipeline over 'pp'.
+``SwitchMoE``) and the GPipe pipeline over 'pp'; and the observability
+layer: ``telemetry`` (metrics, spans, JSONL / Prometheus export, the step
+anatomy with the H100 peak tables, the fleet view and ``/metrics``),
+``profiler`` (``torch.profiler`` with kernel attribution), ``monitor`` and
+``viz``.
 
 Attention runs the hand-written CUDA flash-attention forward
 (``csrc/flash_attn_fwd.cu``) and its gradient the dq and dk/dv kernels
@@ -81,3 +85,5 @@ from . import engine, image, io_pipeline, native, recordio  # noqa: F401
 from . import rnn  # noqa: F401
 from . import executor_manager  # noqa: F401
 from . import contrib  # noqa: F401
+from . import monitor, profiler  # noqa: F401
+from . import visualization, visualization as viz  # noqa: F401

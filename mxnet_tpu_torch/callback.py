@@ -8,6 +8,12 @@ import logging
 import sys
 import time
 
+from . import telemetry as _tm
+
+_G_SAMPLES_PER_SEC = _tm.gauge(
+    "fit.samples_per_sec", "Training throughput over the Speedometer's "
+    "last window")
+
 
 def _every(period, fn):
     """Epoch-end callback firing fn on each period-th (1-based) epoch."""
@@ -92,6 +98,7 @@ class Speedometer:
         speed = self._meter.sample(nbatch)
         if speed is None:
             return
+        _G_SAMPLES_PER_SEC.set(speed)
         if param.eval_metric is not None:
             name_values = param.eval_metric.get_name_value()
             param.eval_metric.reset()

@@ -49,6 +49,7 @@ import contextvars
 import functools
 import itertools
 import os
+import time
 
 import torch
 from torch.utils import checkpoint as _checkpoint
@@ -63,6 +64,9 @@ from .symbol import Symbol, _topo_order
 
 __all__ = ["Executor"]
 
+_H_STEP_SECONDS = _tm.histogram(
+    "executor.step_seconds", "executor forward / backward host time (the "
+    "call returns once the card's work is enqueued), by phase")
 _M_PLAN_HITS = _tm.counter(
     "executor.dispatch_plan_hits",
     "Dispatches whose input signature the program has seen before")
@@ -248,17 +252,19 @@ class _GraphProgram:
         self.boundary_copies = 0  # values copied across devices by the last placed run
         self._signatures = set()  # input signatures dispatched (note_signature)
 
-    def note_signature(self, sig):
+    def note_signature(self, sig, program_uid=None):
         """Count a dispatch of input signature ``sig`` (the JAX package's
         ``dispatch_plan`` accounting): a hit, or a miss reported to the
-        anatomy recompile detector (the first per program is its warm-up,
-        each later one a recompile)."""
+        anatomy recompile detector under ``program_uid`` (default this
+        program's; the first per program is its warm-up, each later one a
+        recompile)."""
         if sig in self._signatures:
             _M_PLAN_HITS.inc()
             return
         self._signatures.add(sig)
         _M_PLAN_MISSES.inc()
-        _tm.anatomy.note_plan_miss(self._program_uid, sig)
+        _tm.anatomy.note_plan_miss(
+            self._program_uid if program_uid is None else program_uid, sig)
 
     def _device(self, values, rng):
         for v in values:
@@ -513,16 +519,19 @@ class Executor:
         gen = _random.generator(self._ctx.torch_device) if self._program.needs_rng else None
         args = {n: a._data for n, a in zip(self._arg_names, self.arg_arrays)}
         aux = {n: a._data for n, a in zip(self._aux_names, self.aux_arrays)}
-        if is_train and self._grad_names:
-            leaves = {n: args[n].detach().requires_grad_(args[n].is_floating_point())
-                      for n in self._grad_names}
-            with torch.enable_grad():
-                outs, new_aux = self._run({**args, **leaves}, aux, gen, True)
-            self._graph = (leaves, outs)
-        else:
-            with torch.no_grad():
-                outs, new_aux = self._run(args, aux, gen, bool(is_train))
-            self._graph = None
+        with _tm.span("executor.forward", train=bool(is_train)):
+            t0 = time.perf_counter()
+            if is_train and self._grad_names:
+                leaves = {n: args[n].detach().requires_grad_(args[n].is_floating_point())
+                          for n in self._grad_names}
+                with torch.enable_grad():
+                    outs, new_aux = self._run({**args, **leaves}, aux, gen, True)
+                self._graph = (leaves, outs)
+            else:
+                with torch.no_grad():
+                    outs, new_aux = self._run(args, aux, gen, bool(is_train))
+                self._graph = None
+            _H_STEP_SECONDS.observe(time.perf_counter() - t0, phase="fwd")
         with torch.no_grad():
             self._set_outputs(outs, list(args.values()))
             if is_train:
@@ -564,8 +573,11 @@ class Executor:
                    for g, o in zip(out_grads, outs)]
         live = [(o, c.to(o.dtype)) for o, c in zip(outs, cts) if o.requires_grad]
         diff = [n for n in self._grad_names if leaves[n].requires_grad]
-        grads = torch.autograd.grad([o for o, _ in live], [leaves[n] for n in diff],
-                                    [c for _, c in live], allow_unused=True) if live else ()
+        with _tm.span("executor.fwdbwd"):
+            t0 = time.perf_counter()
+            grads = torch.autograd.grad([o for o, _ in live], [leaves[n] for n in diff],
+                                        [c for _, c in live], allow_unused=True) if live else ()
+            _H_STEP_SECONDS.observe(time.perf_counter() - t0, phase="bwd")
         gmap = dict(zip(diff, grads))
         with torch.no_grad():
             for name, garr in zip(self._arg_names, self.grad_arrays):

@@ -15,11 +15,34 @@ the multi-card slice (NCCL across cards).
 """
 from __future__ import annotations
 
+import time
+
 from . import optimizer as opt
+from . import telemetry as _tm
 from .base import MXNetError
 from .resilience import fault as _fault
 from .resilience import retry as _retry
 from .ndarray import NDArray
+
+_M_PUSH_BYTES = _tm.counter(
+    "kvstore.push_bytes", "Bytes pushed into the kvstore")
+_M_PULL_BYTES = _tm.counter(
+    "kvstore.pull_bytes", "Bytes pulled out of the kvstore")
+_H_PUSH_SECONDS = _tm.histogram(
+    "kvstore.push_seconds", "Latency of the push body (reduce + updater), "
+    "per key")
+_H_PULL_SECONDS = _tm.histogram(
+    "kvstore.pull_seconds", "Latency of the pull body, per key")
+# the name the JAX package's collectives share: the one-process reduce is
+# this run's collective, the anatomy's 'collective' phase
+_H_COLLECTIVE_SECONDS = _tm.histogram(
+    "parallel.collective_seconds",
+    "Wall time inside collective operations, by op")
+
+
+def _nbytes(vals):
+    return sum(v._data.numel() * v._data.element_size() for v in vals)
+
 
 _LOCAL_TYPES = ("local", "local_allreduce_cpu", "local_allreduce_device", "device")
 _DIST_TYPES = ("dist_sync", "dist_device_sync", "dist_async", "dist")
@@ -59,6 +82,9 @@ class KVStore:
             if k not in self._store:
                 raise MXNetError("key %s not initialized" % str(k))
             upd_key = k if isinstance(k, int) else self._str_key(k)
+            if _tm.enabled():
+                _M_PUSH_BYTES.inc(_nbytes(vals))
+            t0 = time.perf_counter()
 
             def _reduce_body(vals=vals, k=k):
                 _fault.fire("kv_push", key=k)
@@ -67,10 +93,17 @@ class KVStore:
             # the retry covers the reduce only (it reads the pushed values,
             # so a re-run is exact); the updater runs once, after it
             merged = _retry.call(_reduce_body, name="kv.push")
+            _H_COLLECTIVE_SECONDS.observe(time.perf_counter() - t0, op="local_reduce")
+            store = self._store[k]
+            if merged.context != store.context:
+                # the stored value, and so the updater's state, follows the
+                # reduced gradients onto their device, whatever the type
+                self._store[k] = store = store.as_in_context(merged.context)
             if self._updater is not None:
-                self._updater(upd_key, merged, self._store[k])
+                self._updater(upd_key, merged, store)
             else:
-                merged.copyto(self._store[k])
+                merged.copyto(store)
+            _H_PUSH_SECONDS.observe(time.perf_counter() - t0)
 
     def pull(self, key, out=None, priority=0):
         """Write each key's stored value into its output array(s)."""
@@ -85,7 +118,11 @@ class KVStore:
                 for o in outs:
                     o._write(stored.to(o._data.device))
 
+            t0 = time.perf_counter()
             _retry.call(_body, name="kv.pull")
+            if _tm.enabled():
+                _M_PULL_BYTES.inc(_nbytes(outs))
+                _H_PULL_SECONDS.observe(time.perf_counter() - t0)
 
     def _str_key(self, k):
         """Stable string key -> updater index (first-seen order)."""

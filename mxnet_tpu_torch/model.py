@@ -18,6 +18,7 @@ from . import io as mxio
 from . import metric as metric_mod
 from . import ndarray as nd
 from . import symbol as sym
+from . import telemetry as _tm
 from .context import Context, current_context
 from .kvstore import KVStore
 from .ndarray import NDArray
@@ -62,27 +63,29 @@ def _initialize_kvstore(kvstore, param_arrays, arg_params, param_names, update_o
 def _update_params_on_kvstore(param_arrays, grad_arrays, kvstore):
     """Push every gradient, then pull every weight (the optimizer runs on
     the store)."""
-    for index, (_, grad_list) in enumerate(zip(param_arrays, grad_arrays)):
-        if grad_list[0] is None:
-            continue
-        kvstore.push(index, grad_list, priority=-index)
-    for index, (arg_list, grad_list) in enumerate(zip(param_arrays, grad_arrays)):
-        if grad_list[0] is None:
-            continue
-        kvstore.pull(index, arg_list, priority=-index)
+    with _tm.span("model.update_params", path="kvstore"):
+        for index, (_, grad_list) in enumerate(zip(param_arrays, grad_arrays)):
+            if grad_list[0] is None:
+                continue
+            kvstore.push(index, grad_list, priority=-index)
+        for index, (arg_list, grad_list) in enumerate(zip(param_arrays, grad_arrays)):
+            if grad_list[0] is None:
+                continue
+            kvstore.pull(index, arg_list, priority=-index)
 
 
 def _update_params(param_arrays, grad_arrays, updater, num_device, kvstore=None):
     """Local updater: reduce through the store when there is one, then
     update each device's copy with its own index."""
-    for index, (arg_list, grad_list) in enumerate(zip(param_arrays, grad_arrays)):
-        if grad_list[0] is None:
-            continue
-        if kvstore:
-            kvstore.push(index, grad_list, priority=-index)
-            kvstore.pull(index, grad_list, priority=-index)
-        for k, (w, g) in enumerate(zip(arg_list, grad_list)):
-            updater(index * num_device + k, g, w)
+    with _tm.span("model.update_params", path="local"):
+        for index, (arg_list, grad_list) in enumerate(zip(param_arrays, grad_arrays)):
+            if grad_list[0] is None:
+                continue
+            if kvstore:
+                kvstore.push(index, grad_list, priority=-index)
+                kvstore.pull(index, grad_list, priority=-index)
+            for k, (w, g) in enumerate(zip(arg_list, grad_list)):
+                updater(index * num_device + k, g, w)
 
 
 def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params):

@@ -18,9 +18,21 @@ boundaries. A checkpoint stores numpy's stream as ``rng.numpy`` and the
 torch generators as ``rng.torch``; ``rng.mx`` (the JAX package's key
 stream) is left None, so that package's resume skips it, and the port
 ignores it in a JAX checkpoint. Not ported yet, and raising when asked
-for: ``monitor`` (``mxnet_tpu/monitor.py``) and the elastic
-shrink-and-continue path (``MXTPU_ELASTIC=1``, Queue 1 step 8); the fleet
-heartbeat files under ``MXTPU_RUN_DIR`` are not written.
+for: the elastic shrink-and-continue path (``MXTPU_ELASTIC=1``, Queue 1
+step 8); the fleet heartbeat files under ``MXTPU_RUN_DIR`` are not
+written.
+
+``monitor`` is installed after bind (``install_monitor``), which keeps
+training on the executor path, and is armed (``tic``) before and read
+(``toc_print``) after every batch, as in the JAX package.
+
+With telemetry on (``telemetry.enable()`` or ``MXTPU_TELEMETRY=1``) the
+loop records the JAX package's metrics and records under its names: the
+``fit.step_seconds`` / ``fit.epoch_seconds`` histograms, ``fit.step`` and
+``fit.step_group`` spans, the card's memory gauges each step, a metrics
+snapshot at each epoch end, the per-op cost table (``op_costs``) once,
+and the step anatomy (``telemetry.anatomy``): one ``anatomy`` record every
+``MXTPU_ANATOMY_INTERVAL`` steps and at each epoch end.
 
 ``MXNET_FIT_MULTISTEP=K`` (K > 1) on the fused path groups K batches into
 one ``Module.update_multi`` (on the card one replay of a CUDA graph of K
@@ -28,9 +40,8 @@ steps), which gives the bits of K single steps; the metric and
 ``batch_end_callback`` still see every batch, with its own ``nbatch`` and
 the normal ``locals`` keys, after its group. A trailing partial group, or a
 batch whose shape breaks the group, takes the single-step path. Without a
-fused trainer the knob changes nothing. ``MXNET_FIT_MULTISTEP=auto`` (the
-JAX package's tuner, steered by telemetry the port does not record)
-raises.
+fused trainer the knob changes nothing. ``MXNET_FIT_MULTISTEP=auto`` hands
+K to :class:`_MultistepAutoTuner`, as in the JAX package.
 
 With ``MXTPU_DEVICE_FEED=1`` ``fit`` wraps the training iterator in
 ``io.DeviceFeedIter`` on the fused trainer's device: the next batches are
@@ -60,11 +71,27 @@ import numpy as np
 from .. import metric as metric_mod
 from .. import ndarray as nd
 from .. import random as _rnd
+from .. import telemetry as _tm
 from ..initializer import Uniform
 from ..io import DataDesc  # noqa: F401  (re-exported for subclasses)
 from ..model import BatchEndParam
 from ..resilience import fault as _fault
 from ..resilience.checkpoint import restricted_loads as _ckpt_loads
+
+_H_STEP_SECONDS = _tm.histogram(
+    "fit.step_seconds", "Wall time of one fit-loop optimizer step "
+    "(forward_backward + update), labelled by epoch")
+_H_EPOCH_SECONDS = _tm.histogram(
+    "fit.epoch_seconds", "Wall time of one training epoch")
+_C_RESUME_LOADED = _tm.counter(
+    "resume.loaded", "fit() calls that restored state from a checkpoint")
+_C_RESUME_NONE = _tm.counter(
+    "resume.none_found",
+    "fit() resume requests that found no valid checkpoint")
+_C_PREEMPTED = _tm.counter(
+    "fit.preempted",
+    "fit() loops that exited through the SIGTERM/SIGINT grace path "
+    "after writing a final checkpoint")
 
 
 def _as_list(obj):
@@ -93,17 +120,141 @@ def _poison_batch(batch, mode):
 
 
 def _fit_multistep():
-    """K of ``MXNET_FIT_MULTISTEP`` (1 when unset or not a number)."""
+    """K of ``MXNET_FIT_MULTISTEP`` (1 when unset or not a number), or
+    "auto"."""
     raw = os.environ.get("MXNET_FIT_MULTISTEP", "1").strip()
     if raw.lower() == "auto":
-        raise NotImplementedError(
-            "MXNET_FIT_MULTISTEP=auto is not ported to PyTorch yet: its tuner "
-            "(mxnet_tpu/module/base_module.py:95) steers by telemetry the port does not "
-            "record (ROADMAP.md, Queue 1 step 10); set a number")
+        return "auto"
     try:
         return int(raw)
     except ValueError:
         return 1
+
+
+class _MultistepAutoTuner:
+    """``MXNET_FIT_MULTISTEP=auto``: grow the fused-step group depth K
+    until host dispatch is invisible next to device time (the JAX
+    package's tuner, ``mxnet_tpu/module/base_module.py:96``).
+
+    After each full K-group the tuner reads the phase totals
+    (``module.dispatch_host_seconds`` et al — the same counters the
+    anatomy record reports) and estimates the dispatch share of the
+    group's wall time by the anatomy's disjointness rule (dispatch minus
+    its staging sub-window, clamped at zero; device time is the wall
+    remainder after every host phase). While the share exceeds
+    ``MXTPU_DISPATCH_TARGET_FRAC`` (default 0.05) and K <
+    ``MXNET_FIT_MULTISTEP_MAX`` (default 32), K doubles.
+
+    A new depth is a new group: on the card its first group runs eagerly
+    (the warm-up) and its second is captured into a CUDA graph, the
+    port's counterpart of the JAX package's recompile. The first
+    ``skip_groups`` groups at each depth are left out of the measurement
+    (the fit loop passes 2 on the card, for the warm-up and the capture;
+    1 elsewhere, as in the JAX package), and when K grows the fit loop
+    frees the previous depth's graph and buffers
+    (``ShardedTrainStep.release_groups``). Once the target is met (or the
+    cap is hit) the tuner settles: K is frozen, every later group replays
+    the same graph, and the steady state captures nothing.
+
+    Decisions land in the telemetry JSONL as ``type=multistep_auto``
+    records, and the current depth is stamped onto every anatomy
+    interval record via :func:`telemetry.anatomy.note_multistep`."""
+
+    _KEYS = {"dispatch": "module.dispatch_host_seconds",
+             "stage": "module.stage_host_seconds",
+             "input": "io.feed_wait_seconds"}
+
+    def __init__(self, logger=None, skip_groups=1):
+        def _env(name, default, cast):
+            try:
+                return cast(os.environ.get(name, default))
+            except ValueError:
+                return cast(default)
+
+        self.target = _env("MXTPU_DISPATCH_TARGET_FRAC", "0.05", float)
+        self.k_max = max(1, _env("MXNET_FIT_MULTISTEP_MAX", "32", int))
+        # measure at least this many steps per decision so one noisy
+        # group can't trigger a doubling
+        self.min_steps = max(1, _env("MXTPU_MULTISTEP_AUTO_STEPS", "8", int))
+        self.skip_groups = max(1, int(skip_groups))
+        self.k = min(2, self.k_max)
+        self.settled = self.k >= self.k_max
+        self.logger = logger
+        self.last_frac = None
+        self._skip = self.skip_groups
+        self._steps = 0
+        self._base = None
+        self._t0 = None
+        _tm.anatomy.note_multistep(self.k, settled=self.settled)
+
+    def _totals(self):
+        return {k: _tm.REGISTRY.total(v) for k, v in self._KEYS.items()}
+
+    def _arm(self):
+        self._base = self._totals()
+        self._t0 = time.perf_counter()
+        self._steps = 0
+
+    def after_group(self, k_done):
+        """Called by the fit loop after each full K-group dispatch."""
+        if self.settled or k_done != self.k:
+            return
+        if not _tm.enabled():
+            # no phase counters to steer by: freeze at the initial depth
+            self._settle(None, "telemetry disabled")
+            return
+        if self._skip:
+            # the first groups at this depth carry the warm-up and the
+            # capture; start measuring after them
+            self._skip -= 1
+            if not self._skip:
+                self._arm()
+            return
+        self._steps += k_done
+        if self._steps < self.min_steps:
+            return
+        now = self._totals()
+        wall = max(time.perf_counter() - self._t0, 1e-9)
+        disp = now["dispatch"] - self._base["dispatch"]
+        stage = now["stage"] - self._base["stage"]
+        feed = now["input"] - self._base["input"]
+        # the anatomy's disjointness rule: the dispatch window includes
+        # staging, so subtract it; device time is what is left of wall
+        # after every host phase
+        disp_adj = max(disp - stage, 0.0)
+        device = max(wall - feed - stage - disp_adj, 1e-9)
+        frac = disp_adj / device
+        self.last_frac = frac
+        if frac <= self.target:
+            self._settle(frac, "target met")
+        elif self.k >= self.k_max:
+            self._settle(frac, "depth cap")
+        else:
+            self.k = min(self.k * 2, self.k_max)
+            self._skip = self.skip_groups
+            self._record(frac, grown=True)
+            if self.logger is not None:
+                self.logger.info(
+                    "fit multistep auto: dispatch %.1f%% of device time > %.1f%% target, "
+                    "growing K to %d", 100 * frac, 100 * self.target, self.k)
+
+    def _settle(self, frac, why):
+        self.settled = True
+        self._record(frac, grown=False, why=why)
+        if self.logger is not None:
+            self.logger.info(
+                "fit multistep auto: settled at K=%d (%s%s)", self.k, why,
+                "" if frac is None else ", dispatch at %.1f%% of device time" % (100 * frac))
+
+    def _record(self, frac, grown, why=None):
+        _tm.anatomy.note_multistep(self.k, settled=self.settled, dispatch_frac=frac)
+        rec = {"type": "multistep_auto", "k": self.k, "settled": self.settled,
+               "grown": grown, "target_frac": self.target}
+        if frac is not None:
+            rec["dispatch_frac"] = round(frac, 4)
+        if why:
+            rec["why"] = why
+        _tm.anatomy.emit_decision(rec)
 
 
 def _check_input_names(symbol, names, typename, throw):
@@ -211,11 +362,10 @@ class BaseModule:
         from ..resilience import guardrail as _guard
 
         assert num_epoch is not None, "please specify number of epochs"
-        if monitor is not None:
-            raise NotImplementedError(
-                "fit(monitor=...) is not ported to PyTorch yet (mxnet_tpu/monitor.py)")
         self.bind(data_shapes=train_data.provide_data, label_shapes=train_data.provide_label,
                   for_training=True, force_rebind=force_rebind)
+        if monitor is not None:
+            self.install_monitor(monitor)
         self.init_params(initializer=initializer, arg_params=arg_params, aux_params=aux_params,
                          allow_missing=allow_missing, force_init=force_init)
         fit_k = _fit_multistep()
@@ -264,7 +414,17 @@ class BaseModule:
 
             # the next batches' host-to-device copies overlap this step
             fit_data = DeviceFeedIter(train_data, trainer.device)
-        use_multi = fit_k > 1 and trainer is not None and hasattr(self, "update_multi")
+        auto_tuner = None
+        if fit_k == "auto":
+            fit_k = 1
+            if trainer is not None and monitor is None and hasattr(self, "update_multi"):
+                # on the card a depth's first group is the warm-up and its
+                # second the capture: both stay out of the measurement
+                auto_tuner = _MultistepAutoTuner(
+                    self.logger, skip_groups=2 if trainer.device.type == "cuda" else 1)
+                fit_k = auto_tuner.k
+        use_multi = (fit_k > 1 and trainer is not None and monitor is None
+                     and hasattr(self, "update_multi"))
         if use_multi:
             trainer.compile_multi(fit_k)  # raises for an ungrouped optimizer
 
@@ -314,9 +474,11 @@ class BaseModule:
                 raise ValueError('resume must be "auto" or a checkpoint step, got %r'
                                  % (resume,))
             if state is None:
+                _C_RESUME_NONE.inc()
                 self.logger.info("resume: no valid checkpoint under %s; starting fresh",
                                  ckpt_mgr.directory)
             else:
+                _C_RESUME_LOADED.inc()
                 begin_epoch, resume_skip, gs0, resume_metric = _restore_from_state(state)
                 loop_seek["resumed"] = True
                 if guard_mon is not None:
@@ -365,6 +527,7 @@ class BaseModule:
             loop["gs"] += n_new
             loop["done"] = done
             loop["epoch"] = epoch
+            _tm.anatomy.on_steps(n_new)
             if guard_mon is not None:
                 rewind = False
                 for t, diag in self._drain_guard_diag():
@@ -381,6 +544,7 @@ class BaseModule:
                 return
             if preempt["flag"]:
                 ckpt_mgr.save(_capture(epoch, done), loop["gs"])
+                _C_PREEMPTED.inc()
                 self.logger.info("preempted: checkpoint at step %d written, exiting %d",
                                  loop["gs"], _ckpt.EXIT_PREEMPTED)
                 raise SystemExit(_ckpt.EXIT_PREEMPTED)
@@ -409,7 +573,7 @@ class BaseModule:
                                      epoch_end_callback, eval_end_callback,
                                      eval_batch_end_callback, fit_k if use_multi else 1,
                                      _after_steps, ckpt_mgr, loop, _capture, resume_skip,
-                                     resume_metric, loop_seek)
+                                     resume_metric, loop_seek, monitor, auto_tuner)
                     break
                 except _guard.GuardrailRewind as rw:
                     # -- rewind to the last good checkpoint -------------------
@@ -470,17 +634,53 @@ class BaseModule:
         executor path; Module overrides it for the fused path)."""
         return []
 
+    def _note_op_costs(self, train_data):
+        """The bound symbol's per-op analytic cost table into the telemetry
+        JSONL once a fit (``type=op_costs``); perf_doctor ranks its
+        memory-bound ops as kernel candidates. Advisory: a symbol-less
+        module or a shapeless iterator is skipped."""
+        if not _tm.anatomy.enabled():
+            return
+        try:
+            sym = getattr(self, "symbol", None)
+            if sym is None:
+                return
+            shapes = {desc[0]: tuple(desc[1])
+                      for desc in list(getattr(train_data, "provide_data", None) or [])
+                      + list(getattr(train_data, "provide_label", None) or [])}
+            if not shapes:
+                return
+            _tm.anatomy.note_op_costs(_tm.costmodel.analytic_op_costs(sym, **shapes))
+        except Exception:  # noqa: BLE001 — advisory only
+            pass
+
     def _fit_epochs(self, train_data, eval_data, eval_metric, validation_metric, begin_epoch,
                     num_epoch, batch_end_callback, epoch_end_callback, eval_end_callback,
                     eval_batch_end_callback, fit_k, _after_steps, ckpt_mgr, loop, _capture,
-                    resume_skip, resume_metric, loop_seek=None):
+                    resume_skip, resume_metric, loop_seek=None, monitor=None, auto_tuner=None):
         """The epoch loop of :meth:`fit` (split out so that fit's signal
         handlers and rewind loop stay readable)."""
+        _tm.anatomy.begin_loop()
+        self._note_op_costs(train_data)
+
+        def _k():
+            # the auto tuner's depth is live (it grows between groups); a
+            # fixed MXNET_FIT_MULTISTEP=K never changes
+            return auto_tuner.k if auto_tuner is not None else fit_k
 
         def _single(epoch, nbatch, data_batch, local_vars):
-            self.forward_backward(data_batch)
-            self.update()
+            if monitor is not None:
+                monitor.tic()
+            with _tm.span("fit.step", epoch=epoch, nbatch=nbatch):
+                t0 = time.perf_counter()
+                self.forward_backward(data_batch)
+                self.update()
+                _H_STEP_SECONDS.observe(time.perf_counter() - t0, epoch=str(epoch))
+            if _tm.enabled():
+                _tm.sample_device_memory()
             self.update_metric(eval_metric, data_batch.label)
+            if monitor is not None:
+                monitor.toc_print()
             _fire(batch_end_callback, epoch, nbatch, eval_metric, local_vars)
             _after_steps(epoch, nbatch + 1, 1)
 
@@ -490,14 +690,22 @@ class BaseModule:
                 # read locals["self"] or locals["data_batch"]
                 return dict(self=self, train_data=train_data, data_batch=data_batch,
                             epoch=epoch, nbatch=nbatch, eval_metric=eval_metric,
-                            monitor=None)
+                            monitor=monitor)
 
-            if len(pending) < fit_k:
+            if len(pending) < _k():
                 # a partial trailing group: the single-step path
                 for nbatch, db in pending:
                     _single(epoch, nbatch, db, _cb_locals(nbatch, db))
                 return
-            steps = self.update_multi([db for _, db in pending])
+            with _tm.span("fit.step_group", epoch=epoch, k=len(pending)):
+                t0 = time.perf_counter()
+                steps = self.update_multi([db for _, db in pending])
+                dt = time.perf_counter() - t0
+            if _tm.enabled():
+                # the amortized cost a step, comparable with the single path's
+                for _ in pending:
+                    _H_STEP_SECONDS.observe(dt / len(pending), epoch=str(epoch))
+                _tm.sample_device_memory()
             for (nbatch, db), outs in zip(pending, steps):
                 self._install_step_outputs(outs)
                 self.update_metric(eval_metric, db.label)
@@ -505,6 +713,12 @@ class BaseModule:
             # one group is one dispatch: its step bookkeeping, and any
             # snapshot, lands on the group's boundary
             _after_steps(epoch, pending[-1][0] + 1, len(pending))
+            if auto_tuner is not None:
+                k_was = auto_tuner.k
+                auto_tuner.after_group(len(pending))
+                if auto_tuner.k != k_was:
+                    # the deeper group captures anew; the old one's graph goes
+                    self._fused_trainer.release_groups(auto_tuner.k)
 
         for epoch in range(begin_epoch, num_epoch):
             tic = time.time()
@@ -536,7 +750,7 @@ class BaseModule:
                     mode = _fault.batch_poison(loop["gs"] + len(pending) + 1)
                     if mode:
                         data_batch = _poison_batch(data_batch, mode)
-                if fit_k == 1:
+                if _k() == 1:
                     _single(epoch, nbatch, data_batch, locals())
                     continue
                 if pending and any(tuple(p.shape) != tuple(d.shape)
@@ -545,14 +759,20 @@ class BaseModule:
                     _flush_group(pending, epoch)
                     pending = []
                 pending.append((nbatch, data_batch))
-                if len(pending) == fit_k:
+                if len(pending) == _k():
                     _flush_group(pending, epoch)
                     pending = []
             if pending:
                 _flush_group(pending, epoch)
+            # close the partial anatomy interval on the epoch boundary, so
+            # its phase deltas land in the flush below
+            _tm.anatomy.emit_interval(force=True)
             for name, val in eval_metric.get_name_value():
                 self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
             self.logger.info("Epoch[%d] Time cost=%.3f", epoch, time.time() - tic)
+            if _tm.enabled():
+                _H_EPOCH_SECONDS.observe(time.time() - tic)
+                _tm.flush()  # a metrics snapshot an epoch (JSONL + prom)
             # sync params (and multi-device aux) back to the host copies
             arg_now, aux_now = self.get_params()
             self.set_params(arg_now, aux_now)
@@ -637,4 +857,5 @@ class BaseModule:
 
     def install_monitor(self, mon):
         raise NotImplementedError(
-            "Monitor is not ported to PyTorch yet (mxnet_tpu/monitor.py)")
+            "%s does not take a Monitor; Module, BucketingModule, "
+            "SequentialModule and MutableModule do" % type(self).__name__)

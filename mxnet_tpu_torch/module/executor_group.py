@@ -241,3 +241,7 @@ class DataParallelExecutorGroup:
     def update_metric(self, eval_metric, labels):
         for texec, islice in zip(self.execs, self.slices):
             eval_metric.update([label[islice] for label in labels], texec.outputs)
+
+    def install_monitor(self, mon):
+        for exe in self.execs:
+            mon.install(exe)

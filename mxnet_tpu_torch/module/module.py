@@ -24,12 +24,14 @@ from __future__ import annotations
 
 import logging
 import pickle
+import time
 
 import torch
 
 from .. import context as ctx_mod
 from .. import ndarray as nd
 from .. import optimizer as opt
+from .. import telemetry as _tm
 from ..base import MXNetError
 from ..initializer import InitDesc, Uniform
 from ..model import (_create_kvstore, _initialize_kvstore, _update_params,
@@ -37,6 +39,27 @@ from ..model import (_create_kvstore, _initialize_kvstore, _update_params,
 from ..parallel.train_step import host_state
 from .base_module import BaseModule, _check_input_names
 from .executor_group import DataParallelExecutorGroup
+
+_H_DISPATCH_HOST = _tm.histogram(
+    "module.dispatch_host_seconds",
+    "Host wall time to stage inputs + enqueue one fused train step "
+    "(the call returns before the card finishes, so this is the per-step "
+    "host overhead; a K-step group records the amortized per-step cost)")
+_H_STAGE_HOST = _tm.histogram(
+    "module.stage_host_seconds",
+    "Host wall time of the input-STAGING slice of a fused step (the "
+    "copies to the card, or the DeviceFeedIter adoption check); inside "
+    "dispatch_host_seconds' window")
+_M_FEED_HITS = _tm.counter(
+    "module.feed_fastpath_hits",
+    "Fused-step input arrays adopted directly from a DeviceFeedIter "
+    "staging (already on the trainer's device: no copy)")
+_H_OUTPUT_SYNC = _tm.histogram(
+    "module.output_sync_seconds",
+    "Host wall time blocked reading fused-step outputs (update_metric). "
+    "Under asynchronous dispatch this is where the card's compute "
+    "surfaces on the host thread — the device-sync leg of the step "
+    "anatomy (telemetry/anatomy.py)")
 
 
 class Module(BaseModule):
@@ -104,6 +127,7 @@ class Module(BaseModule):
         self._fused_t = 0
         self._fused_exec_stale = False
         self._guard_pending = []  # (t, diag) of guarded fused steps, for fit
+        self._monitor = None
 
     # -- checkpoints -------------------------------------------------------
     @staticmethod
@@ -143,6 +167,8 @@ class Module(BaseModule):
         self._exec_group = None
         self._data_shapes = None
         self._label_shapes = None
+        # a rebind drops the fused trainer (shapes or mesh may change, and a
+        # monitor installed on the new bind needs the executor path)
         self._fused_trainer = None
         self._fused_owner = None
         self._fused_batch = None
@@ -321,7 +347,8 @@ class Module(BaseModule):
             raise MXNetError(
                 "Module was given a mesh but training cannot take the fused path: requires "
                 "kvstore 'device' (got %r), for_training, no inputs_need_grad, no "
-                "fixed_param_names, and batch_size %% dp == 0"
+                "fixed_param_names, no installed monitor (monitored training needs the "
+                "executor path), and batch_size %% dp == 0"
                 % (getattr(kvstore, "type", kvstore),))
         self.optimizer_initialized = True
         if self._preload_opt_states is not None:
@@ -329,10 +356,14 @@ class Module(BaseModule):
             self._preload_opt_states = None
 
     def _fusable(self, kvstore):
-        """kvstore 'device' routes training through the fused step."""
+        """kvstore 'device' routes training through the fused step. An
+        installed Monitor declines it: the fused step (and a captured
+        graph of it) has no per-op boundaries to call the monitor at, so
+        monitored training keeps the executor path."""
         dp = self._mesh.shape.get("dp", 1) if self._mesh is not None else len(self._context)
         return (kvstore is not None and "device" in kvstore.type and self.for_training
                 and not self.inputs_need_grad and not self._fixed_param_names
+                and self._monitor is None
                 and self._exec_group.batch_size % dp == 0)
 
     def _init_fused(self):
@@ -380,6 +411,7 @@ class Module(BaseModule):
         is, any other copied there."""
         batch = self._fused_inputs(data_batch)
         if self._check_staged(data_batch):
+            _M_FEED_HITS.inc(len(batch))
             return batch
         device = self._fused_trainer.device
         return {name: t.to(device) for name, t in batch.items()}
@@ -446,9 +478,15 @@ class Module(BaseModule):
             owner = self._fused_owner
             lr, t = self._next_step_schedule()
             self._bind_owner_state()
-            p, a, s, outs = self._fused_trainer(
-                owner._fused_params, owner._fused_aux, owner._fused_opt,
-                self._make_fused_batch(self._fused_batch), lr=lr, t=t)
+            with _tm.span("module.update", path="fused"):
+                # staging + enqueue together are the step's host cost: the
+                # trainer returns before the card has run the step
+                t0 = time.perf_counter()
+                batch = self._make_fused_batch(self._fused_batch)
+                _H_STAGE_HOST.observe(time.perf_counter() - t0)
+                p, a, s, outs = self._fused_trainer(
+                    owner._fused_params, owner._fused_aux, owner._fused_opt, batch, lr=lr, t=t)
+                _H_DISPATCH_HOST.observe(time.perf_counter() - t0)
             owner._fused_params, owner._fused_aux, owner._fused_opt = p, a, s
             outs = list(outs)
             if self._fused_trainer.guard:
@@ -461,12 +499,14 @@ class Module(BaseModule):
             self._fused_exec_stale = True
             return
         if self._update_on_kvstore:
-            _update_params_on_kvstore(self._exec_group.param_arrays,
-                                      self._exec_group.grad_arrays, self._kvstore)
+            with _tm.span("module.update", path="kvstore"):
+                _update_params_on_kvstore(self._exec_group.param_arrays,
+                                          self._exec_group.grad_arrays, self._kvstore)
         else:
-            _update_params(self._exec_group.param_arrays, self._exec_group.grad_arrays,
-                           updater=self._updater, num_device=len(self._context),
-                           kvstore=self._kvstore)
+            with _tm.span("module.update", path="local"):
+                _update_params(self._exec_group.param_arrays, self._exec_group.grad_arrays,
+                               updater=self._updater, num_device=len(self._context),
+                               kvstore=self._kvstore)
 
     def _next_step_schedule(self):
         """Advance the fused update count and ``num_update`` by one step;
@@ -501,8 +541,10 @@ class Module(BaseModule):
         owner = self._fused_owner
         k = len(data_batches)
         self._params_dirty = True
+        t0 = time.perf_counter()
         for b in data_batches:
-            self._check_staged(b)  # staged micro-batches go device to device
+            if self._check_staged(b):  # staged micro-batches go device to device
+                _M_FEED_HITS.inc(len(b.data) + len(b.label or ()))
         batches = {name: [b.data[i]._data for b in data_batches]
                    for i, name in enumerate(self._data_names)}
         if self._label_names and data_batches[0].label:
@@ -511,8 +553,18 @@ class Module(BaseModule):
         # advance the schedule exactly as K update() calls would
         lrs, ts = zip(*[self._next_step_schedule() for _ in range(k)])
         self._bind_owner_state()
-        p, a, s, outs = self._fused_trainer.call_multi(
+        trainer = self._fused_trainer
+        p, a, s, outs = trainer.call_multi(
             owner._fused_params, owner._fused_aux, owner._fused_opt, batches, lrs, ts)
+        if _tm.enabled():
+            # amortized per-step host cost, once per micro-step so the
+            # histograms stay comparable with update()'s samples; the
+            # trainer's staging lies inside the dispatch window
+            per = (time.perf_counter() - t0) / k
+            per_stage = trainer.last_stage_seconds / k
+            for _ in range(k):
+                _H_STAGE_HOST.observe(per_stage)
+                _H_DISPATCH_HOST.observe(per)
         owner._fused_params, owner._fused_aux, owner._fused_opt = p, a, s
         owner._fused_exec_stale = True
         self._fused_exec_stale = True
@@ -560,7 +612,10 @@ class Module(BaseModule):
 
     def update_metric(self, eval_metric, labels):
         if self._fused_trainer is not None and self._fused_outputs is not None:
+            # the metric's host read waits for the step: the device leg
+            t0 = time.perf_counter()
             eval_metric.update(labels, self._fused_outputs)
+            _H_OUTPUT_SYNC.observe(time.perf_counter() - t0)
             return
         self._exec_group.update_metric(eval_metric, labels)
 
@@ -576,25 +631,28 @@ class Module(BaseModule):
     def _apply_metric_snapshot(self, eval_metric, labels, snapshot):
         """The metric update of one deferred step (its host read happens
         here)."""
+        t0 = time.perf_counter()
         eval_metric.update(labels, snapshot)
+        _H_OUTPUT_SYNC.observe(time.perf_counter() - t0)
 
     def _sync_params_from_devices(self):
-        if self._fused_trainer is not None:
-            owner = self._fused_owner
-            trainer = owner._fused_trainer
-            params_src = dict(owner._fused_params)
-            if trainer.amp:
-                # the working copies are bf16 casts; the masters are the truth
-                params_src.update(trainer.master_params_named(owner._fused_opt))
-            for name, arr in params_src.items():
-                if name in self._arg_params:
-                    self._arg_params[name][:] = arr
-            for name, arr in owner._fused_aux.items():
-                if name in self._aux_params:
-                    self._aux_params[name][:] = arr
-        else:
-            self._exec_group.get_params(self._arg_params, self._aux_params)
-        self._params_dirty = False
+        with _tm.span("module.sync_params"):
+            if self._fused_trainer is not None:
+                owner = self._fused_owner
+                trainer = owner._fused_trainer
+                params_src = dict(owner._fused_params)
+                if trainer.amp:
+                    # the working copies are bf16 casts; the masters are the truth
+                    params_src.update(trainer.master_params_named(owner._fused_opt))
+                for name, arr in params_src.items():
+                    if name in self._arg_params:
+                        self._arg_params[name][:] = arr
+                for name, arr in owner._fused_aux.items():
+                    if name in self._aux_params:
+                        self._aux_params[name][:] = arr
+            else:
+                self._exec_group.get_params(self._arg_params, self._aux_params)
+            self._params_dirty = False
 
     # -- training state for checkpoints -----------------------------------
     def _topology(self):
@@ -791,3 +849,18 @@ class Module(BaseModule):
         else:
             with open(fname, "rb") as fin:
                 self._updater.set_states(fin.read())
+
+    def install_monitor(self, mon):
+        """Install ``mon`` on the executors; training then keeps the
+        executor path (:meth:`_fusable`). A module whose fused step is
+        already built raises: rebind first (``fit(..., monitor=mon,
+        force_rebind=True)``)."""
+        assert self.binded
+        if self._fused_trainer is not None:
+            raise MXNetError(
+                "This module already trains through the fused step, which has no per-op "
+                "boundaries for Monitor callbacks (a captured CUDA graph runs none). Rebind "
+                "first - fit(..., monitor=mon, force_rebind=True) - so training routes "
+                "through the executor path.")
+        self._monitor = mon
+        self._exec_group.install_monitor(mon)

@@ -80,6 +80,7 @@ import numpy as np
 import torch
 
 from .. import random as _random
+from .. import telemetry as _tm
 from ..base import MXNetError, bucket_bytes_env, graph_capture, release_for_capture
 from ..executor import _GraphProgram, _mirror_enabled, _mirror_ops, resolve_creation_shapes
 from ..ndarray import NDArray
@@ -87,6 +88,16 @@ from ..ops import kernels
 from ..resilience.checkpoint import DEVICE_PULL_LOCK
 
 _LOG = logging.getLogger(__name__)
+
+_M_STEPS = _tm.counter(
+    "train_step.steps", "Optimizer steps dispatched through the fused "
+    "ShardedTrainStep path")
+_M_FLAT_BUCKETS = _tm.counter(
+    "train_step.flat_buckets", "Flat update buckets planned by the "
+    "sharded/bucketed fused-update path (one count per bucket per plan)")
+_H_BUCKET_BYTES = _tm.histogram(
+    "kvstore.bucket_bytes", "Payload bytes per coalesced gradient bucket "
+    "(fused flat-update plan buckets)")
 
 
 class _FlatBucket:
@@ -303,6 +314,12 @@ class ShardedTrainStep:
         self.device = mesh.device
         self.optimizer = optimizer
         self.program = _GraphProgram(symbol)
+        # the recompile detector's program for the K-step groups (each a
+        # CUDA graph on the card); the eager single step reports under
+        # self.program's uid, so the single steps of a trailing partial
+        # group are that program's warm-up, not a recompile (in the JAX
+        # package they share the groups' dispatch plan)
+        self._group_uid = next(_GraphProgram._uid_counter)
         self.arg_names = symbol.list_arguments()
         self.aux_names = symbol.list_auxiliary_states()
         self.data_names = list(data_names)
@@ -325,6 +342,7 @@ class ShardedTrainStep:
                       self.flat_mode, dp, self.flat_bucket_bytes)
         self._flat_plan = None
         self._groups = {}  # (K, batch signature) -> _StepGroup
+        self.last_stage_seconds = 0.0  # host staging of the last group (call_multi)
         amp_req = os.environ.get("MXTPU_AMP", "").lower()
         self.amp = False
         if amp_req in ("bf16", "bfloat16"):
@@ -370,6 +388,9 @@ class ShardedTrainStep:
             self._flat_plan = _FlatUpdatePlan(
                 self.param_names, shapes, dtypes, self.optimizer, self.mesh.shape["dp"],
                 self.flat_bucket_bytes, comm_itemsize=comm_itemsize)
+            for b in self._flat_plan.buckets:
+                _M_FLAT_BUCKETS.inc()
+                _H_BUCKET_BYTES.observe(b.size * (comm_itemsize or np.dtype(b.dtype).itemsize))
         return self._flat_plan
 
     def _pack(self, parts, padded, dtype):
@@ -794,8 +815,47 @@ class ShardedTrainStep:
         return new_params, new_aux, new_opt, outs
 
     def compile(self, data_shapes_by_name=None):
-        """Kept for the JAX surface: eager PyTorch has nothing to compile."""
+        """Kept for the JAX surface: eager PyTorch has nothing to compile.
+        Registers the programs' mesh with the anatomy's fingerprints."""
+        for uid in (self.program._program_uid, self._group_uid):
+            _tm.anatomy.register_program(uid, mesh=str(dict(self.mesh.shape)))
         return self
+
+    def step_cost(self, batch_shapes):
+        """``{"flops", "bytes_accessed"}`` of one step at ``batch_shapes``
+        (name -> shape of the global batch): the analytic count
+        (``telemetry.costmodel.analytic_step_cost``), at bf16 activations
+        under AMP. Runs nothing."""
+        slab = self._slab_kind() if self.optimizer is not None else None
+        return _tm.costmodel.analytic_step_cost(
+            self.symbol, dtype_bytes=2 if self.amp else 4,
+            state_slots=kernels.SLAB_STATE_SLOTS.get(slab, 1), amp=self.amp,
+            **{n: tuple(s) for n, s in batch_shapes.items()})
+
+    def _note_dispatch(self, sig, batch_shapes, k):
+        """The anatomy's accounting of one dispatch of ``k`` steps: the
+        signature and the step's cost, counted once a signature. Groups
+        report to their own detector program: a new depth or batch is a new
+        capture on the card, a recompile after the first; the single step's
+        first signature is its own warm-up."""
+        multi = sig[0] == "multi"
+        self.program.note_signature(sig, self._group_uid if multi else None)
+        if _tm.anatomy.wants_cost():
+            _tm.anatomy.capture_cost(
+                self.program._program_uid, sig,
+                lambda: {n: k * v for n, v in self.step_cost(batch_shapes).items()},
+                steps=k, dtype="bf16" if self.amp else "f32")
+        _M_STEPS.inc(k, path="multi" if multi else "single")
+
+    def release_groups(self, keep_k):
+        """Drop the K-step groups of every depth but ``keep_k``: their CUDA
+        graphs and graph pools at once, their static buffers as soon as the
+        state no longer refers to them (``fit``'s auto tuner, when K
+        grows)."""
+        for key in [key for key in self._groups if key[0] != keep_k]:
+            del self._groups[key]
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
 
     def arm_guard(self):
         """Turn the guardrail gate and diag head on (``fit(guardrails=...)``).
@@ -991,6 +1051,10 @@ class ShardedTrainStep:
         if self.flat_mode is not None:
             self._ensure_flat_plan(params)
         key = (k, tuple((n, shape, str(dtype)) for n, (shape, dtype) in step_shapes.items()))
+        if _tm.enabled():
+            self._note_dispatch(("multi",) + tuple((n, (k,) + shape, dtype, str(dev))
+                                                   for n, shape, dtype in key[1]),
+                                {n: shape for n, (shape, _) in step_shapes.items()}, k)
         group = self._groups.get(key)
         if group is not None and not group.fits(params, aux, opt_state):
             group = None  # the state's layout changed: new buffers, a new graph
@@ -1001,28 +1065,31 @@ class ShardedTrainStep:
             _store(group.params, params)
             _store(group.aux, aux)
             _store(group.opt, opt_state)
+        t_stage = time.perf_counter()
         if group.staged is not None:
             group.staged.synchronize()  # the last group's copies out of pinned memory
         self._stage(group, batches)
         group.lrs_host.copy_(torch.from_numpy(self._lr_rows(lrs, ts)))
         group.lrs.copy_(group.lrs_host, non_blocking=True)
+        self.last_stage_seconds = time.perf_counter() - t_stage
         if dev.type == "cuda":
             group.staged = torch.cuda.Event()
             group.staged.record()
         rng = _random.generator(dev) if self._needs_rng else None
         group.stats["groups"] += 1
-        if dev.type != "cuda":
-            outs = [self._micro_step(group, i, rng, lrs[i], ts[i]) for i in range(k)]
-        elif group.graph is None and not group.stats["warmup_groups"]:
-            with DEVICE_PULL_LOCK:  # no checkpoint's host pull under sync debug mode
-                outs = self._warmup(group, lrs, ts, rng)
-        else:
-            if group.graph is None:
-                with DEVICE_PULL_LOCK:  # nor inside the capture
-                    self._capture(group, lrs, ts, rng)
-            group.graph.replay()
-            group.stats["replays"] += 1
-            outs = group.outs
+        with _tm.span("train_step.dispatch", k=k):
+            if dev.type != "cuda":
+                outs = [self._micro_step(group, i, rng, lrs[i], ts[i]) for i in range(k)]
+            elif group.graph is None and not group.stats["warmup_groups"]:
+                with DEVICE_PULL_LOCK:  # no checkpoint's host pull under sync debug mode
+                    outs = self._warmup(group, lrs, ts, rng)
+            else:
+                if group.graph is None:
+                    with DEVICE_PULL_LOCK:  # nor inside the capture
+                        self._capture(group, lrs, ts, rng)
+                group.graph.replay()
+                group.stats["replays"] += 1
+                outs = group.outs
         stacked = [torch.stack([o[j] for o in outs]) for j in range(len(outs[0]))]
         return dict(group.params), dict(group.aux), dict(group.opt), stacked
 
@@ -1041,4 +1108,9 @@ class ShardedTrainStep:
         if rng is None and self._needs_rng:
             rng = _random.generator(self.device)
         batch = {n: v.to(self.device) for n, v in batch.items()}
-        return self._step(params, aux, opt_state, batch, rng, lr, t)
+        if _tm.enabled():
+            self._note_dispatch(("single",) + tuple((n, tuple(v.shape), v.dtype, str(v.device))
+                                                    for n, v in batch.items()),
+                                {n: tuple(v.shape) for n, v in batch.items()}, 1)
+        with _tm.span("train_step.dispatch", t=t):
+            return self._step(params, aux, opt_state, batch, rng, lr, t)

@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from . import _nvrtc
+from . import profiler
 from .base import MXNetError, dtype_name
 from .ndarray import NDArray
 
@@ -154,6 +155,7 @@ class Rtc:
 
     def __init__(self, name, inputs, outputs, kernel):
         self.name = name
+        profiler.register_kernel_label(name, "K5")  # attribute_trace's label
         self.in_names = [n for n, _ in inputs]
         self.out_names = [n for n, _ in outputs]
         self.kernel_source = kernel

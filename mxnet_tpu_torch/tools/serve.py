@@ -26,9 +26,10 @@ Usage::
 The server runs on the card (``gpu(0)``) unless ``--cpu`` is given.
 Knobs: ``--max-batch`` / MXTPU_SERVE_MAX_BATCH, ``--timeout-ms`` /
 MXTPU_SERVE_BATCH_TIMEOUT_MS, MXTPU_SERVE_QUANT=int8,
-MXTPU_SERVE_EXEC_CACHE. Not ported: ``--metrics-port`` /
-MXTPU_METRICS_PORT (needs ``telemetry.fleet``, ROADMAP Queue 1 step 10);
-it raises.
+MXTPU_SERVE_EXEC_CACHE, ``--metrics-port`` / MXTPU_METRICS_PORT (the
+registry in Prometheus text at ``http://127.0.0.1:<port>/metrics`` and a
+JSON liveness view at ``/healthz``; port 0 picks a free one, printed as
+``metrics on 127.0.0.1:<port>``).
 """
 from __future__ import annotations
 
@@ -62,14 +63,6 @@ def _context(use_cpu):
     from mxnet_tpu_torch.context import cpu, gpu
 
     return cpu() if use_cpu else gpu(0)
-
-
-def _refuse_unported(args):
-    if args.metrics_port is not None or os.environ.get("MXTPU_METRICS_PORT"):
-        raise NotImplementedError(
-            "serve --metrics-port / MXTPU_METRICS_PORT needs telemetry.fleet "
-            "(mxnet_tpu/telemetry/fleet.py), not ported to PyTorch yet "
-            "(ROADMAP Queue 1 step 10)")
 
 
 def load_predictor(args, feature_shapes):
@@ -132,8 +125,10 @@ def run_server(args):
     from mxnet_tpu_torch import telemetry
     from mxnet_tpu_torch.serving.engine import ServingEngine
 
-    _refuse_unported(args)
-    telemetry.enable()
+    telemetry.enable(metrics_port=args.metrics_port)
+    metrics = telemetry.fleet.maybe_start_metrics_server(args.metrics_port)
+    if metrics is not None:
+        print("metrics on %s:%d" % (metrics.addr, metrics.port), flush=True)
     feature_shapes = _parse_input_specs(args.input)
     predictor = load_predictor(args, feature_shapes)
     engine = ServingEngine(
@@ -191,13 +186,13 @@ def _build_toy_bundle(path):
     return sym
 
 
-def _self_test(use_cpu):
+def _self_test(use_cpu, metrics_port=None):
     import tempfile
 
     from mxnet_tpu_torch import predict, telemetry
     from mxnet_tpu_torch.serving.engine import ServeClosed, ServingEngine
 
-    telemetry.enable()
+    telemetry.enable(metrics_port=metrics_port)
     tmp = tempfile.mkdtemp(prefix="serve_selftest_")
     bundle = os.path.join(tmp, "lenet.pred")
     _build_toy_bundle(bundle)
@@ -258,6 +253,22 @@ def _self_test(use_cpu):
     assert total >= n_requests, (total, e2e)
     print("self-test: latency histogram count=%d, queue metrics present"
           % total)
+    if metrics_port is not None:
+        import urllib.request
+
+        srv = telemetry.fleet.maybe_start_metrics_server(metrics_port)
+        base = "http://127.0.0.1:%d" % srv.port
+        with urllib.request.urlopen(base + "/metrics", timeout=10) as r:
+            text = r.read().decode()
+        served = [float(line.split()[1]) for line in text.splitlines()
+                  if line.startswith("mxtpu_serve_requests ")]
+        # the process's counter: this test's requests and any served before
+        assert served and served[0] == telemetry.total("serve.requests") >= n_requests, \
+            text[:500]
+        with urllib.request.urlopen(base + "/healthz", timeout=10) as r:
+            assert r.status == 200 and json.loads(r.read().decode())["status"] == "ok"
+        telemetry.fleet.stop_metrics_server()
+        print("self-test: /metrics counts %d requests, /healthz ok" % n_requests)
 
     server.shutdown()
     server.server_close()
@@ -291,13 +302,13 @@ def main(argv=None):
                     help="co-rider wait (default "
                          "MXTPU_SERVE_BATCH_TIMEOUT_MS or 2)")
     ap.add_argument("--metrics-port", type=int, default=None,
-                    help="Prometheus /metrics port (not ported: raises)")
+                    help="Prometheus /metrics port (MXTPU_METRICS_PORT)")
     ap.add_argument("--cpu", action="store_true",
                     help="serve on the host instead of the card")
     ap.add_argument("--self-test", action="store_true")
     args = ap.parse_args(argv)
     if args.self_test:
-        return _self_test(args.cpu)
+        return _self_test(args.cpu, args.metrics_port)
     return run_server(args)
 
 

@@ -11,7 +11,8 @@ package's K-grouped fit within that file's tolerance (rtol 2e-4, atol
 2e-5). Also: the same bitwise equality on the bf16 AMP path (K1's plain
 version) for SGD-momentum and Adam in both flat modes with an inf-poisoned
 batch inside a group, and on the per-parameter path; an optimizer the
-port does not group, and ``=auto``, raise; the grouped body makes no host
+port does not group raises, under a number and under ``=auto``, and
+``=auto`` without telemetry stays at K = 2; the grouped body makes no host
 read (``Tensor.item``, ``__bool__``, ``__float__``, ``__int__``,
 ``tolist``, ``numpy`` patched to raise): the CPU's stand-in for "nothing in
 the step waits for the device", which a CUDA graph capture needs; each
@@ -71,7 +72,7 @@ def _weights(hidden=16):
 
 def _fit(pkg, k, monkeypatch, num_epoch=2, callbacks=None, sched=None, optimizer="sgd",
          dropout=False, poison=None):
-    if k > 1:
+    if k != 1:  # a number, or "auto"
         monkeypatch.setenv("MXNET_FIT_MULTISTEP", str(k))
     else:
         monkeypatch.delenv("MXNET_FIT_MULTISTEP", raising=False)
@@ -233,13 +234,21 @@ def test_per_param_multistep_is_bitwise(monkeypatch, optimizer):
 
 def test_ungrouped_optimizer_and_auto_raise(monkeypatch):
     """An optimizer whose update the port does not group raises, naming
-    itself and the ROADMAP entry; ``auto`` raises naming its queue."""
+    itself and the ROADMAP entry, under a number and under ``auto``;
+    ``auto`` groups the others (without telemetry to steer by, its tuner
+    stays at K = 2: the K = 2 fit's bits; tests/test_torch_anatomy.py
+    holds the steered tuner)."""
     with pytest.raises(NotImplementedError, match="RMSProp.*Queue 1 step 2"):
         _fit(tmx, 2, monkeypatch, optimizer="rmsprop")
     monkeypatch.setenv("MXNET_FIT_MULTISTEP", "auto")
     mod = tmx.mod.Module(_mlp(tmx), context=[tmx.cpu(i) for i in range(4)])
-    with pytest.raises(NotImplementedError, match="Queue 1 step 10"):
-        mod.fit(tmx.io.NDArrayIter(*_blobs(), batch_size=32), kvstore="device", num_epoch=1)
+    with pytest.raises(NotImplementedError, match="RMSProp.*Queue 1 step 2"):
+        mod.fit(tmx.io.NDArrayIter(*_blobs(), batch_size=32), kvstore="device", num_epoch=1,
+                optimizer="rmsprop")
+    mod, _ = _fit(tmx, "auto", monkeypatch, num_epoch=1)
+    assert [g["k"] for g in mod._fused_trainer.group_stats()] == [2]
+    want, _ = _fit(tmx, 2, monkeypatch, num_epoch=1)
+    _assert_bitwise(_fused_state(mod), _fused_state(want))
 
 
 def test_update_multi_hands_back_copies(monkeypatch):

@@ -238,14 +238,19 @@ def test_unported_surface_raises():
 
 
 def test_unported_fit_options_raise(tmp_path, monkeypatch):
-    """``monitor`` and the elastic shrink-and-continue path
-    (``MXTPU_ELASTIC=1`` with a checkpoint dir) raise; checkpoint_dir /
-    resume / guardrails are ported (tests/test_torch_resilience.py,
+    """The elastic shrink-and-continue path (``MXTPU_ELASTIC=1`` with a
+    checkpoint dir) raises; ``monitor`` is ported (a fit with one records
+    its stats, tests/test_torch_monitor.py), and so are checkpoint_dir /
+    resume / guardrails (tests/test_torch_resilience.py,
     tests/test_torch_guardrail.py)."""
     mod = tmx.mod.Module(_mlp(tmx), context=tmx.cpu())
     it = tmx.io.NDArrayIter(*_data(False, 16), batch_size=16)
-    with pytest.raises(NotImplementedError, match="monitor.py"):
-        mod.fit(it, num_epoch=1, monitor=object())
+    seen = []
+    mon = tmx.monitor.Monitor(interval=1)
+    toc = mon.toc
+    mon.toc = lambda: seen.extend(toc()) or []
+    mod.fit(it, num_epoch=1, monitor=mon)
+    assert seen and all(step == 1 for step, _, _ in seen)
     monkeypatch.setenv("MXTPU_ELASTIC", "1")
     with pytest.raises(NotImplementedError, match="Queue 1 step 8"):
         mod.fit(it, num_epoch=1, checkpoint_dir=str(tmp_path))

@@ -267,7 +267,8 @@ def test_note_plan_miss_counts_as_jax(enabled):
         janatomy.note_plan_miss(uid + ":other", sig(1))
         t_n, j_n = anatomy._C_RECOMPILES.value() - t0, janatomy._C_RECOMPILES.value() - j0
         assert t_n == j_n == (2 if enabled else 0)
-        diff = anatomy.fingerprint_diff(anatomy._fingerprint(sig(1)), anatomy._fingerprint(sig(2)))
+        diff = anatomy.fingerprint_diff(anatomy._fingerprint(uid, sig(1)),
+                                        anatomy._fingerprint(uid, sig(2)))
         assert diff == janatomy.fingerprint_diff(janatomy._fingerprint(uid, sig(1)),
                                                  janatomy._fingerprint(uid, sig(2)))
     finally:
@@ -351,9 +352,15 @@ def test_serve_refuses_unported_options(tmp_path):
     # --checkpoint is ported (tests/test_torch_resilience.py); it needs --symbol
     with pytest.raises(SystemExit, match="needs --symbol"):
         serve_tool.main(["--checkpoint", str(tmp_path), "--input", "data=4", "--cpu"])
-    with pytest.raises(NotImplementedError, match="Queue 1 step 10"):
-        serve_tool.main(["--bundle", "x.pred", "--metrics-port", "9100", "--input", "data=4",
-                         "--cpu"])
+    # --metrics-port is ported: the self-test serves /metrics and /healthz
+    # beside its 100 requests (the server itself: tests/test_torch_fleet.py)
+    from mxnet_tpu_torch import telemetry
+
+    try:
+        assert serve_tool.main(["--self-test", "--cpu", "--metrics-port", "0"]) == 0
+    finally:
+        telemetry.reset()
+        telemetry.disable()
 
 
 @pytest.mark.timeout(300)
