@@ -5,7 +5,7 @@
     python3 chip_smoke.py --only f32_lm --package DIR  # phase 19 and 8 on another tree
     python3 chip_smoke.py --only rtc --package DIR     # K5's push path on another tree
     python3 chip_smoke.py --only slab --package DIR    # phases 16-18 and K1's times there
-    python3 chip_smoke.py --only zoo                   # K2/K3's build and phase 20
+    python3 chip_smoke.py --only zoo                   # K2/K3's build and all of phase 20
     python3 chip_smoke.py --only multistep [--package DIR]  # K1-K3's build and phase 21
     python3 chip_smoke.py --only serving [--package DIR]  # K4f's build and phase 22
     python3 chip_smoke.py --only resilience            # K1-K3's build and phase 23
@@ -14,6 +14,7 @@
     python3 chip_smoke.py --only mirror                # K1-K3's build, phase 26 and its sweep
     python3 chip_smoke.py --only parallel              # the flash kernels' build and phase 27
     python3 chip_smoke.py --only telemetry             # K1-K3's build and all of phase 28
+    python3 chip_smoke.py --only detection             # K1-K3's and NMS's build and phase 29
 
 
 Phases, each fatal on failure:
@@ -531,9 +532,39 @@ Phases, each fatal on failure:
     off, off, on). (g) a kvstore 'local' initialised on the host takes four
     card gradients (SGD with momentum): the stored value and its momentum
     end on the card, the pull within 1e-5 of w - lr * sum of the gradients.
+29. detection, the rest of the one-card surface (``--only detection`` runs
+    the same): (a) each operator this slice adds (the contrib and spatial
+    operators) on the card against itself on the host from one seed,
+    outputs and gradients within 1e-4 of max, MultiBoxTarget's matches,
+    MultiBoxDetection's classes and quantize's bytes equal. (b) the NMS
+    kernel against its plain version, the kept sets equal: at SSD-300's
+    8732 anchors x 32 images, every anchor a step (2.4 GB of mask), and at
+    Proposal's 6000 -> 300 on R-CNN's 600 x 800 map; kernel ms (events,
+    L2 flushed), the plain version's ms, the bytes of the rows read. (c)
+    K2/K3 against their plain versions on SSD-300's in-envelope shapes at
+    batch 32 (1e-4), then SSD-300 (20 classes, batch 32, seeded images and
+    1-4 boxes each) through ``Module.fit``, 6 steps in f32 on gpu(0) and 6
+    in bf16 AMP on a dp 4 mesh of gpu(0) with kvstore 'device': losses
+    finite, K2 and K3 once a step on each in-envelope convolution, K1 on
+    the AMP leg; step ms, img/s, peak memory. (d) SSD-300's deploy symbol
+    behind a Predictor at batch 1 and 32: each bucket one captured graph
+    (MultiBoxDetection's NMS kernel inside), its output equal to an eager
+    forward bit for bit; ms a batch replayed and eager. (e) Faster R-CNN
+    VGG-16 (21 classes, 6000 -> 300 proposals, 128 rois, 7 x 7, 1024
+    hidden) through MutableModule bound at 800 x 800, 10 SGD steps
+    alternating 600 x 800 and 800 x 600: ms a step, the host's
+    ``proposal_target`` ms in it, the card's busy ms of two profiled
+    steps, one NMS launch a step, K2/K3's launches (none expected). (f) a
+    Custom operator mid-graph on gpu(0) against the host, then a
+    Predictor bucket and ``MXNET_FIT_MULTISTEP=2`` refusing the graph,
+    naming the node, and a Predictor bucket refusing a ROIPooling graph
+    (its window size is read on the host). (g)
+    ``test_utils.check_consistency`` across [gpu(0), cpu(0)]. K1, K2, K3
+    and NMS are counted from zero over (c)-(e), and each must have
+    launched.
 
 Then the kernels line: the seven kernels, K4f, K4dq, K4dkv, K2, K3, K5 and
-K1; K2's and K3's launches count phase 20's training rows, and their
+K1, and the NMS kernel; K2's and K3's launches count phase 20's training rows, and their
 entries carry phase 20's launches and inception-v3 step under ``zoo``;
 K1's, K2's and K3's count phase 21's launches run in its eager fits (the
 wrappers' counts) and its profiled grouped fits (the profiler's by name),
@@ -553,6 +584,11 @@ training run and, for K4f, (c)'s sp 4 engine run, which their
 ``launches`` include. K1's, K2's and K3's ``launches_by_path["telemetry"]``
 count phase 28 (a)'s wrappers (the warm-up groups and the captures) and
 (b)'s profiled replays by kernel name, which their ``launches`` include.
+K1's, K2's and K3's ``launches_by_path["detection"]`` count phase 29
+(c)-(e)'s wrappers, which their ``launches`` include. The NMS kernel's
+entry (a kernel of the port with no TPU counterpart) counts phase 29's
+detection path and carries (b)'s times at SSD-300's 8732 x 32 (``ms``,
+``plain_ms``, ``bound_ms``) and at Proposal's 6000 -> 300.
 
 The last line of output is {"ok": true, "device": {...}}. Without a CUDA
 device, or without the package beside this script, it exits non-zero and
@@ -1764,8 +1800,8 @@ def zoo_conv_shapes(model_sweep, kernels, spec, dtype):
 
 
 def phase_zoo(model_sweep, kernels, dev):
-    """Phase 20 (see the module docstring). Returns (results, K2/K3
-    launches of its training rows)."""
+    """Phase 20 (see the module docstring). Returns (results, K2/K3 launches
+    of its training rows)."""
     import torch
 
     zoo = zoo_models(model_sweep)
@@ -1791,6 +1827,7 @@ def phase_zoo(model_sweep, kernels, dev):
            json.dumps(worst)))
     # (b) full-width f32 gradients, kernel against plain
     res["grads_f32"] = {}
+    t0 = time.perf_counter()
     for name in ZOO_GRAD_MODELS:
         (module, kwargs), side, _, _ = zoo[name][0]
         _, (params, _, aux), data, label, symbol = model_sweep.build_step(
@@ -1808,6 +1845,7 @@ def phase_zoo(model_sweep, kernels, dev):
                                                    held, json.dumps(noisy), json.dumps(counts)))
         del params, aux, data, label
         torch.cuda.empty_cache()
+    res["grads_f32_s"] = time.perf_counter() - t0
     # (c) training at the published batch and side (main path 7)
     res["train"], launches = [], dict.fromkeys(("conv_bwd_filter", "conv_bwd_input"), 0)
     for name, (spec, dtypes) in zoo.items():
@@ -6303,6 +6341,630 @@ def phase_telemetry(mx, kernels, dev, telemetry, package, full=False):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 29: detection (the rest of the one-card surface)
+# ---------------------------------------------------------------------------
+DET_BATCH = 32  # SSD-300's batch in (b), (c) and (d)
+DET_CLASSES = 20  # VOC
+DET_FIT_STEPS = 6  # SSD-300 Module.fit steps a leg; ms and img/s from the last 3
+RCNN_STEPS = 10
+RCNN_SHAPES = ((600, 800), (800, 600))
+DET_OP_TOL = 1e-4  # card against host, of max, outputs and gradients
+
+
+def det_op_cases(rng):
+    """(a)'s cases: (name, op, attrs, numpy inputs, differentiable inputs,
+    outputs held bit for bit): every operator this slice adds."""
+    def boxes(n, scale=1.0):
+        xy = rng.uniform(0, 0.8, (n, 2))
+        wh = rng.uniform(0.05, 0.4, (n, 2))
+        return (np.concatenate([xy, np.minimum(xy + wh, 1.0)], 1) * scale).astype(np.float32)
+
+    def softmax(x, axis):
+        e = np.exp(x - x.max(axis=axis, keepdims=True))
+        return (e / e.sum(axis=axis, keepdims=True)).astype(np.float32)
+
+    lab = -np.ones((4, 6, 5), np.float32)
+    for b in range(4):
+        lab[b, :b + 1, 0] = rng.randint(0, 20, b + 1)
+        lab[b, :b + 1, 1:] = boxes(b + 1)
+    score = rng.rand(1, 9, 38, 50).astype(np.float32)
+    rois = np.concatenate([np.zeros((64, 1), np.float32), boxes(64, 600.0)], 1)
+    theta = np.tile(np.array([0.9, 0.1, 0.05, -0.1, 0.8, 0.02], np.float32), (2, 1))
+    return [
+        ("MultiBoxPrior", "_contrib_MultiBoxPrior", {"sizes": (0.2, 0.272),
+                                                      "ratios": (1, 2, 0.5, 3, 1.0 / 3)},
+         [np.zeros((1, 8, 19, 19), np.float32)], 0, ()),
+        ("MultiBoxTarget", "_contrib_MultiBoxTarget", {},
+         [boxes(2000)[None], lab, np.zeros((4, 21, 2000), np.float32)], 0, (1, 2)),
+        ("MultiBoxDetection", "_contrib_MultiBoxDetection", {"nms_topk": 400},
+         [softmax(rng.randn(4, 21, 2000).astype(np.float32) * 3, 1),
+          (rng.randn(4, 8000) * 0.2).astype(np.float32), boxes(2000)[None]], 0, ((0, 0),)),
+        ("Proposal", "_contrib_Proposal", {"scales": (8, 16, 32), "ratios": (0.5, 1, 2)},
+         [np.concatenate([1 - score, score], 1), (rng.randn(1, 36, 38, 50) * 0.2)
+          .astype(np.float32), np.array([[600, 800, 1]], np.float32)], 0, ()),
+        ("ROIPooling", "ROIPooling", {"pooled_size": (7, 7), "spatial_scale": 1.0 / 16},
+         [rng.randn(1, 64, 38, 50).astype(np.float32), rois], 1, ()),
+        ("CTCLoss", "CTCLoss", {}, [rng.randn(20, 4, 12).astype(np.float32),
+                                    rng.randint(0, 12, (4, 6)).astype(np.float32)], 1, ()),
+        ("fft", "fft", {}, [rng.randn(8, 64).astype(np.float32)], 1, ()),
+        ("ifft", "ifft", {}, [rng.randn(8, 128).astype(np.float32)], 1, ()),
+        ("quantize", "quantize", {}, [rng.uniform(-1, 1, (16, 32)).astype(np.float32),
+                                      np.array([-1.0], np.float32),
+                                      np.array([1.0], np.float32)], 0, (0,)),
+        ("dequantize", "dequantize", {}, [rng.randint(0, 256, (16, 32)).astype(np.uint8),
+                                          np.array([-1.0], np.float32),
+                                          np.array([2.0], np.float32)], 0, ()),
+        ("count_sketch", "count_sketch", {"out_dim": 50},
+         [rng.randn(8, 200).astype(np.float32), rng.randint(0, 50, (1, 200))
+          .astype(np.float32), (rng.randint(0, 2, (1, 200)) * 2 - 1).astype(np.float32)], 1, ()),
+        ("GridGenerator", "GridGenerator", {"target_shape": (16, 16)}, [theta], 1, ()),
+        ("BilinearSampler", "BilinearSampler", {},
+         [rng.randn(2, 3, 16, 16).astype(np.float32),
+          rng.uniform(-1.2, 1.2, (2, 2, 12, 12)).astype(np.float32)], 2, ()),
+        ("SpatialTransformer", "SpatialTransformer", {"target_shape": (12, 12)},
+         [rng.randn(2, 3, 16, 16).astype(np.float32), theta], 2, ()),
+        ("Correlation", "Correlation", {"kernel_size": 3, "max_displacement": 4,
+                                        "stride2": 2, "pad_size": 4},
+         [rng.randn(2, 8, 16, 16).astype(np.float32),
+          rng.randn(2, 8, 16, 16).astype(np.float32)], 2, ()),
+        ("IdentityAttachKLSparseReg", "IdentityAttachKLSparseReg", {},
+         [rng.rand(8, 16).astype(np.float32), np.full(16, 0.1, np.float32)], 1, ()),
+    ]
+
+
+def _op_run(op, attrs, inputs, n_diff, cot, dev):
+    """Outputs and the first ``n_diff`` inputs' gradients against ``cot`` of
+    one operator's fcompute on ``dev``."""
+    import torch
+
+    xs = [torch.from_numpy(np.array(x)).to(dev) for x in inputs]
+    for x in xs[:n_diff]:
+        x.requires_grad_()
+    outs = op.fcompute(op.canon_attrs(attrs), xs, True)
+    grads = []
+    if n_diff:
+        grads = torch.autograd.grad(outs[0], xs[:n_diff], torch.from_numpy(cot).to(dev))
+    return ([o.detach().cpu().numpy() for o in outs], [g.cpu().numpy() for g in grads])
+
+
+def det_ops_on_card(dev):
+    """Phase 29 (a): each new operator on the card against itself on the
+    host, from the same seeded inputs."""
+    import torch
+
+    from mxnet_tpu_torch.ops import registry
+
+    rng = np.random.RandomState(29)
+    rows = {}
+    for name, opname, attrs, inputs, n_diff, exact in det_op_cases(rng):
+        op = registry.get(opname)
+        host_outs, _ = _op_run(op, attrs, inputs, 0, None, torch.device("cpu"))
+        cot = rng.randn(*host_outs[0].shape).astype(np.float32)
+        host = _op_run(op, attrs, inputs, n_diff, cot, torch.device("cpu"))
+        card = _op_run(op, attrs, inputs, n_diff, cot, dev)
+        worst = 0.0
+        for kind, a_list, b_list in (("output", card[0], host[0]), ("grad", card[1], host[1])):
+            for i, (a, b) in enumerate(zip(a_list, b_list)):
+                a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+                fin = np.isfinite(b)
+                if not np.array_equal(np.isfinite(a), fin):
+                    raise AssertionError("%s %s %d: non-finite entries differ" % (name, kind, i))
+                err = float(np.abs(a[fin] - b[fin]).max()) if fin.any() else 0.0
+                rel = err / max(float(np.abs(b[fin]).max()) if fin.any() else 0.0, 1.0)
+                if rel > DET_OP_TOL:
+                    raise AssertionError("%s %s %d: card against host %.3g of max (tol %g)"
+                                         % (name, kind, i, rel, DET_OP_TOL))
+                worst = max(worst, rel)
+        for e in exact:
+            a = card[0][e] if isinstance(e, int) else card[0][e[0]][..., e[1]]
+            b = host[0][e] if isinstance(e, int) else host[0][e[0]][..., e[1]]
+            if not np.array_equal(a, b):
+                raise AssertionError("%s output %s differs between card and host" % (name, e))
+        rows[name] = {"worst_rel_err": worst, "bitwise_outputs": [str(e) for e in exact]}
+    log("phase 29 (a): %d operators on the card against the host (tol %g of max): %s"
+        % (len(rows), DET_OP_TOL, json.dumps(rows)))
+    return rows
+
+
+def ssd300_anchors(mx, dev):
+    """SSD-300's 8732 anchors [1, 8732, 4] on ``dev``: MultiBoxPrior over its
+    six sources (38, 19, 10, 5, 3, 1) with ``DEFAULT_SIZES`` /
+    ``DEFAULT_RATIOS``."""
+    import torch
+
+    from mxnet_tpu_torch.models import ssd
+    from mxnet_tpu_torch.ops import registry
+
+    op = registry.get("_contrib_MultiBoxPrior")
+    parts = [op.fcompute(op.canon_attrs({"sizes": s, "ratios": r}),
+                         [torch.zeros((1, 1, side, side), device=dev)], False)[0]
+             for side, s, r in zip((38, 19, 10, 5, 3, 1), ssd.DEFAULT_SIZES, ssd.DEFAULT_RATIOS)]
+    return torch.cat(parts, dim=1)
+
+
+def _nms_held(kernels, mask, order, active, flush, what):
+    """The NMS kernel against its plain version on one input: the largest
+    difference of their flags (0 or 1; fails unless 0), kernel ms (events,
+    L2 flushed), the plain version's ms (its checking call), and the bound:
+    the bytes of the rows this data makes it read (a visited box that is
+    active and survives), order, active and the output. Returns (row, the
+    kernel's flags, the plain version's flags)."""
+    import torch
+
+    torch.cuda.synchronize()
+    got = kernels.nms_suppress(mask, order, active)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = kernels.nms_suppress_reference(mask, order, active)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    err = float((got.cpu().float() - want.cpu().float()).abs().max())
+    if err != 0.0:
+        raise AssertionError("NMS kernel: %s's kept set differs from the plain version's "
+                             "(%d flags)" % (what, int((got.cpu() ^ want.cpu()).sum())))
+    b_n, steps, n = mask.shape
+    visited = torch.gather(active & ~got, 1, order)  # [B, S]
+    rows = int(visited.sum())
+    moved = rows * n + order.numel() * 8 + 2 * b_n * n
+    ms = time_ms(lambda: kernels.nms_suppress(mask, order, active), 5, 1, flush)
+    return ({"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "rows_read": rows,
+             "bytes": moved, "bound_ms": 1e3 * moved / PEAK_BYTES, "shape": list(mask.shape),
+             "kept": int((active & ~got).sum())}, got, want)
+
+
+def det_nms(mx, kernels, dev):
+    """Phase 29 (b): the NMS kernel against its plain version at SSD-300's
+    8732 anchors x 32 images (every anchor a step, nms_topk -1) and at
+    Proposal's 6000 -> 300 (R-CNN's 600 x 800 map): the kept sets equal."""
+    import torch
+
+    from mxnet_tpu_torch.contrib import ops as cops
+
+    flush = torch.empty(50 * 2**20 // 4, dtype=torch.float32, device=dev)
+    rng = np.random.RandomState(290)
+    res = {}
+    anchors = ssd300_anchors(mx, dev)
+    a_n = anchors.shape[1]
+    logits = torch.from_numpy(rng.randn(DET_BATCH, DET_CLASSES + 1, a_n).astype(np.float32))
+    logits[:, 0] += 2.0  # mostly background, as a trained head
+    prob = torch.softmax(logits, dim=1).to(dev)
+    loc = torch.from_numpy((rng.randn(DET_BATCH, a_n * 4) * 0.3).astype(np.float32)).to(dev)
+    attrs = {"threshold": 0.01, "clip": True}
+    boxes, cls_id, _, order = cops.detection_candidates(attrs, prob, loc, anchors)
+    mask, order, active = cops.detection_nms_inputs(boxes, cls_id, order, 0.5)
+    res["ssd300"] = _nms_held(kernels, mask, order, active, flush, "SSD-300")[0]
+    res["ssd300"]["mask_gib"] = mask.numel() / 2**30
+    del mask
+    torch.cuda.empty_cache()
+    # Proposal at R-CNN's 600 x 800 (a 38 x 50 map, 9 anchors): 6000 -> 300
+    score = torch.from_numpy(rng.rand(1, 9, 38, 50).astype(np.float32))
+    cls_prob = torch.cat([1 - score, score], dim=1).to(dev)
+    bbox = torch.from_numpy((rng.randn(1, 36, 38, 50) * 0.2).astype(np.float32)).to(dev)
+    im_info = torch.tensor([[600.0, 800.0, 1.0]], device=dev)
+    from mxnet_tpu_torch.ops import registry
+
+    pattrs = registry.get("_contrib_Proposal").canon_attrs(
+        {"scales": (8, 16, 32), "ratios": (0.5, 1, 2)})
+    top_boxes, top_scores = cops.proposal_candidates(pattrs, cls_prob, bbox, im_info)
+    pmask, porder, pactive = cops.proposal_nms_inputs(top_boxes, top_scores, 0.7)
+    res["proposal"], pgot, pwant = _nms_held(kernels, pmask, porder, pactive, flush,
+                                             "Proposal")
+    keep = torch.where(pgot[0], torch.full_like(top_scores, -1.0), top_scores)
+    picks = torch.sort(keep, descending=True, stable=True)[1][:300]
+    keep_plain = torch.where(pwant[0].to(dev), torch.full_like(top_scores, -1.0), top_scores)
+    assert torch.equal(picks, torch.sort(keep_plain, descending=True, stable=True)[1][:300])
+    log("phase 29 (b): NMS kernel kept sets equal to the plain version's: %s" % json.dumps(res))
+    return res
+
+
+def _ssd_data(mx, n, seed=29):
+    """``n`` seeded images [n, 3, 300, 300] and labels [n, 8, 5] (1-4 boxes
+    each, class in [0, 20), -1 pads)."""
+    rng = np.random.RandomState(seed)
+    data = rng.rand(n, 3, 300, 300).astype(np.float32)
+    label = -np.ones((n, 8, 5), np.float32)
+    for i in range(n):
+        k = rng.randint(1, 5)
+        xy = rng.uniform(0, 0.7, (k, 2))
+        wh = rng.uniform(0.1, 0.3, (k, 2))
+        label[i, :k, 0] = rng.randint(0, DET_CLASSES, k)
+        label[i, :k, 1:] = np.concatenate([xy, np.minimum(xy + wh, 1.0)], 1)
+    return data, label
+
+
+def ssd_conv_cases(mx, kernels):
+    """SSD-300's in-envelope convolutions at batch 32 by dtype:
+    {dtype: {(data, weight, pad): count}} and their names."""
+    from mxnet_tpu_torch.models import common, ssd
+
+    symbol = ssd.get_symbol(num_classes=DET_CLASSES)  # the training symbol's convolutions
+    out, names = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        shapes, names[dtype] = {}, []
+        for c in common.conv_layers(symbol, (DET_BATCH, 3, 300, 300)):
+            if kernels.conv_bwd_plan(c["data"], c["weight"], c["stride"], c["pad"], c["dilate"],
+                                     dtype):
+                key = (c["data"], c["weight"], c["pad"])
+                shapes[key] = shapes.get(key, 0) + 1
+                names[dtype].append(c["name"])
+        out[dtype] = shapes
+    return out, names
+
+
+def ssd_fit_leg(mx, kernels, dev, amp):
+    """Phase 29 (c), one leg: SSD-300 (20 classes) through ``Module.fit`` at
+    batch 32, f32 on gpu(0) (the executor path), or bf16 AMP on a dp 4 mesh
+    of gpu(0) with kvstore 'device' (the fused path)."""
+    import torch
+
+    from mxnet_tpu_torch.models import ssd
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    data, label = _ssd_data(mx, DET_FIT_STEPS * DET_BATCH)
+    it = mx.io.NDArrayIter(data, label, batch_size=DET_BATCH, label_name="label")
+    np.random.seed(0)
+    kw = dict(data_names=("data",), label_names=("label",))
+    if amp:
+        mod = mx.mod.Module(ssd.get_symbol_train(num_classes=DET_CLASSES), context=mx.gpu(0),
+                            mesh=mx.parallel.make_mesh(dp=4, devices=[mx.gpu(0)] * 4), **kw)
+    else:
+        mod = mx.mod.Module(ssd.get_symbol_train(num_classes=DET_CLASSES), context=mx.gpu(0),
+                            **kw)
+    metric = ssd.MultiBoxMetric()
+    losses, stamps = [], []
+
+    def on_batch(param):
+        names, values = metric.get()  # the metric's update read the outputs: synchronised
+        losses.append(dict(zip(names, values)))
+        stamps.append(time.perf_counter())
+        metric.reset()
+
+    _amp_env(amp)
+    try:
+        before = dict(conv_counts(kernels), slab_update=kernels.fused_slab_update.launches)
+        mod.fit(it, kvstore="device" if amp else "local", optimizer="sgd",
+                optimizer_params={"learning_rate": 1e-3, "momentum": 0.9, "wd": 5e-4},
+                initializer=mx.init.Xavier(), eval_metric=metric, num_epoch=1,
+                batch_end_callback=on_batch)
+        after = dict(conv_counts(kernels), slab_update=kernels.fused_slab_update.launches)
+    finally:
+        _amp_env(False)
+    if amp:
+        assert mod._fused_trainer is not None and mod._fused_trainer.amp
+    counts = {k: after[k] - before[k] for k in after}
+    it.reset()
+    profile = profile_fit_steps(mod, next(iter(it)))  # two more steps, after the counts
+    assert len(losses) == DET_FIT_STEPS, len(losses)
+    for row in losses:
+        assert all(np.isfinite(v) for v in row.values()), losses
+    step_s = [b - a for a, b in zip(stamps[-4:], stamps[-3:])]
+    med = statistics.median(step_s)
+    return {"dtype": "bf16 AMP, dp 4" if amp else "float32", "batch": DET_BATCH,
+            "steps": DET_FIT_STEPS, "losses": losses, "launches": counts,
+            "step_ms_median_last_3": 1e3 * med, "img_per_s": DET_BATCH / med,
+            "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30, "profile": profile}
+
+
+def det_ssd_conv_checks(mx, kernels, dev):
+    """Phase 29 (c), first part: K2/K3 against their plain versions on
+    SSD-300's in-envelope shapes at batch 32 (1e-4), f32 and bf16."""
+    import torch
+
+    cases, names = ssd_conv_cases(mx, kernels)
+    dtypes_of = {}
+    for dtype, shapes in cases.items():
+        for key in shapes:
+            dtypes_of.setdefault(key, []).append(getattr(torch, dtype))
+    worst, _ = conv_checks(kernels, list(dtypes_of.items()), dev, np.random.default_rng(29))
+    res = {"conv_checks": {"shapes": len(dtypes_of), "worst_rel_err": worst},
+           "in_envelope": {d: {"convs": sum(s.values()), "names": names[d]}
+                           for d, s in cases.items()}}
+    log("phase 29 (c): K2/K3 vs plain ok on SSD-300's %d in-envelope shapes, worst %s; "
+        "in-envelope convolutions %s" % (len(dtypes_of), json.dumps(worst),
+                                         json.dumps(res["in_envelope"])))
+    return res
+
+
+def det_ssd_fit(mx, kernels, dev, res):
+    """Phase 29 (c), second part: the f32 and AMP fits, K2 and K3 once a step
+    on each in-envelope convolution (``res`` from
+    :func:`det_ssd_conv_checks`) and K1 once a step on the AMP leg."""
+    for amp in (False, True):
+        leg = ssd_fit_leg(mx, kernels, dev, amp)
+        want = DET_FIT_STEPS * res["in_envelope"]["bfloat16" if amp else "float32"]["convs"]
+        assert leg["launches"]["conv_bwd_filter"] == want, (leg["launches"], want)
+        assert leg["launches"]["conv_bwd_input"] == want, (leg["launches"], want)
+        if amp:
+            assert leg["launches"]["slab_update"] >= DET_FIT_STEPS, leg["launches"]
+        res["amp" if amp else "f32"] = leg
+        log("phase 29 (c): SSD-300 Module.fit %s: %s" % (leg["dtype"], json.dumps(leg)))
+    return res
+
+
+def det_predictor(mx, dev):
+    """Phase 29 (d): SSD-300's deploy symbol (MultiBoxDetection, nms_topk
+    400) behind a Predictor at batch 1 and 32: each bucket one captured
+    graph whose output equals an eager forward bit for bit."""
+    import torch
+
+    from mxnet_tpu_torch import predict
+    from mxnet_tpu_torch.models import ssd
+    from mxnet_tpu_torch.models.common import init_params
+
+    symbol = ssd.get_symbol(num_classes=DET_CLASSES)
+    arg_np, aux_np = init_params(symbol, (1, 3, 300, 300), 0)
+    with mx.cpu():
+        params = {"arg:" + n: mx.nd.array(v) for n, v in arg_np.items()}
+        params.update({"aux:" + n: mx.nd.array(v) for n, v in aux_np.items()})
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # replay against eager, bit for bit
+    try:
+        pred = predict.Predictor(symbol.tojson(), params, {"data": (1, 3, 300, 300)},
+                                 ctx=mx.gpu(0))
+        pred.compile([{"data": (b, 3, 300, 300)} for b in (1, DET_BATCH)])
+        rng = np.random.default_rng(291)
+        rows = []
+        for b in (1, DET_BATCH):
+            fn = pred._serve_cache[(("data", (b, 3, 300, 300)),)]
+            assert fn._graph is not None, "bucket %d has no graph" % b
+            x = rng.random((b, 3, 300, 300), dtype=np.float32)
+            got = pred.predict_batch(data=x)[0]
+            pred.reshape({"data": x.shape})
+            want = pred.predict(data=x)[0]
+            assert got.shape == (b, 8732, 6) and np.isfinite(got).all(), got.shape
+            if not _bits_equal(got, want):
+                raise AssertionError("SSD-300 detection bucket %d: replay differs from eager" % b)
+            kept = int((got[..., 0] >= 0).sum())
+            rows.append({"batch": b, "bitwise_equal_to_eager": True, "kept_boxes": kept,
+                         "capture_ms": fn.stats["capture_ms"],
+                         "replay_ms": _median_ms(lambda: pred.predict_batch(data=x), 5),
+                         "eager_ms": _median_ms(lambda: pred.predict(data=x), 5)})
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    log("phase 29 (d): SSD-300 detection through Predictor: %s" % json.dumps(rows))
+    return rows
+
+
+def det_rcnn(mx, kernels, dev):
+    """Phase 29 (e): Faster R-CNN VGG-16 (21 classes, 6000 -> 300 proposals,
+    128 rois, 7 x 7 pooling, 1024 hidden) through MutableModule bound at 800
+    x 800, ``RCNN_STEPS`` SGD steps alternating 600 x 800 and 800 x 600:
+    ms a step, the host's proposal_target ms in it, the card's busy ms of
+    two profiled steps, NMS and K2/K3 launches."""
+    import torch
+
+    from mxnet_tpu_torch.examples import train_rcnn
+    from mxnet_tpu_torch.models import rcnn
+
+    kw, _ = train_rcnn.config("vgg")
+    kw["num_classes"] = 21
+    target_ms = []
+    orig = rcnn.ProposalTargetProp.create_operator
+
+    def timed_operator(self, ctx, in_shapes, in_dtypes):
+        op = orig(self, ctx, in_shapes, in_dtypes)
+        forward = op.forward
+
+        def timed(*args):
+            torch.cuda.synchronize()  # the host's own time, not the card's queue
+            t0 = time.perf_counter()
+            forward(*args)
+            target_ms.append(1e3 * (time.perf_counter() - t0))
+
+        op.forward = timed
+        return op
+
+    rcnn.ProposalTargetProp.create_operator = timed_operator
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    try:
+        net = rcnn.get_symbol_train(**kw)
+        mod = train_rcnn.build_module(net, kw, list(RCNN_SHAPES), mx.gpu(0))
+        fs, scales, ratios = kw["feature_stride"], kw["scales"], kw["ratios"]
+        batches = [train_rcnn.make_batch(*RCNN_SHAPES[i % 2], fs, scales, ratios, i,
+                                         ctx=mx.gpu(0)) for i in range(RCNN_STEPS + 2)]
+        mod.bind(data_shapes=batches[0].provide_data, label_shapes=batches[0].provide_label)
+        mod.init_params(initializer=mx.init.Xavier())
+        mod.init_optimizer(optimizer="sgd", optimizer_params={"learning_rate": 1e-3})
+        nms0, conv0 = kernels.nms_suppress.launches, conv_counts(kernels)
+
+        def step(batch):
+            mod.forward(batch, is_train=True)
+            outs = [o.asnumpy() for o in mod.get_outputs()]
+            mod.backward()
+            mod.update()
+            torch.cuda.synchronize()
+            return outs
+
+        step_ms, losses = [], []
+        for i in range(RCNN_STEPS):
+            t0 = time.perf_counter()
+            outs = step(batches[i])
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            assert all(np.isfinite(o).all() for o in outs), i
+            losses.append({"rpn_bbox_loss": float(outs[1].sum()),
+                           "bbox_loss": float(outs[3].sum()),
+                           "fg_rois": int((outs[4] > 0).sum())})
+        nms = kernels.nms_suppress.launches - nms0
+        convs = {k: v - conv0[k] for k, v in conv_counts(kernels).items()}
+        assert nms == RCNN_STEPS, nms  # one Proposal a step
+        n_target = len(target_ms)
+        from mxnet_tpu_torch.tools import resnet_bench
+
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as p:
+            t0 = time.perf_counter()
+            for i in (RCNN_STEPS, RCNN_STEPS + 1):  # one image of each shape
+                step(batches[i])
+            wall = time.perf_counter() - t0
+        prof = profile_summary(p, 2, wall, lambda name: (
+            "nms" if "nms_kernel" in name else resnet_bench.family(name)))
+        prof_target = target_ms[n_target:]
+    finally:
+        rcnn.ProposalTargetProp.create_operator = orig
+    res = {"steps": RCNN_STEPS, "shapes": [list(s) for s in RCNN_SHAPES],
+           "bound_shapes": len(mod._shape_modules), "losses": losses,
+           "step_ms": step_ms, "step_ms_median_after_2": statistics.median(step_ms[2:]),
+           "proposal_target_host_ms_median": statistics.median(target_ms[2:n_target]),
+           "profiled": prof, "profiled_proposal_target_host_ms": prof_target,
+           "nms_launches": nms, "conv_launches": convs,
+           "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+    log("phase 29 (e): Faster R-CNN VGG-16 through MutableModule: %s" % json.dumps(res))
+    return res
+
+
+def det_custom(mx, dev):
+    """Phase 29 (f): a Custom operator mid-graph on gpu(0) against the host
+    (outputs and gradients within 1e-6), then the capture refusals: a
+    Predictor bucket and MXNET_FIT_MULTISTEP=2 raise naming the node, and a
+    Predictor bucket of a ROIPooling graph raises naming its node."""
+    import torch
+
+    from mxnet_tpu_torch import predict
+
+    @mx.operator.register("chip_scale2")
+    class Scale2Prop(mx.operator.CustomOpProp):
+        def create_operator(self, ctx, in_shapes, in_dtypes):
+            class Scale2(mx.operator.CustomOp):
+                def forward(self, is_train, req, in_data, out_data, aux):
+                    self.assign(out_data[0], req[0], in_data[0] * 2.0)  # on the card
+
+                def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+                    self.assign(in_grad[0], req[0], out_grad[0].asnumpy() * 2.0)  # via host
+
+            return Scale2()
+
+    data = mx.sym.Variable("data")
+    net = mx.sym.FullyConnected(data, num_hidden=16, name="fc1")
+    net = mx.sym.Custom(net, op_type="chip_scale2", name="scaled")
+    net = mx.sym.FullyConnected(mx.sym.tanh(net), num_hidden=4, name="fc2")
+    rng = np.random.RandomState(296)
+    vals = {"data": rng.randn(8, 10), "fc1_weight": rng.randn(16, 10) * 0.3,
+            "fc1_bias": rng.randn(16) * 0.1, "fc2_weight": rng.randn(4, 16) * 0.3,
+            "fc2_bias": rng.randn(4) * 0.1}
+    head = rng.randn(8, 4).astype(np.float32)
+    runs = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        exe = net.simple_bind(ctx, data=(8, 10))
+        for k, v in vals.items():
+            exe.arg_dict[k][:] = v.astype(np.float32)
+        exe.forward(is_train=True)
+        exe.backward(mx.nd.array(head, ctx=ctx))
+        assert exe.outputs[0]._data.device.type == ctx.torch_device.type
+        runs.append([exe.outputs[0].asnumpy()] + [exe.grad_dict[k].asnumpy() for k in vals])
+    worst = max(float(np.abs(a - b).max()) for a, b in zip(*runs))
+    assert worst <= 1e-5, worst
+    res = {"card_vs_host_max_abs_err": worst}
+    with mx.cpu():
+        params = {"arg:" + k: mx.nd.array(v.astype(np.float32)) for k, v in vals.items()
+                  if k != "data"}
+    try:
+        predict.Predictor(net.tojson(), params, {"data": (8, 10)}, ctx=mx.gpu(0)).compile(
+            [{"data": (8, 10)}])
+        raise AssertionError("a Predictor captured a graph that holds a Custom node")
+    except mx.MXNetError as exc:
+        assert "scaled" in str(exc), exc
+        res["predictor_refusal"] = str(exc)
+    roi_net = mx.sym.ROIPooling(mx.sym.Variable("data"), mx.sym.Variable("rois"),
+                                pooled_size=(2, 2), name="roi_pool")
+    roi_shapes = {"data": (1, 4, 8, 8), "rois": (3, 5)}
+    try:
+        predict.Predictor(roi_net.tojson(), {}, roi_shapes, ctx=mx.gpu(0)).compile([roi_shapes])
+        raise AssertionError("a Predictor captured a graph that holds a ROIPooling node")
+    except mx.MXNetError as exc:
+        assert "roi_pool" in str(exc), exc
+        res["roi_pooling_predictor_refusal"] = str(exc)
+    X = rng.rand(32, 10).astype(np.float32)
+    y = rng.randint(0, 4, 32).astype(np.float32)
+    mod = mx.mod.Module(mx.sym.SoftmaxOutput(net, name="softmax"), context=mx.gpu(0),
+                        mesh=mx.parallel.make_mesh(dp=4, devices=[mx.gpu(0)] * 4))
+    os.environ["MXNET_FIT_MULTISTEP"] = "2"
+    try:
+        mod.fit(mx.io.NDArrayIter(X, y, batch_size=8), kvstore="device", optimizer="sgd",
+                num_epoch=1)
+        raise AssertionError("MXNET_FIT_MULTISTEP=2 grouped a graph that holds a Custom node")
+    except mx.MXNetError as exc:
+        assert "scaled" in str(exc), exc
+        res["multistep_refusal"] = str(exc)
+    finally:
+        os.environ.pop("MXNET_FIT_MULTISTEP", None)
+    torch.cuda.synchronize()
+    log("phase 29 (f): Custom on gpu(0): %s" % json.dumps(res))
+    return res
+
+
+def det_consistency(mx):
+    """Phase 29 (g): ``test_utils.check_consistency`` over [gpu(0), cpu(0)]:
+    a conv / BatchNorm / pooling net and a spatial-transformer net, outputs
+    and gradients."""
+    from mxnet_tpu_torch import test_utils
+
+    data = mx.sym.Variable("data")
+    net = mx.sym.Convolution(data, num_filter=8, kernel=(3, 3), pad=(1, 1), name="conv")
+    net = mx.sym.BatchNorm(net, fix_gamma=False, name="bn")
+    net = mx.sym.Pooling(mx.sym.Activation(net, act_type="relu"), kernel=(2, 2),
+                         stride=(2, 2), pool_type="max")
+    net = mx.sym.FullyConnected(mx.sym.Flatten(net), num_hidden=4, name="fc")
+    loc = mx.sym.FullyConnected(mx.sym.Flatten(data), num_hidden=6, name="loc")
+    stn = mx.sym.SpatialTransformer(data, loc, target_shape=(6, 6))
+    np.random.seed(297)
+    for sym in (net, stn):
+        test_utils.check_consistency(sym, [{"ctx": mx.gpu(0), "data": (4, 3, 8, 8)},
+                                           {"ctx": mx.cpu(0), "data": (4, 3, 8, 8)}])
+    log("phase 29 (g): check_consistency across [gpu(0), cpu(0)] ok (conv/BN net, "
+        "SpatialTransformer)")
+    return {"symbols": 2, "ok": True}
+
+
+def phase_detection(mx, kernels, dev):
+    """Phase 29 (see the module docstring). The detection path's launches
+    (K2, K3, K1, NMS) are counted from zero over (c)-(e)."""
+    import torch
+
+    t0 = time.perf_counter()
+    res = {"a": det_ops_on_card(dev), "b": det_nms(mx, kernels, dev)}
+    torch.cuda.empty_cache()
+    checks = det_ssd_conv_checks(mx, kernels, dev)
+    zero_counts(kernels)
+    kernels.nms_suppress.launches = 0  # counts from here are the detection path's
+    res["c"] = det_ssd_fit(mx, kernels, dev, checks)
+    res["d"] = det_predictor(mx, dev)
+    res["e"] = det_rcnn(mx, kernels, dev)
+    launches = dict(conv_counts(kernels), slab_update=kernels.fused_slab_update.launches,
+                    nms=kernels.nms_suppress.launches)
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError("the detection path never launched %s" % name)
+    res["launches"] = launches
+    torch.cuda.empty_cache()
+    res["f"] = det_custom(mx, dev)
+    res["g"] = det_consistency(mx)
+    res["phase_s"] = time.perf_counter() - t0
+    log("phase 29: detection, %.1f s: launches %s" % (res["phase_s"], json.dumps(launches)))
+    return res
+
+
+def nms_entry(res):
+    """The NMS kernel's entry of the kernels line (no TPU counterpart):
+    times at SSD-300's 8732 x 32 and Proposal's 6000 -> 300 ('ms',
+    'plain_ms', 'bound_ms' the SSD-300 call's), launches on the detection
+    path."""
+    b = res["b"]
+    return {"name": "nms", "route": "cuda", "source": "mxnet_tpu_torch/csrc/nms.cu",
+            "replaces": "none: a port kernel for the fori_loops at "
+                        "mxnet_tpu/contrib/ops.py:246 and :379 (no pallas_call)",
+            "launches": res["launches"]["nms"],
+            "max_abs_err": max(b["ssd300"]["max_abs_err"], b["proposal"]["max_abs_err"]),
+            "ms": b["ssd300"]["ms"], "plain_ms": b["ssd300"]["plain_ms"],
+            "bound_ms": b["ssd300"]["bound_ms"], "bound_by": "bytes", "library_ms": None,
+            "proposal_6000": {k: b["proposal"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                            "rows_read", "shape")},
+            "ssd300_8732x32": {k: b["ssd300"][k] for k in ("rows_read", "shape", "kept")}}
+
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every phase's numbers to this JSON file")
@@ -6310,18 +6972,19 @@ def main(argv=None):
                     "one beside this script (to run this script's phases on another tree)")
     ap.add_argument("--only", choices=("f32_lm", "rtc", "slab", "zoo", "multistep", "serving",
                                        "resilience", "input", "rnn", "mirror", "parallel",
-                                       "telemetry"),
+                                       "telemetry", "detection"),
                     help="f32_lm: build, phase 19 and phase 8's attention kernel times only; "
                     "rtc: K5's push path on ResNet-50's parameter arrays only; slab: K1's "
                     "build, phases 16-18 and K1's times only; zoo: K2/K3's build and "
-                    "phase 20 only; multistep: K1-K3's build and phase 21 only; serving: "
+                    "all of phase 20; multistep: K1-K3's build and phase 21 only; serving: "
                     "the flash forward's build and phase 22 only (on a package without "
                     "predict, only (d) and its continuations' digest); resilience: K1-K3's "
                     "build and phase 23 only; input: K1-K3's build and phase 24 only; rnn: the "
                     "flash kernels' build and phase 25 only; mirror: K1-K3's build and phase "
                     "26 with its memory / ms sweep; parallel: the flash kernels' build and "
                     "phase 27 with (a)'s f32 sweep and (b)'s sp 1 and dense runs; telemetry: "
-                    "K1-K3's build and phase 28 with (c), (d) and (f)")
+                    "K1-K3's build and phase 28 with (c), (d) and (f); detection: K1-K3's and "
+                    "the NMS kernel's build and phase 29")
     ap.add_argument("--resilience-worker", metavar="SPEC", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
@@ -6421,6 +7084,12 @@ def main(argv=None):
         _build.build(["conv_bwd_filter", "slab_update"])
         results["build_s"] = time.perf_counter() - t0
         results["telemetry"] = phase_telemetry(mx, kernels, dev, telemetry, package, full=True)
+    if args.only == "detection":
+        t0 = time.perf_counter()
+        _build.build(["conv_bwd_filter", "slab_update", "nms"])
+        results["build_s"] = time.perf_counter() - t0
+        results["detection"] = det = phase_detection(mx, kernels, dev)
+        print(json.dumps({"kernels": [nms_entry(det)]}))
     if args.only:
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -6469,6 +7138,8 @@ def main(argv=None):
     results["mirror"] = mirror = phase_mirror(mx, kernels, dev)
     results["parallel"] = par = phase_parallel(mx, tfm, trainer, kernels, GenerationEngine, dev)
     results["telemetry"] = tele = phase_telemetry(mx, kernels, dev, telemetry, package)
+    results["detection"] = det = phase_detection(mx, kernels, dev)
+    det_launches = det["launches"]  # phase 29 (c)-(e): the detection path's wrappers
     tele_launches = tele["launches"]  # phase 28 (a)'s wrapper counts and (b)'s profiled replays
     par_launches = par["launches"]  # phase 27 (b)'s sp 4 training and (c)'s sp 4 engine
     mirror_launches = mirror["launches"]
@@ -6477,16 +7148,17 @@ def main(argv=None):
     input_launches = inp["launches"]
     conv_launches = {name: conv_launches[name] + multi_launches[name] + resil_launches[name]
                      + input_launches[name] + mirror_launches[name] + tele_launches[name]
-                     for name in conv_launches}
+                     + det_launches[name] for name in conv_launches}
     k1 = results["k1_entry"]
     k1["launches_by_path"]["multistep"] = multi_launches["slab_update"]
     k1["launches_by_path"]["resilience"] = resil_launches["slab_update"]
     k1["launches_by_path"]["input"] = input_launches["slab_update"]
     k1["launches_by_path"]["mirror"] = mirror_launches["slab_update"]
     k1["launches_by_path"]["telemetry"] = tele_launches["slab_update"]
+    k1["launches_by_path"]["detection"] = det_launches["slab_update"]
     k1["launches"] += (multi_launches["slab_update"] + resil_launches["slab_update"]
                        + input_launches["slab_update"] + mirror_launches["slab_update"]
-                       + tele_launches["slab_update"])
+                       + tele_launches["slab_update"] + det_launches["slab_update"])
     # the f32 kernels' launches in phases 4, 5 and 19
     f32_launches = {name: n + results["training_f32_full"]["launches"][name]
                     for name, n in results["training_f32"]["launches"].items()}
@@ -6518,10 +7190,11 @@ def main(argv=None):
         # phases 26 and 28: the mirror and telemetry paths' launches, in
         # ``launches`` too
         entry["launches_by_path"] = {"mirror": mirror_launches[entry["name"]],
-                                     "telemetry": tele_launches[entry["name"]]}
+                                     "telemetry": tele_launches[entry["name"]],
+                                     "detection": det_launches[entry["name"]]}
     kernel_line = {"kernels": fwd + bwd + conv_entries
                    + phase_rtc_times(mx, rk, rtc_runs, results["rtc_training"], dev)
-                   + [results.pop("k1_entry")],
+                   + [results.pop("k1_entry"), nms_entry(det)],
                    "card": card}
     results.update(kernel_line)
     if args.out:

@@ -87,3 +87,6 @@ from . import executor_manager  # noqa: F401
 from . import contrib  # noqa: F401
 from . import monitor, profiler  # noqa: F401
 from . import visualization, visualization as viz  # noqa: F401
+from . import operator  # noqa: F401  (registers Custom)
+from . import log, libinfo, test_utils  # noqa: F401
+from . import th, th as torch  # noqa: F401

@@ -42,14 +42,16 @@ def add_fit_args(parser):
     return parser
 
 
-def get_module(args, network):
-    """A Module on ``--ctx`` with ``--num-devices`` data-parallel ranks."""
+def get_module(args, network, **kwargs):
+    """A Module on ``--ctx`` with ``--num-devices`` data-parallel ranks
+    (``kwargs`` to Module: data_names, label_names)."""
     n = args.num_devices
     if args.ctx == "cpu":
-        return Module(network, context=[cpu(i) for i in range(n)] if n > 1 else cpu())
+        return Module(network, context=[cpu(i) for i in range(n)] if n > 1 else cpu(), **kwargs)
     if n > 1:
-        return Module(network, context=gpu(0), mesh=make_mesh(dp=n, devices=[gpu(0)] * n))
-    return Module(network, context=gpu(0))
+        return Module(network, context=gpu(0), mesh=make_mesh(dp=n, devices=[gpu(0)] * n),
+                      **kwargs)
+    return Module(network, context=gpu(0), **kwargs)
 
 
 def fit(args, network, train, val=None, **kwargs):

@@ -245,6 +245,12 @@ class _GraphProgram:
         self._attrs = {id(n): n.canon_attrs() for n in ops}
         self._n_outs = {id(n): n.num_outputs() for n in ops}
         self._program_uid = next(_GraphProgram._uid_counter)
+        for n in ops:
+            if n.op.name == "Custom":
+                # a CustomOp instance lives per (bind, node), as the
+                # reference's one CustomOp a bind
+                self._attrs[id(n)].update(__program_id__=self._program_uid,
+                                          __node_name__=n.name)
         # (id(node), output) -> index in ``nodes`` of its last reader (past
         # the end for the graph's outputs): what a mirrored region returns
         self._last_use = {(id(c), j): i for i, n in enumerate(self.nodes) for c, j in n.inputs}

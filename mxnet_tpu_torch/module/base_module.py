@@ -41,7 +41,10 @@ steps), which gives the bits of K single steps; the metric and
 the normal ``locals`` keys, after its group. A trailing partial group, or a
 batch whose shape breaks the group, takes the single-step path. Without a
 fused trainer the knob changes nothing. ``MXNET_FIT_MULTISTEP=auto`` hands
-K to :class:`_MultistepAutoTuner`, as in the JAX package.
+K to :class:`_MultistepAutoTuner`, as in the JAX package. A graph that
+holds a ``Custom`` or ``ROIPooling`` node cannot be captured
+(``operator.refuse_capture``): under ``=K`` ``fit`` raises, under
+``=auto`` it keeps K at 1.
 
 With ``MXTPU_DEVICE_FEED=1`` ``fit`` wraps the training iterator in
 ``io.DeviceFeedIter`` on the fused trainer's device: the next batches are
@@ -70,6 +73,7 @@ import numpy as np
 
 from .. import metric as metric_mod
 from .. import ndarray as nd
+from .. import operator as _operator
 from .. import random as _rnd
 from .. import telemetry as _tm
 from ..initializer import Uniform
@@ -415,9 +419,15 @@ class BaseModule:
             # the next batches' host-to-device copies overlap this step
             fit_data = DeviceFeedIter(train_data, trainer.device)
         auto_tuner = None
+        host_bound = _operator.uncapturable_nodes(self.symbol) if trainer is not None else []
         if fit_k == "auto":
             fit_k = 1
-            if trainer is not None and monitor is None and hasattr(self, "update_multi"):
+            if host_bound:
+                # a graph that reads the host at each call cannot be
+                # captured: the tuner keeps such a fit at one step
+                self.logger.info("fit multistep auto: K=1, the graph holds %s",
+                                 "; ".join(host_bound))
+            elif trainer is not None and monitor is None and hasattr(self, "update_multi"):
                 # on the card a depth's first group is the warm-up and its
                 # second the capture: both stay out of the measurement
                 auto_tuner = _MultistepAutoTuner(
@@ -426,6 +436,8 @@ class BaseModule:
         use_multi = (fit_k > 1 and trainer is not None and monitor is None
                      and hasattr(self, "update_multi"))
         if use_multi:
+            _operator.refuse_capture(self.symbol, "MXNET_FIT_MULTISTEP=%d's grouped steps"
+                                     % fit_k)
             trainer.compile_multi(fit_k)  # raises for an ungrouped optimizer
 
         def _restore_from_state(state):

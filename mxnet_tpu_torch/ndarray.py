@@ -32,7 +32,7 @@ from .base import MXNetError, bfloat16 as _np_bfloat16, dtype_name, mx_dtype_cod
 from .context import Context, as_context
 from .ops import registry as _registry
 from .ops import (broadcast_reduce, elemwise, indexing, init_ops, matrix, nn,  # noqa: F401
-                  optimizer_ops, rnn_op, sample)
+                  optimizer_ops, rnn_op, sample, spatial)
 
 __all__ = ["NDArray", "zeros", "ones", "array", "empty", "full", "arange",
            "concatenate", "load", "save", "imperative_invoke", "waitall"]

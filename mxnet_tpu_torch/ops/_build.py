@@ -56,6 +56,7 @@ KERNELS = {
         "conv_bwd.cu", "mxtt_conv_channels_last", [_P, _P] + [_I] * 4 + [_P]),
     "slab_update": (
         "slab_update.cu", "mxtt_slab_update", [_I, _I, _P, _P, _I, _I, _P]),
+    "nms": ("nms.cu", "mxtt_nms", [_P] * 4 + [_I] * 3 + [_P]),
 }
 
 _lock = threading.Lock()

@@ -36,6 +36,12 @@ one launch, with a finite select and a bf16 weight copy;
 ``fused_slab_update`` is the same on one slab (the JAX signature), and
 ``slab_update_reference`` / ``slab_update_multi_reference`` are their plain
 versions.
+
+``nms_suppress`` wraps ``csrc/nms.cu``, the greedy suppression loop of the
+detection operators (MultiBoxDetection, Proposal) in one launch; it has no
+TPU counterpart (the JAX package runs the loop as a device ``fori_loop``).
+``nms_suppress_reference`` is its plain version, and ``box_iou`` the IoU
+the callers build the loop's mask from.
 """
 from __future__ import annotations
 
@@ -45,6 +51,7 @@ import functools
 import math
 import struct
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -1162,3 +1169,78 @@ def fused_slab_update(kind, w, g, states, lr, inv_scale, finite, *, wd, rescale_
 
 
 fused_slab_update.launches = 0  # K1's launches, from either wrapper
+
+
+# --------------------------------------------------------------------------
+# greedy NMS: the detection operators' suppression loop in one launch
+# --------------------------------------------------------------------------
+def box_iou(a, b):
+    """[Na, 4] x [Nb, 4] -> [Na, Nb] IoU of corner-format boxes, op for op
+    the JAX package's ``_iou`` (``mxnet_tpu/contrib/ops.py:97``)."""
+    ax1, ay1, ax2, ay2 = (a[:, i] for i in range(4))
+    bx1, by1, bx2, by2 = (b[:, i] for i in range(4))
+    ix1 = torch.maximum(ax1[:, None], bx1[None, :])
+    iy1 = torch.maximum(ay1[:, None], by1[None, :])
+    ix2 = torch.minimum(ax2[:, None], bx2[None, :])
+    iy2 = torch.minimum(ay2[:, None], by2[None, :])
+    iw = torch.clamp(ix2 - ix1, min=0.0)
+    ih = torch.clamp(iy2 - iy1, min=0.0)
+    inter = iw * ih
+    area_a = torch.clamp((ax2 - ax1) * (ay2 - ay1), min=0.0)
+    area_b = torch.clamp((bx2 - bx1) * (by2 - by1), min=0.0)
+    union = area_a[:, None] + area_b[None, :] - inter
+    return torch.where(union > 0, inter / union, torch.zeros((), dtype=inter.dtype,
+                                                              device=inter.device))
+
+
+def nms_suppress_reference(mask, order, active):
+    """Plain version of the NMS kernel. For each sample b, steps s = 0 ..
+    S-1 in order visit box ``i = order[b, s]``; if ``active[b, i]`` and box i
+    is not suppressed yet, suppress every box j with ``mask[b, s, j]``.
+    ``mask`` bool [B, S, n], ``order`` int64 [B, S], ``active`` bool [B, n];
+    returns the suppressed flags, bool [B, n]."""
+    m = mask.cpu().numpy()
+    o = order.cpu().numpy()
+    act = active.cpu().numpy()
+    sup = np.zeros(act.shape, bool)
+    for b in range(m.shape[0]):
+        s_b, m_b, a_b = sup[b], m[b], act[b]
+        for s, i in enumerate(o[b]):
+            if a_b[i] and not s_b[i]:
+                s_b |= m_b[s]
+    return torch.from_numpy(sup).to(mask.device)
+
+
+def nms_suppress(mask, order, active):
+    """The suppressed flags of the greedy loop of
+    :func:`nms_suppress_reference` (arguments and result as there). On CUDA
+    tensors: the kernel of ``csrc/nms.cu``, one CTA a sample, launched on
+    the current stream without waiting for the device; no fallback
+    (``nms_suppress.launches`` counts its launches). On CPU tensors: the
+    plain version."""
+    if mask.dim() != 3 or order.dim() != 2 or active.dim() != 2:
+        raise MXNetError("nms_suppress: mask [B, S, n], order [B, S] and active [B, n], "
+                         "got %s, %s, %s" % (tuple(mask.shape), tuple(order.shape),
+                                             tuple(active.shape)))
+    b, steps, n = mask.shape
+    if tuple(order.shape) != (b, steps) or tuple(active.shape) != (b, n):
+        raise MXNetError("nms_suppress: order %s and active %s do not match mask %s"
+                         % (tuple(order.shape), tuple(active.shape), tuple(mask.shape)))
+    if mask.dtype != torch.bool or active.dtype != torch.bool or order.dtype != torch.int64:
+        raise MXNetError("nms_suppress: mask and active are bool, order int64")
+    if mask.device.type != "cuda":
+        return nms_suppress_reference(mask, order, active)
+    if n > 227 * 1024:
+        raise MXNetError("nms_suppress: %d boxes exceed one CTA's shared memory" % n)
+    mask, order, active = mask.contiguous(), order.contiguous(), active.contiguous()
+    out = torch.empty((b, n), dtype=torch.bool, device=mask.device)
+    err = _build.load("nms")(
+        mask.data_ptr(), order.data_ptr(), active.data_ptr(), out.data_ptr(), b, steps, n,
+        torch.cuda.current_stream(mask.device).cuda_stream)
+    if err:
+        raise MXNetError("nms kernel launch failed (cudaError %d)" % err)
+    nms_suppress.launches += 1
+    return out
+
+
+nms_suppress.launches = 0

@@ -8,9 +8,10 @@ updated values as trailing outputs, which the graph program writes back.
 
 The ported operator modules register under the JAX names, aliases and
 defaults: ``elemwise``, ``broadcast_reduce``, ``matrix``, ``init_ops``,
-``indexing``, ``sample``, ``optimizer_ops`` and the part of ``nn`` a ported
-model needs. Asking for any other name raises :class:`MXNetError` naming
-where the JAX package defines it, so a graph that needs an unported op
+``indexing``, ``sample``, ``optimizer_ops``, ``nn``, ``rnn_op`` and
+``spatial``, and beside them ``contrib/ops.py`` and ``operator.py``
+(``Custom``): every operator of the JAX package. Asking for any other name
+raises :class:`MXNetError`, so a graph that names an unknown operator
 fails when it is built or loaded.
 """
 from __future__ import annotations
@@ -232,8 +233,9 @@ def get(name) -> OpDef:
     op = _REGISTRY.get(name)
     if op is None:
         raise MXNetError(
-            "operator %s is not ported to PyTorch yet: the JAX package defines "
-            "it under mxnet_tpu/ops/" % name)
+            "operator %s is not registered: the port registers every operator of the "
+            "JAX package (mxnet_tpu/ops/, contrib/ops.py, operator.py), and a Custom "
+            "op_type through mx.operator.register" % name)
     return op
 
 

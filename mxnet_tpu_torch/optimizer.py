@@ -9,15 +9,18 @@ Adam and RMSProp through the fused update operators of
 arithmetic, in the JAX package's order of operations. The fused trainer
 (``parallel/train_step.py``) calls the same ``update`` on flat slabs; under
 AMP, optimizers whose ``fused_slab_kernel`` is set run kernel K1 instead.
-``SGLD`` draws its noise with the JAX package's threefry keys, which torch
-cannot reproduce, and is not ported.
+``SGLD`` draws its noise from a generator of its own, which cannot repeat
+the JAX package's threefry draws.
 """
 from __future__ import annotations
 
 import logging
 import pickle
 
+import torch
+
 from . import ndarray as nd
+from . import random as _random
 
 
 class Optimizer:
@@ -211,13 +214,47 @@ class NAG(SGD):
 
 @register
 class SGLD(Optimizer):
-    """Not ported: its exploration noise comes from the JAX package's
-    threefry keys (``mxnet_tpu/optimizer.py:221``)."""
+    """Stochastic gradient Langevin dynamics: a half step of SGD plus
+    gaussian exploration noise of standard deviation sqrt(lr).
+
+    The noise comes from the optimizer's own ``torch.Generator`` on the
+    weight's device, seeded from ``mx.random``'s seed and seeded again
+    whenever ``mx.random.seed`` (or ``set_states``) is called, so a seed
+    repeats a run; with no seed set it is seeded from the operating system's
+    entropy, leaving numpy's global stream alone. The JAX package draws it
+    from threefry keys, which torch's generators cannot reproduce: the draws
+    are held to it by their moments."""
+
+    elementwise_update = False  # one draw of the weight's shape an update
 
     def __init__(self, **kwargs):
-        raise NotImplementedError(
-            "SGLD is not ported to PyTorch: its noise is drawn from JAX's threefry "
-            "keys (mxnet_tpu/optimizer.py:221), which torch's Philox cannot reproduce")
+        super().__init__(**kwargs)
+        self._generators = {}  # device -> (the seeding it was made for, generator)
+
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        state["_generators"] = {}  # a generator does not pickle; a copy seeds its own
+        return state
+
+    def _generator(self, device):
+        st = _random._st()
+        seeding = (st.seed, st.seedings)
+        made = self._generators.get(device)
+        if made is None or made[0] != seeding:
+            gen = torch.Generator(device=device)
+            if st.seed is None:
+                gen.seed()
+            else:
+                gen.manual_seed(st.seed ^ 0x5D1D)  # a stream apart from the samplers'
+            made = self._generators[device] = (seeding, gen)
+        return made[1]
+
+    def update(self, index, weight, grad, state):
+        lr, wd, g = self._begin_update(index, grad)
+        w = weight._data
+        noise = torch.randn(w.shape, generator=self._generator(w.device), dtype=torch.float32,
+                            device=w.device) * (lr ** 0.5)
+        weight[:] = weight - (lr / 2) * (g + wd * weight) + nd.NDArray(noise.to(w.dtype))
 
 
 @register

@@ -79,6 +79,7 @@ import time
 import numpy as np
 import torch
 
+from .. import operator as _operator
 from .. import random as _random
 from .. import telemetry as _tm
 from ..base import MXNetError, bucket_bytes_env, graph_capture, release_for_capture
@@ -1013,7 +1014,9 @@ class ShardedTrainStep:
     def _capture(self, group, lrs, ts, rng):
         """Capture the group's K micro-steps into one CUDA graph (nothing
         runs); its pool's bytes, the capture ms and the launches each
-        wrapper counted go into ``group.stats``."""
+        wrapper counted go into ``group.stats``. A graph that holds a Custom
+        or ROIPooling node is refused (``operator.refuse_capture``)."""
+        _operator.refuse_capture(self.program, "%d fused steps" % group.k)
         dev = self.device
         graph = torch.cuda.CUDAGraph()
         if rng is not None:

@@ -52,6 +52,7 @@ import torch
 from . import ndarray as nd
 from . import symbol as sym_mod
 from . import telemetry as _tm
+from . import operator as _operator
 from .base import MXNetError, graph_capture, release_for_capture
 from .context import as_context, cpu, gpu
 
@@ -328,9 +329,11 @@ class _ServeFn(object):
 
 
     def _capture(self, pool):
-        """Warm up, then capture the program into one CUDA graph."""
+        """Warm up, then capture the program into one CUDA graph (refused for
+        a graph that holds a Custom or ROIPooling node)."""
         dev = self._device
         what = "bucket %s" % (self._sig,)
+        _operator.refuse_capture(self._program, "the forward of %s" % what)
         self._serve()  # lazy set-up: library handles, algorithm choices
         mode = torch.cuda.get_sync_debug_mode()
         torch.cuda.set_sync_debug_mode("error")

@@ -25,6 +25,7 @@ def _st():
     if not hasattr(_state, "generators"):
         _state.generators = {}
         _state.seed = None
+        _state.seedings = 0  # calls of seed / set_states: a stream derived from the seed restarts
     return _state
 
 
@@ -49,6 +50,7 @@ def seed(seed_state: int):
     """Seed every device's sampler stream (parity: mx.random.seed)."""
     st = _st()
     st.seed = int(seed_state)
+    st.seedings += 1
     for gen in st.generators.values():
         gen.manual_seed(st.seed)
 
@@ -80,6 +82,7 @@ def set_states(blob):
     """Restore what :func:`get_states` took."""
     st = _st()
     st.seed = blob.get("seed")
+    st.seedings += 1
     for dev, state in (blob.get("streams") or {}).items():
         generator(torch.device(dev)).set_state(torch.from_numpy(_np.asarray(state, _np.uint8)))
 

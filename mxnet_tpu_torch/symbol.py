@@ -23,7 +23,7 @@ from .base import MXNetError, attr_repr, dtype_name, np_dtype, parse_attr_value
 from .name import NameManager
 from .ops.utils import merge_shapes
 from .ops import (broadcast_reduce, elemwise, indexing, init_ops, matrix, nn,  # noqa: F401
-                  optimizer_ops, rnn_op, sample)  # (registers the ported operators)
+                  optimizer_ops, rnn_op, sample, spatial)  # (registers the ported operators)
 from .ops import registry as _registry
 
 __all__ = ["Symbol", "Variable", "Group", "load", "load_json", "var"]
@@ -664,5 +664,6 @@ def zeros(shape, dtype=None, name=None, **kwargs):
 
 def __getattr__(name):
     raise AttributeError(
-        "mxnet_tpu_torch.symbol has no attribute %r: an operator not ported to "
-        "PyTorch yet is defined under mxnet_tpu/ops/ in the JAX package" % name)
+        "mxnet_tpu_torch.symbol has no attribute %r: no operator of that name is "
+        "registered (the port registers every operator of the JAX package, "
+        "mxnet_tpu/ops/)" % name)

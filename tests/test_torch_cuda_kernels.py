@@ -1248,3 +1248,40 @@ def test_cuda_ring_attention_matches_unsharded_kernel(dtype):
         for name, x, y in zip(("out", "dq", "dk", "dv"), got, want):
             scale = y.float().abs().max().item()
             assert (x.float() - y.float()).abs().max().item() <= tol * scale, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["detection", "proposal"])
+def test_cuda_nms_kernel_matches_its_plain_version(kind):
+    """On the card: the NMS kernel's suppressed flags equal its plain
+    version's on the masks MultiBoxDetection (every anchor a step, classes
+    and ties) and Proposal (boxes after each in the score order) build; one
+    launch a call; a mask of more boxes than a CTA's shared memory holds
+    raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from mxnet_tpu_torch.contrib import ops as cops
+
+    g = torch.Generator().manual_seed(22)
+    n = 3000
+    xy = torch.rand(4, n, 2, generator=g) * 0.8
+    boxes = torch.cat([xy, xy + 0.05 + torch.rand(4, n, 2, generator=g) * 0.3], -1).cuda()
+    if kind == "detection":
+        cls_id = torch.randint(-1, 4, (4, n), generator=g).float().cuda()
+        score = torch.rand(4, n, generator=g)
+        score[:, ::5] = 0.5  # ties
+        order = torch.argsort(-score, dim=1, stable=True).cuda()
+        args = cops.detection_nms_inputs(boxes, cls_id, order, 0.5)
+    else:
+        score = torch.rand(n, generator=g)
+        score[::7] = -1.0
+        args = cops.proposal_nms_inputs(boxes[0] * 600, score.cuda(), 0.7)
+    before = kernels.nms_suppress.launches
+    got = kernels.nms_suppress(*args)
+    assert kernels.nms_suppress.launches == before + 1
+    want = kernels.nms_suppress_reference(*(a.cpu() for a in args))
+    assert torch.equal(got.cpu(), want)
+    with pytest.raises(MXNetError, match="shared memory"):
+        kernels.nms_suppress(torch.zeros((1, 1, 240000), dtype=torch.bool, device="cuda"),
+                             torch.zeros((1, 1), dtype=torch.int64, device="cuda"),
+                             torch.zeros((1, 240000), dtype=torch.bool, device="cuda"))

@@ -296,4 +296,5 @@ def test_switch_moe_symbol_op_module_fit():
                 optimizer_params={"learning_rate": 0.5})
         assert dict(mod.score(it, mx.metric.Accuracy()))["accuracy"] > 0.9
     assert hasattr(mx.sym, "SwitchMoE") and hasattr(mx.nd, "_contrib_SwitchMoE")
-    assert not hasattr(mx.contrib.symbol, "MultiBoxPrior")  # not registered yet
+    # the contrib namespaces export every contrib operator beside SwitchMoE
+    assert hasattr(mx.contrib.symbol, "MultiBoxPrior") and hasattr(mx.contrib.ndarray, "SwitchMoE")

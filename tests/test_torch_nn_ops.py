@@ -9,7 +9,7 @@ outputs within 1e-5 and the gradients against one random cotangent (the
 loss heads ignore it in both) within 1e-4, each of its max. Dropout's and
 rrelu's draws cannot match JAX's threefry bits: they are held by moments,
 by equality at p = 0 and at inference, and by repeats from one seed. The
-registry names the operators the port still lacks."""
+registry holds every operator of the JAX package's."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,16 +19,10 @@ import torch
 from mxnet_tpu.ops import registry as jreg
 from mxnet_tpu_torch.ops import registry as treg
 
-# the JAX package's operators the port does not register yet (ROADMAP,
-# Queue 1): its ops/spatial.py, contrib/ops.py and Custom
-STILL_MISSING = {
-    "BilinearSampler", "Correlation", "GridGenerator", "SpatialTransformer",
-    "IdentityAttachKLSparseReg",
-    "CTCLoss", "ROIPooling", "_contrib_MultiBoxDetection", "_contrib_MultiBoxPrior",
-    "_contrib_MultiBoxTarget", "_contrib_Proposal",
-    "count_sketch", "fft", "ifft", "quantize", "dequantize",
-    "Custom",
-}
+# the JAX package's operators the port does not register yet: none (the
+# spatial, contrib and Custom operators are held by test_torch_spatial_ops,
+# test_torch_contrib_ops and test_torch_custom_op)
+STILL_MISSING = set()
 # the operators of this file, all from mxnet_tpu/ops/nn.py
 NN_OPS = (
     "LeakyReLU", "Deconvolution", "InstanceNorm", "L2Normalization", "LRN", "Dropout",
@@ -226,9 +220,8 @@ def test_shape_inference_matches_jax(cid):
 
 
 def test_registry_is_jax_minus_the_operators_still_missing():
-    """The port registers every primary operator of the JAX package but the
-    17 of spatial.py, contrib/ops.py and Custom, and the 20 of this
-    file carry JAX's metadata."""
+    """The port registers every primary operator of the JAX package (Custom
+    included), and the 20 of this file carry JAX's metadata."""
     jops = {op.name: op for op in jreg.primary_ops()}
     tops = {op.name: op for op in treg.primary_ops()}
     assert STILL_MISSING <= set(jops)

@@ -3,7 +3,9 @@ the JAX package's on the CPU. Every optimizer the port registers runs four
 updates on the same weight, gradient and state in both packages, with
 lr_mult / wd_mult, gradient clipping and an lr scheduler: weights and
 states within 1e-6. Initializers give equal arrays under one
-``np.random`` seed (both draw from numpy); schedules give equal values."""
+``np.random`` seed (both draw from numpy); schedules give equal values.
+SGLD's noise cannot repeat JAX's threefry draws: it is held by its moments
+and by repeating from one seed."""
 import numpy as np
 import pytest
 
@@ -82,10 +84,66 @@ def test_optimizer_matches_jax(name, scheduled):
 
 
 def test_registries_match_and_sgld_raises():
+    """The registries match; SGLD, which raised until it was ported,
+    constructs and steps."""
     assert sorted(tmx.optimizer.Optimizer.opt_registry) == \
         sorted(jmx.optimizer.Optimizer.opt_registry)
-    with pytest.raises(NotImplementedError, match="mxnet_tpu/optimizer.py"):
-        tmx.optimizer.create("sgld")
+    opt = tmx.optimizer.create("sgld", learning_rate=0.01)
+    w = tmx.nd.ones((3,))
+    opt.update(0, w, tmx.nd.zeros((3,)), opt.create_state(0, w))
+    assert np.isfinite(w.asnumpy()).all()
+
+
+def _sgld_steps(pkg, seed, steps=3, n=20000, opt=None):
+    """Weights after ``steps`` SGLD updates of a zero weight by a constant
+    gradient, from ``pkg.random.seed(seed)`` (no seeding for None), by
+    ``opt`` or a new optimizer."""
+    if seed is not None:
+        pkg.random.seed(seed)
+    if opt is None:
+        opt = pkg.optimizer.create("sgld", learning_rate=0.04, wd=0.5, rescale_grad=0.5)
+    w = pkg.nd.array(np.full((n,), 0.3, np.float32))
+    g = pkg.nd.array(np.full((n,), 2.0, np.float32))
+    for _ in range(steps):
+        opt.update(0, w, g, opt.create_state(0, w))
+    return w.asnumpy()
+
+
+def test_sgld_moments_match_jax():
+    """One step: w - lr/2 (rescale * g + wd * w) + N(0, lr); the mean and the
+    standard deviation of 20000 draws in each package match the formula
+    within four standard errors."""
+    n, lr = 20000, 0.04
+    want_mean = 0.3 - lr / 2 * (0.5 * 2.0 + 0.5 * 0.3)
+    for pkg in (jmx, tmx):
+        w = _sgld_steps(pkg, 5, steps=1, n=n)
+        assert abs(w.mean() - want_mean) < 4 * np.sqrt(lr / n), pkg.__name__
+        assert abs(w.std() - np.sqrt(lr)) < 4 * np.sqrt(lr / (2 * n)), pkg.__name__
+        noise = w - want_mean
+        assert abs(np.mean(noise ** 3)) < 4 * np.sqrt(15 * lr ** 3 / n)  # symmetric
+
+
+def test_sgld_repeats_from_one_seed():
+    a, b, c = _sgld_steps(tmx, 11), _sgld_steps(tmx, 11), _sgld_steps(tmx, 12)
+    np.testing.assert_array_equal(a, b)
+    assert not np.array_equal(a, c)
+
+
+def test_sgld_reseeds_and_leaves_numpy_alone(monkeypatch):
+    """``mx.random.seed`` restarts an existing optimizer's draws; with no
+    seed set, SGLD's draws take nothing from numpy's global stream."""
+    opt = tmx.optimizer.create("sgld", learning_rate=0.04, wd=0.5, rescale_grad=0.5)
+    a = _sgld_steps(tmx, 11, n=64, opt=opt)
+    b = _sgld_steps(tmx, 11, n=64, opt=opt)
+    np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(a, _sgld_steps(tmx, 11, n=64))
+    monkeypatch.setattr(tmx.random._st(), "seed", None)
+    np.random.seed(7)
+    want = np.random.rand(4)
+    np.random.seed(7)
+    c = _sgld_steps(tmx, None, n=64, opt=opt)
+    np.testing.assert_array_equal(np.random.rand(4), want)
+    assert not np.array_equal(a, c)
 
 
 def test_updater_states_round_trip():

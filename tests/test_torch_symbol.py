@@ -2,9 +2,9 @@
 listings, shape and type inference and graph JSON of ResNet-50 and a cifar
 ResNet-20 built by both packages, JSON carried across in both directions,
 automatic names, the attribute helpers and scopes, and the refusals of
-what is not ported yet (other operators, a gpu context past the visible
-cards); placement over contexts and mirroring, which raised here before
-they were ported, now bind and run."""
+what the port has not (an operator neither package registers, a gpu
+context past the visible cards); placement over contexts and mirroring,
+which raised here before they were ported, now bind and run."""
 import importlib
 import json
 
@@ -136,11 +136,16 @@ def test_composition_and_arithmetic():
 
 
 def test_what_is_not_ported_raises(monkeypatch):
+    """Every operator of the JAX package is ported now (BilinearSampler, the
+    last example here, loads): a graph naming an operator that neither
+    package registers raises, as a gpu context past the cards does."""
     a = tsym.Variable("a")
-    with pytest.raises(tbase.MXNetError, match="not ported"):
-        tsym.load_json(jsym.BilinearSampler(jsym.Variable("a"), jsym.Variable("g")).tojson())
+    text = jsym.BilinearSampler(jsym.Variable("a"), jsym.Variable("g")).tojson()
+    assert tsym.load_json(text).list_arguments() == ["a", "g"]
+    with pytest.raises(tbase.MXNetError, match="not registered"):
+        tsym.load_json(text.replace('"BilinearSampler"', '"NoSuchOperator"'))
     with pytest.raises(AttributeError, match="mxnet_tpu/ops/"):
-        tsym.BilinearSampler  # noqa: B018
+        tsym.NoSuchOperator  # noqa: B018
     net = (a * 2).__copy__()
     net._set_attr(ctx_group="dev1")
     ones = tndarray.ones((2,), ctx=tcontext.cpu())
