@@ -15,6 +15,7 @@
     python3 chip_smoke.py --only parallel              # the flash kernels' build and phase 27
     python3 chip_smoke.py --only telemetry             # K1-K3's build and all of phase 28
     python3 chip_smoke.py --only detection             # K1-K3's and NMS's build and phase 29
+    python3 chip_smoke.py --only dist                  # K1-K3's build and phase 30 with (d)
 
 
 Phases, each fatal on failure:
@@ -287,8 +288,9 @@ Phases, each fatal on failure:
     host read there raises. ``--only multistep --package DIR`` on a tree
     without ``Module.update_multi`` runs the eager fits of (a) and (b)
     alone and prints their state digests (the parent's eager bits). The
-    full script runs (a) at K = 8 only; ``--only multistep`` runs K = 4
-    too.
+    full script runs (a) at K = 8 over one epoch and (b) over 12 batches
+    (phase 30's seconds); ``--only multistep`` runs (a) at K = 4 too and
+    both at the depth above.
 
 22. the serving surface (main path 9), cuDNN deterministic for (a)-(c):
     (a) ``predict.Predictor`` on bench.py's ResNet-50 symbol (f32, 1000
@@ -585,7 +587,8 @@ training run and, for K4f, (c)'s sp 4 engine run, which their
 count phase 28 (a)'s wrappers (the warm-up groups and the captures) and
 (b)'s profiled replays by kernel name, which their ``launches`` include.
 K1's, K2's and K3's ``launches_by_path["detection"]`` count phase 29
-(c)-(e)'s wrappers, which their ``launches`` include. The NMS kernel's
+(c)-(e)'s wrappers, and ``launches_by_path["dist"]`` phase 30 (b)-(c)'s
+wrappers in both worker processes, which their ``launches`` include. The NMS kernel's
 entry (a kernel of the port with no TPU counterpart) counts phase 29's
 detection path and carries (b)'s times at SSD-300's 8732 x 32 (``ms``,
 ``plain_ms``, ``bound_ms``) and at Proposal's 6000 -> 300.
@@ -3203,7 +3206,9 @@ def phase_multistep(mx, kernels, dev, full=True):
     """Phase 21: K fused steps as one captured CUDA graph; see the module
     docstring. On a tree without ``Module.update_multi`` (``--package``)
     only the eager fits of (a) and (b) run, for their state digests.
-    Without ``full`` (the full script's run) (a) groups at K = 8 only."""
+    Without ``full`` (the full script's run) (a) groups at K = 8 only over
+    one epoch (the poisoned batch 29 still in a replayed group) and (b) runs
+    12 batches (a warm-up group, the capture and a replay)."""
     import torch
 
     grouped = hasattr(mx.mod.Module, "update_multi")
@@ -3212,9 +3217,10 @@ def phase_multistep(mx, kernels, dev, full=True):
     t0 = time.perf_counter()
     try:
         res = {"grouped": grouped,
-               "a": multistep_resnet(mx, kernels, dev, True, grouped=grouped,
-                                     **(MULTI if full else dict(MULTI, ks=MULTI["ks"][-1:]))),
-               "b": multistep_resnet(mx, kernels, dev, False, grouped=grouped, **MULTI_F32)}
+               "a": multistep_resnet(mx, kernels, dev, True, grouped=grouped, **(
+                   MULTI if full else dict(MULTI, ks=MULTI["ks"][-1:], epochs=1))),
+               "b": multistep_resnet(mx, kernels, dev, False, grouped=grouped, **(
+                   MULTI_F32 if full else dict(MULTI_F32, batches=12)))}
         if grouped:
             res["c"] = multistep_mlp(mx, kernels, dev)
             res["d"] = multistep_dropout(mx, dev)
@@ -6965,6 +6971,346 @@ def nms_entry(res):
 
 
 
+# -- phase 30: several processes on the card --------------------------------
+# phase 30's limits against one process. (b): the first step's loss (the
+# same weights; BatchNorm's sums in another order flip bf16 roundings
+# through 53 layers under AMP) and every loss; in f32 the first loss, the
+# BatchNorm statistics of the first step (the global batch's) and the first
+# update: per leaf, max |two processes - one| of the weights after step 1
+# over the one-process update's max |w1 - w0| (``update_rel``), for the
+# leaves whose update is at least ``held_ulps`` ulps of their largest
+# initial weight (the others, bn0_gamma's fixed 1 among them, move by a few
+# roundings and are listed). ResNet-50's first update at this init is
+# ill-conditioned: in one process, conv forwards without cuDNN move it by a
+# few hundredths (the witness, --only dist), so the limit sits above that
+# and below the control, the same fit with the gradient rescaled by the
+# local batch (twice the gradient), which must fail it. The weights after
+# all steps are reported, not held; (b) holds the sharded update bit for
+# bit to the replicated one across the processes.
+# (c) the executor path's workers compute what the two contexts compute.
+DIST = dict(batch=64, amp_steps=10, f32_steps=3, profile_steps=2, timeout=900,
+            elastic_steps=6, elastic_batch=64, first_loss=1e-3, losses=1e-2, f32=1e-5,
+            update_rel=0.25, held_ulps=64)
+
+
+def _dist_launch(package, root, name, args, env=None, timeout=None, watchdog=None):
+    """``tools/launch.py -n 2`` (under ``tools/watchdog.py`` with
+    ``watchdog`` flags) of ``tools/dist_check.py args``, its output in
+    ``root/name.log``; returns (exit code, wall s, log tail, each rank's
+    JSON)."""
+    out = os.path.join(root, name)
+    cmd = [sys.executable, "-m", "mxnet_tpu_torch.tools.launch", "-n", "2",
+           sys.executable, "-m", "mxnet_tpu_torch.tools.dist_check", "--out", out,
+           "--device", "cuda"] + list(args)
+    if watchdog is not None:
+        cmd = ([sys.executable, "-m", "mxnet_tpu_torch.tools.watchdog"] + watchdog + ["--"]
+               + cmd[:3] + cmd[5:])  # the launcher takes its world from the watchdog
+    full_env = dict(os.environ, PYTHONPATH=package, **(env or {}))
+    full_env.pop("MXTPU_AMP", None)
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=package, env=full_env, capture_output=True, text=True,
+                          timeout=timeout or DIST["timeout"])
+    wall = time.perf_counter() - t0
+    with open(os.path.join(root, name + ".log"), "w") as fh:
+        fh.write(proc.stdout + "\n---- stderr ----\n" + proc.stderr)
+    ranks = []
+    for r in range(2):
+        path = os.path.join(out, "rank%d.json" % r)
+        if os.path.exists(path):
+            with open(path) as fh:
+                ranks.append(json.load(fh))
+    tail = proc.stdout[-3000:] + proc.stderr[-8000:]
+    if proc.returncode != 0:
+        raise AssertionError("phase 30 %s: exit %d\n%s" % (name, proc.returncode, tail))
+    return proc, wall, ranks
+
+
+def _dist_reference_fit(mx, dev, kv, amp, steps, mesh_dp=None, cudnn=True):
+    """The one-process run a dist fit is held to: the same global batches
+    (``dist_check.fit_data``), seed and optimizer, on ``mesh_dp`` logical
+    ranks of gpu(0) (kvstore ``device``) or two contexts of gpu(0)
+    (``local``); ``cudnn=False`` runs the convolutions' forward without
+    cuDNN. Returns (losses, arg, aux, ms a step, the weights and (``aux:*``)
+    aux states after the first step, the initial weights)."""
+    import torch
+
+    from mxnet_tpu_torch.tools import dist_check
+
+    X, y = dist_check.fit_data("resnet50", steps, DIST["batch"])
+    it = mx.io.NDArrayIter(X, y, batch_size=DIST["batch"])
+    _amp_env(amp)
+    np.random.seed(0)
+    sym = dist_check.fit_symbol(mx, "resnet50")
+    if mesh_dp:
+        mod = mx.mod.Module(sym, context=mx.gpu(0),
+                            mesh=mx.parallel.make_mesh(dp=mesh_dp, devices=[mx.gpu(0)] * mesh_dp))
+    else:
+        mod = mx.mod.Module(sym, context=[mx.gpu(0), mx.gpu(0)])
+    # fit's own bind and init, first: the initial weights (fit then keeps them)
+    mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label, for_training=True)
+    mod.init_params(initializer=mx.init.Xavier())
+    init = {k: v.asnumpy().copy() for k, v in mod.get_params()[0].items()}
+    losses, stamps, snap = [], [], {}
+
+    def on_batch(param):
+        if param.nbatch == 0:
+            mod._sync_params_from_devices()
+            snap.update({k: v.asnumpy().copy() for k, v in mod._arg_params.items()})
+            snap.update({"aux:" + k: v.asnumpy().copy() for k, v in mod._aux_params.items()})
+        prob = mod.get_outputs()[0]._data
+        label = param.locals["data_batch"].label[0]._data.long()
+        picked = prob.float().gather(1, label.unsqueeze(1)).squeeze(1)
+        losses.append(float(-torch.log(picked.clamp_min(1e-30)).mean()))  # synchronises
+        stamps.append(time.perf_counter())
+
+    torch.backends.cudnn.enabled = cudnn
+    try:
+        mod.fit(it, kvstore=kv, optimizer="sgd",
+                optimizer_params=dict(dist_check.SGD),
+                initializer=mx.init.Xavier(), num_epoch=1, batch_end_callback=on_batch)
+    finally:
+        torch.backends.cudnn.enabled = True
+        _amp_env(False)
+    arg, aux = mod.get_params()
+    step_s = [b - a for a, b in zip(stamps[1:], stamps[2:])]
+    return (losses, {k: v.asnumpy() for k, v in arg.items()},
+            {k: v.asnumpy() for k, v in aux.items()},
+            1e3 * statistics.median(step_s) if step_s else None, snap, init)
+
+
+def _first_update_err(got_w1, ref):
+    """Per leaf: max |got - want| of the weights after step 1 over the
+    one-process update's max |want - init|, for the leaves whose update is
+    at least ``DIST["held_ulps"]`` ulps of their largest initial weight.
+    Returns the worst (err, leaf), the three worst and the leaves left
+    out."""
+    snap, init = ref[4], ref[5]
+    errs, out = [], []
+    for k, w0 in init.items():
+        w0 = np.asarray(w0, np.float32)
+        want = np.asarray(snap[k], np.float64)
+        upd = float(np.abs(want - w0).max())
+        if upd < DIST["held_ulps"] * float(np.spacing(np.abs(w0).max())):
+            out.append(k)
+            continue
+        errs.append((float(np.abs(np.asarray(got_w1[k], np.float64) - want).max()) / upd, k))
+    errs.sort(reverse=True)
+    return {"worst": errs[0], "top3": errs[:3], "held": len(errs), "left_out": out}
+
+
+def _of_max(got, want, keys):
+    """Per tensor: max |got - want| over max(1, max |want|), the worst."""
+    worst = (-1.0, "")
+    for k in keys:
+        w = np.asarray(want[k], np.float64)
+        err = float(np.abs(np.asarray(got[k], np.float64) - w).max()) / max(1.0, float(
+            np.abs(w).max()))
+        worst = max(worst, (err, k))
+    return worst
+
+
+def phase_dist(mx, kernels, dev, package, full=False):
+    """Phase 30: two worker processes on gpu(0), one gloo group, through the
+    port's launcher (see the module docstring). Returns the numbers and
+    each rank's K1/K2/K3 launches (``launches``, summed over the ranks)."""
+    import torch
+
+    from mxnet_tpu_torch.tools import dist_check
+
+    t_phase = time.perf_counter()
+    root = os.path.join(package, "build", "chip_smoke_dist")
+    os.makedirs(root, exist_ok=True)
+    res = {"card": card_line()}
+    amp_fits = ["dist_device_sync+amp", "dist_device_sync+amp+rep"]
+    proc, wall, ranks = _dist_launch(package, root, "abc", [
+        "--checks", "kvstore,barrier,fused", "--fit", "%s:%d,%s:%d,dist_device_sync:%d,"
+        "dist_sync:%d,dist_device_sync+localrescale:1" % (
+            amp_fits[0], DIST["amp_steps"], amp_fits[1], DIST["amp_steps"], DIST["f32_steps"],
+            DIST["f32_steps"]),
+        "--model", "resnet50", "--batch", str(DIST["batch"]), "--snap-step", "1",
+        "--profile-steps", str(DIST["profile_steps"])])
+    assert len(ranks) == 2 and all(r["ok"] and r["size"] == 2 for r in ranks), ranks
+    res["launch_wall_s"] = wall
+    log("phase 30 (a)-(c): the workers' launch %.1f s; rank 0's seconds: to its first check "
+        "%.1f, each fit's setup, fit and total %s, all %.1f" % (
+            wall, ranks[0]["started_s"], json.dumps({n: [round(f[k], 1) for k in (
+                "setup_s", "fit_s", "wall_s")] for n, f in ranks[0]["fits"].items()}),
+            ranks[0]["wall_s"]))
+    # (a) the three checks
+    for r in ranks:
+        assert r["backend"] == "gloo"
+        assert r["kvstore_value"] == r["kvstore_expected"], r
+        assert r["params_identical"] and r["fused_losses"][1] < 0.5 * r["fused_losses"][0]
+    assert ranks[0]["barrier_wait_s"] >= 1.0, ranks[0]["barrier_wait_s"]
+    res["a"] = {"kvstore_value": ranks[0]["kvstore_value"],
+                "barrier_wait_s_rank0": ranks[0]["barrier_wait_s"],
+                "fused_losses": [r["fused_losses"] for r in ranks]}
+    log("phase 30 (a): %s" % json.dumps(res["a"]))
+
+    # (b) the AMP dist_device_sync fit: both ranks, and the replicated
+    # update, bit for bit; the f32 fused fit against one process over dp 2
+    fits = [r["fits"][amp_fits[0]] for r in ranks]
+    reps = [r["fits"][amp_fits[1]] for r in ranks]
+    assert fits[0]["digests"] == fits[1]["digests"], "the ranks' masters / bf16 weights differ"
+    assert fits[0]["losses"] == fits[1]["losses"]
+    assert fits[0]["fused"] and fits[0]["flat_mode"] == "shard" and fits[0]["amp"]
+    assert reps[0]["flat_mode"] == "replicated"
+    steps = DIST["amp_steps"]
+    want = {"conv_bwd_filter": RESNET_CONVS * steps, "conv_bwd_input": RESNET_CONVS * steps,
+            "slab_update": slab_launches_a_step(kernels, fits[0]["buckets"]) * steps}
+    for f in fits:
+        assert f["launches"] == want, (f["launches"], want)
+    torch.backends.cudnn.deterministic = True
+    t_ref = time.perf_counter()
+    try:
+        amp_ref = _dist_reference_fit(mx, dev, "device", True, steps, 2)
+        f32_ref = _dist_reference_fit(mx, dev, "device", False, DIST["f32_steps"], 2)
+        # the witness (--only dist): one process again, its conv forwards
+        # without cuDNN, its first update against the reference's
+        witness = _dist_reference_fit(mx, dev, "device", False, 1, 2, cudnn=False) \
+            if full else None
+    finally:
+        torch.backends.cudnn.deterministic = False
+    losses, ref_ms = amp_ref[0], amp_ref[3]
+    res["reference_fits_s"] = time.perf_counter() - t_ref
+    npz = lambda name: dict(np.load(os.path.join(root, "abc", "fit_%s_rank0.npz" % name)))  # noqa
+    got, got32 = npz(amp_fits[0]), npz("dist_device_sync")
+    snap_of = lambda g: {k[5:]: v for k, v in g.items() if k.startswith("snap:")}  # noqa
+    first_update = {"two_processes": _first_update_err(snap_of(got32), f32_ref),
+                    "control_local_rescale": _first_update_err(
+                        snap_of(npz("dist_device_sync+localrescale")), f32_ref),
+                    "amp_two_processes_not_held": _first_update_err(snap_of(got), amp_ref)}
+    if witness is not None:
+        assert all(np.array_equal(witness[5][k], f32_ref[5][k]) for k in f32_ref[5])
+        first_update["witness_one_process_no_cudnn"] = _first_update_err(witness[4], f32_ref)
+
+    def errs(got, ref):
+        """Of max: the weights and aux after the last step and after the first."""
+        losses, arg, aux, _, snap, _ = ref
+        pick = lambda pre: {k[len(pre):]: v for k, v in got.items() if k.startswith(pre)}  # noqa
+        snap_w = {k: v for k, v in snap.items() if not k.startswith("aux:")}
+        snap_a = {k[4:]: v for k, v in snap.items() if k.startswith("aux:")}
+        return {"weights": _of_max(pick("arg:"), arg, arg), "aux": _of_max(pick("aux:"), aux, aux),
+                "step1_weights": _of_max(pick("snap:"), snap_w, snap_w),
+                "step1_aux": _of_max(pick("snapaux:"), snap_a, snap_a)}
+
+    amp_err, f32_err = errs(got, amp_ref), errs(got32, f32_ref)
+    l_errs = [abs(a - b) / abs(b) for a, b in zip(fits[0]["losses"], losses)]
+    f32s = [r["fits"]["dist_device_sync"] for r in ranks]
+    f32_l = [abs(a - b) / abs(b) for a, b in zip(f32s[0]["losses"], f32_ref[0])]
+    res["b"] = {"steps": steps, "rows_a_rank": fits[0]["rows"],
+                "buckets": fits[0]["buckets"], "losses": fits[0]["losses"],
+                "one_process_losses": losses, "first_loss_rel_err": l_errs[0],
+                "max_loss_rel_err": max(l_errs), "err_of_max": amp_err,
+                "limits": {k: DIST[k] for k in ("first_loss", "losses", "f32", "update_rel",
+                                                "held_ulps")},
+                "first_update_rel_err": first_update,
+                "ranks_bitwise_equal": True,
+                "shard_bitwise_equal_to_replicated": fits[0]["digests"] == reps[0]["digests"],
+                "launches_each_rank": fits[0]["launches"],
+                "replicated_launches_each_rank": reps[0]["launches"],
+                "step_ms_per_rank": [f["step_ms_median"] for f in fits],
+                "replicated_step_ms_per_rank": [f["step_ms_median"] for f in reps],
+                "one_process_step_ms": ref_ms,
+                "collective_ms_per_step": [f["collective_ms_per_step"] for f in fits],
+                "collective_bytes_per_step": fits[0]["collective_bytes_per_step"],
+                "collectives_after_step_1": fits[0]["collectives_after_step_1"],
+                "replicated_collective_ms_per_step": [f["collective_ms_per_step"] for f in reps],
+                "replicated_collective_bytes_per_step": reps[0]["collective_bytes_per_step"],
+                "peak_mem_gib_per_rank": [f.get("peak_mem_gib") for f in fits],
+                "replicated_peak_mem_gib_per_rank": [f.get("peak_mem_gib") for f in reps],
+                "profile_rank0": fits[0].get("profile"), "profile_rank1": fits[1].get("profile"),
+                "f32": {"steps": DIST["f32_steps"], "err_of_max": f32_err,
+                        "loss_rel_errs": f32_l, "losses": f32s[0]["losses"],
+                        "one_process_losses": f32_ref[0],
+                        "ranks_bitwise_equal": f32s[0]["digests"] == f32s[1]["digests"],
+                        "step_ms_per_rank": [f["step_ms_median"] for f in f32s],
+                        "one_process_step_ms": f32_ref[3],
+                        "collective_ms_per_step": [f["collective_ms_per_step"] for f in f32s],
+                        "collective_bytes_per_step": f32s[0]["collective_bytes_per_step"],
+                        "peak_mem_gib_per_rank": [f.get("peak_mem_gib") for f in f32s],
+                        "launches_each_rank": f32s[0]["launches"]}}
+    log("phase 30 (b): %s" % json.dumps(res["b"]))
+    assert res["b"]["shard_bitwise_equal_to_replicated"], "shard and replicated updates differ"
+    assert reps[0]["launches"] == want, (reps[0]["launches"], want)
+    assert l_errs[0] <= DIST["first_loss"], ("first loss", l_errs[0])
+    assert max(l_errs) <= DIST["losses"], ("losses", l_errs)
+    assert res["b"]["f32"]["ranks_bitwise_equal"]
+    assert f32_l[0] <= DIST["f32"], ("f32 first loss", f32_l)
+    assert f32_err["step1_aux"][0] <= DIST["f32"], ("f32 BatchNorm statistics, step 1",
+                                                    f32_err["step1_aux"])
+    for name, e in first_update.items():
+        if name == "control_local_rescale":
+            assert e["worst"][0] > DIST["update_rel"], ("the control passed the check", e)
+        elif name != "amp_two_processes_not_held":
+            assert e["worst"][0] <= DIST["update_rel"], ("f32 first update, " + name, e)
+    want_f32 = {"conv_bwd_filter": RESNET_CONVS * DIST["f32_steps"],
+                "conv_bwd_input": RESNET_CONVS * DIST["f32_steps"], "slab_update": 0}
+    for f in f32s:
+        assert f["launches"] == want_f32, (f["launches"], want_f32)
+
+    # (c) the f32 dist_sync fit against one process over two contexts
+    fits_c = [r["fits"]["dist_sync"] for r in ranks]
+    steps_c = DIST["f32_steps"]
+    want_c = {"conv_bwd_filter": RESNET_CONVS * steps_c, "conv_bwd_input": RESNET_CONVS * steps_c,
+              "slab_update": 0}
+    for f in fits_c:
+        assert not f["fused"] and f["launches"] == want_c, (f["launches"], want_c)
+    torch.backends.cudnn.deterministic = True
+    try:
+        losses_c, arg_c, aux_c, ref_ms_c, _, _ = _dist_reference_fit(mx, dev, "local", False,
+                                                                     steps_c)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    got_c = [dict(np.load(os.path.join(root, "abc", "fit_dist_sync_rank%d.npz" % r)))
+             for r in range(2)]
+    wc = max(_of_max({k[4:]: v for k, v in g.items() if k.startswith("arg:")}, arg_c, arg_c)
+             for g in got_c)
+    mean_aux = {k[4:]: (got_c[0][k] + got_c[1][k]) / 2 for k in got_c[0] if k.startswith("aux:")}
+    ac = _of_max(mean_aux, aux_c, aux_c)
+    res["c"] = {"steps": steps_c, "max_weight_err_of_max": wc, "max_aux_err_of_max": ac,
+                "limit": 1e-5, "losses": fits_c[0]["losses"], "one_process_losses": losses_c,
+                "bucket_flushes_per_step": fits_c[0]["bucket_flushes_per_step"],
+                "bucket_bytes_per_step": fits_c[0]["bucket_bytes_per_step"],
+                "step_ms_per_rank": [f["step_ms_median"] for f in fits_c],
+                "one_process_step_ms": ref_ms_c,
+                "collective_ms_per_step": [f["collective_ms_per_step"] for f in fits_c],
+                "peak_mem_gib_per_rank": [f.get("peak_mem_gib") for f in fits_c],
+                "launches_each_rank": fits_c[0]["launches"]}
+    log("phase 30 (c): %s" % json.dumps(res["c"]))
+    assert wc[0] <= DIST["f32"] and ac[0] <= DIST["f32"], ("dist_sync against two contexts",
+                                                          wc, ac)
+
+    # (d) the elastic shrink (--only dist)
+    if full:
+        ckpt = os.path.join(root, "elastic_ckpt")
+        if os.path.isdir(ckpt):
+            import shutil
+
+            shutil.rmtree(ckpt)
+        proc_d, wall_d, ranks_d = _dist_launch(
+            package, root, "d", ["--checks", "none", "--fit",
+                                 "dist_sync:%d" % DIST["elastic_steps"], "--model", "mlp-bn",
+                                 "--batch", str(DIST["elastic_batch"]), "--ckpt", ckpt],
+            env={"MXTPU_FAULT_INJECT": "replica_lost=1@3", "MXTPU_ELASTIC_POLL": "0",
+                 "MXTPU_CKPT_INTERVAL": "2"},
+            watchdog=["--elastic", "--world", "2", "--max-restarts", "0"], timeout=600)
+        text = proc_d.stdout + proc_d.stderr
+        for needle in ("elastic shrink", "world 1 (was 2)", "exiting 76",
+                       "resume: restored step 3"):
+            assert needle in text, (needle, text[-6000:])
+        assert ranks_d[0]["size"] == 1
+        assert ranks_d[0]["fits"]["dist_sync"]["steps"] == DIST["elastic_steps"] - 3
+        res["d"] = {"wall_s": wall_d, "losses_after_resume": ranks_d[0]["fits"]["dist_sync"][
+            "losses"], "resumed_at_step": 3, "world_after": 1}
+        log("phase 30 (d): %s" % json.dumps(res["d"]))
+    res["launches"] = {n: sum(f["launches"][n] for f in fits + reps + f32s + fits_c)
+                       for n in want}
+    res["seconds"] = time.perf_counter() - t_phase
+    log("phase 30: %.1f s" % res["seconds"])
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every phase's numbers to this JSON file")
@@ -6972,7 +7318,7 @@ def main(argv=None):
                     "one beside this script (to run this script's phases on another tree)")
     ap.add_argument("--only", choices=("f32_lm", "rtc", "slab", "zoo", "multistep", "serving",
                                        "resilience", "input", "rnn", "mirror", "parallel",
-                                       "telemetry", "detection"),
+                                       "telemetry", "detection", "dist"),
                     help="f32_lm: build, phase 19 and phase 8's attention kernel times only; "
                     "rtc: K5's push path on ResNet-50's parameter arrays only; slab: K1's "
                     "build, phases 16-18 and K1's times only; zoo: K2/K3's build and "
@@ -6984,7 +7330,8 @@ def main(argv=None):
                     "26 with its memory / ms sweep; parallel: the flash kernels' build and "
                     "phase 27 with (a)'s f32 sweep and (b)'s sp 1 and dense runs; telemetry: "
                     "K1-K3's build and phase 28 with (c), (d) and (f); detection: K1-K3's and "
-                    "the NMS kernel's build and phase 29")
+                    "the NMS kernel's build and phase 29; dist: K1-K3's build and phase 30 "
+                    "with (d), the elastic shrink")
     ap.add_argument("--resilience-worker", metavar="SPEC", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
@@ -7090,6 +7437,11 @@ def main(argv=None):
         results["build_s"] = time.perf_counter() - t0
         results["detection"] = det = phase_detection(mx, kernels, dev)
         print(json.dumps({"kernels": [nms_entry(det)]}))
+    if args.only == "dist":
+        t0 = time.perf_counter()
+        _build.build(["conv_bwd_filter", "slab_update"])
+        results["build_s"] = time.perf_counter() - t0
+        results["dist"] = phase_dist(mx, kernels, dev, package, full=True)
     if args.only:
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -7139,6 +7491,8 @@ def main(argv=None):
     results["parallel"] = par = phase_parallel(mx, tfm, trainer, kernels, GenerationEngine, dev)
     results["telemetry"] = tele = phase_telemetry(mx, kernels, dev, telemetry, package)
     results["detection"] = det = phase_detection(mx, kernels, dev)
+    results["dist"] = dist = phase_dist(mx, kernels, dev, package)
+    dist_launches = dist["launches"]  # phase 30 (b)-(c): both ranks' wrappers
     det_launches = det["launches"]  # phase 29 (c)-(e): the detection path's wrappers
     tele_launches = tele["launches"]  # phase 28 (a)'s wrapper counts and (b)'s profiled replays
     par_launches = par["launches"]  # phase 27 (b)'s sp 4 training and (c)'s sp 4 engine
@@ -7148,7 +7502,7 @@ def main(argv=None):
     input_launches = inp["launches"]
     conv_launches = {name: conv_launches[name] + multi_launches[name] + resil_launches[name]
                      + input_launches[name] + mirror_launches[name] + tele_launches[name]
-                     + det_launches[name] for name in conv_launches}
+                     + det_launches[name] + dist_launches[name] for name in conv_launches}
     k1 = results["k1_entry"]
     k1["launches_by_path"]["multistep"] = multi_launches["slab_update"]
     k1["launches_by_path"]["resilience"] = resil_launches["slab_update"]
@@ -7156,9 +7510,11 @@ def main(argv=None):
     k1["launches_by_path"]["mirror"] = mirror_launches["slab_update"]
     k1["launches_by_path"]["telemetry"] = tele_launches["slab_update"]
     k1["launches_by_path"]["detection"] = det_launches["slab_update"]
+    k1["launches_by_path"]["dist"] = dist_launches["slab_update"]
     k1["launches"] += (multi_launches["slab_update"] + resil_launches["slab_update"]
                        + input_launches["slab_update"] + mirror_launches["slab_update"]
-                       + tele_launches["slab_update"] + det_launches["slab_update"])
+                       + tele_launches["slab_update"] + det_launches["slab_update"]
+                       + dist_launches["slab_update"])
     # the f32 kernels' launches in phases 4, 5 and 19
     f32_launches = {name: n + results["training_f32_full"]["launches"][name]
                     for name, n in results["training_f32"]["launches"].items()}
@@ -7191,7 +7547,8 @@ def main(argv=None):
         # ``launches`` too
         entry["launches_by_path"] = {"mirror": mirror_launches[entry["name"]],
                                      "telemetry": tele_launches[entry["name"]],
-                                     "detection": det_launches[entry["name"]]}
+                                     "detection": det_launches[entry["name"]],
+                                     "dist": dist_launches[entry["name"]]}
     kernel_line = {"kernels": fwd + bwd + conv_entries
                    + phase_rtc_times(mx, rk, rtc_runs, results["rtc_training"], dev)
                    + [results.pop("k1_entry"), nms_entry(det)],

@@ -74,6 +74,7 @@ from . import lr_scheduler, metric, optimizer  # noqa: F401
 from . import io  # noqa: F401
 from . import kvstore  # noqa: F401
 from . import kvstore as kv  # noqa: F401
+from . import kvstore_server  # noqa: F401
 from . import callback, model  # noqa: F401
 from . import parallel  # noqa: F401
 from . import module  # noqa: F401
@@ -90,3 +91,5 @@ from . import visualization, visualization as viz  # noqa: F401
 from . import operator  # noqa: F401  (registers Custom)
 from . import log, libinfo, test_utils  # noqa: F401
 from . import th, th as torch  # noqa: F401
+
+kvstore_server._init_kvstore_server_module()

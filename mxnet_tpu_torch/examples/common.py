@@ -5,7 +5,11 @@ common/fit.py): ``add_fit_args`` and the canonical ``Module.fit`` call.
 Examples run on the card (``--ctx gpu``, the default) or on the host
 (``--ctx cpu``). ``--num-devices N`` > 1 trains on the fused data-parallel
 path: on the card over a mesh of N logical ranks sharing ``gpu(0)``, on
-the host over N CPU contexts; the kvstore is then ``device``.
+the host over N CPU contexts; the kvstore is then ``device``. Under the
+port's launcher (``python -m mxnet_tpu_torch.tools.launch -n P ...``)
+``--kv-store dist_sync`` trains through the executor path and the store's
+collectives, and ``dist_device_sync`` on the fused path over a mesh whose
+dp axis spans the P processes (``--num-devices`` ranks in each).
 """
 from __future__ import annotations
 
@@ -42,15 +46,16 @@ def add_fit_args(parser):
     return parser
 
 
-def get_module(args, network, **kwargs):
-    """A Module on ``--ctx`` with ``--num-devices`` data-parallel ranks
-    (``kwargs`` to Module: data_names, label_names)."""
+def get_module(args, network, processes=1, **kwargs):
+    """A Module on ``--ctx`` with ``--num-devices`` data-parallel ranks in
+    each of ``processes`` processes (``kwargs`` to Module: data_names,
+    label_names)."""
     n = args.num_devices
     if args.ctx == "cpu":
         return Module(network, context=[cpu(i) for i in range(n)] if n > 1 else cpu(), **kwargs)
     if n > 1:
-        return Module(network, context=gpu(0), mesh=make_mesh(dp=n, devices=[gpu(0)] * n),
-                      **kwargs)
+        return Module(network, context=gpu(0), mesh=make_mesh(
+            dp=n * processes, devices=[gpu(0)] * n, processes=processes), **kwargs)
     return Module(network, context=gpu(0), **kwargs)
 
 
@@ -60,7 +65,8 @@ def fit(args, network, train, val=None, **kwargs):
     kv_name = args.kv_store
     if kv_name == "auto":
         kv_name = "device" if args.num_devices > 1 else "local"
-    mod = get_module(args, network)
+    kv = kvstore.create(kv_name)
+    mod = get_module(args, network, processes=kv.num_workers if "dist" in kv_name else 1)
     optimizer_params = {"learning_rate": args.lr, "wd": args.wd}
     if args.optimizer == "sgd":
         optimizer_params["momentum"] = args.mom
@@ -81,6 +87,6 @@ def fit(args, network, train, val=None, **kwargs):
             arg_params=arg_params, aux_params=aux_params, begin_epoch=begin_epoch,
             num_epoch=args.num_epochs,
             batch_end_callback=callback.Speedometer(args.batch_size, args.disp_batches),
-            epoch_end_callback=checkpoint, kvstore=kvstore.create(kv_name))
+            epoch_end_callback=checkpoint, kvstore=kv)
     return mod
 

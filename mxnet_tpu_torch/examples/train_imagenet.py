@@ -13,7 +13,13 @@ the ImageNet mean; ``--data-nthreads`` decode threads, or with
 On the card, with ``--num-devices`` > 1, ``fit`` trains on the fused path
 (staging batches through ``DeviceFeedIter`` with ``MXTPU_DEVICE_FEED=1``);
 ``MXTPU_AMP=bf16`` turns on bf16 AMP. ``--benchmark N`` trains N synthetic
-batches instead.
+batches instead. Under the port's launcher ``--kv-store dist_sync`` or
+``dist_device_sync`` trains across the processes (``examples/common.py``;
+the streaming pipeline of ``--input-workers`` gives each process its
+share of the records)::
+
+    python -m mxnet_tpu_torch.tools.launch -n 2 python -m \
+        mxnet_tpu_torch.examples.train_imagenet --benchmark 20 --kv-store dist_device_sync
 """
 from __future__ import annotations
 

@@ -13,8 +13,15 @@ kernels), and plain SGD ``p -= lr * g`` on f32 master parameters;
 ``--cpu`` is given. ``--moe-experts N`` swaps every second FFN for a
 Switch-MoE block; ``--sp`` and ``--ep`` build a mesh of sp x ep logical
 ranks on the one device: attention runs as ring attention over sp
-sequence blocks, and the experts must divide by ep. ``--dp`` and ``--tp``
-> 1 raise NotImplementedError: they need ranks on several cards.
+sequence blocks, and the experts must divide by ep. ``--dp N`` splits the
+batch over N data-parallel ranks, which may span the processes of a
+launched job (``python -m mxnet_tpu_torch.tools.launch -n 2 python -m
+mxnet_tpu_torch.examples.train_transformer_lm --dp 2``): each process
+takes its ranks' rows, and its gradients (of the global batch's mean loss)
+are summed across the processes of the gloo group before each step; the
+printed loss is the global batch's. ``--tp`` > 1 raises
+NotImplementedError (tensor parallelism needs the multi-card half of
+ROADMAP Queue 1 step 8), and so do sp or ep > 1 across processes.
 """
 from __future__ import annotations
 
@@ -26,12 +33,12 @@ import torch
 
 from ..context import resolve_device
 from ..models.transformer import _torch_dtype, params_from_jax, transformer_lm
+from ..parallel import mesh as _mesh
 from ..parallel.mesh import make_mesh
 
 _NOT_PORTED = (
-    ("dp", "data parallelism across cards (ROADMAP Queue 1 step 8; the fused dp trainer "
-           "of one card is parallel.ShardedTrainStep)"),
-    ("tp", "tensor parallelism across cards (ROADMAP Queue 1 step 8, param_specs)"),
+    ("tp", "tensor parallelism across cards (the multi-card half of ROADMAP Queue 1 step 8, "
+           "param_specs)"),
 )
 
 
@@ -63,11 +70,31 @@ def sgd_step(params, lr):
             p.grad = None
 
 
+def _allreduce_grads(params):
+    """Every parameter's gradient summed across the processes, one
+    collective a dtype."""
+    grads = [p.grad for p in params.parameters()]
+    by_dtype = {}
+    for g in grads:
+        by_dtype.setdefault(g.dtype, []).append(g)
+    for gs in by_dtype.values():
+        summed = _mesh.allreduce_sum(torch.cat([g.reshape(-1) for g in gs]))
+        off = 0
+        for g in gs:
+            g.copy_(summed[off:off + g.numel()].view(g.shape))
+            off += g.numel()
+
+
 def check_supported(dp=None, tp=1, sp=1, ep=1, moe_experts=0, seq_len=None):
     """Raise for what the port cannot run: NotImplementedError for
-    ``--dp``/``--tp`` > 1, ValueError for a sequence that does not divide by
-    sp or experts that do not divide by ep."""
-    sizes = {"dp": dp or 1, "tp": tp}
+    ``--tp`` > 1 and for sp or ep > 1 across processes, ValueError for a
+    sequence that does not divide by sp or experts that do not divide by
+    ep."""
+    sizes = {"tp": tp}
+    if _mesh.process_count() > 1 and sp * ep > 1:
+        raise NotImplementedError(
+            "--sp/--ep across %d processes need the multi-card half of ROADMAP Queue 1 "
+            "step 8; across processes only --dp is ported" % _mesh.process_count())
     for axis, what in _NOT_PORTED:
         if sizes[axis] > 1:
             raise NotImplementedError(
@@ -87,7 +114,13 @@ def train(vocab=256, d_model=256, n_heads=8, n_layers=4, d_ff=1024, seq_len=256,
     per-step losses (floats). ``device`` defaults to the CUDA card;
     ``on_step(i, loss, params)``, if given, is called after each step's
     update with the loss tensor (not synchronised) and the parameters."""
+    _mesh.init_distributed()  # a launched job's process group (else nothing)
     check_supported(dp, tp, sp, ep, moe_experts, seq_len)
+    nproc, prank = _mesh.process_count(), _mesh.process_index()
+    dp = dp or nproc
+    if dp % nproc or batch_size % dp:
+        raise ValueError("--dp %d must divide by the %d processes and divide --batch-size %d"
+                         % (dp, nproc, batch_size))
     dev = resolve_device(device)
     init_fn, apply_fn = transformer_lm(
         vocab=vocab, d_model=d_model, n_heads=n_heads, n_layers=n_layers,
@@ -97,7 +130,12 @@ def train(vocab=256, d_model=256, n_heads=8, n_layers=4, d_ff=1024, seq_len=256,
     if sp * ep > 1:
         mesh = make_mesh(sp=sp, ep=ep, devices=[dev] * (sp * ep))
         log("mesh:", mesh.shape)
+    if dp > 1:
+        log("mesh: dp %d over %d process(es), %d rank(s) in this one"
+            % (dp, nproc, dp // nproc))
     seq = torch.from_numpy(corpus(vocab, batch_size, seq_len).astype(np.int64)).to(dev)
+    rows = batch_size // nproc  # this process's ranks' rows of the global batch
+    seq = seq[prank * rows:(prank + 1) * rows]
     tokens, targets = seq[:, :-1], seq[:, 1:]
     params = params_from_jax(init_fn(0), device=dev, dtype=torch.float32)
     params.requires_grad_()
@@ -108,7 +146,13 @@ def train(vocab=256, d_model=256, n_heads=8, n_layers=4, d_ff=1024, seq_len=256,
         out = apply_fn(params, tokens, mesh=mesh if sp > 1 else None)
         logits, aux = out if moe_experts else (out, 0.0)
         loss = lm_loss(logits, targets) + 0.01 * aux
+        if nproc > 1:
+            # the global batch's mean: this process's share, summed across
+            loss = loss / nproc
         loss.backward()
+        if nproc > 1:
+            _allreduce_grads(params)
+            loss = _mesh.allreduce_sum(loss.detach())
         sgd_step(params, lr)
         loss = loss.detach()
         losses.append(loss)

@@ -1,7 +1,8 @@
 """Kvstore routing helpers and the checkpoint format of the PyTorch port
 (counterpart of ``mxnet_tpu/model.py:34-141``): ``_create_kvstore``,
 ``_initialize_kvstore``, ``_update_params_on_kvstore``, ``_update_params``
-(the update routing ``Module.init_optimizer`` / ``update`` rely on) and
+(the update routing ``Module.init_optimizer`` / ``update`` rely on: a
+``dist_*`` type keeps its store even on one device, and updates on it) and
 ``save_checkpoint`` / ``load_checkpoint`` (``prefix-symbol.json`` plus the
 dmlc ``.params`` bytes, readable by either package, written atomically) and
 the deprecated ``FeedForward`` trainer over ``Module`` (``model.py:142-288``
@@ -91,9 +92,13 @@ def _update_params(param_arrays, grad_arrays, updater, num_device, kvstore=None)
 def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params):
     """``prefix-symbol.json`` and ``prefix-%04d.params``, each through the
     atomic writer (temp + fsync + rename): a kill mid-save leaves the
-    previous file, never a truncated one."""
+    previous file, never a truncated one. In a job of several processes
+    rank 0 writes them; the others return."""
+    from .parallel.mesh import process_index
     from .resilience.checkpoint import atomic_file
 
+    if process_index() != 0:
+        return
     if symbol is not None:
         with atomic_file("%s-symbol.json" % prefix, mode="w") as f:
             f.write(symbol.tojson())

@@ -17,10 +17,30 @@ Snapshots, fault points and the guard's observations fall on step-group
 boundaries. A checkpoint stores numpy's stream as ``rng.numpy`` and the
 torch generators as ``rng.torch``; ``rng.mx`` (the JAX package's key
 stream) is left None, so that package's resume skips it, and the port
-ignores it in a JAX checkpoint. Not ported yet, and raising when asked
-for: the elastic shrink-and-continue path (``MXTPU_ELASTIC=1``, Queue 1
-step 8); the fleet heartbeat files under ``MXTPU_RUN_DIR`` are not
-written.
+ignores it in a JAX checkpoint.
+
+Across the processes of a launched job (a ``dist_*`` kvstore of several
+workers) rank 0 writes the checkpoints; every rank captures the state
+(across processes in "shard" mode the capture gathers the optimizer
+state's blocks, a collective). With ``checkpoint_dir`` the ranks agree on a
+preemption signal at each step-group boundary (one small all-reduce, after
+the elastic poll), so a signal that reaches one rank has every rank capture
+the final checkpoint at the same boundary, wait for rank 0 to write it and
+exit ``EXIT_PREEMPTED``. Under ``MXTPU_RUN_DIR`` every fitting rank
+keeps its heartbeat files (``parallel/heartbeat.py``: the kvstore's writer,
+or one ``fit`` starts) and ticks their progress mark after each step.
+``MXTPU_ELASTIC=1`` with ``checkpoint_dir`` and a world
+(``MXTPU_WORLD_SIZE``, else ``DMLC_NUM_WORKER``) above 1 arms the elastic
+shrink of the JAX package (``mxnet_tpu/module/base_module.py:543-700``):
+every ``MXTPU_ELASTIC_POLL`` seconds, at a step-group boundary, a rank
+reads ``lost_nodes`` of the run dir (``MXTPU_ELASTIC_TIMEOUT``); when a
+peer is lost, the lowest surviving rank writes a final checkpoint and
+exits ``EXIT_RESHAPE`` (76), and ``tools/watchdog.py --elastic`` relaunches
+at the surviving world, where ``resume="auto"`` restores the same state at
+the new dp (the cursor moves by global samples). A fused step whose state
+is sharded across processes cannot gather it without the lost peer: that
+rank exits 76 without a final checkpoint, and the relaunch resumes from
+the last interval checkpoint.
 
 ``monitor`` is installed after bind (``install_monitor``), which keeps
 training on the executor path, and is armed (``tic``) before and read
@@ -70,6 +90,7 @@ import signal
 import time
 
 import numpy as np
+import torch
 
 from .. import metric as metric_mod
 from .. import ndarray as nd
@@ -79,6 +100,7 @@ from .. import telemetry as _tm
 from ..initializer import Uniform
 from ..io import DataDesc  # noqa: F401  (re-exported for subclasses)
 from ..model import BatchEndParam
+from ..parallel import mesh as _mesh
 from ..resilience import fault as _fault
 from ..resilience.checkpoint import restricted_loads as _ckpt_loads
 
@@ -273,6 +295,74 @@ def _check_input_names(symbol, names, typename, throw):
         logging.warning(msg)
 
 
+class _ReadOnlyCheckpoints:
+    """A CheckpointManager whose saves do nothing: a rank other than 0 of
+    a multi-process job reads the checkpoints rank 0 writes."""
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def __setattr__(self, name, value):
+        if name == "inner":
+            object.__setattr__(self, name, value)
+        else:
+            setattr(self.inner, name, value)
+
+    def save(self, state, step):
+        return None
+
+    def save_async(self, state, step):
+        return None
+
+
+class _ElasticPoll:
+    """The elastic shrink's liveness poll (``MXTPU_ELASTIC=1``): peers that
+    ``heartbeat.lost_nodes`` declares lost, at most every ``poll`` seconds."""
+
+    def __init__(self, run_dir, world, rank, poll, timeout):
+        from ..parallel import heartbeat as _hb
+
+        self._hb = _hb
+        self.dir, self.world, self.rank = run_dir, world, rank
+        self.poll_s, self.timeout = poll, timeout
+        self._next = 0.0
+
+    def poll(self):
+        now = time.monotonic()
+        if now < self._next:
+            return []
+        self._next = now + self.poll_s
+        return [r for r in self._hb.lost_nodes(self.dir, self.world, timeout=self.timeout)
+                if r != self.rank]
+
+    def writes_final(self, lost):
+        """The lowest surviving rank writes the final checkpoint."""
+        return self.rank == min(r for r in range(self.world) if r not in lost)
+
+
+def _elastic_config(rank):
+    """An :class:`_ElasticPoll` under ``MXTPU_ELASTIC=1`` with a run dir and
+    a world above 1, else None."""
+    if os.environ.get("MXTPU_ELASTIC") != "1":
+        return None
+
+    def _num(name, default, cast):
+        try:
+            return cast(os.environ.get(name, default))
+        except ValueError:
+            return cast(default)
+
+    run_dir = os.environ.get("MXTPU_RUN_DIR")
+    world = _num("MXTPU_WORLD_SIZE", os.environ.get("DMLC_NUM_WORKER", "0"), int)
+    if not run_dir or world <= 1:
+        return None
+    return _ElasticPoll(run_dir, world, rank, _num("MXTPU_ELASTIC_POLL", "5", float),
+                        _num("MXTPU_ELASTIC_TIMEOUT", "60", float))
+
+
 class BaseModule:
     def __init__(self, logger=logging):
         self.logger = logger
@@ -391,11 +481,28 @@ class BaseModule:
             ckpt_interval = max(0, int(os.environ.get(_ckpt.ENV_INTERVAL, "0")))
         except ValueError:
             ckpt_interval = 0
-        if ckpt_mgr is not None and os.environ.get("MXTPU_ELASTIC") == "1":
-            raise NotImplementedError(
-                "MXTPU_ELASTIC=1 (the elastic shrink-and-continue path, "
-                "mxnet_tpu/module/base_module.py:543-600) is not ported to PyTorch yet "
-                "(ROADMAP.md, Queue 1 step 8)")
+        kv = getattr(self, "_kvstore", None)
+        dist_rank, dist_workers = 0, 1
+        if kv is not None and "dist" in kv.type:
+            dist_rank, dist_workers = kv.rank, kv.num_workers
+        else:
+            try:
+                dist_rank = int(os.environ.get("DMLC_RANK", "0"))
+            except ValueError:
+                dist_rank = 0
+        if ckpt_mgr is not None and dist_workers > 1 and dist_rank != 0:
+            ckpt_mgr = _ReadOnlyCheckpoints(ckpt_mgr)  # rank 0 writes the checkpoints
+        elastic = _elastic_config(dist_rank) if ckpt_mgr is not None else None
+        fleet_hb = getattr(kv, "_heartbeat", None)
+        own_hb = None
+        run_dir = os.environ.get("MXTPU_RUN_DIR")
+        if run_dir and fleet_hb is None:
+            from ..parallel import heartbeat as _hb
+
+            try:
+                fleet_hb = own_hb = _hb.HeartbeatWriter(run_dir, dist_rank).start()
+            except OSError:
+                fleet_hb = None
 
         # -- guardrails (resilience/guardrail.py) -----------------------------
         guard_mon = None
@@ -420,9 +527,13 @@ class BaseModule:
             fit_data = DeviceFeedIter(train_data, trainer.device)
         auto_tuner = None
         host_bound = _operator.uncapturable_nodes(self.symbol) if trainer is not None else []
+        spans = trainer is not None and getattr(trainer, "nproc", 1) > 1
         if fit_k == "auto":
             fit_k = 1
-            if host_bound:
+            if spans:
+                self.logger.info("fit multistep auto: K=1, the step's gloo collectives over "
+                                 "%d processes cannot be captured", trainer.nproc)
+            elif host_bound:
                 # a graph that reads the host at each call cannot be
                 # captured: the tuner keeps such a fit at one step
                 self.logger.info("fit multistep auto: K=1, the graph holds %s",
@@ -540,6 +651,8 @@ class BaseModule:
             loop["done"] = done
             loop["epoch"] = epoch
             _tm.anatomy.on_steps(n_new)
+            if fleet_hb is not None:
+                fleet_hb.progress(n_new)
             if guard_mon is not None:
                 rewind = False
                 for t, diag in self._drain_guard_diag():
@@ -554,8 +667,40 @@ class BaseModule:
                                                  reason=guard_mon.last_reason)
             if ckpt_mgr is None:
                 return
+            if elastic is not None:
+                lost = elastic.poll()
+                if lost:
+                    if trainer is not None and trainer.state_sharded:
+                        self.logger.info(
+                            "elastic: replica(s) %s declared lost; the optimizer state is "
+                            "sharded across processes and cannot be gathered without them, "
+                            "so no final checkpoint: the relaunch resumes from the last "
+                            "one; exiting %d for shrink-and-continue", lost,
+                            _ckpt.EXIT_RESHAPE)
+                        raise SystemExit(_ckpt.EXIT_RESHAPE)
+                    writer = elastic.writes_final(lost)
+                    if writer:
+                        getattr(ckpt_mgr, "inner", ckpt_mgr).save(_capture(epoch, done),
+                                                                  loop["gs"])
+                    self.logger.info(
+                        "elastic: replica(s) %s declared lost; checkpoint at step %d %s, "
+                        "exiting %d for shrink-and-continue", lost, loop["gs"],
+                        "written" if writer else "left to the lowest surviving rank",
+                        _ckpt.EXIT_RESHAPE)
+                    raise SystemExit(_ckpt.EXIT_RESHAPE)
+            spans = _mesh.process_count() > 1
+            if spans:
+                # the ranks take a signal at different boundaries: they agree
+                # on it first, so every rank captures at the same one (in
+                # "shard" mode a capture gathers the state, a collective)
+                preempt["flag"] = bool(_mesh.allreduce_sum(
+                    torch.tensor([float(preempt["flag"])])).item() > 0)
             if preempt["flag"]:
                 ckpt_mgr.save(_capture(epoch, done), loop["gs"])
+                if spans:
+                    # no rank exits (and has the launcher kill the job)
+                    # before rank 0's checkpoint is on disk
+                    _mesh.barrier("preempt-checkpoint")
                 _C_PREEMPTED.inc()
                 self.logger.info("preempted: checkpoint at step %d written, exiting %d",
                                  loop["gs"], _ckpt.EXIT_PREEMPTED)
@@ -640,6 +785,8 @@ class BaseModule:
                     pass
             if ckpt_mgr is not None:
                 ckpt_mgr.wait()
+            if own_hb is not None:
+                own_hb.stop()
 
     def _drain_guard_diag(self):
         """Guard diag samples queued since the last drain (none on the

@@ -19,6 +19,16 @@ On the card the fused entry point is
 devices=[mx.gpu(0)] * 4))``; ``context=[mx.cpu(i) for i in range(4)]``
 builds the same mesh of four ranks on the host. ``context=None`` is the
 current context, ``gpu(0)`` unless one is entered.
+
+Across the processes of a launched job (``tools/launch.py``),
+``kvstore="dist_device_sync"`` takes the fused path over a mesh whose dp
+axis spans every process (each process's contexts are its logical ranks; an
+explicit mesh must span every process, else it raises as the JAX package
+does); each process feeds its own rows of the global batch, rank 0's
+initial parameters reach every process through the store's ``init``, and
+the optimizer's ``rescale_grad`` is one over the global batch.
+``kvstore="dist_sync"`` trains through the executor group and the store's
+push and pull, each worker keeping its own BatchNorm statistics.
 """
 from __future__ import annotations
 
@@ -73,7 +83,8 @@ class Module(BaseModule):
         if param_specs:
             raise NotImplementedError(
                 "Module(param_specs=...) is not ported to PyTorch yet: tensor-parallel "
-                "parameter sharding (mxnet_tpu/module/module.py:81)")
+                "parameter sharding, the multi-card half of ROADMAP Queue 1 step 8 "
+                "(mxnet_tpu/module/module.py:81)")
         if context is None:
             context = [ctx_mod.current_context()]
         if isinstance(context, ctx_mod.Context):
@@ -313,7 +324,10 @@ class Module(BaseModule):
             kvstore = kv_create(kvstore)
         kvstore, update_on_kvstore = _create_kvstore(kvstore, len(self._context),
                                                      self._arg_params)
-        rescale_grad = 1.0 / self._exec_group.batch_size
+        batch_size = self._exec_group.batch_size
+        if kvstore and "dist" in kvstore.type and "_sync" in kvstore.type:
+            batch_size *= kvstore.num_workers  # the global batch of the job
+        rescale_grad = 1.0 / batch_size
         if isinstance(optimizer, str):
             idx2name = {}
             if update_on_kvstore:
@@ -360,22 +374,41 @@ class Module(BaseModule):
         installed Monitor declines it: the fused step (and a captured
         graph of it) has no per-op boundaries to call the monitor at, so
         monitored training keeps the executor path."""
-        dp = self._mesh.shape.get("dp", 1) if self._mesh is not None else len(self._context)
+        # this process's ranks take its own rows of the global batch
+        dp = self._mesh.size if self._mesh is not None else len(self._context)
         return (kvstore is not None and "device" in kvstore.type and self.for_training
                 and not self.inputs_need_grad and not self._fixed_param_names
                 and self._monitor is None
                 and self._exec_group.batch_size % dp == 0)
 
     def _init_fused(self):
-        from ..parallel.mesh import make_mesh
+        from ..parallel import mesh as _mesh
         from ..parallel.train_step import ShardedTrainStep
 
-        mesh = self._mesh or make_mesh(dp=len(self._context), devices=self._context)
+        kv = self._kvstore
+        workers = kv.num_workers if kv is not None and "dist" in kv.type else 1
+        mesh = self._mesh
+        if mesh is not None and workers > 1 and mesh.processes < workers:
+            # a mesh of this process alone would sum nothing across the
+            # workers, which would train unsynchronized
+            raise MXNetError(
+                "dist kvstore %r with a mesh spanning %d of %d processes: the fused step's "
+                "gradient sum would skip the other workers. Build the mesh over every "
+                "process (make_mesh(..., processes=%d)), or drop the explicit mesh."
+                % (kv.type, mesh.processes, workers, workers))
+        if mesh is None:
+            mesh = _mesh.make_mesh(dp=len(self._context) * workers, devices=self._context,
+                                   processes=workers)
         self._fused_trainer = ShardedTrainStep(
             self._symbol, mesh, optimizer=self._optimizer, data_names=self._data_names,
             label_names=self._label_names).compile()
         self._fused_owner = self
         trainer = self._fused_trainer
+        if workers > 1:
+            # every process starts from rank 0's weights, which the store's
+            # init broadcast (the reference's dist init)
+            for idx, name in enumerate(self._exec_group.param_names):
+                kv.pull(idx, out=self._arg_params[name])
         self._fused_params, self._fused_aux = trainer.place_params(self._arg_params,
                                                                    self._aux_params)
         self._fused_opt = trainer.make_state(self._fused_params)
@@ -385,6 +418,13 @@ class Module(BaseModule):
             self._fused_params = trainer.amp_cast_params(self._fused_params)
         self._fused_t = 0
         self._fused_exec_stale = False
+
+    def _whole_fused_opt(self):
+        """The fused optimizer state, whole: across processes in "shard"
+        mode or under zero1 gathered from every process's block (a
+        collective that every process reaches at the same point)."""
+        owner = self._fused_owner
+        return owner._fused_trainer.gather_state(owner._fused_opt, owner._fused_params)
 
     def _fused_inputs(self, data_batch):
         """name -> tensor of one batch's data and labels as they are."""
@@ -643,7 +683,7 @@ class Module(BaseModule):
                 params_src = dict(owner._fused_params)
                 if trainer.amp:
                     # the working copies are bf16 casts; the masters are the truth
-                    params_src.update(trainer.master_params_named(owner._fused_opt))
+                    params_src.update(trainer.master_params_named(self._whole_fused_opt()))
                 for name, arr in params_src.items():
                     if name in self._arg_params:
                         self._arg_params[name][:] = arr
@@ -667,8 +707,14 @@ class Module(BaseModule):
             mesh = self._fused_owner._fused_trainer.mesh
             mesh_shape = {k: int(v) for k, v in mesh.shape.items()}
             dp = mesh_shape.get("dp", 1)
+            # each process feeds its own rows: the global batch is the job's
+            global_batch *= mesh.processes
         else:
             dp = len(self._context)
+            kv = self._kvstore
+            if kv is not None and "dist" in kv.type and kv.num_workers > 1:
+                dp *= kv.num_workers
+                global_batch *= kv.num_workers
         dp = max(1, int(dp))
         return {"dp": dp, "mesh": mesh_shape, "global_batch": int(global_batch),
                 "per_replica_batch": int(global_batch) // dp}
@@ -695,7 +741,7 @@ class Module(BaseModule):
 
             owner = self._fused_owner
             trainer = owner._fused_trainer
-            opt_state = _clone(owner._fused_opt)  # whole slabs, then views of the clones
+            opt_state = _clone(self._whole_fused_opt())  # whole slabs, then views of the clones
             arg_src = _clone(owner._fused_params)
             amp_blob = None
             if trainer.flat_mode is not None:
@@ -785,7 +831,7 @@ class Module(BaseModule):
         bucketing), "amp" (the scaler, under AMP)}: the JAX package's
         payload."""
         owner = self._fused_owner
-        state = dict(owner._fused_opt)
+        state = dict(self._whole_fused_opt())
         trainer = owner._fused_trainer
         out = {"t": owner._fused_t}
         if trainer.flat_mode is not None:
@@ -802,8 +848,6 @@ class Module(BaseModule):
         first from the current device masters when ``sync_masters``; a
         checkpoint resume has just restored them from its f32 ``arg``) and
         the scaler from ``amp_blob`` (fresh when None)."""
-        from ..parallel.train_step import _map_state, _tensor
-
         owner = self._fused_owner
         trainer = owner._fused_trainer
         owner._fused_t = int(t)
@@ -816,8 +860,7 @@ class Module(BaseModule):
                 owner._fused_opt.update(trainer.build_amp_master_state(
                     self._arg_params, scale=blob.get("scale"), good=blob.get("good", 0.0)))
         else:
-            owner._fused_opt = {k: _map_state(lambda s: _tensor(s, trainer.device), v)
-                                for k, v in state_tree.items()}
+            owner._fused_opt = trainer.place_state(state_tree, owner._fused_params)
         if self is not owner:
             self._fused_t = owner._fused_t
             self._fused_opt = owner._fused_opt

@@ -14,7 +14,9 @@ fallback.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -97,11 +99,27 @@ def library_path(name, csrc=None):
     return BUILD_DIR / ("%s-%s.so" % (src.stem, digest.hexdigest()[:16]))
 
 
+@contextlib.contextmanager
+def build_locks(libs):
+    """Exclusive file locks on ``<lib>.lock`` for every library path in
+    ``libs`` (taken in sorted order, so two builders never deadlock),
+    released on exit: the builders of one library, in any process, take
+    turns."""
+    with contextlib.ExitStack() as stack:
+        for lib in sorted(set(libs)):
+            f = stack.enter_context(open(str(lib) + ".lock", "a"))
+            fcntl.flock(f, fcntl.LOCK_EX)
+            stack.callback(fcntl.flock, f, fcntl.LOCK_UN)
+        yield
+
+
 def build(names=None, csrc=None):
     """Build the sources of every named kernel (default: all) that have no
     library for their current hash, one ``nvcc`` per source, all started
-    together; ``csrc`` as in :func:`library_path`. Returns ``{source stem:
-    compiler log}`` for the sources built by this call."""
+    together, under :func:`build_locks`; ``csrc`` as in
+    :func:`library_path`. Returns ``{source stem: compiler log}`` for the
+    sources built by this call (not those another process built while
+    this one waited for the lock)."""
     csrc = CSRC if csrc is None else Path(csrc)
     names = list(KERNELS) if names is None else list(names)
     todo = {}
@@ -112,22 +130,27 @@ def build(names=None, csrc=None):
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = nvcc_path()
-    procs = {}
-    for src, lib in todo.items():
-        tmp = lib.with_name("%s.tmp%d" % (lib.name, os.getpid()))
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        procs[src.stem] = (tmp, lib, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    logs, failed = {}, []
-    for name, (tmp, lib, proc) in procs.items():
-        out, _ = proc.communicate()
-        logs[name] = out
-        if proc.returncode != 0:
-            failed.append("%s (nvcc exit %d):\n%s" % (name, proc.returncode, out))
-            continue
-        os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing
-        lib.with_suffix(".log").write_text(out)
+    with build_locks(todo.values()):
+        # another process may have built them while this one waited
+        todo = {src: lib for src, lib in todo.items() if not lib.is_file()}
+        if not todo:
+            return {}
+        nvcc = nvcc_path()
+        procs = {}
+        for src, lib in todo.items():
+            tmp = lib.with_name("%s.tmp%d" % (lib.name, os.getpid()))
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+            procs[src.stem] = (tmp, lib, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs, failed = {}, []
+        for name, (tmp, lib, proc) in procs.items():
+            out, _ = proc.communicate()
+            logs[name] = out
+            if proc.returncode != 0:
+                failed.append("%s (nvcc exit %d):\n%s" % (name, proc.returncode, out))
+                continue
+            lib.with_suffix(".log").write_text(out)
+            os.replace(tmp, lib)  # atomic: a reader sees all of it or nothing
     if failed:
         raise KernelBuildError("kernel build failed: " + "\n".join(failed))
     return logs

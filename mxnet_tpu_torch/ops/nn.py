@@ -20,7 +20,12 @@ and Crop, under the JAX package's names, arguments and defaults.
 - BatchNorm keeps the JAX semantics, not ``F.batch_norm``'s: one-pass f32
   stats with the biased variance E[x²] − mean² clamped at 0, the closed-form
   backward of ``_bn_train_core``, and moving stats
-  new = m·old + (1−m)·batch returned as trailing aux outputs.
+  new = m·old + (1−m)·batch returned as trailing aux outputs. Inside
+  ``parallel.mesh.spanning_batch_stats`` (the fused step over a mesh that
+  spans processes) its per-channel Σx and Σx² and its backward's two
+  per-channel sums are summed across the processes, so the statistics are
+  the global batch's, as in the JAX package's one GSPMD step; the
+  executor path keeps each worker's own statistics.
 - The loss heads' backward ignores the incoming gradient, as the reference
   contract wants: SoftmaxOutput's is softmax − onehot(label), scaled and
   normalized; the others' are the reference's closed forms.
@@ -427,15 +432,23 @@ class _BNTrainCore(torch.autograd.Function):
     stats (sum and sum of squares), the biased variance clamped at 0, and
     its closed-form backward. The gradients of the mean and var outputs are
     taken only when they are given (in a training step they feed only the
-    undifferentiated moving-stat updates)."""
+    undifferentiated moving-stat updates). With ``span`` the forward's two
+    per-channel sums, and the backward's, are summed across the processes
+    of the group (one all-reduce each way); the parameter gradients it
+    returns stay this process's own, which the step's gradient sum adds."""
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, eps):
+    def forward(ctx, x, gamma, beta, eps, span=False):
         ax, bshape = _bn_axes(x), _bn_shape(x)
         n = x.numel() // x.shape[1]
         x32 = x.float()
         s1 = x32.sum(dim=ax)
         s2 = (x32 * x32).sum(dim=ax)
+        if span:
+            from ..parallel import mesh as _mesh
+
+            s1, s2 = _mesh.allreduce_sum(torch.stack([s1, s2])).unbind(0)
+            n *= _mesh.process_count()
         mean = s1 / n
         var = torch.clamp_min(s2 / n - mean * mean, 0.0)
         rstd = torch.rsqrt(var + eps)
@@ -445,6 +458,7 @@ class _BNTrainCore(torch.autograd.Function):
         y = (x32 * scale + shift).to(x.dtype)
         ctx.save_for_backward(x, gamma, mean, rstd)
         ctx.set_materialize_grads(False)
+        ctx.span, ctx.n = span, n
         return y, mean, var
 
     @staticmethod
@@ -452,24 +466,38 @@ class _BNTrainCore(torch.autograd.Function):
     def backward(ctx, dy, dmean, dvar):
         x, gamma, mean, rstd = ctx.saved_tensors
         ax, bshape = _bn_axes(x), _bn_shape(x)
-        n = x.numel() // x.shape[1]
+        n = ctx.n
         x32 = x.float()
+        zeros = lambda: torch.zeros(gamma.shape, dtype=torch.float32, device=x.device)  # noqa: E731
         if dy is None:
-            dx32 = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-            dgamma = torch.zeros(gamma.shape, dtype=torch.float32, device=x.device)
-            dbeta = torch.zeros(gamma.shape, dtype=torch.float32, device=x.device)
+            dbeta, dgamma = zeros(), zeros()
         else:
             dy32 = dy.float()
             xhat = (x32 - mean.reshape(bshape)) * rstd.reshape(bshape)
             dbeta = dy32.sum(dim=ax)
             dgamma = (dy32 * xhat).sum(dim=ax)
+        sum_beta, sum_gamma = dbeta, dgamma
+        if ctx.span:
+            from ..parallel import mesh as _mesh
+
+            # the sums over the global batch; dmean and dvar are the
+            # gradients of global statistics, so every process's add up
+            parts = [dbeta, dgamma] + [g.float() for g in (dmean, dvar) if g is not None]
+            summed = _mesh.allreduce_sum(torch.stack(parts)).unbind(0)
+            sum_beta, sum_gamma = summed[0], summed[1]
+            rest = iter(summed[2:])
+            dmean = next(rest) if dmean is not None else None
+            dvar = next(rest) if dvar is not None else None
+        if dy is None:
+            dx32 = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        else:
             dx32 = (gamma.float() * rstd).reshape(bshape) * (
-                dy32 - (dbeta / n).reshape(bshape) - xhat * (dgamma / n).reshape(bshape))
+                dy32 - (sum_beta / n).reshape(bshape) - xhat * (sum_gamma / n).reshape(bshape))
         if dmean is not None:
             dx32 = dx32 + (dmean / n).reshape(bshape).float()
         if dvar is not None:
             dx32 = dx32 + dvar.reshape(bshape).float() * 2.0 / n * (x32 - mean.reshape(bshape))
-        return dx32.to(x.dtype), dgamma.to(gamma.dtype), dbeta.to(gamma.dtype), None
+        return dx32.to(x.dtype), dgamma.to(gamma.dtype), dbeta.to(gamma.dtype), None, None
 
 
 def _batch_norm(attrs, ins, is_train):
@@ -489,7 +517,9 @@ def _batch_norm(attrs, ins, is_train):
             * gamma.reshape(bshape) + beta.reshape(bshape)
         out = out.to(data.dtype)
     else:
-        out, mean, var = _BNTrainCore.apply(data, gamma, beta, eps)
+        from ..parallel.mesh import batch_stats_span
+
+        out, mean, var = _BNTrainCore.apply(data, gamma, beta, eps, batch_stats_span())
         new_mean = momentum * moving_mean + (1.0 - momentum) * mean.to(moving_mean.dtype)
         new_var = momentum * moving_var + (1.0 - momentum) * var.to(moving_var.dtype)
     return [out, mean.float(), var.float(), new_mean, new_var]

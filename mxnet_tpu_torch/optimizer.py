@@ -443,9 +443,28 @@ class Test(Optimizer):
 create = Optimizer.create_optimizer
 
 
+def _state_leaf(state):
+    """The first NDArray of a state tree, or None."""
+    if isinstance(state, (tuple, list)):
+        for s in state:
+            leaf = _state_leaf(s)
+            if leaf is not None:
+                return leaf
+        return None
+    return state if isinstance(state, nd.NDArray) else None
+
+
+def _state_to(state, ctx):
+    if isinstance(state, (tuple, list)):
+        return type(state)(_state_to(s, ctx) for s in state)
+    return state.as_in_context(ctx) if isinstance(state, nd.NDArray) else state
+
+
 class Updater:
     """Applies one optimizer across parameters keyed by index, creating
-    state lazily; its pickled states are the optimizer checkpoint."""
+    state lazily; its pickled states are the optimizer checkpoint. A state
+    that lies on another device than its weight (unpickled states land on
+    the host) moves to the weight's device at its first update."""
 
     def __init__(self, optimizer):
         self.optimizer = optimizer
@@ -454,7 +473,11 @@ class Updater:
     def __call__(self, index, grad, weight):
         if index not in self.states:
             self.states[index] = self.optimizer.create_state(index, weight)
-        self.optimizer.update(index, weight, grad, self.states[index])
+        state = self.states[index]
+        leaf = _state_leaf(state)
+        if leaf is not None and leaf.context != weight.context:
+            self.states[index] = state = _state_to(state, weight.context)
+        self.optimizer.update(index, weight, grad, state)
 
     def set_states(self, states):
         self.states = pickle.loads(states)

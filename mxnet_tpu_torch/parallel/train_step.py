@@ -1,7 +1,7 @@
 """The fused training step of the PyTorch port (counterpart of
 ``mxnet_tpu/parallel/train_step.py``): forward, backward and optimizer
 update of a Symbol over a data-parallel :class:`~.mesh.Mesh` whose ranks
-share one device.
+share one device in each process.
 
 The JAX step is one GSPMD program over a dp-sharded batch with replicated
 parameters, so its batch statistics and gradient sums span the global
@@ -31,6 +31,35 @@ update count ``t`` are host numbers passed each call;
 ``Optimizer._index_update_count`` and ``num_update`` end as the JAX
 package leaves them.
 
+A mesh whose dp axis spans processes (``Mesh.processes`` > 1) takes each
+process's rows of the global batch (its own logical ranks) through the same
+pass, and sums what the JAX program sums over the global batch across the
+processes of the gloo group (``parallel/mesh.py``): BatchNorm's per-channel
+sums (``mesh.spanning_batch_stats`` around the forward and backward, so the
+batch statistics are the global batch's) and the gradients. The
+per-parameter path all-reduces the gradients (one collective a dtype); the
+flat f32 and AMP paths in "shard" mode reduce-scatter each bucket's
+gradient slab (bf16 under AMP), run the update (kernel K1 under AMP) over
+this process's contiguous 1/P of the bucket, and all-gather the new weights
+(bf16 under AMP, one collective for every bucket); "replicated" mode
+all-reduces each slab and runs the whole update on every process. The AMP
+finite flag, so the loss scaler's decision, and the guard's grad-norm² are
+summed across the processes in one small all-reduce, so every rank takes
+the same decision. ``zero1=True`` (the per-parameter path) updates, across
+processes, only this process's row block of each parameter whose leading
+dimension divides dp, with the optimizer state of those rows, then
+all-gathers the weight rows; on logical ranks of one device it is the
+replicated update. In "shard" mode and under ``zero1`` each process holds
+only its block of the master and state slabs (of the state rows under
+``zero1``), 1/P of them (``state_sharded``): the state's builders
+(``make_state``, ``build_amp_master_state``, ``named_state_to_flat``,
+``place_state``) keep this process's block, and
+:meth:`ShardedTrainStep.gather_state` (a collective, which ``Module`` calls
+wherever the whole state is read: the AMP masters of ``get_params``, a
+checkpoint, the optimizer-state file) returns the whole state.
+K-step groups (``call_multi``) over such a mesh raise :class:`MXNetError`:
+a gloo collective cannot be captured into a CUDA graph.
+
 ``call_multi`` runs K steps at once, the port of JAX's ``lax.scan`` of the
 step (``compile_multi``). Each micro-step is the step above on static
 buffers, one set a (K, batch signature): the state (params, aux,
@@ -48,7 +77,8 @@ sampler generator registered with it) and replayed, and every later group
 is one replay. A failed capture raises :class:`MXNetError`. On the CPU the
 same body runs uncaptured. Only optimizers with a fused update (SGD,
 SGD-momentum, Adam: ``fused_slab_kernel``) or none are grouped. Not ported:
-``zero1`` and ``param_specs`` / tensor parallelism; each raises.
+``param_specs`` / tensor parallelism (the multi-card half of ROADMAP Queue 1
+step 8), which raises.
 
 The guardrail gate (``arm_guard``, JAX ``mxnet_tpu/parallel/train_step.py:
 276-288, 1094-1175``): an armed step computes the global grad-norm² from the
@@ -82,6 +112,7 @@ import torch
 from .. import operator as _operator
 from .. import random as _random
 from .. import telemetry as _tm
+from . import mesh as _mesh
 from ..base import MXNetError, bucket_bytes_env, graph_capture, release_for_capture
 from ..executor import _GraphProgram, _mirror_enabled, _mirror_ops, resolve_creation_shapes
 from ..ndarray import NDArray
@@ -298,11 +329,9 @@ class ShardedTrainStep:
     def __init__(self, symbol, mesh, optimizer=None, param_specs=None, data_names=("data",),
                  label_names=("softmax_label",), dtype=None, zero1=False, flat_update=None):
         if param_specs:
-            raise _not_ported("param_specs (tensor-parallel parameter sharding)",
+            raise _not_ported("param_specs (tensor-parallel parameter sharding, the multi-card "
+                              "half of ROADMAP Queue 1 step 8)",
                               "mxnet_tpu/parallel/train_step.py:197")
-        if zero1:
-            raise _not_ported("zero1 (dp-sharded per-parameter state)",
-                              "mxnet_tpu/parallel/train_step.py:194")
         non_dp = 1
         for ax, n in mesh.shape.items():
             if ax != "dp":
@@ -313,6 +342,15 @@ class ShardedTrainStep:
         self.symbol = symbol
         self.mesh = mesh
         self.device = mesh.device
+        self.nproc = getattr(mesh, "processes", 1)
+        self.prank = getattr(mesh, "process_rank", 0)
+        if self.nproc > 1 and self.nproc != _mesh.process_count():
+            raise MXNetError("the mesh spans %d processes but the process group has %d; "
+                             "call parallel.init_distributed() under the launcher first"
+                             % (self.nproc, _mesh.process_count()))
+        # ZeRO-1: across processes each updates its row block of the
+        # parameters whose leading dimension divides dp (the JAX layout)
+        self.zero1 = bool(zero1)
         self.optimizer = optimizer
         self.program = _GraphProgram(symbol)
         # the recompile detector's program for the K-step groups (each a
@@ -333,7 +371,7 @@ class ShardedTrainStep:
         self.flat_bucket_bytes = bucket_bytes_env()
         dp = mesh.shape.get("dp", 1)
         eligible = (optimizer is not None and getattr(optimizer, "elementwise_update", False)
-                    and dp > 1 and self.flat_bucket_bytes > 0)
+                    and dp > 1 and self.flat_bucket_bytes > 0 and not self.zero1)
         if flat_update is False or not eligible:
             self.flat_mode = None
         else:
@@ -374,6 +412,24 @@ class ShardedTrainStep:
     def _master_key(bucket_index):
         """Optimizer-state key of one bucket's f32 master slab (AMP)."""
         return "__master__%d" % bucket_index
+
+    @property
+    def _flat_sharded(self):
+        """Across processes in "shard" mode: each holds its 1/P of every
+        master and state slab."""
+        return self.nproc > 1 and self.flat_mode == "shard"
+
+    @property
+    def state_sharded(self):
+        """Whether each process holds only its block of the masters and
+        optimizer state (see :meth:`gather_state`)."""
+        return self._flat_sharded or (self.nproc > 1 and self.zero1 and getattr(
+            self.optimizer, "elementwise_update", False))
+
+    def _own_block(self, t):
+        """A copy of this process's contiguous 1/P of ``t`` (rows of its
+        first dimension)."""
+        return t[self._own(t.shape[0])].clone()
 
     def _ensure_flat_plan(self, params):
         if self._flat_plan is None:
@@ -423,8 +479,8 @@ class ShardedTrainStep:
         if self.flat_mode is not None:
             plan = self._ensure_flat_plan(params)
             for bi, b in enumerate(plan.buckets):
-                st = self.optimizer.create_state_flat(b.rep_index, b.padded, dtype=b.dtype,
-                                                      ctx=ctx)
+                size = b.padded // self.nproc if self._flat_sharded else b.padded
+                st = self.optimizer.create_state_flat(b.rep_index, size, dtype=b.dtype, ctx=ctx)
                 if st is not None:
                     state[self._flat_key(bi)] = _unwrap_state(st)
             if self.amp:
@@ -433,12 +489,25 @@ class ShardedTrainStep:
             return state
         from .. import ndarray as nd
 
+        rows = self._zero1_rows(params)
         for i, name in enumerate(self.param_names):
-            p = params[name]
+            p = params[name][rows.get(name, slice(None))]
             st = self.optimizer.create_state(i, nd.zeros(tuple(p.shape), ctx=ctx,
                                                          dtype=p.dtype))
             state[name] = _unwrap_state(st)
         return state
+
+    def place_state(self, named, params):
+        """A per-parameter state tree (host arrays or tensors) on the mesh's
+        device in this step's layout: under ``zero1`` across processes the
+        state of each sharded parameter is this process's row block."""
+        rows = self._zero1_rows(params)
+
+        def place(s, name):
+            t = _tensor(s, self.device)
+            return self._own_block(t) if name in rows else t
+
+        return {k: _map_state(lambda s, k=k: place(s, k), v) for k, v in named.items()}
 
     def init(self, arg_shapes_by_name, initializer, seed=0):
         """Parameters from ``initializer`` (on host arrays, numpy's global
@@ -480,7 +549,8 @@ class ShardedTrainStep:
                 for n, p in params.items()}
 
     def build_amp_master_state(self, params_by_name, scale=None, good=0.0):
-        """Master slabs packed from f32 params (host or device) and the two
+        """Master slabs packed from f32 params (host or device), this
+        process's block of each when the state is sharded, and the two
         scaler scalars (a fresh scale unless ``scale`` is given)."""
         plan = self._flat_plan
         assert plan is not None, "flat plan not built yet"
@@ -488,7 +558,8 @@ class ShardedTrainStep:
         for bi, b in enumerate(plan.buckets):
             parts = [_tensor(params_by_name[name], self.device, torch.float32)
                      for (_i, name, _o, _s, _sh) in b.views]
-            state[self._master_key(bi)] = self._pack(parts, b.padded, torch.float32)
+            slab = self._pack(parts, b.padded, torch.float32)
+            state[self._master_key(bi)] = self._own_block(slab) if self._flat_sharded else slab
         state[self.AMP_SCALE_KEY] = torch.full(
             (), self.amp_scale_init if scale is None else float(scale), dtype=torch.float32,
             device=self.device)
@@ -497,7 +568,8 @@ class ShardedTrainStep:
         return state
 
     def master_params_named(self, opt_state):
-        """The f32 masters as per-parameter views (the weights' truth)."""
+        """The f32 masters as per-parameter views (the weights' truth) of a
+        whole state (:meth:`gather_state`'s where the state is sharded)."""
         plan = self._flat_plan
         assert plan is not None, "flat plan not built yet"
         out = {}
@@ -509,8 +581,10 @@ class ShardedTrainStep:
 
     def master_params_placed(self, opt_state):
         """Copies of the masters, what a demoted (non-flat, f32) run
-        continues from."""
-        return {n: v.clone() for n, v in self.master_params_named(opt_state).items()}
+        continues from (across processes a collective where the state is
+        sharded)."""
+        whole = self.master_params_named(self.gather_state(opt_state))
+        return {n: v.clone() for n, v in whole.items()}
 
     def amp_state_blob(self, opt_state):
         """Host values of the scaler for checkpoints."""
@@ -518,8 +592,9 @@ class ShardedTrainStep:
                 "good": float(opt_state[self.AMP_GOOD_KEY])}
 
     def flat_state_to_named(self, opt_state):
-        """The flat state slabs carved back into per-parameter trees (views):
-        the layout checkpoints store, whatever the bucketing."""
+        """The flat state slabs of a whole state carved back into
+        per-parameter trees (views): the layout checkpoints store, whatever
+        the bucketing."""
         plan = self._flat_plan
         assert plan is not None, "flat plan not built yet"
         named = {}
@@ -532,8 +607,8 @@ class ShardedTrainStep:
 
     def named_state_to_flat(self, named):
         """Inverse of :meth:`flat_state_to_named`: per-parameter trees
-        (numpy arrays or tensors) packed into this plan's slabs, pads
-        zero."""
+        (numpy arrays or tensors) packed into this plan's slabs, pads zero;
+        this process's block of each where the state is sharded."""
         plan = self._flat_plan
         assert plan is not None, "flat plan not built yet"
 
@@ -554,7 +629,8 @@ class ShardedTrainStep:
                                "it does not match this symbol's parameters" % (exc,))
             st = pack(parts, b.padded)
             if st is not None:
-                state[self._flat_key(bi)] = st
+                state[self._flat_key(bi)] = (_map_state(self._own_block, st)
+                                             if self._flat_sharded else st)
         return state
 
     def disable_flat_update(self, opt_state):
@@ -564,7 +640,7 @@ class ShardedTrainStep:
         the masters (``master_params_placed``) as the new f32 params."""
         if self.flat_mode is None:
             return opt_state
-        named = self.flat_state_to_named(opt_state)
+        named = self.flat_state_to_named(self.gather_state(opt_state))
         placed = {n: _map_state(lambda s: s.clone(), s) for n, s in named.items()}
         self.flat_mode = None
         self.amp = False
@@ -600,26 +676,40 @@ class ShardedTrainStep:
 
     def _apply_optimizer(self, params, grads, opt_state, lr, t, row=None, gate=None):
         """Optimizer.update for every parameter, in place (the per-key
-        layout). Under the guard (``gate``) each update runs on copies that
-        ``ok`` then selects into the parameter and its state."""
+        layout). Across processes the gradients are all-reduced first, and
+        under ``zero1`` each process updates its row block of the sharded
+        parameters, then the blocks are all-gathered. Under the guard
+        (``gate``) each update runs on copies that ``ok`` then selects into
+        the parameter and its state."""
         opt = self.optimizer
+        if self.nproc > 1:
+            grads = dict(zip(self.param_names,
+                             self._allreduce_each([grads[n] for n in self.param_names])))
         ok = None if gate is None else self._gate(gate, [grads[n] for n in self.param_names])
         if opt is None:
             for name in self.param_names:
                 new = params[name] - lr * grads[name]
                 params[name].copy_(new if ok is None else torch.where(ok, new, params[name]))
             return params, opt_state
+        rows = self._zero1_rows(params)
         with self._patched_optimizer(lr, t, row):
             for i, name in enumerate(self.param_names):
+                sl = rows.get(name, slice(None))
+                # under zero1 the state of a sharded parameter is its row block
+                w_v, g_v, st_v = params[name][sl], grads[name][sl], opt_state.get(name)
                 if ok is None:
-                    st = _wrap_state(opt_state.get(name))
-                    opt.update(i, NDArray(params[name]), NDArray(grads[name]), st)
+                    opt.update(i, NDArray(w_v), NDArray(g_v), _wrap_state(st_v))
                     continue
-                w = params[name].clone()
-                st = _map_state(torch.clone, opt_state.get(name))
-                opt.update(i, NDArray(w), NDArray(grads[name]), _wrap_state(st))
-                _select_into(ok, params[name], w)
-                _select_into(ok, opt_state.get(name), st)
+                w = w_v.clone()
+                st = _map_state(torch.clone, st_v)
+                opt.update(i, NDArray(w), NDArray(g_v), _wrap_state(st))
+                _select_into(ok, w_v, w)
+                _select_into(ok, st_v, st)
+        if rows:
+            # each process updated its row blocks: the whole weights from their owners
+            for name, whole in zip(rows, self._gather_full([params[n][sl]
+                                                            for n, sl in rows.items()])):
+                params[name].copy_(whole)
         return params, opt_state
 
     def _flat_body(self, bucket, w_c, g_c, st_c):
@@ -627,14 +717,103 @@ class ShardedTrainStep:
         self.optimizer.update(bucket.rep_index, NDArray(w_c), NDArray(g_c), _wrap_state(st_c))
 
     def _chunks(self, bucket):
-        """The slices of a bucket's update: the whole slab in "shard" mode
-        (the ranks share the device, so they share one update), the dp
-        chunks one by one in "replicated" mode."""
+        """The (weight slab slice, state slice, gradient slice) triples of a
+        bucket's update: the whole slab in "shard" mode (the ranks of a
+        process share its device, so they share one update), across
+        processes only this process's contiguous 1/P of the weights (its
+        state and masters are that block, its gradient the reduce-scattered
+        block); the dp chunks one by one in "replicated" mode."""
         if self.flat_mode == "shard":
-            return [slice(0, bucket.padded)]
+            if self.nproc > 1:
+                return [(self._own(bucket.padded), slice(None), slice(None))]
+            return [(slice(0, bucket.padded),) * 3]
         dp = self.mesh.shape["dp"]
         s = bucket.padded // dp
-        return [slice(c * s, (c + 1) * s) for c in range(dp)]
+        return [(slice(c * s, (c + 1) * s),) * 3 for c in range(dp)]
+
+    # -- across processes ----------------------------------------------------
+    def _own(self, n):
+        """This process's contiguous block of ``n`` elements."""
+        s = n // self.nproc
+        return slice(self.prank * s, (self.prank + 1) * s)
+
+    def _reduce_slabs(self, flat_gs):
+        """Each bucket's gradient slab summed across processes: this
+        process's reduce-scattered block in "shard" mode, the whole sum in
+        "replicated" mode (one collective a bucket)."""
+        if self.nproc <= 1:
+            return flat_gs
+        if self.flat_mode == "shard":
+            return [_mesh.reduce_scatter_sum(g) for g in flat_gs]
+        return [_mesh.allreduce_sum(g) for g in flat_gs]
+
+    def _allreduce_each(self, tensors):
+        """Every tensor summed across processes, one collective a dtype."""
+        out = list(tensors)
+        by_dtype = {}
+        for i, t in enumerate(tensors):
+            by_dtype.setdefault(t.dtype, []).append(i)
+        for idx in by_dtype.values():
+            summed = _mesh.allreduce_sum(torch.cat([tensors[i].reshape(-1) for i in idx]))
+            off = 0
+            for i in idx:
+                n = tensors[i].numel()
+                out[i] = summed[off:off + n].view(tensors[i].shape)
+                off += n
+        return out
+
+    def _gather_full(self, blocks):
+        """The whole tensors of which every process holds the block at its
+        rank (contiguous rows of the first dimension), new, in rank order;
+        one all-gather a dtype."""
+        out = [None] * len(blocks)
+        by_dtype = {}
+        for i, t in enumerate(blocks):
+            by_dtype.setdefault(t.dtype, []).append(i)
+        for idx in by_dtype.values():
+            full = _mesh.all_gather(torch.cat([blocks[i].reshape(-1) for i in idx]))
+            full = full.view(self.nproc, -1)
+            off = 0
+            for i in idx:
+                b = blocks[i]
+                out[i] = full[:, off:off + b.numel()].reshape(
+                    (self.nproc * b.shape[0],) + tuple(b.shape[1:]))
+                off += b.numel()
+        return out
+
+    def _zero1_rows(self, params):
+        """name -> this process's row block, for the parameters ``zero1``
+        shards across processes (leading dimension divisible by dp, an
+        elementwise optimizer); empty otherwise."""
+        if not self.zero1 or self.nproc <= 1 or not getattr(
+                self.optimizer, "elementwise_update", False):
+            return {}
+        dp = self.mesh.shape["dp"]
+        return {n: self._own(params[n].shape[0]) for n in self.param_names
+                if params[n].dim() >= 1 and params[n].shape[0] % dp == 0}
+
+    def gather_state(self, opt_state, params=None):
+        """The whole masters and optimizer state: where each process holds
+        its block (``state_sharded``), a new dict whose sharded entries are
+        gathered from every process (a collective: every process calls it
+        at the same point; ``params`` names the ``zero1`` rows); else
+        ``opt_state`` itself."""
+        if not self.state_sharded:
+            return opt_state
+        if self._flat_sharded:
+            keys = [k for bi in range(len(self._flat_plan.buckets))
+                    for k in (self._master_key(bi), self._flat_key(bi))]
+        else:
+            keys = list(self._zero1_rows(params))
+        keys = [k for k in keys if opt_state.get(k) is not None]
+        blocks = []
+        for k in keys:
+            _map_state(blocks.append, opt_state[k])
+        whole = iter(self._gather_full(blocks))
+        out = dict(opt_state)
+        for k in keys:
+            out[k] = _map_state(lambda _b: next(whole), opt_state[k])
+        return out
 
     def _apply_optimizer_flat(self, params, grads, opt_state, lr, t, row=None, gate=None):
         """The f32 flat update: per bucket, the optimizer on the flat slab of
@@ -652,20 +831,28 @@ class ShardedTrainStep:
             dtype = params[names[0]].dtype
             flat_ws.append(self._pack([params[n] for n in names], b.padded, dtype))
             flat_gs.append(self._pack([grads[n] for n in names], b.padded, dtype))
-        ok = None if gate is None else self._gate(gate, flat_gs)
+        flat_gs = self._reduce_slabs(flat_gs)
+        partial = self._flat_sharded
+        ok = None if gate is None else self._gate(gate, flat_gs, partial=partial)
+        new_ws = []
         with self._patched_optimizer(lr, t, row):
             for bi, b in enumerate(plan.buckets):
                 flat_w, st = flat_ws[bi], opt_state.get(self._flat_key(bi))
                 if ok is not None:
                     flat_w, st_old, st = flat_w.clone(), st, _map_state(torch.clone, st)
-                for c in self._chunks(b):
-                    self._flat_body(b, flat_w[c], flat_gs[bi][c],
-                                    _map_state(lambda s, c=c: s[c], st))
+                for cw, cs, cg in self._chunks(b):
+                    self._flat_body(b, flat_w[cw], flat_gs[bi][cg],
+                                    _map_state(lambda s, cs=cs: s[cs], st))
                 if ok is not None:
                     flat_w = torch.where(ok, flat_w, flat_ws[bi])
                     _select_into(ok, st_old, st)
-                for (_i, name, off, size, shape) in b.views:
-                    new_params[name] = flat_w[off:off + size].view(shape)
+                new_ws.append(flat_w)
+        if partial:
+            # each process updated its block: the new weights from their owners
+            new_ws = self._gather_full([w[self._own(w.shape[0])] for w in new_ws])
+        for b, flat_w in zip(plan.buckets, new_ws):
+            for (_i, name, off, size, shape) in b.views:
+                new_params[name] = flat_w[off:off + size].view(shape)
         return new_params, opt_state
 
     def _slab_kind(self):
@@ -728,36 +915,56 @@ class ShardedTrainStep:
         scale = opt_state[self.AMP_SCALE_KEY]
         good = opt_state[self.AMP_GOOD_KEY]
         flat_gs = []
-        finite = torch.ones((), dtype=torch.bool, device=self.device)
         for b in plan.buckets:
             names = [v[1] for v in b.views]
-            flat_g = self._pack([grads[n] for n in names], b.padded, grads[names[0]].dtype)
+            flat_gs.append(self._pack([grads[n] for n in names], b.padded, grads[names[0]].dtype))
+        flat_gs = self._reduce_slabs(flat_gs)
+        finite = torch.ones((), dtype=torch.bool, device=self.device)
+        for flat_g in flat_gs:
             finite = finite & torch.isfinite(flat_g).all()
-            flat_gs.append(flat_g)
         inv_scale = torch.reciprocal(scale)
-        flag = finite if gate is None else finite & self._gate(gate, flat_gs, inv_scale)
+        partial = self._flat_sharded
+        gn2 = None
+        if partial:
+            # each process holds a block of the summed gradients: the finite
+            # flag (so the scaler's decision) and the guard's grad-norm² are
+            # the whole sum's, one small all-reduce for both
+            parts = [(~finite).to(torch.float32)]
+            if gate is not None:
+                parts.append(self._grad_norm2(flat_gs))
+            summed = _mesh.allreduce_sum(torch.stack(parts))
+            finite = summed[0] == 0
+            gn2 = summed[1] if gate is not None else None
+        flag = finite if gate is None else finite & self._gate(gate, flat_gs, inv_scale, gn2=gn2)
         finite_f = flag.to(torch.float32)
         new_params = dict(params)
         kind = self._slab_kind()
-        entries, statics = [], None
+        entries, statics, w16s = [], None, []
         with self._patched_optimizer(lr, t, row):
             for bi, b in enumerate(plan.buckets):
                 master = opt_state[self._master_key(bi)]
                 st = opt_state.get(self._flat_key(bi))
-                w16 = torch.empty(b.padded, dtype=torch.bfloat16, device=self.device)
-                for c in self._chunks(b):
-                    st_c = _map_state(lambda s, c=c: s[c], st)
+                # the masters, state and new bf16 weights of this process's
+                # block where the state is sharded; the weight slice is theirs
+                w16 = torch.empty(master.shape[0], dtype=torch.bfloat16, device=self.device)
+                for _cw, cs, cg in self._chunks(b):
+                    st_c = _map_state(lambda s, cs=cs: s[cs], st)
                     if kind is None:
-                        self._flat_body_amp(b, master[c], flat_gs[bi][c], st_c, inv_scale,
-                                            finite_f, w16[c])
+                        self._flat_body_amp(b, master[cs], flat_gs[bi][cg], st_c, inv_scale,
+                                            finite_f, w16[cs])
                     else:
-                        entry, statics = self._slab_entry(kind, b, master[c], flat_gs[bi][c],
-                                                          st_c, w16[c])
+                        entry, statics = self._slab_entry(kind, b, master[cs], flat_gs[bi][cg],
+                                                          st_c, w16[cs])
                         entries.append(entry)
-                for (_i, name, off, size, shape) in b.views:
-                    new_params[name] = w16[off:off + size].view(shape)
+                w16s.append(w16)
             if entries:
                 kernels.fused_slab_update_multi(kind, entries, inv_scale, finite_f, **statics)
+        if partial:
+            # the new bf16 weights of every block from its owner
+            w16s = self._gather_full(w16s)
+        for b, w16 in zip(plan.buckets, w16s):
+            for (_i, name, off, size, shape) in b.views:
+                new_params[name] = w16[off:off + size].view(shape)
         grown = (good + 1.0) >= float(self.amp_scale_window)
         zero = torch.zeros_like(good)
         opt_state[self.AMP_SCALE_KEY] = torch.where(
@@ -780,7 +987,7 @@ class ShardedTrainStep:
         # the mirror rematerialises the cheap ops in backward and keeps the
         # dot/conv outputs (executor._GraphProgram._run_regions)
         mirror = ([rng] if rng is not None else [], _mirror_ops()) if self.mirror else None
-        with torch.enable_grad():
+        with torch.enable_grad(), _mesh.spanning_batch_stats(self.nproc > 1):
             outs, new_aux = self.program({**leaves, **batch}, aux, rng, True, mirror=mirror)
             loss = sum((o.float() if amp else o).sum() for o in outs)
             diff = [n for n in self.param_names if leaves[n].requires_grad]
@@ -812,7 +1019,10 @@ class ShardedTrainStep:
             ok = gate["ok"]
             new_aux = {k: (torch.where(ok, v, aux[k]) if k in aux else v)
                        for k, v in new_aux.items()}
-            outs = outs + [torch.stack([loss.detach().float(), gate["gn2"], ok.float()])]
+            # every process's guard observes the global batch's loss
+            diag_loss = _mesh.allreduce_sum(loss.detach().float()) if self.nproc > 1 \
+                else loss.detach().float()
+            outs = outs + [torch.stack([diag_loss, gate["gn2"], ok.float()])]
         return new_params, new_aux, new_opt, outs
 
     def compile(self, data_shapes_by_name=None):
@@ -882,12 +1092,21 @@ class ShardedTrainStep:
         if self._guard_thr is not None:
             self._guard_thr.fill_(self._guard_thr_host)
 
-    def _gate(self, gate, grads, inv_scale=None):
+    @staticmethod
+    def _grad_norm2(grads):
+        return torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32).square()
+                            for g in grads]).sum()
+
+    def _gate(self, gate, grads, inv_scale=None, partial=False, gn2=None):
         """``ok`` of the guard from ``grads`` (tensors whose squares sum to
-        the global grad-norm², scaled by ``1/inv_scale`` under AMP); records
-        ``gn2`` and ``ok`` in ``gate``."""
-        gn2 = torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32).square()
-                           for g in grads]).sum()
+        the global grad-norm², scaled by ``1/inv_scale`` under AMP; with
+        ``partial`` each process holds a block, and the sums are added
+        across processes) or from a ``gn2`` already summed; records ``gn2``
+        and ``ok`` in ``gate``."""
+        if gn2 is None:
+            gn2 = self._grad_norm2(grads)
+            if partial:
+                gn2 = _mesh.allreduce_sum(gn2)
         if inv_scale is not None:
             gn2 = gn2 * inv_scale * inv_scale
         ok = torch.isfinite(gn2) & (gn2 <= self._guard_thr)
@@ -910,6 +1129,12 @@ class ShardedTrainStep:
         buffers and graph are kept per K and batch signature). Raises
         NotImplementedError for an optimizer whose update does not read its
         lr through ``Optimizer._op_lr``."""
+        if self.nproc > 1:
+            raise MXNetError(
+                "K fused steps at once over a mesh that spans %d processes: the gloo "
+                "collectives of the step run on the host and cannot be captured into a CUDA "
+                "graph (capture over processes needs NCCL, the multi-card half of ROADMAP "
+                "Queue 1 step 8); use MXNET_FIT_MULTISTEP=1" % self.nproc)
         opt = self.optimizer
         if opt is not None and getattr(opt, "fused_slab_kernel", None) is None:
             raise NotImplementedError(

@@ -19,8 +19,8 @@
   and the :data:`EXIT_GUARDRAIL` verdict when the rewind budget runs out.
 
 :mod:`.fault` is the test-only injection switchboard
-(``MXTPU_FAULT_INJECT``). The elastic shrink (``MXTPU_ELASTIC``) is not
-ported yet.
+(``MXTPU_FAULT_INJECT``). The elastic shrink (``MXTPU_ELASTIC``) lives in
+``fit`` (``module/base_module.py``) and ``tools/watchdog.py``.
 """
 from . import checkpoint, fault, guardrail, retry  # noqa: F401
 from .checkpoint import (  # noqa: F401

@@ -61,8 +61,8 @@ except ImportError:  # standalone import
 EXIT_PREEMPTED = 75
 
 #: Exit code for "a replica was declared lost, final checkpoint written,
-#: restart me at the surviving world size" (the elastic path, not ported
-#: yet; kept so supervisors share one table of codes).
+#: restart me at the surviving world size" (fit's elastic shrink,
+#: ``tools/watchdog.py --elastic``).
 EXIT_RESHAPE = 76
 
 ENV_INTERVAL = "MXTPU_CKPT_INTERVAL"

@@ -70,13 +70,15 @@ Directives (value is always an integer):
 
 The port's call sites fire ``step``, ``rewind``, ``ckpt_write``,
 ``ckpt_done``, ``kv_push`` and ``kv_pull`` (``Module.fit``, the checkpoint
-writer, the kvstore), ``recordio_read`` (``MXRecordIO.read``, inside its
-retry) and ``record_decode`` (the streaming pipeline's decode, in the
-process that decodes: a decode worker has its own budget), and read
-``batch_poison``. The multi-process mesh's ``collective`` point comes with
-that mesh (ROADMAP Queue 1 step 8), so ``delay_collective_ms`` parses and
-does nothing; so do ``replica_lost`` and ``heartbeat_stall``, whose
-heartbeat files belong to the multi-process mesh.
+writer, the kvstore), ``collective`` (inside every cross-process collective
+of ``parallel/mesh.py``, and the local kvstore's reduce with ``local=True``),
+``recordio_read`` (``MXRecordIO.read``, inside its retry) and
+``record_decode`` (the streaming pipeline's decode, in the process that
+decodes: a decode worker has its own budget), and read ``batch_poison``.
+``replica_lost`` and ``heartbeat_stall`` write the heartbeat files of
+``parallel/heartbeat.py`` (the names are repeated here, so this module
+stays stdlib-only), and the lost rank stops in its next collective, as
+in the JAX package.
 
 Values are integers except ``replica_lost``/``heartbeat_stall``, whose
 ``<rank>@<step>`` pairs parse to (rank, step) tuples; malformed values
@@ -90,6 +92,7 @@ from __future__ import annotations
 import errno
 import os
 import signal
+import time
 
 ENV = "MXTPU_FAULT_INJECT"
 
@@ -147,10 +150,9 @@ def fire(point, **ctx):
     """Hit a named fault point. No-op unless MXTPU_FAULT_INJECT matches.
 
     Points: ``step`` (ctx: step), ``ckpt_write`` (ctx: path),
-    ``ckpt_done`` (ctx: path), ``rewind`` (ctx: step), ``kv_push`` /
-    ``kv_pull`` (ctx: key), ``recordio_read`` (ctx: uri, offset),
-    ``record_decode`` (ctx: uri, ordinal). The JAX package's
-    ``collective`` point comes with the multi-process mesh.
+    ``ckpt_done`` (ctx: path), ``collective`` (ctx: local), ``rewind``
+    (ctx: step), ``kv_push`` / ``kv_pull`` (ctx: key), ``recordio_read``
+    (ctx: uri, offset), ``record_decode`` (ctx: uri, ordinal).
     """
     raw, spec = _spec()
     if not spec:
@@ -163,6 +165,27 @@ def fire(point, **ctx):
             os._exit(77)
         if spec.get("preempt_at_step") == step and _take(raw, "preempt", 1):
             os.kill(os.getpid(), signal.SIGTERM)
+        rl = spec.get("replica_lost")
+        if isinstance(rl, tuple) and rl[1] == step and _take(raw, "replica_lost", 1):
+            _mark_rank(rl[0], stall_only=False)
+        hs = spec.get("heartbeat_stall")
+        if isinstance(hs, tuple) and hs[1] == step and _take(raw, "heartbeat_stall", 1):
+            _mark_rank(hs[0], stall_only=True)
+    elif point == "collective":
+        ms = spec.get("delay_collective_ms", 0)
+        if ms > 0:
+            time.sleep(ms / 1000.0)
+        rl = spec.get("replica_lost")
+        # local=True marks a one-process reduce: there is no peer to wedge,
+        # and blocking would hang the only process of the job
+        if (isinstance(rl, tuple) and _fired.get((raw, "replica_lost"))
+                and not ctx.get("local")
+                and os.environ.get("DMLC_RANK") == str(rl[0])):
+            # the lost rank drops out of the group's collectives: it blocks
+            # here, as a preempted peer would, and its survivors (fit's
+            # elastic guard, the watchdog) take it from there
+            while True:
+                time.sleep(60.0)
     elif point == "ckpt_write":
         n = spec.get("enospc_at_ckpt_write")
         if n is not None:
@@ -216,6 +239,30 @@ def batch_poison(step):
             and _take(raw, "loss_spike", 1)):
         return "spike"
     return None
+
+
+_RUN_DIR_ENV = "MXTPU_RUN_DIR"
+
+
+def _mark_rank(rank, stall_only):
+    """The file-level ``parallel/heartbeat.py`` ``mark_lost``: drop the
+    tombstone (``lost_<rank>`` / ``stall_<rank>``) and back-date the signal
+    file (``hb_<rank>`` / ``prog_<rank>``), so liveness pollers trip on
+    their next pass."""
+    directory = os.environ.get(_RUN_DIR_ENV)
+    if not directory:
+        return  # no run dir: nothing polls liveness
+    tomb, sig = ("stall_", "prog_") if stall_only else ("lost_", "hb_")
+    try:
+        os.makedirs(directory, exist_ok=True)
+        for prefix, backdate in ((tomb, False), (sig, True)):
+            path = os.path.join(directory, "%s%d" % (prefix, int(rank)))
+            with open(path, "a"):
+                pass
+            if backdate:
+                os.utime(path, (1.0, 1.0))
+    except OSError:
+        pass  # injection is best-effort; never crash the host
 
 
 def _truncate_params(ckpt_path):

@@ -1,0 +1,480 @@
+"""The port's checks across the processes of a launched job (counterpart of
+the repo's ``tests/dist_worker.py``), and the fits and steps that the tests
+and ``chip_smoke.py`` hold against one process::
+
+    python -m mxnet_tpu_torch.tools.launch -n 2 \\
+        python -m mxnet_tpu_torch.tools.dist_check --out DIR --device cpu
+
+Each worker joins the job's gloo group (``parallel.init_distributed``) and
+writes ``rank<r>.json`` into ``--out``; a failed assertion exits the worker
+with a code other than 0, which the launcher returns.
+
+``--checks`` (default ``kvstore,barrier,fused``):
+
+- ``kvstore``: a ``dist_sync`` store's closed-form cross-worker sum after
+  an ``init`` that broadcasts rank 0's value;
+- ``barrier``: a barrier that waits: rank 0 waits at least 1 s on a peer
+  that sleeps 2 s before it;
+- ``fused``: a ``ShardedTrainStep`` over a mesh that spans the processes
+  (2 logical ranks in each), whose loss halves in 12 steps and whose ranks
+  end bit for bit equal.
+
+``--fit KV[+amp],...`` runs ``Module.fit`` of ``--model`` (``resnet50`` at
+3x224x224, ``resnet8`` at 3x16x16, ``mlp-bn``) over ``--steps`` batches of
+``--batch`` rows of the job (each process feeds its own rows; the data is
+:func:`fit_data`'s, the same in every process) with each kvstore type
+(``dist_device_sync``: the fused path over a mesh that spans the
+processes; ``dist_sync``: the executor path and the store's GradBucketer),
+``+amp`` under ``MXTPU_AMP=bf16``, ``+rep`` with the fused update in
+"replicated" mode (``MXTPU_SHARD_UPDATE=0``), ``+localrescale`` with the
+gradient rescaled by the process's own rows instead of the job's batch
+(the optimizer's ``rescale_grad`` given as one over the local batch: a
+wrong fit that a check against one process must catch), ``:N`` for N
+steps instead of ``--steps``. Each writes its state
+(``fit_<KV[+amp]>_rank<r>.npz``) and, into the JSON, the losses of the
+global batch, each tensor's sha256, the kernel launches, ms a step, the
+collectives' ms and bytes a step, the buckets, the peak memory and, with
+``--profile-steps``, the idle share of that many more profiled steps.
+``--snap-step N`` saves the weights and aux states after step N too
+(``snap:*``, ``snapaux:*``).
+``--ckpt DIR`` fits with ``checkpoint_dir=DIR, resume="auto"`` (the
+elastic shrink under ``tools/watchdog.py --elastic``; the global batch stays
+``--batch`` at every world size).
+
+``--step-test MODE=FILE.npz,...`` runs a ``ShardedTrainStep`` in each mode
+(:data:`STEP_MODES`: f32 or AMP, "shard" or "replicated", or ``zero1``) from
+the symbol, parameters, aux states and global batches in the file, and
+writes the state after the last step (``step_<MODE>_rank<r>.npz``).
+"""
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import logging
+import os
+import sys
+import time
+
+import numpy as np
+
+SGD = {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4}
+T_IMPORT = time.perf_counter()
+
+
+def fit_data(model, steps, batch):
+    """(X, y) of ``steps`` global batches of ``batch`` rows for ``model``
+    (float32 images or features, integer labels as float32); each from a
+    generator of its own, so the first N batches are the same whatever
+    ``steps`` is."""
+    shape, classes = {"resnet50": ((3, 224, 224), 1000), "resnet8": ((3, 16, 16), 10),
+                      "mlp-bn": ((16,), 4)}[model]
+    X = np.random.default_rng(0).standard_normal((steps * batch,) + shape, dtype=np.float32)
+    y = np.random.default_rng(1).integers(0, classes, steps * batch).astype(np.float32)
+    return X, y
+
+
+def fit_symbol(mx, model):
+    """The symbol of ``model`` in package ``mx`` (either package)."""
+    if model == "resnet50":
+        from importlib import import_module
+
+        return import_module(mx.__name__ + ".models.resnet").get_symbol()
+    if model == "resnet8":
+        from importlib import import_module
+
+        return import_module(mx.__name__ + ".models.resnet").get_symbol(
+            num_classes=10, num_layers=8, image_shape="3,16,16")
+    data = mx.sym.Variable("data")
+    net = mx.sym.FullyConnected(data, num_hidden=32, name="fc1")
+    net = mx.sym.BatchNorm(net, fix_gamma=False, name="bn1")
+    net = mx.sym.Activation(net, act_type="relu")
+    net = mx.sym.FullyConnected(net, num_hidden=4, name="fc2")
+    return mx.sym.SoftmaxOutput(net, name="softmax")
+
+
+def local_rows(X, steps, rank, size):
+    """This process's rows of each of ``steps`` global batches of ``X``."""
+    per = X.shape[0] // steps
+    b = per // size
+    return X.reshape((steps, per) + X.shape[1:])[:, rank * b:(rank + 1) * b].reshape(
+        (steps * b,) + X.shape[1:])
+
+
+def digest(t):
+    """sha256 of a tensor's bytes (bf16 through its int16 view)."""
+    import torch
+
+    t = t.detach().contiguous().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return hashlib.sha256(t.numpy().tobytes()).hexdigest()
+
+
+def check_kvstore(mx, rank, size, res):
+    kv = mx.kv.create("dist_sync")
+    assert (kv.rank, kv.num_workers) == (rank, size), (kv.rank, kv.num_workers)
+    shape = (5, 7)
+    # init broadcasts rank 0's value: the ranks give different ones
+    kv.init(3, mx.nd.ones(shape) * (42 if rank == 0 else -1))
+    pulled = mx.nd.zeros(shape)
+    kv.pull(3, out=pulled)
+    np.testing.assert_allclose(pulled.asnumpy(), 42.0)
+    rate, repeat = 2.0, 3
+    kv.set_updater(lambda key, recv, stored: stored.__iadd__(recv * rate))
+    for _ in range(repeat):
+        # two values a worker: the local reduce, then the sum across workers
+        kv.push(3, [mx.nd.ones(shape) * (rank + 1) * 0.5, mx.nd.ones(shape) * (rank + 1) * 0.5])
+    kv.pull(3, out=pulled)
+    want = 42.0 + rate * repeat * sum(r + 1 for r in range(size))
+    np.testing.assert_allclose(pulled.asnumpy(), want, rtol=1e-6)
+    res["kvstore_value"] = float(pulled.asnumpy()[0, 0])
+    res["kvstore_expected"] = want
+
+
+def check_barrier(rank, res):
+    from mxnet_tpu_torch.parallel import mesh
+
+    sleep_s = 2.0
+    t0 = time.perf_counter()
+    if rank != 0:
+        time.sleep(sleep_s)
+    mesh.barrier("skew-test")
+    waited = time.perf_counter() - t0
+    if rank == 0:
+        assert waited >= 0.5 * sleep_s, "barrier returned in %.2f s: it did not wait" % waited
+    res["barrier_wait_s"] = waited
+
+
+def check_fused(mx, dev, rank, size, res):
+    import torch
+
+    from mxnet_tpu_torch.parallel import ShardedTrainStep, make_mesh, mesh
+
+    data = mx.sym.Variable("data")
+    net = mx.sym.FullyConnected(data, num_hidden=32, name="fc1")
+    net = mx.sym.Activation(net, act_type="relu")
+    net = mx.sym.FullyConnected(net, num_hidden=4, name="fc2")
+    net = mx.sym.SoftmaxOutput(net, name="softmax")
+    m = make_mesh(dp=2 * size, devices=[dev] * 2, processes=size)
+    opt = mx.optimizer.SGD(learning_rate=0.5, rescale_grad=1.0 / 16)
+    step = ShardedTrainStep(net, m, optimizer=opt).compile()
+    arg_shapes, _, _ = net.infer_shape(data=(16, 8), softmax_label=(16,))
+    np.random.seed(7)
+    params, aux, state = step.init(dict(zip(net.list_arguments(), arg_shapes)),
+                                   mx.initializer.Xavier())
+    rng = np.random.RandomState(0)
+    X = rng.randn(16, 8).astype(np.float32)
+    y = (rng.rand(16) * 4).astype(np.float32)
+    per = 16 // size
+    lo = rank * per
+    batch = {"data": torch.from_numpy(X[lo:lo + per]).to(step.device),
+             "softmax_label": torch.from_numpy(y[lo:lo + per]).to(step.device)}
+    losses = []
+    for t in range(12):
+        params, aux, state, outs = step(params, aux, state, batch, t=t + 1)
+        prob = outs[0].float().cpu().numpy()
+        losses.append(float(-np.mean(np.log(prob[np.arange(per), y[lo:lo + per].astype(int)]
+                                            + 1e-8))))
+    assert losses[-1] < 0.5 * losses[0], losses
+    w = params["fc1_weight"]
+    assert torch.equal(mesh.allreduce_sum(w), w * size), "ranks' weights differ"
+    res["fused_losses"] = [losses[0], losses[-1]]
+    res["params_identical"] = True
+
+
+def _launch_counts():
+    from mxnet_tpu_torch.ops import kernels
+
+    return {"conv_bwd_filter": kernels.conv_bwd_filter.launches,
+            "conv_bwd_input": kernels.conv_bwd_input.launches,
+            "slab_update": kernels.fused_slab_update.launches}
+
+
+def _zero_launches():
+    from mxnet_tpu_torch.ops import kernels
+
+    for fn in (kernels.conv_bwd_filter, kernels.conv_bwd_input, kernels.fused_slab_update):
+        fn.launches = 0
+
+
+def _idle_share(mod, batch, steps):
+    """Wall ms a step, busy ms of the card's kernels (their union) and the
+    idle share over ``steps`` more steps under torch.profiler."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            mod.forward_backward(batch)
+            mod.update()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == cuda and "memcpy" not in e.name.lower()
+                   and "memset" not in e.name.lower())
+    busy, end = 0.0, None
+    for s, e in spans:
+        if end is None or s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    busy_ms = busy / 1e3 / steps
+    wall_ms = 1e3 * wall / steps
+    return {"steps": steps, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "idle_share": max(0.0, 1.0 - busy_ms / wall_ms)}
+
+
+def run_fit(mx, dev, ctx, args, name, rank, size, res):
+    import torch
+
+    from mxnet_tpu_torch import kvstore as kvs
+    from mxnet_tpu_torch.parallel import mesh
+
+    t_setup = time.perf_counter()
+    name, _, steps = name.partition(":")
+    steps = int(steps or args.steps)
+    X, y = fit_data(args.model, steps, args.batch)
+    Xl, yl = local_rows(X, steps, rank, size), local_rows(y, steps, rank, size)
+    b = args.batch // size
+    it = mx.io.NDArrayIter(Xl, yl, batch_size=b)
+    kv_type, *flags = name.split("+")
+    amp = "amp" in flags
+    if amp:
+        os.environ["MXTPU_AMP"] = "bf16"
+    else:
+        os.environ.pop("MXTPU_AMP", None)
+    os.environ["MXTPU_SHARD_UPDATE"] = "0" if "rep" in flags else "1"
+    np.random.seed(0)
+    mod = mx.mod.Module(fit_symbol(mx, args.model), context=ctx)
+    nlls, stamps, first, snap = [], [], {}, {}
+
+    def on_batch(param):
+        if param.nbatch + 1 == args.snap_step:
+            # the weights after this step (across processes a collective,
+            # which every rank reaches here)
+            mod._sync_params_from_devices()
+            snap.update({"snap:" + k: v.asnumpy().copy() for k, v in mod._arg_params.items()})
+            snap.update({"snapaux:" + k: v.asnumpy().copy()
+                         for k, v in mod._aux_params.items()})
+        prob = mod.get_outputs()[0]._data
+        label = param.locals["data_batch"].label[0]._data.long()
+        picked = prob.float().gather(1, label.unsqueeze(1)).squeeze(1)
+        nlls.append(-torch.log(picked.clamp_min(1e-30)).sum())
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        stamps.append(time.perf_counter())
+        if not first:  # the steps after the first: no init broadcasts, no warm-up
+            first.update({op: dict(v) for op, v in mesh.collective_stats.items()},
+                         buckets=dict(kvs.bucket_stats))
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    mesh.reset_collective_stats()
+    kvs.bucket_stats.update(flushes=0, bytes=0)
+    _zero_launches()
+    fit_kw = {}
+    if args.ckpt:
+        fit_kw = dict(checkpoint_dir=args.ckpt, resume="auto")
+    t0 = time.perf_counter()
+    setup_s = t0 - t_setup
+    opt_params = dict(SGD)
+    if "localrescale" in flags:
+        opt_params["rescale_grad"] = 1.0 / b
+    mod.fit(it, kvstore=kv_type, optimizer="sgd",
+            optimizer_params=opt_params,
+            initializer=mx.init.Xavier(), num_epoch=1, batch_end_callback=on_batch, **fit_kw)
+    fit_s = time.perf_counter() - t0
+    launches = _launch_counts()
+    n = len(nlls)
+    base = {"calls": 0, "seconds": 0.0, "bytes": 0}
+    stats = {op: {k: v[k] - first.get(op, base)[k] for k in base}
+             for op, v in mesh.collective_stats.items()}
+    flushes = kvs.bucket_stats["flushes"] - first["buckets"]["flushes"]
+    bucket_bytes = kvs.bucket_stats["bytes"] - first["buckets"]["bytes"]
+    # the global batch's mean loss of each step
+    losses = (mesh.allreduce_sum(torch.stack(nlls)).double() / args.batch).tolist()
+    arg, aux = mod.get_params()  # across processes in "shard" mode: a collective
+    state = {"arg:" + k: v.asnumpy() for k, v in arg.items()}
+    state.update({"aux:" + k: v.asnumpy() for k, v in aux.items()})
+    state.update(snap)
+    digests = {k: digest(v._data) for k, v in arg.items()}
+    digests.update({"aux:" + k: digest(v._data) for k, v in aux.items()})
+    tr = mod._fused_trainer
+    if tr is not None and tr.amp:
+        digests.update({"bf16:" + k: digest(v) for k, v in mod._fused_params.items()})
+        masters = tr.master_params_named(tr.gather_state(mod._fused_opt, mod._fused_params))
+        for k, v in mod._fused_params.items():
+            assert torch.equal(v, masters[k].to(torch.bfloat16)), "%s != bf16(master)" % k
+    np.savez(os.path.join(args.out, "fit_%s_rank%d.npz" % (name, rank)), **state)
+    step_s = [b2 - b1 for b1, b2 in zip(stamps[1:], stamps[2:])]
+    fit = {"model": args.model, "kv": kv_type, "amp": bool(amp), "steps": n,
+           "batch": args.batch, "rows": b, "losses": losses, "digests": digests,
+           "launches": launches, "setup_s": setup_s, "fit_s": fit_s,
+           "step_ms_median": 1e3 * float(np.median(step_s)) if step_s else None,
+           "collectives_after_step_1": stats,
+           "collective_ms_per_step": (1e3 * sum(v["seconds"] for v in stats.values())
+                                      / max(1, n - 1)),
+           "collective_bytes_per_step": sum(v["bytes"] for v in stats.values()) / max(1, n - 1),
+           "bucket_flushes_per_step": flushes / max(1, n - 1),
+           "bucket_bytes_per_step": bucket_bytes / max(1, n - 1),
+           "fused": tr is not None,
+           "flat_mode": None if tr is None else tr.flat_mode,
+           "buckets": (len(tr._flat_plan.buckets) if tr is not None and tr._flat_plan
+                       else None),
+           "backend": mesh.backend()}
+    if dev.type == "cuda":
+        fit["peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        if args.profile_steps:
+            it.reset()
+            fit["profile"] = _idle_share(mod, next(iter(it)), args.profile_steps)
+    fit["wall_s"] = time.perf_counter() - t_setup
+    res.setdefault("fits", {})[name] = fit
+
+
+def _leaves(state):
+    """The tensors of an optimizer-state dict (its scalars too)."""
+    out = []
+    for v in state.values():
+        out.extend(v if isinstance(v, tuple) else [] if v is None else [v])
+    return out
+
+
+#: --step-test modes: (MXTPU_AMP, MXTPU_SHARD_UPDATE, zero1)
+STEP_MODES = {"f32-shard": ("", "1", False), "f32-replicated": ("", "0", False),
+              "amp-shard": ("bf16", "1", False), "amp-replicated": ("bf16", "0", False),
+              "zero1": ("", "1", True)}
+
+
+def run_step_test(mx, dev, mode, path, out_dir, rank, size, res):
+    """One ``ShardedTrainStep`` run of ``mode`` from the blob at ``path``:
+    ``symbol`` (JSON), ``arg:*`` / ``aux:*`` arrays, ``data`` / ``label``
+    (steps, global batch, ...), ``steps``, ``local_ranks``, ``lr``,
+    ``momentum``. Writes ``step_<mode>_rank<r>.npz``: the weights (the
+    masters under AMP), aux states, working params and (zero1) the
+    momentum after the last step."""
+    import torch
+
+    from mxnet_tpu_torch.parallel import ShardedTrainStep, make_mesh
+
+    blob = dict(np.load(path))
+    sym = mx.sym.load_json(str(blob["symbol"]))
+    steps, local = int(blob["steps"]), int(blob["local_ranks"])
+    X, y = blob["data"], blob["label"]
+    amp, shard, zero1 = STEP_MODES[mode]
+    saved = {k: os.environ.get(k) for k in ("MXTPU_AMP", "MXTPU_SHARD_UPDATE")}
+    os.environ.update(MXTPU_AMP=amp, MXTPU_SHARD_UPDATE=shard)
+    try:
+        m = make_mesh(dp=local * size, devices=[dev] * local, processes=size)
+        opt = mx.optimizer.create("sgd", learning_rate=float(blob["lr"]),
+                                  momentum=float(blob["momentum"]),
+                                  rescale_grad=1.0 / X.shape[1])
+        step = ShardedTrainStep(sym, m, optimizer=opt, zero1=zero1)
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None) if v is None else os.environ.__setitem__(k, v)
+    params, aux = step.place_params(
+        {k[4:]: v for k, v in blob.items() if k.startswith("arg:")},
+        {k[4:]: v for k, v in blob.items() if k.startswith("aux:")})
+    state = step.make_state(params)
+    params = step.amp_cast_params(params)
+    b = X.shape[1] // size
+    for t in range(steps):
+        batch = {"data": torch.from_numpy(X[t, rank * b:(rank + 1) * b]).to(dev),
+                 "softmax_label": torch.from_numpy(y[t, rank * b:(rank + 1) * b]).to(dev)}
+        params, aux, state, _ = step(params, aux, state, batch, t=t + 1)
+    held = sum(t.numel() for t in _leaves(state))
+    state = step.gather_state(state, params)
+    weights = step.master_params_named(state) if step.amp else params
+    out = {"arg:" + k: v.float().cpu().numpy() for k, v in weights.items()}
+    out.update({"aux:" + k: v.cpu().numpy() for k, v in aux.items()})
+    out.update({"w:" + k: v.float().cpu().numpy() for k, v in params.items()})
+    if zero1:
+        out.update({"mom:" + k: v.cpu().numpy() for k, v in state.items() if torch.is_tensor(v)})
+    np.savez(os.path.join(out_dir, "step_%s_rank%d.npz" % (mode, rank)), **out)
+    res.setdefault("steps", {})[mode] = {
+        "flat_mode": step.flat_mode, "amp": step.amp, "zero1": step.zero1,
+        "state_sharded": step.state_sharded, "state_elems_held": held,
+        "state_elems_whole": sum(t.numel() for t in _leaves(state)),
+        "digests": {k: digest(torch.from_numpy(v)) for k, v in out.items()}}
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--out", required=True)
+    p.add_argument("--device", default="cuda", choices=["cpu", "cuda"])
+    p.add_argument("--checks", default="kvstore,barrier,fused")
+    p.add_argument("--fit", default="",
+                   help="fits to run, comma-separated kvstore types, +amp for bf16 AMP, "
+                        "+rep for the replicated update, +localrescale for the gradient "
+                        "rescaled by the local batch, :N for N steps (e.g. "
+                        "dist_sync:3,dist_device_sync+amp)")
+    p.add_argument("--model", default="resnet50", choices=["resnet50", "resnet8", "mlp-bn"])
+    p.add_argument("--steps", type=int, default=10)
+    p.add_argument("--batch", type=int, default=64, help="rows of the job's batch")
+    p.add_argument("--profile-steps", type=int, default=0)
+    p.add_argument("--ckpt", default=None)
+    p.add_argument("--snap-step", type=int, default=0,
+                   help="also save the weights and aux states after this step (snap:* and "
+                        "snapaux:* in the npz)")
+    p.add_argument("--step-test", default="",
+                   help="comma-separated MODE=FILE.npz (modes: %s)" % ", ".join(STEP_MODES))
+    args = p.parse_args(argv)
+
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.parallel import mesh
+
+    if args.device == "cuda":
+        # one worker's algorithms are its peer's: the ranks compare bit for
+        # bit; f32 products stay f32 (no TF32), as in a one-process run they
+        # are held to
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.init()  # the memory statistics need the card's state
+    mesh.init_distributed()
+    rank, size = mesh.process_index(), mesh.process_count()
+    logging.basicConfig(level=logging.INFO,
+                        format="[dist_check rank %d] %%(name)s: %%(message)s" % rank)
+    ctx = mx.cpu() if args.device == "cpu" else mx.gpu(0)
+    dev = ctx.torch_device
+    res = {"rank": rank, "size": size, "backend": mesh.backend(), "pid": os.getpid(),
+           "started_s": time.perf_counter() - T_IMPORT}
+    os.makedirs(args.out, exist_ok=True)
+    with ctx:
+        checks = [c for c in args.checks.split(",") if c] if args.checks != "none" else []
+        if checks and size < 2:
+            raise SystemExit("dist_check: the checks need a launched job of 2+ processes")
+        for name in checks:
+            {"kvstore": lambda: check_kvstore(mx, rank, size, res),
+             "barrier": lambda: check_barrier(rank, res),
+             "fused": lambda: check_fused(mx, dev, rank, size, res)}[name]()
+        for item in [i for i in args.step_test.split(",") if i]:
+            mode, _, path = item.partition("=")
+            run_step_test(mx, dev, mode, path, args.out, rank, size, res)
+        for name in [i for i in args.fit.split(",") if i]:
+            run_fit(mx, dev, ctx, args, name, rank, size, res)
+    res["ok"] = True
+    res["wall_s"] = time.perf_counter() - T_IMPORT
+    path = os.path.join(args.out, "rank%d.json" % rank)
+    if args.ckpt and os.path.exists(path):  # an earlier attempt's (elastic)
+        with open(path) as f:
+            res["earlier_attempt"] = json.load(f)
+    with open(path, "w") as f:
+        json.dump(res, f)
+    mesh.barrier("dist-check-end")
+    mesh.shutdown_distributed()
+    print("[dist_check rank %d of %d] ok" % (rank, size), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -213,10 +213,11 @@ def test_predict_and_reshape_match_jax():
 
 
 def test_unported_surface_raises():
-    with pytest.raises(NotImplementedError, match="mxnet_tpu/kvstore.py"):
-        tmx.kv.create("dist_sync")
-    with pytest.raises(NotImplementedError, match="mxnet_tpu/kvstore.py"):
-        tmx.kvstore.GradBucketer(1024)
+    # the dist kvstore types and the bucketer are ported: without a
+    # launcher the store is a one-worker store, as JAX's is
+    kv = tmx.kv.create("dist_sync")
+    assert (kv.rank, kv.num_workers, kv.type) == (0, 1, "dist_sync")
+    assert tmx.kvstore.GradBucketer(1024).drain() == []
     # FeedForward is ported (tests/test_torch_feedforward.py): it constructs
     # and fits one batch
     X, y = _data(False, n=16)
@@ -229,8 +230,10 @@ def test_unported_surface_raises():
     mesh = tmx.parallel.make_mesh(dp=2, devices=[tmx.cpu()] * 2)
     step = tmx.parallel.ShardedTrainStep(_mlp(tmx), mesh)
     assert step.arm_guard() is step and step.guard  # the guard is ported (resilience)
-    with pytest.raises(NotImplementedError, match="mxnet_tpu/"):
-        tmx.parallel.ShardedTrainStep(_mlp(tmx), mesh, zero1=True)
+    # zero1 is ported (tests/test_torch_dist.py); param_specs still raises
+    assert tmx.parallel.ShardedTrainStep(_mlp(tmx), mesh, zero1=True).zero1
+    with pytest.raises(NotImplementedError, match="multi-card half"):
+        tmx.parallel.ShardedTrainStep(_mlp(tmx), mesh, param_specs={"fc1_weight": ("tp",)})
     # K-step groups are ported for SGD and Adam; other optimizers still raise
     rmsprop = tmx.optimizer.create("rmsprop")
     with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 step 2"):
@@ -238,11 +241,12 @@ def test_unported_surface_raises():
 
 
 def test_unported_fit_options_raise(tmp_path, monkeypatch):
-    """The elastic shrink-and-continue path (``MXTPU_ELASTIC=1`` with a
-    checkpoint dir) raises; ``monitor`` is ported (a fit with one records
-    its stats, tests/test_torch_monitor.py), and so are checkpoint_dir /
-    resume / guardrails (tests/test_torch_resilience.py,
-    tests/test_torch_guardrail.py)."""
+    """``monitor`` is ported (a fit with one records its stats,
+    tests/test_torch_monitor.py), and so are checkpoint_dir / resume /
+    guardrails (tests/test_torch_resilience.py,
+    tests/test_torch_guardrail.py) and the elastic shrink
+    (``MXTPU_ELASTIC=1``, tests/test_torch_elastic.py): without a run dir
+    and a world above 1 it has nothing to watch, and the fit runs."""
     mod = tmx.mod.Module(_mlp(tmx), context=tmx.cpu())
     it = tmx.io.NDArrayIter(*_data(False, 16), batch_size=16)
     seen = []
@@ -252,5 +256,6 @@ def test_unported_fit_options_raise(tmp_path, monkeypatch):
     mod.fit(it, num_epoch=1, monitor=mon)
     assert seen and all(step == 1 for step, _, _ in seen)
     monkeypatch.setenv("MXTPU_ELASTIC", "1")
-    with pytest.raises(NotImplementedError, match="Queue 1 step 8"):
-        mod.fit(it, num_epoch=1, checkpoint_dir=str(tmp_path))
+    monkeypatch.delenv("MXTPU_RUN_DIR", raising=False)
+    mod.fit(it, num_epoch=1, checkpoint_dir=str(tmp_path))
+    assert tmx.resilience.list_checkpoints(str(tmp_path))

@@ -260,13 +260,21 @@ def test_fault_spec_parses_as_the_jax_package_does(monkeypatch):
 
 
 def test_fault_inert_directives_do_nothing(tmp_path, monkeypatch):
-    """The directives whose sites wait for later steps parse and do
-    nothing: no file appears in the run dir, no delay, no raise."""
-    monkeypatch.setenv("MXTPU_RUN_DIR", str(tmp_path))
-    monkeypatch.setenv(fault.ENV, "replica_lost=0@1,heartbeat_stall=1@1,fail_recordio_read=1,"
-                       "bad_record=1,delay_collective_ms=1,unit=%d" % os.getpid())
-    fault.fire("step", step=1)
-    assert os.listdir(tmp_path) == []
+    """The step point's directives whose sites are elsewhere (recordio,
+    decode, collectives) do nothing there; ``replica_lost`` and
+    ``heartbeat_stall`` are live since the multi-process slice and write
+    the JAX package's tombstone files, no others."""
+    spec = ("replica_lost=0@1,heartbeat_stall=1@1,fail_recordio_read=1,bad_record=1,"
+            "delay_collective_ms=1,unit=%d" % os.getpid())
+    got = {}
+    for name, mod in (("port", fault), ("jax", jfault)):
+        run = tmp_path / name
+        run.mkdir()
+        monkeypatch.setenv("MXTPU_RUN_DIR", str(run))
+        monkeypatch.setenv(fault.ENV, spec)
+        mod.fire("step", step=1)
+        got[name] = sorted(os.listdir(run))
+    assert got["port"] == got["jax"] == ["hb_0", "lost_0", "prog_1", "stall_1"]
 
 
 def test_batch_poison_fires_once_per_directive(monkeypatch):
@@ -525,9 +533,14 @@ def test_resume_without_checkpoint_dir_and_bad_values_raise(tmp_path):
 
 
 def test_elastic_shrink_is_not_ported(tmp_path, monkeypatch):
+    """The elastic shrink is ported since the multi-process slice
+    (tests/test_torch_elastic.py): without a run dir it watches nothing, and
+    the fused fit runs to its end as without MXTPU_ELASTIC."""
     monkeypatch.setenv("MXTPU_ELASTIC", "1")
-    with pytest.raises(NotImplementedError, match="base_module.py:543-600"):
-        _fused_fit(tmx, str(tmp_path), "acc")
+    monkeypatch.delenv("MXTPU_RUN_DIR", raising=False)
+    mod = _fused_fit(tmx, str(tmp_path), "acc")
+    assert mod._fused_trainer is not None
+    assert ck.list_checkpoints(str(tmp_path))
 
 
 def test_executor_path_checkpoint_resumes_in_the_port(tmp_path, monkeypatch):

@@ -155,6 +155,14 @@ def test_trainer_refuses_cpu_unasked(monkeypatch):
 
 @pytest.mark.parametrize("flags", [["--dp", "2"], ["--tp", "2"]])
 def test_trainer_raises_on_unported_parallelism(flags):
+    """--tp still raises; --dp is ported (across processes in
+    tests/test_torch_dist.py): in one process its two ranks share the
+    batch, which trains as dp 1 does."""
+    if flags[0] == "--dp":
+        assert trainer.main(["--cpu", "--steps", "1", "--vocab", "32", "--d-model", "16",
+                             "--n-heads", "2", "--n-layers", "1", "--d-ff", "32",
+                             "--seq-len", "8", "--batch-size", "2"] + flags) == 0
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         trainer.main(["--cpu", "--steps", "1"] + flags)
 
