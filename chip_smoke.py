@@ -16,6 +16,7 @@
     python3 chip_smoke.py --only telemetry             # K1-K3's build and all of phase 28
     python3 chip_smoke.py --only detection             # K1-K3's and NMS's build and phase 29
     python3 chip_smoke.py --only dist                  # K1-K3's build and phase 30 with (d)
+    python3 chip_smoke.py --only axes                  # the flash kernels' build and phase 31
 
 
 Phases, each fatal on failure:
@@ -235,14 +236,17 @@ Phases, each fatal on failure:
     plain versions, as in phase 9, on every distinct in-envelope convolution
     shape of alexnet (batch 512), vgg-16, googlenet, inception-bn,
     inception-v3, inception-resnet-v2 and resnext-50 (batch 32) at their
-    published image sides, f32 and bf16 (non-square 1 x 7 / 7 x 1 / 1 x 3 /
+    published image sides, f32, and bf16 under ``--only zoo`` (phase 9
+    holds bf16 K2/K3 on ResNet-50's shapes in the full script;
+    ``conv_checks.s_by_dtype`` times each dtype) (non-square 1 x 7 / 7 x 1 / 1 x 3 /
     3 x 1 kernels, sides 147 to 8 that are not multiples of K2/K3's 8 x 8
     patch, 1 x 1 convolutions whose OH·OW is not a multiple of 8, 24
     channels); (b) f32 gradients of inception-v3 and alexnet at full width,
     batch 8, through K2/K3 against their plain versions, as phase 10 holds
     ResNet-50's; (c) the model sweep's step (``tools/model_sweep.py``, one
     warm-up and 3 timed steps) on inception-bn, inception-v3 and alexnet in
-    f32 and bf16, and on vgg-16, googlenet, resnext-50 and
+    f32 and (``--only zoo``) bf16, and on vgg-16, googlenet,
+    resnext-50 and
     inception-resnet-v2 in f32, each at its published batch and side
     (vgg-16 and googlenet, which have no BatchNorm, at lr 0.001: at the
     sweep's 0.1 their losses reach NaN within four steps from the sweep's
@@ -326,7 +330,8 @@ Phases, each fatal on failure:
     momentum, two epochs of 8 seeded batches (16 steps),
     ``MXTPU_CKPT_INTERVAL=4``. Each run is a process of its own (this
     script with ``--resilience-worker``), cuDNN deterministic with
-    autotuning off in all of them; four chains run side by side: (a) at
+    autotuning off in all of them; the chains run side by side (each
+    reference apart from its kill and resume): (a) at
     ``MXNET_FIT_MULTISTEP`` 1 and 4, a reference fit, a fit with
     ``kill_at_step=11`` (it must die of SIGKILL) and a ``resume="auto"``
     fit from its checkpoints, whose final state (every master, momentum
@@ -340,7 +345,9 @@ Phases, each fatal on failure:
     ``nan_grad_at_step=6,loss_spike_at_step=12``: eagerly, the state after
     step 6 equals that after step 5 bit for bit but for the loss scale
     (halved) and the good count (zeroed); at K = 4 the final state equals
-    the eager run's bit for bit, with one capture; both finite. Whether
+    the eager run's bit for bit, with one capture; both finite (the full
+    script runs (a) at K = 1 and (c) eagerly: the K = 4 chain and the
+    guarded K = 4 fit run under ``--only resilience``). Whether
     ResNet-50's spike trips is recorded (its ``bn_data`` BatchNorm
     normalizes a scaled batch); a 2-layer MLP's spike at K = 4 inside the
     first replayed group must be skipped by the gate (one capture, one
@@ -378,7 +385,9 @@ Phases, each fatal on failure:
     consumes, and the CPU count. (c) phase 17's ResNet-50 AMP fit (dp 4 on
     gpu(0)) over the 32 batches of that .rec through ``ImageRecordIter``
     with a 4-process decode pool, eagerly and at ``MXNET_FIT_MULTISTEP=4``,
-    each with ``MXTPU_DEVICE_FEED`` 0 and 1, and eagerly with the feed at
+    each with ``MXTPU_DEVICE_FEED`` 0 and 1 (the full script runs the fed
+    fit at K = 4 alone, held to the host stream; the pairs run under
+    ``--only input``), and eagerly with the feed at
     depth 1 behind a sleep of 5e7 cycles on the staging stream before
     every staged copy: with the feed the final state and
     ``bn_data``'s moving statistics after every step bitwise equal to the
@@ -456,8 +465,9 @@ Phases, each fatal on failure:
     a profiled step (and its card-busy and wall ms), and the same wrapper
     launches, with the mirror as without; ``__force_mirroring__`` on block mixed_4: its gradients the
     same. (c) phase 21's ResNet-50 bf16 AMP fit on the dp 4 mesh (16
-    batches, one epoch) unmirrored and mirrored, eagerly and at
-    ``MXNET_FIT_MULTISTEP=4`` (profiled): every state tensor of each replayed
+    batches, one epoch) unmirrored and mirrored, eagerly and (``--only
+    mirror``) at ``MXNET_FIT_MULTISTEP=4`` (profiled): every
+    state tensor of each replayed
     fit bit for bit its eager fit's, and the mirrored fits the unmirrored
     ones'; peak memory and step ms of each (a replay's ms is the card's
     cost of the mirror, without the host's); then a Dropout MLP's trainer, three groups
@@ -565,6 +575,25 @@ Phases, each fatal on failure:
     and NMS are counted from zero over (c)-(e), and each must have
     launched.
 
+31. the model axes across processes (``--only axes`` runs the sp and ep
+    legs and tp-step too): phase 30's launch of two workers on gpu(0) also
+    trains the LM at full width (FULL, bf16, T 2048, batch 4) with ``--tp
+    2`` across the two processes for 3 steps (``dist_check --lm tp``): each
+    process holds half of every tp-sharded weight and runs K4f / K4dq /
+    K4dkv on its 8 heads. The first loss is held within 5e-3 relative, and
+    the first step's gathered gradients within 2e-2 of each leaf's max, of
+    one process's tp 1 run at the same seed on the card; both ranks' losses
+    equal, the replicated leaves and the gathered ones bit for bit equal
+    across the ranks; each worker's K4 launches (12 a step), step ms, idle
+    share, collectives' ms and MB a step, peak GiB printed. ``--only axes``
+    launches its own job: the axes check, the tp, sp 2 (the process ring)
+    and ep 2 (8 experts) legs to the same limits (the ep leg against one
+    process's MoE run), and tp-step (``ShardedTrainStep(param_specs=)`` over
+    dp 1 x tp 2 across the processes, an MLP, against one process's over a
+    logical tp 2 mesh: 1e-6 of max, and ``Module(mesh=, param_specs=).fit``
+    with rank 0's checkpoint). ``phase_seconds`` records each phase's
+    seconds of the full script.
+
 Then the kernels line: the seven kernels, K4f, K4dq, K4dkv, K2, K3, K5 and
 K1, and the NMS kernel; K2's and K3's launches count phase 20's training rows, and their
 entries carry phase 20's launches and inception-v3 step under ``zoo``;
@@ -588,7 +617,9 @@ count phase 28 (a)'s wrappers (the warm-up groups and the captures) and
 (b)'s profiled replays by kernel name, which their ``launches`` include.
 K1's, K2's and K3's ``launches_by_path["detection"]`` count phase 29
 (c)-(e)'s wrappers, and ``launches_by_path["dist"]`` phase 30 (b)-(c)'s
-wrappers in both worker processes, which their ``launches`` include. The NMS kernel's
+wrappers in both worker processes, which their ``launches`` include.
+K4f's, K4dq's and K4dkv's ``launches_by_path["axes"]`` count phase 31's tp
+leg in both workers, which their ``launches`` include. The NMS kernel's
 entry (a kernel of the port with no TPU counterpart) counts phase 29's
 detection path and carries (b)'s times at SSD-300's 8732 x 32 (``ms``,
 ``plain_ms``, ``bound_ms``) and at Proposal's 6000 -> 300.
@@ -1496,15 +1527,16 @@ def shared_grad_bits(kernels, x, w, g, dshape, wshape, pad, got):
             for name in got}
 
 
-def conv_checks(kernels, cases, dev, rng):
+def conv_checks(kernels, cases, dev, rng, seconds=None):
     """K2 and K3 against their plain versions on ``cases`` [((data, weight,
     pad), dtypes)]: each within 1e-4 of max|plain|, a repeat bitwise, the
     shared channels-last grad bitwise. Returns (worst error by kernel and
-    dtype, every case's errors)."""
+    dtype, every case's errors); ``seconds``, a dict, gets each dtype's."""
     worst, errs = {}, {}
     for (dshape, wshape, pad), dtypes in cases:
         for dtype in dtypes:
             key = str(dtype).split(".")[-1]
+            t_case = time.perf_counter()
             args = conv_inputs(dshape, wshape, pad, dtype, dev, rng)
             for name, e in conv_errors(kernels, *args, dshape, wshape, pad).items():
                 log("  %s data=%s weight=%s pad=%s %s: rel_err %.3g (tol 1e-4) max_abs_err "
@@ -1520,6 +1552,8 @@ def conv_checks(kernels, cases, dev, rng):
                                          "its standalone call" % name)
                 worst[name + " " + key] = max(worst.get(name + " " + key, 0.0), e["rel_err"])
                 errs[(name, dshape, wshape, pad, key)] = e
+            if seconds is not None:
+                seconds[key] = seconds.get(key, 0.0) + time.perf_counter() - t_case
     return worst, errs
 
 
@@ -1802,9 +1836,10 @@ def zoo_conv_shapes(model_sweep, kernels, spec, dtype):
     return shapes
 
 
-def phase_zoo(model_sweep, kernels, dev):
-    """Phase 20 (see the module docstring). Returns (results, K2/K3 launches
-    of its training rows)."""
+def phase_zoo(model_sweep, kernels, dev, full=True):
+    """Phase 20 (see the module docstring; without ``full`` (a) checks and
+    (c) trains f32 alone). Returns (results, K2/K3 launches of its training
+    rows)."""
     import torch
 
     zoo = zoo_models(model_sweep)
@@ -1813,7 +1848,7 @@ def phase_zoo(model_sweep, kernels, dev):
     dtypes_of = {}
     for name, (spec, _) in zoo.items():
         res["counts"][name] = {}
-        for dtype in ("float32", "bfloat16"):
+        for dtype in ("float32", "bfloat16") if full else ("float32",):
             shapes = zoo_conv_shapes(model_sweep, kernels, spec, dtype)
             res["counts"][name][dtype] = {"convs": sum(shapes.values()),
                                           "distinct": len(shapes)}
@@ -1821,9 +1856,11 @@ def phase_zoo(model_sweep, kernels, dev):
                 dtypes_of.setdefault(key, []).append(getattr(torch, dtype))
     cases = [(key, tuple(dict.fromkeys(dts))) for key, dts in dtypes_of.items()]
     t0 = time.perf_counter()
-    worst, errs = conv_checks(kernels, cases, dev, np.random.default_rng(20))
+    by_dtype = {}
+    worst, errs = conv_checks(kernels, cases, dev, np.random.default_rng(20), by_dtype)
     res["conv_checks"] = {"shapes": len(cases), "cases": sum(len(d) for _, d in cases),
-                          "worst_rel_err": worst, "s": time.perf_counter() - t0}
+                          "worst_rel_err": worst, "s": time.perf_counter() - t0,
+                          "s_by_dtype": by_dtype}
     log("phase 20 (a): K2/K3 vs plain ok over the zoo's %d distinct in-envelope shapes (%d "
         "shape-dtype cases; in-envelope convolutions by model and dtype %s), worst rel_err %s"
         % (len(cases), res["conv_checks"]["cases"], json.dumps(res["counts"]),
@@ -1852,7 +1889,7 @@ def phase_zoo(model_sweep, kernels, dev):
     # (c) training at the published batch and side (main path 7)
     res["train"], launches = [], dict.fromkeys(("conv_bwd_filter", "conv_bwd_input"), 0)
     for name, (spec, dtypes) in zoo.items():
-        for dtype in dtypes:
+        for dtype in dtypes if full else [d for d in dtypes if d == "float32"]:
             zero_counts(kernels)  # counts from here are this row's
             row = model_sweep.run_row(name, dtype, ZOO_STEPS, dev, model=spec,
                                       lr=ZOO_LR.get(name, model_sweep.resnet_bench.LR))
@@ -3938,8 +3975,10 @@ def resil_mlp_spike(mx, dev, ck, root):
             "health": {k: health[k] for k in ("skips", "trips", "last_clean_step")}}
 
 
-def phase_resilience(mx, kernels, dev, package, plan):
-    """Phase 23; see the module docstring."""
+def phase_resilience(mx, kernels, dev, package, plan, full=True):
+    """Phase 23; see the module docstring. Without ``full`` (the full
+    script) the K = 4 chain of (a) and (c)'s guarded K = 4 fit are left to
+    ``--only resilience``."""
     import shutil
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
@@ -3951,12 +3990,13 @@ def phase_resilience(mx, kernels, dev, package, plan):
     torch.backends.cudnn.deterministic = True
     root = tempfile.mkdtemp(prefix="chip_smoke_resilience_")
     fault_c = "nan_grad_at_step=%d,loss_spike_at_step=%d" % (RESIL["nan"], RESIL["spike"])
+    # a reference needs nothing of its kill / resume chain: each runs apart
     chains = {
-        "a1": [("ref1", dict(dir="ref1", k=1)),
-               ("kill1", dict(dir="kill1", k=1, fault="kill_at_step=%d" % RESIL["kill"])),
+        "r1": [("ref1", dict(dir="ref1", k=1))],
+        "a1": [("kill1", dict(dir="kill1", k=1, fault="kill_at_step=%d" % RESIL["kill"])),
                ("res1", dict(dir="kill1", k=1, resume="auto", profile=True))],
-        "a4": [("ref4", dict(dir="ref4", k=4)),
-               ("kill4", dict(dir="kill4", k=4, fault="kill_at_step=%d" % RESIL["kill"])),
+        "r4": [("ref4", dict(dir="ref4", k=4))],
+        "a4": [("kill4", dict(dir="kill4", k=4, fault="kill_at_step=%d" % RESIL["kill"])),
                ("res4", dict(dir="kill4", k=4, resume="auto", profile=True))],
         "b": [("pre", dict(dir="pre", k=1, fault="preempt_at_step=%d" % RESIL["preempt"])),
               ("preres", dict(dir="pre", k=1, resume="auto"))],
@@ -3964,6 +4004,10 @@ def phase_resilience(mx, kernels, dev, package, plan):
                             snap=[RESIL["nan"] - 1, RESIL["nan"]])),
               ("nan4", dict(dir="nan4", k=4, guard="auto", fault=fault_c))],
     }
+    ks = (1, 4) if full else (1,)
+    if not full:
+        del chains["r4"], chains["a4"]
+        chains["c"] = chains["c"][:1]
     try:
         t0 = time.perf_counter()
         with ThreadPoolExecutor(len(chains)) as pool:
@@ -3979,7 +4023,7 @@ def phase_resilience(mx, kernels, dev, package, plan):
                         for n, r in runs.items()}}
         # (a) kill and resume, K = 1 and 4
         launches = dict.fromkeys(MULTI_KERNEL_NAMES, 0)
-        for k in (1, 4):
+        for k in ks:
             ref, kill, again = runs["ref%d" % k], runs["kill%d" % k], runs["res%d" % k]
             _expect(ref, 0)
             _expect(kill, -9)
@@ -4016,24 +4060,29 @@ def phase_resilience(mx, kernels, dev, package, plan):
         res["b"] = {"exit": pre["rc"], "checkpoint_step": RESIL["preempt"],
                     "bitwise_equal_to_reference": len(preres["digests"])}
         # (c) the guard: the NaN step keeps every bit of the step before
-        nan1, nan4 = runs["nan1"], runs["nan4"]
+        nan1 = runs["nan1"]
         _expect(nan1, 0)
-        _expect(nan4, 0)
         before, after = (nan1["snaps"][str(s)] for s in (RESIL["nan"] - 1, RESIL["nan"]))
         scaler = ("opt:__amp_scale__.0", "opt:__amp_good__.0")
         diff = _digest_diff(after["digests"], before["digests"], skip=scaler)
         assert not diff, "the gated step changed %s" % diff[:5]
         assert after["scale"] == before["scale"] / 2 and after["good"] == 0.0, (before, after)
-        assert nan1["finite"] and nan4["finite"]
-        diff = _digest_diff(nan4["digests"], nan1["digests"])
-        assert not diff, "guarded K = 4 differs from guarded eager: %s" % diff[:5]
-        (g,) = nan4["groups"]
-        assert g["captures"] == 1 and g["warmup_groups"] == 1, g
+        assert nan1["finite"]
+        g = None
+        if full:
+            nan4 = runs["nan4"]
+            _expect(nan4, 0)
+            assert nan4["finite"]
+            diff = _digest_diff(nan4["digests"], nan1["digests"])
+            assert not diff, "guarded K = 4 differs from guarded eager: %s" % diff[:5]
+            (g,) = nan4["groups"]
+            assert g["captures"] == 1 and g["warmup_groups"] == 1, g
         health = ck.read_manifest(ck.step_dir(os.path.join(root, "nan1"), 16))["health"]
         spike_trip = "skipped step %d" % RESIL["spike"] in nan1["log"]
         res["c"] = {"nan_step": RESIL["nan"], "state_after_equals_before_bitwise": True,
                     "scale_before": before["scale"], "scale_after": after["scale"],
-                    "k4_bitwise_equal_to_eager": len(nan4["digests"]), "k4_group": g,
+                    "k4_bitwise_equal_to_eager": len(runs["nan4"]["digests"]) if full else None,
+                    "k4_group": g,
                     "health_at_16": {k: health[k] for k in ("skips", "trips",
                                                             "last_clean_step")},
                     "resnet_spike_step": RESIL["spike"], "resnet_spike_skipped": spike_trip,
@@ -4537,8 +4586,9 @@ def input_resilience(package, paths, root):
 
 def phase_input(mx, kernels, dev, package, measure=True):
     """Phase 24; see the module docstring. Without ``measure`` (the full
-    script, to stay well inside its time limit) it leaves out (b), the
-    delayed-staging fit and (d), which ``--only input`` runs."""
+    script, to stay well inside its time limit) it leaves out (b), (d) and
+    every fit of (c) but the fed one at K = 4 (held to the host stream's
+    checksums), which ``--only input`` runs: the feed on / off pairs."""
     import shutil
     import tempfile
 
@@ -4615,8 +4665,7 @@ def phase_input(mx, kernels, dev, package, measure=True):
                             "mean": np.array(INPUT["mean"])})
             host = [[int(v) for v in batch_checksum(batch_tensors(b)).tolist()] for b in it]
         fits, faults = {}, []  # every disagreement, reported together
-        for k, feed, depth, delay in INPUT_FITS if measure else [f for f in INPUT_FITS
-                                                                   if not f[3]]:
+        for k, feed, depth, delay in INPUT_FITS if measure else [(4, "1", None, False)]:
             name = "k%d_feed%s%s%s" % (k, feed, "_depth" + depth if depth else "",
                                        "_delayed" if delay else "")
             fits[name] = run = input_fit(mx, kernels, paths["input"], k, feed, depth, delay)
@@ -4633,7 +4682,7 @@ def phase_input(mx, kernels, dev, package, measure=True):
                                   % (name, what, bad))
             if (run["staged_device"] == "cuda:0") != (feed == "1"):
                 faults.append("%s staged on %s" % (name, run["staged_device"]))
-            if feed == "1":
+            if feed == "1" and "k%d_feed0" % k in fits:
                 off = fits["k%d_feed0" % k]
                 diff = _digest_diff(run["digests"], off["digests"])
                 if diff:
@@ -4647,9 +4696,10 @@ def phase_input(mx, kernels, dev, package, measure=True):
         res["c"] = {"fits": {n: {k: v for k, v in f.items()
                                  if k not in ("digests", "received", "batches", "bn_data")}
                              for n, f in fits.items()},
-                    "state_tensors_bitwise_equal_feed_on_off": len(fits["k1_feed0"]["digests"]),
-                    "steps_equal_host_run_before_and_after_the_step": len(host),
-                    "bn_data_equal_feed_on_off_every_step": True}
+                    "steps_equal_host_run_before_and_after_the_step": len(host)}
+        if "k1_feed0" in fits:
+            res["c"].update(state_tensors_bitwise_equal_feed_on_off=len(
+                fits["k1_feed0"]["digests"]), bn_data_equal_feed_on_off_every_step=True)
         launches = dict.fromkeys(MULTI_KERNEL_NAMES, 0)
         for f in fits.values():
             for n in launches:
@@ -5454,12 +5504,12 @@ def _mirror_env(on):
         os.environ.pop("MXNET_BACKWARD_DO_MIRROR", None)
 
 
-def mirror_fit(mx, kernels, dev, cfg=MIRROR_FIT):
+def mirror_fit(mx, kernels, dev, cfg=MIRROR_FIT, grouped=True):
     """Phase 26 (c): ResNet-50 bf16 AMP ``Module.fit`` on the dp 4 mesh
     (phase 21's leg, one epoch of ``batches``) unmirrored and mirrored,
-    eagerly and at ``MXNET_FIT_MULTISTEP=k`` (profiled): every state tensor
-    of a replayed fit bit for bit its eager fit's, the mirrored fits the
-    unmirrored ones'; then the Dropout groups."""
+    eagerly and (``grouped``) at ``MXNET_FIT_MULTISTEP=k`` (profiled): every
+    state tensor of a replayed fit bit for bit its eager fit's, the
+    mirrored fits the unmirrored ones'; then the Dropout groups."""
     import torch
 
     rng = np.random.RandomState(26)
@@ -5472,7 +5522,7 @@ def mirror_fit(mx, kernels, dev, cfg=MIRROR_FIT):
     try:
         for tag, mirror, k in (("off", False, 1), ("on", True, 1),
                                ("off_k%d" % cfg["k"], False, cfg["k"]),
-                               ("on_k%d" % cfg["k"], True, cfg["k"])):
+                               ("on_k%d" % cfg["k"], True, cfg["k"]))[:4 if grouped else 2]:
             _mirror_env(mirror)
             try:
                 mod, leg, state, _ = multistep_leg(mx, kernels, dev, X, y, k, True, 1,
@@ -5484,13 +5534,13 @@ def mirror_fit(mx, kernels, dev, cfg=MIRROR_FIT):
             legs[tag], states[tag] = leg, state
             del mod
             torch.cuda.empty_cache()
-        grouped = "on_k%d" % cfg["k"]
-        diff = state_diff(states[grouped], states["on"])
-        assert not diff, ("replayed vs eager mirrored", len(diff), diff[:5])
         diff = state_diff(states["on"], states["off"])
         assert not diff, ("mirrored vs unmirrored", len(diff), diff[:5])
-        diff = state_diff(states["off_k%d" % cfg["k"]], states["off"])
-        assert not diff, ("replayed vs eager unmirrored", len(diff), diff[:5])
+        if grouped:
+            diff = state_diff(states["on_k%d" % cfg["k"]], states["on"])
+            assert not diff, ("replayed vs eager mirrored", len(diff), diff[:5])
+            diff = state_diff(states["off_k%d" % cfg["k"]], states["off"])
+            assert not diff, ("replayed vs eager unmirrored", len(diff), diff[:5])
         legs["dropout"] = mirror_dropout_groups(mx, dev)
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
@@ -5516,9 +5566,10 @@ def mirror_sweep(mx):
     return rows
 
 
-def phase_mirror(mx, kernels, dev, sweep=False):
+def phase_mirror(mx, kernels, dev, full=False):
     """Phase 26; see the module docstring. Every part runs; the phase fails
-    after them if any failed."""
+    after them if any failed. ``full`` (``--only mirror``) adds (c)'s
+    grouped legs and the sweep."""
     import traceback
 
     faults = []
@@ -5537,9 +5588,9 @@ def phase_mirror(mx, kernels, dev, sweep=False):
     res["a_s"] = time.perf_counter() - t0
     res["b"] = part("b", mirror_inception_check, mx, kernels)
     res["b_s"] = time.perf_counter() - t0 - res["a_s"]
-    res["c"] = part("c", mirror_fit, mx, kernels, dev)
+    res["c"] = part("c", mirror_fit, mx, kernels, dev, MIRROR_FIT, full)
     res["phase_s"] = time.perf_counter() - t0
-    if sweep:
+    if full:
         res["sweep"] = part("sweep", mirror_sweep, mx)
     for key in ("a", "b", "c"):
         log("phase 26 (%s): %s" % (key, json.dumps(res[key], default=str)))
@@ -6986,7 +7037,9 @@ def nms_entry(res):
 # and below the control, the same fit with the gradient rescaled by the
 # local batch (twice the gradient), which must fail it. The weights after
 # all steps are reported, not held; (b) holds the sharded update bit for
-# bit to the replicated one across the processes.
+# bit to the replicated one across the processes. The replicated twin and
+# the control run under --only dist only, and the full script's AMP fit
+# takes amp_steps // 2 steps.
 # (c) the executor path's workers compute what the two contexts compute.
 DIST = dict(batch=64, amp_steps=10, f32_steps=3, profile_steps=2, timeout=900,
             elastic_steps=6, elastic_batch=64, first_loss=1e-3, losses=1e-2, f32=1e-5,
@@ -7109,10 +7162,12 @@ def _of_max(got, want, keys):
     return worst
 
 
-def phase_dist(mx, kernels, dev, package, full=False):
+def phase_dist(mx, kernels, dev, package, full=False, extra=()):
     """Phase 30: two worker processes on gpu(0), one gloo group, through the
     port's launcher (see the module docstring). Returns the numbers and
-    each rank's K1/K2/K3 launches (``launches``, summed over the ranks)."""
+    each rank's K1/K2/K3 launches (``launches``, summed over the ranks);
+    ``extra`` flags of dist_check join the same launch (phase 31's tp leg),
+    and ``ranks`` holds the workers' JSON for them."""
     import torch
 
     from mxnet_tpu_torch.tools import dist_check
@@ -7122,13 +7177,17 @@ def phase_dist(mx, kernels, dev, package, full=False):
     os.makedirs(root, exist_ok=True)
     res = {"card": card_line()}
     amp_fits = ["dist_device_sync+amp", "dist_device_sync+amp+rep"]
+    # the full script's AMP fit is half as long (its host-bound steps vary most)
+    steps = DIST["amp_steps"] if full else DIST["amp_steps"] // 2
+    fit_list = "%s:%d,dist_device_sync:%d,dist_sync:%d" % (
+        amp_fits[0], steps, DIST["f32_steps"], DIST["f32_steps"])
+    if full:  # the replicated twin and the local-rescale control
+        fit_list += ",%s:%d,dist_device_sync+localrescale:1" % (amp_fits[1], steps)
     proc, wall, ranks = _dist_launch(package, root, "abc", [
-        "--checks", "kvstore,barrier,fused", "--fit", "%s:%d,%s:%d,dist_device_sync:%d,"
-        "dist_sync:%d,dist_device_sync+localrescale:1" % (
-            amp_fits[0], DIST["amp_steps"], amp_fits[1], DIST["amp_steps"], DIST["f32_steps"],
-            DIST["f32_steps"]),
+        "--checks", "kvstore,barrier,fused", "--fit", fit_list,
         "--model", "resnet50", "--batch", str(DIST["batch"]), "--snap-step", "1",
-        "--profile-steps", str(DIST["profile_steps"])])
+        "--profile-steps", str(DIST["profile_steps"])] + list(extra))
+    res["ranks"] = ranks
     assert len(ranks) == 2 and all(r["ok"] and r["size"] == 2 for r in ranks), ranks
     res["launch_wall_s"] = wall
     log("phase 30 (a)-(c): the workers' launch %.1f s; rank 0's seconds: to its first check "
@@ -7150,12 +7209,11 @@ def phase_dist(mx, kernels, dev, package, full=False):
     # (b) the AMP dist_device_sync fit: both ranks, and the replicated
     # update, bit for bit; the f32 fused fit against one process over dp 2
     fits = [r["fits"][amp_fits[0]] for r in ranks]
-    reps = [r["fits"][amp_fits[1]] for r in ranks]
+    reps = [r["fits"][amp_fits[1]] for r in ranks] if full else []
     assert fits[0]["digests"] == fits[1]["digests"], "the ranks' masters / bf16 weights differ"
     assert fits[0]["losses"] == fits[1]["losses"]
     assert fits[0]["fused"] and fits[0]["flat_mode"] == "shard" and fits[0]["amp"]
-    assert reps[0]["flat_mode"] == "replicated"
-    steps = DIST["amp_steps"]
+    assert not reps or reps[0]["flat_mode"] == "replicated"
     want = {"conv_bwd_filter": RESNET_CONVS * steps, "conv_bwd_input": RESNET_CONVS * steps,
             "slab_update": slab_launches_a_step(kernels, fits[0]["buckets"]) * steps}
     for f in fits:
@@ -7177,9 +7235,10 @@ def phase_dist(mx, kernels, dev, package, full=False):
     got, got32 = npz(amp_fits[0]), npz("dist_device_sync")
     snap_of = lambda g: {k[5:]: v for k, v in g.items() if k.startswith("snap:")}  # noqa
     first_update = {"two_processes": _first_update_err(snap_of(got32), f32_ref),
-                    "control_local_rescale": _first_update_err(
-                        snap_of(npz("dist_device_sync+localrescale")), f32_ref),
                     "amp_two_processes_not_held": _first_update_err(snap_of(got), amp_ref)}
+    if full:
+        first_update["control_local_rescale"] = _first_update_err(
+            snap_of(npz("dist_device_sync+localrescale")), f32_ref)
     if witness is not None:
         assert all(np.array_equal(witness[5][k], f32_ref[5][k]) for k in f32_ref[5])
         first_update["witness_one_process_no_cudnn"] = _first_update_err(witness[4], f32_ref)
@@ -7206,9 +7265,10 @@ def phase_dist(mx, kernels, dev, package, full=False):
                                                 "held_ulps")},
                 "first_update_rel_err": first_update,
                 "ranks_bitwise_equal": True,
-                "shard_bitwise_equal_to_replicated": fits[0]["digests"] == reps[0]["digests"],
+                "shard_bitwise_equal_to_replicated": (fits[0]["digests"] == reps[0]["digests"]
+                                                      if reps else None),
                 "launches_each_rank": fits[0]["launches"],
-                "replicated_launches_each_rank": reps[0]["launches"],
+                "replicated_launches_each_rank": reps[0]["launches"] if reps else None,
                 "step_ms_per_rank": [f["step_ms_median"] for f in fits],
                 "replicated_step_ms_per_rank": [f["step_ms_median"] for f in reps],
                 "one_process_step_ms": ref_ms,
@@ -7216,7 +7276,8 @@ def phase_dist(mx, kernels, dev, package, full=False):
                 "collective_bytes_per_step": fits[0]["collective_bytes_per_step"],
                 "collectives_after_step_1": fits[0]["collectives_after_step_1"],
                 "replicated_collective_ms_per_step": [f["collective_ms_per_step"] for f in reps],
-                "replicated_collective_bytes_per_step": reps[0]["collective_bytes_per_step"],
+                "replicated_collective_bytes_per_step": (reps[0]["collective_bytes_per_step"]
+                                                         if reps else None),
                 "peak_mem_gib_per_rank": [f.get("peak_mem_gib") for f in fits],
                 "replicated_peak_mem_gib_per_rank": [f.get("peak_mem_gib") for f in reps],
                 "profile_rank0": fits[0].get("profile"), "profile_rank1": fits[1].get("profile"),
@@ -7231,8 +7292,9 @@ def phase_dist(mx, kernels, dev, package, full=False):
                         "peak_mem_gib_per_rank": [f.get("peak_mem_gib") for f in f32s],
                         "launches_each_rank": f32s[0]["launches"]}}
     log("phase 30 (b): %s" % json.dumps(res["b"]))
-    assert res["b"]["shard_bitwise_equal_to_replicated"], "shard and replicated updates differ"
-    assert reps[0]["launches"] == want, (reps[0]["launches"], want)
+    if reps:
+        assert res["b"]["shard_bitwise_equal_to_replicated"], "shard and replicated differ"
+        assert reps[0]["launches"] == want, (reps[0]["launches"], want)
     assert l_errs[0] <= DIST["first_loss"], ("first loss", l_errs[0])
     assert max(l_errs) <= DIST["losses"], ("losses", l_errs)
     assert res["b"]["f32"]["ranks_bitwise_equal"]
@@ -7311,6 +7373,197 @@ def phase_dist(mx, kernels, dev, package, full=False):
     return res
 
 
+AXES = dict(seq_len=2048, batch=4, steps=3, experts=8, first_loss=5e-3, grads=2e-2,
+            step_tol=1e-6)
+#: phase 31's MLP for tp-step: Megatron's specs over dp 1 x tp 2
+AXES_SPECS = {"fc1_weight": ("tp", None), "fc1_bias": ("tp",), "fc2_weight": (None, "tp")}
+
+
+def axes_lm_args(legs, profile=True):
+    """dist_check's flags for the LM legs at the full width (FULL, bf16, T
+    2048, batch 4): rank 0 writes the first step's gathered gradients."""
+    dims = (FULL["vocab"], FULL["d_model"], FULL["n_heads"], FULL["n_layers"], FULL["d_ff"],
+            AXES["seq_len"], AXES["batch"])
+    return (["--lm", legs, "--lm-dims", ",".join(map(str, dims)), "--lm-steps",
+             str(AXES["steps"]), "--lm-dtype", "bfloat16", "--lm-experts", str(AXES["experts"]),
+             "--lm-save", "grads"] + (["--lm-profile"] if profile else []))
+
+
+def _axes_mlp(mx):
+    data = mx.sym.Variable("data")
+    net = mx.sym.FullyConnected(data, num_hidden=1024, name="fc1")
+    net = mx.sym.Activation(net, act_type="relu")
+    net = mx.sym.FullyConnected(net, num_hidden=16, name="fc2")
+    return mx.sym.SoftmaxOutput(net, name="softmax")
+
+
+def axes_step_blob(mx, path):
+    """tp-step's blob: the MLP (512 -> 1024 -> 16), batch 64, 3 steps."""
+    rng = np.random.RandomState(31)
+    sym = _axes_mlp(mx)
+    shapes = dict(zip(sym.list_arguments(), sym.infer_shape(data=(64, 512))[0]))
+    blob = {"arg:" + n: rng.uniform(-0.05, 0.05, s).astype(np.float32)
+            for n, s in shapes.items() if n not in ("data", "softmax_label")}
+    blob.update(symbol=np.array(sym.tojson()), steps=3, local_ranks=1, lr=0.1, momentum=0.9,
+                specs=np.array(json.dumps(AXES_SPECS)),
+                data=rng.randn(3, 64, 512).astype(np.float32),
+                label=rng.randint(0, 16, (3, 64)).astype(np.float32))
+    np.savez(path, **blob)
+    return blob
+
+
+def axes_reference(trainer, tfm, dev, moe_experts):
+    """One process's tp 1 run on the card at the legs' configuration and
+    seed, one step: (loss, the gradients as a flat {path: array})."""
+    got = {}
+
+    def flat(tree, prefix=""):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat(v, prefix + k + "/") if isinstance(v, dict) else {prefix + k: v})
+        return out
+
+    def on_grads(i, params):
+        got["grads"] = flat(tfm.grads_to_jax(params))
+
+    lm = trainer.transformer_lm
+    trainer.transformer_lm = memo_lm(lm)
+    try:
+        losses = trainer.train(dtype="bfloat16", device=dev, steps=1, lr=3e-2,
+                               seq_len=AXES["seq_len"], batch_size=AXES["batch"],
+                               moe_experts=moe_experts, on_grads=on_grads,
+                               log=lambda *a: None, **FULL)
+    finally:
+        trainer.transformer_lm = lm
+    return losses[0], got["grads"]
+
+
+def axes_leg(leg, ranks, root, ref):
+    """Phase 31's checks of one LM leg across the two workers against the
+    one-process run ``ref`` (loss, gradients)."""
+    legs = [r["lm"][leg] for r in ranks]
+    losses = legs[0]["losses"]
+    assert legs[1]["losses"] == losses and len(losses) == AXES["steps"], legs
+    assert all(np.isfinite(losses)), losses
+    first = abs(losses[0] - ref[0]) / abs(ref[0])
+    # the replicated leaves bit for bit across the ranks, the gathered ones too
+    assert legs[0]["replicated_digests"] == legs[1]["replicated_digests"], leg
+    assert legs[0]["digests"] == legs[1]["digests"], leg
+    errs = {}
+    with np.load(os.path.join(root, "lm_%s.npz" % leg)) as z:
+        for key in z.files:
+            w = ref[1][key[5:]]
+            errs[key[5:]] = float(np.abs(z[key].astype(np.float64) - w).max()) / max(
+                float(np.abs(w).max()), 1e-30)
+    assert sorted(errs) == sorted(ref[1]), leg
+    worst = max(errs.items(), key=lambda kv: kv[1])
+    n_layers = FULL["n_layers"]
+    pairs = 3 if leg == "sp" else 2  # the causal ring's live pairs over sp 2; one call else
+    launches = [lg["launches"] for lg in legs]
+    for name in ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+        total = sum(lc[name] for lc in launches)
+        assert total == n_layers * pairs * AXES["steps"], (leg, name, launches)
+        assert all(lc[name] > 0 for lc in launches), (leg, name, launches)
+    held = legs[0]["shapes_held"]
+    if leg == "tp":  # half of every tp-sharded weight in each process
+        d, ff = FULL["d_model"], FULL["d_ff"]
+        assert held["layers.0.wq"] == [d // 2, d] and held["layers.0.w2"] == [d, ff // 2], held
+    if leg == "ep":
+        assert held["layers.1.moe.w_up"][0] == AXES["experts"] // 2, held
+    out = {"losses": losses, "one_process_loss": ref[0], "first_loss_rel_err": first,
+           "grad_err_of_max_worst": list(worst), "grad_leaves": len(errs),
+           "replicated_bitwise": True, "mesh": legs[0]["mesh"],
+           "launches_per_worker": launches,
+           "step_ms_per_rank": [lg["step_ms_median"] for lg in legs],
+           "idle_share_per_rank": [lg.get("profile", {}).get("idle_share") for lg in legs],
+           "busy_ms_per_rank": [lg.get("profile", {}).get("device_busy_ms") for lg in legs],
+           "collective_ms_per_step": [lg["collective_ms_per_step"] for lg in legs],
+           "collective_mb_per_step": legs[0]["collective_bytes_per_step"] / 1e6,
+           "collectives_after_step_1": legs[0]["collectives_after_step_1"],
+           "peak_gib_per_rank": [lg.get("peak_mem_gib") for lg in legs],
+           "wall_s_per_rank": [lg["wall_s"] for lg in legs],
+           "limits": {"first_loss": AXES["first_loss"], "grads": AXES["grads"]}}
+    log("phase 31 %s: %s" % (leg, json.dumps({k: v for k, v in out.items()
+                                               if k != "collectives_after_step_1"})))
+    assert first <= AXES["first_loss"], (leg, "first loss", first)
+    assert worst[1] <= AXES["grads"], (leg, "gradients", worst)
+    return out
+
+
+def axes_tp_step(mx, dev, ranks, root, blob):
+    """tp-step: the two workers' ShardedTrainStep(param_specs) over dp 1 x
+    tp 2 against one process's over a logical tp 2 mesh on the card."""
+    import torch
+
+    sym = _axes_mlp(mx)
+    mesh = mx.parallel.make_mesh(dp=1, tp=2, devices=[dev] * 2)
+    opt = mx.optimizer.create("sgd", learning_rate=0.1, momentum=0.9, rescale_grad=1.0 / 64)
+    step = mx.parallel.ShardedTrainStep(sym, mesh, optimizer=opt, param_specs=AXES_SPECS)
+    params, aux = step.place_params({k[4:]: v for k, v in blob.items() if k.startswith("arg:")},
+                                    {})
+    state = step.make_state(params)
+    for t in range(3):
+        batch = {"data": torch.from_numpy(blob["data"][t]).to(dev),
+                 "softmax_label": torch.from_numpy(blob["label"][t]).to(dev)}
+        params, aux, state, _ = step(params, aux, state, batch, t=t + 1)
+    got = dict(np.load(os.path.join(root, "step_tp-step_rank0.npz")))
+    errs = {}
+    for k, v in params.items():
+        w = v.cpu().numpy()
+        errs[k] = float(np.abs(got["arg:" + k] - w).max()) / max(float(np.abs(w).max()), 1e-30)
+        errs["mom:" + k] = float(np.abs(got["mom:" + k] - state[k].cpu().numpy()).max())
+    info = [r["steps"]["tp-step"] for r in ranks]
+    out = {"err_of_max": errs, "limit": AXES["step_tol"],
+           "shapes_held": info[0]["shapes_held"],
+           "ranks_bitwise_equal": info[0]["digests"] == info[1]["digests"],
+           "module_ckpt_files": ranks[0]["tp_module"]["ckpt_files"]}
+    log("phase 31 tp-step: %s" % json.dumps(out))
+    assert out["ranks_bitwise_equal"] and info[0]["shapes_held"]["fc1_weight"] == [512, 512]
+    assert max(errs.values()) <= AXES["step_tol"], errs
+    return out
+
+
+def phase_axes(mx, trainer, tfm, dev, package, ranks=None):
+    """Phase 31: the model axes across two worker processes on gpu(0) (see
+    the module docstring). ``ranks``: phase 30's workers' JSON, whose job
+    ran the tp leg; without it (``--only axes``) one launch runs the tp, sp
+    and ep legs, the axes check and tp-step."""
+    import torch
+
+    t_phase = time.perf_counter()
+    res = {"card": card_line()}
+    root = os.path.join(package, "build", "chip_smoke_dist")
+    legs = ["tp"]
+    blob = None
+    if ranks is None:
+        os.makedirs(root, exist_ok=True)
+        blob = axes_step_blob(mx, os.path.join(root, "axes_step.npz"))
+        legs = ["tp", "sp", "ep"]
+        _, wall, ranks = _dist_launch(package, root, "axes", [
+            "--checks", "axes", "--step-test", "tp-step=%s" % os.path.join(root, "axes_step.npz")]
+            + axes_lm_args(",".join(legs)))
+        res["launch_wall_s"] = wall
+        out = os.path.join(root, "axes")
+    else:
+        out = os.path.join(root, "abc")
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter()
+    dense = axes_reference(trainer, tfm, dev, 0)
+    res["reference_s"] = time.perf_counter() - t_ref
+    for leg in legs:
+        ref = dense if leg != "ep" else axes_reference(trainer, tfm, dev, AXES["experts"])
+        res[leg] = axes_leg(leg, ranks, out, ref)
+    if blob is not None:
+        res["axes_check"] = ranks[0]["axes"]
+        res["tp_step"] = axes_tp_step(mx, dev, ranks, out, blob)
+    res["launches"] = {name: sum(lc[name] for leg in legs
+                                 for lc in res[leg]["launches_per_worker"])
+                       for name in ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")}
+    res["seconds"] = time.perf_counter() - t_phase
+    log("phase 31: %.1f s" % res["seconds"])
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every phase's numbers to this JSON file")
@@ -7318,7 +7571,7 @@ def main(argv=None):
                     "one beside this script (to run this script's phases on another tree)")
     ap.add_argument("--only", choices=("f32_lm", "rtc", "slab", "zoo", "multistep", "serving",
                                        "resilience", "input", "rnn", "mirror", "parallel",
-                                       "telemetry", "detection", "dist"),
+                                       "telemetry", "detection", "dist", "axes"),
                     help="f32_lm: build, phase 19 and phase 8's attention kernel times only; "
                     "rtc: K5's push path on ResNet-50's parameter arrays only; slab: K1's "
                     "build, phases 16-18 and K1's times only; zoo: K2/K3's build and "
@@ -7331,7 +7584,8 @@ def main(argv=None):
                     "phase 27 with (a)'s f32 sweep and (b)'s sp 1 and dense runs; telemetry: "
                     "K1-K3's build and phase 28 with (c), (d) and (f); detection: K1-K3's and "
                     "the NMS kernel's build and phase 29; dist: K1-K3's build and phase 30 "
-                    "with (d), the elastic shrink")
+                    "with (d), the elastic shrink; axes: the flash kernels' build and phase "
+                    "31 with the sp and ep legs, the axes check and tp-step")
     ap.add_argument("--resilience-worker", metavar="SPEC", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
@@ -7419,7 +7673,7 @@ def main(argv=None):
         t0 = time.perf_counter()
         _build.build(["conv_bwd_filter", "slab_update"])
         results["build_s"] = time.perf_counter() - t0
-        results["mirror"] = phase_mirror(mx, kernels, dev, sweep=True)
+        results["mirror"] = phase_mirror(mx, kernels, dev, full=True)
     if args.only == "parallel":
         t0 = time.perf_counter()
         _build.build(["flash_attn_fwd", "flash_split", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"])
@@ -7442,6 +7696,12 @@ def main(argv=None):
         _build.build(["conv_bwd_filter", "slab_update"])
         results["build_s"] = time.perf_counter() - t0
         results["dist"] = phase_dist(mx, kernels, dev, package, full=True)
+        results["dist"].pop("ranks")
+    if args.only == "axes":
+        t0 = time.perf_counter()
+        _build.build(["flash_attn_fwd", "flash_split", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"])
+        results["build_s"] = time.perf_counter() - t0
+        results["axes"] = phase_axes(mx, trainer, tfm, dev, package)
     if args.only:
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -7449,28 +7709,50 @@ def main(argv=None):
                 json.dump(results, fh, indent=1)
         print(card)
         return 0
+    phase_s = results["phase_seconds"] = {}
+    t_last = [time.perf_counter()]
+
+    def mark(name):
+        """The seconds since the last mark, as phase ``name``'s."""
+        now = time.perf_counter()
+        phase_s[name] = now - t_last[0]
+        t_last[0] = now
+
     results["build_s"], results["sass"] = phase_build(_build)
+    mark("build")
     results["kernel_checks"] = phase_kernel_checks(kernels, dev)
+    mark("kernel_checks")
     results["bwd_kernel_checks"] = phase_bwd_checks(kernels, dev)
+    mark("bwd_kernel_checks")
     results["serving_f32"] = phase_serving_f32(tfm, kernels, dev)
+    mark("serving_f32")
     results["training_f32"] = phase_train_f32(tfm, trainer, kernels, dev)
+    mark("training_f32")
     results["serving_bf16"] = phase_serving_bf16(tfm, kernels, telemetry, GenerationEngine, dev)
+    mark("serving_bf16")
     results["training_bf16"] = phase_train_lm(trainer, kernels, dev, "bfloat16")
     train_launches = results["training_bf16"]["launches"]
+    mark("training_bf16")
     results["training_f32_full"] = phase_train_lm(trainer, kernels, dev, "float32",
                                                   lm_family)
+    mark("training_f32_full")
     results["conv_checks"], conv_errs = phase_conv_checks(kernels, resnet, dev)
+    mark("conv_checks")
     results["resnet_grads_f32"] = phase_resnet_grads_f32(resnet_bench, kernels, dev)
+    mark("resnet_grads_f32")
     results["resnet_train"] = [phase_resnet_train(resnet_bench, kernels, dev, dtype)
                                for dtype in ("float32", "bfloat16")]
     conv_launches = {name: sum(r["launches"][name] for r in results["resnet_train"])
                      for name in ("conv_bwd_filter", "conv_bwd_input")}
+    mark("resnet_train")
     results["rtc"] = phase_rtc(mx, rk, dev)
     # cuDNN's default backward algorithms for the strided convolutions sum
     # in an order that changes from run to run; phases 14 and 15 compare two
     # runs of one computation, so they take its deterministic algorithms
     torch.backends.cudnn.deterministic = True
+    mark("rtc")
     results["executor"] = phase_executor(mx, resnet, resnet_bench, kernels, dev)
+    mark("executor")
     results["rtc_training"], rtc_runs = phase_rtc_training(mx, rk, resnet, resnet_bench, kernels,
                                                           dev)
     torch.backends.cudnn.deterministic = False
@@ -7479,19 +7761,34 @@ def main(argv=None):
     phase_slab_path(mx, resnet, kernels, dev, results)
     conv_launches = {name: conv_launches[name] + results["fit_resnet_amp"]["launches"][name]
                      for name in conv_launches}
-    results["zoo"], zoo_launches = phase_zoo(model_sweep, kernels, dev)
+    mark("rtc_training_and_slab")
+    results["zoo"], zoo_launches = phase_zoo(model_sweep, kernels, dev, full=False)
     conv_launches = {name: conv_launches[name] + zoo_launches[name] for name in conv_launches}
+    mark("zoo")
     results["multistep"] = multi = phase_multistep(mx, kernels, dev, full=False)
+    mark("multistep")
     results["serving"] = phase_serving(mx, resnet, tfm, kernels, telemetry, GenerationEngine, dev)
+    mark("serving")
     results["resilience"] = resil = phase_resilience(mx, kernels, dev, package,
-                                                     resnet50_amp_plan(mx, resnet))
+                                                     resnet50_amp_plan(mx, resnet), full=False)
+    mark("resilience")
     results["input"] = inp = phase_input(mx, kernels, dev, package, measure=False)
+    mark("input")
     results["rnn"] = rnn = phase_rnn(mx, kernels, dev)
+    mark("rnn")
     results["mirror"] = mirror = phase_mirror(mx, kernels, dev)
+    mark("mirror")
     results["parallel"] = par = phase_parallel(mx, tfm, trainer, kernels, GenerationEngine, dev)
+    mark("parallel")
     results["telemetry"] = tele = phase_telemetry(mx, kernels, dev, telemetry, package)
+    mark("telemetry")
     results["detection"] = det = phase_detection(mx, kernels, dev)
-    results["dist"] = dist = phase_dist(mx, kernels, dev, package)
+    mark("detection")
+    results["dist"] = dist = phase_dist(mx, kernels, dev, package, extra=axes_lm_args("tp"))
+    mark("dist")
+    results["axes"] = axes = phase_axes(mx, trainer, tfm, dev, package, dist.pop("ranks"))
+    mark("axes")
+    log("phase seconds: %s" % json.dumps({k: round(v, 1) for k, v in phase_s.items()}))
     dist_launches = dist["launches"]  # phase 30 (b)-(c): both ranks' wrappers
     det_launches = det["launches"]  # phase 29 (c)-(e): the detection path's wrappers
     tele_launches = tele["launches"]  # phase 28 (a)'s wrapper counts and (b)'s profiled replays
@@ -7525,16 +7822,19 @@ def main(argv=None):
     # counts phase 6's and phase 22's prefills
     serve_launches = fwd[0]["launches"] + results["serving"]["d"]["flash_launches"]
     rnn_launches = rnn["launches"]  # phase 25 (c): f32 kernels, on the rnn path
+    axes_launches = axes["launches"]  # phase 31: both workers' tp leg
     fwd[0]["launches_by_path"] = {"serving": serve_launches,
                                   "training": train_launches["flash_attn_fwd"],
                                   "rnn": rnn_launches["flash_attn_fwd"],
-                                  "parallel": par_launches["flash_attn_fwd"]}
+                                  "parallel": par_launches["flash_attn_fwd"],
+                                  "axes": axes_launches["flash_attn_fwd"]}
     fwd[0]["launches"] = sum(fwd[0]["launches_by_path"].values())
     bwd = phase_bwd_times(kernels, dev, train_launches, f32_launches)
     for entry in bwd:
         entry["launches_by_path"] = {"training": entry["launches"],
                                      "rnn": rnn_launches[entry["name"]],
-                                     "parallel": par_launches[entry["name"]]}
+                                     "parallel": par_launches[entry["name"]],
+                                     "axes": axes_launches[entry["name"]]}
         entry["launches"] = sum(entry["launches_by_path"].values())
     conv_entries = phase_conv_times(kernels, resnet, dev, conv_launches, conv_errs)
     for entry in conv_entries:

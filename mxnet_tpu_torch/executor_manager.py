@@ -59,8 +59,9 @@ class DataParallelExecutorManager:
         return self._exec_group.aux_arrays
 
     def install_monitor(self, monitor):
-        raise NotImplementedError(
-            "install_monitor is not ported to PyTorch yet (mxnet_tpu/monitor.py)")
+        """Install ``monitor`` (a :class:`~mxnet_tpu_torch.monitor.Monitor`)
+        on every executor of the group."""
+        self._exec_group.install_monitor(monitor)
 
     def set_params(self, arg_params, aux_params):
         self._exec_group.set_params(arg_params, aux_params)

@@ -24,6 +24,26 @@ Rounding sits where the JAX package puts it: rmsnorm in f32 and cast back;
 embedding and positional table each cast to the compute dtype before the
 add; logits as ``x.float() @ embed.T`` against the f32 table.
 
+Tensor parallelism (Megatron's layout, as the JAX trainer's ``spec_for``
+gives it: :func:`partition_spec`): over a mesh whose tp axis is t, tp rank
+r holds columns ``[r·H/t, (r+1)·H/t)`` of ``wq``, ``wk``, ``wv`` (its H/t
+heads) and of ``w1``, and the matching rows of ``wo`` and ``w2``; the
+embedding, the gains and the head stay replicated. :func:`shard_params`
+cuts a whole set of parameters into this process's shards and
+:func:`gather_params` puts them back together. ``apply_fn`` over such a
+mesh runs each of this process's tp ranks on its heads (attention through
+``ops.kernels.attention``: K4f forward, K4dq / K4dkv backward) and its FFN
+columns, sums the ranks' row-parallel products on the device, and sums
+those over the tp axis's processes (Megatron's *g*; the block input enters
+through *f*, so its gradient is summed backward). The partial products are
+summed in the compute dtype (in bf16, for tp = 2 one rounding of their
+exact sum, which is what an f32 sum rounded to bf16 gives). A mesh whose sp
+axis spans processes takes this process's block of the sequence (its
+positional rows by the block's offset; attention across the processes,
+``parallel/ring_attention.py``); a MoE layer then routes the whole
+sequence, gathered over sp, and keeps its block. An ep axis that spans
+processes runs each process's experts (``parallel/moe.py``).
+
 Serving: the JAX version donates the cache to a jitted step. Here the
 cache tensors are preallocated once and prefill/decode write into them in
 place (advanced-index assignment), returning the same dict. A prefill
@@ -33,6 +53,7 @@ scratch row is affected, and a live slot never repeats.
 """
 from __future__ import annotations
 
+import copy
 import math
 
 import numpy as np
@@ -42,7 +63,9 @@ from torch import nn
 
 from ..context import resolve_device
 from ..ops import kernels as _kernels
-from ..parallel.moe import init_moe_params, switch_moe
+from ..parallel import mesh as _mesh
+from ..parallel.moe import init_moe_params, moe_partition_specs, switch_moe
+from ..parallel.ring_attention import gather_sequence
 
 _NEG_INF = -1e30
 
@@ -157,6 +180,107 @@ def grads_to_jax(params):
     return _tree(params, grad)
 
 
+def partition_spec(path):
+    """The JAX trainer's ``spec_for`` of the tree leaf at ``path`` (e.g.
+    ``"l0/wq"``, ``"l1/moe/w_up"``) as a tuple of axis names and None, in
+    the tree's [in, out] layout: Megatron's column-parallel ``wq wk wv w1``
+    ``(None, "tp")``, row-parallel ``wo w2`` ``("tp", None)``, the experts
+    ``("ep", None, None)``, everything else replicated ``()``."""
+    parts = path.split("/")
+    if "moe" in parts:
+        return moe_partition_specs()[parts[-1]]
+    if parts[-1] in ("wq", "wk", "wv", "w1"):
+        return (None, "tp")
+    if parts[-1] in ("wo", "w2"):
+        return ("tp", None)
+    return ()
+
+
+def _sharded_leaves(params):
+    """(owner module or ParameterDict, attribute, axis, dim of the port's
+    storage) of every parameter a mesh axis shards."""
+    out = []
+    for i, layer in enumerate(params.layers):
+        ffn = ("w1", "w2") if layer.moe is None else ()
+        for name in ("wq", "wk", "wv", "wo") + ffn:
+            spec = partition_spec("l%d/%s" % (i, name))
+            dim = next(d for d, ax in enumerate(spec) if ax is not None)
+            out.append((layer, name, spec[dim], 1 - dim))  # stored [out, in]
+        if layer.moe is not None:
+            for name in ("w_up", "w_down"):
+                out.append((layer.moe, name, partition_spec("l%d/moe/%s" % (i, name))[0], 0))
+    return out
+
+
+def _get(owner, name):
+    return owner[name] if isinstance(owner, nn.ParameterDict) else getattr(owner, name)
+
+
+def _set(owner, name, value):
+    if isinstance(owner, nn.ParameterDict):
+        owner[name] = value
+    else:
+        setattr(owner, name, value)
+
+
+def shard_params(params, mesh):
+    """A copy of the whole ``params`` (e.g. from :func:`params_from_jax`)
+    holding only this process's shards on ``mesh``: of each tp-sharded
+    projection the slice of this process's tp positions, of the experts
+    those of its ep positions (:func:`partition_spec`); replicated leaves
+    whole. On a mesh of one process every position is local, so the copy
+    is whole."""
+    out = copy.deepcopy(params)
+    for owner, name, axis, dim in _sharded_leaves(out):
+        p = _get(owner, name)
+        n = _mesh.axis_size(mesh, axis)
+        if n == 1:
+            continue
+        if p.shape[dim] % n:
+            raise ValueError("%s (%s) does not split into %s = %d shards"
+                             % (name, tuple(p.shape), axis, n))
+        pos = _mesh.axis_group(mesh, axis).positions
+        per = p.shape[dim] // n
+        piece = p.detach().narrow(dim, pos[0] * per, len(pos) * per).contiguous()
+        _set(owner, name, nn.Parameter(piece, requires_grad=p.requires_grad))
+    return out
+
+
+def gather_params(params, mesh):
+    """The inverse of :func:`shard_params`: a copy of this process's shards
+    with each sharded leaf gathered whole from the processes of its axis (a
+    collective: every process calls it at the same point)."""
+    out = copy.deepcopy(params)
+    for owner, name, axis, dim in _sharded_leaves(out):
+        grp = _mesh.axis_group(mesh, axis) if _mesh.axis_size(mesh, axis) > 1 else None
+        if grp is None or grp.size <= 1:
+            continue
+        p = _get(owner, name).detach()
+        whole = _mesh.all_gather(p.transpose(0, dim).contiguous(), axis=grp).transpose(0, dim)
+        _set(owner, name, nn.Parameter(whole.contiguous(), requires_grad=False))
+    return out
+
+
+def replicated_names(params):
+    """The names (``named_parameters``) of the parameters no mesh axis
+    shards: every tp and ep rank holds them whole."""
+    sharded = {id(_get(owner, name)) for owner, name, _, _ in _sharded_leaves(params)}
+    return [n for n, p in params.named_parameters() if id(p) not in sharded]
+
+
+def _axis_groups(mesh):
+    """axis -> AxisGroup where ``mesh`` spans processes on that axis, else
+    None; the tp entry also for logical tp ranks of one process."""
+    groups = dict.fromkeys(_mesh.AXES)
+    if mesh is None:
+        return groups
+    spans = getattr(mesh, "processes", 1) > 1
+    for axis in ("tp", "sp", "ep"):
+        if _mesh.axis_size(mesh, axis) > 1 and (spans or axis == "tp"):
+            groups[axis] = _mesh.axis_group(mesh, axis)
+    return groups
+
+
 def _sinusoid_pe(n_rows, d_model):
     pos = np.arange(n_rows)[:, None] / (
         10000 ** (np.arange(0, d_model, 2) / d_model)
@@ -234,6 +358,11 @@ def _init_fn_for(vocab, d_model, n_heads, n_layers, d_ff, moe_experts=0, moe_eve
     return init_fn
 
 
+def _rank_slice(r, ranks, per):
+    """The columns of local tp rank ``r`` of ``ranks``: all of them for one."""
+    return slice(None) if ranks == 1 else slice(r * per, (r + 1) * per)
+
+
 def _is_moe_layer(i, moe_experts, moe_every):
     return moe_experts > 0 and i % moe_every == moe_every - 1
 
@@ -257,26 +386,55 @@ def transformer_lm(vocab=32000, d_model=512, n_heads=8, n_layers=4,
 
     def apply_fn(params, tokens, mesh=None):
         """f32 logits [B, T, vocab] (and the f32 aux loss with MoE layers);
-        differentiable in ``params``."""
+        differentiable in ``params``. Over a mesh that spans processes,
+        ``tokens`` and the logits are this process's rows and block of the
+        sequence, and ``params`` its shards (:func:`shard_params`)."""
         tokens = torch.as_tensor(tokens, device=params.device).long()
         B, T = tokens.shape
-        if T not in pe_tables:
-            pe_tables[T] = _PETable(T, d_model)
-        pe = pe_tables[T].get(params.device, dtype)
+        groups = _axis_groups(mesh)
+        sp_grp, tp_grp, ep_grp = groups["sp"], groups["tp"], groups["ep"]
+        t_all, offset = T, 0
+        if sp_grp is not None and sp_grp.size > 1:
+            # this process's block of the sequence: its positional rows
+            t_all, offset = T * sp_grp.size, T * sp_grp.index
+        if t_all not in pe_tables:
+            pe_tables[t_all] = _PETable(t_all, d_model)
+        pe = pe_tables[t_all].get(params.device, dtype)[offset:offset + T]
         x = params.embed[tokens].to(dtype) + pe[None]
         aux_total = torch.zeros((), dtype=torch.float32, device=params.device)
+        tp = _mesh.axis_size(mesh, "tp") if mesh is not None else 1
+        if n_heads % tp or d_ff % tp:
+            raise ValueError("n_heads %d and d_ff %d must divide by tp = %d" % (n_heads, d_ff, tp))
+        ranks = tp_grp.local if tp_grp is not None else 1  # this process's tp ranks
+        heads = n_heads // tp
         for i, layer in enumerate(params.layers):
-            h = _rmsnorm(x, layer.ln1.to(dtype))
-            q, k, v = _qkv(h, layer, dtype, (B, T, n_heads, head_dim))
-            o = _kernels.attention(q, k, v, causal=True, mesh=mesh)
-            x = x + F.linear(o.reshape(B, T, d_model), layer.wo.to(dtype))
+            h = _mesh.copy_to_axis(_rmsnorm(x, layer.ln1.to(dtype)), tp_grp)
+            ws = [w.to(dtype) for w in (layer.wq, layer.wk, layer.wv, layer.wo)]
+            out = None
+            for r in range(ranks):  # each tp rank on its heads
+                cols = _rank_slice(r, ranks, heads * head_dim)
+                q, k, v = (F.linear(h, w[cols]).reshape(B, T, heads, head_dim)
+                           for w in ws[:3])
+                o = _kernels.attention(q, k, v, causal=True, mesh=mesh)
+                part = F.linear(o.reshape(B, T, heads * head_dim), ws[3][:, cols])
+                out = part if out is None else out + part
+            x = x + _mesh.reduce_from_axis(out, tp_grp)
             if _is_moe_layer(i, moe_experts, moe_every):
                 h = _rmsnorm(x, layer.ln2.to(dtype))
-                y, aux = switch_moe(layer.moe, h.reshape(B * T, d_model))
-                x = x + y.reshape(B, T, d_model)
+                h_all = gather_sequence(h, sp_grp)  # the router sees the whole sequence
+                y, aux = switch_moe(layer.moe, h_all.reshape(-1, d_model), ep=ep_grp)
+                y = y.reshape(B, t_all, d_model)[:, offset:offset + T]
+                x = x + y
                 aux_total = aux_total + aux
-            else:
-                x = _ffn(x, layer, dtype)
+            else:  # each tp rank on its FFN columns
+                h = _mesh.copy_to_axis(_rmsnorm(x, layer.ln2.to(dtype)), tp_grp)
+                w1, w2 = layer.w1.to(dtype), layer.w2.to(dtype)
+                out = None
+                for r in range(ranks):
+                    cols = _rank_slice(r, ranks, d_ff // tp)
+                    part = F.linear(_gelu(F.linear(h, w1[cols])), w2[:, cols])
+                    out = part if out is None else out + part
+                x = x + _mesh.reduce_from_axis(out, tp_grp)
         x = _rmsnorm(x, params.ln_f.to(dtype))
         logits = x.float() @ params.embed.T
         return (logits, aux_total) if moe_experts > 0 else logits

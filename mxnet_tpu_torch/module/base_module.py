@@ -485,6 +485,10 @@ class BaseModule:
         dist_rank, dist_workers = 0, 1
         if kv is not None and "dist" in kv.type:
             dist_rank, dist_workers = kv.rank, kv.num_workers
+        elif trainer is not None and trainer.nproc > 1:
+            # a fused step over a mesh that spans processes (param_specs'
+            # tp across processes): rank 0 writes, as under a dist kvstore
+            dist_rank, dist_workers = trainer.prank, trainer.nproc
         else:
             try:
                 dist_rank = int(os.environ.get("DMLC_RANK", "0"))

@@ -78,13 +78,16 @@ class Module(BaseModule):
                  mesh=None, param_specs=None):
         """``mesh`` (from ``mx.parallel.make_mesh``) sets the data-parallel
         degree of the fused path; the contexts then host the evaluation
-        executors. ``param_specs`` (tensor parallelism) is not ported."""
+        executors. ``param_specs`` (name -> a tuple of axis names and None,
+        JAX's ``PartitionSpec`` entries) shards parameters over the mesh's
+        other axes in the fused step (``ShardedTrainStep``): across
+        processes each keeps its slice of a sharded parameter and its
+        optimizer state, and ``get_params``, ``save_checkpoint`` and fit's
+        checkpoints gather them whole. The batch splits over dp only: every
+        process of one dp position (its tp peers) must feed the same rows
+        (``parallel.mesh.dp_rows``)."""
         super().__init__(logger=logger)
-        if param_specs:
-            raise NotImplementedError(
-                "Module(param_specs=...) is not ported to PyTorch yet: tensor-parallel "
-                "parameter sharding, the multi-card half of ROADMAP Queue 1 step 8 "
-                "(mxnet_tpu/module/module.py:81)")
+        self._param_specs = param_specs
         if context is None:
             context = [ctx_mod.current_context()]
         if isinstance(context, ctx_mod.Context):
@@ -325,7 +328,12 @@ class Module(BaseModule):
         kvstore, update_on_kvstore = _create_kvstore(kvstore, len(self._context),
                                                      self._arg_params)
         batch_size = self._exec_group.batch_size
-        if kvstore and "dist" in kvstore.type and "_sync" in kvstore.type:
+        if self._mesh is not None and self._mesh.processes > 1:
+            # the global batch: the rows of each dp position's processes
+            from ..parallel import mesh as _mesh
+
+            batch_size *= _mesh.axis_group(self._mesh, "dp").size
+        elif kvstore and "dist" in kvstore.type and "_sync" in kvstore.type:
             batch_size *= kvstore.num_workers  # the global batch of the job
         rescale_grad = 1.0 / batch_size
         if isinstance(optimizer, str):
@@ -400,8 +408,8 @@ class Module(BaseModule):
             mesh = _mesh.make_mesh(dp=len(self._context) * workers, devices=self._context,
                                    processes=workers)
         self._fused_trainer = ShardedTrainStep(
-            self._symbol, mesh, optimizer=self._optimizer, data_names=self._data_names,
-            label_names=self._label_names).compile()
+            self._symbol, mesh, optimizer=self._optimizer, param_specs=self._param_specs,
+            data_names=self._data_names, label_names=self._label_names).compile()
         self._fused_owner = self
         trainer = self._fused_trainer
         if workers > 1:
@@ -409,6 +417,12 @@ class Module(BaseModule):
             # init broadcast (the reference's dist init)
             for idx, name in enumerate(self._exec_group.param_names):
                 kv.pull(idx, out=self._arg_params[name])
+        elif mesh.processes > 1:
+            # a mesh across processes without a dist store: rank 0's weights
+            # everywhere too, as JAX's replicated device_put holds one value
+            for name in self._exec_group.param_names:
+                self._arg_params[name][:] = _mesh.broadcast_from_root(
+                    self._arg_params[name]._data).cpu().numpy()
         self._fused_params, self._fused_aux = trainer.place_params(self._arg_params,
                                                                    self._aux_params)
         self._fused_opt = trainer.make_state(self._fused_params)
@@ -486,8 +500,8 @@ class Module(BaseModule):
                 owner._fused_opt = trainer.disable_flat_update(owner._fused_opt)
             self._fused_trainer = ShardedTrainStep(
                 self._symbol, trainer.mesh, optimizer=self._optimizer,
-                data_names=self._data_names, label_names=self._label_names,
-                flat_update=False).compile()
+                param_specs=trainer.param_specs, data_names=self._data_names,
+                label_names=self._label_names, flat_update=False).compile()
         self.optimizer_initialized = True
 
     # -- computation -------------------------------------------------------
@@ -680,7 +694,7 @@ class Module(BaseModule):
             if self._fused_trainer is not None:
                 owner = self._fused_owner
                 trainer = owner._fused_trainer
-                params_src = dict(owner._fused_params)
+                params_src = trainer.gather_params(owner._fused_params)
                 if trainer.amp:
                     # the working copies are bf16 casts; the masters are the truth
                     params_src.update(trainer.master_params_named(self._whole_fused_opt()))
@@ -707,8 +721,11 @@ class Module(BaseModule):
             mesh = self._fused_owner._fused_trainer.mesh
             mesh_shape = {k: int(v) for k, v in mesh.shape.items()}
             dp = mesh_shape.get("dp", 1)
-            # each process feeds its own rows: the global batch is the job's
-            global_batch *= mesh.processes
+            # each dp position's processes feed their own rows
+            if mesh.processes > 1:
+                from ..parallel import mesh as _mesh
+
+                global_batch *= _mesh.axis_group(mesh, "dp").size
         else:
             dp = len(self._context)
             kv = self._kvstore
@@ -742,7 +759,7 @@ class Module(BaseModule):
             owner = self._fused_owner
             trainer = owner._fused_trainer
             opt_state = _clone(self._whole_fused_opt())  # whole slabs, then views of the clones
-            arg_src = _clone(owner._fused_params)
+            arg_src = _clone(trainer.gather_params(owner._fused_params))
             amp_blob = None
             if trainer.flat_mode is not None:
                 if trainer.amp:

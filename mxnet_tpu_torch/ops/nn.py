@@ -447,8 +447,10 @@ class _BNTrainCore(torch.autograd.Function):
         if span:
             from ..parallel import mesh as _mesh
 
-            s1, s2 = _mesh.allreduce_sum(torch.stack([s1, s2])).unbind(0)
-            n *= _mesh.process_count()
+            # over every process, or over the processes of the batch's axis
+            grp = span if isinstance(span, _mesh.AxisGroup) else None
+            s1, s2 = _mesh.allreduce_sum(torch.stack([s1, s2]), axis=grp).unbind(0)
+            n *= _mesh.process_count() if grp is None else grp.size
         mean = s1 / n
         var = torch.clamp_min(s2 / n - mean * mean, 0.0)
         rstd = torch.rsqrt(var + eps)
@@ -483,7 +485,8 @@ class _BNTrainCore(torch.autograd.Function):
             # the sums over the global batch; dmean and dvar are the
             # gradients of global statistics, so every process's add up
             parts = [dbeta, dgamma] + [g.float() for g in (dmean, dvar) if g is not None]
-            summed = _mesh.allreduce_sum(torch.stack(parts)).unbind(0)
+            grp = ctx.span if isinstance(ctx.span, _mesh.AxisGroup) else None
+            summed = _mesh.allreduce_sum(torch.stack(parts), axis=grp).unbind(0)
             sum_beta, sum_gamma = summed[0], summed[1]
             rest = iter(summed[2:])
             dmean = next(rest) if dmean is not None else None

@@ -2,7 +2,8 @@
 ``mxnet_tpu/parallel/mesh.py``): ``make_mesh`` / ``dp_sharding`` /
 ``replicated_sharding``, ``init_distributed`` and the host collectives
 ``barrier`` / ``allreduce_sum`` / ``reduce_scatter_sum`` / ``all_gather`` /
-``broadcast_from_root``.
+``broadcast_from_root``, each over the whole group or over one axis of a
+mesh (:func:`axis_group`).
 
 A :class:`Mesh` has the JAX axis names (dp, tp, pp, sp, ep), a ``shape``
 dict and a ``torch.device`` per rank of this process. Several ranks may
@@ -11,10 +12,19 @@ the virtual host devices of its tests are. The fused trainer runs the batch
 of those ranks as one pass on that device; the dp shards of its flat update
 are contiguous chunks of each slab.
 
-A mesh's dp axis may span processes (``processes`` > 1): each process holds
-its own logical ranks on its one device, as the JAX package's
+A mesh may span processes (``processes`` > 1): each process holds its own
+logical ranks on its one device, as the JAX package's
 ``tests/dist_worker.py`` holds 2 local ranks in each of 2 processes for
-dp = 4. The processes form one ``torch.distributed`` **gloo** group
+dp = 4. The global rank order is JAX's: the process-major list of every
+process's ranks, reshaped to (dp, tp, pp, sp, ep) (``mxnet_tpu/parallel/
+mesh.py:127-152``), so with two processes a dp = 1, tp = 2 mesh puts tp 0
+in process 0 and tp 1 in process 1, and a dp = 2, tp = 2 mesh keeps both tp
+ranks in each process and spans the processes with dp.
+:func:`axis_group` gives, for one axis, the processes that hold this
+process's peers on it (a gloo sub-group, made once an axis and kept with
+the mesh) and the axis positions this process holds itself; the
+collectives take it (or an axis name and the mesh) as ``axis=`` and then
+run over that sub-group only. The processes form one ``torch.distributed`` **gloo** group
 (:func:`init_distributed`, from the launcher's ``DMLC_*`` environment).
 Gloo runs on the host: a CUDA tensor is copied into a reused pinned host
 buffer after its stream's work, the collective runs on that copy and the
@@ -22,7 +32,8 @@ result is copied back. That is deliberate and visible: every collective
 records its wall time in ``parallel.collective_seconds`` and its bytes in
 ``parallel.collective_bytes`` by op (and in :data:`collective_stats`, kept
 whether telemetry is on or not), and :func:`backend` names the group's
-backend. A gloo collective cannot be captured into a CUDA graph.
+backend. A collective over an axis records under ``op@axis``. A gloo
+collective cannot be captured into a CUDA graph.
 
 Ranks on several devices of one process need collectives across cards
 (NCCL), the multi-card half of ROADMAP Queue 1 step 8; such a mesh raises.
@@ -96,14 +107,23 @@ class Mesh:
                 "runs meshes whose ranks share one device in each process "
                 "(mxnet_tpu/parallel/mesh.py:127 spans devices)" % (len(distinct),
                                                                      ", ".join(distinct)))
-        if self.processes > 1 and any(n != 1 for ax, n in self.shape.items() if ax != "dp"):
-            raise NotImplementedError(
-                "a mesh with tp/pp/sp/ep > 1 across processes needs the multi-card half of "
-                "ROADMAP Queue 1 step 8; across processes only the dp axis is ported")
+        self._axis_groups = {}  # axis -> AxisGroup, made on first use
 
     @property
     def device(self):
         return self.devices[0]
+
+    def coords(self, local_rank=0):
+        """The (dp, tp, pp, sp, ep) coordinates of this process's
+        ``local_rank``-th rank: JAX's reshape of the process-major rank
+        list."""
+        grank = self.process_rank * len(self.devices) + int(local_rank)
+        return dict(zip(AXES, _unravel(grank, [self.shape.get(ax, 1) for ax in AXES])))
+
+    def positions(self, axis):
+        """The positions on ``axis`` that this process's ranks hold, in
+        order."""
+        return sorted({self.coords(i)[axis] for i in range(len(self.devices))})
 
     @property
     def size(self):
@@ -159,6 +179,121 @@ def make_mesh(dp=None, tp=1, pp=1, sp=1, ep=1, devices=None, processes=None):
                          % (need, processes))
     return Mesh(devices[:need // processes], dict(zip(AXES, (dp, tp, pp, sp, ep))),
                 processes=processes)
+
+
+def _unravel(index, sizes):
+    out = []
+    for n in reversed(sizes):
+        out.append(index % n)
+        index //= n
+    return list(reversed(out))
+
+
+class AxisGroup:
+    """One axis of a mesh as this process sees it: ``positions``, the axis
+    positions its own ranks hold (contiguous); ``ranks``, the processes that
+    hold the other positions of its line along the axis, in axis order
+    (this one among them, at ``index``); ``size``, their count; ``group``,
+    their gloo sub-group (None when ``size`` is 1 or the group is the whole
+    world, which the default group serves)."""
+
+    __slots__ = ("axis", "positions", "ranks", "index", "group")
+
+    def __init__(self, axis, positions, ranks, index, group):
+        self.axis, self.positions, self.ranks = axis, list(positions), list(ranks)
+        self.index, self.group = int(index), group
+
+    @property
+    def size(self):
+        return len(self.ranks)
+
+    @property
+    def local(self):
+        """How many positions of the axis this process holds."""
+        return len(self.positions)
+
+    def __repr__(self):
+        return "AxisGroup(%s: positions %s, processes %s)" % (self.axis, self.positions,
+                                                              self.ranks)
+
+
+def _axis_layout(mesh, axis):
+    """For every process: (the line it lies on along ``axis`` as the tuple
+    of its ranks' other coordinates, the axis positions it holds). Raises
+    where a process's ranks do not cover whole, contiguous runs of lines."""
+    sizes = [mesh.shape.get(ax, 1) for ax in AXES]
+    a = AXES.index(axis)
+    per = len(mesh.devices)
+    layout = []
+    for proc in range(mesh.processes):
+        lines, pos = {}, set()
+        for r in range(proc * per, (proc + 1) * per):
+            c = _unravel(r, sizes)
+            lines.setdefault(tuple(c[:a] + c[a + 1:]), set()).add(c[a])
+            pos.add(c[a])
+        held = {frozenset(v) for v in lines.values()}
+        pos = sorted(pos)
+        if len(held) != 1 or pos != list(range(pos[0], pos[0] + len(pos))):
+            raise MXNetError("mesh %s over %d processes: process %d's ranks do not hold "
+                             "contiguous runs of the %s axis" % (mesh.shape, mesh.processes,
+                                                                 proc, axis))
+        layout.append((frozenset(lines), tuple(pos)))
+    return layout
+
+
+def axis_group(mesh, axis):
+    """The :class:`AxisGroup` of ``axis`` in ``mesh`` for this process.
+    Across processes the first call for an axis makes its gloo sub-groups
+    (``torch.distributed.new_group``, on every process in one order, so
+    every process must make it at the same point of the program) and keeps
+    them with the mesh; a mesh of one process has groups of size 1."""
+    if axis not in AXES:
+        raise MXNetError("unknown mesh axis %r (axes %s)" % (axis, AXES))
+    cached = getattr(mesh, "_axis_groups", None)
+    if cached is not None and axis in cached:
+        return cached[axis]
+    if getattr(mesh, "processes", 1) <= 1:
+        n = axis_size(mesh, axis)
+        grp = AxisGroup(axis, range(n), [process_index()], 0, None)
+    else:
+        layout = _axis_layout(mesh, axis)
+        lines = {}
+        for proc, (line, pos) in enumerate(layout):
+            lines.setdefault(line, []).append((pos[0], proc))
+        me = mesh.process_rank
+        mine = None
+        for line in sorted(lines, key=lambda ln: min(p for _, p in lines[ln])):
+            ranks = [p for _, p in sorted(lines[line])]
+            pg = None
+            if 1 < len(ranks) < mesh.processes:
+                pg = torch.distributed.new_group(ranks)  # every process makes every group
+            if me in ranks:
+                mine = AxisGroup(axis, layout[me][1], ranks, ranks.index(me), pg)
+        grp = mine
+    if cached is not None:
+        cached[axis] = grp
+    return grp
+
+
+def dp_rows(mesh, rows):
+    """This process's rows of a global batch of ``rows``: the block of its
+    dp positions. Every process of one dp position (its tp / sp / ep peers)
+    gets the same rows: the batch is replicated over the other axes."""
+    dp = axis_size(mesh, "dp")
+    if rows % dp:
+        raise MXNetError("a batch of %d rows does not split over dp = %d" % (rows, dp))
+    pos = axis_group(mesh, "dp").positions
+    per = rows // dp
+    return slice(pos[0] * per, (pos[-1] + 1) * per)
+
+
+def _resolve_axis(axis, mesh):
+    """An ``axis=`` argument as an AxisGroup (None: the whole group)."""
+    if axis is None or isinstance(axis, AxisGroup):
+        return axis
+    if mesh is None:
+        raise MXNetError("a collective over axis %r needs mesh=" % (axis,))
+    return axis_group(mesh, axis)
 
 
 def axis_size(mesh, axis):
@@ -377,12 +512,15 @@ def _preamble():
 
 
 def _record(op, seconds, nbytes):
+    """Count one collective under ``op`` (``name@axis`` for an axis's)."""
     st = collective_stats.setdefault(op, {"calls": 0, "seconds": 0.0, "bytes": 0})
     st["calls"] += 1
     st["seconds"] += seconds
     st["bytes"] += int(nbytes)
-    _H_COLLECTIVE_SECONDS.observe(seconds, op=op)
-    _M_COLLECTIVE_BYTES.inc(int(nbytes), op=op)
+    name, _, axis = op.partition("@")
+    labels = {"op": name, "axis": axis} if axis else {"op": name}
+    _H_COLLECTIVE_SECONDS.observe(seconds, **labels)
+    _M_COLLECTIVE_BYTES.inc(int(nbytes), **labels)
 
 
 def reset_collective_stats():
@@ -408,10 +546,25 @@ def barrier(tag="mxnet-tpu-barrier"):
         _record("barrier", time.perf_counter() - t0, 0)
 
 
-def allreduce_sum(value):
-    """The sum of ``value`` (a tensor or an NDArray) over every process, as a
-    new tensor on its device. One process: ``value`` back as it is."""
-    if process_count() <= 1:
+def _group_of(axis, mesh):
+    """(AxisGroup or None, process count of the collective, label suffix)."""
+    grp = _resolve_axis(axis, mesh)
+    if grp is None:
+        return None, process_count(), ""
+    return grp, grp.size, "@" + grp.axis
+
+
+def _kw(grp):
+    return {} if grp is None or grp.group is None else {"group": grp.group}
+
+
+def allreduce_sum(value, axis=None, mesh=None):
+    """The sum of ``value`` (a tensor or an NDArray) over every process, or
+    over the processes of one mesh axis (``axis``: an :class:`AxisGroup`,
+    or an axis name with ``mesh``), as a new tensor on its device. One
+    process: ``value`` back as it is."""
+    grp, n, tag = _group_of(axis, mesh)
+    if n <= 1:
         return value
     t = _as_tensor(value)
     _preamble()
@@ -420,30 +573,31 @@ def allreduce_sum(value):
         host, slot = _host_view(t, "ar")
         if slot is None:
             host = host.clone()
-        torch.distributed.all_reduce(host)
+        torch.distributed.all_reduce(host, **_kw(grp))
         out = _back(host, slot, t)
-        _record("allreduce_sum", time.perf_counter() - t0, t.numel() * t.element_size())
+        _record("allreduce_sum" + tag, time.perf_counter() - t0, t.numel() * t.element_size())
     return out
 
 
-def _reduce_scatter_into(out, inp):
+def _reduce_scatter_into(out, inp, grp=None):
     fn = (getattr(torch.distributed, "reduce_scatter_single", None)
           or torch.distributed.reduce_scatter_tensor)
-    fn(out, inp)
+    fn(out, inp, **_kw(grp))
 
 
-def _all_gather_into(out, inp):
+def _all_gather_into(out, inp, grp=None):
     fn = (getattr(torch.distributed, "all_gather_single", None)
           or torch.distributed.all_gather_into_tensor)
-    fn(out, inp)
+    fn(out, inp, **_kw(grp))
 
 
-def reduce_scatter_sum(value):
-    """The sum of ``value`` over every process, of which this process gets
-    its contiguous row block ``[rank·R/P, (rank+1)·R/P)`` (the first phase
-    of the sharded update; ``value.shape[0]`` must divide by the process
-    count). One process: the whole sum, ``value`` itself."""
-    nproc = process_count()
+def reduce_scatter_sum(value, axis=None, mesh=None):
+    """The sum of ``value`` over every process (or over one axis's
+    processes, as :func:`allreduce_sum`), of which this process gets its
+    contiguous row block ``[i·R/P, (i+1)·R/P)``, i its place among them
+    (the first phase of the sharded update; ``value.shape[0]`` must divide
+    by their count). One process: the whole sum, ``value`` itself."""
+    grp, nproc, tag = _group_of(axis, mesh)
     if nproc <= 1:
         return value
     t = _as_tensor(value)
@@ -455,17 +609,19 @@ def reduce_scatter_sum(value):
         t0 = time.perf_counter()
         host, _ = _host_view(t, "rs_in")
         mine = torch.empty((t.shape[0] // nproc,) + tuple(t.shape[1:]), dtype=t.dtype)
-        _reduce_scatter_into(mine, host)
+        _reduce_scatter_into(mine, host, grp)
         out = mine.to(t.device)  # from pageable memory: the host waits for the copy
-        _record("reduce_scatter_sum", time.perf_counter() - t0, t.numel() * t.element_size())
+        _record("reduce_scatter_sum" + tag, time.perf_counter() - t0,
+                t.numel() * t.element_size())
     return out
 
 
-def all_gather(value):
-    """Every process's equal-shaped ``value`` concatenated along axis 0 in
-    process order, on every process (the publish phase of the sharded
+def all_gather(value, axis=None, mesh=None):
+    """Every process's (or every process of one axis's, as
+    :func:`allreduce_sum`) equal-shaped ``value`` concatenated along axis 0
+    in their order, on every one of them (the publish phase of the sharded
     update). One process: ``value`` back as it is."""
-    nproc = process_count()
+    grp, nproc, tag = _group_of(axis, mesh)
     if nproc <= 1:
         return value
     t = _as_tensor(value)
@@ -474,16 +630,18 @@ def all_gather(value):
         t0 = time.perf_counter()
         host, _ = _host_view(t, "ag_in")
         full = torch.empty((t.shape[0] * nproc,) + tuple(t.shape[1:]), dtype=t.dtype)
-        _all_gather_into(full, host)
+        _all_gather_into(full, host, grp)
         out = full.to(t.device)
-        _record("all_gather", time.perf_counter() - t0, t.numel() * t.element_size())
+        _record("all_gather" + tag, time.perf_counter() - t0, t.numel() * t.element_size())
     return out
 
 
-def broadcast_from_root(value):
+def broadcast_from_root(value, axis=None, mesh=None):
     """Process 0's ``value`` on every process (the dist kvstore's ``init``:
-    every worker starts from rank 0's weights). One process: ``value``."""
-    if process_count() <= 1:
+    every worker starts from rank 0's weights); over one axis (as
+    :func:`allreduce_sum`), its first process's. One process: ``value``."""
+    grp, nproc, tag = _group_of(axis, mesh)
+    if nproc <= 1:
         return value
     t = _as_tensor(value)
     _preamble()
@@ -491,9 +649,9 @@ def broadcast_from_root(value):
     host, slot = _host_view(t, "bc")
     if slot is None:
         host = host.clone()
-    torch.distributed.broadcast(host, 0)
+    torch.distributed.broadcast(host, 0 if grp is None else grp.ranks[0], **_kw(grp))
     out = _back(host, slot, t)
-    _record("broadcast", time.perf_counter() - t0, t.numel() * t.element_size())
+    _record("broadcast" + tag, time.perf_counter() - t0, t.numel() * t.element_size())
     return out
 
 
@@ -506,10 +664,14 @@ class spanning_batch_stats:
     Σx and Σx² (and its backward's two per-channel sums) over every
     process of the group, so its statistics are those of the global batch,
     as in the JAX package's one GSPMD step (``ShardedTrainStep`` enters it
-    around its forward and backward when its mesh spans processes)."""
+    around its forward and backward when its mesh spans processes). With
+    ``axis`` (an :class:`AxisGroup`, the dp axis of a mesh whose other axes
+    replicate the batch) the sums run over that axis's processes only."""
 
-    def __init__(self, active=True):
+    def __init__(self, active=True, axis=None):
         self.active = bool(active) and process_count() > 1
+        if self.active and axis is not None:
+            self.active = axis if axis.size > 1 else False
 
     def __enter__(self):
         self._prev = getattr(_SPAN, "on", False)
@@ -522,5 +684,55 @@ class spanning_batch_stats:
 
 
 def batch_stats_span():
-    """Whether BatchNorm's statistics span the processes here."""
+    """Whether BatchNorm's statistics span the processes here: False, True
+    (every process) or the :class:`AxisGroup` whose processes they span."""
     return getattr(_SPAN, "on", False)
+
+
+# -- Megatron's two region functions over one axis -------------------------------
+class _CopyToAxis(torch.autograd.Function):
+    """Megatron's *f*: the identity forward, the all-reduce of the gradient
+    over the axis's processes backward."""
+
+    @staticmethod
+    def forward(ctx, x, grp):
+        ctx.grp = grp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return allreduce_sum(g.contiguous(), axis=ctx.grp), None
+
+
+class _ReduceFromAxis(torch.autograd.Function):
+    """Megatron's *g*: the all-reduce over the axis's processes forward, the
+    identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, grp):
+        return allreduce_sum(x.contiguous(), axis=grp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_axis(x, grp):
+    """``x`` entering a region whose partial results the axis's processes
+    sum (Megatron's *f*: each process's gradient of ``x`` is partial, so
+    backward sums it over them). The identity when ``grp`` spans one
+    process."""
+    if grp is None or grp.size <= 1 or not torch.is_grad_enabled():
+        return x
+    return _CopyToAxis.apply(x, grp)
+
+
+def reduce_from_axis(x, grp):
+    """The sum over the axis's processes of their partial ``x`` (Megatron's
+    *g*: the gradient of the sum is every partial's, so backward is the
+    identity). ``x`` itself when ``grp`` spans one process."""
+    if grp is None or grp.size <= 1:
+        return x
+    if not torch.is_grad_enabled():
+        return allreduce_sum(x.contiguous(), axis=grp)
+    return _ReduceFromAxis.apply(x, grp)

@@ -76,9 +76,25 @@ raises); the second is captured into one ``torch.cuda.CUDAGraph`` (the
 sampler generator registered with it) and replayed, and every later group
 is one replay. A failed capture raises :class:`MXNetError`. On the CPU the
 same body runs uncaptured. Only optimizers with a fused update (SGD,
-SGD-momentum, Adam: ``fused_slab_kernel``) or none are grouped. Not ported:
-``param_specs`` / tensor parallelism (the multi-card half of ROADMAP Queue 1
-step 8), which raises.
+SGD-momentum, Adam: ``fused_slab_kernel``) or none are grouped.
+
+``param_specs`` (name -> a tuple of axis names and None, the entries of
+JAX's ``PartitionSpec``, in the parameter's own layout) and meshes with
+tp / pp / sp / ep axes (JAX ``mxnet_tpu/parallel/train_step.py:171-230``):
+as in JAX, either turns the flat path off, so the update is the
+per-parameter one (no K1; ``MXTPU_AMP=bf16`` warns and runs in f32). The
+batch shards over dp only and is replicated over the other axes. Where a
+spec's axis spans processes, each process keeps only its slice of that
+parameter (the rows, along the spec's dimension, of its positions on the
+axis) and of its optimizer state; the step all-gathers the parameter over
+the axis's processes before the forward, keeps its slice of the gradient,
+which is summed over the dp axis's processes as above, and updates its
+slice. The compute is not split: every process of the axis runs the whole
+graph on the whole parameter, where GSPMD splits each operation (ROADMAP
+Queue 3 logs that difference; the values are the same).
+:meth:`ShardedTrainStep.gather_params` and :meth:`gather_state` (both
+collectives) return the whole parameters and state. ``zero1`` with such an
+axis across processes raises.
 
 The guardrail gate (``arm_guard``, JAX ``mxnet_tpu/parallel/train_step.py:
 276-288, 1094-1175``): an armed step computes the global grad-norm² from the
@@ -244,8 +260,15 @@ def _tensor(v, device, dtype=None):
     return v.detach().to(device=device, dtype=dtype or v.dtype, copy=True)
 
 
-def _not_ported(what, where):
-    return NotImplementedError("%s is not ported to PyTorch yet (%s)" % (what, where))
+def _spec_tuple(spec):
+    """A parameter's spec (a PartitionSpec-like sequence of axis names and
+    None) as a tuple; one axis a dimension."""
+    spec = tuple(spec)
+    for entry in spec:
+        if entry is not None and not isinstance(entry, str):
+            raise NotImplementedError("a spec entry naming several axes (%r) is not ported; "
+                                      "give one axis a dimension" % (entry,))
+    return spec
 
 
 def _store(dst, src):
@@ -328,17 +351,11 @@ class ShardedTrainStep:
 
     def __init__(self, symbol, mesh, optimizer=None, param_specs=None, data_names=("data",),
                  label_names=("softmax_label",), dtype=None, zero1=False, flat_update=None):
-        if param_specs:
-            raise _not_ported("param_specs (tensor-parallel parameter sharding, the multi-card "
-                              "half of ROADMAP Queue 1 step 8)",
-                              "mxnet_tpu/parallel/train_step.py:197")
         non_dp = 1
         for ax, n in mesh.shape.items():
             if ax != "dp":
                 non_dp *= n
-        if non_dp != 1:
-            raise _not_ported("a mesh with tp/pp/sp/ep > 1 in the fused step",
-                              "mxnet_tpu/parallel/train_step.py:219")
+        self.param_specs = {n: _spec_tuple(sp) for n, sp in dict(param_specs or {}).items()}
         self.symbol = symbol
         self.mesh = mesh
         self.device = mesh.device
@@ -371,7 +388,19 @@ class ShardedTrainStep:
         self.flat_bucket_bytes = bucket_bytes_env()
         dp = mesh.shape.get("dp", 1)
         eligible = (optimizer is not None and getattr(optimizer, "elementwise_update", False)
-                    and dp > 1 and self.flat_bucket_bytes > 0 and not self.zero1)
+                    and dp > 1 and non_dp == 1 and not self.param_specs
+                    and self.flat_bucket_bytes > 0 and not self.zero1)
+        self._shard = self._plan_shards()
+        # the dp axis's processes where other axes span processes too (else
+        # None: the dp axis is every process, the default group)
+        self._dp_axis = None
+        if self.nproc > 1 and non_dp > 1:
+            grp = _mesh.axis_group(mesh, "dp")
+            self._dp_axis = grp if grp.size < self.nproc else None
+            if self.zero1 and grp.size < self.nproc:
+                raise NotImplementedError(
+                    "zero1 over a mesh whose non-dp axes span processes: its row blocks are "
+                    "cut over every process, not over the dp axis's")
         if flat_update is False or not eligible:
             self.flat_mode = None
         else:
@@ -423,13 +452,78 @@ class ShardedTrainStep:
     def state_sharded(self):
         """Whether each process holds only its block of the masters and
         optimizer state (see :meth:`gather_state`)."""
-        return self._flat_sharded or (self.nproc > 1 and self.zero1 and getattr(
-            self.optimizer, "elementwise_update", False))
+        return bool(self._shard) or self._flat_sharded or (
+            self.nproc > 1 and self.zero1 and getattr(self.optimizer, "elementwise_update",
+                                                      False))
 
     def _own_block(self, t):
         """A copy of this process's contiguous 1/P of ``t`` (rows of its
         first dimension)."""
         return t[self._own(t.shape[0])].clone()
+
+    # -- parameters sharded across processes (param_specs) --------------------
+    def _plan_shards(self):
+        """name -> (AxisGroup, dim, axis size) of every parameter whose
+        spec names an axis that spans processes: this process holds the
+        slice of its positions on that axis."""
+        out = {}
+        for name, spec in self.param_specs.items():
+            for dim, axis in enumerate(spec):
+                if axis is None:
+                    continue
+                if axis not in self.mesh.shape:
+                    raise MXNetError("param_specs[%r] names axis %r, not one of the mesh's %s"
+                                     % (name, axis, tuple(self.mesh.shape)))
+                n = self.mesh.shape[axis]
+                if self.nproc > 1 and n > 1:
+                    grp = _mesh.axis_group(self.mesh, axis)
+                    if grp.size > 1:
+                        if name in out:
+                            raise NotImplementedError(
+                                "param_specs[%r] shards two dimensions across processes; "
+                                "one is ported" % (name,))
+                        out[name] = (grp, dim, n)
+        return out
+
+    def _slice_of(self, name, t):
+        """This process's slice of the whole parameter (or state tensor)
+        ``t`` of ``name``: ``t`` itself where nothing of it is sharded."""
+        if name not in self._shard:
+            return t
+        grp, dim, n = self._shard[name]
+        if t.dim() <= dim or t.shape[dim] % n:
+            raise MXNetError("%s: dim %d of %s does not split into %d shards"
+                             % (name, dim, tuple(t.shape), n))
+        per = t.shape[dim] // n
+        return t.narrow(dim, grp.positions[0] * per, grp.local * per)
+
+    def _whole_of(self, name, t):
+        """The whole parameter (or state tensor) of which ``t`` is this
+        process's slice: an all-gather over the axis's processes (every one
+        of them calls it at the same point)."""
+        if name not in self._shard:
+            return t
+        grp, dim, _ = self._shard[name]
+        whole = _mesh.all_gather(t.transpose(0, dim).contiguous(), axis=grp)
+        return whole.transpose(0, dim).contiguous()
+
+    def gather_params(self, params):
+        """The whole parameters: the sharded ones gathered from the
+        processes of their axes (a collective), the others as they are."""
+        return {n: self._whole_of(n, v) for n, v in params.items()}
+
+    def _sharded_gn2(self, grads):
+        """The global grad-norm² of per-parameter gradients of which the
+        sharded ones are this process's slices: each axis's slices summed
+        over its processes, the replicated ones once."""
+        rep = [grads[n] for n in self.param_names if n not in self._shard]
+        total = self._grad_norm2(rep) if rep else torch.zeros((), device=self.device)
+        by_axis = {}
+        for n, (grp, _, _) in self._shard.items():
+            by_axis.setdefault(grp.axis, (grp, []))[1].append(grads[n])
+        for grp, gs in by_axis.values():
+            total = total + _mesh.allreduce_sum(self._grad_norm2(gs), axis=grp)
+        return total
 
     def _ensure_flat_plan(self, params):
         if self._flat_plan is None:
@@ -462,8 +556,11 @@ class ShardedTrainStep:
     # -- placement and state ---------------------------------------------
     def place_params(self, arg_arrays_by_name, aux_arrays_by_name):
         """Copies of the parameters and aux states (NDArrays, numpy arrays
-        or tensors) on the mesh's device, name -> tensor."""
+        or tensors) on the mesh's device, name -> tensor; of a parameter
+        sharded across processes, this process's slice."""
         params = {n: _tensor(arg_arrays_by_name[n], self.device) for n in self.param_names}
+        params = {n: (self._slice_of(n, t).clone() if n in self._shard else t)
+                  for n, t in params.items()}
         aux = {n: _tensor(aux_arrays_by_name[n], self.device) for n in self.aux_names}
         return params, aux
 
@@ -505,6 +602,8 @@ class ShardedTrainStep:
 
         def place(s, name):
             t = _tensor(s, self.device)
+            if name in self._shard:
+                return self._slice_of(name, t).clone()
             return self._own_block(t) if name in rows else t
 
         return {k: _map_state(lambda s, k=k: place(s, k), v) for k, v in named.items()}
@@ -684,8 +783,12 @@ class ShardedTrainStep:
         opt = self.optimizer
         if self.nproc > 1:
             grads = dict(zip(self.param_names,
-                             self._allreduce_each([grads[n] for n in self.param_names])))
-        ok = None if gate is None else self._gate(gate, [grads[n] for n in self.param_names])
+                             self._allreduce_each([grads[n] for n in self.param_names],
+                                                  axis=self._dp_axis)))
+        ok = None
+        if gate is not None:
+            gn2 = self._sharded_gn2(grads) if self._shard else None
+            ok = self._gate(gate, [grads[n] for n in self.param_names], gn2=gn2)
         if opt is None:
             for name in self.param_names:
                 new = params[name] - lr * grads[name]
@@ -747,14 +850,16 @@ class ShardedTrainStep:
             return [_mesh.reduce_scatter_sum(g) for g in flat_gs]
         return [_mesh.allreduce_sum(g) for g in flat_gs]
 
-    def _allreduce_each(self, tensors):
-        """Every tensor summed across processes, one collective a dtype."""
+    def _allreduce_each(self, tensors, axis=None):
+        """Every tensor summed across processes (of one axis), one
+        collective a dtype."""
         out = list(tensors)
         by_dtype = {}
         for i, t in enumerate(tensors):
             by_dtype.setdefault(t.dtype, []).append(i)
         for idx in by_dtype.values():
-            summed = _mesh.allreduce_sum(torch.cat([tensors[i].reshape(-1) for i in idx]))
+            summed = _mesh.allreduce_sum(torch.cat([tensors[i].reshape(-1) for i in idx]),
+                                         axis=axis)
             off = 0
             for i in idx:
                 n = tensors[i].numel()
@@ -800,6 +905,12 @@ class ShardedTrainStep:
         ``opt_state`` itself."""
         if not self.state_sharded:
             return opt_state
+        if self._shard:
+            out = dict(opt_state)
+            for name in self._shard:
+                if out.get(name) is not None:
+                    out[name] = _map_state(lambda t, n=name: self._whole_of(n, t), out[name])
+            return out
         if self._flat_sharded:
             keys = [k for bi in range(len(self._flat_plan.buckets))
                     for k in (self._master_key(bi), self._flat_key(bi))]
@@ -982,17 +1093,18 @@ class ShardedTrainStep:
             # (loss heads compare labels exactly)
             batch = {n: (v.to(torch.bfloat16) if n in self.data_names and v.is_floating_point()
                          else v) for n, v in batch.items()}
-        leaves = {n: params[n].detach().requires_grad_(params[n].is_floating_point())
+        whole = self.gather_params(params) if self._shard else params
+        leaves = {n: whole[n].detach().requires_grad_(whole[n].is_floating_point())
                   for n in self.param_names}
         # the mirror rematerialises the cheap ops in backward and keeps the
         # dot/conv outputs (executor._GraphProgram._run_regions)
         mirror = ([rng] if rng is not None else [], _mirror_ops()) if self.mirror else None
-        with torch.enable_grad(), _mesh.spanning_batch_stats(self.nproc > 1):
+        with torch.enable_grad(), _mesh.spanning_batch_stats(self.nproc > 1, self._dp_axis):
             outs, new_aux = self.program({**leaves, **batch}, aux, rng, True, mirror=mirror)
             loss = sum((o.float() if amp else o).sum() for o in outs)
             diff = [n for n in self.param_names if leaves[n].requires_grad]
             got = torch.autograd.grad(loss, [leaves[n] for n in diff], allow_unused=True)
-        grads = {n: (torch.zeros_like(leaves[n]) if g is None else g)
+        grads = {n: self._slice_of(n, torch.zeros_like(leaves[n]) if g is None else g)
                  for n, g in zip(diff, got)}
         outs = [o.detach() for o in outs]
         if amp:
@@ -1020,8 +1132,8 @@ class ShardedTrainStep:
             new_aux = {k: (torch.where(ok, v, aux[k]) if k in aux else v)
                        for k, v in new_aux.items()}
             # every process's guard observes the global batch's loss
-            diag_loss = _mesh.allreduce_sum(loss.detach().float()) if self.nproc > 1 \
-                else loss.detach().float()
+            diag_loss = (_mesh.allreduce_sum(loss.detach().float(), axis=self._dp_axis)
+                         if self.nproc > 1 else loss.detach().float())
             outs = outs + [torch.stack([diag_loss, gate["gn2"], ok.float()])]
         return new_params, new_aux, new_opt, outs
 

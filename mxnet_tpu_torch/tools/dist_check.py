@@ -44,7 +44,29 @@ elastic shrink under ``tools/watchdog.py --elastic``; the global batch stays
 ``--step-test MODE=FILE.npz,...`` runs a ``ShardedTrainStep`` in each mode
 (:data:`STEP_MODES`: f32 or AMP, "shard" or "replicated", or ``zero1``) from
 the symbol, parameters, aux states and global batches in the file, and
-writes the state after the last step (``step_<MODE>_rank<r>.npz``).
+writes the state after the last step (``step_<MODE>_rank<r>.npz``). Mode
+``tp-step`` takes the file's ``specs`` (JSON, name -> spec) as
+``param_specs`` over a dp 1 x tp P mesh that spans the P processes (each
+feeds the whole batch), its guard armed (the (loss, grad-norm², ok) of each
+step into the JSON), writes the gathered weights and momentum, and then
+fits ``Module(mesh=, param_specs=)`` on the same batches with
+``checkpoint_dir`` (rank 0 writes; ``save_checkpoint`` on rank 0 too,
+``tp_module-0001.params`` in ``--out``).
+
+``--checks axes`` holds the mesh's rank order and axis groups to JAX's
+layout (dp 1 x tp P and dp 2 x tp 2 meshes over the P processes) and runs
+each collective over one axis.
+
+``--lm tp,sp,ep`` trains the transformer LM
+(``examples/train_transformer_lm.train``) of ``--lm-dims``
+(vocab,d_model,n_heads,n_layers,d_ff,seq_len,batch) for ``--lm-steps``
+steps with tp, sp or ep = P across the processes (ep with
+``--lm-experts`` experts), and writes each rank's losses, every gathered
+leaf's sha256, the replicated leaves' sha256 on this rank, the collectives'
+ms and bytes a step (after step 1), the K4 launches, the step ms and the
+peak memory; rank 0 also writes the first step's gathered gradients and
+the last step's gathered weights (``lm_<leg>.npz``, the JAX tree's
+layout).
 """
 from __future__ import annotations
 
@@ -198,6 +220,26 @@ def _zero_launches():
         fn.launches = 0
 
 
+def _busy_ms(prof):
+    """ms of the union of the card's kernels in a profile (copies and
+    memsets left out)."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == cuda and "memcpy" not in e.name.lower()
+                   and "memset" not in e.name.lower())
+    busy, end = 0.0, None
+    for s, e in spans:
+        if end is None or s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    return busy / 1e3
+
+
 def _idle_share(mod, batch, steps):
     """Wall ms a step, busy ms of the card's kernels (their union) and the
     idle share over ``steps`` more steps under torch.profiler."""
@@ -212,19 +254,7 @@ def _idle_share(mod, batch, steps):
             mod.update()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    cuda = torch.autograd.DeviceType.CUDA
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == cuda and "memcpy" not in e.name.lower()
-                   and "memset" not in e.name.lower())
-    busy, end = 0.0, None
-    for s, e in spans:
-        if end is None or s > end:
-            busy += e - s
-            end = e
-        elif e > end:
-            busy += e - end
-            end = e
-    busy_ms = busy / 1e3 / steps
+    busy_ms = _busy_ms(prof) / steps
     wall_ms = 1e3 * wall / steps
     return {"steps": steps, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "idle_share": max(0.0, 1.0 - busy_ms / wall_ms)}
@@ -348,7 +378,7 @@ def _leaves(state):
 #: --step-test modes: (MXTPU_AMP, MXTPU_SHARD_UPDATE, zero1)
 STEP_MODES = {"f32-shard": ("", "1", False), "f32-replicated": ("", "0", False),
               "amp-shard": ("bf16", "1", False), "amp-replicated": ("bf16", "0", False),
-              "zero1": ("", "1", True)}
+              "zero1": ("", "1", True), "tp-step": ("", "1", False)}
 
 
 def run_step_test(mx, dev, mode, path, out_dir, rank, size, res):
@@ -369,12 +399,16 @@ def run_step_test(mx, dev, mode, path, out_dir, rank, size, res):
     amp, shard, zero1 = STEP_MODES[mode]
     saved = {k: os.environ.get(k) for k in ("MXTPU_AMP", "MXTPU_SHARD_UPDATE")}
     os.environ.update(MXTPU_AMP=amp, MXTPU_SHARD_UPDATE=shard)
+    specs = json.loads(str(blob["specs"])) if mode == "tp-step" else None
     try:
-        m = make_mesh(dp=local * size, devices=[dev] * local, processes=size)
+        if specs is None:
+            m = make_mesh(dp=local * size, devices=[dev] * local, processes=size)
+        else:
+            m = make_mesh(dp=1, tp=local * size, devices=[dev] * local, processes=size)
         opt = mx.optimizer.create("sgd", learning_rate=float(blob["lr"]),
                                   momentum=float(blob["momentum"]),
                                   rescale_grad=1.0 / X.shape[1])
-        step = ShardedTrainStep(sym, m, optimizer=opt, zero1=zero1)
+        step = ShardedTrainStep(sym, m, optimizer=opt, zero1=zero1, param_specs=specs)
     finally:
         for k, v in saved.items():
             os.environ.pop(k, None) if v is None else os.environ.__setitem__(k, v)
@@ -383,25 +417,235 @@ def run_step_test(mx, dev, mode, path, out_dir, rank, size, res):
         {k[4:]: v for k, v in blob.items() if k.startswith("aux:")})
     state = step.make_state(params)
     params = step.amp_cast_params(params)
-    b = X.shape[1] // size
+    from mxnet_tpu_torch.parallel.mesh import dp_rows
+
+    rows = dp_rows(m, X.shape[1])  # this process's dp rows: its tp peers' too
+    shapes_held = {k: list(v.shape) for k, v in params.items()}
+    if specs is not None:
+        step.arm_guard()  # its grad-norm² sums each axis's slices over the axis
+    diag = []
     for t in range(steps):
-        batch = {"data": torch.from_numpy(X[t, rank * b:(rank + 1) * b]).to(dev),
-                 "softmax_label": torch.from_numpy(y[t, rank * b:(rank + 1) * b]).to(dev)}
-        params, aux, state, _ = step(params, aux, state, batch, t=t + 1)
+        batch = {"data": torch.from_numpy(X[t, rows]).to(dev),
+                 "softmax_label": torch.from_numpy(y[t, rows]).to(dev)}
+        params, aux, state, outs = step(params, aux, state, batch, t=t + 1)
+        if step.guard:
+            diag.append(outs[-1].tolist())
     held = sum(t.numel() for t in _leaves(state))
     state = step.gather_state(state, params)
+    params = step.gather_params(params)
     weights = step.master_params_named(state) if step.amp else params
     out = {"arg:" + k: v.float().cpu().numpy() for k, v in weights.items()}
     out.update({"aux:" + k: v.cpu().numpy() for k, v in aux.items()})
     out.update({"w:" + k: v.float().cpu().numpy() for k, v in params.items()})
-    if zero1:
+    if zero1 or specs is not None:
         out.update({"mom:" + k: v.cpu().numpy() for k, v in state.items() if torch.is_tensor(v)})
     np.savez(os.path.join(out_dir, "step_%s_rank%d.npz" % (mode, rank)), **out)
     res.setdefault("steps", {})[mode] = {
+        "shapes_held": shapes_held, "param_specs": specs, "guard_diag": diag,
         "flat_mode": step.flat_mode, "amp": step.amp, "zero1": step.zero1,
         "state_sharded": step.state_sharded, "state_elems_held": held,
         "state_elems_whole": sum(t.numel() for t in _leaves(state)),
         "digests": {k: digest(torch.from_numpy(v)) for k, v in out.items()}}
+    if specs is not None:
+        run_tp_module(mx, dev, blob, specs, out_dir, rank, size, res)
+
+
+def run_tp_module(mx, dev, blob, specs, out_dir, rank, size, res):
+    """``Module(mesh=, param_specs=).fit`` over a dp 1 x tp P mesh across the
+    processes on the blob's batches (every process feeds them whole), with
+    ``checkpoint_dir``; rank 0 also writes ``save_checkpoint``."""
+    from mxnet_tpu_torch.parallel import make_mesh
+
+    sym = mx.sym.load_json(str(blob["symbol"]))
+    X, y = blob["data"], blob["label"]
+    steps, b = X.shape[0], X.shape[1]
+    m = make_mesh(dp=1, tp=size, devices=[dev], processes=size)
+    it = mx.io.NDArrayIter(X.reshape((steps * b,) + X.shape[2:]), y.reshape(-1),
+                           batch_size=b)
+    mod = mx.mod.Module(sym, context=mx.cpu() if dev.type == "cpu" else mx.gpu(0), mesh=m,
+                        param_specs=specs)
+    ckpt = os.path.join(out_dir, "tp_module_ckpt")
+    mod.fit(it, kvstore="device", optimizer="sgd",
+            optimizer_params={"learning_rate": float(blob["lr"]),
+                              "momentum": float(blob["momentum"])},
+            arg_params={k[4:]: mx.nd.array(v) for k, v in blob.items() if k.startswith("arg:")},
+            aux_params={k[4:]: mx.nd.array(v) for k, v in blob.items() if k.startswith("aux:")},
+            num_epoch=1, checkpoint_dir=ckpt)
+    arg, aux = mod.get_params()  # the tp shards gathered (a collective)
+    tr = mod._fused_trainer
+    if rank == 0:
+        mod.save_checkpoint(os.path.join(out_dir, "tp_module"), 1)
+    res["tp_module"] = {
+        "fused": tr is not None, "flat_mode": tr.flat_mode, "state_sharded": tr.state_sharded,
+        "shapes_held": {k: list(v.shape) for k, v in mod._fused_params.items()},
+        "digests": {k: digest(v._data) for k, v in arg.items()},
+        "ckpt_files": sorted(os.listdir(ckpt)) if os.path.isdir(ckpt) else []}
+
+
+def _k4_launches():
+    from mxnet_tpu_torch.ops import kernels
+
+    return {"flash_attn_fwd": kernels.flash_attention.launches,
+            "flash_attn_bwd_dq": kernels.flash_attention_dq.launches,
+            "flash_attn_bwd_dkv": kernels.flash_attention_dkv.launches}
+
+
+def _tree_npz(tree, prefix):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_tree_npz(v, prefix + k + "/"))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
+
+
+#: --lm legs: the trainer's axis flags, with P the job's process count
+LM_LEGS = {"tp": lambda p, e: dict(tp=p), "sp": lambda p, e: dict(sp=p),
+           "ep": lambda p, e: dict(ep=p, moe_experts=e)}
+
+
+def run_lm_leg(dev, leg, args, rank, size, res):
+    """One ``--lm`` leg (see the module docstring)."""
+    import copy
+
+    import torch
+
+    from mxnet_tpu_torch.examples import train_transformer_lm as trainer
+    from mxnet_tpu_torch.models import transformer as tfm
+    from mxnet_tpu_torch.ops import kernels
+    from mxnet_tpu_torch.parallel import mesh
+
+    vocab, d_model, n_heads, n_layers, d_ff, seq_len, batch = (
+        int(x) for x in args.lm_dims.split(","))
+    flags = LM_LEGS[leg](size, args.lm_experts)
+    saved, stamps, stats0, meshes = {}, [], {}, []
+    save = set(args.lm_save.split(",")) - {"none", ""}
+    prof = None
+    if args.lm_profile and dev.type == "cuda":
+        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+
+    def on_mesh(m):
+        meshes.append(m)
+
+    def whole(params):
+        return tfm.params_to_jax(tfm.gather_params(params, meshes[0]))
+
+    def on_grads(i, params):
+        if i == 0 and "grads" in save:
+            g = copy.deepcopy(params)
+            for p, src in zip(g.parameters(), params.parameters()):
+                p.data = src.grad.detach().clone()
+            saved["grads"] = whole(g)
+
+    def on_step(i, loss, params):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        if i == 0:
+            stats0.update({op: dict(v) for op, v in mesh.collective_stats.items()})
+            saved["launches_step0"] = _k4_launches()
+            if prof is not None:
+                prof.start()  # before the stamp: its start-up is no step's
+        stamps.append(time.perf_counter())
+        if i == args.lm_steps - 1:
+            if prof is not None:
+                prof.stop()
+            # the steps' collectives, before the gathers that follow them
+            saved["stats"] = {op: dict(v) for op, v in mesh.collective_stats.items()}
+        saved["params"] = params
+
+    for fn in (kernels.flash_attention, kernels.flash_attention_dq, kernels.flash_attention_dkv):
+        fn.launches = 0
+    mesh.reset_collective_stats()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()  # the fits' cached blocks before it
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    losses = trainer.train(vocab=vocab, d_model=d_model, n_heads=n_heads, n_layers=n_layers,
+                           d_ff=d_ff, seq_len=seq_len, batch_size=batch, steps=args.lm_steps,
+                           lr=3e-2, dtype=args.lm_dtype, device=dev, log=lambda *a: None,
+                           on_step=on_step, on_grads=on_grads, on_mesh=on_mesh, **flags)
+    wall = time.perf_counter() - t0
+    params = saved["params"]
+    shapes_held = {n: list(p.shape) for n, p in params.named_parameters()}
+    rep = tfm.replicated_names(params)
+    final = whole(params)  # a collective
+    n = len(losses)
+    base = {"calls": 0, "seconds": 0.0, "bytes": 0}
+    after = {op: {k: v[k] - stats0.get(op, base)[k] for k in base}
+             for op, v in saved["stats"].items()}
+    step_s = [b - a for a, b in zip(stamps, stamps[1:])]
+    flat = _tree_npz(final, "")
+    out = {"flags": flags, "dims": args.lm_dims, "dtype": args.lm_dtype, "losses": losses,
+           "wall_s": wall, "mesh": str(meshes[0]),
+           "digests": {k: digest(torch.from_numpy(np.ascontiguousarray(v)))
+                       for k, v in flat.items()},
+           "replicated_digests": {k: digest(p) for k, p in params.named_parameters()
+                                  if k in rep},
+           "shapes_held": shapes_held,
+           "launches": _k4_launches(), "launches_step0": saved["launches_step0"],
+           "collectives_after_step_1": after,
+           "collective_ms_per_step": 1e3 * sum(v["seconds"] for v in after.values())
+           / max(1, n - 1),
+           "collective_bytes_per_step": sum(v["bytes"] for v in after.values()) / max(1, n - 1),
+           "step_ms_median": 1e3 * float(np.median(step_s)) if step_s else None}
+    if dev.type == "cuda":
+        out["peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    if prof is not None and step_s:
+        busy = _busy_ms(prof) / len(step_s)
+        wall_ms = 1e3 * sum(step_s) / len(step_s)
+        out["profile"] = {"steps": len(step_s), "wall_ms": wall_ms, "device_busy_ms": busy,
+                          "idle_share": max(0.0, 1.0 - busy / wall_ms)}
+    if rank == 0 and save:
+        blob = {}
+        if "grads" in save:
+            blob.update({"grad:" + k: v for k, v in _tree_npz(saved["grads"], "").items()})
+        if "params" in save:
+            blob.update({"param:" + k: v for k, v in flat.items()})
+        np.savez(os.path.join(args.out, "lm_%s.npz" % leg), **blob)
+    res.setdefault("lm", {})[leg] = out
+
+
+def check_axes(mx, dev, rank, size, res):
+    """The mesh's rank order and axis groups against JAX's layout, and each
+    collective over one axis (see the module docstring)."""
+    import torch
+
+    from mxnet_tpu_torch.parallel import mesh
+
+    out = {}
+    m = mesh.make_mesh(dp=1, tp=size, devices=[dev], processes=size)
+    tp = mesh.axis_group(m, "tp")
+    assert m.coords(0)["tp"] == rank and tp.ranks == list(range(size)) and tp.index == rank
+    assert mesh.axis_group(m, "dp").size == 1
+    x = torch.full((2, 3), float(rank + 1), device=dev)
+    got = {"allreduce": mesh.allreduce_sum(x, axis=tp)[0, 0].item(),
+           "all_gather": mesh.all_gather(x, axis="tp", mesh=m)[:, 0].tolist(),
+           "reduce_scatter": mesh.reduce_scatter_sum(
+               torch.arange(2 * size, dtype=torch.float32, device=dev) * (rank + 1),
+               axis=tp).tolist(),
+           "broadcast": mesh.broadcast_from_root(x, axis=tp)[0, 0].item()}
+    assert got["allreduce"] == size * (size + 1) / 2
+    assert got["all_gather"] == [float(r + 1) for r in range(size) for _ in range(2)]
+    tri = size * (size + 1) / 2
+    assert got["reduce_scatter"] == [tri * i for i in range(2 * rank, 2 * rank + 2)]
+    assert got["broadcast"] == 1.0
+    out["dp1_tp"] = {"coords": m.coords(0), "tp_ranks": tp.ranks, "got": got}
+    if size == 2:
+        m2 = mesh.make_mesh(dp=2, tp=2, devices=[dev] * 2, processes=2)
+        # JAX's reshape of the process-major list: tp inside a process, dp across
+        assert [m2.coords(i) for i in range(2)] == [
+            dict(dp=rank, tp=t, pp=0, sp=0, ep=0) for t in range(2)]
+        dp, tp2 = mesh.axis_group(m2, "dp"), mesh.axis_group(m2, "tp")
+        assert dp.ranks == [0, 1] and dp.positions == [rank]
+        assert tp2.ranks == [rank] and tp2.positions == [0, 1]
+        assert mesh.allreduce_sum(x, axis=tp2) is x  # logical: nothing crosses
+        s = mesh.allreduce_sum(x, axis=dp)[0, 0].item()
+        assert s == 3.0, s
+        out["dp2_tp2"] = {"coords": [m2.coords(i) for i in range(2)], "dp_ranks": dp.ranks,
+                          "tp_positions": tp2.positions}
+    out["stats"] = {k: dict(v) for k, v in mesh.collective_stats.items() if "@" in k}
+    res["axes"] = out
 
 
 def main(argv=None):
@@ -424,6 +668,18 @@ def main(argv=None):
                         "snapaux:* in the npz)")
     p.add_argument("--step-test", default="",
                    help="comma-separated MODE=FILE.npz (modes: %s)" % ", ".join(STEP_MODES))
+    p.add_argument("--lm", default="", help="LM legs, comma-separated: %s" % ", ".join(LM_LEGS))
+    p.add_argument("--lm-dims", default="32,16,2,2,32,8,2",
+                   help="vocab,d_model,n_heads,n_layers,d_ff,seq_len,batch")
+    p.add_argument("--lm-steps", type=int, default=3)
+    p.add_argument("--lm-experts", type=int, default=4)
+    p.add_argument("--lm-dtype", default="float32", choices=["float32", "bfloat16"])
+    p.add_argument("--lm-save", default="grads,params",
+                   help="what rank 0 writes into lm_<leg>.npz: grads (the first step's), "
+                        "params (the last step's), both, or none")
+    p.add_argument("--lm-profile", action="store_true",
+                   help="profile the card over the steps after the first: busy ms a step "
+                        "and the idle share")
     args = p.parse_args(argv)
 
     import torch
@@ -456,12 +712,15 @@ def main(argv=None):
         for name in checks:
             {"kvstore": lambda: check_kvstore(mx, rank, size, res),
              "barrier": lambda: check_barrier(rank, res),
-             "fused": lambda: check_fused(mx, dev, rank, size, res)}[name]()
+             "fused": lambda: check_fused(mx, dev, rank, size, res),
+             "axes": lambda: check_axes(mx, dev, rank, size, res)}[name]()
         for item in [i for i in args.step_test.split(",") if i]:
             mode, _, path = item.partition("=")
             run_step_test(mx, dev, mode, path, args.out, rank, size, res)
         for name in [i for i in args.fit.split(",") if i]:
             run_fit(mx, dev, ctx, args, name, rank, size, res)
+        for leg in [i for i in args.lm.split(",") if i]:
+            run_lm_leg(dev, leg, args, rank, size, res)
     res["ok"] = True
     res["wall_s"] = time.perf_counter() - T_IMPORT
     path = os.path.join(args.out, "rank%d.json" % rank)

@@ -356,16 +356,20 @@ def test_multistep_over_processes_raises(monkeypatch):
 
 
 def test_multi_device_mesh_and_tp_still_raise():
+    """A mesh over several devices of one process still raises (NCCL, the
+    multi-card half); tp across processes and the trainer's --tp run
+    (tests/test_torch_axes_dist.py holds them across two processes)."""
     import torch
 
     with pytest.raises(NotImplementedError, match="multi-card half"):
         tmx.parallel.make_mesh(dp=2, devices=[torch.device("cpu"), torch.device("meta")])
-    with pytest.raises(NotImplementedError, match="multi-card half"):
-        tmx.parallel.mesh.Mesh(["cpu"] * 2, {"dp": 2, "tp": 2}, processes=2, process_rank=0)
+    m = tmx.parallel.mesh.Mesh(["cpu"] * 2, {"dp": 2, "tp": 2}, processes=2, process_rank=0)
+    assert [m.coords(i)["tp"] for i in range(2)] == [0, 1] and m.positions("dp") == [0]
     from mxnet_tpu_torch.examples import train_transformer_lm as trainer
 
-    with pytest.raises(NotImplementedError, match="multi-card half"):
-        trainer.main(["--cpu", "--steps", "1", "--tp", "2"])
+    assert trainer.main(["--cpu", "--steps", "1", "--tp", "2", "--vocab", "32", "--d-model",
+                         "16", "--n-heads", "2", "--n-layers", "1", "--d-ff", "32",
+                         "--seq-len", "8", "--batch-size", "2"]) == 0
 
 
 _BUILDER = r"""

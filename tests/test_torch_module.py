@@ -225,15 +225,17 @@ def test_unported_surface_raises():
                                learning_rate=0.1)
     ff.fit(X, y)
     assert ff.arg_params["fc3_weight"].shape == (10, 16)
-    with pytest.raises(NotImplementedError, match="module.py"):
-        tmx.mod.Module(_mlp(tmx), context=tmx.cpu(), param_specs={"fc1_weight": ("tp",)})
+    # param_specs are ported (tests/test_torch_tp.py): Module keeps them for
+    # its fused step, and ShardedTrainStep takes them with the flat path off
+    mod = tmx.mod.Module(_mlp(tmx), context=tmx.cpu(), param_specs={"fc1_weight": ("tp",)})
+    assert mod._param_specs == {"fc1_weight": ("tp",)}
     mesh = tmx.parallel.make_mesh(dp=2, devices=[tmx.cpu()] * 2)
     step = tmx.parallel.ShardedTrainStep(_mlp(tmx), mesh)
     assert step.arm_guard() is step and step.guard  # the guard is ported (resilience)
-    # zero1 is ported (tests/test_torch_dist.py); param_specs still raises
+    # zero1 is ported (tests/test_torch_dist.py)
     assert tmx.parallel.ShardedTrainStep(_mlp(tmx), mesh, zero1=True).zero1
-    with pytest.raises(NotImplementedError, match="multi-card half"):
-        tmx.parallel.ShardedTrainStep(_mlp(tmx), mesh, param_specs={"fc1_weight": ("tp",)})
+    tp_step = tmx.parallel.ShardedTrainStep(_mlp(tmx), mesh, param_specs={"fc1_weight": ("tp",)})
+    assert tp_step.param_specs == {"fc1_weight": ("tp",)} and tp_step.flat_mode is None
     # K-step groups are ported for SGD and Adam; other optimizers still raise
     rmsprop = tmx.optimizer.create("rmsprop")
     with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 step 2"):

@@ -72,6 +72,38 @@ def test_monitor_records_match_jax_on_an_executor(sort):
     _assert_same_records(out[1], out[0])
 
 
+def test_executor_manager_install_monitor_matches_jax():
+    """``DataParallelExecutorManager.install_monitor`` installs the Monitor
+    on each context's executor, as the JAX package's does: the same records
+    in the same order, stats within 1e-5."""
+    from importlib import import_module
+
+    rng = np.random.RandomState(1)
+    x = rng.randn(8, 8).astype("f")
+    y = np.array([0, 1, 2, 3] * 2, "f")
+    out = []
+    for pkg in (jmx, tmx):
+        em = import_module(pkg.__name__ + ".executor_manager")
+        net = _net(pkg)
+        it = pkg.io.NDArrayIter(x, y, batch_size=8)
+        args = net.list_arguments()
+        mgr = em.DataParallelExecutorManager(
+            net, [pkg.cpu(0), pkg.cpu(1)], it, args,
+            [n for n in args if n not in ("data", "softmax_label")], [])
+        mgr.set_params({n: pkg.nd.array(v) for n, v in _weights().items()}, {})
+        mon = pkg.monitor.Monitor(interval=1, pattern=".*")
+        mgr.install_monitor(mon)
+        recs = []
+        for batch in it:
+            mon.tic()
+            mgr.load_data_batch(batch)
+            mgr.forward(is_train=False)
+            recs += mon.toc()
+        out.append(_stats(recs))
+    assert out[1] and any("fc1" in name for _, name, _ in out[1])
+    _assert_same_records(out[1], out[0])
+
+
 def test_monitor_through_fit_matches_jax():
     """fit(monitor=) with kvstore 'device' on two contexts: both packages
     decline the fused path and record the same stats in the same order."""

@@ -154,17 +154,21 @@ def test_trainer_refuses_cpu_unasked(monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [["--dp", "2"], ["--tp", "2"]])
-def test_trainer_raises_on_unported_parallelism(flags):
-    """--tp still raises; --dp is ported (across processes in
-    tests/test_torch_dist.py): in one process its two ranks share the
-    batch, which trains as dp 1 does."""
-    if flags[0] == "--dp":
-        assert trainer.main(["--cpu", "--steps", "1", "--vocab", "32", "--d-model", "16",
-                             "--n-heads", "2", "--n-layers", "1", "--d-ff", "32",
-                             "--seq-len", "8", "--batch-size", "2"] + flags) == 0
-        return
-    with pytest.raises(NotImplementedError, match="not ported"):
-        trainer.main(["--cpu", "--steps", "1"] + flags)
+def test_trainer_raises_on_unported_parallelism(flags, capsys):
+    """--dp and --tp are ported (across processes in tests/test_torch_dist.py
+    and tests/test_torch_axes_dist.py): in one process the two ranks share
+    the batch (dp) or each runs its half of the heads and FFN columns (tp),
+    which trains as one rank does; heads that do not divide by tp raise."""
+    small = ["--cpu", "--steps", "1", "--vocab", "32", "--d-model", "16", "--n-heads", "2",
+             "--n-layers", "1", "--d-ff", "32", "--seq-len", "8", "--batch-size", "2"]
+    assert trainer.main(small) == 0
+    one = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("step")]
+    assert trainer.main(small + flags) == 0
+    two = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("step")]
+    assert [ln.split()[:4] for ln in two] == [ln.split()[:4] for ln in one]
+    if flags[0] == "--tp":
+        with pytest.raises(ValueError, match="n-heads"):
+            trainer.main(small + ["--tp", "4", "--n-heads", "2"])
 
 
 @pytest.mark.parametrize("flags", [["--sp", "2"], ["--moe-experts", "4"],
