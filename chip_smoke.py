@@ -17,6 +17,9 @@
     python3 chip_smoke.py --only detection             # K1-K3's and NMS's build and phase 29
     python3 chip_smoke.py --only dist                  # K1-K3's build and phase 30 with (d)
     python3 chip_smoke.py --only axes                  # the flash kernels' build and phase 31
+    python3 chip_smoke.py --only pp                    # the flash kernels' build, 31's pp leg
+    python3 chip_smoke.py --only cpp                   # K2/K3's build and phase 32
+    python3 chip_smoke.py --only examples              # K2/K3's build and phase 33
 
 
 Phases, each fatal on failure:
@@ -591,8 +594,42 @@ Phases, each fatal on failure:
     process's MoE run), and tp-step (``ShardedTrainStep(param_specs=)`` over
     dp 1 x tp 2 across the processes, an MLP, against one process's over a
     logical tp 2 mesh: 1e-6 of max, and ``Module(mesh=, param_specs=).fit``
-    with rank 0's checkpoint). ``phase_seconds`` records each phase's
-    seconds of the full script.
+    with rank 0's checkpoint). The same launch also trains the LM as a
+    pipeline (``dist_check --pp-test``): pp 2 across the two processes, the
+    12 blocks as 2 stages of 6 (the embedding before the pipeline, the
+    final norm and the tied head in the loss), bf16, T 2048, 4 microbatches
+    of one row, 3 SGD steps; each stage sends its microbatches' activations
+    to the next and their gradients back (``mesh.ppermute`` over gloo).
+    Held to one process's logical pp 2 (``pipeline_stages``) at the same
+    seed on the card: the first loss within 5e-3 relative (and whether bit
+    for bit), each stage leaf's first-step gradient within 2e-2 of its max
+    and so rank 0's embedding and final norm gradients (summed over pp),
+    both ranks' losses equal, each worker's K4f / K4dq / K4dkv launches 6
+    blocks x 4 microbatches a step; step ms, idle share, the permutes' and
+    the replicated leaves' all-reduce ms and MB a step, peak GiB printed
+    (the pp shape, 1 x 2048 x 16 x 64 bf16 causal, is among phases 2 and
+    3's kernel checks). ``--only pp`` launches its own job with the pp axis
+    check (rank order, neighbours, ``ppermute`` f32 / bf16 and its
+    gradient) and adds pp 4 over 4 processes at d_model 512, 8 layers.
+    ``phase_seconds`` records each phase's seconds of the full script.
+
+32. the C++ frontend: ``make -C mxnet_tpu_torch/cpp`` (g++ against the
+    CPython headers and ``python3-config --embed --ldflags``) into
+    ``build/cpp/``, then ``train_mlp`` and ``lenet`` on gpu(0): accuracy
+    above 0.90, ``checkpoint-roundtrip: exact``, the Predictor's accuracy
+    equal to the executor's, and lenet's second convolution (8 -> 16, 3 x
+    3 on 4 x 4 maps) through K2 and K3 once a step (375 launches each, the
+    binary's own counters); build and run seconds printed. Without
+    ``Python.h`` the phase raises naming it.
+
+33. the 16 root examples in-process on gpu(0) at their smokes' settings
+    (``tests/test_examples_smoke.py``), each passing its own check;
+    stochastic_depth's blocks (16 -> 16 channel 3 x 3 convolutions, the
+    examples' only ones in K2 / K3's envelope) launch each 1980 times. K2 and K3 are held against their plain versions (f32, 1e-4 of
+    max, repeats bitwise) and timed on every in-envelope shape of the
+    examples and on lenet.cpp's, and the Caffe converter converts a
+    hand-encoded model whose forward on gpu(0) is held to the host's
+    (1e-5 of max).
 
 Then the kernels line: the seven kernels, K4f, K4dq, K4dkv, K2, K3, K5 and
 K1, and the NMS kernel; K2's and K3's launches count phase 20's training rows, and their
@@ -619,7 +656,12 @@ K1's, K2's and K3's ``launches_by_path["detection"]`` count phase 29
 (c)-(e)'s wrappers, and ``launches_by_path["dist"]`` phase 30 (b)-(c)'s
 wrappers in both worker processes, which their ``launches`` include.
 K4f's, K4dq's and K4dkv's ``launches_by_path["axes"]`` count phase 31's tp
-leg in both workers, which their ``launches`` include. The NMS kernel's
+leg in both workers, and ``launches_by_path["pp"]`` its pp leg in both
+workers, which their ``launches`` include. K2's and K3's
+``launches_by_path["cpp"]`` count phase 32's lenet and ``["examples"]``
+phase 33's runs, which their ``launches`` include, and
+``examples_shapes`` carries phase 33's rows (f32 ms, plain, library,
+bound, error) at the examples' and lenet.cpp's shapes. The NMS kernel's
 entry (a kernel of the port with no TPU counterpart) counts phase 29's
 detection path and carries (b)'s times at SSD-300's 8732 x 32 (``ms``,
 ``plain_ms``, ``bound_ms``) and at Proposal's 6000 -> 300.
@@ -7046,13 +7088,13 @@ DIST = dict(batch=64, amp_steps=10, f32_steps=3, profile_steps=2, timeout=900,
             update_rel=0.25, held_ulps=64)
 
 
-def _dist_launch(package, root, name, args, env=None, timeout=None, watchdog=None):
-    """``tools/launch.py -n 2`` (under ``tools/watchdog.py`` with
+def _dist_launch(package, root, name, args, env=None, timeout=None, watchdog=None, n=2):
+    """``tools/launch.py -n n`` (under ``tools/watchdog.py`` with
     ``watchdog`` flags) of ``tools/dist_check.py args``, its output in
     ``root/name.log``; returns (exit code, wall s, log tail, each rank's
     JSON)."""
     out = os.path.join(root, name)
-    cmd = [sys.executable, "-m", "mxnet_tpu_torch.tools.launch", "-n", "2",
+    cmd = [sys.executable, "-m", "mxnet_tpu_torch.tools.launch", "-n", str(n),
            sys.executable, "-m", "mxnet_tpu_torch.tools.dist_check", "--out", out,
            "--device", "cuda"] + list(args)
     if watchdog is not None:
@@ -7067,14 +7109,14 @@ def _dist_launch(package, root, name, args, env=None, timeout=None, watchdog=Non
     with open(os.path.join(root, name + ".log"), "w") as fh:
         fh.write(proc.stdout + "\n---- stderr ----\n" + proc.stderr)
     ranks = []
-    for r in range(2):
+    for r in range(n):
         path = os.path.join(out, "rank%d.json" % r)
         if os.path.exists(path):
             with open(path) as fh:
                 ranks.append(json.load(fh))
     tail = proc.stdout[-3000:] + proc.stderr[-8000:]
     if proc.returncode != 0:
-        raise AssertionError("phase 30 %s: exit %d\n%s" % (name, proc.returncode, tail))
+        raise AssertionError("launch %s: exit %d\n%s" % (name, proc.returncode, tail))
     return proc, wall, ranks
 
 
@@ -7564,6 +7606,388 @@ def phase_axes(mx, trainer, tfm, dev, package, ranks=None):
     return res
 
 
+#: phase 31's pp leg: the LM's blocks in ``stages`` stages over that many
+#: processes, dist_check's PP_MICRO microbatches of one row (AXES' width, T
+#: and steps); --only pp adds pp 4 over 4 processes at ``small`` (vocab,
+#: d_model, heads, layers, d_ff, T, batch)
+PP = dict(stages=2, first_loss=5e-3, grads=2e-2,
+          small=(32000, 512, 8, 8, 2048, 1024, 4), small_stages=4)
+
+
+def pp_args(dims=None):
+    """dist_check's flags for the pp leg (``--lm-*`` are the tp leg's when
+    they ride one launch)."""
+    args = ["--pp-test"]
+    if dims is not None:
+        args += ["--lm-dims", ",".join(map(str, dims)), "--lm-steps", str(AXES["steps"]),
+                 "--lm-dtype", "bfloat16", "--lm-profile"]
+    return args
+
+
+def pp_full_dims():
+    return (FULL["vocab"], FULL["d_model"], FULL["n_heads"], FULL["n_layers"], FULL["d_ff"],
+            AXES["seq_len"], AXES["batch"])
+
+
+def pp_reference(dist_check, dev, dims, stages):
+    """One process's pipeline over ``stages`` logical pp ranks on the card
+    (``pipeline_stages``' tick schedule), one step: (loss, each stage
+    leaf's gradient as numpy [S, blocks, ...], and the embedding's and the
+    final norm's, which the workers sum over pp)."""
+    import torch
+
+    torch.cuda.empty_cache()
+    lm = dist_check.pp_lm(dims, "bfloat16", dev, stages)
+    loss = lm.loss_for({"pp": stages})()
+    loss.backward()
+    grads = {k: v.grad.float().cpu().numpy() for k, v in lm.stages.items()}
+    grads.update(embed=lm.embed.grad.float().cpu().numpy(),
+                 ln_f=lm.ln_f.grad.float().cpu().numpy())
+    out = (loss.item(), grads)
+    del lm, loss
+    torch.cuda.empty_cache()
+    return out
+
+
+def pp_leg(ranks, out_dir, ref, stages, micro, dims):
+    """The pp leg's checks across the workers against the one-process run
+    ``ref``: the first loss, each stage leaf's first-step gradient and the
+    replicated leaves' (rank 0's, summed over pp), every rank's losses
+    equal, the K4 launches each worker's stages make."""
+    legs = [r["pp_lm"] for r in ranks]
+    losses = legs[0]["losses"]
+    assert all(lg["losses"] == losses for lg in legs) and len(losses) == AXES["steps"], legs
+    assert all(np.isfinite(losses)), losses
+    first = abs(losses[0] - ref[0]) / abs(ref[0])
+    errs = {}
+    for r in range(stages):
+        with np.load(os.path.join(out_dir, "pp_lm_rank%d.npz" % r)) as z:
+            for k, want in ref[1].items():
+                whole = k in ("embed", "ln_f")
+                if whole and r:
+                    continue
+                got = z["grad:" + k].astype(np.float64)
+                w = want if whole else want[r:r + 1]
+                name = k if whole else "%s stage %d" % (k, r)
+                errs[name] = float(np.abs(got - w).max()) / max(float(np.abs(w).max()), 1e-30)
+    worst = max(errs.items(), key=lambda kv: kv[1])
+    per = dims[3] // stages
+    launches = [lg["launches"] for lg in legs]
+    for name in ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+        for lc in launches:  # each worker's blocks, each microbatch, each step
+            assert lc[name] == per * micro * AXES["steps"], (name, launches)
+    out = {"stages": stages, "micro": micro, "dims": list(dims), "losses": losses,
+           "one_process_loss": ref[0], "first_loss_rel_err": first,
+           "first_loss_bitwise": losses[0] == ref[0],
+           "grad_err_of_max_worst": list(worst), "grad_leaves": len(errs),
+           "launches_per_worker": launches,
+           "launches_a_step_per_worker": [{k: v // AXES["steps"] for k, v in lc.items()}
+                                          for lc in launches],
+           "step_ms_per_rank": [lg["step_ms_median"] for lg in legs],
+           "idle_share_per_rank": [lg.get("profile", {}).get("idle_share") for lg in legs],
+           "busy_ms_per_rank": [lg.get("profile", {}).get("device_busy_ms") for lg in legs],
+           "permute_ms_per_step": [lg["permute_ms_per_step"] for lg in legs],
+           "permute_mb_per_step": [lg["permute_bytes_per_step"] / 1e6 for lg in legs],
+           "allreduce_ms_per_step": [lg["allreduce_ms_per_step"] for lg in legs],
+           "allreduce_mb_per_step": legs[0]["allreduce_bytes_per_step"] / 1e6,
+           "peak_gib_per_rank": [lg.get("peak_mem_gib") for lg in legs],
+           "wall_s_per_rank": [lg["wall_s"] for lg in legs],
+           "limits": {"first_loss": PP["first_loss"], "grads": PP["grads"]}}
+    log("phase 31 pp %d: %s" % (stages, json.dumps(out)))
+    assert first <= PP["first_loss"], ("pp first loss", first)
+    assert worst[1] <= PP["grads"], ("pp gradients", worst)
+    return out
+
+
+def phase_pp(dev, package, ranks=None):
+    """Phase 31's pp leg: the LM as a pipeline over two worker processes on
+    gpu(0) (see the module docstring). ``ranks``: phase 30's workers' JSON,
+    whose job ran it; without it (``--only pp``) a launch of its own, the
+    axis check, and pp 4 over 4 processes at a smaller width."""
+    from mxnet_tpu_torch.tools import dist_check
+
+    t_phase = time.perf_counter()
+    res = {"card": card_line()}
+    root = os.path.join(package, "build", "chip_smoke_dist")
+    dims = pp_full_dims()
+    if ranks is None:
+        os.makedirs(root, exist_ok=True)
+        _, wall, ranks = _dist_launch(package, root, "pp", ["--checks", "pp"] + pp_args(dims))
+        res["launch_wall_s"] = wall
+        res["pp_check"] = ranks[0]["pp"]
+        out = os.path.join(root, "pp")
+    else:
+        out = os.path.join(root, "abc")
+    t_ref = time.perf_counter()
+    ref = pp_reference(dist_check, dev, dims, PP["stages"])
+    res["reference_s"] = time.perf_counter() - t_ref
+    res["pp2"] = pp_leg(ranks, out, ref, PP["stages"], dist_check.PP_MICRO, dims)
+    launches = {name: sum(lc[name] for lc in res["pp2"]["launches_per_worker"])
+                for name in ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv")}
+    if "launch_wall_s" in res:  # --only pp: pp 4 over 4 processes
+        n = PP["small_stages"]
+        _, wall4, ranks4 = _dist_launch(package, root, "pp4", pp_args(PP["small"]), n=n)
+        ref4 = pp_reference(dist_check, dev, PP["small"], n)
+        res["pp4"] = pp_leg(ranks4, os.path.join(root, "pp4"), ref4, n, dist_check.PP_MICRO,
+                            PP["small"])
+        res["pp4"]["launch_wall_s"] = wall4
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t_phase
+    log("phase 31 pp: %.1f s" % res["seconds"])
+    return res
+
+
+#: phase 32: lenet.cpp's training steps (25 epochs of 15 batches) and its
+#: second convolution, the one in K2 / K3's envelope (8 -> 16 channels,
+#: 3 x 3, pad 1, on the 4 x 4 maps of batch 100)
+CPP = dict(lenet_steps=25 * 15, lenet_conv=((100, 8, 4, 4), (16, 8, 3, 3), (1, 1)),
+           timeout=600)
+
+
+def _cpp_run(binary, args, package):
+    t0 = time.perf_counter()
+    proc = subprocess.run([binary] + args, capture_output=True, text=True, cwd=package,
+                          env=dict(os.environ, PYTHONPATH=package), timeout=CPP["timeout"])
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError("phase 32: %s exit %d\n%s\n%s" % (
+            os.path.basename(binary), proc.returncode, proc.stdout[-3000:], proc.stderr[-5000:]))
+    return proc.stdout, seconds
+
+
+def phase_cpp(package):
+    """Phase 32: the C++ frontend built with make and its two examples run
+    on gpu(0) (see the module docstring)."""
+    import sysconfig
+
+    t_phase = time.perf_counter()
+    inc = sysconfig.get_config_var("INCLUDEPY")
+    if not os.path.exists(os.path.join(inc or "", "Python.h")):
+        raise AssertionError("phase 32: no Python.h under %r: the C++ frontend needs the "
+                             "CPython headers" % inc)
+    build = os.path.join(package, "build", "cpp")
+    t0 = time.perf_counter()
+    proc = subprocess.run(["make", "-C", os.path.join(package, "mxnet_tpu_torch", "cpp"),
+                           "BUILD=" + build], capture_output=True, text=True, timeout=300)
+    build_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError("phase 32: make exit %d\n%s\n%s" % (proc.returncode,
+                                                                proc.stdout[-3000:],
+                                                                proc.stderr[-5000:]))
+    out, mlp_s = _cpp_run(os.path.join(build, "train_mlp"), ["--out", build], package)
+    nums = dict(re.findall(r"^([\w-]+): ([0-9.]+)$", out, re.M))
+    mlp = {"final_accuracy": float(nums["final-accuracy"]),
+           "reload_accuracy": float(nums["reload-accuracy"]),
+           "predictor_accuracy": float(nums["predictor-accuracy"]),
+           "checkpoint_roundtrip": re.search(r"checkpoint-roundtrip: (\w+)", out).group(1),
+           "context": re.search(r"context: (\S+)", out).group(1), "seconds": mlp_s}
+    out, lenet_s = _cpp_run(os.path.join(build, "lenet"), [], package)
+    counts = {k: int(v) for k, v in re.findall(r"(\w+)=(\d+)", out.split("kernel-launches:")[1])}
+    lenet = {"accuracy": float(re.search(r"lenet val-accuracy: ([0-9.]+)", out).group(1)),
+             "context": re.search(r"context: (\S+)", out).group(1), "launches": counts,
+             "seconds": lenet_s}
+    res = {"card": card_line(), "build_s": build_s, "train_mlp": mlp, "lenet": lenet}
+    log("phase 32: %s" % json.dumps(res))
+    assert mlp["context"] == lenet["context"] == "gpu(0)", res
+    assert mlp["final_accuracy"] > 0.90 and mlp["checkpoint_roundtrip"] == "exact", mlp
+    assert mlp["predictor_accuracy"] == mlp["final_accuracy"], mlp
+    assert lenet["accuracy"] > 0.90, lenet
+    for name in ("conv_bwd_filter", "conv_bwd_input"):
+        assert counts[name] == CPP["lenet_steps"], (name, counts)
+    res["launches"] = {name: counts[name] for name in ("conv_bwd_filter", "conv_bwd_input")}
+    res["seconds"] = time.perf_counter() - t_phase
+    return res
+
+
+#: phase 33: the root examples at the settings of their smokes in
+#: tests/test_examples_smoke.py (or of their docstrings), in-process on
+#: gpu(0); stochastic_depth's blocks are the examples' only convolutions in
+#: K2 / K3's envelope
+EXAMPLES = {
+    "train_mnist": ["--num-epochs", "1"],
+    "svm_digits": [],
+    "autoencoder": ["--num-epochs", "3"],
+    "multi_task": ["--num-epochs", "8"],
+    "adversary_fgsm": ["--num-epochs", "4"],
+    "stochastic_depth": ["--min-acc", "0.8"],
+    "cnn_text_classification": ["--num-epochs", "4", "--min-acc", "0.75"],
+    "numpy_ops": [],
+    "matrix_factorization": ["--num-epochs", "8"],
+    "nce_loss": ["--num-epochs", "6"],
+    "char_lstm": ["--num-epochs", "2", "--sample-chars", "25", "--num-hidden", "64"],
+    "bi_lstm_sort": ["--num-epochs", "3", "--num-samples", "1500", "--min-acc", "0.3"],
+    "bayesian_sgld": [],
+    "dec_clustering": ["--num-epochs", "15", "--refine-rounds", "3", "--lr", "0.001"],
+    "reinforce_gridworld": ["--iters", "35"],
+    "train_gan": ["--steps", "400"],
+}
+#: K2 / K3 launches of stochastic_depth's run: 22 epochs of 15 batches, six
+#: in-envelope convolutions a step
+SD_LAUNCHES = 22 * 15 * 6
+CAFFE_TOL = 1e-5  # the converted model's forward on gpu(0) against the host's, of max
+
+
+def example_conv_cases(mx):
+    """{(data, weight, pad): convolutions of that shape a step} of the
+    examples' in-envelope convolutions (from infer_shape at their batch)
+    and lenet.cpp's second convolution."""
+    import argparse as _argparse
+    from importlib import import_module
+
+    from mxnet_tpu_torch.models import resnet
+    from mxnet_tpu_torch.ops import kernels
+
+    ex = lambda name: import_module("mxnet_tpu_torch.examples." + name)  # noqa: E731
+    syms = [(ex("stochastic_depth").build(3, 0.75, True), (100, 1, 8, 8)),
+            (ex("adversary_fgsm").build_net(), (100, 1, 8, 8)),
+            (ex("cnn_text_classification").build_sym(16, 32, 0.25), (100, 20)),
+            (ex("train_mnist").get_symbol(_argparse.Namespace(network="lenet")),
+             (64, 1, 28, 28))]
+    cases = {CPP["lenet_conv"]: 1}
+    for sym, shape in syms:
+        for layer in resnet.conv_layers(sym, shape):
+            if kernels.conv_bwd_plan(layer["data"], layer["weight"], layer["stride"],
+                                     layer["pad"], layer["dilate"], "float32"):
+                key = (layer["data"], layer["weight"], layer["pad"])
+                cases[key] = cases.get(key, 0) + 1
+    return cases
+
+
+def _pb_varint(x):
+    out = b""
+    while True:
+        b, x = x & 0x7F, x >> 7
+        if not x:
+            return out + bytes([b])
+        out += bytes([b | 0x80])
+
+
+def _pb_ld(field, payload):
+    return _pb_varint((field << 3) | 2) + _pb_varint(len(payload)) + payload
+
+
+def _pb_blob(arr):
+    import struct
+
+    arr = np.asarray(arr, np.float32)
+    shape = _pb_ld(7, _pb_ld(1, b"".join(_pb_varint(int(v)) for v in arr.shape)))
+    return shape + _pb_ld(5, struct.pack("<%df" % arr.size, *arr.reshape(-1).tolist()))
+
+
+def _pb_layer(name, ltype, blobs):
+    payload = _pb_ld(1, name.encode()) + _pb_ld(2, ltype.encode())
+    return _pb_ld(100, payload + b"".join(_pb_ld(7, _pb_blob(b)) for b in blobs))
+
+
+CAFFE_PROTOTXT = """
+name: "tiny"
+input: "data"
+input_dim: 2 input_dim: 3 input_dim: 8 input_dim: 8
+layer { name: "conv1" type: "Convolution" bottom: "data" top: "conv1"
+  convolution_param { num_output: 8 kernel_size: 3 pad: 1 stride: 1 } }
+layer { name: "relu1" type: "ReLU" bottom: "conv1" top: "conv1" }
+layer { name: "pool1" type: "Pooling" bottom: "conv1" top: "pool1"
+  pooling_param { pool: MAX kernel_size: 3 stride: 2 } }
+layer { name: "bn1" type: "BatchNorm" bottom: "pool1" top: "bn1"
+  batch_norm_param { use_global_stats: true eps: 1e-5 } }
+layer { name: "scale1" type: "Scale" bottom: "bn1" top: "bn1"
+  scale_param { bias_term: true } }
+layer { name: "fc1" type: "InnerProduct" bottom: "bn1" top: "fc1"
+  inner_product_param { num_output: 5 } }
+layer { name: "prob" type: "Softmax" bottom: "fc1" top: "prob" }
+"""
+
+
+def caffe_check(mx, root):
+    """The Caffe converter on a hand-encoded model (the protobuf wire format
+    written here, independent of the converter's reader): its forward on
+    gpu(0) against the host's."""
+    from mxnet_tpu_torch.tools import caffe_converter as cc
+
+    rng = np.random.RandomState(0)
+    net = (_pb_ld(1, b"tiny")
+           + _pb_layer("conv1", "Convolution", [rng.randn(8, 3, 3, 3) * 0.3, rng.randn(8) * 0.1])
+           + _pb_layer("bn1", "BatchNorm", [rng.randn(8) * 0.4, rng.rand(8) + 1.0, [2.0]])
+           + _pb_layer("scale1", "Scale", [rng.rand(8) + 0.5, rng.randn(8) * 0.1])
+           + _pb_layer("fc1", "InnerProduct", [rng.randn(5, 8 * 4 * 4) * 0.1, rng.randn(5) * 0.1]))
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "tiny.prototxt"), "w") as fh:
+        fh.write(CAFFE_PROTOTXT)
+    with open(os.path.join(root, "tiny.caffemodel"), "wb") as fh:
+        fh.write(net)
+    sym, args, auxs = cc.convert_model(os.path.join(root, "tiny.prototxt"),
+                                       os.path.join(root, "tiny.caffemodel"),
+                                       os.path.join(root, "tiny"))
+    x = rng.randn(2, 3, 8, 8).astype(np.float32)
+    host, card = [], []
+    for ctx, out in ((mx.cpu(), host), (mx.gpu(0), card)):
+        with ctx:
+            exe = sym.simple_bind(ctx=ctx, data=(2, 3, 8, 8))
+            for k, v in list(args.items()) + list(auxs.items()):
+                (exe.arg_dict if k in exe.arg_dict else exe.aux_dict)[k][:] = v.asnumpy()
+            exe.arg_dict["data"][:] = x
+            out.append(exe.forward(is_train=False)[0].asnumpy())
+    host, card = host[0], card[0]
+    err = float(np.abs(card - host).max()) / float(np.abs(host).max())
+    res = {"args": len(args), "auxs": len(auxs), "out_shape": list(card.shape),
+           "gpu_vs_cpu_err_of_max": err, "limit": CAFFE_TOL}
+    assert err <= CAFFE_TOL and np.all(np.isfinite(card)), res
+    return res
+
+
+def _summary(res):
+    """An example's result without its arrays."""
+    return {k: v for k, v in res.items() if isinstance(v, (int, float, str, bool))}
+
+
+def phase_examples(mx, kernels, dev, package):
+    """Phase 33: the root examples in-process on gpu(0), K2 / K3 against
+    their plain versions on the examples' in-envelope shapes, and the Caffe
+    converter (see the module docstring)."""
+    import torch
+    from importlib import import_module
+
+    t_phase = time.perf_counter()
+    res = {"card": card_line()}
+    cases = example_conv_cases(mx)
+    worst, errs = conv_checks(kernels, [(key, (torch.float32,)) for key in cases], dev,
+                              np.random.default_rng(33))
+    res["conv_checks"] = {"worst": worst, "rows": conv_time_rows(
+        kernels, cases, (torch.float32,), dev, errs, np.random.default_rng(34))}
+    log("phase 33: K2 / K3 vs plain on the examples' shapes %s, worst %s"
+        % (sorted(cases), json.dumps(worst)))
+    launches = {"conv_bwd_filter": 0, "conv_bwd_input": 0}
+    runs = {}
+    for name in EXAMPLES:
+        ex = import_module("mxnet_tpu_torch.examples." + name)
+        zero_counts(kernels)
+        t0 = time.perf_counter()
+        if name == "train_gan":
+            np.random.seed(0)
+            samples = ex.train(steps=int(EXAMPLES[name][1]), log=None, ctx=mx.gpu(0))
+            assert samples.shape == (512, 2) and np.all(np.isfinite(samples)), samples
+            out = {"mean": samples.mean(axis=0).tolist()}
+        else:
+            with mx.gpu(0):
+                out = _summary(ex.run(ex.parse_args(EXAMPLES[name])))
+        torch.cuda.synchronize()
+        got = conv_counts(kernels)
+        out.update(seconds=time.perf_counter() - t0, launches=got)
+        for k in launches:
+            launches[k] += got[k]
+        runs[name] = out
+        log("phase 33 %s: %s" % (name, json.dumps(out)))
+    assert runs["stochastic_depth"]["launches"] == {
+        "conv_bwd_filter": SD_LAUNCHES, "conv_bwd_input": SD_LAUNCHES}, runs
+    res["examples"] = runs
+    res["caffe"] = caffe_check(mx, os.path.join(package, "build", "chip_smoke_caffe"))
+    log("phase 33 caffe: %s" % json.dumps(res["caffe"]))
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t_phase
+    log("phase 33: %.1f s" % res["seconds"])
+    return res
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every phase's numbers to this JSON file")
@@ -7571,7 +7995,8 @@ def main(argv=None):
                     "one beside this script (to run this script's phases on another tree)")
     ap.add_argument("--only", choices=("f32_lm", "rtc", "slab", "zoo", "multistep", "serving",
                                        "resilience", "input", "rnn", "mirror", "parallel",
-                                       "telemetry", "detection", "dist", "axes"),
+                                       "telemetry", "detection", "dist", "axes", "pp", "cpp",
+                                       "examples"),
                     help="f32_lm: build, phase 19 and phase 8's attention kernel times only; "
                     "rtc: K5's push path on ResNet-50's parameter arrays only; slab: K1's "
                     "build, phases 16-18 and K1's times only; zoo: K2/K3's build and "
@@ -7585,7 +8010,10 @@ def main(argv=None):
                     "K1-K3's build and phase 28 with (c), (d) and (f); detection: K1-K3's and "
                     "the NMS kernel's build and phase 29; dist: K1-K3's build and phase 30 "
                     "with (d), the elastic shrink; axes: the flash kernels' build and phase "
-                    "31 with the sp and ep legs, the axes check and tp-step")
+                    "31 with the sp and ep legs, the axes check and tp-step; pp: the flash "
+                    "kernels' build and phase 31's pp leg in a launch of its own, with the pp "
+                    "axis check and pp 4 over 4 processes; cpp: K2/K3's build and phase 32; "
+                    "examples: K2/K3's build and phase 33")
     ap.add_argument("--resilience-worker", metavar="SPEC", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
@@ -7702,6 +8130,21 @@ def main(argv=None):
         _build.build(["flash_attn_fwd", "flash_split", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"])
         results["build_s"] = time.perf_counter() - t0
         results["axes"] = phase_axes(mx, trainer, tfm, dev, package)
+    if args.only == "pp":
+        t0 = time.perf_counter()
+        _build.build(["flash_attn_fwd", "flash_split", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"])
+        results["build_s"] = time.perf_counter() - t0
+        results["pp"] = phase_pp(dev, package)
+    if args.only == "cpp":
+        t0 = time.perf_counter()
+        _build.build(["conv_bwd_filter"])
+        results["build_s"] = time.perf_counter() - t0
+        results["cpp"] = phase_cpp(package)
+    if args.only == "examples":
+        t0 = time.perf_counter()
+        _build.build(["conv_bwd_filter"])
+        results["build_s"] = time.perf_counter() - t0
+        results["examples"] = phase_examples(mx, kernels, dev, package)
     if args.only:
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
@@ -7784,10 +8227,18 @@ def main(argv=None):
     mark("telemetry")
     results["detection"] = det = phase_detection(mx, kernels, dev)
     mark("detection")
-    results["dist"] = dist = phase_dist(mx, kernels, dev, package, extra=axes_lm_args("tp"))
+    results["dist"] = dist = phase_dist(mx, kernels, dev, package,
+                                        extra=axes_lm_args("tp") + pp_args())
     mark("dist")
-    results["axes"] = axes = phase_axes(mx, trainer, tfm, dev, package, dist.pop("ranks"))
+    ranks = dist.pop("ranks")
+    results["axes"] = axes = phase_axes(mx, trainer, tfm, dev, package, ranks)
     mark("axes")
+    results["pp"] = pp = phase_pp(dev, package, ranks)
+    mark("pp")
+    results["cpp"] = cpp = phase_cpp(package)
+    mark("cpp")
+    results["examples"] = examples = phase_examples(mx, kernels, dev, package)
+    mark("examples")
     log("phase seconds: %s" % json.dumps({k: round(v, 1) for k, v in phase_s.items()}))
     dist_launches = dist["launches"]  # phase 30 (b)-(c): both ranks' wrappers
     det_launches = det["launches"]  # phase 29 (c)-(e): the detection path's wrappers
@@ -7797,9 +8248,12 @@ def main(argv=None):
     multi_launches = multistep_launches(multi)
     resil_launches = resil["launches_resumed_runs"]
     input_launches = inp["launches"]
+    cpp_launches = cpp["launches"]  # phase 32: the C++ lenet's process
+    ex_launches = examples["launches"]  # phase 33: the examples' runs
     conv_launches = {name: conv_launches[name] + multi_launches[name] + resil_launches[name]
                      + input_launches[name] + mirror_launches[name] + tele_launches[name]
-                     + det_launches[name] + dist_launches[name] for name in conv_launches}
+                     + det_launches[name] + dist_launches[name] + cpp_launches[name]
+                     + ex_launches[name] for name in conv_launches}
     k1 = results["k1_entry"]
     k1["launches_by_path"]["multistep"] = multi_launches["slab_update"]
     k1["launches_by_path"]["resilience"] = resil_launches["slab_update"]
@@ -7823,18 +8277,21 @@ def main(argv=None):
     serve_launches = fwd[0]["launches"] + results["serving"]["d"]["flash_launches"]
     rnn_launches = rnn["launches"]  # phase 25 (c): f32 kernels, on the rnn path
     axes_launches = axes["launches"]  # phase 31: both workers' tp leg
+    pp_launches = pp["launches"]  # phase 31: both workers' pp leg
     fwd[0]["launches_by_path"] = {"serving": serve_launches,
                                   "training": train_launches["flash_attn_fwd"],
                                   "rnn": rnn_launches["flash_attn_fwd"],
                                   "parallel": par_launches["flash_attn_fwd"],
-                                  "axes": axes_launches["flash_attn_fwd"]}
+                                  "axes": axes_launches["flash_attn_fwd"],
+                                  "pp": pp_launches["flash_attn_fwd"]}
     fwd[0]["launches"] = sum(fwd[0]["launches_by_path"].values())
     bwd = phase_bwd_times(kernels, dev, train_launches, f32_launches)
     for entry in bwd:
         entry["launches_by_path"] = {"training": entry["launches"],
                                      "rnn": rnn_launches[entry["name"]],
                                      "parallel": par_launches[entry["name"]],
-                                     "axes": axes_launches[entry["name"]]}
+                                     "axes": axes_launches[entry["name"]],
+                                     "pp": pp_launches[entry["name"]]}
         entry["launches"] = sum(entry["launches_by_path"].values())
     conv_entries = phase_conv_times(kernels, resnet, dev, conv_launches, conv_errs)
     for entry in conv_entries:
@@ -7848,7 +8305,11 @@ def main(argv=None):
         entry["launches_by_path"] = {"mirror": mirror_launches[entry["name"]],
                                      "telemetry": tele_launches[entry["name"]],
                                      "detection": det_launches[entry["name"]],
-                                     "dist": dist_launches[entry["name"]]}
+                                     "dist": dist_launches[entry["name"]],
+                                     "cpp": cpp_launches[entry["name"]],
+                                     "examples": ex_launches[entry["name"]]}
+        # phase 33: the examples' and lenet.cpp's shapes, f32
+        entry["examples_shapes"] = examples["conv_checks"]["rows"][entry["name"]]
     kernel_line = {"kernels": fwd + bwd + conv_entries
                    + phase_rtc_times(mx, rk, rtc_runs, results["rtc_training"], dev)
                    + [results.pop("k1_entry"), nms_entry(det)],

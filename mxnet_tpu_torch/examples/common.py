@@ -10,10 +10,19 @@ port's launcher (``python -m mxnet_tpu_torch.tools.launch -n P ...``)
 ``--kv-store dist_sync`` trains through the executor path and the store's
 collectives, and ``dist_device_sync`` on the fused path over a mesh whose
 dp axis spans the P processes (``--num-devices`` ranks in each).
+
+The examples that train on the handwritten digits read them through
+:func:`load_digits` from ``data/digits.npz`` beside this file (scikit-learn's
+bundled copy of the UCI set, 1797 8 x 8 images, CC BY 4.0), so they need
+no download and no scikit-learn.
 """
 from __future__ import annotations
 
 import logging
+import os
+import types
+
+import numpy as np
 
 from .. import callback, kvstore, lr_scheduler, model
 from .. import initializer as init
@@ -44,6 +53,34 @@ def add_fit_args(parser):
     parser.add_argument("--load-epoch", type=int, default=None)
     parser.add_argument("--dtype", type=str, default="float32")
     return parser
+
+
+DIGITS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "digits.npz")
+
+
+def load_digits():
+    """The digits as ``sklearn.datasets.load_digits()`` gives them:
+    ``images`` [1797, 8, 8] and ``data`` [1797, 64] float64 in 0..16,
+    ``target`` [1797] int64."""
+    with np.load(DIGITS) as z:
+        images, target = z["images"].astype(np.float64), z["target"].astype(np.int64)
+    return types.SimpleNamespace(images=images, data=images.reshape(len(images), -1),
+                                 target=target)
+
+
+def get_context(args):
+    """``--ctx``'s context: ``gpu(0)`` (``--num-devices`` N > 1: N contexts
+    of it) or the host's ``cpu()`` (N > 1: ``cpu(0)`` ... ``cpu(N - 1)``)."""
+    n = args.num_devices
+    if args.ctx == "cpu":
+        return [cpu(i) for i in range(n)] if n > 1 else cpu()
+    return [gpu(0)] * n if n > 1 else gpu(0)
+
+
+def default_context(args):
+    """The context the arrays an example makes without one land on (an
+    iterator's batches): enter it with ``with`` around the run."""
+    return cpu() if args.ctx == "cpu" else gpu(0)
 
 
 def get_module(args, network, processes=1, **kwargs):

@@ -309,6 +309,27 @@ def _qkv(h, layer, dtype, shape):
                  for w in (layer.wq, layer.wk, layer.wv))
 
 
+def dense_block(x, layer, n_heads, dtype, mesh=None):
+    """One dense pre-norm block on one rank, ``apply_fn``'s ops for a layer
+    without tp or MoE: attention through ``kernels.attention`` (the flash
+    kernels on the card), then the FFN. ``layer`` has the
+    :class:`TransformerLayer` names (``ln1 ln2 wq wk wv wo w1 w2``), as
+    attributes; the pipeline's stages run their blocks through it."""
+    B, T, d = x.shape
+    head_dim = d // n_heads
+    h = _rmsnorm(x, layer.ln1.to(dtype))
+    q, k, v = _qkv(h, layer, dtype, (B, T, n_heads, head_dim))
+    o = _kernels.attention(q, k, v, causal=True, mesh=mesh)
+    x = x + F.linear(o.reshape(B, T, n_heads * head_dim), layer.wo.to(dtype))
+    return _ffn(x, layer, dtype)
+
+
+def lm_head(x, ln_f, embed, dtype):
+    """``apply_fn``'s output: the final rmsnorm and the tied projection,
+    f32 logits."""
+    return _rmsnorm(x, ln_f.to(dtype)).float() @ embed.T
+
+
 class _PETable:
     """The sinusoid table, built on the host once and kept per device."""
 
@@ -435,8 +456,7 @@ def transformer_lm(vocab=32000, d_model=512, n_heads=8, n_layers=4,
                     part = F.linear(_gelu(F.linear(h, w1[cols])), w2[:, cols])
                     out = part if out is None else out + part
                 x = x + _mesh.reduce_from_axis(out, tp_grp)
-        x = _rmsnorm(x, params.ln_f.to(dtype))
-        logits = x.float() @ params.embed.T
+        logits = lm_head(x, params.ln_f, params.embed, dtype)
         return (logits, aux_total) if moe_experts > 0 else logits
 
     return (_init_fn_for(vocab, d_model, n_heads, n_layers, d_ff, moe_experts, moe_every),

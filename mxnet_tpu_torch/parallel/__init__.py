@@ -5,7 +5,7 @@ sequence-parallel ring attention, the Switch-MoE FFN with its expert axis,
 the GPipe pipeline and the heartbeat files."""
 from .mesh import (AxisGroup, Mesh, all_gather, allreduce_sum, axis_group,  # noqa: F401
                    axis_size, barrier, broadcast_from_root, dp_sharding, init_distributed,
-                   make_mesh, reduce_scatter_sum, replicated_sharding)
+                   make_mesh, ppermute, reduce_scatter_sum, replicated_sharding)
 from .train_step import ShardedTrainStep, host_state  # noqa: F401
 from .ring_attention import ring_attention, sequence_parallel_attention  # noqa: F401
 from .moe import init_moe_params, moe_partition_specs, switch_moe  # noqa: F401

@@ -3,7 +3,8 @@
 ``replicated_sharding``, ``init_distributed`` and the host collectives
 ``barrier`` / ``allreduce_sum`` / ``reduce_scatter_sum`` / ``all_gather`` /
 ``broadcast_from_root``, each over the whole group or over one axis of a
-mesh (:func:`axis_group`).
+mesh (:func:`axis_group`), and ``ppermute``, the point-to-point transfers
+between the positions of one axis (the pipeline's sends and receives).
 
 A :class:`Mesh` has the JAX axis names (dp, tp, pp, sp, ep), a ``shape``
 dict and a ``torch.device`` per rank of this process. Several ranks may
@@ -444,6 +445,20 @@ _PINNED = {}  # (numel, dtype, tag) -> _PinnedSlot
 _PINNED_LOCK = threading.Lock()
 
 
+def _pinned_slot(like, tag):
+    """The reused pinned host buffer for ``like``'s element count and dtype
+    under ``tag``, once the last copy out of it is done."""
+    key = (like.numel(), like.dtype, tag)
+    with _PINNED_LOCK:
+        slot = _PINNED.get(key)
+        if slot is None:
+            slot = _PINNED[key] = _PinnedSlot(torch.empty(like.numel(), dtype=like.dtype,
+                                                          pin_memory=True))
+    if slot.event is not None:
+        slot.event.synchronize()
+    return slot
+
+
 def _host_view(t, tag):
     """``t`` on the host: a CUDA tensor is copied into a reused pinned
     buffer after the work its stream queued (the copy is queued behind it,
@@ -451,14 +466,7 @@ def _host_view(t, tag):
     Returns (host tensor, slot or None)."""
     if t.device.type != "cuda":
         return t.contiguous(), None
-    key = (t.numel(), t.dtype, tag)
-    with _PINNED_LOCK:
-        slot = _PINNED.get(key)
-        if slot is None:
-            slot = _PINNED[key] = _PinnedSlot(torch.empty(t.numel(), dtype=t.dtype,
-                                                          pin_memory=True))
-    if slot.event is not None:
-        slot.event.synchronize()  # the last copy out of this buffer is done
+    slot = _pinned_slot(t, tag)
     with torch.cuda.device(t.device):
         slot.buf.copy_(t.reshape(-1), non_blocking=True)
         torch.cuda.current_stream(t.device).synchronize()
@@ -653,6 +661,99 @@ def broadcast_from_root(value, axis=None, mesh=None):
     out = _back(host, slot, t)
     _record("broadcast" + tag, time.perf_counter() - t0, t.numel() * t.element_size())
     return out
+
+
+# -- point to point over one axis ---------------------------------------------
+def _check_perm(perm, n):
+    perm = [(int(s), int(d)) for s, d in perm]
+    srcs, dsts = [s for s, _ in perm], [d for _, d in perm]
+    if len(set(srcs)) < len(srcs) or len(set(dsts)) < len(dsts) or any(
+            not (0 <= i < n) for i in srcs + dsts):
+        raise MXNetError("ppermute: %s is not a partial permutation of %d positions"
+                         % (perm, n))
+    return tuple(perm)
+
+
+def _ppermute(t, perm, grp, tag):
+    """:func:`ppermute` without autograd."""
+    pos = grp.positions
+    lo = pos[0]
+    out = torch.zeros_like(t)
+    sends, recvs = [], []
+    for s, d in perm:
+        if s in pos and d in pos:
+            out[d - lo] = t[s - lo]
+        elif s in pos:
+            sends.append((d, t[s - lo]))
+        elif d in pos:
+            recvs.append((s, d))
+    if not sends and not recvs:
+        return out
+    owner = lambda p: grp.ranks[p // grp.local]  # noqa: E731 (the process holding p)
+    nbytes = sum(v.numel() * v.element_size() for _, v in sends)
+    _preamble()
+    with _tm.span("mesh.ppermute", nbytes=nbytes):
+        t0 = time.perf_counter()
+        reqs, into = [], []
+        for i, (d, v) in enumerate(sends):
+            host, _ = _host_view(v, ("pp_send", i))
+            reqs.append(torch.distributed.isend(host, owner(d), tag=int(tag), **_kw(grp)))
+        for i, (s, d) in enumerate(recvs):
+            if out.device.type == "cuda":
+                slot = _pinned_slot(out[d - lo], ("pp_recv", i))
+                host = slot.buf.view(out.shape[1:])
+            else:
+                host, slot = torch.empty(out.shape[1:], dtype=out.dtype), None
+            reqs.append(torch.distributed.irecv(host, owner(s), tag=int(tag), **_kw(grp)))
+            into.append((d - lo, host, slot))
+        for r in reqs:  # every send and receive of the call completes here
+            r.wait()
+        for j, host, slot in into:
+            out[j] = _back(host, slot, out)
+        _record("ppermute@" + grp.axis, time.perf_counter() - t0, nbytes)
+    return out
+
+
+class _PPermute(torch.autograd.Function):
+    """:func:`ppermute` forward; backward, the reverse permute of the
+    gradient (JAX's ``ppermute`` vjp)."""
+
+    @staticmethod
+    def forward(ctx, x, perm, grp, tag):
+        ctx.perm, ctx.grp, ctx.tag = perm, grp, tag
+        return _ppermute(x, perm, grp, tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        inverse = tuple((d, s) for s, d in ctx.perm)
+        return _ppermute(g.contiguous(), inverse, ctx.grp, ctx.tag), None, None, None
+
+
+def ppermute(value, perm, axis="pp", mesh=None, tag=0):
+    """JAX's ``lax.ppermute`` over the positions of one mesh axis
+    (``axis``: an :class:`AxisGroup`, or an axis name with ``mesh``).
+    ``value`` leads with one entry per position this process holds on the
+    axis (``AxisGroup.local`` of them, in order: the whole axis in a mesh of
+    one process); ``perm`` is a list of (source, destination) positions, each
+    at most once on either side. Returns ``value``'s layout in which each
+    destination's entry holds its source's and every other entry zeros.
+    Pairs within this process are copies; a pair across processes is a gloo
+    send and receive (``isend`` / ``irecv``, all posted before any is waited
+    on, so neighbours cannot deadlock on their order) of the entry staged
+    through pinned host memory, tagged ``tag``. Every process of a pair must
+    call with the same ``perm`` and ``tag``; a process on no pair returns at
+    once. Differentiable: the gradient is the reverse permute."""
+    grp = _resolve_axis(axis, mesh)
+    if grp is None:
+        raise MXNetError("ppermute needs an axis")
+    t = _as_tensor(value)
+    if t.dim() < 1 or t.shape[0] != grp.local:
+        raise MXNetError("ppermute: value of shape %s must lead with this process's %d "
+                         "position(s) on %s" % (tuple(t.shape), grp.local, grp.axis))
+    perm = _check_perm(perm, grp.size * grp.local)
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _PPermute.apply(t, perm, grp, int(tag))
+    return _ppermute(t, perm, grp, int(tag))
 
 
 # -- batch statistics that span the processes -------------------------------

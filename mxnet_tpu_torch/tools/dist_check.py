@@ -57,6 +57,28 @@ fits ``Module(mesh=, param_specs=)`` on the same batches with
 layout (dp 1 x tp P and dp 2 x tp 2 meshes over the P processes) and runs
 each collective over one axis.
 
+``--checks pp`` holds the pp axis of a dp 1 x pp P mesh over the P processes
+to JAX's layout (process r holds stage r; its neighbours r - 1 and r + 1)
+and runs ``ppermute`` over it: a shift and a ring, f32 and bf16, and the
+gradient of the ring through its autograd pair (the reverse permute).
+
+``--pp-problem FILE.npz[,FILE.npz...]`` runs ``pipelined_loss`` on each
+file's problem (``w`` [S, d, d], ``b`` [S, d], ``x`` [M, mb, d], ``y``;
+stage ``relu(a @ w + b)``, loss the mean squared error) over a dp 1 x pp S
+mesh whose S stages are spread over the P processes, S / P a process, and
+writes the loss and the gradients of ``w`` and ``b``
+(``pp_problem<S>_rank<r>.npz``).
+
+``--pp-test`` trains the transformer LM of ``--lm-dims`` for ``--lm-steps``
+SGD steps as a pipeline over that mesh (:func:`pp_lm`): its blocks in P
+stages of n_layers / P, the embedding before the pipeline, the final norm
+and the tied head inside the loss, :data:`PP_MICRO` microbatches. Each rank
+writes its losses, the K4 launches a step, the step ms, the permutes' and
+the replicated leaves' all-reduce ms and bytes a step (after step 1), the
+peak memory and, with ``--lm-profile``, the idle share; and the first
+step's gradients of its own stage rows (rank 0 also the embedding's and the
+final norm's) into ``pp_lm_rank<r>.npz``.
+
 ``--lm tp,sp,ep`` trains the transformer LM
 (``examples/train_transformer_lm.train``) of ``--lm-dims``
 (vocab,d_model,n_heads,n_layers,d_ff,seq_len,batch) for ``--lm-steps``
@@ -648,6 +670,233 @@ def check_axes(mx, dev, rank, size, res):
     res["axes"] = out
 
 
+def check_pp(dev, rank, size, res):
+    """The pp axis across the processes and ``ppermute`` over it (see the
+    module docstring)."""
+    import torch
+
+    from mxnet_tpu_torch.parallel import mesh
+
+    m = mesh.make_mesh(dp=1, pp=size, devices=[dev], processes=size)
+    pp = mesh.axis_group(m, "pp")
+    assert m.coords(0)["pp"] == rank and pp.ranks == list(range(size)), (m.coords(0), pp)
+    assert pp.positions == [rank] and pp.index == rank
+    shift = [(i, i + 1) for i in range(size - 1)]
+    ring = [(i, (i + 1) % size) for i in range(size)]
+    got = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.full((1, 3, 5), float(rank + 1), device=dev, dtype=dtype)
+        y = mesh.ppermute(x, shift, axis=pp)
+        assert y.dtype == dtype and torch.all(y == float(rank)), (dtype, y)  # rank 0: zeros
+        z = mesh.ppermute(x, ring, axis=pp, tag=1)
+        assert torch.all(z == float((rank - 1) % size + 1)), (dtype, z)
+        got[str(dtype)] = [y.flatten()[0].item(), z.flatten()[0].item()]
+    x = torch.full((1, 4), float(rank + 1), device=dev, requires_grad=True)
+    w = torch.arange(4, dtype=torch.float32, device=dev) + 10 * rank
+    (mesh.ppermute(x, ring, axis=pp, tag=2) * w).sum().backward()
+    nxt = (rank + 1) % size  # x went to the next stage, whose w is its gradient
+    want = torch.arange(4, dtype=torch.float32) + 10 * nxt
+    assert torch.equal(x.grad[0].cpu(), want), (x.grad, want)
+    res["pp"] = {"coords": m.coords(0), "pp_ranks": pp.ranks, "got": got,
+                 "neighbours": {"prev": rank - 1 if rank else None,
+                                "next": rank + 1 if rank + 1 < size else None},
+                 "grad": x.grad[0].tolist(),
+                 "stats": {k: dict(v) for k, v in mesh.collective_stats.items()
+                           if k.startswith("ppermute")}}
+
+
+def relu_stage(p, act):
+    """The stage of ``tests/test_moe_pipeline.py``'s pipeline problem."""
+    import torch
+
+    return torch.relu(act @ p["w"] + p["b"])
+
+
+def mse_loss(outs, y):
+    import torch
+
+    return torch.mean((outs - y) ** 2)
+
+
+def run_pp_problem(dev, path, out_dir, rank, size, res):
+    """``--pp-problem``: the pipelined loss and its gradients across the
+    processes (see the module docstring)."""
+    import torch
+
+    from mxnet_tpu_torch.parallel import make_mesh, pipelined_loss
+
+    blob = dict(np.load(path))
+    stages = int(blob["w"].shape[0])
+    if stages % size:
+        raise ValueError("%d stages do not spread over %d processes" % (stages, size))
+    m = make_mesh(dp=1, pp=stages, devices=[dev] * (stages // size), processes=size)
+    params = {k: torch.from_numpy(blob[k]).to(dev).requires_grad_() for k in ("w", "b")}
+    loss = pipelined_loss(relu_stage, mse_loss, m)(params, torch.from_numpy(blob["x"]).to(dev),
+                                                   torch.from_numpy(blob["y"]).to(dev))
+    loss.backward()
+    np.savez(os.path.join(out_dir, "pp_problem%d_rank%d.npz" % (stages, rank)),
+             loss=loss.item(), **{k: v.grad.cpu().numpy() for k, v in params.items()})
+    res.setdefault("pp_problem", {})[str(stages)] = {"loss": loss.item(),
+                                                     "stages_held": m.positions("pp")}
+
+
+#: the transformer block's weights, stacked for the pipeline's stages
+PP_NAMES = ("ln1", "ln2", "wq", "wk", "wv", "wo", "w1", "w2")
+#: ``--pp-test``'s microbatches a step
+PP_MICRO = 4
+
+
+def pp_lm(dims, dtype, dev, n_stages):
+    """The transformer LM of ``dims`` (vocab, d_model, n_heads, n_layers,
+    d_ff, seq_len, batch) as a pipeline of ``n_stages``, from ``init_fn(0)``
+    on the trainer's corpus. Returns a namespace: ``stages`` (each block
+    weight stacked [S, n_layers / S, ...], f32 masters), ``embed`` and
+    ``ln_f`` (f32, every process holds them whole), ``leaves`` (all of
+    them) and ``loss_for(mesh)`` -> ``loss()``: the embedding of the
+    tokens in :data:`PP_MICRO` microbatches through ``pipelined_loss`` (each stage
+    ``models.transformer.dense_block`` over its blocks in ``dtype``; the
+    loss the trainer's mean NLL after the final norm and the tied head)."""
+    import types
+
+    import torch
+
+    from mxnet_tpu_torch.examples import train_transformer_lm as trainer
+    from mxnet_tpu_torch.models import transformer as tfm
+    from mxnet_tpu_torch.parallel import pipelined_loss
+
+    vocab, d_model, n_heads, n_layers, d_ff, seq_len, batch = dims
+    micro = PP_MICRO
+    if n_layers % n_stages or batch % micro:
+        raise ValueError("%d layers over %d stages, batch %d in %d microbatches"
+                         % (n_layers, n_stages, batch, micro))
+    cdt = tfm._torch_dtype(dtype)
+    init_fn, _ = tfm.transformer_lm(vocab=vocab, d_model=d_model, n_heads=n_heads,
+                                    n_layers=n_layers, d_ff=d_ff, dtype=cdt)
+    full = tfm.params_from_jax(init_fn(0), device=dev, dtype=torch.float32)
+    per = n_layers // n_stages
+    stages = {}
+    for name in PP_NAMES:
+        w = torch.stack([getattr(layer, name).detach() for layer in full.layers])
+        stages[name] = w.reshape((n_stages, per) + tuple(w.shape[1:])).clone().requires_grad_()
+    embed = full.embed.detach().clone().requires_grad_()
+    ln_f = full.ln_f.detach().clone().requires_grad_()
+    seq = torch.from_numpy(trainer.corpus(vocab, batch, seq_len).astype(np.int64)).to(dev)
+    tokens, targets = seq[:, :-1], seq[:, 1:]
+    mb = batch // micro
+    pe = torch.from_numpy(tfm._sinusoid_pe(seq_len, d_model)).to(device=dev, dtype=cdt)
+
+    def stage_fn(p, act):
+        for j in range(per):
+            act = tfm.dense_block(act, types.SimpleNamespace(**{k: v[j] for k, v in p.items()}),
+                                  n_heads, cdt)
+        return act
+
+    def loss_fn(outs, y):
+        logits = tfm.lm_head(outs.reshape((-1,) + tuple(outs.shape[2:])), ln_f, embed, cdt)
+        return trainer.lm_loss(logits, y.reshape(-1, y.shape[-1]))
+
+    def loss_for(mesh):
+        f = pipelined_loss(stage_fn, loss_fn, mesh)
+
+        def loss():
+            x = embed[tokens].to(cdt) + pe[None]  # apply_fn's input
+            return f(stages, x.reshape((micro, mb) + tuple(x.shape[1:])),
+                     targets.reshape(micro, mb, -1))
+
+        return loss
+
+    return types.SimpleNamespace(stages=stages, embed=embed, ln_f=ln_f, per=per,
+                                 leaves=[embed, ln_f] + list(stages.values()),
+                                 loss_for=loss_for)
+
+
+def pp_sgd(leaves, lr):
+    """``p -= lr * g`` on every leaf with a gradient; clears them."""
+    import torch
+
+    with torch.no_grad():
+        for p in leaves:
+            if p.grad is not None:
+                p.sub_(lr * p.grad)
+                p.grad = None
+
+
+def run_pp_test(dev, args, rank, size, res):
+    """``--pp-test`` (see the module docstring)."""
+    import torch
+
+    from mxnet_tpu_torch.ops import kernels
+    from mxnet_tpu_torch.parallel import make_mesh, mesh
+
+    dims = tuple(int(v) for v in args.lm_dims.split(","))
+    m = make_mesh(dp=1, pp=size, devices=[dev], processes=size)
+    lm = pp_lm(dims, args.lm_dtype, dev, size)
+    loss_fn = lm.loss_for(m)
+    grp = mesh.axis_group(m, "pp")
+    for fn in (kernels.flash_attention, kernels.flash_attention_dq, kernels.flash_attention_dkv):
+        fn.launches = 0
+    mesh.reset_collective_stats()
+    prof = None
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        if args.lm_profile:
+            prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+    losses, stamps, stats0, step0 = [], [], {}, {}
+    t0 = time.perf_counter()
+    for i in range(args.lm_steps):
+        loss = loss_fn()
+        loss.backward()
+        for p in (lm.embed, lm.ln_f):  # partial on each process: summed over pp
+            p.grad = mesh.allreduce_sum(p.grad if p.grad is not None else torch.zeros_like(p),
+                                        axis=grp)
+        if i == 0:
+            lo, hi = grp.positions[0], grp.positions[-1] + 1
+            blob = {"grad:" + k: v.grad[lo:hi].float().cpu().numpy()
+                    for k, v in lm.stages.items()}
+            if rank == 0:
+                blob.update({"grad:embed": lm.embed.grad.cpu().numpy(),
+                             "grad:ln_f": lm.ln_f.grad.cpu().numpy()})
+            np.savez(os.path.join(args.out, "pp_lm_rank%d.npz" % rank), **blob)
+        pp_sgd(lm.leaves, 3e-2)
+        losses.append(loss.detach())
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        if i == 0:
+            stats0.update({op: dict(v) for op, v in mesh.collective_stats.items()})
+            step0.update(_k4_launches())
+            if prof is not None:
+                prof.start()
+        stamps.append(time.perf_counter())
+    if prof is not None:
+        prof.stop()
+    wall = time.perf_counter() - t0
+    n = len(losses)
+    base = {"calls": 0, "seconds": 0.0, "bytes": 0}
+    after = {op: {k: v[k] - stats0.get(op, base)[k] for k in base}
+             for op, v in mesh.collective_stats.items()}
+    per_step = lambda op, k: after.get(op, base)[k] / max(1, n - 1)  # noqa: E731
+    step_s = [b - a for a, b in zip(stamps, stamps[1:])]
+    out = {"dims": args.lm_dims, "dtype": args.lm_dtype, "micro": PP_MICRO,
+           "stages_held": grp.positions, "blocks_a_stage": lm.per,
+           "losses": [float(x) for x in losses], "wall_s": wall,
+           "launches": _k4_launches(), "launches_step0": step0,
+           "permute_ms_per_step": 1e3 * per_step("ppermute@pp", "seconds"),
+           "permute_bytes_per_step": per_step("ppermute@pp", "bytes"),
+           "permute_calls_per_step": per_step("ppermute@pp", "calls"),
+           "allreduce_ms_per_step": 1e3 * per_step("allreduce_sum@pp", "seconds"),
+           "allreduce_bytes_per_step": per_step("allreduce_sum@pp", "bytes"),
+           "step_ms_median": 1e3 * float(np.median(step_s)) if step_s else None}
+    if dev.type == "cuda":
+        out["peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    if prof is not None and step_s:
+        busy = _busy_ms(prof) / len(step_s)
+        wall_ms = 1e3 * sum(step_s) / len(step_s)
+        out["profile"] = {"steps": len(step_s), "wall_ms": wall_ms, "device_busy_ms": busy,
+                          "idle_share": max(0.0, 1.0 - busy / wall_ms)}
+    res["pp_lm"] = out
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", required=True)
@@ -677,6 +926,10 @@ def main(argv=None):
     p.add_argument("--lm-save", default="grads,params",
                    help="what rank 0 writes into lm_<leg>.npz: grads (the first step's), "
                         "params (the last step's), both, or none")
+    p.add_argument("--pp-problem", default="", help="the pipeline problems' .npz files, "
+                   "comma-separated (see the module docstring)")
+    p.add_argument("--pp-test", action="store_true",
+                   help="train the LM of --lm-dims as a pipeline over the processes")
     p.add_argument("--lm-profile", action="store_true",
                    help="profile the card over the steps after the first: busy ms a step "
                         "and the idle share")
@@ -713,7 +966,12 @@ def main(argv=None):
             {"kvstore": lambda: check_kvstore(mx, rank, size, res),
              "barrier": lambda: check_barrier(rank, res),
              "fused": lambda: check_fused(mx, dev, rank, size, res),
-             "axes": lambda: check_axes(mx, dev, rank, size, res)}[name]()
+             "axes": lambda: check_axes(mx, dev, rank, size, res),
+             "pp": lambda: check_pp(dev, rank, size, res)}[name]()
+        for path in filter(None, args.pp_problem.split(",")):
+            run_pp_problem(dev, path, args.out, rank, size, res)
+        if args.pp_test:
+            run_pp_test(dev, args, rank, size, res)
         for item in [i for i in args.step_test.split(",") if i]:
             mode, _, path = item.partition("=")
             run_step_test(mx, dev, mode, path, args.out, rank, size, res)
